@@ -3,29 +3,49 @@
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
-Drives the port (vision_transformer_detector_tpu_torch) through its main
-path, serving the ViT-B/16 384px detector over HTTP, and checks each
-hand-written kernel on that path against its plain PyTorch version.
-Phases, one output line each:
+Drives the port (vision_transformer_detector_tpu_torch) through its two
+main paths, serving the ViT-B/16 384px detector over HTTP and training
+the reference_608 detector, and checks each hand-written kernel on those
+paths against its plain PyTorch version. Phases, one output line each:
 
-  1. build   — compile every kernel of the path from csrc/ with nvcc;
-  2. kernel  — flash attention against reference_attention on the card,
-               in bf16 and fp32: the serving shape (B*H, N, K) =
-               (12, 576, 64), (96, 576, 64), and the ragged (8, 1296, 40)
-               that the wrapper pads to K = 64; times both at
-               (B*12, 576, 64) bf16 for B = 1 and 64;
-  3. model   — vit_b16_384 in fp32 on one seeded image: the kernel path
-               on the card against the plain path on the CPU;
-  4. serve   — vit_b16_384 in bf16 with seeded random weights behind
-               DetectionServer on port 0: POSTs seeded JPEGs, checks the
-               answers and GET /stats, and that the flash kernel ran 12
-               times (once per encoder block) per request.
+  1. build        — compile every kernel source of the paths from csrc/
+                    with nvcc, all at once; ptxas lines of each;
+  2. kernel       — flash attention forward against reference_attention
+                    on the card, in bf16 and fp32: the serving shape
+                    (B*H, N, K) = (12, 576, 64), (96, 576, 64), and the
+                    ragged (8, 1296, 40) that the wrapper pads to K = 64;
+                    times both at (B*12, 576, 64) bf16 for B = 1 and 64;
+  3. kernel_train — the forward's logsumexp against
+                    reference_attention_lse, the backward kernel's dq/dk/dv
+                    against reference_attention_backward, and the autograd
+                    Function's grads against autograd through
+                    reference_attention: (64, 1296, 40) fp32 tokens-major
+                    (reference_608 at batch 8), (12, 576, 64) bf16 and fp32
+                    heads-major, and a ragged N; times forward-with-lse,
+                    backward and forward+backward, kernel against plain, at
+                    the reference_608 shape;
+  4. model        — vit_b16_384 in fp32 on one seeded image: the kernel
+                    path on the card against the plain path on the CPU;
+  5. serve        — vit_b16_384 in bf16 with seeded random weights behind
+                    DetectionServer on port 0: POSTs seeded JPEGs, checks
+                    the answers and GET /stats, and that the flash kernel
+                    ran 12 times (once per encoder block) per request;
+  6. train        — reference_608 in fp32 at full width with seeded
+                    weights and synthetic data: (a) one step's loss and
+                    gradients on the card against the CPU plain path at
+                    batch 2; (b) 20 steps at batch 8 through Trainer.fit
+                    with an eval at the end: the loss falls, the metric is
+                    in [0, 1]; (c) the forward-with-lse and backward
+                    kernels launch 8 times per step and 0 times in eval;
+                    (d) save, restore, and the next step's loss is
+                    identical; (e) the median step time.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON
 line with each kernel's launches, error and times, and as the last line
 {"ok": true, "device": {...}}. Any failed check ends the run with a
 non-zero exit and no result line; so does a host without a CUDA device,
-or a directory without the port's sources. Imports no JAX.
+or a directory without the port's sources. A kernel that does not build
+or launch raises; nothing falls back to a plain version. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -34,10 +54,12 @@ import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 
 REQUESTS = 4            # HTTP requests in the serving phase
+TRAIN_STEPS = 20        # Trainer.fit epochs (one batch each) in `train`
 SEED = 0
 
 
@@ -67,14 +89,28 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _in_turns(runs: dict, iters: int) -> dict:
+    """Mean ms of each run, timed in turns (a, b, b, a) and averaged."""
+    names = list(runs)
+    order = names + names[::-1]
+    sums = {name: 0.0 for name in names}
+    for name in order:
+        sums[name] += _time_ms(runs[name], iters) / 2
+    return sums
+
+
 def phase_build():
     from vision_transformer_detector_tpu_torch.kernels import _build
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa)
 
     tic = time.monotonic()
-    _build.load_library("flash_attention_fwd.cu")
-    ptxas = [line.strip() for log in _build.BUILD_LOGS.values()
-             for line in log.splitlines()
-             if "registers" in line or "spill" in line]
+    _build.load_libraries([fa.FWD_SOURCE, fa.BWD_SOURCE])
+    ptxas = {source: [line.strip() for line in log.splitlines()
+                      if "registers" in line or "spill" in line]
+             for source, log in _build.BUILD_LOGS.items()}
+    _require(set(ptxas) == {fa.FWD_SOURCE, fa.BWD_SOURCE},
+             f"built {sorted(ptxas)}")
     _report("build", seconds=round(time.monotonic() - tic, 3),
             ptxas=ptxas)
 
@@ -121,19 +157,121 @@ def phase_kernel():
     times = {}
     for batch in (1, 64):
         q, key, v = qkv(batch, 12, 576, 64, torch.bfloat16)
-        runs = {"kernel_ms": lambda: flash_attention(q, key, v,
-                                                     layout="bhnk"),
-                "plain_ms": lambda: reference_attention(q, key, v,
-                                                        layout="bhnk")}
-        # In turns (plain, kernel, kernel, plain), averaged per side.
-        order = ("plain_ms", "kernel_ms", "kernel_ms", "plain_ms")
-        sums = {name: 0.0 for name in runs}
-        for name in order:
-            sums[name] += _time_ms(runs[name], 50) / 2
-        times[batch] = sums
+        times[batch] = _in_turns({
+            "plain_ms": lambda: reference_attention(q, key, v,
+                                                    layout="bhnk"),
+            "kernel_ms": lambda: flash_attention(q, key, v, layout="bhnk"),
+        }, 50)
     _report("kernel", max_abs_err=errors,
             times_bf16_576x64={f"B={b}": t for b, t in times.items()})
     return errors["12x576x64_bfloat16"], times[1]
+
+
+def _rel_err(got, ref) -> float:
+    """Max abs error relative to the reference's max abs value."""
+    ref = ref.float()
+    return ((got.float() - ref).abs().max()
+            / ref.abs().max().clamp(min=1e-30)).item()
+
+
+def phase_kernel_train():
+    import torch
+
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def inputs(layout, shape, dtype):
+        """Scaled q, k, v and a cotangent g; heads-major shapes are views
+        of tokens-major memory, as the model hands them over."""
+        k_dim = shape[-1]
+        if layout == "bhnk":
+            b, h, n, _ = shape
+            shape = (b, n, h, k_dim)
+        q, k, v, g = (torch.randn(shape, device="cuda", generator=gen)
+                      for _ in range(4))
+        q = q.mul(k_dim ** -0.5)
+        out = [t.to(dtype) for t in (q, k, v, g)]
+        return [t.transpose(1, 2) for t in out] if layout == "bhnk" else out
+
+    # lse: fp32 on both sides from the same inputs; summation order only.
+    # Grads, relative to the largest: fp32 2e-5 (summation order, and dq's
+    # atomic adds in run-dependent order); bf16 2e-2 (p and ds round to
+    # bf16 at other points), the JAX package's kernel contract.
+    grad_tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    lse_tol = 1e-4
+    cases = (("bnhk", (8, 1296, 8, 40), torch.float32),   # reference_608 b8
+             ("bhnk", (1, 12, 576, 64), torch.bfloat16),
+             ("bhnk", (1, 12, 576, 64), torch.float32),
+             ("bnhk", (3, 77, 4, 40), torch.bfloat16),    # ragged N
+             ("bnhk", (3, 77, 4, 40), torch.float32))
+    errors = {}
+    for layout, shape, dtype in cases:
+        name = (f"{shape[0] * (shape[2] if layout == 'bnhk' else shape[1])}"
+                f"x{shape[1] if layout == 'bnhk' else shape[2]}"
+                f"x{shape[3]}_{str(dtype).split('.')[-1]}_{layout}")
+        q, k, v, g = inputs(layout, shape, dtype)
+        out, lse = fa.flash_attention(q, k, v, layout=layout, with_lse=True)
+        delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                                layout).contiguous()
+        grads = fa._launch_backward(q, k, v, g, lse, delta, layout)
+        torch.cuda.synchronize()
+        lse_err = (lse - fa.reference_attention_lse(q, k, layout)
+                   ).abs().max().item()
+        _require(lse_err <= lse_tol, f"lse {name}: {lse_err} > {lse_tol}")
+        plain = fa.reference_attention_backward(q, k, v, g, layout)
+        abs_err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(grads, plain))
+        bwd_err = max(_rel_err(a, b) for a, b in zip(grads, plain))
+        _require(all(a.shape == b.shape and a.dtype == b.dtype
+                     for a, b in zip(grads, plain)), f"grad shapes {name}")
+        _require(bwd_err <= grad_tol[dtype],
+                 f"backward {name}: rel err {bwd_err} > {grad_tol[dtype]}")
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        before = fa.flash_attention.backward_launches
+        fn_out = fa.flash_attention(*leaves, layout=layout)
+        _require(fn_out.grad_fn is not None, "kernel route lost grad_fn")
+        fn_grads = torch.autograd.grad(fn_out, leaves, g)
+        _require(fa.flash_attention.backward_launches == before + 1,
+                 "the Function's backward did not launch the kernel")
+        auto = torch.autograd.grad(
+            fa.reference_attention(*leaves, layout=layout), leaves, g)
+        fn_err = max(_rel_err(a, b) for a, b in zip(fn_grads, auto))
+        _require(fn_err <= grad_tol[dtype],
+                 f"Function {name}: rel err {fn_err} > {grad_tol[dtype]}")
+        errors[name] = {"lse_abs": lse_err, "bwd_rel": bwd_err,
+                        "bwd_abs": abs_err, "function_vs_autograd_rel":
+                        fn_err}
+
+    # Times at the reference_608 batch-8 shape, kernel against plain.
+    q, k, v, g = inputs("bnhk", (8, 1296, 8, 40), torch.float32)
+    out, lse = fa.flash_attention(q, k, v, with_lse=True)
+    delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                            "bnhk").contiguous()
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def step(use_kernel):
+        o = fa.FlashAttentionFunction.apply(*leaves, "bnhk", use_kernel)
+        torch.autograd.grad(o, leaves, g)
+
+    times = {
+        "fwd_lse": _in_turns({
+            "plain_ms": lambda: (fa.reference_attention(q, k, v),
+                                 fa.reference_attention_lse(q, k)),
+            "kernel_ms": lambda: fa.flash_attention(q, k, v,
+                                                    with_lse=True)}, 10),
+        "bwd": _in_turns({
+            "plain_ms": lambda: fa.reference_attention_backward(q, k, v, g),
+            "kernel_ms": lambda: fa._launch_backward(q, k, v, g, lse, delta,
+                                                     "bnhk")}, 10),
+        "fwd_bwd": _in_turns({"plain_ms": lambda: step(False),
+                              "kernel_ms": lambda: step(True)}, 5),
+    }
+    _report("kernel_train", errors=errors,
+            times_fp32_64x1296x40=times)
+    ref = errors["64x1296x40_float32_bnhk"]
+    return ref, times
 
 
 def phase_model():
@@ -264,6 +402,186 @@ def phase_serve():
     return launches
 
 
+def phase_train():
+    import copy
+
+    import numpy as np
+    import torch
+
+    from vision_transformer_detector_tpu_torch import (
+        LossConfig, TrainConfig, get_config, synthetic_batches)
+    from vision_transformer_detector_tpu_torch.kernels.flash_attention import (
+        flash_attention)
+    from vision_transformer_detector_tpu_torch.metrics import (
+        DeviceMeanAveragePrecision, MeanAveragePrecision)
+    from vision_transformer_detector_tpu_torch.models.vit_detector import (
+        count_params, forward, init_params)
+    from vision_transformer_detector_tpu_torch.ops.loss import detection_loss
+    from vision_transformer_detector_tpu_torch.train.trainer import (
+        Trainer, train_config_view)
+
+    config = get_config("reference_608")
+    _require(config.train_use_flash_attention
+             and not config.use_flash_attention and config.dropout is None
+             and config.compute_dtype == "float32" and config.key_dim == 40
+             and config.num_patches == 1296, "reference_608 preset changed")
+    train_view = train_config_view(config)
+    loss_config = LossConfig()
+
+    # (a) one step's loss and grads, card against CPU, batch 2.
+    params = init_params(config, torch.Generator().manual_seed(SEED))
+    images, labels = next(synthetic_batches(config, 2, 1, seed=SEED))
+
+    def loss_and_grads(model, device):
+        named = dict(model.named_parameters())
+        logits = forward(model, torch.from_numpy(images).to(device),
+                         train_view)
+        loss = detection_loss(torch.from_numpy(labels).to(device), logits,
+                              config, loss_config)
+        grads = torch.autograd.grad(loss, list(named.values()))
+        return loss.item(), {n: g.cpu() for n, g in zip(named, grads)}
+
+    cpu_loss, cpu_grads = loss_and_grads(params, "cpu")
+    counts = (flash_attention.lse_launches,
+              flash_attention.backward_launches)
+    gpu_loss, gpu_grads = loss_and_grads(copy.deepcopy(params).to("cuda"),
+                                         "cuda")
+    _require((flash_attention.lse_launches - counts[0],
+              flash_attention.backward_launches - counts[1])
+             == (config.encoder_blocks,) * 2,
+             "one card step did not launch each kernel once per block")
+    # fp32 on both devices (TF32 off); sums run in other orders on the
+    # CPU and the card (and dq's atomics in run-dependent order) through
+    # 8 blocks. The attention key bias's gradient is zero in exact
+    # arithmetic (the softmax cancels it), so both sides hold rounding
+    # noise there: it is held to the largest gradient instead.
+    loss_tol, grad_tol = 1e-4, 2e-3
+    loss_err = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    _require(np.isfinite(gpu_loss) and loss_err <= loss_tol,
+             f"loss card {gpu_loss} vs CPU {cpu_loss}")
+    global_max = max(g.abs().max().item() for g in cpu_grads.values())
+    grad_errs = {}
+    for name, ref in cpu_grads.items():
+        got = gpu_grads[name]
+        _require(bool(torch.isfinite(got).all()), f"non-finite grad {name}")
+        if name.endswith("mha.key.bias"):
+            err = (got - ref).abs().max().item() / global_max
+        else:
+            err = _rel_err(got, ref)
+        grad_errs[name] = err
+        _require(err <= grad_tol, f"grad {name}: rel err {err} > {grad_tol}")
+    worst = max(grad_errs, key=grad_errs.get)
+    del params, cpu_grads, gpu_grads
+
+    # (b, c) 20 steps at batch 8 through Trainer.fit, eval at the end.
+    train_config = TrainConfig(learning_rate=8e-5, seed=SEED,
+                               epochs_warm_up=TRAIN_STEPS - 1,
+                               skip_epochs=TRAIN_STEPS)
+    trainer = Trainer(config, loss_config, train_config, device="cuda")
+    state = trainer.init_state()
+    data = list(synthetic_batches(config, 8, 1, seed=SEED + 1))
+    flash_attention.launches = 0
+    flash_attention.lse_launches = 0
+    flash_attention.backward_launches = 0
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    state = trainer.fit(state, data, epochs=TRAIN_STEPS, eval_data=data)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - tic
+    launches = {"fwd": flash_attention.launches,
+                "fwd_lse": flash_attention.lse_launches,
+                "bwd": flash_attention.backward_launches}
+    per_step = config.encoder_blocks * TRAIN_STEPS
+    _require(launches == {"fwd": 0, "fwd_lse": per_step, "bwd": per_step},
+             f"fit launched {launches}; expected {config.encoder_blocks} "
+             f"forward-with-lse and backward launches per step and none in "
+             f"eval (the matmul route)")
+    losses = trainer.loss_record
+    _require(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+             f"losses {losses}")
+    _require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    _require(len(trainer.ap_record) == 1
+             and 0.0 <= trainer.ap_record[0] <= 1.0,
+             f"eval AP {trainer.ap_record}")
+    # 20 steps from random weights score AP 0, so the device metric is
+    # also held to the NumPy oracle on predictions that score above 0:
+    # the batch's labels with random confidences, jittered boxes and some
+    # classes wrong.
+    labels_np = data[0][1]
+    preds_np, real = labels_np.copy(), labels_np[..., 0] > 0
+    rng = np.random.default_rng(SEED)
+    preds_np[real, 0] = rng.uniform(0.3, 1.0, real.sum())
+    preds_np[real, 2:4] += rng.uniform(-4, 4, (real.sum(), 2))
+    preds_np[real, 4:] *= rng.uniform(0.85, 1.15, (real.sum(), 2))
+    wrong = real & (rng.uniform(size=real.shape) < 0.3)
+    preds_np[wrong, 1] = (preds_np[wrong, 1] + 1) % config.num_classes
+    device_metric = DeviceMeanAveragePrecision(config, "cuda")
+    oracle = MeanAveragePrecision(config)
+    for metric in (device_metric, oracle):
+        metric.update_state(labels_np, preds_np,
+                            use_transform_predictions=False)
+    metric_ap = (device_metric.result(), float(oracle.result()))
+    # 1e-5: fp32 on the card, float64 sums in parts of the oracle.
+    _require(metric_ap[1] > 0.1 and abs(metric_ap[0] - metric_ap[1]) <= 1e-5,
+             f"device metric AP {metric_ap[0]} vs NumPy oracle {metric_ap[1]}")
+
+    # (d) save and restore: parameters, step and every Adam moment come
+    # back bit for bit, and the next step's loss is identical (the loss
+    # is read before the update, so it sees the parameters only; the
+    # moments are compared directly, since dq's atomic adds make the
+    # update itself differ in its last bits from run to run).
+    images8, labels8 = (torch.from_numpy(a).to("cuda") for a in data[0])
+    saved = {"params": {n: t.clone() for n, t in
+                        state["params"].state_dict().items()},
+             "count": state["opt_state"]["count"],
+             **{m: {n: t.clone() for n, t in state["opt_state"][m].items()}
+                for m in ("mu", "nu")}}
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer.checkpoint_dir = tmp
+        trainer.save(state, name="smoke")
+        _, loss_a = trainer.train_step(state, images8, labels8)
+        state = trainer.restore(state, name="smoke")
+    _require(state["step"] == TRAIN_STEPS
+             and state["opt_state"]["count"] == saved["count"],
+             f"step {state['step']}, count {state['opt_state']['count']}")
+    restored = {"params": state["params"].state_dict(),
+                "mu": state["opt_state"]["mu"], "nu": state["opt_state"]["nu"]}
+    for part in ("params", "mu", "nu"):
+        _require(restored[part].keys() == saved[part].keys()
+                 and all(torch.equal(restored[part][n], t)
+                         for n, t in saved[part].items()),
+                 f"restored {part} differ from the saved ones")
+    del saved, restored
+    _, loss_b = trainer.train_step(state, images8, labels8)
+    _require(loss_a.item() == loss_b.item(),
+             f"loss after restore {loss_b.item()} != {loss_a.item()}")
+
+    # (e) the median step time at batch 8.
+    step_ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        trainer.train_step(state, images8, labels8)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - tic) * 1e3)
+    _report("train", preset="reference_608", dtype="float32",
+            params=count_params(state["params"]),
+            step_vs_cpu={"batch": 2, "loss_card": gpu_loss,
+                         "loss_cpu": cpu_loss, "loss_rel_err": loss_err,
+                         "loss_tol": loss_tol, "grad_rel_err_max":
+                         grad_errs[worst], "grad_worst": worst,
+                         "grad_tol": grad_tol},
+            fit={"batch": 8, "steps": TRAIN_STEPS, "seconds": fit_s,
+                 "loss_first": losses[0], "loss_last": losses[-1],
+                 "eval_ap": trainer.ap_record[0], "launches": launches},
+            metric_ap_card_vs_oracle=metric_ap,
+            restore_state_and_loss_identical=True,
+            step_ms_median=float(np.median(step_ms)),
+            step_ms_min=min(step_ms),
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -277,8 +595,10 @@ def main() -> int:
 
     phase_build()
     err, times = phase_kernel()
+    train_errors, train_times = phase_kernel_train()
     phase_model()
     launches = phase_serve()
+    train_launches = phase_train()
     _require("jax" not in sys.modules, "JAX was imported")
 
     smi = subprocess.run(
@@ -286,17 +606,35 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    csrc = "vision_transformer_detector_tpu_torch/csrc/"
+    tpu = "vision_transformer_detector_tpu/kernels/flash_attention.py"
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
-        "source": "vision_transformer_detector_tpu_torch/csrc/"
-                  "flash_attention_fwd.cu",
-        "replaces": "vision_transformer_detector_tpu/kernels/"
-                    "flash_attention.py:64",
+        "source": csrc + "flash_attention_fwd.cu",
+        "replaces": tpu + ":64",
         "launches": launches,
         "max_abs_err": err,
         "ms": times["kernel_ms"],
         "plain_ms": times["plain_ms"],
+    }, {
+        "name": "flash_attention_fwd_lse",
+        "route": "cuda",
+        "source": csrc + "flash_attention_fwd.cu",
+        "replaces": tpu + ":653",
+        "launches": train_launches["fwd_lse"],
+        "max_abs_err": train_errors["lse_abs"],
+        "ms": train_times["fwd_lse"]["kernel_ms"],
+        "plain_ms": train_times["fwd_lse"]["plain_ms"],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": csrc + "flash_attention_bwd.cu",
+        "replaces": tpu + ":151",
+        "launches": train_launches["bwd"],
+        "max_abs_err": train_errors["bwd_abs"],
+        "ms": train_times["bwd"]["kernel_ms"],
+        "plain_ms": train_times["bwd"]["plain_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,10 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from vision_transformer_detector_tpu.config import DetectorConfig
+from vision_transformer_detector_tpu_torch import (
+    DetectorConfig, LossConfig, synthetic_batches)
 from vision_transformer_detector_tpu_torch.kernels import (
     flash_attention as fa)
+from vision_transformer_detector_tpu_torch.metrics import (
+    DeviceMeanAveragePrecision, MeanAveragePrecision)
 from vision_transformer_detector_tpu_torch.models import vit_detector as model
+from vision_transformer_detector_tpu_torch.ops.loss import detection_loss
 
 pytestmark = pytest.mark.cuda
 
@@ -75,8 +79,11 @@ def test_kernel_reads_transposed_views(gen):
 
 def test_kernel_refuses_what_it_does_not_take(gen):
     q, k, v = _qkv(gen, (1, 2, 64, 64), torch.float32, 0.125)
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention(q, k, v, layout="bhnk", with_lse=True)
+    lse = torch.zeros(1, 2, 64, device="cuda")
+    with pytest.raises(ValueError, match="lse must be"):
+        fa._launch_backward(q, k, v, q, lse[:, :1], lse, "bhnk")
+    with pytest.raises(ValueError, match="delta must be"):
+        fa._launch_backward(q, k, v, q, lse, lse.double(), "bhnk")
     with pytest.raises(NotImplementedError):
         fa.flash_attention(q, k, v, layout="bhnk", dropout_rate=0.1,
                            dropout_seed=1)
@@ -130,3 +137,122 @@ def test_model_on_card_matches_cpu(gen, flash, key_dim):
     launched = config.encoder_blocks if flash else 0
     assert fa.flash_attention.launches == before + launched
     torch.testing.assert_close(gpu, cpu, atol=1e-4, rtol=0)
+
+
+# Backward: grads relative to the largest; fp32 summation order (and dq's
+# atomic adds in run-dependent order), bf16 rounding of p and ds.
+GRAD_TOLS = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+
+
+def _rel(got, ref):
+    ref = ref.float()
+    return ((got.float() - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.parametrize("layout,shape,dtype", [
+    ("bnhk", (8, 1296, 8, 40), torch.float32),   # reference_608, batch 8
+    ("bhnk", (1, 12, 576, 64), torch.bfloat16),
+    ("bhnk", (1, 12, 576, 64), torch.float32),
+    ("bnhk", (3, 77, 4, 40), torch.bfloat16),    # ragged N
+    ("bnhk", (2, 200, 2, 8), torch.float32),
+])
+def test_backward_kernel_matches_plain_and_autograd(gen, layout, shape,
+                                                    dtype):
+    q, k, v = _qkv(gen, shape, dtype, shape[-1] ** -0.5)
+    g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    out, lse = fa.flash_attention(q, k, v, layout=layout, with_lse=True)
+    torch.testing.assert_close(lse, fa.reference_attention_lse(q, k, layout),
+                               atol=1e-4, rtol=0)
+    delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                            layout).contiguous()
+    before = fa.flash_attention.backward_launches
+    grads = fa._launch_backward(q, k, v, g, lse, delta, layout)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.backward_launches == before + 1
+    for got, ref in zip(grads, fa.reference_attention_backward(q, k, v, g,
+                                                               layout)):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert _rel(got, ref) <= GRAD_TOLS[dtype]
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    fn = torch.autograd.grad(fa.flash_attention(*leaves, layout=layout),
+                             leaves, g)
+    auto = torch.autograd.grad(fa.reference_attention(*leaves, layout=layout),
+                               leaves, g)
+    for got, ref in zip(fn, auto):
+        assert _rel(got, ref) <= GRAD_TOLS[dtype]
+
+
+def test_requires_grad_inputs_get_a_grad_fn_on_the_card(gen):
+    """The kernel route is differentiable: forward with lse and the
+    backward kernel launch once each; without grad, the lse-free forward
+    runs alone."""
+    q, k, v = (t.requires_grad_() for t in _qkv(gen, (2, 50, 3, 40),
+                                                torch.float32, 40 ** -0.5))
+    counts = (fa.flash_attention.launches, fa.flash_attention.lse_launches,
+              fa.flash_attention.backward_launches)
+    out = fa.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert all(t.grad is not None and t.grad.abs().max() > 0
+               for t in (q, k, v))
+    with torch.inference_mode():
+        assert fa.flash_attention(q, k, v).grad_fn is None
+    assert (fa.flash_attention.launches, fa.flash_attention.lse_launches,
+            fa.flash_attention.backward_launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 1)
+
+
+def test_train_grads_on_card_match_cpu(gen):
+    """Loss and every parameter's gradient of a small flash-route model,
+    the card (kernels) against the CPU (plain versions)."""
+    config = DetectorConfig(
+        image_size=(96, 96), patch_size=16, embedding_dim=32, num_heads=2,
+        key_dim=40, encoder_blocks=2, encoder_mlp_layers=2,
+        head_last_units=32, head_layers=2, use_flash_attention=True)
+    params = model.init_params(config, torch.Generator().manual_seed(0))
+    images, labels = next(synthetic_batches(config, 2, 1, seed=0))
+
+    def loss_and_grads(m, device):
+        named = dict(m.named_parameters())
+        logits = model.forward(m, torch.from_numpy(images).to(device),
+                               config, train=True)
+        loss = detection_loss(torch.from_numpy(labels).to(device), logits,
+                              config, LossConfig())
+        return loss.item(), [g.cpu() for g in torch.autograd.grad(
+            loss, list(named.values()))], list(named)
+
+    cpu_loss, cpu_grads, names = loss_and_grads(params, "cpu")
+    gpu_loss, gpu_grads, _ = loss_and_grads(copy.deepcopy(params).to("cuda"),
+                                            "cuda")
+    assert gpu_loss == pytest.approx(cpu_loss, rel=1e-5)
+    top = max(g.abs().max().item() for g in cpu_grads)
+    for name, got, ref in zip(names, gpu_grads, cpu_grads):
+        # The key bias's gradient is zero in exact arithmetic: noise on
+        # both sides, held to the largest gradient.
+        scale = top if name.endswith("mha.key.bias") else ref.abs().max()
+        assert (got - ref).abs().max().item() <= 1e-3 * float(scale), name
+
+
+def test_device_metric_on_card_matches_numpy_oracle(gen):
+    """The device mAP metric on CUDA against the NumPy oracle, on decoded
+    predictions that score well above 0: seeded labels with random
+    confidences, jittered boxes and some classes wrong. Tolerance 1e-5
+    (fp32 on the card, float64 sums in parts of the oracle)."""
+    config = DetectorConfig()
+    rng = np.random.default_rng(0)
+    metric = DeviceMeanAveragePrecision(config, "cuda")
+    oracle = MeanAveragePrecision(config)
+    for _, labels in synthetic_batches(config, 4, 3, seed=1):
+        preds, real = labels.copy(), labels[..., 0] > 0
+        preds[real, 0] = rng.uniform(0.3, 1.0, real.sum())
+        preds[real, 2:4] += rng.uniform(-4, 4, (real.sum(), 2))
+        preds[real, 4:] *= rng.uniform(0.85, 1.15, (real.sum(), 2))
+        wrong = real & (rng.uniform(size=real.shape) < 0.3)
+        preds[wrong, 1] = (preds[wrong, 1] + 1) % config.num_classes
+        for m in (metric, oracle):
+            m.update_state(labels, preds, use_transform_predictions=False)
+    assert metric.state.latest_positive_bboxes.is_cuda
+    expected = float(oracle.result())
+    assert expected > 0.1
+    assert metric.result() == pytest.approx(expected, abs=1e-5)

@@ -1,25 +1,44 @@
-"""Command-line entry point of the PyTorch port: ``serve`` only, for now.
+"""Command-line entry point of the PyTorch port: ``serve`` and ``train``.
 
   python -m vision_transformer_detector_tpu_torch.cli serve \
       --preset vit_b16_384 --bf16 [--params-npz params.npz] [--device cuda]
+  python -m vision_transformer_detector_tpu_torch.cli train \
+      --train-images DIR --train-annotations ann.json \
+      [--val-images DIR --val-annotations ann.json] [--preset reference_608]
 
-Takes the JAX CLI's model flags that serving reads and its serve flags;
-weights come from a ``save_params_npz`` file or, without one, from a
-seeded initialisation. The HTTP loop is the JAX CLI's own ``_serve``
-(which imports no JAX). ``--int8`` and ``--from-export`` are not ported
-yet and are refused.
+Each subcommand takes the JAX CLI's flags that this port supports and
+refuses the others with SystemExit. ``serve``: weights come from a
+``save_params_npz`` file or, without one, from a seeded initialisation;
+the HTTP loop is the JAX CLI's own ``_serve`` (which imports no JAX);
+``--int8`` and ``--from-export`` are refused. ``train``: the datasets are
+built from the shared host pipeline (data/pipeline.py and
+data/annotations.py, which import no JAX) and ship uint8; the JAX CLI's
+mesh, ``--distributed``, ``--resumable``, ``--fused-ffn`` and
+``--epochs-per-call`` flags are not declared, so argparse refuses them.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 
-from vision_transformer_detector_tpu.config import DetectorConfig, get_config
+from vision_transformer_detector_tpu.config import (
+    DetectorConfig, LossConfig, TrainConfig, get_config)
+
+
+def _positive_int(value: str) -> int:
+    n = int(value)
+    if n <= 0:
+        raise argparse.ArgumentTypeError(f"must be a positive integer, "
+                                         f"got {value}")
+    return n
 
 
 def _build_config(args) -> DetectorConfig:
     config = get_config(args.preset)
     overrides = {}
+    if getattr(args, "image_size", None):
+        overrides["image_size"] = (args.image_size, args.image_size)
     if args.bf16:
         overrides["compute_dtype"] = "bfloat16"
     if args.flash_attention and args.no_flash_attention:
@@ -28,7 +47,9 @@ def _build_config(args) -> DetectorConfig:
     if args.flash_attention:
         overrides["use_flash_attention"] = True
     if args.no_flash_attention:
+        # Everywhere, as in the JAX CLI: the train-only override too.
         overrides["use_flash_attention"] = False
+        overrides["train_use_flash_attention"] = False
     return config.replace(**overrides) if overrides else config
 
 
@@ -56,6 +77,115 @@ def cmd_serve(args) -> None:
                                iou_threshold=args.nms_iou_threshold,
                                score_threshold=args.score_threshold)
     _serve(args, service)
+
+
+def _build_dataset(args, config, images, annotations, shuffle=False):
+    """The shared host pipeline's dataset, uint8 images (the train and
+    eval steps normalise on the device)."""
+    from vision_transformer_detector_tpu.data.annotations import (
+        load_annotations_dict)
+    from vision_transformer_detector_tpu.data.pipeline import (
+        CocoDetectionDataset, list_image_paths)
+
+    start, end = args.images_range
+    paths = list_image_paths(images,
+                             images_range=(start, end if end >= 0 else None),
+                             shuffle=shuffle, seed=args.seed)
+    return CocoDetectionDataset(
+        paths, load_annotations_dict(annotations), config,
+        batch_size=args.batch_size, drop_remainder=True,
+        on_corrupt=args.on_corrupt, normalize=False,
+        fast_decode=args.fast_decode, pool=args.decode_pool)
+
+
+def cmd_train(args) -> None:
+    from .train.trainer import Trainer
+    from .utils.checkpoint import load_params_npz
+
+    config = _build_config(args)
+    moments = "bfloat16" if args.bf16_moments else None
+    train_config = TrainConfig(
+        learning_rate=args.learning_rate, batch_size=args.batch_size,
+        epochs=args.epochs, epochs_warm_up=args.epochs_warm_up,
+        skip_epochs=args.skip_epochs, seed=args.seed,
+        adam_mu_dtype=moments, adam_nu_dtype=moments)
+    train_data = _build_dataset(args, config, args.train_images,
+                                args.train_annotations, shuffle=args.shuffle)
+    eval_data = None
+    if args.val_images and args.val_annotations:
+        eval_data = _build_dataset(args, config, args.val_images,
+                                   args.val_annotations)
+    trainer = Trainer(config, LossConfig(), train_config,
+                      steps_per_epoch=max(1, len(train_data)),
+                      checkpoint_dir=args.checkpoint_dir,
+                      keep_checkpoints=args.keep_checkpoints,
+                      metrics_path=args.metrics, device=args.device)
+    state = trainer.init_state()
+    if args.params_npz:
+        state["params"].load_state_dict(
+            load_params_npz(args.params_npz, config).state_dict())
+    if args.restore == "latest":
+        state = trainer.restore_latest(state)
+    elif args.restore:
+        state = trainer.restore(state, args.restore)
+    state = trainer.fit(state, train_data, epochs=args.epochs,
+                        eval_data=eval_data)
+    trainer.save(state, name="final")
+    trainer.metrics.close()
+    print(json.dumps({"best_ap": trainer.best_ap,
+                      "final_loss": trainer.loss_record[-1]
+                      if trainer.loss_record else None}))
+
+
+def _add_train_parser(sub) -> None:
+    """The JAX CLI's train flags (vision_transformer_detector_tpu/cli.py)
+    that this port supports; argparse refuses the others."""
+    p = sub.add_parser("train", help="train a detector")
+    p.add_argument("--preset", default="reference_608",
+                   help="config preset name (see config.PRESETS)")
+    p.add_argument("--image-size", type=_positive_int, default=None)
+    p.add_argument("--batch-size", type=_positive_int, default=8)
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute dtype")
+    p.add_argument("--flash-attention", action="store_true")
+    p.add_argument("--no-flash-attention", action="store_true",
+                   help="force the plain attention path everywhere, the "
+                        "train-only flash override included")
+    p.add_argument("--checkpoint-dir", default="checkpoints")
+    p.add_argument("--restore", default=None,
+                   help="checkpoint name to restore (e.g. 'ongoing'), or "
+                        "'latest' for the newest step-stamped checkpoint")
+    p.add_argument("--keep-checkpoints", type=int, default=None,
+                   help="also write step-stamped checkpoints at each "
+                        "periodic save, pruned to the newest K")
+    p.add_argument("--params-npz", default=None,
+                   help="start from a save_params_npz .npz file")
+    p.add_argument("--images-range", type=int, nargs=2, default=(0, -1),
+                   metavar=("START", "END"))
+    p.add_argument("--on-corrupt", choices=("raise", "skip"),
+                   default="raise",
+                   help="policy for undecodable image files")
+    p.add_argument("--fast-decode", action="store_true",
+                   help="DCT-domain reduced-scale JPEG decode")
+    p.add_argument("--decode-pool", choices=("thread", "process"),
+                   default="thread")
+    p.add_argument("--train-images", required=True)
+    p.add_argument("--train-annotations", required=True)
+    p.add_argument("--shuffle", action="store_true")
+    p.add_argument("--val-images", default=None)
+    p.add_argument("--val-annotations", default=None)
+    p.add_argument("--epochs", type=int, default=12_502)
+    p.add_argument("--learning-rate", type=float, default=8e-5)
+    p.add_argument("--epochs-warm-up", type=int, default=500)
+    p.add_argument("--skip-epochs", type=int, default=500)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--metrics", default="metrics.jsonl")
+    p.add_argument("--bf16-moments", action="store_true",
+                   help="store Adam moment state in bf16 (fp32 arithmetic, "
+                        "stochastically rounded nu)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cuda' fails when no GPU is visible")
+    p.set_defaults(func=cmd_train)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -104,6 +234,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--from-export", default=None, metavar="DIR",
                    help="not ported yet (refused)")
     p.set_defaults(func=cmd_serve)
+
+    _add_train_parser(sub)
     return parser
 
 

@@ -8,6 +8,10 @@
 // reach device memory. The caller applies 1/sqrt(key_dim); the kernel
 // applies no scale. As in the Pallas kernel, the normaliser sums the fp32
 // probabilities and P@V uses the probabilities rounded to the input type.
+// With an lse pointer it also writes each query row's fp32 logsumexp,
+// m + log(l), into a (batch, heads, N) array: the residual the backward
+// kernel (flash_attention_bwd.cu) reads, as the Pallas kernel's
+// `with_lse` variant writes it (without the TPU's 8-sublane replication).
 //
 // What bounds it: at the ViT-B/16 384px serving shape (N = 576, K = 64)
 // one (batch, head) pair is 576 x 576 x 64 x 4 = 85 MFLOP on 295 KB of
@@ -80,9 +84,9 @@ __device__ __forceinline__ float round_to_input(float x) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int heads,
-                 int seq_len, Strides sq, Strides sk, Strides sv,
-                 Strides so) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int heads, int seq_len, Strides sq,
+                 Strides sk, Strides sv, Strides so) {
   __shared__ __align__(16) float k_tile[kBlockKV][kHeadDim];
   __shared__ __align__(16) float v_tile[kBlockKV][kHeadDim];
 
@@ -180,18 +184,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int d = 0; d < kDimsPerThread; ++d) {
       o_row[d] = from_float<T>(acc[d] / l);
     }
+    if (lse != nullptr && dim0 == 0) {
+      lse[(static_cast<long long>(bh) * seq_len) + row] = m + logf(l);
+    }
   }
 }
 
 template <typename T>
-void launch(const void* q, const void* k, const void* v, void* o, int batch,
-            int heads, int seq_len, Strides sq, Strides sk, Strides sv,
-            Strides so, cudaStream_t stream) {
+void launch(const void* q, const void* k, const void* v, void* o,
+            float* lse, int batch, int heads, int seq_len, Strides sq,
+            Strides sk, Strides sv, Strides so, cudaStream_t stream) {
   const dim3 grid(batch * heads, (seq_len + kBlockQ - 1) / kBlockQ);
   flash_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), heads, seq_len, sq, sk,
-      sv, so);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, heads, seq_len, sq,
+      sk, sv, so);
 }
 
 }  // namespace
@@ -200,23 +207,25 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, for the
 // batch, head and token axes; the head dim (64) must be contiguous.
+// lse: nullptr, or a contiguous fp32 (batch, heads, seq_len) array.
 // Returns cudaGetLastError() after the launch (0 on success).
 int vtd_flash_attention_fwd(const void* q, const void* k, const void* v,
-                            void* o, int dtype, int batch, int heads,
-                            int seq_len, long long q_sb, long long q_sh,
-                            long long q_sn, long long k_sb, long long k_sh,
-                            long long k_sn, long long v_sb, long long v_sh,
-                            long long v_sn, long long o_sb, long long o_sh,
-                            long long o_sn, void* stream) {
+                            void* o, void* lse, int dtype, int batch,
+                            int heads, int seq_len, long long q_sb,
+                            long long q_sh, long long q_sn, long long k_sb,
+                            long long k_sh, long long k_sn, long long v_sb,
+                            long long v_sh, long long v_sn, long long o_sb,
+                            long long o_sh, long long o_sn, void* stream) {
   if (batch <= 0 || heads <= 0 || seq_len <= 0) return cudaErrorInvalidValue;
   const Strides sq{q_sb, q_sh, q_sn}, sk{k_sb, k_sh, k_sn},
       sv{v_sb, v_sh, v_sn}, so{o_sb, o_sh, o_sn};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    launch<float>(q, k, v, o, batch, heads, seq_len, sq, sk, sv, so, s);
+    launch<float>(q, k, v, o, static_cast<float*>(lse), batch, heads, seq_len,
+                  sq, sk, sv, so, s);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(q, k, v, o, batch, heads, seq_len, sq, sk, sv, so,
-                          s);
+    launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), batch, heads,
+                          seq_len, sq, sk, sv, so, s);
   } else {
     return cudaErrorInvalidValue;
   }

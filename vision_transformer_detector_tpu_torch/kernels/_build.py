@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -27,7 +28,8 @@ BUILD_DIR = os.path.join(PACKAGE_DIR, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()          # guards the dicts below
+_source_locks: dict = {}          # one lock per source: builds overlap
 _libraries: dict = {}
 BUILD_LOGS: dict = {}
 
@@ -57,6 +59,8 @@ def _digest(source: str) -> str:
 def load_library(source_name: str) -> ctypes.CDLL:
     """Compile ``csrc/<source_name>`` once and return the loaded library."""
     with _lock:
+        source_lock = _source_locks.setdefault(source_name, threading.Lock())
+    with source_lock:
         lib = _libraries.get(source_name)
         if lib is not None:
             return lib
@@ -76,7 +80,16 @@ def load_library(source_name: str) -> ctypes.CDLL:
                     f"nvcc failed on {source} (exit {proc.returncode}):\n"
                     f"{proc.stdout}{proc.stderr}")
             os.replace(tmp, path)
-            BUILD_LOGS[source_name] = proc.stdout + proc.stderr
+            with _lock:
+                BUILD_LOGS[source_name] = proc.stdout + proc.stderr
         lib = ctypes.CDLL(path)
-        _libraries[source_name] = lib
+        with _lock:
+            _libraries[source_name] = lib
         return lib
+
+
+def load_libraries(source_names) -> list:
+    """``load_library`` for each source, all nvcc runs started together."""
+    names = list(source_names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(load_library, names))

@@ -1,7 +1,7 @@
 """ViT detector forward in PyTorch: patchify -> encoder -> detection head.
 
 Counterpart of vision_transformer_detector_tpu/models/vit_detector.py,
-for inference. Parameters live in ``nn.Module``s whose attribute names
+for inference and training. Parameters live in ``nn.Module``s whose attribute names
 and tensor layouts are the JAX package's: dense kernels are ``(in, out)``,
 attention q/k/v kernels ``(D, H, K)``, the attention output kernel
 ``(H, K, D)`` and the position embedding ``(P, 1)``. A state-dict name is
@@ -18,9 +18,11 @@ before the fp32 bias add, where XLA rounds once after it. In fp32 the two
 agree to summation order.
 
 Attention routes through kernels/flash_attention.py when
-``config.use_flash_attention`` is set (the Hopper kernel for CUDA
-tensors), and through an explicit matmul + softmax otherwise — the JAX
-einsum path.
+``config.use_flash_attention`` is set (the Hopper kernels for CUDA
+tensors; differentiable, with a backward kernel), and through an
+explicit matmul + softmax otherwise — the JAX einsum path. Both routes
+train; the trainer applies ``train_use_flash_attention`` to the config
+it trains with, so eval keeps the preset's route.
 
 Not ported yet, and rejected with NotImplementedError rather than run
 differently: windowed and ring attention, the multi-scale head, the fused

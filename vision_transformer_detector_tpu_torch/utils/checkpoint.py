@@ -1,4 +1,5 @@
-"""Weight bridge between the JAX package's .npz export and the port.
+"""Weight bridge between the JAX package's .npz export and the port, and
+the port's train-state checkpoints.
 
 The JAX package's ``save_params_npz`` (vision_transformer_detector_tpu/
 utils/checkpoint.py) writes one array per parameter under its
@@ -7,16 +8,24 @@ modules keep the JAX names and layouts (dense ``(in, out)``, q/k/v
 ``(D, H, K)``, attention out ``(H, K, D)``, position embedding ``(P, 1)``),
 so a name maps to a state-dict key by ``/`` -> ``.`` and an array loads
 as it is, with no transpose.
+
+Train-state checkpoints take the place of the JAX package's orbax trees:
+one ``<name>.pt`` file per checkpoint, written by ``torch.save`` under a
+private name and renamed into place, holding ``{params, opt_state, step,
+best_ap, config}``. Step-stamped ones (``step_0000000042.pt``) are listed
+and pruned like the JAX package's step directories.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from vision_transformer_detector_tpu.config import DetectorConfig
+from vision_transformer_detector_tpu.config import (
+    DetectorConfig, LossConfig, TrainConfig, configs_to_dict)
 
 from ..models.vit_detector import ViTDetector
 
@@ -68,3 +77,75 @@ def load_params_npz(path: str, config: DetectorConfig) -> ViTDetector:
     with np.load(path) as data:
         return params_from_numpy({name: data[name] for name in data.files},
                                  config)
+
+
+CHECKPOINT_SUFFIX = ".pt"
+_STEP_PREFIX = "step_"
+
+
+def checkpoint_path(directory: str, name: str) -> str:
+    return os.path.join(directory, name + CHECKPOINT_SUFFIX)
+
+
+def save_train_state(path: str, state: Dict, best_ap: float,
+                     config: DetectorConfig,
+                     loss_config: Optional[LossConfig] = None,
+                     train_config: Optional[TrainConfig] = None) -> None:
+    """Write ``{params, opt_state, step, best_ap, config}`` to ``path``
+    atomically: a crash mid-write leaves the previous file intact."""
+    payload = {
+        "params": {k: v.detach()
+                   for k, v in state["params"].state_dict().items()},
+        "opt_state": state["opt_state"],
+        "step": int(state["step"]),
+        "best_ap": float(best_ap),
+        "config": configs_to_dict(config, loss_config, train_config),
+    }
+    tmp = f"{path}.tmp-{os.getpid()}"
+    try:
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def load_train_state(path: str, device) -> Dict:
+    """The payload of ``save_train_state``, tensors on ``device``. Only
+    tensors and plain containers are unpickled (``weights_only``)."""
+    return torch.load(path, map_location=device, weights_only=True)
+
+
+def step_checkpoint_name(step: int) -> str:
+    """Name of a step-stamped checkpoint (sortable)."""
+    return f"{_STEP_PREFIX}{int(step):010d}"
+
+
+def list_step_checkpoints(directory: str) -> List[Tuple[int, str]]:
+    """[(step, path)] of step-stamped checkpoints, ascending by step."""
+    if not os.path.isdir(directory):
+        return []
+    out = []
+    for entry in os.listdir(directory):
+        stem, suffix = os.path.splitext(entry)
+        if not stem.startswith(_STEP_PREFIX) or suffix != CHECKPOINT_SUFFIX:
+            continue
+        try:
+            step = int(stem[len(_STEP_PREFIX):])
+        except ValueError:
+            continue
+        out.append((step, os.path.join(directory, entry)))
+    return sorted(out)
+
+
+def prune_checkpoints(directory: str, keep: int) -> List[str]:
+    """Delete all but the newest ``keep`` step-stamped checkpoints; named
+    ones (``highest_ap``, ``ongoing``, ``final``) are never touched.
+    Returns the removed paths."""
+    if keep < 0:
+        raise ValueError(f"keep must be >= 0, got {keep}")
+    entries = list_step_checkpoints(directory)
+    doomed = entries[:-keep] if keep else entries
+    for _, path in doomed:
+        os.remove(path)
+    return [path for _, path in doomed]
