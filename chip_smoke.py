@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
-Drives the port (vision_transformer_detector_tpu_torch) through its two
-main paths, serving the ViT-B/16 384px detector over HTTP and training
-the reference_608 detector, and checks each hand-written kernel on those
-paths against its plain PyTorch version. Phases, one output line each:
+Drives the port (vision_transformer_detector_tpu_torch) through its main
+paths, serving the ViT-B/16 384px detector over HTTP (bf16, int8 with the
+fused LayerNorm, and the fused dense+mish with the fused LayerNorm) and
+training the reference_608 detector, and checks each hand-written kernel
+on those paths against its plain PyTorch version. Phases, one output line
+each:
 
   1. build        — compile every kernel source of the paths from csrc/
                     with nvcc, all at once; ptxas lines of each;
@@ -14,7 +16,8 @@ paths against its plain PyTorch version. Phases, one output line each:
                     on the card, in bf16 and fp32: the serving shape
                     (B*H, N, K) = (12, 576, 64), (96, 576, 64), and the
                     ragged (8, 1296, 40) that the wrapper pads to K = 64;
-                    times both at (B*12, 576, 64) bf16 for B = 1 and 64;
+                    times both at (B*12, 576, 64) bf16 for B = 1 and 64,
+                    beside one scaled_dot_product_attention call;
   3. kernel_train — the forward's logsumexp against
                     reference_attention_lse, the backward kernel's dq/dk/dv
                     against reference_attention_backward, and the autograd
@@ -23,14 +26,32 @@ paths against its plain PyTorch version. Phases, one output line each:
                     (reference_608 at batch 8), (12, 576, 64) bf16 and fp32
                     heads-major, and a ragged N; times forward-with-lse,
                     backward and forward+backward, kernel against plain, at
-                    the reference_608 shape;
-  4. model        — vit_b16_384 in fp32 on one seeded image: the kernel
+                    the reference_608 shape, beside scaled_dot_product_
+                    attention forward and backward;
+  4. kernel_serve — the int8 dense kernel (both routes), the LayerNorm
+                    kernel and the dense+mish kernel against their plain
+                    versions at the vit_b16_384 shapes for batch 1 and 32,
+                    with ragged edges; times in turns with the plain
+                    version and, for the LayerNorm, F.layer_norm;
+  5. model        — vit_b16_384 in fp32 on one seeded image: the kernel
                     path on the card against the plain path on the CPU;
-  5. serve        — vit_b16_384 in bf16 with seeded random weights behind
+  6. model_serve  — vit_b16_384 (bf16) on one seeded image, card against
+                    the CPU plain path from identical weights: (a) int8
+                    with the fused LayerNorm, (b) the fused dense+mish
+                    with the fused LayerNorm;
+  7. serve        — vit_b16_384 in bf16 with seeded random weights behind
                     DetectionServer on port 0: POSTs seeded JPEGs, checks
                     the answers and GET /stats, and that the flash kernel
                     ran 12 times (once per encoder block) per request;
-  6. train        — reference_608 in fp32 at full width with seeded
+  8. serve_int8   — the `serve --int8` service with the fused LayerNorm
+                    behind DetectionServer: per request 30 fused int8
+                    dense, 48 int8_dense-route, 24 LayerNorm and 12 flash
+                    launches; batch-1 and batch-32 device-path times
+                    beside the bf16 service's;
+  9. serve_fused_ffn — the `--fused-ffn` service with the fused
+                    LayerNorm, device path: per call 27 dense+mish, 24
+                    LayerNorm and 12 flash launches; the same two times;
+ 10. train        — reference_608 in fp32 at full width with seeded
                     weights and synthetic data: (a) one step's loss and
                     gradients on the card against the CPU plain path at
                     batch 2; (b) 20 steps at batch 8 through Trainer.fit
@@ -41,11 +62,13 @@ paths against its plain PyTorch version. Phases, one output line each:
                     identical; (e) the median step time.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON
-line with each kernel's launches, error and times, and as the last line
-{"ok": true, "device": {...}}. Any failed check ends the run with a
-non-zero exit and no result line; so does a host without a CUDA device,
-or a directory without the port's sources. A kernel that does not build
-or launch raises; nothing falls back to a plain version. Imports no JAX.
+line with each kernel's shape, launches, error, times (its own, its plain
+version's and, where one PyTorch call computes the same function, that
+call's) and its bound, and as the last line {"ok": true, "device":
+{...}}. Any failed check ends the run with a non-zero exit and no result
+line; so does a host without a CUDA device, or a directory without the
+port's sources. A kernel that does not build or launch raises; nothing
+falls back to a plain version. Imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -58,9 +81,17 @@ import tempfile
 import time
 import urllib.request
 
-REQUESTS = 4            # HTTP requests in the serving phase
+REQUESTS = 4            # HTTP requests in the serving phases
 TRAIN_STEPS = 20        # Trainer.fit epochs (one batch each) in `train`
 SEED = 0
+CSRC = "vision_transformer_detector_tpu_torch/csrc/"
+TPU_KERNELS = "vision_transformer_detector_tpu/kernels/"
+
+# One H100 SXM (NVIDIA's data sheet, dense rates): the bound of a kernel
+# is the larger of its operations over the peak for their type and its
+# bytes (each input read once, each output written once) over HBM's rate.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 
 def _report(phase: str, **fields) -> None:
@@ -99,18 +130,61 @@ def _in_turns(runs: dict, iters: int) -> dict:
     return sums
 
 
+def _bound(ops: float, nbytes: float, kind: str):
+    """(bound_ms, bound_by) of work of ``ops`` operations of type ``kind``
+    on ``nbytes`` bytes of device memory."""
+    t_ops = ops / PEAK_OPS_PER_S[kind]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _sdpa(q, k, v, backend):
+    """One scaled_dot_product_attention call on (B, H, N, K) inputs that
+    carry their 1/sqrt(K) already, on the given backend: the library
+    yardstick for the flash kernels (the port never calls it)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    with sdpa_kernel([backend]):
+        return F.scaled_dot_product_attention(q, k, v, scale=1.0)
+
+
+def _sdpa_backend(run):
+    """The first scaled_dot_product_attention backend, fastest first, for
+    which ``run(backend)`` works."""
+    import warnings
+
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with warnings.catch_warnings():
+                # A refused backend warns why before it raises.
+                warnings.simplefilter("ignore", UserWarning)
+                run(backend)
+            torch.cuda.synchronize()
+            return backend
+        except RuntimeError:
+            continue
+    raise RuntimeError("no scaled_dot_product_attention backend ran")
+
+
 def phase_build():
     from vision_transformer_detector_tpu_torch.kernels import _build
     from vision_transformer_detector_tpu_torch.kernels import (
-        flash_attention as fa)
+        flash_attention as fa, fused_ffn, fused_ln, quantization)
 
+    sources = [fa.FWD_SOURCE, fa.BWD_SOURCE, quantization.SOURCE,
+               fused_ln.SOURCE, fused_ffn.SOURCE]
     tic = time.monotonic()
-    _build.load_libraries([fa.FWD_SOURCE, fa.BWD_SOURCE])
+    _build.load_libraries(sources)
     ptxas = {source: [line.strip() for line in log.splitlines()
                       if "registers" in line or "spill" in line]
              for source, log in _build.BUILD_LOGS.items()}
-    _require(set(ptxas) == {fa.FWD_SOURCE, fa.BWD_SOURCE},
-             f"built {sorted(ptxas)}")
+    _require(set(ptxas) == set(sources), f"built {sorted(ptxas)}")
     _report("build", seconds=round(time.monotonic() - tic, 3),
             ptxas=ptxas)
 
@@ -154,17 +228,25 @@ def phase_kernel():
             errors[name] = err
             _require(err <= tol, f"flash {name}: max abs err {err} > {tol}")
 
-    times = {}
+    times, backends = {}, {}
     for batch in (1, 64):
         q, key, v = qkv(batch, 12, 576, 64, torch.bfloat16)
+        backend = _sdpa_backend(lambda b: _sdpa(q, key, v, b))
+        backends[batch] = backend.name
+        lib_err = (_sdpa(q, key, v, backend).float() - reference_attention(
+            q, key, v, layout="bhnk").float()).abs().max().item()
+        _require(lib_err <= tolerances[torch.bfloat16],
+                 f"scaled_dot_product_attention differs by {lib_err}")
         times[batch] = _in_turns({
             "plain_ms": lambda: reference_attention(q, key, v,
                                                     layout="bhnk"),
             "kernel_ms": lambda: flash_attention(q, key, v, layout="bhnk"),
+            "library_ms": lambda: _sdpa(q, key, v, backend),
         }, 50)
     _report("kernel", max_abs_err=errors,
-            times_bf16_576x64={f"B={b}": t for b, t in times.items()})
-    return errors["12x576x64_bfloat16"], times[1]
+            times_bf16_576x64={f"B={b}": t for b, t in times.items()},
+            sdpa_backend={f"B={b}": name for b, name in backends.items()})
+    return errors["12x576x64_bfloat16"], times
 
 
 def _rel_err(got, ref) -> float:
@@ -255,23 +337,197 @@ def phase_kernel_train():
         o = fa.FlashAttentionFunction.apply(*leaves, "bnhk", use_kernel)
         torch.autograd.grad(o, leaves, g)
 
+    # The library yardstick: scaled_dot_product_attention on heads-major
+    # views, forward, backward alone (retain_graph) and both.
+    heads = [fa._heads_major(t, "bnhk") for t in (q, k, v, g)]
+    lib_leaves = [t.detach().clone().requires_grad_() for t in heads[:3]]
+
+    def lib_step(backend):
+        out = _sdpa(*lib_leaves, backend)
+        torch.autograd.grad(out, lib_leaves, heads[3])
+        return out
+
+    backend = _sdpa_backend(lib_step)
+    lib_out = _sdpa(*lib_leaves, backend)
+    lib_err = (lib_out.detach() - fa._heads_major(
+        fa.reference_attention(q, k, v), "bnhk")).abs().max().item()
+    _require(lib_err <= 1e-4,
+             f"scaled_dot_product_attention differs by {lib_err}")
     times = {
         "fwd_lse": _in_turns({
             "plain_ms": lambda: (fa.reference_attention(q, k, v),
                                  fa.reference_attention_lse(q, k)),
             "kernel_ms": lambda: fa.flash_attention(q, k, v,
-                                                    with_lse=True)}, 10),
+                                                    with_lse=True),
+            "library_ms": lambda: _sdpa(*heads[:3], backend)}, 10),
         "bwd": _in_turns({
             "plain_ms": lambda: fa.reference_attention_backward(q, k, v, g),
             "kernel_ms": lambda: fa._launch_backward(q, k, v, g, lse, delta,
-                                                     "bnhk")}, 10),
+                                                     "bnhk"),
+            "library_ms": lambda: torch.autograd.grad(
+                lib_out, lib_leaves, heads[3], retain_graph=True)}, 10),
         "fwd_bwd": _in_turns({"plain_ms": lambda: step(False),
-                              "kernel_ms": lambda: step(True)}, 5),
+                              "kernel_ms": lambda: step(True),
+                              "library_ms": lambda: lib_step(backend)}, 5),
     }
     _report("kernel_train", errors=errors,
-            times_fp32_64x1296x40=times)
+            times_fp32_64x1296x40=times, sdpa_backend=backend.name)
     ref = errors["64x1296x40_float32_bnhk"]
     return ref, times
+
+
+def _quant_layer(gen, k: int, out_shape):
+    """A QuantDense on the card with seeded codes, glorot-sized scales
+    (|w| <= sqrt(6 / (k + n)), as init_params draws them) and bias."""
+    import torch
+
+    from vision_transformer_detector_tpu_torch.kernels.quantization import (
+        QuantDense)
+
+    n = 1
+    for dim in out_shape:
+        n *= dim
+    layer = QuantDense(k, out_shape, device="cuda")
+    layer.kernel_q.copy_(torch.randint(-127, 128, (k, n), device="cuda",
+                                       generator=gen).to(torch.int8))
+    limit = (6.0 / (k + n)) ** 0.5
+    layer.scale.copy_((0.5 + 0.5 * torch.rand(n, device="cuda",
+                                              generator=gen)) * limit / 127)
+    layer.bias.copy_(0.1 * torch.randn(out_shape, device="cuda",
+                                       generator=gen))
+    return layer
+
+
+def _max_err(got, ref):
+    return (got.float() - ref.float()).abs().max().item()
+
+
+def phase_kernel_serve():
+    """The int8 dense (both routes), LayerNorm and dense+mish kernels
+    against their plain versions at the vit_b16_384 shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from vision_transformer_detector_tpu_torch.kernels import (
+        fused_ffn, fused_ln, quantization as qz)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # Tolerances, relative to the largest reference value. int8: the
+    # kernel and the plain version form the same codes and exact int32
+    # sums and rescale in the same fp32 order, so they differ only where
+    # mish's libm calls or the last rounding differ: one bf16 rounding
+    # (2^-7) on the fused route, 1e-6 on the fp32 int8_dense route.
+    # LayerNorm: rsqrtf (2 ulp) and the sums' order, 1e-5 in fp32; one
+    # bf16 rounding in bf16. dense+mish: fp32 sums over K <= 1536 in
+    # another order, 1e-5; one bf16 rounding in bf16.
+    one_bf16 = 2.0 ** -7
+    errors, worst = {}, {"int8_dense": 0.0, "layer_norm": 0.0,
+                         "dense_mish": 0.0}
+
+    def check(kernel, name, got, ref, rel_tol):
+        _require(got.shape == ref.shape and got.dtype == ref.dtype,
+                 f"{name}: {tuple(got.shape)} {got.dtype} vs "
+                 f"{tuple(ref.shape)} {ref.dtype}")
+        _require(bool(torch.isfinite(got).all()), f"{name}: not finite")
+        err = _max_err(got, ref)
+        tol = rel_tol * ref.float().abs().max().item()
+        _require(err <= tol, f"{name}: max abs err {err} > {tol}")
+        errors[name] = err
+        worst[kernel] = max(worst[kernel], err)
+
+    for batch in (1, 32):
+        tokens, slots = 576 * batch, 17 * batch
+        # B5, fused route: (rows, K, N, mish) of the encoder MLP, the
+        # head's token dense (N = 17), MLP and output (N = 6).
+        for rows, k, n, mish in ((tokens, 768, 1536, True),
+                                 (tokens, 1536, 768, True),
+                                 (tokens, 768, 768, False),
+                                 (tokens, 768, 17, False),
+                                 (slots, 576, 2048, True),
+                                 (slots, 512, 6, False)):
+            layer = _quant_layer(gen, k, (n,))
+            x = torch.randn(rows, k, device="cuda", generator=gen).to(bf16)
+            got = qz.fused_int8_dense(x, layer, apply_mish=mish)
+            torch.cuda.synchronize()
+            ref = qz.int8_dense_reference(x, layer.kernel_q, layer.scale,
+                                          layer.bias, mish, bf16)
+            check("int8_dense", f"int8_fused_{rows}x{k}x{n}"
+                  f"{'_mish' if mish else ''}", got, ref, one_bf16)
+        # B5, int8_dense route (fp32 out): the q/k/v projection 768 ->
+        # (12, 64) and a ragged M = 17 * B.
+        for rows in (tokens, slots):
+            layer = _quant_layer(gen, 768, (12, 64))
+            x = torch.randn(rows, 768, device="cuda", generator=gen).to(bf16)
+            got = qz.int8_dense(x, layer)
+            torch.cuda.synchronize()
+            ref = qz.int8_dense_reference(
+                x, layer.kernel_q, layer.scale,
+                layer.bias.reshape(-1)).reshape(rows, 12, 64)
+            check("int8_dense", f"int8_dense_route_{rows}x768x12x64", got,
+                  ref, 1e-6)
+        # B4: the encoder's (tokens, 768) in bf16 and fp32, ragged rows.
+        for rows, dtype in ((tokens, bf16), (tokens, fp32), (slots, bf16)):
+            x = (3 * torch.randn(rows, 768, device="cuda", generator=gen)
+                 + 1).to(dtype)
+            gamma = torch.randn(768, device="cuda", generator=gen)
+            beta = torch.randn(768, device="cuda", generator=gen)
+            got = fused_ln.fused_layer_norm(x, gamma, beta)
+            torch.cuda.synchronize()
+            ref = fused_ln.layer_norm_reference(x, gamma, beta)
+            check("layer_norm", f"ln_{rows}x768_{str(dtype)[6:]}", got, ref,
+                  one_bf16 if dtype == bf16 else 1e-5)
+        # B3: the encoder MLP and the head's first MLP layer with mish, and
+        # ragged N = 17 and N = 6 without.
+        for dtype in (bf16, fp32):
+            for rows, k, n, mish in ((tokens, 768, 1536, True),
+                                     (tokens, 1536, 768, True),
+                                     (slots, 576, 2048, True),
+                                     (slots, 768, 17, False),
+                                     (slots, 512, 6, False)):
+                x = torch.randn(rows, k, device="cuda", generator=gen)
+                w = torch.randn(k, n, device="cuda", generator=gen) * (
+                    (6.0 / (k + n)) ** 0.5 / 3 ** 0.5)
+                b = 0.1 * torch.randn(n, device="cuda", generator=gen)
+                x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+                got = fused_ffn.fused_dense_mish(x, w, b, apply_mish=mish)
+                torch.cuda.synchronize()
+                ref = fused_ffn.dense_mish_reference(x, w, b, mish)
+                check("dense_mish", f"ffn_{rows}x{k}x{n}_{str(dtype)[6:]}"
+                      f"{'_mish' if mish else ''}", got, ref,
+                      one_bf16 if dtype == bf16 else 1e-5)
+
+    # Times in turns at the batch-32 headline shapes (and batch 1).
+    times = {}
+    for batch in (1, 32):
+        rows, iters = 576 * batch, (50 if batch == 1 else 10)
+        layer = _quant_layer(gen, 768, (1536,))
+        x = torch.randn(rows, 768, device="cuda", generator=gen).to(bf16)
+        times[f"int8_dense_B={batch}_{rows}x768x1536_mish"] = _in_turns({
+            "plain_ms": lambda: qz.int8_dense_reference(
+                x, layer.kernel_q, layer.scale, layer.bias, True, bf16),
+            "kernel_ms": lambda: qz.fused_int8_dense(x, layer, True)}, iters)
+        proj = _quant_layer(gen, 768, (12, 64))
+        times[f"int8_dense_route_B={batch}_{rows}x768x768"] = _in_turns({
+            "plain_ms": lambda: qz.int8_dense_reference(
+                x, proj.kernel_q, proj.scale, proj.bias.reshape(-1)),
+            "kernel_ms": lambda: qz.int8_dense(x, proj)}, iters)
+        gamma = torch.randn(768, device="cuda", generator=gen)
+        beta = torch.randn(768, device="cuda", generator=gen)
+        gamma16, beta16 = gamma.to(bf16), beta.to(bf16)
+        times[f"layer_norm_B={batch}_{rows}x768_bf16"] = _in_turns({
+            "plain_ms": lambda: fused_ln.layer_norm_reference(x, gamma, beta),
+            "kernel_ms": lambda: fused_ln.fused_layer_norm(x, gamma, beta),
+            "library_ms": lambda: F.layer_norm(x, (768,), gamma16, beta16,
+                                               eps=1e-3)}, iters)
+        w = (0.05 * torch.randn(768, 1536, device="cuda",
+                                generator=gen)).to(bf16)
+        b = (0.1 * torch.randn(1536, device="cuda", generator=gen)).to(bf16)
+        times[f"dense_mish_B={batch}_{rows}x768x1536_bf16"] = _in_turns({
+            "plain_ms": lambda: fused_ffn.dense_mish_reference(x, w, b),
+            "kernel_ms": lambda: fused_ffn.fused_dense_mish(x, w, b)}, iters)
+    _report("kernel_serve", max_abs_err=errors, times=times)
+    return worst, times
 
 
 def phase_model():
@@ -303,6 +559,144 @@ def phase_model():
     _require(err <= 1e-3, f"fp32 logits: card vs CPU max abs err {err}")
     _report("model", preset="vit_b16_384", dtype="float32",
             logits_max_abs_err_vs_cpu=err, tolerance=1e-3)
+
+
+def _counts():
+    """Every kernel wrapper's launch count, by kernel."""
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa, fused_ffn, fused_ln, quantization as qz)
+
+    return {"flash": fa.flash_attention.launches,
+            "flash_lse": fa.flash_attention.lse_launches,
+            "flash_bwd": fa.flash_attention.backward_launches,
+            "int8_fused": qz.fused_int8_dense.launches,
+            "int8_dense": qz.int8_dense.launches,
+            "layer_norm": fused_ln.fused_layer_norm.launches,
+            "dense_mish": fused_ffn.fused_dense_mish.launches}
+
+
+def _reset_counts() -> None:
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa, fused_ffn, fused_ln, quantization as qz)
+
+    for fn, names in ((fa.flash_attention,
+                       ("launches", "lse_launches", "backward_launches")),
+                      (qz.fused_int8_dense, ("launches",)),
+                      (qz.int8_dense, ("launches",)),
+                      (fused_ln.fused_layer_norm, ("launches",)),
+                      (fused_ffn.fused_dense_mish, ("launches",))):
+        for name in names:
+            setattr(fn, name, 0)
+
+
+# Launches per vit_b16_384 forward (12 blocks, a 2-layer encoder MLP, a
+# 3-layer head MLP): the int8 model's 30 fused int8 dense (linear
+# projection, 24 MLP, head token dense, 3 head MLP, head output) and 48
+# int8_dense-route (q/k/v/out), the fused dense+mish's 27 (24 + 3), the
+# fused LayerNorm's 24 and flash attention's 12.
+PER_FORWARD = {
+    "int8": {"flash": 12, "int8_fused": 30, "int8_dense": 48,
+             "layer_norm": 24},
+    "fused_ffn": {"flash": 12, "dense_mish": 27, "layer_norm": 24},
+}
+
+
+def _expect_counts(path: str, calls: int) -> dict:
+    counts = _counts()
+    want = {name: 0 for name in counts}
+    want.update({name: n * calls for name, n in PER_FORWARD[path].items()})
+    _require(counts == want, f"{path}: launches {counts}, expected {want} "
+             f"for {calls} forward(s)")
+    return counts
+
+
+def _serve_configs():
+    """vit_b16_384 (bf16, flash) with the fused LayerNorm, and the same
+    with the fused dense+mish."""
+    from vision_transformer_detector_tpu_torch import get_config
+
+    config = get_config("vit_b16_384")
+    _require(config.compute_dtype == "bfloat16" and config.use_flash_attention
+             and config.embedding_dim == 768 and config.encoder_blocks == 12,
+             "vit_b16_384 preset changed")
+    fused_ln = config.replace(use_fused_layer_norm=True)
+    return config, fused_ln, fused_ln.replace(use_fused_ffn=True)
+
+
+def phase_model_serve():
+    """vit_b16_384 on one seeded image, the card's kernels against the CPU
+    plain path from identical weights: the int8 model and the fused
+    dense+mish, both with the fused LayerNorm, in the preset's bf16 and in
+    fp32; the plain bf16 model beside them as the bf16 yardstick."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from vision_transformer_detector_tpu_torch.kernels.quantization import (
+        quantize_params)
+    from vision_transformer_detector_tpu_torch.models.vit_detector import (
+        forward, init_params)
+
+    bf16_config, ln_config, ffn_config = _serve_configs()
+    params = init_params(ln_config, torch.Generator().manual_seed(SEED))
+    int8_params = quantize_params(params)
+    h, w = ln_config.image_size
+    image = torch.from_numpy(np.random.default_rng(SEED).uniform(
+        -1.0, 1.0, (1, h, w, 3)).astype(np.float32))
+    # Limits on (max, median) of |card - CPU|, relative to the largest
+    # logit, by (path, dtype):
+    #   * fp32 dense+mish: summation order only, as in `model` (1e-3
+    #     absolute there; 1e-4 of the largest logit here);
+    #   * bf16 (plain and dense+mish): the kernels round at other points
+    #     than the plain versions, through 12 blocks: 8 bf16 ulps (2^-7
+    #     each) at the max, 1 at the median;
+    #   * int8 (both dtypes): any ulp of difference upstream flips an
+    #     activation code at a .5 boundary, and the flips propagate, so
+    #     card and CPU sit as far apart as the int8 model sits from the
+    #     float one (reported beside, `int8_vs_float_cpu`): 10 % at the
+    #     max, 2 % at the median. The kernels themselves agree with their
+    #     plain versions exactly (`kernel_serve`).
+    ulp = 2.0 ** -7
+    limits = {"float32": {"fused_ffn": (1e-4, 1e-4), "int8": (0.1, 0.02)},
+              "bfloat16": {"fused_ffn": (8 * ulp, ulp),
+                           "plain": (8 * ulp, ulp), "int8": (0.1, 0.02)}}
+    results = {}
+    for dtype, paths in limits.items():
+        cases = {"int8": int8_params, "fused_ffn": params, "plain": params}
+        configs = {"int8": ln_config, "fused_ffn": ffn_config,
+                   "plain": bf16_config}
+        cpu_out = {}
+        for path, (max_rel, median_rel) in paths.items():
+            config = configs[path].replace(compute_dtype=dtype)
+            with torch.inference_mode():
+                cpu = forward(cases[path], image, config)
+                _reset_counts()
+                gpu = forward(copy.deepcopy(cases[path]).to("cuda"),
+                              image.to("cuda"), config).cpu()
+            cpu_out[path] = cpu
+            launches = (_expect_counts(path, 1) if path in PER_FORWARD
+                        else _counts())
+            _require(tuple(gpu.shape) == (1, config.max_objects, 6)
+                     and bool(torch.isfinite(gpu).all()),
+                     f"{path} {dtype}: logits {tuple(gpu.shape)}")
+            scale = cpu.abs().max().item()
+            err = (gpu - cpu).abs()
+            bounds = (max_rel * scale, median_rel * scale)
+            _require(err.max().item() <= bounds[0]
+                     and err.median().item() <= bounds[1],
+                     f"{path} {dtype}: card vs CPU max {err.max().item()} / "
+                     f"median {err.median().item()}, limits {bounds}")
+            results[f"{path}_{dtype}"] = {
+                "max_abs_err": err.max().item(),
+                "median_abs_err": err.median().item(), "limits": bounds,
+                "max_abs_logit": scale, "launches": launches}
+        # The dense+mish model is the float model to summation order.
+        quant = (cpu_out["int8"] - cpu_out["fused_ffn"]).abs()
+        results[f"int8_vs_float_cpu_{dtype}"] = {
+            "max_abs": quant.max().item(), "median_abs": quant.median().item()}
+    _report("model_serve", preset="vit_b16_384", use_fused_layer_norm=True,
+            **results)
 
 
 def _jpegs(count: int):
@@ -400,6 +794,111 @@ def phase_serve():
             predict_b1_ms_min=min(device_ms), flash_launches=launches,
             decode_core=stats.get("decode_core"))
     return launches
+
+
+def _device_path_ms(services: dict, batches=(1, 32)) -> dict:
+    """Median device-path time (predict_raw + the packed result on the
+    host, synced) of each service, at each batch, taken in turns (a, b,
+    ..., b, a) so that every service sees the same card state."""
+    import numpy as np
+
+    times = {}
+    for batch in batches:
+        some = next(iter(services.values()))
+        canvas = np.zeros((batch, *some.config.image_size, 3), np.uint8)
+        reps = 20 if batch == 1 else 5
+        samples = {name: [] for name in services}
+        order = list(services) + list(services)[::-1]
+        for name in order:
+            service = services[name]
+            for _ in range(2):
+                service.raw_to_detections(service.predict_raw(canvas))
+            for _ in range(reps // 2):
+                tic = time.perf_counter()
+                service.raw_to_detections(service.predict_raw(canvas))
+                samples[name].append((time.perf_counter() - tic) * 1e3)
+        for name, values in samples.items():
+            times.setdefault(name, {})[f"b{batch}_ms_median"] = float(
+                np.median(values))
+    return times
+
+
+def phase_serve_int8():
+    """The `serve --int8` service (quantize_params after loading, as the
+    CLI does) with the fused LayerNorm, behind DetectionServer, beside the
+    bf16 service on the same weights."""
+    import torch
+
+    from vision_transformer_detector_tpu_torch.kernels.quantization import (
+        quantize_params)
+    from vision_transformer_detector_tpu_torch.models.vit_detector import (
+        init_params)
+    from vision_transformer_detector_tpu_torch.serving import (
+        DetectionServer, DetectionService)
+
+    config, ln_config, _ = _serve_configs()
+    params = init_params(config, torch.Generator().manual_seed(SEED))
+    int8 = DetectionService(ln_config, quantize_params(params),
+                            device="cuda")
+    server = DetectionServer(int8, port=0)     # warms up one request
+    server.start()
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+        latencies = []
+        _reset_counts()
+        for size, data in _jpegs(REQUESTS):
+            request = urllib.request.Request(
+                f"{base}/predict", data=data,
+                headers={"Content-Type": "image/jpeg"})
+            tic = time.perf_counter()
+            with urllib.request.urlopen(request, timeout=120) as response:
+                status = response.status
+                result = json.loads(response.read())
+            latencies.append((time.perf_counter() - tic) * 1e3)
+            _require(status == 200, f"HTTP {status}")
+            _check_detections(result, size, config.num_classes)
+        launches = _expect_counts("int8", REQUESTS)
+        with urllib.request.urlopen(f"{base}/stats", timeout=30) as response:
+            stats = json.loads(response.read())
+    finally:
+        server.stop()
+    _require(stats["requests"]["ok"] == REQUESTS, f"/stats {stats}")
+    bf16 = DetectionService(config, params, device="cuda")
+    times = _device_path_ms({"bf16": bf16, "int8": int8})
+    _report("serve_int8", preset="vit_b16_384", use_fused_layer_norm=True,
+            requests=REQUESTS, request_latency_ms=latencies,
+            launches=launches, device_path=times)
+    return launches, times
+
+
+def phase_serve_fused_ffn():
+    """The `--fused-ffn` service with the fused LayerNorm, device path,
+    beside the bf16 service on the same weights."""
+    import numpy as np
+    import torch
+
+    from vision_transformer_detector_tpu_torch.models.vit_detector import (
+        init_params)
+    from vision_transformer_detector_tpu_torch.serving import (
+        DetectionService)
+
+    config, _, ffn_config = _serve_configs()
+    params = init_params(config, torch.Generator().manual_seed(SEED))
+    fused = DetectionService(ffn_config, params, device="cuda")
+    bf16 = DetectionService(config, params, device="cuda")
+    canvas = np.zeros((1, *config.image_size, 3), np.uint8)
+    fused.raw_to_detections(fused.predict_raw(canvas))     # warm up
+    _reset_counts()
+    calls = 3
+    for _ in range(calls):
+        dets = fused.raw_to_detections(fused.predict_raw(canvas))
+        _require(len(dets) == 1, f"detections {dets}")
+    launches = _expect_counts("fused_ffn", calls)
+    times = _device_path_ms({"bf16": bf16, "fused_ffn": fused})
+    _report("serve_fused_ffn", preset="vit_b16_384",
+            use_fused_layer_norm=True, calls=calls, launches=launches,
+            device_path=times)
+    return launches, times
 
 
 def phase_train():
@@ -582,6 +1081,65 @@ def phase_train():
     return launches
 
 
+def _entry(name, source, replaces, shape, launches, err, times, bound):
+    return {"name": name, "route": "cuda", "source": CSRC + source,
+            "replaces": TPU_KERNELS + replaces, "shape": shape,
+            "launches": launches, "max_abs_err": err,
+            "ms": times["kernel_ms"], "plain_ms": times["plain_ms"],
+            "library_ms": times.get("library_ms"),
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def _kernels_line(flash_err, flash_times, train_errors, train_times,
+                  serve_errors, serve_times, launches) -> dict:
+    """The kernels of every path, each with its launches on its main path,
+    its error against its plain version, its times and its bound."""
+    bh, n, k = 12, 576, 64                     # vit_b16_384, batch 1
+    flash_bytes = 4 * bh * n * k * 2
+    tbh, tn, tk = 64, 1296, 40                 # reference_608, batch 8
+    qkv = tbh * tn * tk * 4
+    rows, d, wide = 576 * 32, 768, 1536        # vit_b16_384, batch 32
+    return {"kernels": [
+        _entry("flash_attention_fwd", "flash_attention_fwd.cu",
+               "flash_attention.py:64", [bh, n, k, "bfloat16"],
+               launches["flash"], flash_err, flash_times[1],
+               _bound(4 * bh * n * n * k, flash_bytes, "bf16")),
+        _entry("flash_attention_fwd_lse", "flash_attention_fwd.cu",
+               "flash_attention.py:653", [tbh, tn, tk, "float32"],
+               launches["flash_lse"], train_errors["lse_abs"],
+               train_times["fwd_lse"],
+               _bound(4 * tbh * tn * tn * tk, 4 * qkv + tbh * tn * 4,
+                      "fp32")),
+        _entry("flash_attention_bwd", "flash_attention_bwd.cu",
+               "flash_attention.py:151", [tbh, tn, tk, "float32"],
+               launches["flash_bwd"], train_errors["bwd_abs"],
+               train_times["bwd"],
+               _bound(10 * tbh * tn * tn * tk, 7 * qkv + 2 * tbh * tn * 4,
+                      "fp32")),
+        dict(_entry("int8_dense", "int8_dense.cu", "quantization.py:159",
+                    [rows, d, wide, "bfloat16", "mish"],
+                    launches["int8_fused"], serve_errors["int8_dense"],
+                    serve_times[f"int8_dense_B=32_{rows}x768x1536_mish"],
+                    _bound(2 * rows * d * wide,
+                           rows * d * 2 + d * wide + wide * 8
+                           + rows * wide * 2, "int8")),
+             route_launches={"fused_int8_dense": launches["int8_fused"],
+                             "int8_dense": launches["int8_dense"]}),
+        _entry("layer_norm", "layer_norm.cu", "fused_ln.py:37",
+               [rows, d, "bfloat16"], launches["layer_norm"],
+               serve_errors["layer_norm"],
+               serve_times[f"layer_norm_B=32_{rows}x768_bf16"],
+               _bound(7 * rows * d, 2 * rows * d * 2 + 2 * d * 4, "fp32")),
+        _entry("dense_mish", "dense_mish.cu", "fused_ffn.py:42",
+               [rows, d, wide, "bfloat16", "mish"], launches["dense_mish"],
+               serve_errors["dense_mish"],
+               serve_times[f"dense_mish_B=32_{rows}x768x1536_bf16"],
+               _bound(2 * rows * d * wide,
+                      (rows * d + d * wide + wide + rows * wide) * 2,
+                      "bf16")),
+    ]}
+
+
 def main() -> int:
     import torch
 
@@ -594,48 +1152,36 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     phase_build()
-    err, times = phase_kernel()
+    flash_err, flash_times = phase_kernel()
     train_errors, train_times = phase_kernel_train()
+    serve_errors, serve_times = phase_kernel_serve()
     phase_model()
-    launches = phase_serve()
+    phase_model_serve()
+    flash_launches = phase_serve()
+    int8_launches, _ = phase_serve_int8()
+    ffn_launches, _ = phase_serve_fused_ffn()
     train_launches = phase_train()
-    _require("jax" not in sys.modules, "JAX was imported")
+    foreign = sorted(name for name in sys.modules
+                     if name == "jax" or name.startswith("jax.")
+                     or name == "vision_transformer_detector_tpu"
+                     or name.startswith("vision_transformer_detector_tpu."))
+    _require(not foreign, f"imported {foreign[:5]}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    csrc = "vision_transformer_detector_tpu_torch/csrc/"
-    tpu = "vision_transformer_detector_tpu/kernels/flash_attention.py"
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": csrc + "flash_attention_fwd.cu",
-        "replaces": tpu + ":64",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": times["kernel_ms"],
-        "plain_ms": times["plain_ms"],
-    }, {
-        "name": "flash_attention_fwd_lse",
-        "route": "cuda",
-        "source": csrc + "flash_attention_fwd.cu",
-        "replaces": tpu + ":653",
-        "launches": train_launches["fwd_lse"],
-        "max_abs_err": train_errors["lse_abs"],
-        "ms": train_times["fwd_lse"]["kernel_ms"],
-        "plain_ms": train_times["fwd_lse"]["plain_ms"],
-    }, {
-        "name": "flash_attention_bwd",
-        "route": "cuda",
-        "source": csrc + "flash_attention_bwd.cu",
-        "replaces": tpu + ":151",
-        "launches": train_launches["bwd"],
-        "max_abs_err": train_errors["bwd_abs"],
-        "ms": train_times["bwd"]["kernel_ms"],
-        "plain_ms": train_times["bwd"]["plain_ms"],
-    }]}), flush=True)
+    launches = {"flash": flash_launches,
+                "flash_lse": train_launches["fwd_lse"],
+                "flash_bwd": train_launches["bwd"],
+                "int8_fused": int8_launches["int8_fused"],
+                "int8_dense": int8_launches["int8_dense"],
+                "layer_norm": int8_launches["layer_norm"],
+                "dense_mish": ffn_launches["dense_mish"]}
+    print(json.dumps(_kernels_line(flash_err, flash_times, train_errors,
+                                   train_times, serve_errors, serve_times,
+                                   launches)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,7 @@
 """The port's ``train`` subcommand end to end on a tiny on-disk dataset
 (the fixture of tests/test_cli.py: 4 JPEGs with one box each), on the
-CPU, then a resumed run from its checkpoints; and the refused flags."""
+CPU, then a resumed run from its checkpoints; ``--fused-ffn``; and the
+refused flags."""
 
 import json
 import os
@@ -68,8 +69,24 @@ def test_train_two_epochs_then_restore(dataset, tmp_path, capsys):
     assert "step_0000000006.pt" in os.listdir(tmp_path / "ckpt")
 
 
+def test_train_with_fused_ffn(dataset, tmp_path, capsys, monkeypatch):
+    """``--fused-ffn`` trains through the fused dense+mish route (its
+    plain version on the CPU) of every mish pyramid layer."""
+    from vision_transformer_detector_tpu_torch.kernels import fused_ffn
+
+    calls = []
+    original = fused_ffn.FusedDenseMishFunction.apply
+    monkeypatch.setattr(fused_ffn.FusedDenseMishFunction, "apply",
+                        lambda *args: calls.append(1) or original(*args))
+    main(_args(dataset, tmp_path, "--epochs", "1", "--fused-ffn"))
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert np.isfinite(result["final_loss"])
+    # tiny_96: 2 blocks x 3 encoder layers + 2 head layers per forward.
+    assert calls and len(calls) % 8 == 0
+
+
 @pytest.mark.parametrize("flag", [
-    ["--resumable"], ["--distributed"], ["--fused-ffn"],
+    ["--resumable"], ["--distributed"],
     ["--data-parallel", "2"], ["--epochs-per-call", "4"],
     ["--flash-attention", "--no-flash-attention"],
 ])

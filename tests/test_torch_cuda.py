@@ -18,7 +18,7 @@ import torch
 from vision_transformer_detector_tpu_torch import (
     DetectorConfig, LossConfig, synthetic_batches)
 from vision_transformer_detector_tpu_torch.kernels import (
-    flash_attention as fa)
+    flash_attention as fa, fused_ffn, fused_ln, quantization as qz)
 from vision_transformer_detector_tpu_torch.metrics import (
     DeviceMeanAveragePrecision, MeanAveragePrecision)
 from vision_transformer_detector_tpu_torch.models import vit_detector as model
@@ -256,3 +256,165 @@ def test_device_metric_on_card_matches_numpy_oracle(gen):
     expected = float(oracle.result())
     assert expected > 0.1
     assert metric.result() == pytest.approx(expected, abs=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Serving kernels: int8 dense (both routes), LayerNorm, dense + mish
+# ---------------------------------------------------------------------------
+
+def _quant_layer(gen, k, out_shape):
+    n = int(np.prod(out_shape))
+    layer = qz.QuantDense(k, out_shape, device="cuda")
+    layer.kernel_q.copy_(torch.randint(-127, 128, (k, n), device="cuda",
+                                       generator=gen).to(torch.int8))
+    layer.scale.copy_(torch.rand(n, device="cuda", generator=gen) * 4e-4
+                      + 1e-4)
+    layer.bias.copy_(0.1 * torch.randn(out_shape, device="cuda",
+                                       generator=gen))
+    return layer
+
+
+def _assert_within(got, ref, rel_tol):
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= rel_tol * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("rows,k,n,mish", [
+    (576, 768, 1536, True), (1152, 1536, 768, True), (17, 512, 6, False),
+    (34, 576, 2048, True), (5, 200, 96, False)])
+def test_fused_int8_dense_kernel_matches_plain(gen, rows, k, n, mish):
+    """Same codes, exact int32 sums, same fp32 rescale order: one bf16
+    rounding (2^-7 of the largest value) at most."""
+    layer = _quant_layer(gen, k, (n,))
+    x = torch.randn(rows, k, device="cuda", generator=gen)
+    before = qz.fused_int8_dense.launches
+    got = qz.fused_int8_dense(x, layer, apply_mish=mish)
+    torch.cuda.synchronize()
+    assert qz.fused_int8_dense.launches == before + 1
+    ref = qz.int8_dense_reference(x.to(torch.bfloat16), layer.kernel_q,
+                                  layer.scale, layer.bias, mish,
+                                  torch.bfloat16)
+    _assert_within(got, ref, 2 ** -7)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_dense_route_matches_plain(gen, dtype):
+    """The fp32-out route of the q/k/v projections: (B, N, D) -> (B, N,
+    H, K), exact to fp32 rounding."""
+    layer = _quant_layer(gen, 768, (12, 64))
+    x = torch.randn(2, 77, 768, device="cuda", generator=gen).to(dtype)
+    before = qz.int8_dense.launches
+    got = qz.int8_dense(x, layer)
+    torch.cuda.synchronize()
+    assert qz.int8_dense.launches == before + 1
+    ref = qz.int8_dense_reference(x.reshape(-1, 768), layer.kernel_q,
+                                  layer.scale, layer.bias.reshape(-1))
+    _assert_within(got, ref.reshape(2, 77, 12, 64), 1e-6)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2 ** -7),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("shape", [(2, 576, 768), (17, 768), (3, 5, 128),
+                                   (9, 2048)])
+def test_layer_norm_kernel_matches_plain(gen, dtype, tol, shape):
+    """rsqrtf and the sums' order: 1e-5 of the largest value in fp32, one
+    bf16 rounding in bf16."""
+    x = (3 * torch.randn(shape, device="cuda", generator=gen) + 1).to(dtype)
+    gamma = torch.randn(shape[-1], device="cuda", generator=gen)
+    beta = torch.randn(shape[-1], device="cuda", generator=gen)
+    before = fused_ln.fused_layer_norm.launches
+    got = fused_ln.fused_layer_norm(x, gamma, beta)
+    torch.cuda.synchronize()
+    assert fused_ln.fused_layer_norm.launches == before + 1
+    _assert_within(got, fused_ln.layer_norm_reference(x, gamma, beta), tol)
+    # A strided view of the same values gives the same numbers.
+    wide = torch.cat([x, x], dim=-1)[..., :shape[-1]]
+    torch.testing.assert_close(fused_ln.fused_layer_norm(wide, gamma, beta),
+                               got, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2 ** -7),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("rows,k,n,mish", [
+    (576, 768, 1536, True), (34, 576, 2048, True), (17, 512, 6, False),
+    (7, 100, 33, True)])
+def test_dense_mish_kernel_matches_plain(gen, dtype, tol, rows, k, n, mish):
+    x = torch.randn(rows, k, device="cuda", generator=gen).to(dtype)
+    w = (0.05 * torch.randn(k, n, device="cuda", generator=gen)).to(dtype)
+    b = (0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
+    before = fused_ffn.fused_dense_mish.launches
+    got = fused_ffn.fused_dense_mish(x, w, b, apply_mish=mish)
+    torch.cuda.synchronize()
+    assert fused_ffn.fused_dense_mish.launches == before + 1
+    _assert_within(got, fused_ffn.dense_mish_reference(x, w, b, mish), tol)
+
+
+def test_dense_mish_kernel_is_differentiable(gen):
+    """The kernel route carries a grad_fn, and its recompute backward on
+    the card gives the CPU route's gradients."""
+    x, w, b, g = (torch.randn(shape, device="cuda", generator=gen)
+                  for shape in ((3, 40, 96), (96, 176), (176,),
+                                (3, 40, 176)))
+    w, b = 0.1 * w, 0.1 * b
+    grads = []
+    for device in ("cuda", "cpu"):
+        leaves = [t.detach().to(device).requires_grad_() for t in (x, w, b)]
+        out = fused_ffn.fused_dense_mish(*leaves)
+        assert out.grad_fn is not None
+        grads.append(torch.autograd.grad(out, leaves, g.to(device)))
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+def test_serving_kernels_refuse_what_they_do_not_take(gen):
+    x = torch.randn(4, 256, device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="D <= 4096"):
+        fused_ln.fused_layer_norm(torch.zeros(2, 4224, device="cuda"),
+                                  torch.ones(4224, device="cuda"),
+                                  torch.zeros(4224, device="cuda"))
+    with pytest.raises(ValueError, match="all on the CPU or all on CUDA"):
+        fused_ln.fused_layer_norm(x, torch.ones(256), torch.zeros(256))
+    with pytest.raises(ValueError, match="one dtype"):
+        fused_ffn.fused_dense_mish(x, torch.zeros(256, 8, device="cuda",
+                                                  dtype=torch.bfloat16),
+                                   torch.zeros(8, device="cuda"))
+    layer = _quant_layer(gen, 256, (2, 4))
+    with pytest.raises(ValueError, match="2-D weights"):
+        qz.fused_int8_dense(x, layer)
+    with pytest.raises(ValueError, match="one device"):
+        qz.int8_dense(x.cpu(), layer)
+
+
+@pytest.mark.parametrize("path", ["int8", "fused_ffn"])
+def test_serving_models_on_card_match_cpu(gen, path):
+    """A small D = 128 model in fp32 with the fused LayerNorm, int8 or
+    with the fused dense+mish: every kernel launches once per layer, and
+    the logits match the CPU plain path (fp32 summation order; for int8
+    also an activation code flipped at a .5 boundary)."""
+    config = DetectorConfig(
+        image_size=(64, 64), patch_size=16, embedding_dim=128, num_heads=2,
+        key_dim=64, encoder_blocks=2, encoder_mlp_layers=2,
+        head_last_units=32, head_layers=2, use_flash_attention=True,
+        use_fused_layer_norm=True, use_fused_ffn=path == "fused_ffn")
+    params = model.init_params(config, torch.Generator().manual_seed(0))
+    if path == "int8":
+        params = qz.quantize_params(params)
+    images = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (2, 64, 64, 3)).astype(np.float32))
+    counts = (qz.fused_int8_dense.launches, qz.int8_dense.launches,
+              fused_ln.fused_layer_norm.launches,
+              fused_ffn.fused_dense_mish.launches)
+    with torch.inference_mode():
+        cpu = model.forward(params, images, config)
+        gpu = model.forward(copy.deepcopy(params).to("cuda"),
+                            images.to("cuda"), config).cpu()
+    launched = tuple(after - before for after, before in zip(
+        (qz.fused_int8_dense.launches, qz.int8_dense.launches,
+         fused_ln.fused_layer_norm.launches,
+         fused_ffn.fused_dense_mish.launches), counts))
+    # int8: projection + 4 MLP + token dense + 2 head MLP + output; 8
+    # q/k/v/out; 4 LayerNorms. dense+mish: 4 MLP + 2 head MLP.
+    assert launched == ((9, 8, 4, 0) if path == "int8" else (0, 0, 4, 6))
+    tol = 2e-2 if path == "int8" else 1e-4
+    assert (gpu - cpu).abs().max().item() <= tol * cpu.abs().max().item()

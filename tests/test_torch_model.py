@@ -172,13 +172,26 @@ def test_init_params_layout_and_ranges(tmp_path):
 
 @pytest.mark.parametrize("override", [
     {"attention_window": 1}, {"ring_attention": True},
-    {"head_scales": (1, 3)}, {"use_fused_ffn": True},
-    {"use_fused_layer_norm": True}, {"remat_encoder": True},
+    {"head_scales": (1, 3)}, {"remat_encoder": True},
     {"sequence_sharding": True}])
 def test_unported_features_are_refused(override):
     config = CONFIGS["flash_k8"].replace(**override)
     with pytest.raises(NotImplementedError):
         model.init_params(config, torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("override", [{"use_fused_ffn": True},
+                                      {"use_fused_layer_norm": True}])
+def test_kernel_flags_build_and_forward(override):
+    """The fused dense+mish and fused LayerNorm flags are ported: a model
+    builds and runs its forward (tests/test_torch_fused_kernels.py holds
+    the numbers to the JAX package's)."""
+    config = CONFIGS["flash_k8"].replace(**override)
+    params = model.init_params(config, torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        logits = model.forward(params, torch.from_numpy(_images(config)),
+                               config)
+    assert logits.shape == (2, 17, 6) and torch.isfinite(logits).all()
 
 
 def test_training_dropout_is_refused():
@@ -202,8 +215,10 @@ def test_bridge_refuses_mismatched_arrays():
     misshapen = dict(flat, **{"head_output/bias": np.zeros(5, np.float32)})
     with pytest.raises(ValueError, match="shape"):
         params_from_numpy(misshapen, config)
+    # One int8 array among float ones matches neither layout (int8
+    # models load whole: tests/test_torch_quantization.py).
     quantized = dict(flat, **{"head_mlp/0/kernel_q": np.zeros(1, np.int8)})
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="missing"):
         params_from_numpy(quantized, config)
 
 

@@ -1,0 +1,161 @@
+"""The port stands alone: no file of it, and not chip_smoke.py, imports
+JAX or the JAX package; importing every port module loads neither; and
+its own copies of the framework-neutral host modules stay equal to the
+JAX package's (presets, LossConfig, TrainConfig, the category tables, the
+NumPy mAP oracle)."""
+
+import ast
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from vision_transformer_detector_tpu import config as jax_config
+from vision_transformer_detector_tpu.data import categories as jax_categories
+from vision_transformer_detector_tpu.metrics import (
+    mean_average_precision as jax_map)
+from vision_transformer_detector_tpu_torch import config as port_config
+from vision_transformer_detector_tpu_torch.data import (
+    categories as port_categories)
+from vision_transformer_detector_tpu_torch.metrics import (
+    mean_average_precision as port_map)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = "vision_transformer_detector_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "vision_transformer_detector_tpu")
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, PORT)):
+        files += [os.path.join(root, n) for n in sorted(names)
+                  if n.endswith(".py")]
+    return files
+
+
+def _module_names():
+    names = []
+    for path in _port_files()[1:]:
+        rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+        names.append(rel[:-len(".__init__")] if rel.endswith(".__init__")
+                     else rel)
+    return names
+
+
+def _imported(path):
+    """Absolute module names a file imports (relative imports resolve
+    inside the port and are skipped)."""
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) > 20
+    bad = {}
+    for path in files:
+        hits = [name for name in _imported(path)
+                if name.split(".")[0] in FORBIDDEN]
+        if hits:
+            bad[os.path.relpath(path, REPO)] = hits
+    assert not bad, bad
+
+
+def test_importing_every_port_module_loads_neither():
+    script = (
+        "import importlib, json, sys\n"
+        f"names = {_module_names()!r}\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "foreign = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(json.dumps({'modules': len(names), 'foreign': foreign}))\n")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["modules"] > 20
+    assert result["foreign"] == []
+
+
+def _fields(obj):
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+@pytest.mark.parametrize("name", sorted(jax_config.PRESETS))
+def test_presets_equal_the_jax_ones(name):
+    assert sorted(port_config.PRESETS) == sorted(jax_config.PRESETS)
+    port, ref = port_config.get_config(name), jax_config.get_config(name)
+    assert _fields(port) == _fields(ref)
+    for prop in ("grid_size", "num_patches", "patch_dim",
+                 "encoder_mlp_units", "head_units"):
+        assert getattr(port, prop) == getattr(ref, prop), prop
+
+
+@pytest.mark.parametrize("cls", ["DetectorConfig", "LossConfig",
+                                 "TrainConfig"])
+def test_config_classes_equal_the_jax_ones(cls):
+    port, ref = getattr(port_config, cls)(), getattr(jax_config, cls)()
+    assert [f.name for f in dataclasses.fields(port)] == [
+        f.name for f in dataclasses.fields(ref)]
+    assert _fields(port) == _fields(ref)
+    for const in ("EPSILON", "EMPTY_SLOT_VALUE", "OBJECTNESS_THRESHOLD",
+                  "CLASSIFICATION_CONFIDENCE_THRESHOLD"):
+        assert getattr(port_config, const) == getattr(jax_config, const)
+
+
+def test_config_files_round_trip_between_the_packages(tmp_path):
+    """A config.json written by one package loads in the other."""
+    detector = jax_config.get_config("vit_b16_384")
+    path = str(tmp_path / "config.json")
+    jax_config.save_configs(path, detector, jax_config.LossConfig(),
+                            jax_config.TrainConfig(batch_size=4))
+    port, loss, train = port_config.load_configs(path)
+    assert _fields(port) == _fields(detector)
+    assert _fields(loss) == _fields(port_config.LossConfig())
+    assert train.batch_size == 4
+
+
+def test_category_tables_equal_the_jax_ones():
+    public = [name for name in dir(jax_categories)
+              if name.isupper() and not name.startswith("_")]
+    assert public
+    for name in public:
+        assert getattr(port_categories, name) == getattr(jax_categories,
+                                                         name), name
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_map_oracle_gives_the_jax_result(seed):
+    """The port's copy of the NumPy mAP oracle and the JAX package's, on
+    the same seeded labels and jittered predictions."""
+    config = jax_config.DetectorConfig(image_size=(96, 96), num_classes=6)
+    rng = np.random.default_rng(seed)
+    port, ref = (port_map.MeanAveragePrecision(config),
+                 jax_map.MeanAveragePrecision(config))
+    for _ in range(3):
+        labels = np.full((4, config.max_objects, 6), -8.0, np.float32)
+        labels[..., 0] = 0.0
+        for i in range(4):
+            for s in range(int(rng.integers(1, 4))):
+                labels[i, s] = (1, rng.integers(0, 6), rng.uniform(20, 76),
+                                rng.uniform(20, 76), rng.uniform(8, 30),
+                                rng.uniform(8, 30))
+        preds = labels.copy()
+        real = labels[..., 0] > 0
+        preds[real, 0] = rng.uniform(0.3, 1.0, real.sum())
+        preds[real, 2:] += rng.uniform(-3, 3, (real.sum(), 4))
+        for metric in (port, ref):
+            metric.update_state(labels, preds,
+                                use_transform_predictions=False)
+    want = float(ref.result())
+    assert want > 0.0
+    assert float(port.result()) == want

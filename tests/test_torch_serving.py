@@ -6,6 +6,7 @@ with the flash kernel in interpret mode, the port with its plain
 attention version.
 """
 
+import dataclasses
 import io
 import json
 import os
@@ -63,9 +64,16 @@ def _jpeg(shape, seed):
 
 
 @pytest.mark.parametrize("shape,seed", [((48, 96, 3), 0), ((80, 64, 3), 1)])
-def test_detect_jpeg_matches_jax_service(services, shape, seed):
+def test_detect_jpeg_matches_jax_service(services, shape, seed, monkeypatch):
+    """The port decodes with PIL (its copy of the host pipeline leaves the
+    native JPEG core out), so the JAX service is held to the same core."""
+    from vision_transformer_detector_tpu.data import pipeline as jax_pipeline
+
+    monkeypatch.setattr(jax_pipeline, "_native_pipeline", None)
     port, reference = services
     data = _jpeg(shape, seed)
+    np.testing.assert_array_equal(port.letterbox_jpeg(data)[0],
+                                  reference.letterbox_jpeg(data)[0])
     got = port.detect_jpeg(data)
     want = reference.detect_jpeg(data)
     assert got["image_size"] == want["image_size"]
@@ -153,17 +161,41 @@ def test_cuda_request_without_gpu_raises(monkeypatch):
         cli.main(["serve", "--preset", "tiny_96", "--device", "cuda"])
 
 
-@pytest.mark.parametrize("flag", [["--int8"], ["--from-export", "dir"]])
+@pytest.mark.parametrize("flag", [["--from-export", "dir"]])
 def test_cli_refuses_unported_flags(flag):
     with pytest.raises(SystemExit, match="not ported"):
         cli.main(["serve", "--device", "cpu", *flag])
 
 
+def test_cli_serve_int8_quantizes_after_loading(tmp_path, monkeypatch):
+    """`serve --int8 --fused-ffn` quantizes the loaded weights (as the JAX
+    CLI does) and sets the fused dense+mish flag; the service answers."""
+    from vision_transformer_detector_tpu.kernels.quantization import (
+        quantize_params)
+    from vision_transformer_detector_tpu_torch.kernels import quantization
+
+    params = init_params(jax.random.PRNGKey(6), CFG)
+    path = str(tmp_path / "params.npz")
+    save_params_npz(path, params)
+    served = {}
+    monkeypatch.setattr(cli, "_serve", lambda args, service: served.update(
+        args=args, service=service))
+    monkeypatch.setattr(cli, "get_config", lambda name: CFG)
+    cli.main(["serve", "--params-npz", path, "--device", "cpu", "--int8",
+              "--fused-ffn"])
+    service = served["service"]
+    assert service.config == CFG.replace(use_fused_ffn=True)
+    assert quantization.is_quantized(service.params.encoder[0].mha.query)
+    np.testing.assert_array_equal(
+        service.params.head_output.kernel_q.numpy(),
+        np.asarray(quantize_params(params)["head_output"]["kernel_q"]))
+    assert len(service.detect_array(np.zeros((1, 64, 64, 3), np.uint8))[0]
+               ) <= service.k
+
+
 def test_cli_serve_loads_params_npz(tmp_path, monkeypatch):
     """`serve --params-npz` builds a service on the carried-over weights
-    and hands it to the JAX CLI's HTTP loop (stubbed here)."""
-    import vision_transformer_detector_tpu.cli as jax_cli
-
+    and hands it to the port's HTTP loop (stubbed here)."""
     config = DetectorConfig(
         image_size=(96, 96), patch_size=16, embedding_dim=16, num_heads=2,
         key_dim=8, encoder_blocks=2, encoder_mlp_layers=3,
@@ -172,14 +204,16 @@ def test_cli_serve_loads_params_npz(tmp_path, monkeypatch):
     path = str(tmp_path / "params.npz")
     save_params_npz(path, params)
     served = {}
-    monkeypatch.setattr(jax_cli, "_serve",
+    monkeypatch.setattr(cli, "_serve",
                         lambda args, service: served.update(
                             args=args, service=service))
     cli.main(["serve", "--preset", "tiny_96", "--params-npz", path,
               "--device", "cpu", "--port", "0", "--score-threshold", "0.1"])
     service = served["service"]
     assert isinstance(service, DetectionService)
-    assert service.config == config and service.score_threshold == 0.1
+    # The port's own DetectorConfig, field for field the JAX one.
+    assert dataclasses.asdict(service.config) == dataclasses.asdict(config)
+    assert service.score_threshold == 0.1
     assert served["args"].port == 0
     np.testing.assert_array_equal(
         service.params.head_output.kernel.detach().numpy(),

@@ -9,12 +9,15 @@
 Each subcommand takes the JAX CLI's flags that this port supports and
 refuses the others with SystemExit. ``serve``: weights come from a
 ``save_params_npz`` file or, without one, from a seeded initialisation;
-the HTTP loop is the JAX CLI's own ``_serve`` (which imports no JAX);
-``--int8`` and ``--from-export`` are refused. ``train``: the datasets are
-built from the shared host pipeline (data/pipeline.py and
-data/annotations.py, which import no JAX) and ship uint8; the JAX CLI's
-mesh, ``--distributed``, ``--resumable``, ``--fused-ffn`` and
-``--epochs-per-call`` flags are not declared, so argparse refuses them.
+``--int8`` quantizes them after loading (kernels/quantization.py), as the
+JAX CLI does; the HTTP loop ``_serve`` is a copy of the JAX CLI's;
+``--from-export`` is refused. Both subcommands take ``--fused-ffn`` (the
+fused dense+mish kernel). ``train``: the datasets are built from the
+port's copy of the host pipeline (data/pipeline.py, data/annotations.py)
+and ship uint8; the JAX CLI's mesh, ``--distributed``, ``--resumable``
+and ``--epochs-per-call`` flags are not declared, so argparse refuses
+them. The fused LayerNorm kernel has no flag in either CLI: set
+``DetectorConfig.use_fused_layer_norm`` from Python.
 """
 
 from __future__ import annotations
@@ -22,8 +25,7 @@ from __future__ import annotations
 import argparse
 import json
 
-from vision_transformer_detector_tpu.config import (
-    DetectorConfig, LossConfig, TrainConfig, get_config)
+from .config import DetectorConfig, LossConfig, TrainConfig, get_config
 
 
 def _positive_int(value: str) -> int:
@@ -50,42 +52,76 @@ def _build_config(args) -> DetectorConfig:
         # Everywhere, as in the JAX CLI: the train-only override too.
         overrides["use_flash_attention"] = False
         overrides["train_use_flash_attention"] = False
+    if args.fused_ffn:
+        overrides["use_fused_ffn"] = True
     return config.replace(**overrides) if overrides else config
 
 
 def cmd_serve(args) -> None:
     import torch
 
-    from vision_transformer_detector_tpu.cli import _serve
-
+    from .kernels.quantization import quantize_params
     from .models.vit_detector import init_params
     from .serving import DetectionService
     from .utils.checkpoint import load_params_npz
     from .utils.device import resolve_device
 
-    for flag, given in (("--int8", args.int8),
-                        ("--from-export", args.from_export)):
-        if given:
-            raise SystemExit(f"{flag} is not ported to PyTorch yet")
+    if args.from_export:
+        raise SystemExit("--from-export is not ported to PyTorch yet")
     config = _build_config(args)
     device = resolve_device(args.device)
     if args.params_npz:
         params = load_params_npz(args.params_npz, config)
     else:
         params = init_params(config, torch.Generator().manual_seed(0))
+    if args.int8:
+        params = quantize_params(params)
     service = DetectionService(config, params, device=device,
                                iou_threshold=args.nms_iou_threshold,
                                score_threshold=args.score_threshold)
     _serve(args, service)
 
 
+def _serve(args, service) -> None:
+    """The JAX CLI's HTTP loop (vision_transformer_detector_tpu/cli.py
+    ``_serve``), copied as it is."""
+    import signal
+    import threading
+
+    from .serving import DetectionServer
+    server = DetectionServer(service, host=args.host, port=args.port,
+                             batching=args.batching,
+                             max_batch=args.max_batch,
+                             max_wait_ms=args.batch_window_ms,
+                             request_timeout=args.request_timeout,
+                             max_body_bytes=args.max_body_mb * 1024 * 1024,
+                             max_inflight=args.max_inflight)
+    from .data import pipeline as _pipe
+    print(json.dumps({"serving": f"http://{args.host}:{server.port}",
+                      "endpoints": ["/healthz", "/stats",
+                                    "POST /predict"],
+                      # Which JPEG decode core handles request payloads
+                      # (round-4 verdict #2: a silent PIL fallback looked
+                      # identical to the native path from the outside).
+                      "decode_core": ("native" if _pipe.native_available()
+                                      else "pil")}),
+          flush=True)
+    # Serve on a worker thread so SIGTERM/SIGINT can drive a graceful
+    # stop (shutdown() must not be called from the serving thread).
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
+    server.start()
+    stop.wait()
+    print(json.dumps({"stopping": True}), flush=True)
+    server.stop()   # drains in-flight batches, then stops the batcher
+
+
 def _build_dataset(args, config, images, annotations, shuffle=False):
-    """The shared host pipeline's dataset, uint8 images (the train and
-    eval steps normalise on the device)."""
-    from vision_transformer_detector_tpu.data.annotations import (
-        load_annotations_dict)
-    from vision_transformer_detector_tpu.data.pipeline import (
-        CocoDetectionDataset, list_image_paths)
+    """The host pipeline's dataset, uint8 images (the train and eval
+    steps normalise on the device)."""
+    from .data.annotations import load_annotations_dict
+    from .data.pipeline import CocoDetectionDataset, list_image_paths
 
     start, end = args.images_range
     paths = list_image_paths(images,
@@ -151,6 +187,9 @@ def _add_train_parser(sub) -> None:
     p.add_argument("--no-flash-attention", action="store_true",
                    help="force the plain attention path everywhere, the "
                         "train-only flash override included")
+    p.add_argument("--fused-ffn", action="store_true",
+                   help="dense+mish pyramid layers through the fused "
+                        "kernel (kernels/fused_ffn.py)")
     p.add_argument("--checkpoint-dir", default="checkpoints")
     p.add_argument("--restore", default=None,
                    help="checkpoint name to restore (e.g. 'ongoing'), or "
@@ -201,6 +240,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flash-attention", action="store_true")
     p.add_argument("--no-flash-attention", action="store_true",
                    help="force the plain attention path")
+    p.add_argument("--fused-ffn", action="store_true",
+                   help="dense+mish pyramid layers through the fused "
+                        "kernel (kernels/fused_ffn.py)")
     p.add_argument("--params-npz", default=None,
                    help="load params from a save_params_npz .npz file")
     p.add_argument("--device", default="cuda",
@@ -210,7 +252,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nms-iou-threshold", type=float, default=0.5)
     p.add_argument("--score-threshold", type=float, default=0.0)
     p.add_argument("--int8", action="store_true",
-                   help="not ported yet (refused)")
+                   help="serve int8-quantized weights through the fused "
+                        "int8 dense kernel (kernels/quantization.py)")
     batching = p.add_mutually_exclusive_group()
     batching.add_argument(
         "--batching", dest="batching", action="store_true",

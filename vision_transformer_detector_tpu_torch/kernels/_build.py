@@ -88,6 +88,14 @@ def load_library(source_name: str) -> ctypes.CDLL:
         return lib
 
 
+def raise_on_error(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise when a launch function returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: "
+            f"{lib.vtd_cuda_error_string(err).decode()} (cudaError {err})")
+
+
 def load_libraries(source_names) -> list:
     """``load_library`` for each source, all nvcc runs started together."""
     names = list(source_names)

@@ -208,13 +208,6 @@ def _axes(t: torch.Tensor, layout: str):
             (t.stride(0), t.stride(2), t.stride(1)))
 
 
-def _raise_on_error(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(
-            f"{what} kernel launch failed: "
-            f"{lib.vtd_cuda_error_string(err).decode()} (cudaError {err})")
-
-
 def _launch_forward(q, k, v, layout: str, with_lse: bool = False):
     _check_inputs(q, k, v)
     kdim = q.shape[-1]
@@ -235,7 +228,7 @@ def _launch_forward(q, k, v, layout: str, with_lse: bool = False):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), _DTYPE_CODES[q.dtype],
             b, h, n, *strides, stream)
-    _raise_on_error(lib, err, "flash attention forward")
+    _build.raise_on_error(lib, err, "flash attention forward")
     _count("lse_launches" if with_lse else "launches")
     out = out[..., :kdim] if kdim < _HEAD_DIM else out
     return (out, lse) if with_lse else out
@@ -270,7 +263,7 @@ def _launch_backward(q, k, v, g, lse, delta, layout: str):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _DTYPE_CODES[q.dtype], b, h, n, *strides, stream)
-    _raise_on_error(lib, err, "flash attention backward")
+    _build.raise_on_error(lib, err, "flash attention backward")
     _count("backward_launches")
     return dq[..., :kdim].to(q.dtype), dk[..., :kdim], dv[..., :kdim]
 

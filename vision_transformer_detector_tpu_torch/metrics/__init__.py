@@ -1,9 +1,6 @@
-"""The reference mAP metric, on the device, and the shared NumPy oracle
-(the JAX package's metrics/mean_average_precision.py, which imports no
-JAX) that it is held to."""
-
-from vision_transformer_detector_tpu.metrics.mean_average_precision import (  # noqa: F401
-    MeanAveragePrecision,
-)
+"""The reference mAP metric, on the device, and the NumPy oracle
+(mean_average_precision.py, the port's copy of the JAX package's) that it
+is held to."""
 
 from .fast_map import DeviceMeanAveragePrecision  # noqa: F401
+from .mean_average_precision import MeanAveragePrecision  # noqa: F401

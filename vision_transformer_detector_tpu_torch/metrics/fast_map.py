@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from vision_transformer_detector_tpu.config import (
+from ..config import (
     CLASSIFICATION_CONFIDENCE_THRESHOLD,
     OBJECTNESS_THRESHOLD,
     DetectorConfig,

@@ -24,10 +24,17 @@ explicit matmul + softmax otherwise — the JAX einsum path. Both routes
 train; the trainer applies ``train_use_flash_attention`` to the config
 it trains with, so eval keeps the preset's route.
 
+The opt-in kernels route as in the JAX forward: ``use_fused_ffn`` sends
+the mish pyramid layers through kernels/fused_ffn.py (differentiable),
+``use_fused_layer_norm`` sends inference LayerNorms with D % 128 == 0
+through kernels/fused_ln.py, and a model from
+kernels/quantization.py:quantize_params runs its dense layers through the
+int8 kernels (serving only: ``train=True`` raises), with attention on the
+tokens-major route.
+
 Not ported yet, and rejected with NotImplementedError rather than run
-differently: windowed and ring attention, the multi-scale head, the fused
-FFN and LayerNorm kernels, int8 layers, rematerialisation, sequence
-sharding and training-time dropout.
+differently: windowed and ring attention, the multi-scale head,
+rematerialisation, sequence sharding and training-time dropout.
 """
 
 from __future__ import annotations
@@ -38,9 +45,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vision_transformer_detector_tpu.config import DetectorConfig
-
+from ..config import DetectorConfig
 from ..kernels.flash_attention import flash_attention
+from ..kernels.fused_ffn import fused_dense_mish
+from ..kernels.fused_ln import fused_layer_norm, layer_norm_reference
+from ..kernels.quantization import fused_int8_dense, int8_dense, is_quantized
 from ..utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -60,8 +69,6 @@ def check_supported(config: DetectorConfig) -> None:
         "attention_window": config.attention_window is not None,
         "ring_attention": config.ring_attention,
         "head_scales": tuple(config.head_scales) != (1,),
-        "use_fused_ffn": config.use_fused_ffn,
-        "use_fused_layer_norm": config.use_fused_layer_norm,
         "remat_encoder": config.remat_encoder,
         "sequence_sharding": config.sequence_sharding,
     }
@@ -239,26 +246,74 @@ def _linear(x, kernel, bias, compute_dtype) -> torch.Tensor:
 
 
 def _dense(x, layer: Dense, compute_dtype) -> torch.Tensor:
+    if is_quantized(layer):
+        # int8 serving layers: 2-D weights through the fused kernel, the
+        # others (none in this model's _dense calls) through int8_dense.
+        if layer.bias.dim() == 1:
+            return fused_int8_dense(x, layer).to(compute_dtype)
+        return int8_dense(x, layer).to(compute_dtype)
     return _linear(x, layer.kernel, layer.bias,
                    compute_dtype).to(compute_dtype)
 
 
-def _layer_norm(x, layer: LayerNorm, eps: float = 1e-3) -> torch.Tensor:
+def _layer_norm(x, layer: LayerNorm, eps: float = 1e-3,
+                config: DetectorConfig | None = None,
+                train: bool = True) -> torch.Tensor:
     """LayerNorm over the last axis in fp32 (keras default eps 1e-3),
-    two-pass variance as jnp.var."""
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    centered = x32 - mean
-    var = (centered * centered).mean(dim=-1, keepdim=True)
-    normed = centered * torch.rsqrt(var + eps)
-    out = normed * layer.gamma.float() + layer.beta.float()
-    return out.to(x.dtype)
+    two-pass variance as jnp.var. ``config.use_fused_layer_norm`` routes
+    inference (``not train``) through the fused kernel when D is a
+    multiple of 128, as the JAX forward does."""
+    if (config is not None and config.use_fused_layer_norm and not train
+            and x.shape[-1] % 128 == 0):
+        return fused_layer_norm(x, layer.gamma, layer.beta, eps=eps)
+    return layer_norm_reference(x, layer.gamma, layer.beta, eps)
 
 
 def _dense_activation(x, layer: Dense, config: DetectorConfig,
-                      compute_dtype) -> torch.Tensor:
+                      compute_dtype, train: bool = False) -> torch.Tensor:
+    """Dense + activation of the pyramid layers: the fused dense+mish
+    kernel first, then the int8 kernel with mish at inference, then the
+    plain route (the JAX forward's order)."""
+    if (config.use_fused_ffn and config.use_mish
+            and not is_quantized(layer)
+            and (config.dropout is None or not train)):
+        # The bias in the compute dtype too, as the JAX fused route casts
+        # it; mish runs in fp32 before the cast.
+        return fused_dense_mish(x.to(compute_dtype),
+                                layer.kernel.to(compute_dtype),
+                                layer.bias.to(compute_dtype))
+    if is_quantized(layer) and config.use_mish and not train:
+        return fused_int8_dense(x, layer,
+                                apply_mish=True).to(compute_dtype)
     x = _dense(x, layer, compute_dtype)
     return mish(x) if config.use_mish else F.gelu(x)
+
+
+def _attention_int8(xc, mha: MultiHeadAttention, config: DetectorConfig,
+                    compute_dtype) -> torch.Tensor:
+    """The int8 serving layers' attention, tokens-major as in the JAX
+    forward: q/k/v through int8_dense in fp32 (B, N, H, K), q / sqrt(key
+    dim) in fp32, flash (bnhk) in the compute dtype or the einsum route
+    with an fp32 result, and the out projection through int8_dense on
+    (B, N, H * K)."""
+    b, n, _ = xc.shape
+    h, k = mha.query.bias.shape          # physical head dim
+    q = int8_dense(xc, mha.query) / math.sqrt(config.key_dim)
+    key = int8_dense(xc, mha.key)
+    v = int8_dense(xc, mha.value)
+    if config.use_flash_attention:
+        attn = flash_attention(q.to(compute_dtype), key.to(compute_dtype),
+                               v.to(compute_dtype), layout="bnhk")
+    else:
+        scores = torch.einsum("bnhk,bmhk->bhnm",
+                              q.to(compute_dtype).float(),
+                              key.to(compute_dtype).float())
+        probs = torch.softmax(scores, dim=-1)
+        attn = torch.einsum("bhnm,bmhk->bnhk",
+                            probs.to(compute_dtype).float(),
+                            v.to(compute_dtype).float())
+    return int8_dense(attn.reshape(b, n, h * k),
+                      mha.out).to(compute_dtype)
 
 
 def _attention(x, mha: MultiHeadAttention, config: DetectorConfig,
@@ -269,8 +324,10 @@ def _attention(x, mha: MultiHeadAttention, config: DetectorConfig,
     them (``config.attention_heads_major`` overrides), and the kernel reads
     either through strides."""
     b, n, d = x.shape
-    h, k = mha.query.kernel.shape[1:]    # physical head dim, as in JAX
     xc = x.to(compute_dtype)
+    if is_quantized(mha.query):
+        return _attention_int8(xc, mha, config, compute_dtype)
+    h, k = mha.query.kernel.shape[1:]    # physical head dim, as in JAX
 
     def proj(layer):
         y = _linear(xc, layer.kernel.reshape(d, h * k),
@@ -305,17 +362,17 @@ def _attention(x, mha: MultiHeadAttention, config: DetectorConfig,
 
 
 def _encoder_block(x, block: EncoderBlock, config: DetectorConfig,
-                   compute_dtype) -> torch.Tensor:
+                   compute_dtype, train: bool) -> torch.Tensor:
     """Pre-LN MHA + descending mish pyramid, both residual."""
     side = x
-    x = _layer_norm(x, block.ln1)
+    x = _layer_norm(x, block.ln1, config=config, train=train)
     x = _attention(x, block.mha, config, compute_dtype)
     x = x + side
 
     side = x
-    x = _layer_norm(x, block.ln2)
+    x = _layer_norm(x, block.ln2, config=config, train=train)
     for layer in block.mlp:
-        x = _dense_activation(x, layer, config, compute_dtype)
+        x = _dense_activation(x, layer, config, compute_dtype, train)
     return x + side
 
 
@@ -331,6 +388,10 @@ def forward(params: ViTDetector, images: torch.Tensor,
     if train and config.dropout not in (None, 0.0):
         raise NotImplementedError(
             "training-time dropout is not ported to PyTorch yet")
+    if train and is_quantized(params.linear_projection):
+        raise NotImplementedError(
+            "an int8-quantized model is for serving only; train the float "
+            "model and quantize it afterwards")
     compute_dtype = _dtype(config.compute_dtype)
 
     patches = extract_patches(images.to(compute_dtype), config.patch_size)
@@ -339,7 +400,7 @@ def forward(params: ViTDetector, images: torch.Tensor,
     x = x + params.position_embedding.to(compute_dtype)[None]
 
     for block in params.encoder:
-        x = _encoder_block(x, block, config, compute_dtype)
+        x = _encoder_block(x, block, config, compute_dtype, train)
 
     b = x.shape[0]
     x = _dense(x, params.head_token_dense, compute_dtype)     # (B, P, M)
@@ -347,5 +408,5 @@ def forward(params: ViTDetector, images: torch.Tensor,
     # reference's keras Reshape.
     x = x.reshape(b, config.max_objects, config.num_patches)
     for layer in params.head_mlp:
-        x = _dense_activation(x, layer, config, compute_dtype)
+        x = _dense_activation(x, layer, config, compute_dtype, train)
     return _dense(x, params.head_output, compute_dtype).float()

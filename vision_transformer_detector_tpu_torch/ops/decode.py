@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from vision_transformer_detector_tpu.config import (
+from ..config import (
     CLASSIFICATION_CONFIDENCE_THRESHOLD, OBJECTNESS_THRESHOLD,
     DetectorConfig)
 

@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from vision_transformer_detector_tpu.config import EPSILON
+from ..config import EPSILON
 
 
 def _safe_sqrt(x: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from vision_transformer_detector_tpu.config import DetectorConfig, LossConfig
+from ..config import DetectorConfig, LossConfig
 
 from .decode import transform_predictions
 from .geometry import ciou

@@ -25,7 +25,7 @@ from typing import Callable, Dict, Iterable, List
 import numpy as np
 import torch
 
-from vision_transformer_detector_tpu.config import TrainConfig
+from ..config import TrainConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _MASK32 = 0xFFFFFFFF

@@ -26,9 +26,9 @@ from typing import Any, Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from vision_transformer_detector_tpu.config import (
+from ..config import (
     DetectorConfig, LossConfig, TrainConfig, load_configs, save_configs)
-from vision_transformer_detector_tpu.metrics.mean_average_precision import (
+from ..metrics.mean_average_precision import (
     MeanAveragePrecision)
 
 from ..metrics.fast_map import DeviceMeanAveragePrecision

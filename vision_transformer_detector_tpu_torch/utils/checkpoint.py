@@ -24,9 +24,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from vision_transformer_detector_tpu.config import (
-    DetectorConfig, LossConfig, TrainConfig, configs_to_dict)
-
+from ..config import DetectorConfig, LossConfig, TrainConfig, configs_to_dict
+from ..kernels.quantization import quantize_params
 from ..models.vit_detector import ViTDetector
 
 
@@ -36,15 +35,24 @@ def params_from_numpy(flat: Dict[str, np.ndarray],
 
     Every parameter must be present with the expected shape, and every
     array must be a parameter: a missing, extra or misshapen name raises.
-    Arrays are cast to ``config.param_dtype``.
+    Float arrays are cast to ``config.param_dtype``. Arrays of the JAX
+    package's ``quantize_params`` (``kernel_q``, ``scale``) load into the
+    int8 model of kernels/quantization.py, int8 codes as they are.
     """
-    quantized = sorted(name for name in flat if "kernel_q" in name)
-    if quantized:
-        raise NotImplementedError(
-            f"int8-quantized layers are not ported yet: {quantized[:3]}")
-    query = flat.get("encoder/0/mha/query/kernel")
+    quantized = any(name.endswith("/kernel_q") for name in flat)
+    # The physical head dim: the query kernel's last axis, or the
+    # quantized layer's (H, K) bias.
+    query = flat.get("encoder/0/mha/query/bias" if quantized
+                     else "encoder/0/mha/query/kernel")
     head_dim = None if query is None else int(query.shape[-1])
     model = ViTDetector(config, head_dim=head_dim)
+    if quantized:
+        # The int8 layout of the same model; the zeros quantize quietly
+        # and are overwritten below.
+        with torch.no_grad():
+            for param in model.parameters():
+                param.zero_()
+        model = quantize_params(model)
     state = model.state_dict()
     names = {key.replace(".", "/"): key for key in state}
     missing = sorted(set(names) - set(flat))
@@ -60,8 +68,10 @@ def params_from_numpy(flat: Dict[str, np.ndarray],
             raise ValueError(
                 f"{name}: shape {array.shape} != expected "
                 f"{tuple(state[key].shape)}")
+        host_dtype = (np.int8 if state[key].dtype == torch.int8
+                      else np.float32)
         loaded[key] = torch.from_numpy(
-            np.array(array, dtype=np.float32)).to(state[key].dtype)
+            np.array(array, dtype=host_dtype)).to(state[key].dtype)
     model.load_state_dict(loaded)
     return model
 
