@@ -5,10 +5,10 @@
 
 Drives the port (vision_transformer_detector_tpu_torch) through its main
 paths, serving the ViT-B/16 384px detector over HTTP (bf16, int8 with the
-fused LayerNorm, and the fused dense+mish with the fused LayerNorm) and
-training the reference_608 detector, and checks each hand-written kernel
-on those paths against its plain PyTorch version. Phases, one output line
-each:
+fused LayerNorm, and the fused dense+mish with the fused LayerNorm),
+training the reference_608 detector, and training highres_1024 with
+attention dropout, and checks each hand-written kernel on those paths
+against its plain PyTorch version. Phases, one output line each:
 
   1. build        — compile every kernel source of the paths from csrc/
                     with nvcc, all at once; ptxas lines of each;
@@ -28,6 +28,16 @@ each:
                     backward and forward+backward, kernel against plain, at
                     the reference_608 shape, beside scaled_dot_product_
                     attention forward and backward;
+  3b. kernel_drop — the forward with in-kernel dropout (rate 0.1, a seed
+                    near 2^32) and lse, and the backward with the mask
+                    replayed, against the plain versions with the same
+                    mask, and the Function against autograd: (2048, 256,
+                    64) bf16 (highres_1024 at batch 8, heads-major as the
+                    model folds its windows), (64, 1296, 40) fp32
+                    tokens-major and a ragged N; the kernel's mask read
+                    back exactly (q = k = 0, v one-hot) for 2,048
+                    batch*heads; times in turns against the plain versions
+                    and scaled_dot_product_attention with dropout_p;
   4. kernel_serve — the int8 dense kernel (both routes), the LayerNorm
                     kernel and the dense+mish kernel against their plain
                     versions at the vit_b16_384 shapes for batch 1 and 32,
@@ -59,7 +69,21 @@ each:
                     in [0, 1]; (c) the forward-with-lse and backward
                     kernels launch 8 times per step and 0 times in eval;
                     (d) save, restore, and the next step's loss is
-                    identical; (e) the median step time.
+                    identical; (e) the median step time;
+ 11. train_highres — highres_1024 (1024 px, 16 windows of 256 tokens,
+                    D 1024, 24 blocks, the (1, 2, 4) multi-scale head)
+                    with dropout 0.1 and remat None: (a) one fp32 step at
+                    batch 1 and depth 2, card against CPU, dropout off;
+                    (b) depth 2, fp32, dropout on: remat None against no
+                    remat from one seed; (c) 8 steps at batch 8 through
+                    Trainer.fit in bf16 at full depth, with an eval: the
+                    loss falls, 48 dropout forward and 24 replay backward
+                    launches per step, 24 plain forward launches in the
+                    eval; (d) save, restore, the next step's loss is
+                    identical (the dropout seed generator is restored);
+                    (e) the median step time and peak memory; (f) one step
+                    as shipped ("alternate" remat, no dropout): 36
+                    forward-with-lse and 24 backward launches.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON
 line with each kernel's shape, launches, error, times (its own, its plain
@@ -139,7 +163,7 @@ def _bound(ops: float, nbytes: float, kind: str):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def _sdpa(q, k, v, backend):
+def _sdpa(q, k, v, backend, dropout_p=0.0):
     """One scaled_dot_product_attention call on (B, H, N, K) inputs that
     carry their 1/sqrt(K) already, on the given backend: the library
     yardstick for the flash kernels (the port never calls it)."""
@@ -147,7 +171,8 @@ def _sdpa(q, k, v, backend):
     from torch.nn.attention import sdpa_kernel
 
     with sdpa_kernel([backend]):
-        return F.scaled_dot_product_attention(q, k, v, scale=1.0)
+        return F.scaled_dot_product_attention(q, k, v, scale=1.0,
+                                              dropout_p=dropout_p)
 
 
 def _sdpa_backend(run):
@@ -254,6 +279,29 @@ def _rel_err(got, ref) -> float:
     ref = ref.float()
     return ((got.float() - ref).abs().max()
             / ref.abs().max().clamp(min=1e-30)).item()
+
+
+def _grad_errors(got: dict, ref: dict, tol: float, what: str) -> tuple:
+    """Max error of each gradient relative to its reference's largest
+    value; the attention key bias (zero in exact arithmetic: the softmax
+    cancels it) is held to the largest gradient instead. Returns (worst
+    name, worst error)."""
+    import torch
+
+    global_max = max(g.abs().max().item() for g in ref.values())
+    errs = {}
+    for name, want in ref.items():
+        have = got[name]
+        _require(bool(torch.isfinite(have).all()),
+                 f"{what}: non-finite grad {name}")
+        if name.endswith("mha.key.bias"):
+            errs[name] = (have - want).abs().max().item() / global_max
+        else:
+            errs[name] = _rel_err(have, want)
+        _require(errs[name] <= tol,
+                 f"{what}: grad {name} rel err {errs[name]} > {tol}")
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst]
 
 
 def phase_kernel_train():
@@ -374,6 +422,155 @@ def phase_kernel_train():
             times_fp32_64x1296x40=times, sdpa_backend=backend.name)
     ref = errors["64x1296x40_float32_bnhk"]
     return ref, times
+
+
+DROP_RATE = 0.1          # highres_1024's documented training dropout
+DROP_SEED = 2 ** 32 - 5  # a seed near 2^32: the hash's sums wrap
+
+
+def phase_kernel_drop():
+    """B1-drop (the forward with in-kernel dropout and lse) and B2 with
+    the dropout replay against their plain versions; the kernel's mask
+    read back exactly; times against the plain versions and SDPA with
+    dropout_p."""
+    import torch
+
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    drop = (DROP_SEED, DROP_RATE)
+    kw = {"dropout_rate": DROP_RATE, "dropout_seed": DROP_SEED}
+
+    def inputs(layout, shape, dtype):
+        """Scaled q, k, v and a cotangent g in ``layout`` order, contiguous
+        (the model's heads-major window fold is a contiguous copy)."""
+        q, k, v, g = (torch.randn(shape, device="cuda", generator=gen)
+                      for _ in range(4))
+        return [t.to(dtype) for t in (q.mul(shape[-1] ** -0.5), k, v, g)]
+
+    # Tolerances as in kernel_train: out and grads relative to the largest
+    # value, fp32 2e-5 (summation order, dq's atomics), bf16 2e-2 (p and
+    # ds round to bf16 at other points); lse fp32 1e-4 absolute.
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    lse_tol = 1e-4
+    cases = (("bhnk", (8, 256, 256, 64), torch.bfloat16),   # highres b8
+             ("bnhk", (8, 1296, 8, 40), torch.float32),     # tokens-major
+             ("bnhk", (3, 77, 4, 40), torch.bfloat16))      # ragged N
+    errors = {}
+    for layout, shape, dtype in cases:
+        b, h, n = ((shape[0], shape[1], shape[2]) if layout == "bhnk"
+                   else (shape[0], shape[2], shape[1]))
+        name = f"{b * h}x{n}x{shape[3]}_{str(dtype)[6:]}_{layout}"
+        q, k, v, g = inputs(layout, shape, dtype)
+        out, lse = fa.flash_attention(q, k, v, layout=layout, with_lse=True,
+                                      **kw)
+        delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                                layout).contiguous()
+        grads = fa._launch_backward(q, k, v, g, lse, delta, layout, drop)
+        torch.cuda.synchronize()
+        ref = fa.reference_attention(q, k, v, layout, drop)
+        out_err, out_abs = _rel_err(out, ref), _max_err(out, ref)
+        lse_err = (lse - fa.reference_attention_lse(q, k, layout)
+                   ).abs().max().item()
+        plain = fa.reference_attention_backward(q, k, v, g, layout, drop)
+        bwd_err = max(_rel_err(a, r) for a, r in zip(grads, plain))
+        bwd_abs = max(_max_err(a, r) for a, r in zip(grads, plain))
+        _require(out_err <= tol[dtype], f"B1-drop {name}: out {out_err}")
+        _require(lse_err <= lse_tol, f"B1-drop {name}: lse {lse_err}")
+        _require(all(a.shape == r.shape and a.dtype == r.dtype
+                     for a, r in zip(grads, plain)), f"grad shapes {name}")
+        _require(bwd_err <= tol[dtype], f"B2-drop {name}: grads {bwd_err}")
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        counts = (fa.flash_attention.drop_launches,
+                  fa.flash_attention.backward_drop_launches)
+        fn_grads = torch.autograd.grad(
+            fa.flash_attention(*leaves, layout=layout, **kw), leaves, g)
+        _require((fa.flash_attention.drop_launches,
+                  fa.flash_attention.backward_drop_launches)
+                 == (counts[0] + 1, counts[1] + 1),
+                 "the Function did not launch the dropout kernels")
+        auto = torch.autograd.grad(
+            fa.reference_attention(*leaves, layout=layout, dropout=drop),
+            leaves, g)
+        fn_err = max(_rel_err(a, r) for a, r in zip(fn_grads, auto))
+        _require(fn_err <= tol[dtype], f"Function {name}: {fn_err}")
+        errors[name] = {"out_rel": out_err, "out_abs": out_abs,
+                        "lse_abs": lse_err,
+                        "bwd_rel": bwd_err, "bwd_abs": bwd_abs,
+                        "function_vs_autograd_rel": fn_err}
+        del q, k, v, g, out, ref, lse, delta, grads, plain, leaves
+        del fn_grads, auto
+
+    # The kernel's mask, read back exactly: q = k = 0 gives p = 1 for every
+    # key, so with v one-hot on one 64-key slice, out * N / inv_keep is
+    # the mask of those keys (fp32: inv_keep / N * N / inv_keep == 1).
+    bh, n = 2048, 256
+    zeros = torch.zeros(1, bh, n, 64, device="cuda")
+    inv_keep = torch.tensor(1.0 / (1.0 - DROP_RATE), dtype=torch.float32)
+    pos = torch.arange(n, device="cuda")
+    want = fa.dropout_keep_mask(
+        DROP_SEED, torch.arange(bh, device="cuda")[:, None, None],
+        pos[:, None], pos[None, :], fa._keep_threshold(DROP_RATE))
+    mismatches = 0
+    for slice0 in range(0, n, 64):
+        v = torch.zeros(1, bh, n, 64, device="cuda")
+        v[0, :, slice0:slice0 + 64, :] = torch.eye(64, device="cuda")
+        out = fa.flash_attention(zeros, zeros, v, layout="bhnk", **kw)
+        read = out[0] * n / inv_keep.item()
+        _require(bool(((read - read.round()).abs() <= 1e-5).all()),
+                 "mask read-back is not 0/1")
+        mismatches += int((read.round().bool()
+                           != want[:, :, slice0:slice0 + 64]).sum())
+    _require(mismatches == 0, f"kernel mask differs in {mismatches} places")
+    keep_rate = want.float().mean().item()
+    del zeros, want
+
+    # Times at the highres_1024 batch-8 fold, kernel against plain against
+    # SDPA with dropout_p (another RNG: the same function in distribution).
+    q, k, v, g = inputs("bhnk", (8, 256, 256, 64), torch.bfloat16)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def step(use_kernel):
+        o = fa.FlashAttentionFunction.apply(*leaves, "bhnk", use_kernel,
+                                            drop)
+        torch.autograd.grad(o, leaves, g)
+
+    lib_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def lib_step(backend):
+        out = _sdpa(*lib_leaves, backend, DROP_RATE)
+        torch.autograd.grad(out, lib_leaves, g)
+
+    backend = _sdpa_backend(lib_step)
+    times = {
+        "fwd_drop": _in_turns({
+            "plain_ms": lambda: (fa.reference_attention(q, k, v, "bhnk",
+                                                        drop),
+                                 fa.reference_attention_lse(q, k, "bhnk")),
+            "kernel_ms": lambda: fa.flash_attention(q, k, v, layout="bhnk",
+                                                    with_lse=True, **kw),
+            "library_ms": lambda: _sdpa(q, k, v, backend, DROP_RATE)}, 5),
+        "fwd_bwd_drop": _in_turns({
+            "plain_ms": lambda: step(False),
+            "kernel_ms": lambda: step(True),
+            "library_ms": lambda: lib_step(backend)}, 3),
+    }
+    out, lse = fa.flash_attention(q, k, v, layout="bhnk", with_lse=True, **kw)
+    delta = (g.float() * out.float()).sum(-1)
+    lib_out = _sdpa(*lib_leaves, backend, DROP_RATE)
+    times["bwd_drop"] = _in_turns({
+        "plain_ms": lambda: fa.reference_attention_backward(q, k, v, g,
+                                                            "bhnk", drop),
+        "kernel_ms": lambda: fa._launch_backward(q, k, v, g, lse, delta,
+                                                 "bhnk", drop),
+        "library_ms": lambda: torch.autograd.grad(
+            lib_out, lib_leaves, g, retain_graph=True)}, 3)
+    _report("kernel_drop", rate=DROP_RATE, seed=DROP_SEED, errors=errors,
+            mask_readback={"bh": bh, "n": n, "mismatches": mismatches,
+                           "keep_rate": keep_rate},
+            times_bf16_2048x256x64=times, sdpa_backend=backend.name)
+    return errors["2048x256x64_bfloat16_bhnk"], times
 
 
 def _quant_layer(gen, k: int, out_shape):
@@ -568,7 +765,9 @@ def _counts():
 
     return {"flash": fa.flash_attention.launches,
             "flash_lse": fa.flash_attention.lse_launches,
+            "flash_drop": fa.flash_attention.drop_launches,
             "flash_bwd": fa.flash_attention.backward_launches,
+            "flash_bwd_drop": fa.flash_attention.backward_drop_launches,
             "int8_fused": qz.fused_int8_dense.launches,
             "int8_dense": qz.int8_dense.launches,
             "layer_norm": fused_ln.fused_layer_norm.launches,
@@ -580,7 +779,8 @@ def _reset_counts() -> None:
         flash_attention as fa, fused_ffn, fused_ln, quantization as qz)
 
     for fn, names in ((fa.flash_attention,
-                       ("launches", "lse_launches", "backward_launches")),
+                       ("launches", "lse_launches", "drop_launches",
+                        "backward_launches", "backward_drop_launches")),
                       (qz.fused_int8_dense, ("launches",)),
                       (qz.int8_dense, ("launches",)),
                       (fused_ln.fused_layer_norm, ("launches",)),
@@ -958,18 +1158,8 @@ def phase_train():
     loss_err = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
     _require(np.isfinite(gpu_loss) and loss_err <= loss_tol,
              f"loss card {gpu_loss} vs CPU {cpu_loss}")
-    global_max = max(g.abs().max().item() for g in cpu_grads.values())
-    grad_errs = {}
-    for name, ref in cpu_grads.items():
-        got = gpu_grads[name]
-        _require(bool(torch.isfinite(got).all()), f"non-finite grad {name}")
-        if name.endswith("mha.key.bias"):
-            err = (got - ref).abs().max().item() / global_max
-        else:
-            err = _rel_err(got, ref)
-        grad_errs[name] = err
-        _require(err <= grad_tol, f"grad {name}: rel err {err} > {grad_tol}")
-    worst = max(grad_errs, key=grad_errs.get)
+    worst, worst_err = _grad_errors(gpu_grads, cpu_grads, grad_tol,
+                                    "card vs CPU")
     del params, cpu_grads, gpu_grads
 
     # (b, c) 20 steps at batch 8 through Trainer.fit, eval at the end.
@@ -979,9 +1169,7 @@ def phase_train():
     trainer = Trainer(config, loss_config, train_config, device="cuda")
     state = trainer.init_state()
     data = list(synthetic_batches(config, 8, 1, seed=SEED + 1))
-    flash_attention.launches = 0
-    flash_attention.lse_launches = 0
-    flash_attention.backward_launches = 0
+    _reset_counts()
     torch.cuda.synchronize()
     tic = time.perf_counter()
     state = trainer.fit(state, data, epochs=TRAIN_STEPS, eval_data=data)
@@ -1068,7 +1256,7 @@ def phase_train():
             step_vs_cpu={"batch": 2, "loss_card": gpu_loss,
                          "loss_cpu": cpu_loss, "loss_rel_err": loss_err,
                          "loss_tol": loss_tol, "grad_rel_err_max":
-                         grad_errs[worst], "grad_worst": worst,
+                         worst_err, "grad_worst": worst,
                          "grad_tol": grad_tol},
             fit={"batch": 8, "steps": TRAIN_STEPS, "seconds": fit_s,
                  "loss_first": losses[0], "loss_last": losses[-1],
@@ -1078,6 +1266,186 @@ def phase_train():
             step_ms_median=float(np.median(step_ms)),
             step_ms_min=min(step_ms),
             peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return launches
+
+
+HIGHRES_STEPS = 8       # Trainer.fit epochs (one batch each) in train_highres
+
+
+def phase_train_highres():
+    """highres_1024 (1024 px, 4,096 tokens in 16 windows of 256, D 1024,
+    24 blocks, the (1, 2, 4) multi-scale head) trained with dropout 0.1
+    and full remat, the configuration its docstring gives for training
+    with dropout: (a) card against CPU, one fp32 step at batch 1 and depth
+    2 with dropout off; (b) on the card at depth 2 in fp32 with dropout
+    on, remat None against no remat from one seed; (c) Trainer.fit at
+    batch 8, bf16, all 24 blocks, with an eval; (d) save, restore, and
+    the next step's loss; (e) the median step and peak memory; (f) one
+    step as shipped ("alternate" remat, no dropout)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from vision_transformer_detector_tpu_torch import (
+        LossConfig, TrainConfig, get_config, synthetic_batches)
+    from vision_transformer_detector_tpu_torch.models.vit_detector import (
+        count_params, forward, init_params)
+    from vision_transformer_detector_tpu_torch.ops.loss import detection_loss
+    from vision_transformer_detector_tpu_torch.train.trainer import Trainer
+
+    shipped = get_config("highres_1024")
+    _require(shipped.image_size == (1024, 1024) and shipped.patch_size == 16
+             and shipped.embedding_dim == 1024 and shipped.num_heads == 16
+             and shipped.key_dim == 64 and shipped.encoder_blocks == 24
+             and shipped.attention_window == 16
+             and tuple(shipped.head_scales) == (1, 2, 4)
+             and shipped.remat_encoder and shipped.remat_policy == "alternate"
+             and shipped.compute_dtype == "bfloat16"
+             and shipped.use_flash_attention and shipped.dropout is None,
+             "highres_1024 preset changed")
+    config = shipped.replace(dropout=DROP_RATE, remat_policy=None)
+    loss_config = LossConfig()
+    # fp32 at depth 2 for the card-against-CPU and remat checks.
+    small = config.replace(encoder_blocks=2, compute_dtype="float32")
+
+    def loss_and_grads(model, cfg, images, labels, device, seed=None):
+        named = dict(model.named_parameters())
+        logits = forward(model, torch.from_numpy(images).to(device), cfg,
+                         train=True, dropout_seed=seed)
+        loss = detection_loss(torch.from_numpy(labels).to(device), logits,
+                              cfg, loss_config)
+        grads = torch.autograd.grad(loss, list(named.values()))
+        return loss.item(), {n: g.cpu() for n, g in zip(named, grads)}
+
+    # (a) card against CPU, dropout off (no seed), batch 1, fp32: sums in
+    # other orders (and dq's atomics) through 2 full-width blocks.
+    loss_tol, grad_tol = 1e-4, 2e-3
+    params = init_params(small, torch.Generator().manual_seed(SEED))
+    images, labels = next(synthetic_batches(small, 1, 1, seed=SEED))
+    cpu_loss, cpu_grads = loss_and_grads(params, small, images, labels,
+                                         "cpu")
+    card = copy.deepcopy(params).to("cuda")
+    gpu_loss, gpu_grads = loss_and_grads(card, small, images, labels, "cuda")
+    loss_err = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    _require(np.isfinite(gpu_loss) and loss_err <= loss_tol,
+             f"highres loss card {gpu_loss} vs CPU {cpu_loss}")
+    cpu_worst = _grad_errors(gpu_grads, cpu_grads, grad_tol, "card vs CPU")
+    del cpu_grads, gpu_grads
+
+    # (b) remat None against no remat, dropout on, one seed, on the card:
+    # the forward is the same computation (equal loss); the grads differ
+    # by dq's atomic adds in run-dependent order.
+    remat_tol = 1e-4
+    seed = 12345
+    remat_losses, grads = {}, {}
+    for name, cfg in (("none", small),
+                      ("no_remat", small.replace(remat_encoder=False))):
+        remat_losses[name], grads[name] = loss_and_grads(
+            card, cfg, images, labels, "cuda", seed)
+    _require(remat_losses["none"] == remat_losses["no_remat"],
+             f"remat loss {remat_losses}")
+    remat_worst = _grad_errors(grads["none"], grads["no_remat"], remat_tol,
+                               "remat vs no remat")
+    off_loss = loss_and_grads(card, small, images, labels, "cuda")[0]
+    _require(off_loss != remat_losses["none"], "dropout changed nothing")
+    del params, card, grads
+
+    # (c) Trainer.fit at batch 8, full depth, bf16, dropout 0.1, remat
+    # None, with an eval at the end. lr 1e-5: at the default 8e-5 this
+    # model's loss on one synthetic batch oscillates (in fp32 as in bf16)
+    # instead of falling within a few steps.
+    train_config = TrainConfig(learning_rate=1e-5, seed=SEED,
+                               epochs_warm_up=HIGHRES_STEPS - 1,
+                               skip_epochs=HIGHRES_STEPS)
+    trainer = Trainer(config, loss_config, train_config, device="cuda")
+    state = trainer.init_state()
+    n_params = count_params(state["params"])
+    data = list(synthetic_batches(config, 8, 1, seed=SEED + 1))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    state = trainer.fit(state, data, epochs=HIGHRES_STEPS, eval_data=data)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - tic
+    launches = _counts()
+    blocks = config.encoder_blocks
+    # Per step: each block's forward with dropout and lse, again in the
+    # remat recompute, and the backward with the replay; the eval: one
+    # forward without lse or dropout per block.
+    want = dict({name: 0 for name in launches},
+                flash=blocks, flash_drop=2 * blocks * HIGHRES_STEPS,
+                flash_bwd_drop=blocks * HIGHRES_STEPS)
+    _require(launches == want, f"fit launched {launches}, expected {want}")
+    losses = trainer.loss_record
+    _require(len(losses) == HIGHRES_STEPS and all(np.isfinite(losses)),
+             f"losses {losses}")
+    # Dropout makes single steps noisy: the last loss and the mean of the
+    # last half both below the first.
+    _require(losses[-1] < losses[0]
+             and np.mean(losses[HIGHRES_STEPS // 2:]) < losses[0],
+             f"loss did not fall: {losses}")
+    _require(len(trainer.ap_record) == 1
+             and 0.0 <= trainer.ap_record[0] <= 1.0,
+             f"eval AP {trainer.ap_record}")
+    eval_ap = trainer.ap_record[0]
+
+    # (d) save, restore: the restored dropout generator draws the seed the
+    # uninterrupted run drew, so the next step's loss is identical.
+    images8, labels8 = (torch.from_numpy(a).to("cuda") for a in data[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer.checkpoint_dir = tmp
+        trainer.save(state, name="smoke")
+        _, loss_a = trainer.train_step(state, images8, labels8)
+        state = trainer.restore(state, name="smoke")
+    _, loss_b = trainer.train_step(state, images8, labels8)
+    _require(loss_a.item() == loss_b.item(),
+             f"loss after restore {loss_b.item()} != {loss_a.item()}")
+
+    # (e) the median step at batch 8.
+    step_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        trainer.train_step(state, images8, labels8)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - tic) * 1e3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    del trainer, state
+
+    # (f) one step as shipped: "alternate" remat, no dropout.
+    plain = Trainer(shipped, loss_config, train_config, device="cuda")
+    plain_state = plain.init_state()
+    _reset_counts()
+    _, shipped_loss = plain.train_step(plain_state, images8, labels8)
+    torch.cuda.synchronize()
+    shipped_launches = _counts()
+    want = dict({name: 0 for name in shipped_launches},
+                flash_lse=blocks + blocks // 2, flash_bwd=blocks)
+    _require(shipped_launches == want and np.isfinite(shipped_loss.item()),
+             f"as shipped: launches {shipped_launches}, expected {want}; "
+             f"loss {shipped_loss.item()}")
+    del plain, plain_state
+    _report("train_highres", preset="highres_1024", dropout=DROP_RATE,
+            remat_policy=None, dtype="bfloat16", params=n_params,
+            step_vs_cpu={"batch": 1, "blocks": 2, "dtype": "float32",
+                         "loss_card": gpu_loss, "loss_cpu": cpu_loss,
+                         "loss_rel_err": loss_err, "loss_tol": loss_tol,
+                         "grad_worst": cpu_worst, "grad_tol": grad_tol},
+            remat_vs_none={"blocks": 2, "dtype": "float32", "seed": seed,
+                           "loss": remat_losses,
+                           "loss_dropout_off": off_loss,
+                           "grad_worst": remat_worst, "grad_tol": remat_tol},
+            fit={"batch": 8, "steps": HIGHRES_STEPS, "seconds": fit_s,
+                 "losses": losses, "eval_ap": eval_ap,
+                 "launches": launches},
+            restore_loss_identical=True,
+            step_ms_median=float(np.median(step_ms)),
+            step_ms_min=min(step_ms), peak_memory_gib=peak_gib,
+            shipped={"remat_policy": "alternate", "dropout": None,
+                     "loss": shipped_loss.item(),
+                     "launches": shipped_launches})
     return launches
 
 
@@ -1091,13 +1459,16 @@ def _entry(name, source, replaces, shape, launches, err, times, bound):
 
 
 def _kernels_line(flash_err, flash_times, train_errors, train_times,
-                  serve_errors, serve_times, launches) -> dict:
+                  drop_errors, drop_times, serve_errors, serve_times,
+                  launches) -> dict:
     """The kernels of every path, each with its launches on its main path,
     its error against its plain version, its times and its bound."""
     bh, n, k = 12, 576, 64                     # vit_b16_384, batch 1
     flash_bytes = 4 * bh * n * k * 2
     tbh, tn, tk = 64, 1296, 40                 # reference_608, batch 8
     qkv = tbh * tn * tk * 4
+    hbh, hn, hk = 2048, 256, 64                # highres_1024, batch 8
+    hqkv = hbh * hn * hk * 2                   # one bf16 operand
     rows, d, wide = 576 * 32, 768, 1536        # vit_b16_384, batch 32
     return {"kernels": [
         _entry("flash_attention_fwd", "flash_attention_fwd.cu",
@@ -1116,6 +1487,21 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
                train_times["bwd"],
                _bound(10 * tbh * tn * tn * tk, 7 * qkv + 2 * tbh * tn * 4,
                       "fp32")),
+        # q, k, v read, out written (bf16), lse written (fp32).
+        _entry("flash_attention_fwd_drop", "flash_attention_fwd.cu",
+               "flash_attention.py:679", [hbh, hn, hk, "bfloat16", DROP_RATE],
+               launches["flash_drop"], drop_errors["out_abs"],
+               drop_times["fwd_drop"],
+               _bound(4 * hbh * hn * hn * hk, 4 * hqkv + hbh * hn * 4,
+                      "bf16")),
+        # q, k, v, g read and dk, dv written (bf16), lse and delta read and
+        # dq written (fp32).
+        _entry("flash_attention_bwd_drop", "flash_attention_bwd.cu",
+               "flash_attention.py:151", [hbh, hn, hk, "bfloat16", DROP_RATE],
+               launches["flash_bwd_drop"], drop_errors["bwd_abs"],
+               drop_times["bwd_drop"],
+               _bound(10 * hbh * hn * hn * hk,
+                      6 * hqkv + 2 * hqkv + 2 * hbh * hn * 4, "bf16")),
         dict(_entry("int8_dense", "int8_dense.cu", "quantization.py:159",
                     [rows, d, wide, "bfloat16", "mish"],
                     launches["int8_fused"], serve_errors["int8_dense"],
@@ -1154,6 +1540,7 @@ def main() -> int:
     phase_build()
     flash_err, flash_times = phase_kernel()
     train_errors, train_times = phase_kernel_train()
+    drop_errors, drop_times = phase_kernel_drop()
     serve_errors, serve_times = phase_kernel_serve()
     phase_model()
     phase_model_serve()
@@ -1161,6 +1548,7 @@ def main() -> int:
     int8_launches, _ = phase_serve_int8()
     ffn_launches, _ = phase_serve_fused_ffn()
     train_launches = phase_train()
+    highres_launches = phase_train_highres()
     foreign = sorted(name for name in sys.modules
                      if name == "jax" or name.startswith("jax.")
                      or name == "vision_transformer_detector_tpu"
@@ -1175,13 +1563,16 @@ def main() -> int:
     launches = {"flash": flash_launches,
                 "flash_lse": train_launches["fwd_lse"],
                 "flash_bwd": train_launches["bwd"],
+                "flash_drop": highres_launches["flash_drop"],
+                "flash_bwd_drop": highres_launches["flash_bwd_drop"],
                 "int8_fused": int8_launches["int8_fused"],
                 "int8_dense": int8_launches["int8_dense"],
                 "layer_norm": int8_launches["layer_norm"],
                 "dense_mish": ffn_launches["dense_mish"]}
     print(json.dumps(_kernels_line(flash_err, flash_times, train_errors,
-                                   train_times, serve_errors, serve_times,
-                                   launches)), flush=True)
+                                   train_times, drop_errors, drop_times,
+                                   serve_errors, serve_times, launches)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -93,3 +93,25 @@ def test_train_with_fused_ffn(dataset, tmp_path, capsys, monkeypatch):
 def test_train_refuses_unported_flags(dataset, tmp_path, flag):
     with pytest.raises(SystemExit):
         main(_args(dataset, tmp_path, "--epochs", "1", *flag))
+
+
+def test_train_highres_1024_preset(dataset, tmp_path, capsys, monkeypatch):
+    """``train --preset highres_1024`` runs as shipped: bf16, flash,
+    windowed attention, the (1, 2, 4) multi-scale head and "alternate"
+    remat. A narrow 2-block copy of the preset at 128 px (an 8x8 grid, so
+    window 4) keeps it a CPU test."""
+    from vision_transformer_detector_tpu_torch import config as port_config
+
+    narrow = port_config.highres_1024().replace(
+        embedding_dim=64, num_heads=1, encoder_blocks=2, head_last_units=16,
+        head_layers=2, attention_window=4)
+    assert narrow.remat_policy == "alternate" and narrow.key_dim == 64
+    monkeypatch.setitem(port_config.PRESETS, "highres_1024", lambda: narrow)
+    args = _args(dataset, tmp_path, "--epochs", "1", "--image-size", "128")
+    args[args.index("tiny_96")] = "highres_1024"
+    main(args)
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert np.isfinite(result["final_loss"]) and 0 <= result["best_ap"] <= 1
+    saved = json.loads((tmp_path / "ckpt" / "config.json").read_text())
+    assert saved["detector"]["head_scales"] == [1, 2, 4]
+    assert saved["detector"]["attention_window"] == 4

@@ -84,9 +84,11 @@ def test_kernel_refuses_what_it_does_not_take(gen):
         fa._launch_backward(q, k, v, q, lse[:, :1], lse, "bhnk")
     with pytest.raises(ValueError, match="delta must be"):
         fa._launch_backward(q, k, v, q, lse, lse.double(), "bhnk")
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention(q, k, v, layout="bhnk", dropout_rate=0.1,
+    with pytest.raises(ValueError, match="must be in"):
+        fa.flash_attention(q, k, v, layout="bhnk", dropout_rate=1.0,
                            dropout_seed=1)
+    with pytest.raises(ValueError, match="needs a dropout_seed"):
+        fa.flash_attention(q, k, v, layout="bhnk", dropout_rate=0.1)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention(q.half(), k.half(), v.half(), layout="bhnk")
     wide = torch.zeros(1, 2, 64, 128, device="cuda")
@@ -232,6 +234,146 @@ def test_train_grads_on_card_match_cpu(gen):
         # both sides, held to the largest gradient.
         scale = top if name.endswith("mha.key.bias") else ref.abs().max()
         assert (got - ref).abs().max().item() <= 1e-3 * float(scale), name
+
+
+# ---------------------------------------------------------------------------
+# Attention dropout: B1-drop and the B2 replay
+# ---------------------------------------------------------------------------
+
+DROP = (2 ** 32 - 5, 0.1)   # (seed near 2^32, rate)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout,shape", [
+    ("bhnk", (2, 64, 256, 64)),      # highres_1024's heads-major fold
+    ("bnhk", (2, 1296, 4, 40)),      # tokens-major, K padded to 64
+    ("bnhk", (3, 77, 4, 40)),        # ragged N
+])
+def test_dropout_kernels_match_plain(gen, dtype, layout, shape):
+    """The forward with dropout and lse, and the backward with the mask
+    replayed, against the plain versions with the same mask; the
+    Function's grads against autograd through the plain version."""
+    q, k, v = _qkv(gen, shape, dtype, shape[-1] ** -0.5)
+    g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    seed, rate = DROP
+    before = (fa.flash_attention.drop_launches,
+              fa.flash_attention.backward_drop_launches)
+    out, lse = fa.flash_attention(q, k, v, layout=layout, with_lse=True,
+                                  dropout_rate=rate, dropout_seed=seed)
+    assert _rel(out, fa.reference_attention(q, k, v, layout, DROP)) <= \
+        GRAD_TOLS[dtype]
+    torch.testing.assert_close(lse, fa.reference_attention_lse(q, k, layout),
+                               atol=1e-4, rtol=0)
+    delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                            layout).contiguous()
+    grads = fa._launch_backward(q, k, v, g, lse, delta, layout, DROP)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.drop_launches,
+            fa.flash_attention.backward_drop_launches) == (
+        before[0] + 1, before[1] + 1)
+    for got, ref in zip(grads, fa.reference_attention_backward(
+            q, k, v, g, layout, DROP)):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert _rel(got, ref) <= GRAD_TOLS[dtype]
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    fn = torch.autograd.grad(fa.flash_attention(
+        *leaves, layout=layout, dropout_rate=rate, dropout_seed=seed),
+        leaves, g)
+    auto = torch.autograd.grad(
+        fa.reference_attention(*leaves, layout=layout, dropout=DROP),
+        leaves, g)
+    for got, ref in zip(fn, auto):
+        assert _rel(got, ref) <= GRAD_TOLS[dtype]
+
+
+def test_dropout_kernel_mask_reads_back_exactly(gen):
+    """q = k = 0 makes every probability 1/N: with v one-hot on a 64-key
+    slice, out * N / inv_keep is the kernel's mask of those keys, bit-equal
+    to dropout_keep_mask (batch*heads up to 2,047, a seed near 2^32)."""
+    seed, rate = DROP
+    bh, n = 2048, 128
+    zeros = torch.zeros(1, bh, n, 64, device="cuda")
+    pos = torch.arange(n, device="cuda")
+    want = fa.dropout_keep_mask(seed, torch.arange(bh, device="cuda")[
+        :, None, None], pos[:, None], pos[None, :], fa._keep_threshold(rate))
+    inv_keep = float(np.float32(1.0 / (1.0 - rate)))
+    for slice0 in range(0, n, 64):
+        v = torch.zeros(1, bh, n, 64, device="cuda")
+        v[0, :, slice0:slice0 + 64, :] = torch.eye(64, device="cuda")
+        out = fa.flash_attention(zeros, zeros, v, layout="bhnk",
+                                 dropout_rate=rate, dropout_seed=seed)
+        # A CUDA division by a scalar may multiply by its reciprocal: the
+        # read-back is 0 or 1 to an ulp, then exact once rounded.
+        read = out[0] * n / inv_keep
+        assert bool(((read - read.round()).abs() <= 1e-5).all())
+        assert torch.equal(read.round().bool(),
+                           want[:, :, slice0:slice0 + 64])
+
+
+def _windowed_config(**overrides):
+    """A small highres_1024-like model: windows (heads-major, K 64), the
+    (1, 2, 4) multi-scale head, full remat, flash attention."""
+    return DetectorConfig(
+        image_size=(128, 128), patch_size=16, embedding_dim=64, num_heads=2,
+        key_dim=64, encoder_blocks=2, encoder_mlp_layers=2,
+        head_last_units=32, head_layers=2, use_flash_attention=True,
+        attention_window=4, head_scales=(1, 2, 4), remat_encoder=True,
+        **overrides)
+
+
+def _loss_and_grads(m, config, device, seed=None):
+    images, labels = next(synthetic_batches(config, 2, 1, seed=0))
+    named = dict(m.named_parameters())
+    logits = model.forward(m, torch.from_numpy(images).to(device), config,
+                           train=True, dropout_seed=seed)
+    loss = detection_loss(torch.from_numpy(labels).to(device), logits,
+                          config, LossConfig())
+    return loss.item(), {n: g.cpu() for n, g in zip(
+        named, torch.autograd.grad(loss, list(named.values())))}
+
+
+def _assert_grads_within(got, ref, tol):
+    top = max(g.abs().max().item() for g in ref.values())
+    for name, want in ref.items():
+        # The key bias's gradient is zero in exact arithmetic: noise on
+        # both sides, held to the largest gradient.
+        scale = top if name.endswith("mha.key.bias") else want.abs().max()
+        assert (got[name] - want).abs().max().item() <= tol * float(scale), \
+            name
+
+
+def test_windowed_multi_scale_remat_model_on_card_matches_cpu(gen):
+    """Loss and gradients of the windowed multi-scale model with remat,
+    dropout off: the card's kernels against the CPU's plain versions
+    (fp32; summation order and dq's atomics)."""
+    config = _windowed_config()
+    params = model.init_params(config, torch.Generator().manual_seed(0))
+    cpu_loss, cpu_grads = _loss_and_grads(params, config, "cpu")
+    counts = (fa.flash_attention.lse_launches,
+              fa.flash_attention.backward_launches)
+    gpu_loss, gpu_grads = _loss_and_grads(copy.deepcopy(params).to("cuda"),
+                                          config, "cuda")
+    # Each block's forward, again in the recompute, and its backward.
+    assert (fa.flash_attention.lse_launches - counts[0],
+            fa.flash_attention.backward_launches - counts[1]) == (4, 2)
+    assert gpu_loss == pytest.approx(cpu_loss, rel=1e-5)
+    _assert_grads_within(gpu_grads, cpu_grads, 1e-3)
+
+
+@pytest.mark.parametrize("policy", [None, "dots", "alternate"])
+def test_remat_matches_no_remat_on_card_with_dropout(gen, policy):
+    """With dropout on and one seed, each remat policy gives no remat's
+    loss (the same forward) and its gradients to dq's atomic-add noise."""
+    config = _windowed_config(dropout=0.1, remat_policy=policy)
+    params = model.init_params(config, torch.Generator().manual_seed(1))
+    card = params.to("cuda")
+    loss, grads = _loss_and_grads(card, config, "cuda", seed=123)
+    ref_loss, ref_grads = _loss_and_grads(
+        card, config.replace(remat_encoder=False), "cuda", seed=123)
+    assert loss == ref_loss
+    _assert_grads_within(grads, ref_grads, 1e-4)
+    other, _ = _loss_and_grads(card, config, "cuda", seed=124)
+    assert other != loss
 
 
 def test_device_metric_on_card_matches_numpy_oracle(gen):

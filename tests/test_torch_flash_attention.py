@@ -108,9 +108,11 @@ def test_non_cpu_tensors_do_not_take_the_plain_path():
 
 @pytest.mark.parametrize("kwargs,error", [
     ({"layout": "nbhk"}, ValueError),
-    ({"dropout_rate": 0.1, "dropout_seed": 3}, NotImplementedError),
+    ({"dropout_rate": 1.0, "dropout_seed": 3}, ValueError),
 ])
 def test_rejected_arguments(kwargs, error):
+    """An unknown layout, and a dropout rate outside (0, 1), raise the JAX
+    wrapper's errors."""
     q = torch.zeros(1, 4, 2, 8)
     with pytest.raises(error):
         fa.flash_attention(q, q, q, **kwargs)
@@ -180,25 +182,34 @@ def test_plain_backward_matches_jax_grad(layout, shape, dtype,
                                    atol=tol * scale, err_msg=f"d{name}")
 
 
-def _plain_launch_forward(q, k, v, layout, with_lse=False):
-    out = fa.reference_attention(q, k, v, layout)
+def _plain_launch_forward(q, k, v, layout, with_lse=False, dropout=None):
+    out = fa.reference_attention(q, k, v, layout, dropout)
     return (out, fa.reference_attention_lse(q, k, layout)) if with_lse else out
 
 
-def _plain_launch_backward(q, k, v, g, lse, delta, layout):
-    """What the backward kernel computes, from lse and delta (fp32)."""
+def _plain_launch_backward(q, k, v, g, lse, delta, layout, dropout=None):
+    """What the backward kernel computes, from lse and delta (fp32), with
+    the dropout replay: scale = keep / (1 - rate) on p for dv and on g v^T
+    for ds."""
     qh, kh, vh, gh = (fa._heads_major(t, layout).float() for t in (q, k, v, g))
     p = torch.exp(torch.einsum("bhnk,bhmk->bhnm", qh, kh) - lse[..., None])
-    ds = p * (torch.einsum("bhnk,bhmk->bhnm", gh, vh) - delta[..., None])
+    scale = 1.0
+    if dropout is not None:
+        b, h, n, _ = p.shape
+        scale = fa._dropout_scale(dropout, b, h, n, p.device)
+    dp = scale * torch.einsum("bhnk,bhmk->bhnm", gh, vh)
+    ds = p * (dp - delta[..., None])
     grads = (torch.einsum("bhnm,bhmk->bhnk", ds, kh),
              torch.einsum("bhnm,bhnk->bhmk", ds, qh),
-             torch.einsum("bhnm,bhnk->bhmk", p, gh))
+             torch.einsum("bhnm,bhnk->bhmk", scale * p, gh))
     return tuple(fa._heads_major(t.to(q.dtype), layout) for t in grads)
 
 
+@pytest.mark.parametrize("dropout", [None, (2 ** 32 - 1, 0.25)])
 @pytest.mark.parametrize("layout,shape", [("bnhk", (2, 37, 3, 40)),
                                           ("bhnk", (2, 3, 37, 64))])
-def test_kernel_route_is_differentiable(monkeypatch, layout, shape):
+def test_kernel_route_is_differentiable(monkeypatch, layout, shape,
+                                        dropout):
     """The kernel route's autograd wiring, on the CPU: with the two launch
     functions standing in as plain versions, the output has a grad_fn and
     its grads equal autograd through reference_attention. (Before the
@@ -220,12 +231,14 @@ def test_kernel_route_is_differentiable(monkeypatch, layout, shape):
                for t in _qkv(shape, seed=7))
     g = torch.from_numpy(
         np.random.default_rng(8).standard_normal(shape).astype(np.float32))
-    out = fa.FlashAttentionFunction.apply(q, k, v, layout, True)
+    out = fa.FlashAttentionFunction.apply(q, k, v, layout, True, dropout)
     assert out.grad_fn is not None
     got = torch.autograd.grad(out, (q, k, v), g)
     assert calls == ["forward", "backward"]
-    expected = torch.autograd.grad(fa.reference_attention(q, k, v, layout),
-                                   (q, k, v), g)
+    # With dropout, the kernels' delta = rowsum(g * dropped out) gives
+    # autograd's gradient through dropout-after-softmax.
+    expected = torch.autograd.grad(
+        fa.reference_attention(q, k, v, layout, dropout), (q, k, v), g)
     for mine, ref in zip(got, expected):
         assert mine.shape == ref.shape
         np.testing.assert_allclose(mine.numpy(), ref.numpy(), atol=FP32_TOL,

@@ -17,6 +17,7 @@ import torch
 from vision_transformer_detector_tpu.config import DetectorConfig
 from vision_transformer_detector_tpu.metrics.mean_average_precision import (
     MeanAveragePrecision)
+from vision_transformer_detector_tpu_torch.metrics import fast_map
 from vision_transformer_detector_tpu_torch.metrics.fast_map import (
     DeviceMeanAveragePrecision)
 
@@ -31,7 +32,7 @@ def empty_labels(batch):
 
 
 def _port(stream):
-    metric = DeviceMeanAveragePrecision(CFG)
+    metric = DeviceMeanAveragePrecision(CFG, "cpu")
     for y_true, y_pred in stream:
         metric.update_state(y_true, y_pred, use_transform_predictions=False)
     return metric.result()
@@ -116,7 +117,7 @@ def test_reference_oracles(name):
 def test_12_reset_metric():
     """reset_state zeroes all three state tensors (oracle 12)."""
     stream, _ = _case("1_perfect")
-    metric = DeviceMeanAveragePrecision(CFG)
+    metric = DeviceMeanAveragePrecision(CFG, "cpu")
     metric.update_state(*stream[0], use_transform_predictions=False)
     assert metric.result() == pytest.approx(1.0)
     metric.reset_state()
@@ -198,6 +199,17 @@ def test_raw_logits_and_tensor_inputs():
     logits = rng.normal(0, 2, label.shape).astype(np.float32)
     oracle = MeanAveragePrecision(CFG)
     oracle.update_state(label, logits)
-    metric = DeviceMeanAveragePrecision(CFG)
+    metric = DeviceMeanAveragePrecision(CFG, "cpu")
     metric.update_state(torch.from_numpy(label), torch.from_numpy(logits))
     assert metric.result() == pytest.approx(float(oracle.result()), abs=1e-5)
+
+
+def test_device_metric_defaults_to_the_card(monkeypatch):
+    """The metric's state lives on CUDA unless the caller asks for the
+    CPU; without a card, the default fails at construction."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DeviceMeanAveragePrecision(CFG)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fast_map.init_state(CFG)
+    assert DeviceMeanAveragePrecision(CFG, "cpu").state[0].device.type == "cpu"

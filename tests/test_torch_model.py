@@ -175,9 +175,20 @@ def test_init_params_layout_and_ranges(tmp_path):
     {"head_scales": (1, 3)}, {"remat_encoder": True},
     {"sequence_sharding": True}])
 def test_unported_features_are_refused(override):
-    config = CONFIGS["flash_k8"].replace(**override)
-    with pytest.raises(NotImplementedError):
-        model.init_params(config, torch.Generator().manual_seed(0))
+    """Ring attention and sequence sharding need a mesh and are refused;
+    windowed attention, the multi-scale head and remat are ported: the
+    model builds and forwards (tests/test_torch_highres.py holds them to
+    the JAX package)."""
+    config = CONFIGS["flash_k8"].replace(image_size=(48, 48), **override)
+    if {"ring_attention", "sequence_sharding"} & set(override):
+        with pytest.raises(NotImplementedError):
+            model.init_params(config, torch.Generator().manual_seed(0))
+        return
+    params = model.init_params(config, torch.Generator().manual_seed(0))
+    images = torch.from_numpy(_images(config))
+    logits = model.forward(params, images, config)
+    assert logits.shape == (2, 17, 6) and torch.isfinite(logits).all()
+    assert logits.grad_fn is not None
 
 
 @pytest.mark.parametrize("override", [{"use_fused_ffn": True},
@@ -195,13 +206,26 @@ def test_kernel_flags_build_and_forward(override):
 
 
 def test_training_dropout_is_refused():
-    config = CONFIGS["flash_k8"].replace(dropout=0.1)
+    """Dropout acts only in training, with a seed (the twin of
+    tests/test_model.py::test_dropout_only_active_in_training): eval and
+    seedless training are deterministic and equal, two seeds give two
+    outputs, one seed gives one."""
+    config = CONFIGS["flash_k8"].replace(dropout=0.5)
     params = model.init_params(config, torch.Generator().manual_seed(0))
     images = torch.from_numpy(_images(config))
     with torch.inference_mode():
-        assert model.forward(params, images, config).shape == (2, 17, 6)
-        with pytest.raises(NotImplementedError):
-            model.forward(params, images, config, train=True)
+        eval_1 = model.forward(params, images, config)
+        eval_2 = model.forward(params, images, config)
+        seedless = model.forward(params, images, config, train=True)
+        train_1 = model.forward(params, images, config, train=True,
+                                dropout_seed=2)
+        train_2 = model.forward(params, images, config, train=True,
+                                dropout_seed=3)
+        again = model.forward(params, images, config, train=True,
+                              dropout_seed=2)
+    assert torch.equal(eval_1, eval_2) and torch.equal(eval_1, seedless)
+    assert not torch.allclose(train_1, train_2)
+    assert torch.equal(train_1, again)
 
 
 def test_bridge_refuses_mismatched_arrays():

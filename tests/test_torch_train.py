@@ -228,9 +228,14 @@ def test_refused_options(tmp_path):
     data = list(synthetic_batches(SMALL, 2, 1))
     with pytest.raises(NotImplementedError):
         run.fit(run.init_state(), data, epochs=1, epochs_per_call=2)
+    # Training dropout is ported: a dropout fit runs and moves the
+    # parameters.
     dropout = trainer.Trainer(SMALL.replace(dropout=0.1), device="cpu")
-    with pytest.raises(NotImplementedError):
-        dropout.fit(dropout.init_state(), data, epochs=1)
+    state = dropout.init_state()
+    before = state["params"].head_output.kernel.detach().clone()
+    state = dropout.fit(state, data, epochs=1)
+    assert state["step"] == 1 and np.isfinite(dropout.loss_record[0])
+    assert not torch.equal(state["params"].head_output.kernel, before)
     with pytest.raises(ValueError, match="empty"):
         run.fit(run.init_state(), [], epochs=1)
 
@@ -256,3 +261,49 @@ def test_dataclass_configs_round_trip_in_checkpoints(tmp_path):
     payload = torch.load(tmp_path / "ckpt" / "final.pt", weights_only=True)
     assert payload["config"]["detector"] == dataclasses.asdict(SMALL)
     assert payload["step"] == 0 and payload["best_ap"] == 0.0
+
+
+DROPOUT = SMALL.replace(dropout=0.1, attention_window=2, head_scales=(1, 2),
+                        remat_encoder=True, train_use_flash_attention=True)
+
+
+def _dropout_run(tmp_path, seed, epochs, name="run"):
+    run = trainer.Trainer(
+        DROPOUT, LossConfig(), TrainConfig(learning_rate=1e-3, seed=seed,
+                                           skip_epochs=0),
+        checkpoint_dir=str(tmp_path / name), device="cpu")
+    data = list(synthetic_batches(DROPOUT, 2, 1, seed=3))
+    state = run.fit(run.init_state(seed=0), data, epochs=epochs)
+    return run, state, data
+
+
+def test_dropout_training_is_seeded_and_falls(tmp_path):
+    """Training with dropout (windowed, multi-scale, full remat, flash
+    route): the same TrainConfig seed gives the same losses, another seed
+    (the same weights, another dropout seed chain) other losses, and the
+    loss falls over a few steps on one batch."""
+    run_a, _, _ = _dropout_run(tmp_path, seed=0, epochs=6)
+    run_b, _, _ = _dropout_run(tmp_path, seed=0, epochs=6)
+    run_c, _, _ = _dropout_run(tmp_path, seed=1, epochs=6)
+    assert run_a.loss_record == run_b.loss_record
+    assert run_a.loss_record != run_c.loss_record
+    assert run_a.loss_record[-1] < run_a.loss_record[0]
+
+
+def test_dropout_restore_draws_the_same_masks(tmp_path):
+    """The dropout seed generator is saved with the train state: a save ->
+    restore -> step gives the loss of the step the uninterrupted run took
+    after the save, and the step after that draws another seed."""
+    run, state, data = _dropout_run(tmp_path, seed=0, epochs=2)
+    images, labels = (torch.from_numpy(a) for a in data[0])
+    run.save(state, name="mid")
+    _, loss_a = run.train_step(state, images, labels)
+    _, loss_next = run.train_step(state, images, labels)
+    state = run.restore(state, name="mid")
+    _, loss_b = run.train_step(state, images, labels)
+    assert loss_b.item() == loss_a.item()
+    fresh = trainer.Trainer(DROPOUT, LossConfig(), run.train_config,
+                            checkpoint_dir=run.checkpoint_dir, device="cpu")
+    restored = fresh.restore(fresh.init_state(seed=5), name="mid")
+    _, loss_c = fresh.train_step(restored, images, labels)
+    assert loss_c.item() == loss_a.item() != loss_next.item()

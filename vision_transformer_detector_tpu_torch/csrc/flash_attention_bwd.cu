@@ -13,12 +13,25 @@
 //   dk = ds^T q,   dq = ds k
 // with fp32 accumulation, as the Pallas kernel does.
 //
+// With dropout on, it is the gradient of `_flash_bwd_chunked`'s dropout
+// branch in the same single pass: each score tile regenerates the
+// forward's keep mask from the global (batch*head, query, key) indices
+// (dropout_mask.cuh), and with scale = keep / (1 - rate)
+//   dv = (scale * p)^T g              (rounded to the input type first)
+//   ds = p * (scale * (g v^T) - delta)
+// where delta = rowsum(g * out) of the DROPPED output, which equals
+// rowsum(p * scale * (g v^T)), the chunked backward's correction.
+//
 // What bounds it: at the reference_608 training shape ((B*H, N, K) =
 // (64, 1296, 40), K padded to 64) the backward does 5 products of
 // N x N x 64 per (batch, head): 35 GFLOP on 85 MB of fp32 q/k/v/g/dq/dk/dv,
 // about 400 FLOP per byte, so it is bound by arithmetic. This version
 // keeps the products on the fp32 cores (no mma/wgmma, no TMA): it is bound
-// by fp32 issue rate and shared-memory reads. Tensor cores are later work.
+// by fp32 instruction throughput and shared-memory reads. At the
+// highres_1024 training fold ((2048, 256, 64) bf16, dropout replayed) a
+// launch is 86 GFLOP on 541 MB, about 159 FLOP per byte: below the bf16
+// ridge, so a tensor-core version would be bound by memory. Tensor cores
+// are later work.
 //
 // Design:
 //   * one thread block per (batch*head, 64-key tile). Four adjacent threads
@@ -42,12 +55,16 @@
 //   * ragged N: keys past N are zero in shared memory and get p = 0;
 //     queries past N are never scored and never written (on CUDA nothing is
 //     zero-padded, so g and delta past N are not zero for free);
-//   * head dim 64 only: the wrapper zero-pads K < 64, which is exact.
+//   * head dim 64 only: the wrapper zero-pads K < 64, which is exact;
+//   * dropout is a template flag; the four lanes of a key row each hash
+//     the same (query, key) pair, as in the forward kernel.
 // Strides are passed in, so every tensor may be (B, N, H, 64) or
 // (B, H, N, 64); lse and delta are contiguous (B, H, N) fp32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "dropout_mask.cuh"
 
 namespace {
 
@@ -104,7 +121,7 @@ __device__ __forceinline__ void stage_tile(float (*tile)[kHeadDim],
   }
 }
 
-template <typename T>
+template <typename T, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ g,
@@ -112,7 +129,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const float* __restrict__ delta, float* __restrict__ dq,
                  T* __restrict__ dk, T* __restrict__ dv, int heads,
                  int seq_len, Strides sq, Strides sk, Strides sv, Strides sg,
-                 Strides sdq, Strides sdk, Strides sdv) {
+                 Strides sdq, Strides sdk, Strides sdv, Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   auto q_tile = reinterpret_cast<float (*)[kHeadDim]>(smem);
   auto g_tile = reinterpret_cast<float (*)[kHeadDim]>(smem + kTile);
@@ -130,6 +147,11 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int key = kv0 + local;
   const int dim0 = (tid % kThreadsPerRow) * kDimsPerThread;
   const bool key_valid = key < seq_len;
+  // This key's part of the mask hash; each query adds its own term.
+  const unsigned int hash_key =
+      kDropout ? hash_part(drop, static_cast<unsigned int>(bh)) +
+                     key_term(static_cast<unsigned int>(key))
+               : 0u;
 
   const T* q_bh = q + b * sq.b + h * sq.h;
   const T* k_bh = k + b * sk.b + h * sk.h;
@@ -190,8 +212,17 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dp += __shfl_xor_sync(0xffffffffu, dp, 1);
       dp += __shfl_xor_sync(0xffffffffu, dp, 2);
       const float p = key_valid ? expf(s - lse_s[j]) : 0.f;
-      const float p_in = round_to_input<T>(p);
-      const float ds = round_to_input<T>(p * (dp - delta_s[j]));
+      float p_in, ds;
+      if (kDropout) {
+        const unsigned int query = static_cast<unsigned int>(q0 + j);
+        const float scale =
+            keep(drop, hash_key + query_term(query)) ? drop.inv_keep : 0.f;
+        p_in = round_to_input<T>(p * scale);
+        ds = round_to_input<T>(p * (dp * scale - delta_s[j]));
+      } else {
+        p_in = round_to_input<T>(p);
+        ds = round_to_input<T>(p * (dp - delta_s[j]));
+      }
 #pragma unroll
       for (int d4 = 0; d4 < kDimsPerThread / 4; ++d4) {
         const float4 q4 = qr[d4];
@@ -244,25 +275,42 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* g, const void* lse, const void* delta,
-                   void* dq, void* dk, void* dv, int batch, int heads,
-                   int seq_len, Strides sq, Strides sk, Strides sv,
-                   Strides sg, Strides sdq, Strides sdk, Strides sdv,
-                   cudaStream_t stream) {
+template <typename T, bool kDropout>
+cudaError_t launch_kernel(const void* q, const void* k, const void* v,
+                          const void* g, const void* lse, const void* delta,
+                          void* dq, void* dk, void* dv, int batch, int heads,
+                          int seq_len, Strides sq, Strides sk, Strides sv,
+                          Strides sg, Strides sdq, Strides sdk, Strides sdv,
+                          Dropout drop, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      flash_bwd_kernel<T, kDropout>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(batch * heads, (seq_len + kBlockKV - 1) / kBlockKV);
-  flash_bwd_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
+  flash_bwd_kernel<T, kDropout><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
-      heads, seq_len, sq, sk, sv, sg, sdq, sdk, sdv);
+      heads, seq_len, sq, sk, sv, sg, sdq, sdk, sdv, drop);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(bool dropout, const void* q, const void* k,
+                   const void* v, const void* g, const void* lse,
+                   const void* delta, void* dq, void* dk, void* dv,
+                   int batch, int heads, int seq_len, Strides sq, Strides sk,
+                   Strides sv, Strides sg, Strides sdq, Strides sdk,
+                   Strides sdv, Dropout drop, cudaStream_t stream) {
+  if (dropout) {
+    return launch_kernel<T, true>(q, k, v, g, lse, delta, dq, dk, dv, batch,
+                                  heads, seq_len, sq, sk, sv, sg, sdq, sdk,
+                                  sdv, drop, stream);
+  }
+  return launch_kernel<T, false>(q, k, v, g, lse, delta, dq, dk, dv, batch,
+                                 heads, seq_len, sq, sk, sv, sg, sdq, sdk,
+                                 sdv, drop, stream);
 }
 
 }  // namespace
@@ -272,7 +320,9 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, g, dk, dv); dq is fp32 and
 // must be zeroed by the caller; lse and delta are contiguous fp32
 // (batch, heads, seq_len). Strides are in elements, for the batch, head
-// and token axes; the head dim (64) must be contiguous. Returns the CUDA
+// and token axes; the head dim (64) must be contiguous. dropout: 0, or 1
+// with the forward's uint32 seed, keep threshold and fp32 1 / (1 - rate);
+// delta is then rowsum(g * out) of the dropped output. Returns the CUDA
 // error of the launch (0 on success).
 int vtd_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* g,
@@ -283,20 +333,23 @@ int vtd_flash_attention_bwd(
     long long g_sb, long long g_sh, long long g_sn, long long dq_sb,
     long long dq_sh, long long dq_sn, long long dk_sb, long long dk_sh,
     long long dk_sn, long long dv_sb, long long dv_sh, long long dv_sn,
+    int dropout, unsigned int seed, unsigned int threshold, float inv_keep,
     void* stream) {
   if (batch <= 0 || heads <= 0 || seq_len <= 0) return cudaErrorInvalidValue;
   const Strides sq{q_sb, q_sh, q_sn}, sk{k_sb, k_sh, k_sn},
       sv{v_sb, v_sh, v_sn}, sg{g_sb, g_sh, g_sn}, sdq{dq_sb, dq_sh, dq_sn},
       sdk{dk_sb, dk_sh, dk_sn}, sdv{dv_sb, dv_sh, dv_sn};
+  const Dropout drop{seed, threshold, inv_keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch<float>(q, k, v, g, lse, delta, dq, dk, dv, batch, heads,
-                        seq_len, sq, sk, sv, sg, sdq, sdk, sdv, s);
+    err = launch<float>(dropout != 0, q, k, v, g, lse, delta, dq, dk, dv,
+                        batch, heads, seq_len, sq, sk, sv, sg, sdq, sdk, sdv,
+                        drop, s);
   } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(q, k, v, g, lse, delta, dq, dk, dv, batch,
-                                heads, seq_len, sq, sk, sv, sg, sdq, sdk,
-                                sdv, s);
+    err = launch<__nv_bfloat16>(dropout != 0, q, k, v, g, lse, delta, dq, dk,
+                                dv, batch, heads, seq_len, sq, sk, sv, sg,
+                                sdq, sdk, sdv, drop, s);
   } else {
     return cudaErrorInvalidValue;
   }

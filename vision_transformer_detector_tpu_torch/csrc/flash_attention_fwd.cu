@@ -12,6 +12,15 @@
 // m + log(l), into a (batch, heads, N) array: the residual the backward
 // kernel (flash_attention_bwd.cu) reads, as the Pallas kernel's
 // `with_lse` variant writes it (without the TPU's 8-sublane replication).
+// With dropout on, it is also the Pallas kernel's dropout branch: each
+// probability is multiplied by keep * (1 / (1 - rate)) after the
+// normaliser has summed it (so lse stays the true logsumexp) and before it
+// is rounded to the input type for P@V. The keep mask is
+// `dropout_keep_mask` of the Pallas module: a murmur3 finalizer over
+// uint32 (wrapping multiplies, logical shifts) of the seed and the global
+// (batch*head, query, key) indices, compared with a threshold; CUDA's
+// uint32 arithmetic is that arithmetic, so the masks are bit-equal, and
+// the backward kernel replays them from the same indices.
 //
 // What bounds it: at the ViT-B/16 384px serving shape (N = 576, K = 64)
 // one (batch, head) pair is 576 x 576 x 64 x 4 = 85 MFLOP on 295 KB of
@@ -21,7 +30,10 @@
 // cores. This version keeps the products on the fp32 cores: at large batch
 // it is bound by fp32 issue rate and shared-memory reads, at small batch by
 // the small grid (batch * heads * ceil(N / 64) blocks; 108 at batch 1) and
-// latency. mma/wgmma, TMA staging and tuning are later work.
+// latency. At the highres_1024 training fold ((B * H * windows, N, K) =
+// (2048, 256, 64) bf16 at batch 8) a launch is 34 GFLOP on 270 MB, about
+// 127 FLOP per byte: also below the ridge. mma/wgmma, TMA staging and
+// tuning are later work.
 //
 // Design:
 //   * one thread block per (batch*head, 64-query tile); four adjacent
@@ -36,12 +48,19 @@
 //   * keys past N (the ragged last tile) are zero-filled in shared memory
 //     and masked to -1e30, as the Pallas kernel masks its KV padding;
 //   * head dim 64 only: the Python wrapper zero-pads any K < 64, which is
-//     exact (padded columns add 0 to q.k and give 0 outputs).
+//     exact (padded columns add 0 to q.k and give 0 outputs);
+//   * dropout is a template flag, so the dropout-free kernel carries no
+//     hash. The four lanes of a row each hash the same (query, key) pair:
+//     about ten integer operations per score, beside the 32 FMAs per score
+//     of the two products; sharing the hashes through shuffles is later
+//     work.
 // Strides are passed in, so q/k/v/o may be (B, N, H, K) or (B, H, N, K)
 // views; the head dim must be contiguous.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "dropout_mask.cuh"
 
 namespace {
 
@@ -81,12 +100,12 @@ __device__ __forceinline__ float round_to_input(float x) {
   return to_float(from_float<T>(x));
 }
 
-template <typename T>
+template <typename T, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int heads, int seq_len, Strides sq,
-                 Strides sk, Strides sv, Strides so) {
+                 Strides sk, Strides sv, Strides so, Dropout drop) {
   __shared__ __align__(16) float k_tile[kBlockKV][kHeadDim];
   __shared__ __align__(16) float v_tile[kBlockKV][kHeadDim];
 
@@ -110,7 +129,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     acc[d] = 0.f;
   }
   float m = kNegInf;   // running max of this row's scores
-  float l = 0.f;       // running softmax normaliser
+  float l = 0.f;       // running softmax normaliser (undropped)
+  // This row's part of the mask hash; each key adds its own term.
+  const unsigned int hash_row =
+      kDropout ? hash_part(drop, static_cast<unsigned int>(bh)) +
+                     query_term(static_cast<unsigned int>(row))
+               : 0u;
 
   for (int kv0 = 0; kv0 < seq_len; kv0 += kBlockKV) {
     __syncthreads();   // every thread is done with the previous tile
@@ -162,7 +186,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < kChunk; ++j) {
         const float p = expf(s[j] - m_new);
         l += p;
-        const float pv = round_to_input<T>(p);
+        float pd = p;
+        if (kDropout) {
+          const unsigned int key = static_cast<unsigned int>(kv0 + c0 + j);
+          pd = keep(drop, hash_row + key_term(key)) ? p * drop.inv_keep
+                                                    : 0.f;
+        }
+        const float pv = round_to_input<T>(pd);
         const float4* vr =
             reinterpret_cast<const float4*>(&v_tile[c0 + j][dim0]);
 #pragma unroll
@@ -193,12 +223,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 void launch(const void* q, const void* k, const void* v, void* o,
             float* lse, int batch, int heads, int seq_len, Strides sq,
-            Strides sk, Strides sv, Strides so, cudaStream_t stream) {
+            Strides sk, Strides sv, Strides so, bool dropout, Dropout drop,
+            cudaStream_t stream) {
   const dim3 grid(batch * heads, (seq_len + kBlockQ - 1) / kBlockQ);
-  flash_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, heads, seq_len, sq,
-      sk, sv, so);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(o);
+  if (dropout) {
+    flash_fwd_kernel<T, true><<<grid, kThreads, 0, stream>>>(
+        qt, kt, vt, ot, lse, heads, seq_len, sq, sk, sv, so, drop);
+  } else {
+    flash_fwd_kernel<T, false><<<grid, kThreads, 0, stream>>>(
+        qt, kt, vt, ot, lse, heads, seq_len, sq, sk, sv, so, drop);
+  }
 }
 
 }  // namespace
@@ -208,6 +246,8 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, for the
 // batch, head and token axes; the head dim (64) must be contiguous.
 // lse: nullptr, or a contiguous fp32 (batch, heads, seq_len) array.
+// dropout: 0, or 1 with the uint32 seed, the uint32 keep threshold
+// (keep iff hash < threshold) and inv_keep = 1 / (1 - rate) in fp32.
 // Returns cudaGetLastError() after the launch (0 on success).
 int vtd_flash_attention_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int dtype, int batch,
@@ -215,17 +255,20 @@ int vtd_flash_attention_fwd(const void* q, const void* k, const void* v,
                             long long q_sh, long long q_sn, long long k_sb,
                             long long k_sh, long long k_sn, long long v_sb,
                             long long v_sh, long long v_sn, long long o_sb,
-                            long long o_sh, long long o_sn, void* stream) {
+                            long long o_sh, long long o_sn, int dropout,
+                            unsigned int seed, unsigned int threshold,
+                            float inv_keep, void* stream) {
   if (batch <= 0 || heads <= 0 || seq_len <= 0) return cudaErrorInvalidValue;
   const Strides sq{q_sb, q_sh, q_sn}, sk{k_sb, k_sh, k_sn},
       sv{v_sb, v_sh, v_sn}, so{o_sb, o_sh, o_sn};
+  const Dropout drop{seed, threshold, inv_keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     launch<float>(q, k, v, o, static_cast<float*>(lse), batch, heads, seq_len,
-                  sq, sk, sv, so, s);
+                  sq, sk, sv, so, dropout != 0, drop, s);
   } else if (dtype == 1) {
     launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), batch, heads,
-                          seq_len, sq, sk, sv, so, s);
+                          seq_len, sq, sk, sv, so, dropout != 0, drop, s);
   } else {
     return cudaErrorInvalidValue;
   }

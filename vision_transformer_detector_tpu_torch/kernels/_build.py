@@ -5,8 +5,8 @@ Each ``csrc/*.cu`` file is compiled on its own by ``nvcc`` for Hopper
 wrappers load with ``ctypes``. Nothing is built when a module is imported:
 the first CUDA call of a wrapper builds its library. The output lands in
 ``vision_transformer_detector_tpu_torch/build/`` under a name that carries
-a hash of the sources and flags, so a changed source is never served from
-a stale library.
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so a changed source or header is never served from a stale library.
 """
 
 from __future__ import annotations
@@ -50,8 +50,11 @@ def find_nvcc() -> str:
 
 def _digest(source: str) -> str:
     h = hashlib.sha256()
-    with open(source, "rb") as f:
-        h.update(f.read())
+    headers = sorted(os.path.join(CSRC_DIR, name)
+                     for name in os.listdir(CSRC_DIR) if name.endswith(".cuh"))
+    for path in [source, *headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

@@ -24,8 +24,19 @@ delta = rowsum(g * out) in fp32 and launches the backward kernel, as the
 JAX package's Pallas backward does. Calls that need no grad (serving,
 ``torch.inference_mode``) launch the forward alone, without the logsumexp.
 
-The TPU kernel's in-kernel dropout is not ported yet: asking for it
-raises NotImplementedError on every device.
+``dropout_rate``/``dropout_seed`` turn on the JAX kernel's in-kernel
+probability dropout (training; keras-MHA semantics): the normaliser sums
+the undropped probabilities, and each probability is multiplied by
+keep / (1 - rate) before P@V. The keep mask is ``dropout_keep_mask``, the
+JAX package's counter hash of the seed and the global (batch*head, query,
+key) indices, so the masks are bit-equal to JAX's on every device, and
+the backward replays them. The JAX package forces its chunked XLA
+backward (and a forward without lse) under dropout; the port keeps the
+Function's design, one forward launch that writes out and lse with the
+mask applied and then the backward kernel with the mask replayed, which
+gives the same gradients: dv = (scale p)^T g, ds = p (scale g v^T - delta)
+with scale = keep / (1 - rate) and delta = rowsum(g * out) of the dropped
+output.
 """
 
 from __future__ import annotations
@@ -44,6 +55,72 @@ BWD_SOURCE = "flash_attention_bwd.cu"
 _HEAD_DIM = 64          # the kernels' native head dim; smaller K is padded
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
+_M32 = 0xFFFFFFFF
+
+
+def _keep_threshold(rate: float) -> int:
+    """uint32 threshold: hash < threshold <=> keep (the JAX package's)."""
+    return min(2 ** 32 - 1, int(round((1.0 - rate) * 4294967296.0)))
+
+
+def _u32(x):
+    """A Python int or an int64 tensor holding x mod 2**32."""
+    if isinstance(x, int):
+        return x & _M32
+    return torch.as_tensor(x).to(torch.int64) & _M32
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2**32 for x in [0, 2**32) and a uint32 constant c, in
+    two 16-bit halves of c so that no int64 product overflows."""
+    lo = x * (c & 0xFFFF)
+    hi = (x * (c >> 16)) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def dropout_keep_mask(seed, bh_idx, q_idx, k_idx, threshold: int):
+    """Counter-based dropout mask: keep iff hash(seed, bh, qi, kj) < t.
+
+    The JAX package's murmur3-finalizer hash over the global (batch*head,
+    query, key) coordinates, bit for bit: uint32 arithmetic, here in int64
+    reduced mod 2**32 after every add and multiply (shifts act on the
+    reduced, non-negative values, so they are logical). The indices
+    broadcast against each other, on any device."""
+    x = (_u32(seed) + _mul32(_u32(bh_idx), 0x9E3779B1)
+         + _mul32(_u32(q_idx), 0x85EBCA6B)
+         + _mul32(_u32(k_idx), 0xC2B2AE35)) & _M32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x < threshold
+
+
+def _dropout_args(rate, seed):
+    """``(seed mod 2**32, rate)``, or None without dropout, with the JAX
+    wrapper's checks and messages."""
+    if rate in (None, 0.0):
+        return None
+    rate = float(rate)
+    if not 0.0 < rate < 1.0:
+        raise ValueError(
+            f"dropout_rate must be in (0, 1), got {rate} (1.0 would "
+            "drop everything; larger values wrap the keep threshold)")
+    if seed is None:
+        raise ValueError("dropout_rate needs a dropout_seed")
+    return int(seed) & _M32, rate
+
+
+def _dropout_scale(dropout, b: int, h: int, n: int, device) -> torch.Tensor:
+    """(b, h, n, n) fp32 keep / (1 - rate) of the mask over heads-major
+    scores, batch*head index b * h + head (the kernels' numbering)."""
+    seed, rate = dropout
+    pos = torch.arange(n, device=device)
+    bh = torch.arange(b * h, device=device).reshape(b, h, 1, 1)
+    keep = dropout_keep_mask(seed, bh, pos[:, None], pos[None, :],
+                             _keep_threshold(rate))
+    return torch.where(keep, 1.0 / (1.0 - rate), 0.0).float()
 
 
 def _heads_major(t: torch.Tensor, layout: str) -> torch.Tensor:
@@ -53,14 +130,19 @@ def _heads_major(t: torch.Tensor, layout: str) -> torch.Tensor:
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        layout: str = "bnhk") -> torch.Tensor:
+                        layout: str = "bnhk", dropout=None) -> torch.Tensor:
     """Materialised-softmax version: fp32 scores and softmax, probabilities
     cast to v's dtype before P@V with fp32 accumulation, output in q's
-    dtype (as the JAX package's ``reference_attention``)."""
+    dtype (as the JAX package's ``reference_attention``). ``dropout``
+    (``(seed, rate)``) multiplies the probabilities by keep / (1 - rate)
+    before the cast, the JAX package's masked oracle."""
     if layout == "bhnk":
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     scores = torch.einsum("bnhk,bmhk->bhnm", q.float(), k.float())
     probs = torch.softmax(scores, dim=-1)
+    if dropout is not None:
+        b, h, n, _ = probs.shape
+        probs = probs * _dropout_scale(dropout, b, h, n, probs.device)
     # bf16 x bf16 products are exact in fp32, so upcasting the rounded
     # probabilities reproduces a bf16 matmul with fp32 accumulation.
     out = torch.einsum("bhnm,bmhk->bnhk", probs.to(v.dtype).float(),
@@ -70,7 +152,8 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def reference_attention_lse(q: torch.Tensor, k: torch.Tensor,
                             layout: str = "bnhk") -> torch.Tensor:
-    """(B, H, N) fp32 logsumexp of the scores of each query row."""
+    """(B, H, N) fp32 logsumexp of the scores of each query row; dropout
+    leaves it unchanged (the normaliser sums undropped probabilities)."""
     q, k = _heads_major(q, layout), _heads_major(k, layout)
     scores = torch.einsum("bhnk,bhmk->bhnm", q.float(), k.float())
     return torch.logsumexp(scores, dim=-1)
@@ -78,19 +161,26 @@ def reference_attention_lse(q: torch.Tensor, k: torch.Tensor,
 
 def reference_attention_backward(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor, g: torch.Tensor,
-                                 layout: str = "bnhk"):
+                                 layout: str = "bnhk", dropout=None):
     """(dq, dk, dv) of ``reference_attention`` for the output cotangent g,
-    as the JAX package's ``_flash_bwd_chunked`` (fp32 variant, no dropout)
-    computes them: fp32 scores, softmax and g v^T; p cast to the input
-    dtype before dv = p^T g; ds = p * (dp - rowsum(dp * p)) cast to the
-    input dtype before dq = ds k and dk = ds^T q; fp32 accumulation, grads
-    in the inputs' dtypes and layout."""
+    as the JAX package's ``_flash_bwd_chunked`` (fp32 variant) computes
+    them: fp32 scores, softmax and g v^T; with ``dropout`` (``(seed,
+    rate)``) the replayed mask's scale = keep / (1 - rate) multiplies g v^T
+    and p (pd = scale * p); pd cast to the input dtype before dv = pd^T g;
+    ds = p * (dp - rowsum(dp * p)) cast to the input dtype before dq = ds k
+    and dk = ds^T q; fp32 accumulation, grads in the inputs' dtypes and
+    layout."""
     qh, kh, vh, gh = (_heads_major(t, layout) for t in (q, k, v, g))
     dtype = q.dtype
     scores = torch.einsum("bhnk,bhmk->bhnm", qh.float(), kh.float())
     p = torch.softmax(scores, dim=-1)
     dp = torch.einsum("bhnk,bhmk->bhnm", gh.float(), vh.float())
-    dv = torch.einsum("bhnm,bhnk->bhmk", p.to(dtype).float(), gh.float())
+    pd = p
+    if dropout is not None:
+        b, h, n, _ = p.shape
+        scale = _dropout_scale(dropout, b, h, n, p.device)
+        dp, pd = dp * scale, p * scale
+    dv = torch.einsum("bhnm,bhnk->bhmk", pd.to(dtype).float(), gh.float())
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
     ds = ds.to(dtype).float()
     dq = torch.einsum("bhnm,bhmk->bhnk", ds, kh.float())
@@ -101,20 +191,23 @@ def reference_attention_backward(q: torch.Tensor, k: torch.Tensor,
 
 class FlashAttentionFunction(torch.autograd.Function):
     """Differentiable attention over the kernels (``use_kernel``) or the
-    plain versions. The kernel route saves the forward's fp32 logsumexp
-    for the backward kernel; the plain route recomputes the softmax."""
+    plain versions, with optional dropout (``(seed, rate)``, replayed in
+    the backward). The kernel route saves the forward's fp32 logsumexp for
+    the backward kernel; the plain route recomputes the softmax."""
 
     @staticmethod
-    def forward(ctx, q, k, v, layout: str, use_kernel: bool):
+    def forward(ctx, q, k, v, layout: str, use_kernel: bool, dropout=None):
         if use_kernel:
-            out, lse = _launch_forward(q, k, v, layout, with_lse=True)
+            out, lse = _launch_forward(q, k, v, layout, with_lse=True,
+                                       dropout=dropout)
         else:
-            out, lse = reference_attention(q, k, v, layout), None
+            out, lse = reference_attention(q, k, v, layout, dropout), None
         # Unpadded q/k/v: the backward re-pads them, so a K < 64 call does
         # not hold a padded copy between the passes.
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.layout = layout
         ctx.use_kernel = use_kernel
+        ctx.dropout = dropout
         return out
 
     @staticmethod
@@ -122,13 +215,16 @@ class FlashAttentionFunction(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if ctx.use_kernel:
             # delta = rowsum(g * out) in fp32, outside the kernel, as the
-            # JAX package's _flash_bwd_pallas computes it.
+            # JAX package's _flash_bwd_pallas computes it; with dropout it
+            # is the dropped output's, which the replay needs.
             delta = _heads_major((g.float() * out.float()).sum(dim=-1),
                                  ctx.layout).contiguous()
-            dq, dk, dv = _launch_backward(q, k, v, g, lse, delta, ctx.layout)
+            dq, dk, dv = _launch_backward(q, k, v, g, lse, delta, ctx.layout,
+                                          ctx.dropout)
         else:
-            dq, dk, dv = reference_attention_backward(q, k, v, g, ctx.layout)
-        return dq, dk, dv, None, None
+            dq, dk, dv = reference_attention_backward(q, k, v, g, ctx.layout,
+                                                      ctx.dropout)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -136,14 +232,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     dropout_seed=None, with_lse: bool = False):
     """Attention over ``layout``-ordered q/k/v; see the module docstring.
 
-    Returns the output, or ``(output, lse)`` with ``with_lse`` (lse is
-    ``(B, H, N)`` fp32; that form is not differentiable).
+    ``dropout_rate`` 0 or None means no dropout; a rate outside (0, 1), or
+    a rate without ``dropout_seed`` (an integer, taken mod 2**32), raises
+    ValueError. Returns the output, or ``(output, lse)`` with ``with_lse``
+    (lse is ``(B, H, N)`` fp32; that form is not differentiable).
     """
     if layout not in ("bnhk", "bhnk"):
         raise ValueError(f"unknown layout {layout!r}")
-    if dropout_rate not in (None, 0.0):
-        raise NotImplementedError(
-            "attention dropout is training-only and not ported yet")
+    dropout = _dropout_args(dropout_rate, dropout_seed)
     devices = {t.device.type for t in (q, k, v)}
     if devices not in ({"cpu"}, {"cuda"}):
         raise ValueError(
@@ -152,20 +248,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     use_kernel = devices == {"cuda"}
     if with_lse:
         if use_kernel:
-            return _launch_forward(q, k, v, layout, with_lse=True)
-        return (reference_attention(q, k, v, layout),
+            return _launch_forward(q, k, v, layout, with_lse=True,
+                                   dropout=dropout)
+        return (reference_attention(q, k, v, layout, dropout),
                 reference_attention_lse(q, k, layout))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttentionFunction.apply(q, k, v, layout, use_kernel)
+        return FlashAttentionFunction.apply(q, k, v, layout, use_kernel,
+                                            dropout)
     if use_kernel:
-        return _launch_forward(q, k, v, layout)
-    return reference_attention(q, k, v, layout)
+        return _launch_forward(q, k, v, layout, dropout=dropout)
+    return reference_attention(q, k, v, layout, dropout)
 
 
 # Kernel launches, one count per kernel wrapper; the plain path adds none.
-flash_attention.launches = 0            # forward without the logsumexp
-flash_attention.lse_launches = 0        # forward with the logsumexp
-flash_attention.backward_launches = 0   # backward
+flash_attention.launches = 0                # forward, no lse, no dropout
+flash_attention.lse_launches = 0            # forward with lse, no dropout
+flash_attention.drop_launches = 0           # forward with dropout
+flash_attention.backward_launches = 0       # backward, no dropout
+flash_attention.backward_drop_launches = 0  # backward with dropout replay
 
 
 def _count(name: str) -> None:
@@ -208,7 +308,16 @@ def _axes(t: torch.Tensor, layout: str):
             (t.stride(0), t.stride(2), t.stride(1)))
 
 
-def _launch_forward(q, k, v, layout: str, with_lse: bool = False):
+def _dropout_c_args(dropout) -> tuple:
+    """The kernels' (flag, seed, threshold, inv_keep) arguments."""
+    if dropout is None:
+        return 0, 0, 0, 0.0
+    seed, rate = dropout
+    return 1, seed, _keep_threshold(rate), 1.0 / (1.0 - rate)
+
+
+def _launch_forward(q, k, v, layout: str, with_lse: bool = False,
+                    dropout=None):
     _check_inputs(q, k, v)
     kdim = q.shape[-1]
     q, k, v = (_pad_head_dim(t) for t in (q, k, v))
@@ -227,17 +336,19 @@ def _launch_forward(q, k, v, layout: str, with_lse: bool = False):
         err = lib.vtd_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), _DTYPE_CODES[q.dtype],
-            b, h, n, *strides, stream)
+            b, h, n, *strides, *_dropout_c_args(dropout), stream)
     _build.raise_on_error(lib, err, "flash attention forward")
-    _count("lse_launches" if with_lse else "launches")
+    _count("drop_launches" if dropout is not None
+           else "lse_launches" if with_lse else "launches")
     out = out[..., :kdim] if kdim < _HEAD_DIM else out
     return (out, lse) if with_lse else out
 
 
-def _launch_backward(q, k, v, g, lse, delta, layout: str):
+def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None):
     """dq, dk, dv from the backward kernel. lse and delta are (B, H, N)
     fp32; dq accumulates in a zeroed fp32 buffer and is cast to q's dtype
-    here, dk and dv come out of the kernel in the input dtype."""
+    here, dk and dv come out of the kernel in the input dtype. ``dropout``
+    is the forward's ``(seed, rate)``, whose mask the kernel replays."""
     _check_inputs(q, k, v, g)
     kdim = q.shape[-1]
     q, k, v, g = (_pad_head_dim(t) for t in (q, k, v, g))
@@ -262,23 +373,28 @@ def _launch_backward(q, k, v, g, lse, delta, layout: str):
         err = lib.vtd_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), _DTYPE_CODES[q.dtype], b, h, n, *strides, stream)
+            dv.data_ptr(), _DTYPE_CODES[q.dtype], b, h, n, *strides,
+            *_dropout_c_args(dropout), stream)
     _build.raise_on_error(lib, err, "flash attention backward")
-    _count("backward_launches")
+    _count("backward_launches" if dropout is None
+           else "backward_drop_launches")
     return dq[..., :kdim].to(q.dtype), dk[..., :kdim], dv[..., :kdim]
 
 
 @functools.cache
 def _library(source: str) -> ctypes.CDLL:
     lib = _build.load_library(source)
+    # dropout flag, seed, keep threshold, inv_keep, then the stream.
+    dropout = [ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+               ctypes.c_void_p]
     if source == FWD_SOURCE:
         fn = lib.vtd_flash_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 12 + dropout)
     else:
         fn = lib.vtd_flash_attention_bwd
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 21 + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 21 + dropout)
     fn.restype = ctypes.c_int
     lib.vtd_cuda_error_string.argtypes = [ctypes.c_int]
     lib.vtd_cuda_error_string.restype = ctypes.c_char_p

@@ -32,6 +32,7 @@ from ..config import (
 
 from ..ops.decode import classification_confidence, transform_predictions
 from ..ops.geometry import iou
+from ..utils.device import resolve_device
 
 
 def _isclose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -45,7 +46,10 @@ class MapState(NamedTuple):
     showed_up_classes: torch.Tensor         # (C,) bool
 
 
-def init_state(config: DetectorConfig, device="cpu") -> MapState:
+def init_state(config: DetectorConfig, device="cuda") -> MapState:
+    """A zero metric state on ``device`` (CUDA unless the caller asks for
+    the CPU; a CUDA request without a card raises)."""
+    device = resolve_device(device)
     c, r = config.num_classes, config.latest_related_images
     b = config.bboxes_per_image
     return MapState(
@@ -246,9 +250,9 @@ class DeviceMeanAveragePrecision:
     ``device``."""
 
     def __init__(self, config: DetectorConfig = DetectorConfig(),
-                 device="cpu"):
+                 device="cuda"):
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.state = init_state(config, self.device)
 
     def reset_state(self) -> None:

@@ -32,18 +32,42 @@ kernels/quantization.py:quantize_params runs its dense layers through the
 int8 kernels (serving only: ``train=True`` raises), with attention on the
 tokens-major route.
 
-Not ported yet, and rejected with NotImplementedError rather than run
-differently: windowed and ring attention, the multi-scale head,
-rematerialisation, sequence sharding and training-time dropout.
+Windowed attention (``attention_window``) orders the tokens window-major
+once at the encoder's entry and back at its exit, as the JAX forward
+does; heads-major attention folds the windows into the head axis
+``(B, H * windows, tokens, K)`` (a copy: heads and windows have other
+strides), tokens-major attention into the batch axis. The fold decides
+the batch*head index that keys the attention dropout mask, so each route
+folds as its JAX counterpart. ``head_scales`` other than ``(1,)`` is the
+multi-scale head. ``remat_encoder`` checkpoints encoder blocks with
+``torch.utils.checkpoint`` (non-reentrant) under the JAX policies.
+
+Training dropout (``train=True`` with ``config.dropout``) needs a
+``dropout_seed``: an integer, from which ``dropout_seeds`` derives one
+seed per attention, MLP and head layer, or that table itself. Attention
+dropout runs in the flash kernel (the JAX counter-hash mask, bit-equal to
+JAX's for the same seed) or on the einsum route's probabilities; the MLP
+and head masks are drawn from a ``torch.Generator`` seeded with the
+layer's seed, so a recomputed block draws the same masks. They are another
+stream than JAX's threefry masks, of the same Bernoulli(1 - rate).
+
+Not ported, and rejected with NotImplementedError rather than run
+differently: ring attention and sequence sharding (both need a mesh).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from ..config import DetectorConfig
 from ..kernels.flash_attention import flash_attention
@@ -66,16 +90,41 @@ def _dtype(name: str) -> torch.dtype:
 def check_supported(config: DetectorConfig) -> None:
     """Raise NotImplementedError for config features this port lacks."""
     unported = {
-        "attention_window": config.attention_window is not None,
         "ring_attention": config.ring_attention,
-        "head_scales": tuple(config.head_scales) != (1,),
-        "remat_encoder": config.remat_encoder,
         "sequence_sharding": config.sequence_sharding,
     }
     missing = [name for name, used in unported.items() if used]
     if missing:
         raise NotImplementedError(
             f"config features not ported to PyTorch yet: {missing}")
+
+
+def _validate_grid_config(config: DetectorConfig) -> None:
+    """The JAX forward's grid-geometry checks, with its messages: a window
+    or head scale must evenly divide the patch grid."""
+    gh, gw = config.grid_size
+    w = config.attention_window
+    if config.ring_attention and w is not None:
+        raise ValueError(
+            "ring_attention and attention_window are mutually exclusive: "
+            "with a mesh the ring path runs exact GLOBAL attention "
+            "(window ignored) while meshless calls would run WINDOWED "
+            "attention — the same weights would silently execute two "
+            "different architectures. Set attention_window=None for the "
+            "ring variant (see highres_1024_ring) or drop ring_attention "
+            "for the windowed one.")
+    if w is not None and (w <= 0 or gh % w or gw % w):
+        raise ValueError(
+            f"attention_window={w} must evenly divide the patch grid "
+            f"{gh}x{gw} (image_size {config.image_size} / patch_size "
+            f"{config.patch_size})")
+    for s in config.head_scales:
+        if s <= 0 or gh % s or gw % s:
+            raise ValueError(
+                f"head_scales entry {s} must evenly divide the patch "
+                f"grid {gh}x{gw}; a non-divisor silently drops edge "
+                "cells from the detection head")
+
 
 
 # ---------------------------------------------------------------------------
@@ -139,6 +188,7 @@ class ViTDetector(nn.Module):
     def __init__(self, config: DetectorConfig, head_dim: int | None = None):
         super().__init__()
         check_supported(config)
+        _validate_grid_config(config)
         dtype = _dtype(config.param_dtype)
         head_dim = config.key_dim if head_dim is None else head_dim
         d = config.embedding_dim
@@ -149,8 +199,17 @@ class ViTDetector(nn.Module):
         self.encoder = nn.ModuleList(
             EncoderBlock(config, head_dim, dtype)
             for _ in range(config.encoder_blocks))
-        self.head_token_dense = Dense(d, config.max_objects, dtype)
-        dims = (config.num_patches,) + tuple(
+        if tuple(config.head_scales) == (1,):
+            self.head_token_dense = Dense(d, config.max_objects, dtype)
+            head_in = config.num_patches
+        else:
+            # One token dense per pooling scale (JAX: head_token_dense/<i>).
+            gh, gw = config.grid_size
+            self.head_token_dense = nn.ModuleList(
+                Dense(d, config.max_objects, dtype)
+                for _ in config.head_scales)
+            head_in = sum((gh // s) * (gw // s) for s in config.head_scales)
+        dims = (head_in,) + tuple(
             u for u in config.head_units
             for _ in range(config.head_block_repeats))
         self.head_mlp = nn.ModuleList(
@@ -269,11 +328,56 @@ def _layer_norm(x, layer: LayerNorm, eps: float = 1e-3,
     return layer_norm_reference(x, layer.gamma, layer.beta, eps)
 
 
+def _dropout(x, rate, seed, train: bool) -> torch.Tensor:
+    """keras Dropout (the JAX package's ``_dropout``): x / keep where a
+    Bernoulli(keep) mask is set, else 0, in x's dtype. The mask is drawn
+    from a ``torch.Generator`` on x's device seeded with ``seed``, so a
+    block recomputed under remat draws the same mask."""
+    if not train or rate is None or rate == 0.0 or seed is None:
+        return x
+    keep = 1.0 - rate
+    generator = torch.Generator(device=x.device).manual_seed(seed)
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class DropoutSeeds:
+    """Training dropout's seeds: per encoder block its attention seed (a
+    uint32, the flash kernel's mask seed) and one per pyramid layer, and
+    one per head MLP layer."""
+
+    attention: Tuple[int, ...]
+    mlp: Tuple[Tuple[int, ...], ...]
+    head: Tuple[int, ...]
+
+
+def dropout_seeds(seed: int, config: DetectorConfig) -> DropoutSeeds:
+    """The seed table that ``forward`` derives from one integer: a pure
+    function of ``seed`` and the config's layer counts (numpy's
+    SeedSequence, one spawn key per layer)."""
+    entropy = int(seed) & (2 ** 64 - 1)
+
+    def draw(*path) -> int:
+        return int(np.random.SeedSequence(
+            entropy, spawn_key=path).generate_state(1)[0])
+
+    blocks, layers = config.encoder_blocks, config.encoder_mlp_layers
+    head = len(config.head_units) * config.head_block_repeats
+    return DropoutSeeds(
+        attention=tuple(draw(0, i) for i in range(blocks)),
+        mlp=tuple(tuple(draw(1, i, j) for j in range(layers))
+                  for i in range(blocks)),
+        head=tuple(draw(2, j) for j in range(head)))
+
+
 def _dense_activation(x, layer: Dense, config: DetectorConfig,
-                      compute_dtype, train: bool = False) -> torch.Tensor:
-    """Dense + activation of the pyramid layers: the fused dense+mish
-    kernel first, then the int8 kernel with mish at inference, then the
-    plain route (the JAX forward's order)."""
+                      compute_dtype, train: bool = False,
+                      seed: Optional[int] = None) -> torch.Tensor:
+    """Dense + activation (+ dropout) of the pyramid layers: the fused
+    dense+mish kernel first (not under training dropout), then the int8
+    kernel with mish at inference, then the plain route with dropout (the
+    JAX forward's order)."""
     if (config.use_fused_ffn and config.use_mish
             and not is_quantized(layer)
             and (config.dropout is None or not train)):
@@ -286,75 +390,83 @@ def _dense_activation(x, layer: Dense, config: DetectorConfig,
         return fused_int8_dense(x, layer,
                                 apply_mish=True).to(compute_dtype)
     x = _dense(x, layer, compute_dtype)
-    return mish(x) if config.use_mish else F.gelu(x)
+    x = mish(x) if config.use_mish else F.gelu(x)
+    return _dropout(x, config.dropout, seed, train)
 
 
-def _attention_int8(xc, mha: MultiHeadAttention, config: DetectorConfig,
-                    compute_dtype) -> torch.Tensor:
-    """The int8 serving layers' attention, tokens-major as in the JAX
-    forward: q/k/v through int8_dense in fp32 (B, N, H, K), q / sqrt(key
-    dim) in fp32, flash (bnhk) in the compute dtype or the einsum route
-    with an fp32 result, and the out projection through int8_dense on
-    (B, N, H * K)."""
-    b, n, _ = xc.shape
-    h, k = mha.query.bias.shape          # physical head dim
-    q = int8_dense(xc, mha.query) / math.sqrt(config.key_dim)
-    key = int8_dense(xc, mha.key)
-    v = int8_dense(xc, mha.value)
+def _attend(q, k, v, config: DetectorConfig, compute_dtype, rate, seed,
+            train: bool) -> torch.Tensor:
+    """Attention over heads-major ``(B', G, T, K)`` views: the flash
+    wrapper (dropout in the kernel; its batch*head index is b' * G + g),
+    or the einsum route with dropout on the probabilities (JAX's einsum
+    routes' order: scores of shape (B', G, T, T)). The flash route returns
+    the compute dtype, the einsum route fp32."""
     if config.use_flash_attention:
-        attn = flash_attention(q.to(compute_dtype), key.to(compute_dtype),
-                               v.to(compute_dtype), layout="bnhk")
-    else:
-        scores = torch.einsum("bnhk,bmhk->bhnm",
-                              q.to(compute_dtype).float(),
-                              key.to(compute_dtype).float())
-        probs = torch.softmax(scores, dim=-1)
-        attn = torch.einsum("bhnm,bmhk->bnhk",
-                            probs.to(compute_dtype).float(),
-                            v.to(compute_dtype).float())
-    return int8_dense(attn.reshape(b, n, h * k),
-                      mha.out).to(compute_dtype)
+        return flash_attention(q, k, v, layout="bhnk", dropout_rate=rate,
+                               dropout_seed=seed)
+    # Compute-dtype values, fp32 products and sums (exact upcast, as
+    # preferred_element_type=float32 in the JAX einsums).
+    scores = torch.einsum("bgnk,bgmk->bgnm", q.float(), k.float())
+    probs = _dropout(torch.softmax(scores, dim=-1), rate, seed, train)
+    return torch.einsum("bgnm,bgmk->bgnk", probs.to(compute_dtype).float(),
+                        v.float())
 
 
 def _attention(x, mha: MultiHeadAttention, config: DetectorConfig,
-               compute_dtype) -> torch.Tensor:
-    """keras MHA semantics. Projections come out tokens-major
-    ``(B, N, H, K)``; head dims that are multiples of 64 hand the flash
-    wrapper a heads-major ``(B, H, N, K)`` view, as the JAX forward routes
-    them (``config.attention_heads_major`` overrides), and the kernel reads
-    either through strides."""
+               compute_dtype, train: bool = False,
+               seed: Optional[int] = None) -> torch.Tensor:
+    """keras MHA semantics, with windows when ``config.attention_window``
+    is set (the tokens arrive window-major). Projections come out
+    tokens-major ``(B, N, H, K)``. Head dims that are multiples of 64 take
+    the heads-major route (``config.attention_heads_major`` overrides), as
+    the JAX forward routes them: windows fold into the head axis, so the
+    dropout mask's batch*head index is b * (H * W) + h * W + w. The others,
+    and the int8 serving layers, take the tokens-major route: windows fold
+    into the batch axis, index (b * W + w) * H + h."""
     b, n, d = x.shape
     xc = x.to(compute_dtype)
-    if is_quantized(mha.query):
-        return _attention_int8(xc, mha, config, compute_dtype)
-    h, k = mha.query.kernel.shape[1:]    # physical head dim, as in JAX
+    quantized = is_quantized(mha.query)
+    if quantized:
+        h, k = mha.query.bias.shape          # physical head dim
 
-    def proj(layer):
-        y = _linear(xc, layer.kernel.reshape(d, h * k),
-                    layer.bias.reshape(h * k), compute_dtype)
-        return y.reshape(b, n, h, k)     # fp32
+        def proj(layer):
+            return int8_dense(xc, layer)     # fp32 (B, N, H, K)
+    else:
+        h, k = mha.query.kernel.shape[1:]    # physical head dim, as in JAX
+
+        def proj(layer):
+            y = _linear(xc, layer.kernel.reshape(d, h * k),
+                        layer.bias.reshape(h * k), compute_dtype)
+            return y.reshape(b, n, h, k)     # fp32
 
     q = (proj(mha.query) / math.sqrt(config.key_dim)).to(compute_dtype)
     key = proj(mha.key).to(compute_dtype)
     v = proj(mha.value).to(compute_dtype)
-
-    if config.use_flash_attention:
-        heads_major = (config.attention_heads_major
-                       if config.attention_heads_major is not None
-                       else k % 64 == 0)
-        if heads_major:
-            attn = flash_attention(q.transpose(1, 2), key.transpose(1, 2),
-                                   v.transpose(1, 2),
-                                   layout="bhnk").transpose(1, 2)
-        else:
-            attn = flash_attention(q, key, v, layout="bnhk")
+    rate = (config.dropout if train and config.dropout not in (None, 0.0)
+            and seed is not None else None)
+    window = config.attention_window
+    tokens = n if window is None else window * window
+    heads_major = not quantized and (
+        config.attention_heads_major
+        if config.attention_heads_major is not None else k % 64 == 0)
+    if heads_major:
+        # (B, H, N, K) views; windows fold into the head axis (a copy).
+        qh, kh, vh = (t.transpose(1, 2).reshape(b, h * (n // tokens),
+                                                tokens, k)
+                      for t in (q, key, v))
+        attn = _attend(qh, kh, vh, config, compute_dtype, rate, seed, train)
+        attn = attn.reshape(b, h, n, k).transpose(1, 2)
     else:
-        # Compute-dtype values, fp32 products and sums (exact upcast, as
-        # preferred_element_type=float32 in the JAX einsums).
-        scores = torch.einsum("bnhk,bmhk->bhnm", q.float(), key.float())
-        probs = torch.softmax(scores, dim=-1)
-        attn = torch.einsum("bhnm,bmhk->bnhk",
-                            probs.to(compute_dtype).float(), v.float())
+        # Windows fold into the batch axis: (B * W, T, H, K), free.
+        qt, kt, vt = (t.reshape(b * (n // tokens), tokens, h, k)
+                      .transpose(1, 2) for t in (q, key, v))
+        attn = _attend(qt, kt, vt, config, compute_dtype, rate, seed, train)
+        attn = attn.transpose(1, 2).reshape(b, n, h, k)
+    if quantized:
+        # The out projection quantizes the attention output as it comes:
+        # the compute dtype from flash, fp32 from the einsum route.
+        return int8_dense(attn.reshape(b, n, h * k),
+                          mha.out).to(compute_dtype)
     attn = attn.to(compute_dtype).reshape(b, n, h * k)
     out = _linear(attn, mha.out.kernel.reshape(h * k, d), mha.out.bias,
                   compute_dtype)
@@ -362,18 +474,96 @@ def _attention(x, mha: MultiHeadAttention, config: DetectorConfig,
 
 
 def _encoder_block(x, block: EncoderBlock, config: DetectorConfig,
-                   compute_dtype, train: bool) -> torch.Tensor:
-    """Pre-LN MHA + descending mish pyramid, both residual."""
+                   compute_dtype, train: bool, seeds=None) -> torch.Tensor:
+    """Pre-LN MHA + descending mish pyramid, both residual. ``seeds`` is
+    ``(attention seed, per-layer MLP seeds)`` under training dropout."""
+    attention_seed, mlp_seeds = (
+        seeds if seeds is not None else (None, (None,) * len(block.mlp)))
     side = x
     x = _layer_norm(x, block.ln1, config=config, train=train)
-    x = _attention(x, block.mha, config, compute_dtype)
+    x = _attention(x, block.mha, config, compute_dtype, train,
+                   attention_seed)
     x = x + side
 
     side = x
     x = _layer_norm(x, block.ln2, config=config, train=train)
-    for layer in block.mlp:
-        x = _dense_activation(x, layer, config, compute_dtype, train)
+    for layer, seed in zip(block.mlp, mlp_seeds):
+        x = _dense_activation(x, layer, config, compute_dtype, train, seed)
     return x + side
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: keep the outputs of the
+    2-D matrix products, recompute everything else (batched products, the
+    attention kernels, elementwise work)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _run_encoder(x, params, config: DetectorConfig, compute_dtype,
+                 train: bool, seeds: Optional[DropoutSeeds]) -> torch.Tensor:
+    """The encoder blocks, checkpointed as ``config.remat_encoder`` and
+    ``remat_policy`` say: None recomputes every block in the backward,
+    "dots" saves the 2-D matrix products' outputs and recomputes the rest,
+    "alternate" checkpoints the even blocks and runs the odd ones plain.
+    Checkpointing applies only where autograd records. The blocks draw
+    their dropout masks from seeded generators of their own, so no RNG
+    state needs preserving across the recompute."""
+    if config.remat_encoder and config.remat_policy not in (None, "dots",
+                                                            "alternate"):
+        raise ValueError(
+            f"unknown remat_policy {config.remat_policy!r}; "
+            "use None, 'dots' or 'alternate'")
+    remat = config.remat_encoder and torch.is_grad_enabled()
+    extra = {}
+    if config.remat_policy == "dots":
+        extra["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_saveable)
+    for i, block in enumerate(params.encoder):
+        block_seeds = (None if seeds is None
+                       else (seeds.attention[i], seeds.mlp[i]))
+        args = (x, block, config, compute_dtype, train, block_seeds)
+        if remat and not (config.remat_policy == "alternate" and i % 2):
+            x = checkpoint(_encoder_block, *args, use_reentrant=False,
+                           preserve_rng_state=False, **extra)
+        else:
+            x = _encoder_block(*args)
+    return x
+
+
+def _window_major(x, config: DetectorConfig, inverse: bool = False):
+    """Reorder the tokens of ``(B, P, D)`` from row-major grid order to
+    window-major (or back): a transpose of (rows/w, w, cols/w, w)."""
+    gh, gw = config.grid_size
+    w = config.attention_window
+    b, _, d = x.shape
+    if inverse:
+        x = x.reshape(b, gh // w, gw // w, w, w, d)
+    else:
+        x = x.reshape(b, gh // w, w, gw // w, w, d)
+    return x.transpose(2, 3).reshape(b, gh * gw, d)
+
+
+def _multi_scale_head_tokens(x, layers, config: DetectorConfig,
+                             compute_dtype) -> torch.Tensor:
+    """Per-slot features from the token grid average-pooled at each scale
+    (in fp32, cast back), projected to the slot axis per scale and
+    transposed, concatenated: ``(B, max_objects, sum_s P_s)``."""
+    b, _, d = x.shape
+    gh, gw = config.grid_size
+    grid = x.reshape(b, gh, gw, d)
+    feats = []
+    for scale, layer in zip(config.head_scales, layers):
+        if scale == 1:
+            pooled = grid
+        else:
+            pooled = (grid.float().reshape(b, gh // scale, scale,
+                                           gw // scale, scale, d)
+                      .sum(dim=(2, 4)) / float(scale * scale)).to(grid.dtype)
+        tokens = pooled.reshape(b, -1, d)
+        feats.append(_dense(tokens, layer, compute_dtype).transpose(1, 2))
+    return torch.cat(feats, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -381,32 +571,51 @@ def _encoder_block(x, block: EncoderBlock, config: DetectorConfig,
 # ---------------------------------------------------------------------------
 
 def forward(params: ViTDetector, images: torch.Tensor,
-            config: DetectorConfig, train: bool = False) -> torch.Tensor:
+            config: DetectorConfig, train: bool = False,
+            dropout_seed=None) -> torch.Tensor:
     """``(B, H, W, 3) -> (B, max_objects, 6)`` raw fp32 logits (the sigmoid
-    stays outside, in ops/decode.py)."""
+    stays outside, in ops/decode.py). ``dropout_seed`` (an integer, or a
+    ``DropoutSeeds`` table) turns on training dropout when ``train`` and
+    ``config.dropout`` are set; without it nothing is dropped, as the JAX
+    forward without a dropout rng."""
     check_supported(config)
-    if train and config.dropout not in (None, 0.0):
-        raise NotImplementedError(
-            "training-time dropout is not ported to PyTorch yet")
+    _validate_grid_config(config)
     if train and is_quantized(params.linear_projection):
         raise NotImplementedError(
             "an int8-quantized model is for serving only; train the float "
             "model and quantize it afterwards")
     compute_dtype = _dtype(config.compute_dtype)
+    seeds = dropout_seed
+    if dropout_seed is not None and not isinstance(dropout_seed,
+                                                   DropoutSeeds):
+        seeds = dropout_seeds(dropout_seed, config)
 
     patches = extract_patches(images.to(compute_dtype), config.patch_size)
     x = _dense(patches, params.linear_projection, compute_dtype)
     # The (P, 1) position embedding broadcasts over the channel axis.
     x = x + params.position_embedding.to(compute_dtype)[None]
 
-    for block in params.encoder:
-        x = _encoder_block(x, block, config, compute_dtype, train)
+    # Windowed attention: the tokens go window-major once here and back
+    # after the encoder (the MLP, LayerNorm and residuals do not see the
+    # order), so every block's window fold is a reshape.
+    windowed = config.attention_window is not None
+    if windowed:
+        x = _window_major(x, config)
+    x = _run_encoder(x, params, config, compute_dtype, train, seeds)
+    if windowed:
+        x = _window_major(x, config, inverse=True)
 
     b = x.shape[0]
-    x = _dense(x, params.head_token_dense, compute_dtype)     # (B, P, M)
-    # A plain reshape (B, P, M) -> (B, M, P), NOT a transpose, as the
-    # reference's keras Reshape.
-    x = x.reshape(b, config.max_objects, config.num_patches)
-    for layer in params.head_mlp:
-        x = _dense_activation(x, layer, config, compute_dtype, train)
+    if tuple(config.head_scales) == (1,):
+        x = _dense(x, params.head_token_dense, compute_dtype)     # (B, P, M)
+        # A plain reshape (B, P, M) -> (B, M, P), NOT a transpose, as the
+        # reference's keras Reshape.
+        x = x.reshape(b, config.max_objects, config.num_patches)
+    else:
+        x = _multi_scale_head_tokens(x, params.head_token_dense, config,
+                                     compute_dtype)
+    head_seeds = (seeds.head if seeds is not None
+                  else (None,) * len(params.head_mlp))
+    for layer, seed in zip(params.head_mlp, head_seeds):
+        x = _dense_activation(x, layer, config, compute_dtype, train, seed)
     return _dense(x, params.head_output, compute_dtype).float()

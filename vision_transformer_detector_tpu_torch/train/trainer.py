@@ -5,13 +5,17 @@ Counterpart of vision_transformer_detector_tpu/train/trainer.py, on one
 device (``device``, explicit). PyTorch runs eagerly, so the steps are
 plain functions, and the train step updates the parameters and the
 optimizer state in place (the JAX step returns new ones). The train state
-is ``{"params": ViTDetector, "opt_state": dict, "step": int}``.
+is ``{"params": ViTDetector, "opt_state": dict, "step": int}``, and
+``Trainer.init_state`` adds ``"dropout_rng"``: a CPU ``torch.Generator``
+seeded with ``TrainConfig.seed + 1`` (the JAX ``fit``'s rng chain seed)
+from which a step with dropout draws its uint32 ``dropout_seed``. It is
+saved and restored with the checkpoints, so a restored run draws the
+masks an uninterrupted one would.
 
 Not ported, and refused with NotImplementedError: ``epochs_per_call > 1``
 (the device-resident scan), async checkpointing, gradient accumulation,
-meshes and multi-process runs, and training-time dropout (the model
-refuses it). Streaming datasets are consumed batch by batch; their
-resume position is not checkpointed.
+meshes and multi-process runs. Streaming datasets are consumed batch by
+batch; their resume position is not checkpointed.
 """
 
 from __future__ import annotations
@@ -67,18 +71,33 @@ def train_config_view(config: DetectorConfig) -> DetectorConfig:
     return config
 
 
+def _draw_dropout_seed(state: TrainState) -> int:
+    generator = state.get("dropout_rng")
+    if generator is None:
+        raise ValueError(
+            "training with dropout draws its masks' seeds from "
+            "state['dropout_rng'] (Trainer.init_state makes it); add a "
+            "torch.Generator there")
+    return int(torch.randint(0, 2 ** 32, (), generator=generator))
+
+
 def make_train_step(config: DetectorConfig, loss_config: LossConfig,
                     optimizer: Adam):
     """``train_step(state, images, labels) -> (state, loss)``: forward,
-    loss, grads, clip + Adam, ClipWeight. Updates ``state`` in place."""
+    loss, grads, clip + Adam, ClipWeight. Updates ``state`` in place. With
+    ``config.dropout``, the masks' seed is the next draw of
+    ``state["dropout_rng"]``."""
     config = train_config_view(config)
 
     def train_step(state: TrainState, images, labels):
         model = state["params"]
         params = dict(model.named_parameters())
+        dropout_seed = (_draw_dropout_seed(state) if config.dropout
+                        else None)
         with torch.enable_grad():
             logits = forward(model, _maybe_normalize(images), config,
-                             train=config.dropout is not None)
+                             train=config.dropout is not None,
+                             dropout_seed=dropout_seed)
             loss = detection_loss(labels, logits, config, loss_config)
             grads = torch.autograd.grad(loss, list(params.values()))
         optimizer.step(params, dict(zip(params, grads)), state["opt_state"])
@@ -129,8 +148,8 @@ def evaluate_map(params, dataset: Iterable, config: DetectorConfig,
     """The streaming mAP over ``dataset``: batches of ``(images, labels)``,
     or ``(images, labels, valid)`` whose rows with ``valid`` False are
     padding and leave the metric unchanged."""
-    if device is None:
-        device = next(params.parameters()).device
+    device = (next(params.parameters()).device if device is None
+              else resolve_device(device))
     if eval_step is None:
         eval_step = make_eval_step(config)
     if metric is None:
@@ -223,10 +242,15 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> TrainState:
+        """Parameters from ``seed`` (default ``TrainConfig.seed``), fresh
+        Adam state, and the dropout seed chain (``TrainConfig.seed + 1``)."""
         generator = torch.Generator().manual_seed(
             self.train_config.seed if seed is None else seed)
-        return create_train_state(self.config, self.optimizer, generator,
-                                  self.device)
+        state = create_train_state(self.config, self.optimizer, generator,
+                                   self.device)
+        state["dropout_rng"] = torch.Generator().manual_seed(
+            self.train_config.seed + 1)
+        return state
 
     def _put_batch(self, images, labels):
         return (_to_device(images, self.device),
@@ -383,6 +407,9 @@ class Trainer:
             raise
         state["opt_state"] = opt_state
         state["step"] = int(payload["step"])
+        if "dropout_rng" in payload:
+            state["dropout_rng"] = torch.Generator()
+            state["dropout_rng"].set_state(payload["dropout_rng"].cpu())
         self.best_ap = float(payload["best_ap"])
         return state
 

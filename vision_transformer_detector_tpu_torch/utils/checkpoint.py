@@ -12,7 +12,8 @@ as it is, with no transpose.
 Train-state checkpoints take the place of the JAX package's orbax trees:
 one ``<name>.pt`` file per checkpoint, written by ``torch.save`` under a
 private name and renamed into place, holding ``{params, opt_state, step,
-best_ap, config}``. Step-stamped ones (``step_0000000042.pt``) are listed
+best_ap, config}`` and, when the state has one, the dropout seed
+generator's state (``dropout_rng``). Step-stamped ones (``step_0000000042.pt``) are listed
 and pruned like the JAX package's step directories.
 """
 
@@ -101,8 +102,9 @@ def save_train_state(path: str, state: Dict, best_ap: float,
                      config: DetectorConfig,
                      loss_config: Optional[LossConfig] = None,
                      train_config: Optional[TrainConfig] = None) -> None:
-    """Write ``{params, opt_state, step, best_ap, config}`` to ``path``
-    atomically: a crash mid-write leaves the previous file intact."""
+    """Write ``{params, opt_state, step, best_ap, config}`` (and the
+    ``dropout_rng`` generator's state, if any) to ``path`` atomically: a
+    crash mid-write leaves the previous file intact."""
     payload = {
         "params": {k: v.detach()
                    for k, v in state["params"].state_dict().items()},
@@ -111,6 +113,8 @@ def save_train_state(path: str, state: Dict, best_ap: float,
         "best_ap": float(best_ap),
         "config": configs_to_dict(config, loss_config, train_config),
     }
+    if state.get("dropout_rng") is not None:
+        payload["dropout_rng"] = state["dropout_rng"].get_state()
     tmp = f"{path}.tmp-{os.getpid()}"
     try:
         torch.save(payload, tmp)
