@@ -11,11 +11,14 @@ attention dropout, and checks each hand-written kernel on those paths
 against its plain PyTorch version. Phases, one output line each:
 
   1. build        — compile every kernel source of the paths from csrc/
-                    with nvcc, all at once; ptxas lines of each;
+                    with nvcc, all at once; ptxas lines of each, and the
+                    tensor-core (HMMA) instructions of each flash template
+                    instance in the SASS (cuobjdump): > 0 in both flash
+                    libraries and in every bf16 instance;
   2. kernel       — flash attention forward against reference_attention
                     on the card, in bf16 and fp32: the serving shape
                     (B*H, N, K) = (12, 576, 64), (96, 576, 64), and the
-                    ragged (8, 1296, 40) that the wrapper pads to K = 64;
+                    ragged (8, 1296, 40) that the wrapper pads to K = 48;
                     times both at (B*12, 576, 64) bf16 for B = 1 and 64,
                     beside one scaled_dot_product_attention call;
   3. kernel_train — the forward's logsumexp against
@@ -37,7 +40,9 @@ against its plain PyTorch version. Phases, one output line each:
                     tokens-major and a ragged N; the kernel's mask read
                     back exactly (q = k = 0, v one-hot) for 2,048
                     batch*heads; times in turns against the plain versions
-                    and scaled_dot_product_attention with dropout_p;
+                    and scaled_dot_product_attention with dropout_p, and
+                    highres_1024 as shipped (forward with lse and backward,
+                    no dropout) against both without dropout;
   4. kernel_serve — the int8 dense kernel (both routes), the LayerNorm
                     kernel and the dense+mish kernel against their plain
                     versions at the vit_b16_384 shapes for batch 1 and 32,
@@ -88,10 +93,10 @@ against its plain PyTorch version. Phases, one output line each:
 Then it prints the card's name and power limit (nvidia-smi), one JSON
 line with each kernel's shape, launches, error, times (its own, its plain
 version's and, where one PyTorch call computes the same function, that
-call's) and its bound, and as the last line {"ok": true, "device":
-{...}}. Any failed check ends the run with a non-zero exit and no result
-line; so does a host without a CUDA device, or a directory without the
-port's sources. A kernel that does not build or launch raises; nothing
+call's) and its bound with the peak rate it uses, and as the last line
+{"ok": true, "device": {...}}. Any failed check ends the run with a
+non-zero exit and no result line; so does a host without a CUDA device, or
+a directory without the port's sources. A kernel that does not build or launch raises; nothing
 falls back to a plain version. Imports neither JAX nor the JAX package.
 """
 
@@ -99,6 +104,8 @@ from __future__ import annotations
 
 import io
 import json
+import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -115,7 +122,12 @@ TPU_KERNELS = "vision_transformer_detector_tpu/kernels/"
 # is the larger of its operations over the peak for their type and its
 # bytes (each input read once, each output written once) over HBM's rate.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12,
+                  "fp32": 67e12}
+# The fp32 flash kernels multiply on the TF32 tensor cores as 3xTF32: three
+# TF32 products per fp32 product, so their bound is 3x the operations at
+# the TF32 rate (about 165 TFLOP/s of fp32 work).
+TF32_PRODUCTS = 3
 
 
 def _report(phase: str, **fields) -> None:
@@ -156,7 +168,10 @@ def _in_turns(runs: dict, iters: int) -> dict:
 
 def _bound(ops: float, nbytes: float, kind: str):
     """(bound_ms, bound_by) of work of ``ops`` operations of type ``kind``
-    on ``nbytes`` bytes of device memory."""
+    on ``nbytes`` bytes of device memory; kind "3xtf32" is fp32 work done as
+    three TF32 products."""
+    if kind == "3xtf32":
+        ops, kind = ops * TF32_PRODUCTS, "tf32"
     t_ops = ops / PEAK_OPS_PER_S[kind]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -206,12 +221,46 @@ def phase_build():
                fused_ln.SOURCE, fused_ffn.SOURCE]
     tic = time.monotonic()
     _build.load_libraries(sources)
+    seconds = round(time.monotonic() - tic, 3)
     ptxas = {source: [line.strip() for line in log.splitlines()
                       if "registers" in line or "spill" in line]
              for source, log in _build.BUILD_LOGS.items()}
     _require(set(ptxas) == set(sources), f"built {sorted(ptxas)}")
-    _report("build", seconds=round(time.monotonic() - tic, 3),
-            ptxas=ptxas)
+    hmma = {source: _tensor_core_instructions(_build.library_path(source))
+            for source in (fa.FWD_SOURCE, fa.BWD_SOURCE)}
+    for source, counts in hmma.items():
+        _require(len(counts) == 8 and sum(counts.values()) > 0,
+                 f"{source}: tensor-core instructions {counts}")
+        _require(all(n > 0 for name, n in counts.items()
+                     if name.startswith("bf16")),
+                 f"{source}: a bf16 instance without HMMA: {counts}")
+    _report("build", seconds=seconds, ptxas=ptxas,
+            tensor_core_instructions=hmma)
+
+
+def _tensor_core_instructions(library: str) -> dict:
+    """HMMA/HGMMA lines of each flash kernel instance in the library's
+    SASS (cuobjdump from nvcc's toolkit), by "<type>_d<head dim>[_drop]"."""
+    from vision_transformer_detector_tpu_torch.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : \S*flash_(?:fwd|bwd)_kernelI"
+                          r"(13__nv_bfloat16|f)Li(\d+)ELb([01])E", line)
+        if found:
+            dtype, dim, drop = found.groups()
+            name = (f"{'fp32' if dtype == 'f' else 'bf16'}_d{dim}"
+                    f"{'_drop' if drop == '1' else ''}")
+            counts[name] = 0
+        elif "Function :" in line:
+            name = None
+        elif name and re.search(r"\bH(G)?MMA\b", line):
+            counts[name] += 1
+    return counts
 
 
 def phase_kernel():
@@ -238,7 +287,7 @@ def phase_kernel():
     tolerances = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
     errors = {}
     # The serving shape itself, then (B*H, N, K) = (96, 576, 64) and the
-    # ragged (8, 1296, 40) that the wrapper pads to K = 64.
+    # ragged (8, 1296, 40) that the wrapper pads to K = 48.
     for (b, h, n, k) in ((1, 12, 576, 64), (8, 12, 576, 64),
                          (1, 8, 1296, 40)):
         for dtype, tol in tolerances.items():
@@ -566,10 +615,51 @@ def phase_kernel_drop():
                                                  "bhnk", drop),
         "library_ms": lambda: torch.autograd.grad(
             lib_out, lib_leaves, g, retain_graph=True)}, 3)
+    del lib_out, out, lse, delta
+
+    # highres_1024 as shipped (no dropout: 36 forward-with-lse and 24
+    # backward launches per step): errors at the batch-8 fold, and times
+    # against the plain versions and SDPA without dropout.
+    def lib_grad(backend):
+        torch.autograd.grad(_sdpa(*lib_leaves, backend), lib_leaves, g)
+
+    shipped_backend = _sdpa_backend(lib_grad)
+    out, lse = fa.flash_attention(q, k, v, layout="bhnk", with_lse=True)
+    delta = (g.float() * out.float()).sum(-1)
+    grads = fa._launch_backward(q, k, v, g, lse, delta, "bhnk")
+    torch.cuda.synchronize()
+    ref = fa.reference_attention(q, k, v, "bhnk")
+    plain = fa.reference_attention_backward(q, k, v, g, "bhnk")
+    shipped = {"out_rel": _rel_err(out, ref), "out_abs": _max_err(out, ref),
+               "lse_abs": (lse - fa.reference_attention_lse(q, k, "bhnk"))
+               .abs().max().item(),
+               "bwd_rel": max(_rel_err(a, r) for a, r in zip(grads, plain)),
+               "bwd_abs": max(_max_err(a, r) for a, r in zip(grads, plain))}
+    _require(shipped["out_rel"] <= tol[torch.bfloat16]
+             and shipped["lse_abs"] <= lse_tol
+             and shipped["bwd_rel"] <= tol[torch.bfloat16],
+             f"as shipped, 2048x256x64 bf16: {shipped}")
+    errors["2048x256x64_bfloat16_bhnk_no_dropout"] = shipped
+    del ref, plain, grads
+    lib_out = _sdpa(*lib_leaves, shipped_backend)
+    times["fwd_lse"] = _in_turns({
+        "plain_ms": lambda: (fa.reference_attention(q, k, v, "bhnk"),
+                             fa.reference_attention_lse(q, k, "bhnk")),
+        "kernel_ms": lambda: fa.flash_attention(q, k, v, layout="bhnk",
+                                                with_lse=True),
+        "library_ms": lambda: _sdpa(q, k, v, shipped_backend)}, 5)
+    times["bwd"] = _in_turns({
+        "plain_ms": lambda: fa.reference_attention_backward(q, k, v, g,
+                                                            "bhnk"),
+        "kernel_ms": lambda: fa._launch_backward(q, k, v, g, lse, delta,
+                                                 "bhnk"),
+        "library_ms": lambda: torch.autograd.grad(
+            lib_out, lib_leaves, g, retain_graph=True)}, 3)
     _report("kernel_drop", rate=DROP_RATE, seed=DROP_SEED, errors=errors,
             mask_readback={"bh": bh, "n": n, "mismatches": mismatches,
                            "keep_rate": keep_rate},
-            times_bf16_2048x256x64=times, sdpa_backend=backend.name)
+            times_bf16_2048x256x64=times, sdpa_backend=backend.name,
+            sdpa_backend_no_dropout=shipped_backend.name)
     return errors["2048x256x64_bfloat16_bhnk"], times
 
 
@@ -1449,13 +1539,22 @@ def phase_train_highres():
     return launches
 
 
-def _entry(name, source, replaces, shape, launches, err, times, bound):
+PEAK_NAMES = {"bf16": "bf16 989 TFLOP/s", "int8": "int8 1979 TOP/s",
+              "3xtf32": "tf32 495 TFLOP/s, 3 products per fp32 product",
+              "fp32": "fp32 67 TFLOP/s"}
+
+
+def _entry(name, source, replaces, shape, launches, err, times, work):
+    """One kernel of the kernels line; ``work`` is (operations, bytes,
+    kind) for its bound."""
+    bound = _bound(*work)
     return {"name": name, "route": "cuda", "source": CSRC + source,
             "replaces": TPU_KERNELS + replaces, "shape": shape,
             "launches": launches, "max_abs_err": err,
             "ms": times["kernel_ms"], "plain_ms": times["plain_ms"],
             "library_ms": times.get("library_ms"),
-            "bound_ms": bound[0], "bound_by": bound[1]}
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "peak": PEAK_NAMES[work[2]]}
 
 
 def _kernels_line(flash_err, flash_times, train_errors, train_times,
@@ -1474,55 +1573,60 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
         _entry("flash_attention_fwd", "flash_attention_fwd.cu",
                "flash_attention.py:64", [bh, n, k, "bfloat16"],
                launches["flash"], flash_err, flash_times[1],
-               _bound(4 * bh * n * n * k, flash_bytes, "bf16")),
+               (4 * bh * n * n * k, flash_bytes, "bf16")),
         _entry("flash_attention_fwd_lse", "flash_attention_fwd.cu",
                "flash_attention.py:653", [tbh, tn, tk, "float32"],
                launches["flash_lse"], train_errors["lse_abs"],
                train_times["fwd_lse"],
-               _bound(4 * tbh * tn * tn * tk, 4 * qkv + tbh * tn * 4,
-                      "fp32")),
+               (4 * tbh * tn * tn * tk, 4 * qkv + tbh * tn * 4, "3xtf32")),
         _entry("flash_attention_bwd", "flash_attention_bwd.cu",
                "flash_attention.py:151", [tbh, tn, tk, "float32"],
                launches["flash_bwd"], train_errors["bwd_abs"],
                train_times["bwd"],
-               _bound(10 * tbh * tn * tn * tk, 7 * qkv + 2 * tbh * tn * 4,
-                      "fp32")),
+               (10 * tbh * tn * tn * tk, 7 * qkv + 2 * tbh * tn * 4,
+                "3xtf32")),
         # q, k, v read, out written (bf16), lse written (fp32).
         _entry("flash_attention_fwd_drop", "flash_attention_fwd.cu",
                "flash_attention.py:679", [hbh, hn, hk, "bfloat16", DROP_RATE],
                launches["flash_drop"], drop_errors["out_abs"],
                drop_times["fwd_drop"],
-               _bound(4 * hbh * hn * hn * hk, 4 * hqkv + hbh * hn * 4,
-                      "bf16")),
+               (4 * hbh * hn * hn * hk, 4 * hqkv + hbh * hn * 4, "bf16")),
         # q, k, v, g read and dk, dv written (bf16), lse and delta read and
         # dq written (fp32).
         _entry("flash_attention_bwd_drop", "flash_attention_bwd.cu",
                "flash_attention.py:151", [hbh, hn, hk, "bfloat16", DROP_RATE],
                launches["flash_bwd_drop"], drop_errors["bwd_abs"],
                drop_times["bwd_drop"],
-               _bound(10 * hbh * hn * hn * hk,
-                      6 * hqkv + 2 * hqkv + 2 * hbh * hn * 4, "bf16")),
+               (10 * hbh * hn * hn * hk,
+                6 * hqkv + 2 * hqkv + 2 * hbh * hn * 4, "bf16")),
         dict(_entry("int8_dense", "int8_dense.cu", "quantization.py:159",
                     [rows, d, wide, "bfloat16", "mish"],
                     launches["int8_fused"], serve_errors["int8_dense"],
                     serve_times[f"int8_dense_B=32_{rows}x768x1536_mish"],
-                    _bound(2 * rows * d * wide,
-                           rows * d * 2 + d * wide + wide * 8
-                           + rows * wide * 2, "int8")),
+                    (2 * rows * d * wide,
+                     rows * d * 2 + d * wide + wide * 8 + rows * wide * 2,
+                     "int8")),
              route_launches={"fused_int8_dense": launches["int8_fused"],
-                             "int8_dense": launches["int8_dense"]}),
+                             "int8_dense": launches["int8_dense"]},
+             # The fp32-out route at the q/k/v/out shape, 768 -> 768: bf16
+             # x and int8 codes read, scale and bias read, fp32 written.
+             route_shape=[rows, d, d, "bfloat16", "float32 out"],
+             route_ms=serve_times[f"int8_dense_route_B=32_{rows}x768x768"][
+                 "kernel_ms"],
+             route_bound_ms=_bound(2 * rows * d * d,
+                                   rows * d * 2 + d * d + d * 8
+                                   + rows * d * 4, "int8")[0]),
         _entry("layer_norm", "layer_norm.cu", "fused_ln.py:37",
                [rows, d, "bfloat16"], launches["layer_norm"],
                serve_errors["layer_norm"],
                serve_times[f"layer_norm_B=32_{rows}x768_bf16"],
-               _bound(7 * rows * d, 2 * rows * d * 2 + 2 * d * 4, "fp32")),
+               (7 * rows * d, 2 * rows * d * 2 + 2 * d * 4, "fp32")),
         _entry("dense_mish", "dense_mish.cu", "fused_ffn.py:42",
                [rows, d, wide, "bfloat16", "mish"], launches["dense_mish"],
                serve_errors["dense_mish"],
                serve_times[f"dense_mish_B=32_{rows}x768x1536_bf16"],
-               _bound(2 * rows * d * wide,
-                      (rows * d + d * wide + wide + rows * wide) * 2,
-                      "bf16")),
+               (2 * rows * d * wide,
+                (rows * d + d * wide + wide + rows * wide) * 2, "bf16")),
     ]}
 
 

@@ -8,6 +8,7 @@ need not have; nothing here imports JAX.)
 """
 
 import copy
+import itertools
 import sys
 import threading
 
@@ -47,12 +48,23 @@ def _qkv(gen, shape, dtype, scale):
     return q.mul(scale).to(dtype), k.to(dtype), v.to(dtype)
 
 
+# The kernels' tile edges (64 queries or keys per tile) and head dims
+# (padded to 48 or 64), each in both layouts: (layout, shape) pairs of one
+# batch and two heads.
+EDGE_N = (1, 17, 63, 64, 65, 127, 256, 577, 1296)
+EDGE_K = (8, 40, 48, 64)
+EDGES = [("bhnk", (1, 2, n, kk)) if (i + j) % 2 else ("bnhk", (1, n, 2, kk))
+         for (i, n), (j, kk) in itertools.product(enumerate(EDGE_N),
+                                                  enumerate(EDGE_K))]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("layout,shape", [
     ("bhnk", (2, 12, 576, 64)),      # ViT-B/16 384px
-    ("bhnk", (1, 8, 1296, 40)),      # reference arch, K padded to 64
+    ("bhnk", (1, 8, 1296, 40)),      # reference arch, K padded to 48
     ("bnhk", (2, 77, 3, 64)),        # tokens-major, ragged N
     ("bnhk", (1, 200, 2, 8)),
+    *EDGES,
 ])
 def test_kernel_matches_reference(gen, dtype, layout, shape):
     q, k, v = _qkv(gen, shape, dtype, shape[-1] ** -0.5)
@@ -96,6 +108,29 @@ def test_kernel_refuses_what_it_does_not_take(gen):
         fa.flash_attention(wide, wide, wide, layout="bhnk")
     with pytest.raises(ValueError, match="all on the CPU or all on CUDA"):
         fa.flash_attention(q, k.cpu(), v, layout="bhnk")
+    # A view one element into its storage: refused, not launched or copied.
+    shifted = torch.zeros(1, 2, 64, 72, device="cuda")[..., 1:65]
+    launches = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="bytes past a 16-byte boundary"):
+        fa.flash_attention(q, shifted, v, layout="bhnk")
+    assert fa.flash_attention.launches == launches
+
+
+def test_backward_copies_a_cotangent_it_cannot_read(gen):
+    """The cotangent is whatever view autograd hands over: one the kernel
+    cannot read (offset by an element) is copied, and gives the grads of
+    its aligned copy. Bit for bit: with two key tiles each dq element gets
+    two atomic adds onto zero, whose order cannot change the sum."""
+    q, k, v = _qkv(gen, (1, 2, 100, 64), torch.bfloat16, 0.125)
+    out, lse = fa.flash_attention(q, k, v, layout="bhnk", with_lse=True)
+    wide = torch.randn(1, 2, 100, 72, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    g = wide[..., 1:65]
+    delta = (g.float() * out.float()).sum(-1)
+    got = fa._launch_backward(q, k, v, g, lse, delta, "bhnk")
+    want = fa._launch_backward(q, k, v, g.contiguous(), lse, delta, "bhnk")
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
 def test_launch_count_survives_concurrent_callers(gen):
@@ -146,9 +181,19 @@ def test_model_on_card_matches_cpu(gen, flash, key_dim):
 GRAD_TOLS = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 
 
-def _rel(got, ref):
+def _rel(got, ref, fallback=1.0):
+    """Max error relative to the reference's largest value; against
+    ``fallback`` where the reference is all zeros (N = 1: dq and dk are
+    zero in exact arithmetic; an output whose one key was dropped)."""
     ref = ref.float()
-    return ((got.float() - ref).abs().max() / ref.abs().max()).item()
+    scale = ref.abs().max().item() or fallback
+    return (got.float() - ref).abs().max().item() / scale
+
+
+def _grad_rels(grads, refs):
+    """_rel of each gradient, an all-zero one against the largest."""
+    top = max(r.float().abs().max().item() for r in refs)
+    return [_rel(a, r, top) for a, r in zip(grads, refs)]
 
 
 @pytest.mark.parametrize("layout,shape,dtype", [
@@ -157,6 +202,8 @@ def _rel(got, ref):
     ("bhnk", (1, 12, 576, 64), torch.float32),
     ("bnhk", (3, 77, 4, 40), torch.bfloat16),    # ragged N
     ("bnhk", (2, 200, 2, 8), torch.float32),
+    *((layout, shape, dtype) for layout, shape in EDGES
+      for dtype in (torch.bfloat16, torch.float32)),
 ])
 def test_backward_kernel_matches_plain_and_autograd(gen, layout, shape,
                                                     dtype):
@@ -171,18 +218,17 @@ def test_backward_kernel_matches_plain_and_autograd(gen, layout, shape,
     grads = fa._launch_backward(q, k, v, g, lse, delta, layout)
     torch.cuda.synchronize()
     assert fa.flash_attention.backward_launches == before + 1
-    for got, ref in zip(grads, fa.reference_attention_backward(q, k, v, g,
-                                                               layout)):
+    plain = fa.reference_attention_backward(q, k, v, g, layout)
+    for got, ref in zip(grads, plain):
         assert got.shape == ref.shape and got.dtype == ref.dtype
-        assert _rel(got, ref) <= GRAD_TOLS[dtype]
+    assert max(_grad_rels(grads, plain)) <= GRAD_TOLS[dtype]
 
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     fn = torch.autograd.grad(fa.flash_attention(*leaves, layout=layout),
                              leaves, g)
     auto = torch.autograd.grad(fa.reference_attention(*leaves, layout=layout),
                                leaves, g)
-    for got, ref in zip(fn, auto):
-        assert _rel(got, ref) <= GRAD_TOLS[dtype]
+    assert max(_grad_rels(fn, auto)) <= GRAD_TOLS[dtype]
 
 
 def test_requires_grad_inputs_get_a_grad_fn_on_the_card(gen):
@@ -243,13 +289,24 @@ def test_train_grads_on_card_match_cpu(gen):
 DROP = (2 ** 32 - 5, 0.1)   # (seed near 2^32, rate)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("layout,shape", [
-    ("bhnk", (2, 64, 256, 64)),      # highres_1024's heads-major fold
-    ("bnhk", (2, 1296, 4, 40)),      # tokens-major, K padded to 64
-    ("bnhk", (3, 77, 4, 40)),        # ragged N
+# The tile edges with dropout, except N = 1 in bf16: there dq and dk are
+# zero in exact arithmetic, but delta = rowsum(g * out) is taken from the
+# bf16-rounded output (as the JAX package's kernel takes it), whose
+# rounding of keep / (1 - rate) * v leaves ds at about 2^-9 of g.v, which
+# can exceed 2e-2 of the largest gradient. That case is held to the plain
+# backward fed the same delta (the next test); fp32 covers N = 1 here.
+@pytest.mark.parametrize("layout,shape,dtype", [
+    *((layout, shape, dtype)
+      for layout, shape in (("bhnk", (2, 64, 256, 64)),   # highres_1024 fold
+                            ("bnhk", (2, 1296, 4, 40)),   # K padded to 48
+                            ("bnhk", (3, 77, 4, 40)))     # ragged N
+      for dtype in (torch.bfloat16, torch.float32)),
+    *((layout, shape, dtype) for layout, shape in EDGES
+      for dtype in (torch.bfloat16, torch.float32)
+      if dtype == torch.float32
+      or (shape[2] if layout == "bhnk" else shape[1]) > 1),
 ])
-def test_dropout_kernels_match_plain(gen, dtype, layout, shape):
+def test_dropout_kernels_match_plain(gen, layout, shape, dtype):
     """The forward with dropout and lse, and the backward with the mask
     replayed, against the plain versions with the same mask; the
     Function's grads against autograd through the plain version."""
@@ -271,10 +328,10 @@ def test_dropout_kernels_match_plain(gen, dtype, layout, shape):
     assert (fa.flash_attention.drop_launches,
             fa.flash_attention.backward_drop_launches) == (
         before[0] + 1, before[1] + 1)
-    for got, ref in zip(grads, fa.reference_attention_backward(
-            q, k, v, g, layout, DROP)):
+    plain = fa.reference_attention_backward(q, k, v, g, layout, DROP)
+    for got, ref in zip(grads, plain):
         assert got.shape == ref.shape and got.dtype == ref.dtype
-        assert _rel(got, ref) <= GRAD_TOLS[dtype]
+    assert max(_grad_rels(grads, plain)) <= GRAD_TOLS[dtype]
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     fn = torch.autograd.grad(fa.flash_attention(
         *leaves, layout=layout, dropout_rate=rate, dropout_seed=seed),
@@ -282,8 +339,49 @@ def test_dropout_kernels_match_plain(gen, dtype, layout, shape):
     auto = torch.autograd.grad(
         fa.reference_attention(*leaves, layout=layout, dropout=DROP),
         leaves, g)
-    for got, ref in zip(fn, auto):
-        assert _rel(got, ref) <= GRAD_TOLS[dtype]
+    assert max(_grad_rels(fn, auto)) <= GRAD_TOLS[dtype]
+
+
+def _plain_backward_given_delta(q, k, v, g, delta, layout, dropout):
+    """reference_attention_backward with ds = p * (scale * g v^T - delta)
+    for a given (B, H, N) fp32 delta, as the backward kernel forms it."""
+    qh, kh, vh, gh = (fa._heads_major(t, layout) for t in (q, k, v, g))
+    dtype = q.dtype
+    p = torch.softmax(torch.einsum("bhnk,bhmk->bhnm", qh.float(),
+                                   kh.float()), dim=-1)
+    b, h, n, _ = p.shape
+    scale = fa._dropout_scale(dropout, b, h, n, p.device)
+    dp = torch.einsum("bhnk,bhmk->bhnm", gh.float(), vh.float()) * scale
+    dv = torch.einsum("bhnm,bhnk->bhmk", (p * scale).to(dtype).float(),
+                      gh.float())
+    ds = (p * (dp - delta[..., None])).to(dtype).float()
+    dq = torch.einsum("bhnm,bhmk->bhnk", ds, kh.float())
+    dk = torch.einsum("bhnm,bhnk->bhmk", ds, qh.float())
+    return tuple(fa._heads_major(t.to(dtype), layout) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("layout,shape", [
+    (layout, shape) for layout, shape in EDGES
+    if (shape[2] if layout == "bhnk" else shape[1]) == 1])
+def test_dropout_backward_at_one_key_matches_plain_given_delta(gen, layout,
+                                                               shape):
+    """N = 1 in bf16 with dropout: the forward against the plain version,
+    and the replayed backward against the plain backward fed the same
+    delta, rowsum(g * out) of the kernel's bf16 output."""
+    dtype = torch.bfloat16
+    q, k, v = _qkv(gen, shape, dtype, shape[-1] ** -0.5)
+    g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    out, lse = fa.flash_attention(q, k, v, layout=layout, with_lse=True,
+                                  dropout_rate=DROP[1], dropout_seed=DROP[0])
+    assert _rel(out, fa.reference_attention(q, k, v, layout, DROP)) <= \
+        GRAD_TOLS[dtype]
+    delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                            layout).contiguous()
+    grads = fa._launch_backward(q, k, v, g, lse, delta, layout, DROP)
+    plain = _plain_backward_given_delta(q, k, v, g, delta, layout, DROP)
+    for got, ref in zip(grads, plain):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert max(_grad_rels(grads, plain)) <= GRAD_TOLS[dtype]
 
 
 def test_dropout_kernel_mask_reads_back_exactly(gen):

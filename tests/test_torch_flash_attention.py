@@ -267,3 +267,113 @@ def test_cpu_grads_take_the_plain_backward(monkeypatch):
     assert counts == (fa.flash_attention.launches,
                       fa.flash_attention.lse_launches,
                       fa.flash_attention.backward_launches)
+
+
+# ---------------------------------------------------------------------------
+# What the kernels are handed: head dims padded to 48 or 64, 16-byte rows
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kdim,width", [(8, 48), (40, 48), (48, 48),
+                                        (56, 64), (64, 64)])
+def test_pad_head_dim_gives_the_kernels_widths(kdim, width):
+    t = torch.randn(2, 5, 3, kdim)
+    padded = fa._pad_head_dim(t)
+    assert padded.shape == (2, 5, 3, width)
+    assert torch.equal(padded[..., :kdim], t)
+    assert not padded[..., kdim:].any()
+
+
+@pytest.mark.parametrize("layout,shape", [("bnhk", (2, 37, 3, 40)),
+                                          ("bhnk", (1, 2, 70, 8))])
+def test_padding_to_48_is_exact_through_the_plain_versions(layout, shape):
+    """Zero columns up to 48 change nothing: the plain forward, its lse
+    and its backward on padded tensors, sliced back, give the unpadded
+    call's values (fp32; the same products plus exact zeros)."""
+    q, k, v = (torch.from_numpy(t) for t in _qkv(shape, seed=10))
+    g = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        shape).astype(np.float32))
+    padded = [fa._pad_head_dim(t) for t in (q, k, v, g)]
+    assert padded[0].shape[-1] == 48
+    kdim = shape[-1]
+    np.testing.assert_allclose(
+        fa.reference_attention(*padded[:3], layout)[..., :kdim].numpy(),
+        fa.reference_attention(q, k, v, layout).numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(
+        fa.reference_attention_lse(padded[0], padded[1], layout).numpy(),
+        fa.reference_attention_lse(q, k, layout).numpy(), atol=1e-6, rtol=0)
+    for mine, ref in zip(
+            fa.reference_attention_backward(*padded, layout),
+            fa.reference_attention_backward(q, k, v, g, layout)):
+        np.testing.assert_allclose(mine[..., :kdim].numpy(), ref.numpy(),
+                                   atol=1e-6, rtol=0)
+        assert not mine[..., kdim:].any()
+
+
+def _model_attention_operands(monkeypatch, **overrides):
+    """The (q, k, v) the model hands the flash wrapper in one forward of a
+    small model on the CPU, with their layout."""
+    from vision_transformer_detector_tpu_torch import DetectorConfig
+    from vision_transformer_detector_tpu_torch.models import vit_detector
+
+    seen = []
+
+    def capture(q, k, v, layout="bnhk", **kwargs):
+        seen.append((layout, q, k, v))
+        return fa.flash_attention(q, k, v, layout=layout, **kwargs)
+
+    monkeypatch.setattr(vit_detector, "flash_attention", capture)
+    config = DetectorConfig(**{
+        "image_size": (64, 64), "patch_size": 16, "embedding_dim": 32,
+        "num_heads": 2, "key_dim": 8, "encoder_blocks": 1,
+        "encoder_mlp_layers": 2, "head_last_units": 16, "head_layers": 2,
+        "use_flash_attention": True, **overrides})
+    params = vit_detector.init_params(config, torch.Generator().manual_seed(0))
+    images = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (2, 64, 64, 3)).astype(np.float32))
+    with torch.no_grad():
+        vit_detector.forward(params, images, config)
+    assert seen
+    return seen
+
+
+@pytest.mark.parametrize("overrides", [
+    {"key_dim": 40},                                      # tokens-major, F.pad
+    {"key_dim": 64},                                      # heads-major view
+    {"key_dim": 64, "attention_window": 2},               # heads-major fold
+    {"key_dim": 8, "attention_window": 2, "compute_dtype": "bfloat16"},
+    {"key_dim": 64, "compute_dtype": "bfloat16"},
+], ids=["tokens_major_k40", "heads_major_k64", "window_fold_k64",
+        "window_tokens_major_k8_bf16", "heads_major_k64_bf16"])
+def test_alignment_check_accepts_the_models_views(monkeypatch, overrides):
+    """Every q/k/v view the model hands the wrapper (tokens-major
+    projections, heads-major views and window folds, F.pad copies) passes
+    the kernels' 16-byte row check once padded, as the launch pads it."""
+    for layout, q, k, v in _model_attention_operands(monkeypatch,
+                                                     **overrides):
+        padded = fa._kernel_operands(layout, q=q, k=k, v=v)
+        assert all(t.shape[-1] in (48, 64) for t in padded)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_alignment_check_rejects_a_view_offset_by_one_element(dtype):
+    """A K = 64 view that starts one element into its storage cannot be
+    copied 16 bytes at a time: the wrapper raises, it does not copy."""
+    base = torch.zeros(2, 10, 3, 72, dtype=dtype)
+    good = base[..., :64]
+    fa._kernel_operands("bnhk", q=good, k=good, v=good)
+    shifted = base[..., 1:65]
+    with pytest.raises(ValueError, match=r"k starts \d+ bytes past a "
+                       r"16-byte boundary; the flash kernels read"):
+        fa._kernel_operands("bnhk", q=good, k=shifted, v=good)
+
+
+def test_alignment_check_rejects_an_unaligned_token_stride():
+    """fp32 rows 66 elements (264 bytes) apart leave every other row off
+    a 16-byte boundary and are refused; 68 elements (272 bytes) apart
+    they are accepted."""
+    storage = torch.zeros(10 * 68)
+    ok = storage.as_strided((1, 10, 1, 64), (680, 68, 64, 1))
+    fa._kernel_operands("bnhk", q=ok)
+    bad = storage.as_strided((1, 10, 1, 64), (660, 66, 64, 1))
+    with pytest.raises(ValueError, match="strides .* not multiples of 16"):
+        fa._kernel_operands("bnhk", q=bad)

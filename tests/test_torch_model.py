@@ -34,7 +34,7 @@ CONFIGS = {
     "flash_k64": DetectorConfig(image_size=(48, 48), patch_size=16,
                                 key_dim=64, use_flash_attention=True,
                                 **_SMALL),
-    # key_dim 8: tokens-major flash path, K padded to 64
+    # key_dim 8: tokens-major flash path, K padded by the kernel routes
     "flash_k8": DetectorConfig(image_size=(48, 64), patch_size=16,
                                key_dim=8, use_flash_attention=True,
                                **_SMALL),

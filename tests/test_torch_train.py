@@ -43,7 +43,7 @@ from vision_transformer_detector_tpu_torch.utils.checkpoint import (
     params_from_numpy, params_to_numpy)
 
 # The 68 px, 2-block shape of the verify recipe, with the reference's
-# key_dim 40 (padded to 64 on the flash route) and 16 tokens.
+# key_dim 40 (padded on the flash kernel routes) and 16 tokens.
 SMALL = DetectorConfig(image_size=(68, 68), embedding_dim=16, num_heads=2,
                        key_dim=40, encoder_blocks=2, encoder_mlp_layers=3,
                        head_last_units=16, head_layers=2)

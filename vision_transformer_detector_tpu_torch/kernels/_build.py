@@ -59,6 +59,14 @@ def _digest(source: str) -> str:
     return h.hexdigest()[:16]
 
 
+def library_path(source_name: str) -> str:
+    """Where ``csrc/<source_name>``'s library is (or will be) built: the name
+    carries the digest of the source, the headers and the flags."""
+    stem = os.path.splitext(source_name)[0]
+    digest = _digest(os.path.join(CSRC_DIR, source_name))
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+
+
 def load_library(source_name: str) -> ctypes.CDLL:
     """Compile ``csrc/<source_name>`` once and return the loaded library."""
     with _lock:
@@ -69,7 +77,7 @@ def load_library(source_name: str) -> ctypes.CDLL:
             return lib
         source = os.path.join(CSRC_DIR, source_name)
         stem = os.path.splitext(source_name)[0]
-        path = os.path.join(BUILD_DIR, f"lib{stem}-{_digest(source)}.so")
+        path = library_path(source_name)
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             # Build under a private name, then rename: another process

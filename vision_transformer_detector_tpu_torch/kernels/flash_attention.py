@@ -17,6 +17,12 @@ Routing is by the device of the tensors, never by a fallback:
     ``kernels/_build.py``), or raise;
   * any other device raises.
 
+The kernels run on the tensor cores (bf16, and fp32 as 3xTF32) with head
+dims of 48 or 64: a smaller K is zero-padded to the next of the two, which
+is exact. They copy q/k/v rows 16 bytes at a time, so a view whose rows do
+not start on 16-byte boundaries (or whose head dim is strided) is refused
+with ValueError, never copied; the model's views all qualify.
+
 When q, k or v requires grad, the call goes through
 ``FlashAttentionFunction``: its forward also writes the fp32 logsumexp and
 saves it with the unpadded q, k, v and the output; its backward forms
@@ -52,7 +58,8 @@ from . import _build
 
 FWD_SOURCE = "flash_attention_fwd.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
-_HEAD_DIM = 64          # the kernels' native head dim; smaller K is padded
+_HEAD_DIMS = (48, 64)   # the kernels' head dims; smaller K is padded
+_ALIGN = 16             # bytes: the kernels' cp.async copies move 16 at once
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 _M32 = 0xFFFFFFFF
@@ -202,8 +209,8 @@ class FlashAttentionFunction(torch.autograd.Function):
                                        dropout=dropout)
         else:
             out, lse = reference_attention(q, k, v, layout, dropout), None
-        # Unpadded q/k/v: the backward re-pads them, so a K < 64 call does
-        # not hold a padded copy between the passes.
+        # Unpadded q/k/v: the backward re-pads them, so a call with a padded
+        # head dim does not hold a padded copy between the passes.
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.layout = layout
         ctx.use_kernel = use_kernel
@@ -285,19 +292,56 @@ def _check_inputs(*tensors) -> None:
             + ", ".join(str(t.dtype) for t in tensors))
     if any(t.device != tensors[0].device for t in tensors):
         raise ValueError("q/k/v must be on one CUDA device")
-    if shape[-1] > _HEAD_DIM:
+    if shape[-1] > _HEAD_DIMS[-1]:
         raise ValueError(
-            f"head dim {shape[-1]} > {_HEAD_DIM} is not supported")
+            f"head dim {shape[-1]} > {_HEAD_DIMS[-1]} is not supported")
     if tensors[0].numel() == 0:
         raise ValueError("empty q/k/v")
 
 
 def _pad_head_dim(t: torch.Tensor) -> torch.Tensor:
-    """Zero head-dim padding to 64 is exact: padded columns add 0 to q.k
-    and to g.v and give 0 outputs and grads, sliced off afterwards."""
-    if t.shape[-1] < _HEAD_DIM:
-        return F.pad(t, (0, _HEAD_DIM - t.shape[-1]))
+    """Zero-pad the head dim to the kernels' width: K <= 48 to 48, 48 < K
+    <= 64 to 64. Exact: padded columns add 0 to q.k and to g.v and give 0
+    outputs and grads, sliced off afterwards."""
+    width = next(w for w in _HEAD_DIMS if t.shape[-1] <= w)
+    if t.shape[-1] < width:
+        return F.pad(t, (0, width - t.shape[-1]))
     return t
+
+
+def _misalignment(t: torch.Tensor, layout: str):
+    """Why the kernels cannot read t's rows, or None. They copy each
+    (batch, head, token) row into shared memory 16 bytes at a time, so the
+    head dim must be contiguous, and the data pointer and the batch, head
+    and token strides (of axes longer than 1) must be multiples of 16
+    bytes."""
+    if t.stride(-1) != 1:
+        return "is not contiguous in the head dim"
+    if t.data_ptr() % _ALIGN:
+        return (f"starts {t.data_ptr() % _ALIGN} bytes past a {_ALIGN}-byte "
+                "boundary")
+    sizes, strides = _axes(t, layout)
+    if any(n > 1 and (s * t.element_size()) % _ALIGN
+           for n, s in zip(sizes, strides)):
+        return (f"has batch/head/token strides {tuple(strides)} (elements of "
+                f"{t.element_size()} bytes) that are not multiples of "
+                f"{_ALIGN} bytes")
+    return None
+
+
+def _kernel_operands(layout: str, **tensors) -> list:
+    """The tensors padded to the kernels' head dim; raises ValueError for
+    one whose rows the kernels cannot read (never copies it)."""
+    padded = []
+    for name, t in tensors.items():
+        t = _pad_head_dim(t)
+        why = _misalignment(t, layout)
+        if why is not None:
+            raise ValueError(
+                f"{name} {why}; the flash kernels read 16-byte-aligned rows "
+                "with a unit head-dim stride")
+        padded.append(t)
+    return padded
 
 
 def _axes(t: torch.Tensor, layout: str):
@@ -320,9 +364,7 @@ def _launch_forward(q, k, v, layout: str, with_lse: bool = False,
                     dropout=None):
     _check_inputs(q, k, v)
     kdim = q.shape[-1]
-    q, k, v = (_pad_head_dim(t) for t in (q, k, v))
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("q/k/v must be contiguous in the head dim")
+    q, k, v = _kernel_operands(layout, q=q, k=k, v=v)
     lib = _library(FWD_SOURCE)
     # empty_like keeps q's memory order, so a transposed view in gives a
     # tensor that transposes back to contiguous.
@@ -336,11 +378,11 @@ def _launch_forward(q, k, v, layout: str, with_lse: bool = False,
         err = lib.vtd_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), _DTYPE_CODES[q.dtype],
-            b, h, n, *strides, *_dropout_c_args(dropout), stream)
+            b, h, n, q.shape[-1], *strides, *_dropout_c_args(dropout), stream)
     _build.raise_on_error(lib, err, "flash attention forward")
     _count("drop_launches" if dropout is not None
            else "lse_launches" if with_lse else "launches")
-    out = out[..., :kdim] if kdim < _HEAD_DIM else out
+    out = out[..., :kdim] if kdim < out.shape[-1] else out
     return (out, lse) if with_lse else out
 
 
@@ -351,11 +393,13 @@ def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None):
     is the forward's ``(seed, rate)``, whose mask the kernel replays."""
     _check_inputs(q, k, v, g)
     kdim = q.shape[-1]
-    q, k, v, g = (_pad_head_dim(t) for t in (q, k, v, g))
-    # The incoming cotangent may be any view; the kernel needs a unit
-    # stride in the head dim only.
-    q, k, v, g = (t if t.stride(-1) == 1 else t.contiguous()
-                  for t in (q, k, v, g))
+    # The incoming cotangent is whatever view autograd hands over (an
+    # expanded tensor, a transpose): it is made contiguous when the kernel
+    # could not read it. q, k and v are the caller's and must already fit.
+    g = _pad_head_dim(g)
+    if _misalignment(g, layout) is not None:
+        g = g.contiguous()
+    q, k, v, g = _kernel_operands(layout, q=q, k=k, v=v, g=g)
     (b, h, n), _ = _axes(q, layout)
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.shape != (b, h, n) or t.dtype != torch.float32
@@ -373,8 +417,8 @@ def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None):
         err = lib.vtd_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), _DTYPE_CODES[q.dtype], b, h, n, *strides,
-            *_dropout_c_args(dropout), stream)
+            dv.data_ptr(), _DTYPE_CODES[q.dtype], b, h, n, q.shape[-1],
+            *strides, *_dropout_c_args(dropout), stream)
     _build.raise_on_error(lib, err, "flash attention backward")
     _count("backward_launches" if dropout is None
            else "backward_drop_launches")
@@ -389,11 +433,11 @@ def _library(source: str) -> ctypes.CDLL:
                ctypes.c_void_p]
     if source == FWD_SOURCE:
         fn = lib.vtd_flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 12 + dropout)
     else:
         fn = lib.vtd_flash_attention_bwd
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 21 + dropout)
     fn.restype = ctypes.c_int
     lib.vtd_cuda_error_string.argtypes = [ctypes.c_int]
