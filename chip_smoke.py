@@ -12,9 +12,11 @@ against its plain PyTorch version. Phases, one output line each:
 
   1. build        — compile every kernel source of the paths from csrc/
                     with nvcc, all at once; ptxas lines of each, and the
-                    tensor-core (HMMA) instructions of each flash template
-                    instance in the SASS (cuobjdump): > 0 in both flash
-                    libraries and in every bf16 instance;
+                    tensor-core instructions in the SASS (cuobjdump): HMMA
+                    of each flash template instance, > 0 in both flash
+                    libraries and in every bf16 instance; IGMMA / IMMA of
+                    the int8 dense's tensor-core kernel and HGMMA / HMMA
+                    of the dense+mish's wgmma and mma.sync kernels, > 0;
   2. kernel       — flash attention forward against reference_attention
                     on the card, in bf16 and fp32: the serving shape
                     (B*H, N, K) = (12, 576, 64), (96, 576, 64), and the
@@ -46,8 +48,13 @@ against its plain PyTorch version. Phases, one output line each:
   4. kernel_serve — the int8 dense kernel (both routes), the LayerNorm
                     kernel and the dense+mish kernel against their plain
                     versions at the vit_b16_384 shapes for batch 1 and 32,
-                    with ragged edges; times in turns with the plain
-                    version and, for the LayerNorm, F.layer_norm;
+                    with ragged edges and the tile edges (M, N in {1, 17,
+                    63, 64, 65, 127, 129}, K in {28, 40, 512, 576, 1536}),
+                    every instance of each kernel, and every vit_b16_384
+                    shape on a tensor-core instance; times in turns with
+                    the plain version, for the LayerNorm F.layer_norm, and
+                    for the dense kernels the bf16 torch.addmm (+ mish in
+                    fp32) that the bf16 service runs per layer;
   5. model        — vit_b16_384 in fp32 on one seeded image: the kernel
                     path on the card against the plain path on the CPU;
   6. model_serve  — vit_b16_384 (bf16) on one seeded image, card against
@@ -61,11 +68,13 @@ against its plain PyTorch version. Phases, one output line each:
   8. serve_int8   — the `serve --int8` service with the fused LayerNorm
                     behind DetectionServer: per request 30 fused int8
                     dense, 48 int8_dense-route, 24 LayerNorm and 12 flash
-                    launches; batch-1 and batch-32 device-path times
-                    beside the bf16 service's;
+                    launches, all 78 dense ones on tensor-core instances;
+                    batch-1 and batch-32 device-path times beside the bf16
+                    service's, the batch-32 one below it;
   9. serve_fused_ffn — the `--fused-ffn` service with the fused
-                    LayerNorm, device path: per call 27 dense+mish, 24
-                    LayerNorm and 12 flash launches; the same two times;
+                    LayerNorm, device path: per call 27 dense+mish (all on
+                    tensor-core instances), 24 LayerNorm and 12 flash
+                    launches; the same two times, batch 32 below bf16's;
  10. train        — reference_608 in fp32 at full width with seeded
                     weights and synthetic data: (a) one step's loss and
                     gradients on the card against the CPU plain path at
@@ -234,6 +243,21 @@ def phase_build():
         _require(all(n > 0 for name, n in counts.items()
                      if name.startswith("bf16")),
                  f"{source}: a bf16 instance without HMMA: {counts}")
+    # The rebuilt dense kernels: wgmma (IGMMA, HGMMA) and mma.sync (HMMA).
+    dense = {
+        quantization.SOURCE: _kernel_instructions(
+            _build.library_path(quantization.SOURCE), r"I(G)?MMA"),
+        fused_ffn.SOURCE: _kernel_instructions(
+            _build.library_path(fused_ffn.SOURCE), r"H(G)?MMA")}
+    for source, kernels in (
+            (quantization.SOURCE, ("int8_dense_wgmma_kernel",)),
+            (fused_ffn.SOURCE, ("dense_mish_wgmma_kernel",
+                                "dense_mish_mma_kernel"))):
+        for kernel in kernels:
+            _require(dense[source].get(kernel, 0) > 0,
+                     f"{source}: no tensor-core instruction in {kernel}: "
+                     f"{dense[source]}")
+    hmma.update(dense)
     _report("build", seconds=seconds, ptxas=ptxas,
             tensor_core_instructions=hmma)
 
@@ -259,6 +283,28 @@ def _tensor_core_instructions(library: str) -> dict:
         elif "Function :" in line:
             name = None
         elif name and re.search(r"\bH(G)?MMA\b", line):
+            counts[name] += 1
+    return counts
+
+
+def _kernel_instructions(library: str, mnemonic: str) -> dict:
+    """SASS lines matching ``mnemonic`` in the library, summed over the
+    template instances of each ``*_kernel`` function."""
+    from vision_transformer_detector_tpu_torch.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = re.search(
+                r"\d\d((?:int8_dense|dense_mish)[a-z_]*_kernel)I", line)
+            name = found.group(1) if found else None
+            if name:
+                counts.setdefault(name, 0)
+        elif name and re.search(rf"\b{mnemonic}\b", line):
             counts[name] += 1
     return counts
 
@@ -723,20 +769,34 @@ def phase_kernel_serve():
         errors[name] = err
         worst[kernel] = max(worst[kernel], err)
 
+    def took_tensor_cores(fn, call):
+        """call()'s result and whether its one launch took a tensor-core
+        instance."""
+        before = (fn.launches, fn.tensor_core_launches)
+        got = call()
+        torch.cuda.synchronize()
+        _require(fn.launches == before[0] + 1, f"{fn.__name__}: no launch")
+        return got, fn.tensor_core_launches == before[1] + 1
+
     for batch in (1, 32):
         tokens, slots = 576 * batch, 17 * batch
         # B5, fused route: (rows, K, N, mish) of the encoder MLP, the
-        # head's token dense (N = 17), MLP and output (N = 6).
+        # head's token dense (N = 17), MLP and output (N = 6). Every
+        # vit_b16_384 shape has K in whole 16-byte rows: tensor cores.
         for rows, k, n, mish in ((tokens, 768, 1536, True),
                                  (tokens, 1536, 768, True),
                                  (tokens, 768, 768, False),
                                  (tokens, 768, 17, False),
                                  (slots, 576, 2048, True),
+                                 (slots, 2048, 1024, True),
+                                 (slots, 1024, 512, True),
                                  (slots, 512, 6, False)):
             layer = _quant_layer(gen, k, (n,))
             x = torch.randn(rows, k, device="cuda", generator=gen).to(bf16)
-            got = qz.fused_int8_dense(x, layer, apply_mish=mish)
-            torch.cuda.synchronize()
+            got, on_tc = took_tensor_cores(
+                qz.fused_int8_dense,
+                lambda: qz.fused_int8_dense(x, layer, apply_mish=mish))
+            _require(on_tc, f"int8 fused {rows}x{k}x{n}: guarded instance")
             ref = qz.int8_dense_reference(x, layer.kernel_q, layer.scale,
                                           layer.bias, mish, bf16)
             check("int8_dense", f"int8_fused_{rows}x{k}x{n}"
@@ -746,8 +806,9 @@ def phase_kernel_serve():
         for rows in (tokens, slots):
             layer = _quant_layer(gen, 768, (12, 64))
             x = torch.randn(rows, 768, device="cuda", generator=gen).to(bf16)
-            got = qz.int8_dense(x, layer)
-            torch.cuda.synchronize()
+            got, on_tc = took_tensor_cores(qz.int8_dense,
+                                           lambda: qz.int8_dense(x, layer))
+            _require(on_tc, f"int8_dense route {rows}x768: guarded instance")
             ref = qz.int8_dense_reference(
                 x, layer.kernel_q, layer.scale,
                 layer.bias.reshape(-1)).reshape(rows, 12, 64)
@@ -764,12 +825,15 @@ def phase_kernel_serve():
             ref = fused_ln.layer_norm_reference(x, gamma, beta)
             check("layer_norm", f"ln_{rows}x768_{str(dtype)[6:]}", got, ref,
                   one_bf16 if dtype == bf16 else 1e-5)
-        # B3: the encoder MLP and the head's first MLP layer with mish, and
-        # ragged N = 17 and N = 6 without.
+        # B3: the encoder MLP and the head's MLP layers with mish (the
+        # model's shapes: tensor cores), and ragged N = 17 and N = 6
+        # without (rows of w off a 16-byte boundary: the guarded instance).
         for dtype in (bf16, fp32):
             for rows, k, n, mish in ((tokens, 768, 1536, True),
                                      (tokens, 1536, 768, True),
                                      (slots, 576, 2048, True),
+                                     (slots, 2048, 1024, True),
+                                     (slots, 1024, 512, True),
                                      (slots, 768, 17, False),
                                      (slots, 512, 6, False)):
                 x = torch.randn(rows, k, device="cuda", generator=gen)
@@ -777,28 +841,103 @@ def phase_kernel_serve():
                     (6.0 / (k + n)) ** 0.5 / 3 ** 0.5)
                 b = 0.1 * torch.randn(n, device="cuda", generator=gen)
                 x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
-                got = fused_ffn.fused_dense_mish(x, w, b, apply_mish=mish)
-                torch.cuda.synchronize()
+                got, on_tc = took_tensor_cores(
+                    fused_ffn.fused_dense_mish,
+                    lambda: fused_ffn.fused_dense_mish(x, w, b,
+                                                       apply_mish=mish))
+                on_shape = fused_ffn.tensor_core_shape(k, n, dtype)
+                _require(on_tc == on_shape and (on_shape or not mish),
+                         f"dense+mish {rows}x{k}x{n} {dtype}: tensor-core "
+                         f"instance {on_tc}")
                 ref = fused_ffn.dense_mish_reference(x, w, b, mish)
                 check("dense_mish", f"ffn_{rows}x{k}x{n}_{str(dtype)[6:]}"
                       f"{'_mish' if mish else ''}", got, ref,
                       one_bf16 if dtype == bf16 else 1e-5)
 
-    # Times in turns at the batch-32 headline shapes (and batch 1).
+    # Tile edges: rows and columns around the 64- and 128-wide tiles, K
+    # off and on 16-byte rows, through every instance that takes the shape
+    # (None: the one the shape selects). Worst error per instance.
+    edges = [(m, k, n) for m in (1, 65, 129) for n in (17, 64, 129)
+             for k in (28, 40, 512, 576, 1536)]
+    edges += [(m, 512, 64) for m in (1, 17, 63, 64, 65, 127, 129)]
+    edges += [(64, 576, n) for n in (1, 17, 63, 64, 65, 127, 129)]
+    edge_worst = {}
+
+    def edge(kernel, instance, dtype, got, ref, rel_tol, name):
+        check(kernel, name, got, ref, rel_tol)
+        key = f"{kernel}_{instance}_{str(dtype)[6:]}"
+        edge_worst[key] = max(edge_worst.get(key, 0.0), errors.pop(name))
+
+    for rows, k, n in edges:
+        layer = _quant_layer(gen, k, (n,))
+        x = torch.randn(rows, k, device="cuda", generator=gen).to(bf16)
+        instances = [None, "guarded"] + (
+            ["resident", "streamed"] if qz.tensor_core_shape(k) else [])
+        for out_dtype, mish, route, tol in (
+                (bf16, True, qz.fused_int8_dense, one_bf16),
+                (fp32, False, qz.int8_dense, 1e-6)):
+            ref = qz.int8_dense_reference(x, layer.kernel_q, layer.scale,
+                                          layer.bias, mish, out_dtype)
+            for instance in instances:
+                got, on_tc = took_tensor_cores(
+                    route, lambda: qz._launch(x, layer, mish, out_dtype,
+                                              route, instance))
+                want = (qz.tensor_core_shape(k) if instance is None
+                        else instance != "guarded")
+                _require(on_tc == want, f"int8 {rows}x{k}x{n} {instance}: "
+                         f"tensor-core instance {on_tc}")
+                edge("int8_dense", instance, out_dtype, got, ref, tol,
+                     f"int8_edge_{rows}x{k}x{n}_{instance}")
+        for dtype, tol in ((bf16, one_bf16), (fp32, 1e-5)):
+            xd = torch.randn(rows, k, device="cuda", generator=gen).to(dtype)
+            w = (torch.randn(k, n, device="cuda", generator=gen)
+                 * (2.0 / (k + n)) ** 0.5).to(dtype)
+            b = (0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
+            ref = fused_ffn.dense_mish_reference(xd, w, b, True)
+            on_shape = fused_ffn.tensor_core_shape(k, n, dtype)
+            instances = [None, "guarded"] + (
+                ["mma_sync"] + (["wgmma"] if dtype == bf16 else [])
+                if on_shape else [])
+            for instance in instances:
+                got, on_tc = took_tensor_cores(
+                    fused_ffn.fused_dense_mish,
+                    lambda: fused_ffn._launch(xd, w, b, True, instance))
+                want = on_shape if instance is None else instance != "guarded"
+                _require(on_tc == want, f"dense+mish {rows}x{k}x{n} {dtype} "
+                         f"{instance}: tensor-core instance {on_tc}")
+                edge("dense_mish", instance, dtype, got, ref, tol,
+                     f"ffn_edge_{rows}x{k}x{n}_{instance}")
+
+    # Times in turns at the batch-32 headline shapes (and batch 1). Beside
+    # each dense kernel the nearest unfused yardstick, which the port never
+    # calls on these paths: the bf16 torch.addmm (cuBLAS) and, where the
+    # kernel applies mish, mish in fp32 after it, as the bf16 service runs
+    # each layer. Two library calls, not one: `unfused_library_ms`.
+    def addmm_mish(x, w, b):
+        return fused_ffn.mish_f32(torch.addmm(b, x, w).float()).to(x.dtype)
+
     times = {}
     for batch in (1, 32):
         rows, iters = 576 * batch, (50 if batch == 1 else 10)
         layer = _quant_layer(gen, 768, (1536,))
         x = torch.randn(rows, 768, device="cuda", generator=gen).to(bf16)
+        w = (0.05 * torch.randn(768, 1536, device="cuda",
+                                generator=gen)).to(bf16)
+        b = (0.1 * torch.randn(1536, device="cuda", generator=gen)).to(bf16)
         times[f"int8_dense_B={batch}_{rows}x768x1536_mish"] = _in_turns({
             "plain_ms": lambda: qz.int8_dense_reference(
                 x, layer.kernel_q, layer.scale, layer.bias, True, bf16),
-            "kernel_ms": lambda: qz.fused_int8_dense(x, layer, True)}, iters)
+            "kernel_ms": lambda: qz.fused_int8_dense(x, layer, True),
+            "unfused_library_ms": lambda: addmm_mish(x, w, b)}, iters)
         proj = _quant_layer(gen, 768, (12, 64))
+        w_proj, b_proj = w[:, :768].contiguous(), b[:768].contiguous()
         times[f"int8_dense_route_B={batch}_{rows}x768x768"] = _in_turns({
             "plain_ms": lambda: qz.int8_dense_reference(
                 x, proj.kernel_q, proj.scale, proj.bias.reshape(-1)),
-            "kernel_ms": lambda: qz.int8_dense(x, proj)}, iters)
+            "kernel_ms": lambda: qz.int8_dense(x, proj),
+            "unfused_library_ms": lambda: torch.addmm(b_proj, x,
+                                                      w_proj).float()},
+            iters)
         gamma = torch.randn(768, device="cuda", generator=gen)
         beta = torch.randn(768, device="cuda", generator=gen)
         gamma16, beta16 = gamma.to(bf16), beta.to(bf16)
@@ -807,13 +946,21 @@ def phase_kernel_serve():
             "kernel_ms": lambda: fused_ln.fused_layer_norm(x, gamma, beta),
             "library_ms": lambda: F.layer_norm(x, (768,), gamma16, beta16,
                                                eps=1e-3)}, iters)
-        w = (0.05 * torch.randn(768, 1536, device="cuda",
-                                generator=gen)).to(bf16)
-        b = (0.1 * torch.randn(1536, device="cuda", generator=gen)).to(bf16)
+        # The wgmma instance takes the batch-32 shape; the mma.sync one is
+        # timed beside it (at batch 1 the shape selects mma.sync itself).
         times[f"dense_mish_B={batch}_{rows}x768x1536_bf16"] = _in_turns({
             "plain_ms": lambda: fused_ffn.dense_mish_reference(x, w, b),
-            "kernel_ms": lambda: fused_ffn.fused_dense_mish(x, w, b)}, iters)
-    _report("kernel_serve", max_abs_err=errors, times=times)
+            "kernel_ms": lambda: fused_ffn.fused_dense_mish(x, w, b),
+            "mma_sync_ms": lambda: fused_ffn._launch(x, w, b, True,
+                                                     "mma_sync"),
+            "unfused_library_ms": lambda: addmm_mish(x, w, b)}, iters)
+        x32, w32, b32 = x.float(), w.float(), b.float()
+        times[f"dense_mish_B={batch}_{rows}x768x1536_fp32"] = _in_turns({
+            "plain_ms": lambda: fused_ffn.dense_mish_reference(x32, w32, b32),
+            "kernel_ms": lambda: fused_ffn.fused_dense_mish(x32, w32, b32)},
+            iters)
+    _report("kernel_serve", max_abs_err=errors, edge_max_abs_err=edge_worst,
+            times=times)
     return worst, times
 
 
@@ -861,7 +1008,11 @@ def _counts():
             "int8_fused": qz.fused_int8_dense.launches,
             "int8_dense": qz.int8_dense.launches,
             "layer_norm": fused_ln.fused_layer_norm.launches,
-            "dense_mish": fused_ffn.fused_dense_mish.launches}
+            "dense_mish": fused_ffn.fused_dense_mish.launches,
+            # Of the three above, the launches on tensor-core instances.
+            "int8_fused_tc": qz.fused_int8_dense.tensor_core_launches,
+            "int8_dense_tc": qz.int8_dense.tensor_core_launches,
+            "dense_mish_tc": fused_ffn.fused_dense_mish.tensor_core_launches}
 
 
 def _reset_counts() -> None:
@@ -871,10 +1022,12 @@ def _reset_counts() -> None:
     for fn, names in ((fa.flash_attention,
                        ("launches", "lse_launches", "drop_launches",
                         "backward_launches", "backward_drop_launches")),
-                      (qz.fused_int8_dense, ("launches",)),
-                      (qz.int8_dense, ("launches",)),
+                      (qz.fused_int8_dense,
+                       ("launches", "tensor_core_launches")),
+                      (qz.int8_dense, ("launches", "tensor_core_launches")),
                       (fused_ln.fused_layer_norm, ("launches",)),
-                      (fused_ffn.fused_dense_mish, ("launches",))):
+                      (fused_ffn.fused_dense_mish,
+                       ("launches", "tensor_core_launches"))):
         for name in names:
             setattr(fn, name, 0)
 
@@ -883,11 +1036,14 @@ def _reset_counts() -> None:
 # 3-layer head MLP): the int8 model's 30 fused int8 dense (linear
 # projection, 24 MLP, head token dense, 3 head MLP, head output) and 48
 # int8_dense-route (q/k/v/out), the fused dense+mish's 27 (24 + 3), the
-# fused LayerNorm's 24 and flash attention's 12.
+# fused LayerNorm's 24 and flash attention's 12. Every dense shape of the
+# model moves in whole 16-byte rows, so each of those launches takes a
+# tensor-core instance (`_tc`).
 PER_FORWARD = {
     "int8": {"flash": 12, "int8_fused": 30, "int8_dense": 48,
-             "layer_norm": 24},
-    "fused_ffn": {"flash": 12, "dense_mish": 27, "layer_norm": 24},
+             "layer_norm": 24, "int8_fused_tc": 30, "int8_dense_tc": 48},
+    "fused_ffn": {"flash": 12, "dense_mish": 27, "layer_norm": 24,
+                  "dense_mish_tc": 27},
 }
 
 
@@ -1155,6 +1311,8 @@ def phase_serve_int8():
     _require(stats["requests"]["ok"] == REQUESTS, f"/stats {stats}")
     bf16 = DetectionService(config, params, device="cuda")
     times = _device_path_ms({"bf16": bf16, "int8": int8})
+    _require(times["int8"]["b32_ms_median"] < times["bf16"]["b32_ms_median"],
+             f"int8 service at batch 32 not below the bf16 service: {times}")
     _report("serve_int8", preset="vit_b16_384", use_fused_layer_norm=True,
             requests=REQUESTS, request_latency_ms=latencies,
             launches=launches, device_path=times)
@@ -1185,6 +1343,10 @@ def phase_serve_fused_ffn():
         _require(len(dets) == 1, f"detections {dets}")
     launches = _expect_counts("fused_ffn", calls)
     times = _device_path_ms({"bf16": bf16, "fused_ffn": fused})
+    _require(times["fused_ffn"]["b32_ms_median"]
+             < times["bf16"]["b32_ms_median"],
+             f"fused-FFN service at batch 32 not below the bf16 service: "
+             f"{times}")
     _report("serve_fused_ffn", preset="vit_b16_384",
             use_fused_layer_norm=True, calls=calls, launches=launches,
             device_path=times)
@@ -1606,13 +1768,24 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
                     (2 * rows * d * wide,
                      rows * d * 2 + d * wide + wide * 8 + rows * wide * 2,
                      "int8")),
+             unfused_library_ms=serve_times[
+                 f"int8_dense_B=32_{rows}x768x1536_mish"][
+                     "unfused_library_ms"],
              route_launches={"fused_int8_dense": launches["int8_fused"],
                              "int8_dense": launches["int8_dense"]},
+             tensor_core_launches={
+                 "fused_int8_dense": launches["int8_fused_tc"],
+                 "int8_dense": launches["int8_dense_tc"]},
              # The fp32-out route at the q/k/v/out shape, 768 -> 768: bf16
              # x and int8 codes read, scale and bias read, fp32 written.
              route_shape=[rows, d, d, "bfloat16", "float32 out"],
              route_ms=serve_times[f"int8_dense_route_B=32_{rows}x768x768"][
                  "kernel_ms"],
+             route_plain_ms=serve_times[
+                 f"int8_dense_route_B=32_{rows}x768x768"]["plain_ms"],
+             route_unfused_library_ms=serve_times[
+                 f"int8_dense_route_B=32_{rows}x768x768"][
+                     "unfused_library_ms"],
              route_bound_ms=_bound(2 * rows * d * d,
                                    rows * d * 2 + d * d + d * 8
                                    + rows * d * 4, "int8")[0]),
@@ -1621,12 +1794,28 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
                serve_errors["layer_norm"],
                serve_times[f"layer_norm_B=32_{rows}x768_bf16"],
                (7 * rows * d, 2 * rows * d * 2 + 2 * d * 4, "fp32")),
-        _entry("dense_mish", "dense_mish.cu", "fused_ffn.py:42",
-               [rows, d, wide, "bfloat16", "mish"], launches["dense_mish"],
-               serve_errors["dense_mish"],
-               serve_times[f"dense_mish_B=32_{rows}x768x1536_bf16"],
-               (2 * rows * d * wide,
-                (rows * d + d * wide + wide + rows * wide) * 2, "bf16")),
+        dict(_entry("dense_mish", "dense_mish.cu", "fused_ffn.py:42",
+                    [rows, d, wide, "bfloat16", "mish"],
+                    launches["dense_mish"], serve_errors["dense_mish"],
+                    serve_times[f"dense_mish_B=32_{rows}x768x1536_bf16"],
+                    (2 * rows * d * wide,
+                     (rows * d + d * wide + wide + rows * wide) * 2, "bf16")),
+             unfused_library_ms=serve_times[
+                 f"dense_mish_B=32_{rows}x768x1536_bf16"][
+                     "unfused_library_ms"],
+             tensor_core_launches=launches["dense_mish_tc"],
+             # `ms` is the wgmma instance's (the one this shape selects);
+             # the mma.sync instance on the same inputs beside it.
+             mma_sync_ms=serve_times[
+                 f"dense_mish_B=32_{rows}x768x1536_bf16"]["mma_sync_ms"],
+             # The same shape in fp32, 3xTF32 on mma.sync.
+             fp32_ms=serve_times[f"dense_mish_B=32_{rows}x768x1536_fp32"][
+                 "kernel_ms"],
+             fp32_plain_ms=serve_times[
+                 f"dense_mish_B=32_{rows}x768x1536_fp32"]["plain_ms"],
+             fp32_bound_ms=_bound(2 * rows * d * wide,
+                                  (rows * d + d * wide + wide
+                                   + rows * wide) * 4, "3xtf32")[0]),
     ]}
 
 
@@ -1672,7 +1861,10 @@ def main() -> int:
                 "int8_fused": int8_launches["int8_fused"],
                 "int8_dense": int8_launches["int8_dense"],
                 "layer_norm": int8_launches["layer_norm"],
-                "dense_mish": ffn_launches["dense_mish"]}
+                "dense_mish": ffn_launches["dense_mish"],
+                "int8_fused_tc": int8_launches["int8_fused_tc"],
+                "int8_dense_tc": int8_launches["int8_dense_tc"],
+                "dense_mish_tc": ffn_launches["dense_mish_tc"]}
     print(json.dumps(_kernels_line(flash_err, flash_times, train_errors,
                                    train_times, drop_errors, drop_times,
                                    serve_errors, serve_times, launches)),

@@ -520,18 +520,40 @@ def _assert_within(got, ref, rel_tol):
     assert err <= rel_tol * ref.float().abs().max().item()
 
 
+# The dense kernels' tile edges: rows and columns around the 64- and
+# 128-wide tiles, K on and off whole 16-byte rows (K = 28 and 40 take the
+# guarded instances), as (rows, k, n).
+DENSE_EDGES = ([(m, k, n) for m in (1, 65, 129) for n in (17, 64, 129)
+                for k in (28, 40, 512, 576, 1536)]
+               + [(m, 512, 64) for m in (1, 17, 63, 64, 65, 127, 129)]
+               + [(64, 576, n) for n in (1, 17, 63, 64, 65, 127, 129)])
+
+
+def _took_tensor_cores(fn, call):
+    """call()'s result and whether its one launch took a tensor-core
+    instance."""
+    before = (fn.launches, fn.tensor_core_launches)
+    got = call()
+    torch.cuda.synchronize()
+    assert fn.launches == before[0] + 1
+    return got, fn.tensor_core_launches == before[1] + 1
+
+
 @pytest.mark.parametrize("rows,k,n,mish", [
     (576, 768, 1536, True), (1152, 1536, 768, True), (17, 512, 6, False),
-    (34, 576, 2048, True), (5, 200, 96, False)])
+    (34, 576, 2048, True), (5, 200, 96, False),
+    (34, 5376, 2048, True),          # highres_1024's head: codes streamed
+    *[(m, k, n, (m + n) % 2 == 0) for m, k, n in DENSE_EDGES]])
 def test_fused_int8_dense_kernel_matches_plain(gen, rows, k, n, mish):
     """Same codes, exact int32 sums, same fp32 rescale order: one bf16
-    rounding (2^-7 of the largest value) at most."""
+    rounding (2^-7 of the largest value) at most. K in whole 16-byte rows
+    takes a tensor-core instance, any other K the guarded one."""
     layer = _quant_layer(gen, k, (n,))
     x = torch.randn(rows, k, device="cuda", generator=gen)
-    before = qz.fused_int8_dense.launches
-    got = qz.fused_int8_dense(x, layer, apply_mish=mish)
-    torch.cuda.synchronize()
-    assert qz.fused_int8_dense.launches == before + 1
+    got, on_tc = _took_tensor_cores(
+        qz.fused_int8_dense,
+        lambda: qz.fused_int8_dense(x, layer, apply_mish=mish))
+    assert on_tc == qz.tensor_core_shape(k) == (k % 16 == 0)
     ref = qz.int8_dense_reference(x.to(torch.bfloat16), layer.kernel_q,
                                   layer.scale, layer.bias, mish,
                                   torch.bfloat16)
@@ -539,18 +561,89 @@ def test_fused_int8_dense_kernel_matches_plain(gen, rows, k, n, mish):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_int8_dense_route_matches_plain(gen, dtype):
+@pytest.mark.parametrize("lead,k,out_shape", [
+    ((2, 77), 768, (12, 64)),
+    *[((m,), k, (n,)) for m, k, n in DENSE_EDGES[::2]]])
+def test_int8_dense_route_matches_plain(gen, dtype, lead, k, out_shape):
     """The fp32-out route of the q/k/v projections: (B, N, D) -> (B, N,
-    H, K), exact to fp32 rounding."""
-    layer = _quant_layer(gen, 768, (12, 64))
-    x = torch.randn(2, 77, 768, device="cuda", generator=gen).to(dtype)
-    before = qz.int8_dense.launches
-    got = qz.int8_dense(x, layer)
-    torch.cuda.synchronize()
-    assert qz.int8_dense.launches == before + 1
-    ref = qz.int8_dense_reference(x.reshape(-1, 768), layer.kernel_q,
+    H, K), equal to the plain version to fp32 rounding (1e-6)."""
+    layer = _quant_layer(gen, k, out_shape)
+    x = torch.randn(*lead, k, device="cuda", generator=gen).to(dtype)
+    got, on_tc = _took_tensor_cores(qz.int8_dense,
+                                    lambda: qz.int8_dense(x, layer))
+    assert on_tc == qz.tensor_core_shape(k)
+    ref = qz.int8_dense_reference(x.reshape(-1, k), layer.kernel_q,
                                   layer.scale, layer.bias.reshape(-1))
-    _assert_within(got, ref.reshape(2, 77, 12, 64), 1e-6)
+    _assert_within(got, ref.reshape(*lead, *out_shape), 1e-6)
+
+
+@pytest.mark.parametrize("instance", ["guarded", "resident", "streamed"])
+@pytest.mark.parametrize("rows,k,n", [(576, 768, 1536), (65, 576, 129),
+                                      (129, 1536, 17), (64, 2048, 64)])
+def test_int8_dense_instances_agree_bit_for_bit(gen, instance, rows, k, n):
+    """Every instance forms the same codes and the same exact int32 sums
+    and rescales in the same order: on the fp32-out route (no mish) each
+    equals the guarded CUDA-core instance bit for bit."""
+    layer = _quant_layer(gen, k, (n,))
+    x = torch.randn(rows, k, device="cuda", generator=gen).to(torch.bfloat16)
+    want = qz._launch(x, layer, False, torch.float32, qz.int8_dense,
+                      "guarded")
+    got, on_tc = _took_tensor_cores(
+        qz.int8_dense, lambda: qz._launch(x, layer, False, torch.float32,
+                                          qz.int8_dense, instance))
+    assert on_tc == (instance != "guarded")
+    assert torch.equal(got, want)
+
+
+def test_int8_dense_unaligned_rows_take_the_guarded_instance(gen):
+    """A view of x whose rows start off a 16-byte boundary (the wrapper
+    makes it contiguous, which realigns it) and a K off 16 bytes: both
+    match the plain version; a tensor-core instance asked for by name on a
+    shape it cannot take raises."""
+    layer = _quant_layer(gen, 40, (24,))
+    x = torch.randn(9, 40, device="cuda", generator=gen).to(torch.bfloat16)
+    got, on_tc = _took_tensor_cores(qz.int8_dense,
+                                    lambda: qz.int8_dense(x, layer))
+    assert not on_tc
+    _assert_within(got, qz.int8_dense_reference(
+        x, layer.kernel_q, layer.scale, layer.bias), 1e-6)
+    with pytest.raises(RuntimeError, match="invalid"):
+        qz._launch(x, layer, False, torch.float32, qz.int8_dense, "resident")
+    wide = _quant_layer(gen, 64, (24,))
+    flat = torch.randn(9 * 64 + 1, device="cuda",
+                       generator=gen).to(torch.bfloat16)
+    shifted = flat[1:].reshape(9, 64)                 # 2 bytes off
+    assert shifted.data_ptr() % 16 != 0
+    got, on_tc = _took_tensor_cores(qz.int8_dense,
+                                    lambda: qz.int8_dense(shifted, wide))
+    assert not on_tc
+    _assert_within(got, qz.int8_dense_reference(
+        shifted, wide.kernel_q, wide.scale, wide.bias), 1e-6)
+
+
+def test_transposed_codes_follow_the_layer_onto_the_card(gen):
+    """.to(device), copy_ and load_state_dict on the card: the kernel reads
+    the (N, K) copy of the codes that are there now."""
+    cpu_layer = qz.QuantDense(64, (32,))
+    cpu_layer.kernel_q.copy_(torch.randint(-127, 128, (64, 32)).to(torch.int8))
+    cpu_layer.scale.fill_(0.01)
+    x = torch.randn(5, 64, device="cuda", generator=gen)
+    layer = copy.deepcopy(cpu_layer).to("cuda")
+
+    def check():
+        got = qz.int8_dense(x, layer)
+        torch.cuda.synchronize()
+        _assert_within(got, qz.int8_dense_reference(
+            x, layer.kernel_q, layer.scale, layer.bias), 1e-6)
+        assert torch.equal(qz.transposed_codes(layer), layer.kernel_q.t())
+        assert qz.transposed_codes(layer).device.type == "cuda"
+
+    check()
+    layer.kernel_q.copy_(torch.randint(-127, 128, (64, 32)).to(torch.int8))
+    check()
+    layer.load_state_dict(cpu_layer.state_dict())
+    check()
+    assert set(layer.state_dict()) == {"kernel_q", "scale", "bias"}
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2 ** -7),
@@ -578,16 +671,70 @@ def test_layer_norm_kernel_matches_plain(gen, dtype, tol, shape):
                                        (torch.float32, 1e-5)])
 @pytest.mark.parametrize("rows,k,n,mish", [
     (576, 768, 1536, True), (34, 576, 2048, True), (17, 512, 6, False),
-    (7, 100, 33, True)])
+    (7, 100, 33, True), (18432, 768, 1536, True),     # the wgmma instance
+    *[(m, k, n, (m + n) % 2 == 0) for m, k, n in DENSE_EDGES]])
 def test_dense_mish_kernel_matches_plain(gen, dtype, tol, rows, k, n, mish):
     x = torch.randn(rows, k, device="cuda", generator=gen).to(dtype)
     w = (0.05 * torch.randn(k, n, device="cuda", generator=gen)).to(dtype)
     b = (0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
-    before = fused_ffn.fused_dense_mish.launches
-    got = fused_ffn.fused_dense_mish(x, w, b, apply_mish=mish)
-    torch.cuda.synchronize()
-    assert fused_ffn.fused_dense_mish.launches == before + 1
+    got, on_tc = _took_tensor_cores(
+        fused_ffn.fused_dense_mish,
+        lambda: fused_ffn.fused_dense_mish(x, w, b, apply_mish=mish))
+    per_chunk = 8 if dtype == torch.bfloat16 else 4
+    assert on_tc == fused_ffn.tensor_core_shape(k, n, dtype) == (
+        k % per_chunk == 0 and n % per_chunk == 0)
     _assert_within(got, fused_ffn.dense_mish_reference(x, w, b, mish), tol)
+
+
+@pytest.mark.parametrize("dtype,instance,tol", [
+    (torch.bfloat16, "guarded", 2 ** -7), (torch.bfloat16, "mma_sync", 2 ** -7),
+    (torch.bfloat16, "wgmma", 2 ** -7), (torch.float32, "guarded", 1e-5),
+    (torch.float32, "mma_sync", 1e-5)])
+@pytest.mark.parametrize("rows,k,n", [(576, 768, 1536), (65, 576, 136),
+                                      (129, 1536, 64), (1, 40, 8)])
+def test_dense_mish_instances_match_plain(gen, dtype, instance, tol, rows, k,
+                                          n):
+    """Each instance by name, at shapes every instance takes (ragged M, a K
+    tail, one row)."""
+    x = torch.randn(rows, k, device="cuda", generator=gen).to(dtype)
+    w = (0.05 * torch.randn(k, n, device="cuda", generator=gen)).to(dtype)
+    b = (0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
+    got, on_tc = _took_tensor_cores(
+        fused_ffn.fused_dense_mish,
+        lambda: fused_ffn._launch(x, w, b, True, instance))
+    assert on_tc == (instance != "guarded")
+    _assert_within(got, fused_ffn.dense_mish_reference(x, w, b, True), tol)
+
+
+def test_dense_mish_unaligned_rows_take_the_guarded_instance(gen):
+    """Rows of w off a 16-byte boundary (N = 17) and a view of x that starts
+    2 bytes off: the guarded instance, matching the plain version; a
+    tensor-core instance asked for by name raises."""
+    x = torch.randn(9, 64, device="cuda", generator=gen).to(torch.bfloat16)
+    w = (0.1 * torch.randn(64, 17, device="cuda",
+                           generator=gen)).to(torch.bfloat16)
+    b = torch.zeros(17, device="cuda", dtype=torch.bfloat16)
+    got, on_tc = _took_tensor_cores(
+        fused_ffn.fused_dense_mish,
+        lambda: fused_ffn.fused_dense_mish(x, w, b))
+    assert not on_tc
+    _assert_within(got, fused_ffn.dense_mish_reference(x, w, b), 2 ** -7)
+    with pytest.raises(RuntimeError, match="invalid"):
+        fused_ffn._launch(x, w, b, True, "wgmma")
+    with pytest.raises(RuntimeError, match="invalid"):          # fp32 wgmma
+        fused_ffn._launch(x.float(), w.float()[:, :16].contiguous(),
+                          b.float()[:16].contiguous(), True, "wgmma")
+    flat = torch.randn(9 * 64 + 1, device="cuda",
+                       generator=gen).to(torch.bfloat16)
+    shifted = flat[1:].reshape(9, 64)
+    w16 = w[:, :16].contiguous()
+    assert shifted.data_ptr() % 16 != 0
+    got, on_tc = _took_tensor_cores(
+        fused_ffn.fused_dense_mish,
+        lambda: fused_ffn.fused_dense_mish(shifted, w16, b[:16].contiguous()))
+    assert not on_tc
+    _assert_within(got, fused_ffn.dense_mish_reference(
+        shifted, w16, b[:16].contiguous()), 2 ** -7)
 
 
 def test_dense_mish_kernel_is_differentiable(gen):

@@ -257,3 +257,55 @@ def test_fused_ffn_train_step_matches_jax(tmp_path):
         assert diff.max() <= 2 * lr + 1e-6, name
         if not name.endswith("mha/key/bias"):
             assert np.mean(diff > 1e-6) <= 0.01, name
+
+
+# ---------------------------------------------------------------------------
+# Dispatch by shape
+# ---------------------------------------------------------------------------
+
+# The pyramid layers (encoder MLP, head MLP: what use_fused_ffn hands the
+# wrapper) of each preset whose K or N is not a multiple of 8: in bf16 they
+# take the kernel's guarded instance on the card. In fp32 (multiples of 4)
+# every pyramid layer of every preset takes the tensor cores.
+GUARDED_BF16 = {
+    "tiny_96": {"head_mlp.0"},
+    "reference_608": {"encoder.mlp.0", "encoder.mlp.7"},
+    "reference_224": {"encoder.mlp.0", "encoder.mlp.7", "head_mlp.0"},
+    "vit_s16_224": {"head_mlp.0"},
+    "vit_b16_384": set(),
+    "vit_l16_640": set(),
+    "highres_1024": set(),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("preset", sorted(GUARDED_BF16))
+def test_tensor_core_dispatch_on_every_pyramid_layer_of_a_preset(preset,
+                                                                 dtype):
+    from vision_transformer_detector_tpu_torch import get_config
+
+    with torch.device("meta"):
+        net = model.ViTDetector(get_config(preset))
+    guarded, seen = set(), 0
+    for name, module in net.named_modules():
+        parts = name.split(".")
+        if not isinstance(module, model.Dense) or "mlp" not in name:
+            continue
+        seen += 1
+        k, n = module.kernel.shape
+        if not fused_ffn.tensor_core_shape(k, n, _DTYPES[dtype]):
+            if parts[0] == "encoder":
+                del parts[1]
+            guarded.add(".".join(parts))
+    assert seen >= 3
+    assert guarded == (GUARDED_BF16[preset] if dtype == "bfloat16" else set())
+
+
+@pytest.mark.parametrize("k,n,dtype,takes", [
+    (768, 1536, "bfloat16", True), (768, 17, "bfloat16", False),
+    (28, 3584, "bfloat16", False), (28, 3584, "float32", True),
+    (512, 6, "float32", False), (40, 64, "bfloat16", True),
+    (30, 64, "float32", False), (64, 0, "float32", False)])
+def test_tensor_core_shape_is_whole_16_byte_rows_of_x_and_w(k, n, dtype,
+                                                            takes):
+    assert fused_ffn.tensor_core_shape(k, n, _DTYPES[dtype]) is takes

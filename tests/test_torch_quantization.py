@@ -262,3 +262,142 @@ def test_params_from_numpy_round_trips_the_int8_model():
     for key, value in flat.items():
         assert again[key].dtype == value.dtype
         np.testing.assert_array_equal(again[key], value)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch by shape, and the (N, K) codes of the tensor-core instances
+# ---------------------------------------------------------------------------
+
+# The dense layers of each preset whose K is not a multiple of 16: on the
+# card they take the kernel's guarded instance, every other layer a
+# tensor-core instance (block indices dropped from the names).
+GUARDED_INT8 = {
+    "tiny_96": {"head_mlp.0"},
+    "reference_608": {"linear_projection", "encoder.mha.query",
+                      "encoder.mha.key", "encoder.mha.value",
+                      "encoder.mlp.0", "encoder.mlp.7", "head_token_dense",
+                      "head_output"},
+    "reference_224": {"linear_projection", "encoder.mha.query",
+                      "encoder.mha.key", "encoder.mha.value",
+                      "encoder.mlp.0", "encoder.mlp.7", "head_token_dense",
+                      "head_mlp.0", "head_output"},
+    "vit_s16_224": {"head_mlp.0"},
+    "vit_b16_384": set(),
+    "vit_l16_640": set(),
+    "highres_1024": set(),
+}
+
+
+def _layer_kind(name: str) -> str:
+    """'encoder.3.mlp.1' -> 'encoder.mlp.1': the block index dropped."""
+    parts = name.split(".")
+    if parts[0] == "encoder":
+        del parts[1]
+    return ".".join(parts)
+
+
+@pytest.mark.parametrize("preset", sorted(GUARDED_INT8))
+def test_tensor_core_dispatch_on_every_dense_layer_of_a_preset(preset):
+    """tensor_core_shape on the K of every dense layer the preset's int8
+    model hands the wrappers (the model is built on the meta device: shapes
+    only)."""
+    from vision_transformer_detector_tpu_torch import get_config
+
+    with torch.device("meta"):
+        net = model.ViTDetector(get_config(preset))
+    guarded, seen = set(), 0
+    for name, module in net.named_modules():
+        if not isinstance(module, model.Dense):
+            continue
+        seen += 1
+        kernel = module.kernel
+        # The out projection (H, K, D) contracts its first two axes.
+        k = (kernel.shape[0] * kernel.shape[1] if name.endswith("mha.out")
+             else kernel.shape[0])
+        if not q.tensor_core_shape(k):
+            guarded.add(_layer_kind(name))
+    assert seen > 10
+    assert guarded == GUARDED_INT8[preset]
+
+
+@pytest.mark.parametrize("k,takes", [(768, True), (16, True), (5376, True),
+                                     (28, False), (40, False), (8, False),
+                                     (867, False), (0, False)])
+def test_tensor_core_shape_is_k_in_whole_16_byte_rows(k, takes):
+    assert q.tensor_core_shape(k) is takes
+
+
+def _filled(layer, seed):
+    rng = np.random.default_rng(seed)
+    layer.kernel_q.copy_(torch.from_numpy(rng.integers(
+        -127, 128, tuple(layer.kernel_q.shape)).astype(np.int8)))
+    return layer
+
+
+def test_transposed_codes_are_made_once_and_follow_copy_():
+    """The smoke run and _quantize_dense fill kernel_q with copy_ AFTER the
+    module is built: the (N, K) copy must notice."""
+    layer = q.QuantDense(32, (2, 8))
+    first = q.transposed_codes(layer)
+    assert first.shape == (16, 32) and first.is_contiguous()
+    assert q.transposed_codes(layer) is first            # cached
+    _filled(layer, 0)
+    second = q.transposed_codes(layer)
+    assert second is not first
+    assert torch.equal(second, layer.kernel_q.t())
+    assert q.transposed_codes(layer) is second
+    layer.kernel_q[3, 5] += 1                            # any in-place write
+    assert torch.equal(q.transposed_codes(layer), layer.kernel_q.t())
+
+
+def test_transposed_codes_follow_load_state_dict():
+    layer, other = _filled(q.QuantDense(32, (16,)), 1), q.QuantDense(32, (16,))
+    stale = q.transposed_codes(other)
+    other.load_state_dict(layer.state_dict())
+    fresh = q.transposed_codes(other)
+    assert fresh is not stale
+    assert torch.equal(fresh, layer.kernel_q.t())
+
+
+def test_transposed_codes_follow_moved_and_copied_layers():
+    """Module.to(device) and deepcopy put kernel_q into new storage; the
+    cached copy of the old storage must not be served."""
+    import copy
+
+    layer = _filled(q.QuantDense(32, (16,)), 2)
+    before = q.transposed_codes(layer)
+    clone = copy.deepcopy(layer)
+    _filled(clone, 3)
+    assert torch.equal(q.transposed_codes(clone), clone.kernel_q.t())
+    assert q.transposed_codes(layer) is before           # untouched
+    # What .to(device) does to a module: every buffer replaced.
+    moved = layer._apply(lambda t: t.clone())
+    assert moved.kernel_q.data_ptr() != before.data_ptr()
+    after = q.transposed_codes(moved)
+    assert after is not before
+    assert torch.equal(after, moved.kernel_q.t())
+
+
+def test_transposed_codes_stay_out_of_the_state_dict():
+    port = q.quantize_params(
+        model.init_params(TINY, torch.Generator().manual_seed(6)))
+    names = set(port.state_dict())
+    for module in port.modules():
+        if q.is_quantized(module):
+            q.transposed_codes(module)
+    assert set(port.state_dict()) == names
+    assert not any("transposed" in name for name in names)
+    assert set(port.head_output.state_dict()) == {"kernel_q", "scale", "bias"}
+    assert all("transposed" not in name
+               for name, _ in port.head_output.named_buffers())
+
+
+def test_transposed_codes_of_an_inference_tensor_are_made_per_call():
+    """An inference tensor has no write counter to key the cache on."""
+    with torch.inference_mode():
+        layer = _filled(q.QuantDense(32, (16,)), 4)
+        first = q.transposed_codes(layer)
+        layer.kernel_q.add_(1)
+        second = q.transposed_codes(layer)
+    assert first is not second
+    assert torch.equal(second, layer.kernel_q.t())

@@ -307,3 +307,67 @@ def test_dropout_restore_draws_the_same_masks(tmp_path):
     restored = fresh.restore(fresh.init_state(seed=5), name="mid")
     _, loss_c = fresh.train_step(restored, images, labels)
     assert loss_c.item() == loss_a.item() != loss_next.item()
+
+
+# A narrow member of the highres_1024 family: windowed attention (2 x 2
+# windows on a 4 x 4 grid, heads-major at key_dim 64), the (1, 2, 4)
+# multi-scale head, flash attention, no dropout.
+HIGHRES_SMALL = DetectorConfig(
+    image_size=(64, 64), patch_size=16, embedding_dim=32, num_heads=2,
+    key_dim=64, encoder_blocks=2, encoder_mlp_layers=2, head_last_units=16,
+    head_layers=2, use_flash_attention=True, attention_window=2,
+    head_scales=(1, 2, 4))
+MULTI_STEPS = 6
+# One step's loss tolerance (fp32: test_train_step_matches_jax's 1e-5; bf16:
+# one bf16 rounding, 2^-7, the frameworks rounding a matmul's bias add at
+# different points), allowed to grow linearly with the steps taken: after
+# step i the weights differ by at most what i such steps moved them apart.
+# Measured over 12 steps: fp32 within 2.5e-6 at every step, bf16 3.4e-3
+# after one step and at most 2.6e-2 (step 6); the loss falls from 154 to 21
+# in both packages.
+MULTI_STEP_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_highres_family_loss_trajectory_matches_jax_over_steps(dtype):
+    """Six train steps at the preset's learning rate, 8e-5, from the same
+    weights on the same batch: the two packages' loss trajectories stay
+    together, so a fault that only shows after several steps (optimizer
+    state, weight update, step count) would show here, where one step
+    matches. Whether the loss falls at this rate is the preset's business:
+    both packages must do the same."""
+    config = HIGHRES_SMALL.replace(compute_dtype=dtype)
+    train = TrainConfig(learning_rate=8e-5)
+    images, labels = _batch(config, seed=3)
+    jax_params = jax_init_params(jax.random.PRNGKey(0), config)
+    optimizer = jax_opt.make_optimizer(train)
+    step = jax_trainer.make_train_step(config, LossConfig(), optimizer,
+                                       donate=False)
+    jax_state = {"params": jax_params,
+                 "opt_state": optimizer.init(jax_params),
+                 "step": jnp.zeros((), jnp.int32)}
+    port_opt = Adam(train)
+    model = params_from_numpy(_flat(jax_params), config)
+    state = {"params": model,
+             "opt_state": port_opt.init(dict(model.named_parameters())),
+             "step": 0}
+    port_step = trainer.make_train_step(config, LossConfig(), port_opt)
+
+    jax_losses, losses = [], []
+    for i in range(MULTI_STEPS):
+        jax_state, jax_loss = step(jax_state, jnp.asarray(images),
+                                   jnp.asarray(labels),
+                                   jax.random.PRNGKey(10 + i))
+        state, loss = port_step(state, torch.from_numpy(images),
+                                torch.from_numpy(labels))
+        jax_losses.append(float(jax_loss))
+        losses.append(float(loss))
+    assert state["step"] == MULTI_STEPS == int(jax_state["step"])
+    assert np.all(np.isfinite(losses))
+    for i, (got, want) in enumerate(zip(losses, jax_losses)):
+        assert got == pytest.approx(
+            want, rel=MULTI_STEP_TOL[dtype] * (i + 1)), (i, losses,
+                                                         jax_losses)
+    # The trajectories move (the steps are not no-ops) and move alike.
+    assert losses[0] != losses[-1]
+    assert (losses[-1] < losses[0]) == (jax_losses[-1] < jax_losses[0])

@@ -28,9 +28,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # Kernel name fragments of each group; a kernel goes to the first match.
 GROUPS = (("flash", ("flash_fwd_kernel", "flash_bwd_kernel")),
-          ("int8_dense", ("int8_dense_kernel",)),
+          ("int8_dense", ("int8_dense_kernel", "int8_dense_wgmma_kernel")),
           ("layer_norm", ("layer_norm_kernel",)),
-          ("dense_mish", ("dense_mish_kernel",)),
+          ("dense_mish", ("dense_mish_kernel", "dense_mish_mma_kernel",
+                          "dense_mish_wgmma_kernel")),
           ("gemm", ("gemm", "xmma", "cutlass", "nvjet")))
 
 

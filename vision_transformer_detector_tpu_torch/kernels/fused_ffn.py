@@ -16,6 +16,14 @@ torch: z = x w + b in fp32, dz = g (t + z (1 - t^2) sigmoid(z)) with
 t = tanh(softplus(z)), then dx = dz w^T, dw = x^T dz, db = sum(dz), all in
 fp32 and cast to the inputs' dtypes. It is two matmuls outside any
 kernel, as in the JAX package.
+
+On the card the product runs on the tensor cores wherever the rows of x
+and w can be moved in 16-byte pieces (``tensor_core_shape``: K and N
+multiples of 8 in bf16, of 4 in fp32): ``wgmma`` or ``mma.sync`` in bf16,
+3xTF32 ``mma.sync`` in fp32. Other shapes take the kernel's guarded
+CUDA-core instance. That is dispatch by shape, decided before the launch;
+``fused_dense_mish.tensor_core_launches`` counts the launches of the
+tensor-core instances apart.
 """
 
 from __future__ import annotations
@@ -31,6 +39,9 @@ from . import _build
 SOURCE = "dense_mish.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
+# The kernel's instances and the request that holds the C entry point to
+# each (None: by shape).
+REQUESTS = {None: 0, "guarded": 1, "mma_sync": 2, "wgmma": 3}
 
 
 def softplus_f32(y: torch.Tensor) -> torch.Tensor:
@@ -53,6 +64,15 @@ def dense_mish_reference(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if apply_mish:
         y = mish_f32(y)
     return y.to(x2.dtype)
+
+
+def tensor_core_shape(k: int, n: int, dtype: torch.dtype) -> bool:
+    """Whether x (M, k) @ w (k, n) in ``dtype`` takes a tensor-core
+    instance on the card: rows of x and of w are moved in 16-byte pieces,
+    so K and N must be multiples of 8 (bf16) or 4 (fp32); any M. The other
+    shapes take the guarded instance."""
+    per_chunk = 16 // torch.empty((), dtype=dtype).element_size()
+    return k > 0 and n > 0 and k % per_chunk == 0 and n % per_chunk == 0
 
 
 class FusedDenseMishFunction(torch.autograd.Function):
@@ -102,11 +122,17 @@ def fused_dense_mish(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.reshape(tuple(x.shape[:-1]) + (w.shape[1],))
 
 
-# Kernel launches; the plain version adds none.
+# Kernel launches, and those of them that took a tensor-core instance; the
+# plain version adds none.
 fused_dense_mish.launches = 0
+fused_dense_mish.tensor_core_launches = 0
 
 
-def _launch(x2, w, b, apply_mish: bool) -> torch.Tensor:
+def _launch(x2, w, b, apply_mish: bool,
+            instance: str | None = None) -> torch.Tensor:
+    """One kernel launch. ``instance`` names one of ``REQUESTS`` to take
+    instead of the one the shape selects (the tests and the timings use
+    it); a shape or dtype that the named instance cannot take raises."""
     dtype = x2.dtype
     if dtype not in _DTYPE_CODES or w.dtype != dtype or b.dtype != dtype:
         raise ValueError(
@@ -120,15 +146,19 @@ def _launch(x2, w, b, apply_mish: bool) -> torch.Tensor:
     if m == 0:
         return out
     x2, w, b = (t.contiguous() for t in (x2, w, b))
+    request = REQUESTS[instance]
+    taken = ctypes.c_int(-1)
     lib = _library()
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         err = lib.vtd_dense_mish(x2.data_ptr(), w.data_ptr(), b.data_ptr(),
                                  out.data_ptr(), m, n, k, _DTYPE_CODES[dtype],
-                                 int(apply_mish), stream)
+                                 int(apply_mish), request,
+                                 ctypes.byref(taken), stream)
     _build.raise_on_error(lib, err, "dense + mish")
     with _count_lock:
         fused_dense_mish.launches += 1
+        fused_dense_mish.tensor_core_launches += int(taken.value > 0)
     return out
 
 
@@ -136,8 +166,8 @@ def _launch(x2, w, b, apply_mish: bool) -> torch.Tensor:
 def _library() -> ctypes.CDLL:
     lib = _build.load_library(SOURCE)
     fn = lib.vtd_dense_mish
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.vtd_cuda_error_string.argtypes = [ctypes.c_int]
     lib.vtd_cuda_error_string.restype = ctypes.c_char_p

@@ -25,6 +25,21 @@ plain versions (``int8_dense_reference``), which compute the integer
 product in int32; CUDA tensors launch ``csrc/int8_dense.cu`` (both routes,
 each with its own launch count) or raise. Neither route has a gradient: a
 call that would need one raises.
+
+On the card the product runs on the int8 tensor cores (``wgmma``, s8 x s8
+-> s32) wherever the rows can be moved in 16-byte pieces
+(``tensor_core_shape``: K a multiple of 16); other shapes take the
+kernel's guarded CUDA-core instance. That is dispatch by shape, decided
+before the launch; each route counts the launches of the tensor-core
+instances apart (``<fn>.tensor_core_launches``). 8-bit ``wgmma`` reads both
+operands with k contiguous, so the kernel reads an (N, K) copy of
+``kernel_q``: ``transposed_codes(layer)`` makes it at the first launch and
+keeps it on the layer, outside the state dict, and makes it anew when
+``kernel_q`` was written (``copy_``, ``load_state_dict``) or moved
+(``.to(device)``). The alternative, staging [k][n] tiles and transposing
+4 x 4 bytes in registers, would keep no state but costs the kernel's inner
+loop shuffles and bank conflicts at every use of a weight that is written
+once; the copy costs one transpose per layer and K * N bytes.
 """
 
 from __future__ import annotations
@@ -44,6 +59,10 @@ from .fused_ffn import mish_f32
 SOURCE = "int8_dense.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
+# The kernel's instances and the request that holds the C entry point to
+# each (None: by shape). "resident" keeps the codes of a block's rows in
+# shared memory, "streamed" quantizes each k tile as the products need it.
+REQUESTS = {None: 0, "guarded": 1, "resident": 2, "streamed": 3}
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +157,41 @@ def is_quantized(layer) -> bool:
     return isinstance(layer, QuantDense)
 
 
+def tensor_core_shape(k: int) -> bool:
+    """Whether a product over ``k`` input features takes a tensor-core
+    instance on the card: rows of x and of the (N, K) codes are moved in
+    16-byte pieces, so K must be a multiple of 16 (any M, any N). The
+    other shapes take the guarded instance."""
+    return k > 0 and k % 16 == 0
+
+
+def _version(tensor: torch.Tensor):
+    """The tensor's write counter, or None for an inference tensor, which
+    keeps none."""
+    try:
+        return tensor._version
+    except RuntimeError:
+        return None
+
+
+def transposed_codes(layer: QuantDense) -> torch.Tensor:
+    """``layer.kernel_q`` as a contiguous (N, K) tensor, for the tensor-core
+    instances. Derived state: a plain attribute of the layer, never in
+    ``state_dict()``. It is kept with the ``kernel_q`` storage address and
+    write counter it was made from, and made anew when either differs, so
+    it follows ``kernel_q.copy_``, ``load_state_dict`` and ``.to(device)``.
+    An inference tensor has no write counter; its copy is made per call."""
+    kernel_q = layer.kernel_q
+    version = _version(kernel_q)
+    key = (kernel_q.data_ptr(), version, kernel_q.device, tuple(kernel_q.shape))
+    cached = layer.__dict__.get("_transposed_codes")
+    if version is not None and cached is not None and cached[0] == key:
+        return cached[1]
+    transposed = kernel_q.detach().t().contiguous()
+    layer.__dict__["_transposed_codes"] = (key, transposed)
+    return transposed
+
+
 # ---------------------------------------------------------------------------
 # The int8 dense, plain and kernel
 # ---------------------------------------------------------------------------
@@ -220,14 +274,20 @@ def fused_int8_dense(x: torch.Tensor, layer: QuantDense,
     return y.reshape(tuple(x.shape[:-1]) + (layer.bias.shape[0],))
 
 
-# Kernel launches, one count per route; the plain versions add none.
+# Kernel launches, one count per route, and those of them that took a
+# tensor-core instance; the plain versions add none.
 int8_dense.launches = 0
 fused_int8_dense.launches = 0
+int8_dense.tensor_core_launches = 0
+fused_int8_dense.tensor_core_launches = 0
 
 
 def _launch(x2, layer: QuantDense, apply_mish: bool, out_dtype,
-            route) -> torch.Tensor:
-    """One kernel launch; counted on ``route`` (the public function)."""
+            route, instance: str | None = None) -> torch.Tensor:
+    """One kernel launch; counted on ``route`` (the public function).
+    ``instance`` names one of ``REQUESTS`` to take instead of the one the
+    shape selects (the tests and the timings use it); a shape that the
+    named instance cannot take raises."""
     m, k = x2.shape
     kernel_q = layer.kernel_q
     n = kernel_q.shape[1]
@@ -244,16 +304,24 @@ def _launch(x2, layer: QuantDense, apply_mish: bool, out_dtype,
     kernel_q = kernel_q.contiguous()
     scale = layer.scale.float().contiguous()
     bias = layer.bias.float().reshape(-1).contiguous()
+    request = REQUESTS[instance]
+    # The (N, K) codes only where a tensor-core instance may take the call.
+    transposed = (transposed_codes(layer)
+                  if tensor_core_shape(k) and instance != "guarded" else None)
+    taken = ctypes.c_int(-1)
     lib = _library()
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         err = lib.vtd_int8_dense(
-            x2.data_ptr(), kernel_q.data_ptr(), scale.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), m, n, k, _DTYPE_CODES[x2.dtype],
-            _DTYPE_CODES[out_dtype], int(apply_mish), stream)
+            x2.data_ptr(), kernel_q.data_ptr(),
+            None if transposed is None else transposed.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k,
+            _DTYPE_CODES[x2.dtype], _DTYPE_CODES[out_dtype], int(apply_mish),
+            request, ctypes.byref(taken), stream)
     _build.raise_on_error(lib, err, "int8 dense")
     with _count_lock:
         route.launches += 1
+        route.tensor_core_launches += int(taken.value > 0)
     return out
 
 
@@ -261,8 +329,8 @@ def _launch(x2, layer: QuantDense, apply_mish: bool, out_dtype,
 def _library() -> ctypes.CDLL:
     lib = _build.load_library(SOURCE)
     fn = lib.vtd_int8_dense
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.vtd_cuda_error_string.argtypes = [ctypes.c_int]
     lib.vtd_cuda_error_string.restype = ctypes.c_char_p
