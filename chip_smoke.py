@@ -6,8 +6,11 @@
 Drives the port (vision_transformer_detector_tpu_torch) through its main
 paths, serving the ViT-B/16 384px detector over HTTP (bf16, int8 with the
 fused LayerNorm, and the fused dense+mish with the fused LayerNorm),
-training the reference_608 detector, and training highres_1024 with
-attention dropout, and checks each hand-written kernel on those paths
+training the reference_608 detector, training highres_1024 with attention
+dropout, and the deployment lifecycle (train, COCO-protocol evaluation,
+export as a torch.export artifact whose graphs call the kernels as custom
+operators, serving from the artifact), and checks each hand-written
+kernel on those paths
 against its plain PyTorch version. Phases, one output line each:
 
   1. build        — compile every kernel source of the paths from csrc/
@@ -97,12 +100,35 @@ against its plain PyTorch version. Phases, one output line each:
                     identical (the dropout seed generator is restored);
                     (e) the median step time and peak memory; (f) one step
                     as shipped ("alternate" remat, no dropout): 36
-                    forward-with-lse and 24 backward launches.
+                    forward-with-lse and 24 backward launches;
+ 12. lifecycle    — vit_b16_384 (bf16, flash, the fused dense+mish and the
+                    fused LayerNorm) through `vtd-torch`: (a) train 2
+                    epochs at batch 4 on 8 seeded JPEGs (finite loss,
+                    12 forward-with-lse, 12 backward and 27 dense+mish
+                    launches per step; the LayerNorm kernel is for
+                    inference only); (b) evaluate --protocol
+                    coco-original --dump-detections and score-coco of the
+                    dump: protocol-valid, AP and AP50 within 0.02; a
+                    perfect detector scores AP 1.0; (c) export the final
+                    checkpoint on CUDA (a (1, 8) bundle, baked
+                    postprocess): each graph holds 12 flash-forward, 27
+                    dense+mish and 24 LayerNorm custom-operator nodes and
+                    none of their plain versions' softmax, log1p, tanh or
+                    rsqrt; (d) a fresh process
+                    that never imports models/ serves the artifact
+                    (batcher, max batch 8) and answers 8 POSTs with 12 +
+                    27 + 24 launches per request; (e) the answers against
+                    the live service on the restored weights: the same
+                    classes, scores within 1e-3, boxes within 0.1 px
+                    (bit-equal reported); (f) device-path medians of the
+                    artifact and the live service at batch 1 and 8.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON
 line with each kernel's shape, launches, error, times (its own, its plain
 version's and, where one PyTorch call computes the same function, that
-call's) and its bound with the peak rate it uses, and as the last line
+call's), its bound with the peak rate it uses and, for the three kernels
+an exported program calls, its launches per exported call, and as the
+last line
 {"ok": true, "device": {...}}. Any failed check ends the run with a
 non-zero exit and no result line; so does a host without a CUDA device, or
 a directory without the port's sources. A kernel that does not build or launch raises; nothing
@@ -1242,24 +1268,25 @@ def phase_serve():
     return launches
 
 
-def _device_path_ms(services: dict, batches=(1, 32)) -> dict:
+def _device_path_ms(services: dict, batches=(1, 32), reps=None) -> dict:
     """Median device-path time (predict_raw + the packed result on the
     host, synced) of each service, at each batch, taken in turns (a, b,
-    ..., b, a) so that every service sees the same card state."""
+    ..., b, a) so that every service sees the same card state; ``reps``
+    calls per service (default 20 at batch 1, 5 above)."""
     import numpy as np
 
     times = {}
     for batch in batches:
         some = next(iter(services.values()))
         canvas = np.zeros((batch, *some.config.image_size, 3), np.uint8)
-        reps = 20 if batch == 1 else 5
+        count = reps or (20 if batch == 1 else 5)
         samples = {name: [] for name in services}
         order = list(services) + list(services)[::-1]
         for name in order:
             service = services[name]
             for _ in range(2):
                 service.raw_to_detections(service.predict_raw(canvas))
-            for _ in range(reps // 2):
+            for _ in range(count // 2):
                 tic = time.perf_counter()
                 service.raw_to_detections(service.predict_raw(canvas))
                 samples[name].append((time.perf_counter() - tic) * 1e3)
@@ -1701,6 +1728,330 @@ def phase_train_highres():
     return launches
 
 
+LIFECYCLE_IMAGES = 8     # seeded JPEGs of the lifecycle phase, one box each
+# Custom-operator nodes of one exported vit_b16_384 graph with the fused
+# dense+mish and the fused LayerNorm, and so the launches per exported
+# call: one flash forward per block, 24 + 3 dense+mish, two LayerNorms per
+# block.
+EXPORTED_OPS = {"flash_attention_fwd": 12, "dense_mish": 27, "layer_norm": 24}
+EXPORTED_COUNTS = {"flash": 12, "dense_mish": 27, "layer_norm": 24,
+                   "dense_mish_tc": 27}
+
+
+def _lifecycle_dataset(root: str) -> dict:
+    """LIFECYCLE_IMAGES seeded JPEGs of other aspect ratios than 384 x 384
+    (so each is letterboxed), each with one filled box, and their
+    annotation dict ({image_id: [[coco_id, cx, cy, h, w, area]]})."""
+    import numpy as np
+    from PIL import Image, ImageDraw
+
+    images = os.path.join(root, "images")
+    os.makedirs(images)
+    rng = np.random.default_rng(SEED)
+    sizes = ((320, 480), (400, 300), (288, 512), (360, 360))
+    annotations = {}
+    for i in range(LIFECYCLE_IMAGES):
+        h, w = sizes[i % len(sizes)]
+        img = Image.new("RGB", (w, h), tuple(int(c) for c in
+                                             rng.integers(0, 80, 3)))
+        bw, bh = int(rng.integers(w // 5, w // 2)), int(
+            rng.integers(h // 5, h // 2))
+        x0, y0 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+        ImageDraw.Draw(img).rectangle((x0, y0, x0 + bw, y0 + bh),
+                                      fill=(250, 220, 30))
+        img.save(os.path.join(images, f"{i + 1:012d}.jpg"), quality=92)
+        annotations[str(i + 1)] = [[(1, 3, 18)[i % 3], x0 + bw / 2,
+                                    y0 + bh / 2, float(bh), float(bw),
+                                    float(bw * bh)]]
+    path = os.path.join(root, "annotations.json")
+    with open(path, "w") as f:
+        json.dump(annotations, f)
+    return {"images": images, "annotations": path, "rows": annotations}
+
+
+def _cli(argv) -> dict:
+    """One `vtd-torch` subcommand through cli.main; its last stdout line."""
+    import contextlib
+
+    from vision_transformer_detector_tpu_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli_main(argv)
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def _protocol_valid(summary: dict, what: str) -> None:
+    for key in ("AP", "AP50", "AP75", "AR@1", "AR@10", "AR@100"):
+        value = summary[key]
+        _require(value == -1.0 or 0.0 <= value <= 1.0,
+                 f"{what}: {key} = {value}")
+    _require(summary["AP"] <= summary["AP50"] or summary["AP50"] == -1.0,
+             f"{what}: AP {summary['AP']} > AP50 {summary['AP50']}")
+
+
+def _graph_ops(path: str) -> dict:
+    """Node counts of a saved program by operator name (namespace::op)."""
+    import collections
+
+    import torch
+
+    program = torch.export.load(path)
+    counts = collections.Counter()
+    for node in program.graph.nodes:
+        if node.op == "call_function" and hasattr(node.target, "name"):
+            counts[node.target.name().split(".")[0]] += 1
+    return dict(counts)
+
+
+# Run in a fresh process: serve the artifact over HTTP with the batcher,
+# post the JPEGs one after another, and report the kernels' launches, the
+# answers, /stats and every loaded module of the port's models package
+# (which must be none).
+_ARTIFACT_SERVER = r"""
+import json, sys, urllib.request
+from vision_transformer_detector_tpu_torch.serving import (
+    DetectionServer, ExportedDetectionService)
+from vision_transformer_detector_tpu_torch.kernels import (
+    flash_attention as fa, fused_ffn, fused_ln)
+
+artifact, paths = sys.argv[1], sys.argv[2:]
+service = ExportedDetectionService(artifact, score_threshold=-1.0)
+server = DetectionServer(service, port=0, batching=True, max_batch=8)
+server.start()
+try:
+    for fn, names in ((fa.flash_attention, ("launches", "lse_launches",
+                                            "backward_launches")),
+                      (fused_ffn.fused_dense_mish,
+                       ("launches", "tensor_core_launches")),
+                      (fused_ln.fused_layer_norm, ("launches",))):
+        for name in names:
+            setattr(fn, name, 0)
+    base = f"http://127.0.0.1:{server.port}"
+    answers = []
+    for path in paths:
+        with open(path, "rb") as f:
+            request = urllib.request.Request(
+                base + "/predict", data=f.read(),
+                headers={"Content-Type": "image/jpeg"})
+        with urllib.request.urlopen(request, timeout=300) as response:
+            answers.append(json.loads(response.read()))
+    counts = {"flash": fa.flash_attention.launches,
+              "flash_lse": fa.flash_attention.lse_launches,
+              "flash_bwd": fa.flash_attention.backward_launches,
+              "dense_mish": fused_ffn.fused_dense_mish.launches,
+              "dense_mish_tc": fused_ffn.fused_dense_mish.tensor_core_launches,
+              "layer_norm": fused_ln.fused_layer_norm.launches}
+    with urllib.request.urlopen(base + "/stats", timeout=60) as response:
+        stats = json.loads(response.read())
+finally:
+    server.stop()
+models = sorted(m for m in sys.modules
+                if m.startswith("vision_transformer_detector_tpu_torch.models"))
+if models:
+    raise SystemExit(f"the artifact server imported {models}")
+print(json.dumps({"counts": counts, "stats": stats, "answers": answers,
+                  "batch_sizes": list(service._exported.batch_sizes),
+                  "models": models}))
+"""
+
+
+def _compare_detections(got: list, want: list) -> dict:
+    """Served (artifact) against live answers, image by image: the same
+    class ids and number of detections, scores within 1e-3 and boxes within
+    0.1 px; the largest differences, and whether all were bit-equal."""
+    score, box, exact = 0.0, 0.0, True
+    for g, w in zip(got, want):
+        _require(g["image_size"] == w["image_size"],
+                 f"image sizes {g['image_size']} vs {w['image_size']}")
+        gd, wd = g["detections"], w["detections"]
+        _require([d["class_id"] for d in gd] == [d["class_id"] for d in wd],
+                 "artifact and live service disagree on the detections' "
+                 "classes or number")
+        for a, b in zip(gd, wd):
+            score = max(score, abs(a["score"] - b["score"]))
+            box = max(box, max(abs(a["box"][k] - b["box"][k])
+                               for k in ("cx", "cy", "h", "w")))
+            exact = exact and a == b
+    _require(score <= 1e-3 and box <= 0.1,
+             f"artifact vs live: score diff {score}, box diff {box} px")
+    return {"bit_equal": exact, "max_score_diff": score,
+            "max_box_diff_px": box}
+
+
+def phase_lifecycle():
+    """The deployment lifecycle at vit_b16_384's full width (bf16, flash,
+    the fused dense+mish and, at inference, the fused LayerNorm), each
+    step through `vtd-torch`: (a) train 2 epochs at batch 4 on 8 seeded
+    JPEGs; (b)
+    evaluate --protocol coco-original with a dump, score-coco of the dump,
+    and a perfect detector; (c) export the final checkpoint on CUDA as a
+    (1, 8) bundle with a baked postprocess, and count the custom-operator
+    nodes of each graph; (d) serve the artifact from a process that never
+    imports models/, 8 POSTs, the kernels' launches per request; (e) the
+    answers against the live service on the same weights; (f) device-path
+    times of the artifact and the live service at batch 1 and 8."""
+    import argparse
+
+    import numpy as np
+
+    from vision_transformer_detector_tpu_torch import cli
+    from vision_transformer_detector_tpu_torch import config as port_config
+    from vision_transformer_detector_tpu_torch.metrics.coco_eval import (
+        score_coco_results)
+    from vision_transformer_detector_tpu_torch.serving import (
+        DetectionService, ExportedDetectionService)
+
+    base = port_config.get_config("vit_b16_384")
+    _require(base.compute_dtype == "bfloat16" and base.use_flash_attention
+             and base.embedding_dim == 768 and base.num_patches == 576,
+             "vit_b16_384 preset changed")
+    config = base.replace(use_fused_layer_norm=True)
+    model = ["--preset", "vit_b16_384", "--fused-ffn"]
+    tic = time.monotonic()
+    with tempfile.TemporaryDirectory() as root:
+        data = _lifecycle_dataset(root)
+        ckpt = os.path.join(root, "ckpt")
+        artifact = os.path.join(root, "artifact")
+        common = [*model, "--checkpoint-dir", ckpt]
+
+        # (a) train
+        _reset_counts()
+        trained = _cli(["train", *common, "--batch-size", "4", "--epochs",
+                        "2", "--learning-rate", "1e-5", "--device", "cuda",
+                        "--train-images", data["images"],
+                        "--train-annotations", data["annotations"],
+                        "--metrics", os.path.join(root, "metrics.jsonl")])
+        steps = 2 * LIFECYCLE_IMAGES // 4
+        train_counts = _counts()
+        _require(np.isfinite(trained["final_loss"]),
+                 f"train: loss {trained['final_loss']}")
+        _require(train_counts["flash_lse"] == 12 * steps
+                 and train_counts["flash_bwd"] == 12 * steps
+                 and train_counts["dense_mish"] == 27 * steps,
+                 f"train: {steps} steps launched {train_counts}")
+        # Training keeps the differentiable LayerNorm (the kernel has no
+        # backward; the JAX package routes only inference through it).
+        # From here on the preset the CLI builds carries the fused
+        # LayerNorm, in this process: the CLI has no flag for it, nor has
+        # the JAX CLI.
+        port_config.PRESETS["vit_b16_384"] = lambda: config
+
+        # (b) evaluate, score the dump, score a perfect detector
+        dump = os.path.join(root, "detections.json")
+        evaluated = _cli(["evaluate", *common, "--restore", "final",
+                          "--device", "cuda", "--batch-size", "4",
+                          "--val-images", data["images"],
+                          "--val-annotations", data["annotations"],
+                          "--protocol", "coco-original",
+                          "--dump-detections", dump])
+        scored = _cli(["score-coco", "--annotations", data["annotations"],
+                       "--results", dump])
+        _protocol_valid(evaluated, "evaluate")
+        _protocol_valid(scored, "score-coco")
+        ap_diff = {key: abs(evaluated[key] - scored[key])
+                   for key in ("AP", "AP50")}
+        # The dump rounds boxes to 0.01 px and scores to 1e-5.
+        _require(max(ap_diff.values()) <= 0.02,
+                 f"evaluate {evaluated} vs score-coco {scored}")
+        perfect = os.path.join(root, "perfect.json")
+        with open(perfect, "w") as f:
+            json.dump([{"image_id": int(image_id), "category_id": cat,
+                        "bbox": [cx - w / 2, cy - h / 2, w, h], "score": 1.0}
+                       for image_id, rows in data["rows"].items()
+                       for cat, cx, cy, h, w, _ in rows], f)
+        perfect_ap = score_coco_results(data["annotations"], perfect)["AP"]
+        _require(perfect_ap == 1.0, f"perfect detector AP {perfect_ap}")
+
+        # (c) export on CUDA and read the graphs
+        export_tic = time.monotonic()
+        exported = _cli(["export", *common, "--restore", "final",
+                         "--output-dir", artifact, "--batch-sizes", "1",
+                         "8", "--bake-postprocess", "--score-threshold",
+                         "-1.0"])
+        export_s = time.monotonic() - export_tic
+        _require(exported["platforms"] == ["cuda"], f"export {exported}")
+        graph_ops = {}
+        for name in ("model_b1.pt2", "model_b8.pt2"):
+            ops = _graph_ops(os.path.join(artifact, name))
+            custom = {op.split("::")[1]: n for op, n in ops.items()
+                      if op.startswith("vtd_torch::")}
+            _require(custom == EXPORTED_OPS,
+                     f"{name}: custom-operator nodes {custom}, expected "
+                     f"{EXPORTED_OPS}")
+            # No plain version is left in the graph: the plain attention's
+            # softmax, the plain dense+mish's log1p and tanh, the plain
+            # LayerNorm's rsqrt (a CPU export holds one of each per use).
+            plain = {op: n for op, n in ops.items()
+                     if op.split("::")[-1] in ("softmax", "_softmax",
+                                               "log1p", "tanh", "rsqrt")}
+            _require(not plain, f"{name}: plain-version nodes {plain}")
+            graph_ops[name] = {"vtd_torch": custom,
+                               "nodes": sum(ops.values())}
+
+        # (d) serve the artifact from a process without models/
+        paths = sorted(os.path.join(data["images"], name)
+                       for name in os.listdir(data["images"]))
+        proc = subprocess.run(
+            [sys.executable, "-c", _ARTIFACT_SERVER, artifact, *paths],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        _require(proc.returncode == 0,
+                 f"artifact server exited {proc.returncode}: "
+                 f"{proc.stderr[-3000:]}")
+        served = json.loads(proc.stdout.strip().splitlines()[-1])
+        _require(served["models"] == [] and served["batch_sizes"] == [1, 8],
+                 f"artifact server {served['models']} "
+                 f"{served['batch_sizes']}")
+        _require(served["stats"]["requests"]["ok"] == LIFECYCLE_IMAGES,
+                 f"/stats {served['stats']}")
+        want = {name: n * LIFECYCLE_IMAGES
+                for name, n in EXPORTED_COUNTS.items()}
+        want.update(flash_lse=0, flash_bwd=0)
+        _require(served["counts"] == want,
+                 f"artifact server launches {served['counts']}, expected "
+                 f"{want} for {LIFECYCLE_IMAGES} requests")
+        per_request = {name: served["counts"][name] / LIFECYCLE_IMAGES
+                       for name in EXPORTED_COUNTS}
+
+        # (e) the live service on the same weights and JPEGs
+        args = argparse.Namespace(params_npz=None, checkpoint_dir=ckpt,
+                                  restore="final")
+        live_config = config.replace(use_fused_ffn=True)
+        live = DetectionService(live_config,
+                                cli._load_params(args, live_config, "cuda"),
+                                device="cuda", score_threshold=-1.0)
+        answers = []
+        for path in paths:
+            with open(path, "rb") as f:
+                answers.append(live.detect_jpeg(f.read()))
+        comparison = _compare_detections(served["answers"], answers)
+
+        # (f) device-path times, in turns on this card
+        artifact_service = ExportedDetectionService(artifact,
+                                                    score_threshold=-1.0)
+        times = _device_path_ms({"artifact": artifact_service,
+                                 "live": live}, batches=(1, 8), reps=40)
+    seconds = time.monotonic() - tic
+    port_config.PRESETS["vit_b16_384"] = port_config.vit_b16_384
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    _report("lifecycle", preset="vit_b16_384", fused_ffn=True,
+            use_fused_layer_norm=True, seconds=seconds,
+            train={"steps": steps, "final_loss": trained["final_loss"],
+                   "launches": train_counts},
+            evaluate={k: evaluated[k] for k in ("AP", "AP50", "AR@100")},
+            score_coco={k: scored[k] for k in ("AP", "AP50", "AR@100")},
+            ap_diff=ap_diff, perfect_detector_ap=perfect_ap,
+            export_seconds=export_s, graphs=graph_ops,
+            served_stats=served["stats"]["requests"],
+            launches_per_request=per_request, artifact_vs_live=comparison,
+            device_path=times, card=smi)
+    return per_request
+
+
 PEAK_NAMES = {"bf16": "bf16 989 TFLOP/s", "int8": "int8 1979 TOP/s",
               "3xtf32": "tf32 495 TFLOP/s, 3 products per fp32 product",
               "fp32": "fp32 67 TFLOP/s"}
@@ -1721,9 +2072,11 @@ def _entry(name, source, replaces, shape, launches, err, times, work):
 
 def _kernels_line(flash_err, flash_times, train_errors, train_times,
                   drop_errors, drop_times, serve_errors, serve_times,
-                  launches) -> dict:
+                  launches, exported) -> dict:
     """The kernels of every path, each with its launches on its main path,
-    its error against its plain version, its times and its bound."""
+    its error against its plain version, its times and its bound; B1, B3
+    and B4 also with their launches per call of the exported program
+    (``launches_exported``)."""
     bh, n, k = 12, 576, 64                     # vit_b16_384, batch 1
     flash_bytes = 4 * bh * n * k * 2
     tbh, tn, tk = 64, 1296, 40                 # reference_608, batch 8
@@ -1732,10 +2085,11 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
     hqkv = hbh * hn * hk * 2                   # one bf16 operand
     rows, d, wide = 576 * 32, 768, 1536        # vit_b16_384, batch 32
     return {"kernels": [
-        _entry("flash_attention_fwd", "flash_attention_fwd.cu",
-               "flash_attention.py:64", [bh, n, k, "bfloat16"],
-               launches["flash"], flash_err, flash_times[1],
-               (4 * bh * n * n * k, flash_bytes, "bf16")),
+        dict(_entry("flash_attention_fwd", "flash_attention_fwd.cu",
+                    "flash_attention.py:64", [bh, n, k, "bfloat16"],
+                    launches["flash"], flash_err, flash_times[1],
+                    (4 * bh * n * n * k, flash_bytes, "bf16")),
+             launches_exported=exported["flash"]),
         _entry("flash_attention_fwd_lse", "flash_attention_fwd.cu",
                "flash_attention.py:653", [tbh, tn, tk, "float32"],
                launches["flash_lse"], train_errors["lse_abs"],
@@ -1789,11 +2143,12 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
              route_bound_ms=_bound(2 * rows * d * d,
                                    rows * d * 2 + d * d + d * 8
                                    + rows * d * 4, "int8")[0]),
-        _entry("layer_norm", "layer_norm.cu", "fused_ln.py:37",
-               [rows, d, "bfloat16"], launches["layer_norm"],
-               serve_errors["layer_norm"],
-               serve_times[f"layer_norm_B=32_{rows}x768_bf16"],
-               (7 * rows * d, 2 * rows * d * 2 + 2 * d * 4, "fp32")),
+        dict(_entry("layer_norm", "layer_norm.cu", "fused_ln.py:37",
+                    [rows, d, "bfloat16"], launches["layer_norm"],
+                    serve_errors["layer_norm"],
+                    serve_times[f"layer_norm_B=32_{rows}x768_bf16"],
+                    (7 * rows * d, 2 * rows * d * 2 + 2 * d * 4, "fp32")),
+             launches_exported=exported["layer_norm"]),
         dict(_entry("dense_mish", "dense_mish.cu", "fused_ffn.py:42",
                     [rows, d, wide, "bfloat16", "mish"],
                     launches["dense_mish"], serve_errors["dense_mish"],
@@ -1804,6 +2159,7 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
                  f"dense_mish_B=32_{rows}x768x1536_bf16"][
                      "unfused_library_ms"],
              tensor_core_launches=launches["dense_mish_tc"],
+             launches_exported=exported["dense_mish"],
              # `ms` is the wgmma instance's (the one this shape selects);
              # the mma.sync instance on the same inputs beside it.
              mma_sync_ms=serve_times[
@@ -1842,6 +2198,7 @@ def main() -> int:
     ffn_launches, _ = phase_serve_fused_ffn()
     train_launches = phase_train()
     highres_launches = phase_train_highres()
+    exported_launches = phase_lifecycle()
     foreign = sorted(name for name in sys.modules
                      if name == "jax" or name.startswith("jax.")
                      or name == "vision_transformer_detector_tpu"
@@ -1867,7 +2224,8 @@ def main() -> int:
                 "dense_mish_tc": ffn_launches["dense_mish_tc"]}
     print(json.dumps(_kernels_line(flash_err, flash_times, train_errors,
                                    train_times, drop_errors, drop_times,
-                                   serve_errors, serve_times, launches)),
+                                   serve_errors, serve_times, launches,
+                                   exported_launches)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

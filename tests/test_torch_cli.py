@@ -115,3 +115,168 @@ def test_train_highres_1024_preset(dataset, tmp_path, capsys, monkeypatch):
     saved = json.loads((tmp_path / "ckpt" / "config.json").read_text())
     assert saved["detector"]["head_scales"] == [1, 2, 4]
     assert saved["detector"]["attention_window"] == 4
+
+
+# ---------------------------------------------------------------------------
+# The lifecycle subcommands: evaluate, score-coco, predict, visualize,
+# export, serve --from-export, plot, stats
+
+
+@pytest.fixture(scope="module")
+def bridged_npz(tmp_path_factory):
+    """tiny_96 weights made by the JAX package, as a params.npz file."""
+    import jax
+
+    from vision_transformer_detector_tpu.config import get_config
+    from vision_transformer_detector_tpu.models.vit_detector import (
+        init_params)
+    from vision_transformer_detector_tpu.utils.checkpoint import (
+        save_params_npz)
+
+    path = str(tmp_path_factory.mktemp("npz") / "params.npz")
+    save_params_npz(path, init_params(jax.random.PRNGKey(0),
+                                      get_config("tiny_96")))
+    return path
+
+
+def _last(capsys):
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def _model(npz, *extra):
+    return ["--preset", "tiny_96", "--params-npz", npz, "--device", "cpu",
+            "--batch-size", "2", *extra]
+
+
+def test_evaluate_custom_and_coco_protocols(dataset, bridged_npz, capsys):
+    data = ["--val-images", dataset["images"],
+            "--val-annotations", dataset["annotations"]]
+    main(["evaluate", *_model(bridged_npz), *data])
+    assert 0.0 <= _last(capsys)["mAP"] <= 1.0
+    main(["evaluate", *_model(bridged_npz), *data, "--protocol", "coco",
+          "--per-category"])
+    result = _last(capsys)
+    assert result["protocol"] == "coco"
+    assert set(result["AP_per_category"]) >= {"0"}
+    for key in ("AP", "AP50", "AP75", "AR@1", "AR@10", "AR@100"):
+        assert result[key] == -1.0 or 0.0 <= result[key] <= 1.0
+    with pytest.raises(SystemExit):
+        main(["evaluate", *_model(bridged_npz), *data,
+              "--dump-detections", "x.json"])
+    with pytest.raises(SystemExit):
+        main(["evaluate", *_model(bridged_npz), *data, "--distributed"])
+
+
+def test_evaluate_coco_original_dump_rescored_by_score_coco(
+        dataset, bridged_npz, tmp_path, capsys):
+    dump = str(tmp_path / "dets.json")
+    main(["evaluate", *_model(bridged_npz), "--val-images",
+          dataset["images"], "--val-annotations", dataset["annotations"],
+          "--protocol", "coco-original", "--dump-detections", dump])
+    evaluated = _last(capsys)
+    assert len(json.load(open(dump))) == 4 * 17
+    main(["score-coco", "--annotations", dataset["annotations"],
+          "--results", dump, "--per-category"])
+    scored = _last(capsys)
+    assert scored["protocol"] == "coco" and "AP_per_category" in scored
+    assert abs(scored["AP"] - evaluated["AP"]) <= 0.02
+
+
+def test_predict_matches_the_jax_cli(dataset, bridged_npz, capsys,
+                                     monkeypatch):
+    """The same weights and images through both CLIs' ``predict``: the
+    decoded detections agree within 1e-4 (relative for the pixel-valued
+    columns). The JAX package is held to the port's PIL decode."""
+    from vision_transformer_detector_tpu.cli import main as jax_main
+    from vision_transformer_detector_tpu.data import pipeline as jax_pipeline
+
+    monkeypatch.setattr(jax_pipeline, "_native_pipeline", None)
+    args = ["predict", "--images", dataset["images"], "--images-range", "0",
+            "3", "--preset", "tiny_96", "--params-npz", bridged_npz,
+            "--batch-size", "2"]
+    jax_main(args)
+    want = json.loads(capsys.readouterr().out.strip())
+    main(args + ["--device", "cpu"])
+    got = json.loads(capsys.readouterr().out.strip())
+    assert [g["image"] for g in got] == [w["image"] for w in want]
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np.asarray(g["detections"]),
+                                   np.asarray(w["detections"]),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_visualize_writes_pngs_and_a_contact_sheet(dataset, bridged_npz,
+                                                   tmp_path, capsys):
+    main(["visualize", *_model(bridged_npz), "--images", dataset["images"],
+          "--images-range", "0", "2", "--output-dir", str(tmp_path / "viz"),
+          "--objectness-threshold", "0.0",
+          "--classification-threshold", "0.0",
+          "--contact-sheet", str(tmp_path / "viz" / "sheet.html")])
+    result = _last(capsys)
+    assert len(result["written"]) == 2
+    assert all(os.path.exists(p) for p in result["written"])
+    sheet = open(result["contact_sheet"]).read()
+    assert sheet.count("<figure>") == 2 and "keydown" in sheet
+
+
+def test_plot_and_stats(dataset, tmp_path, capsys):
+    metrics = tmp_path / "metrics.jsonl"
+    metrics.write_text("".join(
+        json.dumps({"epoch": e, "loss": 10.0 - e, "ap": e / 10}) + "\n"
+        for e in range(4)))
+    main(["plot", "--metrics", str(metrics),
+          "--output", str(tmp_path / "curves.html")])
+    assert os.path.exists(_last(capsys)["written"])
+    main(["stats", "--annotations", dataset["annotations"]])
+    out = capsys.readouterr().out
+    from vision_transformer_detector_tpu.data.annotations import (
+        load_annotations_dict)
+    from vision_transformer_detector_tpu.data.statistics import (
+        coco_statistics)
+    annotations = load_annotations_dict(dataset["annotations"])
+    want = coco_statistics(list(annotations), annotations)
+    got = json.loads(out)
+    got.pop("seconds", None), want.pop("seconds", None)
+    assert got == json.loads(json.dumps(want))
+
+
+@pytest.mark.parametrize("platforms", [["tpu"], ["cuda", "cpu"], ["meta"]])
+def test_export_takes_one_platform_of_cuda_or_cpu(bridged_npz, tmp_path,
+                                                  platforms):
+    with pytest.raises(SystemExit):
+        main(["export", "--preset", "tiny_96", "--params-npz", bridged_npz,
+              "--output-dir", str(tmp_path / "a"), "--platforms",
+              *platforms])
+
+
+def test_export_then_serve_from_export(bridged_npz, tmp_path, capsys,
+                                       monkeypatch):
+    from vision_transformer_detector_tpu_torch import cli
+    from vision_transformer_detector_tpu_torch.serving import (
+        ExportedDetectionService)
+
+    artifact = str(tmp_path / "artifact")
+    main(["export", "--preset", "tiny_96", "--params-npz", bridged_npz,
+          "--output-dir", artifact, "--batch-sizes", "1", "2",
+          "--platforms", "cpu"])
+    result = _last(capsys)
+    assert result == {"exported": artifact, "batch_size": [1, 2],
+                      "platforms": ["cpu"], "postprocess": None}
+    served = []
+    monkeypatch.setattr(cli, "_serve", lambda args, service:
+                        served.append(service))
+    main(["serve", "--from-export", artifact, "--device", "cpu",
+          "--score-threshold", "-1.0"])
+    (service,) = served
+    assert isinstance(service, ExportedDetectionService)
+    assert service.max_batch_size == 2 and service.score_threshold == -1.0
+    assert len(service.detect_array(
+        np.zeros((2, 96, 96, 3), np.uint8))) == 2
+    for flags in (["--int8"], ["--params-npz", bridged_npz]):
+        with pytest.raises(SystemExit, match="--from-export"):
+            main(["serve", "--from-export", artifact, "--device", "cpu",
+                  *flags])
+    # The artifact holds the CPU route and refuses another device type.
+    with pytest.raises(ValueError, match="exported on cpu"):
+        main(["serve", "--from-export", artifact, "--device", "cuda"])

@@ -9,6 +9,7 @@ need not have; nothing here imports JAX.)
 
 import copy
 import itertools
+import os
 import sys
 import threading
 
@@ -805,3 +806,115 @@ def test_serving_models_on_card_match_cpu(gen, path):
     assert launched == ((9, 8, 4, 0) if path == "int8" else (0, 0, 4, 6))
     tol = 2e-2 if path == "int8" else 1e-4
     assert (gpu - cpu).abs().max().item() <= tol * cpu.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# The custom operators (kernels/ops.py) and torch.export on the card
+
+def _op_samples(gen):
+    """(operator, args, test_utils) at small shapes, each dtype."""
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    every = ("test_schema", "test_autograd_registration", "test_faketensor",
+             "test_aot_dispatch_dynamic")
+    # The backward sums dq with atomics, in no fixed order: its repeated
+    # runs are not compared bit for bit.
+    no_rerun = every[:3]
+    ops = torch.ops.vtd_torch
+    samples = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, g = (rnd(1, 2, 65, 64, dtype=dtype) for _ in range(4))
+        samples += [
+            (ops.flash_attention_fwd, (q, k, v, "bhnk", False, 0, 0.0),
+             every),
+            (ops.flash_attention_fwd, (q, k, v, "bhnk", True, 0, 0.0),
+             every),
+            (ops.flash_attention_fwd, (q, k, v, "bhnk", True, 12345, 0.1),
+             every)]
+        out, lse = fa._launch_forward(q, k, v, "bhnk", with_lse=True)
+        delta = (g.float() * out.float()).sum(-1).contiguous()
+        samples += [
+            (ops.flash_attention_bwd, (q, k, v, g, lse, delta, "bhnk", 0,
+                                       0.0), no_rerun),
+            (ops.layer_norm, (rnd(40, 256, dtype=dtype), rnd(256),
+                              rnd(256), 1e-3), every),
+            (ops.dense_mish, (rnd(70, 64, dtype=dtype),
+                              rnd(64, 72, dtype=dtype), rnd(72, dtype=dtype),
+                              True, 0), every)]
+    layer = _quant_test_layer(gen)
+    x = rnd(70, 64, dtype=torch.bfloat16)
+    for op in (ops.fused_int8_dense, ops.int8_dense):
+        samples.append((op, (x, layer.kernel_q, qz.transposed_codes(layer),
+                             layer.scale, layer.bias, False, 0), every))
+    return samples
+
+
+def _quant_test_layer(gen):
+    kernel = torch.randn(64, 48, device="cuda", generator=gen)
+    dense = model.Dense(64, 48).to("cuda")
+    with torch.no_grad():
+        dense.kernel.copy_(kernel)
+    return qz._quantize_dense(dense)
+
+
+def test_custom_operators_pass_opcheck(gen):
+    """torch.library.opcheck: each operator's schema (no mutation, no
+    aliasing), its fake implementation against the kernel's outputs
+    (shapes, dtypes, strides) and its trace under AOT dispatch."""
+    samples = _op_samples(gen)
+    assert {op._qualified_op_name for op, _, _ in samples} == {
+        "vtd_torch::flash_attention_fwd", "vtd_torch::flash_attention_bwd",
+        "vtd_torch::layer_norm", "vtd_torch::dense_mish",
+        "vtd_torch::fused_int8_dense", "vtd_torch::int8_dense"}
+    for op, args, utils in samples:
+        torch.library.opcheck(op, args, test_utils=utils)
+
+
+def test_cuda_export_calls_the_kernels_as_custom_operators(gen, tmp_path):
+    """A program traced on the card holds one flash-forward node per block
+    and a dense+mish / LayerNorm node per fused layer, none of the plain
+    versions, launches them per call, and gives the live model's
+    detections."""
+    import collections
+
+    from vision_transformer_detector_tpu_torch import export
+    from vision_transformer_detector_tpu_torch.ops.decode import (
+        transform_predictions)
+
+    config = DetectorConfig(
+        image_size=(64, 64), patch_size=16, embedding_dim=128, num_heads=2,
+        key_dim=64, encoder_blocks=2, encoder_mlp_layers=2,
+        head_last_units=32, head_layers=2, use_flash_attention=True,
+        use_fused_layer_norm=True, use_fused_ffn=True,
+        compute_dtype="bfloat16")
+    params = model.init_params(config, torch.Generator().manual_seed(0),
+                               "cuda")
+    path = str(tmp_path / "artifact")
+    export.save_exported(path, params, config, batch_size=2, device="cuda")
+    program = torch.export.load(os.path.join(path, "model.pt2"))
+    ops = collections.Counter(
+        node.target.name().split(".")[0] for node in program.graph.nodes
+        if node.op == "call_function" and hasattr(node.target, "name"))
+    assert {op: n for op, n in ops.items() if op.startswith("vtd_torch")} \
+        == {"vtd_torch::flash_attention_fwd": 2,
+            "vtd_torch::dense_mish": 6, "vtd_torch::layer_norm": 4}
+    assert not {op for op in ops
+                if op.split("::")[-1] in ("softmax", "log1p", "tanh",
+                                          "rsqrt")}
+    detector = export.load_exported(path)
+    images = torch.rand(2, 64, 64, 3, device="cuda", generator=gen) * 2 - 1
+    before = (fa.flash_attention.launches,
+              fused_ffn.fused_dense_mish.launches,
+              fused_ln.fused_layer_norm.launches)
+    got = detector(images)
+    assert (fa.flash_attention.launches - before[0],
+            fused_ffn.fused_dense_mish.launches - before[1],
+            fused_ln.fused_layer_norm.launches - before[2]) == (2, 6, 4)
+    with torch.inference_mode():
+        want = transform_predictions(model.forward(params, images, config),
+                                     config)
+    # The same kernels in the same order: equal up to one bf16 rounding.
+    torch.testing.assert_close(got, want, rtol=2 ** -7, atol=2 ** -7)
+    with pytest.raises(ValueError, match="exported on cuda"):
+        export.load_exported(path, device="cpu")

@@ -159,3 +159,82 @@ def test_map_oracle_gives_the_jax_result(seed):
     want = float(ref.result())
     assert want > 0.0
     assert float(port.result()) == want
+
+
+# ---------------------------------------------------------------------------
+# Own copies of framework-neutral modules: the code equal to the JAX
+# package's, statement for statement (module docstrings aside)
+
+def _body(path):
+    """The module's statements without its docstring, as AST dumps."""
+    tree = ast.parse(open(path).read())
+    body = tree.body
+    if body and isinstance(body[0], ast.Expr) and isinstance(
+            getattr(body[0], "value", None), ast.Constant):
+        body = body[1:]
+    return [ast.dump(node) for node in body]
+
+
+@pytest.mark.parametrize("module", ["utils/visualize.py",
+                                    "utils/plotting.py",
+                                    "data/statistics.py"])
+def test_neutral_copies_equal_the_jax_modules(module):
+    ref = os.path.join(REPO, "vision_transformer_detector_tpu", module)
+    port = os.path.join(REPO, PORT, module)
+    assert _body(port) == _body(ref)
+
+
+def _definitions(path):
+    """name (``Class.method`` for methods) -> AST dump of each top-level
+    function and class method, and of each other top-level statement."""
+    out = {}
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, ast.ClassDef):
+            for item in node.body:
+                key = (f"{node.name}.{item.name}"
+                       if isinstance(item, ast.FunctionDef)
+                       else f"{node.name}:{ast.dump(item)}")
+                out[key] = ast.dump(item)
+        elif isinstance(node, ast.FunctionDef):
+            out[node.name] = ast.dump(node)
+        elif not (isinstance(node, ast.Expr)
+                  and isinstance(node.value, ast.Constant)):
+            out[ast.dump(node)] = ast.dump(node)
+    return out
+
+
+# The deliberate differences of the port's metrics/coco_eval.py:
+COCO_EVAL_REPAIRS = {
+    # an unevaluated AP50/AP75 is -1.0, as in pycocotools (JAX: None)
+    "CocoEvalResults.summarize",
+    # eval_step gets uint8 canvases on the model's device, stated, and its
+    # output is checked; the steps run in torch
+    "evaluate_coco_protocol_original_frame", "evaluate_coco_protocol",
+}
+COCO_EVAL_NATIVE = {
+    # the native matcher core is not ported: no import, False, refused
+    "native_matcher_available", "CocoEvaluator.__init__",
+    "CocoEvaluator._evaluate_image",
+}
+COCO_EVAL_PORT_ONLY = {"_device_of", "_run_eval_step"}
+
+
+def test_coco_eval_core_equals_the_jax_copy_but_for_the_repairs():
+    ref = _definitions(os.path.join(
+        REPO, "vision_transformer_detector_tpu", "metrics", "coco_eval.py"))
+    port = _definitions(os.path.join(REPO, PORT, "metrics", "coco_eval.py"))
+    differ = {name for name in ref
+              if name in port and port[name] != ref[name]}
+    assert differ == COCO_EVAL_REPAIRS | COCO_EVAL_NATIVE
+    only_ref = {name for name in ref if name not in port}
+    # The JAX copy's try-import of the native core is the one statement
+    # the port leaves out.
+    assert len(only_ref) == 1 and "_native" in next(iter(only_ref))
+    assert set(port) - set(ref) == COCO_EVAL_PORT_ONLY
+    for name in ("iou_xywh", "_match_image", "ground_truth_from_labels",
+                 "detections_from_decoded", "update_from_fixed_slots",
+                 "score_coco_results", "CocoEvaluator.evaluate",
+                 "CocoEvaluator._accumulate", "CocoEvaluator.add_image",
+                 "CocoEvalResults.ap", "CocoEvalResults.ar",
+                 "CocoEvalResults.per_category"):
+        assert port[name] == ref[name], name

@@ -161,9 +161,14 @@ def test_cuda_request_without_gpu_raises(monkeypatch):
         cli.main(["serve", "--preset", "tiny_96", "--device", "cuda"])
 
 
-@pytest.mark.parametrize("flag", [["--from-export", "dir"]])
+@pytest.mark.parametrize("flag", [["--from-export", "dir", "--int8"],
+                                  ["--from-export", "dir", "--params-npz",
+                                   "params.npz"]])
 def test_cli_refuses_unported_flags(flag):
-    with pytest.raises(SystemExit, match="not ported"):
+    """`serve --from-export` serves the artifact's own weights: the model
+    flags of `serve` that it cannot honour are refused, as in the JAX CLI,
+    before anything is loaded."""
+    with pytest.raises(SystemExit, match="cannot honour"):
         cli.main(["serve", "--device", "cpu", *flag])
 
 

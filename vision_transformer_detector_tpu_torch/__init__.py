@@ -7,14 +7,20 @@ names so each counterpart is easy to find:
                  pipeline (copies of the JAX package's, PIL decode)
   * models/    — the ViT detector forward (nn.Modules in the JAX layouts)
   * ops/       — decode, box geometry, the detection loss, NMS + top-k
-  * kernels/   — hand-written Hopper kernels (csrc/) and their plain
-                 PyTorch versions, int8 weight quantization
-  * metrics/   — the reference mAP metric on the device and its NumPy
-                 oracle
+  * kernels/   — hand-written Hopper kernels (csrc/) as the custom
+                 operators ``torch.ops.vtd_torch.*`` (kernels/ops.py),
+                 their plain PyTorch versions, int8 weight quantization
+  * metrics/   — the reference mAP metric on the device, its NumPy
+                 oracle, and the official COCO protocol (coco_eval.py)
   * train/     — optimizer stack, train/eval steps and the Trainer
-  * serving.py — the detection service, micro-batcher and HTTP server
-  * cli.py     — ``serve`` and ``train`` (``vtd-torch``)
-  * utils/     — the .npz weight bridge and train-state checkpoints
+  * export.py  — torch.export artifacts and their model-free loader
+  * serving.py — the detection services (live and from an artifact),
+                 micro-batcher and HTTP server
+  * api.py     — the reference-signature API (``Detector``, ...)
+  * cli.py     — ``vtd-torch``: train, evaluate, score-coco, predict,
+                 visualize, export, serve, plot, stats
+  * utils/     — the .npz weight bridge, train-state checkpoints,
+                 numeric sanitizers, visualization and plotting
 
 It imports nothing of the JAX package: the framework-neutral host modules
 it needs are its own copies, held equal to the originals by

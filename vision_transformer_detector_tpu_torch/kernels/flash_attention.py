@@ -14,7 +14,9 @@ Routing is by the device of the tensors, never by a fallback:
     the tests compare with the JAX package;
   * CUDA tensors launch the kernels in ``csrc/flash_attention_fwd.cu`` and
     ``csrc/flash_attention_bwd.cu`` (built at first use by
-    ``kernels/_build.py``), or raise;
+    ``kernels/_build.py``) through the custom operators
+    ``torch.ops.vtd_torch.flash_attention_{fwd,bwd}`` (kernels/ops.py), or
+    raise;
   * any other device raises.
 
 The kernels run on the tensor cores (bf16, and fp32 as 3xTF32) with head
@@ -47,14 +49,10 @@ output.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import threading
 
 import torch
 import torch.nn.functional as F
-
-from . import _build
 
 FWD_SOURCE = "flash_attention_fwd.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
@@ -362,35 +360,25 @@ def _dropout_c_args(dropout) -> tuple:
 
 def _launch_forward(q, k, v, layout: str, with_lse: bool = False,
                     dropout=None):
+    """One forward launch through ``torch.ops.vtd_torch.flash_attention_fwd``
+    (kernels/ops.py): ``out``, or ``(out, lse)`` with ``with_lse``."""
     _check_inputs(q, k, v)
     kdim = q.shape[-1]
-    q, k, v = _kernel_operands(layout, q=q, k=k, v=v)
-    lib = _library(FWD_SOURCE)
-    # empty_like keeps q's memory order, so a transposed view in gives a
-    # tensor that transposes back to contiguous.
-    out = torch.empty_like(q)
-    (b, h, n), sq = _axes(q, layout)
-    lse = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-           if with_lse else None)
-    strides = [s for t in (q, k, v, out) for s in _axes(t, layout)[1]]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.vtd_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), _DTYPE_CODES[q.dtype],
-            b, h, n, q.shape[-1], *strides, *_dropout_c_args(dropout), stream)
-    _build.raise_on_error(lib, err, "flash attention forward")
-    _count("drop_launches" if dropout is not None
-           else "lse_launches" if with_lse else "launches")
+    q, k, v = (_pad_head_dim(t) for t in (q, k, v))
+    seed, rate = dropout if dropout is not None else (0, 0.0)
+    out, lse = torch.ops.vtd_torch.flash_attention_fwd(
+        q, k, v, layout, with_lse, seed, rate)
     out = out[..., :kdim] if kdim < out.shape[-1] else out
     return (out, lse) if with_lse else out
 
 
 def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None):
-    """dq, dk, dv from the backward kernel. lse and delta are (B, H, N)
-    fp32; dq accumulates in a zeroed fp32 buffer and is cast to q's dtype
-    here, dk and dv come out of the kernel in the input dtype. ``dropout``
-    is the forward's ``(seed, rate)``, whose mask the kernel replays."""
+    """dq, dk, dv from the backward kernel, through
+    ``torch.ops.vtd_torch.flash_attention_bwd`` (kernels/ops.py). lse and
+    delta are (B, H, N) fp32; dq accumulates in fp32 and is cast to q's
+    dtype here, dk and dv come out of the kernel in the input dtype.
+    ``dropout`` is the forward's ``(seed, rate)``, whose mask the kernel
+    replays."""
     _check_inputs(q, k, v, g)
     kdim = q.shape[-1]
     # The incoming cotangent is whatever view autograd hands over (an
@@ -399,7 +387,7 @@ def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None):
     g = _pad_head_dim(g)
     if _misalignment(g, layout) is not None:
         g = g.contiguous()
-    q, k, v, g = _kernel_operands(layout, q=q, k=k, v=v, g=g)
+    q, k, v = (_pad_head_dim(t) for t in (q, k, v))
     (b, h, n), _ = _axes(q, layout)
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.shape != (b, h, n) or t.dtype != torch.float32
@@ -407,39 +395,7 @@ def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None):
             raise ValueError(
                 f"{name} must be a contiguous float32 {(b, h, n)} tensor on "
                 f"{q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
-    lib = _library(BWD_SOURCE)
-    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    strides = [s for t in (q, k, v, g, dq, dk, dv)
-               for s in _axes(t, layout)[1]]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.vtd_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), _DTYPE_CODES[q.dtype], b, h, n, q.shape[-1],
-            *strides, *_dropout_c_args(dropout), stream)
-    _build.raise_on_error(lib, err, "flash attention backward")
-    _count("backward_launches" if dropout is None
-           else "backward_drop_launches")
+    seed, rate = dropout if dropout is not None else (0, 0.0)
+    dq, dk, dv = torch.ops.vtd_torch.flash_attention_bwd(
+        q, k, v, g, lse, delta, layout, seed, rate)
     return dq[..., :kdim].to(q.dtype), dk[..., :kdim], dv[..., :kdim]
-
-
-@functools.cache
-def _library(source: str) -> ctypes.CDLL:
-    lib = _build.load_library(source)
-    # dropout flag, seed, keep threshold, inv_keep, then the stream.
-    dropout = [ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
-               ctypes.c_void_p]
-    if source == FWD_SOURCE:
-        fn = lib.vtd_flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 12 + dropout)
-    else:
-        fn = lib.vtd_flash_attention_bwd
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 21 + dropout)
-    fn.restype = ctypes.c_int
-    lib.vtd_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.vtd_cuda_error_string.restype = ctypes.c_char_p
-    return lib

@@ -10,7 +10,8 @@ x flatten into the rows.
 
 Routing is by the device of the tensors, never by a fallback: CPU tensors
 take ``dense_mish_reference``; CUDA tensors launch ``csrc/dense_mish.cu``
-or raise. Both routes go through ``FusedDenseMishFunction``, whose
+through ``torch.ops.vtd_torch.dense_mish`` (kernels/ops.py) or raise. A
+call that needs a gradient goes through ``FusedDenseMishFunction``, whose
 backward is the JAX package's recompute VJP (``_fused_bwd``) in plain
 torch: z = x w + b in fp32, dz = g (t + z (1 - t^2) sigmoid(z)) with
 t = tanh(softplus(z)), then dx = dz w^T, dw = x^T dz, db = sum(dz), all in
@@ -28,13 +29,9 @@ tensor-core instances apart.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import threading
 
 import torch
-
-from . import _build
 
 SOURCE = "dense_mish.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -117,8 +114,13 @@ def fused_dense_mish(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             f"fused_dense_mish takes x, w and b all on the CPU or all on "
             f"CUDA, got devices {sorted(devices)}")
     x2 = x.reshape(-1, x.shape[-1])
-    y = FusedDenseMishFunction.apply(x2, w, b, apply_mish,
-                                     devices == {"cuda"})
+    use_kernel = devices == {"cuda"}
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, b)):
+        y = FusedDenseMishFunction.apply(x2, w, b, apply_mish, use_kernel)
+    elif use_kernel:
+        y = _launch(x2, w, b, apply_mish)
+    else:
+        y = dense_mish_reference(x2, w, b, apply_mish)
     return y.reshape(tuple(x.shape[:-1]) + (w.shape[1],))
 
 
@@ -130,7 +132,8 @@ fused_dense_mish.tensor_core_launches = 0
 
 def _launch(x2, w, b, apply_mish: bool,
             instance: str | None = None) -> torch.Tensor:
-    """One kernel launch. ``instance`` names one of ``REQUESTS`` to take
+    """One kernel launch through ``torch.ops.vtd_torch.dense_mish``
+    (kernels/ops.py). ``instance`` names one of ``REQUESTS`` to take
     instead of the one the shape selects (the tests and the timings use
     it); a shape or dtype that the named instance cannot take raises."""
     dtype = x2.dtype
@@ -140,35 +143,5 @@ def _launch(x2, w, b, apply_mish: bool,
             f"{x2.dtype}, {w.dtype}, {b.dtype}")
     if len({t.device for t in (x2, w, b)}) != 1:
         raise ValueError("x, w and b must be on one CUDA device")
-    m, k = x2.shape
-    n = w.shape[1]
-    out = torch.empty((m, n), dtype=dtype, device=x2.device)
-    if m == 0:
-        return out
-    x2, w, b = (t.contiguous() for t in (x2, w, b))
-    request = REQUESTS[instance]
-    taken = ctypes.c_int(-1)
-    lib = _library()
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        err = lib.vtd_dense_mish(x2.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                 out.data_ptr(), m, n, k, _DTYPE_CODES[dtype],
-                                 int(apply_mish), request,
-                                 ctypes.byref(taken), stream)
-    _build.raise_on_error(lib, err, "dense + mish")
-    with _count_lock:
-        fused_dense_mish.launches += 1
-        fused_dense_mish.tensor_core_launches += int(taken.value > 0)
-    return out
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library(SOURCE)
-    fn = lib.vtd_dense_mish
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.vtd_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.vtd_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return torch.ops.vtd_torch.dense_mish(x2, w, b, apply_mish,
+                                          REQUESTS[instance])

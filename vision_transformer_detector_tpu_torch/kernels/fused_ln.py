@@ -11,20 +11,17 @@ differentiable LayerNorm, as the JAX package does).
 
 Routing is by the device of x, never by a fallback: CPU tensors take
 ``layer_norm_reference`` (the model's LayerNorm math); CUDA tensors launch
-``csrc/layer_norm.cu`` or raise. The kernel's rsqrtf is approximate, so
+``csrc/layer_norm.cu`` through ``torch.ops.vtd_torch.layer_norm``
+(kernels/ops.py) or raise. The kernel's rsqrtf is approximate, so
 on the card it agrees with the plain version to a few fp32 ulp (1e-5 in
 fp32, one bf16 rounding in bf16).
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import threading
 
 import torch
-
-from . import _build
 
 SOURCE = "layer_norm.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -77,6 +74,8 @@ fused_layer_norm.launches = 0
 
 
 def _launch(x, gamma, beta, eps: float) -> torch.Tensor:
+    """One launch through ``torch.ops.vtd_torch.layer_norm``
+    (kernels/ops.py), on the rows of x."""
     d = x.shape[-1]
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
@@ -86,32 +85,6 @@ def _launch(x, gamma, beta, eps: float) -> torch.Tensor:
         raise ValueError(
             f"gamma and beta must be ({d},), got {tuple(gamma.shape)} and "
             f"{tuple(beta.shape)}")
-    x2 = x.reshape(-1, d)
-    # The kernel loads 16 (fp32) or 8 (bf16) bytes at a time.
-    if not x2.is_contiguous() or x2.data_ptr() % 16:
-        x2 = x2.clone(memory_format=torch.contiguous_format)
-    g = gamma.float().contiguous()
-    b = beta.float().contiguous()
-    out = torch.empty_like(x2)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.vtd_layer_norm(x2.data_ptr(), g.data_ptr(), b.data_ptr(),
-                                 out.data_ptr(), x2.shape[0], d, float(eps),
-                                 _DTYPE_CODES[x.dtype], stream)
-    _build.raise_on_error(lib, err, "layer norm")
-    with _count_lock:
-        fused_layer_norm.launches += 1
+    out = torch.ops.vtd_torch.layer_norm(x.reshape(-1, d), gamma, beta,
+                                         float(eps))
     return out.reshape(x.shape)
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library(SOURCE)
-    fn = lib.vtd_layer_norm
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.vtd_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.vtd_cuda_error_string.restype = ctypes.c_char_p
-    return lib

@@ -23,7 +23,8 @@ serving only:
 Routing is by the device of x, never by a fallback: CPU tensors take the
 plain versions (``int8_dense_reference``), which compute the integer
 product in int32; CUDA tensors launch ``csrc/int8_dense.cu`` (both routes,
-each with its own launch count) or raise. Neither route has a gradient: a
+each with its own launch count, through ``torch.ops.vtd_torch.
+{fused_int8_dense,int8_dense}``, kernels/ops.py) or raise. Neither route has a gradient: a
 call that would need one raises.
 
 On the card the product runs on the int8 tensor cores (``wgmma``, s8 x s8
@@ -45,15 +46,12 @@ once; the copy costs one transpose per layer and K * N bytes.
 from __future__ import annotations
 
 import copy
-import ctypes
-import functools
 import threading
 
 import numpy as np
 import torch
 from torch import nn
 
-from . import _build
 from .fused_ffn import mish_f32
 
 SOURCE = "int8_dense.cu"
@@ -284,54 +282,27 @@ fused_int8_dense.tensor_core_launches = 0
 
 def _launch(x2, layer: QuantDense, apply_mish: bool, out_dtype,
             route, instance: str | None = None) -> torch.Tensor:
-    """One kernel launch; counted on ``route`` (the public function).
+    """One kernel launch through ``torch.ops.vtd_torch.<route>``
+    (kernels/ops.py), counted on ``route`` (the public function).
     ``instance`` names one of ``REQUESTS`` to take instead of the one the
     shape selects (the tests and the timings use it); a shape that the
     named instance cannot take raises."""
-    m, k = x2.shape
+    k = x2.shape[1]
     kernel_q = layer.kernel_q
-    n = kernel_q.shape[1]
     if kernel_q.dtype != torch.int8 or kernel_q.shape[0] != k:
         raise ValueError(
             f"kernel_q must be int8 ({k}, N), got {kernel_q.dtype} "
             f"{tuple(kernel_q.shape)}")
     if x2.dtype not in _DTYPE_CODES:
         raise ValueError(f"x must be float32 or bfloat16, got {x2.dtype}")
-    out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
-    if m == 0:
-        return out
-    x2 = x2.contiguous()
-    kernel_q = kernel_q.contiguous()
-    scale = layer.scale.float().contiguous()
-    bias = layer.bias.float().reshape(-1).contiguous()
-    request = REQUESTS[instance]
+    op, route_dtype = ((torch.ops.vtd_torch.int8_dense, torch.float32)
+                       if route is int8_dense else
+                       (torch.ops.vtd_torch.fused_int8_dense, torch.bfloat16))
+    if out_dtype != route_dtype:
+        raise ValueError(f"{route.__name__} writes {route_dtype}, not "
+                         f"{out_dtype}")
     # The (N, K) codes only where a tensor-core instance may take the call.
     transposed = (transposed_codes(layer)
                   if tensor_core_shape(k) and instance != "guarded" else None)
-    taken = ctypes.c_int(-1)
-    lib = _library()
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        err = lib.vtd_int8_dense(
-            x2.data_ptr(), kernel_q.data_ptr(),
-            None if transposed is None else transposed.data_ptr(),
-            scale.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k,
-            _DTYPE_CODES[x2.dtype], _DTYPE_CODES[out_dtype], int(apply_mish),
-            request, ctypes.byref(taken), stream)
-    _build.raise_on_error(lib, err, "int8 dense")
-    with _count_lock:
-        route.launches += 1
-        route.tensor_core_launches += int(taken.value > 0)
-    return out
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library(SOURCE)
-    fn = lib.vtd_int8_dense
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.vtd_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.vtd_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return op(x2, kernel_q, transposed, layer.scale, layer.bias, apply_mish,
+              REQUESTS[instance])

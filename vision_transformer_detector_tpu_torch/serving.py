@@ -4,7 +4,9 @@ the HTTP server.
 Counterpart of vision_transformer_detector_tpu/serving.py. The device
 program is new here: ``DetectionService.predict_raw`` runs uint8
 normalisation, forward, decode, NMS + top-k and packing on the service's
-device. The host side is the port's own copy of the JAX package's code,
+device; ``ExportedDetectionService`` runs a ``torch.export`` artifact
+(export.py) in its place and never imports the model code (``models/``
+is imported only by ``DetectionService``). The host side is the port's own copy of the JAX package's code,
 kept as it is: ``DetectionService``'s JPEG letterboxing, mapping of boxes
 back to source pixels and conversion of the packed tensor into detection
 dicts, and the whole of ``BatchingDetectionService`` and
@@ -30,7 +32,6 @@ import torch
 from .config import DetectorConfig
 from .data.annotations import letterbox_params
 from .data.categories import MODEL_ID_TO_NAME
-from .models.vit_detector import ViTDetector, forward
 from .ops.decode import transform_predictions
 from .ops.nms import postprocess_detections
 from .utils.device import resolve_device
@@ -52,9 +53,12 @@ class DetectionService:
     ``device``. ``device="cuda"`` without a visible GPU raises.
     """
 
-    def __init__(self, config: DetectorConfig, params: ViTDetector,
+    def __init__(self, config: DetectorConfig, params: "ViTDetector",
                  device="cuda", k: int = 17, iou_threshold: float = 0.5,
                  score_threshold: float = 0.0, fast_decode: bool = False):
+        from .models.vit_detector import forward
+
+        self._forward = forward
         self.device = resolve_device(device)
         self.config = config
         self.params = params.to(self.device)
@@ -72,7 +76,7 @@ class DetectionService:
         x = x.to(self.device)
         if x.dtype == torch.uint8:
             x = x.float() / 127.5 - 1.0
-        logits = forward(self.params, x, self.config)
+        logits = self._forward(self.params, x, self.config)
         decoded = transform_predictions(logits, self.config)
         return _pack_raw(*postprocess_detections(
             decoded, k=self.k, iou_threshold=self.iou_threshold,
@@ -171,6 +175,62 @@ class DetectionService:
         canvas, original_size = self.letterbox_jpeg(data)
         return self.map_to_source(self.detect_array(canvas[None])[0],
                                   original_size)
+
+
+class ExportedDetectionService(DetectionService):
+    """DetectionService backed by a ``torch.export`` artifact (export.py).
+
+    The artifact's programs (forward + decode, pinned shapes) replace the
+    live model; the NMS/top-k postprocess runs on the decoded output on
+    the device, unless the artifact was exported with a baked postprocess
+    (``export --bake-postprocess``): then its programs end in NMS/top-k
+    and the spec recorded at export time is authoritative, with a warning
+    when the serve-time settings differ. uint8 canvases go to the loader
+    as they are and are normalized on the device. Request batches route
+    through the artifact's batch sizes (the loader pads to the smallest
+    graph that fits), and ``max_batch_size`` caps the micro-batcher.
+    ``device`` defaults to the artifact's trace device type; this class
+    never imports the model code.
+    """
+
+    def __init__(self, directory: str, k: int = 17,
+                 iou_threshold: float = 0.5,
+                 score_threshold: float = 0.0,
+                 fast_decode: bool = False, device=None):
+        from .export import load_exported
+
+        self._exported = load_exported(directory, device)
+        self.device = self._exported.device
+        self.config = self._exported.config
+        self.params = None   # the artifact owns the weights
+        self.fast_decode = fast_decode
+        self.k = k
+        self.iou_threshold = iou_threshold
+        self.score_threshold = score_threshold
+        baked = self._exported.postprocess
+        if baked is not None:
+            asked = {"k": k, "iou_threshold": iou_threshold,
+                     "score_threshold": score_threshold}
+            diffs = {key: (asked[key], baked[key]) for key in asked
+                     if asked[key] != baked[key]}
+            if diffs:
+                import warnings
+                warnings.warn(
+                    "artifact has baked postprocess; ignoring serve-time "
+                    f"settings that differ from the baked spec: {diffs}")
+
+    @torch.inference_mode()
+    def predict_raw(self, images: np.ndarray) -> torch.Tensor:
+        out = self._exported(images)
+        if self._exported.postprocess is None:
+            out = postprocess_detections(
+                out, k=self.k, iou_threshold=self.iou_threshold,
+                score_threshold=self.score_threshold)
+        return _pack_raw(*out)
+
+    @property
+    def max_batch_size(self) -> int:
+        return self._exported.batch_size
 
 
 class BatchingDetectionService:

@@ -83,6 +83,12 @@ def params_to_numpy(params: ViTDetector) -> Dict[str, np.ndarray]:
             for key, value in params.state_dict().items()}
 
 
+def save_params_npz(path: str, params: ViTDetector) -> None:
+    """The JAX package's ``save_params_npz`` format: one array per
+    parameter (or int8 buffer) under its slash-joined name."""
+    np.savez(path, **params_to_numpy(params))
+
+
 def load_params_npz(path: str, config: DetectorConfig) -> ViTDetector:
     """Load a ``save_params_npz`` file into a CPU ViTDetector."""
     with np.load(path) as data:
