@@ -7,11 +7,13 @@ Drives the port (vision_transformer_detector_tpu_torch) through its main
 paths, serving the ViT-B/16 384px detector over HTTP (bf16, int8 with the
 fused LayerNorm, and the fused dense+mish with the fused LayerNorm),
 training the reference_608 detector, training highres_1024 with attention
-dropout, and the deployment lifecycle (train, COCO-protocol evaluation,
-export as a torch.export artifact whose graphs call the kernels as custom
-operators, serving from the artifact), and checks each hand-written
-kernel on those paths
-against its plain PyTorch version. Phases, one output line each:
+dropout, training both through the windowed loop that replays the train
+step as a CUDA graph, the CLI's tools (benchmark, doctor, sweep, resumable
+and windowed training, async checkpoints), and the deployment lifecycle
+(train, COCO-protocol evaluation, export as a torch.export artifact whose
+graphs call the kernels as custom operators, serving from the artifact),
+and checks each hand-written kernel on those paths against its plain
+PyTorch version. Phases, one output line each:
 
   1. build        — compile every kernel source of the paths from csrc/
                     with nvcc, all at once; ptxas lines of each, and the
@@ -39,7 +41,9 @@ against its plain PyTorch version. Phases, one output line each:
   3b. kernel_drop — the forward with in-kernel dropout (rate 0.1, a seed
                     near 2^32) and lse, and the backward with the mask
                     replayed, against the plain versions with the same
-                    mask, and the Function against autograd: (2048, 256,
+                    mask (the seed read from device memory, as the
+                    model hands it over), and the Function against
+                    autograd: (2048, 256,
                     64) bf16 (highres_1024 at batch 8, heads-major as the
                     model folds its windows), (64, 1296, 40) fp32
                     tokens-major and a ragged N; the kernel's mask read
@@ -48,6 +52,12 @@ against its plain PyTorch version. Phases, one output line each:
                     and scaled_dot_product_attention with dropout_p, and
                     highres_1024 as shipped (forward with lse and backward,
                     no dropout) against both without dropout;
+  3c. kernel_mlp_drop — the MLP/head dropout kernel against its plain
+                    version, forward and backward, bit for bit, from a seed
+                    in device memory: highres_1024's pyramid layers at
+                    batch 8, (8, 4096, 2048) and (8, 4096, 1024) bf16, a
+                    ragged row and a misaligned fp32 view; times in turns
+                    with the plain version and F.dropout;
   4. kernel_serve — the int8 dense kernel (both routes), the LayerNorm
                     kernel and the dense+mish kernel against their plain
                     versions at the vit_b16_384 shapes for batch 1 and 32,
@@ -95,13 +105,46 @@ against its plain PyTorch version. Phases, one output line each:
                     remat from one seed; (c) 8 steps at batch 8 through
                     Trainer.fit in bf16 at full depth, with an eval: the
                     loss falls, 48 dropout forward and 24 replay backward
-                    launches per step, 24 plain forward launches in the
-                    eval; (d) save, restore, the next step's loss is
+                    launches per step, 126 MLP/head dropout launches per
+                    step, 24 plain forward launches in the eval; (d) save, restore, the next step's loss is
                     identical (the dropout seed generator is restored);
                     (e) the median step time and peak memory; (f) one step
                     as shipped ("alternate" remat, no dropout): 36
                     forward-with-lse and 24 backward launches;
- 12. lifecycle    — vit_b16_384 (bf16, flash, the fused dense+mish and the
+ 12. train_window — Trainer.fit(epochs_per_call > 1), whose windowed
+                    loop captures the train step as a CUDA graph and
+                    replays it, against the per-epoch eager loop from one
+                    seeded state: (a) reference_608, fp32, batch 8, 12
+                    epochs in windows of 4 cut by an eval and checkpoint
+                    cadence that does not divide 4: per-epoch losses within
+                    rtol 2e-5, the same AP records, the parameters after
+                    the fit within rtol 1e-4 (atol 1e-5), the windows cut
+                    at the event epochs; (b) highres_1024, bf16, dropout
+                    0.1, remat None, batch 8, lr 1e-6, 8 steps: the graph's
+                    seed rows are the loop's draws and its seed buffer
+                    holds the last one, step 0's loss bit-equal and each
+                    step's within 2^-7 per step (a second eager run's
+                    distance beside it), and a planted fault (replays that
+                    never write the seed buffer) fails that comparison;
+                    (c) each graph's kernel nodes (debug dump): 8 + 8 flash
+                    per reference_608 step, 48 B1-drop + 24 B2-replay and
+                    the loop's MLP dropout launches per highres_1024 step,
+                    the launches printed being nodes x replays;
+                    (d) accumulate_steps=2 at depth 2 (a micro-step and an
+                    update-step graph) against the loop; (e) "alternate"
+                    remat with dropout at depth 2; the median ms per step
+                    of both loops;
+ 13. cli_tools    — `vtd-torch benchmark` (inference on vit_b16_384 at batch
+                    32, train on reference_608 at batch 8, each JSON line
+                    printed), `doctor` (exit 0, device ok, sm_90, every
+                    kernel library built), `sweep --synthetic` over two
+                    learning rates on tiny_96, `train --resumable` stopped
+                    after a checkpoint and resumed against an
+                    uninterrupted run (the same step and input position),
+                    `train --epochs-per-call`, and an async checkpoint of
+                    reference_608 written while two more steps run,
+                    bit-equal to the state at save time;
+ 14. lifecycle    — vit_b16_384 (bf16, flash, the fused dense+mish and the
                     fused LayerNorm) through `vtd-torch`: (a) train 2
                     epochs at batch 4 on 8 seeded JPEGs (finite loss,
                     12 forward-with-lse, 12 backward and 27 dense+mish
@@ -127,8 +170,9 @@ Then it prints the card's name and power limit (nvidia-smi), one JSON
 line with each kernel's shape, launches, error, times (its own, its plain
 version's and, where one PyTorch call computes the same function, that
 call's), its bound with the peak rate it uses and, for the three kernels
-an exported program calls, its launches per exported call, and as the
-last line
+an exported program calls, its launches per exported call, for the four
+flash kernels and the dropout kernel of the train step their launches in
+the CUDA-graph fits (``launches_graph``), and as the last line
 {"ok": true, "device": {...}}. Any failed check ends the run with a
 non-zero exit and no result line; so does a host without a CUDA device, or
 a directory without the port's sources. A kernel that does not build or launch raises; nothing
@@ -141,6 +185,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -250,10 +295,10 @@ def _sdpa_backend(run):
 def phase_build():
     from vision_transformer_detector_tpu_torch.kernels import _build
     from vision_transformer_detector_tpu_torch.kernels import (
-        flash_attention as fa, fused_ffn, fused_ln, quantization)
+        dropout, flash_attention as fa, fused_ffn, fused_ln, quantization)
 
     sources = [fa.FWD_SOURCE, fa.BWD_SOURCE, quantization.SOURCE,
-               fused_ln.SOURCE, fused_ffn.SOURCE]
+               fused_ln.SOURCE, fused_ffn.SOURCE, dropout.SOURCE]
     tic = time.monotonic()
     _build.load_libraries(sources)
     seconds = round(time.monotonic() - tic, 3)
@@ -560,8 +605,11 @@ def phase_kernel_drop():
         flash_attention as fa)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    drop = (DROP_SEED, DROP_RATE)
-    kw = {"dropout_rate": DROP_RATE, "dropout_seed": DROP_SEED}
+    # The seed lies in device memory, where the kernels read it (as in the
+    # model, which hands them views of its seed table).
+    seed = fa.seed_tensor(DROP_SEED, "cuda")
+    drop = (seed, DROP_RATE)
+    kw = {"dropout_rate": DROP_RATE, "dropout_seed": seed}
 
     def inputs(layout, shape, dtype):
         """Scaled q, k, v and a cotangent g in ``layout`` order, contiguous
@@ -733,6 +781,69 @@ def phase_kernel_drop():
             times_bf16_2048x256x64=times, sdpa_backend=backend.name,
             sdpa_backend_no_dropout=shipped_backend.name)
     return errors["2048x256x64_bfloat16_bhnk"], times
+
+
+MLP_DROP_SHAPES = ((8, 4096, 2048), (8, 4096, 1024))   # highres_1024 b8
+
+
+def phase_kernel_mlp_drop():
+    """The MLP/head dropout kernel (csrc/dropout.cu) against its plain
+    version on the card, forward and backward through autograd, from a
+    seed in device memory: bit for bit at highres_1024's two pyramid
+    layers at batch 8 (bf16, 16-byte chunks), a ragged row and a
+    misaligned fp32 view (one element at a time); times at the first
+    layer in turns with the plain version and F.dropout (another RNG: the
+    same function in distribution)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vision_transformer_detector_tpu_torch.kernels import (
+        dropout as dk, flash_attention as fa)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    seed = fa.seed_tensor(DROP_SEED, "cuda")
+    cases = [(shape, torch.bfloat16, 0) for shape in MLP_DROP_SHAPES]
+    cases += [((3, 77, 517), torch.bfloat16, 0),
+              ((5, 130), torch.float32, 1)]
+    errors = {}
+    for shape, dtype, offset in cases:
+        name = "x".join(map(str, shape)) + f"_{str(dtype)[6:]}" + (
+            "_misaligned" if offset else "")
+        n = 1
+        for size in shape:
+            n *= size
+        x = torch.randn(n + offset, device="cuda", generator=gen).to(dtype)
+        x = x[offset:].reshape(shape).requires_grad_()
+        g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        before = dk.dropout.launches
+        out = dk.dropout(x, seed, DROP_RATE)
+        (grad,) = torch.autograd.grad(out, x, g)
+        torch.cuda.synchronize()
+        _require(dk.dropout.launches == before + 2,
+                 f"dropout {name}: {dk.dropout.launches - before} launches")
+        want = dk.dropout_reference(x, seed, DROP_RATE)
+        (want_grad,) = torch.autograd.grad(want, x, g)
+        kept = dk.dropout_mask(seed, shape, DROP_RATE, "cuda")
+        mismatches = int(((out != 0) != (kept & (x != 0))).sum())
+        err = max(_max_err(out, want), _max_err(grad, want_grad))
+        _require(mismatches == 0 and err == 0.0,
+                 f"dropout {name}: {mismatches} mask mismatches, max abs "
+                 f"error {err} (bit-equal expected)")
+        errors[name] = {"max_abs_err": err, "mask_mismatches": mismatches,
+                        "keep_rate": kept.float().mean().item()}
+        del x, g, out, grad, want, want_grad, kept
+
+    x = torch.randn(MLP_DROP_SHAPES[0], device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    times = _in_turns({
+        "plain_ms": lambda: dk.dropout_reference(x, seed, DROP_RATE),
+        "kernel_ms": lambda: dk.dropout(x, seed, DROP_RATE),
+        "library_ms": lambda: F.dropout(x, DROP_RATE, training=True)}, 10)
+    del x
+    _report("kernel_mlp_drop", rate=DROP_RATE, seed=DROP_SEED, errors=errors,
+            tolerance="bit-equal", times=times,
+            time_shape=list(MLP_DROP_SHAPES[0]))
+    return errors, times
 
 
 def _quant_layer(gen, k: int, out_shape):
@@ -1024,7 +1135,8 @@ def phase_model():
 def _counts():
     """Every kernel wrapper's launch count, by kernel."""
     from vision_transformer_detector_tpu_torch.kernels import (
-        flash_attention as fa, fused_ffn, fused_ln, quantization as qz)
+        dropout as dk, flash_attention as fa, fused_ffn, fused_ln,
+        quantization as qz)
 
     return {"flash": fa.flash_attention.launches,
             "flash_lse": fa.flash_attention.lse_launches,
@@ -1035,6 +1147,7 @@ def _counts():
             "int8_dense": qz.int8_dense.launches,
             "layer_norm": fused_ln.fused_layer_norm.launches,
             "dense_mish": fused_ffn.fused_dense_mish.launches,
+            "mlp_drop": dk.dropout.launches,
             # Of the three above, the launches on tensor-core instances.
             "int8_fused_tc": qz.fused_int8_dense.tensor_core_launches,
             "int8_dense_tc": qz.int8_dense.tensor_core_launches,
@@ -1043,7 +1156,8 @@ def _counts():
 
 def _reset_counts() -> None:
     from vision_transformer_detector_tpu_torch.kernels import (
-        flash_attention as fa, fused_ffn, fused_ln, quantization as qz)
+        dropout as dk, flash_attention as fa, fused_ffn, fused_ln,
+        quantization as qz)
 
     for fn, names in ((fa.flash_attention,
                        ("launches", "lse_launches", "drop_launches",
@@ -1052,6 +1166,7 @@ def _reset_counts() -> None:
                        ("launches", "tensor_core_launches")),
                       (qz.int8_dense, ("launches", "tensor_core_launches")),
                       (fused_ln.fused_layer_norm, ("launches",)),
+                      (dk.dropout, ("launches",)),
                       (fused_ffn.fused_dense_mish,
                        ("launches", "tensor_core_launches"))):
         for name in names:
@@ -1499,7 +1614,7 @@ def phase_train():
     images8, labels8 = (torch.from_numpy(a).to("cuda") for a in data[0])
     saved = {"params": {n: t.clone() for n, t in
                         state["params"].state_dict().items()},
-             "count": state["opt_state"]["count"],
+             "count": int(state["opt_state"]["count"]),
              **{m: {n: t.clone() for n, t in state["opt_state"][m].items()}
                 for m in ("mu", "nu")}}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1508,7 +1623,7 @@ def phase_train():
         _, loss_a = trainer.train_step(state, images8, labels8)
         state = trainer.restore(state, name="smoke")
     _require(state["step"] == TRAIN_STEPS
-             and state["opt_state"]["count"] == saved["count"],
+             and int(state["opt_state"]["count"]) == saved["count"],
              f"step {state['step']}, count {state['opt_state']['count']}")
     restored = {"params": state["params"].state_dict(),
                 "mu": state["opt_state"]["mu"], "nu": state["opt_state"]["nu"]}
@@ -1651,11 +1766,20 @@ def phase_train_highres():
     launches = _counts()
     blocks = config.encoder_blocks
     # Per step: each block's forward with dropout and lse, again in the
-    # remat recompute, and the backward with the replay; the eval: one
-    # forward without lse or dropout per block.
+    # remat recompute, and the backward with the replay; each pyramid
+    # layer's dropout in the forward and the backward, and in the
+    # recompute all but the block's last (the non-reentrant checkpoint
+    # stops recomputing once it has every tensor the backward saved, and
+    # the last dropout's output feeds only the residual add); each head
+    # MLP layer's in the forward and the backward; the eval: one forward
+    # without lse or dropout per block.
+    layers = config.encoder_mlp_layers
+    head_layers = len(config.head_units) * config.head_block_repeats
     want = dict({name: 0 for name in launches},
                 flash=blocks, flash_drop=2 * blocks * HIGHRES_STEPS,
-                flash_bwd_drop=blocks * HIGHRES_STEPS)
+                flash_bwd_drop=blocks * HIGHRES_STEPS,
+                mlp_drop=(blocks * (3 * layers - 1) + 2 * head_layers)
+                * HIGHRES_STEPS)
     _require(launches == want, f"fit launched {launches}, expected {want}")
     losses = trainer.loss_record
     _require(len(losses) == HIGHRES_STEPS and all(np.isfinite(losses)),
@@ -1726,6 +1850,367 @@ def phase_train_highres():
                      "loss": shipped_loss.item(),
                      "launches": shipped_launches})
     return launches
+
+
+WINDOW_EPOCHS = 12       # train_window (a): epochs of each of the two fits
+WINDOW_CALL = 4          # epochs_per_call of the graph loop
+BF16_STEP_TOL = 2 ** -7  # one bf16 rounding: a step's loss, across paths
+
+
+def _graph_kernel_nodes(graphs, tag: str) -> dict:
+    """Kernel nodes of each captured train-step graph (debug mode), read
+    from its DOT dump: {graph: {fwd, fwd_drop, bwd, bwd_drop, mlp_drop,
+    kernels, replays}}, the flash kernels by symbol (template flag
+    ``Lb1E``: the dropout instance), the MLP/head dropout kernel's,
+    ``kernels`` every kernel node and ``replays`` the graph's replays so
+    far."""
+    node = re.compile(r'^"(graph_\d+_node_\d+)"\[', re.M)
+    symbol = re.compile(r"flash_(fwd|bwd)_kernelI\w*?L(?:b([01]))E")
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, step_graph in graphs.items():
+            name = f"{tag}_{'update' if key[-1] else 'micro'}"
+            path = os.path.join(tmp, name + ".dot")
+            step_graph.graph.debug_dump(path)
+            with open(path) as f:
+                text = f.read()
+            starts = [m.start() for m in node.finditer(text)] + [len(text)]
+            counts = dict.fromkeys(("fwd", "fwd_drop", "bwd", "bwd_drop",
+                                    "mlp_drop", "kernels"), 0)
+            for begin, end in zip(starts, starts[1:]):
+                block = text[begin:end]
+                if "{KERNEL" not in block:
+                    continue
+                counts["kernels"] += 1
+                counts["mlp_drop"] += "dropout_kernel" in block
+                match = symbol.search(block)
+                if match:
+                    kind = match.group(1)
+                    counts[kind + ("_drop" if match.group(2) == "1"
+                                   else "")] += 1
+            counts["replays"] = step_graph.replays
+            result[name] = counts
+    return result
+
+
+def _graph_launches(nodes: dict) -> dict:
+    """Launches of each kernel kind made by replaying the graphs: kernel
+    nodes times replays, summed over the graphs."""
+    kinds = ("fwd", "fwd_drop", "bwd", "bwd_drop", "mlp_drop")
+    return {kind: sum(n[kind] * n["replays"] for n in nodes.values())
+            for kind in kinds}
+
+
+def _median_step_ms(run, steps: int, per_call: int = 1) -> float:
+    """Median ms per train step over ``steps`` timed calls of ``run`` (each
+    ``per_call`` steps), each ended by a synchronize."""
+    import numpy as np
+    import torch
+
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - tic) * 1e3 / per_call)
+    return float(np.median(times))
+
+
+def phase_train_window():
+    """The windowed train loop, Trainer.fit(epochs_per_call > 1), whose
+    make_multi_step captures the train step as a CUDA graph and replays
+    it, against the per-epoch eager loop from the same seeded state:
+    (a) reference_608, fp32, batch 8: 12 epochs, windows of 4 with an eval
+    and checkpoint cadence (eval at 2, 5, 8, 11; checkpoints at 0, 3, 6, 9,
+    11) that cuts them, per-epoch losses within rtol 2e-5 (atol 1e-6), the
+    same AP records, the window cuts at the event epochs; (b) highres_1024,
+    bf16, dropout 0.1, remat None, batch 8, lr 1e-6, 8 steps: the graph's
+    seed rows equal the loop's draws, losses within 2^-7 per step taken,
+    beside a second eager run's distance from the first; (c) each
+    graph's flash kernel nodes, 8 + 8 per reference_608 step and 48 + 24
+    per highres_1024 step, and the launches they make (nodes x replays);
+    (d) accumulate_steps=2 at depth 2 (a micro and an update graph)
+    against the loop; (e) "alternate" remat at depth 2 with dropout
+    captures and matches the loop. Median ms per step of both loops."""
+    import numpy as np
+    import torch
+
+    from vision_transformer_detector_tpu_torch import (
+        LossConfig, TrainConfig, get_config, synthetic_batches)
+    from vision_transformer_detector_tpu_torch.models.vit_detector import (
+        seed_table_size)
+    from vision_transformer_detector_tpu_torch.train import (
+        trainer as trainer_module)
+    from vision_transformer_detector_tpu_torch.train.trainer import (
+        Trainer, draw_seed_row, make_multi_step)
+
+    loss_config = LossConfig()
+
+    def pair(config, train_config, data, epochs, per_call, ckpt=False,
+             eval_data=None, names=("loop", "graph")):
+        """Loop and graph runs (those of ``names``) from one seed; returns
+        their trainers and states, the graph trainer's multi-step built in
+        debug mode."""
+        runs = {}
+        for name, k in (("loop", 1), ("graph", per_call)):
+            if name not in names:
+                continue
+            tmp = tempfile.mkdtemp() if ckpt else None
+            trainer = Trainer(config, loss_config, train_config,
+                              checkpoint_dir=tmp, device="cuda")
+            if k > 1:
+                trainer.multi_step = make_multi_step(
+                    config, loss_config, trainer.optimizer,
+                    debug_graphs=True)
+            state = trainer.init_state()
+            _reset_counts()
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            state = trainer.fit(state, data, epochs=epochs,
+                                eval_data=eval_data, epochs_per_call=k)
+            torch.cuda.synchronize()
+            runs[name] = (trainer, state, time.perf_counter() - tic,
+                          _counts(), tmp)
+        return runs
+
+    # (a) reference_608 at full width.
+    config = get_config("reference_608")
+    train_config = TrainConfig(learning_rate=8e-5, seed=SEED,
+                               epochs_warm_up=2, skip_epochs=3)
+    data = list(synthetic_batches(config, 8, 1, seed=SEED + 2))
+    runs = pair(config, train_config, data, WINDOW_EPOCHS, WINDOW_CALL,
+                ckpt=True, eval_data=data)
+    (loop, loop_state, loop_s, loop_counts, loop_dir) = runs["loop"]
+    (graph, graph_state, graph_s, graph_counts, graph_dir) = runs["graph"]
+    events = [e for e in range(WINDOW_EPOCHS)
+              if graph._is_event_epoch(e, WINDOW_EPOCHS, True)]
+    cuts = [start + n - 1 for start, n in graph.window_record]
+    _require(set(events) <= set(cuts) and all(
+        n <= WINDOW_CALL for _, n in graph.window_record)
+        and sum(n for _, n in graph.window_record) == WINDOW_EPOCHS,
+        f"window cuts {graph.window_record} vs event epochs {events}")
+    loss_err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(
+        graph.loss_record, loop.loss_record))
+    _require(np.allclose(graph.loss_record, loop.loss_record, rtol=2e-5,
+                         atol=1e-6), f"per-epoch losses: graph "
+             f"{graph.loss_record} vs loop {loop.loss_record}")
+    _require(graph.ap_record == loop.ap_record
+             and len(graph.ap_record) == 4,
+             f"AP records: graph {graph.ap_record} vs loop {loop.ap_record}")
+    _require(graph_state["step"] == loop_state["step"] == WINDOW_EPOCHS
+             and int(graph_state["opt_state"]["count"]) == WINDOW_EPOCHS,
+             "step counts")
+    _require(sorted(os.listdir(graph_dir)) == sorted(os.listdir(loop_dir)),
+             f"checkpoints {os.listdir(graph_dir)} vs {os.listdir(loop_dir)}")
+    _require(graph_counts["flash_lse"] > 0 and graph_counts["flash_bwd"] > 0,
+             f"the graph run launched no flash kernel: {graph_counts}")
+    # The parameters after the fit, as the CPU test holds them (the eval
+    # records above are all 0.0 this early in training, so they alone
+    # would not tell two trajectories apart).
+    # The reading is the worst |graph - loop| / (atol + rtol |loop|) over
+    # all parameters: at most 1 is torch.allclose at that tolerance.
+    loop_params = loop_state["params"].state_dict()
+    param_ratio = max(((t - loop_params[n]).abs()
+                       / (1e-5 + 1e-4 * loop_params[n].abs())).max().item()
+                      for n, t in graph_state["params"].state_dict().items())
+    _require(param_ratio <= 1.0, "parameters after the fit differ: "
+             f"{param_ratio} x the rtol 1e-4, atol 1e-5 tolerance")
+    del loop_params
+    ref_nodes = _graph_kernel_nodes(graph.multi_step.graphs,
+                                    "reference_608")
+    _require(len(ref_nodes) == 1 and all(
+        n["fwd"] == n["bwd"] == config.encoder_blocks
+        and n["fwd_drop"] == n["bwd_drop"] == n["mlp_drop"] == 0
+        for n in ref_nodes.values()),
+        f"reference_608 graph flash nodes {ref_nodes}")
+    ref_launches = _graph_launches(ref_nodes)
+    _require(ref_launches["fwd"] == ref_launches["bwd"]
+             == config.encoder_blocks * WINDOW_EPOCHS,
+             f"reference_608 graph launches {ref_launches}")
+    images, labels = (t[None] for t in graph._put_batch(*data[0]))
+    ref_ms = {
+        "loop": _median_step_ms(lambda: loop.train_step(
+            loop_state, images[0], labels[0]), 10),
+        "graph": _median_step_ms(lambda: graph.multi_step(
+            graph_state, images, labels, 4), 5, per_call=4)}
+    window_a = {"losses": {"graph": graph.loss_record,
+                           "loop": loop.loss_record},
+                "loss_rel_err_max": loss_err,
+                "params_err_over_tolerance_max": param_ratio,
+                "ap": {"graph": graph.ap_record, "loop": loop.ap_record},
+                "window_cuts": graph.window_record, "event_epochs": events,
+                "fit_seconds": {"graph": graph_s, "loop": loop_s},
+                "graph_nodes": ref_nodes,
+                "launches_graph": {"flash_lse": ref_launches["fwd"],
+                                   "flash_bwd": ref_launches["bwd"]},
+                "launches_at_capture": graph_counts,
+                "launches_loop": loop_counts,
+                "step_ms_median": ref_ms}
+    for directory in (loop_dir, graph_dir):
+        shutil.rmtree(directory)
+    del runs, loop, graph, loop_state, graph_state, images, labels
+
+    # (b) highres_1024 with dropout, remat None, bf16, batch 8. lr 1e-6, a
+    # tenth of train_highres': dq's atomic adds make two runs' gradients
+    # differ in their last bits, and Adam's first updates (about lr times
+    # the gradient's sign) turn that into weight differences of the order
+    # of lr; at 1e-5 two eager runs drifted 0.016 apart after one update,
+    # over the 2^-7 x steps allowed. Step 0 runs on identical weights with
+    # one seed row through deterministic kernels, so its loss must be
+    # bit-equal: a graph that replays another seed row than the loop's
+    # draws other masks there. A planted fault shows that the comparison
+    # fails when the graph's seed buffer is not written before a replay.
+    config = get_config("highres_1024").replace(dropout=DROP_RATE,
+                                                remat_policy=None)
+    train_config = TrainConfig(learning_rate=1e-6, seed=SEED,
+                               skip_epochs=0)
+    data = list(synthetic_batches(config, 8, 1, seed=SEED + 1))
+
+    def compare(graph_losses, loop_losses):
+        """(b)'s loss comparison: (passed, relative error per step)."""
+        err = [abs(a - b) / abs(b) for a, b in zip(graph_losses,
+                                                   loop_losses)]
+        return (graph_losses[0] == loop_losses[0] and all(
+            e <= BF16_STEP_TOL * (i + 1) for i, e in enumerate(err)), err)
+
+    runs = pair(config, train_config, data, HIGHRES_STEPS, HIGHRES_STEPS)
+    (loop, loop_state, loop_s, loop_counts, _) = runs["loop"]
+    (graph, graph_state, graph_s, graph_counts, _) = runs["graph"]
+    chain = {"dropout_rng": torch.Generator().manual_seed(
+        train_config.seed + 1)}
+    want_rows = np.stack([draw_seed_row(chain, config)
+                          for _ in range(HIGHRES_STEPS)])
+    rows = graph.multi_step.seed_rows
+    _require(rows is not None and rows.shape == (
+        HIGHRES_STEPS, seed_table_size(config))
+        and np.array_equal(rows, want_rows),
+        "the graph's seed rows are not the loop's draws")
+    # What the graph read last: its static seed buffer holds the last
+    # step's row.
+    (step_graph,) = graph.multi_step.graphs.values()
+    buffer_row = step_graph.seeds.to(torch.int64).cpu().numpy()
+    _require(np.array_equal(buffer_row, want_rows[-1]),
+             "the graph's seed buffer does not hold the last step's row")
+    _require(loop_counts["flash_drop"] == 2 * config.encoder_blocks
+             * HIGHRES_STEPS, f"loop launches {loop_counts}")
+    passed, highres_err = compare(graph.loss_record, loop.loss_record)
+    _require(passed, f"highres losses: graph {graph.loss_record} vs loop "
+             f"{loop.loss_record}")
+    # Two eager runs differ too (dq's atomic adds, amplified by the
+    # steps): the second loop's distance to the first, beside the graph's.
+    again = pair(config, train_config, data, HIGHRES_STEPS, 1,
+                 names=("loop",))["loop"][0]
+    loop_noise = compare(again.loss_record, loop.loss_record)[1]
+    del again
+    hi_nodes = _graph_kernel_nodes(graph.multi_step.graphs, "highres_1024")
+    blocks = config.encoder_blocks
+    mlp_per_step = loop_counts["mlp_drop"] // HIGHRES_STEPS
+    _require(len(hi_nodes) == 1 and all(
+        n["fwd_drop"] == 2 * blocks and n["bwd_drop"] == blocks
+        and n["fwd"] == n["bwd"] == 0 and n["mlp_drop"] == mlp_per_step > 0
+        for n in hi_nodes.values()),
+        f"highres_1024 graph dropout nodes {hi_nodes} (the loop's MLP "
+        f"dropout launches per step: {mlp_per_step})")
+    hi_launches = _graph_launches(hi_nodes)
+    _require(hi_launches["fwd_drop"] == 2 * blocks * HIGHRES_STEPS
+             and hi_launches["bwd_drop"] == blocks * HIGHRES_STEPS
+             and hi_launches["mlp_drop"] == loop_counts["mlp_drop"],
+             f"highres_1024 graph launches {hi_launches}")
+    images, labels = (t[None] for t in graph._put_batch(*data[0]))
+    hi_ms = {
+        "loop": _median_step_ms(lambda: loop.train_step(
+            loop_state, images[0], labels[0]), 5),
+        "graph": _median_step_ms(lambda: graph.multi_step(
+            graph_state, images, labels, 2), 3, per_call=2)}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    loop_losses = loop.loss_record
+    window_b = {"losses": {"graph": graph.loss_record, "loop": loop_losses},
+                "loss_rel_err": highres_err,
+                "loop_vs_loop_rel_err": loop_noise, "seed_rows_equal": True,
+                "seed_rows_shape": list(rows.shape),
+                "seed_buffer_is_last_row": True,
+                "fit_seconds": {"graph": graph_s, "loop": loop_s},
+                "graph_nodes": hi_nodes,
+                "launches_graph": {"flash_drop": hi_launches["fwd_drop"],
+                                   "flash_bwd_drop": hi_launches["bwd_drop"],
+                                   "mlp_drop": hi_launches["mlp_drop"]},
+                "launches_at_capture": graph_counts,
+                "launches_loop": loop_counts,
+                "step_ms_median": hi_ms, "peak_memory_gib": peak_gib}
+    del runs, loop, graph, loop_state, graph_state, images, labels
+    del step_graph
+
+    # The planted fault: replays that leave the seed buffer as captured
+    # (zeros), as a graph that baked its capture-time seed would run.
+    sound_replay = trainer_module._StepGraph.replay
+    trainer_module._StepGraph.replay = (
+        lambda self, images, labels, seeds, loss_out: sound_replay(
+            self, images, labels, self.seeds, loss_out))
+    try:
+        stale = pair(config, train_config, data, HIGHRES_STEPS,
+                     HIGHRES_STEPS, names=("graph",))["graph"][0]
+    finally:
+        trainer_module._StepGraph.replay = sound_replay
+    stale_passed, stale_err = compare(stale.loss_record, loop_losses)
+    _require(not stale_passed, "the loss comparison passed a graph whose "
+             f"seed buffer was never written: {stale.loss_record}")
+    window_b["planted_stale_seed_buffer"] = {
+        "losses": stale.loss_record, "loss_rel_err": stale_err,
+        "comparison_failed": True}
+    del stale
+
+    # (d) accumulate_steps=2 at depth 2 (reference_608 widths, fp32): 2
+    # batches an epoch, 4 epochs, 4 updates; a micro and an update graph.
+    config = get_config("reference_608").replace(encoder_blocks=2)
+    train_config = TrainConfig(learning_rate=8e-5, seed=SEED,
+                               skip_epochs=0, accumulate_steps=2)
+    data = list(synthetic_batches(config, 8, 2, seed=SEED + 3))
+    runs = pair(config, train_config, data, 4, 4)
+    (loop, loop_state, _, _, _) = runs["loop"]
+    (graph, graph_state, _, _, _) = runs["graph"]
+    _require(np.allclose(graph.loss_record, loop.loss_record, rtol=2e-5,
+                         atol=1e-6), f"accumulation losses: graph "
+             f"{graph.loss_record} vs loop {loop.loss_record}")
+    params_ok = all(torch.allclose(graph_state["params"].state_dict()[n], t,
+                                   rtol=1e-4, atol=1e-5)
+                    for n, t in loop_state["params"].state_dict().items())
+    _require(params_ok and int(graph_state["opt_state"]["count"]) == 4,
+             "accumulation: parameters or update count differ")
+    acc_nodes = _graph_kernel_nodes(graph.multi_step.graphs, "accumulate")
+    _require(sorted(acc_nodes) == ["accumulate_micro", "accumulate_update"],
+             f"accumulation graphs {acc_nodes}")
+    window_d = {"losses": {"graph": graph.loss_record,
+                           "loop": loop.loss_record},
+                "graph_nodes": acc_nodes, "updates": 4}
+    del runs, loop, graph, loop_state, graph_state
+
+    # (e) "alternate" remat (the shipped policy) with dropout, depth 2.
+    config = get_config("highres_1024").replace(dropout=DROP_RATE,
+                                                encoder_blocks=2)
+    train_config = TrainConfig(learning_rate=1e-5, seed=SEED,
+                               skip_epochs=0)
+    data = list(synthetic_batches(config, 8, 1, seed=SEED + 4))
+    runs = pair(config, train_config, data, 3, 3)
+    loop, graph = runs["loop"][0], runs["graph"][0]
+    alt_err = [abs(a - b) / abs(b) for a, b in zip(graph.loss_record,
+                                                   loop.loss_record)]
+    _require(all(e <= BF16_STEP_TOL * (i + 1) for i, e in enumerate(alt_err)),
+             f"alternate remat: graph {graph.loss_record} vs loop "
+             f"{loop.loss_record}")
+    alt_nodes = _graph_kernel_nodes(graph.multi_step.graphs, "alternate")
+    window_e = {"remat_policy": "alternate", "blocks": 2,
+                "losses": {"graph": graph.loss_record,
+                           "loop": loop.loss_record},
+                "graph_nodes": alt_nodes}
+    del runs, loop, graph
+    _report("train_window", reference_608=window_a, highres_1024=window_b,
+            accumulate=window_d, alternate=window_e)
+    return {"flash_lse": window_a["launches_graph"]["flash_lse"],
+            "flash_bwd": window_a["launches_graph"]["flash_bwd"],
+            "flash_drop": window_b["launches_graph"]["flash_drop"],
+            "flash_bwd_drop": window_b["launches_graph"]["flash_bwd_drop"],
+            "mlp_drop": window_b["launches_graph"]["mlp_drop"]}
 
 
 LIFECYCLE_IMAGES = 8     # seeded JPEGs of the lifecycle phase, one box each
@@ -1877,6 +2362,144 @@ def _compare_detections(got: list, want: list) -> dict:
              f"artifact vs live: score diff {score}, box diff {box} px")
     return {"bit_equal": exact, "max_score_diff": score,
             "max_box_diff_px": box}
+
+
+def phase_cli_tools():
+    """`vtd-torch benchmark` (inference on vit_b16_384 at batch 32, train on
+    reference_608 at batch 8), `doctor` (exit 0, device ok, every kernel
+    library built), `sweep --synthetic` over two learning rates on tiny_96,
+    `train --resumable` stopped after a checkpoint and resumed against an
+    uninterrupted run (the same step and input position), `train
+    --epochs-per-call`, and an async checkpoint of reference_608 written
+    while training goes on, bit-equal to the state at save time."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vision_transformer_detector_tpu_torch import (
+        LossConfig, TrainConfig, get_config, synthetic_batches)
+    from vision_transformer_detector_tpu_torch.cli import main as cli_main
+    from vision_transformer_detector_tpu_torch.train.trainer import Trainer
+
+    report = {}
+    _reset_counts()
+    report["benchmark_inference"] = _cli(
+        ["benchmark", "--preset", "vit_b16_384", "--batch-size", "32",
+         "--mode", "inference", "--iterations", "10"])
+    launches = _counts()
+    _require(report["benchmark_inference"]["device"] == "cuda"
+             and report["benchmark_inference"]["ms_per_step"] > 0
+             and launches["flash"] >= 12 * 11,
+             f"benchmark inference {report['benchmark_inference']}, "
+             f"launches {launches}")
+    _reset_counts()
+    report["benchmark_train"] = _cli(
+        ["benchmark", "--preset", "reference_608", "--batch-size", "8",
+         "--mode", "train", "--iterations", "5"])
+    launches = _counts()
+    _require(report["benchmark_train"]["device"] == "cuda"
+             and launches["flash_lse"] == launches["flash_bwd"] == 8 * 6,
+             f"benchmark train {report['benchmark_train']}, "
+             f"launches {launches}")
+    for line in (report["benchmark_inference"], report["benchmark_train"]):
+        print(json.dumps(line), flush=True)
+
+    doctor = _cli(["doctor", "--probe-timeout", "120"])
+    _require(doctor["device"]["ok"] and doctor["device"]["capability"]
+             == "sm_90" and all(lib["ok"] for lib in
+                                doctor["native"]["kernels"].values()),
+             f"doctor {doctor}")
+    report["doctor"] = doctor
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli_main(["sweep", "--preset", "tiny_96", "--batch-size", "2",
+                      "--synthetic", "--epochs", "2",
+                      "--sweep", "learning_rate=8e-5,4e-5",
+                      "--out-dir", os.path.join(tmp, "sweep")])
+        summary = json.loads(out.getvalue().strip().splitlines()[-1])
+        _require(summary["records"] == 2, f"sweep {summary}")
+        report["sweep"] = summary
+
+        data = _lifecycle_dataset(os.path.join(tmp, "data"))
+
+        def train(ckpt, *extra):
+            return _cli(["train", "--preset", "tiny_96", "--batch-size", "2",
+                         "--train-images", data["images"],
+                         "--train-annotations", data["annotations"],
+                         "--learning-rate", "1e-4", "--epochs-warm-up", "0",
+                         "--skip-epochs", "1", "--checkpoint-dir", ckpt,
+                         "--metrics", ckpt + ".jsonl", *extra])
+
+        whole = train(os.path.join(tmp, "whole"), "--resumable",
+                      "--epochs", "2")
+        part = os.path.join(tmp, "part")
+        train(part, "--resumable", "--epochs", "1")
+        stopped = _read_json(os.path.join(part, "ongoing.dataset.json"))
+        resumed = train(part, "--resumable", "--epochs", "1",
+                        "--restore", "ongoing")
+        positions = [_read_json(os.path.join(d, "ongoing.dataset.json"))
+                     for d in (os.path.join(tmp, "whole"), part)]
+        _require(resumed["step"] == whole["step"] == 8
+                 and positions[0] == positions[1],
+                 f"resumed {resumed} at {positions[1]} vs whole {whole} at "
+                 f"{positions[0]}")
+        report["resumable"] = {"whole": whole, "resumed": resumed,
+                               "stopped_at": stopped,
+                               "position": positions[0]}
+        window = train(os.path.join(tmp, "window"), "--epochs", "4",
+                       "--epochs-per-call", "2")
+        _require(window["step"] == 16 and np.isfinite(window["final_loss"]),
+                 f"train --epochs-per-call {window}")
+        report["epochs_per_call"] = window
+
+        # An async checkpoint of reference_608 at full width, written while
+        # two more steps change the parameters in place.
+        config = get_config("reference_608")
+        trainer = Trainer(config, LossConfig(), TrainConfig(
+            learning_rate=8e-5), checkpoint_dir=os.path.join(tmp, "async"),
+            async_checkpointing=True, device="cuda")
+        state = trainer.init_state()
+        images, labels = (torch.from_numpy(a).to("cuda") for a in next(
+            synthetic_batches(config, 8, 1, seed=SEED)))
+        trainer.train_step(state, images, labels)
+        snapshot = {
+            "params": {n: t.clone() for n, t in
+                       state["params"].state_dict().items()},
+            **{m: {n: t.clone() for n, t in state["opt_state"][m].items()}
+               for m in ("mu", "nu")}}
+        tic = time.perf_counter()
+        trainer.save(state, name="async")
+        save_s = time.perf_counter() - tic
+        for _ in range(2):
+            trainer.train_step(state, images, labels)
+        trainer.wait_for_checkpoints()
+        fresh = Trainer(config, LossConfig(), TrainConfig(
+            learning_rate=8e-5), checkpoint_dir=os.path.join(tmp, "async"),
+            device="cuda")
+        restored = fresh.restore(fresh.init_state(seed=SEED + 9), "async")
+        got = {"params": restored["params"].state_dict(),
+               "mu": restored["opt_state"]["mu"],
+               "nu": restored["opt_state"]["nu"]}
+        for part_name, tensors in snapshot.items():
+            _require(all(torch.equal(got[part_name][n], t)
+                         for n, t in tensors.items()),
+                     f"async checkpoint: {part_name} differ")
+        _require(restored["step"] == 1
+                 and int(restored["opt_state"]["count"]) == 1,
+                 "async checkpoint: step")
+        report["async_checkpoint"] = {"bit_equal": True,
+                                      "save_call_s": save_s,
+                                      "moved_on_steps": 2}
+        del trainer, fresh, state, restored, snapshot, got
+    _report("cli_tools", **report)
+
+
+def _read_json(path: str):
+    with open(path) as f:
+        return json.load(f)
 
 
 def phase_lifecycle():
@@ -2059,10 +2682,12 @@ PEAK_NAMES = {"bf16": "bf16 989 TFLOP/s", "int8": "int8 1979 TOP/s",
 
 def _entry(name, source, replaces, shape, launches, err, times, work):
     """One kernel of the kernels line; ``work`` is (operations, bytes,
-    kind) for its bound."""
+    kind) for its bound; ``replaces`` is a place in the JAX package's
+    kernels/ unless it names its directory."""
     bound = _bound(*work)
     return {"name": name, "route": "cuda", "source": CSRC + source,
-            "replaces": TPU_KERNELS + replaces, "shape": shape,
+            "replaces": (replaces if "/" in replaces
+                         else TPU_KERNELS + replaces), "shape": shape,
             "launches": launches, "max_abs_err": err,
             "ms": times["kernel_ms"], "plain_ms": times["plain_ms"],
             "library_ms": times.get("library_ms"),
@@ -2071,12 +2696,16 @@ def _entry(name, source, replaces, shape, launches, err, times, work):
 
 
 def _kernels_line(flash_err, flash_times, train_errors, train_times,
-                  drop_errors, drop_times, serve_errors, serve_times,
-                  launches, exported) -> dict:
+                  drop_errors, drop_times, mlp_errors, mlp_times,
+                  serve_errors, serve_times, launches, exported,
+                  graph) -> dict:
     """The kernels of every path, each with its launches on its main path,
     its error against its plain version, its times and its bound; B1, B3
     and B4 also with their launches per call of the exported program
-    (``launches_exported``)."""
+    (``launches_exported``), and the four flash kernels and the MLP
+    dropout kernel of the train step with their launches in the windowed
+    loop's CUDA-graph fits (``launches_graph``: kernel nodes of the graph
+    x replays)."""
     bh, n, k = 12, 576, 64                     # vit_b16_384, batch 1
     flash_bytes = 4 * bh * n * k * 2
     tbh, tn, tk = 64, 1296, 40                 # reference_608, batch 8
@@ -2084,37 +2713,58 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
     hbh, hn, hk = 2048, 256, 64                # highres_1024, batch 8
     hqkv = hbh * hn * hk * 2                   # one bf16 operand
     rows, d, wide = 576 * 32, 768, 1536        # vit_b16_384, batch 32
+    mlp_n = 1
+    for size in MLP_DROP_SHAPES[0]:            # highres_1024, batch 8
+        mlp_n *= size
     return {"kernels": [
         dict(_entry("flash_attention_fwd", "flash_attention_fwd.cu",
                     "flash_attention.py:64", [bh, n, k, "bfloat16"],
                     launches["flash"], flash_err, flash_times[1],
                     (4 * bh * n * n * k, flash_bytes, "bf16")),
              launches_exported=exported["flash"]),
-        _entry("flash_attention_fwd_lse", "flash_attention_fwd.cu",
-               "flash_attention.py:653", [tbh, tn, tk, "float32"],
-               launches["flash_lse"], train_errors["lse_abs"],
-               train_times["fwd_lse"],
-               (4 * tbh * tn * tn * tk, 4 * qkv + tbh * tn * 4, "3xtf32")),
-        _entry("flash_attention_bwd", "flash_attention_bwd.cu",
-               "flash_attention.py:151", [tbh, tn, tk, "float32"],
-               launches["flash_bwd"], train_errors["bwd_abs"],
-               train_times["bwd"],
-               (10 * tbh * tn * tn * tk, 7 * qkv + 2 * tbh * tn * 4,
-                "3xtf32")),
+        dict(_entry("flash_attention_fwd_lse", "flash_attention_fwd.cu",
+                    "flash_attention.py:653", [tbh, tn, tk, "float32"],
+                    launches["flash_lse"], train_errors["lse_abs"],
+                    train_times["fwd_lse"],
+                    (4 * tbh * tn * tn * tk, 4 * qkv + tbh * tn * 4,
+                     "3xtf32")),
+             launches_graph=graph["flash_lse"]),
+        dict(_entry("flash_attention_bwd", "flash_attention_bwd.cu",
+                    "flash_attention.py:151", [tbh, tn, tk, "float32"],
+                    launches["flash_bwd"], train_errors["bwd_abs"],
+                    train_times["bwd"],
+                    (10 * tbh * tn * tn * tk, 7 * qkv + 2 * tbh * tn * 4,
+                     "3xtf32")),
+             launches_graph=graph["flash_bwd"]),
         # q, k, v read, out written (bf16), lse written (fp32).
-        _entry("flash_attention_fwd_drop", "flash_attention_fwd.cu",
-               "flash_attention.py:679", [hbh, hn, hk, "bfloat16", DROP_RATE],
-               launches["flash_drop"], drop_errors["out_abs"],
-               drop_times["fwd_drop"],
-               (4 * hbh * hn * hn * hk, 4 * hqkv + hbh * hn * 4, "bf16")),
+        dict(_entry("flash_attention_fwd_drop", "flash_attention_fwd.cu",
+                    "flash_attention.py:679",
+                    [hbh, hn, hk, "bfloat16", DROP_RATE],
+                    launches["flash_drop"], drop_errors["out_abs"],
+                    drop_times["fwd_drop"],
+                    (4 * hbh * hn * hn * hk, 4 * hqkv + hbh * hn * 4,
+                     "bf16")),
+             launches_graph=graph["flash_drop"]),
         # q, k, v, g read and dk, dv written (bf16), lse and delta read and
         # dq written (fp32).
-        _entry("flash_attention_bwd_drop", "flash_attention_bwd.cu",
-               "flash_attention.py:151", [hbh, hn, hk, "bfloat16", DROP_RATE],
-               launches["flash_bwd_drop"], drop_errors["bwd_abs"],
-               drop_times["bwd_drop"],
-               (10 * hbh * hn * hn * hk,
-                6 * hqkv + 2 * hqkv + 2 * hbh * hn * 4, "bf16")),
+        dict(_entry("flash_attention_bwd_drop", "flash_attention_bwd.cu",
+                    "flash_attention.py:151",
+                    [hbh, hn, hk, "bfloat16", DROP_RATE],
+                    launches["flash_bwd_drop"], drop_errors["bwd_abs"],
+                    drop_times["bwd_drop"],
+                    (10 * hbh * hn * hn * hk,
+                     6 * hqkv + 2 * hqkv + 2 * hbh * hn * 4, "bf16")),
+             launches_graph=graph["flash_bwd_drop"]),
+        # x read and out written (bf16), the seed read; about 12 integer
+        # operations of the hash per element, counted at the fp32 rate.
+        dict(_entry("dropout", "dropout.cu",
+                    "vision_transformer_detector_tpu/models/"
+                    "vit_detector.py:317",
+                    [*MLP_DROP_SHAPES[0], "bfloat16", DROP_RATE],
+                    launches["mlp_drop"],
+                    max(e["max_abs_err"] for e in mlp_errors.values()),
+                    mlp_times, (12 * mlp_n, 4 * mlp_n + 4, "fp32")),
+             launches_graph=graph["mlp_drop"]),
         dict(_entry("int8_dense", "int8_dense.cu", "quantization.py:159",
                     [rows, d, wide, "bfloat16", "mish"],
                     launches["int8_fused"], serve_errors["int8_dense"],
@@ -2190,6 +2840,7 @@ def main() -> int:
     flash_err, flash_times = phase_kernel()
     train_errors, train_times = phase_kernel_train()
     drop_errors, drop_times = phase_kernel_drop()
+    mlp_errors, mlp_times = phase_kernel_mlp_drop()
     serve_errors, serve_times = phase_kernel_serve()
     phase_model()
     phase_model_serve()
@@ -2198,6 +2849,8 @@ def main() -> int:
     ffn_launches, _ = phase_serve_fused_ffn()
     train_launches = phase_train()
     highres_launches = phase_train_highres()
+    window_launches = phase_train_window()
+    phase_cli_tools()
     exported_launches = phase_lifecycle()
     foreign = sorted(name for name in sys.modules
                      if name == "jax" or name.startswith("jax.")
@@ -2219,13 +2872,15 @@ def main() -> int:
                 "int8_dense": int8_launches["int8_dense"],
                 "layer_norm": int8_launches["layer_norm"],
                 "dense_mish": ffn_launches["dense_mish"],
+                "mlp_drop": highres_launches["mlp_drop"],
                 "int8_fused_tc": int8_launches["int8_fused_tc"],
                 "int8_dense_tc": int8_launches["int8_dense_tc"],
                 "dense_mish_tc": ffn_launches["dense_mish_tc"]}
     print(json.dumps(_kernels_line(flash_err, flash_times, train_errors,
                                    train_times, drop_errors, drop_times,
-                                   serve_errors, serve_times, launches,
-                                   exported_launches)),
+                                   mlp_errors, mlp_times, serve_errors,
+                                   serve_times, launches, exported_launches,
+                                   window_launches)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

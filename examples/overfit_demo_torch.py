@@ -8,10 +8,14 @@ port's Trainer. Prints one JSON line with the AP and loss at each eval,
 the wall time, and the card's name and power limit.
 
 Usage: python examples/overfit_demo_torch.py [--epochs 3001] [--seed 0]
-       [--no-train-flash] [--metrics overfit_torch_metrics.jsonl]
+       [--epochs-per-call 100] [--no-train-flash]
+       [--metrics overfit_torch_metrics.jsonl]
 
 ``--no-train-flash`` trains on the plain matmul attention route instead
 of the kernels, to tell the kernels' numerics from the rest of the port.
+``--epochs-per-call K`` trains through the windowed loop (the train
+step as a CUDA graph, replayed up to K epochs per call, windows cut at
+the evals).
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ def main() -> None:
                         help="train on the plain attention route")
     parser.add_argument("--metrics", default="overfit_torch_metrics.jsonl")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--epochs-per-call", type=int, default=1,
+                        help="epochs per call of the windowed loop")
     args = parser.parse_args()
 
     import torch
@@ -61,7 +67,8 @@ def main() -> None:
     data = [synthetic_coco_batch(config, 8)]
 
     tic = time.time()
-    state = trainer.fit(state, data, epochs=args.epochs, eval_data=data)
+    state = trainer.fit(state, data, epochs=args.epochs, eval_data=data,
+                        epochs_per_call=args.epochs_per_call)
     seconds = time.time() - tic
     trainer.metrics.close()
 
@@ -81,6 +88,7 @@ def main() -> None:
         "epochs": args.epochs,
         "seed": args.seed,
         "train_flash": config.train_use_flash_attention,
+        "epochs_per_call": args.epochs_per_call,
         "seconds": seconds,
         "epochs_per_second": args.epochs / seconds,
         "card": card,

@@ -86,8 +86,7 @@ def test_train_with_fused_ffn(dataset, tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--resumable"], ["--distributed"],
-    ["--data-parallel", "2"], ["--epochs-per-call", "4"],
+    ["--distributed"], ["--data-parallel", "2"],
     ["--flash-attention", "--no-flash-attention"],
 ])
 def test_train_refuses_unported_flags(dataset, tmp_path, flag):
@@ -280,3 +279,155 @@ def test_export_then_serve_from_export(bridged_npz, tmp_path, capsys,
     # The artifact holds the CPU route and refuses another device type.
     with pytest.raises(ValueError, match="exported on cpu"):
         main(["serve", "--from-export", artifact, "--device", "cuda"])
+
+
+# ---------------------------------------------------------------------------
+# train --resumable / --epochs-per-call, sweep, benchmark, doctor (the twins
+# of tests/test_cli.py's tests of these subcommands)
+
+
+def test_train_resumable_resumes_the_stream(dataset, tmp_path, capsys):
+    """--resumable: the input position is saved beside every checkpoint,
+    and --restore picks the stream up where it stopped: a run stopped
+    after epoch 1 and resumed for 1 more ends at the step and position of
+    a 2-epoch run."""
+    base = _args(dataset, tmp_path, "--resumable")
+    main([*base, "--epochs", "2", "--checkpoint-dir",
+          str(tmp_path / "whole")])
+    whole = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    main([*base, "--epochs", "1"])
+    capsys.readouterr()
+    ckpt = tmp_path / "ckpt"
+    saved = json.loads((ckpt / "ongoing.dataset.json").read_text())
+    assert saved == {"epoch": 0, "batch": 2, "seed": 0}
+    main([*base, "--epochs", "1", "--restore", "ongoing"])
+    resumed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert resumed["step"] == whole["step"] == 4
+    assert json.loads((ckpt / "ongoing.dataset.json").read_text()) == \
+        json.loads((tmp_path / "whole" / "ongoing.dataset.json").read_text())
+    assert np.isfinite(resumed["final_loss"])
+
+
+def test_train_epochs_per_call(dataset, tmp_path, capsys, monkeypatch):
+    """--epochs-per-call K: one metrics record per epoch and the eval
+    cadence intact (eval at warm-up 1, then every 2: epochs 1 and 3)
+    through windows of 3; stream-changing flags are refused, and so is a
+    dataset larger than the stacked-data limit."""
+    metrics = tmp_path / "window.jsonl"
+    args = _args(dataset, tmp_path, "--epochs", "5", "--epochs-per-call",
+                 "3", "--epochs-warm-up", "1", "--skip-epochs", "2")
+    args[args.index(str(tmp_path / "metrics.jsonl"))] = str(metrics)
+    main(args)
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert np.isfinite(result["final_loss"]) and result["step"] == 10
+    assert 0.0 <= result["best_ap"] <= 1.0
+    records = [json.loads(line) for line in metrics.read_text().splitlines()]
+    assert [r["epoch"] for r in records] == list(range(5))
+    assert [r["epoch"] for r in records if "ap" in r] == [1, 3]
+    for bad in ("--shuffle", "--resumable"):
+        with pytest.raises(SystemExit, match="incompatible"):
+            main(_args(dataset, tmp_path, "--epochs", "2",
+                       "--epochs-per-call", "2", bad))
+    from vision_transformer_detector_tpu_torch import cli
+
+    monkeypatch.setattr(cli, "STACKED_DATA_LIMIT", 1 << 10)
+    with pytest.raises(SystemExit, match="stacking 2 batches"):
+        main(_args(dataset, tmp_path, "--epochs", "2",
+                   "--epochs-per-call", "2"))
+
+
+def test_sweep_synthetic_two_learning_rates(tmp_path, capsys):
+    out_dir = tmp_path / "sweep"
+    main(["sweep", "--preset", "tiny_96", "--batch-size", "2",
+          "--synthetic", "--epochs", "2", "--device", "cpu",
+          "--sweep", "learning_rate=8e-5,4e-5", "--out-dir", str(out_dir)])
+    out = capsys.readouterr().out.strip().splitlines()
+    summary = json.loads(out[-1])
+    assert summary["records"] == 2 and 0.0 <= summary["best_AP"] <= 1.0
+    assert "learning_rate" in out[0] and "lowest_loss" in out[0]
+    records = [json.loads(line) for line in
+               (out_dir / "records.jsonl").read_text().splitlines()]
+    assert [r["learning_rate"] for r in records] == [8e-5, 4e-5]
+    assert all(np.isfinite(r["final_loss"]) for r in records)
+    assert all(os.path.exists(r["metrics_path"]) for r in records)
+
+
+def test_sweep_batch_size_reaches_the_datasets(dataset, tmp_path, capsys):
+    """A swept batch_size builds the datasets (4 images: 2 steps an epoch
+    at 2, 1 at 4), and a swept epochs axis is not overridden."""
+    out_dir = tmp_path / "sweep_bs"
+    main(["sweep", "--preset", "tiny_96", "--device", "cpu",
+          "--train-images", dataset["images"],
+          "--train-annotations", dataset["annotations"],
+          "--sweep", "batch_size=2,4", "--sweep", "epochs=1",
+          "--out-dir", str(out_dir)])
+    assert json.loads(
+        capsys.readouterr().out.strip().splitlines()[-1])["records"] == 2
+    records = [json.loads(line) for line in
+               (out_dir / "records.jsonl").read_text().splitlines()]
+    assert [r["batch_size"] for r in records] == [2, 4]
+    assert all("plot_path" in r for r in records)
+    lengths = [len((out_dir / f"run_{i:03d}" / "metrics.jsonl")
+                   .read_text().splitlines()) for i in range(2)]
+    assert lengths == [1, 1]
+
+
+def test_sweep_refusals():
+    with pytest.raises(SystemExit, match="--synthetic"):
+        main(["sweep", "--preset", "tiny_96", "--device", "cpu",
+              "--sweep", "learning_rate=1e-4"])
+    with pytest.raises(SystemExit, match="PARAM=V1"):
+        main(["sweep", "--preset", "tiny_96", "--device", "cpu",
+              "--synthetic", "--sweep", "learning_rate"])
+    with pytest.raises(SystemExit, match="not ported"):
+        main(["sweep", "--preset", "tiny_96", "--device", "cpu",
+              "--synthetic", "--sweep", "learning_rate=1e-4",
+              "--data-parallel", "2"])
+
+
+@pytest.mark.parametrize("mode", ["inference", "train"])
+def test_benchmark(mode, capsys):
+    main(["benchmark", "--preset", "tiny_96", "--batch-size", "2",
+          "--device", "cpu", "--iterations", "2", "--mode", mode])
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(result) == {"preset", "mode", "device", "image_size",
+                           "batch", "compute_dtype", "iterations",
+                           "ms_per_step", "img_per_s"}
+    assert result["mode"] == mode and result["device"] == "cpu"
+    assert result["batch"] == 2 and result["image_size"] == [96, 96]
+    assert result["ms_per_step"] > 0 and result["img_per_s"] > 0
+
+
+@pytest.mark.parametrize("flags", [["--iterations", "0"],
+                                   ["--iterations", "-3"],
+                                   ["--data-parallel", "2"],
+                                   ["--model-parallel", "2"]])
+def test_benchmark_refusals(flags):
+    with pytest.raises(SystemExit):
+        main(["benchmark", "--preset", "tiny_96", "--device", "cpu",
+              *flags])
+
+
+def test_doctor_without_a_card_exits_1(capsys):
+    """doctor: no card here, so the device probe fails, the exit code is 1
+    and the report still lists nvcc and every kernel library."""
+    with pytest.raises(SystemExit) as exc:
+        main(["doctor", "--probe-timeout", "120"])
+    assert exc.value.code == 1
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["device"]["ok"] is False
+    assert {"coco_json", "pipeline", "coco_eval", "nvcc",
+            "kernels"} == set(report["native"])
+    assert set(report["native"]["kernels"]) == {
+        "flash_attention_fwd.cu", "flash_attention_bwd.cu",
+        "layer_norm.cu", "dense_mish.cu", "int8_dense.cu", "dropout.cu"}
+    assert not any(report["native"][k] for k in ("coco_json", "pipeline",
+                                                  "coco_eval"))
+
+
+def test_doctor_reports_a_hung_probe(capsys):
+    with pytest.raises(SystemExit):
+        main(["doctor", "--probe-timeout", "0.05"])
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["device"] == {
+        "ok": False, "error": "the device did not answer within 0.05s"}

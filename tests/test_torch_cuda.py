@@ -20,7 +20,8 @@ import torch
 from vision_transformer_detector_tpu_torch import (
     DetectorConfig, LossConfig, synthetic_batches)
 from vision_transformer_detector_tpu_torch.kernels import (
-    flash_attention as fa, fused_ffn, fused_ln, quantization as qz)
+    dropout as dropout_kernel, flash_attention as fa, fused_ffn, fused_ln,
+    quantization as qz)
 from vision_transformer_detector_tpu_torch.metrics import (
     DeviceMeanAveragePrecision, MeanAveragePrecision)
 from vision_transformer_detector_tpu_torch.models import vit_detector as model
@@ -290,6 +291,12 @@ def test_train_grads_on_card_match_cpu(gen):
 DROP = (2 ** 32 - 5, 0.1)   # (seed near 2^32, rate)
 
 
+def _kernel_drop():
+    """DROP in the kernels' form: the seed as a one-element uint32 tensor
+    on the card."""
+    return fa.seed_tensor(DROP[0], "cuda"), DROP[1]
+
+
 # The tile edges with dropout, except N = 1 in bf16: there dq and dk are
 # zero in exact arithmetic, but delta = rowsum(g * out) is taken from the
 # bf16-rounded output (as the JAX package's kernel takes it), whose
@@ -324,7 +331,8 @@ def test_dropout_kernels_match_plain(gen, layout, shape, dtype):
                                atol=1e-4, rtol=0)
     delta = fa._heads_major((g.float() * out.float()).sum(-1),
                             layout).contiguous()
-    grads = fa._launch_backward(q, k, v, g, lse, delta, layout, DROP)
+    grads = fa._launch_backward(q, k, v, g, lse, delta, layout,
+                                _kernel_drop())
     torch.cuda.synchronize()
     assert (fa.flash_attention.drop_launches,
             fa.flash_attention.backward_drop_launches) == (
@@ -378,7 +386,8 @@ def test_dropout_backward_at_one_key_matches_plain_given_delta(gen, layout,
         GRAD_TOLS[dtype]
     delta = fa._heads_major((g.float() * out.float()).sum(-1),
                             layout).contiguous()
-    grads = fa._launch_backward(q, k, v, g, lse, delta, layout, DROP)
+    grads = fa._launch_backward(q, k, v, g, lse, delta, layout,
+                                _kernel_drop())
     plain = _plain_backward_given_delta(q, k, v, g, delta, layout, DROP)
     for got, ref in zip(grads, plain):
         assert got.shape == ref.shape and got.dtype == ref.dtype
@@ -823,25 +832,31 @@ def _op_samples(gen):
     no_rerun = every[:3]
     ops = torch.ops.vtd_torch
     samples = []
+    # The dropout seed is a one-element uint32 tensor on the card, which
+    # the kernels read.
+    seed = fa.seed_tensor(12345, "cuda")
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, g = (rnd(1, 2, 65, 64, dtype=dtype) for _ in range(4))
         samples += [
-            (ops.flash_attention_fwd, (q, k, v, "bhnk", False, 0, 0.0),
+            (ops.flash_attention_fwd, (q, k, v, "bhnk", False, None, 0.0),
              every),
-            (ops.flash_attention_fwd, (q, k, v, "bhnk", True, 0, 0.0),
+            (ops.flash_attention_fwd, (q, k, v, "bhnk", True, None, 0.0),
              every),
-            (ops.flash_attention_fwd, (q, k, v, "bhnk", True, 12345, 0.1),
+            (ops.flash_attention_fwd, (q, k, v, "bhnk", True, seed, 0.1),
              every)]
         out, lse = fa._launch_forward(q, k, v, "bhnk", with_lse=True)
         delta = (g.float() * out.float()).sum(-1).contiguous()
         samples += [
-            (ops.flash_attention_bwd, (q, k, v, g, lse, delta, "bhnk", 0,
+            (ops.flash_attention_bwd, (q, k, v, g, lse, delta, "bhnk", None,
                                        0.0), no_rerun),
+            (ops.flash_attention_bwd, (q, k, v, g, lse, delta, "bhnk", seed,
+                                       0.1), no_rerun),
             (ops.layer_norm, (rnd(40, 256, dtype=dtype), rnd(256),
                               rnd(256), 1e-3), every),
             (ops.dense_mish, (rnd(70, 64, dtype=dtype),
                               rnd(64, 72, dtype=dtype), rnd(72, dtype=dtype),
-                              True, 0), every)]
+                              True, 0), every),
+            (ops.dropout, (rnd(70, 72, dtype=dtype), seed, 0.1), every)]
     layer = _quant_test_layer(gen)
     x = rnd(70, 64, dtype=torch.bfloat16)
     for op in (ops.fused_int8_dense, ops.int8_dense):
@@ -866,7 +881,8 @@ def test_custom_operators_pass_opcheck(gen):
     assert {op._qualified_op_name for op, _, _ in samples} == {
         "vtd_torch::flash_attention_fwd", "vtd_torch::flash_attention_bwd",
         "vtd_torch::layer_norm", "vtd_torch::dense_mish",
-        "vtd_torch::fused_int8_dense", "vtd_torch::int8_dense"}
+        "vtd_torch::fused_int8_dense", "vtd_torch::int8_dense",
+        "vtd_torch::dropout"}
     for op, args, utils in samples:
         torch.library.opcheck(op, args, test_utils=utils)
 
@@ -918,3 +934,137 @@ def test_cuda_export_calls_the_kernels_as_custom_operators(gen, tmp_path):
     torch.testing.assert_close(got, want, rtol=2 ** -7, atol=2 ** -7)
     with pytest.raises(ValueError, match="exported on cuda"):
         export.load_exported(path, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# The train step as a CUDA graph (train/trainer.py:make_multi_step)
+
+def _graph_pair(config, train_config, steps, data_seed=0):
+    """Per-step losses and final states of the eager loop and the graph
+    loop from one seed, on the card."""
+    from vision_transformer_detector_tpu_torch.train.trainer import Trainer
+
+    data = list(synthetic_batches(config, 2, 1, seed=data_seed))
+    out = {}
+    for name, per_call in (("loop", 1), ("graph", steps)):
+        trainer = Trainer(config, LossConfig(), train_config, device="cuda")
+        state = trainer.fit(trainer.init_state(), data, epochs=steps,
+                            epochs_per_call=per_call)
+        out[name] = (trainer, state)
+    return out
+
+
+@pytest.mark.parametrize("policy", [None, "dots", "alternate"])
+def test_graph_loop_matches_the_loop_with_dropout(gen, policy):
+    """The captured step replays each step with that step's seed row (the
+    kernels read it from device memory, the MLP masks hash it): fp32
+    losses equal the loop's to dq's atomic-add noise, under every remat
+    policy."""
+    from vision_transformer_detector_tpu_torch import TrainConfig
+
+    config = _windowed_config(dropout=0.1, remat_policy=policy)
+    runs = _graph_pair(config, TrainConfig(learning_rate=1e-4,
+                                           skip_epochs=0), 4)
+    loop, graph = runs["loop"][0], runs["graph"][0]
+    np.testing.assert_allclose(graph.loss_record, loop.loss_record,
+                               rtol=2e-5, atol=1e-6)
+    assert len(set(loop.loss_record)) == 4     # the masks change per step
+    assert len(graph.multi_step.graphs) == 1
+    for name, value in runs["loop"][1]["params"].state_dict().items():
+        torch.testing.assert_close(
+            runs["graph"][1]["params"].state_dict()[name], value,
+            rtol=1e-4, atol=1e-5)
+
+
+def test_graph_loop_with_accumulation_and_bf16_moments(gen):
+    """accumulate_steps=2 replays a micro-step and an update-step graph;
+    bf16 moments (stochastic nu rounding keyed on the device count)."""
+    from vision_transformer_detector_tpu_torch import TrainConfig
+
+    config = _windowed_config()
+    train_config = TrainConfig(learning_rate=1e-4, skip_epochs=0,
+                               accumulate_steps=2, adam_mu_dtype="bfloat16",
+                               adam_nu_dtype="bfloat16")
+    runs = _graph_pair(config, train_config, 4)
+    loop, graph = runs["loop"][0], runs["graph"][0]
+    np.testing.assert_allclose(graph.loss_record, loop.loss_record,
+                               rtol=2e-5, atol=1e-6)
+    assert sorted(key[-1] for key in graph.multi_step.graphs) == [False,
+                                                                   True]
+    assert int(runs["graph"][1]["opt_state"]["count"]) == 2
+
+
+@pytest.mark.parametrize("shape, dtype, offset", [
+    ((2, 96, 2048), torch.bfloat16, 0),   # 16-byte chunks
+    ((2, 96, 1024), torch.float32, 0),
+    ((3, 77, 517), torch.bfloat16, 0),    # ragged row: one at a time
+    ((5, 130), torch.float32, 1),         # misaligned view: one at a time
+    ((1, 1), torch.bfloat16, 0),
+])
+def test_dropout_kernel_matches_plain(gen, shape, dtype, offset):
+    """csrc/dropout.cu against dropout_reference on the card, bit for bit,
+    forward and backward (the same mask applied to the cotangent), one
+    launch each, from a seed in device memory."""
+    n = int(np.prod(shape))
+    x = torch.randn(n + offset, device="cuda", generator=gen).to(dtype)
+    x = x[offset:].reshape(shape).requires_grad_()
+    g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    seed = fa.seed_tensor(2 ** 32 - 9, "cuda")
+    before = dropout_kernel.dropout.launches
+    out = dropout_kernel.dropout(x, seed, 0.1)
+    (grad,) = torch.autograd.grad(out, x, g)
+    torch.cuda.synchronize()
+    assert dropout_kernel.dropout.launches == before + 2
+    want = dropout_kernel.dropout_reference(x, seed, 0.1)
+    (want_grad,) = torch.autograd.grad(want, x, g)
+    assert out.dtype == dtype and torch.equal(out, want)
+    assert torch.equal(grad, want_grad)
+
+
+def test_dropout_kernel_reads_its_seed_at_replay(gen):
+    """Captured once in a CUDA graph, the kernel draws each replay's mask
+    from the seed written into its buffer before the replay."""
+    x = torch.randn(64, 256, device="cuda", generator=gen)
+    seed = torch.zeros(1, dtype=torch.uint32, device="cuda")
+    dropout_kernel.dropout(x, seed, 0.25)   # builds the library first
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dropout_kernel.dropout(x, seed, 0.25)
+    for value in (7, 2 ** 32 - 1):
+        seed.copy_(fa.seed_tensor(value, "cuda"))
+        graph.replay()
+        assert torch.equal(
+            out, dropout_kernel.dropout_reference(x, value, 0.25))
+
+
+def test_mlp_dropout_mask_on_card_equals_cpu(gen):
+    """The MLP/head dropout mask is the same counter hash on both devices,
+    bit for bit, from a seed in device memory."""
+    shape = (3, 129, 517)
+    seed = fa.seed_tensor(2 ** 32 - 7, "cuda")
+    card = dropout_kernel.dropout_mask(seed, shape, 0.1, "cuda")
+    cpu = dropout_kernel.dropout_mask(2 ** 32 - 7, shape, 0.1, "cpu")
+    assert torch.equal(card.cpu(), cpu)
+    assert abs(cpu.float().mean().item() - 0.9) < 0.005
+
+
+def test_failed_capture_raises_and_does_not_fall_back(gen):
+    """A step that reads a value back to the host cannot be captured: the
+    trainer raises with the reason instead of running eagerly."""
+    from vision_transformer_detector_tpu_torch.train import trainer as tr
+
+    state = {"params": model.init_params(_windowed_config(),
+                                         torch.Generator().manual_seed(0),
+                                         "cuda"),
+             "opt_state": {"order": [], "mu": {}, "nu": {},
+                           "count": torch.zeros((), dtype=torch.int64,
+                                                device="cuda")},
+             "step": 0}
+
+    def host_read(state, images, labels, seeds, update):
+        return images.sum() * float(images.sum())
+
+    images = torch.ones(2, 8, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA graph failed"):
+        tr._StepGraph(host_read, state, images, images, 0, True,
+                      torch.cuda.graph_pool_handle())

@@ -5,8 +5,9 @@ The keep mask and threshold are held bit-equal to JAX's
 ``dropout_keep_mask`` and ``_keep_threshold``; the plain attention with
 dropout, forward and grads, against the JAX ``flash_attention`` with the
 same rate and seed (its Pallas forward in interpret mode, its chunked
-backward, which replays the mask). The port's own MLP masks (a
-``torch.Generator`` stream, not JAX's threefry) are held statistically.
+backward, which replays the mask). The port's own MLP masks (the
+attention mask's counter hash over each element's index,
+kernels/dropout.py, not JAX's threefry) are held statistically.
 The CUDA kernels' masks are read back and compared bit for bit on the
 card (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -20,7 +21,7 @@ import torch
 from vision_transformer_detector_tpu.kernels import (
     flash_attention as jax_fa)
 from vision_transformer_detector_tpu_torch.kernels import (
-    flash_attention as fa)
+    dropout as dk, flash_attention as fa)
 from vision_transformer_detector_tpu_torch.models import vit_detector as model
 
 # The JAX package's kernel contract (flash_attention.py:12-14): fp32 to
@@ -160,9 +161,10 @@ def test_attention_dropout_is_unbiased():
 
 @pytest.mark.parametrize("rate", [0.1, 0.5])
 def test_mlp_dropout_masks_keep_rate_and_mean(rate):
-    """The MLP/head dropout's masks (a torch.Generator stream of
-    Bernoulli(1 - rate)): keep rate within 0.5 % of 1 - rate, mean
-    unbiased, a pure function of the seed, other seeds uncorrelated."""
+    """The MLP/head dropout's masks (the counter hash of the layer seed
+    and each element's index, Bernoulli(1 - rate)): keep rate within 0.5 %
+    of 1 - rate, mean unbiased, a pure function of the seed, other seeds
+    uncorrelated."""
     x = torch.ones(512, 1024)
     out = model._dropout(x, rate, 11, train=True)
     kept = out != 0
@@ -193,3 +195,112 @@ def test_dropout_seed_table_is_pure():
             *table.head]
     assert len(set(flat)) == len(flat)
     assert all(0 <= s < 2 ** 32 for s in flat)
+
+
+def test_device_seed_table_is_dropout_seeds_flattened():
+    """The uint32 table forward reads: the attention seeds, the MLP seeds
+    block by block, then the head seeds, each equal to dropout_seeds'; an
+    integer, the DropoutSeeds and the table give one forward."""
+    from vision_transformer_detector_tpu_torch import get_config
+
+    config = get_config("highres_1024")
+    seeds = model.dropout_seeds(5, config)
+    table = model.seed_table(seeds)
+    assert table.dtype == np.uint32
+    assert table.shape == (model.seed_table_size(config),) == (
+        24 * 3 + 3,)
+    assert list(table[:24]) == list(seeds.attention)
+    assert list(table[24:72]) == [s for m in seeds.mlp for s in m]
+    assert list(table[72:]) == list(seeds.head)
+    views, head = model._seed_views(torch.from_numpy(table), config)
+    assert [int(v) for v in head] == list(seeds.head)
+    assert [(int(a), [int(m) for m in mlp]) for a, mlp in views] == [
+        (a, list(m)) for a, m in zip(seeds.attention, seeds.mlp)]
+
+    small = config.replace(image_size=(64, 64), embedding_dim=32,
+                           num_heads=2, encoder_blocks=2, head_last_units=16,
+                           head_layers=2, attention_window=2, dropout=0.2)
+    params = model.init_params(small, torch.Generator().manual_seed(0))
+    images = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (2, 64, 64, 3)).astype(np.float32))
+    outs = [model.forward(params, images, small, train=True,
+                          dropout_seed=seed).detach()
+            for seed in (7, model.dropout_seeds(7, small),
+                         torch.from_numpy(model.seed_table(
+                             model.dropout_seeds(7, small))))]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    with pytest.raises(ValueError, match="uint32"):
+        model.forward(params, images, small, train=True,
+                      dropout_seed=torch.zeros(3, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.25])
+def test_mlp_mask_from_a_tensor_seed_is_the_integer_seeds(rate):
+    """dropout_mask drawn twice from one seed is identical, a seed held in
+    a one-element uint32 tensor (a view of the seed table, as the forward
+    passes it) gives the integer seed's mask, the mask is the attention
+    mask's hash at batch*head 0 over (row, column), and it keeps 1 - rate
+    of the elements."""
+    shape = (4, 96, 130)
+    mask = dk.dropout_mask(2 ** 32 - 3, shape, rate, "cpu")
+    assert torch.equal(mask, dk.dropout_mask(2 ** 32 - 3, shape, rate,
+                                                "cpu"))
+    table = torch.tensor([1, 2 ** 32 - 3, 5], dtype=torch.int64).to(
+        torch.uint32)
+    assert torch.equal(mask, dk.dropout_mask(table[1:2], shape, rate,
+                                                "cpu"))
+    want = fa.dropout_keep_mask(2 ** 32 - 3, 0,
+                                torch.arange(4 * 96)[:, None],
+                                torch.arange(130)[None, :],
+                                fa._keep_threshold(rate))
+    assert torch.equal(mask, want.reshape(shape))
+    assert abs(mask.float().mean().item() - (1 - rate)) < 0.005
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_dropout_wrapper_on_the_cpu_is_the_plain_version(dtype):
+    """kernels/dropout.py on CPU tensors: the plain version (no launch),
+    the same output from an integer seed and from that seed in a uint32
+    tensor, and its gradient the same mask and scale applied to the
+    cotangent; a rate outside (0, 1) raises."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((4, 33, 70)).astype(
+        np.float32)).to(dtype).requires_grad_()
+    g = torch.from_numpy(rng.standard_normal((4, 33, 70)).astype(
+        np.float32)).to(dtype)
+    before = dk.dropout.launches
+    out = dk.dropout(x, 2 ** 32 - 9, 0.1)
+    assert dk.dropout.launches == before
+    assert out.dtype == dtype
+    assert torch.equal(out, dk.dropout_reference(x, 2 ** 32 - 9, 0.1))
+    seed = torch.tensor([2 ** 32 - 9], dtype=torch.int64).to(torch.uint32)
+    assert torch.equal(out, dk.dropout(x, seed, 0.1))
+    (grad,) = torch.autograd.grad(out, x, g)
+    mask = dk.dropout_mask(2 ** 32 - 9, x.shape, 0.1, "cpu")
+    assert torch.equal(grad, torch.where(mask, g / 0.9, 0.0).to(dtype))
+    for rate in (0.0, 1.0, -0.1):
+        with pytest.raises(ValueError, match="rate"):
+            dk.dropout(x, 1, rate)
+
+
+def test_dropout_inv_keep_is_the_fp32_reciprocal():
+    """The kernel's scale is PyTorch's fp32 reciprocal of the divisor, so
+    the kernel and the plain version's division by 1 - rate agree on the
+    card."""
+    assert dk.inv_keep(0.1) == float(np.float32(1) / np.float32(0.9))
+    assert dk.inv_keep(0.5) == 2.0
+
+
+def test_flash_seed_tensor_is_uint32():
+    """A tensor dropout seed is one uint32 element; other integer tensors
+    are refused, and the uint32 form gives the integer seed's output."""
+    q, k, v = (torch.from_numpy(np.random.default_rng(i).standard_normal(
+        (1, 30, 2, 8)).astype(np.float32)) for i in range(3))
+    kw = {"dropout_rate": 0.3}
+    seed = torch.tensor([7], dtype=torch.int64)
+    for bad in (seed, seed.to(torch.int32), seed.to(torch.uint32)[[0, 0]]):
+        with pytest.raises(ValueError, match="uint32"):
+            fa.flash_attention(q, k, v, dropout_seed=bad, **kw)
+    torch.testing.assert_close(
+        fa.flash_attention(q, k, v, dropout_seed=seed.to(torch.uint32), **kw),
+        fa.flash_attention(q, k, v, dropout_seed=7, **kw), atol=0, rtol=0)

@@ -359,18 +359,21 @@ def _op_cases(size):
         lse = cpu(b, h, n)
         plain_fwd = (fa.reference_attention(q, kk, v, "bhnk"),
                      fa.reference_attention_lse(q, kk, "bhnk"))
+        # The dropout seed is a one-element uint32 tensor, which the kernel
+        # reads on the device; None without dropout.
+        seed = torch.empty(1, dtype=torch.uint32, device="meta")
         cases.append(("flash_attention_fwd",
-                      (meta(q), meta(kk), meta(v), "bhnk", True, 0, 0.0),
+                      (meta(q), meta(kk), meta(v), "bhnk", True, None, 0.0),
                       plain_fwd))
         cases.append(("flash_attention_fwd",
-                      (meta(q), meta(kk), meta(v), "bhnk", False, 7, 0.1),
+                      (meta(q), meta(kk), meta(v), "bhnk", False, seed, 0.1),
                       (plain_fwd[0], torch.empty(0))))
         dq, dk, dv = fa.reference_attention_backward(q, kk, v, g, "bhnk")
         # The operator hands dq over in its fp32 accumulator; the wrapper
         # casts it to q's dtype.
         cases.append(("flash_attention_bwd",
                       tuple(map(meta, (q, kk, v, g, lse, lse)))
-                      + ("bhnk", 0, 0.0), (dq.float(), dk, dv)))
+                      + ("bhnk", None, 0.0), (dq.float(), dk, dv)))
         x, gamma, beta = cpu(m, d, dtype=dtype), cpu(d), cpu(d)
         cases.append(("layer_norm", (meta(x), meta(gamma), meta(beta), 1e-3),
                       fused_ln.layer_norm_reference(x, gamma, beta)))

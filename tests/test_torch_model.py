@@ -267,3 +267,76 @@ def test_tf_carryover_golden_variant(tmp_path):
     golden = np.load(VARIANT_GOLDEN_PATH)["logits"]
     # The JAX forward's own tolerance against this golden.
     np.testing.assert_allclose(logits, golden, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_pad_attention_key_dim_exact_outputs_and_zero_padding_grads(
+        tmp_path, flash):
+    """The twin of tests/test_model.py's test: key_dim 8 padded to 64 gives
+    the same logits (tokens-major and heads-major), the same gradients on
+    the real columns and exactly zero on the padding; the padded weights
+    equal the JAX package's padded weights, and the padded port forward
+    equals the padded JAX forward. fp32, the order of sums only."""
+    config = CONFIGS["einsum"].replace(use_flash_attention=flash)
+    jax_params = jax_model.init_params(jax.random.PRNGKey(0), config)
+    _, params = _bridge(tmp_path, jax_params, config)
+    padded = model.pad_attention_key_dim(params, to=64)
+    assert padded.encoder[0].mha.query.kernel.shape[-1] == 64
+    assert padded.encoder[0].mha.out.kernel.shape[1] == 64
+    assert model.pad_attention_key_dim(padded, to=64) is padded
+    jax_padded = jax_model.pad_attention_key_dim(jax_params, to=64)
+    want_flat = {n: np.asarray(v) for n, v in _jax_flat(jax_padded).items()}
+    got_flat = params_to_numpy(padded)
+    assert set(got_flat) == set(want_flat)
+    for name, value in want_flat.items():
+        np.testing.assert_array_equal(got_flat[name], value, err_msg=name)
+
+    images = torch.from_numpy(_images(config))
+    want = model.forward(params, images, config)
+    for cfg in (config, config.replace(attention_heads_major=True)):
+        got = model.forward(padded, images, cfg)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    jax_logits = np.asarray(jax_model.forward(
+        jax_padded, images.numpy(), config))
+    np.testing.assert_allclose(model.forward(padded, images, config)
+                               .detach().numpy(), jax_logits,
+                               atol=LOGITS_TOL, rtol=LOGITS_TOL)
+
+    def grads(m):
+        named = dict(m.named_parameters())
+        loss = (model.forward(m, images, config) ** 2).sum()
+        return dict(zip(named, torch.autograd.grad(loss,
+                                                   list(named.values()))))
+
+    plain, wide = grads(params), grads(padded)
+    for b in range(config.encoder_blocks):
+        for proj in ("query", "key", "value"):
+            name = f"encoder.{b}.mha.{proj}.kernel"
+            k = plain[name].shape[-1]
+            torch.testing.assert_close(wide[name][..., :k], plain[name],
+                                       atol=1e-4, rtol=1e-4)
+            assert not wide[name][..., k:].any()
+            assert not wide[f"encoder.{b}.mha.{proj}.bias"][..., k:].any()
+        name = f"encoder.{b}.mha.out.kernel"
+        k = plain[name].shape[1]
+        torch.testing.assert_close(wide[name][:, :k], plain[name],
+                                   atol=1e-4, rtol=1e-4)
+        assert not wide[name][:, k:].any()
+
+
+def _jax_flat(tree):
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        out["/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in path)] = leaf
+    return out
+
+
+def test_pad_attention_key_dim_refuses_an_int8_model():
+    from vision_transformer_detector_tpu_torch.kernels.quantization import (
+        quantize_params)
+
+    config = CONFIGS["einsum"]
+    params = model.init_params(config, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="before quantize_params"):
+        model.pad_attention_key_dim(quantize_params(params))

@@ -156,8 +156,61 @@ def test_clip_weights_with_nans():
     np.testing.assert_array_equal(expected, [[1, -10, 3.5], [10, 10, -10]])
 
 
-@pytest.mark.parametrize("kwargs", [{"accumulate_steps": 2},
-                                    {"adam_mu_dtype": "bfloat16"}])
-def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        opt.Adam(dataclasses.replace(CONFIG, **kwargs))
+
+def test_bf16_first_moment_alone_matches_optax_adam_mu_dtype():
+    """adam_mu_dtype="bfloat16" without adam_nu_dtype is optax.adam(
+    mu_dtype=bfloat16): mu stored in bf16 (b1 * mu with b1 rounded to
+    bf16, kept in fp32 as XLA computes it), nu in fp32. The stored mu is
+    bit-equal after each of 6 steps, nu and the parameters within the
+    trajectory test's few fp32 ulps."""
+    config = dataclasses.replace(CONFIG, adam_mu_dtype="bfloat16")
+    trajectory, jax_state, port_state = _run_both(config, steps=6,
+                                                  scale=0.5)
+    adam_state = jax_state[1][0]   # chain(clip, adam)
+    assert int(adam_state.count) == int(port_state["count"]) == 6
+    mu, nu = _flat(adam_state.mu), _flat(adam_state.nu)
+    for name, value in mu.items():
+        got = port_state["mu"][name]
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                      np.asarray(value).view(np.int16),
+                                      err_msg=name)
+    for name, value in nu.items():
+        assert port_state["nu"][name].dtype == torch.float32
+        np.testing.assert_allclose(port_state["nu"][name].numpy(), value,
+                                   rtol=2e-6, atol=1e-12, err_msg=name)
+    for step, (expected, got) in enumerate(trajectory):
+        for name in expected:
+            np.testing.assert_allclose(got[name], expected[name], rtol=2e-6,
+                                       atol=2e-7, err_msg=f"{step} {name}")
+
+
+def test_step_keeps_its_state_tensors_and_counts_on_the_device():
+    """The state a captured graph writes: step() updates the moments and
+    the count in place (the same tensors before and after), the count is
+    an int64 tensor, and the learning rate is computed from it."""
+    params = {"w": torch.ones(3, 4), "b": torch.zeros(4)}
+    adam = opt.Adam(CONFIG)
+    state = adam.init(params)
+    before = {m: {n: t for n, t in state[m].items()} for m in ("mu", "nu")}
+    count = state["count"]
+    for _ in range(12):
+        adam.step(params, {n: torch.full_like(p, 0.5)
+                           for n, p in params.items()}, state)
+    assert state["count"] is count and count.dtype == torch.int64
+    assert int(count) == 12
+    for m in ("mu", "nu"):
+        for name, tensor in state[m].items():
+            assert tensor is before[m][name]
+    assert adam.learning_rate(count).item() == adam.schedule(12)
+    assert adam.learning_rate(torch.tensor(9)).item() == adam.schedule(9)
+
+
+def test_accumulation_needs_the_update_flag():
+    adam = opt.Adam(dataclasses.replace(CONFIG, accumulate_steps=2))
+    params = {"w": torch.ones(2)}
+    state = adam.init(params)
+    assert [adam.is_update_step(s) for s in range(4)] == [False, True,
+                                                           False, True]
+    with pytest.raises(ValueError, match="update="):
+        adam.step(params, {"w": torch.ones(2)}, state)

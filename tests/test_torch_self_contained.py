@@ -238,3 +238,43 @@ def test_coco_eval_core_equals_the_jax_copy_but_for_the_repairs():
                  "CocoEvalResults.ap", "CocoEvalResults.ar",
                  "CocoEvalResults.per_category"):
         assert port[name] == ref[name], name
+
+
+# The port's sweep runner: the JAX module but for where it builds the
+# Trainer (no mesh; a device instead): these two edits, undone, give the
+# JAX module statement for statement.
+SWEEP_PORT_EDITS = (
+    ('        device="cuda",\n', "        mesh=None,\n"),
+    ("                          metrics_path=metrics_path, device=device)",
+     "                          mesh=mesh, metrics_path=metrics_path)"),
+)
+
+
+def test_sweep_equals_the_jax_copy_but_for_the_trainer(tmp_path):
+    source = open(os.path.join(REPO, PORT, "train", "sweep.py")).read()
+    for port_text, jax_text in SWEEP_PORT_EDITS:
+        assert source.count(port_text) == 1, port_text
+        source = source.replace(port_text, jax_text)
+    undone = tmp_path / "sweep.py"
+    undone.write_text(source)
+    assert _body(str(undone)) == _body(os.path.join(
+        REPO, "vision_transformer_detector_tpu", "train", "sweep.py"))
+
+
+def test_flops_estimate_equals_the_jax_copy():
+    ref = _definitions(os.path.join(
+        REPO, "vision_transformer_detector_tpu", "utils", "profiling.py"))
+    port = _definitions(os.path.join(REPO, PORT, "utils", "profiling.py"))
+    assert port["flops_estimate"] == ref["flops_estimate"]
+
+
+@pytest.mark.parametrize("name", ["reference_608", "highres_1024",
+                                  "vit_b16_384"])
+def test_flops_estimate_gives_the_jax_value(name):
+    from vision_transformer_detector_tpu.utils import profiling as jax_prof
+    from vision_transformer_detector_tpu_torch.utils import (
+        profiling as port_prof)
+
+    config = port_config.get_config(name)
+    assert port_prof.flops_estimate(config, 8) == jax_prof.flops_estimate(
+        jax_config.get_config(name), 8)

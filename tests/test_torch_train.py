@@ -218,16 +218,13 @@ def test_restore_explains_a_config_mismatch(tmp_path):
 
 
 def test_refused_options(tmp_path):
-    for kwargs in ({"mesh": object()}, {"async_checkpointing": True}):
-        with pytest.raises(NotImplementedError):
-            _trainer(tmp_path, **kwargs)
+    """A mesh is still refused (multi-device training is not ported);
+    async checkpointing, gradient accumulation and epochs_per_call > 1 are
+    ported and have tests of their own (test_torch_train_window.py)."""
     with pytest.raises(NotImplementedError):
-        trainer.Trainer(SMALL, train_config=TrainConfig(accumulate_steps=2),
-                        device="cpu")
+        _trainer(tmp_path, mesh=object())
     run = _trainer(tmp_path)
     data = list(synthetic_batches(SMALL, 2, 1))
-    with pytest.raises(NotImplementedError):
-        run.fit(run.init_state(), data, epochs=1, epochs_per_call=2)
     # Training dropout is ported: a dropout fit runs and moves the
     # parameters.
     dropout = trainer.Trainer(SMALL.replace(dropout=0.1), device="cpu")

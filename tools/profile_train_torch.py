@@ -16,6 +16,12 @@ docstring trains it with dropout:
 
     python tools/profile_train_torch.py --preset highres_1024 \\
         --dropout 0.1 --remat-policy none
+
+``--graph`` profiles the windowed loop instead (train/trainer.py:
+make_multi_step, the train step captured once as a CUDA graph and
+replayed): a step is one call of one epoch of one batch, with its batch
+and seed-row copies; the flash launch counters then count only the
+capture, so the launches come from the profiler's kernel events.
 """
 
 from __future__ import annotations
@@ -30,15 +36,13 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # Kernel-name fragments of each group; a kernel joins the first group that
-# names it. cuBLAS's Hopper GEMMs are "nvjet" or "gemm" kernels; the
-# dropout masks are torch.rand's Philox "distribution" kernels (their
-# compare and select run as generic elementwise kernels, in "rest"); the
-# window folds are strided copies, among the "copy" kernels with the
-# dtype casts.
+# names it. cuBLAS's Hopper GEMMs are "nvjet" or "gemm" kernels; the MLP
+# and head dropout is csrc/dropout.cu's "dropout_kernel"; the window folds
+# are strided copies, among the "copy" kernels with the dtype casts.
 GROUPS = (("flash_fwd", ("flash_fwd_kernel",)),
           ("flash_bwd", ("flash_bwd_kernel",)),
           ("gemm", ("gemm", "nvjet", "cutlass")),
-          ("dropout_masks", ("distribution",)),
+          ("dropout", ("dropout_kernel",)),
           ("copies_and_casts", ("copy",)))
 
 
@@ -85,6 +89,8 @@ def main() -> None:
                         choices=("none", "dots", "alternate"),
                         help="override the preset's remat policy (and "
                              "turn remat on)")
+    parser.add_argument("--graph", action="store_true",
+                        help="profile the CUDA-graph windowed loop")
     args = parser.parse_args()
     top_kernels = 12
 
@@ -96,7 +102,8 @@ def main() -> None:
         LossConfig, TrainConfig, get_config, synthetic_batches)
     from vision_transformer_detector_tpu_torch.kernels import (
         flash_attention as fa)
-    from vision_transformer_detector_tpu_torch.train.trainer import Trainer
+    from vision_transformer_detector_tpu_torch.train.trainer import (
+        Trainer, make_multi_step)
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_train_torch: needs a CUDA device")
@@ -113,8 +120,14 @@ def main() -> None:
     images, labels = (torch.from_numpy(a).to("cuda") for a in next(
         synthetic_batches(config, args.batch, 1, seed=0)))
 
-    def step():
-        trainer.train_step(state, images, labels)
+    if args.graph:
+        multi_step = make_multi_step(config, LossConfig(), trainer.optimizer)
+
+        def step():
+            multi_step(state, images[None], labels[None], 1)
+    else:
+        def step():
+            trainer.train_step(state, images, labels)
 
     for _ in range(3):
         step()
@@ -166,6 +179,7 @@ def main() -> None:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     result = {
         "preset": args.preset, "batch": args.batch, "card": card,
+        "loop": "cuda_graph" if args.graph else "eager",
         "dropout": config.dropout, "remat_encoder": config.remat_encoder,
         "remat_policy": config.remat_policy,
         "step_ms_median": float(np.median(wall)), "step_ms_min": min(wall),

@@ -12,15 +12,18 @@ names so each counterpart is easy to find:
                  their plain PyTorch versions, int8 weight quantization
   * metrics/   — the reference mAP metric on the device, its NumPy
                  oracle, and the official COCO protocol (coco_eval.py)
-  * train/     — optimizer stack, train/eval steps and the Trainer
+  * train/     — optimizer stack, train/eval steps, the Trainer (with
+                 its CUDA-graph windowed loop) and the sweep runner
   * export.py  — torch.export artifacts and their model-free loader
   * serving.py — the detection services (live and from an artifact),
                  micro-batcher and HTTP server
   * api.py     — the reference-signature API (``Detector``, ...)
   * cli.py     — ``vtd-torch``: train, evaluate, score-coco, predict,
-                 visualize, export, serve, plot, stats
-  * utils/     — the .npz weight bridge, train-state checkpoints,
-                 numeric sanitizers, visualization and plotting
+                 visualize, export, serve, sweep, benchmark, doctor,
+                 plot, stats
+  * utils/     — the .npz weight bridge, train-state checkpoints (sync
+                 and async), numeric sanitizers, profiling and timing,
+                 visualization and plotting
 
 It imports nothing of the JAX package: the framework-neutral host modules
 it needs are its own copies, held equal to the originals by

@@ -1,8 +1,9 @@
 """Command-line entry point of the PyTorch port (``vtd-torch``): the
-deployment lifecycle of the JAX CLI.
+training, deployment and tooling subcommands of the JAX CLI.
 
   python -m vision_transformer_detector_tpu_torch.cli train \
-      --train-images DIR --train-annotations ann.json [--preset tiny_96]
+      --train-images DIR --train-annotations ann.json [--preset tiny_96] \
+      [--resumable | --epochs-per-call 100]
   python -m vision_transformer_detector_tpu_torch.cli evaluate \
       --val-images DIR --val-annotations ann.json --restore final \
       --protocol coco-original --dump-detections dets.json
@@ -12,11 +13,17 @@ deployment lifecycle of the JAX CLI.
       --restore final --batch-sizes 1 8 --bake-postprocess [--platforms cpu]
   python -m vision_transformer_detector_tpu_torch.cli serve \
       --from-export exported_model [--batching] [--device cpu]
+  python -m vision_transformer_detector_tpu_torch.cli sweep \
+      --synthetic --sweep learning_rate=8e-5,4e-5
+  python -m vision_transformer_detector_tpu_torch.cli benchmark \
+      --preset vit_b16_384 --bf16 --mode inference --iterations 20
+  python -m vision_transformer_detector_tpu_torch.cli doctor
 
 plus ``predict``, ``visualize``, ``plot`` and ``stats``. Each subcommand
-takes the JAX CLI's flags that this port supports; the others (the mesh
-flags, ``--distributed``, ``--resumable``, ``--epochs-per-call``) are not
-declared, so argparse refuses them. Every model subcommand takes
+takes the JAX CLI's flags that this port supports. The mesh flags are
+not ported: ``--distributed`` is not declared, so argparse refuses it, and
+``--data-parallel`` / ``--model-parallel`` exist only on ``benchmark`` and
+``sweep``, where a value above 1 is refused. Every model subcommand takes
 ``--device`` (default ``cuda``, which fails without a card); ``export``
 names its device with ``--platforms``: one of ``cuda`` or ``cpu``, the
 device the artifact is traced on and runs on. ``serve``: weights come
@@ -165,21 +172,48 @@ def _serve(args, service) -> None:
 
 
 def _build_dataset(args, config, images, annotations, shuffle=False,
-                   drop_remainder=True):
+                   drop_remainder=True, resumable=False):
     """The host pipeline's dataset, uint8 images (the train and eval
-    steps normalise on the device)."""
+    steps normalise on the device); ``resumable``: a ResumableDataset,
+    whose position the trainer saves beside every checkpoint."""
     from .data.annotations import load_annotations_dict
-    from .data.pipeline import CocoDetectionDataset, list_image_paths
+    from .data.pipeline import (
+        CocoDetectionDataset, ResumableDataset, list_image_paths)
 
     start, end = args.images_range
     paths = list_image_paths(images,
                              images_range=(start, end if end >= 0 else None),
-                             shuffle=shuffle, seed=getattr(args, "seed", 0))
+                             # ResumableDataset owns the shuffling (one
+                             # permutation per epoch, seeded by (seed,
+                             # epoch)).
+                             shuffle=shuffle and not resumable,
+                             seed=getattr(args, "seed", 0))
+    if resumable:
+        if args.on_corrupt == "skip":
+            raise SystemExit(
+                "--on-corrupt skip is incompatible with --resumable "
+                "(the resume position is path-index arithmetic that "
+                "skip+backfill breaks)")
+        return ResumableDataset(
+            paths, load_annotations_dict(annotations), config,
+            batch_size=args.batch_size, shuffle=shuffle,
+            seed=getattr(args, "seed", 0), normalize=False,
+            fast_decode=args.fast_decode, pool=args.decode_pool)
     return CocoDetectionDataset(
         paths, load_annotations_dict(annotations), config,
         batch_size=args.batch_size, drop_remainder=drop_remainder,
         on_corrupt=args.on_corrupt, normalize=False,
         fast_decode=args.fast_decode, pool=args.decode_pool)
+
+
+# --epochs-per-call stacks the whole dataset on the card once. The step
+# itself needs at most the peaks measured at batch 8 on an 80 GB card
+# (6.04 GiB for highres_1024 with dropout, 9.09 GiB for reference_608),
+# and a captured graph holds one step's peak in its own pool beside the
+# eager pool, so up to ~18 GiB go to training; 40 GiB of stacked images
+# and labels leaves the rest of the card's 74.5 GiB as margin for larger
+# batches and fragmentation.
+STACKED_DATA_LIMIT = 40 << 30
 
 
 def cmd_train(args) -> None:
@@ -193,8 +227,36 @@ def cmd_train(args) -> None:
         epochs=args.epochs, epochs_warm_up=args.epochs_warm_up,
         skip_epochs=args.skip_epochs, seed=args.seed,
         adam_mu_dtype=moments, adam_nu_dtype=moments)
+    epochs_per_call = args.epochs_per_call
+    if epochs_per_call > 1:
+        # The window replays the SAME stacked batches every epoch:
+        # features that change the stream between epochs cannot compose
+        # with it.
+        for flag, name in ((args.shuffle, "--shuffle"),
+                           (args.resumable, "--resumable")):
+            if flag:
+                raise SystemExit(
+                    f"--epochs-per-call > 1 is incompatible with {name}: "
+                    "the window stacks the materialized batches on the "
+                    "device once and replays them each epoch")
     train_data = _build_dataset(args, config, args.train_images,
-                                args.train_annotations, shuffle=args.shuffle)
+                                args.train_annotations, shuffle=args.shuffle,
+                                resumable=args.resumable)
+    if epochs_per_call > 1:
+        # uint8 pixels (1 byte each) and fp32 labels of the stacked data.
+        h, w = config.image_size
+        n_images = len(train_data) * args.batch_size
+        total_bytes = (n_images * h * w * 3
+                       + n_images * config.max_objects * 6 * 4)
+        if total_bytes > STACKED_DATA_LIMIT:
+            raise SystemExit(
+                f"--epochs-per-call: stacking {len(train_data)} batches "
+                f"of {args.batch_size}x{h}x{w} images (+labels) needs "
+                f"~{total_bytes / (1 << 30):.1f} GiB of device memory for "
+                f"the data alone (limit "
+                f"{STACKED_DATA_LIMIT / (1 << 30):.0f} GiB); use the "
+                "default per-epoch streaming loop for datasets this size")
+        train_data = [batch for batch in train_data]
     eval_data = None
     if args.val_images and args.val_annotations:
         eval_data = _build_dataset(args, config, args.val_images,
@@ -212,13 +274,18 @@ def cmd_train(args) -> None:
         state = trainer.restore_latest(state)
     elif args.restore:
         state = trainer.restore(state, args.restore)
+    if args.resumable and trainer.dataset_resume_state is not None:
+        # restore() read the input position saved beside the checkpoint;
+        # rewind the stream to the exact next batch.
+        train_data.set_state(trainer.dataset_resume_state)
     state = trainer.fit(state, train_data, epochs=args.epochs,
-                        eval_data=eval_data)
+                        eval_data=eval_data, epochs_per_call=epochs_per_call)
     trainer.save(state, name="final")
     trainer.metrics.close()
     print(json.dumps({"best_ap": trainer.best_ap,
                       "final_loss": trainer.loss_record[-1]
-                      if trainer.loss_record else None}))
+                      if trainer.loss_record else None,
+                      "step": state["step"]}))
 
 
 def cmd_evaluate(args) -> None:
@@ -388,6 +455,236 @@ def cmd_stats(args) -> None:
     print(json.dumps(result, indent=2))
 
 
+def _parse_sweep_value(text: str):
+    try:
+        return json.loads(text)
+    except json.JSONDecodeError:
+        return text  # bare strings (e.g. compute_dtype=bfloat16)
+
+
+def _reject_mesh_flags(args, command: str) -> None:
+    """Multi-device runs are not ported: refuse a mesh rather than time or
+    train one device under a mesh's name."""
+    if args.data_parallel > 1 or args.model_parallel > 1:
+        raise SystemExit(
+            f"`{command}` runs on one device in the PyTorch port; "
+            "--data-parallel/--model-parallel > 1 are not ported")
+
+
+def cmd_sweep(args) -> None:
+    """The JAX CLI's ``sweep``: a grid of config overrides, one training
+    run per point, the records table on stdout."""
+    from .train.sweep import format_records, run_sweep
+
+    _reject_mesh_flags(args, "sweep")
+    if not args.synthetic and not (args.train_images
+                                   and args.train_annotations):
+        raise SystemExit(
+            "sweep needs --train-images and --train-annotations, "
+            "or --synthetic")
+    config = _build_config(args)
+    train_config = TrainConfig(
+        learning_rate=args.learning_rate, batch_size=args.batch_size,
+        epochs=args.epochs, epochs_warm_up=args.epochs_warm_up,
+        skip_epochs=args.skip_epochs, seed=args.seed)
+
+    grid = {}
+    for spec in args.sweep:
+        name, _, values = spec.partition("=")
+        if not values:
+            raise SystemExit(
+                f"--sweep expects PARAM=V1,V2,... got {spec!r}")
+        grid[name] = [_parse_sweep_value(v) for v in values.split(",")]
+
+    if args.synthetic:
+        from .data.pipeline import synthetic_batches
+
+        def make_data(cfg, tc):
+            data = list(synthetic_batches(
+                cfg, batch_size=tc.batch_size,
+                num_batches=args.synthetic_batches, seed=tc.seed))
+            return data, data
+    else:
+        def make_data(cfg, tc):
+            # The datasets follow the SWEPT train config's batch size.
+            batch_args = argparse.Namespace(**vars(args))
+            batch_args.batch_size = tc.batch_size
+            train_data = _build_dataset(
+                batch_args, cfg, args.train_images, args.train_annotations,
+                shuffle=args.shuffle)
+            eval_data = None
+            if args.val_images and args.val_annotations:
+                eval_data = _build_dataset(batch_args, cfg, args.val_images,
+                                           args.val_annotations)
+            return train_data, eval_data
+
+    records = run_sweep(
+        grid, make_data, base_config=config, base_train_config=train_config,
+        # A swept 'epochs' axis wins over --epochs.
+        epochs=None if "epochs" in grid else args.epochs,
+        out_dir=args.out_dir, device=args.device)
+    print(format_records(records))
+    print(json.dumps({"records": len(records),
+                      "out_dir": args.out_dir,
+                      "best_AP": max(r["best_AP"] for r in records)}))
+
+
+def cmd_doctor(args) -> None:
+    """Environment report, one JSON object on stdout; exit code 0 iff the
+    device probe passed.
+
+    * ``device``: probed in a subprocess with ``--probe-timeout`` (a hung
+      device reads as dead instead of wedging this process):
+      ``torch.cuda.is_available()``, the card's name, its compute
+      capability (``sm_90`` expected for the kernels) and the count;
+    * ``native``: ``nvcc`` (path and version) and whether each kernel
+      library of ``kernels/_build.py`` builds and loads, all built at once
+      (``--build-native`` removes the built ones first); the JAX package's
+      native host cores (``coco_json``, ``pipeline``, ``coco_eval``) are
+      not ported and read False.
+
+    The JAX CLI's ``virtual_mesh_8`` row is left out: multi-device runs are
+    not ported."""
+    import glob
+    import os
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .kernels import _build
+
+    report: dict = {"device": _probe_device(args.probe_timeout)}
+    native: dict = {"coco_json": False, "pipeline": False,
+                    "coco_eval": False}
+    try:
+        nvcc = _build.find_nvcc()
+        version = subprocess.run([nvcc, "--version"], capture_output=True,
+                                 text=True, timeout=60).stdout
+        native["nvcc"] = {"path": nvcc,
+                          "version": (version.strip().splitlines()
+                                      or ["?"])[-1]}
+    except (RuntimeError, OSError, subprocess.TimeoutExpired) as exc:
+        native["nvcc"] = {"error": str(exc).splitlines()[0]}
+    sources = sorted(os.path.basename(path) for path in glob.glob(
+        os.path.join(_build.CSRC_DIR, "*.cu")))
+    if args.build_native:
+        for source in sources:
+            path = _build.library_path(source)
+            if os.path.exists(path):
+                os.remove(path)
+
+    def build(source):
+        try:
+            _build.load_library(source)
+            return {"ok": True}
+        except (RuntimeError, OSError, subprocess.TimeoutExpired) as exc:
+            return {"ok": False, "error": str(exc).splitlines()[0]}
+
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        native["kernels"] = dict(zip(sources, pool.map(build, sources)))
+    report["native"] = native
+    print(json.dumps(report))
+    if not report["device"]["ok"]:
+        raise SystemExit(1)
+
+
+_PROBE = (
+    "import torch\n"
+    "ok = torch.cuda.is_available()\n"
+    "if ok:\n"
+    "    major, minor = torch.cuda.get_device_capability(0)\n"
+    "    x = torch.ones(8, 8, device='cuda')\n"
+    "    print('VTD_PROBE', torch.cuda.device_count(), f'sm_{major}{minor}',\n"
+    "          float(x.sum()), torch.cuda.get_device_name(0))\n"
+    "else:\n"
+    "    print('VTD_PROBE_NONE')\n")
+
+
+def _probe_device(timeout_s: float) -> dict:
+    """``{"ok", "platform", "name", "capability", "count"}`` from a child
+    process, or ``{"ok": False, "error"}``."""
+    import subprocess
+    import sys as _sys
+
+    try:
+        out = subprocess.run([_sys.executable, "-c", _PROBE],
+                             capture_output=True, text=True,
+                             timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        return {"ok": False,
+                "error": f"the device did not answer within {timeout_s}s"}
+    for line in out.stdout.splitlines():
+        if line.startswith("VTD_PROBE "):
+            _, count, capability, _, name = line.split(" ", 4)
+            return {"ok": True, "platform": "cuda", "name": name,
+                    "capability": capability, "count": int(count),
+                    "kernels_target": "sm_90a",
+                    "capability_ok": capability == "sm_90"}
+        if line.startswith("VTD_PROBE_NONE"):
+            return {"ok": False,
+                    "error": "torch.cuda.is_available() is False"}
+    return {"ok": False,
+            "error": (out.stderr.strip().splitlines() or ["?"])[-1]}
+
+
+def cmd_benchmark(args) -> None:
+    """The JAX CLI's ``benchmark``: the time per call of a config on this
+    host's device, one JSON line. ``inference`` times forward +
+    ``transform_predictions``, ``train`` one ``Trainer.train_step``, both
+    with ``utils/profiling.time_cuda`` (CUDA events on a card, one
+    synchronize; the host clock on the CPU)."""
+    import torch
+
+    from .models.vit_detector import forward, init_params
+    from .ops.decode import transform_predictions
+    from .utils.device import resolve_device
+    from .utils.profiling import time_cuda
+
+    _reject_mesh_flags(args, "benchmark")
+    config = _build_config(args)
+    device = resolve_device(args.device)
+    h, w = config.image_size
+    batch = args.batch_size
+    generator = torch.Generator().manual_seed(1)
+    images = (torch.rand((batch, h, w, 3), generator=generator) * 2.0
+              - 1.0).to(device)
+
+    if args.mode == "inference":
+        params = init_params(config, torch.Generator().manual_seed(0),
+                             device)
+
+        @torch.inference_mode()
+        def step():
+            return transform_predictions(forward(params, images, config),
+                                         config)
+
+        seconds, _ = time_cuda(step, iterations=args.iterations)
+    else:
+        import numpy as np
+
+        from .train.trainer import Trainer
+
+        trainer = Trainer(config, LossConfig(), TrainConfig(
+            learning_rate=1e-4, batch_size=batch), device=device)
+        state = trainer.init_state()
+        labels = np.full((batch, config.max_objects, 6), -8.0, np.float32)
+        labels[..., 0] = 0.0
+        labels[:, 0] = (1, 3, h / 2, w / 2, h / 4, w / 4)
+        labels = torch.from_numpy(labels).to(device)
+        seconds, _ = time_cuda(
+            lambda: trainer.train_step(state, images, labels)[1],
+            iterations=args.iterations)
+
+    ms = seconds * 1e3
+    print(json.dumps({
+        "preset": args.preset, "mode": args.mode,
+        "device": device.type,
+        "image_size": [h, w], "batch": batch,
+        "compute_dtype": config.compute_dtype,
+        "iterations": args.iterations,
+        "ms_per_step": round(ms, 2),
+        "img_per_s": round(batch * 1e3 / ms, 1)}))
+
+
 def _add_model_args(p, device: bool = True) -> None:
     """The JAX CLI's model flags (``_add_model_args``) and, unless the
     subcommand names its device otherwise, ``--device``."""
@@ -414,6 +711,12 @@ def _add_model_args(p, device: bool = True) -> None:
         p.add_argument("--device", default="cuda",
                        help="torch device; 'cuda' fails when no GPU is "
                             "visible")
+
+
+def _add_mesh_args(p) -> None:
+    """The JAX CLI's mesh sizes; only 1 is ported."""
+    p.add_argument("--data-parallel", type=int, default=1)
+    p.add_argument("--model-parallel", type=int, default=1)
 
 
 def _add_image_args(p) -> None:
@@ -451,6 +754,18 @@ def _add_train_parser(sub) -> None:
     p.add_argument("--bf16-moments", action="store_true",
                    help="store Adam moment state in bf16 (fp32 arithmetic, "
                         "stochastically rounded nu)")
+    p.add_argument("--resumable", action="store_true",
+                   help="checkpointable input stream (ResumableDataset): "
+                        "the data position is saved next to every "
+                        "checkpoint and --restore resumes at the exact "
+                        "next batch")
+    p.add_argument("--epochs-per-call", type=_positive_int, default=1,
+                   help="windowed training: the dataset is stacked on the "
+                        "device once and the train step, captured as a CUDA "
+                        "graph, is replayed for up to K epochs per call, "
+                        "with one host sync per window; windows end at the "
+                        "eval and checkpoint epochs. Small datasets only; "
+                        "incompatible with --shuffle/--resumable")
     p.set_defaults(func=cmd_train)
 
 
@@ -589,6 +904,51 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--class-agnostic-nms", action="store_true",
                    help="suppress across classes (default: per-class)")
     p.set_defaults(func=cmd_export)
+
+    p = sub.add_parser("sweep", help="hyperparameter grid sweep")
+    _add_model_args(p)
+    _add_image_args(p)
+    _add_mesh_args(p)
+    p.add_argument("--sweep", action="append", required=True,
+                   metavar="PARAM=V1,V2",
+                   help="sweep axis; repeatable; values parsed as JSON "
+                        "(e.g. --sweep patch_size=16,17 "
+                        "--sweep learning_rate=8e-5,4e-5)")
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--learning-rate", type=float, default=8e-5)
+    p.add_argument("--epochs-warm-up", type=int, default=0)
+    p.add_argument("--skip-epochs", type=int, default=1)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out-dir", default="sweep")
+    p.add_argument("--train-images")
+    p.add_argument("--train-annotations")
+    p.add_argument("--shuffle", action="store_true")
+    p.add_argument("--val-images")
+    p.add_argument("--val-annotations")
+    p.add_argument("--synthetic", action="store_true",
+                   help="sweep on synthetic batches")
+    p.add_argument("--synthetic-batches", type=int, default=1)
+    p.set_defaults(func=cmd_sweep)
+
+    p = sub.add_parser("benchmark",
+                       help="time per step of a config on this device")
+    _add_model_args(p)
+    _add_mesh_args(p)
+    p.add_argument("--mode", choices=("inference", "train"),
+                   default="inference")
+    p.add_argument("--iterations", type=_positive_int, default=10)
+    p.set_defaults(func=cmd_benchmark)
+
+    p = sub.add_parser("doctor",
+                       help="environment report: device probe (in a child "
+                            "process), nvcc and the kernel libraries")
+    p.add_argument("--probe-timeout", type=float, default=120.0,
+                   help="seconds before an unresponsive device is "
+                        "reported dead")
+    p.add_argument("--build-native", action="store_true",
+                   help="rebuild every kernel library from csrc/ before "
+                        "reporting")
+    p.set_defaults(func=cmd_doctor)
 
     p = sub.add_parser("plot", help="loss/AP training curves")
     p.add_argument("--metrics", required=True)

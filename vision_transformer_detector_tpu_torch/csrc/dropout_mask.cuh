@@ -11,19 +11,28 @@
 
 namespace {
 
-// The seed, the keep threshold (keep iff hash < threshold, as the Pallas
+// The seed's address in device memory (a uint32 the caller writes before
+// the launch, so a captured CUDA graph replays each step with that step's
+// seed), the keep threshold (keep iff hash < threshold, as the Pallas
 // module's `_keep_threshold`) and 1 / (1 - rate) in fp32.
 struct Dropout {
-  unsigned int seed, threshold;
+  const unsigned int* seed;
+  unsigned int threshold;
   float inv_keep;
 };
+
+// The seed, read from device memory once by each thread at the start of
+// its block's work.
+__device__ __forceinline__ unsigned int load_seed(const Dropout& d) {
+  return __ldg(d.seed);
+}
 
 // The hash's sum seed + bh * 0x9E3779B1 + query * 0x85EBCA6B + key *
 // 0xC2B2AE35 (mod 2^32), split so that a thread adds the term of the
 // index it loops over to a part it computes once.
-__device__ __forceinline__ unsigned int hash_part(const Dropout& d,
+__device__ __forceinline__ unsigned int hash_part(unsigned int seed,
                                                   unsigned int bh) {
-  return d.seed + bh * 0x9E3779B1u;
+  return seed + bh * 0x9E3779B1u;
 }
 
 __device__ __forceinline__ unsigned int query_term(unsigned int query) {

@@ -165,12 +165,13 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // This lane's keys: kv0 + 16 * warp + gr (r = 0) and + 8 (r = 1).
   bool key_ok[2];
   unsigned int hash_key[2] = {0u, 0u};
+  const unsigned int seed = kDropout ? load_seed(drop) : 0u;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = kv0 + 16 * warp + gr + 8 * r;
     key_ok[r] = key < seq_len;
     if (kDropout) {
-      hash_key[r] = hash_part(drop, static_cast<unsigned int>(bh)) +
+      hash_key[r] = hash_part(seed, static_cast<unsigned int>(bh)) +
                     key_term(static_cast<unsigned int>(key));
     }
   }
@@ -402,9 +403,10 @@ extern "C" {
 // by the caller; lse and delta are contiguous fp32 (batch, heads, seq_len).
 // head_dim: 48 or 64 (the wrapper pads). Strides are in elements, for the
 // batch, head and token axes; the head dim must be contiguous and every row
-// 16-byte aligned. dropout: 0, or 1 with the forward's uint32 seed, keep
-// threshold and fp32 1 / (1 - rate); delta is then rowsum(g * out) of the
-// dropped output. Returns the CUDA error of the launch (0 on success).
+// 16-byte aligned. dropout: 0, or 1 with the device address of the
+// forward's uint32 seed, the keep threshold and fp32 1 / (1 - rate); delta
+// is then rowsum(g * out) of the dropped output. Returns the CUDA error of
+// the launch (0 on success).
 int vtd_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* g,
     const void* lse, const void* delta, void* dq, void* dk, void* dv,
@@ -414,9 +416,10 @@ int vtd_flash_attention_bwd(
     long long v_sn, long long g_sb, long long g_sh, long long g_sn,
     long long dq_sb, long long dq_sh, long long dq_sn, long long dk_sb,
     long long dk_sh, long long dk_sn, long long dv_sb, long long dv_sh,
-    long long dv_sn, int dropout, unsigned int seed, unsigned int threshold,
-    float inv_keep, void* stream) {
+    long long dv_sn, int dropout, const unsigned int* seed,
+    unsigned int threshold, float inv_keep, void* stream) {
   if (batch <= 0 || heads <= 0 || seq_len <= 0) return cudaErrorInvalidValue;
+  if (dropout != 0 && seed == nullptr) return cudaErrorInvalidValue;
   const Strides sq{q_sb, q_sh, q_sn}, sk{k_sb, k_sh, k_sn},
       sv{v_sb, v_sh, v_sn}, sg{g_sb, g_sh, g_sn}, sdq{dq_sb, dq_sh, dq_sn},
       sdk{dk_sb, dk_sh, dk_sn}, sdv{dv_sb, dv_sh, dv_sn};

@@ -150,9 +150,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float l_row[2] = {0.f, 0.f};           // this lane's part of the normaliser
   unsigned int hash_row[2] = {0u, 0u};
   if (kDropout) {
+    const unsigned int seed = load_seed(drop);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      hash_row[r] = hash_part(drop, static_cast<unsigned int>(bh)) +
+      hash_row[r] = hash_part(seed, static_cast<unsigned int>(bh)) +
                     query_term(static_cast<unsigned int>(q0 + 16 * warp + g +
                                                          8 * r));
     }
@@ -338,9 +339,9 @@ extern "C" {
 // Strides are in elements, for the batch, head and token axes; the head dim
 // must be contiguous and every row 16-byte aligned. lse: nullptr, or a
 // contiguous fp32 (batch, heads, seq_len) array. dropout: 0, or 1 with the
-// uint32 seed, the uint32 keep threshold (keep iff hash < threshold) and
-// inv_keep = 1 / (1 - rate) in fp32. Returns cudaGetLastError() after the
-// launch (0 on success).
+// device address of the uint32 seed, the uint32 keep threshold (keep iff
+// hash < threshold) and inv_keep = 1 / (1 - rate) in fp32. Returns
+// cudaGetLastError() after the launch (0 on success).
 int vtd_flash_attention_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int dtype, int batch,
                             int heads, int seq_len, int head_dim,
@@ -348,10 +349,11 @@ int vtd_flash_attention_fwd(const void* q, const void* k, const void* v,
                             long long k_sb, long long k_sh, long long k_sn,
                             long long v_sb, long long v_sh, long long v_sn,
                             long long o_sb, long long o_sh, long long o_sn,
-                            int dropout, unsigned int seed,
+                            int dropout, const unsigned int* seed,
                             unsigned int threshold, float inv_keep,
                             void* stream) {
   if (batch <= 0 || heads <= 0 || seq_len <= 0) return cudaErrorInvalidValue;
+  if (dropout != 0 && seed == nullptr) return cudaErrorInvalidValue;
   const Strides sq{q_sb, q_sh, q_sn}, sk{k_sb, k_sh, k_sn},
       sv{v_sb, v_sh, v_sn}, so{o_sb, o_sh, o_sn};
   const Dropout drop{seed, threshold, inv_keep};

@@ -33,7 +33,13 @@ JAX package's Pallas backward does. Calls that need no grad (serving,
 ``torch.inference_mode``) launch the forward alone, without the logsumexp.
 
 ``dropout_rate``/``dropout_seed`` turn on the JAX kernel's in-kernel
-probability dropout (training; keras-MHA semantics): the normaliser sums
+probability dropout (training; keras-MHA semantics). The seed is an
+integer (taken mod 2**32) or a one-element uint32 tensor on the inputs'
+device; the kernels read it from device memory, so a CUDA graph captured
+over a train step replays each step with the seed its caller wrote there,
+and the model passes a view of its seed table (no host copy per launch).
+``flash_attention`` copies an integer seed to the device once per call on
+the kernel route. The normaliser sums
 the undropped probabilities, and each probability is multiplied by
 keep / (1 - rate) before P@V. The keep mask is ``dropout_keep_mask``, the
 JAX package's counter hash of the seed and the global (batch*head, query,
@@ -76,11 +82,13 @@ def _u32(x):
 
 
 def _mul32(x, c: int):
-    """(x * c) mod 2**32 for x in [0, 2**32) and a uint32 constant c, in
-    two 16-bit halves of c so that no int64 product overflows."""
-    lo = x * (c & 0xFFFF)
-    hi = (x * (c >> 16)) & 0xFFFF
-    return (lo + (hi << 16)) & _M32
+    """(x * c) mod 2**32 for x in [0, 2**32) and a uint32 constant c. A c
+    of 2**31 or more is taken as c - 2**32, the same residue, so |x * c| <
+    2**63 and no int64 product overflows; ``& 0xFFFFFFFF`` of the (two's
+    complement) product is the residue."""
+    if c >= 2 ** 31:
+        c -= 2 ** 32
+    return (x * c) & _M32
 
 
 def dropout_keep_mask(seed, bh_idx, q_idx, k_idx, threshold: int):
@@ -103,8 +111,9 @@ def dropout_keep_mask(seed, bh_idx, q_idx, k_idx, threshold: int):
 
 
 def _dropout_args(rate, seed):
-    """``(seed mod 2**32, rate)``, or None without dropout, with the JAX
-    wrapper's checks and messages."""
+    """``(seed, rate)``, or None without dropout, with the JAX wrapper's
+    checks and messages; an integer seed is reduced mod 2**32, a tensor
+    seed must be a one-element uint32 tensor."""
     if rate in (None, 0.0):
         return None
     rate = float(rate)
@@ -114,7 +123,20 @@ def _dropout_args(rate, seed):
             "drop everything; larger values wrap the keep threshold)")
     if seed is None:
         raise ValueError("dropout_rate needs a dropout_seed")
+    if isinstance(seed, torch.Tensor):
+        if seed.numel() != 1 or seed.dtype != torch.uint32:
+            raise ValueError(
+                f"a tensor dropout_seed is a one-element uint32 tensor, got "
+                f"{tuple(seed.shape)} {seed.dtype}")
+        return seed, rate
     return int(seed) & _M32, rate
+
+
+def seed_tensor(seed: int, device) -> torch.Tensor:
+    """The kernels' form of an integer seed: a one-element uint32 tensor on
+    ``device`` holding ``seed`` mod 2**32 (one host-to-device copy)."""
+    return torch.tensor([int(seed) & _M32], dtype=torch.int64).to(
+        torch.uint32).to(device)
 
 
 def _dropout_scale(dropout, b: int, h: int, n: int, device) -> torch.Tensor:
@@ -238,9 +260,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention over ``layout``-ordered q/k/v; see the module docstring.
 
     ``dropout_rate`` 0 or None means no dropout; a rate outside (0, 1), or
-    a rate without ``dropout_seed`` (an integer, taken mod 2**32), raises
-    ValueError. Returns the output, or ``(output, lse)`` with ``with_lse``
-    (lse is ``(B, H, N)`` fp32; that form is not differentiable).
+    a rate without ``dropout_seed`` (an integer, taken mod 2**32, or a
+    one-element integer tensor), raises ValueError. Returns the output,
+    or ``(output, lse)`` with ``with_lse`` (lse is ``(B, H, N)`` fp32;
+    that form is not differentiable).
     """
     if layout not in ("bnhk", "bhnk"):
         raise ValueError(f"unknown layout {layout!r}")
@@ -251,6 +274,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"flash_attention takes q/k/v all on the CPU or all on CUDA, "
             f"got devices {sorted(devices)}")
     use_kernel = devices == {"cuda"}
+    if use_kernel and dropout is not None:
+        seed, rate = dropout
+        if not isinstance(seed, torch.Tensor):
+            seed = seed_tensor(seed, q.device)
+        elif seed.device != q.device:
+            raise ValueError(f"the dropout seed lies on {seed.device}, "
+                             f"q/k/v on {q.device}")
+        dropout = seed, rate
     if with_lse:
         if use_kernel:
             return _launch_forward(q, k, v, layout, with_lse=True,
@@ -351,11 +382,12 @@ def _axes(t: torch.Tensor, layout: str):
 
 
 def _dropout_c_args(dropout) -> tuple:
-    """The kernels' (flag, seed, threshold, inv_keep) arguments."""
+    """The kernels' (flag, seed address, threshold, inv_keep) arguments
+    for ``(seed tensor, rate)``."""
     if dropout is None:
-        return 0, 0, 0, 0.0
+        return 0, None, 0, 0.0
     seed, rate = dropout
-    return 1, seed, _keep_threshold(rate), 1.0 / (1.0 - rate)
+    return 1, seed.data_ptr(), _keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
 def _launch_forward(q, k, v, layout: str, with_lse: bool = False,
@@ -365,7 +397,7 @@ def _launch_forward(q, k, v, layout: str, with_lse: bool = False,
     _check_inputs(q, k, v)
     kdim = q.shape[-1]
     q, k, v = (_pad_head_dim(t) for t in (q, k, v))
-    seed, rate = dropout if dropout is not None else (0, 0.0)
+    seed, rate = dropout or (None, 0.0)
     out, lse = torch.ops.vtd_torch.flash_attention_fwd(
         q, k, v, layout, with_lse, seed, rate)
     out = out[..., :kdim] if kdim < out.shape[-1] else out
@@ -378,7 +410,7 @@ def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None):
     delta are (B, H, N) fp32; dq accumulates in fp32 and is cast to q's
     dtype here, dk and dv come out of the kernel in the input dtype.
     ``dropout`` is the forward's ``(seed, rate)``, whose mask the kernel
-    replays."""
+    replays, reading the seed from device memory."""
     _check_inputs(q, k, v, g)
     kdim = q.shape[-1]
     # The incoming cotangent is whatever view autograd hands over (an
@@ -395,7 +427,7 @@ def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None):
             raise ValueError(
                 f"{name} must be a contiguous float32 {(b, h, n)} tensor on "
                 f"{q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
-    seed, rate = dropout if dropout is not None else (0, 0.0)
+    seed, rate = dropout or (None, 0.0)
     dq, dk, dv = torch.ops.vtd_torch.flash_attention_bwd(
         q, k, v, g, lse, delta, layout, seed, rate)
     return dq[..., :kdim].to(q.dtype), dk[..., :kdim], dv[..., :kdim]

@@ -14,10 +14,10 @@ modules is one operator with
 
 There is no CPU implementation: a CPU tensor handed to an operator
 raises NotImplementedError. The wrappers (kernels/flash_attention.py,
-fused_ln.py, fused_ffn.py, quantization.py) choose the plain PyTorch
-version for CPU tensors before they reach an operator, and an exported
-program traced on the CPU therefore holds the plain versions and no
-operator.
+dropout.py, fused_ln.py, fused_ffn.py, quantization.py) choose the plain
+PyTorch version for CPU tensors before they reach an operator, and an
+exported program traced on the CPU therefore holds the plain versions and
+no operator.
 
 The operators take what the kernels take: the wrappers check shapes and
 dtypes, pad the flash head dim and pick an instance, the operators make
@@ -35,7 +35,8 @@ from typing import Optional, Tuple
 import torch
 from torch.library import custom_op
 
-from . import _build, flash_attention, fused_ffn, fused_ln, quantization
+from . import (_build, dropout, flash_attention, fused_ffn, fused_ln,
+               quantization)
 
 NAMESPACE = "vtd_torch"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,6 +46,7 @@ _SOURCES = {
     "ln": fused_ln.SOURCE,
     "ffn": fused_ffn.SOURCE,
     "int8": quantization.SOURCE,
+    "drop": dropout.SOURCE,
 }
 
 
@@ -58,8 +60,9 @@ def _library(kind: str) -> ctypes.CDLL:
     """The built library of one source, with its entry point's C types."""
     lib = _build.load_library(_SOURCES[kind])
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # dropout flag, seed, keep threshold, inv_keep, then the stream.
-    dropout = [i32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ptr]
+    # dropout flag, the seed's device address, keep threshold, inv_keep,
+    # then the stream.
+    dropout = [i32, ptr, ctypes.c_uint32, ctypes.c_float, ptr]
     if kind == "fwd":
         fn = lib.vtd_flash_attention_fwd
         fn.argtypes = [ptr] * 5 + [i32] * 5 + [i64] * 12 + dropout
@@ -72,9 +75,13 @@ def _library(kind: str) -> ctypes.CDLL:
     elif kind == "ffn":
         fn = lib.vtd_dense_mish
         fn.argtypes = [ptr] * 4 + [i32] * 6 + [ctypes.POINTER(i32), ptr]
-    else:
+    elif kind == "int8":
         fn = lib.vtd_int8_dense
         fn.argtypes = [ptr] * 6 + [i32] * 7 + [ctypes.POINTER(i32), ptr]
+    else:
+        fn = lib.vtd_dropout
+        fn.argtypes = [ptr, ptr, i64, i32, i32, ptr, ctypes.c_uint32,
+                       ctypes.c_float, ptr]
     fn.restype = i32
     lib.vtd_cuda_error_string.argtypes = [i32]
     lib.vtd_cuda_error_string.restype = ctypes.c_char_p
@@ -85,9 +92,20 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _dropout(seed: int, rate: float):
-    """The wrappers' ``(seed, rate)`` form, None for rate 0."""
-    return None if rate == 0.0 else (seed, rate)
+def _dropout(seed: Optional[torch.Tensor], rate: float, device):
+    """The wrappers' ``(seed, rate)`` form, None for rate 0. The seed is a
+    one-element uint32 tensor on the inputs' device, which the kernel
+    reads: no host value is baked into the launch."""
+    if rate == 0.0:
+        return None
+    if (seed is None or seed.numel() != 1 or seed.device != device
+            or seed.dtype != torch.uint32):
+        raise ValueError(
+            "dropout needs a one-element uint32 seed tensor on "
+            f"{device}, got "
+            + ("None" if seed is None else
+               f"{tuple(seed.shape)} {seed.dtype} on {seed.device}"))
+    return seed, rate
 
 
 # ---------------------------------------------------------------------------
@@ -96,16 +114,19 @@ def _dropout(seed: int, rate: float):
 
 @_define("flash_attention_fwd")
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        layout: str, with_lse: bool, dropout_seed: int,
+                        layout: str, with_lse: bool,
+                        dropout_seed: Optional[torch.Tensor],
                         dropout_rate: float
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` of softmax(q k^T) v over ``layout``-ordered q/k/v,
     their head dim already one of the kernel's widths. lse is ``(B, H,
     N)`` fp32 with ``with_lse``, else empty. ``dropout_rate`` 0 means no
-    dropout. One launch of csrc/flash_attention_fwd.cu."""
+    dropout; otherwise ``dropout_seed`` is the one-element device tensor
+    the kernel reads the seed from. One launch of
+    csrc/flash_attention_fwd.cu."""
     fa = flash_attention
     q, k, v = fa._kernel_operands(layout, q=q, k=k, v=v)
-    dropout = _dropout(dropout_seed, dropout_rate)
+    dropout = _dropout(dropout_seed, dropout_rate, q.device)
     out = torch.empty_like(q)
     (b, h, n), _ = fa._axes(q, layout)
     lse = torch.empty((b, h, n) if with_lse else (0,), dtype=torch.float32,
@@ -139,16 +160,18 @@ def _(q, k, v, layout, with_lse, dropout_seed, dropout_rate):
 @_define("flash_attention_bwd")
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         g: torch.Tensor, lse: torch.Tensor,
-                        delta: torch.Tensor, layout: str, dropout_seed: int,
+                        delta: torch.Tensor, layout: str,
+                        dropout_seed: Optional[torch.Tensor],
                         dropout_rate: float
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq fp32, dk, dv)`` at the padded head dim from the backward
     kernel (csrc/flash_attention_bwd.cu); lse and delta are contiguous
     ``(B, H, N)`` fp32; dq accumulates in a zeroed fp32 buffer. A nonzero
-    ``dropout_rate`` replays the forward's mask."""
+    ``dropout_rate`` replays the forward's mask, its seed read from
+    ``dropout_seed``'s device memory."""
     fa = flash_attention
     q, k, v, g = fa._kernel_operands(layout, q=q, k=k, v=v, g=g)
-    dropout = _dropout(dropout_seed, dropout_rate)
+    dropout = _dropout(dropout_seed, dropout_rate, q.device)
     (b, h, n), _ = fa._axes(q, layout)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -313,3 +336,34 @@ def _(x2, kernel_q, transposed, scale, bias, apply_mish, request):
 def _(x2, kernel_q, transposed, scale, bias, apply_mish, request):
     return x2.new_empty((x2.shape[0], kernel_q.shape[1]),
                         dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Dropout of the MLP and head activations (no Pallas counterpart)
+# ---------------------------------------------------------------------------
+
+@_define("dropout")
+def dropout_apply(x2: torch.Tensor, seed: torch.Tensor,
+                  rate: float) -> torch.Tensor:
+    """keras Dropout of the rows of 2-D ``x2`` with the counter-hash mask
+    of the uint32 seed in ``seed``'s device memory (csrc/dropout.cu),
+    output in x2's dtype."""
+    _dropout(seed, rate, x2.device)
+    x2 = x2.contiguous()
+    out = torch.empty_like(x2)
+    lib = _library("drop")
+    with torch.cuda.device(x2.device):
+        err = lib.vtd_dropout(
+            x2.data_ptr(), out.data_ptr(), x2.shape[0], x2.shape[1],
+            _DTYPE_CODES[x2.dtype], seed.data_ptr(),
+            flash_attention._keep_threshold(rate), dropout.inv_keep(rate),
+            _stream(x2.device))
+    _build.raise_on_error(lib, err, "dropout")
+    with dropout._count_lock:
+        dropout.dropout.launches += 1
+    return out
+
+
+@dropout_apply.register_fake
+def _(x2, seed, rate):
+    return x2.new_empty(x2.shape)

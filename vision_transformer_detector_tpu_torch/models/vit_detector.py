@@ -44,12 +44,22 @@ multi-scale head. ``remat_encoder`` checkpoints encoder blocks with
 
 Training dropout (``train=True`` with ``config.dropout``) needs a
 ``dropout_seed``: an integer, from which ``dropout_seeds`` derives one
-seed per attention, MLP and head layer, or that table itself. Attention
-dropout runs in the flash kernel (the JAX counter-hash mask, bit-equal to
-JAX's for the same seed) or on the einsum route's probabilities; the MLP
-and head masks are drawn from a ``torch.Generator`` seeded with the
-layer's seed, so a recomputed block draws the same masks. They are another
-stream than JAX's threefry masks, of the same Bernoulli(1 - rate).
+seed per attention, MLP and head layer, that table (``DropoutSeeds``), or
+the table as a uint32 tensor on the device (``seed_table``), which is the
+form a CUDA graph over the train step reads. The forward hands each layer
+a view of that tensor: attention dropout runs in the flash kernel, which
+reads its seed from device memory (the JAX counter-hash mask, bit-equal to
+JAX's for the same seed), or on the einsum route's probabilities; the MLP
+and head masks are the same counter hash of the layer's seed and each
+element's (row, column) index (kernels/dropout.py: one kernel pass on the
+card that reads the seed from device memory, tensor ops on the CPU), so a
+recomputed block, an eager step and a replayed graph draw the same masks.
+They are another stream than JAX's threefry masks, of the same
+Bernoulli(1 - rate).
+
+``pad_attention_key_dim`` widens the attention head dim with zero columns,
+as the JAX package's does; ``forward`` reads the physical head dim from
+the weights and keeps ``config.key_dim`` for the softmax scale.
 
 Not ported, and rejected with NotImplementedError rather than run
 differently: ring attention and sequence sharding (both need a mesh).
@@ -70,6 +80,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from ..config import DetectorConfig
+from ..kernels.dropout import dropout
 from ..kernels.flash_attention import flash_attention
 from ..kernels.fused_ffn import fused_dense_mish
 from ..kernels.fused_ln import fused_layer_norm, layer_norm_reference
@@ -264,6 +275,37 @@ def count_params(params: nn.Module) -> int:
     return sum(p.numel() for p in params.parameters())
 
 
+def pad_attention_key_dim(params: ViTDetector, to: int = 64) -> ViTDetector:
+    """Widen every attention projection's head dim with zero columns (the
+    JAX package's ``pad_attention_key_dim``): q/k/v kernels ``(D, H, K) ->
+    (D, H, to)`` with ``(H, K) -> (H, to)`` biases, the out kernel ``(H, K,
+    D) -> (H, to, D)``. Exact: padded q/k columns add 0 to the scores,
+    padded v columns give zero outputs that the zero out rows consume, and
+    every gradient onto the padding is zero. Returns a new model on the
+    same device (``params`` itself when its head dim is already ``to`` or
+    wider)."""
+    if is_quantized(params.linear_projection):
+        raise ValueError("pad_attention_key_dim widens float weights; pad "
+                         "before quantize_params")
+    key_dim = params.encoder[0].mha.query.kernel.shape[-1]
+    if key_dim >= to:
+        return params
+    extra = to - key_dim
+    padded = {}
+    for name, value in params.state_dict().items():
+        if ".mha." in name and not name.endswith("out.bias"):
+            # q/k/v kernels and biases: the last axis; the out kernel: (H,
+            # K, D)'s middle axis.
+            pad = ((0, 0, 0, extra) if name.endswith("out.kernel")
+                   else (0, extra))
+            value = F.pad(value, pad)
+        padded[name] = value
+    device = next(params.parameters()).device
+    wide = ViTDetector(params.config, head_dim=to).to(device)
+    wide.load_state_dict(padded)
+    return wide
+
+
 # ---------------------------------------------------------------------------
 # Forward building blocks
 # ---------------------------------------------------------------------------
@@ -330,15 +372,12 @@ def _layer_norm(x, layer: LayerNorm, eps: float = 1e-3,
 
 def _dropout(x, rate, seed, train: bool) -> torch.Tensor:
     """keras Dropout (the JAX package's ``_dropout``): x / keep where a
-    Bernoulli(keep) mask is set, else 0, in x's dtype. The mask is drawn
-    from a ``torch.Generator`` on x's device seeded with ``seed``, so a
+    Bernoulli(keep) mask is set, else 0, in x's dtype, through
+    kernels/dropout.py. The mask is ``dropout_mask`` of ``seed``, so a
     block recomputed under remat draws the same mask."""
     if not train or rate is None or rate == 0.0 or seed is None:
         return x
-    keep = 1.0 - rate
-    generator = torch.Generator(device=x.device).manual_seed(seed)
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+    return dropout(x, seed, rate)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -369,6 +408,52 @@ def dropout_seeds(seed: int, config: DetectorConfig) -> DropoutSeeds:
         mlp=tuple(tuple(draw(1, i, j) for j in range(layers))
                   for i in range(blocks)),
         head=tuple(draw(2, j) for j in range(head)))
+
+
+def seed_table_size(config: DetectorConfig) -> int:
+    """Entries of a seed table: one per block (attention), per block and
+    pyramid layer, and per head MLP layer."""
+    return (config.encoder_blocks * (1 + config.encoder_mlp_layers)
+            + len(config.head_units) * config.head_block_repeats)
+
+
+def seed_table(seeds: DropoutSeeds) -> np.ndarray:
+    """A ``DropoutSeeds`` as the flat uint32 vector ``forward`` reads:
+    the attention seeds, then the MLP seeds block by block, then the head
+    seeds."""
+    flat = [*seeds.attention, *(s for layer in seeds.mlp for s in layer),
+            *seeds.head]
+    return np.asarray(flat, dtype=np.uint32)
+
+
+def _device_seed_table(dropout_seed, config: DetectorConfig,
+                       device) -> torch.Tensor:
+    """``forward``'s dropout seeds as a uint32 tensor on ``device``: an
+    integer or a ``DropoutSeeds`` is derived and copied there; a tensor is
+    checked and used as it is (moved, if it lies elsewhere)."""
+    if isinstance(dropout_seed, torch.Tensor):
+        table = dropout_seed
+    else:
+        seeds = (dropout_seed if isinstance(dropout_seed, DropoutSeeds)
+                 else dropout_seeds(dropout_seed, config))
+        table = torch.from_numpy(seed_table(seeds))
+    size = seed_table_size(config)
+    if table.shape != (size,) or table.dtype != torch.uint32:
+        raise ValueError(
+            f"a dropout seed table is a ({size},) uint32 tensor for this "
+            f"config, got {tuple(table.shape)} {table.dtype}")
+    return table.to(device)
+
+
+def _seed_views(table: torch.Tensor, config: DetectorConfig):
+    """One-element views of ``table``: (per block (attention, per-layer
+    MLP seeds), head seeds)."""
+    blocks, layers = config.encoder_blocks, config.encoder_mlp_layers
+    views = list(table.split(1))
+    mlp = views[blocks:blocks * (1 + layers)]
+    return ([(views[i], tuple(mlp[i * layers:(i + 1) * layers]))
+             for i in range(blocks)],
+            tuple(views[blocks * (1 + layers):]))
 
 
 def _dense_activation(x, layer: Dense, config: DetectorConfig,
@@ -502,14 +587,15 @@ def _dots_saveable(ctx, op, *args, **kwargs):
 
 
 def _run_encoder(x, params, config: DetectorConfig, compute_dtype,
-                 train: bool, seeds: Optional[DropoutSeeds]) -> torch.Tensor:
+                 train: bool, seeds) -> torch.Tensor:
     """The encoder blocks, checkpointed as ``config.remat_encoder`` and
     ``remat_policy`` say: None recomputes every block in the backward,
     "dots" saves the 2-D matrix products' outputs and recomputes the rest,
     "alternate" checkpoints the even blocks and runs the odd ones plain.
-    Checkpointing applies only where autograd records. The blocks draw
-    their dropout masks from seeded generators of their own, so no RNG
-    state needs preserving across the recompute."""
+    Checkpointing applies only where autograd records. ``seeds`` is
+    ``_seed_views``' per-block list; the blocks' dropout masks are pure
+    functions of those seeds, so no RNG state needs preserving across the
+    recompute."""
     if config.remat_encoder and config.remat_policy not in (None, "dots",
                                                             "alternate"):
         raise ValueError(
@@ -521,8 +607,7 @@ def _run_encoder(x, params, config: DetectorConfig, compute_dtype,
         extra["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _dots_saveable)
     for i, block in enumerate(params.encoder):
-        block_seeds = (None if seeds is None
-                       else (seeds.attention[i], seeds.mlp[i]))
+        block_seeds = None if seeds is None else seeds[i]
         args = (x, block, config, compute_dtype, train, block_seeds)
         if remat and not (config.remat_policy == "alternate" and i % 2):
             x = checkpoint(_encoder_block, *args, use_reentrant=False,
@@ -574,8 +659,9 @@ def forward(params: ViTDetector, images: torch.Tensor,
             config: DetectorConfig, train: bool = False,
             dropout_seed=None) -> torch.Tensor:
     """``(B, H, W, 3) -> (B, max_objects, 6)`` raw fp32 logits (the sigmoid
-    stays outside, in ops/decode.py). ``dropout_seed`` (an integer, or a
-    ``DropoutSeeds`` table) turns on training dropout when ``train`` and
+    stays outside, in ops/decode.py). ``dropout_seed`` (an integer, a
+    ``DropoutSeeds`` table, or that table as a uint32 tensor, see
+    ``seed_table``) turns on training dropout when ``train`` and
     ``config.dropout`` are set; without it nothing is dropped, as the JAX
     forward without a dropout rng."""
     check_supported(config)
@@ -585,10 +671,10 @@ def forward(params: ViTDetector, images: torch.Tensor,
             "an int8-quantized model is for serving only; train the float "
             "model and quantize it afterwards")
     compute_dtype = _dtype(config.compute_dtype)
-    seeds = dropout_seed
-    if dropout_seed is not None and not isinstance(dropout_seed,
-                                                   DropoutSeeds):
-        seeds = dropout_seeds(dropout_seed, config)
+    block_seeds = head_seeds = None
+    if dropout_seed is not None:
+        block_seeds, head_seeds = _seed_views(
+            _device_seed_table(dropout_seed, config, images.device), config)
 
     patches = extract_patches(images.to(compute_dtype), config.patch_size)
     x = _dense(patches, params.linear_projection, compute_dtype)
@@ -601,7 +687,7 @@ def forward(params: ViTDetector, images: torch.Tensor,
     windowed = config.attention_window is not None
     if windowed:
         x = _window_major(x, config)
-    x = _run_encoder(x, params, config, compute_dtype, train, seeds)
+    x = _run_encoder(x, params, config, compute_dtype, train, block_seeds)
     if windowed:
         x = _window_major(x, config, inverse=True)
 
@@ -614,8 +700,8 @@ def forward(params: ViTDetector, images: torch.Tensor,
     else:
         x = _multi_scale_head_tokens(x, params.head_token_dense, config,
                                      compute_dtype)
-    head_seeds = (seeds.head if seeds is not None
-                  else (None,) * len(params.head_mlp))
+    if head_seeds is None:
+        head_seeds = (None,) * len(params.head_mlp)
     for layer, seed in zip(params.head_mlp, head_seeds):
         x = _dense_activation(x, layer, config, compute_dtype, train, seed)
     return _dense(x, params.head_output, compute_dtype).float()

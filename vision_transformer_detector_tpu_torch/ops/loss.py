@@ -89,8 +89,10 @@ def detection_loss(y_true: torch.Tensor, y_pred: torch.Tensor,
     # CIoU over positives: negative slots get one fixed unit box on both
     # sides BEFORE the CIoU, so masked lanes stay finite forward and back.
     mask4 = object_mask[..., None] > 0
-    dummy = torch.tensor([10.0, 10.0, 5.0, 5.0], dtype=torch.float32,
-                         device=y_true.device)
+    # (10, 10, 5, 5), made on the device: no host copy in the train step
+    # (a CUDA graph cannot capture one).
+    dummy = torch.where(torch.arange(4, device=y_true.device) < 2, 10.0,
+                        5.0).float()
     label_boxes = torch.where(mask4, y_true[..., -4:], dummy)
     pred_boxes = torch.where(mask4, y_pred[..., -4:], dummy)
     loss_ciou = ciou(label_boxes, pred_boxes)

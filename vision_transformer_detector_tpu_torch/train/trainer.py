@@ -1,5 +1,6 @@
 """Training loop: train/eval/predict steps, the epoch loop with the
-reference's eval cadence, best-AP checkpoints and jsonl metrics.
+reference's eval cadence, best-AP checkpoints and jsonl metrics, and the
+windowed loop that runs several epochs per call as a CUDA graph.
 
 Counterpart of vision_transformer_detector_tpu/train/trainer.py, on one
 device (``device``, explicit). PyTorch runs eagerly, so the steps are
@@ -8,14 +9,25 @@ optimizer state in place (the JAX step returns new ones). The train state
 is ``{"params": ViTDetector, "opt_state": dict, "step": int}``, and
 ``Trainer.init_state`` adds ``"dropout_rng"``: a CPU ``torch.Generator``
 seeded with ``TrainConfig.seed + 1`` (the JAX ``fit``'s rng chain seed)
-from which a step with dropout draws its uint32 ``dropout_seed``. It is
-saved and restored with the checkpoints, so a restored run draws the
-masks an uninterrupted one would.
+from which each step with dropout draws its uint32 seed; the step's seed
+table (``models/vit_detector.py:seed_table``) is derived from it on the
+host and copied to the device once per step. The generator is saved and
+restored with the checkpoints, so a restored run draws the masks an
+uninterrupted one would.
 
-Not ported, and refused with NotImplementedError: ``epochs_per_call > 1``
-(the device-resident scan), async checkpointing, gradient accumulation,
-meshes and multi-process runs. Streaming datasets are consumed batch by
-batch; their resume position is not checkpointed.
+``make_multi_step`` is the counterpart of the JAX ``lax.scan`` window: on
+CUDA it captures the train step once as a ``torch.cuda.CUDAGraph`` (two,
+a micro step and an update step, with gradient accumulation) and replays
+it, copying each step's batch and seed row into the graph's static
+buffers; on the CPU it runs the same step eagerly. ``fit(epochs_per_call
+> 1)`` drives it over windows that end at every event epoch, as JAX's
+``_fit_scanned``. Checkpoints can be written asynchronously
+(``async_checkpointing``), and a streaming dataset is prefetched to the
+device one batch ahead, with its resume position saved beside every
+checkpoint.
+
+Not ported, and refused with NotImplementedError: meshes and
+multi-process runs (``mesh``).
 """
 
 from __future__ import annotations
@@ -25,7 +37,7 @@ import json
 import logging
 import os
 import time
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -36,7 +48,8 @@ from ..metrics.mean_average_precision import (
     MeanAveragePrecision)
 
 from ..metrics.fast_map import DeviceMeanAveragePrecision
-from ..models.vit_detector import forward, init_params
+from ..models.vit_detector import (
+    dropout_seeds, forward, init_params, seed_table, seed_table_size)
 from ..ops.decode import transform_predictions
 from ..ops.loss import detection_loss
 from ..utils import checkpoint as ckpt_lib
@@ -81,32 +94,214 @@ def _draw_dropout_seed(state: TrainState) -> int:
     return int(torch.randint(0, 2 ** 32, (), generator=generator))
 
 
-def make_train_step(config: DetectorConfig, loss_config: LossConfig,
-                    optimizer: Adam):
-    """``train_step(state, images, labels) -> (state, loss)``: forward,
-    loss, grads, clip + Adam, ClipWeight. Updates ``state`` in place. With
-    ``config.dropout``, the masks' seed is the next draw of
-    ``state["dropout_rng"]``."""
+def draw_seed_row(state: TrainState, config: DetectorConfig) -> np.ndarray:
+    """The next step's dropout seed table (uint32, host): the next draw of
+    ``state["dropout_rng"]`` through ``dropout_seeds``."""
+    return seed_table(dropout_seeds(_draw_dropout_seed(state), config))
+
+
+def _to_device_async(array: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``; to CUDA from pinned memory without a
+    host sync (the caching host allocator keeps the pinned block until
+    the copy has run)."""
+    tensor = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        return tensor.pin_memory().to(device, non_blocking=True)
+    return tensor.to(device)
+
+
+def make_step_body(config: DetectorConfig, loss_config: LossConfig,
+                   optimizer: Adam) -> Callable:
+    """``body(state, images, labels, seeds, update) -> loss``: forward,
+    loss, grads, the optimizer's (micro) step and ClipWeight on device
+    tensors, with no host read, so a CUDA graph can capture it. ``seeds``
+    is the step's seed table on the device (None: no dropout); ``update``
+    says whether an accumulating optimizer applies its update. Shared by
+    the eager step and ``make_multi_step``."""
     config = train_config_view(config)
 
-    def train_step(state: TrainState, images, labels):
+    def body(state: TrainState, images, labels, seeds,
+             update: bool = True) -> torch.Tensor:
         model = state["params"]
         params = dict(model.named_parameters())
-        dropout_seed = (_draw_dropout_seed(state) if config.dropout
-                        else None)
         with torch.enable_grad():
             logits = forward(model, _maybe_normalize(images), config,
                              train=config.dropout is not None,
-                             dropout_seed=dropout_seed)
+                             dropout_seed=seeds)
             loss = detection_loss(labels, logits, config, loss_config)
             grads = torch.autograd.grad(loss, list(params.values()))
-        optimizer.step(params, dict(zip(params, grads)), state["opt_state"])
+        optimizer.step(params, dict(zip(params, grads)), state["opt_state"],
+                       update=update if optimizer.every_k > 1 else None)
         if config.clip_weight:
             clip_weights(params, config.max_weight)
+        return loss.detach()
+
+    return body
+
+
+def make_train_step(config: DetectorConfig, loss_config: LossConfig,
+                    optimizer: Adam):
+    """``train_step(state, images, labels) -> (state, loss)``: forward,
+    loss, grads, clip + Adam (or one micro step of the accumulation),
+    ClipWeight. Updates ``state`` in place. With ``config.dropout``, the
+    masks' seed table comes from the next draw of
+    ``state["dropout_rng"]``, copied to the device once."""
+    body = make_step_body(config, loss_config, optimizer)
+
+    def train_step(state: TrainState, images, labels):
+        seeds = None
+        if config.dropout:
+            seeds = _to_device_async(draw_seed_row(state, config),
+                                     images.device)
+        loss = body(state, images, labels, seeds,
+                    optimizer.is_update_step(state["step"]))
         state["step"] += 1
-        return state, loss.detach()
+        return state, loss
 
     return train_step
+
+
+def _state_tensors(state: TrainState) -> list:
+    """Every tensor of the train state a step reads or writes."""
+    opt = state["opt_state"]
+    tensors = list(state["params"].parameters())
+    for key in ("mu", "nu", "acc"):
+        if key in opt:
+            tensors += [opt[key][name] for name in opt["order"]]
+    return tensors + [opt[key] for key in ("count", "mini_step")
+                      if key in opt]
+
+
+class _StepGraph:
+    """One train step captured as a CUDA graph.
+
+    The graph reads static buffers (images, labels, the seed row) and
+    writes the model's parameters and the optimizer's state in place.
+    Before capture the step runs once on a side stream (cuBLAS, the
+    autograd engine and the kernels' one-time attributes initialise
+    there), and the state is put back as it was, so the warm-up takes no
+    step of the trajectory. A capture that fails raises with its reason.
+    ``replays`` counts the replays, so that a graph's kernel nodes times
+    its replays are the launches it made."""
+
+    def __init__(self, body, state: TrainState, images: torch.Tensor,
+                 labels: torch.Tensor, seed_len: int, update: bool, pool,
+                 debug: bool = False):
+        device = images.device
+        self.images = images.clone()
+        self.labels = labels.clone()
+        self.seeds = (torch.zeros(seed_len, dtype=torch.uint32,
+                                  device=device) if seed_len else None)
+        saved = [t.detach().clone() for t in _state_tensors(state)]
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            body(state, self.images, self.labels, self.seeds, update)
+            with torch.no_grad():
+                for tensor, value in zip(_state_tensors(state), saved):
+                    tensor.copy_(value)
+        torch.cuda.current_stream(device).wait_stream(side)
+        del saved
+        # Debug mode keeps the captured cudaGraph_t beside the executable
+        # one, so that graph.debug_dump(path) can print its nodes.
+        self.graph = torch.cuda.CUDAGraph(keep_graph=debug)
+        if debug:
+            self.graph.enable_debug_mode()
+        try:
+            # thread_local: a checkpoint writer thread waiting on its event
+            # meanwhile does not invalidate the capture.
+            with torch.cuda.graph(self.graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                self.loss = body(state, self.images, self.labels,
+                                 self.seeds, update)
+        except Exception as exc:
+            raise RuntimeError(
+                f"capturing the train step as a CUDA graph failed: {exc}"
+            ) from exc
+        if debug:
+            self.graph.instantiate()
+        self.replays = 0
+
+    def replay(self, images, labels, seeds, loss_out) -> None:
+        """Copy the step's inputs into the static buffers (device copies on
+        the current stream), replay, and copy the loss to ``loss_out``."""
+        self.images.copy_(images)
+        self.labels.copy_(labels)
+        if self.seeds is not None:
+            self.seeds.copy_(seeds)
+        self.graph.replay()
+        self.replays += 1
+        loss_out.copy_(self.loss)
+
+
+def make_multi_step(config: DetectorConfig, loss_config: LossConfig,
+                    optimizer: Adam, debug_graphs: bool = False):
+    """``multi_step(state, images_stack, labels_stack, n_epochs) -> (state,
+    epoch_losses)``: ``n_epochs * batches`` train steps over the stacked
+    batches (step i takes batch ``i % batches``), the counterpart of the
+    JAX ``make_multi_step`` scan. ``epoch_losses`` is an ``(n_epochs,)``
+    fp32 tensor on the device, the mean of each epoch's step losses.
+
+    With dropout, the window's seed rows are drawn ahead from
+    ``state["dropout_rng"]``, the same draws the per-step loop makes, and
+    copied to the device once per window; ``multi_step.seed_rows`` keeps
+    the last window's rows (host).
+
+    On CUDA the step is captured once per (state, batch shape, update
+    flag) as a CUDA graph and replayed: per step, device copies of batch
+    and seed row into its static buffers, one launch, and the loss copied
+    into a device buffer; the host syncs once, when the caller reads the
+    losses. With ``accumulate_steps > 1`` a micro-step graph and an
+    update-step graph replay in the pattern the host knows from the step
+    count. A graph is captured anew when the state's tensors are other
+    tensors than at its capture (a restore that rebinds them).
+    ``multi_step.graphs`` holds the live ones (``_StepGraph``, by key);
+    ``debug_graphs`` captures them in debug mode, so that
+    ``graph.debug_dump(path)`` can list their kernel nodes. On the CPU the
+    same step body runs eagerly."""
+    body = make_step_body(config, loss_config, optimizer)
+    seed_len = seed_table_size(config) if config.dropout else 0
+    graphs: Dict[Any, _StepGraph] = {}
+    pool = []   # one memory pool for all of them, made at first capture
+
+    def multi_step(state: TrainState, images_stack: torch.Tensor,
+                   labels_stack: torch.Tensor, n_epochs: int):
+        batches = images_stack.shape[0]
+        steps = n_epochs * batches
+        device = images_stack.device
+        rows = (np.stack([draw_seed_row(state, config)
+                          for _ in range(steps)]) if seed_len else None)
+        multi_step.seed_rows = rows
+        seeds = None if rows is None else _to_device_async(rows, device)
+        losses = torch.empty(steps, dtype=torch.float32, device=device)
+        if device.type == "cuda":
+            fingerprint = tuple(t.data_ptr() for t in _state_tensors(state))
+            for key in [k for k in graphs if k[0] != fingerprint]:
+                del graphs[key]
+            if not pool:
+                pool.append(torch.cuda.graph_pool_handle())
+            shapes = (tuple(images_stack.shape[1:]), images_stack.dtype,
+                      tuple(labels_stack.shape[1:]), labels_stack.dtype)
+        for i in range(steps):
+            images = images_stack[i % batches]
+            labels = labels_stack[i % batches]
+            row = None if seeds is None else seeds[i]
+            update = optimizer.is_update_step(state["step"])
+            if device.type == "cuda":
+                key = (fingerprint, shapes, update)
+                if key not in graphs:
+                    graphs[key] = _StepGraph(body, state, images, labels,
+                                             seed_len, update, pool[0],
+                                             debug_graphs)
+                graphs[key].replay(images, labels, row, losses[i])
+            else:
+                losses[i] = body(state, images, labels, row, update)
+            state["step"] += 1
+        return state, losses.reshape(n_epochs, batches).mean(dim=1)
+
+    multi_step.seed_rows = None
+    multi_step.graphs = graphs
+    return multi_step
 
 
 def make_eval_step(config: DetectorConfig):
@@ -209,11 +404,9 @@ class Trainer:
                  check_weights_start: int = 0,
                  weight_threshold: float = 1.0,
                  device="cuda"):
-        for name, used in (("mesh", mesh is not None),
-                           ("async_checkpointing", async_checkpointing)):
-            if used:
-                raise NotImplementedError(
-                    f"Trainer({name}=...) is not ported to PyTorch yet")
+        if mesh is not None:
+            raise NotImplementedError(
+                "Trainer(mesh=...) is not ported to PyTorch yet")
         self.config = config
         self.loss_config = loss_config
         self.train_config = train_config
@@ -228,6 +421,14 @@ class Trainer:
         else:
             self.metric = MeanAveragePrecision(config)
         self.metrics = MetricsWriter(metrics_path)
+        # Async checkpointing: saves overlap training (the loop pays only
+        # the device->host snapshot); fit() joins pending writes on exit.
+        self._async_ckpt = (ckpt_lib.AsyncCheckpointManager()
+                            if async_checkpointing else None)
+        # The windowed loop of fit(epochs_per_call > 1): make_multi_step,
+        # built at first use (a caller may set its own); it keeps its
+        # captured graphs between fit calls.
+        self.multi_step = None
         # Rolling history: each periodic save also writes a step-stamped
         # checkpoint, pruned to the newest ``keep_checkpoints``.
         self.keep_checkpoints = keep_checkpoints
@@ -239,6 +440,13 @@ class Trainer:
         self.best_ap = 0.0
         self.ap_record = []
         self.loss_record = []
+        # The windowed loop's windows, as (first epoch, epochs).
+        self.window_record = []
+        # Resume position of a stateful dataset (ResumableDataset) as of
+        # the batch the trainer last consumed (kept by _device_prefetch,
+        # saved beside every checkpoint, read back by restore; the caller
+        # applies it with dataset.set_state).
+        self.dataset_resume_state = None
 
     # ------------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> TrainState:
@@ -256,23 +464,87 @@ class Trainer:
         return (_to_device(images, self.device),
                 _to_device(labels, self.device))
 
+    def _device_prefetch(self, iterator):
+        """Yield device batches one step ahead: the copy of batch i + 1
+        (from pinned memory, on a side stream) overlaps the train step on
+        batch i. The lookahead advances a ResumableDataset past the batch
+        being trained, so the dataset's state as of each yielded batch
+        goes to ``self.dataset_resume_state``."""
+        get_state = getattr(iterator, "get_state", None)
+        cuda = self.device.type == "cuda"
+        stream = torch.cuda.Stream(self.device) if cuda else None
+
+        def put(images, labels):
+            if not cuda:
+                return self._put_batch(images, labels), None
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                batch = tuple(_to_device_async(np.asarray(a), self.device)
+                              for a in (images, labels))
+                event = torch.cuda.Event()
+                event.record(stream)
+            return batch, event
+
+        def ready(entry):
+            (batch, event), snapshot = entry
+            if event is not None:
+                main = torch.cuda.current_stream(self.device)
+                main.wait_event(event)
+                for t in batch:
+                    t.record_stream(main)
+            if snapshot is not None:
+                self.dataset_resume_state = snapshot
+            return batch
+
+        previous = None
+        for images, labels in iterator:
+            current = (put(images, labels),
+                       get_state() if callable(get_state) else None)
+            if previous is not None:
+                yield ready(previous)
+            previous = current
+        if previous is not None:
+            yield ready(previous)
+
     def fit(self, state: TrainState, train_data, epochs: int,
             eval_data=None, epochs_per_call: int = 1) -> TrainState:
         """Epoch loop with warm-up-gated periodic eval and best-AP
-        checkpoint. A list of batches is moved to the device once."""
-        if epochs_per_call > 1:
-            raise NotImplementedError(
-                "epochs_per_call > 1 (the device-resident multi-epoch "
-                "window) is not ported to PyTorch yet")
+        checkpoint. A list of batches is moved to the device once; another
+        dataset streams through ``_device_prefetch``.
+
+        ``epochs_per_call > 1`` (materialized datasets only) runs up to
+        that many epochs per call of ``make_multi_step`` (a CUDA graph
+        replayed step after step on the card), with one host sync per
+        window. The eval, checkpoint and weight-check cadences are exact:
+        a window ends at every epoch one of them fires on. Pending async
+        checkpoint writes are joined on exit."""
         tic = time.time()
+        self.window_record = []
         materialized = isinstance(train_data, (list, tuple))
-        if materialized:
-            train_data = [self._put_batch(*batch) for batch in train_data]
+        try:
+            if epochs_per_call > 1:
+                if not materialized:
+                    raise ValueError(
+                        "epochs_per_call > 1 requires a materialized "
+                        "dataset (a list of (images, labels) batches): a "
+                        "streaming dataset cannot be stacked on the device "
+                        "for the window")
+                return self._fit_windowed(state, train_data, epochs,
+                                          eval_data, epochs_per_call, tic)
+            if materialized:
+                train_data = [self._put_batch(*batch) for batch in train_data]
+            return self._fit_loop(state, train_data, epochs, eval_data,
+                                  materialized, tic)
+        finally:
+            self.wait_for_checkpoints()
+
+    def _fit_loop(self, state, train_data, epochs, eval_data, materialized,
+                  tic) -> TrainState:
         for epoch in range(epochs):
             epoch_losses = []
-            for images, labels in train_data:
-                if not materialized:
-                    images, labels = self._put_batch(images, labels)
+            epoch_data = (train_data if materialized
+                          else self._device_prefetch(train_data))
+            for images, labels in epoch_data:
                 state, loss = self.train_step(state, images, labels)
                 epoch_losses.append(loss)
             if not epoch_losses:
@@ -293,6 +565,56 @@ class Trainer:
             epoch_loss = float(torch.stack(epoch_losses).mean())
             self._epoch_tail(state, epoch, epochs, eval_data, epoch_loss,
                              tic)
+        return state
+
+    def _fit_windowed(self, state, train_data, epochs, eval_data,
+                      epochs_per_call, tic) -> TrainState:
+        """fit()'s windowed loop (the JAX ``_fit_scanned``): stack the
+        batches on the device once, then run each window of epochs as one
+        ``make_multi_step`` call. Windows end exactly at event epochs, so
+        what ``_epoch_tail`` sees matches the per-epoch loop; the dropout
+        seeds are the draws the loop would make."""
+        if not train_data:
+            raise ValueError(
+                "train_data is empty: no image paths matched, or "
+                "batch_size exceeds the dataset size (an incomplete "
+                "final batch is dropped)")
+        shapes = {(tuple(b[0].shape), tuple(b[1].shape)) for b in train_data}
+        if len(shapes) > 1:
+            raise ValueError(
+                "epochs_per_call > 1 requires uniform batch shapes to "
+                f"stack the dataset for the window; got {sorted(shapes)}. "
+                "Drop or pad the ragged final batch, or use "
+                "epochs_per_call=1 (the per-epoch loop handles ragged "
+                "batches).")
+        def stack(i):
+            # Stacked where the batches lie, then moved once: the device
+            # holds one copy of the data.
+            parts = [b[i] if isinstance(b[i], torch.Tensor)
+                     else torch.from_numpy(np.asarray(b[i]))
+                     for b in train_data]
+            return torch.stack(parts).to(self.device)
+
+        images_stack, labels_stack = stack(0), stack(1)
+        if self.multi_step is None:
+            self.multi_step = make_multi_step(self.config, self.loss_config,
+                                              self.optimizer)
+        has_eval = eval_data is not None
+        epoch = 0
+        while epoch < epochs:
+            window = min(epochs_per_call, epochs - epoch)
+            for j in range(window):
+                if self._is_event_epoch(epoch + j, epochs, has_eval):
+                    window = j + 1
+                    break
+            state, losses = self.multi_step(state, images_stack,
+                                            labels_stack, window)
+            losses = losses.tolist()   # one host sync per window
+            self.window_record.append((epoch, window))
+            for j in range(window):
+                self._epoch_tail(state, epoch + j, epochs, eval_data,
+                                 float(losses[j]), tic)
+            epoch += window
         return state
 
     def _weight_check_due(self, epoch: int) -> bool:
@@ -316,6 +638,15 @@ class Trainer:
                     and ((tc.skip_epochs > 0
                           and epoch % tc.skip_epochs == 0)
                          or epoch == epochs - 1))
+
+    def _is_event_epoch(self, epoch: int, epochs: int,
+                        has_eval: bool) -> bool:
+        """True when _epoch_tail does more than record the loss at this
+        epoch: the windowed loop must end a window there. It shares the
+        three predicates with _epoch_tail, so the two cannot drift."""
+        return (self._weight_check_due(epoch)
+                or (has_eval and self._eval_due(epoch))
+                or self._ckpt_due(epoch, epochs))
 
     def _epoch_tail(self, state: TrainState, epoch: int, epochs: int,
                     eval_data, epoch_loss: float, tic: float) -> None:
@@ -352,19 +683,49 @@ class Trainer:
             # The run is reproducible from its checkpoint dir alone.
             save_configs(config_path, self.config, self.loss_config,
                          self.train_config)
-        ckpt_lib.save_train_state(
-            ckpt_lib.checkpoint_path(self.checkpoint_dir, name), state,
-            self.best_ap, self.config, self.loss_config, self.train_config)
+        path = ckpt_lib.checkpoint_path(self.checkpoint_dir, name)
+        payload = ckpt_lib.train_state_payload(
+            state, self.best_ap, self.config, self.loss_config,
+            self.train_config)
+        if self._async_ckpt is not None:
+            self._async_ckpt.save(path, payload)
+        else:
+            ckpt_lib.write_payload(path, payload)
+        self._save_dataset_state(name)
+
+    def _save_dataset_state(self, name: str) -> None:
+        """The input-stream position beside checkpoint ``name``
+        (``<name>.dataset.json``, written at once: a few bytes). Without a
+        position, a stale sidecar of an earlier run under that name is
+        removed, so it cannot pose as this run's."""
+        sidecar = ckpt_lib.dataset_sidecar_path(self.checkpoint_dir, name)
+        if self.dataset_resume_state is None:
+            if os.path.exists(sidecar):
+                os.remove(sidecar)
+            return
+        tmp = sidecar + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(self.dataset_resume_state, f)
+        os.replace(tmp, sidecar)
 
     def save_rolling(self, state: TrainState) -> str:
         """Step-stamped checkpoint, then prune to the newest
-        ``keep_checkpoints``."""
-        name = ckpt_lib.step_checkpoint_name(state["step"])
+        ``keep_checkpoints`` (an async write still in flight holds one of
+        the slots)."""
+        step = int(state["step"])
+        name = ckpt_lib.step_checkpoint_name(step)
         self.save(state, name=name)
         if self.keep_checkpoints:
-            ckpt_lib.prune_checkpoints(self.checkpoint_dir,
-                                       self.keep_checkpoints)
+            ckpt_lib.prune_checkpoints(
+                self.checkpoint_dir, self.keep_checkpoints,
+                pending_step=step if self._async_ckpt is not None else None)
         return ckpt_lib.checkpoint_path(self.checkpoint_dir, name)
+
+    def wait_for_checkpoints(self) -> None:
+        """Join pending async checkpoint writes (fit() does this on exit;
+        call it after explicit save() calls before reading the files)."""
+        if self._async_ckpt is not None:
+            self._async_ckpt.wait()
 
     def _config_mismatch_hint(self) -> Optional[str]:
         """Why a restore failed, when the checkpoint directory's own
@@ -390,27 +751,49 @@ class Trainer:
                 "pass the matching preset/overrides.")
 
     def restore(self, state: TrainState, name: str = "ongoing") -> TrainState:
-        """Load checkpoint ``name`` into ``state`` (parameters in place)
-        and return it; ``best_ap`` comes back too."""
+        """Load checkpoint ``name`` into ``state`` and return it; ``best_ap``
+        comes back too, and the input position of a sidecar, if there is
+        one. Parameters and optimizer tensors are overwritten in place, so
+        a captured train-step graph stays valid. Pending async writes are
+        joined first."""
+        self.wait_for_checkpoints()
         path = ckpt_lib.checkpoint_path(self.checkpoint_dir, name)
         try:
             payload = ckpt_lib.load_train_state(path, self.device)
-            state["params"].load_state_dict(payload["params"])
             opt_state = payload["opt_state"]
-            if opt_state["order"] != state["opt_state"]["order"]:
+            live = state["opt_state"]
+            if opt_state["order"] != live["order"]:
                 raise ValueError(
                     f"{path}: optimizer state is for other parameters")
+            if set(opt_state) != set(live):
+                raise ValueError(
+                    f"{path}: optimizer state holds {sorted(opt_state)}, "
+                    f"this optimizer {sorted(live)} (another "
+                    "accumulate_steps?)")
+            state["params"].load_state_dict(payload["params"])
         except Exception as exc:
             hint = self._config_mismatch_hint()
             if hint:
                 raise ValueError(f"{exc}\n{hint}") from exc
             raise
-        state["opt_state"] = opt_state
+        with torch.no_grad():
+            for key in ("mu", "nu", "acc"):
+                for name_, value in opt_state.get(key, {}).items():
+                    live[key][name_].copy_(value)
+            for key in ("count", "mini_step"):
+                if key in opt_state:
+                    live[key].copy_(torch.as_tensor(opt_state[key]))
         state["step"] = int(payload["step"])
         if "dropout_rng" in payload:
             state["dropout_rng"] = torch.Generator()
             state["dropout_rng"].set_state(payload["dropout_rng"].cpu())
         self.best_ap = float(payload["best_ap"])
+        # Read only once the state restore succeeded: restore_latest probes
+        # torn checkpoints, whose sidecar must not leak in.
+        sidecar = ckpt_lib.dataset_sidecar_path(self.checkpoint_dir, name)
+        if os.path.exists(sidecar):
+            with open(sidecar) as f:
+                self.dataset_resume_state = json.load(f)
         return state
 
     def restore_latest(self, state: TrainState) -> TrainState:
