@@ -34,7 +34,9 @@ PyTorch version. Phases, one output line each:
                     Function's grads against autograd through
                     reference_attention: (64, 1296, 40) fp32 tokens-major
                     (reference_608 at batch 8), (12, 576, 64) bf16 and fp32
-                    heads-major, and a ragged N; times forward-with-lse,
+                    heads-major, and a ragged N; the backward launched 10
+                    times at the reference_608 shape, dq, dk and dv
+                    bit-equal every time; times forward-with-lse,
                     backward and forward+backward, kernel against plain, at
                     the reference_608 shape, beside scaled_dot_product_
                     attention forward and backward;
@@ -48,7 +50,10 @@ PyTorch version. Phases, one output line each:
                     model folds its windows), (64, 1296, 40) fp32
                     tokens-major and a ragged N; the kernel's mask read
                     back exactly (q = k = 0, v one-hot) for 2,048
-                    batch*heads; times in turns against the plain versions
+                    batch*heads; the backward with and without the replay
+                    launched 10 times at (2048, 256, 64) bf16, dq, dk and
+                    dv bit-equal every time; times in turns against the
+                    plain versions
                     and scaled_dot_product_attention with dropout_p, and
                     highres_1024 as shipped (forward with lse and backward,
                     no dropout) against both without dropout;
@@ -116,16 +121,18 @@ PyTorch version. Phases, one output line each:
                     replays it, against the per-epoch eager loop from one
                     seeded state: (a) reference_608, fp32, batch 8, 12
                     epochs in windows of 4 cut by an eval and checkpoint
-                    cadence that does not divide 4: per-epoch losses within
-                    rtol 2e-5, the same AP records, the parameters after
-                    the fit within rtol 1e-4 (atol 1e-5), the windows cut
-                    at the event epochs; (b) highres_1024, bf16, dropout
-                    0.1, remat None, batch 8, lr 1e-6, 8 steps: the graph's
-                    seed rows are the loop's draws and its seed buffer
-                    holds the last one, step 0's loss bit-equal and each
-                    step's within 2^-7 per step (a second eager run's
-                    distance beside it), and a planted fault (replays that
-                    never write the seed buffer) fails that comparison;
+                    cadence that does not divide 4: per-epoch losses and
+                    the parameters after the fit bit-equal (graph against
+                    loop, and a second eager loop against the first), the
+                    same AP records, the windows cut at the event epochs;
+                    (b) highres_1024, bf16, dropout 0.1, remat None, batch
+                    8, lr 1e-5, 8 steps: the graph's seed rows are the
+                    loop's draws and its seed buffer holds the last one,
+                    every step's loss bit-equal (graph against loop, a
+                    second eager loop, a third under torch.use_
+                    deterministic_algorithms, whose warnings are listed),
+                    and a planted fault (replays that never write the seed
+                    buffer) fails that comparison;
                     (c) each graph's kernel nodes (debug dump): 8 + 8 flash
                     per reference_608 step, 48 B1-drop + 24 B2-replay and
                     the loop's MLP dropout launches per highres_1024 step,
@@ -191,6 +198,7 @@ import sys
 import tempfile
 import time
 import urllib.request
+import warnings
 
 REQUESTS = 4            # HTTP requests in the serving phases
 TRAIN_STEPS = 20        # Trainer.fit epochs (one batch each) in `train`
@@ -308,8 +316,12 @@ def phase_build():
     _require(set(ptxas) == set(sources), f"built {sorted(ptxas)}")
     hmma = {source: _tensor_core_instructions(_build.library_path(source))
             for source in (fa.FWD_SOURCE, fa.BWD_SOURCE)}
+    # 8 instances each (type x head dim x dropout); the backward's dq
+    # kernel adds its own 8 ("_dq") and the partials route 4 in fp32
+    # ("_partials").
     for source, counts in hmma.items():
-        _require(len(counts) == 8 and sum(counts.values()) > 0,
+        _require(len(counts) == (20 if source == fa.BWD_SOURCE else 8)
+                 and sum(counts.values()) > 0,
                  f"{source}: tensor-core instructions {counts}")
         _require(all(n > 0 for name, n in counts.items()
                      if name.startswith("bf16")),
@@ -335,7 +347,9 @@ def phase_build():
 
 def _tensor_core_instructions(library: str) -> dict:
     """HMMA/HGMMA lines of each flash kernel instance in the library's
-    SASS (cuobjdump from nvcc's toolkit), by "<type>_d<head dim>[_drop]"."""
+    SASS (cuobjdump from nvcc's toolkit), by "<type>_d<head dim>[_drop]",
+    "_dq" after the backward's dq kernel's, "_partials" after the dk/dv
+    kernel's that also forms the dq partials (fp32)."""
     from vision_transformer_detector_tpu_torch.kernels import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
@@ -344,12 +358,15 @@ def _tensor_core_instructions(library: str) -> dict:
                           text=True, timeout=300, check=True).stdout
     counts, name = {}, None
     for line in sass.splitlines():
-        found = re.search(r"Function : \S*flash_(?:fwd|bwd)_kernelI"
-                          r"(13__nv_bfloat16|f)Li(\d+)ELb([01])E", line)
+        found = re.search(r"Function : \S*flash_(fwd|bwd)(_dq)?_kernelI"
+                          r"(13__nv_bfloat16|f)Li(\d+)ELb([01])E(Lb1E)?",
+                          line)
         if found:
-            dtype, dim, drop = found.groups()
+            kind, dq, dtype, dim, drop, flag = found.groups()
+            partials = kind == "bwd" and flag
             name = (f"{'fp32' if dtype == 'f' else 'bf16'}_d{dim}"
-                    f"{'_drop' if drop == '1' else ''}")
+                    f"{'_drop' if drop == '1' else ''}{dq or ''}"
+                    f"{'_partials' if partials else ''}")
             counts[name] = 0
         elif "Function :" in line:
             name = None
@@ -470,6 +487,47 @@ def _grad_errors(got: dict, ref: dict, tol: float, what: str) -> tuple:
     return worst, errs[worst]
 
 
+B2_REPEATS = 10   # launches of each B2 instance on the same inputs
+# B2's times before its dq adds were ordered, at the same shapes (PERF.md,
+# PR 5's chip_smoke.py run, NVIDIA H100 80GB HBM3, 700.00 W), printed
+# beside this run's.
+B2_UNORDERED_MS = {"fp32_64x1296x40": 1.768, "bf16_2048x256x64": 0.743,
+                   "bf16_2048x256x64_drop": 0.7788}
+
+
+def _b2_repeats(q, k, v, g, lse, delta, layout, drop=None,
+                route=None) -> dict:
+    """B2_REPEATS launches of the backward operator on the same inputs,
+    by the dq route the dtype selects or the named one: dq (fp32, as the
+    kernels sum it), dk and dv must be bit-equal to the first launch's."""
+    import torch
+
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa)
+
+    padded = [fa._pad_head_dim(t) for t in (q, k, v, g)]
+    seed, rate = drop or (None, 0.0)
+
+    def run():
+        return torch.ops.vtd_torch.flash_attention_bwd(
+            *padded, lse, delta, layout, seed, rate, fa.DQ_ROUTES[route])
+
+    first = run()
+    differ = {"dq": 0, "dk": 0, "dv": 0}
+    for _ in range(B2_REPEATS - 1):
+        for name, a, b in zip(differ, run(), first):
+            differ[name] += int(not torch.equal(a, b))
+    torch.cuda.synchronize()
+    _require(not any(differ.values()),
+             f"B2 {tuple(q.shape)} {q.dtype} dropout={drop is not None}: "
+             f"launches that differ from the first, per gradient: {differ}")
+    (b, h, n), _ = fa._axes(padded[0], layout)
+    return {"launches": B2_REPEATS, "bit_equal": True,
+            "route": fa.dq_route(q.dtype, fa.DQ_ROUTES[route],
+                                 fa.partials_bytes(b, h, n,
+                                                   padded[0].shape[-1]))}
+
+
 def phase_kernel_train():
     import torch
 
@@ -492,9 +550,9 @@ def phase_kernel_train():
         return [t.transpose(1, 2) for t in out] if layout == "bhnk" else out
 
     # lse: fp32 on both sides from the same inputs; summation order only.
-    # Grads, relative to the largest: fp32 2e-5 (summation order, and dq's
-    # atomic adds in run-dependent order); bf16 2e-2 (p and ds round to
-    # bf16 at other points), the JAX package's kernel contract.
+    # Grads, relative to the largest: fp32 2e-5 (summation order); bf16
+    # 2e-2 (p and ds round to bf16 at other points), the JAX package's
+    # kernel contract.
     grad_tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     lse_tol = 1e-4
     cases = (("bnhk", (8, 1296, 8, 40), torch.float32),   # reference_608 b8
@@ -540,11 +598,27 @@ def phase_kernel_train():
                         "bwd_abs": abs_err, "function_vs_autograd_rel":
                         fn_err}
 
-    # Times at the reference_608 batch-8 shape, kernel against plain.
+    # Times at the reference_608 batch-8 shape, kernel against plain; B2
+    # bit-equal over repeated launches there first.
     q, k, v, g = inputs("bnhk", (8, 1296, 8, 40), torch.float32)
     out, lse = fa.flash_attention(q, k, v, with_lse=True)
     delta = fa._heads_major((g.float() * out.float()).sum(-1),
                             "bnhk").contiguous()
+    # Both dq routes in fp32: each bit-equal over its launches, and the
+    # one the dtype does not select within the same tolerance of the plain
+    # version, timed beside it below.
+    repeats = {"selected": _b2_repeats(q, k, v, g, lse, delta, "bnhk")}
+    other = ("split" if repeats["selected"]["route"] == "partials"
+             else "partials")
+    repeats[other] = _b2_repeats(q, k, v, g, lse, delta, "bnhk", route=other)
+    plain = fa.reference_attention_backward(q, k, v, g)
+    other_err = max(_rel_err(a, b) for a, b in zip(
+        fa._launch_backward(q, k, v, g, lse, delta, "bnhk", route=other),
+        plain))
+    _require(other_err <= grad_tol[torch.float32],
+             f"backward by the {other} route: rel err {other_err}")
+    errors["64x1296x40_float32_bnhk"][f"{other}_route_bwd_rel"] = other_err
+    del plain
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
 
     def step(use_kernel):
@@ -578,6 +652,8 @@ def phase_kernel_train():
             "plain_ms": lambda: fa.reference_attention_backward(q, k, v, g),
             "kernel_ms": lambda: fa._launch_backward(q, k, v, g, lse, delta,
                                                      "bnhk"),
+            f"{other}_ms": lambda: fa._launch_backward(
+                q, k, v, g, lse, delta, "bnhk", route=other),
             "library_ms": lambda: torch.autograd.grad(
                 lib_out, lib_leaves, heads[3], retain_graph=True)}, 10),
         "fwd_bwd": _in_turns({"plain_ms": lambda: step(False),
@@ -585,7 +661,9 @@ def phase_kernel_train():
                               "library_ms": lambda: lib_step(backend)}, 5),
     }
     _report("kernel_train", errors=errors,
-            times_fp32_64x1296x40=times, sdpa_backend=backend.name)
+            b2_repeats_fp32_64x1296x40=repeats,
+            times_fp32_64x1296x40=times, b2_unordered_ms=B2_UNORDERED_MS[
+                "fp32_64x1296x40"], sdpa_backend=backend.name)
     ref = errors["64x1296x40_float32_bnhk"]
     return ref, times
 
@@ -619,8 +697,8 @@ def phase_kernel_drop():
         return [t.to(dtype) for t in (q.mul(shape[-1] ** -0.5), k, v, g)]
 
     # Tolerances as in kernel_train: out and grads relative to the largest
-    # value, fp32 2e-5 (summation order, dq's atomics), bf16 2e-2 (p and
-    # ds round to bf16 at other points); lse fp32 1e-4 absolute.
+    # value, fp32 2e-5 (summation order), bf16 2e-2 (p and ds round to
+    # bf16 at other points); lse fp32 1e-4 absolute.
     tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     lse_tol = 1e-4
     cases = (("bhnk", (8, 256, 256, 64), torch.bfloat16),   # highres b8
@@ -727,6 +805,8 @@ def phase_kernel_drop():
     }
     out, lse = fa.flash_attention(q, k, v, layout="bhnk", with_lse=True, **kw)
     delta = (g.float() * out.float()).sum(-1)
+    repeats = {"bf16_2048x256x64_drop": _b2_repeats(q, k, v, g, lse, delta,
+                                                    "bhnk", drop)}
     lib_out = _sdpa(*lib_leaves, backend, DROP_RATE)
     times["bwd_drop"] = _in_turns({
         "plain_ms": lambda: fa.reference_attention_backward(q, k, v, g,
@@ -747,6 +827,7 @@ def phase_kernel_drop():
     out, lse = fa.flash_attention(q, k, v, layout="bhnk", with_lse=True)
     delta = (g.float() * out.float()).sum(-1)
     grads = fa._launch_backward(q, k, v, g, lse, delta, "bhnk")
+    repeats["bf16_2048x256x64"] = _b2_repeats(q, k, v, g, lse, delta, "bhnk")
     torch.cuda.synchronize()
     ref = fa.reference_attention(q, k, v, "bhnk")
     plain = fa.reference_attention_backward(q, k, v, g, "bhnk")
@@ -778,7 +859,10 @@ def phase_kernel_drop():
     _report("kernel_drop", rate=DROP_RATE, seed=DROP_SEED, errors=errors,
             mask_readback={"bh": bh, "n": n, "mismatches": mismatches,
                            "keep_rate": keep_rate},
-            times_bf16_2048x256x64=times, sdpa_backend=backend.name,
+            b2_repeats=repeats, times_bf16_2048x256x64=times,
+            b2_unordered_ms={name: B2_UNORDERED_MS[name] for name in (
+                "bf16_2048x256x64", "bf16_2048x256x64_drop")},
+            sdpa_backend=backend.name,
             sdpa_backend_no_dropout=shipped_backend.name)
     return errors["2048x256x64_bfloat16_bhnk"], times
 
@@ -1320,6 +1404,24 @@ def _check_detections(result: dict, size, num_classes: int) -> None:
                  f"box {det['box']}")
 
 
+def _post_jpegs(base: str, jpegs, num_classes: int) -> list:
+    """POST each ``(size, bytes)`` JPEG to ``base``/predict and check the
+    answer; the request latencies in ms."""
+    latencies = []
+    for size, data in jpegs:
+        request = urllib.request.Request(
+            f"{base}/predict", data=data,
+            headers={"Content-Type": "image/jpeg"})
+        tic = time.perf_counter()
+        with urllib.request.urlopen(request, timeout=120) as response:
+            status = response.status
+            result = json.loads(response.read())
+        latencies.append((time.perf_counter() - tic) * 1e3)
+        _require(status == 200, f"HTTP {status}")
+        _check_detections(result, size, num_classes)
+    return latencies
+
+
 def phase_serve():
     import numpy as np
     import torch
@@ -1341,20 +1443,8 @@ def phase_serve():
     server.start()
     try:
         base = f"http://127.0.0.1:{server.port}"
-        jpegs = _jpegs(REQUESTS)
-        latencies = []
         flash_attention.launches = 0
-        for size, data in jpegs:
-            request = urllib.request.Request(
-                f"{base}/predict", data=data,
-                headers={"Content-Type": "image/jpeg"})
-            tic = time.perf_counter()
-            with urllib.request.urlopen(request, timeout=120) as response:
-                status = response.status
-                result = json.loads(response.read())
-            latencies.append((time.perf_counter() - tic) * 1e3)
-            _require(status == 200, f"HTTP {status}")
-            _check_detections(result, size, config.num_classes)
+        latencies = _post_jpegs(base, _jpegs(REQUESTS), config.num_classes)
         launches = flash_attention.launches
         with urllib.request.urlopen(f"{base}/stats", timeout=30) as response:
             stats = json.loads(response.read())
@@ -1432,19 +1522,8 @@ def phase_serve_int8():
     server.start()
     try:
         base = f"http://127.0.0.1:{server.port}"
-        latencies = []
         _reset_counts()
-        for size, data in _jpegs(REQUESTS):
-            request = urllib.request.Request(
-                f"{base}/predict", data=data,
-                headers={"Content-Type": "image/jpeg"})
-            tic = time.perf_counter()
-            with urllib.request.urlopen(request, timeout=120) as response:
-                status = response.status
-                result = json.loads(response.read())
-            latencies.append((time.perf_counter() - tic) * 1e3)
-            _require(status == 200, f"HTTP {status}")
-            _check_detections(result, size, config.num_classes)
+        latencies = _post_jpegs(base, _jpegs(REQUESTS), config.num_classes)
         launches = _expect_counts("int8", REQUESTS)
         with urllib.request.urlopen(f"{base}/stats", timeout=30) as response:
             stats = json.loads(response.read())
@@ -1544,8 +1623,7 @@ def phase_train():
              == (config.encoder_blocks,) * 2,
              "one card step did not launch each kernel once per block")
     # fp32 on both devices (TF32 off); sums run in other orders on the
-    # CPU and the card (and dq's atomics in run-dependent order) through
-    # 8 blocks. The attention key bias's gradient is zero in exact
+    # CPU and the card through 8 blocks. The attention key bias's gradient is zero in exact
     # arithmetic (the softmax cancels it), so both sides hold rounding
     # noise there: it is held to the largest gradient instead.
     loss_tol, grad_tol = 1e-4, 2e-3
@@ -1609,8 +1687,7 @@ def phase_train():
     # (d) save and restore: parameters, step and every Adam moment come
     # back bit for bit, and the next step's loss is identical (the loss
     # is read before the update, so it sees the parameters only; the
-    # moments are compared directly, since dq's atomic adds make the
-    # update itself differ in its last bits from run to run).
+    # moments are compared directly).
     images8, labels8 = (torch.from_numpy(a).to("cuda") for a in data[0])
     saved = {"params": {n: t.clone() for n, t in
                         state["params"].state_dict().items()},
@@ -1713,7 +1790,7 @@ def phase_train_highres():
         return loss.item(), {n: g.cpu() for n, g in zip(named, grads)}
 
     # (a) card against CPU, dropout off (no seed), batch 1, fp32: sums in
-    # other orders (and dq's atomics) through 2 full-width blocks.
+    # other orders through 2 full-width blocks.
     loss_tol, grad_tol = 1e-4, 2e-3
     params = init_params(small, torch.Generator().manual_seed(SEED))
     images, labels = next(synthetic_batches(small, 1, 1, seed=SEED))
@@ -1728,8 +1805,8 @@ def phase_train_highres():
     del cpu_grads, gpu_grads
 
     # (b) remat None against no remat, dropout on, one seed, on the card:
-    # the forward is the same computation (equal loss); the grads differ
-    # by dq's atomic adds in run-dependent order.
+    # the forward is the same computation (equal loss); the grads are held
+    # within 1e-4 of each other.
     remat_tol = 1e-4
     seed = 12345
     remat_losses, grads = {}, {}
@@ -1859,13 +1936,16 @@ BF16_STEP_TOL = 2 ** -7  # one bf16 rounding: a step's loss, across paths
 
 def _graph_kernel_nodes(graphs, tag: str) -> dict:
     """Kernel nodes of each captured train-step graph (debug mode), read
-    from its DOT dump: {graph: {fwd, fwd_drop, bwd, bwd_drop, mlp_drop,
-    kernels, replays}}, the flash kernels by symbol (template flag
-    ``Lb1E``: the dropout instance), the MLP/head dropout kernel's,
-    ``kernels`` every kernel node and ``replays`` the graph's replays so
-    far."""
+    from its DOT dump: {graph: {fwd, fwd_drop, bwd, bwd_drop, bwd_dq,
+    bwd_dq_drop, bwd_dq_sum, mlp_drop, kernels, replays}}, the flash
+    kernels by symbol (template flag ``Lb1E``: the dropout instance;
+    ``bwd_dq`` the split route's dq kernel and ``bwd_dq_sum`` the partials
+    route's sum kernel, one of the two beside each ``bwd``), the MLP/head
+    dropout kernel's, ``kernels`` every kernel node and ``replays`` the
+    graph's replays so far."""
     node = re.compile(r'^"(graph_\d+_node_\d+)"\[', re.M)
-    symbol = re.compile(r"flash_(fwd|bwd)_kernelI\w*?L(?:b([01]))E")
+    symbol = re.compile(
+        r"flash_(fwd|bwd|bwd_dq|bwd_dq_sum)_kernelI\w*?(?:L(?:b([01]))E|EE)")
     result = {}
     with tempfile.TemporaryDirectory() as tmp:
         for key, step_graph in graphs.items():
@@ -1876,6 +1956,7 @@ def _graph_kernel_nodes(graphs, tag: str) -> dict:
                 text = f.read()
             starts = [m.start() for m in node.finditer(text)] + [len(text)]
             counts = dict.fromkeys(("fwd", "fwd_drop", "bwd", "bwd_drop",
+                                    "bwd_dq", "bwd_dq_drop", "bwd_dq_sum",
                                     "mlp_drop", "kernels"), 0)
             for begin, end in zip(starts, starts[1:]):
                 block = text[begin:end]
@@ -1889,6 +1970,13 @@ def _graph_kernel_nodes(graphs, tag: str) -> dict:
                     counts[kind + ("_drop" if match.group(2) == "1"
                                    else "")] += 1
             counts["replays"] = step_graph.replays
+            # Each backward launches its dk/dv kernel and its dq or sum
+            # kernel (the sum kernel has no dropout instance).
+            _require(counts["bwd_dq"] + counts["bwd_dq_drop"]
+                     + counts["bwd_dq_sum"]
+                     == counts["bwd"] + counts["bwd_drop"],
+                     f"{name}: backward kernel nodes without their dq "
+                     f"kernel: {counts}")
             result[name] = counts
     return result
 
@@ -1923,11 +2011,15 @@ def phase_train_window():
     it, against the per-epoch eager loop from the same seeded state:
     (a) reference_608, fp32, batch 8: 12 epochs, windows of 4 with an eval
     and checkpoint cadence (eval at 2, 5, 8, 11; checkpoints at 0, 3, 6, 9,
-    11) that cuts them, per-epoch losses within rtol 2e-5 (atol 1e-6), the
-    same AP records, the window cuts at the event epochs; (b) highres_1024,
-    bf16, dropout 0.1, remat None, batch 8, lr 1e-6, 8 steps: the graph's
-    seed rows equal the loop's draws, losses within 2^-7 per step taken,
-    beside a second eager run's distance from the first; (c) each
+    11) that cuts them, per-epoch losses and the parameters after the fit
+    bit-equal, graph against loop and a second eager loop against the
+    first, the same AP records, the window cuts at the event epochs; (b)
+    highres_1024, bf16, dropout 0.1, remat None, batch 8, lr 1e-5, 8
+    steps: the graph's seed rows equal the loop's draws, every step's loss
+    bit-equal, graph against loop, a second eager loop against the first
+    and a third run under torch.use_deterministic_algorithms (the ops it
+    warns about listed), and a planted stale seed buffer that fails that
+    comparison; (c) each
     graph's flash kernel nodes, 8 + 8 per reference_608 step and 48 + 24
     per highres_1024 step, and the launches they make (nodes x replays);
     (d) accumulate_steps=2 at depth 2 (a micro and an update graph)
@@ -1983,6 +2075,9 @@ def phase_train_window():
                 ckpt=True, eval_data=data)
     (loop, loop_state, loop_s, loop_counts, loop_dir) = runs["loop"]
     (graph, graph_state, graph_s, graph_counts, graph_dir) = runs["graph"]
+    (again, again_state, _, _, again_dir) = pair(
+        config, train_config, data, WINDOW_EPOCHS, WINDOW_CALL, ckpt=True,
+        eval_data=data, names=("loop",))["loop"]
     events = [e for e in range(WINDOW_EPOCHS)
               if graph._is_event_epoch(e, WINDOW_EPOCHS, True)]
     cuts = [start + n - 1 for start, n in graph.window_record]
@@ -1990,11 +2085,13 @@ def phase_train_window():
         n <= WINDOW_CALL for _, n in graph.window_record)
         and sum(n for _, n in graph.window_record) == WINDOW_EPOCHS,
         f"window cuts {graph.window_record} vs event epochs {events}")
-    loss_err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(
-        graph.loss_record, loop.loss_record))
-    _require(np.allclose(graph.loss_record, loop.loss_record, rtol=2e-5,
-                         atol=1e-6), f"per-epoch losses: graph "
-             f"{graph.loss_record} vs loop {loop.loss_record}")
+    # Every kernel of the step is deterministic (B2 sums dq in key order),
+    # so the windowed graph and a second eager loop repeat the loop's
+    # per-epoch losses bit for bit.
+    _require(graph.loss_record == loop.loss_record
+             and again.loss_record == loop.loss_record,
+             f"per-epoch losses: graph {graph.loss_record}, a second loop "
+             f"{again.loss_record} vs loop {loop.loss_record}")
     _require(graph.ap_record == loop.ap_record
              and len(graph.ap_record) == 4,
              f"AP records: graph {graph.ap_record} vs loop {loop.ap_record}")
@@ -2005,18 +2102,19 @@ def phase_train_window():
              f"checkpoints {os.listdir(graph_dir)} vs {os.listdir(loop_dir)}")
     _require(graph_counts["flash_lse"] > 0 and graph_counts["flash_bwd"] > 0,
              f"the graph run launched no flash kernel: {graph_counts}")
-    # The parameters after the fit, as the CPU test holds them (the eval
-    # records above are all 0.0 this early in training, so they alone
-    # would not tell two trajectories apart).
-    # The reading is the worst |graph - loop| / (atol + rtol |loop|) over
-    # all parameters: at most 1 is torch.allclose at that tolerance.
+    # The parameters after the fit, bit for bit (the eval records above
+    # are all 0.0 this early in training, so they alone would not tell two
+    # trajectories apart).
     loop_params = loop_state["params"].state_dict()
-    param_ratio = max(((t - loop_params[n]).abs()
-                       / (1e-5 + 1e-4 * loop_params[n].abs())).max().item()
-                      for n, t in graph_state["params"].state_dict().items())
-    _require(param_ratio <= 1.0, "parameters after the fit differ: "
-             f"{param_ratio} x the rtol 1e-4, atol 1e-5 tolerance")
-    del loop_params
+    param_differ = {
+        name: sum(int(not torch.equal(t, loop_params[n]))
+                  for n, t in state["params"].state_dict().items())
+        for name, state in (("graph", graph_state), ("loop_again",
+                                                     again_state))}
+    _require(not any(param_differ.values()), "parameters after the fit "
+             f"differ from the loop's, tensors per run: {param_differ}")
+    del loop_params, again, again_state
+    shutil.rmtree(again_dir)
     ref_nodes = _graph_kernel_nodes(graph.multi_step.graphs,
                                     "reference_608")
     _require(len(ref_nodes) == 1 and all(
@@ -2036,8 +2134,8 @@ def phase_train_window():
             graph_state, images, labels, 4), 5, per_call=4)}
     window_a = {"losses": {"graph": graph.loss_record,
                            "loop": loop.loss_record},
-                "loss_rel_err_max": loss_err,
-                "params_err_over_tolerance_max": param_ratio,
+                "losses_bit_equal": {"graph": True, "loop_again": True},
+                "params_bit_equal": {"graph": True, "loop_again": True},
                 "ap": {"graph": graph.ap_record, "loop": loop.ap_record},
                 "window_cuts": graph.window_record, "event_epochs": events,
                 "fit_seconds": {"graph": graph_s, "loop": loop_s},
@@ -2051,19 +2149,18 @@ def phase_train_window():
         shutil.rmtree(directory)
     del runs, loop, graph, loop_state, graph_state, images, labels
 
-    # (b) highres_1024 with dropout, remat None, bf16, batch 8. lr 1e-6, a
-    # tenth of train_highres': dq's atomic adds make two runs' gradients
-    # differ in their last bits, and Adam's first updates (about lr times
-    # the gradient's sign) turn that into weight differences of the order
-    # of lr; at 1e-5 two eager runs drifted 0.016 apart after one update,
-    # over the 2^-7 x steps allowed. Step 0 runs on identical weights with
-    # one seed row through deterministic kernels, so its loss must be
-    # bit-equal: a graph that replays another seed row than the loop's
-    # draws other masks there. A planted fault shows that the comparison
-    # fails when the graph's seed buffer is not written before a replay.
+    # (b) highres_1024 with dropout, remat None, bf16, batch 8, at
+    # train_highres' lr 1e-5. Every kernel of the step is deterministic
+    # (B2 sums dq in key order; the dropout masks are a hash of the seed
+    # row), so a run repeats bit for bit: graph against loop, a second
+    # eager loop, and a third under torch.use_deterministic_algorithms,
+    # whose warnings name any PyTorch op without a deterministic version.
+    # A graph that replays another seed row than the loop's draws other
+    # masks; a planted fault shows that the comparison fails when the
+    # graph's seed buffer is not written before a replay.
     config = get_config("highres_1024").replace(dropout=DROP_RATE,
                                                 remat_policy=None)
-    train_config = TrainConfig(learning_rate=1e-6, seed=SEED,
+    train_config = TrainConfig(learning_rate=1e-5, seed=SEED,
                                skip_epochs=0)
     data = list(synthetic_batches(config, 8, 1, seed=SEED + 1))
 
@@ -2071,8 +2168,7 @@ def phase_train_window():
         """(b)'s loss comparison: (passed, relative error per step)."""
         err = [abs(a - b) / abs(b) for a, b in zip(graph_losses,
                                                    loop_losses)]
-        return (graph_losses[0] == loop_losses[0] and all(
-            e <= BF16_STEP_TOL * (i + 1) for i, e in enumerate(err)), err)
+        return list(graph_losses) == list(loop_losses), err
 
     runs = pair(config, train_config, data, HIGHRES_STEPS, HIGHRES_STEPS)
     (loop, loop_state, loop_s, loop_counts, _) = runs["loop"]
@@ -2097,12 +2193,28 @@ def phase_train_window():
     passed, highres_err = compare(graph.loss_record, loop.loss_record)
     _require(passed, f"highres losses: graph {graph.loss_record} vs loop "
              f"{loop.loss_record}")
-    # Two eager runs differ too (dq's atomic adds, amplified by the
-    # steps): the second loop's distance to the first, beside the graph's.
+    # A second eager loop, and a third with PyTorch's deterministic
+    # algorithms on (warn_only: an op without a deterministic version
+    # warns and runs), each bit-equal to the first.
     again = pair(config, train_config, data, HIGHRES_STEPS, 1,
                  names=("loop",))["loop"][0]
-    loop_noise = compare(again.loss_record, loop.loss_record)[1]
-    del again
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            strict = pair(config, train_config, data, HIGHRES_STEPS, 1,
+                          names=("loop",))["loop"][0]
+        finally:
+            torch.use_deterministic_algorithms(False)
+    nondeterministic_ops = sorted({str(w.message).splitlines()[0][:200]
+                                   for w in caught})
+    for name, run in (("a second loop", again), ("a deterministic-"
+                                                 "algorithms loop", strict)):
+        _require(compare(run.loss_record, loop.loss_record)[0],
+                 f"highres losses: {name} {run.loss_record} vs loop "
+                 f"{loop.loss_record} (warnings under deterministic "
+                 f"algorithms: {nondeterministic_ops})")
+    del again, strict
     hi_nodes = _graph_kernel_nodes(graph.multi_step.graphs, "highres_1024")
     blocks = config.encoder_blocks
     mlp_per_step = loop_counts["mlp_drop"] // HIGHRES_STEPS
@@ -2126,8 +2238,11 @@ def phase_train_window():
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     loop_losses = loop.loss_record
     window_b = {"losses": {"graph": graph.loss_record, "loop": loop_losses},
-                "loss_rel_err": highres_err,
-                "loop_vs_loop_rel_err": loop_noise, "seed_rows_equal": True,
+                "learning_rate": train_config.learning_rate,
+                "losses_bit_equal": {"graph": True, "loop_again": True,
+                                     "deterministic_algorithms": True},
+                "deterministic_algorithms_warnings": nondeterministic_ops,
+                "loss_rel_err": highres_err, "seed_rows_equal": True,
                 "seed_rows_shape": list(rows.shape),
                 "seed_buffer_is_last_row": True,
                 "fit_seconds": {"graph": graph_s, "loop": loop_s},
@@ -2210,7 +2325,9 @@ def phase_train_window():
             "flash_bwd": window_a["launches_graph"]["flash_bwd"],
             "flash_drop": window_b["launches_graph"]["flash_drop"],
             "flash_bwd_drop": window_b["launches_graph"]["flash_bwd_drop"],
-            "mlp_drop": window_b["launches_graph"]["mlp_drop"]}
+            "mlp_drop": window_b["launches_graph"]["mlp_drop"],
+            "step_ms_graph": {"reference_608": ref_ms["graph"],
+                              "highres_1024": hi_ms["graph"]}}
 
 
 LIFECYCLE_IMAGES = 8     # seeded JPEGs of the lifecycle phase, one box each
@@ -2675,6 +2792,270 @@ def phase_lifecycle():
     return per_request
 
 
+NATIVE_IMAGES = 5000         # COCO val2017's image count
+NATIVE_ANNOTATIONS = 36800   # about val2017's 36,781 annotations
+NATIVE_DETECTIONS = 17       # detections per image (max_objects slots)
+DECODE_IMAGES = 160          # seeded 640 x 480 JPEGs of the decode sweep
+DECODE_WORKERS = (1, 4, 8, 16)
+DECODE_WARMUP_BATCHES = 4    # the pool's start and the prefetch fill
+DECODE_WINDOW_S = 1.5        # the timed steady-state window of each cell
+DECODE_SLICES = 3            # equal parts of the window, for the spread
+DECODE_CANVASES = {"vit_b16_384": 384, "reference_608": 608,
+                   "highres_1024": 1024}
+
+
+def _coco_instances(rng) -> dict:
+    """A seeded COCO-val-sized instances file: NATIVE_IMAGES images of
+    640 x 480 and about NATIVE_ANNOTATIONS annotations over the 80 COCO
+    category ids, each with a polygon segmentation of 8 to 40 vertices,
+    1 % crowds."""
+    import numpy as np
+
+    from vision_transformer_detector_tpu_torch.data.categories import (
+        COCO_ID_TO_MODEL_ID)
+
+    category_ids = np.array(sorted(COCO_ID_TO_MODEL_ID), np.int64)
+    image_of = np.sort(rng.integers(1, NATIVE_IMAGES + 1,
+                                    NATIVE_ANNOTATIONS))
+    wh = np.round(rng.uniform(2, 300, (NATIVE_ANNOTATIONS, 2)), 2)
+    xy = np.round(rng.uniform(0, 1, (NATIVE_ANNOTATIONS, 2))
+                  * (np.array([640.0, 480.0]) - wh), 2)
+    annotations = []
+    for i in range(NATIVE_ANNOTATIONS):
+        n = int(rng.integers(8, 41))
+        polygon = np.round(rng.uniform(0, 1, 2 * n) * np.tile(wh[i], n)
+                           + np.tile(xy[i], n), 2)
+        annotations.append({
+            "segmentation": [polygon.tolist()],
+            "area": round(float(wh[i, 0] * wh[i, 1]) * 0.6, 4),
+            "iscrowd": int(rng.uniform() < 0.01),
+            "image_id": int(image_of[i]),
+            "bbox": [float(xy[i, 0]), float(xy[i, 1]), float(wh[i, 0]),
+                     float(wh[i, 1])],
+            "category_id": int(rng.choice(category_ids)),
+            "id": 900000 + i})
+    return {"info": {"description": "seeded COCO-val-sized instances"},
+            "images": [{"id": i, "width": 640, "height": 480,
+                        "file_name": f"{i:012d}.jpg"}
+                       for i in range(1, NATIVE_IMAGES + 1)],
+            "annotations": annotations,
+            "categories": [{"id": int(c), "name": f"category-{c}"}
+                           for c in category_ids]}
+
+
+def _decode_corpus(rng, count: int) -> list:
+    """``count`` seeded 640 x 480 JPEGs (COCO's usual size): smooth
+    gradients with blocks and noise, quality 90."""
+    import numpy as np
+    from PIL import Image
+
+    yy, xx = np.mgrid[0:480, 0:640]
+    out = []
+    for _ in range(count):
+        a, b, c = rng.uniform(0.2, 1.0, 3)
+        img = np.stack([yy * a * 255 / 480, xx * b * 255 / 640,
+                        (yy + xx) * c * 255 / 1120], axis=-1)
+        for _ in range(6):
+            y0, x0 = rng.integers(0, 400), rng.integers(0, 560)
+            img[y0:y0 + 80, x0:x0 + 80] = rng.uniform(0, 255, 3)
+        img += rng.normal(0, 6, img.shape)
+        buf = io.BytesIO()
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            buf, format="JPEG", quality=90)
+        out.append(buf.getvalue())
+    return out
+
+
+def _decode_rate(dataset, size: int) -> dict:
+    """Images/s of the pipeline's steady state: DECODE_WARMUP_BATCHES
+    batches discarded, then every batch until DECODE_WINDOW_S seconds
+    have passed; the rate over the window and the least and the most over
+    its DECODE_SLICES equal parts."""
+    import numpy as np
+
+    stamps = []
+    for i, (images, _) in enumerate(dataset):
+        _require(images.shape[1:] == (size, size, 3),
+                 f"decode sweep: batch of {images.shape}")
+        stamps.append((time.perf_counter(), images.shape[0]))
+        if (i >= DECODE_WARMUP_BATCHES
+                and stamps[-1][0] - stamps[DECODE_WARMUP_BATCHES][0]
+                >= DECODE_WINDOW_S):
+            break
+    _require(len(stamps) > DECODE_WARMUP_BATCHES + DECODE_SLICES,
+             f"decode sweep: {len(stamps)} batches before the corpus ran "
+             "out")
+    times = np.array([t for t, _ in stamps[DECODE_WARMUP_BATCHES:]])
+    counts = np.cumsum([n for _, n in stamps[DECODE_WARMUP_BATCHES + 1:]])
+    edges = np.linspace(times[0], times[-1], DECODE_SLICES + 1)
+    # Images of the batches that arrived by each edge.
+    done = np.concatenate([[0], counts])[
+        np.searchsorted(times, edges, side="right") - 1]
+    rates = np.diff(done) / np.diff(edges)
+    return {"img_s": float(counts[-1] / (times[-1] - times[0])),
+            "slice_min": float(rates.min()), "slice_max": float(rates.max()),
+            "window_s": float(times[-1] - times[0]),
+            "images": int(counts[-1])}
+
+
+def phase_native_host(consumption: dict) -> dict:
+    """The port's native host cores through their entry points: the JSON
+    and matcher cores must build and load (the decode core's state is
+    printed: the card's host may lack jpeglib.h); a COCO-val-sized
+    instances file parsed natively and in Python, bit-equal; 5,000 images
+    x 17 detections evaluated with the native and the NumPy matcher,
+    summaries bit-equal; the decode sweep (letterbox of 640 x 480 JPEGs to
+    384, 608 and 1024 with 1 to 16 thread workers of the train/eval
+    pipeline, each cell timed over a steady-state window) beside the
+    rates at which the card consumes images
+    (``consumption``, images/s, from this run's step and service times);
+    4 HTTP requests of those JPEGs through vit_b16_384 (B1 12 times each),
+    their latency with the decoder named. Returns the flash launches."""
+    import numpy as np
+    import torch
+
+    from vision_transformer_detector_tpu_torch import _native, get_config
+    from vision_transformer_detector_tpu_torch.data.annotations import (
+        build_annotations_from_instances)
+    from vision_transformer_detector_tpu_torch.data.pipeline import (
+        CocoDetectionDataset, native_available)
+    from vision_transformer_detector_tpu_torch.kernels.flash_attention import (
+        flash_attention)
+    from vision_transformer_detector_tpu_torch.metrics.coco_eval import (
+        CocoEvaluator)
+    from vision_transformer_detector_tpu_torch.models.vit_detector import (
+        init_params)
+    from vision_transformer_detector_tpu_torch.serving import (
+        DetectionServer, DetectionService)
+
+    phase_tic = time.perf_counter()
+    tic = time.perf_counter()
+    cores = _native.build()
+    build_s = time.perf_counter() - tic
+    _require(cores["coco_json"]["built"] and cores["coco_eval"]["built"],
+             f"the JSON and matcher cores must build on this host: {cores}")
+    rng = np.random.default_rng(SEED + 9)
+    tmp = tempfile.mkdtemp()
+    try:
+        # JSON: native against Python, bit-equal.
+        path = os.path.join(tmp, "instances_val_seeded.json")
+        with open(path, "w") as f:
+            json.dump(_coco_instances(rng), f)
+        parsed, parse_s = {}, {}
+        for name, flag in (("native", True), ("python", False)):
+            tic = time.perf_counter()
+            parsed[name] = build_annotations_from_instances(
+                path, use_native=flag)
+            parse_s[name] = time.perf_counter() - tic
+        _require(parsed["native"] == parsed["python"],
+                 "native and Python annotation dicts differ")
+        annotations = parsed["native"]
+        json_line = {"file_mb": os.path.getsize(path) / 1e6,
+                     "images": len(annotations),
+                     "annotations": sum(map(len, annotations.values())),
+                     "parse_s": parse_s, "bit_equal": True}
+        del parsed
+
+        # Matcher: 17 detections per image, jittered ground truths first.
+        evaluators = {"native": CocoEvaluator(use_native=True),
+                      "numpy": CocoEvaluator(use_native=False)}
+        for image_id in range(1, NATIVE_IMAGES + 1):
+            rows = np.asarray(annotations.get(str(image_id), []),
+                              np.float64).reshape(-1, 6)
+            gt = np.concatenate([rows[:, 1:3] - rows[:, 3:5] / 2,
+                                 rows[:, 3:5]], axis=1)
+            det = np.concatenate([gt, rng.uniform(0, 300, (
+                NATIVE_DETECTIONS, 4))])[:NATIVE_DETECTIONS]
+            det[:len(gt)] += rng.normal(0, 4, det[:len(gt)].shape)
+            det[:, 2:] = np.abs(det[:, 2:]) + 1
+            # The other detections take the image's own classes, as a
+            # detector's do, or any class on an image without objects.
+            pool = rows[:, 0] if len(rows) else np.arange(80)
+            classes = np.concatenate([rows[:, 0], rng.choice(
+                pool, NATIVE_DETECTIONS)])[:NATIVE_DETECTIONS]
+            scores = np.round(rng.uniform(0, 1, NATIVE_DETECTIONS), 2)
+            for ev in evaluators.values():
+                ev.add_image(gt_boxes=gt, gt_categories=rows[:, 0],
+                             gt_areas=rows[:, 5], det_boxes=det,
+                             det_categories=classes, det_scores=scores)
+        summaries, match_s = {}, {}
+        for name, ev in evaluators.items():
+            tic = time.perf_counter()
+            summaries[name] = ev.evaluate().summarize()
+            match_s[name] = time.perf_counter() - tic
+        _require(summaries["native"] == summaries["numpy"],
+                 f"matcher summaries differ: {summaries}")
+        _require(0.0 < summaries["native"]["AP"] < 1.0,
+                 f"matcher AP {summaries['native']['AP']}")
+        match_line = {"images": NATIVE_IMAGES,
+                      "detections_per_image": NATIVE_DETECTIONS,
+                      "evaluate_s": match_s, "AP": summaries["native"]["AP"],
+                      "bit_equal": True}
+        del evaluators
+
+        # Decode: the train/eval pipeline over 640 x 480 JPEGs on disk.
+        corpus = _decode_corpus(rng, DECODE_IMAGES)
+        image_dir = os.path.join(tmp, "images")
+        os.makedirs(image_dir)
+        paths = []
+        for i, data in enumerate(corpus):
+            paths.append(os.path.join(image_dir, f"{i + 1:012d}.jpg"))
+            with open(paths[-1], "wb") as f:
+                f.write(data)
+        decoder = "native" if native_available() else "pil"
+        sweep = {}
+        for preset, size in DECODE_CANVASES.items():
+            config = get_config(preset)
+            sweep[preset] = {}
+            for workers in DECODE_WORKERS:
+                # The corpus repeated, more than any window reads.
+                dataset = CocoDetectionDataset(
+                    paths * 40, annotations, config, batch_size=8,
+                    num_workers=workers, prefetch=4, normalize=False,
+                    pool="thread")
+                sweep[preset][workers] = _decode_rate(dataset, size)
+        best = {preset: max(cells.values(), key=lambda c: c["img_s"])
+                for preset, cells in sweep.items()}
+        feeds = {path_name: {"card_img_s": rate,
+                             "decode_img_s_best": best[preset]["img_s"],
+                             "keeps_up": best[preset]["img_s"] >= rate}
+                 for path_name, (preset, rate) in consumption.items()}
+
+        # Serving: 4 of those JPEGs through vit_b16_384 over HTTP.
+        config = get_config("vit_b16_384")
+        service = DetectionService(
+            config, init_params(config, torch.Generator().manual_seed(SEED)),
+            device="cuda")
+        server = DetectionServer(service, port=0)
+        server.start()
+        try:
+            flash_attention.launches = 0
+            latencies = _post_jpegs(
+                f"http://127.0.0.1:{server.port}",
+                [((480, 640), data) for data in corpus[:REQUESTS]],
+                config.num_classes)
+            launches = flash_attention.launches
+        finally:
+            server.stop()
+        _require(launches == config.encoder_blocks * REQUESTS,
+                 f"flash kernel launched {launches} times for {REQUESTS} "
+                 "requests")
+    finally:
+        shutil.rmtree(tmp)
+    seconds = time.perf_counter() - phase_tic
+    _report("native_host", cores=cores, build_s=build_s, json=json_line,
+            matcher=match_line, decoder=decoder,
+            decode_img_s={p: {str(w): r for w, r in cells.items()}
+                          for p, cells in sweep.items()},
+            canvases=DECODE_CANVASES, host_cpus=os.cpu_count(),
+            decode_feeds_the_card=feeds,
+            serve={"requests": REQUESTS, "decoder": decoder,
+                   "request_latency_ms": latencies,
+                   "flash_launches": launches},
+            seconds=seconds)
+    return launches
+
+
 PEAK_NAMES = {"bf16": "bf16 989 TFLOP/s", "int8": "int8 1979 TOP/s",
               "3xtf32": "tf32 495 TFLOP/s, 3 products per fp32 product",
               "fp32": "fp32 67 TFLOP/s"}
@@ -2845,13 +3226,23 @@ def main() -> int:
     phase_model()
     phase_model_serve()
     flash_launches = phase_serve()
-    int8_launches, _ = phase_serve_int8()
+    int8_launches, int8_times = phase_serve_int8()
     ffn_launches, _ = phase_serve_fused_ffn()
     train_launches = phase_train()
     highres_launches = phase_train_highres()
     window_launches = phase_train_window()
     phase_cli_tools()
     exported_launches = phase_lifecycle()
+    # The images/s the card consumes on each path of this run (8 images a
+    # train step, 32 a service call), beside the host decode's rate.
+    steps = window_launches["step_ms_graph"]
+    phase_native_host({
+        "reference_608_graph_step": ("reference_608",
+                                     8e3 / steps["reference_608"]),
+        "highres_1024_graph_step": ("highres_1024",
+                                    8e3 / steps["highres_1024"]),
+        "int8_service_b32": ("vit_b16_384",
+                             32e3 / int8_times["int8"]["b32_ms_median"])})
     foreign = sorted(name for name in sys.modules
                      if name == "jax" or name.startswith("jax.")
                      or name == "vision_transformer_detector_tpu"

@@ -185,11 +185,14 @@ def test_predict_matches_the_jax_cli(dataset, bridged_npz, capsys,
                                      monkeypatch):
     """The same weights and images through both CLIs' ``predict``: the
     decoded detections agree within 1e-4 (relative for the pixel-valued
-    columns). The JAX package is held to the port's PIL decode."""
+    columns). Both packages are held to the PIL decode core."""
     from vision_transformer_detector_tpu.cli import main as jax_main
     from vision_transformer_detector_tpu.data import pipeline as jax_pipeline
+    from vision_transformer_detector_tpu_torch.data import (
+        pipeline as port_pipeline)
 
     monkeypatch.setattr(jax_pipeline, "_native_pipeline", None)
+    monkeypatch.setattr(port_pipeline, "native_available", lambda: False)
     args = ["predict", "--images", dataset["images"], "--images-range", "0",
             "3", "--preset", "tiny_96", "--params-npz", bridged_npz,
             "--batch-size", "2"]
@@ -410,19 +413,23 @@ def test_benchmark_refusals(flags):
 
 def test_doctor_without_a_card_exits_1(capsys):
     """doctor: no card here, so the device probe fails, the exit code is 1
-    and the report still lists nvcc and every kernel library."""
+    and the report still lists nvcc, every kernel library and the three
+    host cores, which build on this host."""
     with pytest.raises(SystemExit) as exc:
         main(["doctor", "--probe-timeout", "120"])
     assert exc.value.code == 1
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert report["device"]["ok"] is False
-    assert {"coco_json", "pipeline", "coco_eval", "nvcc",
+    assert {"coco_json", "pipeline", "coco_eval", "host_cores", "nvcc",
             "kernels"} == set(report["native"])
     assert set(report["native"]["kernels"]) == {
         "flash_attention_fwd.cu", "flash_attention_bwd.cu",
         "layer_norm.cu", "dense_mish.cu", "int8_dense.cu", "dropout.cu"}
-    assert not any(report["native"][k] for k in ("coco_json", "pipeline",
-                                                  "coco_eval"))
+    assert all(report["native"][k] is True for k in ("coco_json", "pipeline",
+                                                      "coco_eval"))
+    assert report["native"]["host_cores"] == {
+        core: {"built": True, "error": None}
+        for core in ("coco_json", "coco_eval", "pipeline")}
 
 
 def test_doctor_reports_a_hung_probe(capsys):

@@ -155,11 +155,19 @@ def test_unevaluated_ap50_ap75_are_minus_one_as_in_pycocotools():
         k: v for k, v in ref.items() if k not in REPAIRED}
 
 
-def test_native_matcher_is_not_ported():
-    assert not port_ce.native_matcher_available()
+def test_native_matcher_is_not_ported(monkeypatch):
+    """(The name predates the port's own matcher core.) ``use_native``
+    follows the JAX semantics: None takes the core when it is built (it
+    builds on this host), False the NumPy matcher, and True without a
+    built core raises."""
+    assert port_ce.native_matcher_available()
+    assert port_ce.CocoEvaluator().use_native is True
+    assert port_ce.CocoEvaluator(use_native=False).use_native is False
+    monkeypatch.setattr(port_ce._native_coco_eval, "available",
+                        lambda: False)
+    assert port_ce.CocoEvaluator().use_native is False
     with pytest.raises(RuntimeError, match="native matcher"):
         port_ce.CocoEvaluator(use_native=True)
-    assert port_ce.CocoEvaluator(use_native=False).use_native is False
 
 
 @pytest.mark.parametrize("fmt", ["instances", "dict"])
@@ -300,11 +308,13 @@ def test_original_frame_protocol_matches_jax(bridged, jpeg_dir, tmp_path,
     summary within 1e-6 and the same dumped detections, up to the dump's
     rounding (0.01 px, 1e-5 in score) and the two fp32 forwards' agreement
     (decoded classes within ~2.3e-5, which the class confidence in the
-    score doubles). The port decodes with PIL, so the JAX package is held
-    to the same decode core."""
+    score doubles). Both packages are held to the PIL decode core."""
     from vision_transformer_detector_tpu.data import pipeline as jax_pipeline
+    from vision_transformer_detector_tpu_torch.data import (
+        pipeline as port_pipeline)
 
     monkeypatch.setattr(jax_pipeline, "_native_pipeline", None)
+    monkeypatch.setattr(port_pipeline, "native_available", lambda: False)
     config, jax_params, port_config_, port_params = bridged
     image_dir, annotations = jpeg_dir
     dumps = {name: str(tmp_path / f"{name}.json") for name in ("jax", "port")}

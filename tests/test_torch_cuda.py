@@ -121,8 +121,8 @@ def test_kernel_refuses_what_it_does_not_take(gen):
 def test_backward_copies_a_cotangent_it_cannot_read(gen):
     """The cotangent is whatever view autograd hands over: one the kernel
     cannot read (offset by an element) is copied, and gives the grads of
-    its aligned copy. Bit for bit: with two key tiles each dq element gets
-    two atomic adds onto zero, whose order cannot change the sum."""
+    its aligned copy, bit for bit (the backward sums dq over the key tiles
+    in order)."""
     q, k, v = _qkv(gen, (1, 2, 100, 64), torch.bfloat16, 0.125)
     out, lse = fa.flash_attention(q, k, v, layout="bhnk", with_lse=True)
     wide = torch.randn(1, 2, 100, 72, device="cuda", generator=gen).to(
@@ -158,6 +158,40 @@ def test_launch_count_survives_concurrent_callers(gen):
     assert fa.flash_attention.launches == before + threads_n * calls
 
 
+@pytest.mark.parametrize("layout, shape, dtype, rate, route", [
+    ("bnhk", (8, 1296, 8, 40), torch.float32, 0.0, None),  # reference_608
+    ("bnhk", (8, 1296, 8, 40), torch.float32, 0.0, "split"),
+    ("bnhk", (8, 1296, 8, 40), torch.float32, 0.0, "partials"),
+    ("bhnk", (8, 256, 256, 64), torch.bfloat16, 0.0, None),  # highres_1024
+    ("bhnk", (8, 256, 256, 64), torch.bfloat16, 0.1, None),  # the replay
+])
+def test_backward_is_bit_reproducible(gen, layout, shape, dtype, rate,
+                                      route):
+    """Two launches of the backward kernels on the same inputs give
+    bit-equal dq (fp32, as the kernels sum it over the key tiles in order),
+    dk and dv, for each instance of the training paths and each dq route
+    of fp32."""
+    q, k, v = _qkv(gen, shape, dtype, shape[-1] ** -0.5)
+    g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    seed = fa.seed_tensor(7, "cuda") if rate else None
+    kw = {"dropout_rate": rate, "dropout_seed": seed} if rate else {}
+    out, lse = fa.flash_attention(q, k, v, layout=layout, with_lse=True,
+                                  **kw)
+    delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                            layout).contiguous()
+    padded = [fa._pad_head_dim(t) for t in (q, k, v, g)]
+    first, second = (torch.ops.vtd_torch.flash_attention_bwd(
+        *padded, lse, delta, layout, seed, rate, fa.DQ_ROUTES[route])
+        for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    if route is not None:
+        plain = fa.reference_attention_backward(q, k, v, g, layout)
+        grads = fa._launch_backward(q, k, v, g, lse, delta, layout,
+                                    route=route)
+        assert max(_grad_rels(grads, plain)) <= GRAD_TOLS[dtype]
+
+
 @pytest.mark.parametrize("flash,key_dim", [(True, 64), (True, 40),
                                            (False, 40)])
 def test_model_on_card_matches_cpu(gen, flash, key_dim):
@@ -178,8 +212,8 @@ def test_model_on_card_matches_cpu(gen, flash, key_dim):
     torch.testing.assert_close(gpu, cpu, atol=1e-4, rtol=0)
 
 
-# Backward: grads relative to the largest; fp32 summation order (and dq's
-# atomic adds in run-dependent order), bf16 rounding of p and ds.
+# Backward: grads relative to the largest; fp32 summation order, bf16
+# rounding of p and ds.
 GRAD_TOLS = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 
 
@@ -453,7 +487,7 @@ def _assert_grads_within(got, ref, tol):
 def test_windowed_multi_scale_remat_model_on_card_matches_cpu(gen):
     """Loss and gradients of the windowed multi-scale model with remat,
     dropout off: the card's kernels against the CPU's plain versions
-    (fp32; summation order and dq's atomics)."""
+    (fp32; summation order)."""
     config = _windowed_config()
     params = model.init_params(config, torch.Generator().manual_seed(0))
     cpu_loss, cpu_grads = _loss_and_grads(params, config, "cpu")
@@ -471,7 +505,8 @@ def test_windowed_multi_scale_remat_model_on_card_matches_cpu(gen):
 @pytest.mark.parametrize("policy", [None, "dots", "alternate"])
 def test_remat_matches_no_remat_on_card_with_dropout(gen, policy):
     """With dropout on and one seed, each remat policy gives no remat's
-    loss (the same forward) and its gradients to dq's atomic-add noise."""
+    loss and gradients bit for bit: the recompute runs the same kernels on
+    the same inputs, and each gives the same bits on every run."""
     config = _windowed_config(dropout=0.1, remat_policy=policy)
     params = model.init_params(config, torch.Generator().manual_seed(1))
     card = params.to("cuda")
@@ -479,7 +514,8 @@ def test_remat_matches_no_remat_on_card_with_dropout(gen, policy):
     ref_loss, ref_grads = _loss_and_grads(
         card, config.replace(remat_encoder=False), "cuda", seed=123)
     assert loss == ref_loss
-    _assert_grads_within(grads, ref_grads, 1e-4)
+    for name, want in ref_grads.items():
+        assert torch.equal(grads[name], want), name
     other, _ = _loss_and_grads(card, config, "cuda", seed=124)
     assert other != loss
 
@@ -827,9 +863,6 @@ def _op_samples(gen):
 
     every = ("test_schema", "test_autograd_registration", "test_faketensor",
              "test_aot_dispatch_dynamic")
-    # The backward sums dq with atomics, in no fixed order: its repeated
-    # runs are not compared bit for bit.
-    no_rerun = every[:3]
     ops = torch.ops.vtd_torch
     samples = []
     # The dropout seed is a one-element uint32 tensor on the card, which
@@ -848,9 +881,9 @@ def _op_samples(gen):
         delta = (g.float() * out.float()).sum(-1).contiguous()
         samples += [
             (ops.flash_attention_bwd, (q, k, v, g, lse, delta, "bhnk", None,
-                                       0.0), no_rerun),
+                                       0.0), every),
             (ops.flash_attention_bwd, (q, k, v, g, lse, delta, "bhnk", seed,
-                                       0.1), no_rerun),
+                                       0.1), every),
             (ops.layer_norm, (rnd(40, 256, dtype=dtype), rnd(256),
                               rnd(256), 1e-3), every),
             (ops.dense_mish, (rnd(70, 64, dtype=dtype),
@@ -957,23 +990,21 @@ def _graph_pair(config, train_config, steps, data_seed=0):
 @pytest.mark.parametrize("policy", [None, "dots", "alternate"])
 def test_graph_loop_matches_the_loop_with_dropout(gen, policy):
     """The captured step replays each step with that step's seed row (the
-    kernels read it from device memory, the MLP masks hash it): fp32
-    losses equal the loop's to dq's atomic-add noise, under every remat
-    policy."""
+    kernels read it from device memory, the MLP masks hash it): losses and
+    parameters bit-equal to the loop's under every remat policy, since
+    every kernel of the step gives the same bits on every run."""
     from vision_transformer_detector_tpu_torch import TrainConfig
 
     config = _windowed_config(dropout=0.1, remat_policy=policy)
     runs = _graph_pair(config, TrainConfig(learning_rate=1e-4,
                                            skip_epochs=0), 4)
     loop, graph = runs["loop"][0], runs["graph"][0]
-    np.testing.assert_allclose(graph.loss_record, loop.loss_record,
-                               rtol=2e-5, atol=1e-6)
+    assert graph.loss_record == loop.loss_record
     assert len(set(loop.loss_record)) == 4     # the masks change per step
     assert len(graph.multi_step.graphs) == 1
     for name, value in runs["loop"][1]["params"].state_dict().items():
-        torch.testing.assert_close(
-            runs["graph"][1]["params"].state_dict()[name], value,
-            rtol=1e-4, atol=1e-5)
+        assert torch.equal(runs["graph"][1]["params"].state_dict()[name],
+                           value), name
 
 
 def test_graph_loop_with_accumulation_and_bf16_moments(gen):

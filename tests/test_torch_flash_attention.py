@@ -377,3 +377,35 @@ def test_alignment_check_rejects_an_unaligned_token_stride():
     bad = storage.as_strided((1, 10, 1, 64), (660, 66, 64, 1))
     with pytest.raises(ValueError, match="strides .* not multiples of 16"):
         fa._kernel_operands("bnhk", q=bad)
+
+
+@pytest.mark.parametrize("dtype, route, want", [
+    (torch.float32, None, "partials"),
+    (torch.float32, "split", "split"),
+    (torch.float32, "partials", "partials"),
+    (torch.bfloat16, None, "split"),
+    (torch.bfloat16, "split", "split"),
+])
+def test_dq_route_by_dtype_and_by_request(dtype, route, want):
+    """The backward's dq route: fp32 stores per-key-tile partials, bf16
+    runs the dq kernel; a request names either where it is built."""
+    workspace = fa.partials_bytes(8, 8, 1296, 48)    # reference_608 b8
+    assert workspace == 21 * 8 * 8 * 1296 * 48 * 4
+    assert fa.dq_route(dtype, fa.DQ_ROUTES[route], workspace) == want
+
+
+def test_dq_route_caps_the_partials_workspace():
+    """fp32 past PARTIALS_MAX_BYTES of workspace takes the split route
+    unless the partials route is asked for."""
+    big = fa.partials_bytes(8, 16, 4096, 64)
+    assert big > fa.PARTIALS_MAX_BYTES
+    assert fa.dq_route(torch.float32, 0, big) == "split"
+    assert fa.dq_route(torch.float32, fa.DQ_ROUTES["partials"],
+                       big) == "partials"
+
+
+@pytest.mark.parametrize("dtype, code", [(torch.bfloat16, 2),
+                                         (torch.float32, 7)])
+def test_dq_route_refuses_what_is_not_built(dtype, code):
+    with pytest.raises(ValueError, match="dq route"):
+        fa.dq_route(dtype, code)

@@ -2,12 +2,13 @@
 JAX or the JAX package; importing every port module loads neither; and
 its own copies of the framework-neutral host modules stay equal to the
 JAX package's (presets, LossConfig, TrainConfig, the category tables, the
-NumPy mAP oracle)."""
+NumPy mAP oracle, the COCO evaluator, the native host cores' C++)."""
 
 import ast
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -211,25 +212,50 @@ COCO_EVAL_REPAIRS = {
     # output is checked; the steps run in torch
     "evaluate_coco_protocol_original_frame", "evaluate_coco_protocol",
 }
-COCO_EVAL_NATIVE = {
-    # the native matcher core is not ported: no import, False, refused
-    "native_matcher_available", "CocoEvaluator.__init__",
-    "CocoEvaluator._evaluate_image",
-}
 COCO_EVAL_PORT_ONLY = {"_device_of", "_run_eval_step"}
+# The port's native matcher branches are the JAX copy's but for where the
+# core comes from (the port's own, built at its first use, instead of the
+# try-import of an extension built at import) and the message of a core
+# that is not built: these edits, undone, give the JAX statements.
+COCO_EVAL_NATIVE_EDITS = (
+    ("from .._native import _native_coco_eval\n",
+     "try:\n"
+     "    from .._native import _native_coco_eval  # type: ignore\n"
+     "except Exception:  # pragma: no cover - extension not built\n"
+     "    _native_coco_eval = None\n"),
+    ("    return _native_coco_eval.available()\n",
+     "    return _native_coco_eval is not None\n"),
+    ('                "use_native=True but the native matcher core is not '
+     'built "\n'
+     '                "(`vtd-torch doctor` says why)")\n',
+     '                "use_native=True but the native matcher extension is '
+     'not "\n'
+     '                "built (tools/build_native.sh)")\n'),
+)
+COCO_EVAL_NATIVE = ("native_matcher_available", "CocoEvaluator.__init__",
+                    "CocoEvaluator._evaluate_image")
 
 
-def test_coco_eval_core_equals_the_jax_copy_but_for_the_repairs():
-    ref = _definitions(os.path.join(
-        REPO, "vision_transformer_detector_tpu", "metrics", "coco_eval.py"))
-    port = _definitions(os.path.join(REPO, PORT, "metrics", "coco_eval.py"))
+def _coco_eval_definitions(tmp_path):
+    """(JAX, port with the native edits undone) definitions of
+    metrics/coco_eval.py."""
+    source = open(os.path.join(REPO, PORT, "metrics", "coco_eval.py")).read()
+    for port_text, jax_text in COCO_EVAL_NATIVE_EDITS:
+        assert source.count(port_text) == 1, port_text
+        source = source.replace(port_text, jax_text)
+    undone = tmp_path / "coco_eval.py"
+    undone.write_text(source)
+    return (_definitions(os.path.join(REPO, "vision_transformer_detector_tpu",
+                                      "metrics", "coco_eval.py")),
+            _definitions(str(undone)))
+
+
+def test_coco_eval_core_equals_the_jax_copy_but_for_the_repairs(tmp_path):
+    ref, port = _coco_eval_definitions(tmp_path)
     differ = {name for name in ref
               if name in port and port[name] != ref[name]}
-    assert differ == COCO_EVAL_REPAIRS | COCO_EVAL_NATIVE
-    only_ref = {name for name in ref if name not in port}
-    # The JAX copy's try-import of the native core is the one statement
-    # the port leaves out.
-    assert len(only_ref) == 1 and "_native" in next(iter(only_ref))
+    assert differ == COCO_EVAL_REPAIRS
+    assert not {name for name in ref if name not in port}
     assert set(port) - set(ref) == COCO_EVAL_PORT_ONLY
     for name in ("iou_xywh", "_match_image", "ground_truth_from_labels",
                  "detections_from_decoded", "update_from_fixed_slots",
@@ -238,6 +264,55 @@ def test_coco_eval_core_equals_the_jax_copy_but_for_the_repairs():
                  "CocoEvalResults.ap", "CocoEvalResults.ar",
                  "CocoEvalResults.per_category"):
         assert port[name] == ref[name], name
+
+
+@pytest.mark.parametrize("name", COCO_EVAL_NATIVE)
+def test_coco_eval_native_branches_equal_the_jax_copy(tmp_path, name):
+    ref, port = _coco_eval_definitions(tmp_path)
+    assert port[name] == ref[name]
+
+
+# The port's native host cores (native/*.cc of the port): each one's
+# anonymous namespace is the JAX package's native/<name>.cc namespace,
+# statement for statement, without its CPython glue (the chunks, at brace
+# depth 0 and split at blank lines, whose code names a Py* identifier
+# other than Py_ssize_t).
+_GLUE = re.compile(r"\bPy(?!_ssize_t\b)[A-Za-z_]\w*")
+
+
+def _code(line):
+    return line.split("//", 1)[0]
+
+
+def _namespace_chunks(path):
+    lines = open(path).read().split("\n")
+    body = lines[lines.index("namespace {") + 1:lines.index("}  // namespace")]
+    chunks, current, depth = [], [], 0
+    for line in body:
+        if not line.strip() and depth == 0:
+            if current:
+                chunks.append("\n".join(current))
+            current = []
+            continue
+        current.append(line)
+        code = re.sub(r"'(\\.|[^'\\])'", "''",
+                      re.sub(r'"(\\.|[^"\\])*"', '""', _code(line)))
+        depth += code.count("{") - code.count("}")
+    if current:
+        chunks.append("\n".join(current))
+    return chunks
+
+
+@pytest.mark.parametrize("name", ["coco_json", "coco_eval", "pipeline"])
+def test_native_core_equals_the_jax_source_but_for_the_glue(name):
+    ref = _namespace_chunks(os.path.join(REPO, "native", f"{name}.cc"))
+    work = [c for c in ref
+            if not any(_GLUE.search(_code(line)) for line in c.split("\n"))]
+    assert len(work) < len(ref)     # the glue is there, and left out
+    port = _namespace_chunks(os.path.join(REPO, PORT, "native", f"{name}.cc"))
+    assert port == work
+    assert not any("Python.h" in line for line in open(
+        os.path.join(REPO, PORT, "native", f"{name}.cc")))
 
 
 # The port's sweep runner: the JAX module but for where it builds the

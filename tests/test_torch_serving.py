@@ -65,11 +65,14 @@ def _jpeg(shape, seed):
 
 @pytest.mark.parametrize("shape,seed", [((48, 96, 3), 0), ((80, 64, 3), 1)])
 def test_detect_jpeg_matches_jax_service(services, shape, seed, monkeypatch):
-    """The port decodes with PIL (its copy of the host pipeline leaves the
-    native JPEG core out), so the JAX service is held to the same core."""
+    """Both services are held to the PIL decode core (the native cores
+    are held bit-equal in tests/test_torch_native_pipeline.py)."""
     from vision_transformer_detector_tpu.data import pipeline as jax_pipeline
+    from vision_transformer_detector_tpu_torch.data import (
+        pipeline as port_pipeline)
 
     monkeypatch.setattr(jax_pipeline, "_native_pipeline", None)
+    monkeypatch.setattr(port_pipeline, "native_available", lambda: False)
     port, reference = services
     data = _jpeg(shape, seed)
     np.testing.assert_array_equal(port.letterbox_jpeg(data)[0],
@@ -263,9 +266,9 @@ def test_port_serves_without_importing_jax():
         print(json.dumps({"jax": "jax" in sys.modules,
                           "detections": len(result["detections"])}))
     """)
-    # No native decode-core build in the child: PIL decodes the one image.
-    env = dict(os.environ, VTD_NO_NATIVE_BUILD="1")
-    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+    # The child decodes with the port's native core when it builds, else
+    # PIL.
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])

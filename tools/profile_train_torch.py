@@ -40,7 +40,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # and head dropout is csrc/dropout.cu's "dropout_kernel"; the window folds
 # are strided copies, among the "copy" kernels with the dtype casts.
 GROUPS = (("flash_fwd", ("flash_fwd_kernel",)),
-          ("flash_bwd", ("flash_bwd_kernel",)),
+          ("flash_bwd", ("flash_bwd_kernel", "flash_bwd_dq_kernel",
+                         "flash_bwd_dq_sum_kernel")),
           ("gemm", ("gemm", "nvjet", "cutlass")),
           ("dropout", ("dropout_kernel",)),
           ("copies_and_casts", ("copy",)))

@@ -539,9 +539,11 @@ def cmd_doctor(args) -> None:
       capability (``sm_90`` expected for the kernels) and the count;
     * ``native``: ``nvcc`` (path and version) and whether each kernel
       library of ``kernels/_build.py`` builds and loads, all built at once
-      (``--build-native`` removes the built ones first); the JAX package's
-      native host cores (``coco_json``, ``pipeline``, ``coco_eval``) are
-      not ported and read False.
+      (``--build-native`` removes the built ones first); the native host
+      cores (``_native/__init__.py``), each True when it builds and loads,
+      as in the JAX report, and under ``host_cores`` with the one-line
+      reason of a core that does not (``--build-native`` rebuilds them
+      too).
 
     The JAX CLI's ``virtual_mesh_8`` row is left out: multi-device runs are
     not ported."""
@@ -550,11 +552,14 @@ def cmd_doctor(args) -> None:
     import subprocess
     from concurrent.futures import ThreadPoolExecutor
 
+    from . import _native
     from .kernels import _build
 
     report: dict = {"device": _probe_device(args.probe_timeout)}
-    native: dict = {"coco_json": False, "pipeline": False,
-                    "coco_eval": False}
+    host_cores = _native.build(force=args.build_native)
+    native: dict = {core: state["built"]
+                    for core, state in host_cores.items()}
+    native["host_cores"] = host_cores
     try:
         nvcc = _build.find_nvcc()
         version = subprocess.run([nvcc, "--version"], capture_output=True,
@@ -941,13 +946,14 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("doctor",
                        help="environment report: device probe (in a child "
-                            "process), nvcc and the kernel libraries")
+                            "process), nvcc, the kernel libraries and the "
+                            "native host cores")
     p.add_argument("--probe-timeout", type=float, default=120.0,
                    help="seconds before an unresponsive device is "
                         "reported dead")
     p.add_argument("--build-native", action="store_true",
-                   help="rebuild every kernel library from csrc/ before "
-                        "reporting")
+                   help="rebuild every kernel library from csrc/ and "
+                        "every host core from native/ before reporting")
     p.set_defaults(func=cmd_doctor)
 
     p = sub.add_parser("plot", help="loss/AP training curves")

@@ -31,17 +31,35 @@
 //   * reference_608 training, (64, 1296, 40) fp32: 43.0 GFLOP (K = 40) on
 //     94 MB, done as 3xTF32: bound by operations at 3 * 43.0 G / 495 T =
 //     0.26 ms.
-// As in the forward, the kernel is held by the latency of the chain between
-// its products (exp, the mask replay, the casts, the dS round trip through
-// shared memory) and by dq's atomics, not by bytes or the tensor cores: as
-// measured by chip_smoke.py (H100 SXM, 700 W), 0.78 ms with the replay at
-// (2048, 256, 64), 110 TFLOP/s, 21 % of its bound; 1.8 ms in fp32, 15 %.
+// On the split route the dq kernel recomputes S and dP, so the backward
+// does seven products where the function needs the five counted above. As
+// in the forward, it is held by the latency of the chain between its
+// products (exp, the mask replay, the casts), not by bytes or the tensor
+// cores: chip_smoke.py times it beside its bound on the card (PERF.md).
+//
+// dq is the same on every run, as the Pallas kernel's is: its grid walks
+// the key blocks in order into a dq block that stays resident
+// (_fused_bwd_kernel zeroes it at the first key block and adds each
+// block's dS K), so dq = ((c0 + c1) + c2) + ... in key order. Here the sum
+// runs in key order too, by one of two routes (the
+// wrapper picks one by dtype, kernels/flash_attention.py:dq_route):
+//   * split (bf16): flash_bwd_kernel does the dk/dv work of one
+//     (batch*head, 64-key tile), then flash_bwd_dq_kernel the dq work of
+//     one (batch*head, 64-query tile), walking the key tiles in order and
+//     recomputing S and dP;
+//   * partials (fp32, where each recomputed product costs three TF32
+//     ones): flash_bwd_kernel also forms each query tile's dq
+//     contribution dS K (dS^T through a shared tile) and stores it with
+//     plain float4 stores into a (tiles, batch*head, N, D) fp32 workspace;
+//     flash_bwd_dq_sum_kernel then adds the tiles in key order.
+// No atomics: their order would change from run to run.
 //
 // Design (FA2's backward, for this card):
-//   * one CTA of 4 warps per (batch*head, 64-key tile); each warp owns 16
-//     keys. K and V are loaded once into shared memory in the input type;
-//     dk and dv accumulate in registers (mma accumulator layout) for the
-//     whole loop;
+//   * each kernel runs (batch*head) * tiles CTAs of 4 warps, 64 queries or
+//     keys per tile;
+//   * dk/dv block: each warp owns 16 keys. K and V are loaded once into
+//     shared memory in the input type; dk and dv accumulate in registers
+//     (mma accumulator layout) for the whole loop;
 //   * the CTA loops over 64-query tiles; q, g, lse and delta are
 //     double-buffered by cp.async (16-byte copies for q and g, 4-byte for
 //     the fp32 lse/delta rows, which need not be aligned);
@@ -51,32 +69,30 @@
 //     for queries and keys past N; dV += (scale * P^T, cast to the input
 //     type) g; dS^T = P^T * (scale * dP^T - delta), cast to the input type;
 //     dK += dS^T Q. The mask is replayed by the owning lane, once per score;
-//   * dQ = dS K: dS^T goes through a shared tile, and each warp forms 16
-//     query rows of the tile's dq contribution with mma, then adds it into
-//     the wrapper's zeroed fp32 dq with float4 atomicAdd (global memory,
-//     compute capability 9.x): lanes t and t ^ 1 swap a pair of columns so
-//     each holds four adjacent values of one row, a quarter of the atomics
-//     of a scalar add per value. The order of those adds changes from run
-//     to run, so dq agrees with a serial sum up to fp32 rounding of the
-//     partial sums, not bit for bit;
+//   * dq block: each warp owns 16 queries; q and g stay in shared memory,
+//     lse and delta in registers, and the K and V tiles are double-buffered
+//     by cp.async in key order. Per key tile: S = Q K^T and dP = g V^T,
+//     dS = P * (scale * dP - delta) with the same mask replay, and dq +=
+//     dS K (dS cast to the input type, as in the dk/dv block); dq is
+//     written once, with plain fp32 stores, so the caller need not zero it;
 //   * fp32 runs the same code on TF32 with the 3xTF32 split of every
 //     operand (mma_sm90.cuh); head dim 48 or 64 as in the forward;
 //   * dk and dv are cast to the input type and stored through the caller's
 //     strides; keys past N are never written, queries past N never touch
 //     dq.
-// Budget (-Xptxas -v, sm_90a, CUDA 12.8), per instance without / with the
-// replay: registers 218 / 245 (bf16, 64), 205 / 228 (bf16, 48), and 255
-// with 16-40 bytes of spills in every fp32 instance, so 2 CTAs share an
-// SM (1 in fp32 at D = 64, for shared memory). Shared memory: K, V, two q and
-// two g tiles of 64 x (D + 16 bytes), the dS^T tile of 64 x (64 + 16
-// bytes), two lse and two delta rows: 65,536 bytes (bf16, 64), 53,248
-// (bf16, 48), 122,880 (fp32, 64), 98,304 (fp32, 48), dynamic, with
-// cudaFuncAttributeMaxDynamicSharedMemorySize raised once per device.
-// chip_smoke.py's build phase prints these numbers and the HMMA count of
-// each instance.
+// Budget: shared memory, the dk/dv kernel's K, V, two q and two g tiles of
+// 64 x (D + 16 bytes) and two lse and two delta rows: 56,320 bytes (bf16,
+// 64), 44,032 (bf16, 48), 105,472 (fp32, 64), 80,896 (fp32, 48), and on the
+// partials route the dS^T tile of 64 x (64 + 16 bytes) more; the dq
+// kernel's q, g and two K and two V tiles, 1,024 bytes less than the dk/dv
+// kernel's; dynamic, with cudaFuncAttributeMaxDynamicSharedMemorySize
+// raised once per device. chip_smoke.py's build phase prints each
+// instance's registers and spills (-Xptxas -v) and its HMMA count.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "dropout_mask.cuh"
 #include "mma_sm90.cuh"
@@ -92,11 +108,17 @@ struct Strides {
 };
 
 template <typename T>
+constexpr int smem_dq_bytes(int d) {
+  return 6 * kBlock * (d + Mma<T>::kPad) * static_cast<int>(sizeof(T));
+}
+
+// The dk/dv kernel's; with kPartials also the dS^T tile of 64 x (64 + pad).
+template <typename T, bool kPartials>
 constexpr int smem_bytes(int d) {
-  return (6 * kBlock * (d + Mma<T>::kPad) +
-          kBlock * (kBlock + Mma<T>::kPad)) *
-             static_cast<int>(sizeof(T)) +
-         4 * kBlock * static_cast<int>(sizeof(float));
+  return smem_dq_bytes<T>(d) + 4 * kBlock * static_cast<int>(sizeof(float)) +
+         (kPartials ? kBlock * (kBlock + Mma<T>::kPad) *
+                          static_cast<int>(sizeof(T))
+                    : 0);
 }
 
 // The 64 fp32 values of rows row0..row0+63 of a contiguous (seq_len,) row,
@@ -114,16 +136,19 @@ __device__ __forceinline__ void load_rows_async(float* lse_dst,
   cp_async4((tid < kBlock ? lse_dst : delta_dst) + i, src, valid);
 }
 
-template <typename T, int D, bool kDropout>
+// dk and dv: block blockIdx.x is key tile blockIdx.x % tiles of batch*head
+// blockIdx.x / tiles. With kPartials it also writes this key tile's dq
+// contribution dS K for every query into partials, laid out (tiles,
+// batch*head, seq_len, D), for flash_bwd_dq_sum_kernel.
+template <typename T, int D, bool kDropout, bool kPartials>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ g,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dq,
-                 T* __restrict__ dk, T* __restrict__ dv, int heads,
-                 int seq_len, int kv_tiles, Strides sq, Strides sk,
-                 Strides sv, Strides sg, Strides sdq, Strides sdk,
-                 Strides sdv, Dropout drop) {
+                 const float* __restrict__ delta, T* __restrict__ dk,
+                 T* __restrict__ dv, float* __restrict__ partials, int heads,
+                 int seq_len, int tiles, Strides sq, Strides sk, Strides sv,
+                 Strides sg, Strides sdk, Strides sdv, Dropout drop) {
   using M = Mma<T>;
   constexpr int kLd = D + M::kPad;
   constexpr int kTile = kBlock * kLd;
@@ -133,9 +158,9 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* v_s = k_s + kTile;
   T* q_s = v_s + kTile;          // two buffers
   T* g_s = q_s + 2 * kTile;      // two buffers
-  T* ds_s = g_s + 2 * kTile;
-  float* lse_s = reinterpret_cast<float*>(ds_s + kBlock * kLdS);   // two
-  float* delta_s = lse_s + 2 * kBlock;                              // two
+  float* lse_s = reinterpret_cast<float*>(g_s + 2 * kTile);   // two
+  float* delta_s = lse_s + 2 * kBlock;                         // two
+  T* ds_s = reinterpret_cast<T*>(delta_s + 2 * kBlock);        // kPartials
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -144,8 +169,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t = lane & 3;
   // Key tiles of one (batch, head) are neighbours in launch order, so its
   // q and g are read from device memory once and from L2 after that.
-  const int bh = blockIdx.x / kv_tiles;
-  const int kv0 = (blockIdx.x % kv_tiles) * kBlock;
+  const int bh = blockIdx.x / tiles;
+  const int kv0 = (blockIdx.x % tiles) * kBlock;
   const int b = bh / heads;
   const int h = bh % heads;
   const T* q_bh = q + b * sq.b + h * sq.h;
@@ -184,15 +209,13 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dv_acc[j][e] = 0.f;
     }
   }
-  float* dq_bh = dq + b * sdq.b + h * sdq.h;
 
-  const int q_tiles = (seq_len + kBlock - 1) / kBlock;
-  for (int it = 0; it < q_tiles; ++it) {
+  for (int it = 0; it < tiles; ++it) {
     const int q0 = it * kBlock;
     const int buf = it & 1;
-    if (it + 1 < q_tiles) {
+    if (it + 1 < tiles) {
       // Into the other buffers, which every warp finished reading before
-      // the previous iteration's dS barrier.
+      // the previous iteration's closing barrier.
       const int nb = buf ^ 1;
       load_tile_async<T, D, kBlock, kThreads>(q_s + nb * kTile, q_bh, sq.n,
                                               q0 + kBlock, seq_len, tid);
@@ -264,56 +287,63 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     // dV += P^T g and dK += dS^T Q, each A fragment rounded to the input
-    // type; dS^T (rounded) to shared memory for dQ.
+    // type.
     add_acc_kn<T, kBlock, D>(dv_acc, s, g_t, kLd, lane);
     add_acc_kn<T, kBlock, D>(dk_acc, dp, q_t, kLd, lane);
+    if constexpr (kPartials) {
+      // dS^T (rounded) through shared memory; each warp forms 16 query
+      // rows of this key tile's dq contribution dS K and stores it.
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        store_pair(ds_s + (16 * warp + gr + 8 * r) * kLdS + 8 * j + 2 * t,
-                   dp[j][2 * r], dp[j][2 * r + 1]);
+        for (int r = 0; r < 2; ++r) {
+          store_pair(ds_s + (16 * warp + gr + 8 * r) * kLdS + 8 * j + 2 * t,
+                     dp[j][2 * r], dp[j][2 * r + 1]);
+        }
+      }
+      __syncthreads();
+      float dq_acc[D / 8][4];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int kc = 0; kc < kBlock / 16; ++kc) {
+        typename M::A a;
+        M::load_a_t(a, ds_s, kLdS, 16 * kc, 16 * warp, lane);
+#pragma unroll
+        for (int np = 0; np < D / 16; ++np) {
+          typename M::B b0, b1;
+          M::load_b_kn(b0, b1, k_s, kLd, 16 * kc, 16 * np, lane);
+          M::mma(dq_acc[2 * np], a, b0);
+          M::mma(dq_acc[2 * np + 1], a, b1);
+        }
+      }
+      // Lanes t and t ^ 1 swap halves, so each stores four adjacent values
+      // of one row: an even lane row gr, columns 8j + 2t .. + 3; an odd
+      // lane row gr + 8, columns 8j + 2(t - 1) .. + 3.
+      const bool odd = t & 1;
+      const int row = q0 + 16 * warp + gr + (odd ? 8 : 0);
+      float* dq_row =
+          partials +
+          ((static_cast<long long>(blockIdx.x % tiles) * (gridDim.x / tiles) +
+            bh) * seq_len + row) * D +
+          2 * (t & ~1);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const float s0 = odd ? dq_acc[j][0] : dq_acc[j][2];
+        const float s1 = odd ? dq_acc[j][1] : dq_acc[j][3];
+        const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+        const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+        if (row < seq_len) {
+          *reinterpret_cast<float4*>(dq_row + 8 * j) =
+              odd ? make_float4(r0, r1, dq_acc[j][2], dq_acc[j][3])
+                  : make_float4(dq_acc[j][0], dq_acc[j][1], r0, r1);
+        }
       }
     }
     __syncthreads();
-
-    // dQ rows q0 + 16 * warp .. + 15 = dS (16 queries x 64 keys) K.
-    float dq_acc[D / 8][4];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
-    }
-#pragma unroll
-    for (int kc = 0; kc < kBlock / 16; ++kc) {
-      typename M::A a;
-      M::load_a_t(a, ds_s, kLdS, 16 * kc, 16 * warp, lane);
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        typename M::B b0, b1;
-        M::load_b_kn(b0, b1, k_s, kLd, 16 * kc, 16 * np, lane);
-        M::mma(dq_acc[2 * np], a, b0);
-        M::mma(dq_acc[2 * np + 1], a, b1);
-      }
-    }
-    // Lanes t and t ^ 1 swap halves: an even lane adds row gr, columns
-    // 8j + 2t .. + 3; an odd lane row gr + 8, columns 8j + 2(t - 1) .. + 3.
-    const bool odd = t & 1;
-    const int row = q0 + 16 * warp + gr + (odd ? 8 : 0);
-    float* dq_row = dq_bh + row * sdq.n + 2 * (t & ~1);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const float s0 = odd ? dq_acc[j][0] : dq_acc[j][2];
-      const float s1 = odd ? dq_acc[j][1] : dq_acc[j][3];
-      const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
-      const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-      const float4 add =
-          odd ? make_float4(r0, r1, dq_acc[j][2], dq_acc[j][3])
-              : make_float4(dq_acc[j][0], dq_acc[j][1], r0, r1);
-      if (row < seq_len) {
-        atomicAdd(reinterpret_cast<float4*>(dq_row + 8 * j), add);
-      }
-    }
   }
 
   T* dk_bh = dk + b * sdk.b + h * sdk.h;
@@ -332,28 +362,256 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// dq: block blockIdx.x is query tile blockIdx.x % tiles of batch*head
+// blockIdx.x / tiles; the key tiles in order, dq = ((c0 + c1) + c2) + ...
+// in registers.
+template <typename T, int D, bool kDropout>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ g,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int heads, int seq_len, int tiles, Strides sq,
+                    Strides sk, Strides sv, Strides sg, Strides sdq,
+                    Dropout drop) {
+  using M = Mma<T>;
+  constexpr int kLd = D + M::kPad;
+  constexpr int kTile = kBlock * kLd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* g_s = q_s + kTile;
+  T* k_s = g_s + kTile;           // two buffers
+  T* v_s = k_s + 2 * kTile;       // two buffers
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gr = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x % tiles) * kBlock;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const T* k_bh = k + b * sk.b + h * sk.h;
+  const T* v_bh = v + b * sv.b + h * sv.h;
+
+  load_tile_async<T, D, kBlock, kThreads>(q_s, q + b * sq.b + h * sq.h, sq.n,
+                                          q0, seq_len, tid);
+  load_tile_async<T, D, kBlock, kThreads>(g_s, g + b * sg.b + h * sg.h, sg.n,
+                                          q0, seq_len, tid);
+  load_tile_async<T, D, kBlock, kThreads>(k_s, k_bh, sk.n, 0, seq_len, tid);
+  load_tile_async<T, D, kBlock, kThreads>(v_s, v_bh, sv.n, 0, seq_len, tid);
+  cp_async_commit();
+
+  // This lane's queries: q0 + 16 * warp + gr (r = 0) and + 8 (r = 1).
+  bool query_ok[2];
+  float lse_r[2], delta_r[2];
+  unsigned int hash_query[2] = {0u, 0u};
+  const unsigned int seed = kDropout ? load_seed(drop) : 0u;
+  const long long rows = static_cast<long long>(bh) * seq_len;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int query = q0 + 16 * warp + gr + 8 * r;
+    query_ok[r] = query < seq_len;
+    lse_r[r] = query_ok[r] ? lse[rows + query] * kLog2e : 0.f;
+    delta_r[r] = query_ok[r] ? delta[rows + query] : 0.f;
+    if (kDropout) {
+      hash_query[r] = hash_part(seed, static_cast<unsigned int>(bh)) +
+                      query_term(static_cast<unsigned int>(query));
+    }
+  }
+  float dq_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
+  }
+
+  for (int it = 0; it < tiles; ++it) {
+    const int kv0 = it * kBlock;
+    const int buf = it & 1;
+    if (it + 1 < tiles) {
+      // Into the other buffers, which every warp finished reading before
+      // the previous iteration's closing barrier.
+      const int nb = buf ^ 1;
+      load_tile_async<T, D, kBlock, kThreads>(k_s + nb * kTile, k_bh, sk.n,
+                                              kv0 + kBlock, seq_len, tid);
+      load_tile_async<T, D, kBlock, kThreads>(v_s + nb * kTile, v_bh, sv.n,
+                                              kv0 + kBlock, seq_len, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* k_t = k_s + buf * kTile;
+    const T* v_t = v_s + buf * kTile;
+
+    // S = Q K^T and dP = g V^T: 16 queries x 64 keys per warp.
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = 0.f;
+        dp[j][e] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      typename M::A qa, ga;
+      M::load_a(qa, q_s, kLd, 16 * warp, 16 * kc, lane);
+      M::load_a(ga, g_s, kLd, 16 * warp, 16 * kc, lane);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        typename M::B b0, b1;
+        M::load_b_nk(b0, b1, k_t, kLd, 16 * np, 16 * kc, lane);
+        M::mma(s[2 * np], qa, b0);
+        M::mma(s[2 * np + 1], qa, b1);
+        M::load_b_nk(b0, b1, v_t, kLd, 16 * np, 16 * kc, lane);
+        M::mma(dp[2 * np], ga, b0);
+        M::mma(dp[2 * np + 1], ga, b1);
+      }
+    }
+
+    // dS into dp: rows are queries (e >> 1), columns keys 8j + 2t +
+    // (e & 1).
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int key = kv0 + 8 * j + 2 * t + (e & 1);
+        const float p =
+            query_ok[r] && key < seq_len
+                ? exp2f(fmaf(s[j][e], kLog2e, -lse_r[r]))
+                : 0.f;
+        float scale = 1.f;
+        if (kDropout) {
+          scale = keep(drop, hash_query[r] +
+                                 key_term(static_cast<unsigned int>(key)))
+                      ? drop.inv_keep
+                      : 0.f;
+        }
+        dp[j][e] = p * (dp[j][e] * scale - delta_r[r]);
+      }
+    }
+    // dq += dS K, dS rounded to the input type.
+    add_acc_kn<T, kBlock, D>(dq_acc, dp, k_t, kLd, lane);
+    __syncthreads();
+  }
+
+  float* dq_bh = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int query = q0 + 16 * warp + gr + 8 * r;
+    if (!query_ok[r]) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      store_pair(dq_bh + query * sdq.n + 8 * j + 2 * t, dq_acc[j][2 * r],
+                 dq_acc[j][2 * r + 1]);
+    }
+  }
+}
+
+// dq from flash_bwd_kernel's partials: thread i sums four adjacent
+// columns of one (batch*head, query) row over the key tiles in order,
+// dq = ((c0 + c1) + c2) + ..., and stores them through dq's strides.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_dq_sum_kernel(const float* __restrict__ partials,
+                        float* __restrict__ dq, int heads, int seq_len,
+                        int tiles, long long rows, Strides sdq) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= rows * (D / 4)) return;
+  const long long row = i / (D / 4);   // bh * seq_len + query
+  const int col = 4 * static_cast<int>(i % (D / 4));
+  const float4* src =
+      reinterpret_cast<const float4*>(partials + row * D + col);
+  const long long tile_stride = rows * (D / 4);
+  float4 acc = src[0];
+  for (int j = 1; j < tiles; ++j) {
+    const float4 c = src[j * tile_stride];
+    acc.x += c.x;
+    acc.y += c.y;
+    acc.z += c.z;
+    acc.w += c.w;
+  }
+  const int bh = static_cast<int>(row / seq_len);
+  const int query = static_cast<int>(row % seq_len);
+  *reinterpret_cast<float4*>(dq + (bh / heads) * sdq.b +
+                             (bh % heads) * sdq.h + query * sdq.n + col) =
+      acc;
+}
+
 template <typename T, int D, bool kDropout>
 cudaError_t launch_kernel(const void* q, const void* k, const void* v,
                           const void* g, const void* lse, const void* delta,
-                          void* dq, void* dk, void* dv, int batch, int heads,
-                          int seq_len, Strides sq, Strides sk, Strides sv,
-                          Strides sg, Strides sdq, Strides sdk, Strides sdv,
-                          Dropout drop, cudaStream_t stream) {
-  constexpr int kSmem = smem_bytes<T>(D);
-  static std::atomic<unsigned long long> smem_allowed{0};
-  const cudaError_t err =
-      allow_dynamic_smem(flash_bwd_kernel<T, D, kDropout>, kSmem, smem_allowed);
-  if (err != cudaSuccess) return err;
-  const int kv_tiles = (seq_len + kBlock - 1) / kBlock;
-  const long long blocks = static_cast<long long>(batch) * heads * kv_tiles;
+                          void* dq, void* dk, void* dv, void* partials,
+                          int batch, int heads, int seq_len, Strides sq,
+                          Strides sk, Strides sv, Strides sg, Strides sdq,
+                          Strides sdk, Strides sdv, Dropout drop,
+                          cudaStream_t stream) {
+  const int tiles = (seq_len + kBlock - 1) / kBlock;
+  const long long blocks = static_cast<long long>(batch) * heads * tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  flash_bwd_kernel<T, D, kDropout>
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* gt = static_cast<const T*>(g);
+  const float* lse_f = static_cast<const float*>(lse);
+  const float* delta_f = static_cast<const float*>(delta);
+  cudaError_t err;
+  if (partials != nullptr) {
+    // fp32 only (the wrapper's choice): the dk/dv kernel stores each key
+    // tile's dq contribution, then the sum kernel adds them in key order.
+    if constexpr (std::is_same<T, float>::value) {
+      constexpr int kSmem = smem_bytes<T, true>(D);
+      static std::atomic<unsigned long long> smem_allowed{0};
+      err = allow_dynamic_smem(flash_bwd_kernel<T, D, kDropout, true>, kSmem,
+                               smem_allowed);
+      if (err != cudaSuccess) return err;
+      float* part = static_cast<float*>(partials);
+      flash_bwd_kernel<T, D, kDropout, true>
+          <<<static_cast<unsigned int>(blocks), kThreads, kSmem, stream>>>(
+              qt, kt, vt, gt, lse_f, delta_f, static_cast<T*>(dk),
+              static_cast<T*>(dv), part, heads, seq_len, tiles, sq, sk, sv,
+              sg, sdk, sdv, drop);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      const long long rows = static_cast<long long>(batch) * heads * seq_len;
+      const long long sum_blocks = (rows * (D / 4) + 255) / 256;
+      if (sum_blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+      flash_bwd_dq_sum_kernel<D>
+          <<<static_cast<unsigned int>(sum_blocks), 256, 0, stream>>>(
+              part, static_cast<float*>(dq), heads, seq_len, tiles, rows,
+              sdq);
+      return cudaGetLastError();
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
+  constexpr int kSmem = smem_bytes<T, false>(D);
+  constexpr int kSmemDq = smem_dq_bytes<T>(D);
+  static std::atomic<unsigned long long> smem_allowed{0}, smem_dq_allowed{0};
+  err = allow_dynamic_smem(flash_bwd_kernel<T, D, kDropout, false>, kSmem,
+                           smem_allowed);
+  if (err != cudaSuccess) return err;
+  err = allow_dynamic_smem(flash_bwd_dq_kernel<T, D, kDropout>, kSmemDq,
+                           smem_dq_allowed);
+  if (err != cudaSuccess) return err;
+  flash_bwd_kernel<T, D, kDropout, false>
       <<<static_cast<unsigned int>(blocks), kThreads, kSmem, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const T*>(g),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<float*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
-          heads, seq_len, kv_tiles, sq, sk, sv, sg, sdq, sdk, sdv, drop);
+          qt, kt, vt, gt, lse_f, delta_f, static_cast<T*>(dk),
+          static_cast<T*>(dv), nullptr, heads, seq_len, tiles, sq, sk, sv, sg,
+          sdk, sdv, drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_kernel<T, D, kDropout>
+      <<<static_cast<unsigned int>(blocks), kThreads, kSmemDq, stream>>>(
+          qt, kt, vt, gt, lse_f, delta_f, static_cast<float*>(dq), heads,
+          seq_len, tiles, sq, sk, sv, sg, sdq, drop);
   return cudaGetLastError();
 }
 
@@ -361,36 +619,37 @@ template <typename T, int D>
 cudaError_t launch_dim(bool dropout, const void* q, const void* k,
                        const void* v, const void* g, const void* lse,
                        const void* delta, void* dq, void* dk, void* dv,
-                       int batch, int heads, int seq_len, Strides sq,
-                       Strides sk, Strides sv, Strides sg, Strides sdq,
-                       Strides sdk, Strides sdv, Dropout drop,
+                       void* partials, int batch, int heads, int seq_len,
+                       Strides sq, Strides sk, Strides sv, Strides sg,
+                       Strides sdq, Strides sdk, Strides sdv, Dropout drop,
                        cudaStream_t stream) {
   if (dropout) {
     return launch_kernel<T, D, true>(q, k, v, g, lse, delta, dq, dk, dv,
-                                     batch, heads, seq_len, sq, sk, sv, sg,
-                                     sdq, sdk, sdv, drop, stream);
+                                     partials, batch, heads, seq_len, sq, sk,
+                                     sv, sg, sdq, sdk, sdv, drop, stream);
   }
-  return launch_kernel<T, D, false>(q, k, v, g, lse, delta, dq, dk, dv, batch,
-                                    heads, seq_len, sq, sk, sv, sg, sdq, sdk,
-                                    sdv, drop, stream);
+  return launch_kernel<T, D, false>(q, k, v, g, lse, delta, dq, dk, dv,
+                                    partials, batch, heads, seq_len, sq, sk,
+                                    sv, sg, sdq, sdk, sdv, drop, stream);
 }
 
 template <typename T>
 cudaError_t launch(int head_dim, bool dropout, const void* q, const void* k,
                    const void* v, const void* g, const void* lse,
                    const void* delta, void* dq, void* dk, void* dv,
-                   int batch, int heads, int seq_len, Strides sq, Strides sk,
-                   Strides sv, Strides sg, Strides sdq, Strides sdk,
-                   Strides sdv, Dropout drop, cudaStream_t stream) {
+                   void* partials, int batch, int heads, int seq_len,
+                   Strides sq, Strides sk, Strides sv, Strides sg,
+                   Strides sdq, Strides sdk, Strides sdv, Dropout drop,
+                   cudaStream_t stream) {
   if (head_dim == 48) {
     return launch_dim<T, 48>(dropout, q, k, v, g, lse, delta, dq, dk, dv,
-                             batch, heads, seq_len, sq, sk, sv, sg, sdq, sdk,
-                             sdv, drop, stream);
+                             partials, batch, heads, seq_len, sq, sk, sv, sg,
+                             sdq, sdk, sdv, drop, stream);
   }
   if (head_dim == 64) {
     return launch_dim<T, 64>(dropout, q, k, v, g, lse, delta, dq, dk, dv,
-                             batch, heads, seq_len, sq, sk, sv, sg, sdq, sdk,
-                             sdv, drop, stream);
+                             partials, batch, heads, seq_len, sq, sk, sv, sg,
+                             sdq, sdk, sdv, drop, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -399,8 +658,12 @@ cudaError_t launch(int head_dim, bool dropout, const void* q, const void* k,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, g, dk, dv); dq is fp32, zeroed
-// by the caller; lse and delta are contiguous fp32 (batch, heads, seq_len).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, g, dk, dv); dq is fp32, every
+// element written by the kernels; lse and delta are contiguous fp32 (batch,
+// heads, seq_len). dq_partials: null for the split route, or, in fp32
+// only, a (tiles, batch * heads, seq_len, head_dim) fp32 workspace for the
+// partials route, tiles = ceil(seq_len / 64); dq's rows must then be
+// 16-byte aligned too.
 // head_dim: 48 or 64 (the wrapper pads). Strides are in elements, for the
 // batch, head and token axes; the head dim must be contiguous and every row
 // 16-byte aligned. dropout: 0, or 1 with the device address of the
@@ -410,7 +673,8 @@ extern "C" {
 int vtd_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* g,
     const void* lse, const void* delta, void* dq, void* dk, void* dv,
-    int dtype, int batch, int heads, int seq_len, int head_dim,
+    void* dq_partials, int dtype, int batch, int heads, int seq_len,
+    int head_dim,
     long long q_sb, long long q_sh, long long q_sn, long long k_sb,
     long long k_sh, long long k_sn, long long v_sb, long long v_sh,
     long long v_sn, long long g_sb, long long g_sh, long long g_sn,
@@ -428,12 +692,13 @@ int vtd_flash_attention_bwd(
   cudaError_t err;
   if (dtype == 0) {
     err = launch<float>(head_dim, dropout != 0, q, k, v, g, lse, delta, dq,
-                        dk, dv, batch, heads, seq_len, sq, sk, sv, sg, sdq,
-                        sdk, sdv, drop, s);
+                        dk, dv, dq_partials, batch, heads, seq_len, sq, sk,
+                        sv, sg, sdq, sdk, sdv, drop, s);
   } else if (dtype == 1) {
     err = launch<__nv_bfloat16>(head_dim, dropout != 0, q, k, v, g, lse,
-                                delta, dq, dk, dv, batch, heads, seq_len, sq,
-                                sk, sv, sg, sdq, sdk, sdv, drop, s);
+                                delta, dq, dk, dv, dq_partials, batch, heads,
+                                seq_len, sq, sk, sv, sg, sdq, sdk, sdv, drop,
+                                s);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -20,10 +20,10 @@ Replaces the reference's import-time annotation parsing
     tensor with the -8 empty-slot convention (vtu.py:452-507).
 
 The PyTorch port's own copy of vision_transformer_detector_tpu/data/
-annotations.py, kept as it is except that the optional native JSON parser
-(the JAX package's ``_native`` build of native/coco_json.cc) is not
-ported: the pure-Python parser runs, as it does in the JAX package when
-that core is not built.
+annotations.py. Its native JSON parser is the port's own copy of the
+core (native/coco_json.cc of this package, built at its first use by
+``_native/__init__.py``); where it does not build, the pure-Python parser
+runs, as it does in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .._native import _native_coco_json  # the core builds at first use
 from ..config import DetectorConfig
 from .categories import COCO_ID_TO_MODEL_ID
 
@@ -41,12 +42,9 @@ AnnotationsDict = Dict[str, List[List[float]]]
 
 logger = logging.getLogger(__name__)
 
-# The native parser core is not ported (ROADMAP Queue A): Python parses.
-_native_coco_json = None
-
 
 def native_parser_available() -> bool:
-    return _native_coco_json is not None
+    return _native_coco_json.available()
 
 
 class AnnotationDiagnostics:
@@ -146,15 +144,15 @@ def build_annotations_from_instances(path: str,
     fields and skips the segmentation bulk, replacing the reference's
     minutes-scale import-time json.load (vtu.py:214-220; measured in
     tools/bench_annotations.py). Output is identical to the pure-Python
-    path (tests/test_native_coco_json.py asserts bit-equality).
+    path (tests/test_torch_native_coco_json.py asserts bit-equality).
     """
     if use_native is None:
         use_native = native_parser_available()
     if use_native:
-        if _native_coco_json is None:
+        if not native_parser_available():
             raise RuntimeError(
-                "native COCO parser requested but not built; run "
-                "tools/build_native.sh")
+                "native COCO parser requested but not built; `vtd-torch "
+                "doctor` says why")
         with open(path, "rb") as f:
             data = f.read()
         ids_b, cats_b, boxes_b, n = _native_coco_json.parse_instances(data)

@@ -16,11 +16,12 @@ pandas lookups (the pipeline hot spot, SURVEY.md §3.1); here:
     slice of the file list, matching ``jax.process_index`` semantics.
 
 The PyTorch port's own copy of vision_transformer_detector_tpu/data/
-pipeline.py, kept as it is except that the optional native JPEG core (the
-JAX package's ``_native`` build of native/pipeline.cc) is not ported: PIL
-decodes, as it does in the JAX package when that core is not built. The
-timings quoted in its comments were measured for the JAX package; none of
-them is a measurement of the port.
+pipeline.py. Its native JPEG decode + letterbox core is the port's own
+copy (native/pipeline.cc of this package, built at its first use by
+``_native/__init__.py``; it needs libjpeg's ``jpeglib.h``); where it does
+not build, PIL decodes, as in the JAX package. The timings quoted in its
+comments were measured for the JAX package; none of them is a measurement
+of the port.
 """
 
 from __future__ import annotations
@@ -35,16 +36,13 @@ from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .._native import _native_pipeline  # the core builds at first use
 from ..config import DetectorConfig
 from .annotations import AnnotationsDict, labels_from_annotations
 
-# The native JPEG decode + letterbox core is not ported (ROADMAP Queue A):
-# PIL decodes.
-_native_pipeline = None
-
 
 def native_available() -> bool:
-    return _native_pipeline is not None
+    return _native_pipeline.available()
 
 
 def _pil_bomb_error():
@@ -214,8 +212,8 @@ def letterbox_image_bytes(data: bytes, image_size: Tuple[int, int],
         # widens with worker threads. (An earlier round measured PIL
         # narrowly ahead on one core; the native resize's row-cache
         # rewrite flipped that.)
-        use_native = _native_pipeline is not None
-    if use_native and _native_pipeline is not None and is_jpeg:
+        use_native = native_available()
+    if use_native and native_available() and is_jpeg:
         try:
             canvas_bytes, oh, ow = _native_pipeline.decode_letterbox(
                 data, mh, mw, fast_decode)

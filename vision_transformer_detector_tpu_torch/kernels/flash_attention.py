@@ -28,9 +28,13 @@ with ValueError, never copied; the model's views all qualify.
 When q, k or v requires grad, the call goes through
 ``FlashAttentionFunction``: its forward also writes the fp32 logsumexp and
 saves it with the unpadded q, k, v and the output; its backward forms
-delta = rowsum(g * out) in fp32 and launches the backward kernel, as the
-JAX package's Pallas backward does. Calls that need no grad (serving,
-``torch.inference_mode``) launch the forward alone, without the logsumexp.
+delta = rowsum(g * out) in fp32 and launches the backward, as the JAX
+package's Pallas backward does. The backward sums dq over the key tiles
+in order, so the gradients are the same on every run (``DQ_ROUTES``:
+fp32 stores each key tile's contribution and adds them in a second
+kernel, bf16 runs a dq kernel after the dk/dv kernel). Calls that need
+no grad (serving, ``torch.inference_mode``) launch the forward alone,
+without the logsumexp.
 
 ``dropout_rate``/``dropout_seed`` turn on the JAX kernel's in-kernel
 probability dropout (training; keras-MHA semantics). The seed is an
@@ -65,6 +69,16 @@ BWD_SOURCE = "flash_attention_bwd.cu"
 _HEAD_DIMS = (48, 64)   # the kernels' head dims; smaller K is padded
 _ALIGN = 16             # bytes: the kernels' cp.async copies move 16 at once
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+KEY_TILE = 64           # keys per tile of the backward kernels
+# The backward's two ways of summing dq over the key tiles in order, and
+# the request that holds the C entry point to each (None: by dtype):
+# "split", a dq kernel per query tile after the dk/dv kernel, which
+# recomputes S and dP; "partials" (fp32 only), the dk/dv kernel stores
+# each key tile's dq contribution and a sum kernel adds them.
+DQ_ROUTES = {None: 0, "split": 1, "partials": 2}
+# The largest workspace the partials route takes unasked: tiles times dq's
+# bytes (334 MB for reference_608 at batch 8); past it fp32 takes "split".
+PARTIALS_MAX_BYTES = 1 << 30
 _count_lock = threading.Lock()
 _M32 = 0xFFFFFFFF
 
@@ -404,13 +418,41 @@ def _launch_forward(q, k, v, layout: str, with_lse: bool = False,
     return (out, lse) if with_lse else out
 
 
-def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None):
-    """dq, dk, dv from the backward kernel, through
+def partials_bytes(b: int, h: int, n: int, d: int) -> int:
+    """Bytes of the partials route's fp32 workspace for (b, h, n) rows of
+    head dim d: one dq per key tile."""
+    return -(-n // KEY_TILE) * b * h * n * d * 4
+
+
+def dq_route(dtype: torch.dtype, request: int = 0,
+             workspace_bytes: int = 0) -> str:
+    """The name of the dq route that ``request`` (a ``DQ_ROUTES`` value)
+    takes for ``dtype``: when 0, fp32 takes "partials" (its 3xTF32
+    products make recomputing S and dP the dearer way) unless its
+    ``workspace_bytes`` pass PARTIALS_MAX_BYTES, and bf16 "split";
+    "partials" in bf16 raises."""
+    names = {code: name for name, code in DQ_ROUTES.items()}
+    if request not in names:
+        raise ValueError(f"dq route request {request} is not one of "
+                         f"{sorted(names)}")
+    name = names[request] or (
+        "partials" if dtype == torch.float32
+        and workspace_bytes <= PARTIALS_MAX_BYTES else "split")
+    if name == "partials" and dtype != torch.float32:
+        raise ValueError("the partials dq route is built for float32 only")
+    return name
+
+
+def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None,
+                     route: str | None = None):
+    """dq, dk, dv from the backward kernels, through
     ``torch.ops.vtd_torch.flash_attention_bwd`` (kernels/ops.py). lse and
     delta are (B, H, N) fp32; dq accumulates in fp32 and is cast to q's
     dtype here, dk and dv come out of the kernel in the input dtype.
     ``dropout`` is the forward's ``(seed, rate)``, whose mask the kernel
-    replays, reading the seed from device memory."""
+    replays, reading the seed from device memory. ``route`` names one of
+    ``DQ_ROUTES`` to take instead of the one the dtype selects (the tests
+    and the timings use it)."""
     _check_inputs(q, k, v, g)
     kdim = q.shape[-1]
     # The incoming cotangent is whatever view autograd hands over (an
@@ -429,5 +471,5 @@ def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None):
                 f"{q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
     seed, rate = dropout or (None, 0.0)
     dq, dk, dv = torch.ops.vtd_torch.flash_attention_bwd(
-        q, k, v, g, lse, delta, layout, seed, rate)
+        q, k, v, g, lse, delta, layout, seed, rate, DQ_ROUTES[route])
     return dq[..., :kdim].to(q.dtype), dk[..., :kdim], dv[..., :kdim]

@@ -68,7 +68,7 @@ def _library(kind: str) -> ctypes.CDLL:
         fn.argtypes = [ptr] * 5 + [i32] * 5 + [i64] * 12 + dropout
     elif kind == "bwd":
         fn = lib.vtd_flash_attention_bwd
-        fn.argtypes = [ptr] * 9 + [i32] * 5 + [i64] * 21 + dropout
+        fn.argtypes = [ptr] * 10 + [i32] * 5 + [i64] * 21 + dropout
     elif kind == "ln":
         fn = lib.vtd_layer_norm
         fn.argtypes = [ptr] * 4 + [i32] * 2 + [ctypes.c_float, i32, ptr]
@@ -162,19 +162,27 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         g: torch.Tensor, lse: torch.Tensor,
                         delta: torch.Tensor, layout: str,
                         dropout_seed: Optional[torch.Tensor],
-                        dropout_rate: float
+                        dropout_rate: float, request: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq fp32, dk, dv)`` at the padded head dim from the backward
-    kernel (csrc/flash_attention_bwd.cu); lse and delta are contiguous
-    ``(B, H, N)`` fp32; dq accumulates in a zeroed fp32 buffer. A nonzero
+    kernels (csrc/flash_attention_bwd.cu); lse and delta are contiguous
+    ``(B, H, N)`` fp32; dq is summed in fp32 over the key tiles in order
+    and written once, so it is the same on every run. A nonzero
     ``dropout_rate`` replays the forward's mask, its seed read from
-    ``dropout_seed``'s device memory."""
+    ``dropout_seed``'s device memory. ``request`` is one of
+    ``flash_attention.DQ_ROUTES``' values (0: the route the dtype
+    selects)."""
     fa = flash_attention
     q, k, v, g = fa._kernel_operands(layout, q=q, k=k, v=v, g=g)
     dropout = _dropout(dropout_seed, dropout_rate, q.device)
     (b, h, n), _ = fa._axes(q, layout)
-    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    partials = None
+    if fa.dq_route(q.dtype, request, fa.partials_bytes(
+            b, h, n, q.shape[-1])) == "partials":
+        partials = torch.empty((-(-n // fa.KEY_TILE), b * h, n, q.shape[-1]),
+                               dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, g, dq, dk, dv)
                for s in fa._axes(t, layout)[1]]
     lib = _library("bwd")
@@ -182,7 +190,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.vtd_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), _DTYPE_CODES[q.dtype], b, h, n, q.shape[-1],
+            dv.data_ptr(), None if partials is None else partials.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, h, n, q.shape[-1],
             *strides, *fa._dropout_c_args(dropout), _stream(q.device))
     _build.raise_on_error(lib, err, "flash attention backward")
     fa._count("backward_launches" if dropout is None
@@ -191,7 +200,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 @flash_attention_bwd.register_fake
-def _(q, k, v, g, lse, delta, layout, dropout_seed, dropout_rate):
+def _(q, k, v, g, lse, delta, layout, dropout_seed, dropout_rate, request=0):
     return (q.new_empty(q.shape, dtype=torch.float32), torch.empty_like(k),
             torch.empty_like(v))
 

@@ -14,8 +14,10 @@ tests/test_torch_self_contained.py, with two deliberate differences:
     the step receives and returns: uint8 canvases in, ``(B, slots, 6)``
     decoded predictions out.
 
-The native matcher core (native/coco_eval.cc) is not part of the port:
-``native_matcher_available()`` is False and ``use_native=True`` raises.
+The native matcher core is the port's own copy of native/coco_eval.cc
+(native/coco_eval.cc of this package, built at its first use by
+``_native/__init__.py``), bit-equal to the NumPy matcher: ``use_native=
+None`` takes it when it is built, ``use_native=True`` raises without it.
 
 The framework already reproduces the reference's *custom* streaming metric
 bit-for-bit (metrics/mean_average_precision.py, mirroring
@@ -72,10 +74,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+# Native matcher core (native/coco_eval.cc of this package): the same
+# greedy-COCO semantics in C++, bit-equal by construction (the same
+# IEEE-double operation order). It builds at its first use.
+from .._native import _native_coco_eval
+
 def native_matcher_available() -> bool:
-    """The port has no native matcher core (the JAX package's
-    native/coco_eval.cc is not ported)."""
-    return False
+    return _native_coco_eval.available()
 
 
 # The standard COCO summary configuration.
@@ -291,12 +296,13 @@ class CocoEvaluator:
         # layout and the pure path's iteration order must agree.
         self._area_ranges_array = np.ascontiguousarray(
             list(self.area_ranges.values()), np.float64)
-        if use_native:
+        if use_native is None:
+            use_native = native_matcher_available()
+        elif use_native and not native_matcher_available():
             raise RuntimeError(
-                "use_native=True but the PyTorch port has no native matcher "
-                "core; evaluate with the NumPy matcher (use_native=None or "
-                "False)")
-        self.use_native = False
+                "use_native=True but the native matcher core is not built "
+                "(`vtd-torch doctor` says why)")
+        self.use_native = use_native
         self._images: List[dict] = []
 
     def reset_state(self) -> None:
@@ -383,6 +389,24 @@ class CocoEvaluator:
         order = np.argsort(-img["det_scores"][det_sel], kind="stable")[:cap]
         det_boxes = img["det_boxes"][det_sel][order]
         det_scores = img["det_scores"][det_sel][order]
+
+        if self.use_native:
+            matched_b, ignored_b, npos_b = _native_coco_eval.match_image(
+                det_boxes, gt_boxes, gt_iscrowd, gt_areas,
+                self._area_ranges_array, self.iou_thresholds)
+            num_a = len(self._area_ranges_array)
+            num_t = len(self.iou_thresholds)
+            num_m = len(det_boxes)
+            matched = np.frombuffer(matched_b, np.uint8).reshape(
+                num_a, num_t, num_m).view(bool)
+            ignored = np.frombuffer(ignored_b, np.uint8).reshape(
+                num_a, num_t, num_m).view(bool)
+            npos = np.frombuffer(npos_b, np.int64)
+            return [_ImageEval(dt_scores=det_scores,
+                               dt_matched=matched[ai],
+                               dt_ignored=ignored[ai],
+                               n_positive=int(npos[ai]))
+                    for ai in range(num_a)]
 
         det_areas = det_boxes[:, 2] * det_boxes[:, 3]
         results = []
