@@ -173,6 +173,38 @@ PyTorch version. Phases, one output line each:
                     (bit-equal reported); (f) device-path medians of the
                     artifact and the live service at batch 1 and 8.
 
+ 16. parallel     — data parallelism and ring attention on the one card:
+                    (a) B1-drop (with lse) and B2-replay at (2048, 256,
+                    64) bf16 over the whole batch against two half
+                    batches launched with their batch*head offset, and
+                    the MLP dropout kernel at (8, 4096, 2048) against two
+                    halves with their row offset, bit for bit; a half
+                    launched with offset 0 (a planted fault) must differ;
+                    the ring's R = 2 block launches timed against their
+                    plain versions and SDPA; then two worker processes
+                    (this script with --parallel-worker) in a gloo group
+                    on this card, the ring's exchange staged through host
+                    memory: (b) ring attention at R = 2 forward and
+                    backward against the plain versions and the
+                    whole-sequence kernels, bf16 at highres_1024_ring's
+                    (2, 4096, 16, 64) with and without dropout 0.1 and
+                    fp32 at (64, 1296, 40), with the times of both, and
+                    the whole ring's host-clock times; (c) data
+                    parallelism: reference_608 fp32, global batch 8 as
+                    2 x 4, 3 steps, each loss within 1e-5 of one process
+                    at batch 8; (d) highres_1024_ring at full width and
+                    depth, R = 2, batch 2, 3 steps at lr 1e-5 against one
+                    process with global flash attention, within
+                    HIGHRES_RING_LOSS_LIMITS, the ring's launches per step
+                    and each process's peak memory; then (b) again at
+                    R = 4 in four worker processes; (e) an NCCL group of
+                    one: reference_608's fit(epochs_per_call=4) under
+                    create_mesh(1, 1), its step captured as a CUDA graph
+                    through the NCCL code path (an all-reduce over one
+                    rank launches nothing), bit-equal to the meshless
+                    graph run, the graph's collective nodes counted, and
+                    `vtd-torch train --distributed` for one epoch.
+
 Then it prints the card's name and power limit (nvidia-smi), one JSON
 line with each kernel's shape, launches, error, times (its own, its plain
 version's and, where one PyTorch call computes the same function, that
@@ -1178,7 +1210,8 @@ def phase_kernel_serve():
         x32, w32, b32 = x.float(), w.float(), b.float()
         times[f"dense_mish_B={batch}_{rows}x768x1536_fp32"] = _in_turns({
             "plain_ms": lambda: fused_ffn.dense_mish_reference(x32, w32, b32),
-            "kernel_ms": lambda: fused_ffn.fused_dense_mish(x32, w32, b32)},
+            "kernel_ms": lambda: fused_ffn.fused_dense_mish(x32, w32, b32),
+            "unfused_library_ms": lambda: addmm_mish(x32, w32, b32)},
             iters)
     _report("kernel_serve", max_abs_err=errors, edge_max_abs_err=edge_worst,
             times=times)
@@ -3056,6 +3089,748 @@ def phase_native_host(consumption: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# parallel: data parallelism and ring attention on the one card
+# ---------------------------------------------------------------------------
+
+RING_TOKENS = (2, 4096, 16, 64)     # highres_1024_ring: (B, N, H, K)
+RING_FP32 = (8, 1296, 8, 40)        # reference_608 at batch 8
+OFFSET_SHAPE = (8, 256, 256, 64)    # highres_1024 b8 heads-major: 2048 rows
+PARALLEL_STEPS = 3
+PARALLEL_TIMEOUT_S = 420
+RING_TIMED = 5                      # timed ring calls (host clock)
+# (b)'s cases: the ring's output and q/k/v grads against the plain versions
+# and the whole-sequence kernels.
+RING_CASES = (("bf16", RING_TOKENS, "bfloat16", False),
+              ("bf16_drop", RING_TOKENS, "bfloat16", True),
+              ("fp32", RING_FP32, "float32", False))
+# (d)'s limits on |ring - one process| / one process of the loss at steps
+# 1-3. Step 1 (equal parameters): 2^-7. Step 2: 2^-7 x 2. Step 3: 5e-2,
+# where 2^-7 x 3 lies below what two correct bf16 routes of one process
+# differ by on this batch (its loss falls by two thirds a step): the einsum
+# route against the flash kernels read 0.46 %, 2.28 % and 4.36 % at steps
+# 1-3 (PERF.md §6), the ring 0.53 %, 0.28 % and 3.51 %. The fp32 step
+# of (d) holds the function itself at 1e-5.
+HIGHRES_RING_LOSS_LIMITS = (2 ** -7, 2 * 2 ** -7, 5e-2)
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(
+        a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+        b.view(torch.int16) if b.dtype == torch.bfloat16 else b))
+
+
+def _offsets_at_the_kernel() -> dict:
+    """(a) B1-drop with lse and B2-replay over the whole (2048, 256, 64)
+    batch against two half-batches launched with ``bh_base``, and the
+    MLP/head dropout kernel at (8, 4096, 2048) against two halves with
+    ``row_base``: bit for bit. A second half launched with offset 0 (the
+    planted fault) must differ."""
+    import torch
+
+    from vision_transformer_detector_tpu_torch.kernels import (
+        dropout as dk, flash_attention as fa)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    b, h, n, k = OFFSET_SHAPE
+    q, kk, v, g = ((torch.randn(OFFSET_SHAPE, device="cuda", generator=gen)
+                    * (0.125 if i == 0 else 1.0)).to(torch.bfloat16)
+                   for i in range(4))
+    seed = fa.seed_tensor(DROP_SEED, "cuda")
+    drop = (seed, DROP_RATE)
+
+    def forward(rows, base):
+        return fa._launch_forward(q[rows], kk[rows], v[rows], "bhnk",
+                                  with_lse=True, dropout=drop,
+                                  offsets=(base, 0, 0))
+
+    def backward(rows, base, out, lse):
+        delta = (g[rows].float() * out.float()).sum(-1).contiguous()
+        return fa._launch_backward(q[rows], kk[rows], v[rows], g[rows], lse,
+                                   delta, "bhnk", drop, offsets=(base, 0, 0))
+
+    whole = slice(0, b)
+    halves = (slice(0, b // 2), slice(b // 2, b))
+    out, lse = forward(whole, 0)
+    grads = backward(whole, 0, out, lse)
+    parts = [forward(rows, rows.start * h) for rows in halves]
+    part_grads = [backward(rows, rows.start * h, *part)
+                  for rows, part in zip(halves, parts)]
+    joined = [torch.cat([p[i] for p in parts]) for i in range(2)]
+    joined_grads = [torch.cat([p[i] for p in part_grads]) for i in range(3)]
+    flash_equal = (all(_bits_equal(x, y) for x, y in zip((out, lse), joined))
+                   and all(_bits_equal(x, y)
+                           for x, y in zip(grads, joined_grads)))
+    planted = forward(halves[1], 0)
+    flash_planted_caught = not _bits_equal(planted[0], out[halves[1]])
+    torch.cuda.synchronize()
+
+    rows_shape = MLP_DROP_SHAPES[0]
+    x = torch.randn(rows_shape, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    mlp_seed = fa.seed_tensor(DROP_SEED - 1, "cuda")
+    half = rows_shape[0] // 2
+    per_row = rows_shape[1]
+    mlp_whole = dk._launch(x, mlp_seed, DROP_RATE)
+    mlp_parts = torch.cat([dk._launch(x[:half], mlp_seed, DROP_RATE),
+                           dk._launch(x[half:], mlp_seed, DROP_RATE,
+                                      half * per_row)])
+    mlp_equal = _bits_equal(mlp_whole, mlp_parts)
+    mlp_planted_caught = not _bits_equal(
+        dk._launch(x[half:], mlp_seed, DROP_RATE), mlp_whole[half:])
+    # The offsets against the plain versions (dropout mask and all).
+    plain = fa.reference_attention(q[halves[1]], kk[halves[1]],
+                                   v[halves[1]], "bhnk", drop,
+                                   (halves[1].start * h, 0, 0))
+    plain_err = float((plain.float() - parts[1][0].float()).abs().max())
+    plain_mlp = dk.dropout_reference(x[half:], mlp_seed, DROP_RATE,
+                                     half * per_row)
+    result = {"flash_bit_equal": flash_equal,
+              "flash_planted_fault_caught": flash_planted_caught,
+              "mlp_bit_equal": mlp_equal,
+              "mlp_planted_fault_caught": mlp_planted_caught,
+              "flash_half_vs_plain_max_abs_err": plain_err,
+              "mlp_half_vs_plain_bit_equal": _bits_equal(
+                  plain_mlp, mlp_parts[half:])}
+    _require(flash_equal and mlp_equal, f"parallel (a): offsets {result}")
+    _require(flash_planted_caught and mlp_planted_caught,
+             f"parallel (a): a zero offset went unnoticed {result}")
+    _require(result["mlp_half_vs_plain_bit_equal"] and plain_err < 2e-2,
+             f"parallel (a): offset kernels against plain {result}")
+    return result
+
+
+def _ring_inputs(shape, dtype, seed):
+    """q (scaled by 1/sqrt(K)), k, v and the output cotangent g on the
+    card, the same on every process."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, g = (torch.randn(shape, generator=gen) for _ in range(4))
+    q = q / shape[-1] ** 0.5
+    return [t.to(dtype).cuda() for t in (q, k, v, g)]
+
+
+def _whole_sequence(q, k, v, g, dropout):
+    """Output and q/k/v grads of the flash kernels over the whole sequence
+    in one process (B1-lse, or B1-drop, and B2 through the Function)."""
+    import torch
+
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa)
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, layout="bnhk",
+                             dropout_rate=dropout and dropout[1],
+                             dropout_seed=dropout and dropout[0])
+    grads = torch.autograd.grad(out, leaves, g)
+    return (out.detach(), *grads)
+
+
+def _scaled_err(got, want) -> float:
+    """max |got - want| over max |want|, in fp32."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+def _plain_attention_grads(q, k, v, g, dropout, heads=4):
+    """Output and q/k/v grads of the plain versions (reference_attention,
+    reference_attention_backward) over the whole sequence, ``heads`` heads
+    of one image at a time: attention is independent per batch*head row,
+    and ``bh_base`` places each group's dropout mask."""
+    import torch
+
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa)
+
+    b, _, h, _ = q.shape
+    result = [torch.empty_like(t) for t in (q, q, k, v)]
+    for i in range(b):
+        for h0 in range(0, h, heads):
+            part = (slice(i, i + 1), slice(None), slice(h0, h0 + heads))
+            args = [t[part] for t in (q, k, v)]
+            offsets = (i * h + h0, 0, 0)
+            out = fa.reference_attention(*args, "bnhk", dropout, offsets)
+            grads = fa.reference_attention_backward(*args, g[part], "bnhk",
+                                                    dropout, offsets)
+            for dst, src in zip(result, (out, *grads)):
+                dst[part] = src
+    return result
+
+
+# ----- the worker processes (python3 chip_smoke.py --parallel-worker ...) --
+
+def _worker_ring(mesh, rank: int) -> dict:
+    """(b) ring attention over R = the mesh's model axis: each rank's
+    output, dq, dk and dv against the plain versions over the whole
+    sequence and against the whole-sequence kernels in one process, bf16
+    at highres_1024_ring's shape with and without dropout 0.1 scaled by
+    the largest value within 1e-2 (the flash tolerance), fp32 at (64,
+    1296, 40) within 2e-5 + 2e-5 x |want|; and the times of a ring forward
+    + backward and of the one-process kernels (host clock,
+    synchronized)."""
+    import torch
+
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa, ring_attention as ra)
+    from vision_transformer_detector_tpu_torch.parallel import collectives
+    from vision_transformer_detector_tpu_torch.parallel.mesh import (
+        MODEL_AXIS, axis_size)
+
+    ring = axis_size(mesh, MODEL_AXIS)
+    names = ("out", "dq", "dk", "dv")
+    result = {}
+    for tag, shape, dtype_name, dropout in RING_CASES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v, g = _ring_inputs(shape, dtype, SEED + 42)
+        drop = (fa.seed_tensor(DROP_SEED, "cuda"), DROP_RATE) \
+            if dropout else None
+        n = shape[1] // ring
+        mine = slice(rank * n, (rank + 1) * n)
+        leaves = [t[:, mine].contiguous().requires_grad_()
+                  for t in (q, k, v)]
+
+        def ring_call():
+            out = ra.ring_attention(*leaves, mesh,
+                                    dropout_rate=drop and DROP_RATE,
+                                    dropout_seed=drop and drop[0])
+            return out, torch.autograd.grad(out, leaves,
+                                            g[:, mine].contiguous())
+
+        out, grads = ring_call()
+        got = (out.detach(), *grads)
+        # dk/dv of this rank's keys: its slice of the whole-sequence grads.
+        wants = {"plain": [t[:, mine] for t in
+                           _plain_attention_grads(q, k, v, g, drop)],
+                 "whole": [t[:, mine] for t in
+                           _whole_sequence(q, k, v, g, drop)]}
+        entry = {"shape": list(shape), "ring": ring, "ok": True}
+        for against, want in wants.items():
+            abs_errs = {name: float((a.float() - b.float()).abs().max())
+                        for name, a, b in zip(names, got, want)}
+            if dtype == torch.float32:
+                ok = all(bool(((a.float() - b.float()).abs()
+                               <= 2e-5 + 2e-5 * b.float().abs()).all())
+                         for a, b in zip(got, want))
+            else:
+                scaled = {name: _scaled_err(a, b)
+                          for name, a, b in zip(names, got, want)}
+                ok = max(scaled.values()) < 1e-2
+                entry[f"scaled_errors_vs_{against}"] = scaled
+            entry[f"abs_errors_vs_{against}"] = abs_errs
+            entry["ok"] = entry["ok"] and ok
+
+        def timed(fn):
+            fn()
+            collectives.barrier()
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            for _ in range(RING_TIMED):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - tic) * 1e3 / RING_TIMED
+
+        entry["ring_fwd_bwd_ms"] = timed(ring_call)
+        entry["one_process_fwd_bwd_ms"] = timed(
+            lambda: _whole_sequence(q, k, v, g, drop))
+        result[tag] = entry
+    return result
+
+
+def _worker_ring_host_ms(mesh, rank: int) -> dict:
+    """The ring's own times at highres_1024_ring's shape (bf16, R = 2,
+    this rank's shard), host clock, synchronized: a forward, and a
+    backward alone (retain_graph) with its exchanges."""
+    import torch
+
+    from vision_transformer_detector_tpu_torch.kernels import (
+        ring_attention as ra)
+    from vision_transformer_detector_tpu_torch.parallel import collectives
+
+    q, k, v, g = _ring_inputs(RING_TOKENS, torch.bfloat16, SEED + 43)
+    n = RING_TOKENS[1] // 2
+    mine = slice(rank * n, (rank + 1) * n)
+    ql, kl, vl, gl = (t[:, mine].contiguous() for t in (q, k, v, g))
+
+    def host_ms(fn):
+        fn()
+        collectives.barrier()
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        for _ in range(RING_TIMED):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - tic) * 1e3 / RING_TIMED
+
+    leaves = [t.requires_grad_() for t in (ql, kl, vl)]
+    fwd_ms = host_ms(lambda: ra.ring_attention(*leaves, mesh))
+    out = ra.ring_attention(*leaves, mesh)
+    bwd_ms = host_ms(lambda: torch.autograd.grad(out, leaves, gl,
+                                                 retain_graph=True))
+    return {"fwd_host_ms": fwd_ms, "bwd_host_ms": bwd_ms}
+
+
+def _worker_dp(mesh, rank: int) -> dict:
+    """(c) reference_608 fp32, global batch 8 as 2 x 4, 3 steps through
+    Trainer(mesh): each step's loss against one process at batch 8 (rank
+    0), rtol 1e-5, and the largest parameter difference after them."""
+    import torch
+
+    from vision_transformer_detector_tpu_torch import (
+        LossConfig, TrainConfig, get_config, synthetic_batches)
+    from vision_transformer_detector_tpu_torch.parallel import collectives
+    from vision_transformer_detector_tpu_torch.parallel.data import (
+        process_batch_indices)
+    from vision_transformer_detector_tpu_torch.train.trainer import Trainer
+
+    config = get_config("reference_608")
+    train_config = TrainConfig(learning_rate=1e-5)
+    images, labels = next(synthetic_batches(config, 8, 1, seed=SEED + 44))
+    rows = process_batch_indices(mesh, 8)
+
+    def run(trainer, batch_images, batch_labels):
+        state = trainer.init_state()
+        x = torch.from_numpy(batch_images).cuda()
+        y = torch.from_numpy(batch_labels).cuda()
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        losses = [float(trainer.train_step(state, x, y)[1])
+                  for _ in range(PARALLEL_STEPS)]
+        step_s = (time.perf_counter() - tic) / PARALLEL_STEPS
+        return losses, {name: p.detach().clone() for name, p in
+                        state["params"].named_parameters()}, step_s
+
+    losses, params, step_s = run(Trainer(config, LossConfig(), train_config,
+                                         mesh=mesh, device="cuda:0"),
+                                 images[rows.start:rows.stop],
+                                 labels[rows.start:rows.stop])
+    result = {"losses": losses, "step_s": step_s}
+    if rank == 0:
+        single, single_params, single_step_s = run(
+            Trainer(config, LossConfig(), train_config, device="cuda:0"),
+            images, labels)
+        result["single_step_s"] = single_step_s
+        result["single_losses"] = single
+        result["max_param_diff"] = max(
+            float((params[name] - single_params[name]).abs().max())
+            for name in params)
+        result["ok"] = all(abs(a - b) <= 1e-5 * abs(b)
+                           for a, b in zip(losses, single))
+    collectives.barrier()
+    return result
+
+
+def _worker_highres_ring(mesh, rank: int) -> dict:
+    """(d) highres_1024_ring at full width and depth (1024 px, D 1024, 24
+    blocks, remat) through Trainer(mesh) with R = 2: batch 2, 3 steps at
+    lr 1e-5; the ring's B1-lse and B2 launches (the counts are zeroed
+    just before and read just after); each process's peak memory; then
+    (rank 0) one process on the same preset without a mesh, whose global
+    attention runs the flash kernels over 4,096 tokens: each step's loss
+    within HIGHRES_RING_LOSS_LIMITS, relative; and the control, the same
+    preset in one process with the einsum route, within 2^-7 of the flash
+    one at step 1 (its later steps are reported). And one fp32
+    step (compute_dtype float32, the 3xTF32 kernels) of the ring against
+    one process: the loss within 1e-5 and every gradient within 1e-4 of
+    its tensor's largest value, but the attention key bias's, whose exact
+    gradient is zero (a shift of every score of a query row, which the
+    softmax cancels), reported apart."""
+    import torch
+
+    from vision_transformer_detector_tpu_torch import (
+        LossConfig, TrainConfig, get_config, synthetic_batches)
+    from vision_transformer_detector_tpu_torch.parallel import collectives
+    from vision_transformer_detector_tpu_torch.train.trainer import Trainer
+
+    config = get_config("highres_1024_ring")
+    _require(config.ring_attention and config.embedding_dim == 1024
+             and config.encoder_blocks == 24 and config.num_patches == 4096
+             and config.remat_encoder, "highres_1024_ring preset changed")
+    train_config = TrainConfig(learning_rate=1e-5)
+    images, labels = next(synthetic_batches(config, 2, 1, seed=SEED + 45))
+    x = torch.from_numpy(images).cuda()
+    y = torch.from_numpy(labels).cuda()
+
+    def run(trainer, steps=PARALLEL_STEPS):
+        state = trainer.init_state()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        losses = []
+        for _ in range(steps):
+            state, loss = trainer.train_step(state, x, y)
+            losses.append(float(loss))
+        step_s.append((time.perf_counter() - tic) / steps)
+        return losses, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    step_s = []
+
+    def fp32_grads(run_mesh):
+        """Loss and gradients of one fp32 step's forward and backward."""
+        from vision_transformer_detector_tpu_torch.models.vit_detector import (
+            forward, init_params)
+        from vision_transformer_detector_tpu_torch.ops.loss import (
+            detection_loss)
+
+        fp32 = config.replace(compute_dtype="float32",
+                              use_flash_attention=True)
+        model = init_params(fp32, torch.Generator().manual_seed(SEED),
+                            "cuda:0")
+        names, params = zip(*model.named_parameters())
+        loss = detection_loss(y, forward(model, x, fp32, mesh=run_mesh), fp32,
+                              LossConfig())
+        return loss.detach(), dict(zip(names, torch.autograd.grad(loss,
+                                                                  params)))
+
+    trainer = Trainer(config, LossConfig(), train_config, mesh=mesh,
+                      device="cuda:0")
+    _reset_counts()
+    losses, peak = run(trainer)
+    counts = _counts()
+    del trainer
+    torch.cuda.empty_cache()
+    result = {"losses": losses, "peak_gib": peak,
+              "ring_lse_launches": counts["flash_lse"],
+              "ring_bwd_launches": counts["flash_bwd"],
+              "ring_lse_per_step": counts["flash_lse"] / PARALLEL_STEPS,
+              "ring_bwd_per_step": counts["flash_bwd"] / PARALLEL_STEPS,
+              "other_launches": {k: c for k, c in counts.items()
+                                 if c and k not in ("flash_lse",
+                                                    "flash_bwd")},
+              "step_s": step_s[0]}
+    ring_fp32 = fp32_grads(mesh)
+    collectives.barrier()
+    if rank == 0:
+        single, single_peak = run(Trainer(
+            config.replace(use_flash_attention=True), LossConfig(),
+            train_config, device="cuda:0"))
+        einsum, _ = run(Trainer(config.replace(use_flash_attention=False),
+                                LossConfig(), train_config, device="cuda:0"))
+        result.update(single_losses=single, single_peak_gib=single_peak,
+                      single_step_s=step_s[1],
+                      rel_diffs=[abs(a - b) / abs(b)
+                                 for a, b in zip(losses, single)],
+                      einsum_losses=einsum,
+                      einsum_rel_diffs=[abs(a - b) / abs(b)
+                                        for a, b in zip(einsum, single)])
+        result["tolerances"] = list(HIGHRES_RING_LOSS_LIMITS)
+        single_fp32 = fp32_grads(None)
+        result["fp32_loss_rel_diff"] = float(
+            (ring_fp32[0] - single_fp32[0]).abs() / single_fp32[0].abs())
+        grads = {name: _scaled_err(ring_fp32[1][name], want)
+                 for name, want in single_fp32[1].items()}
+        key_bias = [n for n in grads if n.endswith("mha.key.bias")]
+        result["fp32_grad_scaled_diff"] = max(
+            v for n, v in grads.items() if n not in key_bias)
+        result["fp32_key_bias_grad_abs"] = max(
+            float(single_fp32[1][n].abs().max()) for n in key_bias)
+        result["ok"] = (all(d <= t for d, t in zip(result["rel_diffs"],
+                                                   result["tolerances"]))
+                        and result["einsum_rel_diffs"][0] <= 2 ** -7
+                        and result["fp32_loss_rel_diff"] <= 1e-5
+                        and result["fp32_grad_scaled_diff"] <= 1e-4)
+    collectives.barrier()
+    return result
+
+
+PARALLEL_TASKS = {"ring": _worker_ring, "ring_host": _worker_ring_host_ms,
+                  "dp": _worker_dp, "highres_ring": _worker_highres_ring}
+
+
+def parallel_worker(rank: int, world: int, port: int, out_path: str,
+                    tasks: str) -> int:
+    """One rank of the parallel phase: a gloo group of ``world`` processes
+    on card 0 (host-staged exchange; NCCL refuses two ranks on one card)
+    runs the comma-separated PARALLEL_TASKS (dp over a data axis of
+    ``world``, the others over a ring of ``world``) and writes their
+    results as JSON to ``out_path``."""
+    import torch
+    import torch.distributed as dist
+
+    from vision_transformer_detector_tpu_torch.parallel.data import (
+        initialize_distributed)
+    from vision_transformer_detector_tpu_torch.parallel.mesh import (
+        create_mesh)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                           backend="gloo", device="cuda")
+    try:
+        result, meshes = {}, {}
+        for task in tasks.split(","):
+            axis = "data" if task == "dp" else "model"
+            if axis not in meshes:
+                meshes[axis] = create_mesh(**{"data": 1, "model": 1,
+                                              axis: world})
+            result[task] = PARALLEL_TASKS[task](meshes[axis], rank)
+        with open(out_path, "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _run_parallel_workers(world: int, tasks: str) -> list:
+    """Start the phase's worker processes (this script with
+    ``--parallel-worker``), wait for them within PARALLEL_TIMEOUT_S, stop
+    them all if one fails, and return their results in rank order."""
+    port = _free_tcp_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+                for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-worker",
+             str(r), str(world), str(port), outs[r], tasks],
+            stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+        deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+        try:
+            while any(p.poll() is None for p in procs):
+                if (time.monotonic() > deadline
+                        or any(p.returncode not in (None, 0)
+                               for p in procs)):
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        tails = []
+        for log in logs:
+            log.seek(0)
+            tails.append(log.read()[-4000:])
+            log.close()
+        _require(all(p.returncode == 0 for p in procs),
+                 "parallel: worker processes failed: "
+                 + " | ".join(f"rank {r} rc {p.returncode}: {tails[r]}"
+                              for r, p in enumerate(procs)))
+        results = []
+        for path in outs:
+            with open(path) as f:
+                results.append(json.load(f))
+        return results
+
+
+def _free_tcp_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _nccl_group_of_one() -> dict:
+    """(e) An NCCL group of one process: reference_608 fp32 at batch 8
+    through Trainer(mesh=create_mesh(1, 1)).fit(epochs_per_call=4), the
+    step captured as a CUDA graph through the NCCL code path (an
+    all-reduce over one rank launches nothing to capture), against the
+    meshless graph run from the same seed: per-epoch losses and the
+    parameters bit-equal; the collective nodes of the mesh's graph (debug
+    dump); then `vtd-torch train --distributed` as a group of one for one
+    epoch."""
+    import torch
+    import torch.distributed as dist
+
+    from vision_transformer_detector_tpu_torch import (
+        LossConfig, TrainConfig, get_config, synthetic_batches)
+    from vision_transformer_detector_tpu_torch.parallel.data import (
+        initialize_distributed)
+    from vision_transformer_detector_tpu_torch.parallel.mesh import (
+        create_mesh)
+    from vision_transformer_detector_tpu_torch.train.trainer import (
+        Trainer, make_multi_step)
+
+    config = get_config("reference_608")
+    # No eval or checkpoint events: one window of 4 epochs.
+    train_config = TrainConfig(learning_rate=1e-5, skip_epochs=0)
+    data = list(synthetic_batches(config, 8, 1, seed=SEED + 46))
+    initialize_distributed(f"127.0.0.1:{_free_tcp_port()}", 1, 0,
+                           backend="nccl", device="cuda")
+    try:
+        mesh = create_mesh(1, 1)
+        runs = {}
+        for tag, run_mesh in (("mesh", mesh), ("meshless", None)):
+            trainer = Trainer(config, LossConfig(), train_config,
+                              mesh=run_mesh, device="cuda")
+            trainer.multi_step = make_multi_step(
+                config, LossConfig(), trainer.optimizer, debug_graphs=True,
+                mesh=run_mesh)
+            state = trainer.fit(trainer.init_state(), data, epochs=4,
+                                epochs_per_call=4)
+            runs[tag] = (trainer.loss_record,
+                         [p.detach().clone()
+                          for p in state["params"].parameters()],
+                         trainer.multi_step.graphs, trainer.window_record)
+        losses_equal = runs["mesh"][0] == runs["meshless"][0]
+        params_equal = all(torch.equal(a, b) for a, b in
+                           zip(runs["mesh"][1], runs["meshless"][1]))
+        nodes = {}
+        for tag in ("mesh", "meshless"):
+            with tempfile.TemporaryDirectory() as tmp:
+                for i, step_graph in enumerate(runs[tag][2].values()):
+                    path = os.path.join(tmp, f"{tag}{i}.dot")
+                    step_graph.graph.debug_dump(path)
+                    with open(path) as f:
+                        text = f.read()
+                    node = re.compile(r'^"(graph_\d+_node_\d+)"\[', re.M)
+                    starts = ([m.start() for m in node.finditer(text)]
+                              + [len(text)])
+                    blocks = [text[a:b] for a, b in zip(starts, starts[1:])]
+                    nodes[tag] = {
+                        "kernel_nodes": sum("{KERNEL" in b for b in blocks),
+                        "nccl_kernel_nodes": sum(
+                            "{KERNEL" in b and "nccl" in b.lower()
+                            for b in blocks),
+                        "memcpy_nodes": sum("MEMCPY" in b for b in blocks),
+                        "graphs": len(runs[tag][2])}
+        result = {"losses": runs["mesh"][0], "losses_bit_equal": losses_equal,
+                  "params_bit_equal": params_equal,
+                  "windows": runs["mesh"][3], "graph_nodes": nodes}
+        _require(losses_equal and params_equal and len(runs["mesh"][2]) == 1,
+                 f"parallel (e): NCCL group of one against meshless {result}")
+    finally:
+        dist.destroy_process_group()
+    with tempfile.TemporaryDirectory() as root:
+        dataset = _lifecycle_dataset(root)
+        out = subprocess.run(
+            [sys.executable, "-m", "vision_transformer_detector_tpu_torch.cli",
+             "train", "--distributed", "--coordinator",
+             f"127.0.0.1:{_free_tcp_port()}", "--num-processes", "1",
+             "--process-id", "0", "--preset", "tiny_96", "--device", "cuda",
+             "--batch-size", "2", "--epochs", "1",
+             "--train-images", dataset["images"],
+             "--train-annotations", dataset["annotations"],
+             "--checkpoint-dir", os.path.join(root, "ckpt"),
+             "--metrics", os.path.join(root, "metrics.jsonl")],
+            capture_output=True, text=True, timeout=300)
+        _require(out.returncode == 0,
+                 f"parallel (e): train --distributed: {out.stderr[-3000:]}")
+        cli = json.loads(out.stdout.strip().splitlines()[-1])
+        _require(cli["step"] == LIFECYCLE_IMAGES // 2
+                 and cli["final_loss"] == cli["final_loss"],
+                 f"parallel (e): train --distributed printed {cli}")
+        result["cli_distributed_train"] = cli
+    return result
+
+
+def _ring_block_times() -> dict:
+    """The kernels line's times of the ring's blocks at
+    highres_1024_ring's shape (bf16, R = 2, rank 0's queries; CUDA events,
+    in turns): the R B1-lse block launches of its forward against the
+    same blocks' plain versions and one scaled_dot_product_attention
+    forward of its queries over the whole sequence; the R B2 block
+    launches of its backward (the global lse and delta) against their
+    plain versions and that SDPA call's backward."""
+    import torch
+
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa, ring_attention as ra)
+
+    ring = 2
+    q, k, v, g = _ring_inputs(RING_TOKENS, torch.bfloat16, SEED + 43)
+    n = RING_TOKENS[1] // ring
+    ql, gl = q[:, :n].contiguous(), g[:, :n].contiguous()
+    blocks = [(k[:, i * n:(i + 1) * n].contiguous(),
+               v[:, i * n:(i + 1) * n].contiguous(), (0, 0, i * n))
+              for i in range(ring)]
+    lse = fa.reference_attention_lse(ql, k, "bnhk")
+    delta = (gl.float() * fa.reference_attention(ql, k, v).float()).sum(
+        -1).transpose(1, 2).contiguous()
+
+    def forward(use_kernel):
+        return [ra._block_forward(ql, kb, vb, use_kernel, None, offsets)
+                for kb, vb, offsets in blocks]
+
+    def backward(use_kernel):
+        return [ra._block_backward(ql, kb, vb, gl, lse, delta, use_kernel,
+                                   None, offsets)
+                for kb, vb, offsets in blocks]
+
+    heads = [fa._heads_major(t, "bnhk") for t in (ql, k, v, gl)]
+    lib_leaves = [t.detach().clone().requires_grad_() for t in heads[:3]]
+
+    def lib_step(backend):
+        torch.autograd.grad(_sdpa(*lib_leaves, backend), lib_leaves,
+                            heads[3])
+
+    backend = _sdpa_backend(lib_step)
+    lib_out = _sdpa(*lib_leaves, backend)
+    return {"fwd": _in_turns({
+                "kernel_ms": lambda: forward(True),
+                "plain_ms": lambda: forward(False),
+                "library_ms": lambda: _sdpa(*heads[:3], backend)}, 10),
+            "bwd": _in_turns({
+                "kernel_ms": lambda: backward(True),
+                "plain_ms": lambda: backward(False),
+                "library_ms": lambda: torch.autograd.grad(
+                    lib_out, lib_leaves, heads[3], retain_graph=True)}, 5),
+            "sdpa_backend": backend.name}
+
+
+def phase_parallel() -> dict:
+    """Data parallelism and ring attention on the one H100: (a) the
+    kernels' offsets, bit for bit, with a planted fault; the ring blocks'
+    kernel times; (b) at R = 2 with (c) and (d) in two worker processes,
+    then (b) at R = 4 in four, joined by gloo on this card (the exchange
+    staged through host memory: their times say nothing of NCCL across
+    cards); (e) an NCCL group of one. Returns the ring's kernels-line
+    numbers."""
+    import torch
+
+    tic = time.monotonic()
+    offsets = _offsets_at_the_kernel()
+    block_times = _ring_block_times()
+    # The workers share this card: hand back what this process caches.
+    torch.cuda.empty_cache()
+    workers = _run_parallel_workers(2, "ring,ring_host,dp,highres_ring")
+    ring4 = _run_parallel_workers(4, "ring")
+    dp, highres = workers[0]["dp"], workers[0]["highres_ring"]
+    _report("parallel_workers",
+            ring={f"R=2 rank {r}": w["ring"] for r, w in enumerate(workers)}
+            | {f"R=4 rank {r}": w["ring"] for r, w in enumerate(ring4)},
+            ring_host_ms={r: w["ring_host"] for r, w in enumerate(workers)},
+            dp=dp, highres_ring={r: w["highres_ring"]
+                                 for r, w in enumerate(workers)},
+            note="processes sharing one card over gloo, the ring's exchange "
+                 "staged through the host: no measure of NCCL scaling")
+    for rank, result in enumerate(workers + ring4):
+        for tag, entry in result["ring"].items():
+            _require(entry["ok"], f"parallel (b) R={entry['ring']} rank "
+                     f"{rank % entry['ring']} {tag}: {entry}")
+    _require(dp["ok"], f"parallel (c): DP losses {dp['losses']} against "
+             f"one process {dp['single_losses']}")
+    _require(highres["ok"], f"parallel (d): ring losses {highres['losses']}"
+             f" against one process {highres['single_losses']}: relative "
+             f"{highres['rel_diffs']}, allowed {highres['tolerances']}; "
+             f"einsum control {highres['einsum_rel_diffs']}; fp32 loss "
+             f"{highres['fp32_loss_rel_diff']}, gradients "
+             f"{highres['fp32_grad_scaled_diff']}")
+    for rank, result in enumerate(workers):
+        h = result["highres_ring"]
+        _require(h["ring_lse_launches"] > 0 and h["ring_bwd_launches"] > 0,
+                 f"parallel (d) rank {rank}: the ring launched no kernel "
+                 f"{h}")
+    nccl = _nccl_group_of_one()
+    _report("parallel", offsets=offsets, ring_block_times=block_times,
+            nccl_group_of_one=nccl, seconds=time.monotonic() - tic)
+    bf16 = [w["ring"]["bf16"]["abs_errors_vs_plain"] for w in workers]
+    return {"times": block_times,
+            "host_ms": {key: max(w["ring_host"][key] for w in workers)
+                        for key in ("fwd_host_ms", "bwd_host_ms")},
+            "launches": {"lse": sum(w["highres_ring"]["ring_lse_launches"]
+                                    for w in workers),
+                         "bwd": sum(w["highres_ring"]["ring_bwd_launches"]
+                                    for w in workers)},
+            "errors": {"fwd": max(e["out"] for e in bf16),
+                       "bwd": max(e[name] for e in bf16
+                                  for name in ("dq", "dk", "dv"))}}
+
+
 PEAK_NAMES = {"bf16": "bf16 989 TFLOP/s", "int8": "int8 1979 TOP/s",
               "3xtf32": "tf32 495 TFLOP/s, 3 products per fp32 product",
               "fp32": "fp32 67 TFLOP/s"}
@@ -3079,14 +3854,19 @@ def _entry(name, source, replaces, shape, launches, err, times, work):
 def _kernels_line(flash_err, flash_times, train_errors, train_times,
                   drop_errors, drop_times, mlp_errors, mlp_times,
                   serve_errors, serve_times, launches, exported,
-                  graph) -> dict:
+                  graph, ring) -> dict:
     """The kernels of every path, each with its launches on its main path,
     its error against its plain version, its times and its bound; B1, B3
     and B4 also with their launches per call of the exported program
     (``launches_exported``), and the four flash kernels and the MLP
     dropout kernel of the train step with their launches in the windowed
     loop's CUDA-graph fits (``launches_graph``: kernel nodes of the graph
-    x replays)."""
+    x replays); and the flash kernels as the blocks of ring attention in
+    the parallel phase (``ring``: one rank of R = 2 at highres_1024_ring's
+    shape, its queries against the whole sequence; launches of both
+    processes in the highres_1024_ring training run; the R block launches
+    timed with CUDA events, the whole ring's forward and backward on the
+    host clock beside them in ``ring_host_ms``)."""
     bh, n, k = 12, 576, 64                     # vit_b16_384, batch 1
     flash_bytes = 4 * bh * n * k * 2
     tbh, tn, tk = 64, 1296, 40                 # reference_608, batch 8
@@ -3097,6 +3877,11 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
     mlp_n = 1
     for size in MLP_DROP_SHAPES[0]:            # highres_1024, batch 8
         mlp_n *= size
+    rb, rn, rh, rk = RING_TOKENS               # highres_1024_ring, batch 2
+    local = rn // 2                            # this rank's queries, R = 2
+    ring_q = rb * local * rh * rk * 2          # bf16 bytes of local q
+    ring_kv = rb * rn * rh * rk * 2            # bf16 bytes of all of k
+    ring_lse = rb * rh * local * 4
     return {"kernels": [
         dict(_entry("flash_attention_fwd", "flash_attention_fwd.cu",
                     "flash_attention.py:64", [bh, n, k, "bfloat16"],
@@ -3200,9 +3985,40 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
                  "kernel_ms"],
              fp32_plain_ms=serve_times[
                  f"dense_mish_B=32_{rows}x768x1536_fp32"]["plain_ms"],
+             fp32_unfused_library_ms=serve_times[
+                 f"dense_mish_B=32_{rows}x768x1536_fp32"][
+                     "unfused_library_ms"],
              fp32_bound_ms=_bound(2 * rows * d * wide,
                                   (rows * d + d * wide + wide
                                    + rows * wide) * 4, "3xtf32")[0]),
+        # The ring's blocks (B1-lse): local q, all of k and v read, the
+        # local out (bf16) and lse (fp32) written.
+        dict(_entry("ring_attention_fwd", "flash_attention_fwd.cu",
+                    "vision_transformer_detector_tpu/kernels/"
+                    "ring_attention.py:34",
+                    [rb, local, rh, rk, "bfloat16", "R=2"],
+                    ring["launches"]["lse"], ring["errors"]["fwd"],
+                    ring["times"]["fwd"],
+                    (4 * rb * rh * local * rn * rk,
+                     2 * ring_q + 2 * ring_kv + ring_lse, "bf16")),
+             kernel="B1-lse, one launch per ring step",
+             ring_host_ms=ring["host_ms"]["fwd_host_ms"],
+             ring_host_clock="the whole ring forward, host clock, the "
+             "exchange staged through the host over gloo on one card"),
+        # Its backward (B2): local q and g read (bf16), dq written (fp32);
+        # all of k and v read and their dk, dv written; lse and delta read.
+        dict(_entry("ring_attention_bwd", "flash_attention_bwd.cu",
+                    "vision_transformer_detector_tpu/kernels/"
+                    "ring_attention.py:34",
+                    [rb, local, rh, rk, "bfloat16", "R=2"],
+                    ring["launches"]["bwd"], ring["errors"]["bwd"],
+                    ring["times"]["bwd"],
+                    (10 * rb * rh * local * rn * rk,
+                     4 * ring_q + 4 * ring_kv + 2 * ring_lse, "bf16")),
+             kernel="B2, one launch per ring step",
+             ring_host_ms=ring["host_ms"]["bwd_host_ms"],
+             ring_host_clock="the whole ring backward, host clock, the "
+             "exchange staged through the host over gloo on one card"),
     ]}
 
 
@@ -3243,6 +4059,7 @@ def main() -> int:
                                     8e3 / steps["highres_1024"]),
         "int8_service_b32": ("vit_b16_384",
                              32e3 / int8_times["int8"]["b32_ms_median"])})
+    ring = phase_parallel()
     foreign = sorted(name for name in sys.modules
                      if name == "jax" or name.startswith("jax.")
                      or name == "vision_transformer_detector_tpu"
@@ -3271,7 +4088,7 @@ def main() -> int:
                                    train_times, drop_errors, drop_times,
                                    mlp_errors, mlp_times, serve_errors,
                                    serve_times, launches, exported_launches,
-                                   window_launches)),
+                                   window_launches, ring)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3280,4 +4097,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        sys.exit(parallel_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                 int(sys.argv[4]), sys.argv[5], sys.argv[6]))
     sys.exit(main())

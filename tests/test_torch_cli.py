@@ -86,10 +86,14 @@ def test_train_with_fused_ffn(dataset, tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--distributed"], ["--data-parallel", "2"],
+    ["--distributed"], ["--model-parallel", "2"],
     ["--flash-attention", "--no-flash-attention"],
 ])
 def test_train_refuses_unported_flags(dataset, tmp_path, flag):
+    """``--distributed`` without a coordinator (or torchrun's
+    environment), a model axis without ring attention (tensor parallelism
+    is not ported) and contradictory attention flags are refused; the
+    mesh runs are in tests/test_torch_parallel_cli.py."""
     with pytest.raises(SystemExit):
         main(_args(dataset, tmp_path, "--epochs", "1", *flag))
 
@@ -382,10 +386,10 @@ def test_sweep_refusals():
     with pytest.raises(SystemExit, match="PARAM=V1"):
         main(["sweep", "--preset", "tiny_96", "--device", "cpu",
               "--synthetic", "--sweep", "learning_rate"])
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(SystemExit, match="tensor parallelism"):
         main(["sweep", "--preset", "tiny_96", "--device", "cpu",
               "--synthetic", "--sweep", "learning_rate=1e-4",
-              "--data-parallel", "2"])
+              "--model-parallel", "2"])
 
 
 @pytest.mark.parametrize("mode", ["inference", "train"])
@@ -403,9 +407,11 @@ def test_benchmark(mode, capsys):
 
 @pytest.mark.parametrize("flags", [["--iterations", "0"],
                                    ["--iterations", "-3"],
-                                   ["--data-parallel", "2"],
+                                   ["--data-parallel", "3"],
                                    ["--model-parallel", "2"]])
 def test_benchmark_refusals(flags):
+    """A data axis that does not divide the batch (8), and a model axis
+    without ring attention, are refused before any process starts."""
     with pytest.raises(SystemExit):
         main(["benchmark", "--preset", "tiny_96", "--device", "cpu",
               *flags])

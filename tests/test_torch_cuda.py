@@ -1099,3 +1099,58 @@ def test_failed_capture_raises_and_does_not_fall_back(gen):
     with pytest.raises(RuntimeError, match="CUDA graph failed"):
         tr._StepGraph(host_read, state, images, images, 0, True,
                       torch.cuda.graph_pool_handle())
+
+
+# ---------------------------------------------------------------------------
+# Global-coordinate offsets (data parallelism, ring attention)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_offsets_halves_equal_the_whole_batch(gen, dtype):
+    """B1-drop with lse and B2-replay over a batch equal, bit for bit, two
+    half batches launched with their batch*head offset; a half launched
+    without it draws another mask."""
+    q, k, v = _qkv(gen, (4, 3, 130, 64), dtype, 0.125)
+    g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+    drop = (fa.seed_tensor(2 ** 32 - 7, "cuda"), 0.25)
+
+    def run(rows, base):
+        out, lse = fa._launch_forward(q[rows], k[rows], v[rows], "bhnk",
+                                      with_lse=True, dropout=drop,
+                                      offsets=(base, 0, 0))
+        delta = (g[rows].float() * out.float()).sum(-1).contiguous()
+        return (out, lse) + fa._launch_backward(
+            q[rows], k[rows], v[rows], g[rows], lse, delta, "bhnk", drop,
+            offsets=(base, 0, 0))
+
+    whole = run(slice(0, 4), 0)
+    halves = [run(slice(0, 2), 0), run(slice(2, 4), 2 * 3)]
+    for i, tensor in enumerate(whole):
+        assert torch.equal(tensor, torch.cat([h[i] for h in halves]))
+    assert not torch.equal(run(slice(2, 4), 0)[0], whole[0][2:])
+
+
+def test_flash_query_key_offsets_match_plain(gen):
+    """A block of queries against a block of keys at their global offsets
+    (a ring step) draws the mask of those coordinates: kernel against the
+    plain version with the same offsets."""
+    q, k, v = _qkv(gen, (2, 70, 2, 64), torch.float32, 0.125)
+    drop = (fa.seed_tensor(123, "cuda"), 0.3)
+    offsets = (4, 70, 140)
+    got = fa._launch_forward(q, k, v, "bnhk", dropout=drop, offsets=offsets)
+    want = fa.reference_attention(q, k, v, "bnhk", drop, offsets)
+    assert (got - want).abs().max() <= TOLS[torch.float32]
+    plain = fa.reference_attention(q, k, v, "bnhk", drop)
+    assert (got - plain).abs().max() > 1e-3
+
+
+def test_dropout_row_base_halves_equal_the_whole(gen):
+    x = torch.randn(6, 33, 80, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    seed = fa.seed_tensor(99, "cuda")
+    whole = dropout_kernel._launch(x, seed, 0.1)
+    halves = torch.cat([dropout_kernel._launch(x[:2], seed, 0.1),
+                        dropout_kernel._launch(x[2:], seed, 0.1, 2 * 33)])
+    assert torch.equal(whole, halves)
+    assert torch.equal(dropout_kernel.dropout_reference(x[2:], seed, 0.1,
+                                                        2 * 33), whole[2:])

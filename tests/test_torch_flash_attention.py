@@ -182,12 +182,14 @@ def test_plain_backward_matches_jax_grad(layout, shape, dtype,
                                    atol=tol * scale, err_msg=f"d{name}")
 
 
-def _plain_launch_forward(q, k, v, layout, with_lse=False, dropout=None):
-    out = fa.reference_attention(q, k, v, layout, dropout)
+def _plain_launch_forward(q, k, v, layout, with_lse=False, dropout=None,
+                          offsets=(0, 0, 0)):
+    out = fa.reference_attention(q, k, v, layout, dropout, offsets)
     return (out, fa.reference_attention_lse(q, k, layout)) if with_lse else out
 
 
-def _plain_launch_backward(q, k, v, g, lse, delta, layout, dropout=None):
+def _plain_launch_backward(q, k, v, g, lse, delta, layout, dropout=None,
+                           offsets=(0, 0, 0)):
     """What the backward kernel computes, from lse and delta (fp32), with
     the dropout replay: scale = keep / (1 - rate) on p for dv and on g v^T
     for ds."""
@@ -196,7 +198,7 @@ def _plain_launch_backward(q, k, v, g, lse, delta, layout, dropout=None):
     scale = 1.0
     if dropout is not None:
         b, h, n, _ = p.shape
-        scale = fa._dropout_scale(dropout, b, h, n, p.device)
+        scale = fa._dropout_scale(dropout, b, h, n, p.device, offsets)
     dp = scale * torch.einsum("bhnk,bhmk->bhnm", gh, vh)
     ds = p * (dp - delta[..., None])
     grads = (torch.einsum("bhnm,bhmk->bhnk", ds, kh),
@@ -221,9 +223,9 @@ def test_kernel_route_is_differentiable(monkeypatch, layout, shape,
         calls.append("forward")
         return _plain_launch_forward(*args, **kwargs)
 
-    def backward(*args):
+    def backward(*args, **kwargs):
         calls.append("backward")
-        return _plain_launch_backward(*args)
+        return _plain_launch_backward(*args, **kwargs)
 
     monkeypatch.setattr(fa, "_launch_forward", forward)
     monkeypatch.setattr(fa, "_launch_backward", backward)

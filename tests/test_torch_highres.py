@@ -84,7 +84,7 @@ def shared_masks(monkeypatch):
         mask = jnp.asarray(_mask(x.size, keep).reshape(x.shape))
         return jnp.where(mask, x / keep, 0.0).astype(x.dtype)
 
-    def port_dropout(x, rate, seed, train):
+    def port_dropout(x, rate, seed, train, *placement):
         if not train or rate is None or rate == 0.0 or seed is None:
             return x
         keep = 1.0 - rate

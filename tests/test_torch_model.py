@@ -175,12 +175,13 @@ def test_init_params_layout_and_ranges(tmp_path):
     {"head_scales": (1, 3)}, {"remat_encoder": True},
     {"sequence_sharding": True}])
 def test_unported_features_are_refused(override):
-    """Ring attention and sequence sharding need a mesh and are refused;
-    windowed attention, the multi-scale head and remat are ported: the
-    model builds and forwards (tests/test_torch_highres.py holds them to
-    the JAX package)."""
+    """Sequence sharding is refused; windowed attention, the multi-scale
+    head, remat and ring attention are ported: the model builds and
+    forwards (tests/test_torch_highres.py holds them to the JAX package;
+    tests/test_torch_parallel.py the ring over a mesh). Without a mesh a
+    ring config runs plain global attention, as the JAX forward does."""
     config = CONFIGS["flash_k8"].replace(image_size=(48, 48), **override)
-    if {"ring_attention", "sequence_sharding"} & set(override):
+    if "sequence_sharding" in override:
         with pytest.raises(NotImplementedError):
             model.init_params(config, torch.Generator().manual_seed(0))
         return
@@ -188,6 +189,10 @@ def test_unported_features_are_refused(override):
     images = torch.from_numpy(_images(config))
     logits = model.forward(params, images, config)
     assert logits.shape == (2, 17, 6) and torch.isfinite(logits).all()
+    if "ring_attention" in override:
+        plain = model.forward(params, images,
+                              config.replace(ring_attention=False))
+        torch.testing.assert_close(logits, plain, rtol=0, atol=0)
     assert logits.grad_fn is not None
 
 

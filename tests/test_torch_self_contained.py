@@ -316,11 +316,12 @@ def test_native_core_equals_the_jax_source_but_for_the_glue(name):
 
 
 # The port's sweep runner: the JAX module but for where it builds the
-# Trainer (no mesh; a device instead): these two edits, undone, give the
+# Trainer (which also takes a device): these two edits, undone, give the
 # JAX module statement for statement.
 SWEEP_PORT_EDITS = (
-    ('        device="cuda",\n', "        mesh=None,\n"),
-    ("                          metrics_path=metrics_path, device=device)",
+    ('        mesh=None,\n        device="cuda",\n', "        mesh=None,\n"),
+    ("                          mesh=mesh, metrics_path=metrics_path,\n"
+     "                          device=device)",
      "                          mesh=mesh, metrics_path=metrics_path)"),
 )
 

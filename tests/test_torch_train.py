@@ -217,12 +217,23 @@ def test_restore_explains_a_config_mismatch(tmp_path):
         other.restore(other.init_state())
 
 
+class _ModelAxisMesh:
+    """The shape of a (1, 2) mesh, all that the mesh check reads."""
+
+    mesh_dim_names = ("data", "model")
+
+    def size(self, dim):
+        return (1, 2)[dim]
+
+
 def test_refused_options(tmp_path):
-    """A mesh is still refused (multi-device training is not ported);
-    async checkpointing, gradient accumulation and epochs_per_call > 1 are
-    ported and have tests of their own (test_torch_train_window.py)."""
-    with pytest.raises(NotImplementedError):
-        _trainer(tmp_path, mesh=object())
+    """A model axis above 1 without ring_attention is refused (tensor
+    parallelism is not ported; data parallelism and ring attention are,
+    tests/test_torch_parallel.py); async checkpointing, gradient
+    accumulation and epochs_per_call > 1 are ported and have tests of
+    their own (test_torch_train_window.py)."""
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        _trainer(tmp_path, mesh=_ModelAxisMesh())
     run = _trainer(tmp_path)
     data = list(synthetic_batches(SMALL, 2, 1))
     # Training dropout is ported: a dropout fit runs and moves the

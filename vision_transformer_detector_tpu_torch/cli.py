@@ -20,10 +20,26 @@ training, deployment and tooling subcommands of the JAX CLI.
   python -m vision_transformer_detector_tpu_torch.cli doctor
 
 plus ``predict``, ``visualize``, ``plot`` and ``stats``. Each subcommand
-takes the JAX CLI's flags that this port supports. The mesh flags are
-not ported: ``--distributed`` is not declared, so argparse refuses it, and
-``--data-parallel`` / ``--model-parallel`` exist only on ``benchmark`` and
-``sweep``, where a value above 1 is refused. Every model subcommand takes
+takes the JAX CLI's flags that this port supports.
+
+The mesh (parallel/mesh.py): ``--data-parallel`` D and ``--model-parallel``
+M on ``train``, ``evaluate``, ``benchmark`` and ``sweep`` (M > 1 only with
+a ``ring_attention`` preset: tensor parallelism is not ported), with one
+process per mesh position. ``--batch-size`` stays the GLOBAL batch; each
+process loads its shard (parallel/data.py:process_shard_spec). The
+processes start in one of three ways:
+  * under torchrun's environment (``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR``), each process joins that group (``env://``);
+  * with ``--distributed`` (``train`` and ``evaluate`` only), each process
+    joins ``--coordinator`` as ``--process-id`` of ``--num-processes``,
+    started by the user on each host, as in the JAX CLI;
+  * otherwise, with D x M > 1, the command starts D x M local processes of
+    itself under a torchrun-style environment, one per visible GPU
+    (``--device cuda``, NCCL; fewer GPUs than processes raises) or gloo
+    processes (``--device cpu``), waits for them, and prints the output of
+    rank 0.
+
+Every model subcommand takes
 ``--device`` (default ``cuda``, which fails without a card); ``export``
 names its device with ``--platforms``: one of ``cuda`` or ``cpu``, the
 device the artifact is traced on and runs on. ``serve``: weights come
@@ -39,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 from .config import DetectorConfig, LossConfig, TrainConfig, get_config
@@ -172,10 +189,19 @@ def _serve(args, service) -> None:
 
 
 def _build_dataset(args, config, images, annotations, shuffle=False,
-                   drop_remainder=True, resumable=False):
+                   drop_remainder=True, resumable=False, mesh=None,
+                   equalize_shards=False):
     """The host pipeline's dataset, uint8 images (the train and eval
     steps normalise on the device); ``resumable``: a ResumableDataset,
-    whose position the trainer saves beside every checkpoint."""
+    whose position the trainer saves beside every checkpoint.
+
+    Under a multi-process ``mesh`` each process loads only its shard of
+    every batch (parallel/data.py:process_shard_spec: the paths
+    ``[shard_index::num_shards]`` in batches of the local size).
+    ``equalize_shards`` (training) trims the paths so every process has
+    the same number of full batches (differing counts would desync the
+    step's collectives); evaluation keeps every image instead, and the
+    lockstep rounds pad the shorter shards."""
     from .data.annotations import load_annotations_dict
     from .data.pipeline import (
         CocoDetectionDataset, ResumableDataset, list_image_paths)
@@ -188,6 +214,36 @@ def _build_dataset(args, config, images, annotations, shuffle=False,
                              # epoch)).
                              shuffle=shuffle and not resumable,
                              seed=getattr(args, "seed", 0))
+    batch_size = args.batch_size
+    shard = {}
+    if mesh is not None and _multi_process():
+        from .parallel.data import process_shard_spec
+
+        if not paths:
+            # Raised on every process alike (they list the same files).
+            raise SystemExit(f"no images under {images!r}")
+        try:
+            shard_index, num_shards, batch_size = process_shard_spec(
+                mesh, args.batch_size)
+        except ValueError as exc:
+            raise SystemExit(str(exc)) from exc
+        shard = {"shard_index": shard_index, "num_shards": num_shards}
+        if equalize_shards and not resumable:
+            usable = (len(paths) // (num_shards * batch_size)
+                      ) * num_shards * batch_size
+            if usable == 0:
+                raise SystemExit(
+                    f"{len(paths)} images cannot fill one global batch "
+                    f"of {args.batch_size} across {num_shards} input "
+                    "shards")
+            paths = paths[:usable]
+        elif not equalize_shards:
+            drop_remainder = False
+        if args.on_corrupt == "skip":
+            raise SystemExit(
+                "--on-corrupt skip is single-process only: dropped files "
+                "can give processes different batch counts and desync the "
+                "collectives")
     if resumable:
         if args.on_corrupt == "skip":
             raise SystemExit(
@@ -196,14 +252,139 @@ def _build_dataset(args, config, images, annotations, shuffle=False,
                 "skip+backfill breaks)")
         return ResumableDataset(
             paths, load_annotations_dict(annotations), config,
-            batch_size=args.batch_size, shuffle=shuffle,
+            batch_size=batch_size, shuffle=shuffle,
             seed=getattr(args, "seed", 0), normalize=False,
-            fast_decode=args.fast_decode, pool=args.decode_pool)
+            fast_decode=args.fast_decode, pool=args.decode_pool, **shard)
     return CocoDetectionDataset(
         paths, load_annotations_dict(annotations), config,
-        batch_size=args.batch_size, drop_remainder=drop_remainder,
+        batch_size=batch_size, drop_remainder=drop_remainder,
         on_corrupt=args.on_corrupt, normalize=False,
-        fast_decode=args.fast_decode, pool=args.decode_pool)
+        fast_decode=args.fast_decode, pool=args.decode_pool, **shard)
+
+
+def _multi_process() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_initialized() and dist.get_world_size() > 1
+
+
+def _torchrun_environment() -> bool:
+    return all(name in os.environ
+               for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR"))
+
+
+def _maybe_mesh(args):
+    """The run's mesh, or None for one device. Under torchrun's
+    environment or ``--distributed`` the process joins the group first
+    (``--coordinator``, or torchrun's environment); without
+    ``--data-parallel`` the data axis takes every rank the model axis
+    leaves (so a group of one process is a 1 x 1 mesh)."""
+    distributed = getattr(args, "distributed", False)
+    data, model = args.data_parallel, args.model_parallel
+    if not (distributed or _torchrun_environment()):
+        return None
+    from .parallel.data import initialize_distributed
+    from .parallel.mesh import create_mesh
+
+    try:
+        initialize_distributed(getattr(args, "coordinator", None),
+                               getattr(args, "num_processes", None),
+                               getattr(args, "process_id", None),
+                               device=args.device)
+        return create_mesh(data=data if data > 1 else None, model=model)
+    except ValueError as exc:
+        raise SystemExit(str(exc)) from exc
+
+
+def _rank_device(args, mesh):
+    """The device of this process: under a mesh ``--device cuda`` is the
+    card of its local rank (parallel/data.py:rank_device)."""
+    if mesh is None:
+        return args.device
+    from .parallel.data import rank_device
+
+    return rank_device(args.device)
+
+
+def _is_primary() -> bool:
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _launch_local(args, argv) -> None:
+    """Run this command as D x M local processes, one per mesh position:
+    each gets torchrun's environment (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) and the same
+    arguments. A CUDA run needs one visible GPU per process (NCCL); a CPU
+    run forms a gloo group. Waits for all of them, stops the others as
+    soon as one fails, and prints rank 0's standard output."""
+    import subprocess
+    import tempfile
+    import time
+
+    world = args.data_parallel * args.model_parallel
+    if args.model_parallel > 1 and not _build_config(args).ring_attention:
+        raise SystemExit(
+            f"--model-parallel {args.model_parallel} needs a "
+            "ring_attention preset (highres_1024_ring): tensor "
+            "parallelism is not ported to PyTorch yet")
+    batch = getattr(args, "batch_size", None)
+    if batch is not None and batch % args.data_parallel != 0:
+        raise SystemExit(
+            f"--batch-size {batch} is not divisible by --data-parallel "
+            f"{args.data_parallel}")
+    if args.device.startswith("cuda"):
+        import torch
+
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if count < world:
+            raise SystemExit(
+                f"a {args.data_parallel}x{args.model_parallel} mesh needs "
+                f"{world} processes, one per GPU, but {count} CUDA "
+                "device(s) are visible")
+    package_root = os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))
+    base = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(_free_port()), WORLD_SIZE=str(world))
+    base["PYTHONPATH"] = os.pathsep.join(
+        [package_root] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    if not args.device.startswith("cuda"):
+        base.setdefault("OMP_NUM_THREADS",
+                        str(max(1, (os.cpu_count() or 1) // world)))
+    with tempfile.TemporaryFile("w+") as out:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "vision_transformer_detector_tpu_torch.cli",
+             *argv],
+            env=dict(base, RANK=str(rank), LOCAL_RANK=str(rank)),
+            stdout=out if rank == 0 else subprocess.DEVNULL)
+            for rank in range(world)]
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.returncode not in (None, 0) for p in procs):
+                    break
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        out.seek(0)
+        sys.stdout.write(out.read())
+    failed = [(rank, p.returncode) for rank, p in enumerate(procs)
+              if p.returncode != 0]
+    if failed:
+        raise SystemExit(
+            f"{len(failed)} of {world} local processes failed "
+            f"(rank, exit code): {failed}")
 
 
 # --epochs-per-call stacks the whole dataset on the card once. The step
@@ -233,15 +414,18 @@ def cmd_train(args) -> None:
         # features that change the stream between epochs cannot compose
         # with it.
         for flag, name in ((args.shuffle, "--shuffle"),
-                           (args.resumable, "--resumable")):
+                           (args.resumable, "--resumable"),
+                           (args.distributed, "--distributed")):
             if flag:
                 raise SystemExit(
                     f"--epochs-per-call > 1 is incompatible with {name}: "
                     "the window stacks the materialized batches on the "
                     "device once and replays them each epoch")
+    mesh = _maybe_mesh(args)   # the process group forms here, first
     train_data = _build_dataset(args, config, args.train_images,
                                 args.train_annotations, shuffle=args.shuffle,
-                                resumable=args.resumable)
+                                resumable=args.resumable, mesh=mesh,
+                                equalize_shards=True)
     if epochs_per_call > 1:
         # uint8 pixels (1 byte each) and fp32 labels of the stacked data.
         h, w = config.image_size
@@ -260,9 +444,9 @@ def cmd_train(args) -> None:
     eval_data = None
     if args.val_images and args.val_annotations:
         eval_data = _build_dataset(args, config, args.val_images,
-                                   args.val_annotations)
+                                   args.val_annotations, mesh=mesh)
     trainer = Trainer(config, LossConfig(), train_config,
-                      steps_per_epoch=max(1, len(train_data)),
+                      steps_per_epoch=max(1, len(train_data)), mesh=mesh,
                       checkpoint_dir=args.checkpoint_dir,
                       keep_checkpoints=args.keep_checkpoints,
                       metrics_path=args.metrics, device=args.device)
@@ -293,12 +477,18 @@ def cmd_evaluate(args) -> None:
 
     config = _build_config(args)
     protocol = args.protocol
+    if (args.distributed or _torchrun_environment()) and protocol != "custom":
+        raise SystemExit(
+            "--distributed evaluation supports --protocol custom only "
+            "(the COCO-protocol evaluators run a host-side loop; score a "
+            "--dump-detections results file with `score-coco` instead)")
     dump = args.dump_detections
     if dump and protocol != "coco-original":
         raise SystemExit("--dump-detections requires "
                          "--protocol coco-original (detections are "
                          "dumped in original-frame pixels)")
-    params = _load_params(args, config, args.device)
+    mesh = _maybe_mesh(args)
+    params = _load_params(args, config, _rank_device(args, mesh))
     if protocol == "coco-original":
         from .data.annotations import load_annotations_dict
         from .metrics.coco_eval import evaluate_coco_protocol_original_frame
@@ -321,8 +511,10 @@ def cmd_evaluate(args) -> None:
     # pipeline did; the official protocol scores every image.
     data = _build_dataset(args, config, args.val_images,
                           args.val_annotations,
-                          drop_remainder=(protocol != "coco"))
-    if len(data) == 0:
+                          drop_remainder=(protocol != "coco"), mesh=mesh)
+    if len(data) == 0 and not _multi_process():
+        # Multi-process: an empty local shard is legal (the lockstep
+        # rounds pad it from another rank's layout).
         raise SystemExit(
             f"no evaluation batches: {args.val_images!r} matched no "
             "images, or --batch-size exceeds the dataset size")
@@ -335,7 +527,8 @@ def cmd_evaluate(args) -> None:
             per_category=args.per_category)
         print(json.dumps({"protocol": "coco", **summary}))
     else:
-        print(json.dumps({"mAP": evaluate_map(params, data, config)}))
+        print(json.dumps({"mAP": evaluate_map(params, data, config,
+                                              mesh=mesh)}))
 
 
 def cmd_score_coco(args) -> None:
@@ -462,21 +655,11 @@ def _parse_sweep_value(text: str):
         return text  # bare strings (e.g. compute_dtype=bfloat16)
 
 
-def _reject_mesh_flags(args, command: str) -> None:
-    """Multi-device runs are not ported: refuse a mesh rather than time or
-    train one device under a mesh's name."""
-    if args.data_parallel > 1 or args.model_parallel > 1:
-        raise SystemExit(
-            f"`{command}` runs on one device in the PyTorch port; "
-            "--data-parallel/--model-parallel > 1 are not ported")
-
-
 def cmd_sweep(args) -> None:
     """The JAX CLI's ``sweep``: a grid of config overrides, one training
     run per point, the records table on stdout."""
     from .train.sweep import format_records, run_sweep
 
-    _reject_mesh_flags(args, "sweep")
     if not args.synthetic and not (args.train_images
                                    and args.train_annotations):
         raise SystemExit(
@@ -487,6 +670,7 @@ def cmd_sweep(args) -> None:
         learning_rate=args.learning_rate, batch_size=args.batch_size,
         epochs=args.epochs, epochs_warm_up=args.epochs_warm_up,
         skip_epochs=args.skip_epochs, seed=args.seed)
+    mesh = _maybe_mesh(args)
 
     grid = {}
     for spec in args.sweep:
@@ -503,6 +687,14 @@ def cmd_sweep(args) -> None:
             data = list(synthetic_batches(
                 cfg, batch_size=tc.batch_size,
                 num_batches=args.synthetic_batches, seed=tc.seed))
+            if mesh is not None:
+                # This process's rows of each global batch.
+                from .parallel.data import process_batch_indices
+
+                rows = process_batch_indices(mesh, tc.batch_size)
+                data = [(images[rows.start:rows.stop],
+                         labels[rows.start:rows.stop])
+                        for images, labels in data]
             return data, data
     else:
         def make_data(cfg, tc):
@@ -511,18 +703,26 @@ def cmd_sweep(args) -> None:
             batch_args.batch_size = tc.batch_size
             train_data = _build_dataset(
                 batch_args, cfg, args.train_images, args.train_annotations,
-                shuffle=args.shuffle)
+                shuffle=args.shuffle, mesh=mesh, equalize_shards=True)
             eval_data = None
             if args.val_images and args.val_annotations:
                 eval_data = _build_dataset(batch_args, cfg, args.val_images,
-                                           args.val_annotations)
+                                           args.val_annotations, mesh=mesh)
             return train_data, eval_data
 
+    # Under a mesh every process runs the sweep; rank 0 writes the
+    # records table to --out-dir, the others to a directory of their own
+    # inside it (the records are the same).
+    out_dir = args.out_dir
+    if not _is_primary():
+        import torch.distributed as dist
+
+        out_dir = os.path.join(out_dir, f"rank_{dist.get_rank()}")
     records = run_sweep(
         grid, make_data, base_config=config, base_train_config=train_config,
         # A swept 'epochs' axis wins over --epochs.
         epochs=None if "epochs" in grid else args.epochs,
-        out_dir=args.out_dir, device=args.device)
+        out_dir=out_dir, mesh=mesh, device=args.device)
     print(format_records(records))
     print(json.dumps({"records": len(records),
                       "out_dir": args.out_dir,
@@ -545,12 +745,18 @@ def cmd_doctor(args) -> None:
       reason of a core that does not (``--build-native`` rebuilds them
       too).
 
-    The JAX CLI's ``virtual_mesh_8`` row is left out: multi-device runs are
-    not ported."""
+    * ``virtual_mesh_8``: whether an 8-process gloo group forms on the CPU
+      and all-reduces (the JAX report's row for its 8-device virtual mesh;
+      the CPU tests' process groups are gloo's), within
+      ``--probe-timeout``; ``nccl_available``: whether this PyTorch has
+      NCCL; ``cuda_device_count``: the GPUs a local mesh can use."""
     import glob
     import os
     import subprocess
     from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    import torch.distributed as dist
 
     from . import _native
     from .kernels import _build
@@ -587,6 +793,10 @@ def cmd_doctor(args) -> None:
     with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
         native["kernels"] = dict(zip(sources, pool.map(build, sources)))
     report["native"] = native
+    report["virtual_mesh_8"] = _probe_gloo_group(8, args.probe_timeout)
+    report["nccl_available"] = dist.is_nccl_available()
+    report["cuda_device_count"] = (torch.cuda.device_count()
+                                   if torch.cuda.is_available() else 0)
     print(json.dumps(report))
     if not report["device"]["ok"]:
         raise SystemExit(1)
@@ -602,6 +812,45 @@ _PROBE = (
     "          float(x.sum()), torch.cuda.get_device_name(0))\n"
     "else:\n"
     "    print('VTD_PROBE_NONE')\n")
+
+
+_GLOO_PROBE = (
+    "import sys, torch, torch.distributed as dist\n"
+    "rank, world, port = map(int, sys.argv[1:4])\n"
+    "dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}',\n"
+    "                        world_size=world, rank=rank)\n"
+    "x = torch.ones(1)\n"
+    "dist.all_reduce(x)\n"
+    "print('VTD_GLOO', int(x.item()))\n"
+    "dist.destroy_process_group()\n")
+
+
+def _probe_gloo_group(world: int, timeout_s: float) -> bool:
+    """Whether ``world`` local processes form a gloo group and all-reduce
+    a one to ``world``."""
+    import subprocess
+    import time
+
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _GLOO_PROBE, str(rank), str(world),
+         str(port)], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+        text=True) for rank in range(world)]
+    deadline = time.monotonic() + timeout_s
+    ok = True
+    for p in procs:
+        try:
+            out, _ = p.communicate(
+                timeout=max(0.0, deadline - time.monotonic()))
+            ok = ok and p.returncode == 0 and f"VTD_GLOO {world}" in out
+        except subprocess.TimeoutExpired:
+            ok = False
+            break
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    return ok
 
 
 def _probe_device(timeout_s: float) -> dict:
@@ -636,7 +885,9 @@ def cmd_benchmark(args) -> None:
     host's device, one JSON line. ``inference`` times forward +
     ``transform_predictions``, ``train`` one ``Trainer.train_step``, both
     with ``utils/profiling.time_cuda`` (CUDA events on a card, one
-    synchronize; the host clock on the CPU)."""
+    synchronize; the host clock on the CPU). Under a mesh each process
+    runs its shard of the ``--batch-size`` global batch; the time is the
+    slowest process's and ``img_per_s`` counts the global batch."""
     import torch
 
     from .models.vit_detector import forward, init_params
@@ -644,14 +895,21 @@ def cmd_benchmark(args) -> None:
     from .utils.device import resolve_device
     from .utils.profiling import time_cuda
 
-    _reject_mesh_flags(args, "benchmark")
     config = _build_config(args)
-    device = resolve_device(args.device)
+    mesh = _maybe_mesh(args)
+    device = resolve_device(_rank_device(args, mesh))
     h, w = config.image_size
     batch = args.batch_size
     generator = torch.Generator().manual_seed(1)
     images = (torch.rand((batch, h, w, 3), generator=generator) * 2.0
-              - 1.0).to(device)
+              - 1.0)
+    rows = range(batch)
+    if mesh is not None:
+        from .parallel.data import process_batch_indices
+
+        rows = process_batch_indices(mesh, batch)
+    images = images[rows.start:rows.stop].to(device)
+    local = len(rows)
 
     if args.mode == "inference":
         params = init_params(config, torch.Generator().manual_seed(0),
@@ -659,8 +917,8 @@ def cmd_benchmark(args) -> None:
 
         @torch.inference_mode()
         def step():
-            return transform_predictions(forward(params, images, config),
-                                         config)
+            return transform_predictions(forward(params, images, config,
+                                                 mesh=mesh), config)
 
         seconds, _ = time_cuda(step, iterations=args.iterations)
     else:
@@ -669,9 +927,9 @@ def cmd_benchmark(args) -> None:
         from .train.trainer import Trainer
 
         trainer = Trainer(config, LossConfig(), TrainConfig(
-            learning_rate=1e-4, batch_size=batch), device=device)
+            learning_rate=1e-4, batch_size=batch), mesh=mesh, device=device)
         state = trainer.init_state()
-        labels = np.full((batch, config.max_objects, 6), -8.0, np.float32)
+        labels = np.full((local, config.max_objects, 6), -8.0, np.float32)
         labels[..., 0] = 0.0
         labels[:, 0] = (1, 3, h / 2, w / 2, h / 4, w / 4)
         labels = torch.from_numpy(labels).to(device)
@@ -680,6 +938,16 @@ def cmd_benchmark(args) -> None:
             iterations=args.iterations)
 
     ms = seconds * 1e3
+    extra = {}
+    if mesh is not None:
+        from .parallel import collectives
+        from .parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_size
+
+        # The global step takes as long as the slowest process.
+        ms = max(float(t) for t in collectives.all_gather(
+            torch.tensor([ms], dtype=torch.float64)))
+        extra = {"mesh": [axis_size(mesh, DATA_AXIS),
+                          axis_size(mesh, MODEL_AXIS)]}
     print(json.dumps({
         "preset": args.preset, "mode": args.mode,
         "device": device.type,
@@ -687,7 +955,7 @@ def cmd_benchmark(args) -> None:
         "compute_dtype": config.compute_dtype,
         "iterations": args.iterations,
         "ms_per_step": round(ms, 2),
-        "img_per_s": round(batch * 1e3 / ms, 1)}))
+        "img_per_s": round(batch * 1e3 / ms, 1), **extra}))
 
 
 def _add_model_args(p, device: bool = True) -> None:
@@ -719,9 +987,23 @@ def _add_model_args(p, device: bool = True) -> None:
 
 
 def _add_mesh_args(p) -> None:
-    """The JAX CLI's mesh sizes; only 1 is ported."""
-    p.add_argument("--data-parallel", type=int, default=1)
-    p.add_argument("--model-parallel", type=int, default=1)
+    """The JAX CLI's mesh sizes (module docstring)."""
+    p.add_argument("--data-parallel", type=_positive_int, default=1)
+    p.add_argument("--model-parallel", type=_positive_int, default=1)
+
+
+def _add_distributed_args(p) -> None:
+    """The JAX CLI's multi-host bring-up flags (``train``, ``evaluate``)."""
+    p.add_argument("--distributed", action="store_true",
+                   help="join a process group before device use: every "
+                        "process runs the same command with its "
+                        "--process-id and loads only its input shard "
+                        "(--batch-size stays the GLOBAL batch)")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0 (tcp://); without it, "
+                        "torchrun's environment")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
 
 
 def _add_image_args(p) -> None:
@@ -741,6 +1023,8 @@ def _add_train_parser(sub) -> None:
     that this port supports; argparse refuses the others."""
     p = sub.add_parser("train", help="train a detector")
     _add_model_args(p)
+    _add_mesh_args(p)
+    _add_distributed_args(p)
     p.add_argument("--keep-checkpoints", type=int, default=None,
                    help="also write step-stamped checkpoints at each "
                         "periodic save, pruned to the newest K")
@@ -832,6 +1116,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("evaluate", help="compute mAP on a dataset")
     _add_model_args(p)
+    _add_mesh_args(p)
+    _add_distributed_args(p)
     _add_image_args(p)
     p.add_argument("--val-images", required=True)
     p.add_argument("--val-annotations", required=True)
@@ -970,7 +1256,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    if getattr(args, "distributed", False) and args.command not in (
+            "train", "evaluate"):
+        raise SystemExit(
+            f"--distributed is supported by train/evaluate, not "
+            f"{args.command!r}")
+    if (getattr(args, "data_parallel", 1) * getattr(args, "model_parallel", 1)
+            > 1 and not getattr(args, "distributed", False)
+            and not _torchrun_environment()):
+        _launch_local(args, argv)
+        return
     args.func(args)
 
 

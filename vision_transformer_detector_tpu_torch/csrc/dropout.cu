@@ -8,7 +8,8 @@
 // attention mask's counter hash (dropout_mask.cuh, `dropout_keep_mask`) of
 // the layer's seed at batch*head 0 over each element's (row, column)
 // index, the rows being all leading axes of a contiguous (rows, cols)
-// array: out = keep ? x * (1 / (1 - rate)) : 0, in x's dtype. The seed is
+// array, counted from `row_base`: out = keep ? x * (1 / (1 - rate)) : 0,
+// in x's dtype. The seed is
 // read from device memory, so a captured CUDA graph replays each step with
 // the seed its caller wrote there, and a block recomputed under remat (or
 // the backward, which applies the same function to the cotangent) draws the
@@ -74,14 +75,15 @@ __global__ void __launch_bounds__(kThreads) dropout_kernel(
        i < total; i += stride) {
     const long long row = i / chunks;
     const int col = static_cast<int>(i - row * chunks) * kVec;
-    const unsigned int part = hash_part(seed, 0u) +
-                              query_term(static_cast<unsigned int>(row));
+    const unsigned int part =
+        hash_part(d, seed, 0u) +
+        query_term(d, static_cast<unsigned int>(row));
     const long long at = row * cols + col;
     Pack<T, kVec> p = *reinterpret_cast<const Pack<T, kVec>*>(x + at);
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
       const bool kept =
-          keep(d, part + key_term(static_cast<unsigned int>(col + j)));
+          keep(d, part + key_term(d, static_cast<unsigned int>(col + j)));
       p.v[j] = from_float<T>(kept ? to_float(p.v[j]) * d.inv_keep : 0.0f);
     }
     *reinterpret_cast<Pack<T, kVec>*>(out + at) = p;
@@ -113,13 +115,15 @@ extern "C" {
 
 // x and out: contiguous (rows, cols) arrays in dtype (0 = float32,
 // 1 = bfloat16); seed: the device address of the uint32 seed; threshold:
-// keep iff hash < threshold; inv_keep: the fp32 reciprocal of 1 - rate.
+// keep iff hash < threshold; inv_keep: the fp32 reciprocal of 1 - rate;
+// row_base: the global row of x's first (0 for the whole array; a rank of a
+// data-parallel run passes its first row of the global batch).
 // Returns cudaGetLastError() after the launch (0 on success).
 int vtd_dropout(const void* x, void* out, long long rows, int cols,
                 int dtype, const unsigned int* seed, unsigned int threshold,
-                float inv_keep, void* stream) {
+                float inv_keep, unsigned int row_base, void* stream) {
   if (rows <= 0 || cols <= 0 || seed == nullptr) return cudaErrorInvalidValue;
-  const Dropout drop{seed, threshold, inv_keep};
+  const Dropout drop{seed, threshold, inv_keep, 0u, row_base, 0u};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(out) % 16 == 0;

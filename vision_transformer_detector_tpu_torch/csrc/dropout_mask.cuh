@@ -14,11 +14,19 @@ namespace {
 // The seed's address in device memory (a uint32 the caller writes before
 // the launch, so a captured CUDA graph replays each step with that step's
 // seed), the keep threshold (keep iff hash < threshold, as the Pallas
-// module's `_keep_threshold`) and 1 / (1 - rate) in fp32.
+// module's `_keep_threshold`), 1 / (1 - rate) in fp32, and the global
+// coordinates of the launch's first batch*head row, query and key: a
+// launch over a shard of the batch (data parallelism) or of the tokens (a
+// ring attention block) adds them to its local indices, so it draws the
+// mask the whole array would have drawn there (JAX's ring keys its mask
+// the same way). All 0 for a launch over the whole array.
 struct Dropout {
   const unsigned int* seed;
   unsigned int threshold;
   float inv_keep;
+  unsigned int bh_base;
+  unsigned int q_base;
+  unsigned int k_base;
 };
 
 // The seed, read from device memory once by each thread at the start of
@@ -28,19 +36,23 @@ __device__ __forceinline__ unsigned int load_seed(const Dropout& d) {
 }
 
 // The hash's sum seed + bh * 0x9E3779B1 + query * 0x85EBCA6B + key *
-// 0xC2B2AE35 (mod 2^32), split so that a thread adds the term of the
-// index it loops over to a part it computes once.
-__device__ __forceinline__ unsigned int hash_part(unsigned int seed,
+// 0xC2B2AE35 (mod 2^32) over the global indices (local index + base),
+// split so that a thread adds the term of the index it loops over to a
+// part it computes once.
+__device__ __forceinline__ unsigned int hash_part(const Dropout& d,
+                                                  unsigned int seed,
                                                   unsigned int bh) {
-  return seed + bh * 0x9E3779B1u;
+  return seed + (d.bh_base + bh) * 0x9E3779B1u;
 }
 
-__device__ __forceinline__ unsigned int query_term(unsigned int query) {
-  return query * 0x85EBCA6Bu;
+__device__ __forceinline__ unsigned int query_term(const Dropout& d,
+                                                   unsigned int query) {
+  return (d.q_base + query) * 0x85EBCA6Bu;
 }
 
-__device__ __forceinline__ unsigned int key_term(unsigned int key) {
-  return key * 0xC2B2AE35u;
+__device__ __forceinline__ unsigned int key_term(const Dropout& d,
+                                                 unsigned int key) {
+  return (d.k_base + key) * 0xC2B2AE35u;
 }
 
 // The finalizer of `dropout_keep_mask` on the full sum.

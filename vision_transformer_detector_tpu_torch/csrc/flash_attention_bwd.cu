@@ -196,8 +196,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int key = kv0 + 16 * warp + gr + 8 * r;
     key_ok[r] = key < seq_len;
     if (kDropout) {
-      hash_key[r] = hash_part(seed, static_cast<unsigned int>(bh)) +
-                    key_term(static_cast<unsigned int>(key));
+      hash_key[r] = hash_part(drop, seed, static_cast<unsigned int>(bh)) +
+                    key_term(drop, static_cast<unsigned int>(key));
     }
   }
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
@@ -277,7 +277,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float scale = 1.f;
         if (kDropout) {
           scale = keep(drop, hash_key[r] +
-                                 query_term(static_cast<unsigned int>(query)))
+                                 query_term(drop,
+                                            static_cast<unsigned int>(query)))
                       ? drop.inv_keep
                       : 0.f;
         }
@@ -416,8 +417,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lse_r[r] = query_ok[r] ? lse[rows + query] * kLog2e : 0.f;
     delta_r[r] = query_ok[r] ? delta[rows + query] : 0.f;
     if (kDropout) {
-      hash_query[r] = hash_part(seed, static_cast<unsigned int>(bh)) +
-                      query_term(static_cast<unsigned int>(query));
+      hash_query[r] =
+          hash_part(drop, seed, static_cast<unsigned int>(bh)) +
+          query_term(drop, static_cast<unsigned int>(query));
     }
   }
   float dq_acc[D / 8][4];
@@ -489,7 +491,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float scale = 1.f;
         if (kDropout) {
           scale = keep(drop, hash_query[r] +
-                                 key_term(static_cast<unsigned int>(key)))
+                                 key_term(drop,
+                                          static_cast<unsigned int>(key)))
                       ? drop.inv_keep
                       : 0.f;
         }
@@ -668,8 +671,10 @@ extern "C" {
 // batch, head and token axes; the head dim must be contiguous and every row
 // 16-byte aligned. dropout: 0, or 1 with the device address of the
 // forward's uint32 seed, the keep threshold and fp32 1 / (1 - rate); delta
-// is then rowsum(g * out) of the dropped output. Returns the CUDA error of
-// the launch (0 on success).
+// is then rowsum(g * out) of the dropped output; bh_base, q_base and
+// k_base: the global batch*head row, query and key of the launch's first
+// (dropout_mask.cuh; 0 for a launch over the whole array). Returns the
+// CUDA error of the launch (0 on success).
 int vtd_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* g,
     const void* lse, const void* delta, void* dq, void* dk, void* dv,
@@ -681,13 +686,14 @@ int vtd_flash_attention_bwd(
     long long dq_sb, long long dq_sh, long long dq_sn, long long dk_sb,
     long long dk_sh, long long dk_sn, long long dv_sb, long long dv_sh,
     long long dv_sn, int dropout, const unsigned int* seed,
-    unsigned int threshold, float inv_keep, void* stream) {
+    unsigned int threshold, float inv_keep, unsigned int bh_base,
+    unsigned int q_base, unsigned int k_base, void* stream) {
   if (batch <= 0 || heads <= 0 || seq_len <= 0) return cudaErrorInvalidValue;
   if (dropout != 0 && seed == nullptr) return cudaErrorInvalidValue;
   const Strides sq{q_sb, q_sh, q_sn}, sk{k_sb, k_sh, k_sn},
       sv{v_sb, v_sh, v_sn}, sg{g_sb, g_sh, g_sn}, sdq{dq_sb, dq_sh, dq_sn},
       sdk{dk_sb, dk_sh, dk_sn}, sdv{dv_sb, dv_sh, dv_sn};
-  const Dropout drop{seed, threshold, inv_keep};
+  const Dropout drop{seed, threshold, inv_keep, bh_base, q_base, k_base};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {

@@ -153,9 +153,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const unsigned int seed = load_seed(drop);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      hash_row[r] = hash_part(seed, static_cast<unsigned int>(bh)) +
-                    query_term(static_cast<unsigned int>(q0 + 16 * warp + g +
-                                                         8 * r));
+      hash_row[r] =
+          hash_part(drop, seed, static_cast<unsigned int>(bh)) +
+          query_term(drop, static_cast<unsigned int>(q0 + 16 * warp + g +
+                                                     8 * r));
     }
   }
 
@@ -246,7 +247,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (kDropout) {
           const unsigned int key =
               static_cast<unsigned int>(kv0 + 8 * j + 2 * t + (e & 1));
-          p = keep(drop, hash_row[r] + key_term(key)) ? p * drop.inv_keep
+          p = keep(drop, hash_row[r] + key_term(drop, key)) ? p * drop.inv_keep
                                                       : 0.f;
         }
         s[j][e] = p;
@@ -340,7 +341,9 @@ extern "C" {
 // must be contiguous and every row 16-byte aligned. lse: nullptr, or a
 // contiguous fp32 (batch, heads, seq_len) array. dropout: 0, or 1 with the
 // device address of the uint32 seed, the uint32 keep threshold (keep iff
-// hash < threshold) and inv_keep = 1 / (1 - rate) in fp32. Returns
+// hash < threshold) and inv_keep = 1 / (1 - rate) in fp32; bh_base, q_base
+// and k_base: the global batch*head row, query and key of the launch's
+// first (dropout_mask.cuh; 0 for a launch over the whole array). Returns
 // cudaGetLastError() after the launch (0 on success).
 int vtd_flash_attention_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int dtype, int batch,
@@ -351,12 +354,13 @@ int vtd_flash_attention_fwd(const void* q, const void* k, const void* v,
                             long long o_sb, long long o_sh, long long o_sn,
                             int dropout, const unsigned int* seed,
                             unsigned int threshold, float inv_keep,
-                            void* stream) {
+                            unsigned int bh_base, unsigned int q_base,
+                            unsigned int k_base, void* stream) {
   if (batch <= 0 || heads <= 0 || seq_len <= 0) return cudaErrorInvalidValue;
   if (dropout != 0 && seed == nullptr) return cudaErrorInvalidValue;
   const Strides sq{q_sb, q_sh, q_sn}, sk{k_sb, k_sh, k_sn},
       sv{v_sb, v_sh, v_sn}, so{o_sb, o_sh, o_sn};
-  const Dropout drop{seed, threshold, inv_keep};
+  const Dropout drop{seed, threshold, inv_keep, bh_base, q_base, k_base};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
   cudaError_t err;

@@ -7,8 +7,10 @@ whose threefry bits the port does not reproduce. The port's mask is a pure
 function of a seed and each element's index: the attention mask's counter
 hash (``flash_attention.dropout_keep_mask``) of the seed at batch*head 0
 over (row, column), the rows being all leading axes, kept iff below the
-keep threshold, Bernoulli(1 - rate) as JAX's. ``dropout(x, seed, rate)``
-is keras Dropout with that mask: x / (1 - rate) where kept, else 0, in x's
+keep threshold, Bernoulli(1 - rate) as JAX's; ``row_base`` numbers the rows
+from a global offset (a data-parallel rank passes its first row of the
+global batch, so it draws the rows the whole batch draws there).
+``dropout(x, seed, rate)`` is keras Dropout with that mask: x / (1 - rate) where kept, else 0, in x's
 dtype. Since the mask depends on nothing but the seed, a block recomputed
 under remat draws the mask its forward drew, and the backward is the same
 function applied to the cotangent.
@@ -39,12 +41,13 @@ SOURCE = "dropout.cu"
 _count_lock = threading.Lock()
 
 
-def dropout_mask(seed, shape, rate: float, device) -> torch.Tensor:
+def dropout_mask(seed, shape, rate: float, device,
+                 row_base: int = 0) -> torch.Tensor:
     """The keep mask of ``shape``: ``dropout_keep_mask`` of ``seed`` (an
     integer or a one-element integer tensor on ``device``), batch*head
     index 0, and each element's (row, column) index over (all leading
-    axes, the last axis), kept iff below the keep threshold. Plain tensor
-    ops with no host sync.
+    axes, the last axis), rows counted from ``row_base``, kept iff below
+    the keep threshold. Plain tensor ops with no host sync.
 
     The index terms are formed on a row and a column vector, the seed
     joins the row vector, and the full-size work (one broadcast add, the
@@ -53,7 +56,8 @@ def dropout_mask(seed, shape, rate: float, device) -> torch.Tensor:
     with each multiplier taken as its residue in (-2**31, 2**31) so no
     product leaves int64."""
     rows = math.prod(shape[:-1])
-    row = _mul32(torch.arange(rows, device=device), 0x85EBCA6B)
+    row = _mul32((torch.arange(rows, device=device) + int(row_base)) & _M32,
+                 0x85EBCA6B)
     col = _mul32(torch.arange(shape[-1], device=device), 0xC2B2AE35)
     if isinstance(seed, torch.Tensor):
         row = row + (seed.reshape(1).to(torch.int64) & _M32)
@@ -69,10 +73,11 @@ def dropout_mask(seed, shape, rate: float, device) -> torch.Tensor:
     return (x < _keep_threshold(rate)).reshape(shape)
 
 
-def dropout_reference(x: torch.Tensor, seed, rate: float) -> torch.Tensor:
+def dropout_reference(x: torch.Tensor, seed, rate: float,
+                      row_base: int = 0) -> torch.Tensor:
     """The plain version: x / (1 - rate) where ``dropout_mask`` keeps,
     else 0, in x's dtype (differentiable)."""
-    mask = dropout_mask(seed, x.shape, rate, x.device)
+    mask = dropout_mask(seed, x.shape, rate, x.device, row_base)
     return torch.where(mask, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
@@ -81,30 +86,32 @@ class DropoutFunction(torch.autograd.Function):
     the cotangent, from the same seed."""
 
     @staticmethod
-    def forward(ctx, x, seed, rate: float):
-        ctx.seed, ctx.rate = seed, rate
-        return _launch(x, seed, rate)
+    def forward(ctx, x, seed, rate: float, row_base: int):
+        ctx.seed, ctx.rate, ctx.row_base = seed, rate, row_base
+        return _launch(x, seed, rate, row_base)
 
     @staticmethod
     def backward(ctx, g):
-        return _launch(g, ctx.seed, ctx.rate), None, None
+        return _launch(g, ctx.seed, ctx.rate, ctx.row_base), None, None, None
 
 
-def dropout(x: torch.Tensor, seed, rate: float) -> torch.Tensor:
-    """keras Dropout of ``x`` with the counter-hash mask of ``seed``; see
-    the module docstring. ``rate`` lies in (0, 1)."""
+def dropout(x: torch.Tensor, seed, rate: float,
+            row_base: int = 0) -> torch.Tensor:
+    """keras Dropout of ``x`` with the counter-hash mask of ``seed``, rows
+    counted from ``row_base``; see the module docstring. ``rate`` lies in
+    (0, 1)."""
     if not 0.0 < rate < 1.0:
         raise ValueError(f"dropout rate must be in (0, 1), got {rate}")
     if x.device.type == "cpu":
-        return dropout_reference(x, seed, rate)
+        return dropout_reference(x, seed, rate, row_base)
     if x.device.type != "cuda":
         raise ValueError(f"dropout takes a CPU or CUDA tensor, got "
                          f"{x.device}")
     if not isinstance(seed, torch.Tensor):
         seed = seed_tensor(seed, x.device)
     if torch.is_grad_enabled() and x.requires_grad:
-        return DropoutFunction.apply(x, seed, rate)
-    return _launch(x, seed, rate)
+        return DropoutFunction.apply(x, seed, rate, row_base)
+    return _launch(x, seed, rate, row_base)
 
 
 # Kernel launches; the plain version adds none.
@@ -117,7 +124,7 @@ def inv_keep(rate: float) -> float:
     return float(np.float32(1.0) / np.float32(1.0 - rate))
 
 
-def _launch(x, seed, rate: float) -> torch.Tensor:
+def _launch(x, seed, rate: float, row_base: int = 0) -> torch.Tensor:
     """One launch through ``torch.ops.vtd_torch.dropout`` (kernels/ops.py)
     on x as a (rows, last axis) array."""
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -125,5 +132,5 @@ def _launch(x, seed, rate: float) -> torch.Tensor:
     if x.numel() == 0:
         return x.clone()
     out = torch.ops.vtd_torch.dropout(x.reshape(-1, x.shape[-1]), seed,
-                                      float(rate))
+                                      float(rate), int(row_base))
     return out.reshape(x.shape)

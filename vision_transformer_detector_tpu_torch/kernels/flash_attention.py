@@ -48,7 +48,12 @@ the undropped probabilities, and each probability is multiplied by
 keep / (1 - rate) before P@V. The keep mask is ``dropout_keep_mask``, the
 JAX package's counter hash of the seed and the global (batch*head, query,
 key) indices, so the masks are bit-equal to JAX's on every device, and
-the backward replays them. The JAX package forces its chunked XLA
+the backward replays them. ``offsets = (bh_base, q_base, k_base)`` are
+the global coordinates of the call's first batch*head row, query and key:
+a call over a shard of the batch (data parallelism) or a ring attention
+block (kernels/ring_attention.py) passes its own, so it draws the mask
+that the whole array draws there; they default to 0 and change nothing
+but the mask. The JAX package forces its chunked XLA
 backward (and a forward without lse) under dropout; the port keeps the
 Function's design, one forward launch that writes out and lse with the
 mask applied and then the backward kernel with the mask replayed, which
@@ -153,14 +158,19 @@ def seed_tensor(seed: int, device) -> torch.Tensor:
         torch.uint32).to(device)
 
 
-def _dropout_scale(dropout, b: int, h: int, n: int, device) -> torch.Tensor:
-    """(b, h, n, n) fp32 keep / (1 - rate) of the mask over heads-major
-    scores, batch*head index b * h + head (the kernels' numbering)."""
+def _dropout_scale(dropout, b: int, h: int, n: int, device,
+                   offsets=(0, 0, 0), m: int | None = None) -> torch.Tensor:
+    """(b, h, n, m) fp32 keep / (1 - rate) of the mask over heads-major
+    scores (m = n by default), batch*head index b * h + head (the kernels'
+    numbering), each index counted from its ``offsets`` entry."""
     seed, rate = dropout
-    pos = torch.arange(n, device=device)
-    bh = torch.arange(b * h, device=device).reshape(b, h, 1, 1)
-    keep = dropout_keep_mask(seed, bh, pos[:, None], pos[None, :],
-                             _keep_threshold(rate))
+    m = n if m is None else m
+    bh_base, q_base, k_base = offsets
+    bh = (torch.arange(b * h, device=device) + bh_base).reshape(b, h, 1, 1)
+    keep = dropout_keep_mask(
+        seed, bh, (torch.arange(n, device=device) + q_base)[:, None],
+        (torch.arange(m, device=device) + k_base)[None, :],
+        _keep_threshold(rate))
     return torch.where(keep, 1.0 / (1.0 - rate), 0.0).float()
 
 
@@ -171,19 +181,22 @@ def _heads_major(t: torch.Tensor, layout: str) -> torch.Tensor:
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        layout: str = "bnhk", dropout=None) -> torch.Tensor:
+                        layout: str = "bnhk", dropout=None,
+                        offsets=(0, 0, 0)) -> torch.Tensor:
     """Materialised-softmax version: fp32 scores and softmax, probabilities
     cast to v's dtype before P@V with fp32 accumulation, output in q's
     dtype (as the JAX package's ``reference_attention``). ``dropout``
     (``(seed, rate)``) multiplies the probabilities by keep / (1 - rate)
-    before the cast, the JAX package's masked oracle."""
+    before the cast, the JAX package's masked oracle; ``offsets`` place the
+    mask (module docstring)."""
     if layout == "bhnk":
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     scores = torch.einsum("bnhk,bmhk->bhnm", q.float(), k.float())
     probs = torch.softmax(scores, dim=-1)
     if dropout is not None:
-        b, h, n, _ = probs.shape
-        probs = probs * _dropout_scale(dropout, b, h, n, probs.device)
+        b, h, n, m = probs.shape
+        probs = probs * _dropout_scale(dropout, b, h, n, probs.device,
+                                       offsets, m)
     # bf16 x bf16 products are exact in fp32, so upcasting the rounded
     # probabilities reproduces a bf16 matmul with fp32 accumulation.
     out = torch.einsum("bhnm,bmhk->bnhk", probs.to(v.dtype).float(),
@@ -202,7 +215,8 @@ def reference_attention_lse(q: torch.Tensor, k: torch.Tensor,
 
 def reference_attention_backward(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor, g: torch.Tensor,
-                                 layout: str = "bnhk", dropout=None):
+                                 layout: str = "bnhk", dropout=None,
+                                 offsets=(0, 0, 0), lse=None, delta=None):
     """(dq, dk, dv) of ``reference_attention`` for the output cotangent g,
     as the JAX package's ``_flash_bwd_chunked`` (fp32 variant) computes
     them: fp32 scores, softmax and g v^T; with ``dropout`` (``(seed,
@@ -210,19 +224,27 @@ def reference_attention_backward(q: torch.Tensor, k: torch.Tensor,
     and p (pd = scale * p); pd cast to the input dtype before dv = pd^T g;
     ds = p * (dp - rowsum(dp * p)) cast to the input dtype before dq = ds k
     and dk = ds^T q; fp32 accumulation, grads in the inputs' dtypes and
-    layout."""
+    layout; ``offsets`` place the mask.
+
+    With ``lse`` and ``delta`` (``(B, H, N)`` fp32, what the backward
+    kernel takes) it is the kernel's plain version: p = exp(s - lse) and
+    ds = p * (dp - delta), so k and v may be one block of a longer
+    sequence whose statistics these are (a ring attention step)."""
     qh, kh, vh, gh = (_heads_major(t, layout) for t in (q, k, v, g))
     dtype = q.dtype
     scores = torch.einsum("bhnk,bhmk->bhnm", qh.float(), kh.float())
-    p = torch.softmax(scores, dim=-1)
+    p = (torch.softmax(scores, dim=-1) if lse is None
+         else torch.exp(scores - lse[..., None]))
     dp = torch.einsum("bhnk,bhmk->bhnm", gh.float(), vh.float())
     pd = p
     if dropout is not None:
-        b, h, n, _ = p.shape
-        scale = _dropout_scale(dropout, b, h, n, p.device)
+        b, h, n, m = p.shape
+        scale = _dropout_scale(dropout, b, h, n, p.device, offsets, m)
         dp, pd = dp * scale, p * scale
     dv = torch.einsum("bhnm,bhnk->bhmk", pd.to(dtype).float(), gh.float())
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    if delta is None:
+        delta = (dp * p).sum(dim=-1)
+    ds = p * (dp - delta[..., None])
     ds = ds.to(dtype).float()
     dq = torch.einsum("bhnm,bhmk->bhnk", ds, kh.float())
     dk = torch.einsum("bhnm,bhnk->bhmk", ds, qh.float())
@@ -237,18 +259,21 @@ class FlashAttentionFunction(torch.autograd.Function):
     the backward kernel; the plain route recomputes the softmax."""
 
     @staticmethod
-    def forward(ctx, q, k, v, layout: str, use_kernel: bool, dropout=None):
+    def forward(ctx, q, k, v, layout: str, use_kernel: bool, dropout=None,
+                offsets=(0, 0, 0)):
         if use_kernel:
             out, lse = _launch_forward(q, k, v, layout, with_lse=True,
-                                       dropout=dropout)
+                                       dropout=dropout, offsets=offsets)
         else:
-            out, lse = reference_attention(q, k, v, layout, dropout), None
+            out = reference_attention(q, k, v, layout, dropout, offsets)
+            lse = None
         # Unpadded q/k/v: the backward re-pads them, so a call with a padded
         # head dim does not hold a padded copy between the passes.
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.layout = layout
         ctx.use_kernel = use_kernel
         ctx.dropout = dropout
+        ctx.offsets = offsets
         return out
 
     @staticmethod
@@ -261,21 +286,24 @@ class FlashAttentionFunction(torch.autograd.Function):
             delta = _heads_major((g.float() * out.float()).sum(dim=-1),
                                  ctx.layout).contiguous()
             dq, dk, dv = _launch_backward(q, k, v, g, lse, delta, ctx.layout,
-                                          ctx.dropout)
+                                          ctx.dropout, offsets=ctx.offsets)
         else:
-            dq, dk, dv = reference_attention_backward(q, k, v, g, ctx.layout,
-                                                      ctx.dropout)
-        return dq, dk, dv, None, None, None
+            dq, dk, dv = reference_attention_backward(
+                q, k, v, g, ctx.layout, ctx.dropout, ctx.offsets)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     layout: str = "bnhk", dropout_rate: float | None = None,
-                    dropout_seed=None, with_lse: bool = False):
+                    dropout_seed=None, with_lse: bool = False,
+                    offsets=(0, 0, 0)):
     """Attention over ``layout``-ordered q/k/v; see the module docstring.
 
     ``dropout_rate`` 0 or None means no dropout; a rate outside (0, 1), or
     a rate without ``dropout_seed`` (an integer, taken mod 2**32, or a
-    one-element integer tensor), raises ValueError. Returns the output,
+    one-element integer tensor), raises ValueError. ``offsets`` are the
+    global (batch*head, query, key) coordinates of the first row, query and
+    key, which place the dropout mask (module docstring). Returns the output,
     or ``(output, lse)`` with ``with_lse`` (lse is ``(B, H, N)`` fp32;
     that form is not differentiable).
     """
@@ -296,18 +324,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"the dropout seed lies on {seed.device}, "
                              f"q/k/v on {q.device}")
         dropout = seed, rate
+    offsets = tuple(int(o) & _M32 for o in offsets)
     if with_lse:
         if use_kernel:
             return _launch_forward(q, k, v, layout, with_lse=True,
-                                   dropout=dropout)
-        return (reference_attention(q, k, v, layout, dropout),
+                                   dropout=dropout, offsets=offsets)
+        return (reference_attention(q, k, v, layout, dropout, offsets),
                 reference_attention_lse(q, k, layout))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFunction.apply(q, k, v, layout, use_kernel,
-                                            dropout)
+                                            dropout, offsets)
     if use_kernel:
-        return _launch_forward(q, k, v, layout, dropout=dropout)
-    return reference_attention(q, k, v, layout, dropout)
+        return _launch_forward(q, k, v, layout, dropout=dropout,
+                               offsets=offsets)
+    return reference_attention(q, k, v, layout, dropout, offsets)
 
 
 # Kernel launches, one count per kernel wrapper; the plain path adds none.
@@ -395,25 +425,29 @@ def _axes(t: torch.Tensor, layout: str):
             (t.stride(0), t.stride(2), t.stride(1)))
 
 
-def _dropout_c_args(dropout) -> tuple:
-    """The kernels' (flag, seed address, threshold, inv_keep) arguments
-    for ``(seed tensor, rate)``."""
+def _dropout_c_args(dropout, offsets=(0, 0, 0)) -> tuple:
+    """The kernels' (flag, seed address, threshold, inv_keep, bh_base,
+    q_base, k_base) arguments for ``(seed tensor, rate)`` and the mask's
+    offsets."""
+    offsets = tuple(int(o) & _M32 for o in offsets)
     if dropout is None:
-        return 0, None, 0, 0.0
+        return (0, None, 0, 0.0) + offsets
     seed, rate = dropout
-    return 1, seed.data_ptr(), _keep_threshold(rate), 1.0 / (1.0 - rate)
+    return (1, seed.data_ptr(), _keep_threshold(rate),
+            1.0 / (1.0 - rate)) + offsets
 
 
 def _launch_forward(q, k, v, layout: str, with_lse: bool = False,
-                    dropout=None):
+                    dropout=None, offsets=(0, 0, 0)):
     """One forward launch through ``torch.ops.vtd_torch.flash_attention_fwd``
-    (kernels/ops.py): ``out``, or ``(out, lse)`` with ``with_lse``."""
+    (kernels/ops.py): ``out``, or ``(out, lse)`` with ``with_lse``;
+    ``offsets`` place the dropout mask."""
     _check_inputs(q, k, v)
     kdim = q.shape[-1]
     q, k, v = (_pad_head_dim(t) for t in (q, k, v))
     seed, rate = dropout or (None, 0.0)
     out, lse = torch.ops.vtd_torch.flash_attention_fwd(
-        q, k, v, layout, with_lse, seed, rate)
+        q, k, v, layout, with_lse, seed, rate, *offsets)
     out = out[..., :kdim] if kdim < out.shape[-1] else out
     return (out, lse) if with_lse else out
 
@@ -444,15 +478,18 @@ def dq_route(dtype: torch.dtype, request: int = 0,
 
 
 def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None,
-                     route: str | None = None):
+                     route: str | None = None, offsets=(0, 0, 0),
+                     fp32_dq: bool = False):
     """dq, dk, dv from the backward kernels, through
     ``torch.ops.vtd_torch.flash_attention_bwd`` (kernels/ops.py). lse and
     delta are (B, H, N) fp32; dq accumulates in fp32 and is cast to q's
     dtype here, dk and dv come out of the kernel in the input dtype.
     ``dropout`` is the forward's ``(seed, rate)``, whose mask the kernel
-    replays, reading the seed from device memory. ``route`` names one of
-    ``DQ_ROUTES`` to take instead of the one the dtype selects (the tests
-    and the timings use it)."""
+    replays, reading the seed from device memory, placed by ``offsets``.
+    ``route`` names one of ``DQ_ROUTES`` to take instead of the one the
+    dtype selects (the tests and the timings use it). ``fp32_dq`` returns
+    dq as the kernel summed it, in fp32 (a ring attention step adds it to
+    its accumulator before any rounding)."""
     _check_inputs(q, k, v, g)
     kdim = q.shape[-1]
     # The incoming cotangent is whatever view autograd hands over (an
@@ -471,5 +508,7 @@ def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None,
                 f"{q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
     seed, rate = dropout or (None, 0.0)
     dq, dk, dv = torch.ops.vtd_torch.flash_attention_bwd(
-        q, k, v, g, lse, delta, layout, seed, rate, DQ_ROUTES[route])
-    return dq[..., :kdim].to(q.dtype), dk[..., :kdim], dv[..., :kdim]
+        q, k, v, g, lse, delta, layout, seed, rate, DQ_ROUTES[route],
+        *offsets)
+    dq = dq[..., :kdim]
+    return (dq if fp32_dq else dq.to(q.dtype)), dk[..., :kdim], dv[..., :kdim]

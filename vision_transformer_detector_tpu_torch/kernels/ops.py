@@ -60,9 +60,10 @@ def _library(kind: str) -> ctypes.CDLL:
     """The built library of one source, with its entry point's C types."""
     lib = _build.load_library(_SOURCES[kind])
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    u32 = ctypes.c_uint32
     # dropout flag, the seed's device address, keep threshold, inv_keep,
-    # then the stream.
-    dropout = [i32, ptr, ctypes.c_uint32, ctypes.c_float, ptr]
+    # the mask's bh/query/key offsets, then the stream.
+    dropout = [i32, ptr, u32, ctypes.c_float, u32, u32, u32, ptr]
     if kind == "fwd":
         fn = lib.vtd_flash_attention_fwd
         fn.argtypes = [ptr] * 5 + [i32] * 5 + [i64] * 12 + dropout
@@ -80,8 +81,8 @@ def _library(kind: str) -> ctypes.CDLL:
         fn.argtypes = [ptr] * 6 + [i32] * 7 + [ctypes.POINTER(i32), ptr]
     else:
         fn = lib.vtd_dropout
-        fn.argtypes = [ptr, ptr, i64, i32, i32, ptr, ctypes.c_uint32,
-                       ctypes.c_float, ptr]
+        fn.argtypes = [ptr, ptr, i64, i32, i32, ptr, u32, ctypes.c_float,
+                       u32, ptr]
     fn.restype = i32
     lib.vtd_cuda_error_string.argtypes = [i32]
     lib.vtd_cuda_error_string.restype = ctypes.c_char_p
@@ -116,14 +117,16 @@ def _dropout(seed: Optional[torch.Tensor], rate: float, device):
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         layout: str, with_lse: bool,
                         dropout_seed: Optional[torch.Tensor],
-                        dropout_rate: float
+                        dropout_rate: float, bh_base: int = 0,
+                        q_base: int = 0, k_base: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` of softmax(q k^T) v over ``layout``-ordered q/k/v,
     their head dim already one of the kernel's widths. lse is ``(B, H,
     N)`` fp32 with ``with_lse``, else empty. ``dropout_rate`` 0 means no
     dropout; otherwise ``dropout_seed`` is the one-element device tensor
-    the kernel reads the seed from. One launch of
-    csrc/flash_attention_fwd.cu."""
+    the kernel reads the seed from, and ``bh_base``/``q_base``/``k_base``
+    place the mask (the global coordinates of the first row, query and
+    key). One launch of csrc/flash_attention_fwd.cu."""
     fa = flash_attention
     q, k, v = fa._kernel_operands(layout, q=q, k=k, v=v)
     dropout = _dropout(dropout_seed, dropout_rate, q.device)
@@ -137,7 +140,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.vtd_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None, _DTYPE_CODES[q.dtype],
-            b, h, n, q.shape[-1], *strides, *fa._dropout_c_args(dropout),
+            b, h, n, q.shape[-1], *strides,
+            *fa._dropout_c_args(dropout, (bh_base, q_base, k_base)),
             _stream(q.device))
     _build.raise_on_error(lib, err, "flash attention forward")
     fa._count("drop_launches" if dropout is not None
@@ -146,7 +150,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 @flash_attention_fwd.register_fake
-def _(q, k, v, layout, with_lse, dropout_seed, dropout_rate):
+def _(q, k, v, layout, with_lse, dropout_seed, dropout_rate, bh_base=0,
+      q_base=0, k_base=0):
     (b, h, n), _ = flash_attention._axes(q, layout)
     return (torch.empty_like(q),
             q.new_empty((b, h, n) if with_lse else (0,),
@@ -162,14 +167,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         g: torch.Tensor, lse: torch.Tensor,
                         delta: torch.Tensor, layout: str,
                         dropout_seed: Optional[torch.Tensor],
-                        dropout_rate: float, request: int = 0
+                        dropout_rate: float, request: int = 0,
+                        bh_base: int = 0, q_base: int = 0, k_base: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq fp32, dk, dv)`` at the padded head dim from the backward
     kernels (csrc/flash_attention_bwd.cu); lse and delta are contiguous
     ``(B, H, N)`` fp32; dq is summed in fp32 over the key tiles in order
     and written once, so it is the same on every run. A nonzero
     ``dropout_rate`` replays the forward's mask, its seed read from
-    ``dropout_seed``'s device memory. ``request`` is one of
+    ``dropout_seed``'s device memory and placed by ``bh_base``/``q_base``/
+    ``k_base`` as in the forward. ``request`` is one of
     ``flash_attention.DQ_ROUTES``' values (0: the route the dtype
     selects)."""
     fa = flash_attention
@@ -192,7 +199,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), None if partials is None else partials.data_ptr(),
             _DTYPE_CODES[q.dtype], b, h, n, q.shape[-1],
-            *strides, *fa._dropout_c_args(dropout), _stream(q.device))
+            *strides, *fa._dropout_c_args(dropout, (bh_base, q_base, k_base)),
+            _stream(q.device))
     _build.raise_on_error(lib, err, "flash attention backward")
     fa._count("backward_launches" if dropout is None
               else "backward_drop_launches")
@@ -200,7 +208,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 @flash_attention_bwd.register_fake
-def _(q, k, v, g, lse, delta, layout, dropout_seed, dropout_rate, request=0):
+def _(q, k, v, g, lse, delta, layout, dropout_seed, dropout_rate, request=0,
+      bh_base=0, q_base=0, k_base=0):
     return (q.new_empty(q.shape, dtype=torch.float32), torch.empty_like(k),
             torch.empty_like(v))
 
@@ -353,10 +362,10 @@ def _(x2, kernel_q, transposed, scale, bias, apply_mish, request):
 
 @_define("dropout")
 def dropout_apply(x2: torch.Tensor, seed: torch.Tensor,
-                  rate: float) -> torch.Tensor:
+                  rate: float, row_base: int = 0) -> torch.Tensor:
     """keras Dropout of the rows of 2-D ``x2`` with the counter-hash mask
-    of the uint32 seed in ``seed``'s device memory (csrc/dropout.cu),
-    output in x2's dtype."""
+    of the uint32 seed in ``seed``'s device memory (csrc/dropout.cu), rows
+    counted from ``row_base``, output in x2's dtype."""
     _dropout(seed, rate, x2.device)
     x2 = x2.contiguous()
     out = torch.empty_like(x2)
@@ -366,7 +375,7 @@ def dropout_apply(x2: torch.Tensor, seed: torch.Tensor,
             x2.data_ptr(), out.data_ptr(), x2.shape[0], x2.shape[1],
             _DTYPE_CODES[x2.dtype], seed.data_ptr(),
             flash_attention._keep_threshold(rate), dropout.inv_keep(rate),
-            _stream(x2.device))
+            int(row_base) & flash_attention._M32, _stream(x2.device))
     _build.raise_on_error(lib, err, "dropout")
     with dropout._count_lock:
         dropout.dropout.launches += 1
@@ -374,5 +383,5 @@ def dropout_apply(x2: torch.Tensor, seed: torch.Tensor,
 
 
 @dropout_apply.register_fake
-def _(x2, seed, rate):
+def _(x2, seed, rate, row_base=0):
     return x2.new_empty(x2.shape)

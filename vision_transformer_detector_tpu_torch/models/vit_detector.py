@@ -61,8 +61,21 @@ Bernoulli(1 - rate).
 as the JAX package's does; ``forward`` reads the physical head dim from
 the weights and keeps ``config.key_dim`` for the softmax scale.
 
+Under a mesh (``forward(..., mesh=...)``, parallel/mesh.py) this process
+runs its shard of the global batch: the shards are the global batch's
+rows in 'data' rank order, so every dropout mask (attention, MLP, head)
+is keyed on the rows' GLOBAL batch coordinates and a data-parallel run
+draws the masks one process draws over the whole batch. With
+``ring_attention`` the attention of each block runs as ring attention
+over the mesh's 'model' axis (kernels/ring_attention.py): the block's
+input is sliced to this rank's tokens, projected, attended around the
+ring, projected out and gathered back; everything outside attention is
+replicated over 'model'. Without a mesh a ring config runs plain global
+attention, as the JAX forward does.
+
 Not ported, and rejected with NotImplementedError rather than run
-differently: ring attention and sequence sharding (both need a mesh).
+differently: sequence sharding, and a model axis above 1 without
+ring_attention (tensor parallelism; parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -85,6 +98,9 @@ from ..kernels.flash_attention import flash_attention
 from ..kernels.fused_ffn import fused_dense_mish
 from ..kernels.fused_ln import fused_layer_norm, layer_norm_reference
 from ..kernels.quantization import fused_int8_dense, int8_dense, is_quantized
+from ..kernels.ring_attention import (
+    gather_tokens, ring_attention, shard_tokens, sum_grads_over)
+from ..parallel.mesh import DATA_AXIS, axis_index, check_mesh_config
 from ..utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -101,7 +117,6 @@ def _dtype(name: str) -> torch.dtype:
 def check_supported(config: DetectorConfig) -> None:
     """Raise NotImplementedError for config features this port lacks."""
     unported = {
-        "ring_attention": config.ring_attention,
         "sequence_sharding": config.sequence_sharding,
     }
     missing = [name for name, used in unported.items() if used]
@@ -370,14 +385,24 @@ def _layer_norm(x, layer: LayerNorm, eps: float = 1e-3,
     return layer_norm_reference(x, layer.gamma, layer.beta, eps)
 
 
-def _dropout(x, rate, seed, train: bool) -> torch.Tensor:
+def _dropout(x, rate, seed, train: bool, batch_base: int = 0,
+             batch: int = 1) -> torch.Tensor:
     """keras Dropout (the JAX package's ``_dropout``): x / keep where a
     Bernoulli(keep) mask is set, else 0, in x's dtype, through
     kernels/dropout.py. The mask is ``dropout_mask`` of ``seed``, so a
-    block recomputed under remat draws the same mask."""
+    block recomputed under remat draws the same mask. ``x`` holds
+    ``batch`` images starting at global image ``batch_base``: its rows
+    are numbered from that image's first row."""
     if not train or rate is None or rate == 0.0 or seed is None:
         return x
-    return dropout(x, seed, rate)
+    return dropout(x, seed, rate,
+                   batch_base * _rows_per_image(x.shape[:-1], batch))
+
+
+def _rows_per_image(leading, batch: int) -> int:
+    """Rows (or batch*head rows) of one image in an array whose leading
+    axes ``leading`` hold ``batch`` images."""
+    return math.prod(leading) // batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -458,7 +483,8 @@ def _seed_views(table: torch.Tensor, config: DetectorConfig):
 
 def _dense_activation(x, layer: Dense, config: DetectorConfig,
                       compute_dtype, train: bool = False,
-                      seed: Optional[int] = None) -> torch.Tensor:
+                      seed: Optional[int] = None,
+                      batch_base: int = 0) -> torch.Tensor:
     """Dense + activation (+ dropout) of the pyramid layers: the fused
     dense+mish kernel first (not under training dropout), then the int8
     kernel with mish at inference, then the plain route with dropout (the
@@ -476,30 +502,35 @@ def _dense_activation(x, layer: Dense, config: DetectorConfig,
                                 apply_mish=True).to(compute_dtype)
     x = _dense(x, layer, compute_dtype)
     x = mish(x) if config.use_mish else F.gelu(x)
-    return _dropout(x, config.dropout, seed, train)
+    return _dropout(x, config.dropout, seed, train, batch_base, x.shape[0])
 
 
 def _attend(q, k, v, config: DetectorConfig, compute_dtype, rate, seed,
-            train: bool) -> torch.Tensor:
-    """Attention over heads-major ``(B', G, T, K)`` views: the flash
-    wrapper (dropout in the kernel; its batch*head index is b' * G + g),
-    or the einsum route with dropout on the probabilities (JAX's einsum
-    routes' order: scores of shape (B', G, T, T)). The flash route returns
-    the compute dtype, the einsum route fp32."""
+            train: bool, batch_base: int = 0, batch: int = 1) -> torch.Tensor:
+    """Attention over heads-major ``(B', G, T, K)`` views of ``batch``
+    images from global image ``batch_base`` on: the flash wrapper
+    (dropout in the kernel; its batch*head index is b' * G + g, counted
+    from the first image's global row), or the einsum route with dropout
+    on the probabilities (JAX's einsum routes' order: scores of shape
+    (B', G, T, T)). The flash route returns the compute dtype, the einsum
+    route fp32."""
     if config.use_flash_attention:
+        bh_base = batch_base * _rows_per_image(q.shape[:2], batch)
         return flash_attention(q, k, v, layout="bhnk", dropout_rate=rate,
-                               dropout_seed=seed)
+                               dropout_seed=seed, offsets=(bh_base, 0, 0))
     # Compute-dtype values, fp32 products and sums (exact upcast, as
     # preferred_element_type=float32 in the JAX einsums).
     scores = torch.einsum("bgnk,bgmk->bgnm", q.float(), k.float())
-    probs = _dropout(torch.softmax(scores, dim=-1), rate, seed, train)
+    probs = _dropout(torch.softmax(scores, dim=-1), rate, seed, train,
+                     batch_base, batch)
     return torch.einsum("bgnm,bgmk->bgnk", probs.to(compute_dtype).float(),
                         v.float())
 
 
 def _attention(x, mha: MultiHeadAttention, config: DetectorConfig,
                compute_dtype, train: bool = False,
-               seed: Optional[int] = None) -> torch.Tensor:
+               seed: Optional[int] = None, mesh=None,
+               batch_base: int = 0) -> torch.Tensor:
     """keras MHA semantics, with windows when ``config.attention_window``
     is set (the tokens arrive window-major). Projections come out
     tokens-major ``(B, N, H, K)``. Head dims that are multiples of 64 take
@@ -507,7 +538,11 @@ def _attention(x, mha: MultiHeadAttention, config: DetectorConfig,
     the JAX forward routes them: windows fold into the head axis, so the
     dropout mask's batch*head index is b * (H * W) + h * W + w. The others,
     and the int8 serving layers, take the tokens-major route: windows fold
-    into the batch axis, index (b * W + w) * H + h."""
+    into the batch axis, index (b * W + w) * H + h. With ``ring_attention``
+    and a mesh, ``_ring_attention`` instead."""
+    if config.ring_attention and mesh is not None:
+        return _ring_attention(x, mha, config, compute_dtype, train, seed,
+                               mesh)
     b, n, d = x.shape
     xc = x.to(compute_dtype)
     quantized = is_quantized(mha.query)
@@ -539,13 +574,15 @@ def _attention(x, mha: MultiHeadAttention, config: DetectorConfig,
         qh, kh, vh = (t.transpose(1, 2).reshape(b, h * (n // tokens),
                                                 tokens, k)
                       for t in (q, key, v))
-        attn = _attend(qh, kh, vh, config, compute_dtype, rate, seed, train)
+        attn = _attend(qh, kh, vh, config, compute_dtype, rate, seed, train,
+                       batch_base, b)
         attn = attn.reshape(b, h, n, k).transpose(1, 2)
     else:
         # Windows fold into the batch axis: (B * W, T, H, K), free.
         qt, kt, vt = (t.reshape(b * (n // tokens), tokens, h, k)
                       .transpose(1, 2) for t in (q, key, v))
-        attn = _attend(qt, kt, vt, config, compute_dtype, rate, seed, train)
+        attn = _attend(qt, kt, vt, config, compute_dtype, rate, seed, train,
+                       batch_base, b)
         attn = attn.transpose(1, 2).reshape(b, n, h, k)
     if quantized:
         # The out projection quantizes the attention output as it comes:
@@ -558,22 +595,60 @@ def _attention(x, mha: MultiHeadAttention, config: DetectorConfig,
     return out.to(compute_dtype)
 
 
+def _ring_attention(x, mha: MultiHeadAttention, config: DetectorConfig,
+                    compute_dtype, train: bool, seed, mesh) -> torch.Tensor:
+    """keras MHA as ring attention over the mesh's 'model' axis (the JAX
+    forward's ring route, tokens-major): this rank's slice of the tokens
+    is projected, attended around the ring (global coordinates key the
+    dropout mask), projected out, and the slices are gathered back. The
+    projections' parameters see only this rank's tokens, so their
+    gradients are summed over the ring."""
+    b, n, d = x.shape
+    h, k = mha.query.kernel.shape[1:]
+    (qw, qb, kw, kb, vw, vb, ow, ob) = sum_grads_over(mesh, (
+        mha.query.kernel, mha.query.bias, mha.key.kernel, mha.key.bias,
+        mha.value.kernel, mha.value.bias, mha.out.kernel, mha.out.bias))
+    xs = shard_tokens(x.to(compute_dtype), mesh)
+    n_local = xs.shape[1]
+
+    def proj(kernel, bias):
+        y = _linear(xs, kernel.reshape(d, h * k), bias.reshape(h * k),
+                    compute_dtype)
+        return y.reshape(b, n_local, h, k)      # fp32
+
+    q = (proj(qw, qb) / math.sqrt(config.key_dim)).to(compute_dtype)
+    key = proj(kw, kb).to(compute_dtype)
+    v = proj(vw, vb).to(compute_dtype)
+    dropping = (train and config.dropout not in (None, 0.0)
+                and seed is not None)
+    attn = ring_attention(q, key, v, mesh,
+                          dropout_rate=config.dropout if dropping else None,
+                          dropout_seed=seed if dropping else None)
+    out = _linear(attn.reshape(b, n_local, h * k), ow.reshape(h * k, d), ob,
+                  compute_dtype)
+    return gather_tokens(out.to(compute_dtype), mesh)
+
+
 def _encoder_block(x, block: EncoderBlock, config: DetectorConfig,
-                   compute_dtype, train: bool, seeds=None) -> torch.Tensor:
+                   compute_dtype, train: bool, seeds=None, mesh=None,
+                   batch_base: int = 0) -> torch.Tensor:
     """Pre-LN MHA + descending mish pyramid, both residual. ``seeds`` is
-    ``(attention seed, per-layer MLP seeds)`` under training dropout."""
+    ``(attention seed, per-layer MLP seeds)`` under training dropout;
+    ``mesh`` and ``batch_base`` (the first image's global index) as in
+    ``forward``."""
     attention_seed, mlp_seeds = (
         seeds if seeds is not None else (None, (None,) * len(block.mlp)))
     side = x
     x = _layer_norm(x, block.ln1, config=config, train=train)
     x = _attention(x, block.mha, config, compute_dtype, train,
-                   attention_seed)
+                   attention_seed, mesh, batch_base)
     x = x + side
 
     side = x
     x = _layer_norm(x, block.ln2, config=config, train=train)
     for layer, seed in zip(block.mlp, mlp_seeds):
-        x = _dense_activation(x, layer, config, compute_dtype, train, seed)
+        x = _dense_activation(x, layer, config, compute_dtype, train, seed,
+                              batch_base)
     return x + side
 
 
@@ -587,7 +662,8 @@ def _dots_saveable(ctx, op, *args, **kwargs):
 
 
 def _run_encoder(x, params, config: DetectorConfig, compute_dtype,
-                 train: bool, seeds) -> torch.Tensor:
+                 train: bool, seeds, mesh=None,
+                 batch_base: int = 0) -> torch.Tensor:
     """The encoder blocks, checkpointed as ``config.remat_encoder`` and
     ``remat_policy`` say: None recomputes every block in the backward,
     "dots" saves the 2-D matrix products' outputs and recomputes the rest,
@@ -608,7 +684,8 @@ def _run_encoder(x, params, config: DetectorConfig, compute_dtype,
             create_selective_checkpoint_contexts, _dots_saveable)
     for i, block in enumerate(params.encoder):
         block_seeds = None if seeds is None else seeds[i]
-        args = (x, block, config, compute_dtype, train, block_seeds)
+        args = (x, block, config, compute_dtype, train, block_seeds, mesh,
+                batch_base)
         if remat and not (config.remat_policy == "alternate" and i % 2):
             x = checkpoint(_encoder_block, *args, use_reentrant=False,
                            preserve_rng_state=False, **extra)
@@ -657,15 +734,18 @@ def _multi_scale_head_tokens(x, layers, config: DetectorConfig,
 
 def forward(params: ViTDetector, images: torch.Tensor,
             config: DetectorConfig, train: bool = False,
-            dropout_seed=None) -> torch.Tensor:
+            dropout_seed=None, mesh=None) -> torch.Tensor:
     """``(B, H, W, 3) -> (B, max_objects, 6)`` raw fp32 logits (the sigmoid
     stays outside, in ops/decode.py). ``dropout_seed`` (an integer, a
     ``DropoutSeeds`` table, or that table as a uint32 tensor, see
     ``seed_table``) turns on training dropout when ``train`` and
     ``config.dropout`` are set; without it nothing is dropped, as the JAX
-    forward without a dropout rng."""
+    forward without a dropout rng. Under ``mesh`` the images are this
+    rank's shard of the global batch (module docstring)."""
     check_supported(config)
     _validate_grid_config(config)
+    check_mesh_config(mesh, config)
+    batch_base = axis_index(mesh, DATA_AXIS) * images.shape[0]
     if train and is_quantized(params.linear_projection):
         raise NotImplementedError(
             "an int8-quantized model is for serving only; train the float "
@@ -687,7 +767,8 @@ def forward(params: ViTDetector, images: torch.Tensor,
     windowed = config.attention_window is not None
     if windowed:
         x = _window_major(x, config)
-    x = _run_encoder(x, params, config, compute_dtype, train, block_seeds)
+    x = _run_encoder(x, params, config, compute_dtype, train, block_seeds,
+                     mesh, batch_base)
     if windowed:
         x = _window_major(x, config, inverse=True)
 
@@ -703,5 +784,6 @@ def forward(params: ViTDetector, images: torch.Tensor,
     if head_seeds is None:
         head_seeds = (None,) * len(params.head_mlp)
     for layer, seed in zip(params.head_mlp, head_seeds):
-        x = _dense_activation(x, layer, config, compute_dtype, train, seed)
+        x = _dense_activation(x, layer, config, compute_dtype, train, seed,
+                              batch_base)
     return _dense(x, params.head_output, compute_dtype).float()

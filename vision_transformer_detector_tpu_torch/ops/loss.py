@@ -8,6 +8,17 @@ package once had, and are kept exactly:
   * the classification power takes a safe base (1.0) on masked lanes;
   * masked CIoU lanes get a fixed dummy box before the CIoU;
   * with zero positives the class and CIoU terms are exactly 0.
+
+Under data parallelism (``group``) each process holds a shard of the
+global batch, and the loss is the GLOBAL batch's, as the JAX package's
+GSPMD step computes it: the objectness mean divides by the global slot
+count, the class and CIoU sums by the global positive count, and the
+zero-positives test is global. The counts are summed over the group (one
+all-reduce of two numbers, which carry no gradient), and each process
+returns its share of the global loss: the shares sum to it, so summing
+the shares' gradients over the group gives the global loss's gradient.
+Averaging per-process losses would weight each shard by its own positive
+count instead.
 """
 
 from __future__ import annotations
@@ -16,6 +27,7 @@ import torch
 
 from ..config import DetectorConfig, LossConfig
 
+from ..parallel import collectives
 from .decode import transform_predictions
 from .geometry import ciou
 
@@ -46,12 +58,15 @@ def binary_focal_crossentropy(y_true: torch.Tensor, y_pred: torch.Tensor,
 def detection_loss(y_true: torch.Tensor, y_pred: torch.Tensor,
                    config: DetectorConfig,
                    loss_config: LossConfig = LossConfig(),
-                   use_transform_predictions: bool = True) -> torch.Tensor:
+                   use_transform_predictions: bool = True,
+                   group=None) -> torch.Tensor:
     """Scalar loss of a batch.
 
     ``y_true`` is ``(B, max_objects, 6)`` labels (objectness, class id or
     -8, cx, cy, h, w or -8); ``y_pred`` the raw logits, or decoded
-    predictions with ``use_transform_predictions=False``.
+    predictions with ``use_transform_predictions=False``. With ``group``
+    (a data-parallel process group) the batch is this process's shard and
+    the result its share of the global batch's loss (module docstring).
     """
     y_true = y_true.float()
     if use_transform_predictions:
@@ -65,7 +80,6 @@ def detection_loss(y_true: torch.Tensor, y_pred: torch.Tensor,
             y_true[..., 0], y_pred[..., 0], gamma=loss_config.focal_gamma)
     else:
         loss_objectness = binary_crossentropy(y_true[..., 0], y_pred[..., 0])
-    loss_objectness_mean = loss_objectness.mean()
 
     # Positive slots: isclose(y_true[..., 0], 1.0) with numpy's default
     # tolerances, as jnp.isclose.
@@ -73,6 +87,19 @@ def detection_loss(y_true: torch.Tensor, y_pred: torch.Tensor,
         y_true[..., 0], torch.ones((), device=y_true.device),
         rtol=1e-5, atol=1e-8).float()
     positives = object_mask.sum()
+    if group is None:
+        loss_objectness_mean = loss_objectness.mean()
+    else:
+        # (positives, slots) of the global batch.
+        counts = collectives.all_reduce_(torch.stack([
+            positives, torch.full_like(positives, loss_objectness.numel())]),
+            group)
+        positives = counts[0]
+        # This shard's mean weighted by its share of the global slots: the
+        # shares sum to the global mean, and on a group of one the weight
+        # is exactly 1.
+        loss_objectness_mean = loss_objectness.mean() * (
+            loss_objectness.numel() / counts[1])
     safe_count = positives.clamp(min=1.0)
 
     # Classification over positives: masked lanes take the safe base 1.0

@@ -2,8 +2,8 @@
 
 Counterpart of vision_transformer_detector_tpu/train/sweep.py, copied as
 it is (tests/test_torch_self_contained.py holds the copy equal) except
-where it builds the port's ``Trainer``: no ``mesh`` (the port trains on
-one device), a ``device`` instead. A config grid is expanded to its
+where it builds the port's ``Trainer``, which also takes the ``device``
+(under a ``mesh``, each process runs the sweep on its own shard). A config grid is expanded to its
 cartesian product, each point trains through ``train.trainer.Trainer``,
 and the results stream to ``records.jsonl`` plus per-run metrics files
 the plotting tool understands. Override keys are routed by name to
@@ -70,6 +70,7 @@ def run_sweep(
         base_loss_config: LossConfig = LossConfig(),
         epochs: Optional[int] = None,
         out_dir: str = "sweep",
+        mesh=None,
         device="cuda",
         plot: bool = True) -> List[Dict[str, Any]]:
     """Train every grid point; return (and persist) the records table.
@@ -114,7 +115,8 @@ def run_sweep(
                 "known-length dataset.")
         trainer = Trainer(config, loss_config, train_config,
                           steps_per_epoch=max(1, len(train_data)),
-                          metrics_path=metrics_path, device=device)
+                          mesh=mesh, metrics_path=metrics_path,
+                          device=device)
         state = trainer.init_state()
         tic = time.time()
         trainer.fit(state, train_data, epochs=run_epochs,

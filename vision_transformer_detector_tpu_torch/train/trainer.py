@@ -3,7 +3,8 @@ reference's eval cadence, best-AP checkpoints and jsonl metrics, and the
 windowed loop that runs several epochs per call as a CUDA graph.
 
 Counterpart of vision_transformer_detector_tpu/train/trainer.py, on one
-device (``device``, explicit). PyTorch runs eagerly, so the steps are
+device per process (``device``, explicit; under a mesh ``"cuda"`` is the
+card of the process's ``LOCAL_RANK``). PyTorch runs eagerly, so the steps are
 plain functions, and the train step updates the parameters and the
 optimizer state in place (the JAX step returns new ones). The train state
 is ``{"params": ViTDetector, "opt_state": dict, "step": int}``, and
@@ -26,8 +27,23 @@ buffers; on the CPU it runs the same step eagerly. ``fit(epochs_per_call
 device one batch ahead, with its resume position saved beside every
 checkpoint.
 
-Not ported, and refused with NotImplementedError: meshes and
-multi-process runs (``mesh``).
+Data parallelism and ring attention (``mesh``, parallel/mesh.py): one
+process per mesh position, each with the same parameters (every rank
+initialises from the seed, rank 0 broadcasts them, fresh or restored, and
+a checksum compares them), training on its shard of the global batch.
+The loss is the global batch's (ops/loss.py sums its counts over the
+'data' group), the dropout masks are keyed on global coordinates, and the
+gradients are summed over 'data' as one flat all-reduce (the step's loss
+share rides in the same bucket) after the backward and before the clip
+and Adam: the clip is elementwise, so clipping local gradients would be
+another function. Under NCCL the windowed loop captures the step with its
+collectives as the CUDA graph; gloo's collectives cannot be captured, so
+under gloo the same body runs eagerly. ``evaluate_map`` gathers each
+round's decoded predictions, labels and valid mask over 'data' in global
+row order and every rank updates the metric alike. Rank 0 writes the
+checkpoints (and metrics), the others wait for it; every rank restores.
+A model axis above 1 is the ring of ``ring_attention`` only (tensor
+parallelism is not ported).
 """
 
 from __future__ import annotations
@@ -52,6 +68,9 @@ from ..models.vit_detector import (
     dropout_seeds, forward, init_params, seed_table, seed_table_size)
 from ..ops.decode import transform_predictions
 from ..ops.loss import detection_loss
+from ..parallel import collectives
+from ..parallel.data import rank_device, synced_global_eval_batches
+from ..parallel.mesh import DATA_AXIS, axis_group, check_mesh_config
 from ..utils import checkpoint as ckpt_lib
 from ..utils.device import resolve_device
 from .optimizer import Adam, clip_weights
@@ -110,15 +129,30 @@ def _to_device_async(array: np.ndarray, device) -> torch.Tensor:
     return tensor.to(device)
 
 
+def _sum_over_data(loss, grads, group):
+    """The step's loss share and gradients summed over the 'data' group as
+    one flat bucket (one all-reduce): the global batch's loss and its
+    gradient."""
+    flat = collectives.all_reduce_(
+        torch.cat([loss.detach().reshape(1)]
+                  + [g.reshape(-1) for g in grads]), group)
+    parts = flat[1:].split([g.numel() for g in grads])
+    return flat[0], [p.view_as(g) for p, g in zip(parts, grads)]
+
+
 def make_step_body(config: DetectorConfig, loss_config: LossConfig,
-                   optimizer: Adam) -> Callable:
+                   optimizer: Adam, mesh=None) -> Callable:
     """``body(state, images, labels, seeds, update) -> loss``: forward,
     loss, grads, the optimizer's (micro) step and ClipWeight on device
     tensors, with no host read, so a CUDA graph can capture it. ``seeds``
     is the step's seed table on the device (None: no dropout); ``update``
-    says whether an accumulating optimizer applies its update. Shared by
-    the eager step and ``make_multi_step``."""
+    says whether an accumulating optimizer applies its update. Under
+    ``mesh`` the images and labels are this rank's shard, and the loss and
+    gradients are summed over 'data' before the update (module
+    docstring); the returned loss is the global batch's. Shared by the
+    eager step and ``make_multi_step``."""
     config = train_config_view(config)
+    group = axis_group(mesh, DATA_AXIS)
 
     def body(state: TrainState, images, labels, seeds,
              update: bool = True) -> torch.Tensor:
@@ -127,9 +161,12 @@ def make_step_body(config: DetectorConfig, loss_config: LossConfig,
         with torch.enable_grad():
             logits = forward(model, _maybe_normalize(images), config,
                              train=config.dropout is not None,
-                             dropout_seed=seeds)
-            loss = detection_loss(labels, logits, config, loss_config)
+                             dropout_seed=seeds, mesh=mesh)
+            loss = detection_loss(labels, logits, config, loss_config,
+                                  group=group)
             grads = torch.autograd.grad(loss, list(params.values()))
+        if mesh is not None:
+            loss, grads = _sum_over_data(loss, grads, group)
         optimizer.step(params, dict(zip(params, grads)), state["opt_state"],
                        update=update if optimizer.every_k > 1 else None)
         if config.clip_weight:
@@ -140,13 +177,14 @@ def make_step_body(config: DetectorConfig, loss_config: LossConfig,
 
 
 def make_train_step(config: DetectorConfig, loss_config: LossConfig,
-                    optimizer: Adam):
+                    optimizer: Adam, mesh=None):
     """``train_step(state, images, labels) -> (state, loss)``: forward,
     loss, grads, clip + Adam (or one micro step of the accumulation),
     ClipWeight. Updates ``state`` in place. With ``config.dropout``, the
     masks' seed table comes from the next draw of
-    ``state["dropout_rng"]``, copied to the device once."""
-    body = make_step_body(config, loss_config, optimizer)
+    ``state["dropout_rng"]``, copied to the device once. ``mesh`` as in
+    ``make_step_body``."""
+    body = make_step_body(config, loss_config, optimizer, mesh)
 
     def train_step(state: TrainState, images, labels):
         seeds = None
@@ -235,7 +273,7 @@ class _StepGraph:
 
 
 def make_multi_step(config: DetectorConfig, loss_config: LossConfig,
-                    optimizer: Adam, debug_graphs: bool = False):
+                    optimizer: Adam, debug_graphs: bool = False, mesh=None):
     """``multi_step(state, images_stack, labels_stack, n_epochs) -> (state,
     epoch_losses)``: ``n_epochs * batches`` train steps over the stacked
     batches (step i takes batch ``i % batches``), the counterpart of the
@@ -258,8 +296,16 @@ def make_multi_step(config: DetectorConfig, loss_config: LossConfig,
     ``multi_step.graphs`` holds the live ones (``_StepGraph``, by key);
     ``debug_graphs`` captures them in debug mode, so that
     ``graph.debug_dump(path)`` can list their kernel nodes. On the CPU the
-    same step body runs eagerly."""
-    body = make_step_body(config, loss_config, optimizer)
+    same step body runs eagerly.
+
+    Under ``mesh`` the body's collectives (the loss's counts, the flat
+    gradient all-reduce, the ring's exchanges) are captured with it when
+    the mesh's groups run on NCCL, on the capture stream; gloo's
+    collectives cannot be captured, so under gloo the body runs eagerly
+    on CUDA too."""
+    body = make_step_body(config, loss_config, optimizer, mesh)
+    capture = mesh is None or collectives.uses_nccl(
+        axis_group(mesh, DATA_AXIS))
     seed_len = seed_table_size(config) if config.dropout else 0
     graphs: Dict[Any, _StepGraph] = {}
     pool = []   # one memory pool for all of them, made at first capture
@@ -274,7 +320,8 @@ def make_multi_step(config: DetectorConfig, loss_config: LossConfig,
         multi_step.seed_rows = rows
         seeds = None if rows is None else _to_device_async(rows, device)
         losses = torch.empty(steps, dtype=torch.float32, device=device)
-        if device.type == "cuda":
+        graphed = device.type == "cuda" and capture
+        if graphed:
             fingerprint = tuple(t.data_ptr() for t in _state_tensors(state))
             for key in [k for k in graphs if k[0] != fingerprint]:
                 del graphs[key]
@@ -287,7 +334,7 @@ def make_multi_step(config: DetectorConfig, loss_config: LossConfig,
             labels = labels_stack[i % batches]
             row = None if seeds is None else seeds[i]
             update = optimizer.is_update_step(state["step"])
-            if device.type == "cuda":
+            if graphed:
                 key = (fingerprint, shapes, update)
                 if key not in graphs:
                     graphs[key] = _StepGraph(body, state, images, labels,
@@ -304,12 +351,14 @@ def make_multi_step(config: DetectorConfig, loss_config: LossConfig,
     return multi_step
 
 
-def make_eval_step(config: DetectorConfig):
-    """Forward + decode -> ``(B, max_objects, 6)`` decoded predictions."""
+def make_eval_step(config: DetectorConfig, mesh=None):
+    """Forward + decode -> ``(B, max_objects, 6)`` decoded predictions
+    (under ``mesh``, of this rank's shard)."""
 
     @torch.inference_mode()
     def eval_step(params, images):
-        logits = forward(params, _maybe_normalize(images), config)
+        logits = forward(params, _maybe_normalize(images), config,
+                         mesh=mesh)
         return transform_predictions(logits, config)
 
     return eval_step
@@ -339,25 +388,43 @@ def _to_device(array, device) -> torch.Tensor:
 
 
 def evaluate_map(params, dataset: Iterable, config: DetectorConfig,
-                 eval_step=None, metric=None, device=None) -> float:
+                 eval_step=None, metric=None, device=None,
+                 mesh=None) -> float:
     """The streaming mAP over ``dataset``: batches of ``(images, labels)``,
     or ``(images, labels, valid)`` whose rows with ``valid`` False are
-    padding and leave the metric unchanged."""
+    padding and leave the metric unchanged.
+
+    Under ``mesh`` the dataset is this rank's shard: the rounds are kept
+    in lockstep and padded across ranks
+    (parallel/data.py:synced_global_eval_batches), and each round's
+    decoded predictions, labels and valid mask are gathered over 'data'
+    in global row order, so every rank updates the metric with the global
+    batch, alike (the metric's state depends on the order of the
+    images)."""
     device = (next(params.parameters()).device if device is None
               else resolve_device(device))
     if eval_step is None:
-        eval_step = make_eval_step(config)
+        eval_step = make_eval_step(config, mesh)
     if metric is None:
         metric = DeviceMeanAveragePrecision(config, device)
     # The NumPy oracle (Trainer(fast_metric=False)) takes host arrays.
     host_metric = not isinstance(metric, DeviceMeanAveragePrecision)
     metric.reset_state()
+    group = axis_group(mesh, DATA_AXIS)
+    if mesh is not None:
+        dataset = synced_global_eval_batches(mesh, dataset, device)
     for batch in dataset:
         images, labels = batch[0], batch[1]
         decoded = eval_step(params, _to_device(images, device))
         if len(batch) > 2 and batch[2] is not None:
             decoded = zero_padded_rows(
                 decoded, _to_device(batch[2], device).bool())
+        if mesh is not None:
+            decoded = collectives.all_gather_cat(decoded, 0, group)
+            labels = collectives.all_gather_cat(
+                _to_device(labels, device).float(), 0, group)
+            if host_metric:
+                labels = labels.cpu().numpy()
         metric.update_state(labels,
                             decoded.cpu().numpy() if host_metric else decoded,
                             use_transform_predictions=False)
@@ -404,23 +471,27 @@ class Trainer:
                  check_weights_start: int = 0,
                  weight_threshold: float = 1.0,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...) is not ported to PyTorch yet")
+        check_mesh_config(mesh, config)
         self.config = config
         self.loss_config = loss_config
         self.train_config = train_config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # One card per process under a mesh: "cuda" is LOCAL_RANK's.
+        self.device = (resolve_device(device) if mesh is None
+                       else resolve_device(rank_device(device)))
+        # Rank 0 writes checkpoints and metrics (every rank computes the
+        # same replicated values).
+        self.primary = mesh is None or torch.distributed.get_rank() == 0
         self.checkpoint_dir = checkpoint_dir
         self.optimizer = Adam(train_config, steps_per_epoch)
         self.train_step = make_train_step(config, loss_config,
-                                          self.optimizer)
-        self.eval_step = make_eval_step(config)
+                                          self.optimizer, mesh)
+        self.eval_step = make_eval_step(config, mesh)
         if fast_metric:
             self.metric = DeviceMeanAveragePrecision(config, self.device)
         else:
             self.metric = MeanAveragePrecision(config)
-        self.metrics = MetricsWriter(metrics_path)
+        self.metrics = MetricsWriter(metrics_path if self.primary else None)
         # Async checkpointing: saves overlap training (the loop pays only
         # the device->host snapshot); fit() joins pending writes on exit.
         self._async_ckpt = (ckpt_lib.AsyncCheckpointManager()
@@ -458,7 +529,31 @@ class Trainer:
                                    self.device)
         state["dropout_rng"] = torch.Generator().manual_seed(
             self.train_config.seed + 1)
+        self._sync_params(state)
         return state
+
+    @torch.no_grad()
+    def _sync_params(self, state: TrainState) -> None:
+        """Under a mesh: rank 0's parameters to every rank (one flat
+        broadcast), then a checksum of them compared across the ranks,
+        which raises if any rank holds others."""
+        if self.mesh is None:
+            return
+        tensors = list(state["params"].parameters())
+        flat = collectives.broadcast_(
+            torch.cat([t.reshape(-1) for t in tensors]), src=0)
+        for tensor, part in zip(tensors, flat.split(
+                [t.numel() for t in tensors])):
+            tensor.copy_(part.view_as(tensor))
+        positions = torch.arange(1, flat.numel() + 1, device=flat.device,
+                                 dtype=torch.float64)
+        checksum = torch.stack([flat.double().sum(),
+                                (flat.double() * positions).sum()])
+        sums = torch.stack(collectives.all_gather(checksum))
+        if not bool((sums == sums[0]).all()):
+            raise RuntimeError(
+                "the ranks hold different parameters after the broadcast "
+                f"from rank 0 (checksums {sums.tolist()})")
 
     def _put_batch(self, images, labels):
         return (_to_device(images, self.device),
@@ -598,7 +693,7 @@ class Trainer:
         images_stack, labels_stack = stack(0), stack(1)
         if self.multi_step is None:
             self.multi_step = make_multi_step(self.config, self.loss_config,
-                                              self.optimizer)
+                                              self.optimizer, mesh=self.mesh)
         has_eval = eval_data is not None
         epoch = 0
         while epoch < epochs:
@@ -660,7 +755,8 @@ class Trainer:
             record.update(self._check_weights(state["params"], epoch))
         if eval_data is not None and self._eval_due(epoch):
             ap = evaluate_map(state["params"], eval_data, self.config,
-                              self.eval_step, self.metric, self.device)
+                              self.eval_step, self.metric, self.device,
+                              self.mesh)
             self.ap_record.append(ap)
             record["ap"] = ap
             if ap > self.best_ap:
@@ -677,6 +773,14 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def save(self, state: TrainState, name: str = "ongoing") -> None:
+        """Checkpoint ``name`` (with config.json and the dataset sidecar).
+        Under a mesh rank 0 writes and the other ranks wait for a
+        synchronous write here, for an asynchronous one in
+        ``wait_for_checkpoints``."""
+        if not self.primary:
+            if self._async_ckpt is None:
+                collectives.barrier()
+            return
         os.makedirs(self.checkpoint_dir, exist_ok=True)
         config_path = os.path.join(self.checkpoint_dir, "config.json")
         if not os.path.exists(config_path):
@@ -692,6 +796,8 @@ class Trainer:
         else:
             ckpt_lib.write_payload(path, payload)
         self._save_dataset_state(name)
+        if self.mesh is not None and self._async_ckpt is None:
+            collectives.barrier()
 
     def _save_dataset_state(self, name: str) -> None:
         """The input-stream position beside checkpoint ``name``
@@ -715,7 +821,7 @@ class Trainer:
         step = int(state["step"])
         name = ckpt_lib.step_checkpoint_name(step)
         self.save(state, name=name)
-        if self.keep_checkpoints:
+        if self.keep_checkpoints and self.primary:
             ckpt_lib.prune_checkpoints(
                 self.checkpoint_dir, self.keep_checkpoints,
                 pending_step=step if self._async_ckpt is not None else None)
@@ -726,6 +832,8 @@ class Trainer:
         call it after explicit save() calls before reading the files)."""
         if self._async_ckpt is not None:
             self._async_ckpt.wait()
+            if self.mesh is not None:
+                collectives.barrier()
 
     def _config_mismatch_hint(self) -> Optional[str]:
         """Why a restore failed, when the checkpoint directory's own
@@ -788,6 +896,7 @@ class Trainer:
             state["dropout_rng"] = torch.Generator()
             state["dropout_rng"].set_state(payload["dropout_rng"].cpu())
         self.best_ap = float(payload["best_ap"])
+        self._sync_params(state)
         # Read only once the state restore succeeded: restore_latest probes
         # torn checkpoints, whose sidecar must not leak in.
         sidecar = ckpt_lib.dataset_sidecar_path(self.checkpoint_dir, name)
