@@ -173,13 +173,22 @@ PyTorch version. Phases, one output line each:
                     (bit-equal reported); (f) device-path medians of the
                     artifact and the live service at batch 1 and 8.
 
- 16. parallel     — data parallelism and ring attention on the one card:
+ 16. parallel     — data, tensor and sequence parallelism and ring
+                    attention on the one card:
                     (a) B1-drop (with lse) and B2-replay at (2048, 256,
                     64) bf16 over the whole batch against two half
                     batches launched with their batch*head offset, and
                     the MLP dropout kernel at (8, 4096, 2048) against two
                     halves with their row offset, bit for bit; a half
                     launched with offset 0 (a planted fault) must differ;
+                    (f) the sharded coordinate maps: B1-drop and
+                    B2-replay at highres_1024's (2, 16 x 16 windows, 256,
+                    64) bf16 over all heads and windows against two head
+                    halves and two window halves with their batch*head
+                    maps, and the MLP dropout kernel at (2, 4096, 2048)
+                    against two token halves (row map) and two column
+                    halves (column base), bit for bit, each with a
+                    planted wrong base that must differ;
                     the ring's R = 2 block launches timed against their
                     plain versions and SDPA; then two worker processes
                     (this script with --parallel-worker) in a gloo group
@@ -196,8 +205,23 @@ PyTorch version. Phases, one output line each:
                     depth, R = 2, batch 2, 3 steps at lr 1e-5 against one
                     process with global flash attention, within
                     HIGHRES_RING_LOSS_LIMITS, the ring's launches per step
-                    and each process's peak memory; then (b) again at
-                    R = 4 in four worker processes; (e) an NCCL group of
+                    and each process's peak memory, and the same three
+                    steps in fp32 against one process (reported); (g)
+                    tensor parallelism and (h) sequence sharding of
+                    highres_1024 at full width and depth (bf16, dropout
+                    0.1, full remat), M = 2, batch 2, 3 steps at lr 1e-5
+                    against one process within HIGHRES_RING_LOSS_LIMITS
+                    ((g): the three steps in fp32 within 1e-5, and each
+                    bf16 step no farther from fp32 than one process's
+                    bf16 step plus the limit), one fp32 step with dropout
+                    within 1e-5 (loss) and 1e-4 (gradients),
+                    step time, peak memory and collective bytes a
+                    process; then in four worker processes (b) again at
+                    R = 4 and (i) data x tensor parallelism of
+                    reference_608 fp32 over 2 x 2, batch 4, 3 steps within
+                    1e-5 of one process, parameters within 2 x lr, and
+                    evaluate_map(mesh=...) within 1e-3 of one process's
+                    AP; (e) an NCCL group of
                     one: reference_608's fit(epochs_per_call=4) under
                     create_mesh(1, 1), its step captured as a CUDA graph
                     through the NCCL code path (an all-reduce over one
@@ -211,7 +235,9 @@ version's and, where one PyTorch call computes the same function, that
 call's), its bound with the peak rate it uses and, for the three kernels
 an exported program calls, its launches per exported call, for the four
 flash kernels and the dropout kernel of the train step their launches in
-the CUDA-graph fits (``launches_graph``), and as the last line
+the CUDA-graph fits (``launches_graph``), the ring's blocks (the
+fp32-output instance) and a tensor-parallel rank's mapped flash and
+dropout launches (``*_sharded``), and as the last line
 {"ok": true, "device": {...}}. Any failed check ends the run with a
 non-zero exit and no result line; so does a host without a CUDA device, or
 a directory without the port's sources. A kernel that does not build or launch raises; nothing
@@ -3202,6 +3228,163 @@ def _offsets_at_the_kernel() -> dict:
     return result
 
 
+MAP_SHAPE = (2, 4096, 16, 64)       # highres_1024 at batch 2: (B, N, H, K)
+MAP_WINDOW = 256                    # its windows' tokens
+MAP_MLP = (2, 4096, 2048)           # its first pyramid layer's activation
+
+
+def _maps_at_the_kernel() -> dict:
+    """(f) The sharded coordinate maps at the kernel, highres_1024's
+    heads-major window fold at batch 2 ((2, 16 heads x 16 windows, 256,
+    64) bf16, rate 0.1): B1-drop (out, lse) and B2-replay (dq, dk, dv)
+    over the whole array against the two head halves (map (8 W, 16 W,
+    h0 W)) and the two window halves (map (8, 16, w0)), bit for bit; (D)
+    at (2, 4096, 2048) bf16 against its two token halves (row map (2048,
+    4096, n0)) and two column halves (``col_base``); each with a planted
+    wrong base that must differ; the halves against the plain versions.
+    Returns the results and the kernels line's numbers of the
+    tensor-parallel rank's launches (one head half, one column half)."""
+    import torch
+
+    from vision_transformer_detector_tpu_torch.kernels import (
+        dropout as dk, flash_attention as fa)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 48)
+    b, n, h, k = MAP_SHAPE
+    w = n // MAP_WINDOW
+    fold = (b, h * w, MAP_WINDOW, k)
+    q, kk, v, g = ((torch.randn(fold, device="cuda", generator=gen)
+                    * (0.125 if i == 0 else 1.0)).to(torch.bfloat16)
+                   for i in range(4))
+    drop = (fa.seed_tensor(DROP_SEED, "cuda"), DROP_RATE)
+
+    def run(tensors, offsets):
+        q_, k_, v_, g_ = tensors
+        out, lse = fa._launch_forward(q_, k_, v_, "bhnk", with_lse=True,
+                                      dropout=drop, offsets=offsets)
+        delta = (g_.float() * out.float()).sum(-1).contiguous()
+        return (out, lse) + fa._launch_backward(q_, k_, v_, g_, lse, delta,
+                                                "bhnk", drop,
+                                                offsets=offsets)
+
+    def heads(t, h0, count=h // 2):
+        return t.reshape(b, h, w, MAP_WINDOW, -1)[:, h0:h0 + count].reshape(
+            b, count * w, MAP_WINDOW, -1)
+
+    def windows(t, w0, count=w // 2):
+        return t.reshape(b, h, w, MAP_WINDOW, -1)[:, :, w0:w0 + count] \
+            .reshape(b, h * count, MAP_WINDOW, -1)
+
+    whole = run((q, kk, v, g), (0, 0, 0))
+    result = {"shape": list(fold)}
+    for tag, part, maps in (
+            ("heads", heads, [(0, 0, 0, h // 2 * w, h * w, h0 * w)
+                              for h0 in (0, h // 2)]),
+            ("windows", windows, [(0, 0, 0, w // 2, w, w0)
+                                  for w0 in (0, w // 2)])):
+        starts = (0, h // 2) if tag == "heads" else (0, w // 2)
+        equal = True
+        for start, offsets in zip(starts, maps):
+            got = run([part(t.contiguous(), start) for t in (q, kk, v, g)],
+                      offsets)
+            want = [part(whole[0], start), part(whole[1][..., None],
+                                                start)[..., 0]]
+            want += [part(t, start) for t in whole[2:]]
+            equal = equal and all(_bits_equal(a.contiguous(), c.contiguous())
+                                  for a, c in zip(got, want))
+        planted = run([part(t.contiguous(), starts[1]) for t in
+                       (q, kk, v, g)], (0, 0, 0))[0]
+        result[f"flash_{tag}_bit_equal"] = equal
+        result[f"flash_{tag}_planted_fault_caught"] = not _bits_equal(
+            planted, part(whole[0], starts[1]).contiguous())
+    # One tensor-parallel rank's launch against its plain version.
+    mine = [heads(t.contiguous(), h // 2) for t in (q, kk, v)]
+    rank_offsets = (0, 0, 0, h // 2 * w, h * w, h // 2 * w)
+    plain = fa.reference_attention(*mine, "bhnk", drop, rank_offsets)
+    kernel_out = fa._launch_forward(*mine, "bhnk", dropout=drop,
+                                    offsets=rank_offsets)
+    result["flash_rank_vs_plain_max_abs_err"] = float(
+        (plain.float() - kernel_out.float()).abs().max())
+    torch.cuda.synchronize()
+
+    x = torch.randn(MAP_MLP, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    seed = fa.seed_tensor(DROP_SEED - 2, "cuda")
+    mlp_whole = dk._launch(x, seed, DROP_RATE)
+    rows, cols = MAP_MLP[1] // 2, MAP_MLP[2] // 2
+    token_parts = [dk._launch(x[:, n0:n0 + rows], seed, DROP_RATE, 0, rows,
+                              MAP_MLP[1], n0) for n0 in (0, rows)]
+    col_parts = [dk._launch(x[..., c0:c0 + cols], seed, DROP_RATE,
+                            col_base=c0) for c0 in (0, cols)]
+    result["mlp_tokens_bit_equal"] = _bits_equal(
+        torch.cat(token_parts, 1), mlp_whole)
+    result["mlp_columns_bit_equal"] = _bits_equal(
+        torch.cat(col_parts, 2), mlp_whole)
+    result["mlp_tokens_planted_fault_caught"] = not _bits_equal(
+        dk._launch(x[:, rows:], seed, DROP_RATE), mlp_whole[:, rows:])
+    result["mlp_columns_planted_fault_caught"] = not _bits_equal(
+        dk._launch(x[..., cols:], seed, DROP_RATE), mlp_whole[..., cols:])
+    result["mlp_vs_plain_bit_equal"] = (
+        _bits_equal(dk.dropout_reference(x[:, rows:], seed, DROP_RATE, 0,
+                                         (rows, MAP_MLP[1], rows)),
+                    token_parts[1])
+        and _bits_equal(dk.dropout_reference(x[..., cols:], seed, DROP_RATE,
+                                             col_base=cols), col_parts[1]))
+    _require(all(v for key, v in result.items()
+                 if key.endswith(("bit_equal", "caught"))),
+             f"parallel (f): the coordinate maps {result}")
+    _require(result["flash_rank_vs_plain_max_abs_err"] < 2e-2,
+             f"parallel (f): mapped kernel against plain {result}")
+
+    # The kernels line: one tensor-parallel rank's B1-drop and B2-replay
+    # (8 of 16 heads) and its column half of (D), against their plain
+    # versions and the library call (SDPA with dropout, F.dropout).
+    import torch.nn.functional as F
+
+    g_mine = heads(g.contiguous(), h // 2)
+    out, lse = fa._launch_forward(*mine, "bhnk", with_lse=True,
+                                  dropout=drop, offsets=rank_offsets)
+    delta = (g_mine.float() * out.float()).sum(-1).contiguous()
+    lib = [t.detach().clone().requires_grad_() for t in mine]
+    lib_out = F.scaled_dot_product_attention(*lib, dropout_p=DROP_RATE,
+                                             scale=1.0)
+    times = {
+        "fwd": _in_turns({
+            "kernel_ms": lambda: fa._launch_forward(
+                *mine, "bhnk", with_lse=True, dropout=drop,
+                offsets=rank_offsets),
+            "plain_ms": lambda: (fa.reference_attention(
+                *mine, "bhnk", drop, rank_offsets),
+                fa.reference_attention_lse(*mine[:2], "bhnk")),
+            "library_ms": lambda: F.scaled_dot_product_attention(
+                *mine, dropout_p=DROP_RATE, scale=1.0)}, 5),
+        "bwd": _in_turns({
+            "kernel_ms": lambda: fa._launch_backward(
+                *mine, g_mine, lse, delta, "bhnk", drop,
+                offsets=rank_offsets),
+            "plain_ms": lambda: fa.reference_attention_backward(
+                *mine, g_mine, "bhnk", drop, rank_offsets, lse=lse,
+                delta=delta),
+            "library_ms": lambda: torch.autograd.grad(
+                lib_out, lib, g_mine, retain_graph=True)}, 5),
+        "mlp": _in_turns({
+            "kernel_ms": lambda: dk._launch(x[..., cols:], seed, DROP_RATE,
+                                            col_base=cols),
+            "plain_ms": lambda: dk.dropout_reference(
+                x[..., cols:], seed, DROP_RATE, col_base=cols),
+            "library_ms": lambda: F.dropout(x[..., cols:], DROP_RATE)}, 10)}
+    grads = fa._launch_backward(*mine, g_mine, lse, delta, "bhnk", drop,
+                                offsets=rank_offsets)
+    plain_grads = fa.reference_attention_backward(
+        *mine, g_mine, "bhnk", drop, rank_offsets, lse=lse, delta=delta)
+    errors = {"fwd": result["flash_rank_vs_plain_max_abs_err"],
+              "bwd": max(float((a.float() - c.float()).abs().max())
+                         for a, c in zip(grads, plain_grads)),
+              "mlp": 0.0}
+    return result, {"times": times, "errors": errors,
+                    "rank_shape": list(mine[0].shape)}
+
+
 def _ring_inputs(shape, dtype, seed):
     """q (scaled by 1/sqrt(K)), k, v and the output cotangent g on the
     card, the same on every process."""
@@ -3491,6 +3674,13 @@ def _worker_highres_ring(mesh, rank: int) -> dict:
     counts = _counts()
     del trainer
     torch.cuda.empty_cache()
+    # Queue C 2: the same three steps in fp32 (the 3xTF32 kernels), ring
+    # against one process.
+    fp32_config = config.replace(compute_dtype="float32",
+                                 use_flash_attention=True)
+    fp32_losses, _ = run(Trainer(fp32_config, LossConfig(), train_config,
+                                 mesh=mesh, device="cuda:0"))
+    torch.cuda.empty_cache()
     result = {"losses": losses, "peak_gib": peak,
               "ring_lse_launches": counts["flash_lse"],
               "ring_bwd_launches": counts["flash_bwd"],
@@ -3516,6 +3706,17 @@ def _worker_highres_ring(mesh, rank: int) -> dict:
                       einsum_rel_diffs=[abs(a - b) / abs(b)
                                         for a, b in zip(einsum, single)])
         result["tolerances"] = list(HIGHRES_RING_LOSS_LIMITS)
+        single_fp32_losses, _ = run(Trainer(fp32_config, LossConfig(),
+                                            train_config, device="cuda:0"))
+        result["fp32_losses"] = fp32_losses
+        result["fp32_single_losses"] = single_fp32_losses
+        result["fp32_step_rel_diffs"] = [
+            abs(a - b) / abs(b) for a, b in zip(fp32_losses,
+                                                single_fp32_losses)]
+        # The record the widened bf16 bound rests on (reported: whether
+        # fp32 agrees decides ROADMAP Queue C 2, it gates nothing here).
+        result["fp32_steps_agree"] = max(
+            result["fp32_step_rel_diffs"]) <= 1e-5
         single_fp32 = fp32_grads(None)
         result["fp32_loss_rel_diff"] = float(
             (ring_fp32[0] - single_fp32[0]).abs() / single_fp32[0].abs())
@@ -3535,17 +3736,310 @@ def _worker_highres_ring(mesh, rank: int) -> dict:
     return result
 
 
+def _collective_bytes():
+    """Count the bytes the port's collectives move over groups of more
+    than one process (the tensor each call hands in, as bytes):
+    ``(counts, undo)``; ``undo()`` restores the collectives."""
+    import torch.distributed as dist
+
+    from vision_transformer_detector_tpu_torch.parallel import collectives
+
+    counts = {"all_reduce": 0, "all_gather": 0}
+    originals = {"all_reduce": collectives.all_reduce_,
+                 "all_gather": collectives.all_gather}
+
+    def counted(name):
+        def call(t, group=None, *args, **kwargs):
+            if dist.get_world_size(group) > 1:
+                counts[name] += t.numel() * t.element_size()
+            return originals[name](t, group, *args, **kwargs)
+        return call
+
+    collectives.all_reduce_ = counted("all_reduce")
+    collectives.all_gather = counted("all_gather")
+
+    def undo():
+        collectives.all_reduce_ = originals["all_reduce"]
+        collectives.all_gather = originals["all_gather"]
+    return counts, undo
+
+
+def _mesh_run(trainer, x, y, steps=PARALLEL_STEPS):
+    """(losses, step seconds, peak GiB, state) of ``steps`` train steps
+    from a fresh state on one batch."""
+    import torch
+
+    state = trainer.init_state()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    losses = [float(trainer.train_step(state, x, y)[1])
+              for _ in range(steps)]
+    torch.cuda.synchronize()
+    return (losses, (time.perf_counter() - tic) / steps,
+            torch.cuda.max_memory_allocated() / 2 ** 30, state)
+
+
+def _fp32_step(config, x, y, mesh):
+    """Loss and full-shape gradients of one fp32 forward and backward of
+    ``config`` (the 3xTF32 kernels, its dropout with a fixed seed: the
+    masks on the mesh's coordinate maps) from the seed, on a mesh (tensor
+    parallelism's slices gathered) or in one process."""
+    import torch
+
+    from vision_transformer_detector_tpu_torch import LossConfig
+    from vision_transformer_detector_tpu_torch.models.vit_detector import (
+        forward, init_params)
+    from vision_transformer_detector_tpu_torch.ops.loss import (
+        detection_loss)
+    from vision_transformer_detector_tpu_torch.parallel.mesh import (
+        gather_tensors, shard_params)
+
+    fp32 = config.replace(compute_dtype="float32")
+    model = init_params(fp32, torch.Generator().manual_seed(SEED), "cuda:0")
+    if mesh is not None:
+        shard_params(model, mesh)
+    names, params = zip(*model.named_parameters())
+    dropping = bool(config.dropout)
+    logits = forward(model, x, fp32, train=dropping,
+                     dropout_seed=SEED + 50 if dropping else None, mesh=mesh)
+    loss = detection_loss(y, logits, fp32, LossConfig())
+    grads = dict(zip(names, torch.autograd.grad(loss, params)))
+    if mesh is not None:
+        grads = gather_tensors(grads, model, mesh)
+    return loss.detach(), grads
+
+
+def _worker_highres_mesh(mesh, rank: int, sequence: bool) -> dict:
+    """(g) tensor parallelism or (h) sequence sharding of highres_1024 at
+    full width and depth (1024 px, D 1024, 16 heads: 8 a rank under
+    tensor parallelism, 24 blocks, MLP 1024 -> 2048 -> 1024, windows of
+    256: 8 of 16 a rank under sequence sharding, head scales (1, 2, 4)),
+    bf16, dropout 0.1, full remat (remat_policy None), over the 'model'
+    axis of two processes sharing the card: batch 2, 3 steps at lr 1e-5,
+    the flash and dropout launches (counted from 0 just before, read just
+    after), step time, peak memory and the bytes of the collectives over
+    'model' per step; then (rank 0) one process on the same batch,
+    weights and seed: under sequence sharding (whose shards compute what
+    one process computes, operation for operation) each step's loss within
+    HIGHRES_RING_LOSS_LIMITS, relative; under tensor parallelism, whose
+    sharded sums round otherwise in bf16, the same three steps in fp32
+    within 1e-5 at every step, and each bf16 step no farther from the fp32
+    loss than one process's bf16 step, plus the step's
+    HIGHRES_RING_LOSS_LIMITS; and one fp32 step with dropout of both: the
+    loss within
+    1e-5, relative, every gradient within 1e-4 of its tensor's largest
+    value but the attention key bias's (exact gradient zero), reported
+    apart."""
+    import torch
+
+    from vision_transformer_detector_tpu_torch import (
+        LossConfig, TrainConfig, get_config, synthetic_batches)
+    from vision_transformer_detector_tpu_torch.parallel import collectives
+    from vision_transformer_detector_tpu_torch.parallel.mesh import (
+        model_axis_role)
+    from vision_transformer_detector_tpu_torch.train.trainer import Trainer
+
+    config = get_config("highres_1024").replace(
+        dropout=0.1, remat_policy=None, sequence_sharding=sequence)
+    _require(config.embedding_dim == 1024 and config.encoder_blocks == 24
+             and config.num_heads == 16 and config.num_patches == 4096
+             and config.attention_window ** 2 == 256
+             and tuple(config.encoder_mlp_units) == (2048, 1024)
+             and tuple(config.head_scales) == (1, 2, 4),
+             "highres_1024 preset changed")
+    _require(model_axis_role(mesh, config)
+             == ("sequence" if sequence else "tensor"),
+             f"parallel: the mesh's role for {config}")
+    train_config = TrainConfig(learning_rate=1e-5)
+    images, labels = next(synthetic_batches(config, 2, 1, seed=SEED + 46))
+    x = torch.from_numpy(images).cuda()
+    y = torch.from_numpy(labels).cuda()
+    counts, undo = _collective_bytes()
+    trainer = Trainer(config, LossConfig(), train_config, mesh=mesh,
+                      device="cuda:0")
+    _reset_counts()
+    for key in counts:
+        counts[key] = 0
+    losses, step_s, peak, _ = _mesh_run(trainer, x, y)
+    launches = _counts()
+    moved = {key: value / PARALLEL_STEPS for key, value in counts.items()}
+    undo()
+    del trainer
+    torch.cuda.empty_cache()
+    result = {"losses": losses, "step_s": step_s, "peak_gib": peak,
+              "collective_bytes_per_step": moved,
+              "launches": {k: c for k, c in launches.items() if c}}
+    mesh_fp32 = _fp32_step(config, x, y, mesh)
+    fp32_config = config.replace(compute_dtype="float32")
+    if not sequence:
+        # Tensor parallelism's sharded sums round otherwise than one
+        # process's in bf16: the same three steps in fp32 anchor them.
+        result["fp32_losses"] = _mesh_run(Trainer(
+            fp32_config, LossConfig(), train_config, mesh=mesh,
+            device="cuda:0"), x, y)[0]
+        torch.cuda.empty_cache()
+    collectives.barrier()
+    if rank == 0:
+        torch.cuda.empty_cache()
+        single, single_s, single_peak, _ = _mesh_run(
+            Trainer(config, LossConfig(), train_config, device="cuda:0"),
+            x, y)
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, single)]
+        single_fp32 = _fp32_step(config, x, y, None)
+        grads = {name: _scaled_err(mesh_fp32[1][name], want)
+                 for name, want in single_fp32[1].items()}
+        key_bias = [n for n in grads if n.endswith("mha.key.bias")]
+        result.update(
+            single_losses=single, single_step_s=single_s,
+            single_peak_gib=single_peak, rel_diffs=rel,
+            tolerances=list(HIGHRES_RING_LOSS_LIMITS),
+            fp32_loss_rel_diff=float((mesh_fp32[0] - single_fp32[0]).abs()
+                                     / single_fp32[0].abs()),
+            fp32_grad_scaled_diff=max(v for n, v in grads.items()
+                                      if n not in key_bias),
+            fp32_key_bias_grad_abs=max(float(single_fp32[1][n].abs().max())
+                                       for n in key_bias))
+        within = all(d <= t for d, t in zip(rel, HIGHRES_RING_LOSS_LIMITS))
+        if not sequence:
+            anchor = _mesh_run(Trainer(fp32_config, LossConfig(),
+                                       train_config, device="cuda:0"),
+                               x, y)[0]
+            result["fp32_single_losses"] = anchor
+            result["fp32_step_rel_diffs"] = [
+                abs(a - b) / abs(b)
+                for a, b in zip(result["fp32_losses"], anchor)]
+            # Each bf16 run's distance from the fp32 trajectory: the mesh's
+            # may exceed one process's by the step's limit at most.
+            result["bf16_from_fp32"] = {
+                "mesh": [abs(a - f) / abs(f) for a, f in zip(losses, anchor)],
+                "one_process": [abs(a - f) / abs(f)
+                                for a, f in zip(single, anchor)]}
+            within = (max(result["fp32_step_rel_diffs"]) <= 1e-5 and all(
+                m <= o + t for m, o, t in zip(
+                    result["bf16_from_fp32"]["mesh"],
+                    result["bf16_from_fp32"]["one_process"],
+                    HIGHRES_RING_LOSS_LIMITS)))
+        result["ok"] = (within and result["fp32_loss_rel_diff"] <= 1e-5
+                        and result["fp32_grad_scaled_diff"] <= 1e-4)
+    collectives.barrier()
+    return result
+
+
+def _worker_dp_tp(mesh, rank: int) -> dict:
+    """(i) data x tensor parallelism of reference_608 fp32 at full width
+    and depth over a 2 x 2 mesh (8 heads: 4 a rank, the 8-layer pyramid
+    alternating column- and row-parallel): global batch 4, 3 steps at lr
+    1e-5, each step's loss within 1e-5 relative of one process at the
+    global batch (rank 0), the parameters within 2 x lr (the attention
+    key bias, whose exact gradient is zero, reported apart), step time,
+    peak memory and collective bytes; then ``evaluate_map(mesh=...)`` of
+    the trained state on the 4 images, labelled from one process's
+    predictions, against that process's AP within 1e-3."""
+    import numpy as np
+    import torch
+
+    from vision_transformer_detector_tpu_torch import (
+        LossConfig, TrainConfig, get_config, synthetic_batches)
+    from vision_transformer_detector_tpu_torch.parallel import collectives
+    from vision_transformer_detector_tpu_torch.parallel.data import (
+        process_batch_indices)
+    from vision_transformer_detector_tpu_torch.parallel.mesh import (
+        gather_params, model_axis_role)
+    from vision_transformer_detector_tpu_torch.train.trainer import (
+        Trainer, evaluate_map, make_eval_step)
+
+    config = get_config("reference_608")
+    _require(config.num_heads == 8 and config.encoder_mlp_layers == 8
+             and config.compute_dtype == "float32"
+             and model_axis_role(mesh, config) == "tensor",
+             "reference_608 preset changed")
+    train_config = TrainConfig(learning_rate=1e-5)
+    images, labels = next(synthetic_batches(config, 4, 1, seed=SEED + 47))
+    rows = process_batch_indices(mesh, 4)
+    x = torch.from_numpy(images).cuda()
+    y = torch.from_numpy(labels).cuda()
+    counts, undo = _collective_bytes()
+    trainer = Trainer(config, LossConfig(), train_config, mesh=mesh,
+                      device="cuda:0")
+    for key in counts:
+        counts[key] = 0
+    losses, step_s, peak, state = _mesh_run(
+        trainer, x[rows.start:rows.stop], y[rows.start:rows.stop])
+    moved = {key: value / PARALLEL_STEPS for key, value in counts.items()}
+    undo()
+    full = gather_params(state["params"], mesh)
+    result = {"losses": losses, "step_s": step_s, "peak_gib": peak,
+              "collective_bytes_per_step": moved}
+    # Eval labels: one process's two most confident slots per image,
+    # boxes scaled by 0.8-1.2 (rank 0's, broadcast).
+    eval_labels = torch.zeros((4, config.max_objects, 6), device="cuda")
+    single = None
+    if rank == 0:
+        single, single_s, single_peak, single_state = _mesh_run(
+            Trainer(config, LossConfig(), train_config, device="cuda:0"),
+            x, y)
+        decoded = make_eval_step(config)(single_state["params"], x).cpu(
+            ).numpy()
+        rng = np.random.default_rng(SEED + 49)
+        made = np.full((4, config.max_objects, 6), -8.0, np.float32)
+        made[..., 0] = 0.0
+        for i in range(4):
+            for slot in np.argsort(-decoded[i, :, 0])[:2]:
+                cx, cy, bh, bw = decoded[i, slot, 2:]
+                scale = rng.uniform(0.8, 1.2)
+                made[i, slot] = (1, np.round(decoded[i, slot, 1]), cx, cy,
+                                 bh * scale, bw * scale)
+        eval_labels.copy_(torch.from_numpy(made))
+        single_params = dict(single_state["params"].state_dict())
+        diffs = {k: float((full[k] - single_params[k]).abs().max())
+                 for k in single_params}
+        result.update(
+            single_losses=single, single_step_s=single_s,
+            single_peak_gib=single_peak,
+            max_param_diff=max(v for k, v in diffs.items()
+                               if not k.endswith("mha.key.bias")),
+            key_bias_param_diff=max(v for k, v in diffs.items()
+                                    if k.endswith("mha.key.bias")))
+        result["single_ap"] = evaluate_map(
+            single_state["params"], [(images, eval_labels.cpu().numpy())],
+            config, device="cuda:0")
+    collectives.broadcast_(eval_labels, src=0)
+    # Host arrays, as a dataset yields them (the lockstep rounds read
+    # their layout on the host).
+    result["ap"] = evaluate_map(
+        state["params"], [(images[rows.start:rows.stop],
+                           eval_labels[rows.start:rows.stop].cpu().numpy())],
+        config, device="cuda:0", mesh=mesh)
+    if rank == 0:
+        result["ok"] = (
+            all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(losses, single))
+            and result["max_param_diff"] <= 2 * train_config.learning_rate
+            and abs(result["ap"] - result["single_ap"]) <= 1e-3)
+    collectives.barrier()
+    return result
+
+
 PARALLEL_TASKS = {"ring": _worker_ring, "ring_host": _worker_ring_host_ms,
-                  "dp": _worker_dp, "highres_ring": _worker_highres_ring}
+                  "dp": _worker_dp, "highres_ring": _worker_highres_ring,
+                  "highres_tp": lambda mesh, rank: _worker_highres_mesh(
+                      mesh, rank, sequence=False),
+                  "highres_sp": lambda mesh, rank: _worker_highres_mesh(
+                      mesh, rank, sequence=True),
+                  "dp_tp": _worker_dp_tp}
+# Each task's mesh: (data, model) from the group's size.
+PARALLEL_MESHES = {"dp": lambda world: (world, 1),
+                   "dp_tp": lambda world: (2, world // 2)}
 
 
 def parallel_worker(rank: int, world: int, port: int, out_path: str,
                     tasks: str) -> int:
     """One rank of the parallel phase: a gloo group of ``world`` processes
     on card 0 (host-staged exchange; NCCL refuses two ranks on one card)
-    runs the comma-separated PARALLEL_TASKS (dp over a data axis of
-    ``world``, the others over a ring of ``world``) and writes their
-    results as JSON to ``out_path``."""
+    runs the comma-separated PARALLEL_TASKS (each over its
+    PARALLEL_MESHES shape: dp over a data axis of ``world``, dp_tp over 2
+    x world / 2, the others over a model axis of ``world``) and writes
+    their results as JSON to ``out_path``."""
     import torch
     import torch.distributed as dist
 
@@ -3562,11 +4056,10 @@ def parallel_worker(rank: int, world: int, port: int, out_path: str,
     try:
         result, meshes = {}, {}
         for task in tasks.split(","):
-            axis = "data" if task == "dp" else "model"
-            if axis not in meshes:
-                meshes[axis] = create_mesh(**{"data": 1, "model": 1,
-                                              axis: world})
-            result[task] = PARALLEL_TASKS[task](meshes[axis], rank)
+            shape = PARALLEL_MESHES.get(task, lambda n: (1, n))(world)
+            if shape not in meshes:
+                meshes[shape] = create_mesh(data=shape[0], model=shape[1])
+            result[task] = PARALLEL_TASKS[task](meshes[shape], rank)
         with open(out_path, "w") as f:
             json.dump(result, f)
     finally:
@@ -3736,20 +4229,20 @@ def _ring_block_times() -> dict:
     n = RING_TOKENS[1] // ring
     ql, gl = q[:, :n].contiguous(), g[:, :n].contiguous()
     blocks = [(k[:, i * n:(i + 1) * n].contiguous(),
-               v[:, i * n:(i + 1) * n].contiguous(), (0, 0, i * n))
+               v[:, i * n:(i + 1) * n].contiguous(), i)
               for i in range(ring)]
     lse = fa.reference_attention_lse(ql, k, "bnhk")
     delta = (gl.float() * fa.reference_attention(ql, k, v).float()).sum(
         -1).transpose(1, 2).contiguous()
 
     def forward(use_kernel):
-        return [ra._block_forward(ql, kb, vb, use_kernel, None, offsets)
-                for kb, vb, offsets in blocks]
+        return ra._attend_blocks(ql, iter(blocks), ring, use_kernel, None, 0,
+                                 0)
 
     def backward(use_kernel):
         return [ra._block_backward(ql, kb, vb, gl, lse, delta, use_kernel,
-                                   None, offsets)
-                for kb, vb, offsets in blocks]
+                                   None, (0, 0, i * n))
+                for kb, vb, i in blocks]
 
     heads = [fa._heads_major(t, "bnhk") for t in (ql, k, v, gl)]
     lib_leaves = [t.detach().clone().requires_grad_() for t in heads[:3]]
@@ -3773,32 +4266,40 @@ def _ring_block_times() -> dict:
 
 
 def phase_parallel() -> dict:
-    """Data parallelism and ring attention on the one H100: (a) the
-    kernels' offsets, bit for bit, with a planted fault; the ring blocks'
-    kernel times; (b) at R = 2 with (c) and (d) in two worker processes,
-    then (b) at R = 4 in four, joined by gloo on this card (the exchange
-    staged through host memory: their times say nothing of NCCL across
-    cards); (e) an NCCL group of one. Returns the ring's kernels-line
-    numbers."""
+    """Data, tensor and sequence parallelism and ring attention on the one
+    H100: (a) the kernels' offsets and (f) their sharded coordinate maps,
+    bit for bit, with planted faults; the ring blocks' kernel times; then
+    in two worker processes (b) at R = 2, (c), (d), (g) and (h), and in
+    four (b) at R = 4 and (i), joined by gloo on this card (every
+    collective through the host: their times say nothing of NCCL across
+    cards); (e) an NCCL group of one. Returns the kernels line's numbers
+    of the ring and of the sharded launches."""
     import torch
 
     tic = time.monotonic()
     offsets = _offsets_at_the_kernel()
+    maps, mapped = _maps_at_the_kernel()
     block_times = _ring_block_times()
     # The workers share this card: hand back what this process caches.
     torch.cuda.empty_cache()
-    workers = _run_parallel_workers(2, "ring,ring_host,dp,highres_ring")
-    ring4 = _run_parallel_workers(4, "ring")
+    workers = _run_parallel_workers(
+        2, "ring,ring_host,dp,highres_ring,highres_tp,highres_sp")
+    four = _run_parallel_workers(4, "ring,dp_tp")
     dp, highres = workers[0]["dp"], workers[0]["highres_ring"]
+    tp, sp = workers[0]["highres_tp"], workers[0]["highres_sp"]
+    dp_tp = four[0]["dp_tp"]
     _report("parallel_workers",
             ring={f"R=2 rank {r}": w["ring"] for r, w in enumerate(workers)}
-            | {f"R=4 rank {r}": w["ring"] for r, w in enumerate(ring4)},
+            | {f"R=4 rank {r}": w["ring"] for r, w in enumerate(four)},
             ring_host_ms={r: w["ring_host"] for r, w in enumerate(workers)},
             dp=dp, highres_ring={r: w["highres_ring"]
                                  for r, w in enumerate(workers)},
-            note="processes sharing one card over gloo, the ring's exchange "
-                 "staged through the host: no measure of NCCL scaling")
-    for rank, result in enumerate(workers + ring4):
+            highres_tp={r: w["highres_tp"] for r, w in enumerate(workers)},
+            highres_sp={r: w["highres_sp"] for r, w in enumerate(workers)},
+            dp_tp={r: w["dp_tp"] for r, w in enumerate(four)},
+            note="processes sharing one card over gloo, every collective "
+                 "through the host: no measure of NCCL scaling")
+    for rank, result in enumerate(workers + four):
         for tag, entry in result["ring"].items():
             _require(entry["ok"], f"parallel (b) R={entry['ring']} rank "
                      f"{rank % entry['ring']} {tag}: {entry}")
@@ -3810,14 +4311,31 @@ def phase_parallel() -> dict:
              f"einsum control {highres['einsum_rel_diffs']}; fp32 loss "
              f"{highres['fp32_loss_rel_diff']}, gradients "
              f"{highres['fp32_grad_scaled_diff']}")
+    for name, entry in (("(g) tensor parallelism", tp),
+                        ("(h) sequence sharding", sp)):
+        _require(entry["ok"], f"parallel {name}: losses {entry['losses']} "
+                 f"against one process {entry['single_losses']}: relative "
+                 f"{entry['rel_diffs']}, allowed {entry['tolerances']}; "
+                 f"from fp32 {entry.get('bf16_from_fp32')}, fp32 steps "
+                 f"{entry.get('fp32_step_rel_diffs')}; fp32 loss "
+                 f"{entry['fp32_loss_rel_diff']}, gradients "
+                 f"{entry['fp32_grad_scaled_diff']}")
+    _require(dp_tp["ok"], f"parallel (i): DP x TP {dp_tp}")
     for rank, result in enumerate(workers):
         h = result["highres_ring"]
         _require(h["ring_lse_launches"] > 0 and h["ring_bwd_launches"] > 0,
                  f"parallel (d) rank {rank}: the ring launched no kernel "
                  f"{h}")
+        for task in ("highres_tp", "highres_sp"):
+            launched = result[task]["launches"]
+            _require(all(launched.get(k, 0) > 0 for k in
+                         ("flash_drop", "flash_bwd_drop", "mlp_drop")),
+                     f"parallel {task} rank {rank}: a kernel of the path "
+                     f"was not launched {launched}")
     nccl = _nccl_group_of_one()
-    _report("parallel", offsets=offsets, ring_block_times=block_times,
-            nccl_group_of_one=nccl, seconds=time.monotonic() - tic)
+    _report("parallel", offsets=offsets, maps=maps,
+            ring_block_times=block_times, nccl_group_of_one=nccl,
+            seconds=time.monotonic() - tic)
     bf16 = [w["ring"]["bf16"]["abs_errors_vs_plain"] for w in workers]
     return {"times": block_times,
             "host_ms": {key: max(w["ring_host"][key] for w in workers)
@@ -3828,7 +4346,11 @@ def phase_parallel() -> dict:
                                     for w in workers)},
             "errors": {"fwd": max(e["out"] for e in bf16),
                        "bwd": max(e[name] for e in bf16
-                                  for name in ("dq", "dk", "dv"))}}
+                                  for name in ("dq", "dk", "dv"))},
+            "mapped": dict(mapped, launches={
+                key: sum(w["highres_tp"]["launches"].get(key, 0)
+                         for w in workers)
+                for key in ("flash_drop", "flash_bwd_drop", "mlp_drop")})}
 
 
 PEAK_NAMES = {"bf16": "bf16 989 TFLOP/s", "int8": "int8 1979 TOP/s",
@@ -3866,7 +4388,9 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
     shape, its queries against the whole sequence; launches of both
     processes in the highres_1024_ring training run; the R block launches
     timed with CUDA events, the whole ring's forward and backward on the
-    host clock beside them in ``ring_host_ms``)."""
+    host clock beside them in ``ring_host_ms``), and a tensor-parallel
+    rank's B1-drop, B2-replay and MLP dropout with their coordinate maps
+    (``*_sharded``: launches of both processes of (g))."""
     bh, n, k = 12, 576, 64                     # vit_b16_384, batch 1
     flash_bytes = 4 * bh * n * k * 2
     tbh, tn, tk = 64, 1296, 40                 # reference_608, batch 8
@@ -3882,6 +4406,11 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
     ring_q = rb * local * rh * rk * 2          # bf16 bytes of local q
     ring_kv = rb * rn * rh * rk * 2            # bf16 bytes of all of k
     ring_lse = rb * rh * local * 4
+    mapped = ring["mapped"]
+    mb, mbh_per, mt, mk = mapped["rank_shape"]   # one TP rank, heads-major
+    mbh = mb * mbh_per
+    mqkv = mbh * mt * mk * 2                   # one bf16 operand
+    map_n = MAP_MLP[0] * MAP_MLP[1] * MAP_MLP[2] // 2
     return {"kernels": [
         dict(_entry("flash_attention_fwd", "flash_attention_fwd.cu",
                     "flash_attention.py:64", [bh, n, k, "bfloat16"],
@@ -3991,8 +4520,9 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
              fp32_bound_ms=_bound(2 * rows * d * wide,
                                   (rows * d + d * wide + wide
                                    + rows * wide) * 4, "3xtf32")[0]),
-        # The ring's blocks (B1-lse): local q, all of k and v read, the
-        # local out (bf16) and lse (fp32) written.
+        # The ring's blocks (B1-lse, the fp32-output instance): local q,
+        # all of k and v read (bf16), the local out and lse (fp32)
+        # written.
         dict(_entry("ring_attention_fwd", "flash_attention_fwd.cu",
                     "vision_transformer_detector_tpu/kernels/"
                     "ring_attention.py:34",
@@ -4000,8 +4530,9 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
                     ring["launches"]["lse"], ring["errors"]["fwd"],
                     ring["times"]["fwd"],
                     (4 * rb * rh * local * rn * rk,
-                     2 * ring_q + 2 * ring_kv + ring_lse, "bf16")),
-             kernel="B1-lse, one launch per ring step",
+                     3 * ring_q + 2 * ring_kv + ring_lse, "bf16")),
+             kernel="B1-lse, one launch per ring step, bf16 in and fp32 "
+                    "out (the fp32-output instance)",
              ring_host_ms=ring["host_ms"]["fwd_host_ms"],
              ring_host_clock="the whole ring forward, host clock, the "
              "exchange staged through the host over gloo on one card"),
@@ -4019,6 +4550,39 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
              ring_host_ms=ring["host_ms"]["bwd_host_ms"],
              ring_host_clock="the whole ring backward, host clock, the "
              "exchange staged through the host over gloo on one card"),
+        # A tensor-parallel rank's B1-drop with the batch*head map (8 of
+        # 16 heads of highres_1024 at batch 2, heads-major windows): q, k,
+        # v read and out written (bf16), lse written (fp32).
+        dict(_entry("flash_attention_fwd_drop_sharded",
+                    "flash_attention_fwd.cu", "flash_attention.py:679",
+                    [*mapped["rank_shape"], "bfloat16", DROP_RATE],
+                    mapped["launches"]["flash_drop"],
+                    mapped["errors"]["fwd"], mapped["times"]["fwd"],
+                    (4 * mbh * mt * mt * mk, 4 * mqkv + mbh * mt * 4,
+                     "bf16")),
+             kernel="B1-drop, the batch*head map (8 W, 16 W, h0 W)",
+             launch_source="both processes of (g), tensor parallelism"),
+        dict(_entry("flash_attention_bwd_drop_sharded",
+                    "flash_attention_bwd.cu", "flash_attention.py:151",
+                    [*mapped["rank_shape"], "bfloat16", DROP_RATE],
+                    mapped["launches"]["flash_bwd_drop"],
+                    mapped["errors"]["bwd"], mapped["times"]["bwd"],
+                    (10 * mbh * mt * mt * mk,
+                     6 * mqkv + 2 * mqkv + 2 * mbh * mt * 4, "bf16")),
+             kernel="B2-replay, the batch*head map",
+             launch_source="both processes of (g), tensor parallelism"),
+        # A tensor-parallel rank's column half of highres_1024's first
+        # pyramid activation at batch 2: x read, out written (bf16).
+        dict(_entry("dropout_sharded", "dropout.cu",
+                    "vision_transformer_detector_tpu/models/"
+                    "vit_detector.py:317",
+                    [MAP_MLP[0], MAP_MLP[1], MAP_MLP[2] // 2, "bfloat16",
+                     DROP_RATE],
+                    mapped["launches"]["mlp_drop"],
+                    mapped["errors"]["mlp"], mapped["times"]["mlp"],
+                    (12 * map_n, 4 * map_n + 4, "fp32")),
+             kernel="the MLP/head dropout with the column base",
+             launch_source="both processes of (g), tensor parallelism"),
     ]}
 
 

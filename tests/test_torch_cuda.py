@@ -879,6 +879,20 @@ def _op_samples(gen):
              every)]
         out, lse = fa._launch_forward(q, k, v, "bhnk", with_lse=True)
         delta = (g.float() * out.float()).sum(-1).contiguous()
+        # A ring attention block: fp32 output, the online softmax's state
+        # resumed and suspended, the batch*head map; fp32 dk and dv.
+        acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+        l_part = torch.ones((*lse.shape, 4), device="cuda")
+        samples += [
+            (ops.flash_attention_fwd, (q, k, v, "bhnk", True, seed, 0.1, 0,
+                                       0, 0, 1, 2, 1, True, acc, lse, l_part,
+                                       True), every),
+            (ops.flash_attention_fwd, (q, k, v, "bhnk", True, None, 0.0, 0,
+                                       0, 0, 1, 1, 0, True, acc, lse, l_part,
+                                       False), every),
+            (ops.flash_attention_bwd, (q, k, v, g, lse, delta, "bhnk", seed,
+                                       0.1, 0, 0, 0, 0, 1, 2, 1,
+                                       dtype == torch.bfloat16), every)]
         samples += [
             (ops.flash_attention_bwd, (q, k, v, g, lse, delta, "bhnk", None,
                                        0.0), every),
@@ -1154,3 +1168,143 @@ def test_dropout_row_base_halves_equal_the_whole(gen):
     assert torch.equal(whole, halves)
     assert torch.equal(dropout_kernel.dropout_reference(x[2:], seed, 0.1,
                                                         2 * 33), whole[2:])
+
+
+# ---------------------------------------------------------------------------
+# The fp32-output instance (ring blocks) and the sharded coordinate maps
+# (tensor parallelism, sequence sharding)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rate", [None, 0.1])
+def test_flash_fp32_output_instance_matches_plain(gen, rate):
+    """B1-lse / B1-drop with bf16 inputs and an fp32 output: within the
+    bf16 tolerance of the plain version's fp32 output, and rounded to bf16
+    bit-equal to the bf16 instance (both round the same O / l once)."""
+    q, k, v = _qkv(gen, (2, 300, 4, 64), torch.bfloat16, 0.125)
+    drop = None if rate is None else (fa.seed_tensor(77, "cuda"), rate)
+    out, lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
+                                  dropout=drop, out_fp32=True)
+    assert out.dtype == torch.float32
+    want = fa.reference_attention(q, k, v, "bnhk", drop,
+                                  out_dtype=torch.float32)
+    assert _rel(out, want) <= TOLS[torch.bfloat16]
+    rounded, lse16 = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
+                                        dropout=drop)
+    assert torch.equal(out.to(torch.bfloat16), rounded)
+    assert torch.equal(lse, lse16)
+
+
+def _flash_all(q, k, v, g, layout, drop, offsets):
+    out, lse = fa._launch_forward(q, k, v, layout, with_lse=True,
+                                  dropout=drop, offsets=offsets)
+    delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                            layout).contiguous()
+    return (out, lse) + fa._launch_backward(q, k, v, g, lse, delta, layout,
+                                            drop, offsets=offsets)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_head_and_window_maps_equal_the_whole(gen, dtype):
+    """B1-drop (out, lse) and B2-replay (dq, dk, dv) over all heads equal,
+    bit for bit, each half of the heads launched with the batch*head map
+    (H_l, H, h0) (tensor parallelism); over all windows of a tokens-major
+    fold, each half of the windows with (W_l H, W H, w0 H) (sequence
+    sharding); a half without its map draws another mask, and the map
+    matches the plain version."""
+    b, w, t, h, kd = 2, 4, 64, 4, 64
+    drop = (fa.seed_tensor(2 ** 32 - 3, "cuda"), 0.2)
+    q, k, v = _qkv(gen, (b, h, w * t, kd), dtype, 0.125)
+    g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+    whole = _flash_all(q, k, v, g, "bhnk", drop, (0, 0, 0))
+    for h0 in (0, 2):
+        part = [x[:, h0:h0 + 2] for x in (q, k, v, g)]
+        got = _flash_all(*part, "bhnk", drop, (0, 0, 0, 2, h, h0))
+        for a, want in zip(got, whole):
+            assert torch.equal(a, want[:, h0:h0 + 2])
+    plain = fa.reference_attention(q[:, 2:], k[:, 2:], v[:, 2:], "bhnk",
+                                   drop, (0, 0, 0, 2, h, 2))
+    assert _rel(got[0], plain) <= TOLS[dtype]
+    unmapped = _flash_all(*[x[:, 2:] for x in (q, k, v, g)], "bhnk", drop,
+                          (0, 0, 0))
+    assert not torch.equal(unmapped[0], whole[0][:, 2:])
+
+    # Windows fold into the batch axis: (B * W, T, H, K), rows
+    # (b * W + w) * H + h.
+    def windows(x, w0=0, count=w):
+        return x.reshape(b, w, t, h, kd)[:, w0:w0 + count].reshape(
+            b * count, t, h, kd)
+
+    tq, tk, tv, tg = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
+    whole = _flash_all(*[windows(x) for x in (tq, tk, tv, tg)], "bnhk",
+                       drop, (0, 0, 0))
+    for w0 in (0, 2):
+        got = _flash_all(*[windows(x, w0, 2) for x in (tq, tk, tv, tg)],
+                         "bnhk", drop, (0, 0, 0, 2 * h, w * h, w0 * h))
+        for a, want in zip(got, whole):
+            want = want.reshape(b, w, *want.shape[1:])[:, w0:w0 + 2]
+            assert torch.equal(a, want.reshape(a.shape))
+
+
+def test_dropout_token_map_and_column_base_equal_the_whole(gen):
+    """The MLP/head dropout kernel over a token shard of every image (row
+    map (n_l, N, n0)) and over a column slice (``col_base``) equals the
+    whole array's slices bit for bit, and the plain version with the same
+    coordinates."""
+    x = torch.randn(4, 96, 80, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    seed = fa.seed_tensor(2 ** 32 - 11, "cuda")
+    whole = dropout_kernel._launch(x, seed, 0.1)
+    for n0 in (0, 48):
+        part = x[:, n0:n0 + 48]
+        got = dropout_kernel._launch(part, seed, 0.1, 0, 48, 96, n0)
+        assert torch.equal(got, whole[:, n0:n0 + 48])
+        assert torch.equal(got, dropout_kernel.dropout_reference(
+            part, seed, 0.1, 0, (48, 96, n0)))
+    for c0 in (0, 40):
+        part = x[..., c0:c0 + 40]
+        got = dropout_kernel._launch(part, seed, 0.1, col_base=c0)
+        assert torch.equal(got, whole[..., c0:c0 + 40])
+        assert torch.equal(got, dropout_kernel.dropout_reference(
+            part, seed, 0.1, col_base=c0))
+    assert not torch.equal(dropout_kernel._launch(x[:, 48:], seed, 0.1),
+                           whole[:, 48:])
+
+
+@pytest.mark.parametrize("rate", [None, 0.1])
+def test_ring_blocks_in_key_order_round_as_the_whole_sequence(gen, rate):
+    """Ring attention's blocks taken in key order, each launch resuming
+    the online softmax's state where the one before suspended it (B1's
+    state in and out, fp32 output): out and lse bit-equal to one launch
+    over the whole sequence. The backward's blocks with fp32 dq, dk and
+    dv, summed and rounded once, differ from the whole sequence's only by
+    fp32 summation order (under 1 % of dq's elements)."""
+    from vision_transformer_detector_tpu_torch.kernels import (
+        ring_attention as ra)
+
+    b, n, h, kd, parts = 2, 1024, 4, 64, 4
+    q, k, v = _qkv(gen, (b, n, h, kd), torch.bfloat16, 0.125)
+    g = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
+    drop = None if rate is None else (fa.seed_tensor(2 ** 32 - 9, "cuda"),
+                                      rate)
+    whole, lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
+                                    dropout=drop)
+    delta = fa._heads_major((g.float() * whole.float()).sum(-1),
+                            "bnhk").contiguous()
+    grads = fa._launch_backward(q, k, v, g, lse, delta, "bnhk", drop)
+    m = n // parts
+    blocks = [(k[:, i * m:(i + 1) * m], v[:, i * m:(i + 1) * m], i)
+              for i in range(parts)]
+    for first in range(0, n, m):
+        rows = slice(first, first + m)
+        out, ring_lse = ra._attend_blocks(q[:, rows], iter(blocks), parts,
+                                          True, drop, 0, first)
+        assert out.dtype == torch.float32
+        assert torch.equal(out.to(torch.bfloat16), whole[:, rows])
+        assert torch.equal(ring_lse, lse[:, :, rows])
+        parts_grads = [ra._block_backward(
+            q[:, rows], kb, vb, g[:, rows], lse[:, :, rows].contiguous(),
+            delta[:, :, rows].contiguous(), True, drop, (0, first, i * m))
+            for kb, vb, i in blocks]
+        assert all(p[1].dtype == torch.float32 for p in parts_grads)
+        dq = sum(p[0] for p in parts_grads).to(torch.bfloat16)
+        assert (dq != grads[0][:, rows]).float().mean() < 1e-2

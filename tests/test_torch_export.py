@@ -362,12 +362,15 @@ def _op_cases(size):
         # The dropout seed is a one-element uint32 tensor, which the kernel
         # reads on the device; None without dropout.
         seed = torch.empty(1, dtype=torch.uint32, device="meta")
+        # The last two outputs are a ring attention block's suspended
+        # state, empty otherwise.
+        no_state = (torch.empty(0), torch.empty(0))
         cases.append(("flash_attention_fwd",
                       (meta(q), meta(kk), meta(v), "bhnk", True, None, 0.0),
-                      plain_fwd))
+                      plain_fwd + no_state))
         cases.append(("flash_attention_fwd",
                       (meta(q), meta(kk), meta(v), "bhnk", False, seed, 0.1),
-                      (plain_fwd[0], torch.empty(0))))
+                      (plain_fwd[0], torch.empty(0)) + no_state))
         dq, dk, dv = fa.reference_attention_backward(q, kk, v, g, "bhnk")
         # The operator hands dq over in its fp32 accumulator; the wrapper
         # casts it to q's dtype.

@@ -175,24 +175,23 @@ def test_init_params_layout_and_ranges(tmp_path):
     {"head_scales": (1, 3)}, {"remat_encoder": True},
     {"sequence_sharding": True}])
 def test_unported_features_are_refused(override):
-    """Sequence sharding is refused; windowed attention, the multi-scale
-    head, remat and ring attention are ported: the model builds and
-    forwards (tests/test_torch_highres.py holds them to the JAX package;
-    tests/test_torch_parallel.py the ring over a mesh). Without a mesh a
-    ring config runs plain global attention, as the JAX forward does."""
+    """Windowed attention, the multi-scale head, remat, ring attention and
+    sequence sharding are ported: the model builds and forwards
+    (tests/test_torch_highres.py holds them to the JAX package;
+    tests/test_torch_parallel.py the ring over a mesh,
+    tests/test_torch_sp.py sequence sharding). Without a mesh a ring or a
+    sequence-sharded config runs the plain forward, as the JAX forward
+    does."""
     config = CONFIGS["flash_k8"].replace(image_size=(48, 48), **override)
-    if "sequence_sharding" in override:
-        with pytest.raises(NotImplementedError):
-            model.init_params(config, torch.Generator().manual_seed(0))
-        return
     params = model.init_params(config, torch.Generator().manual_seed(0))
     images = torch.from_numpy(_images(config))
     logits = model.forward(params, images, config)
     assert logits.shape == (2, 17, 6) and torch.isfinite(logits).all()
-    if "ring_attention" in override:
-        plain = model.forward(params, images,
-                              config.replace(ring_attention=False))
-        torch.testing.assert_close(logits, plain, rtol=0, atol=0)
+    for name in ("ring_attention", "sequence_sharding"):
+        if name in override:
+            plain = model.forward(params, images,
+                                  config.replace(**{name: False}))
+            torch.testing.assert_close(logits, plain, rtol=0, atol=0)
     assert logits.grad_fn is not None
 
 

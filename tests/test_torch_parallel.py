@@ -73,6 +73,8 @@ RING_MODEL = DetectorConfig(
     head_layers=1, ring_attention=True, use_flash_attention=True,
     dropout=0.1, remat_encoder=True)
 RING_CASES = ("ring1", "ring2", "ring4", "ring2_dropout", "ring4_dropout")
+BF16_RING_CASES = tuple(f"ring{r}_bf16{'_dropout' * drop}"
+                        for r in (2, 4, 8) for drop in (False, True))
 DP_CASES = ("dp_train", "dp_dropout", "dp_eval", "dp_eval_empty",
             "ring_model", "resume_first", "cli_ring")
 # highres_1024_ring as JAX's test_highres_ring_preset_trains_on_mesh
@@ -218,9 +220,9 @@ def _load(outdir, case, rank):
     return np.load(outdir / f"{case}-{rank}.npz")
 
 
-def _assemble(outdir, case, world=4):
+def _assemble(outdir, case, world=4, shape=worker.RING_SHAPE):
     """The global (B, N, H, K) arrays from the ranks' shards."""
-    got = {name: np.zeros(worker.RING_SHAPE, np.float32)
+    got = {name: np.zeros(shape, np.float32)
            for name in ("out", "dq", "dk", "dv")}
     for rank in range(world):
         shard = _load(outdir, case, rank)
@@ -230,9 +232,10 @@ def _assemble(outdir, case, world=4):
     return got
 
 
-def _jax_ring(ring, dropout):
-    """JAX's ring attention over a (8 / ring, ring) mesh and its grads."""
-    q, k, v, g = (jnp.asarray(t) for t in worker.ring_inputs())
+def _jax_ring(ring, dropout, shape=worker.RING_SHAPE, dtype=jnp.float32):
+    """JAX's ring attention over a (8 / ring, ring) mesh and its grads
+    (fp32 numpy)."""
+    q, k, v, g = (jnp.asarray(t, dtype) for t in worker.ring_inputs(shape))
     mesh = jax_create_mesh(data=8 // ring, model=ring)
     if dropout:
         rate, seed = worker.RING_DROPOUT
@@ -248,7 +251,7 @@ def _jax_ring(ring, dropout):
                            q, k, v)
         grads = vjp(g)
     return dict(zip(("out", "dq", "dk", "dv"),
-                    (np.asarray(t) for t in (out, *grads))))
+                    (np.asarray(t, np.float32) for t in (out, *grads))))
 
 
 @pytest.mark.parametrize("ring", [1, 2, 4])
@@ -280,6 +283,60 @@ def test_ring_dropout_matches_jax(runs, ring):
     flash = np.asarray(jax_flash_attention(q, k, v, dropout_rate=rate,
                                            dropout_seed=jnp.uint32(seed)))
     np.testing.assert_allclose(got["out"], flash, atol=3e-5, rtol=3e-5)
+
+
+@pytest.fixture(scope="module")
+def bf16_runs(tmp_path_factory):
+    """The bf16 ring cases in a group of eight processes."""
+    outdir = tmp_path_factory.mktemp("ring_bf16")
+    _run_group(worker.BF16_WORLD, outdir, BF16_RING_CASES)
+    return outdir
+
+
+def _exact_attention(shape, dropout):
+    """Output and q/k/v gradients of attention in fp64 on the bf16-rounded
+    ring inputs (with the flash mask over the whole array under dropout)."""
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa)
+
+    q, k, v, g = (torch.from_numpy(t).to(torch.bfloat16).double()
+                  for t in worker.ring_inputs(shape))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    p = torch.softmax(torch.einsum("bnhk,bmhk->bhnm", q, k), dim=-1)
+    if dropout:
+        rate, seed = worker.RING_DROPOUT
+        b, h, n, m = p.shape
+        p = p * fa._dropout_scale((seed, rate), b, h, n, "cpu",
+                                  m=m).double()
+    out = torch.einsum("bhnm,bmhk->bnhk", p, v)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    return dict(zip(("out", "dq", "dk", "dv"),
+                    (t.detach().numpy() for t in (out, *grads))))
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("ring", [2, 4, 8])
+def test_bf16_ring_matches_jax_ring(bf16_runs, ring, dropout):
+    """bf16 ring attention at R = 2, 4 and 8 over a (8 / R, R) mesh, with
+    and without dropout: the output within 1e-2 of its largest value (the
+    bf16 flash tolerance) of JAX's ring on the same bf16 inputs, which
+    keeps its running output in fp32 across the R blocks and rounds once,
+    as the port does; the output and the q/k/v gradients within 1e-2 of
+    the exact (fp64) attention of those inputs. JAX's gradients come from
+    autodiff through its loop, which rounds each block's dk and dv to bf16
+    and sums them in bf16: at R = 8 with dropout its dk lies 8.9e-3 from
+    the exact one and 1.02e-2 from the port's, whose dk (summed in fp32)
+    lies 3.4e-3 from it, so the gradients are held to the exact answer."""
+    shape = worker.bf16_ring_shape(ring)
+    case = f"ring{ring}_bf16{'_dropout' * dropout}"
+    got = _assemble(bf16_runs, case, world=worker.BF16_WORLD, shape=shape)
+    want = _jax_ring(ring, dropout, shape, jnp.bfloat16)
+    err = np.abs(got["out"] - want["out"]).max() / np.abs(want["out"]).max()
+    assert err <= 1e-2, ("out against JAX", err)
+    exact = _exact_attention(shape, dropout)
+    for name, value in exact.items():
+        err = np.abs(got[name] - value).max() / np.abs(value).max()
+        assert err <= 1e-2, (name, err)
 
 
 def test_ring_rejects_indivisible_tokens():

@@ -227,13 +227,21 @@ class _ModelAxisMesh:
 
 
 def test_refused_options(tmp_path):
-    """A model axis above 1 without ring_attention is refused (tensor
-    parallelism is not ported; data parallelism and ring attention are,
-    tests/test_torch_parallel.py); async checkpointing, gradient
-    accumulation and epochs_per_call > 1 are ported and have tests of
-    their own (test_torch_train_window.py)."""
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        _trainer(tmp_path, mesh=_ModelAxisMesh())
+    """A model axis above 1 carries tensor parallelism without
+    ring_attention or sequence_sharding, and the tokens with either (the
+    trainer runs all three; tests/test_torch_tp.py, test_torch_sp.py,
+    test_torch_parallel.py); async checkpointing, gradient accumulation
+    and epochs_per_call > 1 are ported and have tests of their own
+    (test_torch_train_window.py)."""
+    from vision_transformer_detector_tpu_torch.parallel.mesh import (
+        model_axis_role)
+
+    mesh = _ModelAxisMesh()
+    assert model_axis_role(mesh, SMALL) == "tensor"
+    assert model_axis_role(mesh, SMALL.replace(ring_attention=True)) == "ring"
+    assert model_axis_role(mesh, SMALL.replace(
+        sequence_sharding=True, ring_attention=True)) == "sequence"
+    assert model_axis_role(None, SMALL) is None
     run = _trainer(tmp_path)
     data = list(synthetic_batches(SMALL, 2, 1))
     # Training dropout is ported: a dropout fit runs and moves the

@@ -23,9 +23,10 @@ plus ``predict``, ``visualize``, ``plot`` and ``stats``. Each subcommand
 takes the JAX CLI's flags that this port supports.
 
 The mesh (parallel/mesh.py): ``--data-parallel`` D and ``--model-parallel``
-M on ``train``, ``evaluate``, ``benchmark`` and ``sweep`` (M > 1 only with
-a ``ring_attention`` preset: tensor parallelism is not ported), with one
-process per mesh position. ``--batch-size`` stays the GLOBAL batch; each
+M on ``train``, ``evaluate``, ``benchmark`` and ``sweep`` (M > 1 carries
+the tokens with ``sequence_sharding`` or a ``ring_attention`` preset, else
+tensor parallelism, as the JAX CLI's mesh does), with one process per mesh
+position. ``--batch-size`` stays the GLOBAL batch; each
 process loads its shard (parallel/data.py:process_shard_spec). The
 processes start in one of three ways:
   * under torchrun's environment (``RANK``, ``WORLD_SIZE``,
@@ -332,11 +333,6 @@ def _launch_local(args, argv) -> None:
     import time
 
     world = args.data_parallel * args.model_parallel
-    if args.model_parallel > 1 and not _build_config(args).ring_attention:
-        raise SystemExit(
-            f"--model-parallel {args.model_parallel} needs a "
-            "ring_attention preset (highres_1024_ring): tensor "
-            "parallelism is not ported to PyTorch yet")
     batch = getattr(args, "batch_size", None)
     if batch is not None and batch % args.data_parallel != 0:
         raise SystemExit(
@@ -452,8 +448,7 @@ def cmd_train(args) -> None:
                       metrics_path=args.metrics, device=args.device)
     state = trainer.init_state()
     if args.params_npz:
-        state["params"].load_state_dict(
-            load_params_npz(args.params_npz, config).state_dict())
+        trainer.load_params(state, load_params_npz(args.params_npz, config))
     if args.restore == "latest":
         state = trainer.restore_latest(state)
     elif args.restore:
@@ -489,6 +484,10 @@ def cmd_evaluate(args) -> None:
                          "dumped in original-frame pixels)")
     mesh = _maybe_mesh(args)
     params = _load_params(args, config, _rank_device(args, mesh))
+    if mesh is not None:
+        from .parallel.mesh import shard_params
+
+        shard_params(params, mesh)
     if protocol == "coco-original":
         from .data.annotations import load_annotations_dict
         from .metrics.coco_eval import evaluate_coco_protocol_original_frame
@@ -914,6 +913,10 @@ def cmd_benchmark(args) -> None:
     if args.mode == "inference":
         params = init_params(config, torch.Generator().manual_seed(0),
                              device)
+        if mesh is not None:
+            from .parallel.mesh import shard_params
+
+            shard_params(params, mesh)
 
         @torch.inference_mode()
         def step():

@@ -8,7 +8,11 @@
 // attention mask's counter hash (dropout_mask.cuh, `dropout_keep_mask`) of
 // the layer's seed at batch*head 0 over each element's (row, column)
 // index, the rows being all leading axes of a contiguous (rows, cols)
-// array, counted from `row_base`: out = keep ? x * (1 / (1 - rate)) : 0,
+// array, each local row mapped to its global row (dropout_mask.cuh's
+// two-level map, then `row_base` added: a data-parallel rank's first row,
+// or a sequence-sharded rank's tokens of each image) and each column
+// counted from `col_base` (a tensor-parallel rank's first column of a
+// column-parallel activation): out = keep ? x * (1 / (1 - rate)) : 0,
 // in x's dtype. The seed is
 // read from device memory, so a captured CUDA graph replays each step with
 // the seed its caller wrote there, and a block recomputed under remat (or
@@ -77,7 +81,7 @@ __global__ void __launch_bounds__(kThreads) dropout_kernel(
     const int col = static_cast<int>(i - row * chunks) * kVec;
     const unsigned int part =
         hash_part(d, seed, 0u) +
-        query_term(d, static_cast<unsigned int>(row));
+        query_term(d, global_row(d, static_cast<unsigned long long>(row)));
     const long long at = row * cols + col;
     Pack<T, kVec> p = *reinterpret_cast<const Pack<T, kVec>*>(x + at);
 #pragma unroll
@@ -117,13 +121,22 @@ extern "C" {
 // 1 = bfloat16); seed: the device address of the uint32 seed; threshold:
 // keep iff hash < threshold; inv_keep: the fp32 reciprocal of 1 - rate;
 // row_base: the global row of x's first (0 for the whole array; a rank of a
-// data-parallel run passes its first row of the global batch).
+// data-parallel run passes its first row of the global batch);
+// inner_local, inner_global, inner_base: the map of a local row to a global
+// one before row_base is added (1, 1, 0: the identity); col_base: the
+// global column of x's first (0 for the whole array).
 // Returns cudaGetLastError() after the launch (0 on success).
 int vtd_dropout(const void* x, void* out, long long rows, int cols,
                 int dtype, const unsigned int* seed, unsigned int threshold,
-                float inv_keep, unsigned int row_base, void* stream) {
-  if (rows <= 0 || cols <= 0 || seed == nullptr) return cudaErrorInvalidValue;
-  const Dropout drop{seed, threshold, inv_keep, 0u, row_base, 0u};
+                float inv_keep, unsigned int row_base,
+                unsigned int inner_local, unsigned int inner_global,
+                unsigned int inner_base, unsigned int col_base,
+                void* stream) {
+  if (rows <= 0 || cols <= 0 || seed == nullptr || inner_local == 0) {
+    return cudaErrorInvalidValue;
+  }
+  const Dropout drop{seed,     threshold,   inv_keep,     0u,        row_base,
+                     col_base, inner_local, inner_global, inner_base};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(out) % 16 == 0;

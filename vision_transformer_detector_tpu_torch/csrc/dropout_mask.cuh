@@ -20,6 +20,15 @@ namespace {
 // ring attention block) adds them to its local indices, so it draws the
 // mask the whole array would have drawn there (JAX's ring keys its mask
 // the same way). All 0 for a launch over the whole array.
+//
+// Under tensor parallelism or sequence sharding a launch's rows are not
+// one contiguous run of the global rows: a rank holds some heads (or some
+// windows, or some tokens) of every image. `inner_local`, `inner_global`
+// and `inner_base` map a local row i to the global row
+//   (i / inner_local) * inner_global + inner_base + i % inner_local,
+// to which the base is then added (`global_row`): the flash kernels map
+// the batch*head row, the MLP/head dropout kernel its (row) index. The
+// identity map is (1, 1, 0).
 struct Dropout {
   const unsigned int* seed;
   unsigned int threshold;
@@ -27,7 +36,21 @@ struct Dropout {
   unsigned int bh_base;
   unsigned int q_base;
   unsigned int k_base;
+  unsigned int inner_local;
+  unsigned int inner_global;
+  unsigned int inner_base;
 };
+
+// The two-level map of a local row (before the base is added), mod 2^32
+// as the plain versions reduce it.
+__device__ __forceinline__ unsigned int global_row(const Dropout& d,
+                                                   unsigned long long i) {
+  if (d.inner_local == 1) {   // no division on the common path
+    return static_cast<unsigned int>(i) * d.inner_global + d.inner_base;
+  }
+  return static_cast<unsigned int>((i / d.inner_local) * d.inner_global +
+                                   d.inner_base + i % d.inner_local);
+}
 
 // The seed, read from device memory once by each thread at the start of
 // its block's work.

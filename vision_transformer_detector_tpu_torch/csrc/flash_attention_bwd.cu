@@ -77,9 +77,10 @@
 //     written once, with plain fp32 stores, so the caller need not zero it;
 //   * fp32 runs the same code on TF32 with the 3xTF32 split of every
 //     operand (mma_sm90.cuh); head dim 48 or 64 as in the forward;
-//   * dk and dv are cast to the input type and stored through the caller's
-//     strides; keys past N are never written, queries past N never touch
-//     dq.
+//   * dk and dv are cast to the input type (or, for a ring attention
+//     block, kept in fp32: the output type is a template parameter) and
+//     stored through the caller's strides; keys past N are never written,
+//     queries past N never touch dq.
 // Budget: shared memory, the dk/dv kernel's K, V, two q and two g tiles of
 // 64 x (D + 16 bytes) and two lse and two delta rows: 56,320 bytes (bf16,
 // 64), 44,032 (bf16, 48), 105,472 (fp32, 64), 80,896 (fp32, 48), and on the
@@ -140,13 +141,13 @@ __device__ __forceinline__ void load_rows_async(float* lse_dst,
 // blockIdx.x / tiles. With kPartials it also writes this key tile's dq
 // contribution dS K for every query into partials, laid out (tiles,
 // batch*head, seq_len, D), for flash_bwd_dq_sum_kernel.
-template <typename T, int D, bool kDropout, bool kPartials>
+template <typename T, int D, bool kDropout, bool kPartials, typename O>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ g,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, float* __restrict__ partials, int heads,
+                 const float* __restrict__ delta, O* __restrict__ dk,
+                 O* __restrict__ dv, float* __restrict__ partials, int heads,
                  int seq_len, int tiles, Strides sq, Strides sk, Strides sv,
                  Strides sg, Strides sdk, Strides sdv, Dropout drop) {
   using M = Mma<T>;
@@ -196,7 +197,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int key = kv0 + 16 * warp + gr + 8 * r;
     key_ok[r] = key < seq_len;
     if (kDropout) {
-      hash_key[r] = hash_part(drop, seed, static_cast<unsigned int>(bh)) +
+      hash_key[r] = hash_part(drop, seed, global_row(drop, bh)) +
                     key_term(drop, static_cast<unsigned int>(key));
     }
   }
@@ -347,8 +348,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   }
 
-  T* dk_bh = dk + b * sdk.b + h * sdk.h;
-  T* dv_bh = dv + b * sdv.b + h * sdv.h;
+  O* dk_bh = dk + b * sdk.b + h * sdk.h;
+  O* dv_bh = dv + b * sdv.b + h * sdv.h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = kv0 + 16 * warp + gr + 8 * r;
@@ -418,7 +419,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     delta_r[r] = query_ok[r] ? delta[rows + query] : 0.f;
     if (kDropout) {
       hash_query[r] =
-          hash_part(drop, seed, static_cast<unsigned int>(bh)) +
+          hash_part(drop, seed, global_row(drop, bh)) +
           query_term(drop, static_cast<unsigned int>(query));
     }
   }
@@ -548,7 +549,7 @@ flash_bwd_dq_sum_kernel(const float* __restrict__ partials,
       acc;
 }
 
-template <typename T, int D, bool kDropout>
+template <typename T, int D, bool kDropout, typename O>
 cudaError_t launch_kernel(const void* q, const void* k, const void* v,
                           const void* g, const void* lse, const void* delta,
                           void* dq, void* dk, void* dv, void* partials,
@@ -572,11 +573,11 @@ cudaError_t launch_kernel(const void* q, const void* k, const void* v,
     if constexpr (std::is_same<T, float>::value) {
       constexpr int kSmem = smem_bytes<T, true>(D);
       static std::atomic<unsigned long long> smem_allowed{0};
-      err = allow_dynamic_smem(flash_bwd_kernel<T, D, kDropout, true>, kSmem,
-                               smem_allowed);
+      err = allow_dynamic_smem(flash_bwd_kernel<T, D, kDropout, true, T>,
+                               kSmem, smem_allowed);
       if (err != cudaSuccess) return err;
       float* part = static_cast<float*>(partials);
-      flash_bwd_kernel<T, D, kDropout, true>
+      flash_bwd_kernel<T, D, kDropout, true, T>
           <<<static_cast<unsigned int>(blocks), kThreads, kSmem, stream>>>(
               qt, kt, vt, gt, lse_f, delta_f, static_cast<T*>(dk),
               static_cast<T*>(dv), part, heads, seq_len, tiles, sq, sk, sv,
@@ -598,16 +599,16 @@ cudaError_t launch_kernel(const void* q, const void* k, const void* v,
   constexpr int kSmem = smem_bytes<T, false>(D);
   constexpr int kSmemDq = smem_dq_bytes<T>(D);
   static std::atomic<unsigned long long> smem_allowed{0}, smem_dq_allowed{0};
-  err = allow_dynamic_smem(flash_bwd_kernel<T, D, kDropout, false>, kSmem,
+  err = allow_dynamic_smem(flash_bwd_kernel<T, D, kDropout, false, O>, kSmem,
                            smem_allowed);
   if (err != cudaSuccess) return err;
   err = allow_dynamic_smem(flash_bwd_dq_kernel<T, D, kDropout>, kSmemDq,
                            smem_dq_allowed);
   if (err != cudaSuccess) return err;
-  flash_bwd_kernel<T, D, kDropout, false>
+  flash_bwd_kernel<T, D, kDropout, false, O>
       <<<static_cast<unsigned int>(blocks), kThreads, kSmem, stream>>>(
-          qt, kt, vt, gt, lse_f, delta_f, static_cast<T*>(dk),
-          static_cast<T*>(dv), nullptr, heads, seq_len, tiles, sq, sk, sv, sg,
+          qt, kt, vt, gt, lse_f, delta_f, static_cast<O*>(dk),
+          static_cast<O*>(dv), nullptr, heads, seq_len, tiles, sq, sk, sv, sg,
           sdk, sdv, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -618,7 +619,7 @@ cudaError_t launch_kernel(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, typename O>
 cudaError_t launch_dim(bool dropout, const void* q, const void* k,
                        const void* v, const void* g, const void* lse,
                        const void* delta, void* dq, void* dk, void* dv,
@@ -627,16 +628,16 @@ cudaError_t launch_dim(bool dropout, const void* q, const void* k,
                        Strides sdq, Strides sdk, Strides sdv, Dropout drop,
                        cudaStream_t stream) {
   if (dropout) {
-    return launch_kernel<T, D, true>(q, k, v, g, lse, delta, dq, dk, dv,
+    return launch_kernel<T, D, true, O>(q, k, v, g, lse, delta, dq, dk, dv,
                                      partials, batch, heads, seq_len, sq, sk,
                                      sv, sg, sdq, sdk, sdv, drop, stream);
   }
-  return launch_kernel<T, D, false>(q, k, v, g, lse, delta, dq, dk, dv,
+  return launch_kernel<T, D, false, O>(q, k, v, g, lse, delta, dq, dk, dv,
                                     partials, batch, heads, seq_len, sq, sk,
                                     sv, sg, sdq, sdk, sdv, drop, stream);
 }
 
-template <typename T>
+template <typename T, typename O>
 cudaError_t launch(int head_dim, bool dropout, const void* q, const void* k,
                    const void* v, const void* g, const void* lse,
                    const void* delta, void* dq, void* dk, void* dv,
@@ -645,12 +646,12 @@ cudaError_t launch(int head_dim, bool dropout, const void* q, const void* k,
                    Strides sdq, Strides sdk, Strides sdv, Dropout drop,
                    cudaStream_t stream) {
   if (head_dim == 48) {
-    return launch_dim<T, 48>(dropout, q, k, v, g, lse, delta, dq, dk, dv,
+    return launch_dim<T, 48, O>(dropout, q, k, v, g, lse, delta, dq, dk, dv,
                              partials, batch, heads, seq_len, sq, sk, sv, sg,
                              sdq, sdk, sdv, drop, stream);
   }
   if (head_dim == 64) {
-    return launch_dim<T, 64>(dropout, q, k, v, g, lse, delta, dq, dk, dv,
+    return launch_dim<T, 64, O>(dropout, q, k, v, g, lse, delta, dq, dk, dv,
                              partials, batch, heads, seq_len, sq, sk, sv, sg,
                              sdq, sdk, sdv, drop, stream);
   }
@@ -661,7 +662,9 @@ cudaError_t launch(int head_dim, bool dropout, const void* q, const void* k,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, g, dk, dv); dq is fp32, every
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, g, and dk, dv unless
+// dkv_fp32, which writes them in fp32: a ring attention block's dk and dv
+// join fp32 sums unrounded); dq is fp32, every
 // element written by the kernels; lse and delta are contiguous fp32 (batch,
 // heads, seq_len). dq_partials: null for the split route, or, in fp32
 // only, a (tiles, batch * heads, seq_len, head_dim) fp32 workspace for the
@@ -672,14 +675,16 @@ extern "C" {
 // 16-byte aligned. dropout: 0, or 1 with the device address of the
 // forward's uint32 seed, the keep threshold and fp32 1 / (1 - rate); delta
 // is then rowsum(g * out) of the dropped output; bh_base, q_base and
-// k_base: the global batch*head row, query and key of the launch's first
-// (dropout_mask.cuh; 0 for a launch over the whole array). Returns the
-// CUDA error of the launch (0 on success).
+// k_base: the global batch*head row, query and key of the launch's first,
+// and inner_local, inner_global and inner_base the map of a local
+// batch*head row to a global one (dropout_mask.cuh; 0, 0, 0 and 1, 1, 0
+// for a launch over the whole array). Returns the CUDA error of the launch
+// (0 on success).
 int vtd_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* g,
     const void* lse, const void* delta, void* dq, void* dk, void* dv,
-    void* dq_partials, int dtype, int batch, int heads, int seq_len,
-    int head_dim,
+    void* dq_partials, int dtype, int dkv_fp32, int batch, int heads,
+    int seq_len, int head_dim,
     long long q_sb, long long q_sh, long long q_sn, long long k_sb,
     long long k_sh, long long k_sn, long long v_sb, long long v_sh,
     long long v_sn, long long g_sb, long long g_sh, long long g_sn,
@@ -687,24 +692,33 @@ int vtd_flash_attention_bwd(
     long long dk_sh, long long dk_sn, long long dv_sb, long long dv_sh,
     long long dv_sn, int dropout, const unsigned int* seed,
     unsigned int threshold, float inv_keep, unsigned int bh_base,
-    unsigned int q_base, unsigned int k_base, void* stream) {
+    unsigned int q_base, unsigned int k_base, unsigned int inner_local,
+    unsigned int inner_global, unsigned int inner_base, void* stream) {
   if (batch <= 0 || heads <= 0 || seq_len <= 0) return cudaErrorInvalidValue;
   if (dropout != 0 && seed == nullptr) return cudaErrorInvalidValue;
+  if (inner_local == 0) return cudaErrorInvalidValue;
   const Strides sq{q_sb, q_sh, q_sn}, sk{k_sb, k_sh, k_sn},
       sv{v_sb, v_sh, v_sn}, sg{g_sb, g_sh, g_sn}, sdq{dq_sb, dq_sh, dq_sn},
       sdk{dk_sb, dk_sh, dk_sn}, sdv{dv_sb, dv_sh, dv_sn};
-  const Dropout drop{seed, threshold, inv_keep, bh_base, q_base, k_base};
+  const Dropout drop{seed,   threshold,   inv_keep,     bh_base,   q_base,
+                     k_base, inner_local, inner_global, inner_base};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch<float>(head_dim, dropout != 0, q, k, v, g, lse, delta, dq,
-                        dk, dv, dq_partials, batch, heads, seq_len, sq, sk,
-                        sv, sg, sdq, sdk, sdv, drop, s);
+    err = launch<float, float>(head_dim, dropout != 0, q, k, v, g, lse, delta,
+                               dq, dk, dv, dq_partials, batch, heads, seq_len,
+                               sq, sk, sv, sg, sdq, sdk, sdv, drop, s);
+  } else if (dtype == 1 && dkv_fp32 != 0) {
+    if (dq_partials != nullptr) return cudaErrorInvalidValue;
+    err = launch<__nv_bfloat16, float>(head_dim, dropout != 0, q, k, v, g,
+                                       lse, delta, dq, dk, dv, dq_partials,
+                                       batch, heads, seq_len, sq, sk, sv, sg,
+                                       sdq, sdk, sdv, drop, s);
   } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(head_dim, dropout != 0, q, k, v, g, lse,
-                                delta, dq, dk, dv, dq_partials, batch, heads,
-                                seq_len, sq, sk, sv, sg, sdq, sdk, sdv, drop,
-                                s);
+    err = launch<__nv_bfloat16, __nv_bfloat16>(
+        head_dim, dropout != 0, q, k, v, g, lse, delta, dq, dk, dv,
+        dq_partials, batch, heads, seq_len, sq, sk, sv, sg, sdq, sdk, sdv,
+        drop, s);
   } else {
     return cudaErrorInvalidValue;
   }

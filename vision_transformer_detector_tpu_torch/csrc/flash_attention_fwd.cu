@@ -9,6 +9,11 @@
 // reach device memory. The caller applies 1/sqrt(key_dim); the kernel
 // applies no scale. As in the Pallas kernel, the normaliser sums the fp32
 // probabilities and P@V uses the probabilities rounded to the input type.
+// A ring attention block may resume the online softmax's state (running
+// max, normaliser, unnormalised accumulator) where the block before it
+// suspended it, and suspend its own for the next, so that the blocks taken
+// in key order compute what one launch over all the keys computes
+// (kernels/ring_attention.py).
 // With an lse pointer it also writes each query row's fp32 logsumexp,
 // m + log(l), into a (batch, heads, N) array: the residual the backward
 // kernel (flash_attention_bwd.cu) reads, as the Pallas kernel's `with_lse`
@@ -67,6 +72,9 @@
 //   * the head dim is a template parameter, 48 or 64: the wrapper pads
 //     K <= 48 to 48 and 48 < K <= 64 to 64 (zero columns are exact), so
 //     reference_608's K = 40 does 48-wide products, not 64;
+//   * the output type is a template parameter: the input type, or fp32
+//     for a bf16 ring attention block (kernels/ring_attention.py merges the
+//     R blocks' unrounded outputs and rounds once, as JAX's ring does);
 //   * epilogue: O / l cast to the output type and stored through the
 //     caller's strides ((B, N, H, K) or (B, H, N, K) views, unit head
 //     stride, rows 16-byte aligned: the wrapper checks); lse = m + log l is
@@ -98,16 +106,36 @@ struct Strides {
   long long b, h, n;
 };
 
+// Per query row, fp32, each pointer optional: the logsumexp written,
+// (batch, heads, seq_len). A ring attention block also carries the online
+// softmax's state from the blocks before it to the ones after it, so that
+// blocks taken in key order compute what one launch over all the keys
+// computes, operation for operation (kernels/ring_attention.py): the
+// running max (m_in / m_out, (batch, heads, seq_len)), each lane's part of
+// the normaliser (l_in / l_out, (batch, heads, seq_len, 4)) and the
+// unnormalised output accumulator (acc_in, in the output's layout). With
+// m_in the launch resumes from that state; with m_out it hands its state
+// on: the output receives the unnormalised accumulator and no lse is
+// written. Both need an fp32 output.
+struct RowState {
+  float* lse;
+  const float* m_in;
+  const float* l_in;
+  const float* acc_in;
+  float* m_out;
+  float* l_out;
+};
+
 template <typename T>
 constexpr int smem_bytes(int d) {
   return 5 * kBlock * (d + Mma<T>::kPad) * static_cast<int>(sizeof(T));
 }
 
-template <typename T, int D, bool kDropout>
+template <typename T, int D, bool kDropout, typename O>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int heads, int seq_len,
+                 const T* __restrict__ v, O* __restrict__ o,
+                 RowState state, int heads, int seq_len,
                  int q_tiles, Strides sq, Strides sk, Strides sv, Strides so,
                  Dropout drop) {
   using M = Mma<T>;
@@ -148,13 +176,34 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   float m_row[2] = {kNegInf, kNegInf};   // running max of each row
   float l_row[2] = {0.f, 0.f};           // this lane's part of the normaliser
+  if (state.m_in != nullptr) {
+    // Resume: this lane's rows' running max, normaliser part and
+    // accumulator fragment, as the previous block left them.
+    const float* a_bh = state.acc_in + b * so.b + h * so.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + 16 * warp + g + 8 * r;
+      if (row < seq_len) {
+        const long long at = static_cast<long long>(bh) * seq_len + row;
+        m_row[r] = state.m_in[at];
+        l_row[r] = state.l_in[at * 4 + t];
+        const float* a_row = a_bh + row * so.n + 2 * t;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const float2 a = *reinterpret_cast<const float2*>(a_row + 8 * j);
+          acc[j][2 * r] = a.x;
+          acc[j][2 * r + 1] = a.y;
+        }
+      }
+    }
+  }
   unsigned int hash_row[2] = {0u, 0u};
   if (kDropout) {
     const unsigned int seed = load_seed(drop);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       hash_row[r] =
-          hash_part(drop, seed, static_cast<unsigned int>(bh)) +
+          hash_part(drop, seed, global_row(drop, bh)) +
           query_term(drop, static_cast<unsigned int>(q0 + 16 * warp + g +
                                                      8 * r));
     }
@@ -259,7 +308,25 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();   // this buffer is refilled at the next iteration's top
   }
 
-  T* o_bh = o + b * so.b + h * so.h;
+  O* o_bh = o + b * so.b + h * so.h;
+  if (state.m_out != nullptr) {
+    // Suspend: hand the state on, the accumulator unnormalised.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + 16 * warp + g + 8 * r;
+      if (row < seq_len) {
+        const long long at = static_cast<long long>(bh) * seq_len + row;
+        if (t == 0) state.m_out[at] = m_row[r];
+        state.l_out[at * 4 + t] = l_row[r];
+        O* o_row = o_bh + row * so.n + 2 * t;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          store_pair(o_row + 8 * j, acc[j][2 * r], acc[j][2 * r + 1]);
+        }
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_row[r];
@@ -268,66 +335,70 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + 16 * warp + g + 8 * r;
     if (row < seq_len) {
       const float inv_l = 1.f / l;
-      T* o_row = o_bh + row * so.n + 2 * t;
+      O* o_row = o_bh + row * so.n + 2 * t;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         store_pair(o_row + 8 * j, acc[j][2 * r] * inv_l,
                    acc[j][2 * r + 1] * inv_l);
       }
-      if (lse != nullptr && t == 0) {
-        lse[static_cast<long long>(bh) * seq_len + row] = m_row[r] + logf(l);
+      if (state.lse != nullptr && t == 0) {
+        state.lse[static_cast<long long>(bh) * seq_len + row] =
+            m_row[r] + logf(l);
       }
     }
   }
 }
 
-template <typename T, int D, bool kDropout>
+template <typename T, int D, bool kDropout, typename O>
 cudaError_t launch_kernel(const void* q, const void* k, const void* v,
-                          void* o, float* lse, int batch, int heads,
+                          void* o, RowState state, int batch, int heads,
                           int seq_len, Strides sq, Strides sk, Strides sv,
                           Strides so, Dropout drop, cudaStream_t stream) {
   constexpr int kSmem = smem_bytes<T>(D);
   static std::atomic<unsigned long long> smem_allowed{0};
   const cudaError_t err =
-      allow_dynamic_smem(flash_fwd_kernel<T, D, kDropout>, kSmem, smem_allowed);
+      allow_dynamic_smem(flash_fwd_kernel<T, D, kDropout, O>, kSmem,
+                         smem_allowed);
   if (err != cudaSuccess) return err;
   const int q_tiles = (seq_len + kBlock - 1) / kBlock;
   const long long blocks = static_cast<long long>(batch) * heads * q_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  flash_fwd_kernel<T, D, kDropout>
+  flash_fwd_kernel<T, D, kDropout, O>
       <<<static_cast<unsigned int>(blocks), kThreads, kSmem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(o), lse, heads, seq_len,
+          static_cast<const T*>(v), static_cast<O*>(o), state, heads, seq_len,
           q_tiles, sq, sk, sv, so, drop);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, typename O>
 cudaError_t launch_dim(bool dropout, const void* q, const void* k,
-                       const void* v, void* o, float* lse, int batch,
+                       const void* v, void* o, RowState state, int batch,
                        int heads, int seq_len, Strides sq, Strides sk,
                        Strides sv, Strides so, Dropout drop,
                        cudaStream_t stream) {
   if (dropout) {
-    return launch_kernel<T, D, true>(q, k, v, o, lse, batch, heads, seq_len,
-                                     sq, sk, sv, so, drop, stream);
+    return launch_kernel<T, D, true, O>(q, k, v, o, state, batch, heads,
+                                        seq_len, sq, sk, sv, so, drop,
+                                        stream);
   }
-  return launch_kernel<T, D, false>(q, k, v, o, lse, batch, heads, seq_len,
-                                    sq, sk, sv, so, drop, stream);
+  return launch_kernel<T, D, false, O>(q, k, v, o, state, batch, heads,
+                                       seq_len, sq, sk, sv, so, drop, stream);
 }
 
-template <typename T>
+template <typename T, typename O>
 cudaError_t launch(int head_dim, bool dropout, const void* q, const void* k,
-                   const void* v, void* o, float* lse, int batch, int heads,
+                   const void* v, void* o, RowState state, int batch,
+                   int heads,
                    int seq_len, Strides sq, Strides sk, Strides sv,
                    Strides so, Dropout drop, cudaStream_t stream) {
   if (head_dim == 48) {
-    return launch_dim<T, 48>(dropout, q, k, v, o, lse, batch, heads, seq_len,
-                             sq, sk, sv, so, drop, stream);
+    return launch_dim<T, 48, O>(dropout, q, k, v, o, state, batch, heads,
+                                seq_len, sq, sk, sv, so, drop, stream);
   }
   if (head_dim == 64) {
-    return launch_dim<T, 64>(dropout, q, k, v, o, lse, batch, heads, seq_len,
-                             sq, sk, sv, so, drop, stream);
+    return launch_dim<T, 64, O>(dropout, q, k, v, o, state, batch, heads,
+                                seq_len, sq, sk, sv, so, drop, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -336,18 +407,27 @@ cudaError_t launch(int head_dim, bool dropout, const void* q, const void* k,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 48 or 64 (the wrapper pads).
-// Strides are in elements, for the batch, head and token axes; the head dim
-// must be contiguous and every row 16-byte aligned. lse: nullptr, or a
-// contiguous fp32 (batch, heads, seq_len) array. dropout: 0, or 1 with the
-// device address of the uint32 seed, the uint32 keep threshold (keep iff
-// hash < threshold) and inv_keep = 1 / (1 - rate) in fp32; bh_base, q_base
-// and k_base: the global batch*head row, query and key of the launch's
-// first (dropout_mask.cuh; 0 for a launch over the whole array). Returns
-// cudaGetLastError() after the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16; out_fp32: 1 writes the output in fp32
+// whatever the input dtype (a ring attention block), 0 in the input dtype.
+// head_dim: 48 or 64 (the wrapper pads). Strides are in elements, for the
+// batch, head and token axes; the head dim must be contiguous and every
+// row 16-byte aligned. lse: nullptr, or a contiguous fp32 (batch, heads,
+// seq_len) array; m_in, l_in, acc_in and m_out, l_out: nullptr, or a ring
+// attention block's online-softmax state to resume from and to hand on
+// (RowState; acc_in has the output's strides), each needing an fp32
+// output. dropout: 0, or 1 with the device address of the uint32 seed, the
+// uint32 keep threshold (keep iff hash < threshold) and inv_keep = 1 / (1 -
+// rate) in fp32; bh_base, q_base and k_base: the global batch*head row,
+// query and key of the launch's first, and inner_local, inner_global and
+// inner_base the map of a local batch*head row to a global one
+// (dropout_mask.cuh; 0, 0, 0 and 1, 1, 0 for a launch over the whole
+// array). Returns cudaGetLastError() after the launch (0 on success).
 int vtd_flash_attention_fwd(const void* q, const void* k, const void* v,
-                            void* o, void* lse, int dtype, int batch,
-                            int heads, int seq_len, int head_dim,
+                            void* o, void* lse, const void* m_in,
+                            const void* l_in, const void* acc_in,
+                            void* m_out, void* l_out, int dtype,
+                            int out_fp32, int batch, int heads,
+                            int seq_len, int head_dim,
                             long long q_sb, long long q_sh, long long q_sn,
                             long long k_sb, long long k_sh, long long k_sn,
                             long long v_sb, long long v_sh, long long v_sn,
@@ -355,22 +435,45 @@ int vtd_flash_attention_fwd(const void* q, const void* k, const void* v,
                             int dropout, const unsigned int* seed,
                             unsigned int threshold, float inv_keep,
                             unsigned int bh_base, unsigned int q_base,
-                            unsigned int k_base, void* stream) {
+                            unsigned int k_base, unsigned int inner_local,
+                            unsigned int inner_global,
+                            unsigned int inner_base, void* stream) {
   if (batch <= 0 || heads <= 0 || seq_len <= 0) return cudaErrorInvalidValue;
   if (dropout != 0 && seed == nullptr) return cudaErrorInvalidValue;
+  if (inner_local == 0) return cudaErrorInvalidValue;
   const Strides sq{q_sb, q_sh, q_sn}, sk{k_sb, k_sh, k_sn},
       sv{v_sb, v_sh, v_sn}, so{o_sb, o_sh, o_sn};
-  const Dropout drop{seed, threshold, inv_keep, bh_base, q_base, k_base};
+  const Dropout drop{seed,   threshold,   inv_keep,     bh_base,   q_base,
+                     k_base, inner_local, inner_global, inner_base};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* lse_f = static_cast<float*>(lse);
+  const bool resume = m_in != nullptr, suspend = m_out != nullptr;
+  if ((resume || suspend) && dtype != 0 && out_fp32 == 0) {
+    return cudaErrorInvalidValue;
+  }
+  if ((resume && (l_in == nullptr || acc_in == nullptr)) ||
+      (suspend && l_out == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  const RowState state{static_cast<float*>(lse),
+                       static_cast<const float*>(m_in),
+                       static_cast<const float*>(l_in),
+                       static_cast<const float*>(acc_in),
+                       static_cast<float*>(m_out),
+                       static_cast<float*>(l_out)};
   cudaError_t err;
   if (dtype == 0) {
-    err = launch<float>(head_dim, dropout != 0, q, k, v, o, lse_f, batch,
-                        heads, seq_len, sq, sk, sv, so, drop, s);
+    err = launch<float, float>(head_dim, dropout != 0, q, k, v, o, state,
+                               batch, heads, seq_len, sq, sk, sv, so, drop,
+                               s);
+  } else if (dtype == 1 && out_fp32 != 0) {
+    err = launch<__nv_bfloat16, float>(head_dim, dropout != 0, q, k, v, o,
+                                       state, batch, heads, seq_len, sq, sk,
+                                       sv, so, drop, s);
   } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(head_dim, dropout != 0, q, k, v, o, lse_f,
-                                batch, heads, seq_len, sq, sk, sv, so, drop,
-                                s);
+    err = launch<__nv_bfloat16, __nv_bfloat16>(head_dim, dropout != 0, q, k,
+                                               v, o, state, batch, heads,
+                                               seq_len, sq, sk, sv, so, drop,
+                                               s);
   } else {
     return cudaErrorInvalidValue;
   }

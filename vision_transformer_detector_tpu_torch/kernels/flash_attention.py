@@ -53,7 +53,13 @@ the global coordinates of the call's first batch*head row, query and key:
 a call over a shard of the batch (data parallelism) or a ring attention
 block (kernels/ring_attention.py) passes its own, so it draws the mask
 that the whole array draws there; they default to 0 and change nothing
-but the mask. The JAX package forces its chunked XLA
+but the mask. Three more entries, ``(inner_local, inner_global,
+inner_base)``, map a local batch*head row i to the global row ``(i //
+inner_local) * inner_global + inner_base + i % inner_local`` before
+``bh_base`` is added: a rank of tensor parallelism holds heads [h0, h0 +
+H_l) of every image, (H_l, H, h0), and a rank of sequence sharding whole
+windows of every image (``mask_coords``); the default (1, 1, 0) is the
+identity. The JAX package forces its chunked XLA
 backward (and a forward without lse) under dropout; the port keeps the
 Function's design, one forward launch that writes out and lse with the
 mask applied and then the backward kernel with the mask replayed, which
@@ -158,15 +164,44 @@ def seed_tensor(seed: int, device) -> torch.Tensor:
         torch.uint32).to(device)
 
 
+IDENTITY_MAP = (1, 1, 0)
+
+
+def mask_coords(offsets) -> tuple:
+    """``(bh_base, q_base, k_base, inner_local, inner_global, inner_base)``
+    of ``offsets``, which gives the first three (the row map then defaults
+    to the identity) or all six (module docstring); the bases reduced mod
+    2**32. Raises ValueError for another length or an ``inner_local``
+    below 1."""
+    offsets = tuple(int(o) for o in offsets)
+    if len(offsets) == 3:
+        offsets += IDENTITY_MAP
+    if len(offsets) != 6 or offsets[3] < 1:
+        raise ValueError(
+            "offsets are (bh_base, q_base, k_base[, inner_local, "
+            f"inner_global, inner_base]) with inner_local >= 1, got {offsets}")
+    return tuple(o & _M32 for o in offsets[:3]) + offsets[3:]
+
+
+def map_rows(rows: torch.Tensor, base: int, row_map=IDENTITY_MAP):
+    """Global rows of the local ``rows`` (int64): ``base + (rows //
+    inner_local) * inner_global + inner_base + rows % inner_local``."""
+    inner_local, inner_global, inner_base = row_map
+    return (base + (rows // inner_local) * inner_global + inner_base
+            + rows % inner_local)
+
+
 def _dropout_scale(dropout, b: int, h: int, n: int, device,
                    offsets=(0, 0, 0), m: int | None = None) -> torch.Tensor:
     """(b, h, n, m) fp32 keep / (1 - rate) of the mask over heads-major
     scores (m = n by default), batch*head index b * h + head (the kernels'
-    numbering), each index counted from its ``offsets`` entry."""
+    numbering) mapped and counted as ``offsets`` say (``mask_coords``),
+    query and key indices counted from theirs."""
     seed, rate = dropout
     m = n if m is None else m
-    bh_base, q_base, k_base = offsets
-    bh = (torch.arange(b * h, device=device) + bh_base).reshape(b, h, 1, 1)
+    bh_base, q_base, k_base, *row_map = mask_coords(offsets)
+    bh = map_rows(torch.arange(b * h, device=device), bh_base,
+                  row_map).reshape(b, h, 1, 1)
     keep = dropout_keep_mask(
         seed, bh, (torch.arange(n, device=device) + q_base)[:, None],
         (torch.arange(m, device=device) + k_base)[None, :],
@@ -182,13 +217,14 @@ def _heads_major(t: torch.Tensor, layout: str) -> torch.Tensor:
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         layout: str = "bnhk", dropout=None,
-                        offsets=(0, 0, 0)) -> torch.Tensor:
+                        offsets=(0, 0, 0), out_dtype=None) -> torch.Tensor:
     """Materialised-softmax version: fp32 scores and softmax, probabilities
     cast to v's dtype before P@V with fp32 accumulation, output in q's
-    dtype (as the JAX package's ``reference_attention``). ``dropout``
-    (``(seed, rate)``) multiplies the probabilities by keep / (1 - rate)
-    before the cast, the JAX package's masked oracle; ``offsets`` place the
-    mask (module docstring)."""
+    dtype (as the JAX package's ``reference_attention``), or in
+    ``out_dtype`` (fp32 for a ring block). ``dropout`` (``(seed, rate)``)
+    multiplies the probabilities by keep / (1 - rate) before the cast, the
+    JAX package's masked oracle; ``offsets`` place the mask (module
+    docstring)."""
     if layout == "bhnk":
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     scores = torch.einsum("bnhk,bmhk->bhnm", q.float(), k.float())
@@ -200,7 +236,7 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # bf16 x bf16 products are exact in fp32, so upcasting the rounded
     # probabilities reproduces a bf16 matmul with fp32 accumulation.
     out = torch.einsum("bhnm,bmhk->bnhk", probs.to(v.dtype).float(),
-                       v.float()).to(q.dtype)
+                       v.float()).to(out_dtype or q.dtype)
     return out.transpose(1, 2) if layout == "bhnk" else out
 
 
@@ -216,7 +252,8 @@ def reference_attention_lse(q: torch.Tensor, k: torch.Tensor,
 def reference_attention_backward(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor, g: torch.Tensor,
                                  layout: str = "bnhk", dropout=None,
-                                 offsets=(0, 0, 0), lse=None, delta=None):
+                                 offsets=(0, 0, 0), lse=None, delta=None,
+                                 out_dtype=None):
     """(dq, dk, dv) of ``reference_attention`` for the output cotangent g,
     as the JAX package's ``_flash_bwd_chunked`` (fp32 variant) computes
     them: fp32 scores, softmax and g v^T; with ``dropout`` (``(seed,
@@ -229,7 +266,8 @@ def reference_attention_backward(q: torch.Tensor, k: torch.Tensor,
     With ``lse`` and ``delta`` (``(B, H, N)`` fp32, what the backward
     kernel takes) it is the kernel's plain version: p = exp(s - lse) and
     ds = p * (dp - delta), so k and v may be one block of a longer
-    sequence whose statistics these are (a ring attention step)."""
+    sequence whose statistics these are (a ring attention step), and
+    ``out_dtype`` (fp32) returns the grads unrounded."""
     qh, kh, vh, gh = (_heads_major(t, layout) for t in (q, k, v, g))
     dtype = q.dtype
     scores = torch.einsum("bhnk,bhmk->bhnm", qh.float(), kh.float())
@@ -248,7 +286,7 @@ def reference_attention_backward(q: torch.Tensor, k: torch.Tensor,
     ds = ds.to(dtype).float()
     dq = torch.einsum("bhnm,bhmk->bhnk", ds, kh.float())
     dk = torch.einsum("bhnm,bhnk->bhmk", ds, qh.float())
-    return tuple(_heads_major(t.to(ref.dtype), layout)
+    return tuple(_heads_major(t.to(out_dtype or ref.dtype), layout)
                  for t, ref in ((dq, q), (dk, k), (dv, v)))
 
 
@@ -303,7 +341,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     a rate without ``dropout_seed`` (an integer, taken mod 2**32, or a
     one-element integer tensor), raises ValueError. ``offsets`` are the
     global (batch*head, query, key) coordinates of the first row, query and
-    key, which place the dropout mask (module docstring). Returns the output,
+    key, and optionally the batch*head row map, which place the dropout
+    mask (module docstring, ``mask_coords``). Returns the output,
     or ``(output, lse)`` with ``with_lse`` (lse is ``(B, H, N)`` fp32;
     that form is not differentiable).
     """
@@ -324,7 +363,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"the dropout seed lies on {seed.device}, "
                              f"q/k/v on {q.device}")
         dropout = seed, rate
-    offsets = tuple(int(o) & _M32 for o in offsets)
+    offsets = mask_coords(offsets)
     if with_lse:
         if use_kernel:
             return _launch_forward(q, k, v, layout, with_lse=True,
@@ -427,9 +466,9 @@ def _axes(t: torch.Tensor, layout: str):
 
 def _dropout_c_args(dropout, offsets=(0, 0, 0)) -> tuple:
     """The kernels' (flag, seed address, threshold, inv_keep, bh_base,
-    q_base, k_base) arguments for ``(seed tensor, rate)`` and the mask's
-    offsets."""
-    offsets = tuple(int(o) & _M32 for o in offsets)
+    q_base, k_base, inner_local, inner_global, inner_base) arguments for
+    ``(seed tensor, rate)`` and the mask's offsets (``mask_coords``)."""
+    offsets = mask_coords(offsets)
     if dropout is None:
         return (0, None, 0, 0.0) + offsets
     seed, rate = dropout
@@ -438,16 +477,28 @@ def _dropout_c_args(dropout, offsets=(0, 0, 0)) -> tuple:
 
 
 def _launch_forward(q, k, v, layout: str, with_lse: bool = False,
-                    dropout=None, offsets=(0, 0, 0)):
+                    dropout=None, offsets=(0, 0, 0), out_fp32: bool = False,
+                    state=None, suspend: bool = False):
     """One forward launch through ``torch.ops.vtd_torch.flash_attention_fwd``
     (kernels/ops.py): ``out``, or ``(out, lse)`` with ``with_lse``;
-    ``offsets`` place the dropout mask."""
+    ``offsets`` place the dropout mask (``mask_coords``); ``out_fp32``
+    takes the kernel's fp32-output instance (out unrounded, whatever the
+    input dtype). A ring attention block resumes the online softmax's
+    ``state`` (``(acc, m, l)``, as a suspended launch returns it) and,
+    with ``suspend``, returns its own state in place of ``(out, lse)``:
+    blocks chained so in key order compute what one launch over all the
+    keys computes."""
     _check_inputs(q, k, v)
     kdim = q.shape[-1]
     q, k, v = (_pad_head_dim(t) for t in (q, k, v))
     seed, rate = dropout or (None, 0.0)
-    out, lse = torch.ops.vtd_torch.flash_attention_fwd(
-        q, k, v, layout, with_lse, seed, rate, *offsets)
+    acc_in, m_in, l_in = state if state is not None else (None, None, None)
+    out, lse, m, l = torch.ops.vtd_torch.flash_attention_fwd(
+        q, k, v, layout, with_lse, seed, rate, *mask_coords(offsets),
+        out_fp32=out_fp32, acc_in=acc_in, m_in=m_in, l_in=l_in,
+        suspend=suspend)
+    if suspend:
+        return out, m, l          # at the padded width, as the next reads it
     out = out[..., :kdim] if kdim < out.shape[-1] else out
     return (out, lse) if with_lse else out
 
@@ -479,7 +530,7 @@ def dq_route(dtype: torch.dtype, request: int = 0,
 
 def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None,
                      route: str | None = None, offsets=(0, 0, 0),
-                     fp32_dq: bool = False):
+                     fp32_dq: bool = False, fp32_dkv: bool = False):
     """dq, dk, dv from the backward kernels, through
     ``torch.ops.vtd_torch.flash_attention_bwd`` (kernels/ops.py). lse and
     delta are (B, H, N) fp32; dq accumulates in fp32 and is cast to q's
@@ -488,8 +539,8 @@ def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None,
     replays, reading the seed from device memory, placed by ``offsets``.
     ``route`` names one of ``DQ_ROUTES`` to take instead of the one the
     dtype selects (the tests and the timings use it). ``fp32_dq`` returns
-    dq as the kernel summed it, in fp32 (a ring attention step adds it to
-    its accumulator before any rounding)."""
+    dq as the kernel summed it, in fp32, and ``fp32_dkv`` dk and dv (a ring
+    attention step adds them to its accumulators before any rounding)."""
     _check_inputs(q, k, v, g)
     kdim = q.shape[-1]
     # The incoming cotangent is whatever view autograd hands over (an
@@ -509,6 +560,6 @@ def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None,
     seed, rate = dropout or (None, 0.0)
     dq, dk, dv = torch.ops.vtd_torch.flash_attention_bwd(
         q, k, v, g, lse, delta, layout, seed, rate, DQ_ROUTES[route],
-        *offsets)
+        *mask_coords(offsets), dkv_fp32=fp32_dkv)
     dq = dq[..., :kdim]
     return (dq if fp32_dq else dq.to(q.dtype)), dk[..., :kdim], dv[..., :kdim]

@@ -62,14 +62,15 @@ def _library(kind: str) -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     u32 = ctypes.c_uint32
     # dropout flag, the seed's device address, keep threshold, inv_keep,
-    # the mask's bh/query/key offsets, then the stream.
-    dropout = [i32, ptr, u32, ctypes.c_float, u32, u32, u32, ptr]
+    # the mask's bh/query/key offsets and its batch*head row map, then the
+    # stream.
+    dropout = [i32, ptr, u32, ctypes.c_float] + [u32] * 6 + [ptr]
     if kind == "fwd":
         fn = lib.vtd_flash_attention_fwd
-        fn.argtypes = [ptr] * 5 + [i32] * 5 + [i64] * 12 + dropout
+        fn.argtypes = [ptr] * 10 + [i32] * 6 + [i64] * 12 + dropout
     elif kind == "bwd":
         fn = lib.vtd_flash_attention_bwd
-        fn.argtypes = [ptr] * 10 + [i32] * 5 + [i64] * 21 + dropout
+        fn.argtypes = [ptr] * 10 + [i32] * 6 + [i64] * 21 + dropout
     elif kind == "ln":
         fn = lib.vtd_layer_norm
         fn.argtypes = [ptr] * 4 + [i32] * 2 + [ctypes.c_float, i32, ptr]
@@ -82,7 +83,7 @@ def _library(kind: str) -> ctypes.CDLL:
     else:
         fn = lib.vtd_dropout
         fn.argtypes = [ptr, ptr, i64, i32, i32, ptr, u32, ctypes.c_float,
-                       u32, ptr]
+                       u32, u32, u32, u32, u32, ptr]
     fn.restype = i32
     lib.vtd_cuda_error_string.argtypes = [i32]
     lib.vtd_cuda_error_string.restype = ctypes.c_char_p
@@ -118,43 +119,89 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         layout: str, with_lse: bool,
                         dropout_seed: Optional[torch.Tensor],
                         dropout_rate: float, bh_base: int = 0,
-                        q_base: int = 0, k_base: int = 0
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(out, lse)`` of softmax(q k^T) v over ``layout``-ordered q/k/v,
-    their head dim already one of the kernel's widths. lse is ``(B, H,
-    N)`` fp32 with ``with_lse``, else empty. ``dropout_rate`` 0 means no
-    dropout; otherwise ``dropout_seed`` is the one-element device tensor
-    the kernel reads the seed from, and ``bh_base``/``q_base``/``k_base``
-    place the mask (the global coordinates of the first row, query and
-    key). One launch of csrc/flash_attention_fwd.cu."""
+                        q_base: int = 0, k_base: int = 0,
+                        inner_local: int = 1, inner_global: int = 1,
+                        inner_base: int = 0, out_fp32: bool = False,
+                        acc_in: Optional[torch.Tensor] = None,
+                        m_in: Optional[torch.Tensor] = None,
+                        l_in: Optional[torch.Tensor] = None,
+                        suspend: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """``(out, lse, m, l)`` of softmax(q k^T) v over ``layout``-ordered
+    q/k/v, their head dim already one of the kernel's widths. lse is ``(B,
+    H, N)`` fp32 with ``with_lse``, else empty; out is in q's dtype, or
+    fp32 with ``out_fp32``. A ring attention block (fp32 out) carries the
+    online softmax's state: ``acc_in`` (out's shape and strides), ``m_in``
+    ``(B, H, N)`` and ``l_in`` ``(B, H, N, 4)`` resume it as the block
+    before suspended it; with ``suspend`` out is the unnormalised
+    accumulator, m and l the state to hand on (else empty), and no lse is
+    written. ``dropout_rate`` 0 means no dropout; otherwise
+    ``dropout_seed`` is the one-element device tensor the kernel reads the
+    seed from, and ``bh_base``/``q_base``/``k_base`` and the batch*head
+    row map ``inner_local``/``inner_global``/``inner_base`` place the mask
+    (flash_attention.mask_coords). One launch of
+    csrc/flash_attention_fwd.cu."""
     fa = flash_attention
     q, k, v = fa._kernel_operands(layout, q=q, k=k, v=v)
     dropout = _dropout(dropout_seed, dropout_rate, q.device)
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=torch.float32 if out_fp32 else q.dtype)
     (b, h, n), _ = fa._axes(q, layout)
-    lse = torch.empty((b, h, n) if with_lse else (0,), dtype=torch.float32,
-                      device=q.device)
+    lse = torch.empty((b, h, n) if with_lse and not suspend else (0,),
+                      dtype=torch.float32, device=q.device)
+    resume = m_in is not None
+    if (resume or suspend) and out.dtype != torch.float32:
+        raise ValueError("a ring attention block's state needs an fp32 "
+                         "output (out_fp32)")
+    if resume:
+        for name, t, shape in (("acc_in", acc_in, out.shape),
+                               ("m_in", m_in, (b, h, n)),
+                               ("l_in", l_in, (b, h, n, 4))):
+            if (t is None or t.shape != shape or t.device != q.device
+                    or t.dtype != torch.float32):
+                raise ValueError(f"{name} must be a float32 {tuple(shape)} "
+                                 f"tensor on {q.device}")
+        if (acc_in.stride() != out.stride() or not m_in.is_contiguous()
+                or not l_in.is_contiguous()):
+            raise ValueError("acc_in must have the output's strides, m_in "
+                             "and l_in be contiguous")
+    m_out = torch.empty((b, h, n) if suspend else (0,), dtype=torch.float32,
+                        device=q.device)
+    l_out = torch.empty((b, h, n, 4) if suspend else (0,),
+                        dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, out) for s in fa._axes(t, layout)[1]]
     lib = _library("fwd")
     with torch.cuda.device(q.device):
         err = lib.vtd_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if with_lse else None, _DTYPE_CODES[q.dtype],
-            b, h, n, q.shape[-1], *strides,
-            *fa._dropout_c_args(dropout, (bh_base, q_base, k_base)),
+            lse.data_ptr() if lse.numel() else None,
+            *((m_in.data_ptr(), l_in.data_ptr(), acc_in.data_ptr()) if resume
+              else (None, None, None)),
+            *((m_out.data_ptr(), l_out.data_ptr()) if suspend
+              else (None, None)),
+            _DTYPE_CODES[q.dtype],
+            int(out_fp32), b, h, n, q.shape[-1], *strides,
+            *fa._dropout_c_args(dropout, (bh_base, q_base, k_base,
+                                          inner_local, inner_global,
+                                          inner_base)),
             _stream(q.device))
     _build.raise_on_error(lib, err, "flash attention forward")
     fa._count("drop_launches" if dropout is not None
               else "lse_launches" if with_lse else "launches")
-    return out, lse
+    return out, lse, m_out, l_out
 
 
 @flash_attention_fwd.register_fake
 def _(q, k, v, layout, with_lse, dropout_seed, dropout_rate, bh_base=0,
-      q_base=0, k_base=0):
+      q_base=0, k_base=0, inner_local=1, inner_global=1, inner_base=0,
+      out_fp32=False, acc_in=None, m_in=None, l_in=None, suspend=False):
     (b, h, n), _ = flash_attention._axes(q, layout)
-    return (torch.empty_like(q),
-            q.new_empty((b, h, n) if with_lse else (0,),
+    return (torch.empty_like(q, dtype=torch.float32 if out_fp32
+                             else q.dtype),
+            q.new_empty((b, h, n) if with_lse and not suspend else (0,),
+                        dtype=torch.float32),
+            q.new_empty((b, h, n) if suspend else (0,), dtype=torch.float32),
+            q.new_empty((b, h, n, 4) if suspend else (0,),
                         dtype=torch.float32))
 
 
@@ -168,7 +215,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         delta: torch.Tensor, layout: str,
                         dropout_seed: Optional[torch.Tensor],
                         dropout_rate: float, request: int = 0,
-                        bh_base: int = 0, q_base: int = 0, k_base: int = 0
+                        bh_base: int = 0, q_base: int = 0, k_base: int = 0,
+                        inner_local: int = 1, inner_global: int = 1,
+                        inner_base: int = 0, dkv_fp32: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq fp32, dk, dv)`` at the padded head dim from the backward
     kernels (csrc/flash_attention_bwd.cu); lse and delta are contiguous
@@ -176,15 +225,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and written once, so it is the same on every run. A nonzero
     ``dropout_rate`` replays the forward's mask, its seed read from
     ``dropout_seed``'s device memory and placed by ``bh_base``/``q_base``/
-    ``k_base`` as in the forward. ``request`` is one of
+    ``k_base`` and the row map as in the forward. ``request`` is one of
     ``flash_attention.DQ_ROUTES``' values (0: the route the dtype
-    selects)."""
+    selects). ``dkv_fp32`` writes dk and dv in fp32 (bf16 inputs, the
+    split route: a ring attention block)."""
     fa = flash_attention
     q, k, v, g = fa._kernel_operands(layout, q=q, k=k, v=v, g=g)
     dropout = _dropout(dropout_seed, dropout_rate, q.device)
     (b, h, n), _ = fa._axes(q, layout)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dk, dv = (torch.empty_like(t, dtype=torch.float32 if dkv_fp32
+                               else t.dtype) for t in (k, v))
     partials = None
     if fa.dq_route(q.dtype, request, fa.partials_bytes(
             b, h, n, q.shape[-1])) == "partials":
@@ -198,8 +249,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), None if partials is None else partials.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, h, n, q.shape[-1],
-            *strides, *fa._dropout_c_args(dropout, (bh_base, q_base, k_base)),
+            _DTYPE_CODES[q.dtype], int(dkv_fp32), b, h, n, q.shape[-1],
+            *strides, *fa._dropout_c_args(dropout, (
+                bh_base, q_base, k_base, inner_local, inner_global,
+                inner_base)),
             _stream(q.device))
     _build.raise_on_error(lib, err, "flash attention backward")
     fa._count("backward_launches" if dropout is None
@@ -209,9 +262,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @flash_attention_bwd.register_fake
 def _(q, k, v, g, lse, delta, layout, dropout_seed, dropout_rate, request=0,
-      bh_base=0, q_base=0, k_base=0):
-    return (q.new_empty(q.shape, dtype=torch.float32), torch.empty_like(k),
-            torch.empty_like(v))
+      bh_base=0, q_base=0, k_base=0, inner_local=1, inner_global=1,
+      inner_base=0, dkv_fp32=False):
+    return (q.new_empty(q.shape, dtype=torch.float32),
+            *(torch.empty_like(t, dtype=torch.float32 if dkv_fp32
+                               else t.dtype) for t in (k, v)))
 
 
 # ---------------------------------------------------------------------------
@@ -362,10 +417,14 @@ def _(x2, kernel_q, transposed, scale, bias, apply_mish, request):
 
 @_define("dropout")
 def dropout_apply(x2: torch.Tensor, seed: torch.Tensor,
-                  rate: float, row_base: int = 0) -> torch.Tensor:
+                  rate: float, row_base: int = 0, inner_local: int = 1,
+                  inner_global: int = 1, inner_base: int = 0,
+                  col_base: int = 0) -> torch.Tensor:
     """keras Dropout of the rows of 2-D ``x2`` with the counter-hash mask
-    of the uint32 seed in ``seed``'s device memory (csrc/dropout.cu), rows
-    counted from ``row_base``, output in x2's dtype."""
+    of the uint32 seed in ``seed``'s device memory (csrc/dropout.cu), each
+    row mapped by ``inner_local``/``inner_global``/``inner_base`` and
+    counted from ``row_base``, the columns from ``col_base``
+    (dropout.dropout_mask), output in x2's dtype."""
     _dropout(seed, rate, x2.device)
     x2 = x2.contiguous()
     out = torch.empty_like(x2)
@@ -375,7 +434,9 @@ def dropout_apply(x2: torch.Tensor, seed: torch.Tensor,
             x2.data_ptr(), out.data_ptr(), x2.shape[0], x2.shape[1],
             _DTYPE_CODES[x2.dtype], seed.data_ptr(),
             flash_attention._keep_threshold(rate), dropout.inv_keep(rate),
-            int(row_base) & flash_attention._M32, _stream(x2.device))
+            *(int(a) & flash_attention._M32 for a in (
+                row_base, inner_local, inner_global, inner_base, col_base)),
+            _stream(x2.device))
     _build.raise_on_error(lib, err, "dropout")
     with dropout._count_lock:
         dropout.dropout.launches += 1
@@ -383,5 +444,6 @@ def dropout_apply(x2: torch.Tensor, seed: torch.Tensor,
 
 
 @dropout_apply.register_fake
-def _(x2, seed, rate, row_base=0):
+def _(x2, seed, rate, row_base=0, inner_local=1, inner_global=1,
+      inner_base=0, col_base=0):
     return x2.new_empty(x2.shape)

@@ -65,17 +65,32 @@ Under a mesh (``forward(..., mesh=...)``, parallel/mesh.py) this process
 runs its shard of the global batch: the shards are the global batch's
 rows in 'data' rank order, so every dropout mask (attention, MLP, head)
 is keyed on the rows' GLOBAL batch coordinates and a data-parallel run
-draws the masks one process draws over the whole batch. With
-``ring_attention`` the attention of each block runs as ring attention
-over the mesh's 'model' axis (kernels/ring_attention.py): the block's
-input is sliced to this rank's tokens, projected, attended around the
-ring, projected out and gathered back; everything outside attention is
-replicated over 'model'. Without a mesh a ring config runs plain global
-attention, as the JAX forward does.
-
-Not ported, and rejected with NotImplementedError rather than run
-differently: sequence sharding, and a model axis above 1 without
-ring_attention (tensor parallelism; parallel/mesh.py).
+draws the masks one process draws over the whole batch. The 'model' axis
+carries one thing (parallel/mesh.py:model_axis_role, ``_Shard``):
+  * ``ring_attention``: the attention of each block runs as ring
+    attention (kernels/ring_attention.py): the block's input is sliced to
+    this rank's tokens, projected, attended around the ring, projected out
+    and gathered back; everything outside attention is replicated;
+  * ``sequence_sharding`` (JAX's ``_maybe_shard_sequence``): the tokens
+    are split once, in the window-major order, after the embedding and the
+    position embedding, so a rank holds whole windows (when the axis
+    divides the windows; the tokens without windows; else every rank runs
+    every token, the same function). LayerNorm, the pyramid, the residuals
+    and windowed attention run on the rank's tokens with no exchange;
+    global attention runs over keys and values gathered along the tokens
+    (or around the ring with ``ring_attention``); the tokens are gathered
+    before the head, and the embedding's and encoder's gradients summed
+    over 'model';
+  * otherwise tensor parallelism: the rank holds its slices of the
+    parameters (parallel/mesh.py:shard_params). Attention runs on its
+    H/M heads (column-parallel q/k/v, a row-parallel out projection), the
+    pyramid and head MLP layers are column- or row-parallel as placed, and
+    each sharded layer sums its partial products over 'model' in fp32 and
+    rounds where one process's product rounds.
+Every mask is keyed on the element's global coordinates, through the
+kernels' row maps (flash_attention.mask_coords, dropout.dropout_mask).
+Without a mesh these configs run the plain forward, as the JAX forward
+does.
 """
 
 from __future__ import annotations
@@ -94,13 +109,16 @@ from torch.utils.checkpoint import (
 
 from ..config import DetectorConfig
 from ..kernels.dropout import dropout
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import IDENTITY_MAP, flash_attention
 from ..kernels.fused_ffn import fused_dense_mish
 from ..kernels.fused_ln import fused_layer_norm, layer_norm_reference
 from ..kernels.quantization import fused_int8_dense, int8_dense, is_quantized
 from ..kernels.ring_attention import (
-    gather_tokens, ring_attention, shard_tokens, sum_grads_over)
-from ..parallel.mesh import DATA_AXIS, axis_index, check_mesh_config
+    check_ring_tokens, gathered_attention, ring_attention)
+from ..parallel import tensor
+from ..parallel.mesh import (
+    DATA_AXIS, MODEL_AXIS, axis_index, axis_size, model_axis_role,
+    param_placements)
 from ..utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -112,17 +130,6 @@ def _dtype(name: str) -> torch.dtype:
     except KeyError:
         raise ValueError(f"unsupported dtype {name!r}; "
                          f"use one of {sorted(_DTYPES)}") from None
-
-
-def check_supported(config: DetectorConfig) -> None:
-    """Raise NotImplementedError for config features this port lacks."""
-    unported = {
-        "sequence_sharding": config.sequence_sharding,
-    }
-    missing = [name for name, used in unported.items() if used]
-    if missing:
-        raise NotImplementedError(
-            f"config features not ported to PyTorch yet: {missing}")
 
 
 def _validate_grid_config(config: DetectorConfig) -> None:
@@ -213,7 +220,6 @@ class ViTDetector(nn.Module):
 
     def __init__(self, config: DetectorConfig, head_dim: int | None = None):
         super().__init__()
-        check_supported(config)
         _validate_grid_config(config)
         dtype = _dtype(config.param_dtype)
         head_dim = config.key_dim if head_dim is None else head_dim
@@ -244,6 +250,17 @@ class ViTDetector(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         return forward(self, images, self.config)
+
+
+@functools.lru_cache(maxsize=None)
+def full_shapes(config: DetectorConfig, head_dim: int | None = None) -> tuple:
+    """``(name, shape)`` of every parameter of ``ViTDetector(config,
+    head_dim)`` (a meta-device skeleton: nothing is allocated), the full
+    shapes that tensor parallelism's placements are taken on."""
+    with torch.device("meta"):
+        model = ViTDetector(config, head_dim)
+    return tuple((name, tuple(p.shape))
+                 for name, p in model.named_parameters())
 
 
 # ---------------------------------------------------------------------------
@@ -385,24 +402,133 @@ def _layer_norm(x, layer: LayerNorm, eps: float = 1e-3,
     return layer_norm_reference(x, layer.gamma, layer.beta, eps)
 
 
-def _dropout(x, rate, seed, train: bool, batch_base: int = 0,
-             batch: int = 1) -> torch.Tensor:
+def _dropout(x, rate, seed, train: bool, rows=(0, IDENTITY_MAP),
+             col_base: int = 0) -> torch.Tensor:
     """keras Dropout (the JAX package's ``_dropout``): x / keep where a
     Bernoulli(keep) mask is set, else 0, in x's dtype, through
     kernels/dropout.py. The mask is ``dropout_mask`` of ``seed``, so a
-    block recomputed under remat draws the same mask. ``x`` holds
-    ``batch`` images starting at global image ``batch_base``: its rows
-    are numbered from that image's first row."""
+    block recomputed under remat draws the same mask. ``rows`` is ``(row
+    base, row map)`` and ``col_base`` the first column: where x's rows and
+    columns lie in the global array (``_Shard.token_rows``)."""
     if not train or rate is None or rate == 0.0 or seed is None:
         return x
-    return dropout(x, seed, rate,
-                   batch_base * _rows_per_image(x.shape[:-1], batch))
+    row_base, row_map = rows
+    return dropout(x, seed, rate, row_base, row_map, col_base)
 
 
-def _rows_per_image(leading, batch: int) -> int:
-    """Rows (or batch*head rows) of one image in an array whose leading
-    axes ``leading`` hold ``batch`` images."""
-    return math.prod(leading) // batch
+def _row_map(local: int, whole: int, first: int) -> tuple:
+    """The two-level row map of a part of ``local`` rows starting at row
+    ``first`` of each ``whole`` (flash_attention.map_rows), the identity
+    when the part is the whole."""
+    if local == whole and first == 0:
+        return IDENTITY_MAP
+    return (local, whole, first)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Shard:
+    """This rank's part of the global forward (one process: the
+    defaults): its first image of the global batch and, by what the
+    mesh's 'model' axis carries (parallel/mesh.py:model_axis_role), its
+    tokens, ``(first, count)`` of the window-major order (sequence
+    sharding; None: all), or which layers it holds a slice of (tensor
+    parallelism: the attention heads, each pyramid and head MLP layer's
+    split axis, None where replicated)."""
+
+    mesh: object = None
+    batch_base: int = 0
+    tokens: Optional[Tuple[int, int]] = None
+    heads: bool = False
+    mlp: Tuple[Optional[int], ...] = ()
+    head_mlp: Tuple[Optional[int], ...] = ()
+
+    @property
+    def index(self) -> int:
+        return axis_index(self.mesh, MODEL_AXIS)
+
+    @property
+    def size(self) -> int:
+        return axis_size(self.mesh, MODEL_AXIS)
+
+    def token_rows(self, config: DetectorConfig) -> tuple:
+        """``_dropout``'s rows of a ``(B, tokens, F)`` encoder activation:
+        each image's rows start at its global image times the patch count;
+        a token shard is ``count`` of them from ``first``."""
+        n = config.num_patches
+        first, count = self.tokens or (0, n)
+        return self.batch_base * n, _row_map(count, n, first)
+
+
+def _shard_of(mesh, config: DetectorConfig, params, batch: int) -> _Shard:
+    """The ``_Shard`` of this rank for ``batch`` local images. Sequence
+    sharding splits the window-major tokens when the 'model' axis divides
+    the windows (whole windows a rank; the tokens without windows), else
+    runs every token on every rank (the same function); tensor
+    parallelism takes the layers' placements on the full shapes (an
+    int8-quantized model, whose codes JAX's placements replicate, runs
+    replicated)."""
+    role = model_axis_role(mesh, config)
+    shard = _Shard(mesh, axis_index(mesh, DATA_AXIS) * batch)
+    size = axis_size(mesh, MODEL_AXIS)
+    if role == "sequence":
+        n, w = config.num_patches, config.attention_window
+        units = n if w is None else n // (w * w)
+        if units % size == 0:
+            count = n // size
+            shard = dataclasses.replace(
+                shard, tokens=(axis_index(mesh, MODEL_AXIS) * count, count))
+    elif role == "tensor" and not is_quantized(params.linear_projection):
+        head_dim = params.encoder[0].mha.query.kernel.shape[-1] \
+            if len(params.encoder) else None
+        placed = param_placements(full_shapes(config, head_dim), size)
+        shard = dataclasses.replace(
+            shard,
+            heads=placed.get("encoder.0.mha.query.kernel") is not None,
+            mlp=tuple(placed.get(f"encoder.0.mlp.{j}.kernel")
+                      for j in range(config.encoder_mlp_layers)),
+            head_mlp=tuple(placed[f"head_mlp.{j}.kernel"]
+                           for j in range(len(params.head_mlp))))
+    return shard
+
+
+class _Swapped:
+    """A module tree read by attribute, as the forward reads the model,
+    with the parameters named in ``tensors`` (state-dict names) swapped
+    for those tensors."""
+
+    def __init__(self, module, tensors, prefix: str = ""):
+        self._module, self._tensors, self._prefix = module, tensors, prefix
+
+    def __getattr__(self, name):
+        key = self._prefix + name
+        if key in self._tensors:
+            return self._tensors[key]
+        value = getattr(self._module, name)
+        if isinstance(value, nn.Module):
+            return _Swapped(value, self._tensors, key + ".")
+        return value
+
+    def __getitem__(self, i):
+        return _Swapped(self._module[i], self._tensors,
+                        f"{self._prefix}{i}.")
+
+    def __len__(self):
+        return len(self._module)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+
+def _sum_token_grads(params, mesh):
+    """``params`` with the gradients of the embedding and the encoder
+    summed over 'model' (one flat all-reduce in the backward): under
+    sequence sharding each rank runs them on its own tokens. The head
+    runs on the gathered tokens, alike on every rank, and keeps its
+    own."""
+    named = [(n, p) for n, p in params.named_parameters()
+             if not n.startswith("head")]
+    summed = tensor.sum_grads_over(mesh, (p for _, p in named))
+    return _Swapped(params, dict(zip((n for n, _ in named), summed)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -481,14 +607,22 @@ def _seed_views(table: torch.Tensor, config: DetectorConfig):
             tuple(views[blocks * (1 + layers):]))
 
 
+def _activation(x, config: DetectorConfig, train: bool, seed, rows,
+                col_base: int = 0) -> torch.Tensor:
+    """mish (or gelu) and the training dropout of a pyramid layer."""
+    x = mish(x) if config.use_mish else F.gelu(x)
+    return _dropout(x, config.dropout, seed, train, rows, col_base)
+
+
 def _dense_activation(x, layer: Dense, config: DetectorConfig,
                       compute_dtype, train: bool = False,
-                      seed: Optional[int] = None,
-                      batch_base: int = 0) -> torch.Tensor:
+                      seed: Optional[int] = None, rows=(0, IDENTITY_MAP),
+                      col_base: int = 0) -> torch.Tensor:
     """Dense + activation (+ dropout) of the pyramid layers: the fused
     dense+mish kernel first (not under training dropout), then the int8
     kernel with mish at inference, then the plain route with dropout (the
-    JAX forward's order)."""
+    JAX forward's order). ``rows`` and ``col_base`` place the dropout
+    mask (``_dropout``)."""
     if (config.use_fused_ffn and config.use_mish
             and not is_quantized(layer)
             and (config.dropout is None or not train)):
@@ -500,37 +634,128 @@ def _dense_activation(x, layer: Dense, config: DetectorConfig,
     if is_quantized(layer) and config.use_mish and not train:
         return fused_int8_dense(x, layer,
                                 apply_mish=True).to(compute_dtype)
-    x = _dense(x, layer, compute_dtype)
-    x = mish(x) if config.use_mish else F.gelu(x)
-    return _dropout(x, config.dropout, seed, train, batch_base, x.shape[0])
+    return _activation(_dense(x, layer, compute_dtype), config, train, seed,
+                       rows, col_base)
+
+
+def _row_parallel(x, kernel, bias, compute_dtype, mesh) -> torch.Tensor:
+    """A row-parallel layer of tensor parallelism: this rank's input
+    columns times its rows of ``kernel`` (2-D), the fp32 partial sums
+    all-reduced over 'model' and rounded to the compute dtype as one
+    process's product is, then the (replicated) bias added once, after
+    the reduce; fp32 out, as ``_linear``."""
+    y = tensor.row_parallel_matmul(x.to(compute_dtype),
+                                   kernel.to(compute_dtype), mesh)
+    return y.float() + bias.float()
+
+
+def _column_parallel(x, kernel, bias, compute_dtype, mesh) -> torch.Tensor:
+    """A column-parallel layer of tensor parallelism: this rank's output
+    columns (``kernel`` and ``bias`` its slices) as one process computes
+    them; the input's gradient is the ranks' fp32 partial products summed
+    over 'model' and rounded once; fp32 out, as ``_linear``."""
+    y = tensor.column_parallel_matmul(x.to(compute_dtype),
+                                      kernel.to(compute_dtype), mesh)
+    return y.float() + bias.float()
+
+
+def _mlp_chain(x, layers, axes, seeds, config: DetectorConfig, compute_dtype,
+               train: bool, shard: _Shard, rows) -> torch.Tensor:
+    """The dense + activation layers of a pyramid (or the head MLP), each
+    as ``axes`` places it under tensor parallelism: column-parallel (1),
+    row-parallel (0) or replicated (None; every layer without a mesh).
+    The activation between layers is replicated or split on its last
+    axis, and each layer inserts only what its placement needs from that:
+    a column-parallel layer gathers a split input, a row-parallel one
+    slices a replicated input, a replicated one gathers a split input; the
+    chain ends replicated. The sharded layers round as the whole layer
+    does (``_row_parallel``, ``_column_parallel``)."""
+    mesh = shard.mesh
+    split = False
+    for layer, axis, seed in zip(layers, axes or (None,) * len(layers),
+                                 seeds):
+        if axis == 0 and not split:
+            x = tensor.split(x, -1, mesh)
+        elif axis != 0 and split:
+            x = tensor.gather(x, -1, mesh)
+        if axis is None:
+            x = _dense_activation(x, layer, config, compute_dtype, train,
+                                  seed, rows)
+            split = False
+            continue
+        if axis == 0:
+            y = _row_parallel(x, layer.kernel, layer.bias, compute_dtype,
+                              mesh)
+            col_base = 0
+        else:
+            y = _column_parallel(x, layer.kernel,
+                                 tensor.split(layer.bias, 0, mesh),
+                                 compute_dtype, mesh)
+            col_base = shard.index * layer.kernel.shape[1]
+        x = _activation(y.to(compute_dtype), config, train, seed, rows,
+                        col_base)
+        split = axis == 1
+    if split:
+        x = tensor.gather(x, -1, mesh)
+    return x
 
 
 def _attend(q, k, v, config: DetectorConfig, compute_dtype, rate, seed,
-            train: bool, batch_base: int = 0, batch: int = 1) -> torch.Tensor:
-    """Attention over heads-major ``(B', G, T, K)`` views of ``batch``
-    images from global image ``batch_base`` on: the flash wrapper
-    (dropout in the kernel; its batch*head index is b' * G + g, counted
-    from the first image's global row), or the einsum route with dropout
-    on the probabilities (JAX's einsum routes' order: scores of shape
-    (B', G, T, T)). The flash route returns the compute dtype, the einsum
-    route fp32."""
+            train: bool, rows=(0, IDENTITY_MAP)) -> torch.Tensor:
+    """Attention over heads-major ``(B', G, T, K)`` views: the flash
+    wrapper (dropout in the kernel), or the einsum route with dropout on
+    the probabilities (JAX's einsum routes' order: scores of shape (B', G,
+    T, T)). ``rows`` is ``(base, map)`` of the batch*head index b' * G + g
+    in the global arrays (flash_attention.mask_coords), which places the
+    masks. The flash route returns the compute dtype, the einsum route
+    fp32."""
+    base, row_map = rows
     if config.use_flash_attention:
-        bh_base = batch_base * _rows_per_image(q.shape[:2], batch)
         return flash_attention(q, k, v, layout="bhnk", dropout_rate=rate,
-                               dropout_seed=seed, offsets=(bh_base, 0, 0))
+                               dropout_seed=seed,
+                               offsets=(base, 0, 0, *row_map))
     # Compute-dtype values, fp32 products and sums (exact upcast, as
-    # preferred_element_type=float32 in the JAX einsums).
+    # preferred_element_type=float32 in the JAX einsums). The mask's rows
+    # are the batch*head rows times the T queries.
+    t = q.shape[2]
     scores = torch.einsum("bgnk,bgmk->bgnm", q.float(), k.float())
     probs = _dropout(torch.softmax(scores, dim=-1), rate, seed, train,
-                     batch_base, batch)
+                     (base * t, tuple(r * t for r in row_map)
+                      if row_map != IDENTITY_MAP else IDENTITY_MAP))
     return torch.einsum("bgnm,bgmk->bgnk", probs.to(compute_dtype).float(),
+                        v.float())
+
+
+def _global_attention(q, k, v, config: DetectorConfig, compute_dtype, rate,
+                      seed, train: bool, shard: _Shard) -> torch.Tensor:
+    """Sequence sharding's global attention of this rank's ``(B, n, H,
+    K)`` queries over every rank's keys: ring attention under
+    ``ring_attention``, else the flash blocks over K and V all-gathered
+    along the tokens (kernels/ring_attention.py:gathered_attention), or
+    the einsum route over them; ``(B, n, H, K)`` out (the compute dtype
+    from the kernels, fp32 from the einsums)."""
+    if config.ring_attention or config.use_flash_attention:
+        attend = ring_attention if config.ring_attention \
+            else gathered_attention
+        return attend(q, k, v, shard.mesh, dropout_rate=rate,
+                      dropout_seed=seed)
+    k, v = (tensor.gather_scatter(t, 1, shard.mesh) for t in (k, v))
+    b, n, h, _ = q.shape
+    scores = torch.einsum("bnhk,bmhk->bhnm", q.float(), k.float())
+    # One process's rows of the (B, H, N, N) probabilities: (b * H + h) *
+    # N + query.
+    whole = k.shape[1]
+    probs = _dropout(torch.softmax(scores, dim=-1), rate, seed, train,
+                     (shard.batch_base * h * whole,
+                      _row_map(n, whole, shard.tokens[0])))
+    return torch.einsum("bhnm,bmhk->bnhk", probs.to(compute_dtype).float(),
                         v.float())
 
 
 def _attention(x, mha: MultiHeadAttention, config: DetectorConfig,
                compute_dtype, train: bool = False,
-               seed: Optional[int] = None, mesh=None,
-               batch_base: int = 0) -> torch.Tensor:
+               seed: Optional[int] = None,
+               shard: _Shard = _Shard()) -> torch.Tensor:
     """keras MHA semantics, with windows when ``config.attention_window``
     is set (the tokens arrive window-major). Projections come out
     tokens-major ``(B, N, H, K)``. Head dims that are multiples of 64 take
@@ -538,9 +763,18 @@ def _attention(x, mha: MultiHeadAttention, config: DetectorConfig,
     the JAX forward routes them: windows fold into the head axis, so the
     dropout mask's batch*head index is b * (H * W) + h * W + w. The others,
     and the int8 serving layers, take the tokens-major route: windows fold
-    into the batch axis, index (b * W + w) * H + h. With ``ring_attention``
-    and a mesh, ``_ring_attention`` instead."""
-    if config.ring_attention and mesh is not None:
+    into the batch axis, index (b * W + w) * H + h.
+
+    Under a mesh (``shard``): ring attention over 'model' per block
+    (``_ring_attention``) with ``ring_attention`` and unsplit tokens;
+    sequence sharding's own tokens, attended over gathered keys without
+    windows (``_global_attention``) and within the rank's whole windows
+    with them; tensor parallelism's heads [h0, h0 + H_l) (column-parallel
+    q/k/v projections, their kernels' and biases' slices) and a
+    row-parallel out projection. The masks' batch*head rows map to the
+    global ones (``_Shard``)."""
+    mesh = shard.mesh
+    if config.ring_attention and mesh is not None and shard.tokens is None:
         return _ring_attention(x, mha, config, compute_dtype, train, seed,
                                mesh)
     b, n, d = x.shape
@@ -549,50 +783,87 @@ def _attention(x, mha: MultiHeadAttention, config: DetectorConfig,
     if quantized:
         h, k = mha.query.bias.shape          # physical head dim
 
-        def proj(layer):
-            return int8_dense(xc, layer)     # fp32 (B, N, H, K)
+        def proj(name):
+            return int8_dense(xc, getattr(mha, name))   # fp32 (B, N, H, K)
     else:
         h, k = mha.query.kernel.shape[1:]    # physical head dim, as in JAX
-
-        def proj(layer):
-            y = _linear(xc, layer.kernel.reshape(d, h * k),
-                        layer.bias.reshape(h * k), compute_dtype)
+        def proj(name):
+            layer = getattr(mha, name)
+            kernel = layer.kernel.reshape(d, h * k)
+            if shard.heads:
+                bias = tensor.split(layer.bias, 0, mesh).reshape(h * k)
+                y = _column_parallel(xc, kernel, bias, compute_dtype, mesh)
+            else:
+                y = _linear(xc, kernel, layer.bias.reshape(h * k),
+                            compute_dtype)
             return y.reshape(b, n, h, k)     # fp32
 
-    q = (proj(mha.query) / math.sqrt(config.key_dim)).to(compute_dtype)
-    key = proj(mha.key).to(compute_dtype)
-    v = proj(mha.value).to(compute_dtype)
+    q = (proj("query") / math.sqrt(config.key_dim)).to(compute_dtype)
+    key = proj("key").to(compute_dtype)
+    v = proj("value").to(compute_dtype)
     rate = (config.dropout if train and config.dropout not in (None, 0.0)
             and seed is not None else None)
     window = config.attention_window
     tokens = n if window is None else window * window
-    heads_major = not quantized and (
-        config.attention_heads_major
-        if config.attention_heads_major is not None else k % 64 == 0)
-    if heads_major:
-        # (B, H, N, K) views; windows fold into the head axis (a copy).
-        qh, kh, vh = (t.transpose(1, 2).reshape(b, h * (n // tokens),
-                                                tokens, k)
-                      for t in (q, key, v))
-        attn = _attend(qh, kh, vh, config, compute_dtype, rate, seed, train,
-                       batch_base, b)
-        attn = attn.reshape(b, h, n, k).transpose(1, 2)
+    if shard.tokens is not None and window is None:
+        attn = _global_attention(q, key, v, config, compute_dtype, rate,
+                                 seed, train, shard)
     else:
-        # Windows fold into the batch axis: (B * W, T, H, K), free.
-        qt, kt, vt = (t.reshape(b * (n // tokens), tokens, h, k)
-                      .transpose(1, 2) for t in (q, key, v))
-        attn = _attend(qt, kt, vt, config, compute_dtype, rate, seed, train,
-                       batch_base, b)
-        attn = attn.transpose(1, 2).reshape(b, n, h, k)
+        attn = _windows(q, key, v, config, compute_dtype, rate, seed, train,
+                        shard, tokens, quantized)
     if quantized:
         # The out projection quantizes the attention output as it comes:
         # the compute dtype from flash, fp32 from the einsum route.
         return int8_dense(attn.reshape(b, n, h * k),
                           mha.out).to(compute_dtype)
     attn = attn.to(compute_dtype).reshape(b, n, h * k)
-    out = _linear(attn, mha.out.kernel.reshape(h * k, d), mha.out.bias,
-                  compute_dtype)
+    kernel = mha.out.kernel.reshape(h * k, d)
+    if shard.heads:
+        out = _row_parallel(attn, kernel, mha.out.bias, compute_dtype, mesh)
+    else:
+        out = _linear(attn, kernel, mha.out.bias, compute_dtype)
     return out.to(compute_dtype)
+
+
+def _windows(q, key, v, config: DetectorConfig, compute_dtype, rate, seed,
+             train: bool, shard: _Shard, tokens: int,
+             quantized: bool) -> torch.Tensor:
+    """Attention of ``(B, N, H, K)`` q/k/v within windows of ``tokens``
+    (one window of every token without ``attention_window``), folded
+    heads-major or tokens-major (``_attention``); ``(B, N, H, K)`` out.
+    The fold's batch*head rows are this rank's: its heads of H (tensor
+    parallelism) or its windows of W (sequence sharding) of each image,
+    mapped to the global ones."""
+    b, n, h, k = q.shape
+    windows = n // tokens
+    heads_all = h * shard.size if shard.heads else h
+    first_head = shard.index * h if shard.heads else 0
+    windows_all = windows * shard.size if shard.tokens is not None \
+        else windows
+    first_window = shard.tokens[0] // tokens if shard.tokens is not None \
+        else 0
+    heads_major = not quantized and (
+        config.attention_heads_major
+        if config.attention_heads_major is not None else k % 64 == 0)
+    base = shard.batch_base * heads_all * windows_all
+    if heads_major:
+        # (B, H, N, K) views; windows fold into the head axis (a copy).
+        row_map = (_row_map(h * windows, heads_all * windows,
+                            first_head * windows) if shard.heads
+                   else _row_map(windows, windows_all, first_window))
+        qh, kh, vh = (t.transpose(1, 2).reshape(b, h * windows, tokens, k)
+                      for t in (q, key, v))
+        attn = _attend(qh, kh, vh, config, compute_dtype, rate, seed, train,
+                       (base, row_map))
+        return attn.reshape(b, h, n, k).transpose(1, 2)
+    # Windows fold into the batch axis: (B * W, T, H, K), free.
+    row_map = (_row_map(h, heads_all, first_head) if shard.heads
+               else _row_map(windows * h, windows_all * h, first_window * h))
+    qt, kt, vt = (t.reshape(b * windows, tokens, h, k).transpose(1, 2)
+                  for t in (q, key, v))
+    attn = _attend(qt, kt, vt, config, compute_dtype, rate, seed, train,
+                   (base, row_map))
+    return attn.transpose(1, 2).reshape(b, n, h, k)
 
 
 def _ring_attention(x, mha: MultiHeadAttention, config: DetectorConfig,
@@ -605,10 +876,11 @@ def _ring_attention(x, mha: MultiHeadAttention, config: DetectorConfig,
     gradients are summed over the ring."""
     b, n, d = x.shape
     h, k = mha.query.kernel.shape[1:]
-    (qw, qb, kw, kb, vw, vb, ow, ob) = sum_grads_over(mesh, (
+    (qw, qb, kw, kb, vw, vb, ow, ob) = tensor.sum_grads_over(mesh, (
         mha.query.kernel, mha.query.bias, mha.key.kernel, mha.key.bias,
         mha.value.kernel, mha.value.bias, mha.out.kernel, mha.out.bias))
-    xs = shard_tokens(x.to(compute_dtype), mesh)
+    check_ring_tokens(n, mesh)
+    xs = tensor.split(x.to(compute_dtype), 1, mesh)
     n_local = xs.shape[1]
 
     def proj(kernel, bias):
@@ -626,29 +898,27 @@ def _ring_attention(x, mha: MultiHeadAttention, config: DetectorConfig,
                           dropout_seed=seed if dropping else None)
     out = _linear(attn.reshape(b, n_local, h * k), ow.reshape(h * k, d), ob,
                   compute_dtype)
-    return gather_tokens(out.to(compute_dtype), mesh)
+    return tensor.gather(out.to(compute_dtype), 1, mesh)
 
 
 def _encoder_block(x, block: EncoderBlock, config: DetectorConfig,
-                   compute_dtype, train: bool, seeds=None, mesh=None,
-                   batch_base: int = 0) -> torch.Tensor:
+                   compute_dtype, train: bool, seeds=None,
+                   shard: _Shard = _Shard()) -> torch.Tensor:
     """Pre-LN MHA + descending mish pyramid, both residual. ``seeds`` is
     ``(attention seed, per-layer MLP seeds)`` under training dropout;
-    ``mesh`` and ``batch_base`` (the first image's global index) as in
-    ``forward``."""
+    ``shard`` is this rank's part (``_Shard``)."""
     attention_seed, mlp_seeds = (
         seeds if seeds is not None else (None, (None,) * len(block.mlp)))
     side = x
     x = _layer_norm(x, block.ln1, config=config, train=train)
     x = _attention(x, block.mha, config, compute_dtype, train,
-                   attention_seed, mesh, batch_base)
+                   attention_seed, shard)
     x = x + side
 
     side = x
     x = _layer_norm(x, block.ln2, config=config, train=train)
-    for layer, seed in zip(block.mlp, mlp_seeds):
-        x = _dense_activation(x, layer, config, compute_dtype, train, seed,
-                              batch_base)
+    x = _mlp_chain(x, block.mlp, shard.mlp, mlp_seeds, config, compute_dtype,
+                   train, shard, shard.token_rows(config))
     return x + side
 
 
@@ -662,8 +932,8 @@ def _dots_saveable(ctx, op, *args, **kwargs):
 
 
 def _run_encoder(x, params, config: DetectorConfig, compute_dtype,
-                 train: bool, seeds, mesh=None,
-                 batch_base: int = 0) -> torch.Tensor:
+                 train: bool, seeds,
+                 shard: _Shard = _Shard()) -> torch.Tensor:
     """The encoder blocks, checkpointed as ``config.remat_encoder`` and
     ``remat_policy`` say: None recomputes every block in the backward,
     "dots" saves the 2-D matrix products' outputs and recomputes the rest,
@@ -684,8 +954,7 @@ def _run_encoder(x, params, config: DetectorConfig, compute_dtype,
             create_selective_checkpoint_contexts, _dots_saveable)
     for i, block in enumerate(params.encoder):
         block_seeds = None if seeds is None else seeds[i]
-        args = (x, block, config, compute_dtype, train, block_seeds, mesh,
-                batch_base)
+        args = (x, block, config, compute_dtype, train, block_seeds, shard)
         if remat and not (config.remat_policy == "alternate" and i % 2):
             x = checkpoint(_encoder_block, *args, use_reentrant=False,
                            preserve_rng_state=False, **extra)
@@ -741,15 +1010,14 @@ def forward(params: ViTDetector, images: torch.Tensor,
     ``seed_table``) turns on training dropout when ``train`` and
     ``config.dropout`` are set; without it nothing is dropped, as the JAX
     forward without a dropout rng. Under ``mesh`` the images are this
-    rank's shard of the global batch (module docstring)."""
-    check_supported(config)
+    rank's shard of the global batch, and a tensor-parallel model holds
+    this rank's slices of its parameters (module docstring)."""
     _validate_grid_config(config)
-    check_mesh_config(mesh, config)
-    batch_base = axis_index(mesh, DATA_AXIS) * images.shape[0]
     if train and is_quantized(params.linear_projection):
         raise NotImplementedError(
             "an int8-quantized model is for serving only; train the float "
             "model and quantize it afterwards")
+    shard = _shard_of(mesh, config, params, images.shape[0])
     compute_dtype = _dtype(config.compute_dtype)
     block_seeds = head_seeds = None
     if dropout_seed is not None:
@@ -757,18 +1025,33 @@ def forward(params: ViTDetector, images: torch.Tensor,
             _device_seed_table(dropout_seed, config, images.device), config)
 
     patches = extract_patches(images.to(compute_dtype), config.patch_size)
-    x = _dense(patches, params.linear_projection, compute_dtype)
-    # The (P, 1) position embedding broadcasts over the channel axis.
-    x = x + params.position_embedding.to(compute_dtype)[None]
-
     # Windowed attention: the tokens go window-major once here and back
     # after the encoder (the MLP, LayerNorm and residuals do not see the
     # order), so every block's window fold is a reshape.
     windowed = config.attention_window is not None
-    if windowed:
-        x = _window_major(x, config)
+    # The (P, 1) position embedding broadcasts over the channel axis.
+    if shard.tokens is None:
+        x = _dense(patches, params.linear_projection, compute_dtype)
+        x = x + params.position_embedding.to(compute_dtype)[None]
+        if windowed:
+            x = _window_major(x, config)
+    else:
+        # Sequence sharding: this rank's window-major tokens, embedded;
+        # the encoder's gradients summed over 'model'.
+        if torch.is_grad_enabled():
+            params = _sum_token_grads(params, mesh)
+        position = params.position_embedding.to(compute_dtype)[None]
+        if windowed:
+            patches = _window_major(patches, config)
+            position = _window_major(position, config)
+        first, count = shard.tokens
+        mine = slice(first, first + count)
+        x = (_dense(patches[:, mine], params.linear_projection,
+                    compute_dtype) + position[:, mine])
     x = _run_encoder(x, params, config, compute_dtype, train, block_seeds,
-                     mesh, batch_base)
+                     shard)
+    if shard.tokens is not None:
+        x = tensor.gather(x, 1, mesh)
     if windowed:
         x = _window_major(x, config, inverse=True)
 
@@ -783,7 +1066,7 @@ def forward(params: ViTDetector, images: torch.Tensor,
                                      compute_dtype)
     if head_seeds is None:
         head_seeds = (None,) * len(params.head_mlp)
-    for layer, seed in zip(params.head_mlp, head_seeds):
-        x = _dense_activation(x, layer, config, compute_dtype, train, seed,
-                              batch_base)
+    x = _mlp_chain(x, params.head_mlp, shard.head_mlp, head_seeds, config,
+                   compute_dtype, train, shard,
+                   (shard.batch_base * x.shape[1], IDENTITY_MAP))
     return _dense(x, params.head_output, compute_dtype).float()

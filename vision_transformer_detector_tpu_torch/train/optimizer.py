@@ -105,14 +105,32 @@ def stochastic_round_bf16(x32: torch.Tensor,
     return u.view(torch.float32).to(torch.bfloat16)
 
 
-def rounding_bits(count, leaf_index: int, shape,
-                  device) -> torch.Tensor:
+def _flat_indices(shape, device, shard=None) -> torch.Tensor:
+    """Each element's row-major flat index in its whole leaf: the leaf
+    itself, or with ``shard = (full shape, axis, first)`` a slice of the
+    full leaf along ``axis`` from ``first`` (a tensor-parallel rank's
+    part, whose indices are not contiguous for a column slice)."""
+    full, axis, first = shard if shard is not None else (shape, 0, 0)
+    strides = np.cumprod((1,) + tuple(full[:0:-1]))[::-1]
+    idx = torch.zeros(tuple(shape), dtype=torch.int64, device=device)
+    for dim, (n, stride) in enumerate(zip(shape, strides)):
+        r = torch.arange(n, dtype=torch.int64, device=device)
+        if dim == axis:
+            r = r + first
+        idx += (r * int(stride)).reshape(
+            [n if d == dim else 1 for d in range(len(shape))])
+    return idx
+
+
+def rounding_bits(count, leaf_index: int, shape, device,
+                  shard=None) -> torch.Tensor:
     """The JAX package's counter hash for one moment leaf: a pure function
     of (step count, leaf index, element index), so replays and restores
     round identically. ``count`` is an integer or an int64 tensor (the
-    optimizer's device count)."""
-    idx = torch.arange(int(np.prod(shape, dtype=np.int64)),
-                       dtype=torch.int64, device=device).reshape(shape)
+    optimizer's device count). ``shard`` (``_flat_indices``) hashes a
+    slice of the leaf by its elements' indices in the whole leaf, so a
+    tensor-parallel rank rounds its part as one process rounds it."""
+    idx = _flat_indices(shape, device, shard)
     x = (_mul_u32(count & _MASK32, 0x9E3779B1)
          + ((leaf_index * 0x85EBCA6B) & _MASK32))
     x = (_mul_u32(idx, 0xC2B2AE35) + x) & _MASK32
@@ -155,6 +173,9 @@ class Adam:
         self.nu_dtype = _DTYPES[config.adam_nu_dtype or "float32"]
         # bf16 nu: scale_by_adam_compact's stochastic rounding.
         self.stochastic_nu = self.nu_dtype == torch.bfloat16
+        # Tensor parallelism's slices (trainer.py sets it): per parameter
+        # name, (full shape, split axis, first index of this rank's slice).
+        self.shards: Dict[str, tuple] = {}
         # A reduced-precision mu without nu is optax.adam(mu_dtype=...):
         # b1 * mu in the storage dtype's b1 (XLA keeps the product fp32).
         self._mu_b1 = (float(torch.tensor(self.b1, dtype=self.mu_dtype))
@@ -248,7 +269,8 @@ class Adam:
             # writes to fixed addresses).
             state["mu"][name].copy_(mu)
             if self.stochastic_nu:
-                bits = rounding_bits(count, index, nu.shape, nu.device)
+                bits = rounding_bits(count, index, nu.shape, nu.device,
+                                     self.shards.get(name))
                 state["nu"][name].copy_(stochastic_round_bf16(nu, bits))
             else:
                 state["nu"][name].copy_(nu)

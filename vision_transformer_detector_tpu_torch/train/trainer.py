@@ -70,7 +70,9 @@ from ..ops.decode import transform_predictions
 from ..ops.loss import detection_loss
 from ..parallel import collectives
 from ..parallel.data import rank_device, synced_global_eval_batches
-from ..parallel.mesh import DATA_AXIS, axis_group, check_mesh_config
+from ..parallel.mesh import (
+    DATA_AXIS, axis_group, gather_tensors, model_axis_role, shard_layout,
+    shard_params, slice_tensors)
 from ..utils import checkpoint as ckpt_lib
 from ..utils.device import resolve_device
 from .optimizer import Adam, clip_weights
@@ -471,7 +473,6 @@ class Trainer:
                  check_weights_start: int = 0,
                  weight_threshold: float = 1.0,
                  device="cuda"):
-        check_mesh_config(mesh, config)
         self.config = config
         self.loss_config = loss_config
         self.train_config = train_config
@@ -520,26 +521,48 @@ class Trainer:
         self.dataset_resume_state = None
 
     # ------------------------------------------------------------------
+    @property
+    def tensor_parallel(self) -> bool:
+        """Whether the mesh's 'model' axis carries tensor parallelism (the
+        parameters and moments then live as each rank's slices)."""
+        return model_axis_role(self.mesh, self.config) == "tensor"
+
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         """Parameters from ``seed`` (default ``TrainConfig.seed``), fresh
-        Adam state, and the dropout seed chain (``TrainConfig.seed + 1``)."""
+        Adam state, and the dropout seed chain (``TrainConfig.seed + 1``).
+        Under a mesh the full parameters are synchronised from rank 0 and
+        then, under tensor parallelism, cut to this rank's slices, on
+        which the Adam state is made."""
         generator = torch.Generator().manual_seed(
             self.train_config.seed if seed is None else seed)
-        state = create_train_state(self.config, self.optimizer, generator,
-                                   self.device)
-        state["dropout_rng"] = torch.Generator().manual_seed(
-            self.train_config.seed + 1)
-        self._sync_params(state)
-        return state
+        params = init_params(self.config, generator, self.device)
+        self._sync_tensors(list(params.parameters()))
+        if self.tensor_parallel:
+            shard_params(params, self.mesh)
+            self.optimizer.shards = shard_layout(params, self.mesh)
+        return {"params": params,
+                "opt_state": self.optimizer.init(
+                    dict(params.named_parameters())),
+                "step": 0,
+                "dropout_rng": torch.Generator().manual_seed(
+                    self.train_config.seed + 1)}
+
+    def load_params(self, state: TrainState, params) -> None:
+        """Copy a full-shape model's (or state dict's) parameters into the
+        live ones, each rank taking its slices under tensor parallelism."""
+        full = params.state_dict() if isinstance(params, torch.nn.Module) \
+            else params
+        if self.tensor_parallel:
+            full = slice_tensors(full, state["params"], self.mesh)
+        state["params"].load_state_dict(full)
 
     @torch.no_grad()
-    def _sync_params(self, state: TrainState) -> None:
-        """Under a mesh: rank 0's parameters to every rank (one flat
+    def _sync_tensors(self, tensors) -> None:
+        """Under a mesh: rank 0's full parameters to every rank (one flat
         broadcast), then a checksum of them compared across the ranks,
         which raises if any rank holds others."""
         if self.mesh is None:
             return
-        tensors = list(state["params"].parameters())
         flat = collectives.broadcast_(
             torch.cat([t.reshape(-1) for t in tensors]), src=0)
         for tensor, part in zip(tensors, flat.split(
@@ -772,11 +795,28 @@ class Trainer:
         self.metrics.write(**record)
 
     # ------------------------------------------------------------------
+    def _full_state(self, state: TrainState) -> Optional[Dict]:
+        """Under tensor parallelism: the full parameters and Adam moments
+        (gathered over 'model' on every rank, a collective), else None."""
+        if not self.tensor_parallel:
+            return None
+        model = state["params"]
+        opt_state = dict(state["opt_state"])
+        for key in ("mu", "nu", "acc"):
+            if key in opt_state:
+                opt_state[key] = gather_tensors(opt_state[key], model,
+                                                self.mesh)
+        return {"params": gather_tensors(dict(model.state_dict()), model,
+                                         self.mesh),
+                "opt_state": opt_state}
+
     def save(self, state: TrainState, name: str = "ongoing") -> None:
         """Checkpoint ``name`` (with config.json and the dataset sidecar).
         Under a mesh rank 0 writes and the other ranks wait for a
         synchronous write here, for an asynchronous one in
-        ``wait_for_checkpoints``."""
+        ``wait_for_checkpoints``; under tensor parallelism every rank
+        first takes part in gathering the full state."""
+        full = self._full_state(state)
         if not self.primary:
             if self._async_ckpt is None:
                 collectives.barrier()
@@ -791,6 +831,8 @@ class Trainer:
         payload = ckpt_lib.train_state_payload(
             state, self.best_ap, self.config, self.loss_config,
             self.train_config)
+        if full is not None:
+            payload.update(full)
         if self._async_ckpt is not None:
             self._async_ckpt.save(path, payload)
         else:
@@ -878,7 +920,11 @@ class Trainer:
                     f"{path}: optimizer state holds {sorted(opt_state)}, "
                     f"this optimizer {sorted(live)} (another "
                     "accumulate_steps?)")
-            state["params"].load_state_dict(payload["params"])
+            # The file holds full shapes (gathered under tensor
+            # parallelism): rank 0's are every rank's, and each keeps its
+            # slices.
+            self._sync_tensors(list(payload["params"].values()))
+            self.load_params(state, payload["params"])
         except Exception as exc:
             hint = self._config_mismatch_hint()
             if hint:
@@ -886,7 +932,11 @@ class Trainer:
             raise
         with torch.no_grad():
             for key in ("mu", "nu", "acc"):
-                for name_, value in opt_state.get(key, {}).items():
+                moments = opt_state.get(key, {})
+                if self.tensor_parallel:
+                    moments = slice_tensors(moments, state["params"],
+                                            self.mesh)
+                for name_, value in moments.items():
                     live[key][name_].copy_(value)
             for key in ("count", "mini_step"):
                 if key in opt_state:
@@ -896,7 +946,6 @@ class Trainer:
             state["dropout_rng"] = torch.Generator()
             state["dropout_rng"].set_state(payload["dropout_rng"].cpu())
         self.best_ap = float(payload["best_ap"])
-        self._sync_params(state)
         # Read only once the state restore succeeded: restore_latest probes
         # torn checkpoints, whose sidecar must not leak in.
         sidecar = ckpt_lib.dataset_sidecar_path(self.checkpoint_dir, name)
