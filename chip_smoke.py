@@ -171,7 +171,31 @@ PyTorch version. Phases, one output line each:
                     the live service on the restored weights: the same
                     classes, scores within 1e-3, boxes within 0.1 px
                     (bit-equal reported); (f) device-path medians of the
-                    artifact and the live service at batch 1 and 8.
+                    artifact and the live service at batch 1 and 8;
+ 15. wide_heads   — a detector at ViT-H/14's attention widths (D 1280, 16
+                    heads of 80, 32 blocks, 224 px in 14 px patches: 256
+                    tokens; bf16, flash in serving and training), whose
+                    K = 80 runs the flash kernels' 128-wide instance:
+                    (a) that instance at K 80, 96 and 128, both layouts,
+                    bf16 and fp32, against the plain versions (forward,
+                    lse, dropout forward, backward by each dq route and
+                    with the replay, the fp32-output instance and fp32
+                    dk/dv), a ring of two key blocks chained against one
+                    launch bit for bit, B2 10 times bit-equal; (b) its
+                    times at (B * 16, 256, 80) for B = 1, 8, 32 and at
+                    (2048, 256, 128) beside SDPA and the bound; (c)
+                    DetectionService at batch 1 and 32, one seeded image
+                    card against CPU at model_serve's bf16 limits, 32
+                    flash launches a call; (d) 5 steps at batch 8 through
+                    Trainer.fit (the loss falls; 32 forward-with-lse and
+                    32 backward launches a step), one fp32 step at depth
+                    2 against the CPU, step time and peak memory;
+ 15b. walkthrough — examples/end_to_end_torch.py on the card (tiny_96
+                    with flash attention, 4 epochs): dataset, train,
+                    COCO-protocol evaluation, plot, visualize, export,
+                    and `vtd-torch serve --from-export` answering a POST
+                    on 127.0.0.1; every artifact exists, the served
+                    detections are well-formed, the flash kernels ran;
 
  16. parallel     — data, tensor and sequence parallelism and ring
                     attention on the one card:
@@ -374,11 +398,11 @@ def phase_build():
     _require(set(ptxas) == set(sources), f"built {sorted(ptxas)}")
     hmma = {source: _tensor_core_instructions(_build.library_path(source))
             for source in (fa.FWD_SOURCE, fa.BWD_SOURCE)}
-    # 8 instances each (type x head dim x dropout); the backward's dq
-    # kernel adds its own 8 ("_dq") and the partials route 4 in fp32
-    # ("_partials").
+    # 12 instances each (type x head dim 48, 64, 128 x dropout); the
+    # backward's dq kernel adds its own 12 ("_dq") and the partials route
+    # 6 in fp32 ("_partials").
     for source, counts in hmma.items():
-        _require(len(counts) == (20 if source == fa.BWD_SOURCE else 8)
+        _require(len(counts) == (30 if source == fa.BWD_SOURCE else 12)
                  and sum(counts.values()) > 0,
                  f"{source}: tensor-core instructions {counts}")
         _require(all(n > 0 for name, n in counts.items()
@@ -4353,6 +4377,582 @@ def phase_parallel() -> dict:
                 for key in ("flash_drop", "flash_bwd_drop", "mlp_drop")})}
 
 
+WIDE_DIMS = (80, 96, 128)      # ViT-H/14's 80, and two more in the instance
+WIDE_N = 321                   # five key tiles, the last one ragged
+WIDE_HEADS = 16                # ViT-H/14's heads
+WIDE_RING_N = 256              # two ring blocks of 128 keys (whole tiles)
+# (B * 16, 256, 80 -> 128) bf16 for B = 1, 8, 32 (the wide_heads model at
+# those batches), and (2048, 256, 128) with the instance's own width.
+WIDE_TIMED = ((1, 80), (8, 80), (32, 80), (128, 128))
+
+
+def _wide_inputs(gen, layout, b, n, h, kd, dtype):
+    """Scaled q, and k, v and a cotangent g, in ``layout``; heads-major
+    ones are views of tokens-major memory, as the model hands them over."""
+    import torch
+
+    q, k, v, g = (torch.randn(b, n, h, kd, device="cuda", generator=gen)
+                  for _ in range(4))
+    out = [t.to(dtype) for t in (q.mul(kd ** -0.5), k, v, g)]
+    return [t.transpose(1, 2) for t in out] if layout == "bhnk" else out
+
+
+def _wide_kernels() -> dict:
+    """(a) every route of the 128-wide instance at K 80, 96 and 128, both
+    layouts, bf16 and fp32, against the plain versions at the tolerances
+    the 64-wide instance is held to: the forward, its lse, the dropout
+    forward, the backward by each dq route and with the mask replayed,
+    the fp32-output instance and fp32 dk/dv (a ring block); a ring chained
+    over two key blocks against one launch over the whole sequence, bit
+    for bit; B2 launched 10 times, bit-equal."""
+    import torch
+
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    seed = fa.seed_tensor(DROP_SEED, "cuda")
+    drop = (seed, DROP_RATE)
+    out_tol = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+    grad_tol = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+    lse_tol = 1e-4
+    errors = {}
+    for kd in WIDE_DIMS:
+        for layout in ("bhnk", "bnhk"):
+            for dtype in (torch.bfloat16, torch.float32):
+                name = f"K{kd}_{layout}_{str(dtype).split('.')[-1]}"
+                q, k, v, g = _wide_inputs(gen, layout, 2, WIDE_N, 4, kd,
+                                          dtype)
+                err = {}
+                before = fa.flash_attention.launches
+                out = fa.flash_attention(q, k, v, layout=layout)
+                _require(fa.flash_attention.launches == before + 1,
+                         f"wide_heads {name}: the forward did not launch")
+                ref = fa.reference_attention(q, k, v, layout)
+                _require(out.shape == q.shape and out.dtype == dtype,
+                         f"wide_heads {name}: out {out.shape} {out.dtype}")
+                err["fwd"] = _max_err(out, ref)
+                out, lse = fa.flash_attention(q, k, v, layout=layout,
+                                              with_lse=True)
+                err["lse"] = _max_err(lse, fa.reference_attention_lse(
+                    q, k, layout))
+                err["fwd_lse"] = _max_err(out, ref)
+                d_out, d_lse = fa.flash_attention(
+                    q, k, v, layout=layout, with_lse=True,
+                    dropout_rate=DROP_RATE, dropout_seed=seed)
+                err["fwd_drop"] = _max_err(d_out, fa.reference_attention(
+                    q, k, v, layout, drop))
+                err["fwd_drop_lse"] = _max_err(d_lse, lse)
+                plain = fa.reference_attention_backward(q, k, v, g, layout)
+                delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                                        layout).contiguous()
+                routes = ((None, "split", "partials")
+                          if dtype == torch.float32 else (None,))
+                for route in routes:
+                    grads = fa._launch_backward(q, k, v, g, lse, delta,
+                                                layout, route=route)
+                    err[f"bwd_{route or 'default'}_rel"] = max(
+                        _rel_err(a, b) for a, b in zip(grads, plain))
+                    if route is None:
+                        err["bwd_abs"] = max(
+                            _max_err(a, b) for a, b in zip(grads, plain))
+                d_delta = fa._heads_major(
+                    (g.float() * d_out.float()).sum(-1), layout).contiguous()
+                d_plain = fa.reference_attention_backward(q, k, v, g,
+                                                          layout, drop)
+                d_grads = fa._launch_backward(q, k, v, g, d_lse, d_delta,
+                                              layout, drop)
+                err["bwd_drop_rel"] = max(
+                    _rel_err(a, b) for a, b in zip(d_grads, d_plain))
+                if dtype == torch.bfloat16:
+                    # The ring block's instances: bf16 in, fp32 out, and
+                    # fp32 dk/dv from the whole sequence's lse and delta.
+                    f_out = fa._launch_forward(q, k, v, layout,
+                                               out_fp32=True)
+                    _require(f_out.dtype == torch.float32,
+                             f"wide_heads {name}: fp32 out {f_out.dtype}")
+                    err["fwd_fp32_out"] = _max_err(
+                        f_out, fa.reference_attention(
+                            q, k, v, layout, out_dtype=torch.float32))
+                    f_grads = fa._launch_backward(
+                        q, k, v, g, lse, delta, layout, fp32_dq=True,
+                        fp32_dkv=True)
+                    f_plain = fa.reference_attention_backward(
+                        q, k, v, g, layout, lse=lse, delta=delta,
+                        out_dtype=torch.float32)
+                    _require(all(t.dtype == torch.float32 for t in f_grads),
+                             f"wide_heads {name}: fp32 dk/dv dtypes")
+                    err["bwd_fp32_dkv_rel"] = max(
+                        _rel_err(a, b) for a, b in zip(f_grads, f_plain))
+                torch.cuda.synchronize()
+                for key, value in err.items():
+                    if key == "bwd_abs":     # reported; held relative
+                        continue
+                    tol = (lse_tol if "lse" in key and key != "fwd_lse"
+                           else grad_tol[dtype] if key.endswith("_rel")
+                           else out_tol[dtype])
+                    _require(value <= tol, f"wide_heads {name} {key}: "
+                             f"{value} > {tol}")
+                errors[name] = err
+
+    # The ring: each half of the queries over two key blocks of 128,
+    # chained (resume, suspend), against one launch over the 256 keys,
+    # tokens-major as the ring runs them, with and without dropout (each
+    # block's query and key bases place its mask).
+    ring = {}
+    for kd in (80, 128):
+        for dtype in (torch.bfloat16, torch.float32):
+            for dropout in (None, drop):
+                name = (f"K{kd}_{str(dtype).split('.')[-1]}"
+                        f"{'_drop' if dropout else ''}")
+                q, k, v, _ = _wide_inputs(gen, "bnhk", 2, WIDE_RING_N, 4,
+                                          kd, dtype)
+                out, lse = fa._launch_forward(q, k, v, "bnhk",
+                                              with_lse=True, dropout=dropout,
+                                              out_fp32=True)
+                m = WIDE_RING_N // 2
+                equal = True
+                for first in (0, m):
+                    rows = slice(first, first + m)
+                    state = fa._launch_forward(
+                        q[:, rows], k[:, :m], v[:, :m], "bnhk",
+                        with_lse=True, dropout=dropout,
+                        offsets=(0, first, 0), out_fp32=True, suspend=True)
+                    chained = fa._launch_forward(
+                        q[:, rows], k[:, m:], v[:, m:], "bnhk",
+                        with_lse=True, dropout=dropout,
+                        offsets=(0, first, m), out_fp32=True, state=state)
+                    equal = (equal and _bits_equal(chained[0], out[:, rows])
+                             and _bits_equal(chained[1], lse[:, :, rows]))
+                torch.cuda.synchronize()
+                _require(equal, f"wide_heads ring {name}: the chain of two "
+                         "blocks differs from one launch")
+                ring[name] = {"bit_equal": equal, "max_abs_err_vs_plain":
+                              _max_err(out, fa.reference_attention(
+                                  q, k, v, "bnhk", dropout,
+                                  out_dtype=torch.float32))}
+
+    # B2 launched 10 times on the same inputs: dq, dk, dv bit-equal, each
+    # instance of the wide model's training (bf16, with and without the
+    # replay) and both fp32 routes, at (128, 256, 80).
+    repeats = {}
+    for dtype, dropout, route in ((torch.bfloat16, None, None),
+                                  (torch.bfloat16, drop, None),
+                                  (torch.float32, None, "split"),
+                                  (torch.float32, None, "partials")):
+        q, k, v, g = _wide_inputs(gen, "bnhk", 8, 256, WIDE_HEADS, 80,
+                                  dtype)
+        out, lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
+                                      dropout=dropout)
+        delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                                "bnhk").contiguous()
+        name = (f"{str(dtype).split('.')[-1]}"
+                f"{'_drop' if dropout else ''}_{route or 'default'}")
+        repeats[name] = _b2_repeats(q, k, v, g, lse, delta, "bnhk",
+                                    dropout, route)
+    return {"errors": errors, "ring": ring, "b2_repeats": repeats}
+
+
+def _wide_shape_errors(q, k, v, g, layout, tol) -> tuple:
+    """The wrappers at one timed shape against the plain versions on the
+    same inputs, at the 64-wide instance's tolerances ``tol`` (out, lse,
+    grads relative): the forward's and the lse forward's out (max abs),
+    the lse (max abs) and B2's dq, dk, dv (each relative to its largest
+    value, and max abs). Returns (errors, out, lse, delta)."""
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa)
+
+    out_tol, lse_tol, grad_tol = tol
+    ref = fa.reference_attention(q, k, v, layout)
+    err = {"fwd": _max_err(fa.flash_attention(q, k, v, layout=layout), ref)}
+    out, lse = fa.flash_attention(q, k, v, layout=layout, with_lse=True)
+    err["fwd_lse"] = _max_err(out, ref)
+    err["lse"] = _max_err(lse, fa.reference_attention_lse(q, k, layout))
+    delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                            layout).contiguous()
+    grads = fa._launch_backward(q, k, v, g, lse, delta, layout)
+    plain = fa.reference_attention_backward(q, k, v, g, layout)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, plain):
+        err[f"bwd_{name}_rel"] = _rel_err(a, b)
+        err[f"bwd_{name}_abs"] = _max_err(a, b)
+    err["bwd_abs"] = max(err[f"bwd_{x}_abs"] for x in ("dq", "dk", "dv"))
+    for key, value in err.items():
+        if key.endswith("_abs"):           # reported; grads held relative
+            continue
+        limit = (lse_tol if key == "lse" else grad_tol
+                 if key.endswith("_rel") else out_tol)
+        _require(value <= limit, f"wide_heads {tuple(q.shape)} "
+                 f"{q.dtype} {key}: {value} > {limit}")
+    return err, out, lse, delta
+
+
+def _wide_times() -> dict:
+    """(b) the 128-wide instance at (B * 16, 256, 80 -> 128) bf16 for B =
+    1, 8, 32 and at (2048, 256, 128), tokens-major as the model runs K =
+    80: the serving forward, the forward with lse and the backward, each
+    held against its plain version at that shape (``errors``), then timed
+    in turns with it and scaled_dot_product_attention on the same unpadded
+    (heads-major) inputs, forward and backward, and each beside its bound
+    (operations at the unpadded K)."""
+    import torch
+
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    times = {}
+    for batch, kd in WIDE_TIMED:
+        n = 256
+        q, k, v, g = _wide_inputs(gen, "bnhk", batch, n, WIDE_HEADS, kd,
+                                  torch.bfloat16)
+        bh = batch * WIDE_HEADS
+        errors, out, lse, delta = _wide_shape_errors(
+            q, k, v, g, "bnhk", (2e-2, 1e-4, 2e-2))
+        hm = [fa._heads_major(t, "bnhk") for t in (q, k, v, g)]
+        leaves = [t.detach().clone().requires_grad_() for t in hm[:3]]
+
+        def lib_step(backend):
+            o = _sdpa(*leaves, backend)
+            torch.autograd.grad(o, leaves, hm[3])
+            return o
+
+        backend = _sdpa_backend(lib_step)
+        lib_out = _sdpa(*leaves, backend)
+        lib_err = _max_err(lib_out.detach(), fa._heads_major(out, "bnhk"))
+        _require(lib_err <= 2e-2, f"wide_heads SDPA differs by {lib_err}")
+        operand = bh * n * kd * 2            # one bf16 operand, unpadded
+        rows = bh * n * 4                    # one fp32 row statistic
+        run = {
+            "fwd": (_in_turns({
+                "plain_ms": lambda: fa.reference_attention(q, k, v),
+                "kernel_ms": lambda: fa.flash_attention(q, k, v),
+                "library_ms": lambda: _sdpa(*hm[:3], backend)}, 20),
+                4 * bh * n * n * kd, 4 * operand),
+            "fwd_lse": (_in_turns({
+                "plain_ms": lambda: (fa.reference_attention(q, k, v),
+                                     fa.reference_attention_lse(q, k)),
+                "kernel_ms": lambda: fa.flash_attention(q, k, v,
+                                                        with_lse=True),
+                "library_ms": lambda: _sdpa(*hm[:3], backend)}, 20),
+                4 * bh * n * n * kd, 4 * operand + rows),
+            # q, k, v, g read and dk, dv written (bf16), dq written
+            # (fp32), lse and delta read.
+            "bwd": (_in_turns({
+                "plain_ms": lambda: fa.reference_attention_backward(
+                    q, k, v, g),
+                "kernel_ms": lambda: fa._launch_backward(q, k, v, g, lse,
+                                                         delta, "bnhk"),
+                "library_ms": lambda: torch.autograd.grad(
+                    lib_out, leaves, hm[3], retain_graph=True)}, 20),
+                10 * bh * n * n * kd, 6 * operand + 2 * operand + 2 * rows),
+        }
+        entry = {}
+        for what, (t, ops, nbytes) in run.items():
+            bound_ms, bound_by = _bound(ops, nbytes, "bf16")
+            entry[what] = dict(t, bound_ms=bound_ms, bound_by=bound_by)
+        times[f"{bh}x{n}x{kd}"] = dict(entry, errors=errors,
+                                       sdpa_backend=backend.name,
+                                       padded_to=128)
+    # B2 in fp32 at the train step's shape, by each dq route, held against
+    # the plain version and beside its 3xTF32 bound: the routes an fp32 run
+    # of the model takes (partials while its workspace stays under
+    # PARTIALS_MAX_BYTES).
+    q, k, v, g = _wide_inputs(gen, "bnhk", 8, 256, WIDE_HEADS, 80,
+                              torch.float32)
+    errors, out, lse, delta = _wide_shape_errors(q, k, v, g, "bnhk",
+                                                 (2e-5, 1e-4, 2e-5))
+    plain = fa.reference_attention_backward(q, k, v, g)
+    for route in ("partials", "split"):
+        grads = fa._launch_backward(q, k, v, g, lse, delta, "bnhk",
+                                    route=route)
+        errors[f"bwd_{route}_rel"] = max(_rel_err(a, b)
+                                         for a, b in zip(grads, plain))
+        _require(errors[f"bwd_{route}_rel"] <= 2e-5,
+                 f"wide_heads fp32 B2 {route}: "
+                 f"{errors[f'bwd_{route}_rel']} > 2e-5")
+    bh, n, kd = 8 * WIDE_HEADS, 256, 80
+    fp32 = _in_turns({
+        "plain_ms": lambda: fa.reference_attention_backward(q, k, v, g),
+        "kernel_ms": lambda: fa._launch_backward(q, k, v, g, lse, delta,
+                                                 "bnhk", route="partials"),
+        "split_ms": lambda: fa._launch_backward(q, k, v, g, lse, delta,
+                                                "bnhk", route="split")}, 10)
+    bound_ms, bound_by = _bound(10 * bh * n * n * kd,
+                                (7 * bh * n * kd + 2 * bh * n) * 4, "3xtf32")
+    times[f"{bh}x{n}x{kd}_fp32_bwd"] = dict(fp32, bound_ms=bound_ms,
+                                            bound_by=bound_by, errors=errors)
+    return times
+
+
+# ViT-H/14's attention widths (arXiv 2010.11929, Table 1: D 1280, 16 heads
+# of 80, 32 blocks) on the detector at 224 px in 14 px patches (256
+# tokens), with the detector's own 2-layer 2560 -> 1280 pyramid and a
+# 3-layer head: a DetectorConfig the JAX package runs as it is (no preset).
+WIDE_CONFIG = dict(image_size=(224, 224), patch_size=14, embedding_dim=1280,
+                   num_heads=16, key_dim=80, encoder_blocks=32,
+                   encoder_mlp_layers=2, head_last_units=512, head_layers=3,
+                   compute_dtype="bfloat16", use_flash_attention=True,
+                   train_use_flash_attention=True)
+WIDE_STEPS = 5           # Trainer.fit epochs (one batch of 8 each)
+
+
+def _wide_config():
+    from vision_transformer_detector_tpu_torch.config import DetectorConfig
+
+    config = DetectorConfig(**WIDE_CONFIG)
+    _require(config.num_patches == 256 and config.key_dim == 80,
+             f"wide_heads config: {config.num_patches} tokens")
+    return config
+
+
+def _wide_serve(config, params) -> dict:
+    """(c) DetectionService at ViT-H/14's widths: one seeded image on the
+    card against the CPU plain path from the same weights, at
+    model_serve's bf16 limits (8 bf16 ulps of the largest logit at the
+    max, 1 at the median); 32 flash launches a call and nothing else;
+    device-path medians at batch 1 and 32."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from vision_transformer_detector_tpu_torch.models.vit_detector import (
+        forward)
+    from vision_transformer_detector_tpu_torch.serving import (
+        DetectionService)
+
+    h, w = config.image_size
+    image = torch.from_numpy(np.random.default_rng(SEED).uniform(
+        -1.0, 1.0, (1, h, w, 3)).astype(np.float32))
+    tic = time.monotonic()
+    with torch.inference_mode():
+        cpu = forward(params, image, config)
+    cpu_s = time.monotonic() - tic
+    card = copy.deepcopy(params).to("cuda")
+    with torch.inference_mode():
+        gpu = forward(card, image.to("cuda"), config).cpu()
+    _require(tuple(gpu.shape) == (1, config.max_objects, 6)
+             and bool(torch.isfinite(gpu).all()),
+             f"wide_heads logits {tuple(gpu.shape)}")
+    ulp = 2.0 ** -7
+    scale = cpu.abs().max().item()
+    err = (gpu - cpu).abs()
+    limits = (8 * ulp * scale, ulp * scale)
+    _require(err.max().item() <= limits[0]
+             and err.median().item() <= limits[1],
+             f"wide_heads serving: card vs CPU max {err.max().item()} / "
+             f"median {err.median().item()}, limits {limits}")
+    service = DetectionService(config, card, device="cuda")
+    canvas = np.zeros((1, h, w, 3), np.uint8)
+    service.raw_to_detections(service.predict_raw(canvas))   # warm
+    torch.cuda.synchronize()
+    _reset_counts()
+    service.raw_to_detections(service.predict_raw(canvas))
+    torch.cuda.synchronize()
+    launches = _counts()
+    want = dict({name: 0 for name in launches},
+                flash=config.encoder_blocks)
+    _require(launches == want, f"wide_heads service call launched "
+             f"{launches}, expected {want}")
+    times = _device_path_ms({"bf16": service})["bf16"]
+    return {"max_abs_err": err.max().item(),
+            "median_abs_err": err.median().item(), "limits": limits,
+            "max_abs_logit": scale, "cpu_forward_s": cpu_s,
+            "launches_per_call": launches, "device_path": times}
+
+
+def _wide_train(config) -> dict:
+    """(d) WIDE_STEPS train steps at batch 8 through Trainer.fit (bf16,
+    flash in training): the loss finite and falling, 32 forward-with-lse
+    and 32 backward launches per step and no other; one fp32 step at depth
+    2 and batch 1 against the CPU, as `train` (a) is; the median step and
+    peak memory."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from vision_transformer_detector_tpu_torch import (
+        LossConfig, TrainConfig, synthetic_batches)
+    from vision_transformer_detector_tpu_torch.models.vit_detector import (
+        count_params, forward, init_params)
+    from vision_transformer_detector_tpu_torch.ops.loss import detection_loss
+    from vision_transformer_detector_tpu_torch.train.trainer import (
+        Trainer, train_config_view)
+
+    loss_config = LossConfig()
+    small = config.replace(encoder_blocks=2, compute_dtype="float32")
+    train_view = train_config_view(small)
+
+    def loss_and_grads(model, images, labels, device):
+        named = dict(model.named_parameters())
+        logits = forward(model, torch.from_numpy(images).to(device),
+                         train_view, train=True)
+        loss = detection_loss(torch.from_numpy(labels).to(device), logits,
+                              train_view, loss_config)
+        grads = torch.autograd.grad(loss, list(named.values()))
+        return loss.item(), {n: g.cpu() for n, g in zip(named, grads)}
+
+    loss_tol, grad_tol = 1e-4, 2e-3
+    params = init_params(small, torch.Generator().manual_seed(SEED))
+    images, labels = next(synthetic_batches(small, 1, 1, seed=SEED))
+    cpu_loss, cpu_grads = loss_and_grads(params, images, labels, "cpu")
+    card = copy.deepcopy(params).to("cuda")
+    _reset_counts()
+    gpu_loss, gpu_grads = loss_and_grads(card, images, labels, "cuda")
+    small_launches = _counts()
+    _require(small_launches["flash_lse"] == 2
+             and small_launches["flash_bwd"] == 2,
+             f"wide_heads fp32 step launched {small_launches}")
+    loss_err = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    _require(np.isfinite(gpu_loss) and loss_err <= loss_tol,
+             f"wide_heads loss card {gpu_loss} vs CPU {cpu_loss}")
+    worst = _grad_errors(gpu_grads, cpu_grads, grad_tol,
+                         "wide_heads card vs CPU")
+    del params, card, cpu_grads, gpu_grads
+
+    train_config = TrainConfig(learning_rate=1e-5, seed=SEED,
+                               epochs_warm_up=WIDE_STEPS - 1,
+                               skip_epochs=WIDE_STEPS)
+    trainer = Trainer(config, loss_config, train_config, device="cuda")
+    state = trainer.init_state()
+    n_params = count_params(state["params"])
+    data = list(synthetic_batches(config, 8, 1, seed=SEED + 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    tic = time.perf_counter()
+    state = trainer.fit(state, data, epochs=WIDE_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - tic
+    launches = _counts()
+    blocks = config.encoder_blocks
+    want = dict({name: 0 for name in launches},
+                flash_lse=blocks * WIDE_STEPS, flash_bwd=blocks * WIDE_STEPS)
+    _require(launches == want, f"wide_heads fit launched {launches}, "
+             f"expected {want}")
+    losses = trainer.loss_record
+    _require(len(losses) == WIDE_STEPS and all(np.isfinite(losses))
+             and losses[-1] < losses[0], f"wide_heads losses {losses}")
+    images8, labels8 = (torch.from_numpy(a).to("cuda") for a in data[0])
+    # Each step's time, and the host's share of it: the time until
+    # train_step returns, having queued the step's work (it reads nothing
+    # back). Near the step's time, the host holds the card back.
+    step_ms, host_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        trainer.train_step(state, images8, labels8)
+        host_ms.append((time.perf_counter() - tic) * 1e3)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - tic) * 1e3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    del trainer, state
+    return {"params": n_params, "batch": 8, "steps": WIDE_STEPS,
+            "fit_seconds": fit_s, "losses": losses, "launches": launches,
+            "step_ms_median": float(np.median(step_ms)),
+            "step_ms_min": min(step_ms),
+            "step_host_ms_median": float(np.median(host_ms)),
+            "peak_memory_gib": peak_gib,
+            "step_vs_cpu": {"batch": 1, "blocks": 2, "dtype": "float32",
+                            "loss_card": gpu_loss, "loss_cpu": cpu_loss,
+                            "loss_rel_err": loss_err, "loss_tol": loss_tol,
+                            "grad_worst": worst, "grad_tol": grad_tol}}
+
+
+def _host_info() -> dict:
+    """The host's cores and load, and the card's SM clock against its
+    maximum: what launch-bound times (serving at batch 1, an eager train
+    step) vary with from one machine to the next."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return {"cpus": os.cpu_count(), "load_avg": os.getloadavg(),
+            "sm_clock": smi.stdout.strip().splitlines()[:1]}
+
+
+def phase_wide_heads() -> dict:
+    """A detector at ViT-H/14's attention widths (K = 80, the flash
+    kernels' 128-wide instance): (a) the instance's routes against the
+    plain versions, (b) its times beside SDPA and the bound, (c) serving
+    through DetectionService, (d) training through Trainer.fit."""
+    import torch
+
+    from vision_transformer_detector_tpu_torch.models.vit_detector import (
+        count_params, init_params)
+
+    tic = time.monotonic()
+    kernels = _wide_kernels()
+    times = _wide_times()
+    config = _wide_config()
+    params = init_params(config, torch.Generator().manual_seed(SEED))
+    n_params = count_params(params)
+    serve = _wide_serve(config, params)
+    del params
+    torch.cuda.empty_cache()
+    train = _wide_train(config)
+    torch.cuda.empty_cache()
+    _report("wide_heads", config=WIDE_CONFIG, params=n_params,
+            seconds=time.monotonic() - tic, kernels=kernels, times=times,
+            serve=serve, train=train, host=_host_info())
+    return {"kernels": kernels, "times": times, "serve": serve,
+            "train": train}
+
+
+WALKTHROUGH_EPOCHS = 4
+
+
+def phase_walkthrough() -> dict:
+    """examples/end_to_end_torch.py on the card (tiny_96 with flash
+    attention, WALKTHROUGH_EPOCHS epochs): every stage's JSON line and
+    artifact, the served detections well-formed, the flash kernels
+    launched in training and inference, the artifact server stopped."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as workdir:
+        tic = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(root, "examples",
+                                          "end_to_end_torch.py"),
+             "--device", "cuda", "--epochs", str(WALKTHROUGH_EPOCHS),
+             "--workdir", workdir], cwd=root, capture_output=True,
+            text=True, timeout=600)
+        seconds = time.monotonic() - tic
+        _require(proc.returncode == 0,
+                 f"walkthrough exited {proc.returncode}: "
+                 f"{proc.stderr[-3000:]}")
+        lines = [json.loads(line) for line in proc.stdout.splitlines()
+                 if line.startswith("{")]
+        stages = {line["stage"]: line for line in lines if "stage" in line}
+        _require(tuple(stages) == ("dataset", "train", "evaluate", "plot",
+                                   "visualize", "export", "serve"),
+                 f"walkthrough stages {list(stages)}")
+        summary = lines[-1]
+        _require(summary.get("ok") is True and summary["device"] == "cuda",
+                 f"walkthrough summary {summary}")
+        missing = [a for a in summary["artifacts"]
+                   if not os.path.exists(os.path.join(workdir, a))]
+        _require(not missing, f"walkthrough artifacts missing: {missing}")
+        with open(os.path.join(workdir, "served.json")) as f:
+            served = json.load(f)
+        size = (served["image_size"]["height"], served["image_size"]["width"])
+        _check_detections(served, size, 80)
+        _require(len(served["detections"]) > 0, "no served detection")
+        train = stages["train"]["launches"]
+        _require(train["forward_lse"] > 0 and train["backward"] > 0
+                 and train["forward"] > 0,
+                 f"walkthrough training launched {train}")
+        _require(stages["export"]["platforms"] == ["cuda"]
+                 and stages["serve"]["server_exit_code"] == 0,
+                 f"walkthrough export/serve {stages['export']} "
+                 f"{stages['serve']}")
+    result = {"seconds": seconds, "epochs": WALKTHROUGH_EPOCHS,
+              "stages": stages, "artifacts": summary["artifacts"],
+              "served_detections": len(served["detections"])}
+    _report("walkthrough", **result)
+    return result
+
+
 PEAK_NAMES = {"bf16": "bf16 989 TFLOP/s", "int8": "int8 1979 TOP/s",
               "3xtf32": "tf32 495 TFLOP/s, 3 products per fp32 product",
               "fp32": "fp32 67 TFLOP/s"}
@@ -4373,10 +4973,50 @@ def _entry(name, source, replaces, shape, launches, err, times, work):
             "peak": PEAK_NAMES[work[2]]}
 
 
+def _wide_entries(wide: dict) -> list:
+    """The 128-wide instance's rows (wide_heads): B1 at the service's
+    batch 32, B1-lse and B2 at the train step's batch 8, each shape (B *
+    16, 256, 80) bf16 padded to 128, with the launches of (c) and (d) and
+    the errors against the plain versions measured at that shape (B1-lse's
+    is its lse's, as for the 64-wide row; B2's the largest of dq, dk,
+    dv)."""
+    times = wide["times"]
+    serve_key, train_key = "512x256x80", "128x256x80"
+    rows = []
+    for name, what, replaces, key, launches, err in (
+            ("flash_attention_fwd_d128", "fwd", "flash_attention.py:64",
+             serve_key, wide["serve"]["launches_per_call"]["flash"], "fwd"),
+            ("flash_attention_fwd_lse_d128", "fwd_lse",
+             "flash_attention.py:653", train_key,
+             wide["train"]["launches"]["flash_lse"], "lse"),
+            ("flash_attention_bwd_d128", "bwd", "flash_attention.py:151",
+             train_key, wide["train"]["launches"]["flash_bwd"], "bwd_abs")):
+        t = times[key][what]
+        errors = times[key]["errors"]
+        bh, n, kd = (int(x) for x in key.split("x"))
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": CSRC + ("flash_attention_bwd.cu" if what == "bwd"
+                              else "flash_attention_fwd.cu"),
+            "replaces": TPU_KERNELS + replaces,
+            "shape": [bh, n, kd, "bfloat16", "padded to 128"],
+            "launches": launches, "max_abs_err": errors[err],
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "peak": PEAK_NAMES["bf16"],
+            "launch_source": ("wide_heads (c), one DetectionService call"
+                              if what == "fwd" else
+                              f"wide_heads (d), {WIDE_STEPS} train steps"),
+            "times_2048x256x128": dict(
+                times["2048x256x128"][what],
+                max_abs_err=times["2048x256x128"]["errors"][err])})
+    return rows
+
+
 def _kernels_line(flash_err, flash_times, train_errors, train_times,
                   drop_errors, drop_times, mlp_errors, mlp_times,
                   serve_errors, serve_times, launches, exported,
-                  graph, ring) -> dict:
+                  graph, ring, wide_heads, walkthrough) -> dict:
     """The kernels of every path, each with its launches on its main path,
     its error against its plain version, its times and its bound; B1, B3
     and B4 also with their launches per call of the exported program
@@ -4390,7 +5030,9 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
     timed with CUDA events, the whole ring's forward and backward on the
     host clock beside them in ``ring_host_ms``), and a tensor-parallel
     rank's B1-drop, B2-replay and MLP dropout with their coordinate maps
-    (``*_sharded``: launches of both processes of (g))."""
+    (``*_sharded``: launches of both processes of (g)); the 128-wide
+    instance's B1, B1-lse and B2 (``*_d128``, wide_heads), and the 48-wide
+    ones' launches in the walkthrough (``launches_walkthrough``)."""
     bh, n, k = 12, 576, 64                     # vit_b16_384, batch 1
     flash_bytes = 4 * bh * n * k * 2
     tbh, tn, tk = 64, 1296, 40                 # reference_608, batch 8
@@ -4411,26 +5053,31 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
     mbh = mb * mbh_per
     mqkv = mbh * mt * mk * 2                   # one bf16 operand
     map_n = MAP_MLP[0] * MAP_MLP[1] * MAP_MLP[2] // 2
+    walked = walkthrough["stages"]["train"]["launches"]
     return {"kernels": [
         dict(_entry("flash_attention_fwd", "flash_attention_fwd.cu",
                     "flash_attention.py:64", [bh, n, k, "bfloat16"],
                     launches["flash"], flash_err, flash_times[1],
                     (4 * bh * n * n * k, flash_bytes, "bf16")),
-             launches_exported=exported["flash"]),
+             launches_exported=exported["flash"],
+             launches_walkthrough=walked["forward"]),
         dict(_entry("flash_attention_fwd_lse", "flash_attention_fwd.cu",
                     "flash_attention.py:653", [tbh, tn, tk, "float32"],
                     launches["flash_lse"], train_errors["lse_abs"],
                     train_times["fwd_lse"],
                     (4 * tbh * tn * tn * tk, 4 * qkv + tbh * tn * 4,
                      "3xtf32")),
-             launches_graph=graph["flash_lse"]),
+             launches_graph=graph["flash_lse"],
+             launches_walkthrough=walked["forward_lse"]),
         dict(_entry("flash_attention_bwd", "flash_attention_bwd.cu",
                     "flash_attention.py:151", [tbh, tn, tk, "float32"],
                     launches["flash_bwd"], train_errors["bwd_abs"],
                     train_times["bwd"],
                     (10 * tbh * tn * tn * tk, 7 * qkv + 2 * tbh * tn * 4,
                      "3xtf32")),
-             launches_graph=graph["flash_bwd"]),
+             launches_graph=graph["flash_bwd"],
+             launches_walkthrough=walked["backward"]),
+        *_wide_entries(wide_heads),
         # q, k, v read, out written (bf16), lse written (fp32).
         dict(_entry("flash_attention_fwd_drop", "flash_attention_fwd.cu",
                     "flash_attention.py:679",
@@ -4623,6 +5270,8 @@ def main() -> int:
                                     8e3 / steps["highres_1024"]),
         "int8_service_b32": ("vit_b16_384",
                              32e3 / int8_times["int8"]["b32_ms_median"])})
+    wide = phase_wide_heads()
+    walk = phase_walkthrough()
     ring = phase_parallel()
     foreign = sorted(name for name in sys.modules
                      if name == "jax" or name.startswith("jax.")
@@ -4652,7 +5301,7 @@ def main() -> int:
                                    train_times, drop_errors, drop_times,
                                    mlp_errors, mlp_times, serve_errors,
                                    serve_times, launches, exported_launches,
-                                   window_launches, ring)),
+                                   window_launches, ring, wide, walk)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

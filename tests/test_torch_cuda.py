@@ -51,10 +51,10 @@ def _qkv(gen, shape, dtype, scale):
 
 
 # The kernels' tile edges (64 queries or keys per tile) and head dims
-# (padded to 48 or 64), each in both layouts: (layout, shape) pairs of one
-# batch and two heads.
+# (padded to 48, 64 or 128; 80 is ViT-H/14's), each in both layouts:
+# (layout, shape) pairs of one batch and two heads.
 EDGE_N = (1, 17, 63, 64, 65, 127, 256, 577, 1296)
-EDGE_K = (8, 40, 48, 64)
+EDGE_K = (8, 40, 48, 64, 80, 128)
 EDGES = [("bhnk", (1, 2, n, kk)) if (i + j) % 2 else ("bnhk", (1, n, 2, kk))
          for (i, n), (j, kk) in itertools.product(enumerate(EDGE_N),
                                                   enumerate(EDGE_K))]
@@ -105,8 +105,10 @@ def test_kernel_refuses_what_it_does_not_take(gen):
         fa.flash_attention(q, k, v, layout="bhnk", dropout_rate=0.1)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention(q.half(), k.half(), v.half(), layout="bhnk")
-    wide = torch.zeros(1, 2, 64, 128, device="cuda")
-    with pytest.raises(ValueError, match="head dim"):
+    # The first head dim past the widest instance (128): refused, never
+    # padded into another instance nor sent to the plain version.
+    wide = torch.zeros(1, 2, 64, 129, device="cuda")
+    with pytest.raises(NotImplementedError, match="head dim 129"):
         fa.flash_attention(wide, wide, wide, layout="bhnk")
     with pytest.raises(ValueError, match="all on the CPU or all on CUDA"):
         fa.flash_attention(q, k.cpu(), v, layout="bhnk")
@@ -164,6 +166,11 @@ def test_launch_count_survives_concurrent_callers(gen):
     ("bnhk", (8, 1296, 8, 40), torch.float32, 0.0, "partials"),
     ("bhnk", (8, 256, 256, 64), torch.bfloat16, 0.0, None),  # highres_1024
     ("bhnk", (8, 256, 256, 64), torch.bfloat16, 0.1, None),  # the replay
+    # The 128-wide instance at ViT-H/14's K = 80 (batch 8, 16 heads).
+    ("bnhk", (8, 256, 16, 80), torch.bfloat16, 0.0, None),
+    ("bnhk", (8, 256, 16, 80), torch.bfloat16, 0.1, None),
+    ("bnhk", (8, 256, 16, 80), torch.float32, 0.0, "split"),
+    ("bnhk", (8, 256, 16, 80), torch.float32, 0.0, "partials"),
 ])
 def test_backward_is_bit_reproducible(gen, layout, shape, dtype, rate,
                                       route):
@@ -193,7 +200,8 @@ def test_backward_is_bit_reproducible(gen, layout, shape, dtype, rate,
 
 
 @pytest.mark.parametrize("flash,key_dim", [(True, 64), (True, 40),
-                                           (False, 40)])
+                                           (False, 40), (True, 80),
+                                           (True, 128)])
 def test_model_on_card_matches_cpu(gen, flash, key_dim):
     config = DetectorConfig(
         image_size=(96, 96), patch_size=16, embedding_dim=64, num_heads=2,
@@ -1175,12 +1183,14 @@ def test_dropout_row_base_halves_equal_the_whole(gen):
 # (tensor parallelism, sequence sharding)
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("kd", [64, 80, 128])
 @pytest.mark.parametrize("rate", [None, 0.1])
-def test_flash_fp32_output_instance_matches_plain(gen, rate):
-    """B1-lse / B1-drop with bf16 inputs and an fp32 output: within the
-    bf16 tolerance of the plain version's fp32 output, and rounded to bf16
-    bit-equal to the bf16 instance (both round the same O / l once)."""
-    q, k, v = _qkv(gen, (2, 300, 4, 64), torch.bfloat16, 0.125)
+def test_flash_fp32_output_instance_matches_plain(gen, rate, kd):
+    """B1-lse / B1-drop with bf16 inputs and an fp32 output (the 64- and
+    128-wide instances): within the bf16 tolerance of the plain version's
+    fp32 output, and rounded to bf16 bit-equal to the bf16 instance (both
+    round the same O / l once)."""
+    q, k, v = _qkv(gen, (2, 300, 4, kd), torch.bfloat16, kd ** -0.5)
     drop = None if rate is None else (fa.seed_tensor(77, "cuda"), rate)
     out, lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
                                   dropout=drop, out_fp32=True)
@@ -1270,8 +1280,9 @@ def test_dropout_token_map_and_column_base_equal_the_whole(gen):
                            whole[:, 48:])
 
 
+@pytest.mark.parametrize("kd", [64, 80])
 @pytest.mark.parametrize("rate", [None, 0.1])
-def test_ring_blocks_in_key_order_round_as_the_whole_sequence(gen, rate):
+def test_ring_blocks_in_key_order_round_as_the_whole_sequence(gen, rate, kd):
     """Ring attention's blocks taken in key order, each launch resuming
     the online softmax's state where the one before suspended it (B1's
     state in and out, fp32 output): out and lse bit-equal to one launch
@@ -1281,8 +1292,8 @@ def test_ring_blocks_in_key_order_round_as_the_whole_sequence(gen, rate):
     from vision_transformer_detector_tpu_torch.kernels import (
         ring_attention as ra)
 
-    b, n, h, kd, parts = 2, 1024, 4, 64, 4
-    q, k, v = _qkv(gen, (b, n, h, kd), torch.bfloat16, 0.125)
+    b, n, h, parts = 2, 1024, 4, 4
+    q, k, v = _qkv(gen, (b, n, h, kd), torch.bfloat16, kd ** -0.5)
     g = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
     drop = None if rate is None else (fa.seed_tensor(2 ** 32 - 9, "cuda"),
                                       rate)

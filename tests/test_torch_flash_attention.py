@@ -272,11 +272,13 @@ def test_cpu_grads_take_the_plain_backward(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# What the kernels are handed: head dims padded to 48 or 64, 16-byte rows
+# What the kernels are handed: head dims padded to 48, 64 or 128, 16-byte
+# rows
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kdim,width", [(8, 48), (40, 48), (48, 48),
-                                        (56, 64), (64, 64)])
+                                        (56, 64), (64, 64), (65, 128),
+                                        (80, 128), (128, 128)])
 def test_pad_head_dim_gives_the_kernels_widths(kdim, width):
     t = torch.randn(2, 5, 3, kdim)
     padded = fa._pad_head_dim(t)

@@ -273,6 +273,31 @@ def test_tf_carryover_golden_variant(tmp_path):
     np.testing.assert_allclose(logits, golden, atol=1e-5, rtol=0)
 
 
+def test_tf_carryover_golden_variant_through_the_port_converter(tmp_path):
+    """The twin of test_tf_carryover_golden_variant with no JAX on the
+    weights' path: the .keras fixture converted by the port's own
+    tools/convert_tf_checkpoint_torch.py, its .npz loaded by the port,
+    reproduces the committed golden logits."""
+    pytest.importorskip("h5py")
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(os.path.dirname(here), "tools"))
+    from convert_tf_checkpoint_torch import (
+        convert, read_keras_weights, save_npz)
+    from test_convert import _write_fake_keras
+    from test_tf_carryover import VARIANT_CFG, VARIANT_GOLDEN_PATH
+
+    fake = _write_fake_keras(tmp_path, VARIANT_CFG, glorot=True)
+    path = os.path.join(str(tmp_path), "port.npz")
+    save_npz(path, convert(read_keras_weights(fake["path"]), VARIANT_CFG))
+    port = load_params_npz(path, VARIANT_CFG)
+    h, w = VARIANT_CFG.image_size
+    images = np.random.default_rng(42).uniform(
+        -1.0, 1.0, (1, h, w, 3)).astype(np.float32)
+    logits = _port_logits(port, images, VARIANT_CFG)
+    golden = np.load(VARIANT_GOLDEN_PATH)["logits"]
+    np.testing.assert_allclose(logits, golden, atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("flash", [False, True])
 def test_pad_attention_key_dim_exact_outputs_and_zero_padding_grads(
         tmp_path, flash):

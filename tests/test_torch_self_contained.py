@@ -87,6 +87,61 @@ def test_importing_every_port_module_loads_neither():
     assert result["foreign"] == []
 
 
+# The port's scripts beside the package: tools/*_torch.py and
+# examples/*_torch.py (the .keras converter, the walkthrough, the overlay
+# tool, the profilers, the overfit demo).
+SCRIPTS = ("tools/convert_tf_checkpoint_torch.py",
+           "tools/overlay_overfit_torch.py",
+           "examples/end_to_end_torch.py")
+
+
+def _script_files():
+    return sorted(os.path.join(REPO, folder, name)
+                  for folder in ("tools", "examples")
+                  for name in os.listdir(os.path.join(REPO, folder))
+                  if name.endswith("_torch.py"))
+
+
+def test_no_port_script_imports_jax_or_the_jax_package():
+    files = _script_files()
+    assert {os.path.join(REPO, name) for name in SCRIPTS} <= set(files)
+    bad = {}
+    for path in files:
+        hits = [name for name in _imported(path)
+                if name.split(".")[0] in FORBIDDEN]
+        if hits:
+            bad[os.path.relpath(path, REPO)] = hits
+    assert not bad, bad
+
+
+def test_loading_every_port_script_loads_neither():
+    """Each script's module body (imports, definitions; not its main) in
+    one process with JAX blocked: nothing of JAX or the JAX package is
+    loaded, and the .keras converter and the overlay tool reach the
+    port's model and plotting modules."""
+    script = (
+        "import json, runpy, sys\n"
+        f"for name in {FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"paths = {_script_files()!r}\n"
+        "for path in paths:\n"
+        "    runpy.run_path(path, run_name='loaded')\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import convert_tf_checkpoint_torch as c, overlay_overfit_torch\n"
+        "from vision_transformer_detector_tpu_torch import config\n"
+        "shapes = c.target_shapes(config.get_config('tiny_96'))\n"
+        "foreign = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r} and sys.modules[m] is not None)\n"
+        "print(json.dumps({'scripts': len(paths), 'foreign': foreign,\n"
+        "                  'names': len(shapes)}))\n")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["scripts"] >= len(SCRIPTS)
+    assert result["foreign"] == [] and result["names"] > 20
+
+
 def _fields(obj):
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
 

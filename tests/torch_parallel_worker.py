@@ -426,6 +426,29 @@ def case_cli_tp(out, outdir):
     np.savez(out, final_loss=result["final_loss"], step=result["step"])
 
 
+RING_TRAJECTORY_STEPS = 6
+
+
+def case_ring_trajectory(out, outdir):
+    """The narrow highres_1024_ring member the test wrote (bf16, full
+    remat, the multi-scale head, no dropout) trained over a (1, world)
+    ring from the test's weights on its batch, RING_TRAJECTORY_STEPS
+    steps: each step's loss."""
+    config, loss_config, train_config = load_configs(
+        os.path.join(outdir, "ring_trajectory.json"))
+    batch = np.load(os.path.join(outdir, "ring_trajectory_batch.npz"))
+    mesh = create_mesh(model=dist.get_world_size())
+    trainer = Trainer(config, loss_config, train_config, mesh=mesh,
+                      device="cpu")
+    state = trainer.init_state()
+    trainer.load_params(state, load_params_npz(
+        os.path.join(outdir, "ring_trajectory.npz"), config))
+    images, labels = _shard([batch["images"], batch["labels"]], mesh,
+                            len(batch["images"]))
+    np.savez(out, losses=np.asarray(_train(trainer, state, images, labels,
+                                           RING_TRAJECTORY_STEPS)))
+
+
 CASES = {
     "ring1": lambda out, outdir: case_ring(out, 1),
     "ring2": lambda out, outdir: case_ring(out, 2),
@@ -454,6 +477,7 @@ CASES = {
     "tp_dropout": case_mesh_dropout,
     "dp_mesh_dropout": lambda out, outdir: case_mesh_dropout(out, outdir, 2),
     "cli_tp": case_cli_tp,
+    "ring_trajectory": case_ring_trajectory,
 }
 
 

@@ -76,19 +76,31 @@
 //     dS K (dS cast to the input type, as in the dk/dv block); dq is
 //     written once, with plain fp32 stores, so the caller need not zero it;
 //   * fp32 runs the same code on TF32 with the 3xTF32 split of every
-//     operand (mma_sm90.cuh); head dim 48 or 64 as in the forward;
+//     operand (mma_sm90.cuh); head dim 48, 64 or 128 as in the forward.
+//     The 128 instances keep the 64-row tiles and 4 warps: the dk/dv kernel
+//     takes each query tile 32 (bf16) or 16 (fp32) queries at a time and
+//     the dq kernel each key tile as many keys at a time (sub_tile), so S
+//     and dP fit beside the accumulators, and the partials route forms dq's
+//     contribution 64 columns at a time;
 //   * dk and dv are cast to the input type (or, for a ring attention
 //     block, kept in fp32: the output type is a template parameter) and
 //     stored through the caller's strides; keys past N are never written,
 //     queries past N never touch dq.
 // Budget: shared memory, the dk/dv kernel's K, V, two q and two g tiles of
-// 64 x (D + 16 bytes) and two lse and two delta rows: 56,320 bytes (bf16,
-// 64), 44,032 (bf16, 48), 105,472 (fp32, 64), 80,896 (fp32, 48), and on the
-// partials route the dS^T tile of 64 x (64 + 16 bytes) more; the dq
+// 64 x (D + 16 bytes) and two lse and two delta rows: bf16 44,032 (48),
+// 56,320 (64), 105,472 (128); fp32 80,896 (48), 105,472 (64), 203,776
+// (128); on the partials route the dS^T tile of 64 x (64 + 16 bytes) more
+// (221,184 at fp32 128, under the 232,448 a CTA may take); the dq
 // kernel's q, g and two K and two V tiles, 1,024 bytes less than the dk/dv
 // kernel's; dynamic, with cudaFuncAttributeMaxDynamicSharedMemorySize
-// raised once per device. chip_smoke.py's build phase prints each
-// instance's registers and spills (-Xptxas -v) and its HMMA count.
+// raised once per device. Registers (-Xptxas -v, sm_90a, CUDA 12.8, on the
+// NVIDIA H100 80GB HBM3's machine), without / with dropout: bf16 dk/dv
+// 175 / 243 (48), 213 / 255 (64), 255 / 255 (128, spilling 16 / 20
+// bytes), bf16 dq 157 / 186, 165 / 242, 253 / 255 (8 bytes with
+// dropout); every fp32 kernel uses 255 and spills 8-104 bytes (the 128
+// dk/dv kernel 56 / 52, its partials variant 72 / 104, its dq kernel 24 /
+// 16). chip_smoke.py's build phase prints each instance's registers and
+// spills and its HMMA count.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,6 +132,19 @@ constexpr int smem_bytes(int d) {
          (kPartials ? kBlock * (kBlock + Mma<T>::kPad) *
                           static_cast<int>(sizeof(T))
                     : 0);
+}
+
+// Queries (dk/dv kernel) or keys (dq kernel) taken per step of a 64-row
+// tile: all 64 at head dims up to 64; at 128, where the kernel's own
+// accumulators (dk and dv, or dq) hold D / 2 registers each for the whole
+// loop, 32 in bf16 and 16 in fp32 (whose 3xTF32 fragments are twice as
+// wide), so that S and dP (kSub / 2 registers each) fit beside them. The
+// steps are a loop the compiler does not unroll: unrolled, it hoisted the
+// next step's fragments, and the fp32 instances spilled heavily and built
+// slowly.
+template <typename T, int D>
+__host__ __device__ constexpr int sub_tile() {
+  return D <= 64 ? kBlock : (sizeof(T) == 2 ? 32 : 16);
 }
 
 // The 64 fp32 values of rows row0..row0+63 of a contiguous (seq_len,) row,
@@ -235,113 +260,129 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float* lse_t = lse_s + buf * kBlock;
     const float* delta_t = delta_s + buf * kBlock;
 
-    // S^T = K Q^T and dP^T = V g^T: 16 keys x 64 queries per warp.
-    float s[8][4], dp[8][4];
+    // S^T = K Q^T and dP^T = V g^T: 16 keys x kSub queries per warp, for
+    // the kSub queries from s0.
+    constexpr int kSub = sub_tile<T, D>();
+#pragma unroll 1
+    for (int s0 = 0; s0 < kBlock; s0 += kSub) {
+      float s[kSub / 8][4], dp[kSub / 8][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kSub / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = 0.f;
-        dp[j][e] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      typename M::A ka, va;
-      M::load_a(ka, k_s, kLd, 16 * warp, 16 * kc, lane);
-      M::load_a(va, v_s, kLd, 16 * warp, 16 * kc, lane);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        typename M::B b0, b1;
-        M::load_b_nk(b0, b1, q_t, kLd, 16 * np, 16 * kc, lane);
-        M::mma(s[2 * np], ka, b0);
-        M::mma(s[2 * np + 1], ka, b1);
-        M::load_b_nk(b0, b1, g_t, kLd, 16 * np, 16 * kc, lane);
-        M::mma(dp[2 * np], va, b0);
-        M::mma(dp[2 * np + 1], va, b1);
-      }
-    }
-
-    // P^T (scaled by the replayed mask) into s, dS^T into dp: rows are
-    // keys (e >> 1), columns queries 8j + 2t + (e & 1).
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int col = 8 * j + 2 * t + (e & 1);
-        const int query = q0 + col;
-        const float p =
-            key_ok[r] && query < seq_len
-                ? exp2f(fmaf(s[j][e], kLog2e, -lse_t[col] * kLog2e))
-                : 0.f;
-        float scale = 1.f;
-        if (kDropout) {
-          scale = keep(drop, hash_key[r] +
-                                 query_term(drop,
-                                            static_cast<unsigned int>(query)))
-                      ? drop.inv_keep
-                      : 0.f;
-        }
-        s[j][e] = p * scale;
-        dp[j][e] = p * (dp[j][e] * scale - delta_t[col]);
-      }
-    }
-
-    // dV += P^T g and dK += dS^T Q, each A fragment rounded to the input
-    // type.
-    add_acc_kn<T, kBlock, D>(dv_acc, s, g_t, kLd, lane);
-    add_acc_kn<T, kBlock, D>(dk_acc, dp, q_t, kLd, lane);
-    if constexpr (kPartials) {
-      // dS^T (rounded) through shared memory; each warp forms 16 query
-      // rows of this key tile's dq contribution dS K and stores it.
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          store_pair(ds_s + (16 * warp + gr + 8 * r) * kLdS + 8 * j + 2 * t,
-                     dp[j][2 * r], dp[j][2 * r + 1]);
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = 0.f;
+          dp[j][e] = 0.f;
         }
       }
-      __syncthreads();
-      float dq_acc[D / 8][4];
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int kc = 0; kc < D / 16; ++kc) {
+        typename M::A ka, va;
+        M::load_a(ka, k_s, kLd, 16 * warp, 16 * kc, lane);
+        M::load_a(va, v_s, kLd, 16 * warp, 16 * kc, lane);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
-      }
-#pragma unroll
-      for (int kc = 0; kc < kBlock / 16; ++kc) {
-        typename M::A a;
-        M::load_a_t(a, ds_s, kLdS, 16 * kc, 16 * warp, lane);
-#pragma unroll
-        for (int np = 0; np < D / 16; ++np) {
+        for (int np = 0; np < kSub / 16; ++np) {
           typename M::B b0, b1;
-          M::load_b_kn(b0, b1, k_s, kLd, 16 * kc, 16 * np, lane);
-          M::mma(dq_acc[2 * np], a, b0);
-          M::mma(dq_acc[2 * np + 1], a, b1);
+          M::load_b_nk(b0, b1, q_t, kLd, s0 + 16 * np, 16 * kc, lane);
+          M::mma(s[2 * np], ka, b0);
+          M::mma(s[2 * np + 1], ka, b1);
+          M::load_b_nk(b0, b1, g_t, kLd, s0 + 16 * np, 16 * kc, lane);
+          M::mma(dp[2 * np], va, b0);
+          M::mma(dp[2 * np + 1], va, b1);
         }
       }
-      // Lanes t and t ^ 1 swap halves, so each stores four adjacent values
-      // of one row: an even lane row gr, columns 8j + 2t .. + 3; an odd
-      // lane row gr + 8, columns 8j + 2(t - 1) .. + 3.
-      const bool odd = t & 1;
-      const int row = q0 + 16 * warp + gr + (odd ? 8 : 0);
-      float* dq_row =
-          partials +
-          ((static_cast<long long>(blockIdx.x % tiles) * (gridDim.x / tiles) +
-            bh) * seq_len + row) * D +
-          2 * (t & ~1);
+
+      // P^T (scaled by the replayed mask) into s, dS^T into dp: rows are
+      // keys (e >> 1), columns queries s0 + 8j + 2t + (e & 1).
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const float s0 = odd ? dq_acc[j][0] : dq_acc[j][2];
-        const float s1 = odd ? dq_acc[j][1] : dq_acc[j][3];
-        const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
-        const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-        if (row < seq_len) {
-          *reinterpret_cast<float4*>(dq_row + 8 * j) =
-              odd ? make_float4(r0, r1, dq_acc[j][2], dq_acc[j][3])
-                  : make_float4(dq_acc[j][0], dq_acc[j][1], r0, r1);
+      for (int j = 0; j < kSub / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int col = s0 + 8 * j + 2 * t + (e & 1);
+          const int query = q0 + col;
+          const float p =
+              key_ok[r] && query < seq_len
+                  ? exp2f(fmaf(s[j][e], kLog2e, -lse_t[col] * kLog2e))
+                  : 0.f;
+          float scale = 1.f;
+          if (kDropout) {
+            scale = keep(drop, hash_key[r] +
+                                   query_term(drop,
+                                              static_cast<unsigned int>(
+                                                  query)))
+                        ? drop.inv_keep
+                        : 0.f;
+          }
+          s[j][e] = p * scale;
+          dp[j][e] = p * (dp[j][e] * scale - delta_t[col]);
+        }
+      }
+
+      // dV += P^T g and dK += dS^T Q, each A fragment rounded to the input
+      // type.
+      add_acc_kn<T, kSub, D>(dv_acc, s, g_t + s0 * kLd, kLd, lane);
+      add_acc_kn<T, kSub, D>(dk_acc, dp, q_t + s0 * kLd, kLd, lane);
+      if constexpr (kPartials) {
+        // dS^T (rounded) into shared memory, for the dq contribution.
+#pragma unroll
+        for (int j = 0; j < kSub / 8; ++j) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            store_pair(ds_s + (16 * warp + gr + 8 * r) * kLdS + s0 + 8 * j +
+                           2 * t,
+                       dp[j][2 * r], dp[j][2 * r + 1]);
+          }
+        }
+      }
+    }
+    if constexpr (kPartials) {
+      // Each warp forms 16 query rows of this key tile's dq contribution
+      // dS K, col_pass<D>() columns at a time, and stores them.
+      __syncthreads();
+      constexpr int kCols = col_pass<D>();
+#pragma unroll
+      for (int c = 0; c < D / kCols; ++c) {
+        float dq_acc[kCols / 8][4];
+#pragma unroll
+        for (int j = 0; j < kCols / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
+        }
+#pragma unroll
+        for (int kc = 0; kc < kBlock / 16; ++kc) {
+          typename M::A a;
+          M::load_a_t(a, ds_s, kLdS, 16 * kc, 16 * warp, lane);
+#pragma unroll
+          for (int np = 0; np < kCols / 16; ++np) {
+            typename M::B b0, b1;
+            M::load_b_kn(b0, b1, k_s, kLd, 16 * kc, kCols * c + 16 * np,
+                         lane);
+            M::mma(dq_acc[2 * np], a, b0);
+            M::mma(dq_acc[2 * np + 1], a, b1);
+          }
+        }
+        // Lanes t and t ^ 1 swap halves, so each stores four adjacent
+        // values of one row: an even lane row gr, columns 8j + 2t .. + 3;
+        // an odd lane row gr + 8, columns 8j + 2(t - 1) .. + 3.
+        const bool odd = t & 1;
+        const int row = q0 + 16 * warp + gr + (odd ? 8 : 0);
+        float* dq_row =
+            partials +
+            ((static_cast<long long>(blockIdx.x % tiles) *
+                  (gridDim.x / tiles) +
+              bh) * seq_len + row) * D +
+            kCols * c + 2 * (t & ~1);
+#pragma unroll
+        for (int j = 0; j < kCols / 8; ++j) {
+          const float x0 = odd ? dq_acc[j][0] : dq_acc[j][2];
+          const float x1 = odd ? dq_acc[j][1] : dq_acc[j][3];
+          const float r0 = __shfl_xor_sync(0xffffffffu, x0, 1);
+          const float r1 = __shfl_xor_sync(0xffffffffu, x1, 1);
+          if (row < seq_len) {
+            *reinterpret_cast<float4*>(dq_row + 8 * j) =
+                odd ? make_float4(r0, r1, dq_acc[j][2], dq_acc[j][3])
+                    : make_float4(dq_acc[j][0], dq_acc[j][1], r0, r1);
+          }
         }
       }
     }
@@ -450,58 +491,63 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* k_t = k_s + buf * kTile;
     const T* v_t = v_s + buf * kTile;
 
-    // S = Q K^T and dP = g V^T: 16 queries x 64 keys per warp.
-    float s[8][4], dp[8][4];
+    // S = Q K^T and dP = g V^T: 16 queries x kSub keys per warp, for the
+    // kSub keys from s0.
+    constexpr int kSub = sub_tile<T, D>();
+#pragma unroll 1
+    for (int s0 = 0; s0 < kBlock; s0 += kSub) {
+      float s[kSub / 8][4], dp[kSub / 8][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kSub / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = 0.f;
-        dp[j][e] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      typename M::A qa, ga;
-      M::load_a(qa, q_s, kLd, 16 * warp, 16 * kc, lane);
-      M::load_a(ga, g_s, kLd, 16 * warp, 16 * kc, lane);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        typename M::B b0, b1;
-        M::load_b_nk(b0, b1, k_t, kLd, 16 * np, 16 * kc, lane);
-        M::mma(s[2 * np], qa, b0);
-        M::mma(s[2 * np + 1], qa, b1);
-        M::load_b_nk(b0, b1, v_t, kLd, 16 * np, 16 * kc, lane);
-        M::mma(dp[2 * np], ga, b0);
-        M::mma(dp[2 * np + 1], ga, b1);
-      }
-    }
-
-    // dS into dp: rows are queries (e >> 1), columns keys 8j + 2t +
-    // (e & 1).
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int key = kv0 + 8 * j + 2 * t + (e & 1);
-        const float p =
-            query_ok[r] && key < seq_len
-                ? exp2f(fmaf(s[j][e], kLog2e, -lse_r[r]))
-                : 0.f;
-        float scale = 1.f;
-        if (kDropout) {
-          scale = keep(drop, hash_query[r] +
-                                 key_term(drop,
-                                          static_cast<unsigned int>(key)))
-                      ? drop.inv_keep
-                      : 0.f;
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = 0.f;
+          dp[j][e] = 0.f;
         }
-        dp[j][e] = p * (dp[j][e] * scale - delta_r[r]);
       }
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+        typename M::A qa, ga;
+        M::load_a(qa, q_s, kLd, 16 * warp, 16 * kc, lane);
+        M::load_a(ga, g_s, kLd, 16 * warp, 16 * kc, lane);
+#pragma unroll
+        for (int np = 0; np < kSub / 16; ++np) {
+          typename M::B b0, b1;
+          M::load_b_nk(b0, b1, k_t, kLd, s0 + 16 * np, 16 * kc, lane);
+          M::mma(s[2 * np], qa, b0);
+          M::mma(s[2 * np + 1], qa, b1);
+          M::load_b_nk(b0, b1, v_t, kLd, s0 + 16 * np, 16 * kc, lane);
+          M::mma(dp[2 * np], ga, b0);
+          M::mma(dp[2 * np + 1], ga, b1);
+        }
+      }
+
+      // dS into dp: rows are queries (e >> 1), columns keys kv0 + s0 + 8j
+      // + 2t + (e & 1).
+#pragma unroll
+      for (int j = 0; j < kSub / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int key = kv0 + s0 + 8 * j + 2 * t + (e & 1);
+          const float p =
+              query_ok[r] && key < seq_len
+                  ? exp2f(fmaf(s[j][e], kLog2e, -lse_r[r]))
+                  : 0.f;
+          float scale = 1.f;
+          if (kDropout) {
+            scale = keep(drop, hash_query[r] +
+                                   key_term(drop,
+                                            static_cast<unsigned int>(key)))
+                        ? drop.inv_keep
+                        : 0.f;
+          }
+          dp[j][e] = p * (dp[j][e] * scale - delta_r[r]);
+        }
+      }
+      // dq += dS K, dS rounded to the input type.
+      add_acc_kn<T, kSub, D>(dq_acc, dp, k_t + s0 * kLd, kLd, lane);
     }
-    // dq += dS K, dS rounded to the input type.
-    add_acc_kn<T, kBlock, D>(dq_acc, dp, k_t, kLd, lane);
     __syncthreads();
   }
 
@@ -655,6 +701,11 @@ cudaError_t launch(int head_dim, bool dropout, const void* q, const void* k,
                              partials, batch, heads, seq_len, sq, sk, sv, sg,
                              sdq, sdk, sdv, drop, stream);
   }
+  if (head_dim == 128) {
+    return launch_dim<T, 128, O>(dropout, q, k, v, g, lse, delta, dq, dk, dv,
+                              partials, batch, heads, seq_len, sq, sk, sv, sg,
+                              sdq, sdk, sdv, drop, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -670,7 +721,7 @@ extern "C" {
 // only, a (tiles, batch * heads, seq_len, head_dim) fp32 workspace for the
 // partials route, tiles = ceil(seq_len / 64); dq's rows must then be
 // 16-byte aligned too.
-// head_dim: 48 or 64 (the wrapper pads). Strides are in elements, for the
+// head_dim: 48, 64 or 128 (the wrapper pads). Strides are in elements, for the
 // batch, head and token axes; the head dim must be contiguous and every row
 // 16-byte aligned. dropout: 0, or 1 with the device address of the
 // forward's uint32 seed, the keep threshold and fp32 1 / (1 - rate); delta

@@ -69,9 +69,16 @@
 //     comes in through ldmatrix.trans;
 //   * fp32 (reference_608) runs the same code on mma.m16n8k8 TF32 with the
 //     3xTF32 split for both products (in fp32 P's cast is the identity);
-//   * the head dim is a template parameter, 48 or 64: the wrapper pads
-//     K <= 48 to 48 and 48 < K <= 64 to 64 (zero columns are exact), so
-//     reference_608's K = 40 does 48-wide products, not 64;
+//   * the head dim is a template parameter, 48, 64 or 128: the wrapper pads
+//     K <= 48 to 48, 48 < K <= 64 to 64 and 64 < K <= 128 to 128 (zero
+//     columns are exact), so reference_608's K = 40 does 48-wide products,
+//     not 64, and ViT-H/14's K = 80 runs the 128 instance. The 128
+//     instance keeps the 64-row tiles and the warp layout (the ring's
+//     per-lane normaliser state is the same); in fp32 it reloads Q's
+//     fragments from the shared tile at every key tile instead of holding
+//     them (3xTF32 hi and lo fragments of 16 rows x 128 would take 128
+//     registers beside O's 64), and every fp32 tile sum covers 64 columns
+//     a pass (mma_sm90.cuh);
 //   * the output type is a template parameter: the input type, or fp32
 //     for a bf16 ring attention block (kernels/ring_attention.py merges the
 //     R blocks' unrounded outputs and rounds once, as JAX's ring does);
@@ -79,15 +86,17 @@
 //     caller's strides ((B, N, H, K) or (B, H, N, K) views, unit head
 //     stride, rows 16-byte aligned: the wrapper checks); lse = m + log l is
 //     written by one lane per row.
-// Budget (-Xptxas -v, sm_90a, CUDA 12.8), per instance without / with
-// dropout: registers 133 / 160 (bf16, 64), 127 / 136 (bf16, 48), 255 / 255
-// (fp32, 64; the second spills 4 bytes), 223 / 234 (fp32, 48), so 3 CTAs
-// of the bf16 kernel share an SM, 2 of the fp32 one. Shared memory, 5
-// tiles of 64 x (D + 16 bytes): 46,080 bytes (bf16, 64), 35,840 (bf16,
-// 48), 87,040 (fp32, 64), 66,560 (fp32, 48), dynamic, with
-// cudaFuncAttributeMaxDynamicSharedMemorySize raised once per device.
-// chip_smoke.py's build phase prints these numbers and the HMMA count of
-// each instance.
+// Budget (-Xptxas -v, sm_90a, CUDA 12.8, NVIDIA H100 80GB HBM3's machine),
+// registers per instance without / with dropout: bf16 127 / 164 (48),
+// 133 / 167 (64), 234 / 254 (128), no spills; fp32 223 / 237 (48),
+// 255 / 255 (64; the second spills 16 bytes), 255 / 255 (128; each spills
+// 64 bytes). Shared memory, 5 tiles of 64 x (D + 16 bytes): bf16 35,840
+// (48), 46,080 (64), 87,040 (128); fp32 66,560 (48), 87,040 (64),
+// 168,960 (128), dynamic, with cudaFuncAttributeMaxDynamicSharedMemorySize
+// raised once per device. So 3 CTAs of the 48 and 64 bf16 kernels share
+// an SM, 2 of the 128 one (registers) and of the fp32 48 and 64 ones, 1 of
+// the fp32 128 one (shared memory). chip_smoke.py's build phase prints
+// these numbers and the HMMA count of each instance.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -141,6 +150,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using M = Mma<T>;
   constexpr int kLd = D + M::kPad;
   constexpr int kTile = kBlock * kLd;
+  // Q's A fragments stay in registers for the whole loop, except in the
+  // 128-wide fp32 instance, whose 3xTF32 fragments (hi and lo) would take
+  // 128 registers beside the accumulator's 64: it reloads them from the
+  // shared Q tile, which no later copy overwrites, at every key tile.
+  constexpr bool kQResident = sizeof(T) == 2 || D <= 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);
   T* k_s = q_s + kTile;          // two buffers
@@ -167,7 +181,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cp_async_commit();
 
   // This lane's rows: 16 * warp + g (r = 0) and + 8 (r = 1).
-  typename M::A qa[D / 16];
+  typename M::A qa[kQResident ? D / 16 : 1];
   float acc[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -228,10 +242,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
+    if constexpr (kQResident) {
+      if (it == 0) {
 #pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        M::load_a(qa[kc], q_s, kLd, 16 * warp, 16 * kc, lane);
+        for (int kc = 0; kc < D / 16; ++kc) {
+          M::load_a(qa[kc], q_s, kLd, 16 * warp, 16 * kc, lane);
+        }
       }
     }
     const T* k_t = k_s + buf * kTile;
@@ -246,12 +262,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int kc = 0; kc < D / 16; ++kc) {
+      if constexpr (!kQResident) {
+        M::load_a(qa[0], q_s, kLd, 16 * warp, 16 * kc, lane);
+      }
+      const typename M::A& a = qa[kQResident ? kc : 0];
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         typename M::B b0, b1;
         M::load_b_nk(b0, b1, k_t, kLd, 16 * np, 16 * kc, lane);
-        M::mma(s[2 * np], qa[kc], b0);
-        M::mma(s[2 * np + 1], qa[kc], b1);
+        M::mma(s[2 * np], a, b0);
+        M::mma(s[2 * np + 1], a, b1);
       }
     }
     if (kv0 + kBlock > seq_len) {
@@ -400,6 +420,10 @@ cudaError_t launch(int head_dim, bool dropout, const void* q, const void* k,
     return launch_dim<T, 64, O>(dropout, q, k, v, o, state, batch, heads,
                                 seq_len, sq, sk, sv, so, drop, stream);
   }
+  if (head_dim == 128) {
+    return launch_dim<T, 128, O>(dropout, q, k, v, o, state, batch, heads,
+                                 seq_len, sq, sk, sv, so, drop, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -409,8 +433,8 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; out_fp32: 1 writes the output in fp32
 // whatever the input dtype (a ring attention block), 0 in the input dtype.
-// head_dim: 48 or 64 (the wrapper pads). Strides are in elements, for the
-// batch, head and token axes; the head dim must be contiguous and every
+// head_dim: 48, 64 or 128 (the wrapper pads). Strides are in elements, for
+// the batch, head and token axes; the head dim must be contiguous and every
 // row 16-byte aligned. lse: nullptr, or a contiguous fp32 (batch, heads,
 // seq_len) array; m_in, l_in, acc_in and m_out, l_out: nullptr, or a ring
 // attention block's online-softmax state to resume from and to hand on

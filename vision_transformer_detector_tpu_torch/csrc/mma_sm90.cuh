@@ -357,6 +357,15 @@ __device__ __forceinline__ void mma_acc_kn(float (&out)[kN / 8][4],
   }
 }
 
+// Columns of a 64-row tile's product that one pass forms in fresh
+// registers: all of them up to 64, then 64 at a time (the 128-wide
+// instances take two passes), which changes no column's sum.
+template <int kN>
+__host__ __device__ constexpr int col_pass() {
+  static_assert(kN <= 64 || kN % 64 == 0, "column passes");
+  return kN > 64 ? 64 : kN;
+}
+
 // The same product added into a sum carried over many tiles (the forward's
 // O, the backward's dK and dV). The tensor cores align and truncate when
 // they add into the fp32 accumulator, so a sum carried in it through
@@ -364,17 +373,22 @@ __device__ __forceinline__ void mma_acc_kn(float (&out)[kN / 8][4],
 // (1.2e-5 of dk's largest value at N = 1296 in fp32). For fp32 each tile's
 // product is therefore summed in fresh registers and added with one
 // round-to-nearest fp32 add per element; bf16, held to 2e-2, adds in place.
+// The fresh registers cover col_pass<kN>() columns at a time.
 template <typename T, int kK, int kN>
 __device__ __forceinline__ void add_acc_kn(float (&out)[kN / 8][4],
                                            const float (&a)[kK / 8][4],
                                            const T* b, int ld, int lane) {
   if constexpr (Mma<T>::kTileSums) {
-    float part[kN / 8][4] = {};
-    mma_acc_kn<T, kK, kN>(part, a, b, ld, lane);
+    constexpr int kCols = col_pass<kN>();
 #pragma unroll
-    for (int j = 0; j < kN / 8; ++j) {
+    for (int c = 0; c < kN / kCols; ++c) {
+      float part[kCols / 8][4] = {};
+      mma_acc_kn<T, kK, kCols>(part, a, b + kCols * c, ld, lane);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) out[j][e] += part[j][e];
+      for (int j = 0; j < kCols / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) out[kCols / 8 * c + j][e] += part[j][e];
+      }
     }
   } else {
     mma_acc_kn<T, kK, kN>(out, a, b, ld, lane);

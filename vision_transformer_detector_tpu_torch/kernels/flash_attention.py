@@ -20,10 +20,13 @@ Routing is by the device of the tensors, never by a fallback:
   * any other device raises.
 
 The kernels run on the tensor cores (bf16, and fp32 as 3xTF32) with head
-dims of 48 or 64: a smaller K is zero-padded to the next of the two, which
-is exact. They copy q/k/v rows 16 bytes at a time, so a view whose rows do
-not start on 16-byte boundaries (or whose head dim is strided) is refused
-with ValueError, never copied; the model's views all qualify.
+dims of 48, 64 or 128: a smaller K is zero-padded to the next of the
+three, which is exact (ViT-H/14's K = 80 runs the 128-wide instance). A
+CUDA call with K > 128 raises NotImplementedError: the port has no wider
+instance, and it sends no such call to the plain version. They copy q/k/v
+rows 16 bytes at a time, so a view whose rows do not start on 16-byte
+boundaries (or whose head dim is strided) is refused with ValueError,
+never copied; the model's views all qualify.
 
 When q, k or v requires grad, the call goes through
 ``FlashAttentionFunction``: its forward also writes the fp32 logsumexp and
@@ -77,8 +80,8 @@ import torch.nn.functional as F
 
 FWD_SOURCE = "flash_attention_fwd.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
-_HEAD_DIMS = (48, 64)   # the kernels' head dims; smaller K is padded
-_ALIGN = 16             # bytes: the kernels' cp.async copies move 16 at once
+_HEAD_DIMS = (48, 64, 128)   # the kernels' head dims; smaller K is padded
+_ALIGN = 16                  # bytes: cp.async copies move 16 at once
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KEY_TILE = 64           # keys per tile of the backward kernels
 # The backward's two ways of summing dq over the key tiles in order, and
@@ -404,18 +407,28 @@ def _check_inputs(*tensors) -> None:
             + ", ".join(str(t.dtype) for t in tensors))
     if any(t.device != tensors[0].device for t in tensors):
         raise ValueError("q/k/v must be on one CUDA device")
-    if shape[-1] > _HEAD_DIMS[-1]:
-        raise ValueError(
-            f"head dim {shape[-1]} > {_HEAD_DIMS[-1]} is not supported")
+    kernel_width(shape[-1])
     if tensors[0].numel() == 0:
         raise ValueError("empty q/k/v")
 
 
+def kernel_width(kdim: int) -> int:
+    """The head dim of the kernel instance that runs K = ``kdim``: the
+    narrowest of ``_HEAD_DIMS`` that holds it. Raises NotImplementedError
+    past the widest (the port has no instance for K > 128)."""
+    for width in _HEAD_DIMS:
+        if kdim <= width:
+            return width
+    raise NotImplementedError(
+        f"head dim {kdim}: the flash kernels have instances of head dims "
+        f"{_HEAD_DIMS} and none wider than {_HEAD_DIMS[-1]}")
+
+
 def _pad_head_dim(t: torch.Tensor) -> torch.Tensor:
     """Zero-pad the head dim to the kernels' width: K <= 48 to 48, 48 < K
-    <= 64 to 64. Exact: padded columns add 0 to q.k and to g.v and give 0
-    outputs and grads, sliced off afterwards."""
-    width = next(w for w in _HEAD_DIMS if t.shape[-1] <= w)
+    <= 64 to 64, 64 < K <= 128 to 128. Exact: padded columns add 0 to q.k
+    and to g.v and give 0 outputs and grads, sliced off afterwards."""
+    width = kernel_width(t.shape[-1])
     if t.shape[-1] < width:
         return F.pad(t, (0, width - t.shape[-1]))
     return t
