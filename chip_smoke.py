@@ -18,14 +18,15 @@ PyTorch version. Phases, one output line each:
   1. build        — compile every kernel source of the paths from csrc/
                     with nvcc, all at once; ptxas lines of each, and the
                     tensor-core instructions in the SASS (cuobjdump): HMMA
-                    of each flash template instance, > 0 in both flash
-                    libraries and in every bf16 instance; IGMMA / IMMA of
+                    of each mma.sync flash template instance and HGMMA of
+                    each instance of the wgmma forward (bf16, head dim 64
+                    and 128), > 0 in every one; IGMMA / IMMA of
                     the int8 dense's tensor-core kernel and HGMMA / HMMA
                     of the dense+mish's wgmma and mma.sync kernels, > 0;
   2. kernel       — flash attention forward against reference_attention
-                    on the card, in bf16 and fp32: the serving shape
-                    (B*H, N, K) = (12, 576, 64), (96, 576, 64), and the
-                    ragged (8, 1296, 40) that the wrapper pads to K = 48;
+                    on the card, in bf16 (the wgmma kernel) and fp32: the
+                    serving shape (B*H, N, K) = (12, 576, 64), (96, 576,
+                    64), and the ragged (8, 1296, 40), read at K = 40;
                     times both at (B*12, 576, 64) bf16 for B = 1 and 64,
                     beside one scaled_dot_product_attention call;
   3. kernel_train — the forward's logsumexp against
@@ -50,7 +51,8 @@ PyTorch version. Phases, one output line each:
                     model folds its windows), (64, 1296, 40) fp32
                     tokens-major and a ragged N; the kernel's mask read
                     back exactly (q = k = 0, v one-hot) for 2,048
-                    batch*heads; the backward with and without the replay
+                    batch*heads, in fp32 and through the wgmma forward in
+                    bf16; the backward with and without the replay
                     launched 10 times at (2048, 256, 64) bf16, dq, dk and
                     dv bit-equal every time; times in turns against the
                     plain versions
@@ -175,20 +177,27 @@ PyTorch version. Phases, one output line each:
  15. wide_heads   — a detector at ViT-H/14's attention widths (D 1280, 16
                     heads of 80, 32 blocks, 224 px in 14 px patches: 256
                     tokens; bf16, flash in serving and training), whose
-                    K = 80 runs the flash kernels' 128-wide instance:
-                    (a) that instance at K 80, 96 and 128, both layouts,
+                    K = 80 runs the 128-wide instances, read at K = 80:
+                    (a) K 80 and 128 in both layouts and, past 128, the
+                    wide route at K 129, 192, 256 in one layout each,
                     bf16 and fp32, against the plain versions (forward,
                     lse, dropout forward, backward by each dq route and
                     with the replay, the fp32-output instance and fp32
-                    dk/dv), a ring of two key blocks chained against one
-                    launch bit for bit, B2 10 times bit-equal; (b) its
-                    times at (B * 16, 256, 80) for B = 1, 8, 32 and at
-                    (2048, 256, 128) beside SDPA and the bound; (c)
+                    dk/dv), the wgmma and copy counts, a ring of two key
+                    blocks chained against one launch bit for bit (K 80,
+                    128, 192), B2 10 times bit-equal (K 80, 192), and
+                    the kernels one flash call launches at K 80 against
+                    K 128 (profiler: no padding or slicing kernel); (b)
+                    times at (B * 16, 256, 80) for B = 1, 8, 32, at
+                    (2048, 256, 128) and
+                    at (128, 256, 192 and 256) beside SDPA and the bound,
+                    and fp32 B2 beside SDPA's fp32 backward; (c)
                     DetectionService at batch 1 and 32, one seeded image
                     card against CPU at model_serve's bf16 limits, 32
-                    flash launches a call; (d) 5 steps at batch 8 through
-                    Trainer.fit (the loss falls; 32 forward-with-lse and
-                    32 backward launches a step), one fp32 step at depth
+                    flash launches a call, all on wgmma, no copy; (d) 5
+                    steps at batch 8 through Trainer.fit (the loss falls;
+                    32 forward-with-lse (wgmma) and 32 backward launches a
+                    step, no copy), one fp32 step at depth
                     2 against the CPU, step time and peak memory;
  15b. walkthrough — examples/end_to_end_torch.py on the card (tiny_96
                     with flash attention, 4 epochs): dataset, train,
@@ -270,6 +279,7 @@ falls back to a plain version. Imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import functools
 import io
 import json
 import os
@@ -281,6 +291,7 @@ import tempfile
 import time
 import urllib.request
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 REQUESTS = 4            # HTTP requests in the serving phases
 TRAIN_STEPS = 20        # Trainer.fit epochs (one batch each) in `train`
@@ -387,8 +398,9 @@ def phase_build():
     from vision_transformer_detector_tpu_torch.kernels import (
         dropout, flash_attention as fa, fused_ffn, fused_ln, quantization)
 
-    sources = [fa.FWD_SOURCE, fa.BWD_SOURCE, quantization.SOURCE,
-               fused_ln.SOURCE, fused_ffn.SOURCE, dropout.SOURCE]
+    sources = [fa.FWD_SOURCE, fa.SM90_SOURCE, fa.BWD_SOURCE,
+               fa.BWD_WIDE_SOURCE, quantization.SOURCE, fused_ln.SOURCE,
+               fused_ffn.SOURCE, dropout.SOURCE]
     tic = time.monotonic()
     _build.load_libraries(sources)
     seconds = round(time.monotonic() - tic, 3)
@@ -396,18 +408,29 @@ def phase_build():
                       if "registers" in line or "spill" in line]
              for source, log in _build.BUILD_LOGS.items()}
     _require(set(ptxas) == set(sources), f"built {sorted(ptxas)}")
+    # The libraries' SASS, disassembled all at once (cuobjdump per library).
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        list(pool.map(_sass, [_build.library_path(s) for s in sources]))
+    # The mma.sync forward: fp32 at head dim 48, 64, 128 and the wide route
+    # in both types, each with and without dropout (10); the backward: both
+    # types at 48, 64, 128, each with and without dropout, for the dk/dv
+    # kernel and the dq kernel ("_dq"), and the partials route in fp32
+    # ("_partials"): 12 + 12 + 6; its wide route the same at one width:
+    # 4 + 4 + 2.
+    instances = {fa.FWD_SOURCE: 10, fa.BWD_SOURCE: 30, fa.BWD_WIDE_SOURCE: 10}
     hmma = {source: _tensor_core_instructions(_build.library_path(source))
-            for source in (fa.FWD_SOURCE, fa.BWD_SOURCE)}
-    # 12 instances each (type x head dim 48, 64, 128 x dropout); the
-    # backward's dq kernel adds its own 12 ("_dq") and the partials route
-    # 6 in fp32 ("_partials").
+            for source in instances}
     for source, counts in hmma.items():
-        _require(len(counts) == (30 if source == fa.BWD_SOURCE else 12)
-                 and sum(counts.values()) > 0,
+        _require(len(counts) == instances[source]
+                 and all(n > 0 for n in counts.values()),
                  f"{source}: tensor-core instructions {counts}")
-        _require(all(n > 0 for name, n in counts.items()
-                     if name.startswith("bf16")),
-                 f"{source}: a bf16 instance without HMMA: {counts}")
+    # The wgmma forward: bf16 at 64 and 128, with and without dropout, each
+    # on HGMMA.
+    hgmma = _tensor_core_instructions(_build.library_path(fa.SM90_SOURCE),
+                                      "HGMMA")
+    _require(len(hgmma) == 4 and all(n > 0 for n in hgmma.values()),
+             f"{fa.SM90_SOURCE}: HGMMA instructions {hgmma}")
+    hmma[fa.SM90_SOURCE] = hgmma
     # The rebuilt dense kernels: wgmma (IGMMA, HGMMA) and mma.sync (HMMA).
     dense = {
         quantization.SOURCE: _kernel_instructions(
@@ -425,34 +448,45 @@ def phase_build():
     hmma.update(dense)
     _report("build", seconds=seconds, ptxas=ptxas,
             tensor_core_instructions=hmma)
+    return hgmma
 
 
-def _tensor_core_instructions(library: str) -> dict:
-    """HMMA/HGMMA lines of each flash kernel instance in the library's
-    SASS (cuobjdump from nvcc's toolkit), by "<type>_d<head dim>[_drop]",
-    "_dq" after the backward's dq kernel's, "_partials" after the dk/dv
-    kernel's that also forms the dq partials (fp32)."""
+@functools.cache
+def _sass(library: str) -> str:
+    """The library's SASS (cuobjdump from nvcc's toolkit)."""
     from vision_transformer_detector_tpu_torch.kernels import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
                              "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+    return subprocess.run([cuobjdump, "-sass", library], capture_output=True,
                           text=True, timeout=300, check=True).stdout
+
+
+def _tensor_core_instructions(library: str,
+                              mnemonic: str = r"H(G)?MMA") -> dict:
+    """``mnemonic`` lines (HMMA/HGMMA by default) of each flash kernel
+    instance in the library's SASS (cuobjdump from nvcc's toolkit), by
+    "<type>_d<head dim>[_drop]" ("_wide" for the wide route's kernels),
+    "_dq" after the backward's dq kernel's, "_partials" after the dk/dv
+    kernel's that also forms the dq partials (fp32); the wgmma forward's
+    (bf16) by "bf16_d<head dim>[_drop]". The output type is not in the
+    name: a ring block's fp32-output instance counts with its own."""
     counts, name = {}, None
-    for line in sass.splitlines():
-        found = re.search(r"Function : \S*flash_(fwd|bwd)(_dq)?_kernelI"
-                          r"(13__nv_bfloat16|f)Li(\d+)ELb([01])E(Lb1E)?",
-                          line)
+    for line in _sass(library).splitlines():
+        found = re.search(
+            r"Function : \S*flash_(fwd|bwd)(_dq)?(_wide|_sm90)?_kernelI"
+            r"(13__nv_bfloat16|f)?(?:Li(\d+)E)?Lb([01])E(Lb1E)?", line)
         if found:
-            kind, dq, dtype, dim, drop, flag = found.groups()
+            kind, dq, variant, dtype, dim, drop, flag = found.groups()
             partials = kind == "bwd" and flag
-            name = (f"{'fp32' if dtype == 'f' else 'bf16'}_d{dim}"
+            name = (f"{'fp32' if dtype == 'f' else 'bf16'}"
+                    f"{'_wide' if variant == '_wide' else '_d' + dim}"
                     f"{'_drop' if drop == '1' else ''}{dq or ''}"
                     f"{'_partials' if partials else ''}")
             counts[name] = 0
         elif "Function :" in line:
             name = None
-        elif name and re.search(r"\bH(G)?MMA\b", line):
+        elif name and re.search(rf"\b{mnemonic}\b", line):
             counts[name] += 1
     return counts
 
@@ -460,14 +494,8 @@ def _tensor_core_instructions(library: str) -> dict:
 def _kernel_instructions(library: str, mnemonic: str) -> dict:
     """SASS lines matching ``mnemonic`` in the library, summed over the
     template instances of each ``*_kernel`` function."""
-    from vision_transformer_detector_tpu_torch.kernels import _build
-
-    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
-                             "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
     counts, name = {}, None
-    for line in sass.splitlines():
+    for line in _sass(library).splitlines():
         if "Function :" in line:
             found = re.search(
                 r"\d\d((?:int8_dense|dense_mish)[a-z_]*_kernel)I", line)
@@ -523,10 +551,16 @@ def phase_kernel():
         q, key, v = qkv(batch, 12, 576, 64, torch.bfloat16)
         backend = _sdpa_backend(lambda b: _sdpa(q, key, v, b))
         backends[batch] = backend.name
-        lib_err = (_sdpa(q, key, v, backend).float() - reference_attention(
-            q, key, v, layout="bhnk").float()).abs().max().item()
+        ref = reference_attention(q, key, v, layout="bhnk").float()
+        lib_err = (_sdpa(q, key, v, backend).float() - ref).abs().max().item()
         _require(lib_err <= tolerances[torch.bfloat16],
                  f"scaled_dot_product_attention differs by {lib_err}")
+        # The kernel at the timed shape itself (the wgmma forward).
+        name = f"{12 * batch}x576x64_bfloat16_timed"
+        errors[name] = (flash_attention(q, key, v, layout="bhnk").float()
+                        - ref).abs().max().item()
+        _require(errors[name] <= tolerances[torch.bfloat16],
+                 f"flash {name}: max abs err {errors[name]}")
         times[batch] = _in_turns({
             "plain_ms": lambda: reference_attention(q, key, v,
                                                     layout="bhnk"),
@@ -587,7 +621,9 @@ def _b2_repeats(q, k, v, g, lse, delta, layout, drop=None,
     from vision_transformer_detector_tpu_torch.kernels import (
         flash_attention as fa)
 
-    padded = [fa._pad_head_dim(t) for t in (q, k, v, g)]
+    # As the wrapper hands them over: at their own K where their rows can
+    # be addressed in place.
+    padded, _ = fa._addressable((q, k, v, g))
     seed, rate = drop or (None, 0.0)
 
     def run():
@@ -852,6 +888,24 @@ def phase_kernel_drop():
         mismatches += int((read.round().bool()
                            != want[:, :, slice0:slice0 + 64]).sum())
     _require(mismatches == 0, f"kernel mask differs in {mismatches} places")
+    # The same through the wgmma forward (bf16): p = 1 rounds to bf16 as
+    # inv_keep does, so the read-back sits within 2e-2 of 0 or 1.
+    zeros = zeros.to(torch.bfloat16)
+    wgmma_mismatches = 0
+    before = fa.flash_attention.wgmma_launches
+    for slice0 in range(0, n, 64):
+        v = torch.zeros(1, bh, n, 64, device="cuda", dtype=torch.bfloat16)
+        v[0, :, slice0:slice0 + 64, :] = torch.eye(64, device="cuda")
+        out = fa.flash_attention(zeros, zeros, v, layout="bhnk", **kw)
+        read = out[0].float() * n / inv_keep.item()
+        _require(bool(((read - read.round()).abs() <= 2e-2).all()),
+                 "wgmma mask read-back is not 0/1")
+        wgmma_mismatches += int((read.round().bool()
+                                 != want[:, :, slice0:slice0 + 64]).sum())
+    _require(fa.flash_attention.wgmma_launches == before + n // 64,
+             "the bf16 mask read-back did not run the wgmma forward")
+    _require(wgmma_mismatches == 0,
+             f"wgmma kernel mask differs in {wgmma_mismatches} places")
     keep_rate = want.float().mean().item()
     del zeros, want
 
@@ -1308,6 +1362,10 @@ def _counts():
     return {"flash": fa.flash_attention.launches,
             "flash_lse": fa.flash_attention.lse_launches,
             "flash_drop": fa.flash_attention.drop_launches,
+            # Of the three above, the launches of the wgmma forward (bf16,
+            # K <= 128), and the operands the flash wrappers copied.
+            "flash_wgmma": fa.flash_attention.wgmma_launches,
+            "flash_copies": fa.flash_attention.operand_copies,
             "flash_bwd": fa.flash_attention.backward_launches,
             "flash_bwd_drop": fa.flash_attention.backward_drop_launches,
             "int8_fused": qz.fused_int8_dense.launches,
@@ -1328,7 +1386,8 @@ def _reset_counts() -> None:
 
     for fn, names in ((fa.flash_attention,
                        ("launches", "lse_launches", "drop_launches",
-                        "backward_launches", "backward_drop_launches")),
+                        "wgmma_launches", "backward_launches",
+                        "backward_drop_launches", "operand_copies")),
                       (qz.fused_int8_dense,
                        ("launches", "tensor_core_launches")),
                       (qz.int8_dense, ("launches", "tensor_core_launches")),
@@ -1348,17 +1407,22 @@ def _reset_counts() -> None:
 # model moves in whole 16-byte rows, so each of those launches takes a
 # tensor-core instance (`_tc`).
 PER_FORWARD = {
-    "int8": {"flash": 12, "int8_fused": 30, "int8_dense": 48,
-             "layer_norm": 24, "int8_fused_tc": 30, "int8_dense_tc": 48},
-    "fused_ffn": {"flash": 12, "dense_mish": 27, "layer_norm": 24,
-                  "dense_mish_tc": 27},
+    "int8": {"flash": 12, "flash_wgmma": 12, "int8_fused": 30,
+             "int8_dense": 48, "layer_norm": 24, "int8_fused_tc": 30,
+             "int8_dense_tc": 48},
+    "fused_ffn": {"flash": 12, "flash_wgmma": 12, "dense_mish": 27,
+                  "layer_norm": 24, "dense_mish_tc": 27},
 }
 
 
-def _expect_counts(path: str, calls: int) -> dict:
+def _expect_counts(path: str, calls: int, bf16: bool = True) -> dict:
+    """The launches of ``calls`` forwards of ``path``; in fp32 the flash
+    forward runs on mma.sync, not wgmma."""
     counts = _counts()
     want = {name: 0 for name in counts}
     want.update({name: n * calls for name, n in PER_FORWARD[path].items()})
+    if not bf16:
+        want["flash_wgmma"] = 0
     _require(counts == want, f"{path}: launches {counts}, expected {want} "
              f"for {calls} forward(s)")
     return counts
@@ -1429,8 +1493,8 @@ def phase_model_serve():
                 gpu = forward(copy.deepcopy(cases[path]).to("cuda"),
                               image.to("cuda"), config).cpu()
             cpu_out[path] = cpu
-            launches = (_expect_counts(path, 1) if path in PER_FORWARD
-                        else _counts())
+            launches = (_expect_counts(path, 1, dtype == "bfloat16")
+                        if path in PER_FORWARD else _counts())
             _require(tuple(gpu.shape) == (1, config.max_objects, 6)
                      and bool(torch.isfinite(gpu).all()),
                      f"{path} {dtype}: logits {tuple(gpu.shape)}")
@@ -1527,15 +1591,18 @@ def phase_serve():
     try:
         base = f"http://127.0.0.1:{server.port}"
         flash_attention.launches = 0
+        flash_attention.wgmma_launches = 0
         latencies = _post_jpegs(base, _jpegs(REQUESTS), config.num_classes)
         launches = flash_attention.launches
+        wgmma = flash_attention.wgmma_launches
         with urllib.request.urlopen(f"{base}/stats", timeout=30) as response:
             stats = json.loads(response.read())
     finally:
         server.stop()
-    _require(launches == config.encoder_blocks * REQUESTS,
-             f"flash kernel launched {launches} times for {REQUESTS} "
-             f"requests, expected {config.encoder_blocks} per request")
+    _require(launches == wgmma == config.encoder_blocks * REQUESTS,
+             f"flash kernel launched {launches} times ({wgmma} on wgmma) "
+             f"for {REQUESTS} requests, expected {config.encoder_blocks} "
+             "per request")
     _require(stats["requests"]["ok"] == REQUESTS, f"/stats {stats}")
 
     # Device path alone (no HTTP, no JPEG decode), batch 1, synced.
@@ -1552,7 +1619,7 @@ def phase_serve():
             server_latency_ms=stats.get("latency_ms_recent"),
             predict_b1_ms_median=float(np.median(device_ms)),
             predict_b1_ms_min=min(device_ms), flash_launches=launches,
-            decode_core=stats.get("decode_core"))
+            flash_wgmma_launches=wgmma, decode_core=stats.get("decode_core"))
     return launches
 
 
@@ -1937,6 +2004,7 @@ def phase_train_highres():
     head_layers = len(config.head_units) * config.head_block_repeats
     want = dict({name: 0 for name in launches},
                 flash=blocks, flash_drop=2 * blocks * HIGHRES_STEPS,
+                flash_wgmma=blocks + 2 * blocks * HIGHRES_STEPS,
                 flash_bwd_drop=blocks * HIGHRES_STEPS,
                 mlp_drop=(blocks * (3 * layers - 1) + 2 * head_layers)
                 * HIGHRES_STEPS)
@@ -1985,7 +2053,8 @@ def phase_train_highres():
     torch.cuda.synchronize()
     shipped_launches = _counts()
     want = dict({name: 0 for name in shipped_launches},
-                flash_lse=blocks + blocks // 2, flash_bwd=blocks)
+                flash_lse=blocks + blocks // 2,
+                flash_wgmma=blocks + blocks // 2, flash_bwd=blocks)
     _require(shipped_launches == want and np.isfinite(shipped_loss.item()),
              f"as shipped: launches {shipped_launches}, expected {want}; "
              f"loss {shipped_loss.item()}")
@@ -2022,13 +2091,15 @@ def _graph_kernel_nodes(graphs, tag: str) -> dict:
     from its DOT dump: {graph: {fwd, fwd_drop, bwd, bwd_drop, bwd_dq,
     bwd_dq_drop, bwd_dq_sum, mlp_drop, kernels, replays}}, the flash
     kernels by symbol (template flag ``Lb1E``: the dropout instance;
-    ``bwd_dq`` the split route's dq kernel and ``bwd_dq_sum`` the partials
-    route's sum kernel, one of the two beside each ``bwd``), the MLP/head
+    ``fwd`` either forward kernel, mma.sync or wgmma; ``bwd_dq`` the split
+    route's dq kernel and ``bwd_dq_sum`` the partials route's sum kernel,
+    one of the two beside each ``bwd``), the MLP/head
     dropout kernel's, ``kernels`` every kernel node and ``replays`` the
     graph's replays so far."""
     node = re.compile(r'^"(graph_\d+_node_\d+)"\[', re.M)
     symbol = re.compile(
-        r"flash_(fwd|bwd|bwd_dq|bwd_dq_sum)_kernelI\w*?(?:L(?:b([01]))E|EE)")
+        r"flash_(fwd|bwd|bwd_dq|bwd_dq_sum)(?:_sm90|_wide)?_kernel"
+        r"(?:I\w*?(?:L(?:b([01]))E|EE)|E)")
     result = {}
     with tempfile.TemporaryDirectory() as tmp:
         for key, step_graph in graphs.items():
@@ -2416,11 +2487,11 @@ def phase_train_window():
 LIFECYCLE_IMAGES = 8     # seeded JPEGs of the lifecycle phase, one box each
 # Custom-operator nodes of one exported vit_b16_384 graph with the fused
 # dense+mish and the fused LayerNorm, and so the launches per exported
-# call: one flash forward per block, 24 + 3 dense+mish, two LayerNorms per
-# block.
+# call: one flash forward per block (bf16 at K = 64: the operator runs the
+# wgmma kernel), 24 + 3 dense+mish, two LayerNorms per block.
 EXPORTED_OPS = {"flash_attention_fwd": 12, "dense_mish": 27, "layer_norm": 24}
-EXPORTED_COUNTS = {"flash": 12, "dense_mish": 27, "layer_norm": 24,
-                   "dense_mish_tc": 27}
+EXPORTED_COUNTS = {"flash": 12, "flash_wgmma": 12, "dense_mish": 27,
+                   "layer_norm": 24, "dense_mish_tc": 27}
 
 
 def _lifecycle_dataset(root: str) -> dict:
@@ -2506,6 +2577,7 @@ server = DetectionServer(service, port=0, batching=True, max_batch=8)
 server.start()
 try:
     for fn, names in ((fa.flash_attention, ("launches", "lse_launches",
+                                            "wgmma_launches",
                                             "backward_launches")),
                       (fused_ffn.fused_dense_mish,
                        ("launches", "tensor_core_launches")),
@@ -2522,6 +2594,7 @@ try:
         with urllib.request.urlopen(request, timeout=300) as response:
             answers.append(json.loads(response.read()))
     counts = {"flash": fa.flash_attention.launches,
+              "flash_wgmma": fa.flash_attention.wgmma_launches,
               "flash_lse": fa.flash_attention.lse_launches,
               "flash_bwd": fa.flash_attention.backward_launches,
               "dense_mish": fused_ffn.fused_dense_mish.launches,
@@ -4377,13 +4450,17 @@ def phase_parallel() -> dict:
                 for key in ("flash_drop", "flash_bwd_drop", "mlp_drop")})}
 
 
-WIDE_DIMS = (80, 96, 128)      # ViT-H/14's 80, and two more in the instance
+# (K, layouts): ViT-H/14's 80 and the 128 instance in both layouts, and
+# the wide route past 128 in one layout each (tests/test_torch_cuda.py
+# holds K 129, 192, 256 in both).
+WIDE_DIMS = ((80, ("bhnk", "bnhk")), (128, ("bhnk", "bnhk")),
+             (129, ("bhnk",)), (192, ("bnhk",)), (256, ("bhnk",)))
 WIDE_N = 321                   # five key tiles, the last one ragged
 WIDE_HEADS = 16                # ViT-H/14's heads
 WIDE_RING_N = 256              # two ring blocks of 128 keys (whole tiles)
 # (B * 16, 256, 80 -> 128) bf16 for B = 1, 8, 32 (the wide_heads model at
 # those batches), and (2048, 256, 128) with the instance's own width.
-WIDE_TIMED = ((1, 80), (8, 80), (32, 80), (128, 128))
+WIDE_TIMED = ((1, 80), (8, 80), (32, 80), (128, 128), (8, 192), (8, 256))
 
 
 def _wide_inputs(gen, layout, b, n, h, kd, dtype):
@@ -4398,13 +4475,19 @@ def _wide_inputs(gen, layout, b, n, h, kd, dtype):
 
 
 def _wide_kernels() -> dict:
-    """(a) every route of the 128-wide instance at K 80, 96 and 128, both
-    layouts, bf16 and fp32, against the plain versions at the tolerances
+    """(a) every route at K 80 and 128 (the 128-wide instances; bf16's
+    forward on wgmma) in both layouts and at K 129, 192, 256 (the wide
+    route) in one layout each, bf16 and fp32, against the plain versions
+    at the tolerances
     the 64-wide instance is held to: the forward, its lse, the dropout
     forward, the backward by each dq route and with the mask replayed,
-    the fp32-output instance and fp32 dk/dv (a ring block); a ring chained
-    over two key blocks against one launch over the whole sequence, bit
-    for bit; B2 launched 10 times, bit-equal."""
+    the fp32-output instance and fp32 dk/dv (a ring block), the launch
+    counts and the operand copies (only K 129's rows are off 16 bytes); a
+    ring chained over two key blocks against one launch over the whole
+    sequence, bit for bit, at K 80, 128, 192; B2 launched 10 times,
+    bit-equal, at K 80 (each route) and 192 (bf16 with the replay, fp32
+    partials); and (``launches``) the kernels one flash
+    call launches at K 80 against K 128, which never padded."""
     import torch
 
     from vision_transformer_detector_tpu_torch.kernels import (
@@ -4417,17 +4500,35 @@ def _wide_kernels() -> dict:
     grad_tol = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
     lse_tol = 1e-4
     errors = {}
-    for kd in WIDE_DIMS:
-        for layout in ("bhnk", "bnhk"):
+    def totals():
+        f = fa.flash_attention
+        return (f.launches + f.lse_launches + f.drop_launches,
+                f.backward_launches + f.backward_drop_launches)
+
+    wide_launches = {"fwd": 0, "bwd": 0}    # the wide route's, K > 128
+    for kd, layouts in WIDE_DIMS:
+        at_start = totals()
+        for layout in layouts:
             for dtype in (torch.bfloat16, torch.float32):
                 name = f"K{kd}_{layout}_{str(dtype).split('.')[-1]}"
                 q, k, v, g = _wide_inputs(gen, layout, 2, WIDE_N, 4, kd,
                                           dtype)
                 err = {}
-                before = fa.flash_attention.launches
+                before = (fa.flash_attention.launches,
+                          fa.flash_attention.wgmma_launches,
+                          fa.flash_attention.operand_copies)
                 out = fa.flash_attention(q, k, v, layout=layout)
-                _require(fa.flash_attention.launches == before + 1,
-                         f"wide_heads {name}: the forward did not launch")
+                # bf16 at K <= 128 on the wgmma kernel; operands copied
+                # only where K * itemsize is off 16 bytes (K = 129).
+                wgmma = fa.forward_kernel(kd, dtype) == "wgmma"
+                copied = 3 * ((kd * q.element_size()) % 16 != 0)
+                _require((fa.flash_attention.launches,
+                          fa.flash_attention.wgmma_launches,
+                          fa.flash_attention.operand_copies)
+                         == (before[0] + 1, before[1] + wgmma,
+                             before[2] + copied),
+                         f"wide_heads {name}: the forward did not launch "
+                         "its kernel, or copied an operand")
                 ref = fa.reference_attention(q, k, v, layout)
                 _require(out.shape == q.shape and out.dtype == dtype,
                          f"wide_heads {name}: out {out.shape} {out.dtype}")
@@ -4494,13 +4595,16 @@ def _wide_kernels() -> dict:
                     _require(value <= tol, f"wide_heads {name} {key}: "
                              f"{value} > {tol}")
                 errors[name] = err
+        if fa.head_dim_plan(kd).instance == "wide":
+            wide_launches["fwd"] += totals()[0] - at_start[0]
+            wide_launches["bwd"] += totals()[1] - at_start[1]
 
     # The ring: each half of the queries over two key blocks of 128,
     # chained (resume, suspend), against one launch over the 256 keys,
     # tokens-major as the ring runs them, with and without dropout (each
     # block's query and key bases place its mask).
     ring = {}
-    for kd in (80, 128):
+    for kd in (80, 128, 192):
         for dtype in (torch.bfloat16, torch.float32):
             for dropout in (None, drop):
                 name = (f"K{kd}_{str(dtype).split('.')[-1]}"
@@ -4536,21 +4640,76 @@ def _wide_kernels() -> dict:
     # instance of the wide model's training (bf16, with and without the
     # replay) and both fp32 routes, at (128, 256, 80).
     repeats = {}
-    for dtype, dropout, route in ((torch.bfloat16, None, None),
-                                  (torch.bfloat16, drop, None),
-                                  (torch.float32, None, "split"),
-                                  (torch.float32, None, "partials")):
-        q, k, v, g = _wide_inputs(gen, "bnhk", 8, 256, WIDE_HEADS, 80,
+    for dtype, dropout, route, kd, batch in (
+            (torch.bfloat16, None, None, 80, 8),
+            (torch.bfloat16, drop, None, 80, 8),
+            (torch.float32, None, "split", 80, 8),
+            (torch.float32, None, "partials", 80, 8),
+            (torch.bfloat16, drop, None, 192, 2),
+            (torch.float32, None, "partials", 192, 2)):
+        q, k, v, g = _wide_inputs(gen, "bnhk", batch, 256, WIDE_HEADS, kd,
                                   dtype)
         out, lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
                                       dropout=dropout)
         delta = fa._heads_major((g.float() * out.float()).sum(-1),
                                 "bnhk").contiguous()
-        name = (f"{str(dtype).split('.')[-1]}"
+        name = (f"K{kd}_{str(dtype).split('.')[-1]}"
                 f"{'_drop' if dropout else ''}_{route or 'default'}")
         repeats[name] = _b2_repeats(q, k, v, g, lse, delta, "bnhk",
                                     dropout, route)
-    return {"errors": errors, "ring": ring, "b2_repeats": repeats}
+    return {"errors": errors, "ring": ring, "b2_repeats": repeats,
+            "wide_launches": wide_launches,
+            "call_kernels": _flash_call_kernels(gen)}
+
+
+def _flash_call_kernels(gen) -> dict:
+    """The CUDA kernels one forward call and one backward call launch at
+    ViT-H/14's (8, 256, 16, 80) in bf16 and at K = 128 (a width that never
+    padded), by name from torch.profiler, and the operand copies counted:
+    at K = 80 the forward launches the wgmma kernel alone and the backward
+    what K = 128's does (its two kernels and dq's cast), with no padding
+    or slicing kernel and no copy. The profiler must see K = 128's
+    kernels, so that an empty K = 80 list cannot pass for no copy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa)
+
+    seen = {}
+    for kd in (80, 128):
+        q, k, v, g = _wide_inputs(gen, "bnhk", 8, 256, WIDE_HEADS, kd,
+                                  torch.bfloat16)
+        out, lse = fa.flash_attention(q, k, v, with_lse=True)
+        delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                                "bnhk").contiguous()
+        torch.cuda.synchronize()
+        copies = fa.flash_attention.operand_copies
+        for what, call in (
+                ("fwd", lambda: fa.flash_attention(q, k, v)),
+                ("bwd", lambda: fa._launch_backward(q, k, v, g, lse, delta,
+                                                    "bnhk"))):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            names = sorted(
+                e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "Memcpy" not in e.name and "Memset" not in e.name)
+            seen[f"K{kd}_{what}"] = [n[:160] for n in names]
+        _require(fa.flash_attention.operand_copies == copies,
+                 f"K {kd}: a flash call copied an operand")
+    _require(any("flash_fwd_sm90" in n for n in seen["K128_fwd"])
+             and any("flash_bwd" in n for n in seen["K128_bwd"]),
+             "torch.profiler recorded no flash kernel at K 128: "
+             f"{seen['K128_fwd']} {seen['K128_bwd']}")
+    fwd, bwd = seen["K80_fwd"], seen["K80_bwd"]
+    _require(len(fwd) == 1 and "flash_fwd_sm90" in fwd[0],
+             f"K 80 forward launched {fwd}")
+    _require(len(bwd) == len(seen["K128_bwd"]) == 3
+             and sum("flash_bwd" in n for n in bwd) == 2,
+             f"K 80 backward launched {bwd}, K 128 {seen['K128_bwd']}")
+    return seen
 
 
 def _wide_shape_errors(q, k, v, g, layout, tol) -> tuple:
@@ -4587,13 +4746,15 @@ def _wide_shape_errors(q, k, v, g, layout, tol) -> tuple:
 
 
 def _wide_times() -> dict:
-    """(b) the 128-wide instance at (B * 16, 256, 80 -> 128) bf16 for B =
-    1, 8, 32 and at (2048, 256, 128), tokens-major as the model runs K =
-    80: the serving forward, the forward with lse and the backward, each
-    held against its plain version at that shape (``errors``), then timed
-    in turns with it and scaled_dot_product_attention on the same unpadded
-    (heads-major) inputs, forward and backward, and each beside its bound
-    (operations at the unpadded K)."""
+    """(b) bf16 at (B * 16, 256, 80) for B = 1, 8, 32, at (2048, 256,
+    128) (the forward on wgmma, B2 on the 128-wide instance) and at (128,
+    256, 192) and (128, 256, 256) (the wide route), tokens-major as the
+    model runs K = 80: the serving forward, the forward with lse and the
+    backward, each held against its plain version at that shape
+    (``errors``), then timed in turns with it and scaled_dot_product_
+    attention on the same (heads-major) inputs, forward and backward, and
+    each beside its bound; fp32 B2 at (128, 256, 80) by both dq routes
+    beside SDPA's fp32 backward."""
     import torch
 
     from vision_transformer_detector_tpu_torch.kernels import (
@@ -4650,9 +4811,10 @@ def _wide_times() -> dict:
         for what, (t, ops, nbytes) in run.items():
             bound_ms, bound_by = _bound(ops, nbytes, "bf16")
             entry[what] = dict(t, bound_ms=bound_ms, bound_by=bound_by)
-        times[f"{bh}x{n}x{kd}"] = dict(entry, errors=errors,
-                                       sdpa_backend=backend.name,
-                                       padded_to=128)
+        times[f"{bh}x{n}x{kd}"] = dict(
+            entry, errors=errors, sdpa_backend=backend.name,
+            forward_kernel=fa.forward_kernel(kd, torch.bfloat16),
+            plan=fa.head_dim_plan(kd)._asdict())
     # B2 in fp32 at the train step's shape, by each dq route, held against
     # the plain version and beside its 3xTF32 bound: the routes an fp32 run
     # of the model takes (partials while its workspace stays under
@@ -4671,12 +4833,31 @@ def _wide_times() -> dict:
                  f"wide_heads fp32 B2 {route}: "
                  f"{errors[f'bwd_{route}_rel']} > 2e-5")
     bh, n, kd = 8 * WIDE_HEADS, 256, 80
+    # SDPA's fp32 backward on the same (heads-major) inputs: the library
+    # yardstick for this row.
+    hm = [fa._heads_major(t, "bnhk") for t in (q, k, v, g)]
+    leaves = [t.detach().clone().requires_grad_() for t in hm[:3]]
+
+    def lib_step(backend):
+        o = _sdpa(*leaves, backend)
+        torch.autograd.grad(o, leaves, hm[3])
+        return o
+
+    backend = _sdpa_backend(lib_step)
+    lib_out = _sdpa(*leaves, backend)
+    errors["library_out"] = _max_err(lib_out.detach(),
+                                     fa._heads_major(out, "bnhk"))
+    _require(errors["library_out"] <= 2e-5,
+             f"wide_heads fp32 SDPA differs by {errors['library_out']}")
     fp32 = _in_turns({
         "plain_ms": lambda: fa.reference_attention_backward(q, k, v, g),
         "kernel_ms": lambda: fa._launch_backward(q, k, v, g, lse, delta,
                                                  "bnhk", route="partials"),
         "split_ms": lambda: fa._launch_backward(q, k, v, g, lse, delta,
-                                                "bnhk", route="split")}, 10)
+                                                "bnhk", route="split"),
+        "library_ms": lambda: torch.autograd.grad(
+            lib_out, leaves, hm[3], retain_graph=True)}, 10)
+    fp32["sdpa_backend"] = backend.name
     bound_ms, bound_by = _bound(10 * bh * n * n * kd,
                                 (7 * bh * n * kd + 2 * bh * n) * 4, "3xtf32")
     times[f"{bh}x{n}x{kd}_fp32_bwd"] = dict(fp32, bound_ms=bound_ms,
@@ -4751,7 +4932,8 @@ def _wide_serve(config, params) -> dict:
     torch.cuda.synchronize()
     launches = _counts()
     want = dict({name: 0 for name in launches},
-                flash=config.encoder_blocks)
+                flash=config.encoder_blocks,
+                flash_wgmma=config.encoder_blocks)
     _require(launches == want, f"wide_heads service call launched "
              f"{launches}, expected {want}")
     times = _device_path_ms({"bf16": service})["bf16"]
@@ -4828,7 +5010,9 @@ def _wide_train(config) -> dict:
     launches = _counts()
     blocks = config.encoder_blocks
     want = dict({name: 0 for name in launches},
-                flash_lse=blocks * WIDE_STEPS, flash_bwd=blocks * WIDE_STEPS)
+                flash_lse=blocks * WIDE_STEPS,
+                flash_wgmma=blocks * WIDE_STEPS,
+                flash_bwd=blocks * WIDE_STEPS)
     _require(launches == want, f"wide_heads fit launched {launches}, "
              f"expected {want}")
     losses = trainer.loss_record
@@ -4973,13 +5157,15 @@ def _entry(name, source, replaces, shape, launches, err, times, work):
             "peak": PEAK_NAMES[work[2]]}
 
 
-def _wide_entries(wide: dict) -> list:
-    """The 128-wide instance's rows (wide_heads): B1 at the service's
-    batch 32, B1-lse and B2 at the train step's batch 8, each shape (B *
-    16, 256, 80) bf16 padded to 128, with the launches of (c) and (d) and
-    the errors against the plain versions measured at that shape (B1-lse's
-    is its lse's, as for the 64-wide row; B2's the largest of dq, dk,
-    dv)."""
+def _wide_entries(wide: dict, hgmma: dict) -> list:
+    """The ViT-H/14-width rows (wide_heads): B1 (wgmma, instance 128) at
+    the service's batch 32, B1-lse (wgmma) and B2 (mma.sync, 128-wide
+    instance) at the train step's batch 8, each shape (B * 16, 256, 80)
+    bf16 read at K = 80, with the launches of (c) and (d) and the errors
+    against the plain versions measured at that shape (B1-lse's is its
+    lse's, as for the 64-wide row; B2's the largest of dq, dk, dv); then
+    the wide route's B1-lse and B2 at (128, 256, 192) and (128, 256, 256)
+    with their launches in (a)'s checks (no preset runs K > 128)."""
     times = wide["times"]
     serve_key, train_key = "512x256x80", "128x256x80"
     rows = []
@@ -4997,9 +5183,11 @@ def _wide_entries(wide: dict) -> list:
         rows.append({
             "name": name, "route": "cuda",
             "source": CSRC + ("flash_attention_bwd.cu" if what == "bwd"
-                              else "flash_attention_fwd.cu"),
+                              else "flash_attention_fwd_sm90.cu"),
             "replaces": TPU_KERNELS + replaces,
-            "shape": [bh, n, kd, "bfloat16", "padded to 128"],
+            "shape": [bh, n, kd, "bfloat16"],
+            "kernel": ("mma.sync, instance 128" if what == "bwd"
+                       else "wgmma + TMA, instance 128"),
             "launches": launches, "max_abs_err": errors[err],
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
@@ -5010,13 +5198,41 @@ def _wide_entries(wide: dict) -> list:
             "times_2048x256x128": dict(
                 times["2048x256x128"][what],
                 max_abs_err=times["2048x256x128"]["errors"][err])})
+        if what != "bwd":
+            rows[-1]["tensor_core_instructions"] = {
+                k: v for k, v in hgmma.items() if k.startswith("bf16_d128")}
+    for name, what, replaces, err in (
+            ("flash_attention_fwd_lse_wide", "fwd_lse",
+             "flash_attention.py:653", "lse"),
+            ("flash_attention_bwd_wide", "bwd", "flash_attention.py:151",
+             "bwd_abs")):
+        t = times["128x256x192"][what]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": CSRC + ("flash_attention_bwd_wide.cu" if what == "bwd"
+                              else "flash_attention_fwd.cu"),
+            "replaces": TPU_KERNELS + replaces,
+            "shape": [128, 256, 192, "bfloat16"],
+            "kernel": "mma.sync, the wide route ("
+                      + str(times["128x256x192"]["plan"]) + ")",
+            "launches": wide["kernels"]["wide_launches"][what[:3]],
+            "max_abs_err": times["128x256x192"]["errors"][err],
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "peak": PEAK_NAMES["bf16"],
+            "launch_source": "wide_heads (a), the checks at K 129, 192, "
+                             "256 (both directions); no preset runs "
+                             "K > 128",
+            "times_128x256x256": dict(
+                times["128x256x256"][what],
+                max_abs_err=times["128x256x256"]["errors"][err])})
     return rows
 
 
 def _kernels_line(flash_err, flash_times, train_errors, train_times,
                   drop_errors, drop_times, mlp_errors, mlp_times,
                   serve_errors, serve_times, launches, exported,
-                  graph, ring, wide_heads, walkthrough) -> dict:
+                  graph, ring, wide_heads, walkthrough, hgmma) -> dict:
     """The kernels of every path, each with its launches on its main path,
     its error against its plain version, its times and its bound; B1, B3
     and B4 also with their launches per call of the exported program
@@ -5031,8 +5247,13 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
     host clock beside them in ``ring_host_ms``), and a tensor-parallel
     rank's B1-drop, B2-replay and MLP dropout with their coordinate maps
     (``*_sharded``: launches of both processes of (g)); the 128-wide
-    instance's B1, B1-lse and B2 (``*_d128``, wide_heads), and the 48-wide
-    ones' launches in the walkthrough (``launches_walkthrough``)."""
+    instance's B1, B1-lse and B2 (``*_d128``, wide_heads) and the wide
+    route's B1-lse and B2 (``*_wide``), and the walkthrough's launches
+    (``launches_walkthrough``). The bf16 forward rows are the wgmma kernel
+    (csrc/flash_attention_fwd_sm90.cu), each with its instances' HGMMA
+    counts (``tensor_core_instructions``)."""
+    sm90 = "flash_attention_fwd_sm90.cu"
+    d64 = {k: v for k, v in hgmma.items() if k.startswith("bf16_d64")}
     bh, n, k = 12, 576, 64                     # vit_b16_384, batch 1
     flash_bytes = 4 * bh * n * k * 2
     tbh, tn, tk = 64, 1296, 40                 # reference_608, batch 8
@@ -5055,10 +5276,13 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
     map_n = MAP_MLP[0] * MAP_MLP[1] * MAP_MLP[2] // 2
     walked = walkthrough["stages"]["train"]["launches"]
     return {"kernels": [
-        dict(_entry("flash_attention_fwd", "flash_attention_fwd.cu",
+        dict(_entry("flash_attention_fwd", sm90,
                     "flash_attention.py:64", [bh, n, k, "bfloat16"],
                     launches["flash"], flash_err, flash_times[1],
                     (4 * bh * n * n * k, flash_bytes, "bf16")),
+             kernel="wgmma + TMA, instance 64",
+             tensor_core_instructions=d64,
+             wgmma_launches=launches["flash_wgmma"],
              launches_exported=exported["flash"],
              launches_walkthrough=walked["forward"]),
         dict(_entry("flash_attention_fwd_lse", "flash_attention_fwd.cu",
@@ -5077,15 +5301,17 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
                      "3xtf32")),
              launches_graph=graph["flash_bwd"],
              launches_walkthrough=walked["backward"]),
-        *_wide_entries(wide_heads),
+        *_wide_entries(wide_heads, hgmma),
         # q, k, v read, out written (bf16), lse written (fp32).
-        dict(_entry("flash_attention_fwd_drop", "flash_attention_fwd.cu",
+        dict(_entry("flash_attention_fwd_drop", sm90,
                     "flash_attention.py:679",
                     [hbh, hn, hk, "bfloat16", DROP_RATE],
                     launches["flash_drop"], drop_errors["out_abs"],
                     drop_times["fwd_drop"],
                     (4 * hbh * hn * hn * hk, 4 * hqkv + hbh * hn * 4,
                      "bf16")),
+             kernel="wgmma + TMA, instance 64",
+             tensor_core_instructions=d64,
              launches_graph=graph["flash_drop"]),
         # q, k, v, g read and dk, dv written (bf16), lse and delta read and
         # dq written (fp32).
@@ -5170,7 +5396,7 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
         # The ring's blocks (B1-lse, the fp32-output instance): local q,
         # all of k and v read (bf16), the local out and lse (fp32)
         # written.
-        dict(_entry("ring_attention_fwd", "flash_attention_fwd.cu",
+        dict(_entry("ring_attention_fwd", sm90,
                     "vision_transformer_detector_tpu/kernels/"
                     "ring_attention.py:34",
                     [rb, local, rh, rk, "bfloat16", "R=2"],
@@ -5178,8 +5404,8 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
                     ring["times"]["fwd"],
                     (4 * rb * rh * local * rn * rk,
                      3 * ring_q + 2 * ring_kv + ring_lse, "bf16")),
-             kernel="B1-lse, one launch per ring step, bf16 in and fp32 "
-                    "out (the fp32-output instance)",
+             kernel="B1-lse on wgmma, one launch per ring step, bf16 in "
+                    "and fp32 out (the fp32-output instance)",
              ring_host_ms=ring["host_ms"]["fwd_host_ms"],
              ring_host_clock="the whole ring forward, host clock, the "
              "exchange staged through the host over gloo on one card"),
@@ -5201,13 +5427,14 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
         # 16 heads of highres_1024 at batch 2, heads-major windows): q, k,
         # v read and out written (bf16), lse written (fp32).
         dict(_entry("flash_attention_fwd_drop_sharded",
-                    "flash_attention_fwd.cu", "flash_attention.py:679",
+                    sm90, "flash_attention.py:679",
                     [*mapped["rank_shape"], "bfloat16", DROP_RATE],
                     mapped["launches"]["flash_drop"],
                     mapped["errors"]["fwd"], mapped["times"]["fwd"],
                     (4 * mbh * mt * mt * mk, 4 * mqkv + mbh * mt * 4,
                      "bf16")),
-             kernel="B1-drop, the batch*head map (8 W, 16 W, h0 W)",
+             kernel="B1-drop on wgmma, the batch*head map (8 W, 16 W, "
+                    "h0 W)",
              launch_source="both processes of (g), tensor parallelism"),
         dict(_entry("flash_attention_bwd_drop_sharded",
                     "flash_attention_bwd.cu", "flash_attention.py:151",
@@ -5244,35 +5471,45 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_build()
-    flash_err, flash_times = phase_kernel()
-    train_errors, train_times = phase_kernel_train()
-    drop_errors, drop_times = phase_kernel_drop()
-    mlp_errors, mlp_times = phase_kernel_mlp_drop()
-    serve_errors, serve_times = phase_kernel_serve()
-    phase_model()
-    phase_model_serve()
-    flash_launches = phase_serve()
-    int8_launches, int8_times = phase_serve_int8()
-    ffn_launches, _ = phase_serve_fused_ffn()
-    train_launches = phase_train()
-    highres_launches = phase_train_highres()
-    window_launches = phase_train_window()
-    phase_cli_tools()
-    exported_launches = phase_lifecycle()
+    seconds = {}
+
+    def timed(phase, *args):
+        tic = time.monotonic()
+        result = phase(*args)
+        seconds[phase.__name__[len("phase_"):]] = round(
+            time.monotonic() - tic, 1)
+        return result
+
+    hgmma = timed(phase_build)
+    flash_err, flash_times = timed(phase_kernel)
+    train_errors, train_times = timed(phase_kernel_train)
+    drop_errors, drop_times = timed(phase_kernel_drop)
+    mlp_errors, mlp_times = timed(phase_kernel_mlp_drop)
+    serve_errors, serve_times = timed(phase_kernel_serve)
+    timed(phase_model)
+    timed(phase_model_serve)
+    flash_launches = timed(phase_serve)
+    int8_launches, int8_times = timed(phase_serve_int8)
+    ffn_launches, _ = timed(phase_serve_fused_ffn)
+    train_launches = timed(phase_train)
+    highres_launches = timed(phase_train_highres)
+    window_launches = timed(phase_train_window)
+    timed(phase_cli_tools)
+    exported_launches = timed(phase_lifecycle)
     # The images/s the card consumes on each path of this run (8 images a
     # train step, 32 a service call), beside the host decode's rate.
     steps = window_launches["step_ms_graph"]
-    phase_native_host({
+    timed(phase_native_host, {
         "reference_608_graph_step": ("reference_608",
                                      8e3 / steps["reference_608"]),
         "highres_1024_graph_step": ("highres_1024",
                                     8e3 / steps["highres_1024"]),
         "int8_service_b32": ("vit_b16_384",
                              32e3 / int8_times["int8"]["b32_ms_median"])})
-    wide = phase_wide_heads()
-    walk = phase_walkthrough()
-    ring = phase_parallel()
+    wide = timed(phase_wide_heads)
+    walk = timed(phase_walkthrough)
+    ring = timed(phase_parallel)
+    _report("seconds", phases=seconds, total=round(sum(seconds.values()), 1))
     foreign = sorted(name for name in sys.modules
                      if name == "jax" or name.startswith("jax.")
                      or name == "vision_transformer_detector_tpu"
@@ -5285,6 +5522,8 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     launches = {"flash": flash_launches,
+                # phase_serve holds them equal: every one on wgmma.
+                "flash_wgmma": flash_launches,
                 "flash_lse": train_launches["fwd_lse"],
                 "flash_bwd": train_launches["bwd"],
                 "flash_drop": highres_launches["flash_drop"],
@@ -5301,7 +5540,8 @@ def main() -> int:
                                    train_times, drop_errors, drop_times,
                                    mlp_errors, mlp_times, serve_errors,
                                    serve_times, launches, exported_launches,
-                                   window_launches, ring, wide, walk)),
+                                   window_launches, ring, wide, walk,
+                                   hgmma)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

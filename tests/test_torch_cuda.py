@@ -105,11 +105,15 @@ def test_kernel_refuses_what_it_does_not_take(gen):
         fa.flash_attention(q, k, v, layout="bhnk", dropout_rate=0.1)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention(q.half(), k.half(), v.half(), layout="bhnk")
-    # The first head dim past the widest instance (128): refused, never
-    # padded into another instance nor sent to the plain version.
-    wide = torch.zeros(1, 2, 64, 129, device="cuda")
-    with pytest.raises(NotImplementedError, match="head dim 129"):
-        fa.flash_attention(wide, wide, wide, layout="bhnk")
+    # The first head dim past the widest instance (128): the wide route
+    # runs it (its fp32 rows, 516 bytes, are padded to 192), as JAX does.
+    wide = [t.contiguous() for t in _qkv(gen, (1, 2, 64, 129), torch.float32,
+                                          129 ** -0.5)]
+    copies = fa.flash_attention.operand_copies
+    out = fa.flash_attention(*wide, layout="bhnk")
+    assert fa.flash_attention.operand_copies == copies + 3
+    assert (out - fa.reference_attention(*wide, layout="bhnk")).abs().max() \
+        <= TOLS[torch.float32]
     with pytest.raises(ValueError, match="all on the CPU or all on CUDA"):
         fa.flash_attention(q, k.cpu(), v, layout="bhnk")
     # A view one element into its storage: refused, not launched or copied.
@@ -186,7 +190,7 @@ def test_backward_is_bit_reproducible(gen, layout, shape, dtype, rate,
                                   **kw)
     delta = fa._heads_major((g.float() * out.float()).sum(-1),
                             layout).contiguous()
-    padded = [fa._pad_head_dim(t) for t in (q, k, v, g)]
+    padded, _ = fa._addressable((q, k, v, g))
     first, second = (torch.ops.vtd_torch.flash_attention_bwd(
         *padded, lse, delta, layout, seed, rate, fa.DQ_ROUTES[route])
         for _ in range(2))
@@ -976,12 +980,16 @@ def test_cuda_export_calls_the_kernels_as_custom_operators(gen, tmp_path):
     detector = export.load_exported(path)
     images = torch.rand(2, 64, 64, 3, device="cuda", generator=gen) * 2 - 1
     before = (fa.flash_attention.launches,
+              fa.flash_attention.wgmma_launches,
               fused_ffn.fused_dense_mish.launches,
               fused_ln.fused_layer_norm.launches)
     got = detector(images)
+    # The one forward operator runs bf16 at K = 64 on the wgmma kernel, so
+    # a program saved before that kernel existed runs on it too.
     assert (fa.flash_attention.launches - before[0],
-            fused_ffn.fused_dense_mish.launches - before[1],
-            fused_ln.fused_layer_norm.launches - before[2]) == (2, 6, 4)
+            fa.flash_attention.wgmma_launches - before[1],
+            fused_ffn.fused_dense_mish.launches - before[2],
+            fused_ln.fused_layer_norm.launches - before[3]) == (2, 2, 6, 4)
     with torch.inference_mode():
         want = transform_predictions(model.forward(params, images, config),
                                      config)
@@ -1319,3 +1327,118 @@ def test_ring_blocks_in_key_order_round_as_the_whole_sequence(gen, rate, kd):
         assert all(p[1].dtype == torch.float32 for p in parts_grads)
         dq = sum(p[0] for p in parts_grads).to(torch.bfloat16)
         assert (dq != grads[0][:, rows]).float().mean() < 1e-2
+
+
+# ---------------------------------------------------------------------------
+# The wgmma forward (bf16, K <= 128) and the wide route (K > 128)
+
+WGMMA_ROUTES = ("plain", "lse", "drop", "fp32_out")
+
+
+@pytest.mark.parametrize("route", WGMMA_ROUTES)
+@pytest.mark.parametrize("kd", [40, 64, 80, 128])
+def test_wgmma_forward_matches_plain(gen, route, kd):
+    """Every bf16 forward route at K <= 128 runs the wgmma kernel (its own
+    launch count) at the caller's K with no copy, within the bf16
+    tolerance of the plain version; the dropout route's lse is the
+    undropped one; the fp32-output instance rounds to the bf16 route's
+    output bit for bit."""
+    q, k, v = _qkv(gen, (2, 203, 3, kd), torch.bfloat16, kd ** -0.5)
+    drop = (fa.seed_tensor(2 ** 32 - 3, "cuda"), 0.1)
+    before = (fa.flash_attention.wgmma_launches,
+              fa.flash_attention.operand_copies)
+    if route == "plain":
+        out = fa.flash_attention(q, k, v, layout="bnhk")
+        want = fa.reference_attention(q, k, v, "bnhk")
+    elif route == "lse":
+        out, lse = fa.flash_attention(q, k, v, layout="bnhk", with_lse=True)
+        want = fa.reference_attention(q, k, v, "bnhk")
+        assert (lse - fa.reference_attention_lse(q, k, "bnhk")).abs().max() \
+            <= 1e-4
+    elif route == "drop":
+        out, lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
+                                      dropout=drop)
+        want = fa.reference_attention(q, k, v, "bnhk", drop)
+        assert (lse - fa.reference_attention_lse(q, k, "bnhk")).abs().max() \
+            <= 1e-4
+    else:
+        out, _ = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
+                                    out_fp32=True)
+        assert out.dtype == torch.float32
+        want = fa.reference_attention(q, k, v, "bnhk",
+                                      out_dtype=torch.float32)
+        rounded, _ = fa._launch_forward(q, k, v, "bnhk", with_lse=True)
+        assert torch.equal(out.to(torch.bfloat16), rounded)
+    torch.cuda.synchronize()
+    launched = 2 if route == "fp32_out" else 1
+    assert (fa.flash_attention.wgmma_launches - before[0],
+            fa.flash_attention.operand_copies - before[1]) == (launched, 0)
+    assert out.shape == q.shape
+    assert (out.float() - want.float()).abs().max() <= TOLS[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kd", [129, 192, 256])
+def test_wide_route_matches_plain(gen, dtype, kd):
+    """K > 128 on the wide route, every route the wrapper exposes: the
+    forward and its lse, the dropout forward, B2 by each dq route and with
+    the replay (grads relative to their largest value), the fp32-output
+    instance with fp32 dk/dv, and a ring of two key blocks chained
+    (resume, suspend) bit-equal to one launch; B2 twice, bit-equal."""
+    q, k, v = _qkv(gen, (2, 130, 3, kd), dtype, kd ** -0.5)
+    g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+    drop = (fa.seed_tensor(2 ** 32 - 11, "cuda"), 0.1)
+    tol = TOLS[dtype]
+    out, lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True)
+    assert (out.float() - fa.reference_attention(q, k, v, "bnhk").float()
+            ).abs().max() <= tol
+    assert (lse - fa.reference_attention_lse(q, k, "bnhk")).abs().max() \
+        <= 1e-4
+    d_out, d_lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
+                                      dropout=drop)
+    assert (d_out.float() - fa.reference_attention(
+        q, k, v, "bnhk", drop).float()).abs().max() <= tol
+    assert torch.equal(d_lse, lse)
+    delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                            "bnhk").contiguous()
+    plain = fa.reference_attention_backward(q, k, v, g, "bnhk")
+    routes = (None, "split", "partials") if dtype == torch.float32 else (None,)
+    for route in routes:
+        grads = fa._launch_backward(q, k, v, g, lse, delta, "bnhk",
+                                    route=route)
+        assert max(_grad_rels(grads, plain)) <= GRAD_TOLS[dtype]
+        again = fa._launch_backward(q, k, v, g, lse, delta, "bnhk",
+                                    route=route)
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    d_delta = fa._heads_major((g.float() * d_out.float()).sum(-1),
+                              "bnhk").contiguous()
+    d_grads = fa._launch_backward(q, k, v, g, d_lse, d_delta, "bnhk", drop)
+    assert max(_grad_rels(d_grads, fa.reference_attention_backward(
+        q, k, v, g, "bnhk", drop))) <= GRAD_TOLS[dtype]
+    if dtype == torch.bfloat16:
+        f_out = fa._launch_forward(q, k, v, "bnhk", out_fp32=True)
+        assert torch.equal(f_out.to(torch.bfloat16), out)
+        f_grads = fa._launch_backward(q, k, v, g, lse, delta, "bnhk",
+                                      fp32_dq=True, fp32_dkv=True)
+        assert all(t.dtype == torch.float32 for t in f_grads)
+        assert max(_grad_rels(f_grads, fa.reference_attention_backward(
+            q, k, v, g, "bnhk", lse=lse, delta=delta,
+            out_dtype=torch.float32))) <= GRAD_TOLS[dtype]
+    # The ring: each half of 128 tokens' queries over two key blocks of
+    # 64 (whole tiles), chained, against one launch over the 128.
+    q, k, v = (t[:, :128] for t in (q, k, v))
+    whole, whole_lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
+                                          dropout=drop, out_fp32=True)
+    m = 64
+    for first in (0, m):
+        rows = slice(first, first + m)
+        state = fa._launch_forward(q[:, rows], k[:, :m], v[:, :m], "bnhk",
+                                   with_lse=True, dropout=drop,
+                                   offsets=(0, first, 0), out_fp32=True,
+                                   suspend=True)
+        chained = fa._launch_forward(q[:, rows], k[:, m:], v[:, m:], "bnhk",
+                                     with_lse=True, dropout=drop,
+                                     offsets=(0, first, m), out_fp32=True,
+                                     state=state)
+        assert torch.equal(chained[0], whole[:, rows])
+        assert torch.equal(chained[1], whole_lse[:, :, rows])

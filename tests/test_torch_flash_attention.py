@@ -272,8 +272,8 @@ def test_cpu_grads_take_the_plain_backward(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# What the kernels are handed: head dims padded to 48, 64 or 128, 16-byte
-# rows
+# What the kernels are handed: 16-byte rows at the caller's K; a K whose
+# rows cannot be addressed so padded to 48, 64, 128 or a multiple of 64
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kdim,width", [(8, 48), (40, 48), (48, 48),
@@ -285,6 +285,36 @@ def test_pad_head_dim_gives_the_kernels_widths(kdim, width):
     assert padded.shape == (2, 5, 3, width)
     assert torch.equal(padded[..., :kdim], t)
     assert not padded[..., kdim:].any()
+
+
+@pytest.mark.parametrize("dtype,kdim,copied", [
+    (torch.bfloat16, 80, False), (torch.bfloat16, 192, False),
+    (torch.float32, 40, False), (torch.bfloat16, 4, True),
+    (torch.float32, 2, True), (torch.float32, 129, True)])
+def test_only_rows_off_16_byte_boundaries_are_copied(dtype, kdim, copied):
+    """The kernels read q/k/v/g at their own K; only a K whose rows cannot
+    start on 16-byte boundaries (K * itemsize % 16) is padded to the
+    instance's width, and each padded operand is counted."""
+    ts = [torch.randn(2, 5, 3, kdim).to(dtype) for _ in range(4)]
+    before = fa.flash_attention.operand_copies
+    got, k = fa._addressable(ts)
+    assert k == kdim
+    assert fa.flash_attention.operand_copies - before == 4 * copied
+    for t, g in zip(ts, got):
+        if copied:
+            assert g.shape[-1] == fa.kernel_width(kdim)
+            assert torch.equal(g[..., :kdim], t)
+        else:
+            assert g is t
+
+
+@pytest.mark.parametrize("dtype,kdim,kernel", [
+    (torch.bfloat16, 40, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 136, "mma_sync"), (torch.float32, 64, "mma_sync")])
+def test_forward_kernel_by_dtype_and_head_dim(dtype, kdim, kernel):
+    """bf16 at K <= 128 runs the wgmma forward, fp32 and bf16 past 128 the
+    mma.sync one."""
+    assert fa.forward_kernel(kdim, dtype) == kernel
 
 
 @pytest.mark.parametrize("layout,shape", [("bnhk", (2, 37, 3, 40)),
@@ -341,7 +371,7 @@ def _model_attention_operands(monkeypatch, **overrides):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"key_dim": 40},                                      # tokens-major, F.pad
+    {"key_dim": 40},                                      # tokens-major
     {"key_dim": 64},                                      # heads-major view
     {"key_dim": 64, "attention_window": 2},               # heads-major fold
     {"key_dim": 8, "attention_window": 2, "compute_dtype": "bfloat16"},
@@ -350,12 +380,17 @@ def _model_attention_operands(monkeypatch, **overrides):
         "window_tokens_major_k8_bf16", "heads_major_k64_bf16"])
 def test_alignment_check_accepts_the_models_views(monkeypatch, overrides):
     """Every q/k/v view the model hands the wrapper (tokens-major
-    projections, heads-major views and window folds, F.pad copies) passes
-    the kernels' 16-byte row check once padded, as the launch pads it."""
+    projections, heads-major views and window folds) passes the kernels'
+    16-byte row check as the launch hands it over: at the model's own K,
+    with no copy (its K give rows of whole 16-byte chunks)."""
+    before = fa.flash_attention.operand_copies
     for layout, q, k, v in _model_attention_operands(monkeypatch,
                                                      **overrides):
-        padded = fa._kernel_operands(layout, q=q, k=k, v=v)
-        assert all(t.shape[-1] in (48, 64) for t in padded)
+        operands, kdim = fa._addressable((q, k, v))
+        read = fa._kernel_operands(layout, q=operands[0], k=operands[1],
+                                   v=operands[2])
+        assert all(t.shape[-1] == overrides["key_dim"] == kdim for t in read)
+    assert fa.flash_attention.operand_copies == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,5 +1,6 @@
-"""Head dims above 64 (the flash kernels' 128-wide instance): the port's
-plain versions against the JAX package at K = 80 (ViT-H/14's), 96 and 128.
+"""Head dims above 64 (the flash kernels' 128-wide instance and, past 128,
+their wide route): the port's plain versions against the JAX package at
+K = 80 (ViT-H/14's), 96 and 128, and at 192 and 256.
 
 The JAX wrapper pads K to a multiple of 64 with no upper limit, so these
 widths run its Pallas kernels (interpret mode on the CPU, as
@@ -9,9 +10,11 @@ are held here against JAX: the forward and its logsumexp, the dropout
 forward (its keep mask read back bit for bit), the backward (JAX's chunked
 recomputation and its Pallas B2) and the backward with the mask replayed,
 in both layouts; and a narrow model with key_dim 80 on the flash route,
-its logits and one train step's gradients. The 128-wide CUDA instances
-are checked on the card by tests/test_torch_cuda.py and chip_smoke.py's
-``wide_heads`` phase.
+its logits and one train step's gradients; at K = 192 and 256 (the wide
+route), the forward, its logsumexp, the backward by JAX's Pallas B2 and
+the dropout forward with its replayed grads, in fp32. The CUDA instances
+and the wide route are checked on the card by tests/test_torch_cuda.py
+and chip_smoke.py's ``wide_heads`` phase.
 """
 
 import jax
@@ -80,17 +83,24 @@ def test_kernel_width_of_the_wide_dims_is_128(kdim):
     assert not padded[..., kdim:].any()
 
 
-@pytest.mark.parametrize("kdim", [129, 192, 256])
-def test_wider_than_128_is_refused_on_the_kernel_route(kdim):
-    """No instance is wider than 128: the kernel route's input check and
-    its padding raise NotImplementedError naming the width, and never
-    pad K into an instance that computes something else. The plain
-    version on the CPU still computes any K, as JAX does."""
-    t = torch.zeros(1, 2, 8, kdim)
-    with pytest.raises(NotImplementedError, match=f"head dim {kdim}"):
-        fa._check_inputs(t, t, t)
-    with pytest.raises(NotImplementedError, match=f"head dim {kdim}"):
-        fa._pad_head_dim(t)
+@pytest.mark.parametrize("kdim,chunks,windows,grad_windows", [
+    (129, 3, 2, 3), (192, 3, 2, 3), (256, 4, 2, 4), (384, 6, 3, 6)])
+def test_wider_than_128_takes_the_wide_route(kdim, chunks, windows,
+                                             grad_windows):
+    """K past the widest instance runs the wide route, as JAX runs any K:
+    S over ceil(K / 64) chunks, the forward's output in windows of 128
+    columns and the backward's in windows of 64; nothing raises. A K
+    whose rows cannot be addressed in place pads to a multiple of 64,
+    exactly; the plain version on the CPU computes any K."""
+    plan = fa.head_dim_plan(kdim)
+    assert plan == fa.HeadDimPlan("wide", chunks, windows, grad_windows)
+    assert fa.forward_kernel(kdim, torch.bfloat16) == "mma_sync"
+    t = torch.randn(1, 2, 8, kdim)
+    fa._check_inputs(t, t, t)
+    padded = fa._pad_head_dim(t)
+    assert padded.shape[-1] == 64 * chunks == fa.kernel_width(kdim)
+    assert torch.equal(padded[..., :kdim], t)
+    assert not padded[..., kdim:].any()
     out = fa.flash_attention(t, t, t, layout="bhnk")
     assert out.shape == t.shape
 
@@ -195,6 +205,59 @@ def test_backward_matches_jax(layout, kdim, dtype, pallas_backward):
     for name, mine, ref in zip("qkv", got, expected):
         assert mine.dtype == tq.dtype and tuple(mine.shape) == shape
         _close(mine, ref, TOLS[dtype], f"d{name}")
+
+
+WIDER = (192, 256)     # past 128: the kernels' wide route on the card
+
+
+@pytest.mark.parametrize("layout", ["bnhk", "bhnk"])
+@pytest.mark.parametrize("kdim", WIDER)
+def test_wide_forward_lse_and_backward_match_jax(kdim, layout):
+    """K = 192 and 256 (JAX pads them to multiples of 64 and runs its
+    Pallas kernels): the port's forward and lse against JAX's forward
+    with lse, and dq/dk/dv against ``jax.vjp`` through JAX's Pallas
+    backward B2, all in interpret mode, fp32."""
+    shape = _shape(layout, kdim)
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _inputs(shape, "float32",
+                                                 seed=kdim + 3)
+    out, lse = jax_fa._flash_forward(jq, jk, jv, 128, 128, True,
+                                     with_lse=True, layout=layout)
+    got, got_lse = fa.flash_attention(tq, tk, tv, layout=layout,
+                                      with_lse=True)
+    _close(got, out, TOLS["float32"], "out")
+    want_lse = np.asarray(lse)[:, 0, :N].reshape(1, 2, N)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse,
+                               atol=TOLS["float32"], rtol=TOLS["float32"])
+    _, vjp = jax.vjp(lambda a, b, c: jax_fa.flash_attention(
+        a, b, c, block_q=128, block_kv=128, layout=layout, interpret=True,
+        use_pallas_backward=True), jq, jk, jv)
+    leaves = [t.requires_grad_() for t in (tq, tk, tv)]
+    grads = torch.autograd.grad(fa.flash_attention(*leaves, layout=layout),
+                                leaves, tg)
+    for name, mine, ref in zip("qkv", grads, vjp(jg)):
+        assert tuple(mine.shape) == shape
+        _close(mine, ref, TOLS["float32"], f"d{name}")
+
+
+@pytest.mark.parametrize("layout", ["bnhk", "bhnk"])
+@pytest.mark.parametrize("kdim", WIDER)
+def test_wide_dropout_forward_and_grads_match_jax(kdim, layout):
+    """K = 192 and 256 with dropout (rate 0.25, a seed near 2**32): JAX's
+    interpret-mode forward and its backward, which replays the mask,
+    against the port's, fp32."""
+    shape = _shape(layout, kdim)
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _inputs(shape, "float32",
+                                                 seed=kdim + 4)
+    out, vjp = jax.vjp(lambda a, b, c: jax_fa.flash_attention(
+        a, b, c, block_q=128, block_kv=128, layout=layout, interpret=True,
+        dropout_rate=RATE, dropout_seed=jnp.uint32(SEED)), jq, jk, jv)
+    leaves = [t.requires_grad_() for t in (tq, tk, tv)]
+    got = fa.flash_attention(*leaves, layout=layout, dropout_rate=RATE,
+                             dropout_seed=SEED)
+    _close(got, out, TOLS["float32"], "out")
+    for name, mine, ref in zip("qkv", torch.autograd.grad(got, leaves, tg),
+                               vjp(jg)):
+        _close(mine, ref, TOLS["float32"], f"d{name}")
 
 
 # A narrow detector with ViT-H/14's head dim: 2 heads of 80 (padded to the

@@ -98,21 +98,25 @@ def _run_group(world, outdir, cases, attempts=2, timeout=240):
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     for attempt in range(attempts):
-        port = _free_port()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.join(TESTS, "torch_parallel_worker.py"),
-             str(rank), str(world), str(port), str(outdir), *cases],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True) for rank in range(world)]
-        logs = []
-        for p in procs:
-            try:
-                logs.append(p.communicate(timeout=timeout)[0])
-            except subprocess.TimeoutExpired:
-                for q in procs:
-                    q.kill()
-                    q.wait()
-                pytest.fail(f"a worker of {cases} outlived {timeout} s")
+        # The group's store is held here, on a port no other process can
+        # take between its choice and the workers' rendezvous.
+        with pdata.local_store() as (port, store_env):
+            procs = [subprocess.Popen(
+                [sys.executable,
+                 os.path.join(TESTS, "torch_parallel_worker.py"),
+                 str(rank), str(world), str(port), str(outdir), *cases],
+                env=dict(env, **store_env), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+                for rank in range(world)]
+            logs = []
+            for p in procs:
+                try:
+                    logs.append(p.communicate(timeout=timeout)[0])
+                except subprocess.TimeoutExpired:
+                    for q in procs:
+                        q.kill()
+                        q.wait()
+                    pytest.fail(f"a worker of {cases} outlived {timeout} s")
         if all(p.returncode == 0 for p in procs):
             return
         if attempt + 1 < attempts and any(_GLOO_FLAKE in log

@@ -6,7 +6,6 @@ limit (the CLI's processes import no JAX)."""
 
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -59,27 +58,30 @@ def _run(args) -> dict:
 
 
 def _run_distributed(args, world=2) -> list:
-    """``args`` as ``world`` --distributed processes; their last lines."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    procs = [subprocess.Popen(
-        CLI + args + ["--distributed", "--coordinator", f"127.0.0.1:{port}",
-                      "--num-processes", str(world), "--process-id",
-                      str(rank)],
-        env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for rank in range(world)]
-    results = []
-    try:
-        for p in procs:
-            stdout, stderr = p.communicate(timeout=TIMEOUT)
-            assert p.returncode == 0, stderr[-3000:]
-            results.append(_last_json(stdout))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    """``args`` as ``world`` --distributed processes; their last lines.
+    The group's store is held here (``local_store``), on a port no other
+    process can take between its choice and the rendezvous."""
+    from vision_transformer_detector_tpu_torch.parallel.data import (
+        local_store)
+
+    with local_store() as (port, store_env):
+        procs = [subprocess.Popen(
+            CLI + args + ["--distributed", "--coordinator",
+                          f"127.0.0.1:{port}", "--num-processes", str(world),
+                          "--process-id", str(rank)],
+            env=dict(_env(), **store_env), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for rank in range(world)]
+        results = []
+        try:
+            for p in procs:
+                stdout, stderr = p.communicate(timeout=TIMEOUT)
+                assert p.returncode == 0, stderr[-3000:]
+                results.append(_last_json(stdout))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
     return results
 
 

@@ -1,17 +1,20 @@
 """Time the flash kernels at reference_608's attention shape for each
 padded head dim, on one GPU.
 
-reference_608 has key_dim 40; the kernels take head dims of fixed widths
-and the wrapper zero-pads to the next one (``_pad_head_dim``). This times,
-at (B, N, H, K) = (8, 1296, 8, 40) fp32 in the tokens-major layout, the
-forward with lse and the backward of three calls that compute the same
-attention:
+reference_608 has key_dim 40; the kernels have instances of fixed widths
+(48, 64, 128) and read a narrower K into the next one, zero-filling the
+columns past K in their loads (``head_dim_plan``). This times, at (B, N,
+H, K) = (8, 1296, 8, 40) fp32 in the tokens-major layout, the forward with
+lse and the backward of three calls that compute the same attention:
 
-  * ``k40``: the wrapper as the model calls it (the padding copies
-    included);
+  * ``k40``: the wrapper as the model calls it (the 48-wide instance
+    reading K = 40);
   * ``w48`` and ``w64``: q/k/v/g zero-padded to 48 and 64 by the caller,
-    so each launches the kernel instance of that width (a width the kernels
-    lack is padded on by the wrapper, and the output says which width ran).
+    so each launches the kernel instance of that width at its full width
+    (the output says which width ran).
+
+Run from two checkouts, one call after the other on one card, it compares
+two versions of the kernels.
 
 The three are timed in turns (w48, w64, k40, k40, w64, w48) over
 ``--rounds`` rounds of ``--iters`` launches each, by CUDA events; each

@@ -284,14 +284,20 @@ def _maybe_mesh(args):
     data, model = args.data_parallel, args.model_parallel
     if not (distributed or _torchrun_environment()):
         return None
+    import torch.distributed as dist
+
     from .parallel.data import initialize_distributed
     from .parallel.mesh import create_mesh
 
+    joined = not dist.is_initialized()
     try:
         initialize_distributed(getattr(args, "coordinator", None),
                                getattr(args, "num_processes", None),
                                getattr(args, "process_id", None),
                                device=args.device)
+        # The group this command joined is left by main() once the
+        # command has run; one a caller had joined before stays.
+        args.owns_group = getattr(args, "owns_group", False) or joined
         return create_mesh(data=data if data > 1 else None, model=model)
     except ValueError as exc:
         raise SystemExit(str(exc)) from exc
@@ -311,14 +317,6 @@ def _is_primary() -> bool:
     import torch.distributed as dist
 
     return not dist.is_initialized() or dist.get_rank() == 0
-
-
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
 
 
 def _launch_local(args, argv) -> None:
@@ -347,16 +345,18 @@ def _launch_local(args, argv) -> None:
                 f"a {args.data_parallel}x{args.model_parallel} mesh needs "
                 f"{world} processes, one per GPU, but {count} CUDA "
                 "device(s) are visible")
+    from .parallel.data import local_store
+
     package_root = os.path.dirname(os.path.dirname(os.path.abspath(
         __file__)))
-    base = dict(os.environ, MASTER_ADDR="127.0.0.1",
-                MASTER_PORT=str(_free_port()), WORLD_SIZE=str(world))
-    base["PYTHONPATH"] = os.pathsep.join(
-        [package_root] + [p for p in [os.environ.get("PYTHONPATH")] if p])
-    if not args.device.startswith("cuda"):
-        base.setdefault("OMP_NUM_THREADS",
-                        str(max(1, (os.cpu_count() or 1) // world)))
-    with tempfile.TemporaryFile("w+") as out:
+    with local_store() as (_, store_env), \
+            tempfile.TemporaryFile("w+") as out:
+        base = dict(os.environ, **store_env, WORLD_SIZE=str(world))
+        base["PYTHONPATH"] = os.pathsep.join(
+            [package_root] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+        if not args.device.startswith("cuda"):
+            base.setdefault("OMP_NUM_THREADS",
+                            str(max(1, (os.cpu_count() or 1) // world)))
         procs = [subprocess.Popen(
             [sys.executable, "-m", "vision_transformer_detector_tpu_torch.cli",
              *argv],
@@ -830,25 +830,28 @@ def _probe_gloo_group(world: int, timeout_s: float) -> bool:
     import subprocess
     import time
 
-    port = _free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _GLOO_PROBE, str(rank), str(world),
-         str(port)], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
-        text=True) for rank in range(world)]
-    deadline = time.monotonic() + timeout_s
-    ok = True
-    for p in procs:
-        try:
-            out, _ = p.communicate(
-                timeout=max(0.0, deadline - time.monotonic()))
-            ok = ok and p.returncode == 0 and f"VTD_GLOO {world}" in out
-        except subprocess.TimeoutExpired:
-            ok = False
-            break
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
-            p.wait()
+    from .parallel.data import local_store
+
+    with local_store() as (port, store_env):
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _GLOO_PROBE, str(rank), str(world),
+             str(port)], env=dict(os.environ, **store_env),
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+            for rank in range(world)]
+        deadline = time.monotonic() + timeout_s
+        ok = True
+        for p in procs:
+            try:
+                out, _ = p.communicate(
+                    timeout=max(0.0, deadline - time.monotonic()))
+                ok = ok and p.returncode == 0 and f"VTD_GLOO {world}" in out
+            except subprocess.TimeoutExpired:
+                ok = False
+                break
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     return ok
 
 
@@ -1272,6 +1275,14 @@ def main(argv=None) -> None:
         _launch_local(args, argv)
         return
     args.func(args)
+    if getattr(args, "owns_group", False):
+        # Every rank leaves the group together: a process that exits with
+        # the group's threads still connected to a peer that has already
+        # gone can abort in teardown (std::terminate).
+        import torch.distributed as dist
+
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

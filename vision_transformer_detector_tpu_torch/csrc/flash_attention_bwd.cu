@@ -1,6 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a) on the tensor cores, bound to
-// Python through a plain C interface (kernels/flash_attention.py loads it
-// with ctypes).
+// Python through a plain C interface (kernels/ops.py loads it with ctypes):
+// head dims K <= 128 here, K > 128 in flash_attention_bwd_wide.cu, which
+// shares this file's contract and flash_bwd_common.cuh.
 //
 // Replaces the Pallas TPU kernel `_fused_bwd_kernel` in
 // vision_transformer_detector_tpu/kernels/flash_attention.py (launched by
@@ -75,8 +76,12 @@
 //     dS = P * (scale * dP - delta) with the same mask replay, and dq +=
 //     dS K (dS cast to the input type, as in the dk/dv block); dq is
 //     written once, with plain fp32 stores, so the caller need not zero it;
+//   * q, k, v and g are read at the caller's head dim K: the cp.async
+//     copies zero-fill the columns past K (mma_sm90.cuh), and dq, dk, dv
+//     and the partials are stored up to K, so the wrapper pads nothing;
 //   * fp32 runs the same code on TF32 with the 3xTF32 split of every
-//     operand (mma_sm90.cuh); head dim 48, 64 or 128 as in the forward.
+//     operand (mma_sm90.cuh); instances of head dim 48, 64 or 128 take
+//     K <= 48, 48 < K <= 64 and 64 < K <= 128.
 //     The 128 instances keep the 64-row tiles and 4 warps: the dk/dv kernel
 //     takes each query tile 32 (bf16) or 16 (fp32) queries at a time and
 //     the dq kernel each key tile as many keys at a time (sub_tile), so S
@@ -102,23 +107,9 @@
 // 16). chip_smoke.py's build phase prints each instance's registers and
 // spills and its HMMA count.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <type_traits>
-
-#include "dropout_mask.cuh"
-#include "mma_sm90.cuh"
+#include "flash_bwd_common.cuh"
 
 namespace {
-
-constexpr int kBlock = 64;            // keys per CTA and queries per tile
-constexpr int kThreads = 128;         // 4 warps of 16 keys
-constexpr float kLog2e = 1.4426950408889634f;
-
-struct Strides {
-  long long b, h, n;
-};
 
 template <typename T>
 constexpr int smem_dq_bytes(int d) {
@@ -147,20 +138,6 @@ __host__ __device__ constexpr int sub_tile() {
   return D <= 64 ? kBlock : (sizeof(T) == 2 ? 32 : 16);
 }
 
-// The 64 fp32 values of rows row0..row0+63 of a contiguous (seq_len,) row,
-// zero past seq_len; threads 0..63 load lse, 64..127 delta.
-__device__ __forceinline__ void load_rows_async(float* lse_dst,
-                                                float* delta_dst,
-                                                const float* lse_src,
-                                                const float* delta_src,
-                                                int row0, int seq_len,
-                                                int tid) {
-  const int i = tid & (kBlock - 1);
-  const int row = row0 + i;
-  const bool valid = row < seq_len;
-  const float* src = (tid < kBlock ? lse_src : delta_src) + (valid ? row : 0);
-  cp_async4((tid < kBlock ? lse_dst : delta_dst) + i, src, valid);
-}
 
 // dk and dv: block blockIdx.x is key tile blockIdx.x % tiles of batch*head
 // blockIdx.x / tiles. With kPartials it also writes this key tile's dq
@@ -173,8 +150,9 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, O* __restrict__ dk,
                  O* __restrict__ dv, float* __restrict__ partials, int heads,
-                 int seq_len, int tiles, Strides sq, Strides sk, Strides sv,
-                 Strides sg, Strides sdk, Strides sdv, Dropout drop) {
+                 int seq_len, int kdim, int tiles, Strides sq, Strides sk,
+                 Strides sv, Strides sg, Strides sdk, Strides sdv,
+                 Dropout drop) {
   using M = Mma<T>;
   constexpr int kLd = D + M::kPad;
   constexpr int kTile = kBlock * kLd;
@@ -205,11 +183,13 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* delta_bh = delta + static_cast<long long>(bh) * seq_len;
 
   load_tile_async<T, D, kBlock, kThreads>(k_s, k + b * sk.b + h * sk.h, sk.n,
-                                          kv0, seq_len, tid);
+                                          kv0, seq_len, 0, kdim, tid);
   load_tile_async<T, D, kBlock, kThreads>(v_s, v + b * sv.b + h * sv.h, sv.n,
-                                          kv0, seq_len, tid);
-  load_tile_async<T, D, kBlock, kThreads>(q_s, q_bh, sq.n, 0, seq_len, tid);
-  load_tile_async<T, D, kBlock, kThreads>(g_s, g_bh, sg.n, 0, seq_len, tid);
+                                          kv0, seq_len, 0, kdim, tid);
+  load_tile_async<T, D, kBlock, kThreads>(q_s, q_bh, sq.n, 0, seq_len, 0,
+                                          kdim, tid);
+  load_tile_async<T, D, kBlock, kThreads>(g_s, g_bh, sg.n, 0, seq_len, 0,
+                                          kdim, tid);
   load_rows_async(lse_s, delta_s, lse_bh, delta_bh, 0, seq_len, tid);
   cp_async_commit();
 
@@ -244,9 +224,11 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // the previous iteration's closing barrier.
       const int nb = buf ^ 1;
       load_tile_async<T, D, kBlock, kThreads>(q_s + nb * kTile, q_bh, sq.n,
-                                              q0 + kBlock, seq_len, tid);
+                                              q0 + kBlock, seq_len, 0, kdim,
+                                              tid);
       load_tile_async<T, D, kBlock, kThreads>(g_s + nb * kTile, g_bh, sg.n,
-                                              q0 + kBlock, seq_len, tid);
+                                              q0 + kBlock, seq_len, 0, kdim,
+                                              tid);
       load_rows_async(lse_s + nb * kBlock, delta_s + nb * kBlock, lse_bh,
                       delta_bh, q0 + kBlock, seq_len, tid);
       cp_async_commit();
@@ -291,32 +273,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
 
-      // P^T (scaled by the replayed mask) into s, dS^T into dp: rows are
-      // keys (e >> 1), columns queries s0 + 8j + 2t + (e & 1).
-#pragma unroll
-      for (int j = 0; j < kSub / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const int col = s0 + 8 * j + 2 * t + (e & 1);
-          const int query = q0 + col;
-          const float p =
-              key_ok[r] && query < seq_len
-                  ? exp2f(fmaf(s[j][e], kLog2e, -lse_t[col] * kLog2e))
-                  : 0.f;
-          float scale = 1.f;
-          if (kDropout) {
-            scale = keep(drop, hash_key[r] +
-                                   query_term(drop,
-                                              static_cast<unsigned int>(
-                                                  query)))
-                        ? drop.inv_keep
-                        : 0.f;
-          }
-          s[j][e] = p * scale;
-          dp[j][e] = p * (dp[j][e] * scale - delta_t[col]);
-        }
-      }
+      grads_t<kDropout>(s, dp, key_ok, hash_key, lse_t, delta_t, q0, s0,
+                        seq_len, t, drop);
 
       // dV += P^T g and dK += dS^T Q, each A fragment rounded to the input
       // type.
@@ -364,45 +322,18 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         // Lanes t and t ^ 1 swap halves, so each stores four adjacent
         // values of one row: an even lane row gr, columns 8j + 2t .. + 3;
         // an odd lane row gr + 8, columns 8j + 2(t - 1) .. + 3.
-        const bool odd = t & 1;
-        const int row = q0 + 16 * warp + gr + (odd ? 8 : 0);
-        float* dq_row =
-            partials +
-            ((static_cast<long long>(blockIdx.x % tiles) *
-                  (gridDim.x / tiles) +
-              bh) * seq_len + row) * D +
-            kCols * c + 2 * (t & ~1);
-#pragma unroll
-        for (int j = 0; j < kCols / 8; ++j) {
-          const float x0 = odd ? dq_acc[j][0] : dq_acc[j][2];
-          const float x1 = odd ? dq_acc[j][1] : dq_acc[j][3];
-          const float r0 = __shfl_xor_sync(0xffffffffu, x0, 1);
-          const float r1 = __shfl_xor_sync(0xffffffffu, x1, 1);
-          if (row < seq_len) {
-            *reinterpret_cast<float4*>(dq_row + 8 * j) =
-                odd ? make_float4(r0, r1, dq_acc[j][2], dq_acc[j][3])
-                    : make_float4(dq_acc[j][0], dq_acc[j][1], r0, r1);
-          }
-        }
+        store_partials<kCols / 8>(dq_acc, partials, blockIdx.x % tiles,
+                                  gridDim.x / tiles, bh, seq_len, kdim,
+                                  q0 + 16 * warp + gr, kCols * c, t);
       }
     }
     __syncthreads();
   }
 
-  O* dk_bh = dk + b * sdk.b + h * sdk.h;
-  O* dv_bh = dv + b * sdv.b + h * sdv.h;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = kv0 + 16 * warp + gr + 8 * r;
-    if (!key_ok[r]) continue;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      store_pair(dk_bh + key * sdk.n + 8 * j + 2 * t, dk_acc[j][2 * r],
-                 dk_acc[j][2 * r + 1]);
-      store_pair(dv_bh + key * sdv.n + 8 * j + 2 * t, dv_acc[j][2 * r],
-                 dv_acc[j][2 * r + 1]);
-    }
-  }
+  store_rows<D / 8>(dk_acc, dk + b * sdk.b + h * sdk.h, sdk.n, key_ok,
+                    kv0 + 16 * warp + gr, 0, kdim, t);
+  store_rows<D / 8>(dv_acc, dv + b * sdv.b + h * sdv.h, sdv.n, key_ok,
+                    kv0 + 16 * warp + gr, 0, kdim, t);
 }
 
 // dq: block blockIdx.x is query tile blockIdx.x % tiles of batch*head
@@ -414,7 +345,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ g,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
-                    int heads, int seq_len, int tiles, Strides sq,
+                    int heads, int seq_len, int kdim, int tiles, Strides sq,
                     Strides sk, Strides sv, Strides sg, Strides sdq,
                     Dropout drop) {
   using M = Mma<T>;
@@ -439,11 +370,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* v_bh = v + b * sv.b + h * sv.h;
 
   load_tile_async<T, D, kBlock, kThreads>(q_s, q + b * sq.b + h * sq.h, sq.n,
-                                          q0, seq_len, tid);
+                                          q0, seq_len, 0, kdim, tid);
   load_tile_async<T, D, kBlock, kThreads>(g_s, g + b * sg.b + h * sg.h, sg.n,
-                                          q0, seq_len, tid);
-  load_tile_async<T, D, kBlock, kThreads>(k_s, k_bh, sk.n, 0, seq_len, tid);
-  load_tile_async<T, D, kBlock, kThreads>(v_s, v_bh, sv.n, 0, seq_len, tid);
+                                          q0, seq_len, 0, kdim, tid);
+  load_tile_async<T, D, kBlock, kThreads>(k_s, k_bh, sk.n, 0, seq_len, 0,
+                                          kdim, tid);
+  load_tile_async<T, D, kBlock, kThreads>(v_s, v_bh, sv.n, 0, seq_len, 0,
+                                          kdim, tid);
   cp_async_commit();
 
   // This lane's queries: q0 + 16 * warp + gr (r = 0) and + 8 (r = 1).
@@ -479,9 +412,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // the previous iteration's closing barrier.
       const int nb = buf ^ 1;
       load_tile_async<T, D, kBlock, kThreads>(k_s + nb * kTile, k_bh, sk.n,
-                                              kv0 + kBlock, seq_len, tid);
+                                              kv0 + kBlock, seq_len, 0, kdim,
+                                              tid);
       load_tile_async<T, D, kBlock, kThreads>(v_s + nb * kTile, v_bh, sv.n,
-                                              kv0 + kBlock, seq_len, tid);
+                                              kv0 + kBlock, seq_len, 0, kdim,
+                                              tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -522,262 +457,69 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
 
-      // dS into dp: rows are queries (e >> 1), columns keys kv0 + s0 + 8j
-      // + 2t + (e & 1).
-#pragma unroll
-      for (int j = 0; j < kSub / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const int key = kv0 + s0 + 8 * j + 2 * t + (e & 1);
-          const float p =
-              query_ok[r] && key < seq_len
-                  ? exp2f(fmaf(s[j][e], kLog2e, -lse_r[r]))
-                  : 0.f;
-          float scale = 1.f;
-          if (kDropout) {
-            scale = keep(drop, hash_query[r] +
-                                   key_term(drop,
-                                            static_cast<unsigned int>(key)))
-                        ? drop.inv_keep
-                        : 0.f;
-          }
-          dp[j][e] = p * (dp[j][e] * scale - delta_r[r]);
-        }
-      }
+      grads_q<kDropout>(s, dp, query_ok, hash_query, lse_r, delta_r,
+                        kv0 + s0, seq_len, t, drop);
       // dq += dS K, dS rounded to the input type.
       add_acc_kn<T, kSub, D>(dq_acc, dp, k_t + s0 * kLd, kLd, lane);
     }
     __syncthreads();
   }
 
-  float* dq_bh = dq + b * sdq.b + h * sdq.h;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int query = q0 + 16 * warp + gr + 8 * r;
-    if (!query_ok[r]) continue;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      store_pair(dq_bh + query * sdq.n + 8 * j + 2 * t, dq_acc[j][2 * r],
-                 dq_acc[j][2 * r + 1]);
-    }
-  }
+  store_rows<D / 8>(dq_acc, dq + b * sdq.b + h * sdq.h, sdq.n, query_ok,
+                    q0 + 16 * warp + gr, 0, kdim, t);
 }
 
-// dq from flash_bwd_kernel's partials: thread i sums four adjacent
-// columns of one (batch*head, query) row over the key tiles in order,
-// dq = ((c0 + c1) + c2) + ..., and stores them through dq's strides.
-template <int D>
-__global__ void __launch_bounds__(256)
-flash_bwd_dq_sum_kernel(const float* __restrict__ partials,
-                        float* __restrict__ dq, int heads, int seq_len,
-                        int tiles, long long rows, Strides sdq) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= rows * (D / 4)) return;
-  const long long row = i / (D / 4);   // bh * seq_len + query
-  const int col = 4 * static_cast<int>(i % (D / 4));
-  const float4* src =
-      reinterpret_cast<const float4*>(partials + row * D + col);
-  const long long tile_stride = rows * (D / 4);
-  float4 acc = src[0];
-  for (int j = 1; j < tiles; ++j) {
-    const float4 c = src[j * tile_stride];
-    acc.x += c.x;
-    acc.y += c.y;
-    acc.z += c.z;
-    acc.w += c.w;
-  }
-  const int bh = static_cast<int>(row / seq_len);
-  const int query = static_cast<int>(row % seq_len);
-  *reinterpret_cast<float4*>(dq + (bh / heads) * sdq.b +
-                             (bh % heads) * sdq.h + query * sdq.n + col) =
-      acc;
-}
 
 template <typename T, int D, bool kDropout, typename O>
-cudaError_t launch_kernel(const void* q, const void* k, const void* v,
-                          const void* g, const void* lse, const void* delta,
-                          void* dq, void* dk, void* dv, void* partials,
-                          int batch, int heads, int seq_len, Strides sq,
-                          Strides sk, Strides sv, Strides sg, Strides sdq,
-                          Strides sdk, Strides sdv, Dropout drop,
-                          cudaStream_t stream) {
-  const int tiles = (seq_len + kBlock - 1) / kBlock;
-  const long long blocks = static_cast<long long>(batch) * heads * tiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* gt = static_cast<const T*>(g);
-  const float* lse_f = static_cast<const float*>(lse);
-  const float* delta_f = static_cast<const float*>(delta);
+cudaError_t launch_kernel(const Launch& a) {
+  const int tiles = (a.seq_len + kBlock - 1) / kBlock;
+  const T* qt = static_cast<const T*>(a.q);
+  const T* kt = static_cast<const T*>(a.k);
+  const T* vt = static_cast<const T*>(a.v);
+  const T* gt = static_cast<const T*>(a.g);
   cudaError_t err;
-  if (partials != nullptr) {
+  if (a.partials != nullptr) {
     // fp32 only (the wrapper's choice): the dk/dv kernel stores each key
     // tile's dq contribution, then the sum kernel adds them in key order.
     if constexpr (std::is_same<T, float>::value) {
-      constexpr int kSmem = smem_bytes<T, true>(D);
       static std::atomic<unsigned long long> smem_allowed{0};
-      err = allow_dynamic_smem(flash_bwd_kernel<T, D, kDropout, true, T>,
-                               kSmem, smem_allowed);
-      if (err != cudaSuccess) return err;
-      float* part = static_cast<float*>(partials);
-      flash_bwd_kernel<T, D, kDropout, true, T>
-          <<<static_cast<unsigned int>(blocks), kThreads, kSmem, stream>>>(
-              qt, kt, vt, gt, lse_f, delta_f, static_cast<T*>(dk),
-              static_cast<T*>(dv), part, heads, seq_len, tiles, sq, sk, sv,
-              sg, sdk, sdv, drop);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-      const long long rows = static_cast<long long>(batch) * heads * seq_len;
-      const long long sum_blocks = (rows * (D / 4) + 255) / 256;
-      if (sum_blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-      flash_bwd_dq_sum_kernel<D>
-          <<<static_cast<unsigned int>(sum_blocks), 256, 0, stream>>>(
-              part, static_cast<float*>(dq), heads, seq_len, tiles, rows,
-              sdq);
-      return cudaGetLastError();
+      err = run(flash_bwd_kernel<T, D, kDropout, true, T>,
+                smem_bytes<T, true>(D), smem_allowed, a, 1, qt, kt, vt, gt,
+                a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+                a.partials, a.heads, a.seq_len, a.kdim, tiles, a.sq, a.sk,
+                a.sv, a.sg, a.sdk, a.sdv, a.drop);
+      return err != cudaSuccess ? err : sum_partials(a);
     } else {
       return cudaErrorInvalidValue;
     }
   }
-  constexpr int kSmem = smem_bytes<T, false>(D);
-  constexpr int kSmemDq = smem_dq_bytes<T>(D);
   static std::atomic<unsigned long long> smem_allowed{0}, smem_dq_allowed{0};
-  err = allow_dynamic_smem(flash_bwd_kernel<T, D, kDropout, false, O>, kSmem,
-                           smem_allowed);
+  err = run(flash_bwd_kernel<T, D, kDropout, false, O>,
+            smem_bytes<T, false>(D), smem_allowed, a, 1, qt, kt, vt, gt,
+            a.lse, a.delta, static_cast<O*>(a.dk), static_cast<O*>(a.dv),
+            static_cast<float*>(nullptr), a.heads, a.seq_len, a.kdim, tiles,
+            a.sq, a.sk, a.sv, a.sg, a.sdk, a.sdv, a.drop);
   if (err != cudaSuccess) return err;
-  err = allow_dynamic_smem(flash_bwd_dq_kernel<T, D, kDropout>, kSmemDq,
-                           smem_dq_allowed);
-  if (err != cudaSuccess) return err;
-  flash_bwd_kernel<T, D, kDropout, false, O>
-      <<<static_cast<unsigned int>(blocks), kThreads, kSmem, stream>>>(
-          qt, kt, vt, gt, lse_f, delta_f, static_cast<O*>(dk),
-          static_cast<O*>(dv), nullptr, heads, seq_len, tiles, sq, sk, sv, sg,
-          sdk, sdv, drop);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T, D, kDropout>
-      <<<static_cast<unsigned int>(blocks), kThreads, kSmemDq, stream>>>(
-          qt, kt, vt, gt, lse_f, delta_f, static_cast<float*>(dq), heads,
-          seq_len, tiles, sq, sk, sv, sg, sdq, drop);
-  return cudaGetLastError();
+  return run(flash_bwd_dq_kernel<T, D, kDropout>, smem_dq_bytes<T>(D),
+             smem_dq_allowed, a, 1, qt, kt, vt, gt, a.lse, a.delta, a.dq,
+             a.heads, a.seq_len, a.kdim, tiles, a.sq, a.sk, a.sv, a.sg,
+             a.sdq, a.drop);
 }
 
-template <typename T, int D, typename O>
-cudaError_t launch_dim(bool dropout, const void* q, const void* k,
-                       const void* v, const void* g, const void* lse,
-                       const void* delta, void* dq, void* dk, void* dv,
-                       void* partials, int batch, int heads, int seq_len,
-                       Strides sq, Strides sk, Strides sv, Strides sg,
-                       Strides sdq, Strides sdk, Strides sdv, Dropout drop,
-                       cudaStream_t stream) {
-  if (dropout) {
-    return launch_kernel<T, D, true, O>(q, k, v, g, lse, delta, dq, dk, dv,
-                                     partials, batch, heads, seq_len, sq, sk,
-                                     sv, sg, sdq, sdk, sdv, drop, stream);
-  }
-  return launch_kernel<T, D, false, O>(q, k, v, g, lse, delta, dq, dk, dv,
-                                    partials, batch, heads, seq_len, sq, sk,
-                                    sv, sg, sdq, sdk, sdv, drop, stream);
-}
 
-template <typename T, typename O>
-cudaError_t launch(int head_dim, bool dropout, const void* q, const void* k,
-                   const void* v, const void* g, const void* lse,
-                   const void* delta, void* dq, void* dk, void* dv,
-                   void* partials, int batch, int heads, int seq_len,
-                   Strides sq, Strides sk, Strides sv, Strides sg,
-                   Strides sdq, Strides sdk, Strides sdv, Dropout drop,
-                   cudaStream_t stream) {
-  if (head_dim == 48) {
-    return launch_dim<T, 48, O>(dropout, q, k, v, g, lse, delta, dq, dk, dv,
-                             partials, batch, heads, seq_len, sq, sk, sv, sg,
-                             sdq, sdk, sdv, drop, stream);
-  }
-  if (head_dim == 64) {
-    return launch_dim<T, 64, O>(dropout, q, k, v, g, lse, delta, dq, dk, dv,
-                             partials, batch, heads, seq_len, sq, sk, sv, sg,
-                             sdq, sdk, sdv, drop, stream);
-  }
-  if (head_dim == 128) {
-    return launch_dim<T, 128, O>(dropout, q, k, v, g, lse, delta, dq, dk, dv,
-                              partials, batch, heads, seq_len, sq, sk, sv, sg,
-                              sdq, sdk, sdv, drop, stream);
-  }
+// The instance of head dim K: 48 (K <= 48), 64 (K <= 64), 128 (K <= 128);
+// K > 128 is flash_attention_bwd_wide.cu's.
+template <typename T, typename O, bool kDropout>
+cudaError_t launch_dim(const Launch& a) {
+  if (a.kdim <= 48) return launch_kernel<T, 48, kDropout, O>(a);
+  if (a.kdim <= 64) return launch_kernel<T, 64, kDropout, O>(a);
+  if (a.kdim <= 128) return launch_kernel<T, 128, kDropout, O>(a);
   return cudaErrorInvalidValue;
 }
 
+template <typename T, typename O>
+cudaError_t launch(bool dropout, const Launch& a) {
+  return dropout ? launch_dim<T, O, true>(a) : launch_dim<T, O, false>(a);
+}
+
 }  // namespace
-
-extern "C" {
-
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, g, and dk, dv unless
-// dkv_fp32, which writes them in fp32: a ring attention block's dk and dv
-// join fp32 sums unrounded); dq is fp32, every
-// element written by the kernels; lse and delta are contiguous fp32 (batch,
-// heads, seq_len). dq_partials: null for the split route, or, in fp32
-// only, a (tiles, batch * heads, seq_len, head_dim) fp32 workspace for the
-// partials route, tiles = ceil(seq_len / 64); dq's rows must then be
-// 16-byte aligned too.
-// head_dim: 48, 64 or 128 (the wrapper pads). Strides are in elements, for the
-// batch, head and token axes; the head dim must be contiguous and every row
-// 16-byte aligned. dropout: 0, or 1 with the device address of the
-// forward's uint32 seed, the keep threshold and fp32 1 / (1 - rate); delta
-// is then rowsum(g * out) of the dropped output; bh_base, q_base and
-// k_base: the global batch*head row, query and key of the launch's first,
-// and inner_local, inner_global and inner_base the map of a local
-// batch*head row to a global one (dropout_mask.cuh; 0, 0, 0 and 1, 1, 0
-// for a launch over the whole array). Returns the CUDA error of the launch
-// (0 on success).
-int vtd_flash_attention_bwd(
-    const void* q, const void* k, const void* v, const void* g,
-    const void* lse, const void* delta, void* dq, void* dk, void* dv,
-    void* dq_partials, int dtype, int dkv_fp32, int batch, int heads,
-    int seq_len, int head_dim,
-    long long q_sb, long long q_sh, long long q_sn, long long k_sb,
-    long long k_sh, long long k_sn, long long v_sb, long long v_sh,
-    long long v_sn, long long g_sb, long long g_sh, long long g_sn,
-    long long dq_sb, long long dq_sh, long long dq_sn, long long dk_sb,
-    long long dk_sh, long long dk_sn, long long dv_sb, long long dv_sh,
-    long long dv_sn, int dropout, const unsigned int* seed,
-    unsigned int threshold, float inv_keep, unsigned int bh_base,
-    unsigned int q_base, unsigned int k_base, unsigned int inner_local,
-    unsigned int inner_global, unsigned int inner_base, void* stream) {
-  if (batch <= 0 || heads <= 0 || seq_len <= 0) return cudaErrorInvalidValue;
-  if (dropout != 0 && seed == nullptr) return cudaErrorInvalidValue;
-  if (inner_local == 0) return cudaErrorInvalidValue;
-  const Strides sq{q_sb, q_sh, q_sn}, sk{k_sb, k_sh, k_sn},
-      sv{v_sb, v_sh, v_sn}, sg{g_sb, g_sh, g_sn}, sdq{dq_sb, dq_sh, dq_sn},
-      sdk{dk_sb, dk_sh, dk_sn}, sdv{dv_sb, dv_sh, dv_sn};
-  const Dropout drop{seed,   threshold,   inv_keep,     bh_base,   q_base,
-                     k_base, inner_local, inner_global, inner_base};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch<float, float>(head_dim, dropout != 0, q, k, v, g, lse, delta,
-                               dq, dk, dv, dq_partials, batch, heads, seq_len,
-                               sq, sk, sv, sg, sdq, sdk, sdv, drop, s);
-  } else if (dtype == 1 && dkv_fp32 != 0) {
-    if (dq_partials != nullptr) return cudaErrorInvalidValue;
-    err = launch<__nv_bfloat16, float>(head_dim, dropout != 0, q, k, v, g,
-                                       lse, delta, dq, dk, dv, dq_partials,
-                                       batch, heads, seq_len, sq, sk, sv, sg,
-                                       sdq, sdk, sdv, drop, s);
-  } else if (dtype == 1) {
-    err = launch<__nv_bfloat16, __nv_bfloat16>(
-        head_dim, dropout != 0, q, k, v, g, lse, delta, dq, dk, dv,
-        dq_partials, batch, heads, seq_len, sq, sk, sv, sg, sdq, sdk, sdv,
-        drop, s);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
-}
-
-const char* vtd_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-}  // extern "C"

@@ -4,8 +4,9 @@
 // CuTe are not used.
 //
 //   * cp.async: 16-byte (and 4-byte) asynchronous copies from device memory
-//     into shared memory, zero-filling rows past the sequence end, with
-//     commit_group / wait_group for double buffering;
+//     into shared memory, zero-filling rows past the sequence end and
+//     columns past the head dim, with commit_group / wait_group for double
+//     buffering;
 //   * ldmatrix (.x4, .x4.trans) for bf16 fragments;
 //   * mma.sync.m16n8k16 in bf16 and mma.sync.m16n8k8 in TF32, both with
 //     fp32 accumulation;
@@ -337,11 +338,14 @@ struct Mma<float> {
 };
 
 // out (16 x kN) += A (16 x kK) B: A from kK / 8 accumulator n-tiles,
-// rounded to T, B (kK x kN) from [k][n] storage with row stride ld.
-template <typename T, int kK, int kN>
-__device__ __forceinline__ void mma_acc_kn(float (&out)[kN / 8][4],
+// rounded to T, B (kK x kN) from [k][n] storage with row stride ld; out is
+// the n-tiles kOff.. of an accumulator of kOutTiles (the whole of it by
+// default).
+template <typename T, int kK, int kN, int kOff = 0, int kOutTiles = kN / 8>
+__device__ __forceinline__ void mma_acc_kn(float (&out)[kOutTiles][4],
                                            const float (&a)[kK / 8][4],
                                            const T* b, int ld, int lane) {
+  static_assert(kOff + kN / 8 <= kOutTiles, "output tiles");
   using M = Mma<T>;
 #pragma unroll
   for (int kc = 0; kc < kK / 16; ++kc) {
@@ -351,8 +355,8 @@ __device__ __forceinline__ void mma_acc_kn(float (&out)[kN / 8][4],
     for (int np = 0; np < kN / 16; ++np) {
       typename M::B b0, b1;
       M::load_b_kn(b0, b1, b, ld, 16 * kc, 16 * np, lane);
-      M::mma(out[2 * np], frag, b0);
-      M::mma(out[2 * np + 1], frag, b1);
+      M::mma(out[kOff + 2 * np], frag, b0);
+      M::mma(out[kOff + 2 * np + 1], frag, b1);
     }
   }
 }
@@ -374,8 +378,8 @@ __host__ __device__ constexpr int col_pass() {
 // product is therefore summed in fresh registers and added with one
 // round-to-nearest fp32 add per element; bf16, held to 2e-2, adds in place.
 // The fresh registers cover col_pass<kN>() columns at a time.
-template <typename T, int kK, int kN>
-__device__ __forceinline__ void add_acc_kn(float (&out)[kN / 8][4],
+template <typename T, int kK, int kN, int kOff = 0, int kOutTiles = kN / 8>
+__device__ __forceinline__ void add_acc_kn(float (&out)[kOutTiles][4],
                                            const float (&a)[kK / 8][4],
                                            const T* b, int ld, int lane) {
   if constexpr (Mma<T>::kTileSums) {
@@ -387,35 +391,47 @@ __device__ __forceinline__ void add_acc_kn(float (&out)[kN / 8][4],
 #pragma unroll
       for (int j = 0; j < kCols / 8; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) out[kCols / 8 * c + j][e] += part[j][e];
+        for (int e = 0; e < 4; ++e) {
+          out[kOff + kCols / 8 * c + j][e] += part[j][e];
+        }
       }
     }
   } else {
-    mma_acc_kn<T, kK, kN>(out, a, b, ld, lane);
+    mma_acc_kn<T, kK, kN, kOff, kOutTiles>(out, a, b, ld, lane);
   }
 }
 
-// Rows row0..row0+63 of a (seq_len, D) head slice (row stride in
-// elements) into a shared tile of row stride D + kPad, with 16-byte
-// cp.async copies; rows past seq_len are zero. Not committed here.
+// Rows row0..row0+kRows-1 and columns col0..col0+D-1 of a (seq_len, kdim)
+// head slice (row stride in elements) into a shared tile of row stride
+// D + kPad, with 16-byte cp.async copies. Rows past seq_len and columns
+// past kdim are zero-filled, so the caller's head dim is read as it is:
+// kdim * sizeof(T) is a multiple of 16 (the wrapper checks), so each
+// 16-byte chunk lies wholly inside or wholly past it. Not committed here.
 template <typename T, int D, int kRows, int kThreads>
 __device__ __forceinline__ void load_tile_async(T* dst, const T* src,
                                                 long long row_stride,
                                                 int row0, int seq_len,
+                                                int col0, int kdim,
                                                 int tid) {
   constexpr int kPerChunk = 16 / static_cast<int>(sizeof(T));
   constexpr int kChunksPerRow = D / kPerChunk;
   constexpr int kLd = D + Mma<T>::kPad;
   static_assert((kRows * kChunksPerRow) % kThreads == 0, "tile split");
+  // The limit is read anew at every call: each chunk's column test does
+  // not depend on the tile, and hoisted out of a kernel's loop it would
+  // hold one predicate per chunk for the whole loop, which the 255-register
+  // fp32 instances pay for in spills.
+  int limit;
+  asm volatile("mov.b32 %0, %1;\n" : "=r"(limit) : "r"(kdim - col0));
 #pragma unroll
   for (int i = 0; i < kRows * kChunksPerRow / kThreads; ++i) {
     const int c = tid + i * kThreads;
     const int r = c / kChunksPerRow;
     const int col = (c % kChunksPerRow) * kPerChunk;
     const int row = row0 + r;
-    const bool valid = row < seq_len;
-    cp_async16(dst + r * kLd + col, src + (valid ? row : 0) * row_stride + col,
-               valid);
+    const bool valid = row < seq_len && col < limit;
+    cp_async16(dst + r * kLd + col,
+               src + (valid ? row * row_stride + col0 + col : 0), valid);
   }
 }
 

@@ -12,21 +12,29 @@ Routing is by the device of the tensors, never by a fallback:
   * CPU tensors take the plain versions (``reference_attention``,
     ``reference_attention_lse``, ``reference_attention_backward``), which
     the tests compare with the JAX package;
-  * CUDA tensors launch the kernels in ``csrc/flash_attention_fwd.cu`` and
-    ``csrc/flash_attention_bwd.cu`` (built at first use by
-    ``kernels/_build.py``) through the custom operators
-    ``torch.ops.vtd_torch.flash_attention_{fwd,bwd}`` (kernels/ops.py), or
-    raise;
+  * CUDA tensors launch the kernels (built at first use by
+    ``kernels/_build.py``) through the custom operators of kernels/ops.py,
+    or raise: the forward operator ``torch.ops.vtd_torch.flash_attention_fwd``
+    runs ``csrc/flash_attention_fwd_sm90.cu`` (wgmma fed by TMA) for bf16
+    at K <= 128 and ``csrc/flash_attention_fwd.cu`` (mma.sync) for every
+    other call (``forward_kernel``), and ``flash_attention_bwd`` runs
+    ``csrc/flash_attention_bwd.cu`` (K > 128:
+    ``csrc/flash_attention_bwd_wide.cu``);
   * any other device raises.
 
-The kernels run on the tensor cores (bf16, and fp32 as 3xTF32) with head
-dims of 48, 64 or 128: a smaller K is zero-padded to the next of the
-three, which is exact (ViT-H/14's K = 80 runs the 128-wide instance). A
-CUDA call with K > 128 raises NotImplementedError: the port has no wider
-instance, and it sends no such call to the plain version. They copy q/k/v
-rows 16 bytes at a time, so a view whose rows do not start on 16-byte
-boundaries (or whose head dim is strided) is refused with ValueError,
-never copied; the model's views all qualify.
+The kernels run on the tensor cores (bf16, and fp32 as 3xTF32) at every
+head dim K, as the JAX package does (``head_dim_plan``): K <= 128 on
+instances of width 48, 64 or 128 (the wgmma forward: 64 or 128), K > 128
+on the wide route, which forms the scores over K in 64-column chunks and
+writes the outputs in column windows. They read q, k, v (and the
+cotangent) at their own K: the loads zero-fill the columns past K and the
+stores stop at K. Rows must start on 16-byte boundaries; a K whose rows
+cannot (K * itemsize not a multiple of 16 bytes: bf16 K % 8, fp32 K % 4)
+is zero-padded to the instance's width, which is exact, and each such
+copy is counted in ``flash_attention.operand_copies``. Any other view
+whose rows do not start on 16-byte boundaries (or whose head dim is
+strided) is refused with ValueError, never copied; the model's views all
+qualify.
 
 When q, k or v requires grad, the call goes through
 ``FlashAttentionFunction``: its forward also writes the fp32 logsumexp and
@@ -74,14 +82,21 @@ output.
 from __future__ import annotations
 
 import threading
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 FWD_SOURCE = "flash_attention_fwd.cu"
+SM90_SOURCE = "flash_attention_fwd_sm90.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
-_HEAD_DIMS = (48, 64, 128)   # the kernels' head dims; smaller K is padded
-_ALIGN = 16                  # bytes: cp.async copies move 16 at once
+BWD_WIDE_SOURCE = "flash_attention_bwd_wide.cu"     # B2 at K > 128
+_HEAD_DIMS = (48, 64, 128)   # the mma.sync instances' widths up to K = 128
+_WGMMA_DIMS = (64, 128)      # the wgmma forward's (bf16, K <= 128)
+CHUNK = 64                   # the wide route's S chunk (columns)
+FWD_WINDOW = 128             # its forward output window
+BWD_WINDOW = 64              # its backward output windows (dq, dk, dv)
+_ALIGN = 16                  # bytes: cp.async copies and TMA rows
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KEY_TILE = 64           # keys per tile of the backward kernels
 # The backward's two ways of summing dq over the key tiles in order, and
@@ -308,8 +323,9 @@ class FlashAttentionFunction(torch.autograd.Function):
         else:
             out = reference_attention(q, k, v, layout, dropout, offsets)
             lse = None
-        # Unpadded q/k/v: the backward re-pads them, so a call with a padded
-        # head dim does not hold a padded copy between the passes.
+        # The caller's q/k/v: where their rows cannot be addressed in place
+        # the backward pads them again, so no padded copy is held between
+        # the passes.
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.layout = layout
         ctx.use_kernel = use_kernel
@@ -383,16 +399,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # Kernel launches, one count per kernel wrapper; the plain path adds none.
+# The forward's three route counts cover both forward kernels; the wgmma
+# forward's launches are counted again on their own.
 flash_attention.launches = 0                # forward, no lse, no dropout
 flash_attention.lse_launches = 0            # forward with lse, no dropout
 flash_attention.drop_launches = 0           # forward with dropout
+flash_attention.wgmma_launches = 0          # forward on wgmma (any route)
 flash_attention.backward_launches = 0       # backward, no dropout
 flash_attention.backward_drop_launches = 0  # backward with dropout replay
+# Operands copied because their rows cannot be addressed in place (K
+# padded, or a cotangent view made contiguous); the model's calls make
+# none.
+flash_attention.operand_copies = 0
 
 
-def _count(name: str) -> None:
+def _count(name: str, n: int = 1) -> None:
     with _count_lock:
-        setattr(flash_attention, name, getattr(flash_attention, name) + 1)
+        setattr(flash_attention, name, getattr(flash_attention, name) + n)
 
 
 def _check_inputs(*tensors) -> None:
@@ -407,31 +430,81 @@ def _check_inputs(*tensors) -> None:
             + ", ".join(str(t.dtype) for t in tensors))
     if any(t.device != tensors[0].device for t in tensors):
         raise ValueError("q/k/v must be on one CUDA device")
-    kernel_width(shape[-1])
     if tensors[0].numel() == 0:
         raise ValueError("empty q/k/v")
 
 
-def kernel_width(kdim: int) -> int:
-    """The head dim of the kernel instance that runs K = ``kdim``: the
-    narrowest of ``_HEAD_DIMS`` that holds it. Raises NotImplementedError
-    past the widest (the port has no instance for K > 128)."""
+class HeadDimPlan(NamedTuple):
+    """How the mma.sync kernels run head dim K: ``instance`` is the
+    width of the instance (48, 64, 128) or "wide" (K > 128); ``chunks``
+    the 64-column passes that form S (and dP) over K, 1 on an instance
+    that holds K whole; ``windows`` the forward's output column windows
+    and ``grad_windows`` the backward's (dq, dk, dv), each a grid axis of
+    CTAs that recompute S for their own columns."""
+    instance: object
+    chunks: int
+    windows: int
+    grad_windows: int
+
+
+def head_dim_plan(kdim: int) -> HeadDimPlan:
+    """The plan of the mma.sync forward and the backward at K = ``kdim``
+    (any K >= 1, as the JAX package's Pallas kernels take any K): K <= 48
+    the 48 instance, K <= 64 the 64, K <= 128 the 128; past that the wide
+    route, S over ceil(K / 64) chunks, the forward's output in windows of
+    FWD_WINDOW columns and the backward's in windows of BWD_WINDOW."""
+    if kdim < 1:
+        raise ValueError(f"head dim {kdim} < 1")
     for width in _HEAD_DIMS:
         if kdim <= width:
-            return width
-    raise NotImplementedError(
-        f"head dim {kdim}: the flash kernels have instances of head dims "
-        f"{_HEAD_DIMS} and none wider than {_HEAD_DIMS[-1]}")
+            return HeadDimPlan(width, 1, 1, 1)
+    return HeadDimPlan("wide", -(-kdim // CHUNK), -(-kdim // FWD_WINDOW),
+                       -(-kdim // BWD_WINDOW))
+
+
+def kernel_width(kdim: int) -> int:
+    """The width a head dim of ``kdim`` is zero-padded to when its rows
+    cannot be addressed in place: the instance's (48, 64 or 128) up to
+    K = 128, past that the next multiple of 64 (a whole S chunk)."""
+    instance = head_dim_plan(kdim).instance
+    return instance if instance != "wide" else -(-kdim // CHUNK) * CHUNK
+
+
+def forward_kernel(kdim: int, dtype: torch.dtype) -> str:
+    """Which forward kernel runs a call: "wgmma" (bf16 at K <= 128,
+    csrc/flash_attention_fwd_sm90.cu, instance 64 or 128) or "mma_sync"
+    (fp32 at any K and bf16 past 128, csrc/flash_attention_fwd.cu)."""
+    return ("wgmma" if dtype == torch.bfloat16 and kdim <= _WGMMA_DIMS[-1]
+            else "mma_sync")
 
 
 def _pad_head_dim(t: torch.Tensor) -> torch.Tensor:
-    """Zero-pad the head dim to the kernels' width: K <= 48 to 48, 48 < K
-    <= 64 to 64, 64 < K <= 128 to 128. Exact: padded columns add 0 to q.k
-    and to g.v and give 0 outputs and grads, sliced off afterwards."""
+    """Zero-pad the head dim to ``kernel_width``: K <= 48 to 48, 48 < K
+    <= 64 to 64, 64 < K <= 128 to 128, a wider K to a multiple of 64.
+    Exact: padded columns add 0 to q.k and to g.v and give 0 outputs and
+    grads, sliced off afterwards. The kernel route takes this copy only
+    for rows that cannot be addressed in place (``_needs_copy``)."""
     width = kernel_width(t.shape[-1])
     if t.shape[-1] < width:
         return F.pad(t, (0, width - t.shape[-1]))
     return t
+
+
+def _needs_copy(t: torch.Tensor) -> bool:
+    """Whether t's head dim keeps its rows off 16-byte boundaries (K *
+    itemsize not a multiple of 16), so the kernels read a padded copy."""
+    return (t.shape[-1] * t.element_size()) % _ALIGN != 0
+
+
+def _addressable(tensors):
+    """The tensors as the kernels read them: each whose rows cannot be
+    addressed in place padded (and counted in ``operand_copies``), the
+    rest as they are. Returns (tensors, the caller's K)."""
+    kdim = tensors[0].shape[-1]
+    if not _needs_copy(tensors[0]):
+        return list(tensors), kdim
+    _count("operand_copies", len(tensors))
+    return [_pad_head_dim(t) for t in tensors], kdim
 
 
 def _misalignment(t: torch.Tensor, layout: str):
@@ -455,18 +528,16 @@ def _misalignment(t: torch.Tensor, layout: str):
 
 
 def _kernel_operands(layout: str, **tensors) -> list:
-    """The tensors padded to the kernels' head dim; raises ValueError for
-    one whose rows the kernels cannot read (never copies it)."""
-    padded = []
+    """The tensors as they are; raises ValueError for one whose rows the
+    kernels cannot read (never copies it: the wrappers copy, and count,
+    only what ``_addressable`` names)."""
     for name, t in tensors.items():
-        t = _pad_head_dim(t)
         why = _misalignment(t, layout)
         if why is not None:
             raise ValueError(
                 f"{name} {why}; the flash kernels read 16-byte-aligned rows "
                 "with a unit head-dim stride")
-        padded.append(t)
-    return padded
+    return list(tensors.values())
 
 
 def _axes(t: torch.Tensor, layout: str):
@@ -492,8 +563,9 @@ def _dropout_c_args(dropout, offsets=(0, 0, 0)) -> tuple:
 def _launch_forward(q, k, v, layout: str, with_lse: bool = False,
                     dropout=None, offsets=(0, 0, 0), out_fp32: bool = False,
                     state=None, suspend: bool = False):
-    """One forward launch through ``torch.ops.vtd_torch.flash_attention_fwd``
-    (kernels/ops.py): ``out``, or ``(out, lse)`` with ``with_lse``;
+    """One forward launch through the custom operator (kernels/ops.py),
+    which runs the kernel that ``forward_kernel`` names: ``out``, or
+    ``(out, lse)`` with ``with_lse``;
     ``offsets`` place the dropout mask (``mask_coords``); ``out_fp32``
     takes the kernel's fp32-output instance (out unrounded, whatever the
     input dtype). A ring attention block resumes the online softmax's
@@ -502,8 +574,7 @@ def _launch_forward(q, k, v, layout: str, with_lse: bool = False,
     blocks chained so in key order compute what one launch over all the
     keys computes."""
     _check_inputs(q, k, v)
-    kdim = q.shape[-1]
-    q, k, v = (_pad_head_dim(t) for t in (q, k, v))
+    (q, k, v), kdim = _addressable((q, k, v))
     seed, rate = dropout or (None, 0.0)
     acc_in, m_in, l_in = state if state is not None else (None, None, None)
     out, lse, m, l = torch.ops.vtd_torch.flash_attention_fwd(
@@ -511,7 +582,7 @@ def _launch_forward(q, k, v, layout: str, with_lse: bool = False,
         out_fp32=out_fp32, acc_in=acc_in, m_in=m_in, l_in=l_in,
         suspend=suspend)
     if suspend:
-        return out, m, l          # at the padded width, as the next reads it
+        return out, m, l          # at the width read, as the next reads it
     out = out[..., :kdim] if kdim < out.shape[-1] else out
     return (out, lse) if with_lse else out
 
@@ -555,14 +626,13 @@ def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None,
     dq as the kernel summed it, in fp32, and ``fp32_dkv`` dk and dv (a ring
     attention step adds them to its accumulators before any rounding)."""
     _check_inputs(q, k, v, g)
-    kdim = q.shape[-1]
+    (q, k, v, g), kdim = _addressable((q, k, v, g))
     # The incoming cotangent is whatever view autograd hands over (an
     # expanded tensor, a transpose): it is made contiguous when the kernel
     # could not read it. q, k and v are the caller's and must already fit.
-    g = _pad_head_dim(g)
     if _misalignment(g, layout) is not None:
         g = g.contiguous()
-    q, k, v = (_pad_head_dim(t) for t in (q, k, v))
+        _count("operand_copies")
     (b, h, n), _ = _axes(q, layout)
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.shape != (b, h, n) or t.dtype != torch.float32
@@ -574,5 +644,6 @@ def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None,
     dq, dk, dv = torch.ops.vtd_torch.flash_attention_bwd(
         q, k, v, g, lse, delta, layout, seed, rate, DQ_ROUTES[route],
         *mask_coords(offsets), dkv_fp32=fp32_dkv)
-    dq = dq[..., :kdim]
-    return (dq if fp32_dq else dq.to(q.dtype)), dk[..., :kdim], dv[..., :kdim]
+    if kdim < dq.shape[-1]:
+        dq, dk, dv = dq[..., :kdim], dk[..., :kdim], dv[..., :kdim]
+    return (dq if fp32_dq else dq.to(q.dtype)), dk, dv

@@ -20,9 +20,10 @@ exported program traced on the CPU therefore holds the plain versions and
 no operator.
 
 The operators take what the kernels take: the wrappers check shapes and
-dtypes, pad the flash head dim and pick an instance, the operators make
-the copies a kernel needs (contiguity, 16-byte alignment) and refuse the
-views the flash kernels cannot read. Importing this module (the package
+dtypes, pick the flash forward's kernel and pad a head dim whose rows
+cannot be addressed in place, the operators make the copies a kernel
+needs (contiguity, 16-byte alignment) and refuse the views the flash
+kernels cannot read. Importing this module (the package
 ``kernels`` does) registers every operator; it builds nothing.
 """
 
@@ -42,7 +43,9 @@ NAMESPACE = "vtd_torch"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCES = {
     "fwd": flash_attention.FWD_SOURCE,
+    "fwd_sm90": flash_attention.SM90_SOURCE,
     "bwd": flash_attention.BWD_SOURCE,
+    "bwd_wide": flash_attention.BWD_WIDE_SOURCE,
     "ln": fused_ln.SOURCE,
     "ffn": fused_ffn.SOURCE,
     "int8": quantization.SOURCE,
@@ -65,10 +68,10 @@ def _library(kind: str) -> ctypes.CDLL:
     # the mask's bh/query/key offsets and its batch*head row map, then the
     # stream.
     dropout = [i32, ptr, u32, ctypes.c_float] + [u32] * 6 + [ptr]
-    if kind == "fwd":
-        fn = lib.vtd_flash_attention_fwd
+    if kind in ("fwd", "fwd_sm90"):
+        fn = getattr(lib, "vtd_flash_attention_" + kind)
         fn.argtypes = [ptr] * 10 + [i32] * 6 + [i64] * 12 + dropout
-    elif kind == "bwd":
+    elif kind in ("bwd", "bwd_wide"):
         fn = lib.vtd_flash_attention_bwd
         fn.argtypes = [ptr] * 10 + [i32] * 6 + [i64] * 21 + dropout
     elif kind == "ln":
@@ -129,7 +132,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                    torch.Tensor]:
     """``(out, lse, m, l)`` of softmax(q k^T) v over ``layout``-ordered
-    q/k/v, their head dim already one of the kernel's widths. lse is ``(B,
+    q/k/v at their own head dim K (rows 16-byte aligned). lse is ``(B,
     H, N)`` fp32 with ``with_lse``, else empty; out is in q's dtype, or
     fp32 with ``out_fp32``. A ring attention block (fp32 out) carries the
     online softmax's state: ``acc_in`` (out's shape and strides), ``m_in``
@@ -140,8 +143,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``dropout_seed`` is the one-element device tensor the kernel reads the
     seed from, and ``bh_base``/``q_base``/``k_base`` and the batch*head
     row map ``inner_local``/``inner_global``/``inner_base`` place the mask
-    (flash_attention.mask_coords). One launch of
-    csrc/flash_attention_fwd.cu."""
+    (flash_attention.mask_coords). One launch of the kernel
+    ``flash_attention.forward_kernel`` names: bf16 at K <= 128
+    csrc/flash_attention_fwd_sm90.cu (wgmma fed by TMA), fp32 at any K
+    and bf16 at K > 128 csrc/flash_attention_fwd.cu (mma.sync)."""
     fa = flash_attention
     q, k, v = fa._kernel_operands(layout, q=q, k=k, v=v)
     dropout = _dropout(dropout_seed, dropout_rate, q.device)
@@ -170,9 +175,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l_out = torch.empty((b, h, n, 4) if suspend else (0,),
                         dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, out) for s in fa._axes(t, layout)[1]]
-    lib = _library("fwd")
+    wgmma = fa.forward_kernel(q.shape[-1], q.dtype) == "wgmma"
+    kind = "fwd_sm90" if wgmma else "fwd"
+    lib = _library(kind)
     with torch.cuda.device(q.device):
-        err = lib.vtd_flash_attention_fwd(
+        err = getattr(lib, "vtd_flash_attention_" + kind)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse.numel() else None,
             *((m_in.data_ptr(), l_in.data_ptr(), acc_in.data_ptr()) if resume
@@ -188,6 +195,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.raise_on_error(lib, err, "flash attention forward")
     fa._count("drop_launches" if dropout is not None
               else "lse_launches" if with_lse else "launches")
+    if wgmma:
+        fa._count("wgmma_launches")
     return out, lse, m_out, l_out
 
 
@@ -219,8 +228,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         inner_local: int = 1, inner_global: int = 1,
                         inner_base: int = 0, dkv_fp32: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dq fp32, dk, dv)`` at the padded head dim from the backward
-    kernels (csrc/flash_attention_bwd.cu); lse and delta are contiguous
+    """``(dq fp32, dk, dv)`` at q's head dim K from the backward kernels
+    (csrc/flash_attention_bwd.cu, K > 128 csrc/flash_attention_bwd_wide.cu),
+    K any width whose rows are 16-byte aligned; lse and delta are contiguous
     ``(B, H, N)`` fp32; dq is summed in fp32 over the key tiles in order
     and written once, so it is the same on every run. A nonzero
     ``dropout_rate`` replays the forward's mask, its seed read from
@@ -243,7 +253,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, g, dq, dk, dv)
                for s in fa._axes(t, layout)[1]]
-    lib = _library("bwd")
+    lib = _library("bwd_wide" if fa.head_dim_plan(q.shape[-1]).instance
+                   == "wide" else "bwd")
     with torch.cuda.device(q.device):
         err = lib.vtd_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),

@@ -1,7 +1,7 @@
 """Process groups and multi-process data feeding.
 
 Counterpart of vision_transformer_detector_tpu/parallel/data.py, all six
-functions. Every process is one position of the mesh
+functions, and ``local_store`` for groups of local processes. Every process is one position of the mesh
 (parallel/mesh.py) and loads only its shard of the input: the rows of the
 global batch at its 'data' coordinate (the global batch is the
 concatenation of the shards over 'data', in rank order; the ranks along
@@ -22,6 +22,7 @@ end when every rank is exhausted (a zero-row batch is not exhaustion).
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Iterable, Iterator, Tuple
 
@@ -61,6 +62,27 @@ def rank_device(device="cuda") -> torch.device:
             "CUDA device(s) are visible; start at most one process per "
             "card, or name a device explicitly")
     return torch.device("cuda", index)
+
+
+@contextlib.contextmanager
+def local_store():
+    """``(port, env)`` for a group of processes this process starts on
+    its own host: a TCPStore server on 127.0.0.1, held here while the
+    block runs, at a port the OS picked when binding it, and the
+    environment that makes every rank's ``init_process_group`` (env:// or
+    tcp://127.0.0.1:port) a client of it (torchelastic's agent store)
+    rather than rank 0 binding one. A port found free by binding a socket
+    and letting it go can be taken by another process before rank 0 binds
+    it again; this one is never let go while the group forms."""
+    store = dist.TCPStore(host_name="127.0.0.1", port=0, is_master=True,
+                          wait_for_workers=False)
+    try:
+        yield store.port, {"MASTER_ADDR": "127.0.0.1",
+                           "MASTER_PORT": str(store.port),
+                           "TORCHELASTIC_USE_AGENT_STORE": "True",
+                           "TORCHELASTIC_RESTART_COUNT": "0"}
+    finally:
+        del store
 
 
 def initialize_distributed(coordinator_address=None, num_processes=None,
