@@ -19,7 +19,8 @@ PyTorch version. Phases, one output line each:
                     with nvcc, all at once; ptxas lines of each, and the
                     tensor-core instructions in the SASS (cuobjdump): HMMA
                     of each mma.sync flash template instance and HGMMA of
-                    each instance of the wgmma forward (bf16, head dim 64
+                    each instance of the wgmma forward and of the wgmma
+                    backward's dk/dv and dq kernels (bf16, head dim 64
                     and 128), > 0 in every one; IGMMA / IMMA of
                     the int8 dense's tensor-core kernel and HGMMA / HMMA
                     of the dense+mish's wgmma and mma.sync kernels, > 0;
@@ -52,9 +53,10 @@ PyTorch version. Phases, one output line each:
                     tokens-major and a ragged N; the kernel's mask read
                     back exactly (q = k = 0, v one-hot) for 2,048
                     batch*heads, in fp32 and through the wgmma forward in
-                    bf16; the backward with and without the replay
-                    launched 10 times at (2048, 256, 64) bf16, dq, dk and
-                    dv bit-equal every time; times in turns against the
+                    bf16; the backward with and without the replay and
+                    with fp32 dk/dv launched 10 times at (2048, 256, 64)
+                    bf16 (the wgmma kernels), dq, dk and dv bit-equal
+                    every time; times in turns against the
                     plain versions
                     and scaled_dot_product_attention with dropout_p, and
                     highres_1024 as shipped (forward with lse and backward,
@@ -262,6 +264,12 @@ PyTorch version. Phases, one output line each:
                     graph run, the graph's collective nodes counted, and
                     `vtd-torch train --distributed` for one epoch.
 
+Every bf16 backward at K <= 128 that a phase launches runs the wgmma
+backward (csrc/flash_attention_bwd_sm90.cu): each phase that launches one
+requires its wgmma backward count to equal its backward launches (graph
+nodes by symbol in train_window), and B2_REPEATS launches of each wgmma
+route (plain, replay, fp32 dk/dv) bit-equal.
+
 Then it prints the card's name and power limit (nvidia-smi), one JSON
 line with each kernel's shape, launches, error, times (its own, its plain
 version's and, where one PyTorch call computes the same function, that
@@ -399,8 +407,8 @@ def phase_build():
         dropout, flash_attention as fa, fused_ffn, fused_ln, quantization)
 
     sources = [fa.FWD_SOURCE, fa.SM90_SOURCE, fa.BWD_SOURCE,
-               fa.BWD_WIDE_SOURCE, quantization.SOURCE, fused_ln.SOURCE,
-               fused_ffn.SOURCE, dropout.SOURCE]
+               fa.BWD_SM90_SOURCE, fa.BWD_WIDE_SOURCE, quantization.SOURCE,
+               fused_ln.SOURCE, fused_ffn.SOURCE, dropout.SOURCE]
     tic = time.monotonic()
     _build.load_libraries(sources)
     seconds = round(time.monotonic() - tic, 3)
@@ -412,25 +420,26 @@ def phase_build():
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         list(pool.map(_sass, [_build.library_path(s) for s in sources]))
     # The mma.sync forward: fp32 at head dim 48, 64, 128 and the wide route
-    # in both types, each with and without dropout (10); the backward: both
-    # types at 48, 64, 128, each with and without dropout, for the dk/dv
-    # kernel and the dq kernel ("_dq"), and the partials route in fp32
-    # ("_partials"): 12 + 12 + 6; its wide route the same at one width:
-    # 4 + 4 + 2.
-    instances = {fa.FWD_SOURCE: 10, fa.BWD_SOURCE: 30, fa.BWD_WIDE_SOURCE: 10}
+    # in both types, each with and without dropout (10); the backward: fp32
+    # at 48, 64, 128, each with and without dropout, for the dk/dv kernel,
+    # the dq kernel ("_dq") and the partials route ("_partials"): 6 + 6 +
+    # 6; its wide route both types at one width: 4 + 4 + 2.
+    instances = {fa.FWD_SOURCE: 10, fa.BWD_SOURCE: 18, fa.BWD_WIDE_SOURCE: 10}
     hmma = {source: _tensor_core_instructions(_build.library_path(source))
             for source in instances}
     for source, counts in hmma.items():
         _require(len(counts) == instances[source]
                  and all(n > 0 for n in counts.values()),
                  f"{source}: tensor-core instructions {counts}")
-    # The wgmma forward: bf16 at 64 and 128, with and without dropout, each
-    # on HGMMA.
-    hgmma = _tensor_core_instructions(_build.library_path(fa.SM90_SOURCE),
-                                      "HGMMA")
-    _require(len(hgmma) == 4 and all(n > 0 for n in hgmma.values()),
-             f"{fa.SM90_SOURCE}: HGMMA instructions {hgmma}")
-    hmma[fa.SM90_SOURCE] = hgmma
+    # The wgmma kernels, bf16 at 64 and 128, with and without dropout, each
+    # on HGMMA: the forward (4) and the backward's dk/dv and dq kernels (8).
+    hgmma = {}
+    for source, count in ((fa.SM90_SOURCE, 4), (fa.BWD_SM90_SOURCE, 8)):
+        found = _tensor_core_instructions(_build.library_path(source),
+                                          "HGMMA")
+        _require(len(found) == count and all(n > 0 for n in found.values()),
+                 f"{source}: HGMMA instructions {found}")
+        hgmma[source] = hmma[source] = found
     # The rebuilt dense kernels: wgmma (IGMMA, HGMMA) and mma.sync (HMMA).
     dense = {
         quantization.SOURCE: _kernel_instructions(
@@ -468,9 +477,11 @@ def _tensor_core_instructions(library: str,
     instance in the library's SASS (cuobjdump from nvcc's toolkit), by
     "<type>_d<head dim>[_drop]" ("_wide" for the wide route's kernels),
     "_dq" after the backward's dq kernel's, "_partials" after the dk/dv
-    kernel's that also forms the dq partials (fp32); the wgmma forward's
-    (bf16) by "bf16_d<head dim>[_drop]". The output type is not in the
-    name: a ring block's fp32-output instance counts with its own."""
+    kernel's that also forms the dq partials (fp32); the wgmma kernels'
+    (bf16: ``flash_fwd_sm90_kernel``, ``flash_bwd_sm90_kernel``,
+    ``flash_bwd_dq_sm90_kernel``) by "bf16_d<head dim>[_drop][_dq]". The
+    output type is not in the name: a ring block's fp32-output instance
+    counts with its own."""
     counts, name = {}, None
     for line in _sass(library).splitlines():
         found = re.search(
@@ -612,10 +623,12 @@ B2_UNORDERED_MS = {"fp32_64x1296x40": 1.768, "bf16_2048x256x64": 0.743,
 
 
 def _b2_repeats(q, k, v, g, lse, delta, layout, drop=None,
-                route=None) -> dict:
+                route=None, dkv_fp32=False) -> dict:
     """B2_REPEATS launches of the backward operator on the same inputs,
-    by the dq route the dtype selects or the named one: dq (fp32, as the
-    kernels sum it), dk and dv must be bit-equal to the first launch's."""
+    by the dq route the dtype selects or the named one, dk and dv in fp32
+    with ``dkv_fp32`` (a ring block): dq (fp32, as the kernels sum it), dk
+    and dv must be bit-equal to the first launch's, and every launch run
+    the kernel ``backward_kernel`` names (bf16 at K <= 128: wgmma)."""
     import torch
 
     from vision_transformer_detector_tpu_torch.kernels import (
@@ -625,11 +638,14 @@ def _b2_repeats(q, k, v, g, lse, delta, layout, drop=None,
     # be addressed in place.
     padded, _ = fa._addressable((q, k, v, g))
     seed, rate = drop or (None, 0.0)
+    kernel = fa.backward_kernel(padded[0].shape[-1], q.dtype)
 
     def run():
         return torch.ops.vtd_torch.flash_attention_bwd(
-            *padded, lse, delta, layout, seed, rate, fa.DQ_ROUTES[route])
+            *padded, lse, delta, layout, seed, rate, fa.DQ_ROUTES[route],
+            dkv_fp32=dkv_fp32)
 
+    before = _backward_totals()
     first = run()
     differ = {"dq": 0, "dk": 0, "dv": 0}
     for _ in range(B2_REPEATS - 1):
@@ -639,8 +655,11 @@ def _b2_repeats(q, k, v, g, lse, delta, layout, drop=None,
     _require(not any(differ.values()),
              f"B2 {tuple(q.shape)} {q.dtype} dropout={drop is not None}: "
              f"launches that differ from the first, per gradient: {differ}")
+    _require_backward_kernel(before, kernel == "wgmma",
+                             f"B2 repeats {tuple(q.shape)} {q.dtype}")
     (b, h, n), _ = fa._axes(padded[0], layout)
-    return {"launches": B2_REPEATS, "bit_equal": True,
+    return {"launches": B2_REPEATS, "bit_equal": True, "kernel": kernel,
+            "dkv_fp32": dkv_fp32,
             "route": fa.dq_route(q.dtype, fa.DQ_ROUTES[route],
                                  fa.partials_bytes(b, h, n,
                                                    padded[0].shape[-1]))}
@@ -687,6 +706,7 @@ def phase_kernel_train():
         out, lse = fa.flash_attention(q, k, v, layout=layout, with_lse=True)
         delta = fa._heads_major((g.float() * out.float()).sum(-1),
                                 layout).contiguous()
+        at_start = _backward_totals()
         grads = fa._launch_backward(q, k, v, g, lse, delta, layout)
         torch.cuda.synchronize()
         lse_err = (lse - fa.reference_attention_lse(q, k, layout)
@@ -712,6 +732,9 @@ def phase_kernel_train():
         fn_err = max(_rel_err(a, b) for a, b in zip(fn_grads, auto))
         _require(fn_err <= grad_tol[dtype],
                  f"Function {name}: rel err {fn_err} > {grad_tol[dtype]}")
+        _require_backward_kernel(
+            at_start, fa.backward_kernel(shape[-1], dtype) == "wgmma",
+            f"kernel_train {name}")
         errors[name] = {"lse_abs": lse_err, "bwd_rel": bwd_err,
                         "bwd_abs": abs_err, "function_vs_autograd_rel":
                         fn_err}
@@ -832,6 +855,7 @@ def phase_kernel_drop():
                                       **kw)
         delta = fa._heads_major((g.float() * out.float()).sum(-1),
                                 layout).contiguous()
+        at_start = _backward_totals()
         grads = fa._launch_backward(q, k, v, g, lse, delta, layout, drop)
         torch.cuda.synchronize()
         ref = fa.reference_attention(q, k, v, layout, drop)
@@ -860,6 +884,9 @@ def phase_kernel_drop():
             leaves, g)
         fn_err = max(_rel_err(a, r) for a, r in zip(fn_grads, auto))
         _require(fn_err <= tol[dtype], f"Function {name}: {fn_err}")
+        _require_backward_kernel(
+            at_start, fa.backward_kernel(shape[-1], dtype) == "wgmma",
+            f"kernel_drop {name}")
         errors[name] = {"out_rel": out_err, "out_abs": out_abs,
                         "lse_abs": lse_err,
                         "bwd_rel": bwd_err, "bwd_abs": bwd_abs,
@@ -964,6 +991,9 @@ def phase_kernel_drop():
     delta = (g.float() * out.float()).sum(-1)
     grads = fa._launch_backward(q, k, v, g, lse, delta, "bhnk")
     repeats["bf16_2048x256x64"] = _b2_repeats(q, k, v, g, lse, delta, "bhnk")
+    # The ring block's instance: dk and dv in fp32.
+    repeats["bf16_2048x256x64_dkv_fp32"] = _b2_repeats(
+        q, k, v, g, lse, delta, "bhnk", dkv_fp32=True)
     torch.cuda.synchronize()
     ref = fa.reference_attention(q, k, v, "bhnk")
     plain = fa.reference_attention_backward(q, k, v, g, "bhnk")
@@ -1000,7 +1030,8 @@ def phase_kernel_drop():
                 "bf16_2048x256x64", "bf16_2048x256x64_drop")},
             sdpa_backend=backend.name,
             sdpa_backend_no_dropout=shipped_backend.name)
-    return errors["2048x256x64_bfloat16_bhnk"], times
+    return (dict(errors["2048x256x64_bfloat16_bhnk"],
+                 shipped_bwd_abs=shipped["bwd_abs"]), times)
 
 
 MLP_DROP_SHAPES = ((8, 4096, 2048), (8, 4096, 1024))   # highres_1024 b8
@@ -1368,6 +1399,9 @@ def _counts():
             "flash_copies": fa.flash_attention.operand_copies,
             "flash_bwd": fa.flash_attention.backward_launches,
             "flash_bwd_drop": fa.flash_attention.backward_drop_launches,
+            # Of the two above, the launches of the wgmma backward (bf16,
+            # K <= 128).
+            "flash_bwd_wgmma": fa.flash_attention.wgmma_backward_launches,
             "int8_fused": qz.fused_int8_dense.launches,
             "int8_dense": qz.int8_dense.launches,
             "layer_norm": fused_ln.fused_layer_norm.launches,
@@ -1379,6 +1413,27 @@ def _counts():
             "dense_mish_tc": fused_ffn.fused_dense_mish.tensor_core_launches}
 
 
+def _backward_totals() -> tuple:
+    """(backward launches, of them on the wgmma kernels) so far."""
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa)
+
+    f = fa.flash_attention
+    return (f.backward_launches + f.backward_drop_launches,
+            f.wgmma_backward_launches)
+
+
+def _require_backward_kernel(before: tuple, wgmma: bool, what: str) -> int:
+    """Since ``before`` (``_backward_totals``), backward launches were made
+    and either all (bf16 at K <= 128) or none of them ran the wgmma
+    kernels. Returns the launches."""
+    launched, on_wgmma = (a - b for a, b in zip(_backward_totals(), before))
+    _require(launched > 0 and on_wgmma == (launched if wgmma else 0),
+             f"{what}: {on_wgmma} of {launched} backward launches on the "
+             f"wgmma kernels, expected {'all' if wgmma else 'none'}")
+    return launched
+
+
 def _reset_counts() -> None:
     from vision_transformer_detector_tpu_torch.kernels import (
         dropout as dk, flash_attention as fa, fused_ffn, fused_ln,
@@ -1387,7 +1442,8 @@ def _reset_counts() -> None:
     for fn, names in ((fa.flash_attention,
                        ("launches", "lse_launches", "drop_launches",
                         "wgmma_launches", "backward_launches",
-                        "backward_drop_launches", "operand_copies")),
+                        "backward_drop_launches", "wgmma_backward_launches",
+                        "operand_copies")),
                       (qz.fused_int8_dense,
                        ("launches", "tensor_core_launches")),
                       (qz.int8_dense, ("launches", "tensor_core_launches")),
@@ -2006,6 +2062,7 @@ def phase_train_highres():
                 flash=blocks, flash_drop=2 * blocks * HIGHRES_STEPS,
                 flash_wgmma=blocks + 2 * blocks * HIGHRES_STEPS,
                 flash_bwd_drop=blocks * HIGHRES_STEPS,
+                flash_bwd_wgmma=blocks * HIGHRES_STEPS,
                 mlp_drop=(blocks * (3 * layers - 1) + 2 * head_layers)
                 * HIGHRES_STEPS)
     _require(launches == want, f"fit launched {launches}, expected {want}")
@@ -2054,7 +2111,8 @@ def phase_train_highres():
     shipped_launches = _counts()
     want = dict({name: 0 for name in shipped_launches},
                 flash_lse=blocks + blocks // 2,
-                flash_wgmma=blocks + blocks // 2, flash_bwd=blocks)
+                flash_wgmma=blocks + blocks // 2, flash_bwd=blocks,
+                flash_bwd_wgmma=blocks)
     _require(shipped_launches == want and np.isfinite(shipped_loss.item()),
              f"as shipped: launches {shipped_launches}, expected {want}; "
              f"loss {shipped_loss.item()}")
@@ -2078,7 +2136,7 @@ def phase_train_highres():
             shipped={"remat_policy": "alternate", "dropout": None,
                      "loss": shipped_loss.item(),
                      "launches": shipped_launches})
-    return launches
+    return dict(launches, shipped_flash_bwd=shipped_launches["flash_bwd"])
 
 
 WINDOW_EPOCHS = 12       # train_window (a): epochs of each of the two fits
@@ -2089,16 +2147,18 @@ BF16_STEP_TOL = 2 ** -7  # one bf16 rounding: a step's loss, across paths
 def _graph_kernel_nodes(graphs, tag: str) -> dict:
     """Kernel nodes of each captured train-step graph (debug mode), read
     from its DOT dump: {graph: {fwd, fwd_drop, bwd, bwd_drop, bwd_dq,
-    bwd_dq_drop, bwd_dq_sum, mlp_drop, kernels, replays}}, the flash
-    kernels by symbol (template flag ``Lb1E``: the dropout instance;
-    ``fwd`` either forward kernel, mma.sync or wgmma; ``bwd_dq`` the split
-    route's dq kernel and ``bwd_dq_sum`` the partials route's sum kernel,
-    one of the two beside each ``bwd``), the MLP/head
+    bwd_dq_drop, bwd_dq_sum, bwd_wgmma, mlp_drop, kernels, replays}}, the
+    flash kernels by symbol (template flag ``Lb1E``: the dropout instance;
+    ``fwd`` either forward kernel, mma.sync or wgmma; ``bwd`` either
+    backward's dk/dv kernel, ``bwd_wgmma`` those of them on wgmma
+    (``flash_bwd_sm90_kernel``); ``bwd_dq`` the split or wgmma route's dq
+    kernel and ``bwd_dq_sum`` the partials route's sum kernel, one of the
+    two beside each ``bwd``), the MLP/head
     dropout kernel's, ``kernels`` every kernel node and ``replays`` the
     graph's replays so far."""
     node = re.compile(r'^"(graph_\d+_node_\d+)"\[', re.M)
     symbol = re.compile(
-        r"flash_(fwd|bwd|bwd_dq|bwd_dq_sum)(?:_sm90|_wide)?_kernel"
+        r"flash_(fwd|bwd|bwd_dq|bwd_dq_sum)(_sm90|_wide)?_kernel"
         r"(?:I\w*?(?:L(?:b([01]))E|EE)|E)")
     result = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2111,7 +2171,7 @@ def _graph_kernel_nodes(graphs, tag: str) -> dict:
             starts = [m.start() for m in node.finditer(text)] + [len(text)]
             counts = dict.fromkeys(("fwd", "fwd_drop", "bwd", "bwd_drop",
                                     "bwd_dq", "bwd_dq_drop", "bwd_dq_sum",
-                                    "mlp_drop", "kernels"), 0)
+                                    "bwd_wgmma", "mlp_drop", "kernels"), 0)
             for begin, end in zip(starts, starts[1:]):
                 block = text[begin:end]
                 if "{KERNEL" not in block:
@@ -2121,8 +2181,10 @@ def _graph_kernel_nodes(graphs, tag: str) -> dict:
                 match = symbol.search(block)
                 if match:
                     kind = match.group(1)
-                    counts[kind + ("_drop" if match.group(2) == "1"
+                    counts[kind + ("_drop" if match.group(3) == "1"
                                    else "")] += 1
+                    counts["bwd_wgmma"] += (kind == "bwd"
+                                            and match.group(2) == "_sm90")
             counts["replays"] = step_graph.replays
             # Each backward launches its dk/dv kernel and its dq or sum
             # kernel (the sum kernel has no dropout instance).
@@ -2274,6 +2336,7 @@ def phase_train_window():
     _require(len(ref_nodes) == 1 and all(
         n["fwd"] == n["bwd"] == config.encoder_blocks
         and n["fwd_drop"] == n["bwd_drop"] == n["mlp_drop"] == 0
+        and n["bwd_wgmma"] == 0       # fp32: the mma.sync backward
         for n in ref_nodes.values()),
         f"reference_608 graph flash nodes {ref_nodes}")
     ref_launches = _graph_launches(ref_nodes)
@@ -2374,10 +2437,15 @@ def phase_train_window():
     mlp_per_step = loop_counts["mlp_drop"] // HIGHRES_STEPS
     _require(len(hi_nodes) == 1 and all(
         n["fwd_drop"] == 2 * blocks and n["bwd_drop"] == blocks
+        and n["bwd_wgmma"] == blocks  # bf16, K 64: every B2 on wgmma
         and n["fwd"] == n["bwd"] == 0 and n["mlp_drop"] == mlp_per_step > 0
         for n in hi_nodes.values()),
         f"highres_1024 graph dropout nodes {hi_nodes} (the loop's MLP "
         f"dropout launches per step: {mlp_per_step})")
+    _require(all(c["flash_bwd_wgmma"] == c["flash_bwd"] + c["flash_bwd_drop"]
+                 > 0 for c in (graph_counts, loop_counts)),
+             f"highres_1024: backward launches off wgmma, at the graph's "
+             f"capture {graph_counts}, in the loop {loop_counts}")
     hi_launches = _graph_launches(hi_nodes)
     _require(hi_launches["fwd_drop"] == 2 * blocks * HIGHRES_STEPS
              and hi_launches["bwd_drop"] == blocks * HIGHRES_STEPS
@@ -2468,6 +2536,14 @@ def phase_train_window():
              f"alternate remat: graph {graph.loss_record} vs loop "
              f"{loop.loss_record}")
     alt_nodes = _graph_kernel_nodes(graph.multi_step.graphs, "alternate")
+    # The fp32 accumulation graphs' B2 nodes on mma.sync, the bf16
+    # alternate-remat graph's on wgmma.
+    _require(all(n["bwd_wgmma"] == 0 < n["bwd"] + n["bwd_drop"]
+                 for n in acc_nodes.values())
+             and all(n["bwd_wgmma"] == n["bwd"] + n["bwd_drop"] > 0
+                     for n in alt_nodes.values()),
+             f"accumulate / alternate graphs: a B2 node on the wrong "
+             f"kernel {acc_nodes} {alt_nodes}")
     window_e = {"remat_policy": "alternate", "blocks": 2,
                 "losses": {"graph": graph.loss_record,
                            "loop": loop.loss_record},
@@ -2824,6 +2900,7 @@ def phase_lifecycle():
                  f"train: loss {trained['final_loss']}")
         _require(train_counts["flash_lse"] == 12 * steps
                  and train_counts["flash_bwd"] == 12 * steps
+                 and train_counts["flash_bwd_wgmma"] == 12 * steps
                  and train_counts["dense_mish"] == 27 * steps,
                  f"train: {steps} steps launched {train_counts}")
         # Training keeps the differentiable LayerNorm (the kernel has no
@@ -3579,6 +3656,7 @@ def _worker_ring(mesh, rank: int) -> dict:
             return out, torch.autograd.grad(out, leaves,
                                             g[:, mine].contiguous())
 
+        at_start = _backward_totals()
         out, grads = ring_call()
         got = (out.detach(), *grads)
         # dk/dv of this rank's keys: its slice of the whole-sequence grads.
@@ -3586,7 +3664,15 @@ def _worker_ring(mesh, rank: int) -> dict:
                            _plain_attention_grads(q, k, v, g, drop)],
                  "whole": [t[:, mine] for t in
                            _whole_sequence(q, k, v, g, drop)]}
-        entry = {"shape": list(shape), "ring": ring, "ok": True}
+        # The ring's B2 blocks and the whole-sequence backward: bf16 on
+        # the wgmma kernels, fp32 on mma.sync.
+        launched, on_wgmma = (a - b for a, b in zip(_backward_totals(),
+                                                    at_start))
+        entry = {"shape": list(shape), "ring": ring,
+                 "backward_launches": launched,
+                 "wgmma_backward_launches": on_wgmma,
+                 "ok": launched > 0 and on_wgmma == (
+                     launched if dtype == torch.bfloat16 else 0)}
         for against, want in wants.items():
             abs_errs = {name: float((a.float() - b.float()).abs().max())
                         for name, a, b in zip(names, got, want)}
@@ -3781,6 +3867,7 @@ def _worker_highres_ring(mesh, rank: int) -> dict:
     result = {"losses": losses, "peak_gib": peak,
               "ring_lse_launches": counts["flash_lse"],
               "ring_bwd_launches": counts["flash_bwd"],
+              "ring_bwd_wgmma_launches": counts["flash_bwd_wgmma"],
               "ring_lse_per_step": counts["flash_lse"] / PARALLEL_STEPS,
               "ring_bwd_per_step": counts["flash_bwd"] / PARALLEL_STEPS,
               "other_launches": {k: c for k, c in counts.items()
@@ -4374,9 +4461,13 @@ def phase_parallel() -> dict:
     import torch
 
     tic = time.monotonic()
+    # bf16 at K = 64 throughout: every backward on the wgmma kernels.
+    at_start = _backward_totals()
     offsets = _offsets_at_the_kernel()
     maps, mapped = _maps_at_the_kernel()
     block_times = _ring_block_times()
+    _require_backward_kernel(at_start, True,
+                             "parallel (a), (f) and the ring's blocks")
     # The workers share this card: hand back what this process caches.
     torch.cuda.empty_cache()
     workers = _run_parallel_workers(
@@ -4423,12 +4514,20 @@ def phase_parallel() -> dict:
         _require(h["ring_lse_launches"] > 0 and h["ring_bwd_launches"] > 0,
                  f"parallel (d) rank {rank}: the ring launched no kernel "
                  f"{h}")
+        _require(h["ring_bwd_wgmma_launches"] == h["ring_bwd_launches"]
+                 + h["other_launches"].get("flash_bwd_drop", 0),
+                 f"parallel (d) rank {rank}: a B2 block off wgmma {h}")
         for task in ("highres_tp", "highres_sp"):
             launched = result[task]["launches"]
             _require(all(launched.get(k, 0) > 0 for k in
                          ("flash_drop", "flash_bwd_drop", "mlp_drop")),
                      f"parallel {task} rank {rank}: a kernel of the path "
                      f"was not launched {launched}")
+            _require(launched.get("flash_bwd_wgmma", 0)
+                     == launched.get("flash_bwd", 0)
+                     + launched["flash_bwd_drop"],
+                     f"parallel {task} rank {rank}: a backward off wgmma "
+                     f"{launched}")
     nccl = _nccl_group_of_one()
     _report("parallel", offsets=offsets, maps=maps,
             ring_block_times=block_times, nccl_group_of_one=nccl,
@@ -4549,6 +4648,7 @@ def _wide_kernels() -> dict:
                                         layout).contiguous()
                 routes = ((None, "split", "partials")
                           if dtype == torch.float32 else (None,))
+                at_bwd = _backward_totals()
                 for route in routes:
                     grads = fa._launch_backward(q, k, v, g, lse, delta,
                                                 layout, route=route)
@@ -4586,6 +4686,10 @@ def _wide_kernels() -> dict:
                     err["bwd_fp32_dkv_rel"] = max(
                         _rel_err(a, b) for a, b in zip(f_grads, f_plain))
                 torch.cuda.synchronize()
+                # bf16 at K <= 128: every route on the wgmma backward.
+                _require_backward_kernel(
+                    at_bwd, fa.backward_kernel(kd, dtype) == "wgmma",
+                    f"wide_heads {name}")
                 for key, value in err.items():
                     if key == "bwd_abs":     # reported; held relative
                         continue
@@ -4667,7 +4771,7 @@ def _flash_call_kernels(gen) -> dict:
     ViT-H/14's (8, 256, 16, 80) in bf16 and at K = 128 (a width that never
     padded), by name from torch.profiler, and the operand copies counted:
     at K = 80 the forward launches the wgmma kernel alone and the backward
-    what K = 128's does (its two kernels and dq's cast), with no padding
+    what K = 128's does (its two wgmma kernels and dq's cast), with no padding
     or slicing kernel and no copy. The profiler must see K = 128's
     kernels, so that an empty K = 80 list cannot pass for no copy."""
     import torch
@@ -4707,7 +4811,8 @@ def _flash_call_kernels(gen) -> dict:
     _require(len(fwd) == 1 and "flash_fwd_sm90" in fwd[0],
              f"K 80 forward launched {fwd}")
     _require(len(bwd) == len(seen["K128_bwd"]) == 3
-             and sum("flash_bwd" in n for n in bwd) == 2,
+             and all(sum("flash_bwd" in n and "_sm90" in n for n in names)
+                     == 2 for names in (bwd, seen["K128_bwd"])),
              f"K 80 backward launched {bwd}, K 128 {seen['K128_bwd']}")
     return seen
 
@@ -5012,7 +5117,8 @@ def _wide_train(config) -> dict:
     want = dict({name: 0 for name in launches},
                 flash_lse=blocks * WIDE_STEPS,
                 flash_wgmma=blocks * WIDE_STEPS,
-                flash_bwd=blocks * WIDE_STEPS)
+                flash_bwd=blocks * WIDE_STEPS,
+                flash_bwd_wgmma=blocks * WIDE_STEPS)
     _require(launches == want, f"wide_heads fit launched {launches}, "
              f"expected {want}")
     losses = trainer.loss_record
@@ -5159,8 +5265,8 @@ def _entry(name, source, replaces, shape, launches, err, times, work):
 
 def _wide_entries(wide: dict, hgmma: dict) -> list:
     """The ViT-H/14-width rows (wide_heads): B1 (wgmma, instance 128) at
-    the service's batch 32, B1-lse (wgmma) and B2 (mma.sync, 128-wide
-    instance) at the train step's batch 8, each shape (B * 16, 256, 80)
+    the service's batch 32, B1-lse and B2 (wgmma, instance 128) at the
+    train step's batch 8, each shape (B * 16, 256, 80)
     bf16 read at K = 80, with the launches of (c) and (d) and the errors
     against the plain versions measured at that shape (B1-lse's is its
     lse's, as for the 64-wide row; B2's the largest of dq, dk, dv); then
@@ -5180,14 +5286,13 @@ def _wide_entries(wide: dict, hgmma: dict) -> list:
         t = times[key][what]
         errors = times[key]["errors"]
         bh, n, kd = (int(x) for x in key.split("x"))
+        source = ("flash_attention_bwd_sm90.cu" if what == "bwd"
+                  else "flash_attention_fwd_sm90.cu")
         rows.append({
-            "name": name, "route": "cuda",
-            "source": CSRC + ("flash_attention_bwd.cu" if what == "bwd"
-                              else "flash_attention_fwd_sm90.cu"),
+            "name": name, "route": "cuda", "source": CSRC + source,
             "replaces": TPU_KERNELS + replaces,
             "shape": [bh, n, kd, "bfloat16"],
-            "kernel": ("mma.sync, instance 128" if what == "bwd"
-                       else "wgmma + TMA, instance 128"),
+            "kernel": "wgmma + TMA, instance 128",
             "launches": launches, "max_abs_err": errors[err],
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
@@ -5198,9 +5303,9 @@ def _wide_entries(wide: dict, hgmma: dict) -> list:
             "times_2048x256x128": dict(
                 times["2048x256x128"][what],
                 max_abs_err=times["2048x256x128"]["errors"][err])})
-        if what != "bwd":
-            rows[-1]["tensor_core_instructions"] = {
-                k: v for k, v in hgmma.items() if k.startswith("bf16_d128")}
+        rows[-1]["tensor_core_instructions"] = {
+            k: v for k, v in hgmma[source].items()
+            if k.startswith("bf16_d128")}
     for name, what, replaces, err in (
             ("flash_attention_fwd_lse_wide", "fwd_lse",
              "flash_attention.py:653", "lse"),
@@ -5249,11 +5354,15 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
     (``*_sharded``: launches of both processes of (g)); the 128-wide
     instance's B1, B1-lse and B2 (``*_d128``, wide_heads) and the wide
     route's B1-lse and B2 (``*_wide``), and the walkthrough's launches
-    (``launches_walkthrough``). The bf16 forward rows are the wgmma kernel
-    (csrc/flash_attention_fwd_sm90.cu), each with its instances' HGMMA
-    counts (``tensor_core_instructions``)."""
-    sm90 = "flash_attention_fwd_sm90.cu"
-    d64 = {k: v for k, v in hgmma.items() if k.startswith("bf16_d64")}
+    (``launches_walkthrough``). The bf16 rows are the wgmma kernels
+    (csrc/flash_attention_fwd_sm90.cu, csrc/flash_attention_bwd_sm90.cu),
+    each with its instances' HGMMA counts (``tensor_core_instructions``);
+    ``flash_attention_bwd_bf16`` is highres_1024's B2 as shipped (no
+    dropout)."""
+    sm90, bwd90 = "flash_attention_fwd_sm90.cu", "flash_attention_bwd_sm90.cu"
+    # phase_build's HGMMA counts, by source.
+    d64, bwd_d64 = ({k: v for k, v in hgmma[source].items()
+                     if k.startswith("bf16_d64")} for source in (sm90, bwd90))
     bh, n, k = 12, 576, 64                     # vit_b16_384, batch 1
     flash_bytes = 4 * bh * n * k * 2
     tbh, tn, tk = 64, 1296, 40                 # reference_608, batch 8
@@ -5299,8 +5408,21 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
                     train_times["bwd"],
                     (10 * tbh * tn * tn * tk, 7 * qkv + 2 * tbh * tn * 4,
                      "3xtf32")),
+             kernel="mma.sync, 3xTF32 (fp32); bf16 at K <= 128 runs "
+                    "flash_attention_bwd_sm90.cu (flash_attention_bwd_bf16)",
              launches_graph=graph["flash_bwd"],
              launches_walkthrough=walked["backward"]),
+        # q, k, v, g read and dk, dv written (bf16), lse and delta read and
+        # dq written (fp32).
+        dict(_entry("flash_attention_bwd_bf16", bwd90,
+                    "flash_attention.py:151", [hbh, hn, hk, "bfloat16"],
+                    launches["flash_bwd_shipped"],
+                    drop_errors["shipped_bwd_abs"], drop_times["bwd"],
+                    (10 * hbh * hn * hn * hk,
+                     6 * hqkv + 2 * hqkv + 2 * hbh * hn * 4, "bf16")),
+             kernel="wgmma + TMA, instance 64: a dk/dv and a dq kernel",
+             tensor_core_instructions=bwd_d64,
+             launch_source="train_highres (f), one step as shipped"),
         *_wide_entries(wide_heads, hgmma),
         # q, k, v read, out written (bf16), lse written (fp32).
         dict(_entry("flash_attention_fwd_drop", sm90,
@@ -5315,13 +5437,18 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
              launches_graph=graph["flash_drop"]),
         # q, k, v, g read and dk, dv written (bf16), lse and delta read and
         # dq written (fp32).
-        dict(_entry("flash_attention_bwd_drop", "flash_attention_bwd.cu",
+        dict(_entry("flash_attention_bwd_drop", bwd90,
                     "flash_attention.py:151",
                     [hbh, hn, hk, "bfloat16", DROP_RATE],
                     launches["flash_bwd_drop"], drop_errors["bwd_abs"],
                     drop_times["bwd_drop"],
                     (10 * hbh * hn * hn * hk,
                      6 * hqkv + 2 * hqkv + 2 * hbh * hn * 4, "bf16")),
+             kernel="wgmma + TMA, instance 64: the dk/dv kernel hashes each "
+                    "score once and packs the keep bits, the dq kernel "
+                    "reads them",
+             tensor_core_instructions=bwd_d64,
+             wgmma_backward_launches=launches["flash_bwd_wgmma"],
              launches_graph=graph["flash_bwd_drop"]),
         # x read and out written (bf16), the seed read; about 12 integer
         # operations of the hash per element, counted at the fp32 rate.
@@ -5411,7 +5538,7 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
              "exchange staged through the host over gloo on one card"),
         # Its backward (B2): local q and g read (bf16), dq written (fp32);
         # all of k and v read and their dk, dv written; lse and delta read.
-        dict(_entry("ring_attention_bwd", "flash_attention_bwd.cu",
+        dict(_entry("ring_attention_bwd", bwd90,
                     "vision_transformer_detector_tpu/kernels/"
                     "ring_attention.py:34",
                     [rb, local, rh, rk, "bfloat16", "R=2"],
@@ -5419,7 +5546,7 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
                     ring["times"]["bwd"],
                     (10 * rb * rh * local * rn * rk,
                      4 * ring_q + 4 * ring_kv + 2 * ring_lse, "bf16")),
-             kernel="B2, one launch per ring step",
+             kernel="B2 on wgmma, fp32 dk/dv, one launch per ring step",
              ring_host_ms=ring["host_ms"]["bwd_host_ms"],
              ring_host_clock="the whole ring backward, host clock, the "
              "exchange staged through the host over gloo on one card"),
@@ -5437,13 +5564,13 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
                     "h0 W)",
              launch_source="both processes of (g), tensor parallelism"),
         dict(_entry("flash_attention_bwd_drop_sharded",
-                    "flash_attention_bwd.cu", "flash_attention.py:151",
+                    bwd90, "flash_attention.py:151",
                     [*mapped["rank_shape"], "bfloat16", DROP_RATE],
                     mapped["launches"]["flash_bwd_drop"],
                     mapped["errors"]["bwd"], mapped["times"]["bwd"],
                     (10 * mbh * mt * mt * mk,
                      6 * mqkv + 2 * mqkv + 2 * mbh * mt * 4, "bf16")),
-             kernel="B2-replay, the batch*head map",
+             kernel="B2-replay on wgmma, the batch*head map",
              launch_source="both processes of (g), tensor parallelism"),
         # A tensor-parallel rank's column half of highres_1024's first
         # pyramid activation at batch 2: x read, out written (bf16).
@@ -5528,6 +5655,8 @@ def main() -> int:
                 "flash_bwd": train_launches["bwd"],
                 "flash_drop": highres_launches["flash_drop"],
                 "flash_bwd_drop": highres_launches["flash_bwd_drop"],
+                "flash_bwd_wgmma": highres_launches["flash_bwd_wgmma"],
+                "flash_bwd_shipped": highres_launches["shipped_flash_bwd"],
                 "int8_fused": int8_launches["int8_fused"],
                 "int8_dense": int8_launches["int8_dense"],
                 "layer_norm": int8_launches["layer_norm"],

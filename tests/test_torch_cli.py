@@ -434,7 +434,8 @@ def test_doctor_without_a_card_exits_1(capsys):
     assert set(report["native"]["kernels"]) == {
         "flash_attention_fwd.cu", "flash_attention_fwd_sm90.cu",
         "flash_attention_bwd.cu", "flash_attention_bwd_wide.cu",
-        "layer_norm.cu", "dense_mish.cu", "int8_dense.cu", "dropout.cu"}
+        "flash_attention_bwd_sm90.cu", "layer_norm.cu", "dense_mish.cu",
+        "int8_dense.cu", "dropout.cu"}
     assert all(report["native"][k] is True for k in ("coco_json", "pipeline",
                                                       "coco_eval"))
     assert report["native"]["host_cores"] == {

@@ -21,7 +21,7 @@ from vision_transformer_detector_tpu_torch import (
     DetectorConfig, LossConfig, synthetic_batches)
 from vision_transformer_detector_tpu_torch.kernels import (
     dropout as dropout_kernel, flash_attention as fa, fused_ffn, fused_ln,
-    quantization as qz)
+    ops as kernel_ops, quantization as qz)
 from vision_transformer_detector_tpu_torch.metrics import (
     DeviceMeanAveragePrecision, MeanAveragePrecision)
 from vision_transformer_detector_tpu_torch.models import vit_detector as model
@@ -1375,6 +1375,78 @@ def test_wgmma_forward_matches_plain(gen, route, kd):
             fa.flash_attention.operand_copies - before[1]) == (launched, 0)
     assert out.shape == q.shape
     assert (out.float() - want.float()).abs().max() <= TOLS[torch.bfloat16]
+
+
+B2_REPEATS = 10   # launches of each wgmma backward route on one input
+
+
+@pytest.mark.parametrize("route", ("plain", "replay", "dkv_fp32"))
+@pytest.mark.parametrize("layout,shape,strided", [
+    ("bnhk", (2, 203, 3, 40), False),   # tokens-major, ragged N
+    ("bhnk", (2, 3, 256, 64), True),    # heads-major views of wider rows
+    ("bnhk", (1, 130, 2, 80), True),    # the 128 instance, ragged N
+    ("bhnk", (2, 2, 77, 128), False),
+])
+def test_wgmma_backward_matches_plain(gen, route, layout, shape, strided):
+    """Every bf16 backward route at K <= 128 (plain, the dropout replay
+    with batch*head, query and key offsets and a row map, and fp32 dk/dv)
+    runs the wgmma kernels (their own count) at the caller's K with no
+    copy, in both layouts and on strided views: B2_REPEATS launches
+    bit-equal, within the bf16 tolerance of the plain version; the
+    replay's packed keep words equal ``pack_keep_bits`` of the mask at the
+    same coordinates; fp32 dk and dv round to the bf16 route's bit for
+    bit."""
+    kd = shape[-1]
+    b, n, h = ((shape[0], shape[2], shape[1]) if layout == "bhnk"
+               else shape[:3])
+    pad = 8 if strided else 0
+
+    def operand(scale=1.0):
+        # Tokens-major memory, rows pad elements wider than K when strided.
+        t = (torch.randn(b, n, h, kd + pad, device="cuda", generator=gen)
+             .mul(scale).to(torch.bfloat16)[..., :kd])
+        return t.transpose(1, 2) if layout == "bhnk" else t
+
+    q, k, v, g = operand(kd ** -0.5), operand(), operand(), operand()
+    offsets = fa.mask_coords((5, 7, 3, 2, 4, 1))
+    drop = ((fa.seed_tensor(2 ** 32 - 7, "cuda"), 0.1) if route == "replay"
+            else None)
+    seed, rate = drop or (None, 0.0)
+    out, lse = fa._launch_forward(q, k, v, layout, with_lse=True,
+                                  dropout=drop, offsets=offsets)
+    delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                            layout).contiguous()
+    before = (fa.flash_attention.wgmma_backward_launches,
+              fa.flash_attention.operand_copies)
+    runs = [kernel_ops.backward_launch(q, k, v, g, lse, delta, layout, seed,
+                                       rate, 0, *offsets,
+                                       dkv_fp32=route == "dkv_fp32")
+            for _ in range(B2_REPEATS)]
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.wgmma_backward_launches - before[0],
+            fa.flash_attention.operand_copies - before[1]) == (B2_REPEATS, 0)
+    for again in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0][:3], again[:3]))
+    dq, dk, dv, words = runs[0]
+    assert dq.dtype == torch.float32 and dq.shape == q.shape
+    assert dk.dtype == dv.dtype == (torch.float32 if route == "dkv_fp32"
+                                    else torch.bfloat16)
+    plain = fa.reference_attention_backward(q, k, v, g, layout, drop,
+                                            offsets)
+    assert max(_grad_rels((dq, dk, dv), plain)) <= GRAD_TOLS[torch.bfloat16]
+    if route == "replay":
+        keep = fa._dropout_scale(drop, b, h, n, "cuda", offsets) > 0
+        assert words.shape == fa.keep_bits_shape(b, h, n)
+        assert torch.equal(words.to(torch.int64) & 0xFFFFFFFF,
+                           fa.pack_keep_bits(keep))
+    else:
+        assert words is None
+    if route == "dkv_fp32":
+        rounded = kernel_ops.backward_launch(q, k, v, g, lse, delta, layout,
+                                             None, 0.0, 0, *offsets)
+        assert torch.equal(dk.to(torch.bfloat16), rounded[1])
+        assert torch.equal(dv.to(torch.bfloat16), rounded[2])
+        assert torch.equal(dq, rounded[0])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

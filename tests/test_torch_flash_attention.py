@@ -317,6 +317,109 @@ def test_forward_kernel_by_dtype_and_head_dim(dtype, kdim, kernel):
     assert fa.forward_kernel(kdim, dtype) == kernel
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kdim", [1, 40, 48, 64, 65, 80, 128, 129, 256])
+def test_backward_kernel_by_dtype_and_head_dim(dtype, kdim):
+    """At the width the wrapper reads K at (a K whose rows are off 16
+    bytes padded first), bf16 at K <= 128 runs the wgmma backward, fp32
+    there the mma.sync one, and both past 128 the wide route."""
+    (read,), _ = fa._addressable([torch.zeros(1, 2, 1, kdim, dtype=dtype)])
+    want = ("wide" if kdim > 128
+            else "wgmma" if dtype == torch.bfloat16 else "mma_sync")
+    assert fa.backward_kernel(read.shape[-1], dtype) == want
+    assert (want == "wide") == (fa.head_dim_plan(kdim).instance == "wide")
+
+
+@pytest.mark.parametrize("dtype,dkv_fp32", [(torch.float32, False),
+                                            (torch.bfloat16, False),
+                                            (torch.bfloat16, True)])
+@pytest.mark.parametrize("kdim", [40, 64, 80, 128, 192])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("layout", ["bnhk", "bhnk"])
+def test_backward_operator_fake_shapes_every_route(dtype, dkv_fp32, kdim,
+                                                   rate, layout):
+    """The backward operator's fake implementation (what torch.export
+    traces) gives, for every route the real one launches (wgmma, mma.sync,
+    wide; with and without the replay; fp32 dk/dv), dq in fp32 with q's
+    shape and dk, dv with k's and v's shapes, strides and dtype (fp32 with
+    ``dkv_fp32``), as it did before the wgmma backward, which allocates
+    its keep bits inside the operator and returns nothing more."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    b, n, h = 2, 77, 3
+    with FakeTensorMode():
+        memory = torch.empty(b, n, h, kdim, dtype=dtype)
+        q = k = v = g = (memory.transpose(1, 2) if layout == "bhnk"
+                         else memory)
+        lse = torch.empty(b, h, n)
+        seed = torch.empty(1, dtype=torch.uint32) if rate else None
+        dq, dk, dv = torch.ops.vtd_torch.flash_attention_bwd(
+            q, k, v, g, lse, lse, layout, seed, rate, 0,
+            dkv_fp32=dkv_fp32)
+        for got, like, want_dtype in (
+                (dq, q, torch.float32),
+                (dk, k, torch.float32 if dkv_fp32 else dtype),
+                (dv, v, torch.float32 if dkv_fp32 else dtype)):
+            assert got.shape == like.shape and got.dtype == want_dtype
+        assert dk.stride() == k.stride() and dv.stride() == v.stride()
+        assert dq.is_contiguous()
+
+
+def _unpack_keep_bits(words, b, h, n, m):
+    """The (b, h, n, m) boolean mask of packed keep words (B*H, ceil(m /
+    32), n): bit i of word w of query q is key 32w + i."""
+    shifts = torch.arange(fa.KEEP_WORD_KEYS)
+    bits = (words.transpose(1, 2)[..., None] >> shifts) & 1
+    return bits.reshape(b, h, n, -1)[..., :m].bool()
+
+
+def test_packed_keep_bits_layout():
+    """One kept score at a time lands on its word and bit: query q, key
+    32w + i is bit i of word w of q's row, words past the last key 0."""
+    b, h, n = 1, 2, 70
+    for bh, q, key in ((0, 0, 0), (1, 5, 31), (1, 69, 32), (0, 3, 69)):
+        keep = torch.zeros(b * h, n, n, dtype=torch.bool)
+        keep[bh, q, key] = True
+        words = fa.pack_keep_bits(keep.reshape(b, h, n, n))
+        assert words.shape == fa.keep_bits_shape(b, h, n) == (2, 3, 70)
+        want = torch.zeros_like(words)
+        want[bh, key // 32, q] = 1 << (key % 32)
+        assert torch.equal(words, want)
+
+
+@pytest.mark.parametrize("layout,shape,offsets", [
+    ("bnhk", (2, 77, 3, 40), (0, 0, 0)),                # ragged N
+    ("bhnk", (1, 4, 64, 16), (5, 7, 3, 2, 4, 1)),       # offsets, row map
+    ("bnhk", (2, 1, 2, 8), (0, 0, 0)),                  # one key
+    ("bhnk", (1, 2, 130, 8), (9, 0, 130, 1, 1, 0)),     # a ring block
+])
+def test_packed_keep_bits_replay_the_hashed_mask(monkeypatch, layout, shape,
+                                                 offsets):
+    """The words that ``pack_keep_bits`` builds from ``dropout_keep_mask``
+    (the layout the wgmma backward's dk/dv kernel writes and its dq kernel
+    reads), unpacked again, are the hashed mask bit for bit, and give the
+    same ``reference_attention_backward`` gradients (fp32, bit-equal) as
+    the hashed mask, at the mask's global coordinates."""
+    q, k, v = (torch.from_numpy(t) for t in _qkv(shape, seed=21))
+    g = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        shape).astype(np.float32))
+    drop = (2 ** 32 - 3, 0.1)
+    b, h, n = ((shape[0], shape[1], shape[2]) if layout == "bhnk"
+               else (shape[0], shape[2], shape[1]))
+    hashed = fa._dropout_scale(drop, b, h, n, "cpu", offsets)
+    words = fa.pack_keep_bits(hashed > 0)
+    assert words.shape == fa.keep_bits_shape(b, h, n)
+    assert int(words.min()) >= 0 and int(words.max()) < 2 ** 32
+    unpacked = _unpack_keep_bits(words, b, h, n, n)
+    assert torch.equal(unpacked, hashed > 0)
+    want = fa.reference_attention_backward(q, k, v, g, layout, drop, offsets)
+    scale = torch.where(unpacked, 1.0 / (1.0 - drop[1]), 0.0).float()
+    monkeypatch.setattr(fa, "_dropout_scale", lambda *args, **kw: scale)
+    got = fa.reference_attention_backward(q, k, v, g, layout, drop, offsets)
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
+
+
 @pytest.mark.parametrize("layout,shape", [("bnhk", (2, 37, 3, 40)),
                                           ("bhnk", (1, 2, 70, 8))])
 def test_padding_to_48_is_exact_through_the_plain_versions(layout, shape):

@@ -1,7 +1,9 @@
 // Flash-attention backward for Hopper (sm_90a) on the tensor cores, bound to
 // Python through a plain C interface (kernels/ops.py loads it with ctypes):
-// head dims K <= 128 here, K > 128 in flash_attention_bwd_wide.cu, which
-// shares this file's contract and flash_bwd_common.cuh.
+// fp32 at head dims K <= 128 here, K > 128 in flash_attention_bwd_wide.cu,
+// which shares this file's contract and flash_bwd_common.cuh; bf16 at
+// K <= 128 runs on wgmma in flash_attention_bwd_sm90.cu (the templates
+// below still take bf16, but only fp32 instances are built).
 //
 // Replaces the Pallas TPU kernel `_fused_bwd_kernel` in
 // vision_transformer_detector_tpu/kernels/flash_attention.py (launched by
@@ -23,15 +25,10 @@
 // where delta = rowsum(g * out) of the DROPPED output, which equals
 // rowsum(p * scale * (g v^T)), the chunked backward's correction.
 //
-// What bounds it (one H100 SXM: 989 TFLOP/s bf16, 495 TF32, 3.35 TB/s):
-//   * highres_1024 training, (B*H, N, K) = (2048, 256, 64) bf16, with or
-//     without the dropout replay: five products, 10 * 2048 * 256^2 * 64 =
-//     85.9 GFLOP, on 541 MB (q, k, v, g read and dk, dv written in bf16, dq
-//     written and lse, delta read in fp32), 159 FLOP per byte: below the
-//     bf16 ridge (about 295), bound by bytes at 0.162 ms;
-//   * reference_608 training, (64, 1296, 40) fp32: 43.0 GFLOP (K = 40) on
-//     94 MB, done as 3xTF32: bound by operations at 3 * 43.0 G / 495 T =
-//     0.26 ms.
+// What bounds it (one H100 SXM: 495 TFLOP/s TF32, 3.35 TB/s):
+// reference_608 training, (64, 1296, 40) fp32: 43.0 GFLOP (K = 40) on
+// 94 MB, done as 3xTF32: bound by operations at 3 * 43.0 G / 495 T =
+// 0.26 ms.
 // On the split route the dq kernel recomputes S and dP, so the backward
 // does seven products where the function needs the five counted above. As
 // in the forward, it is held by the latency of the chain between its
@@ -44,7 +41,8 @@
 // block's dS K), so dq = ((c0 + c1) + c2) + ... in key order. Here the sum
 // runs in key order too, by one of two routes (the
 // wrapper picks one by dtype, kernels/flash_attention.py:dq_route):
-//   * split (bf16): flash_bwd_kernel does the dk/dv work of one
+//   * split (fp32 past 1 GiB of partials; bf16 before the wgmma
+//     backward): flash_bwd_kernel does the dk/dv work of one
 //     (batch*head, 64-key tile), then flash_bwd_dq_kernel the dq work of
 //     one (batch*head, 64-query tile), walking the key tiles in order and
 //     recomputing S and dP;
@@ -92,17 +90,15 @@
 //     stored through the caller's strides; keys past N are never written,
 //     queries past N never touch dq.
 // Budget: shared memory, the dk/dv kernel's K, V, two q and two g tiles of
-// 64 x (D + 16 bytes) and two lse and two delta rows: bf16 44,032 (48),
-// 56,320 (64), 105,472 (128); fp32 80,896 (48), 105,472 (64), 203,776
+// 64 x (D + 16 bytes) and two lse and two delta rows: fp32 80,896 (48),
+// 105,472 (64), 203,776
 // (128); on the partials route the dS^T tile of 64 x (64 + 16 bytes) more
 // (221,184 at fp32 128, under the 232,448 a CTA may take); the dq
 // kernel's q, g and two K and two V tiles, 1,024 bytes less than the dk/dv
 // kernel's; dynamic, with cudaFuncAttributeMaxDynamicSharedMemorySize
 // raised once per device. Registers (-Xptxas -v, sm_90a, CUDA 12.8, on the
-// NVIDIA H100 80GB HBM3's machine), without / with dropout: bf16 dk/dv
-// 175 / 243 (48), 213 / 255 (64), 255 / 255 (128, spilling 16 / 20
-// bytes), bf16 dq 157 / 186, 165 / 242, 253 / 255 (8 bytes with
-// dropout); every fp32 kernel uses 255 and spills 8-104 bytes (the 128
+// NVIDIA H100 80GB HBM3's machine), without / with dropout: every fp32
+// kernel uses 255 and spills 8-104 bytes (the 128
 // dk/dv kernel 56 / 52, its partials variant 72 / 104, its dq kernel 24 /
 // 16). chip_smoke.py's build phase prints each instance's registers and
 // spills and its HMMA count.
@@ -507,13 +503,17 @@ cudaError_t launch_kernel(const Launch& a) {
 }
 
 
-// The instance of head dim K: 48 (K <= 48), 64 (K <= 64), 128 (K <= 128);
-// K > 128 is flash_attention_bwd_wide.cu's.
+// The instance of head dim K in fp32: 48 (K <= 48), 64 (K <= 64), 128
+// (K <= 128); K > 128 is flash_attention_bwd_wide.cu's, and bf16 at
+// K <= 128 flash_attention_bwd_sm90.cu's (wgmma), so no bf16 instance is
+// built here.
 template <typename T, typename O, bool kDropout>
 cudaError_t launch_dim(const Launch& a) {
-  if (a.kdim <= 48) return launch_kernel<T, 48, kDropout, O>(a);
-  if (a.kdim <= 64) return launch_kernel<T, 64, kDropout, O>(a);
-  if (a.kdim <= 128) return launch_kernel<T, 128, kDropout, O>(a);
+  if constexpr (std::is_same<T, float>::value) {
+    if (a.kdim <= 48) return launch_kernel<T, 48, kDropout, O>(a);
+    if (a.kdim <= 64) return launch_kernel<T, 64, kDropout, O>(a);
+    if (a.kdim <= 128) return launch_kernel<T, 128, kDropout, O>(a);
+  }
   return cudaErrorInvalidValue;
 }
 

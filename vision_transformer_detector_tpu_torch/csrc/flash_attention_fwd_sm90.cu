@@ -79,6 +79,8 @@
 // 74,808 (D 64) and 83,000 (D 128) bytes, dynamic; registers 125-168 a
 // thread, no spills (-Xptxas -v, CUDA 12.8). chip_smoke.py's build phase
 // prints the registers and spills and the HGMMA count of each instance.
+// The wgmma, descriptor, mbarrier, TMA and tensor-map helpers are
+// sm90_common.cuh's, shared with the backward (flash_attention_bwd_sm90.cu).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -88,6 +90,7 @@
 #include <mutex>
 
 #include "flash_fwd_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -107,244 +110,6 @@ struct Shape {
   static constexpr int kSmem =
       1024 + kQBytes + 2 * kStages * kTileBytes + 8 * kBarriers;
 };
-
-// D (64 x 64, fp32) = A B^T, + D when scale_d: A (64 x 16) and B (64 x 16)
-// K-major bf16 in shared memory, through their descriptors.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D (64 x 128, fp32) = A B^T, + D when scale_d: A (64 x 16) and B (128 x 16)
-// K-major bf16 in shared memory, through their descriptors.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D (64 x 64, fp32) += A B: A (64 x 16 bf16) in registers, B (16 x 64)
-// MN-major bf16 in shared memory (trans-b), through its descriptor.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 128, fp32) += A B: A (64 x 16 bf16) in registers, B (16 x 128)
-// MN-major bf16 in shared memory (trans-b), through its descriptor.
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of these registers across
-// the asynchronous products (CUTLASS's warpgroup_fence_operand).
-template <int kTiles>
-__device__ __forceinline__ void fence_operands(float (&d)[kTiles][4]) {
-#pragma unroll
-  for (int j = 0; j < kTiles; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
-  }
-}
-template <int kSteps>
-__device__ __forceinline__ void fence_operands(uint32_t (&a)[kSteps][4]) {
-#pragma unroll
-  for (int j = 0; j < kSteps; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  if constexpr (N == 64) {
-    wgmma_ss_n64(d, da, db, scale_d);
-  } else {
-    wgmma_ss_n128(d, da, db, scale_d);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (N == 64) {
-    wgmma_rs_n64(d, a, db);
-  } else {
-    wgmma_rs_n128(d, a, db);
-  }
-}
-
-// Shared-memory matrix descriptors for the 128-byte swizzle, in which TMA
-// stores each box: rows of 64 bf16 (128 bytes), 8-row groups 1,024 bytes
-// apart, every group 1,024-byte aligned. Fields: start address >> 4 (bits
-// 0-13), leading byte offset >> 4 (16-29), stride byte offset >> 4
-// (32-45), layout 1 = 128-byte swizzle (62-63).
-__device__ __forceinline__ uint64_t desc_field(uint32_t bytes) {
-  return (bytes & 0x3FFFF) >> 4;
-}
-
-// A K-major operand (Q as A, K as B of S = Q K^T): the k-step of 16
-// columns advances the start address 32 bytes within the 128-byte row.
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return desc_field(addr) | (desc_field(16) << 16) |
-         (desc_field(1024) << 32) | (1ull << 62);
-}
-
-// An MN-major operand (V as the B of O += P V, read transposed): the
-// leading byte offset steps between 64-column blocks of V (block_bytes
-// apart), the stride byte offset between 8-key groups.
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr,
-                                                 uint32_t block_bytes) {
-  return desc_field(addr) | (desc_field(block_bytes) << 16) |
-         (desc_field(1024) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Waits until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA box of `map` at coordinates (column, row, head, batch) into
-// shared memory at dst, its bytes reported to barrier bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int row,
-                                         int head, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
-      "r"(head), "r"(batch)
-      : "memory");
-}
 
 template <int D, bool kDropout, typename O>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -385,7 +150,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(v_full(st), 1);
       mbar_init(empty(st), kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -499,75 +264,6 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       so.n, bh, row0, seq_len, 0, kdim, t, true);
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// (no link against libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  static std::once_flag once;
-  std::call_once(once, [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-    }
-  });
-  return fn;
-}
-
-// The (K, N, heads, batch) map of a bf16 tensor with element strides s
-// (unit head-dim stride), boxes of 64 columns x rows. A stride of an axis
-// of size 1 is never followed, and is given the packed value, which TMA's
-// 16-byte rule holds.
-bool encode(CUtensorMap* map, const void* ptr, int kdim, int seq_len,
-            int heads, int batch, Strides s, int rows) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t row_bytes = (static_cast<cuuint64_t>(kdim) * 2 + 15) / 16 * 16;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kdim),
-                              static_cast<cuuint64_t>(seq_len),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t packed[3] = {row_bytes, row_bytes * seq_len,
-                                row_bytes * seq_len * heads};
-  const long long given[3] = {s.n, s.h, s.b};
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i) {
-    strides[i] = dims[i + 1] == 1 ? packed[i]
-                                  : static_cast<cuuint64_t>(given[i]) * 2;
-  }
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The driver call that encodes the tensor maps needs the device's context
-// current in this host thread, which a thread that has made no runtime call
-// yet (a server's handler thread) lacks; cudaSetDevice makes it current,
-// once per thread and device (the runtime keeps it current until the
-// thread selects another device).
-cudaError_t make_context_current() {
-  thread_local int context_device = -1;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess && device != context_device) {
-    err = cudaSetDevice(device);
-    if (err == cudaSuccess) context_device = device;
-  }
-  return err;
-}
-
 struct Launch {
   const void* q;
   const void* k;
@@ -586,11 +282,12 @@ cudaError_t launch_kernel(const Launch& a) {
   cudaError_t err = make_context_current();
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
-  if (!encode(&tq, a.q, a.kdim, a.seq_len, a.heads, a.batch, a.sq, kRows) ||
-      !encode(&tk, a.k, a.kdim, a.seq_len, a.heads, a.batch, a.sk,
-              S::kKeys) ||
-      !encode(&tv, a.v, a.kdim, a.seq_len, a.heads, a.batch, a.sv,
-              S::kKeys)) {
+  if (!encode(&tq, a.q, a.kdim, a.seq_len, a.heads, a.batch, a.sq.b, a.sq.h,
+              a.sq.n, kRows) ||
+      !encode(&tk, a.k, a.kdim, a.seq_len, a.heads, a.batch, a.sk.b, a.sk.h,
+              a.sk.n, S::kKeys) ||
+      !encode(&tv, a.v, a.kdim, a.seq_len, a.heads, a.batch, a.sv.b, a.sv.h,
+              a.sv.n, S::kKeys)) {
     return cudaErrorInvalidValue;
   }
   static std::atomic<unsigned long long> smem_allowed{0};

@@ -18,13 +18,15 @@ Routing is by the device of the tensors, never by a fallback:
     runs ``csrc/flash_attention_fwd_sm90.cu`` (wgmma fed by TMA) for bf16
     at K <= 128 and ``csrc/flash_attention_fwd.cu`` (mma.sync) for every
     other call (``forward_kernel``), and ``flash_attention_bwd`` runs
-    ``csrc/flash_attention_bwd.cu`` (K > 128:
-    ``csrc/flash_attention_bwd_wide.cu``);
+    ``csrc/flash_attention_bwd_sm90.cu`` (wgmma fed by TMA) for bf16 at
+    K <= 128, ``csrc/flash_attention_bwd.cu`` (mma.sync) for fp32 at
+    K <= 128 and ``csrc/flash_attention_bwd_wide.cu`` past 128
+    (``backward_kernel``);
   * any other device raises.
 
 The kernels run on the tensor cores (bf16, and fp32 as 3xTF32) at every
 head dim K, as the JAX package does (``head_dim_plan``): K <= 128 on
-instances of width 48, 64 or 128 (the wgmma forward: 64 or 128), K > 128
+instances of width 48, 64 or 128 (the wgmma kernels: 64 or 128), K > 128
 on the wide route, which forms the scores over K in 64-column chunks and
 writes the outputs in column windows. They read q, k, v (and the
 cotangent) at their own K: the loads zero-fill the columns past K and the
@@ -43,7 +45,9 @@ delta = rowsum(g * out) in fp32 and launches the backward, as the JAX
 package's Pallas backward does. The backward sums dq over the key tiles
 in order, so the gradients are the same on every run (``DQ_ROUTES``:
 fp32 stores each key tile's contribution and adds them in a second
-kernel, bf16 runs a dq kernel after the dk/dv kernel). Calls that need
+kernel; bf16 runs a dq kernel after the dk/dv kernel, which with dropout
+also writes the keep bits it drew, packed (``pack_keep_bits``), for the dq
+kernel to read instead of hashing each score again). Calls that need
 no grad (serving, ``torch.inference_mode``) launch the forward alone,
 without the logsumexp.
 
@@ -91,8 +95,10 @@ FWD_SOURCE = "flash_attention_fwd.cu"
 SM90_SOURCE = "flash_attention_fwd_sm90.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
 BWD_WIDE_SOURCE = "flash_attention_bwd_wide.cu"     # B2 at K > 128
+BWD_SM90_SOURCE = "flash_attention_bwd_sm90.cu"     # bf16 B2 at K <= 128
 _HEAD_DIMS = (48, 64, 128)   # the mma.sync instances' widths up to K = 128
-_WGMMA_DIMS = (64, 128)      # the wgmma forward's (bf16, K <= 128)
+_WGMMA_DIMS = (64, 128)      # the wgmma kernels' (bf16, K <= 128)
+KEEP_WORD_KEYS = 32          # keys per word of the packed keep bits
 CHUNK = 64                   # the wide route's S chunk (columns)
 FWD_WINDOW = 128             # its forward output window
 BWD_WINDOW = 64              # its backward output windows (dq, dk, dv)
@@ -225,6 +231,27 @@ def _dropout_scale(dropout, b: int, h: int, n: int, device,
         (torch.arange(m, device=device) + k_base)[None, :],
         _keep_threshold(rate))
     return torch.where(keep, 1.0 / (1.0 - rate), 0.0).float()
+
+
+def keep_bits_shape(b: int, h: int, n: int) -> tuple:
+    """The shape of the packed keep bits of (b, h) rows of n x n scores:
+    ``(b * h, ceil(n / 32), n)`` words."""
+    return (b * h, -(-n // KEEP_WORD_KEYS), n)
+
+
+def pack_keep_bits(keep: torch.Tensor) -> torch.Tensor:
+    """The plain version of the wgmma backward's packed keep mask: a
+    ``(B, H, N, M)`` boolean mask (query by key) as int64 words ``(B * H,
+    ceil(M / 32), N)``, word w of query q holding keys 32w .. 32w + 31 (bit
+    i = key 32w + i, 0 past M). The dk/dv kernel writes these words as
+    uint32 and the dq kernel reads them; the tests and chip_smoke.py hold
+    the kernel's words to this."""
+    b, h, n, m = keep.shape
+    words = -(-m // KEEP_WORD_KEYS)
+    padded = F.pad(keep.to(torch.int64), (0, words * KEEP_WORD_KEYS - m))
+    shifted = (padded.reshape(b * h, n, words, KEEP_WORD_KEYS)
+               << torch.arange(KEEP_WORD_KEYS, device=keep.device))
+    return shifted.sum(-1).transpose(1, 2).contiguous()
 
 
 def _heads_major(t: torch.Tensor, layout: str) -> torch.Tensor:
@@ -407,6 +434,9 @@ flash_attention.drop_launches = 0           # forward with dropout
 flash_attention.wgmma_launches = 0          # forward on wgmma (any route)
 flash_attention.backward_launches = 0       # backward, no dropout
 flash_attention.backward_drop_launches = 0  # backward with dropout replay
+# Of the two backward counts, the launches of the wgmma backward (bf16,
+# K <= 128; its dk/dv and dq kernels count once together).
+flash_attention.wgmma_backward_launches = 0
 # Operands copied because their rows cannot be addressed in place (K
 # padded, or a cotangent view made contiguous); the model's calls make
 # none.
@@ -476,6 +506,16 @@ def forward_kernel(kdim: int, dtype: torch.dtype) -> str:
     (fp32 at any K and bf16 past 128, csrc/flash_attention_fwd.cu)."""
     return ("wgmma" if dtype == torch.bfloat16 and kdim <= _WGMMA_DIMS[-1]
             else "mma_sync")
+
+
+def backward_kernel(kdim: int, dtype: torch.dtype) -> str:
+    """Which backward kernels run a call: "wgmma" (bf16 at K <= 128,
+    csrc/flash_attention_bwd_sm90.cu, instance 64 or 128), "mma_sync"
+    (fp32 at K <= 128, csrc/flash_attention_bwd.cu) or "wide" (K > 128 in
+    both types, csrc/flash_attention_bwd_wide.cu)."""
+    if kdim > _WGMMA_DIMS[-1]:
+        return "wide"
+    return "wgmma" if dtype == torch.bfloat16 else "mma_sync"
 
 
 def _pad_head_dim(t: torch.Tensor) -> torch.Tensor:
@@ -598,8 +638,8 @@ def dq_route(dtype: torch.dtype, request: int = 0,
     """The name of the dq route that ``request`` (a ``DQ_ROUTES`` value)
     takes for ``dtype``: when 0, fp32 takes "partials" (its 3xTF32
     products make recomputing S and dP the dearer way) unless its
-    ``workspace_bytes`` pass PARTIALS_MAX_BYTES, and bf16 "split";
-    "partials" in bf16 raises."""
+    ``workspace_bytes`` pass PARTIALS_MAX_BYTES, and bf16 "split" (at
+    K <= 128 the wgmma kernels' one route); "partials" in bf16 raises."""
     names = {code: name for name, code in DQ_ROUTES.items()}
     if request not in names:
         raise ValueError(f"dq route request {request} is not one of "

@@ -46,11 +46,18 @@ _SOURCES = {
     "fwd_sm90": flash_attention.SM90_SOURCE,
     "bwd": flash_attention.BWD_SOURCE,
     "bwd_wide": flash_attention.BWD_WIDE_SOURCE,
+    "bwd_sm90": flash_attention.BWD_SM90_SOURCE,
     "ln": fused_ln.SOURCE,
     "ffn": fused_ffn.SOURCE,
     "int8": quantization.SOURCE,
     "drop": dropout.SOURCE,
 }
+
+
+def _entry(kind: str) -> str:
+    """The C entry point of a flash library: the wide backward shares the
+    narrow one's name (flash_bwd_common.cuh)."""
+    return "vtd_flash_attention_" + ("bwd" if kind == "bwd_wide" else kind)
 
 
 def _define(name: str):
@@ -69,10 +76,10 @@ def _library(kind: str) -> ctypes.CDLL:
     # stream.
     dropout = [i32, ptr, u32, ctypes.c_float] + [u32] * 6 + [ptr]
     if kind in ("fwd", "fwd_sm90"):
-        fn = getattr(lib, "vtd_flash_attention_" + kind)
+        fn = getattr(lib, _entry(kind))
         fn.argtypes = [ptr] * 10 + [i32] * 6 + [i64] * 12 + dropout
-    elif kind in ("bwd", "bwd_wide"):
-        fn = lib.vtd_flash_attention_bwd
+    elif kind in ("bwd", "bwd_wide", "bwd_sm90"):
+        fn = getattr(lib, _entry(kind))
         fn.argtypes = [ptr] * 10 + [i32] * 6 + [i64] * 21 + dropout
     elif kind == "ln":
         fn = lib.vtd_layer_norm
@@ -179,7 +186,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kind = "fwd_sm90" if wgmma else "fwd"
     lib = _library(kind)
     with torch.cuda.device(q.device):
-        err = getattr(lib, "vtd_flash_attention_" + kind)(
+        err = getattr(lib, _entry(kind))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse.numel() else None,
             *((m_in.data_ptr(), l_in.data_ptr(), acc_in.data_ptr()) if resume
@@ -229,7 +236,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         inner_base: int = 0, dkv_fp32: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq fp32, dk, dv)`` at q's head dim K from the backward kernels
-    (csrc/flash_attention_bwd.cu, K > 128 csrc/flash_attention_bwd_wide.cu),
+    that ``flash_attention.backward_kernel`` names (bf16 at K <= 128
+    csrc/flash_attention_bwd_sm90.cu on wgmma, fp32 at K <= 128
+    csrc/flash_attention_bwd.cu, K > 128 csrc/flash_attention_bwd_wide.cu),
     K any width whose rows are 16-byte aligned; lse and delta are contiguous
     ``(B, H, N)`` fp32; dq is summed in fp32 over the key tiles in order
     and written once, so it is the same on every run. A nonzero
@@ -239,27 +248,51 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention.DQ_ROUTES``' values (0: the route the dtype
     selects). ``dkv_fp32`` writes dk and dv in fp32 (bf16 inputs, the
     split route: a ring attention block)."""
+    return backward_launch(q, k, v, g, lse, delta, layout, dropout_seed,
+                           dropout_rate, request, bh_base, q_base, k_base,
+                           inner_local, inner_global, inner_base,
+                           dkv_fp32)[:3]
+
+
+def backward_launch(q, k, v, g, lse, delta, layout: str, dropout_seed,
+                    dropout_rate: float, request: int = 0, bh_base: int = 0,
+                    q_base: int = 0, k_base: int = 0, inner_local: int = 1,
+                    inner_global: int = 1, inner_base: int = 0,
+                    dkv_fp32: bool = False):
+    """What ``flash_attention_bwd`` launches, with its arguments: ``(dq,
+    dk, dv, keep_bits)``, keep_bits the wgmma backward's packed keep mask
+    (int32 words, ``flash_attention.keep_bits_shape``; compare with
+    ``flash_attention.pack_keep_bits``) when it replays dropout, else
+    None. The card tests read the words through it; the model goes
+    through the operator."""
     fa = flash_attention
     q, k, v, g = fa._kernel_operands(layout, q=q, k=k, v=v, g=g)
     dropout = _dropout(dropout_seed, dropout_rate, q.device)
     (b, h, n), _ = fa._axes(q, layout)
+    kernel = fa.backward_kernel(q.shape[-1], q.dtype)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = (torch.empty_like(t, dtype=torch.float32 if dkv_fp32
                                else t.dtype) for t in (k, v))
-    partials = None
+    # The tenth pointer: the partials workspace (mma.sync, fp32) or the
+    # packed keep bits (wgmma, dropout).
+    workspace = None
     if fa.dq_route(q.dtype, request, fa.partials_bytes(
             b, h, n, q.shape[-1])) == "partials":
-        partials = torch.empty((-(-n // fa.KEY_TILE), b * h, n, q.shape[-1]),
-                               dtype=torch.float32, device=q.device)
+        workspace = torch.empty((-(-n // fa.KEY_TILE), b * h, n, q.shape[-1]),
+                                dtype=torch.float32, device=q.device)
+    elif kernel == "wgmma" and dropout is not None:
+        workspace = torch.empty(fa.keep_bits_shape(b, h, n),
+                                dtype=torch.int32, device=q.device)
     strides = [s for t in (q, k, v, g, dq, dk, dv)
                for s in fa._axes(t, layout)[1]]
-    lib = _library("bwd_wide" if fa.head_dim_plan(q.shape[-1]).instance
-                   == "wide" else "bwd")
+    kind = {"wgmma": "bwd_sm90", "mma_sync": "bwd",
+            "wide": "bwd_wide"}[kernel]
+    lib = _library(kind)
     with torch.cuda.device(q.device):
-        err = lib.vtd_flash_attention_bwd(
+        err = getattr(lib, _entry(kind))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), None if partials is None else partials.data_ptr(),
+            dv.data_ptr(), None if workspace is None else workspace.data_ptr(),
             _DTYPE_CODES[q.dtype], int(dkv_fp32), b, h, n, q.shape[-1],
             *strides, *fa._dropout_c_args(dropout, (
                 bh_base, q_base, k_base, inner_local, inner_global,
@@ -268,7 +301,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.raise_on_error(lib, err, "flash attention backward")
     fa._count("backward_launches" if dropout is None
               else "backward_drop_launches")
-    return dq, dk, dv
+    if kernel == "wgmma":
+        fa._count("wgmma_backward_launches")
+    keep_bits = workspace if kernel == "wgmma" else None
+    return dq, dk, dv, keep_bits
 
 
 @flash_attention_bwd.register_fake
