@@ -30,6 +30,21 @@ PyTorch version. Phases, one output line each:
                     64), and the ragged (8, 1296, 40), read at K = 40;
                     times both at (B*12, 576, 64) bf16 for B = 1 and 64,
                     beside one scaled_dot_product_attention call;
+  2b. host_path  — the flash operators' launch path (one launch plan per
+                    signature, kernels/ops.py): the host's ms a call of
+                    the forward at (B, N, H, K) = (1, 576, 12, 64) bf16
+                    tokens-major (vit_b16_384 serving, batch 1) and of the
+                    backward at (8, 256, 16, 80) (ViT-H/14 widths, (B*H,
+                    N, K) = (128, 256, 80)), beside scaled_dot_product_
+                    attention's forward and backward, and their event
+                    times; each flash route through the path launched 10
+                    times, its outputs bit-equal every time: the wgmma and
+                    mma.sync forwards, lse, dropout, a batch*head row map,
+                    the wide route (K 192), a ring block's resume and
+                    suspend, and the backward on wgmma (bf16 dq, the
+                    replay, fp32 dq/dk/dv), on mma.sync (both dq routes)
+                    and on the wide route; the bf16 dq its kernel writes
+                    equal to the fp32 dq cast, bit for bit;
   3. kernel_train — the forward's logsumexp against
                     reference_attention_lse, the backward kernel's dq/dk/dv
                     against reference_attention_backward, and the autograd
@@ -582,6 +597,151 @@ def phase_kernel():
             times_bf16_576x64={f"B={b}": t for b, t in times.items()},
             sdpa_backend={f"B={b}": name for b, name in backends.items()})
     return errors["12x576x64_bfloat16"], times
+
+
+def _host_ms(fn, calls: int = 1000, chunk: int = 100) -> float:
+    """Host ms a call of ``fn``: the wall time of ``calls`` calls issued in
+    chunks of ``chunk``, the card synchronised between chunks and outside
+    the timed span (so no launch queue fills up), after a warm-up."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    total = 0
+    for _ in range(calls // chunk):
+        tic = time.perf_counter_ns()
+        for _ in range(chunk):
+            fn()
+        total += time.perf_counter_ns() - tic
+        torch.cuda.synchronize()
+    return total / 1e6 / (calls // chunk * chunk)
+
+
+HOST_PATH_REPEATS = 10
+
+
+def phase_host_path():
+    """The flash operators' launch path: host ms a call against SDPA's, and
+    every route's outputs bit-equal over HOST_PATH_REPEATS launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, device="cuda", generator=gen) * scale
+                ).to(dtype)
+
+    # Host and event time a call, forward and backward, beside SDPA.
+    q, k, v = (rnd(1, 576, 12, 64, scale=s) for s in (0.125, 1, 1))
+    hm = [t.transpose(1, 2) for t in (q, k, v)]
+    fwd = {"shape": [1, 576, 12, 64],
+           "host_ms": _host_ms(lambda: fa.flash_attention(q, k, v)),
+           "ms": _time_ms(lambda: fa.flash_attention(q, k, v), 200),
+           "sdpa_host_ms": _host_ms(
+               lambda: F.scaled_dot_product_attention(*hm)),
+           "sdpa_ms": _time_ms(lambda: F.scaled_dot_product_attention(*hm),
+                               200)}
+    q, k, v, g = (rnd(8, 256, 16, 80, scale=s)
+                  for s in (80 ** -0.5, 1, 1, 1))
+    out, lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True)
+    delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                            "bnhk").contiguous()
+    leaves = [t.transpose(1, 2).detach().clone().requires_grad_()
+              for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, scale=1.0)
+
+    def sdpa_bwd():
+        torch.autograd.grad(lib_out, leaves, g.transpose(1, 2),
+                            retain_graph=True)
+
+    def flash_bwd():
+        fa._launch_backward(q, k, v, g, lse, delta, "bnhk")
+
+    bwd = {"shape": [128, 256, 80], "host_ms": _host_ms(flash_bwd),
+           "ms": _time_ms(flash_bwd, 200),
+           "sdpa_host_ms": _host_ms(sdpa_bwd), "sdpa_ms": _time_ms(sdpa_bwd,
+                                                                   200)}
+
+    # Every route, HOST_PATH_REPEATS launches bit-equal.
+    seed = fa.seed_tensor(2 ** 32 - 9, "cuda")
+    drop = (seed, 0.1)
+    rmap = (5, 7, 3, 2, 4, 1)
+    b16 = [rnd(2, 130, 3, 64, scale=s) for s in (0.125, 1, 1, 1)]
+    b80 = [rnd(2, 130, 3, 80, scale=s) for s in (80 ** -0.5, 1, 1, 1)]
+    f32 = [rnd(2, 130, 3, 40, dtype=torch.float32, scale=s)
+           for s in (40 ** -0.5, 1, 1, 1)]
+    wide = [rnd(2, 130, 3, 192, scale=s) for s in (192 ** -0.5, 1, 1, 1)]
+
+    def backward_inputs(ops, dropout=None, offsets=(0, 0, 0)):
+        o, l_ = fa._launch_forward(*ops[:3], "bnhk", with_lse=True,
+                                   dropout=dropout, offsets=offsets)
+        return l_, fa._heads_major((ops[3].float() * o.float()).sum(-1),
+                                   "bnhk").contiguous()
+
+    def ring(ops):
+        """A ring attention chain: 64 queries over two key blocks of 64,
+        the first suspending the online softmax, the second resuming it."""
+        qq, kk, vv = (t[:, :64] for t in ops[:3])
+        k2, v2 = (t[:, 64:128] for t in ops[1:3])
+        acc, m, l_ = fa._launch_forward(qq, kk, vv, "bnhk", with_lse=True,
+                                        out_fp32=True, suspend=True)
+        return fa._launch_forward(qq, k2, v2, "bnhk", with_lse=True,
+                                  out_fp32=True, offsets=(0, 0, 64),
+                                  state=(acc, m, l_))
+
+    inputs = {name: backward_inputs(*args) for name, args in (
+        ("b16", (b16,)), ("b80", (b80,)), ("b16_drop", (b16, drop, rmap)),
+        ("f32", (f32,)), ("wide", (wide,)))}
+
+    def bwd_route(ops, name, **kw):
+        return lambda: fa._launch_backward(*ops, *inputs[name], "bnhk", **kw)
+
+    routes = {
+        "fwd_wgmma": lambda: fa.flash_attention(*b16[:3]),
+        "fwd_wgmma_lse_k80": lambda: fa.flash_attention(*b80[:3],
+                                                        with_lse=True),
+        "fwd_mma_sync_fp32": lambda: fa.flash_attention(*f32[:3],
+                                                        with_lse=True),
+        "fwd_dropout_row_map": lambda: fa._launch_forward(
+            *b16[:3], "bnhk", with_lse=True, dropout=drop, offsets=rmap),
+        "fwd_wide_k192": lambda: fa.flash_attention(*wide[:3],
+                                                    with_lse=True),
+        "fwd_ring_resume_suspend": lambda: ring(b16),
+        "bwd_wgmma_bf16_dq": bwd_route(b16, "b16"),
+        "bwd_wgmma_k80": bwd_route(b80, "b80"),
+        "bwd_wgmma_replay_row_map": bwd_route(b16, "b16_drop", dropout=drop,
+                                              offsets=rmap),
+        "bwd_wgmma_fp32_dq_dkv": bwd_route(b16, "b16", fp32_dq=True,
+                                           fp32_dkv=True),
+        "bwd_mma_sync_partials": bwd_route(f32, "f32"),
+        "bwd_mma_sync_split": bwd_route(f32, "f32", route="split"),
+        "bwd_wide_k192": bwd_route(wide, "wide"),
+    }
+    for name, run in routes.items():
+        first = run()
+        first = first if isinstance(first, tuple) else (first,)
+        for _ in range(HOST_PATH_REPEATS - 1):
+            again = run()
+            again = again if isinstance(again, tuple) else (again,)
+            _require(all(torch.equal(a, b) for a, b in zip(first, again)),
+                     f"host_path: {name} differs between launches")
+    torch.cuda.synchronize()
+    for ops, name in ((b16, "b16"), (b80, "b80")):
+        dq = fa._launch_backward(*ops, *inputs[name], "bnhk")[0]
+        dq32 = fa._launch_backward(*ops, *inputs[name], "bnhk",
+                                   fp32_dq=True)[0]
+        _require(dq.dtype == torch.bfloat16
+                 and torch.equal(dq, dq32.to(torch.bfloat16)),
+                 f"host_path: the kernel's bf16 dq ({name}) is not the "
+                 "fp32 dq cast")
+    _report("host_path", forward=fwd, backward=bwd,
+            bit_equal_routes=sorted(routes), repeats=HOST_PATH_REPEATS)
+    return {"forward": fwd, "backward": bwd}
 
 
 def _rel_err(got, ref) -> float:
@@ -4771,9 +4931,10 @@ def _flash_call_kernels(gen) -> dict:
     ViT-H/14's (8, 256, 16, 80) in bf16 and at K = 128 (a width that never
     padded), by name from torch.profiler, and the operand copies counted:
     at K = 80 the forward launches the wgmma kernel alone and the backward
-    what K = 128's does (its two wgmma kernels and dq's cast), with no padding
-    or slicing kernel and no copy. The profiler must see K = 128's
-    kernels, so that an empty K = 80 list cannot pass for no copy."""
+    what K = 128's does (its two wgmma kernels, the dq kernel writing bf16:
+    no cast follows), with no padding or slicing kernel and no copy. The
+    profiler must see K = 128's kernels, so that an empty K = 80 list
+    cannot pass for no copy."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4810,7 +4971,7 @@ def _flash_call_kernels(gen) -> dict:
     fwd, bwd = seen["K80_fwd"], seen["K80_bwd"]
     _require(len(fwd) == 1 and "flash_fwd_sm90" in fwd[0],
              f"K 80 forward launched {fwd}")
-    _require(len(bwd) == len(seen["K128_bwd"]) == 3
+    _require(len(bwd) == len(seen["K128_bwd"]) == 2
              and all(sum("flash_bwd" in n and "_sm90" in n for n in names)
                      == 2 for names in (bwd, seen["K128_bwd"])),
              f"K 80 backward launched {bwd}, K 128 {seen['K128_bwd']}")
@@ -5609,6 +5770,7 @@ def main() -> int:
 
     hgmma = timed(phase_build)
     flash_err, flash_times = timed(phase_kernel)
+    timed(phase_host_path)
     train_errors, train_times = timed(phase_kernel_train)
     drop_errors, drop_times = timed(phase_kernel_drop)
     mlp_errors, mlp_times = timed(phase_kernel_mlp_drop)

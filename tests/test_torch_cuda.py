@@ -1514,3 +1514,119 @@ def test_wide_route_matches_plain(gen, dtype, kd):
                                      state=state)
         assert torch.equal(chained[0], whole[:, rows])
         assert torch.equal(chained[1], whole_lse[:, :, rows])
+
+
+# ---------------------------------------------------------------------------
+# The flash operators' launch path: one plan per signature (kernels/ops.py)
+
+def _views(memory, layout, shape, width, offset):
+    """A (layout-ordered) view of ``memory`` with tokens-major rows
+    ``width`` elements wide, starting ``offset`` elements in."""
+    b, n, h, kd = shape
+    t = memory[offset:offset + b * n * h * width].view(b, n, h, width)
+    t = t[..., :kd]
+    return t.transpose(1, 2) if layout == "bhnk" else t
+
+
+def test_launch_plans_follow_shapes_strides_layouts_and_offsets(gen):
+    """Calls that alternate the shape, the row stride, the layout and a
+    16-byte offset into one buffer each launch with their own plan: every
+    forward and backward matches the plain version, and a signature seen
+    again takes its old plan and gives the same result bit for bit."""
+    dtype = torch.bfloat16
+    memory = [torch.randn(2 * 80 * 3 * 136 + 64, device="cuda",
+                          generator=gen).to(dtype) for _ in range(4)]
+    cases = [("bnhk", (2, 77, 3, 64), 64, 0), ("bnhk", (2, 77, 3, 64), 64, 8),
+             ("bhnk", (2, 77, 3, 64), 72, 0), ("bnhk", (2, 50, 2, 80), 136, 16),
+             ("bhnk", (1, 65, 3, 128), 128, 8), ("bnhk", (2, 77, 3, 40), 40, 8)]
+    first = {}
+    for i in (0, 1, 2, 3, 0, 4, 1, 5, 2, 3, 5, 4):
+        layout, shape, width, offset = cases[i]
+        q, k, v, g = (_views(m, layout, shape, width, offset) for m in memory)
+        q = q * shape[-1] ** -0.5
+        out, lse = fa._launch_forward(q, k, v, layout, with_lse=True)
+        delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                                layout).contiguous()
+        grads = fa._launch_backward(q, k, v, g, lse, delta, layout)
+        ref = fa.reference_attention(q, k, v, layout)
+        assert (out.float() - ref.float()).abs().max() <= TOLS[dtype], i
+        plain = fa.reference_attention_backward(q, k, v, g, layout)
+        assert max(_grad_rels(grads, plain)) <= GRAD_TOLS[dtype], i
+        if i in first:
+            assert all(torch.equal(a, b)
+                       for a, b in zip(first[i], (out, *grads))), i
+        first.setdefault(i, (out, *grads))
+
+
+@pytest.mark.parametrize("replay", [False, True])
+@pytest.mark.parametrize("layout,shape", [
+    ("bhnk", (8, 256, 256, 64)),    # highres_1024's windows, batch 8
+    ("bnhk", (8, 256, 16, 80)),     # ViT-H/14 widths, batch 8
+    ("bnhk", (2, 256, 16, 128)),
+])
+def test_bf16_dq_from_the_kernel_is_the_cast_fp32_dq(gen, replay, layout,
+                                                     shape):
+    """The wgmma dq kernel's bf16 dq (the wrapper's default) is the fp32
+    dq it writes when asked, rounded by ``.to(torch.bfloat16)``, bit for
+    bit; dk and dv are the same launches'."""
+    q, k, v = _qkv(gen, shape, torch.bfloat16, shape[-1] ** -0.5)
+    if layout == "bhnk":
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    g = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
+    drop = (fa.seed_tensor(2 ** 32 - 3, "cuda"), 0.1) if replay else None
+    out, lse = fa._launch_forward(q, k, v, layout, with_lse=True,
+                                  dropout=drop)
+    delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                            layout).contiguous()
+    dq, dk, dv = fa._launch_backward(q, k, v, g, lse, delta, layout, drop)
+    dq32, dk32, dv32 = fa._launch_backward(q, k, v, g, lse, delta, layout,
+                                           drop, fp32_dq=True)
+    assert dq.dtype == torch.bfloat16 and dq32.dtype == torch.float32
+    assert torch.equal(dq, dq32.to(torch.bfloat16))
+    assert torch.equal(dk, dk32) and torch.equal(dv, dv32)
+
+
+def test_launch_counters_move_once_per_call(gen):
+    """Each flash call adds one to its route's counter and nothing to the
+    others, eagerly and through a program saved by torch.export, whose
+    operator node launches (and counts) at every call."""
+    names = ("launches", "lse_launches", "drop_launches", "wgmma_launches",
+             "backward_launches", "backward_drop_launches",
+             "wgmma_backward_launches", "operand_copies")
+    f = fa.flash_attention
+
+    def moved(call):
+        before = [getattr(f, name) for name in names]
+        call()
+        torch.cuda.synchronize()
+        return {name: getattr(f, name) - n
+                for name, n in zip(names, before) if getattr(f, name) != n}
+
+    q, k, v = _qkv(gen, (2, 65, 3, 64), torch.bfloat16, 0.125)
+    g = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
+    drop = (fa.seed_tensor(99, "cuda"), 0.1)
+    out, lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True)
+    delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                            "bnhk").contiguous()
+    assert moved(lambda: fa.flash_attention(q, k, v)) == {
+        "launches": 1, "wgmma_launches": 1}
+    assert moved(lambda: fa.flash_attention(q, k, v, with_lse=True)) == {
+        "lse_launches": 1, "wgmma_launches": 1}
+    assert moved(lambda: fa._launch_forward(q, k, v, "bnhk", dropout=drop)) \
+        == {"drop_launches": 1, "wgmma_launches": 1}
+    assert moved(lambda: fa._launch_backward(
+        q, k, v, g, lse, delta, "bnhk")) == {
+        "backward_launches": 1, "wgmma_backward_launches": 1}
+    assert moved(lambda: fa._launch_backward(
+        q.float(), k.float(), v.float(), g.float(), lse, delta, "bnhk")) \
+        == {"backward_launches": 1}
+
+    class Attend(torch.nn.Module):
+        def forward(self, q, k, v):
+            return fa.flash_attention(q, k, v)
+
+    program = torch.export.export(Attend(), (q, k, v)).module()
+    for _ in range(3):
+        assert moved(lambda: program(q, k, v)) == {
+            "launches": 1, "wgmma_launches": 1}
+    assert torch.equal(program(q, k, v), fa.flash_attention(q, k, v))

@@ -372,8 +372,8 @@ def _op_cases(size):
                       (meta(q), meta(kk), meta(v), "bhnk", False, seed, 0.1),
                       (plain_fwd[0], torch.empty(0)) + no_state))
         dq, dk, dv = fa.reference_attention_backward(q, kk, v, g, "bhnk")
-        # The operator hands dq over in its fp32 accumulator; the wrapper
-        # casts it to q's dtype.
+        # By default (dq_fp32) the operator hands dq over in its fp32
+        # accumulator; the wrapper asks for q's dtype instead.
         cases.append(("flash_attention_bwd",
                       tuple(map(meta, (q, kk, v, g, lse, lse)))
                       + ("bhnk", None, 0.0), (dq.float(), dk, dv)))

@@ -1,0 +1,315 @@
+"""The flash operators' launch path (kernels/ops.py) on the CPU.
+
+No JAX counterpart: the operators, their schemas and their launch plans
+are the port's own. A launch plan holds what a call of one signature
+launches (checks run, kernel picked, scalar block filled) and is built
+without a card, so these tests build plans from CPU tensors. The
+operators' CUDA implementations are driven here with a stand-in for the
+C entry point that records its arguments and launches nothing, so the
+plan cache is exercised as on the card; tests/test_torch_cuda.py and
+chip_smoke.py launch the kernels through the same path.
+"""
+
+import ctypes
+import os
+import re
+
+import pytest
+import torch
+
+from vision_transformer_detector_tpu_torch.kernels import (
+    flash_attention as fa)
+from vision_transformer_detector_tpu_torch.kernels import ops
+
+# The schemas the operators had as Python custom_ops: saved programs hold
+# nodes of these operators, so the forward's stays as it was and the
+# backward's gains only its trailing dq_fp32.
+FWD_SCHEMA = (
+    "vtd_torch::flash_attention_fwd(Tensor q, Tensor k, Tensor v, "
+    "str layout, bool with_lse, Tensor? dropout_seed, float dropout_rate, "
+    "SymInt bh_base=0, SymInt q_base=0, SymInt k_base=0, "
+    "SymInt inner_local=1, SymInt inner_global=1, SymInt inner_base=0, "
+    "bool out_fp32=False, Tensor? acc_in=None, Tensor? m_in=None, "
+    "Tensor? l_in=None, bool suspend=False) "
+    "-> (Tensor, Tensor, Tensor, Tensor)")
+BWD_SCHEMA_BEFORE = (
+    "vtd_torch::flash_attention_bwd(Tensor q, Tensor k, Tensor v, "
+    "Tensor g, Tensor lse, Tensor delta, str layout, Tensor? dropout_seed, "
+    "float dropout_rate, SymInt request=0, SymInt bh_base=0, "
+    "SymInt q_base=0, SymInt k_base=0, SymInt inner_local=1, "
+    "SymInt inner_global=1, SymInt inner_base=0, bool dkv_fp32=False) "
+    "-> (Tensor, Tensor, Tensor)")
+COUNTERS = ("launches", "lse_launches", "drop_launches", "wgmma_launches",
+            "backward_launches", "backward_drop_launches",
+            "wgmma_backward_launches", "operand_copies")
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """The entry points stood in for: each call's arguments recorded (the
+    plan's block first), no launch. Empty plan caches; the launch counters
+    put back afterwards."""
+    calls = []
+
+    class Library:
+        def __getattr__(self, name):
+            def entry(*args):
+                calls.append((name, args))
+                return 0
+            return entry
+
+    monkeypatch.setattr(ops, "_library", lambda kind: Library())
+    monkeypatch.setattr(ops, "_raw_stream", lambda: (lambda index: 0))
+    monkeypatch.setattr(ops, "_fwd_plans", {})
+    monkeypatch.setattr(ops, "_bwd_plans", {})
+    for name in COUNTERS:
+        monkeypatch.setattr(fa.flash_attention, name,
+                            getattr(fa.flash_attention, name))
+    return calls
+
+
+def _operands(shape=(2, 37, 3, 64), dtype=torch.bfloat16, count=3, width=None,
+              shift=0):
+    """``count`` tensors of ``shape``, each a view of rows ``width``
+    elements wide (default: the head dim) starting ``shift`` elements in."""
+    width = width or shape[-1]
+    return [torch.randn(*shape[:-1], width + shift).to(dtype)[
+        ..., shift:shift + shape[-1]] for _ in range(count)]
+
+
+def _forward(q, k, v, layout="bnhk", coords=(0, 0, 0, 1, 1, 0), **kw):
+    return ops._flash_fwd_cuda(q, k, v, layout, kw.pop("with_lse", False),
+                               None, 0.0, *coords, **kw)
+
+
+def _block(calls, i=-1) -> ops.FwdArgs:
+    return ops.FwdArgs.from_address(calls[i][1][0])
+
+
+def test_forward_schema_is_unchanged():
+    assert str(torch.ops.vtd_torch.flash_attention_fwd.default._schema) \
+        == FWD_SCHEMA
+
+
+def test_backward_schema_adds_only_dq_fp32():
+    tail = ") -> (Tensor, Tensor, Tensor)"
+    assert str(torch.ops.vtd_torch.flash_attention_bwd.default._schema) \
+        == BWD_SCHEMA_BEFORE[:-len(tail)] + ", bool dq_fp32=True" + tail
+
+
+@pytest.mark.parametrize("struct,name", [(ops.FwdArgs, "FlashFwdArgs"),
+                                         (ops.BwdArgs, "FlashBwdArgs")])
+def test_argument_blocks_match_the_c_structs(struct, name):
+    """The ctypes blocks name csrc/flash_launch.cuh's fields in its order,
+    with its sizes (int, long long[n], unsigned int, float)."""
+    path = os.path.join(os.path.dirname(ops.__file__), "..", "csrc",
+                        "flash_launch.cuh")
+    with open(path) as f:
+        body = re.search(r"struct %s \{(.*?)\};" % name, f.read(),
+                         re.S).group(1)
+    fields = []
+    for line in body.splitlines():
+        found = re.match(r"\s*(unsigned int|long long|int|float) ([^;]*);",
+                         line)
+        for field in found.group(2).split(",") if found else ():
+            count = re.search(r"\[(\d+)\]", field)
+            fields.append((field.split("[")[0].strip(), found.group(1),
+                           int(count.group(1)) if count else None))
+    sizes = {"int": ctypes.c_int, "unsigned int": ctypes.c_uint32,
+             "float": ctypes.c_float, "long long": ctypes.c_longlong}
+    assert [f[0] for f in struct._fields_] == [f[0] for f in fields]
+    for (fname, ftype), (_, ctype, count) in zip(struct._fields_, fields):
+        want = sizes[ctype] * count if count else sizes[ctype]
+        assert ctypes.sizeof(ftype) == ctypes.sizeof(want), fname
+
+
+def test_one_plan_per_signature(launches):
+    """Calls with the same shapes, strides, dtype and pointer residues
+    share one plan, whatever their addresses; each launch gets its own
+    pointers and the plan's block."""
+    for _ in range(3):
+        q, k, v = _operands()
+        _forward(q, k, v)
+        name, args = launches[-1]
+        assert name == "vtd_flash_attention_fwd_sm90"
+        assert args[1:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert len(ops._fwd_plans) == 1
+    block = _block(launches)
+    assert (block.batch, block.heads, block.seq_len, block.head_dim,
+            block.dtype, block.device) == (2, 3, 37, 64, 1, -1)
+
+
+@pytest.mark.parametrize("variant", ["stride", "dtype", "layout", "coords",
+                                     "with_lse"])
+def test_operands_that_differ_get_their_own_plan(launches, variant):
+    """A stride, the dtype, the layout, the mask's coordinates or the lse
+    flag changes the plan, and the launch reads the new one's block."""
+    q, k, v = _operands()
+    _forward(q, k, v)
+    first = _block(launches)
+    kw = {}
+    if variant == "stride":
+        q, k, v = _operands(width=72)
+    elif variant == "dtype":
+        q, k, v = _operands(dtype=torch.float32)
+    elif variant == "coords":
+        kw["coords"] = (5, 7, 9, 2, 4, 1)
+    elif variant == "with_lse":
+        kw["with_lse"] = True
+    out = _forward(q, k, v, layout="bhnk" if variant == "layout" else "bnhk",
+                   **kw)
+    assert len(ops._fwd_plans) == 2
+    second = _block(launches)
+    if variant == "stride":
+        assert list(second.strides)[:3] == [37 * 3 * 72, 72, 3 * 72]
+        assert list(first.strides)[:3] == [37 * 3 * 64, 64, 3 * 64]
+    elif variant == "dtype":
+        assert (first.dtype, second.dtype) == (1, 0)
+        assert launches[-1][0] == "vtd_flash_attention_fwd"
+    elif variant == "layout":
+        assert (second.heads, second.seq_len) == (37, 3)
+    elif variant == "coords":
+        assert [getattr(second, f) for f in (
+            "bh_base", "q_base", "k_base", "inner_local", "inner_global",
+            "inner_base")] == [5, 7, 9, 2, 4, 1]
+        assert first.bh_base == 0 and first.inner_local == 1
+    else:
+        assert out[1].shape == (2, 3, 37) and launches[-1][1][5] is not None
+        assert launches[-2][1][5] is None
+
+
+@pytest.mark.parametrize("dtype,shift", [(torch.bfloat16, 1),
+                                         (torch.float32, 2)])
+def test_a_pointer_off_16_bytes_is_not_served_the_aligned_plan(
+        launches, dtype, shift):
+    """The key holds each pointer mod 16: a view of the same shape and
+    strides that starts off a 16-byte boundary builds its own plan, which
+    raises the check's ValueError, word for word."""
+    q, k, v = _operands(dtype=dtype, width=72)
+    _forward(q, k, v)
+    k_off = _operands(dtype=dtype, width=72 - shift, shift=shift)[0]
+    assert k_off.stride() == k.stride()
+    message = (f"k starts {shift * k.element_size()} bytes past a 16-byte "
+               "boundary; the flash kernels read 16-byte-aligned rows with a "
+               "unit head-dim stride")
+    with pytest.raises(ValueError, match=f"^{re.escape(message)}$"):
+        _forward(q, k_off, v)
+    assert len(launches) == 1
+
+
+def test_mixed_dtypes_raise_the_checks_text(launches):
+    q, k, v = _operands()
+    with pytest.raises(ValueError, match=re.escape(
+            "the kernels take float32 or bfloat16 tensors of one dtype, got "
+            "torch.bfloat16, torch.float32, torch.bfloat16")):
+        _forward(q, k.float(), v)
+    with pytest.raises(ValueError, match=re.escape(
+            "q/k/v (and g) must share one 4-D shape, got (2, 37, 3, 64), "
+            "(2, 36, 3, 64), (2, 37, 3, 64)")):
+        _forward(q, k[:, 1:], v)
+    assert not launches and not ops._fwd_plans
+
+
+def test_backward_side_inputs_raise_the_checks_text(launches):
+    q, k, v, g = _operands(count=4)
+    lse = torch.zeros(2, 3, 37)
+    with pytest.raises(ValueError, match=re.escape(
+            "delta must be a contiguous float32 (2, 3, 37) tensor on cpu, "
+            "got (2, 3, 37) torch.bfloat16 on cpu")):
+        ops._flash_bwd_cuda(q, k, v, g, lse, lse.bfloat16(), "bnhk", None,
+                            0.0)
+    assert not launches
+
+
+def test_the_plan_cache_stays_bounded(launches):
+    """Past PLAN_CACHE_SIZE signatures the cache is emptied and refilled:
+    never larger, and every call still launches with its own block."""
+    q, k, v = _operands(shape=(1, 8, 1, 64))
+    for base in range(ops.PLAN_CACHE_SIZE + 40):
+        _forward(q, k, v, coords=(base, 0, 0, 1, 1, 0))
+        assert len(ops._fwd_plans) <= ops.PLAN_CACHE_SIZE
+        assert _block(launches).bh_base == base
+    assert len(ops._fwd_plans) == 40
+
+
+def test_counts_move_once_per_call(launches):
+    """Each call adds one to its route's counter (and to the wgmma count
+    where bf16 K <= 128 runs), as the counters read before."""
+    f = fa.flash_attention
+    q, k, v, g = _operands(count=4)
+    before = {name: getattr(f, name) for name in COUNTERS}
+    _forward(q, k, v)
+    _forward(q, k, v, with_lse=True)
+    lse = torch.zeros(2, 3, 37)
+    ops._flash_bwd_cuda(q, k, v, g, lse, lse, "bnhk", None, 0.0)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    _forward(q32, k32, v32)
+    moved = {name: getattr(f, name) - n for name, n in before.items()}
+    assert moved == {"launches": 2, "lse_launches": 1, "drop_launches": 0,
+                     "wgmma_launches": 2, "backward_launches": 1,
+                     "backward_drop_launches": 0,
+                     "wgmma_backward_launches": 1, "operand_copies": 0}
+
+
+@pytest.mark.parametrize("dtype,kdim,dq_fp32,kind,dq_dtype,dq_bf16,cast", [
+    (torch.bfloat16, 64, False, "bwd_sm90", torch.bfloat16, 1, False),
+    (torch.bfloat16, 80, False, "bwd_sm90", torch.bfloat16, 1, False),
+    (torch.bfloat16, 64, True, "bwd_sm90", torch.float32, 0, False),
+    (torch.bfloat16, 192, False, "bwd_wide", torch.float32, 0, True),
+    (torch.float32, 64, False, "bwd", torch.float32, 0, False),
+])
+def test_backward_writes_dq_in_q_dtype_on_the_wgmma_route(
+        launches, dtype, kdim, dq_fp32, kind, dq_dtype, dq_bf16, cast):
+    """Without dq_fp32 the wgmma dq kernel writes dq in bf16 itself (no
+    cast launch); the mma.sync and wide routes write fp32 and the operator
+    casts; with dq_fp32 dq stays fp32."""
+    q, k, v, g = _operands(shape=(2, 37, 3, kdim), dtype=dtype, count=4)
+    lse = torch.zeros(2, 3, 37)
+    plan = ops.backward_plan(q, k, v, g, lse, lse, "bnhk", None, 0.0, 0,
+                             (0, 0, 0, 1, 1, 0), False, dq_fp32)
+    assert (plan.kind, plan.outputs[0][2], plan.args.dq_bf16,
+            plan.cast_dq) == (kind, dq_dtype, dq_bf16, cast)
+    dq, dk, dv = ops._flash_bwd_cuda(q, k, v, g, lse, lse, "bnhk", None, 0.0,
+                                     dq_fp32=dq_fp32)
+    assert dq.dtype == (torch.float32 if dq_fp32 else dtype)
+    assert dq.shape == q.shape and dk.dtype == dv.dtype == dtype
+
+
+def test_backward_fake_gives_dq_in_q_dtype_without_dq_fp32():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        q = torch.empty(2, 37, 3, 64, dtype=torch.bfloat16)
+        lse = torch.empty(2, 3, 37)
+        dq, dk, dv = torch.ops.vtd_torch.flash_attention_bwd(
+            q, q, q, q, lse, lse, "bnhk", None, 0.0, dq_fp32=False)
+        assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+
+
+def test_the_wrapper_casts_no_dq(launches, monkeypatch):
+    """``_launch_backward`` hands dq over as the operator returns it: in
+    q's dtype unless fp32_dq, with no cast of its own (the dispatcher has
+    no CPU kernel, so the operator's CUDA implementation is called
+    directly)."""
+    monkeypatch.setattr(fa, "_BWD_OP", ops._flash_bwd_cuda)
+    q, k, v, g = _operands(count=4)
+    lse = torch.zeros(2, 3, 37)
+    dq, _, _ = fa._launch_backward(q, k, v, g, lse, lse, "bnhk")
+    assert dq.dtype == torch.bfloat16
+    dq, _, _ = fa._launch_backward(q, k, v, g, lse, lse, "bnhk",
+                                   fp32_dq=True)
+    assert dq.dtype == torch.float32
+    assert [ops.BwdArgs.from_address(args[0]).dq_bf16
+            for _, args in launches] == [1, 0]
+
+
+@pytest.mark.parametrize("offsets", [(1, 2), (1, 2, 3, 4), (0, 0, 0, 0, 1, 0)])
+def test_malformed_offsets_raise_before_a_launch(launches, offsets):
+    """Offsets of another length than 3 or 6, or a row map with
+    inner_local 0, raise mask_coords' ValueError from the wrapper or the
+    plan, and nothing launches."""
+    q, k, v = _operands()
+    with pytest.raises(ValueError, match="with inner_local >= 1"):
+        ops._flash_fwd_cuda(q, k, v, "bnhk", False, None, 0.0,
+                            *fa._coords(offsets))
+    assert not launches

@@ -16,7 +16,7 @@
 //   p  = exp(q k^T - lse),  scale = keep / (1 - rate) (1 without dropout)
 //   dv = (scale * p)^T g     (scale * p rounded to bf16 first)
 //   ds = p * (scale * (g v^T) - delta)   (rounded to bf16)
-//   dk = ds^T q,   dq = ds k            (fp32 accumulation, dq in fp32)
+//   dk = ds^T q,   dq = ds k            (fp32 accumulation)
 // with the keep mask of `dropout_keep_mask` (dropout_mask.cuh) at the
 // global (batch*head, query, key) coordinates, as the forward drew it.
 //
@@ -76,8 +76,10 @@
 //     products; S = Q K^T and dP = g V^T by wgmma, dS in fp32 from lse
 //     and delta in registers, dq += dS_bf16 K with K as an MN-major B; dq
 //     summed so in key order, ((c0 + c1) + c2) + ..., in the accumulator
-//     and written once in fp32, with no atomics: the same on every run, as
-//     the Pallas kernel's resident dq block is. It never calls the hash;
+//     and written once, with no atomics: the same on every run, as the
+//     Pallas kernel's resident dq block is; in fp32, or rounded once to
+//     bf16 when the caller asks for dq in q's dtype (no cast launch
+//     follows). It never calls the hash;
 //   * a captured CUDA graph replays both launches with the seed read from
 //     device memory, as the forward does.
 // Not done here: a persistent tile scheduler, overlapping one tile's
@@ -96,6 +98,7 @@
 #include <cstdint>
 
 #include "dropout_mask.cuh"
+#include "flash_launch.cuh"
 #include "mma_sm90.cuh"
 #include "sm90_common.cuh"
 
@@ -466,8 +469,9 @@ __device__ __forceinline__ void load_keep_words(
 
 // dq: block blockIdx.x is query tile blockIdx.x % q_tiles of batch*head
 // blockIdx.x / q_tiles; the 64-key tiles in order, dq = ((c0 + c1) + c2)
-// + ... in the accumulator. With kDropout the keep mask comes from the
-// words the dk/dv kernel wrote.
+// + ... in the accumulator, stored in fp32 or, with dq_bf16, rounded once
+// to bf16 (to nearest even, as a cast of the fp32 sum rounds it). With
+// kDropout the keep mask comes from the words the dk/dv kernel wrote.
 template <int D, bool kDropout>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
@@ -476,7 +480,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tg,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         float* __restrict__ dq,
+                         void* __restrict__ dq, int dq_bf16,
                          const uint32_t* __restrict__ bits, int heads,
                          int seq_len, int kdim, int q_tiles, Strides sdq,
                          Dropout drop) {
@@ -633,8 +637,14 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       keep_words[r][1] = next_words[r][1];
     }
   }
-  store_rows<D / 8>(dq_acc, dq + b * sdq.b + h * sdq.h, sdq.n, row0,
-                    seq_len, kdim, t);
+  const long long dq_row0 = b * sdq.b + h * sdq.h;
+  if (dq_bf16 != 0) {
+    store_rows<D / 8>(dq_acc, static_cast<bf16*>(dq) + dq_row0, sdq.n, row0,
+                      seq_len, kdim, t);
+  } else {
+    store_rows<D / 8>(dq_acc, static_cast<float*>(dq) + dq_row0, sdq.n,
+                      row0, seq_len, kdim, t);
+  }
 }
 
 struct Launch {
@@ -644,7 +654,8 @@ struct Launch {
   const void* g;
   const float* lse;
   const float* delta;
-  float* dq;
+  void* dq;
+  int dq_bf16;
   void* dk;
   void* dv;
   uint32_t* bits;
@@ -663,8 +674,6 @@ bool encode_map(CUtensorMap* map, const void* ptr, const Launch& a,
 template <int D, bool kDropout, typename O>
 cudaError_t launch_kernels(const Launch& a) {
   using S = Shape<D, query_tile<D, kDropout>()>;
-  cudaError_t err = make_context_current();
-  if (err != cudaSuccess) return err;
   // 64-row boxes of all four, and the dk/dv kernel's query tiles of q and
   // g (the same maps where kQuery is 64: each encoding costs host time).
   CUtensorMap tq, tk, tv, tg, tq_tile, tg_tile;
@@ -686,7 +695,7 @@ cudaError_t launch_kernels(const Launch& a) {
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   static std::atomic<unsigned long long> smem_allowed{0}, dq_allowed{0};
   auto dkdv = flash_bwd_sm90_kernel<D, kDropout, O>;
-  err = allow_dynamic_smem(dkdv, S::kSmem, smem_allowed);
+  cudaError_t err = allow_dynamic_smem(dkdv, S::kSmem, smem_allowed);
   if (err != cudaSuccess) return err;
   dkdv<<<static_cast<unsigned int>(blocks), kThreads, S::kSmem, a.stream>>>(
       tq_tile, tk, tv, tg_tile, a.lse, a.delta, static_cast<O*>(a.dk),
@@ -698,8 +707,8 @@ cudaError_t launch_kernels(const Launch& a) {
   err = allow_dynamic_smem(dq, S::kDqSmem, dq_allowed);
   if (err != cudaSuccess) return err;
   dq<<<static_cast<unsigned int>(blocks), kThreads, S::kDqSmem, a.stream>>>(
-      tq, tk, tv, tg, a.lse, a.delta, a.dq, a.bits, a.heads, a.seq_len,
-      a.kdim, tiles, a.sdq, a.drop);
+      tq, tk, tv, tg, a.lse, a.delta, a.dq, a.dq_bf16, a.bits, a.heads,
+      a.seq_len, a.kdim, tiles, a.sdq, a.drop);
   return cudaGetLastError();
 }
 
@@ -714,54 +723,50 @@ cudaError_t launch_dim(const Launch& a) {
 extern "C" {
 
 // The arguments of flash_bwd_common.cuh's vtd_flash_attention_bwd, for
-// bf16 (dtype 1) at head_dim K <= 128 with K % 8 == 0, except the tenth:
-// keep_bits, with dropout the (batch * heads, ceil(seq_len / 32),
+// bf16 (dtype 1) at head_dim K <= 128 with K % 8 == 0, except the tenth
+// pointer: keep_bits, with dropout the (batch * heads, ceil(seq_len / 32),
 // seq_len) uint32 workspace of the keep bits (the dk/dv kernel writes
 // every word, the dq kernel reads them), else null. dkv_fp32 1 writes dk
-// and dv in fp32 (a ring attention block), 0 in bf16; dq is fp32, every
-// element written. The instance is 64 for K <= 64, else 128; TMA
-// zero-fills the columns past K. Returns cudaGetLastError() after the
-// launches, or cudaErrorInvalidValue for what these kernels do not take
-// (and when a tensor map cannot be encoded).
-int vtd_flash_attention_bwd_sm90(
-    const void* q, const void* k, const void* v, const void* g,
-    const void* lse, const void* delta, void* dq, void* dk, void* dv,
-    void* keep_bits, int dtype, int dkv_fp32, int batch, int heads,
-    int seq_len, int head_dim, long long q_sb, long long q_sh,
-    long long q_sn, long long k_sb, long long k_sh, long long k_sn,
-    long long v_sb, long long v_sh, long long v_sn, long long g_sb,
-    long long g_sh, long long g_sn, long long dq_sb, long long dq_sh,
-    long long dq_sn, long long dk_sb, long long dk_sh, long long dk_sn,
-    long long dv_sb, long long dv_sh, long long dv_sn, int dropout,
-    const unsigned int* seed, unsigned int threshold, float inv_keep,
-    unsigned int bh_base, unsigned int q_base, unsigned int k_base,
-    unsigned int inner_local, unsigned int inner_global,
-    unsigned int inner_base, void* stream) {
-  if (dtype != 1 || batch <= 0 || heads <= 0 || seq_len <= 0 ||
-      head_dim <= 0 || head_dim > 128 || head_dim % 8 != 0) {
+// and dv in fp32 (a ring attention block), 0 in bf16; dq_bf16 1 writes dq
+// in bf16, 0 in fp32, every element written. The instance is 64 for
+// K <= 64, else 128; TMA zero-fills the columns past K. Returns
+// cudaGetLastError() after the launches, or cudaErrorInvalidValue for what
+// these kernels do not take (and when a tensor map cannot be encoded).
+int vtd_flash_attention_bwd_sm90(const FlashBwdArgs* args, const void* q,
+                                 const void* k, const void* v, const void* g,
+                                 const void* lse, const void* delta,
+                                 void* dq, void* dk, void* dv,
+                                 void* keep_bits, const unsigned int* seed,
+                                 void* stream) {
+  const FlashBwdArgs& p = *args;
+  if (p.dtype != 1 || p.batch <= 0 || p.heads <= 0 || p.seq_len <= 0 ||
+      p.head_dim <= 0 || p.head_dim > 128 || p.head_dim % 8 != 0) {
     return cudaErrorInvalidValue;
   }
-  if (dropout != 0 && (seed == nullptr || keep_bits == nullptr)) {
+  if (p.dropout != 0 && (seed == nullptr || keep_bits == nullptr)) {
     return cudaErrorInvalidValue;
   }
-  if (inner_local == 0) return cudaErrorInvalidValue;
+  if (p.inner_local == 0) return cudaErrorInvalidValue;
   const Launch a{q, k, v, g, static_cast<const float*>(lse),
-                 static_cast<const float*>(delta), static_cast<float*>(dq),
-                 dk, dv, static_cast<uint32_t*>(keep_bits), batch, heads,
-                 seq_len, head_dim, Strides{q_sb, q_sh, q_sn},
-                 Strides{k_sb, k_sh, k_sn}, Strides{v_sb, v_sh, v_sn},
-                 Strides{g_sb, g_sh, g_sn}, Strides{dq_sb, dq_sh, dq_sn},
-                 Strides{dk_sb, dk_sh, dk_sn}, Strides{dv_sb, dv_sh, dv_sn},
-                 Dropout{seed, threshold, inv_keep, bh_base, q_base, k_base,
-                         inner_local, inner_global, inner_base},
+                 static_cast<const float*>(delta), dq, p.dq_bf16 != 0 ? 1 : 0,
+                 dk, dv, static_cast<uint32_t*>(keep_bits), p.batch, p.heads,
+                 p.seq_len, p.head_dim, strides_of<Strides>(p.strides, 0),
+                 strides_of<Strides>(p.strides, 1),
+                 strides_of<Strides>(p.strides, 2),
+                 strides_of<Strides>(p.strides, 3),
+                 strides_of<Strides>(p.strides, 4),
+                 strides_of<Strides>(p.strides, 5),
+                 strides_of<Strides>(p.strides, 6), dropout_of(p, seed),
                  static_cast<cudaStream_t>(stream)};
+  const DeviceScope scope(p.device);
+  if (scope.error() != cudaSuccess) return scope.error();
   cudaError_t err;
-  if (dkv_fp32 != 0) {
-    err = dropout != 0 ? launch_dim<float, true>(a)
-                       : launch_dim<float, false>(a);
+  if (p.dkv_fp32 != 0) {
+    err = p.dropout != 0 ? launch_dim<float, true>(a)
+                         : launch_dim<float, false>(a);
   } else {
-    err = dropout != 0 ? launch_dim<bf16, true>(a)
-                       : launch_dim<bf16, false>(a);
+    err = p.dropout != 0 ? launch_dim<bf16, true>(a)
+                         : launch_dim<bf16, false>(a);
   }
   return static_cast<int>(err);
 }

@@ -98,6 +98,7 @@
 #include <type_traits>
 
 #include "flash_fwd_common.cuh"
+#include "flash_launch.cuh"
 
 namespace {
 
@@ -434,65 +435,55 @@ cudaError_t launch(bool dropout, const Launch& a) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (head_dim > 128 only); out_fp32: 1
-// writes the output in fp32 whatever the input dtype (a ring attention
-// block), 0 in the input dtype. head_dim: the caller's K, with K * the
-// element size a multiple of 16 bytes. Strides are in elements, for the
-// batch, head and token axes; the head dim must be contiguous and every
-// row 16-byte aligned. lse: nullptr, or a contiguous fp32 (batch, heads,
-// seq_len) array; m_in, l_in, acc_in and m_out, l_out: nullptr, or a ring
-// attention block's online-softmax state to resume from and to hand on
-// (RowState; acc_in has the output's strides), each needing an fp32
-// output. dropout: 0, or 1 with the device address of the uint32 seed, the
-// uint32 keep threshold (keep iff hash < threshold) and inv_keep = 1 / (1 -
-// rate) in fp32; bh_base, q_base and k_base: the global batch*head row,
-// query and key of the launch's first, and inner_local, inner_global and
-// inner_base the map of a local batch*head row to a global one
-// (dropout_mask.cuh; 0, 0, 0 and 1, 1, 0 for a launch over the whole
-// array). Returns cudaGetLastError() after the launch (0 on success).
-int vtd_flash_attention_fwd(const void* q, const void* k, const void* v,
-                            void* o, void* lse, const void* m_in,
-                            const void* l_in, const void* acc_in,
-                            void* m_out, void* l_out, int dtype,
-                            int out_fp32, int batch, int heads,
-                            int seq_len, int head_dim,
-                            long long q_sb, long long q_sh, long long q_sn,
-                            long long k_sb, long long k_sh, long long k_sn,
-                            long long v_sb, long long v_sh, long long v_sn,
-                            long long o_sb, long long o_sh, long long o_sn,
-                            int dropout, const unsigned int* seed,
-                            unsigned int threshold, float inv_keep,
-                            unsigned int bh_base, unsigned int q_base,
-                            unsigned int k_base, unsigned int inner_local,
-                            unsigned int inner_global,
-                            unsigned int inner_base, void* stream) {
-  if (batch <= 0 || heads <= 0 || seq_len <= 0 || head_dim <= 0) {
+// One launch from the plan's argument block `args` (flash_launch.cuh) and
+// the call's device addresses and stream. dtype 0 = float32, 1 = bfloat16
+// (head_dim > 128 only); out_fp32 1 writes the output in fp32 whatever the
+// input dtype (a ring attention block), 0 in the input dtype. head_dim:
+// the caller's K, with K * the element size a multiple of 16 bytes; the
+// head dim must be contiguous and every row 16-byte aligned. lse: nullptr,
+// or a contiguous fp32 (batch, heads, seq_len) array; m_in, l_in, acc_in
+// and m_out, l_out: nullptr, or a ring attention block's online-softmax
+// state to resume from and to hand on (RowState; acc_in has the output's
+// strides), each needing an fp32 output. seed: with dropout, the device
+// address of the uint32 seed. Runs on args->device and restores the
+// caller's device. Returns cudaGetLastError() after the launch (0 on
+// success).
+int vtd_flash_attention_fwd(const FlashFwdArgs* args, const void* q,
+                            const void* k, const void* v, void* o,
+                            void* lse, const void* m_in, const void* l_in,
+                            const void* acc_in, void* m_out, void* l_out,
+                            const unsigned int* seed, void* stream) {
+  const FlashFwdArgs& p = *args;
+  if (p.batch <= 0 || p.heads <= 0 || p.seq_len <= 0 || p.head_dim <= 0) {
     return cudaErrorInvalidValue;
   }
-  if (dropout != 0 && seed == nullptr) return cudaErrorInvalidValue;
-  if (inner_local == 0) return cudaErrorInvalidValue;
+  if (p.dropout != 0 && seed == nullptr) return cudaErrorInvalidValue;
+  if (p.inner_local == 0) return cudaErrorInvalidValue;
   const RowState state{static_cast<float*>(lse),
                        static_cast<const float*>(m_in),
                        static_cast<const float*>(l_in),
                        static_cast<const float*>(acc_in),
                        static_cast<float*>(m_out),
                        static_cast<float*>(l_out)};
-  if (!state_ok(state, dtype == 0 || out_fp32 != 0)) {
+  if (!state_ok(state, p.dtype == 0 || p.out_fp32 != 0)) {
     return cudaErrorInvalidValue;
   }
-  const Launch a{q, k, v, o, state, batch, heads, seq_len, head_dim,
-                 Strides{q_sb, q_sh, q_sn}, Strides{k_sb, k_sh, k_sn},
-                 Strides{v_sb, v_sh, v_sn}, Strides{o_sb, o_sh, o_sn},
-                 Dropout{seed, threshold, inv_keep, bh_base, q_base, k_base,
-                         inner_local, inner_global, inner_base},
+  const Launch a{q, k, v, o, state, p.batch, p.heads, p.seq_len, p.head_dim,
+                 strides_of<Strides>(p.strides, 0),
+                 strides_of<Strides>(p.strides, 1),
+                 strides_of<Strides>(p.strides, 2),
+                 strides_of<Strides>(p.strides, 3), dropout_of(p, seed),
                  static_cast<cudaStream_t>(stream)};
+  const DeviceScope scope(p.device);
+  if (scope.error() != cudaSuccess) return scope.error();
+  const bool dropout = p.dropout != 0;
   cudaError_t err;
-  if (dtype == 0) {
-    err = launch<float, float>(dropout != 0, a);
-  } else if (dtype == 1 && out_fp32 != 0) {
-    err = launch<__nv_bfloat16, float>(dropout != 0, a);
-  } else if (dtype == 1) {
-    err = launch<__nv_bfloat16, __nv_bfloat16>(dropout != 0, a);
+  if (p.dtype == 0) {
+    err = launch<float, float>(dropout, a);
+  } else if (p.dtype == 1 && p.out_fp32 != 0) {
+    err = launch<__nv_bfloat16, float>(dropout, a);
+  } else if (p.dtype == 1) {
+    err = launch<__nv_bfloat16, __nv_bfloat16>(dropout, a);
   } else {
     return cudaErrorInvalidValue;
   }

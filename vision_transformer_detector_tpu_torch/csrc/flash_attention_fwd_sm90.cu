@@ -90,6 +90,7 @@
 #include <mutex>
 
 #include "flash_fwd_common.cuh"
+#include "flash_launch.cuh"
 #include "sm90_common.cuh"
 
 namespace {
@@ -279,8 +280,6 @@ struct Launch {
 template <int D, bool kDropout, typename O>
 cudaError_t launch_kernel(const Launch& a) {
   using S = Shape<D>;
-  cudaError_t err = make_context_current();
-  if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
   if (!encode(&tq, a.q, a.kdim, a.seq_len, a.heads, a.batch, a.sq.b, a.sq.h,
               a.sq.n, kRows) ||
@@ -292,7 +291,7 @@ cudaError_t launch_kernel(const Launch& a) {
   }
   static std::atomic<unsigned long long> smem_allowed{0};
   auto kernel = flash_fwd_sm90_kernel<D, kDropout, O>;
-  err = allow_dynamic_smem(kernel, S::kSmem, smem_allowed);
+  const cudaError_t err = allow_dynamic_smem(kernel, S::kSmem, smem_allowed);
   if (err != cudaSuccess) return err;
   const int q_tiles = (a.seq_len + kRows - 1) / kRows;
   const long long blocks = static_cast<long long>(a.batch) * a.heads * q_tiles;
@@ -319,43 +318,41 @@ extern "C" {
 // 64 for K <= 64, else 128; TMA zero-fills the columns past K. Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for what
 // this kernel does not take (and when a tensor map cannot be encoded).
-int vtd_flash_attention_fwd_sm90(
-    const void* q, const void* k, const void* v, void* o, void* lse,
-    const void* m_in, const void* l_in, const void* acc_in, void* m_out,
-    void* l_out, int dtype, int out_fp32, int batch, int heads, int seq_len,
-    int head_dim, long long q_sb, long long q_sh, long long q_sn,
-    long long k_sb, long long k_sh, long long k_sn, long long v_sb,
-    long long v_sh, long long v_sn, long long o_sb, long long o_sh,
-    long long o_sn, int dropout, const unsigned int* seed,
-    unsigned int threshold, float inv_keep, unsigned int bh_base,
-    unsigned int q_base, unsigned int k_base, unsigned int inner_local,
-    unsigned int inner_global, unsigned int inner_base, void* stream) {
-  if (dtype != 1 || batch <= 0 || heads <= 0 || seq_len <= 0 ||
-      head_dim <= 0 || head_dim > 128 || head_dim % 8 != 0) {
+int vtd_flash_attention_fwd_sm90(const FlashFwdArgs* args, const void* q,
+                                 const void* k, const void* v, void* o,
+                                 void* lse, const void* m_in,
+                                 const void* l_in, const void* acc_in,
+                                 void* m_out, void* l_out,
+                                 const unsigned int* seed, void* stream) {
+  const FlashFwdArgs& p = *args;
+  if (p.dtype != 1 || p.batch <= 0 || p.heads <= 0 || p.seq_len <= 0 ||
+      p.head_dim <= 0 || p.head_dim > 128 || p.head_dim % 8 != 0) {
     return cudaErrorInvalidValue;
   }
-  if (dropout != 0 && seed == nullptr) return cudaErrorInvalidValue;
-  if (inner_local == 0) return cudaErrorInvalidValue;
+  if (p.dropout != 0 && seed == nullptr) return cudaErrorInvalidValue;
+  if (p.inner_local == 0) return cudaErrorInvalidValue;
   const RowState state{static_cast<float*>(lse),
                        static_cast<const float*>(m_in),
                        static_cast<const float*>(l_in),
                        static_cast<const float*>(acc_in),
                        static_cast<float*>(m_out),
                        static_cast<float*>(l_out)};
-  if (!state_ok(state, out_fp32 != 0)) return cudaErrorInvalidValue;
-  const Launch a{q, k, v, o, state, batch, heads, seq_len, head_dim,
-                 Strides{q_sb, q_sh, q_sn}, Strides{k_sb, k_sh, k_sn},
-                 Strides{v_sb, v_sh, v_sn}, Strides{o_sb, o_sh, o_sn},
-                 Dropout{seed, threshold, inv_keep, bh_base, q_base, k_base,
-                         inner_local, inner_global, inner_base},
+  if (!state_ok(state, p.out_fp32 != 0)) return cudaErrorInvalidValue;
+  const Launch a{q, k, v, o, state, p.batch, p.heads, p.seq_len, p.head_dim,
+                 strides_of<Strides>(p.strides, 0),
+                 strides_of<Strides>(p.strides, 1),
+                 strides_of<Strides>(p.strides, 2),
+                 strides_of<Strides>(p.strides, 3), dropout_of(p, seed),
                  static_cast<cudaStream_t>(stream)};
+  const DeviceScope scope(p.device);
+  if (scope.error() != cudaSuccess) return scope.error();
   cudaError_t err;
-  if (out_fp32 != 0) {
-    err = dropout != 0 ? launch_dim<float, true>(a)
-                       : launch_dim<float, false>(a);
+  if (p.out_fp32 != 0) {
+    err = p.dropout != 0 ? launch_dim<float, true>(a)
+                         : launch_dim<float, false>(a);
   } else {
-    err = dropout != 0 ? launch_dim<bf16, true>(a)
-                       : launch_dim<bf16, false>(a);
+    err = p.dropout != 0 ? launch_dim<bf16, true>(a)
+                         : launch_dim<bf16, false>(a);
   }
   return static_cast<int>(err);
 }

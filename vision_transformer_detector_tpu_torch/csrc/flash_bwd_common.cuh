@@ -14,6 +14,7 @@
 #include <type_traits>
 
 #include "dropout_mask.cuh"
+#include "flash_launch.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
@@ -252,65 +253,58 @@ cudaError_t launch(bool dropout, const Launch& a);
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, g, and dk, dv unless
-// dkv_fp32, which writes them in fp32: a ring attention block's dk and dv
-// join fp32 sums unrounded); dq is fp32, every
-// element written by the kernels; lse and delta are contiguous fp32 (batch,
-// heads, seq_len). dq_partials: null for the split route, or, in fp32
-// only, a (tiles, batch * heads, seq_len, head_dim) fp32 workspace for the
-// partials route, tiles = ceil(seq_len / 64); dq's rows must then be
-// 16-byte aligned too.
+// One launch from the plan's argument block `args` (flash_launch.cuh) and
+// the call's device addresses and stream. dtype 0 = float32, 1 = bfloat16
+// (q, k, v, g, and dk, dv unless dkv_fp32, which writes them in fp32: a
+// ring attention block's dk and dv join fp32 sums unrounded); dq is fp32
+// (dq_bf16 must be 0 here), every element written by the kernels; lse and
+// delta are contiguous fp32 (batch, heads, seq_len). dq_partials: null
+// for the split route, or, in fp32 only, a (tiles, batch * heads,
+// seq_len, head_dim) fp32 workspace for the partials route, tiles =
+// ceil(seq_len / 64); dq's rows must then be 16-byte aligned too.
 // head_dim: the caller's K, with K * the element size a multiple of 16
-// bytes. Strides are in elements, for the batch, head and token axes; the
-// head dim must be contiguous and every row 16-byte aligned. dropout: 0,
-// or 1 with the device address of the
-// forward's uint32 seed, the keep threshold and fp32 1 / (1 - rate); delta
-// is then rowsum(g * out) of the dropped output; bh_base, q_base and
-// k_base: the global batch*head row, query and key of the launch's first,
-// and inner_local, inner_global and inner_base the map of a local
-// batch*head row to a global one (dropout_mask.cuh; 0, 0, 0 and 1, 1, 0
-// for a launch over the whole array). Returns the CUDA error of the launch
-// (0 on success).
-int vtd_flash_attention_bwd(
-    const void* q, const void* k, const void* v, const void* g,
-    const void* lse, const void* delta, void* dq, void* dk, void* dv,
-    void* dq_partials, int dtype, int dkv_fp32, int batch, int heads,
-    int seq_len, int head_dim,
-    long long q_sb, long long q_sh, long long q_sn, long long k_sb,
-    long long k_sh, long long k_sn, long long v_sb, long long v_sh,
-    long long v_sn, long long g_sb, long long g_sh, long long g_sn,
-    long long dq_sb, long long dq_sh, long long dq_sn, long long dk_sb,
-    long long dk_sh, long long dk_sn, long long dv_sb, long long dv_sh,
-    long long dv_sn, int dropout, const unsigned int* seed,
-    unsigned int threshold, float inv_keep, unsigned int bh_base,
-    unsigned int q_base, unsigned int k_base, unsigned int inner_local,
-    unsigned int inner_global, unsigned int inner_base, void* stream) {
-  if (batch <= 0 || heads <= 0 || seq_len <= 0 || head_dim <= 0) {
+// bytes; the head dim must be contiguous and every row 16-byte aligned.
+// seed: with dropout, the device address of the forward's uint32 seed;
+// delta is then rowsum(g * out) of the dropped output. Runs on
+// args->device and restores the caller's device. Returns the CUDA error of
+// the launch (0 on success).
+int vtd_flash_attention_bwd(const FlashBwdArgs* args, const void* q,
+                            const void* k, const void* v, const void* g,
+                            const void* lse, const void* delta, void* dq,
+                            void* dk, void* dv, void* dq_partials,
+                            const unsigned int* seed, void* stream) {
+  const FlashBwdArgs& p = *args;
+  if (p.batch <= 0 || p.heads <= 0 || p.seq_len <= 0 || p.head_dim <= 0 ||
+      p.dq_bf16 != 0) {
     return cudaErrorInvalidValue;
   }
-  if (dropout != 0 && seed == nullptr) return cudaErrorInvalidValue;
-  if (inner_local == 0) return cudaErrorInvalidValue;
-  if (dq_partials != nullptr && head_dim % 4 != 0) {
+  if (p.dropout != 0 && seed == nullptr) return cudaErrorInvalidValue;
+  if (p.inner_local == 0) return cudaErrorInvalidValue;
+  if (dq_partials != nullptr && p.head_dim % 4 != 0) {
     return cudaErrorInvalidValue;
   }
   const Launch a{q, k, v, g, static_cast<const float*>(lse),
                  static_cast<const float*>(delta), static_cast<float*>(dq),
-                 dk, dv, static_cast<float*>(dq_partials), batch, heads,
-                 seq_len, head_dim, Strides{q_sb, q_sh, q_sn},
-                 Strides{k_sb, k_sh, k_sn}, Strides{v_sb, v_sh, v_sn},
-                 Strides{g_sb, g_sh, g_sn}, Strides{dq_sb, dq_sh, dq_sn},
-                 Strides{dk_sb, dk_sh, dk_sn}, Strides{dv_sb, dv_sh, dv_sn},
-                 Dropout{seed, threshold, inv_keep, bh_base, q_base, k_base,
-                         inner_local, inner_global, inner_base},
+                 dk, dv, static_cast<float*>(dq_partials), p.batch, p.heads,
+                 p.seq_len, p.head_dim, strides_of<Strides>(p.strides, 0),
+                 strides_of<Strides>(p.strides, 1),
+                 strides_of<Strides>(p.strides, 2),
+                 strides_of<Strides>(p.strides, 3),
+                 strides_of<Strides>(p.strides, 4),
+                 strides_of<Strides>(p.strides, 5),
+                 strides_of<Strides>(p.strides, 6), dropout_of(p, seed),
                  static_cast<cudaStream_t>(stream)};
+  const DeviceScope scope(p.device);
+  if (scope.error() != cudaSuccess) return scope.error();
+  const bool dropout = p.dropout != 0;
   cudaError_t err;
-  if (dtype == 0) {
-    err = launch<float, float>(dropout != 0, a);
-  } else if (dtype == 1 && dkv_fp32 != 0) {
+  if (p.dtype == 0) {
+    err = launch<float, float>(dropout, a);
+  } else if (p.dtype == 1 && p.dkv_fp32 != 0) {
     if (dq_partials != nullptr) return cudaErrorInvalidValue;
-    err = launch<__nv_bfloat16, float>(dropout != 0, a);
-  } else if (dtype == 1) {
-    err = launch<__nv_bfloat16, __nv_bfloat16>(dropout != 0, a);
+    err = launch<__nv_bfloat16, float>(dropout, a);
+  } else if (p.dtype == 1) {
+    err = launch<__nv_bfloat16, __nv_bfloat16>(dropout, a);
   } else {
     return cudaErrorInvalidValue;
   }

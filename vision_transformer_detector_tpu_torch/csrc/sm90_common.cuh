@@ -354,20 +354,4 @@ inline bool encode(CUtensorMap* map, const void* ptr, int kdim, int seq_len,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The driver call that encodes the tensor maps needs the device's context
-// current in this host thread, which a thread that has made no runtime call
-// yet (a server's handler thread) lacks; cudaSetDevice makes it current,
-// once per thread and device (the runtime keeps it current until the
-// thread selects another device).
-inline cudaError_t make_context_current() {
-  thread_local int context_device = -1;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess && device != context_device) {
-    err = cudaSetDevice(device);
-    if (err == cudaSuccess) context_device = device;
-  }
-  return err;
-}
-
 }  // namespace

@@ -47,9 +47,16 @@ in order, so the gradients are the same on every run (``DQ_ROUTES``:
 fp32 stores each key tile's contribution and adds them in a second
 kernel; bf16 runs a dq kernel after the dk/dv kernel, which with dropout
 also writes the keep bits it drew, packed (``pack_keep_bits``), for the dq
-kernel to read instead of hashing each score again). Calls that need
-no grad (serving, ``torch.inference_mode``) launch the forward alone,
-without the logsumexp.
+kernel to read instead of hashing each score again, and which at K <=
+128 rounds dq to bf16 itself: no cast follows). Calls that need no grad
+(serving, ``torch.inference_mode``) launch the forward alone, without the
+logsumexp.
+
+The operators validate once per call signature: kernels/ops.py keeps a
+launch plan (the checks passed, the kernel, the C arguments but the data
+pointers) for each combination of shapes, strides, dtypes, pointers mod
+16, flags and mask coordinates, so a call that repeats one only
+allocates its outputs and launches.
 
 ``dropout_rate``/``dropout_seed`` turn on the JAX kernel's in-kernel
 probability dropout (training; keras-MHA semantics). The seed is an
@@ -189,6 +196,7 @@ def seed_tensor(seed: int, device) -> torch.Tensor:
 
 
 IDENTITY_MAP = (1, 1, 0)
+IDENTITY_COORDS = (0, 0, 0) + IDENTITY_MAP
 
 
 def mask_coords(offsets) -> tuple:
@@ -197,6 +205,9 @@ def mask_coords(offsets) -> tuple:
     to the identity) or all six (module docstring); the bases reduced mod
     2**32. Raises ValueError for another length or an ``inner_local``
     below 1."""
+    if type(offsets) is tuple and (offsets == (0, 0, 0)
+                                   or offsets == IDENTITY_COORDS):
+        return IDENTITY_COORDS
     offsets = tuple(int(o) for o in offsets)
     if len(offsets) == 3:
         offsets += IDENTITY_MAP
@@ -395,12 +406,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if layout not in ("bnhk", "bhnk"):
         raise ValueError(f"unknown layout {layout!r}")
     dropout = _dropout_args(dropout_rate, dropout_seed)
-    devices = {t.device.type for t in (q, k, v)}
-    if devices not in ({"cpu"}, {"cuda"}):
-        raise ValueError(
-            f"flash_attention takes q/k/v all on the CPU or all on CUDA, "
-            f"got devices {sorted(devices)}")
-    use_kernel = devices == {"cuda"}
+    use_kernel = q.is_cuda and k.is_cuda and v.is_cuda
+    if not use_kernel:
+        devices = {t.device.type for t in (q, k, v)}
+        if devices != {"cpu"}:
+            raise ValueError(
+                f"flash_attention takes q/k/v all on the CPU or all on "
+                f"CUDA, got devices {sorted(devices)}")
     if use_kernel and dropout is not None:
         seed, rate = dropout
         if not isinstance(seed, torch.Tensor):
@@ -416,7 +428,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    dropout=dropout, offsets=offsets)
         return (reference_attention(q, k, v, layout, dropout, offsets),
                 reference_attention_lse(q, k, layout))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if ((q.requires_grad or k.requires_grad or v.requires_grad)
+            and torch.is_grad_enabled()):
         return FlashAttentionFunction.apply(q, k, v, layout, use_kernel,
                                             dropout, offsets)
     if use_kernel:
@@ -443,9 +456,13 @@ flash_attention.wgmma_backward_launches = 0
 flash_attention.operand_copies = 0
 
 
-def _count(name: str, n: int = 1) -> None:
+def _count(*names: str, n: int = 1) -> None:
+    """Add ``n`` to each named counter of ``flash_attention``, under the
+    lock: the server's handler threads launch concurrently, and an
+    unlocked ``+=`` can lose a count between its read and its write."""
     with _count_lock:
-        setattr(flash_attention, name, getattr(flash_attention, name) + n)
+        for name in names:
+            setattr(flash_attention, name, getattr(flash_attention, name) + n)
 
 
 def _check_inputs(*tensors) -> None:
@@ -543,7 +560,7 @@ def _addressable(tensors):
     kdim = tensors[0].shape[-1]
     if not _needs_copy(tensors[0]):
         return list(tensors), kdim
-    _count("operand_copies", len(tensors))
+    _count("operand_copies", n=len(tensors))
     return [_pad_head_dim(t) for t in tensors], kdim
 
 
@@ -588,16 +605,14 @@ def _axes(t: torch.Tensor, layout: str):
             (t.stride(0), t.stride(2), t.stride(1)))
 
 
-def _dropout_c_args(dropout, offsets=(0, 0, 0)) -> tuple:
-    """The kernels' (flag, seed address, threshold, inv_keep, bh_base,
-    q_base, k_base, inner_local, inner_global, inner_base) arguments for
-    ``(seed tensor, rate)`` and the mask's offsets (``mask_coords``)."""
-    offsets = mask_coords(offsets)
-    if dropout is None:
-        return (0, None, 0, 0.0) + offsets
-    seed, rate = dropout
-    return (1, seed.data_ptr(), _keep_threshold(rate),
-            1.0 / (1.0 - rate)) + offsets
+def _coords(offsets) -> tuple:
+    """The six mask coordinates the operators take: ``offsets`` as given,
+    the identity row map appended to three (the operator reduces and
+    checks them once per launch plan, kernels/ops.py); another length
+    raises ``mask_coords``' ValueError."""
+    if len(offsets) == 3:
+        return tuple(offsets) + IDENTITY_MAP
+    return tuple(offsets) if len(offsets) == 6 else mask_coords(offsets)
 
 
 def _launch_forward(q, k, v, layout: str, with_lse: bool = False,
@@ -612,18 +627,22 @@ def _launch_forward(q, k, v, layout: str, with_lse: bool = False,
     ``state`` (``(acc, m, l)``, as a suspended launch returns it) and,
     with ``suspend``, returns its own state in place of ``(out, lse)``:
     blocks chained so in key order compute what one launch over all the
-    keys computes."""
-    _check_inputs(q, k, v)
-    (q, k, v), kdim = _addressable((q, k, v))
+    keys computes. The checks of ``_check_inputs`` run here only when a
+    head dim is padded (before the copy); otherwise the operator runs
+    them once per launch plan, on the same tensors."""
+    kdim = None
+    if _needs_copy(q):
+        _check_inputs(q, k, v)
+        (q, k, v), kdim = _addressable((q, k, v))
     seed, rate = dropout or (None, 0.0)
     acc_in, m_in, l_in = state if state is not None else (None, None, None)
-    out, lse, m, l = torch.ops.vtd_torch.flash_attention_fwd(
-        q, k, v, layout, with_lse, seed, rate, *mask_coords(offsets),
-        out_fp32=out_fp32, acc_in=acc_in, m_in=m_in, l_in=l_in,
-        suspend=suspend)
+    out, lse, m, l = _FWD_OP(q, k, v, layout, with_lse, seed, rate,
+                             *_coords(offsets), out_fp32, acc_in, m_in, l_in,
+                             suspend)
     if suspend:
         return out, m, l          # at the width read, as the next reads it
-    out = out[..., :kdim] if kdim < out.shape[-1] else out
+    if kdim is not None:
+        out = out[..., :kdim]
     return (out, lse) if with_lse else out
 
 
@@ -657,22 +676,37 @@ def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None,
                      fp32_dq: bool = False, fp32_dkv: bool = False):
     """dq, dk, dv from the backward kernels, through
     ``torch.ops.vtd_torch.flash_attention_bwd`` (kernels/ops.py). lse and
-    delta are (B, H, N) fp32; dq accumulates in fp32 and is cast to q's
-    dtype here, dk and dv come out of the kernel in the input dtype.
+    delta are (B, H, N) fp32; dq accumulates in fp32 and comes out in q's
+    dtype (the bf16 wgmma dq kernel rounds it itself; the other routes'
+    operator casts it), dk and dv in the input dtype.
     ``dropout`` is the forward's ``(seed, rate)``, whose mask the kernel
     replays, reading the seed from device memory, placed by ``offsets``.
     ``route`` names one of ``DQ_ROUTES`` to take instead of the one the
     dtype selects (the tests and the timings use it). ``fp32_dq`` returns
     dq as the kernel summed it, in fp32, and ``fp32_dkv`` dk and dv (a ring
     attention step adds them to its accumulators before any rounding)."""
-    _check_inputs(q, k, v, g)
-    (q, k, v, g), kdim = _addressable((q, k, v, g))
+    kdim = None
+    if _needs_copy(q):
+        _check_inputs(q, k, v, g)
+        (q, k, v, g), kdim = _addressable((q, k, v, g))
     # The incoming cotangent is whatever view autograd hands over (an
     # expanded tensor, a transpose): it is made contiguous when the kernel
     # could not read it. q, k and v are the caller's and must already fit.
     if _misalignment(g, layout) is not None:
         g = g.contiguous()
         _count("operand_copies")
+    seed, rate = dropout or (None, 0.0)
+    dq, dk, dv = _BWD_OP(q, k, v, g, lse, delta, layout, seed, rate,
+                         DQ_ROUTES[route], *_coords(offsets), fp32_dkv,
+                         fp32_dq)
+    if kdim is not None:
+        dq, dk, dv = dq[..., :kdim], dk[..., :kdim], dv[..., :kdim]
+    return dq, dk, dv
+
+
+def _check_side_inputs(q, lse, delta, layout: str) -> None:
+    """The backward's checks of lse and delta: contiguous float32 ``(B, H,
+    N)`` on q's device."""
     (b, h, n), _ = _axes(q, layout)
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.shape != (b, h, n) or t.dtype != torch.float32
@@ -680,10 +714,8 @@ def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None,
             raise ValueError(
                 f"{name} must be a contiguous float32 {(b, h, n)} tensor on "
                 f"{q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
-    seed, rate = dropout or (None, 0.0)
-    dq, dk, dv = torch.ops.vtd_torch.flash_attention_bwd(
-        q, k, v, g, lse, delta, layout, seed, rate, DQ_ROUTES[route],
-        *mask_coords(offsets), dkv_fp32=fp32_dkv)
-    if kdim < dq.shape[-1]:
-        dq, dk, dv = dq[..., :kdim], dk[..., :kdim], dv[..., :kdim]
-    return (dq if fp32_dq else dq.to(q.dtype)), dk, dv
+
+
+# The two operators' default overloads, bound by kernels/ops.py when it
+# defines them (importing the package ``kernels`` does).
+_FWD_OP = _BWD_OP = None

@@ -5,12 +5,16 @@ No JAX counterpart: this is what lets ``torch.export`` (export.py) trace
 a model whose kernels are ``ctypes`` calls. Each launcher of the kernel
 modules is one operator with
 
-  * a CUDA implementation only: the ``ctypes`` launch on
-    ``torch.cuda.current_stream()``, the check of the CUDA error code it
-    returns, and the launch counters of the public wrapper, which count at
-    call time (in an exported program too);
+  * a CUDA implementation only: the ``ctypes`` launch on the current
+    stream, the check of the CUDA error code it returns, and the launch
+    counters of the public wrapper, which count at call time (in an
+    exported program too);
   * a fake implementation (``register_fake``) that gives the outputs'
     shapes, dtypes and strides and nothing else, for tracing.
+
+The two flash operators are defined through ``torch.library.Library``
+and launch from a plan built once per call signature (below, "B1 and
+B2"); the other five are ``custom_op``s that check every call.
 
 There is no CPU implementation: a CPU tensor handed to an operator
 raises NotImplementedError. The wrappers (kernels/flash_attention.py,
@@ -31,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch.library import custom_op
@@ -71,16 +75,11 @@ def _library(kind: str) -> ctypes.CDLL:
     lib = _build.load_library(_SOURCES[kind])
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     u32 = ctypes.c_uint32
-    # dropout flag, the seed's device address, keep threshold, inv_keep,
-    # the mask's bh/query/key offsets and its batch*head row map, then the
-    # stream.
-    dropout = [i32, ptr, u32, ctypes.c_float] + [u32] * 6 + [ptr]
-    if kind in ("fwd", "fwd_sm90"):
+    if kind in ("fwd", "fwd_sm90", "bwd", "bwd_wide", "bwd_sm90"):
+        # The plan's argument block (csrc/flash_launch.cuh), ten device
+        # addresses, the dropout seed's and the stream.
         fn = getattr(lib, _entry(kind))
-        fn.argtypes = [ptr] * 10 + [i32] * 6 + [i64] * 12 + dropout
-    elif kind in ("bwd", "bwd_wide", "bwd_sm90"):
-        fn = getattr(lib, _entry(kind))
-        fn.argtypes = [ptr] * 10 + [i32] * 6 + [i64] * 21 + dropout
+        fn.argtypes = [ptr] * 13
     elif kind == "ln":
         fn = lib.vtd_layer_norm
         fn.argtypes = [ptr] * 4 + [i32] * 2 + [ctypes.c_float, i32, ptr]
@@ -121,48 +120,164 @@ def _dropout(seed: Optional[torch.Tensor], rate: float, device):
 
 
 # ---------------------------------------------------------------------------
-# B1: flash-attention forward (plain, with lse, with dropout)
+# B1 and B2: the flash-attention operators and their launch plans
 # ---------------------------------------------------------------------------
+#
+# The two flash operators are defined through ``torch.library.Library``
+# (``define``, ``impl(..., "CUDA")``, ``register_fake``): the dispatcher
+# calls the CUDA implementation below with no Python layer of its own in
+# between (``custom_op`` adds one, and an autograd kernel in Python, which
+# these operators do not need: the wrappers' autograd Functions call
+# them). Their schemas are the ones ``custom_op`` gave them before, plus
+# the backward's trailing ``dq_fp32``, so saved programs keep their nodes.
+#
+# A call looks up its launch plan by everything the checks and the C
+# arguments depend on but the data pointers: the operands' shapes, strides,
+# dtypes, devices and pointers mod 16, the flags, the dropout rate and the
+# mask's coordinates. A plan is built once: it runs every check (each
+# ValueError word for word as before), picks the kernel, loads its library
+# and fills the scalar block the C entry point reads (FwdArgs, BwdArgs:
+# csrc/flash_launch.cuh). A call then allocates its outputs, reads the
+# pointers and the current stream, and launches: one ctypes call of a
+# dozen arguments.
 
-@_define("flash_attention_fwd")
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        layout: str, with_lse: bool,
-                        dropout_seed: Optional[torch.Tensor],
-                        dropout_rate: float, bh_base: int = 0,
-                        q_base: int = 0, k_base: int = 0,
-                        inner_local: int = 1, inner_global: int = 1,
-                        inner_base: int = 0, out_fp32: bool = False,
-                        acc_in: Optional[torch.Tensor] = None,
-                        m_in: Optional[torch.Tensor] = None,
-                        l_in: Optional[torch.Tensor] = None,
-                        suspend: bool = False
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                   torch.Tensor]:
-    """``(out, lse, m, l)`` of softmax(q k^T) v over ``layout``-ordered
-    q/k/v at their own head dim K (rows 16-byte aligned). lse is ``(B,
-    H, N)`` fp32 with ``with_lse``, else empty; out is in q's dtype, or
-    fp32 with ``out_fp32``. A ring attention block (fp32 out) carries the
-    online softmax's state: ``acc_in`` (out's shape and strides), ``m_in``
-    ``(B, H, N)`` and ``l_in`` ``(B, H, N, 4)`` resume it as the block
-    before suspended it; with ``suspend`` out is the unnormalised
-    accumulator, m and l the state to hand on (else empty), and no lse is
-    written. ``dropout_rate`` 0 means no dropout; otherwise
-    ``dropout_seed`` is the one-element device tensor the kernel reads the
-    seed from, and ``bh_base``/``q_base``/``k_base`` and the batch*head
-    row map ``inner_local``/``inner_global``/``inner_base`` place the mask
-    (flash_attention.mask_coords). One launch of the kernel
-    ``flash_attention.forward_kernel`` names: bf16 at K <= 128
-    csrc/flash_attention_fwd_sm90.cu (wgmma fed by TMA), fp32 at any K
-    and bf16 at K > 128 csrc/flash_attention_fwd.cu (mma.sync)."""
+FLASH_FWD_SCHEMA = (
+    "flash_attention_fwd(Tensor q, Tensor k, Tensor v, str layout, "
+    "bool with_lse, Tensor? dropout_seed, float dropout_rate, "
+    "SymInt bh_base=0, SymInt q_base=0, SymInt k_base=0, "
+    "SymInt inner_local=1, SymInt inner_global=1, SymInt inner_base=0, "
+    "bool out_fp32=False, Tensor? acc_in=None, Tensor? m_in=None, "
+    "Tensor? l_in=None, bool suspend=False) "
+    "-> (Tensor, Tensor, Tensor, Tensor)")
+FLASH_BWD_SCHEMA = (
+    "flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor g, "
+    "Tensor lse, Tensor delta, str layout, Tensor? dropout_seed, "
+    "float dropout_rate, SymInt request=0, SymInt bh_base=0, "
+    "SymInt q_base=0, SymInt k_base=0, SymInt inner_local=1, "
+    "SymInt inner_global=1, SymInt inner_base=0, bool dkv_fp32=False, "
+    "bool dq_fp32=True) -> (Tensor, Tensor, Tensor)")
+# At most this many plans are kept; the cache is emptied when full (a
+# model has a handful of shapes: one per attention call site and batch).
+PLAN_CACHE_SIZE = 256
+_F32 = torch.float32
+_u32, _f32c, _i32 = ctypes.c_uint32, ctypes.c_float, ctypes.c_int
+_MASK_FIELDS = [("threshold", _u32), ("inv_keep", _f32c)] + [
+    (name, _u32) for name in ("bh_base", "q_base", "k_base", "inner_local",
+                              "inner_global", "inner_base")]
+
+
+class FwdArgs(ctypes.Structure):
+    """csrc/flash_launch.cuh's FlashFwdArgs, field for field."""
+    _fields_ = [(name, _i32) for name in (
+        "device", "dtype", "out_fp32", "batch", "heads", "seq_len",
+        "head_dim", "dropout")] + [("strides", ctypes.c_longlong * 12)] \
+        + _MASK_FIELDS
+
+
+class BwdArgs(ctypes.Structure):
+    """csrc/flash_launch.cuh's FlashBwdArgs, field for field."""
+    _fields_ = [(name, _i32) for name in (
+        "device", "dtype", "dkv_fp32", "dq_bf16", "batch", "heads",
+        "seq_len", "head_dim", "dropout")] \
+        + [("strides", ctypes.c_longlong * 21)] + _MASK_FIELDS
+
+
+class LaunchPlan(NamedTuple):
+    """What a flash call of one signature launches (``forward_plan``,
+    ``backward_plan``): the library (a ``_SOURCES`` key) and the kernel's
+    name, the scalar block and its address, the device, the outputs'
+    ``(shape, stride, dtype)``, the workspace's ``(shape, dtype)`` or
+    None, the launch counters it adds one to, whether it reads a dropout
+    seed, and for the backward whether the operator casts dq to q's dtype
+    after the launch. ``fn`` (the C entry point), ``lib`` and ``stream``
+    (``index -> the current stream``) are bound when the operator first
+    uses the plan (``_bound``): building a plan needs no card."""
+    kind: str
+    kernel: str
+    args: ctypes.Structure
+    args_ptr: int
+    device: torch.device
+    outputs: tuple
+    workspace: object
+    counts: tuple
+    dropout: bool
+    cast_dq: bool = False
+    fn: object = None
+    lib: object = None
+    stream: object = None
+
+
+_fwd_plans: dict = {}
+_bwd_plans: dict = {}
+
+
+def _remember(plans: dict, key, plan: LaunchPlan) -> LaunchPlan:
+    if len(plans) >= PLAN_CACHE_SIZE:
+        plans.clear()
+    plans[key] = plan
+    return plan
+
+
+def _signature(t: Optional[torch.Tensor]):
+    """What a plan depends on of an optional tensor beside the operands."""
+    if t is None:
+        return None
+    return t.shape, t.stride(), t.dtype, t.get_device()
+
+
+def _raw_stream():
+    """``index -> the current stream's handle`` of a CUDA device (what
+    ``torch.cuda.current_stream(index).cuda_stream`` reads, without
+    building a Stream object)."""
+    return torch._C._cuda_getCurrentRawStream
+
+
+def _mask_args(args, dropout, coords) -> None:
+    """Fill a plan block's dropout flag, threshold, inv_keep and the mask's
+    coordinates (``flash_attention.mask_coords`` checks and reduces them)."""
+    coords = flash_attention.mask_coords(coords)
+    for name, value in zip(("bh_base", "q_base", "k_base", "inner_local",
+                            "inner_global", "inner_base"), coords):
+        setattr(args, name, value)
+    if dropout is not None:
+        args.dropout = 1
+        args.threshold = flash_attention._keep_threshold(dropout[1])
+        args.inv_keep = 1.0 / (1.0 - dropout[1])
+
+
+def _strides(layout: str, *tensors) -> list:
+    return [s for t in tensors for s in flash_attention._axes(t, layout)[1]]
+
+
+def _like(t: torch.Tensor, dtype) -> torch.Tensor:
+    """A meta tensor with the strides ``torch.empty_like(t, dtype=dtype)``
+    would give."""
+    return torch.empty_like(t, dtype=dtype, device="meta")
+
+
+def _bound(plan: LaunchPlan) -> LaunchPlan:
+    """The plan with its library loaded (built at the first use), its C
+    entry point and the stream reader."""
+    lib = _library(plan.kind)
+    return plan._replace(fn=getattr(lib, _entry(plan.kind)), lib=lib,
+                         stream=_raw_stream())
+
+
+def forward_plan(q, k, v, layout: str, with_lse: bool, dropout_seed,
+                 dropout_rate: float, coords: tuple, out_fp32: bool,
+                 acc_in, m_in, l_in, suspend: bool) -> LaunchPlan:
+    """The forward's launch plan for these operands and arguments: every
+    check of the operator (ValueError for what the kernels cannot take),
+    the kernel (``flash_attention.forward_kernel``), the outputs and the
+    scalar block. Builds nothing and needs no card."""
     fa = flash_attention
-    q, k, v = fa._kernel_operands(layout, q=q, k=k, v=v)
+    fa._check_inputs(q, k, v)
+    fa._kernel_operands(layout, q=q, k=k, v=v)
     dropout = _dropout(dropout_seed, dropout_rate, q.device)
-    out = torch.empty_like(q, dtype=torch.float32 if out_fp32 else q.dtype)
+    out = _like(q, _F32 if out_fp32 else q.dtype)
     (b, h, n), _ = fa._axes(q, layout)
-    lse = torch.empty((b, h, n) if with_lse and not suspend else (0,),
-                      dtype=torch.float32, device=q.device)
     resume = m_in is not None
-    if (resume or suspend) and out.dtype != torch.float32:
+    if (resume or suspend) and out.dtype != _F32:
         raise ValueError("a ring attention block's state needs an fp32 "
                          "output (out_fp32)")
     if resume:
@@ -170,78 +285,207 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                ("m_in", m_in, (b, h, n)),
                                ("l_in", l_in, (b, h, n, 4))):
             if (t is None or t.shape != shape or t.device != q.device
-                    or t.dtype != torch.float32):
+                    or t.dtype != _F32):
                 raise ValueError(f"{name} must be a float32 {tuple(shape)} "
                                  f"tensor on {q.device}")
         if (acc_in.stride() != out.stride() or not m_in.is_contiguous()
                 or not l_in.is_contiguous()):
             raise ValueError("acc_in must have the output's strides, m_in "
                              "and l_in be contiguous")
-    m_out = torch.empty((b, h, n) if suspend else (0,), dtype=torch.float32,
-                        device=q.device)
-    l_out = torch.empty((b, h, n, 4) if suspend else (0,),
-                        dtype=torch.float32, device=q.device)
-    strides = [s for t in (q, k, v, out) for s in fa._axes(t, layout)[1]]
-    wgmma = fa.forward_kernel(q.shape[-1], q.dtype) == "wgmma"
-    kind = "fwd_sm90" if wgmma else "fwd"
-    lib = _library(kind)
-    with torch.cuda.device(q.device):
-        err = getattr(lib, _entry(kind))(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if lse.numel() else None,
-            *((m_in.data_ptr(), l_in.data_ptr(), acc_in.data_ptr()) if resume
-              else (None, None, None)),
-            *((m_out.data_ptr(), l_out.data_ptr()) if suspend
-              else (None, None)),
-            _DTYPE_CODES[q.dtype],
-            int(out_fp32), b, h, n, q.shape[-1], *strides,
-            *fa._dropout_c_args(dropout, (bh_base, q_base, k_base,
-                                          inner_local, inner_global,
-                                          inner_base)),
-            _stream(q.device))
-    _build.raise_on_error(lib, err, "flash attention forward")
-    fa._count("drop_launches" if dropout is not None
-              else "lse_launches" if with_lse else "launches")
-    if wgmma:
-        fa._count("wgmma_launches")
+    kernel = fa.forward_kernel(q.shape[-1], q.dtype)
+    args = FwdArgs(device=q.get_device(), dtype=_DTYPE_CODES[q.dtype],
+                   out_fp32=int(out_fp32), batch=b, heads=h, seq_len=n,
+                   head_dim=q.shape[-1])
+    args.strides[:] = _strides(layout, q, k, v, out)
+    _mask_args(args, dropout, coords)
+    # The empty outputs' size as an int: the cheaper argument to parse.
+    outputs = ((tuple(out.shape), out.stride(), out.dtype),
+               (b, h, n) if with_lse and not suspend else 0,
+               (b, h, n) if suspend else 0,
+               (b, h, n, 4) if suspend else 0)
+    counts = (("drop_launches" if dropout is not None
+               else "lse_launches" if with_lse else "launches",)
+              + (("wgmma_launches",) if kernel == "wgmma" else ()))
+    return LaunchPlan("fwd_sm90" if kernel == "wgmma" else "fwd", kernel,
+                      args, ctypes.addressof(args), q.device, outputs, None,
+                      counts, dropout is not None)
+
+
+def _flash_fwd_cuda(q, k, v, layout, with_lse, dropout_seed, dropout_rate,
+                    bh_base=0, q_base=0, k_base=0, inner_local=1,
+                    inner_global=1, inner_base=0, out_fp32=False,
+                    acc_in=None, m_in=None, l_in=None, suspend=False):
+    """``torch.ops.vtd_torch.flash_attention_fwd`` on CUDA tensors:
+    ``(out, lse, m, l)`` of softmax(q k^T) v over ``layout``-ordered q/k/v
+    at their own head dim K (rows 16-byte aligned). lse is ``(B, H, N)``
+    fp32 with ``with_lse``, else empty; out is in q's dtype, or fp32 with
+    ``out_fp32``. A ring attention block (fp32 out) carries the online
+    softmax's state: ``acc_in`` (out's shape and strides), ``m_in`` ``(B,
+    H, N)`` and ``l_in`` ``(B, H, N, 4)`` resume it as the block before
+    suspended it; with ``suspend`` out is the unnormalised accumulator, m
+    and l the state to hand on (else empty), and no lse is written.
+    ``dropout_rate`` 0 means no dropout; otherwise ``dropout_seed`` is the
+    one-element device tensor the kernel reads the seed from, and
+    ``bh_base``/``q_base``/``k_base`` and the batch*head row map
+    ``inner_local``/``inner_global``/``inner_base`` place the mask
+    (flash_attention.mask_coords). One launch of the kernel
+    ``flash_attention.forward_kernel`` names: bf16 at K <= 128
+    csrc/flash_attention_fwd_sm90.cu (wgmma fed by TMA), fp32 at any K
+    and bf16 at K > 128 csrc/flash_attention_fwd.cu (mma.sync)."""
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    coords = (bh_base, q_base, k_base, inner_local, inner_global, inner_base)
+    key = (layout, with_lse, dropout_rate, coords, out_fp32, suspend,
+           q.shape, q.stride(), q.dtype, q.get_device(), qp & 15,
+           k.shape, k.stride(), k.dtype, k.get_device(), kp & 15,
+           v.shape, v.stride(), v.dtype, v.get_device(), vp & 15,
+           _signature(dropout_seed),
+           None if m_in is None else (_signature(acc_in), _signature(m_in),
+                                      _signature(l_in)))
+    plan = _fwd_plans.get(key)
+    if plan is None:
+        plan = _remember(_fwd_plans, key, _bound(forward_plan(
+            q, k, v, layout, with_lse, dropout_seed, dropout_rate, coords,
+            out_fp32, acc_in, m_in, l_in, suspend)))
+    # Allocated as q's (the plan's device): new_empty* parses fewer
+    # arguments than torch.empty*.
+    (shape, stride, dtype), lse_shape, m_shape, l_shape = plan.outputs
+    out = q.new_empty_strided(shape, stride, dtype=dtype)
+    lse = q.new_empty(lse_shape, dtype=_F32)
+    m_out = q.new_empty(m_shape, dtype=_F32)
+    l_out = q.new_empty(l_shape, dtype=_F32)
+    resume = m_in is not None
+    err = plan.fn(plan.args_ptr, qp, kp, vp, out.data_ptr(),
+                  lse.data_ptr() if with_lse and not suspend else None,
+                  m_in.data_ptr() if resume else None,
+                  l_in.data_ptr() if resume else None,
+                  acc_in.data_ptr() if resume else None,
+                  m_out.data_ptr() if suspend else None,
+                  l_out.data_ptr() if suspend else None,
+                  dropout_seed.data_ptr() if plan.dropout else None,
+                  plan.stream(plan.device.index))
+    if err:
+        _build.raise_on_error(plan.lib, err, "flash attention forward")
+    flash_attention._count(*plan.counts)
     return out, lse, m_out, l_out
 
 
-@flash_attention_fwd.register_fake
-def _(q, k, v, layout, with_lse, dropout_seed, dropout_rate, bh_base=0,
-      q_base=0, k_base=0, inner_local=1, inner_global=1, inner_base=0,
-      out_fp32=False, acc_in=None, m_in=None, l_in=None, suspend=False):
+def _flash_fwd_fake(q, k, v, layout, with_lse, dropout_seed, dropout_rate,
+                    bh_base=0, q_base=0, k_base=0, inner_local=1,
+                    inner_global=1, inner_base=0, out_fp32=False,
+                    acc_in=None, m_in=None, l_in=None, suspend=False):
     (b, h, n), _ = flash_attention._axes(q, layout)
-    return (torch.empty_like(q, dtype=torch.float32 if out_fp32
-                             else q.dtype),
+    return (torch.empty_like(q, dtype=_F32 if out_fp32 else q.dtype),
             q.new_empty((b, h, n) if with_lse and not suspend else (0,),
-                        dtype=torch.float32),
-            q.new_empty((b, h, n) if suspend else (0,), dtype=torch.float32),
-            q.new_empty((b, h, n, 4) if suspend else (0,),
-                        dtype=torch.float32))
+                        dtype=_F32),
+            q.new_empty((b, h, n) if suspend else (0,), dtype=_F32),
+            q.new_empty((b, h, n, 4) if suspend else (0,), dtype=_F32))
 
 
-# ---------------------------------------------------------------------------
-# B2: flash-attention backward (plain and dropout replay)
-# ---------------------------------------------------------------------------
+def backward_plan(q, k, v, g, lse, delta, layout: str, dropout_seed,
+                  dropout_rate: float, request: int, coords: tuple,
+                  dkv_fp32: bool, dq_fp32: bool) -> LaunchPlan:
+    """The backward's launch plan: every check of the operator, the
+    kernels (``flash_attention.backward_kernel``), the dq route, the
+    outputs, the workspace and the scalar block. dq comes out in fp32
+    with ``dq_fp32``, else in q's dtype: the wgmma dq kernel rounds it
+    itself, the other routes' fp32 dq is cast after the launch."""
+    fa = flash_attention
+    fa._check_inputs(q, k, v, g)
+    fa._kernel_operands(layout, q=q, k=k, v=v, g=g)
+    fa._check_side_inputs(q, lse, delta, layout)
+    dropout = _dropout(dropout_seed, dropout_rate, q.device)
+    (b, h, n), _ = fa._axes(q, layout)
+    kdim = q.shape[-1]
+    kernel = fa.backward_kernel(kdim, q.dtype)
+    workspace = None
+    if fa.dq_route(q.dtype, request, fa.partials_bytes(
+            b, h, n, kdim)) == "partials":
+        workspace = ((-(-n // fa.KEY_TILE), b * h, n, kdim), _F32)
+    elif kernel == "wgmma" and dropout is not None:
+        # The tenth pointer: the packed keep bits (wgmma, dropout).
+        workspace = (fa.keep_bits_shape(b, h, n), torch.int32)
+    dq_bf16 = not dq_fp32 and kernel == "wgmma"
+    dq = torch.empty(q.shape, dtype=q.dtype if dq_bf16 else _F32,
+                     device="meta")
+    dk, dv = (_like(t, _F32 if dkv_fp32 else t.dtype) for t in (k, v))
+    args = BwdArgs(device=q.get_device(), dtype=_DTYPE_CODES[q.dtype],
+                   dkv_fp32=int(dkv_fp32), dq_bf16=int(dq_bf16), batch=b,
+                   heads=h, seq_len=n, head_dim=kdim)
+    args.strides[:] = _strides(layout, q, k, v, g, dq, dk, dv)
+    _mask_args(args, dropout, coords)
+    outputs = tuple((tuple(t.shape), t.stride(), t.dtype)
+                    for t in (dq, dk, dv))
+    counts = (("backward_launches" if dropout is None
+               else "backward_drop_launches",)
+              + (("wgmma_backward_launches",) if kernel == "wgmma" else ()))
+    kind = {"wgmma": "bwd_sm90", "mma_sync": "bwd",
+            "wide": "bwd_wide"}[kernel]
+    return LaunchPlan(kind, kernel, args, ctypes.addressof(args), q.device,
+                      outputs, workspace, counts, dropout is not None,
+                      cast_dq=not dq_fp32 and dq.dtype != q.dtype)
 
-@_define("flash_attention_bwd")
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        g: torch.Tensor, lse: torch.Tensor,
-                        delta: torch.Tensor, layout: str,
-                        dropout_seed: Optional[torch.Tensor],
-                        dropout_rate: float, request: int = 0,
-                        bh_base: int = 0, q_base: int = 0, k_base: int = 0,
-                        inner_local: int = 1, inner_global: int = 1,
-                        inner_base: int = 0, dkv_fp32: bool = False
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dq fp32, dk, dv)`` at q's head dim K from the backward kernels
-    that ``flash_attention.backward_kernel`` names (bf16 at K <= 128
+
+def backward_launch(q, k, v, g, lse, delta, layout: str, dropout_seed,
+                    dropout_rate: float, request: int = 0, bh_base: int = 0,
+                    q_base: int = 0, k_base: int = 0, inner_local: int = 1,
+                    inner_global: int = 1, inner_base: int = 0,
+                    dkv_fp32: bool = False, dq_fp32: bool = True):
+    """What ``flash_attention_bwd`` launches, with its arguments: ``(dq,
+    dk, dv, keep_bits)``, keep_bits the wgmma backward's packed keep mask
+    (int32 words, ``flash_attention.keep_bits_shape``; compare with
+    ``flash_attention.pack_keep_bits``) when it replays dropout, else
+    None. The card tests read the words through it; the model goes
+    through the operator."""
+    qp, kp, vp, gp = q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr()
+    coords = (bh_base, q_base, k_base, inner_local, inner_global, inner_base)
+    key = (layout, dropout_rate, request, coords, dkv_fp32, dq_fp32,
+           q.shape, q.stride(), q.dtype, q.get_device(), qp & 15,
+           k.shape, k.stride(), k.dtype, k.get_device(), kp & 15,
+           v.shape, v.stride(), v.dtype, v.get_device(), vp & 15,
+           g.shape, g.stride(), g.dtype, g.get_device(), gp & 15,
+           _signature(lse), _signature(delta), _signature(dropout_seed))
+    plan = _bwd_plans.get(key)
+    if plan is None:
+        plan = _remember(_bwd_plans, key, _bound(backward_plan(
+            q, k, v, g, lse, delta, layout, dropout_seed, dropout_rate,
+            request, coords, dkv_fp32, dq_fp32)))
+    (dq_shape, dq_stride, dq_dtype), (k_shape, k_stride, kv_dtype), \
+        (v_shape, v_stride, _) = plan.outputs
+    dq = q.new_empty_strided(dq_shape, dq_stride, dtype=dq_dtype)
+    dk = k.new_empty_strided(k_shape, k_stride, dtype=kv_dtype)
+    dv = v.new_empty_strided(v_shape, v_stride, dtype=kv_dtype)
+    workspace = None
+    if plan.workspace is not None:
+        workspace = q.new_empty(plan.workspace[0], dtype=plan.workspace[1])
+    err = plan.fn(plan.args_ptr, qp, kp, vp, gp, lse.data_ptr(),
+                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(),
+                  None if workspace is None else workspace.data_ptr(),
+                  dropout_seed.data_ptr() if plan.dropout else None,
+                  plan.stream(plan.device.index))
+    if err:
+        _build.raise_on_error(plan.lib, err, "flash attention backward")
+    flash_attention._count(*plan.counts)
+    if plan.cast_dq:
+        dq = dq.to(q.dtype)
+    keep_bits = workspace if plan.kernel == "wgmma" else None
+    return dq, dk, dv, keep_bits
+
+
+def _flash_bwd_cuda(q, k, v, g, lse, delta, layout, dropout_seed,
+                    dropout_rate, request=0, bh_base=0, q_base=0, k_base=0,
+                    inner_local=1, inner_global=1, inner_base=0,
+                    dkv_fp32=False, dq_fp32=True):
+    """``torch.ops.vtd_torch.flash_attention_bwd`` on CUDA tensors: ``(dq,
+    dk, dv)`` at q's head dim K from the backward kernels that
+    ``flash_attention.backward_kernel`` names (bf16 at K <= 128
     csrc/flash_attention_bwd_sm90.cu on wgmma, fp32 at K <= 128
     csrc/flash_attention_bwd.cu, K > 128 csrc/flash_attention_bwd_wide.cu),
     K any width whose rows are 16-byte aligned; lse and delta are contiguous
     ``(B, H, N)`` fp32; dq is summed in fp32 over the key tiles in order
-    and written once, so it is the same on every run. A nonzero
+    and written once, so it is the same on every run: in fp32 with
+    ``dq_fp32`` (the default), else in q's dtype (the wgmma dq kernel
+    rounds the sum itself; the other routes' is cast). A nonzero
     ``dropout_rate`` replays the forward's mask, its seed read from
     ``dropout_seed``'s device memory and placed by ``bh_base``/``q_base``/
     ``k_base`` and the row map as in the forward. ``request`` is one of
@@ -250,70 +494,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     split route: a ring attention block)."""
     return backward_launch(q, k, v, g, lse, delta, layout, dropout_seed,
                            dropout_rate, request, bh_base, q_base, k_base,
-                           inner_local, inner_global, inner_base,
-                           dkv_fp32)[:3]
+                           inner_local, inner_global, inner_base, dkv_fp32,
+                           dq_fp32)[:3]
 
 
-def backward_launch(q, k, v, g, lse, delta, layout: str, dropout_seed,
-                    dropout_rate: float, request: int = 0, bh_base: int = 0,
-                    q_base: int = 0, k_base: int = 0, inner_local: int = 1,
-                    inner_global: int = 1, inner_base: int = 0,
-                    dkv_fp32: bool = False):
-    """What ``flash_attention_bwd`` launches, with its arguments: ``(dq,
-    dk, dv, keep_bits)``, keep_bits the wgmma backward's packed keep mask
-    (int32 words, ``flash_attention.keep_bits_shape``; compare with
-    ``flash_attention.pack_keep_bits``) when it replays dropout, else
-    None. The card tests read the words through it; the model goes
-    through the operator."""
-    fa = flash_attention
-    q, k, v, g = fa._kernel_operands(layout, q=q, k=k, v=v, g=g)
-    dropout = _dropout(dropout_seed, dropout_rate, q.device)
-    (b, h, n), _ = fa._axes(q, layout)
-    kernel = fa.backward_kernel(q.shape[-1], q.dtype)
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    dk, dv = (torch.empty_like(t, dtype=torch.float32 if dkv_fp32
-                               else t.dtype) for t in (k, v))
-    # The tenth pointer: the partials workspace (mma.sync, fp32) or the
-    # packed keep bits (wgmma, dropout).
-    workspace = None
-    if fa.dq_route(q.dtype, request, fa.partials_bytes(
-            b, h, n, q.shape[-1])) == "partials":
-        workspace = torch.empty((-(-n // fa.KEY_TILE), b * h, n, q.shape[-1]),
-                                dtype=torch.float32, device=q.device)
-    elif kernel == "wgmma" and dropout is not None:
-        workspace = torch.empty(fa.keep_bits_shape(b, h, n),
-                                dtype=torch.int32, device=q.device)
-    strides = [s for t in (q, k, v, g, dq, dk, dv)
-               for s in fa._axes(t, layout)[1]]
-    kind = {"wgmma": "bwd_sm90", "mma_sync": "bwd",
-            "wide": "bwd_wide"}[kernel]
-    lib = _library(kind)
-    with torch.cuda.device(q.device):
-        err = getattr(lib, _entry(kind))(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), None if workspace is None else workspace.data_ptr(),
-            _DTYPE_CODES[q.dtype], int(dkv_fp32), b, h, n, q.shape[-1],
-            *strides, *fa._dropout_c_args(dropout, (
-                bh_base, q_base, k_base, inner_local, inner_global,
-                inner_base)),
-            _stream(q.device))
-    _build.raise_on_error(lib, err, "flash attention backward")
-    fa._count("backward_launches" if dropout is None
-              else "backward_drop_launches")
-    if kernel == "wgmma":
-        fa._count("wgmma_backward_launches")
-    keep_bits = workspace if kernel == "wgmma" else None
-    return dq, dk, dv, keep_bits
+def _flash_bwd_fake(q, k, v, g, lse, delta, layout, dropout_seed,
+                    dropout_rate, request=0, bh_base=0, q_base=0, k_base=0,
+                    inner_local=1, inner_global=1, inner_base=0,
+                    dkv_fp32=False, dq_fp32=True):
+    return (q.new_empty(q.shape, dtype=_F32 if dq_fp32 else q.dtype),
+            *(torch.empty_like(t, dtype=_F32 if dkv_fp32 else t.dtype)
+              for t in (k, v)))
 
 
-@flash_attention_bwd.register_fake
-def _(q, k, v, g, lse, delta, layout, dropout_seed, dropout_rate, request=0,
-      bh_base=0, q_base=0, k_base=0, inner_local=1, inner_global=1,
-      inner_base=0, dkv_fp32=False):
-    return (q.new_empty(q.shape, dtype=torch.float32),
-            *(torch.empty_like(t, dtype=torch.float32 if dkv_fp32
-                               else t.dtype) for t in (k, v)))
+_flash_library = torch.library.Library(NAMESPACE, "FRAGMENT")
+for _schema, _cuda, _fake in ((FLASH_FWD_SCHEMA, _flash_fwd_cuda,
+                               _flash_fwd_fake),
+                              (FLASH_BWD_SCHEMA, _flash_bwd_cuda,
+                               _flash_bwd_fake)):
+    _name = _schema.split("(", 1)[0]
+    _flash_library.define(_schema)
+    _flash_library.impl(_name, _cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{_name}", _fake,
+                                lib=_flash_library)
+flash_attention._FWD_OP = torch.ops.vtd_torch.flash_attention_fwd.default
+flash_attention._BWD_OP = torch.ops.vtd_torch.flash_attention_bwd.default
 
 
 # ---------------------------------------------------------------------------
