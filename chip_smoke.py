@@ -195,27 +195,41 @@ PyTorch version. Phases, one output line each:
                     heads of 80, 32 blocks, 224 px in 14 px patches: 256
                     tokens; bf16, flash in serving and training), whose
                     K = 80 runs the 128-wide instances, read at K = 80:
-                    (a) K 80 and 128 in both layouts and, past 128, the
-                    wide route at K 129, 192, 256 in one layout each,
-                    bf16 and fp32, against the plain versions (forward,
-                    lse, dropout forward, backward by each dq route and
-                    with the replay, the fp32-output instance and fp32
-                    dk/dv), the wgmma and copy counts, a ring of two key
-                    blocks chained against one launch bit for bit (K 80,
-                    128, 192), B2 10 times bit-equal (K 80, 192), and
-                    the kernels one flash call launches at K 80 against
-                    K 128 (profiler: no padding or slicing kernel); (b)
-                    times at (B * 16, 256, 80) for B = 1, 8, 32, at
-                    (2048, 256, 128) and
-                    at (128, 256, 192 and 256) beside SDPA and the bound,
-                    and fp32 B2 beside SDPA's fp32 backward; (c)
-                    DetectionService at batch 1 and 32, one seeded image
-                    card against CPU at model_serve's bf16 limits, 32
-                    flash launches a call, all on wgmma, no copy; (d) 5
-                    steps at batch 8 through Trainer.fit (the loss falls;
-                    32 forward-with-lse (wgmma) and 32 backward launches a
-                    step, no copy), one fp32 step at depth
-                    2 against the CPU, step time and peak memory;
+                    (a) K 80 and 128 in both layouts and, past 128, K 129,
+                    192, 256, 320 in one layout each, bf16 and fp32 (bf16
+                    up to 256 on the wgmma 256 instance, K 129 padded to
+                    192; fp32 and bf16 320 on the mma.sync wide route),
+                    against the plain versions (forward, lse, dropout
+                    forward, backward by each dq route and with the
+                    replay, the fp32-output instance and fp32 dk/dv), the
+                    wgmma and copy counts, a ring of two key blocks
+                    chained against one launch bit for bit (K 80, 128,
+                    192, 256), B2 10 times bit-equal (K 80; 192 and 256
+                    with and without the replay), and the kernels one
+                    flash call launches at K 80 against K 128 (profiler:
+                    no padding or slicing kernel); (b) times at (B * 16,
+                    256, 80) for B = 1, 8, 32, at (2048, 256, 128), at
+                    (128, 256, 192 and 256), at the K-256 model's (40 and
+                    160, 256, 256) and at (128, 256, 320) (the wide
+                    route) beside SDPA and the bound, and fp32 B2 beside
+                    SDPA's fp32 backward; (c) DetectionService at batch 1
+                    and 32, one seeded image card against CPU at
+                    model_serve's bf16 limits, 32 flash launches a call,
+                    all on wgmma, no copy; (d) 5 steps at batch 8 through
+                    Trainer.fit (the loss falls; 32 forward-with-lse
+                    (wgmma) and 32 backward launches a step, no copy), one
+                    fp32 step at depth 2 against the CPU, step time and
+                    peak memory; then (c) and (d), 3 steps, for the same
+                    detector in 5 heads of 256 (every launch on the wgmma
+                    256 instance);
+ 15a. layer_norm_wide — B4 past D 4096 (one block a row): (2048, 6144) and
+                    (2048, 8192) bf16 against the plain version, timed
+                    beside F.layer_norm and the bound; DetectionService
+                    at ViT-22B's width (D 6144, 48 heads of 128, 2 of 48
+                    blocks, 224 px / 14, bf16, the fused LayerNorm), one
+                    seeded image card against CPU at model_serve's bf16
+                    limits, 4 LayerNorm and 2 flash (wgmma) launches a
+                    call, device-path medians at batch 1 and 8;
  15b. walkthrough — examples/end_to_end_torch.py on the card (tiny_96
                     with flash attention, 4 epochs): dataset, train,
                     COCO-protocol evaluation, plot, visualize, export,
@@ -279,7 +293,7 @@ PyTorch version. Phases, one output line each:
                     graph run, the graph's collective nodes counted, and
                     `vtd-torch train --distributed` for one epoch.
 
-Every bf16 backward at K <= 128 that a phase launches runs the wgmma
+Every bf16 backward at K <= 256 that a phase launches runs the wgmma
 backward (csrc/flash_attention_bwd_sm90.cu): each phase that launches one
 requires its wgmma backward count to equal its backward launches (graph
 nodes by symbol in train_window), and B2_REPEATS launches of each wgmma
@@ -446,15 +460,18 @@ def phase_build():
         _require(len(counts) == instances[source]
                  and all(n > 0 for n in counts.values()),
                  f"{source}: tensor-core instructions {counts}")
-    # The wgmma kernels, bf16 at 64 and 128, with and without dropout, each
-    # on HGMMA: the forward (4) and the backward's dk/dv and dq kernels (8).
+    # The wgmma kernels, bf16 at 64, 128 and 256, with and without dropout,
+    # each on HGMMA: the forward (6) and the backward's dk/dv and dq kernels
+    # (12).
     hgmma = {}
-    for source, count in ((fa.SM90_SOURCE, 4), (fa.BWD_SM90_SOURCE, 8)):
+    for source, count in ((fa.SM90_SOURCE, 6), (fa.BWD_SM90_SOURCE, 12)):
         found = _tensor_core_instructions(_build.library_path(source),
                                           "HGMMA")
         _require(len(found) == count and all(n > 0 for n in found.values()),
                  f"{source}: HGMMA instructions {found}")
         hgmma[source] = hmma[source] = found
+        WGMMA_REGISTERS[source] = _flash_registers(
+            _build.BUILD_LOGS[source])
     # The rebuilt dense kernels: wgmma (IGMMA, HGMMA) and mma.sync (HMMA).
     dense = {
         quantization.SOURCE: _kernel_instructions(
@@ -471,8 +488,13 @@ def phase_build():
                      f"{dense[source]}")
     hmma.update(dense)
     _report("build", seconds=seconds, ptxas=ptxas,
-            tensor_core_instructions=hmma)
+            tensor_core_instructions=hmma, wgmma_registers=WGMMA_REGISTERS)
     return hgmma
+
+
+# Registers and spills of each wgmma flash instance, by source (the build
+# phase's ptxas logs; wide_heads reports the 256 instances').
+WGMMA_REGISTERS: dict = {}
 
 
 @functools.cache
@@ -499,22 +521,56 @@ def _tensor_core_instructions(library: str,
     counts with its own."""
     counts, name = {}, None
     for line in _sass(library).splitlines():
-        found = re.search(
-            r"Function : \S*flash_(fwd|bwd)(_dq)?(_wide|_sm90)?_kernelI"
-            r"(13__nv_bfloat16|f)?(?:Li(\d+)E)?Lb([01])E(Lb1E)?", line)
-        if found:
-            kind, dq, variant, dtype, dim, drop, flag = found.groups()
-            partials = kind == "bwd" and flag
-            name = (f"{'fp32' if dtype == 'f' else 'bf16'}"
-                    f"{'_wide' if variant == '_wide' else '_d' + dim}"
-                    f"{'_drop' if drop == '1' else ''}{dq or ''}"
-                    f"{'_partials' if partials else ''}")
-            counts[name] = 0
-        elif "Function :" in line:
-            name = None
+        if "Function :" in line:
+            name = _flash_instance(line)
+            if name:
+                counts[name] = 0
         elif name and re.search(rf"\b{mnemonic}\b", line):
             counts[name] += 1
     return counts
+
+
+def _flash_instance(symbol: str):
+    """The instance name (``_tensor_core_instructions``' naming) of a flash
+    kernel's mangled symbol, or None for another kernel."""
+    found = re.search(
+        r"flash_(fwd|bwd)(_dq)?(_wide|_sm90)?_kernelI"
+        r"(13__nv_bfloat16|f)?(?:Li(\d+)E)?Lb([01])E(Lb1E)?", symbol)
+    if not found:
+        return None
+    kind, dq, variant, dtype, dim, drop, flag = found.groups()
+    partials = kind == "bwd" and flag
+    return (f"{'fp32' if dtype == 'f' else 'bf16'}"
+            f"{'_wide' if variant == '_wide' else '_d' + dim}"
+            f"{'_drop' if drop == '1' else ''}{dq or ''}"
+            f"{'_partials' if partials else ''}")
+
+
+def _flash_registers(log: str) -> dict:
+    """Registers and spilled bytes (stores, loads) of each flash kernel
+    instance in a source's ptxas -v log, the largest over the instances
+    that share a name (the output types)."""
+    found, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = _flash_instance(entry.group(1))
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        used = re.search(r"Used (\d+) registers", line)
+        have = found.setdefault(name, {"registers": 0, "spill_stores": 0,
+                                       "spill_loads": 0})
+        if spill:
+            have["spill_stores"] = max(have["spill_stores"],
+                                       int(spill.group(1)))
+            have["spill_loads"] = max(have["spill_loads"],
+                                      int(spill.group(2)))
+        if used:
+            have["registers"] = max(have["registers"], int(used.group(1)))
+    return found
 
 
 def _kernel_instructions(library: str, mnemonic: str) -> dict:
@@ -788,7 +844,7 @@ def _b2_repeats(q, k, v, g, lse, delta, layout, drop=None,
     by the dq route the dtype selects or the named one, dk and dv in fp32
     with ``dkv_fp32`` (a ring block): dq (fp32, as the kernels sum it), dk
     and dv must be bit-equal to the first launch's, and every launch run
-    the kernel ``backward_kernel`` names (bf16 at K <= 128: wgmma)."""
+    the kernel ``backward_kernel`` names (bf16 at K <= 256: wgmma)."""
     import torch
 
     from vision_transformer_detector_tpu_torch.kernels import (
@@ -1554,13 +1610,13 @@ def _counts():
             "flash_lse": fa.flash_attention.lse_launches,
             "flash_drop": fa.flash_attention.drop_launches,
             # Of the three above, the launches of the wgmma forward (bf16,
-            # K <= 128), and the operands the flash wrappers copied.
+            # K <= 256), and the operands the flash wrappers copied.
             "flash_wgmma": fa.flash_attention.wgmma_launches,
             "flash_copies": fa.flash_attention.operand_copies,
             "flash_bwd": fa.flash_attention.backward_launches,
             "flash_bwd_drop": fa.flash_attention.backward_drop_launches,
             # Of the two above, the launches of the wgmma backward (bf16,
-            # K <= 128).
+            # K <= 256).
             "flash_bwd_wgmma": fa.flash_attention.wgmma_backward_launches,
             "int8_fused": qz.fused_int8_dense.launches,
             "int8_dense": qz.int8_dense.launches,
@@ -1585,7 +1641,7 @@ def _backward_totals() -> tuple:
 
 def _require_backward_kernel(before: tuple, wgmma: bool, what: str) -> int:
     """Since ``before`` (``_backward_totals``), backward launches were made
-    and either all (bf16 at K <= 128) or none of them ran the wgmma
+    and either all (bf16 at K <= 256) or none of them ran the wgmma
     kernels. Returns the launches."""
     launched, on_wgmma = (a - b for a, b in zip(_backward_totals(), before))
     _require(launched > 0 and on_wgmma == (launched if wgmma else 0),
@@ -4710,16 +4766,23 @@ def phase_parallel() -> dict:
 
 
 # (K, layouts): ViT-H/14's 80 and the 128 instance in both layouts, and
-# the wide route past 128 in one layout each (tests/test_torch_cuda.py
-# holds K 129, 192, 256 in both).
+# past 128 in one layout each (tests/test_torch_cuda.py holds K 129, 192,
+# 256 in both): bf16 on the wgmma 256 instance up to 256 (K 129 padded to
+# 192 for it), fp32 and bf16 K 320 on the mma.sync wide route.
 WIDE_DIMS = ((80, ("bhnk", "bnhk")), (128, ("bhnk", "bnhk")),
-             (129, ("bhnk",)), (192, ("bnhk",)), (256, ("bhnk",)))
+             (129, ("bhnk",)), (192, ("bnhk",)), (256, ("bhnk",)),
+             (320, ("bnhk",)))
 WIDE_N = 321                   # five key tiles, the last one ragged
 WIDE_HEADS = 16                # ViT-H/14's heads
 WIDE_RING_N = 256              # two ring blocks of 128 keys (whole tiles)
-# (B * 16, 256, 80 -> 128) bf16 for B = 1, 8, 32 (the wide_heads model at
-# those batches), and (2048, 256, 128) with the instance's own width.
-WIDE_TIMED = ((1, 80), (8, 80), (32, 80), (128, 128), (8, 192), (8, 256))
+# (batch, heads, K), timed as (B * H, 256, K) bf16: the wide_heads model's
+# (16 heads of 80, the 128 instance) at batch 1, 8, 32; (2048, 256, 128)
+# at the instance's own width; (128, 256, 192) and (128, 256, 256) on the
+# wgmma 256 instance, and the K-256 model's (5 heads of 256) at batch 8
+# and 32; (128, 256, 320) on the mma.sync wide route.
+WIDE_TIMED = ((1, 16, 80), (8, 16, 80), (32, 16, 80), (128, 16, 128),
+              (8, 16, 192), (8, 16, 256), (8, 5, 256), (32, 5, 256),
+              (8, 16, 320))
 
 
 def _wide_inputs(gen, layout, b, n, h, kd, dtype):
@@ -4734,19 +4797,20 @@ def _wide_inputs(gen, layout, b, n, h, kd, dtype):
 
 
 def _wide_kernels() -> dict:
-    """(a) every route at K 80 and 128 (the 128-wide instances; bf16's
-    forward on wgmma) in both layouts and at K 129, 192, 256 (the wide
-    route) in one layout each, bf16 and fp32, against the plain versions
-    at the tolerances
-    the 64-wide instance is held to: the forward, its lse, the dropout
-    forward, the backward by each dq route and with the mask replayed,
-    the fp32-output instance and fp32 dk/dv (a ring block), the launch
-    counts and the operand copies (only K 129's rows are off 16 bytes); a
-    ring chained over two key blocks against one launch over the whole
-    sequence, bit for bit, at K 80, 128, 192; B2 launched 10 times,
-    bit-equal, at K 80 (each route) and 192 (bf16 with the replay, fp32
-    partials); and (``launches``) the kernels one flash
-    call launches at K 80 against K 128, which never padded."""
+    """(a) every route at K 80 and 128 (the 128-wide instances; bf16 on
+    wgmma) in both layouts and at K 129, 192, 256, 320 in one layout each,
+    bf16 and fp32 (bf16 up to 256 on the wgmma 256 instance, the rest on
+    the mma.sync wide route), against the plain versions at the
+    tolerances the 64-wide instance is held to: the forward, its lse, the
+    dropout forward, the backward by each dq route and with the mask
+    replayed, the fp32-output instance and fp32 dk/dv (a ring block), the
+    launch counts, which kernel each launch ran, and the operand copies
+    (only K 129's rows are off 16 bytes); a ring chained over two key
+    blocks against one launch over the whole sequence, bit for bit, at K
+    80, 128, 192, 256; B2 launched 10 times, bit-equal, at K 80 (each
+    route), 192 and 256 (bf16 with and without the replay, fp32
+    partials); and (``launches``) the kernels one flash call launches at
+    K 80 against K 128, which never padded."""
     import torch
 
     from vision_transformer_detector_tpu_torch.kernels import (
@@ -4762,9 +4826,13 @@ def _wide_kernels() -> dict:
     def totals():
         f = fa.flash_attention
         return (f.launches + f.lse_launches + f.drop_launches,
-                f.backward_launches + f.backward_drop_launches)
+                f.backward_launches + f.backward_drop_launches,
+                f.wgmma_launches, f.wgmma_backward_launches)
 
-    wide_launches = {"fwd": 0, "bwd": 0}    # the wide route's, K > 128
+    # K > 128: the launches of the mma.sync wide route and of the wgmma
+    # 256 instance.
+    wide_launches = {"fwd": 0, "bwd": 0}
+    wgmma_256_launches = {"fwd": 0, "bwd": 0}
     for kd, layouts in WIDE_DIMS:
         at_start = totals()
         for layout in layouts:
@@ -4859,16 +4927,19 @@ def _wide_kernels() -> dict:
                     _require(value <= tol, f"wide_heads {name} {key}: "
                              f"{value} > {tol}")
                 errors[name] = err
-        if fa.head_dim_plan(kd).instance == "wide":
-            wide_launches["fwd"] += totals()[0] - at_start[0]
-            wide_launches["bwd"] += totals()[1] - at_start[1]
+        if kd > 128:
+            moved = [a - b for a, b in zip(totals(), at_start)]
+            wgmma_256_launches["fwd"] += moved[2]
+            wgmma_256_launches["bwd"] += moved[3]
+            wide_launches["fwd"] += moved[0] - moved[2]
+            wide_launches["bwd"] += moved[1] - moved[3]
 
     # The ring: each half of the queries over two key blocks of 128,
     # chained (resume, suspend), against one launch over the 256 keys,
     # tokens-major as the ring runs them, with and without dropout (each
     # block's query and key bases place its mask).
     ring = {}
-    for kd in (80, 128, 192):
+    for kd in (80, 128, 192, 256):
         for dtype in (torch.bfloat16, torch.float32):
             for dropout in (None, drop):
                 name = (f"K{kd}_{str(dtype).split('.')[-1]}"
@@ -4902,14 +4973,19 @@ def _wide_kernels() -> dict:
 
     # B2 launched 10 times on the same inputs: dq, dk, dv bit-equal, each
     # instance of the wide model's training (bf16, with and without the
-    # replay) and both fp32 routes, at (128, 256, 80).
+    # replay) and both fp32 routes, at (128, 256, 80); the wgmma 256
+    # instance at K 192 and 256 with and without the replay (the K-256
+    # model's training), the wide route's fp32 partials at 192.
     repeats = {}
     for dtype, dropout, route, kd, batch in (
             (torch.bfloat16, None, None, 80, 8),
             (torch.bfloat16, drop, None, 80, 8),
             (torch.float32, None, "split", 80, 8),
             (torch.float32, None, "partials", 80, 8),
+            (torch.bfloat16, None, None, 192, 2),
             (torch.bfloat16, drop, None, 192, 2),
+            (torch.bfloat16, None, None, 256, 2),
+            (torch.bfloat16, drop, None, 256, 2),
             (torch.float32, None, "partials", 192, 2)):
         q, k, v, g = _wide_inputs(gen, "bnhk", batch, 256, WIDE_HEADS, kd,
                                   dtype)
@@ -4923,6 +4999,7 @@ def _wide_kernels() -> dict:
                                     dropout, route)
     return {"errors": errors, "ring": ring, "b2_repeats": repeats,
             "wide_launches": wide_launches,
+            "wgmma_256_launches": wgmma_256_launches,
             "call_kernels": _flash_call_kernels(gen)}
 
 
@@ -5012,10 +5089,12 @@ def _wide_shape_errors(q, k, v, g, layout, tol) -> tuple:
 
 
 def _wide_times() -> dict:
-    """(b) bf16 at (B * 16, 256, 80) for B = 1, 8, 32, at (2048, 256,
-    128) (the forward on wgmma, B2 on the 128-wide instance) and at (128,
-    256, 192) and (128, 256, 256) (the wide route), tokens-major as the
-    model runs K = 80: the serving forward, the forward with lse and the
+    """(b) bf16 at WIDE_TIMED's shapes: (B * 16, 256, 80) for B = 1, 8,
+    32, (2048, 256, 128) (the 128-wide wgmma instances), (128, 256, 192),
+    (128, 256, 256) and the K-256 model's (40, 256, 256) and (160, 256,
+    256) (the 256 instance), (128, 256, 320) (the mma.sync wide route),
+    tokens-major as the model runs them: the serving forward, the forward
+    with lse and the
     backward, each held against its plain version at that shape
     (``errors``), then timed in turns with it and scaled_dot_product_
     attention on the same (heads-major) inputs, forward and backward, and
@@ -5028,11 +5107,11 @@ def _wide_times() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
     times = {}
-    for batch, kd in WIDE_TIMED:
+    for batch, heads, kd in WIDE_TIMED:
         n = 256
-        q, k, v, g = _wide_inputs(gen, "bnhk", batch, n, WIDE_HEADS, kd,
+        q, k, v, g = _wide_inputs(gen, "bnhk", batch, n, heads, kd,
                                   torch.bfloat16)
-        bh = batch * WIDE_HEADS
+        bh = batch * heads
         errors, out, lse, delta = _wide_shape_errors(
             q, k, v, g, "bnhk", (2e-2, 1e-4, 2e-2))
         hm = [fa._heads_major(t, "bnhk") for t in (q, k, v, g)]
@@ -5080,6 +5159,7 @@ def _wide_times() -> dict:
         times[f"{bh}x{n}x{kd}"] = dict(
             entry, errors=errors, sdpa_backend=backend.name,
             forward_kernel=fa.forward_kernel(kd, torch.bfloat16),
+            backward_kernel=fa.backward_kernel(kd, torch.bfloat16),
             plan=fa.head_dim_plan(kd)._asdict())
     # B2 in fp32 at the train step's shape, by each dq route, held against
     # the plain version and beside its 3xTF32 bound: the routes an fp32 run
@@ -5141,23 +5221,31 @@ WIDE_CONFIG = dict(image_size=(224, 224), patch_size=14, embedding_dim=1280,
                    compute_dtype="bfloat16", use_flash_attention=True,
                    train_use_flash_attention=True)
 WIDE_STEPS = 5           # Trainer.fit epochs (one batch of 8 each)
+# The same detector in 5 heads of 256 (D 1280 = 5 x 256), the widest head
+# the wgmma kernels take: bf16 K 256 on their 256 instance in serving and
+# training, every launch on wgmma with no operand copy. No preset.
+WIDE256_CONFIG = dict(WIDE_CONFIG, num_heads=5, key_dim=256)
+WIDE256_STEPS = 3
 
 
-def _wide_config():
+def _wide_config(fields=WIDE_CONFIG):
     from vision_transformer_detector_tpu_torch.config import DetectorConfig
 
-    config = DetectorConfig(**WIDE_CONFIG)
-    _require(config.num_patches == 256 and config.key_dim == 80,
-             f"wide_heads config: {config.num_patches} tokens")
+    config = DetectorConfig(**fields)
+    _require(config.num_patches == 256
+             and config.num_heads * config.key_dim == 1280,
+             f"wide_heads config: {config.num_patches} tokens, "
+             f"{config.num_heads} x {config.key_dim}")
     return config
 
 
-def _wide_serve(config, params) -> dict:
-    """(c) DetectionService at ViT-H/14's widths: one seeded image on the
-    card against the CPU plain path from the same weights, at
-    model_serve's bf16 limits (8 bf16 ulps of the largest logit at the
-    max, 1 at the median); 32 flash launches a call and nothing else;
-    device-path medians at batch 1 and 32."""
+def _wide_serve(config, params, tag: str = "wide_heads") -> dict:
+    """(c) DetectionService at ViT-H/14's widths (``tag`` names the
+    model): one seeded image on the card against the CPU plain path from
+    the same weights, at model_serve's bf16 limits (8 bf16 ulps of the
+    largest logit at the max, 1 at the median); 32 flash launches a call,
+    all on wgmma, no operand copy and nothing else; device-path medians at
+    batch 1 and 32."""
     import copy
 
     import numpy as np
@@ -5180,14 +5268,14 @@ def _wide_serve(config, params) -> dict:
         gpu = forward(card, image.to("cuda"), config).cpu()
     _require(tuple(gpu.shape) == (1, config.max_objects, 6)
              and bool(torch.isfinite(gpu).all()),
-             f"wide_heads logits {tuple(gpu.shape)}")
+             f"{tag} logits {tuple(gpu.shape)}")
     ulp = 2.0 ** -7
     scale = cpu.abs().max().item()
     err = (gpu - cpu).abs()
     limits = (8 * ulp * scale, ulp * scale)
     _require(err.max().item() <= limits[0]
              and err.median().item() <= limits[1],
-             f"wide_heads serving: card vs CPU max {err.max().item()} / "
+             f"{tag} serving: card vs CPU max {err.max().item()} / "
              f"median {err.median().item()}, limits {limits}")
     service = DetectionService(config, card, device="cuda")
     canvas = np.zeros((1, h, w, 3), np.uint8)
@@ -5200,7 +5288,7 @@ def _wide_serve(config, params) -> dict:
     want = dict({name: 0 for name in launches},
                 flash=config.encoder_blocks,
                 flash_wgmma=config.encoder_blocks)
-    _require(launches == want, f"wide_heads service call launched "
+    _require(launches == want, f"{tag} service call launched "
              f"{launches}, expected {want}")
     times = _device_path_ms({"bf16": service})["bf16"]
     return {"max_abs_err": err.max().item(),
@@ -5209,12 +5297,13 @@ def _wide_serve(config, params) -> dict:
             "launches_per_call": launches, "device_path": times}
 
 
-def _wide_train(config) -> dict:
-    """(d) WIDE_STEPS train steps at batch 8 through Trainer.fit (bf16,
+def _wide_train(config, steps: int = WIDE_STEPS,
+                tag: str = "wide_heads") -> dict:
+    """(d) ``steps`` train steps at batch 8 through Trainer.fit (bf16,
     flash in training): the loss finite and falling, 32 forward-with-lse
-    and 32 backward launches per step and no other; one fp32 step at depth
-    2 and batch 1 against the CPU, as `train` (a) is; the median step and
-    peak memory."""
+    and 32 backward launches per step, all on wgmma, and no other (no
+    operand copy); one fp32 step at depth 2 and batch 1 against the CPU,
+    as `train` (a) is; the median step and peak memory."""
     import copy
 
     import numpy as np
@@ -5251,17 +5340,17 @@ def _wide_train(config) -> dict:
     small_launches = _counts()
     _require(small_launches["flash_lse"] == 2
              and small_launches["flash_bwd"] == 2,
-             f"wide_heads fp32 step launched {small_launches}")
+             f"{tag} fp32 step launched {small_launches}")
     loss_err = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
     _require(np.isfinite(gpu_loss) and loss_err <= loss_tol,
-             f"wide_heads loss card {gpu_loss} vs CPU {cpu_loss}")
+             f"{tag} loss card {gpu_loss} vs CPU {cpu_loss}")
     worst = _grad_errors(gpu_grads, cpu_grads, grad_tol,
-                         "wide_heads card vs CPU")
+                         f"{tag} card vs CPU")
     del params, card, cpu_grads, gpu_grads
 
     train_config = TrainConfig(learning_rate=1e-5, seed=SEED,
-                               epochs_warm_up=WIDE_STEPS - 1,
-                               skip_epochs=WIDE_STEPS)
+                               epochs_warm_up=steps - 1,
+                               skip_epochs=steps)
     trainer = Trainer(config, loss_config, train_config, device="cuda")
     state = trainer.init_state()
     n_params = count_params(state["params"])
@@ -5270,21 +5359,21 @@ def _wide_train(config) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     tic = time.perf_counter()
-    state = trainer.fit(state, data, epochs=WIDE_STEPS)
+    state = trainer.fit(state, data, epochs=steps)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - tic
     launches = _counts()
     blocks = config.encoder_blocks
     want = dict({name: 0 for name in launches},
-                flash_lse=blocks * WIDE_STEPS,
-                flash_wgmma=blocks * WIDE_STEPS,
-                flash_bwd=blocks * WIDE_STEPS,
-                flash_bwd_wgmma=blocks * WIDE_STEPS)
-    _require(launches == want, f"wide_heads fit launched {launches}, "
+                flash_lse=blocks * steps,
+                flash_wgmma=blocks * steps,
+                flash_bwd=blocks * steps,
+                flash_bwd_wgmma=blocks * steps)
+    _require(launches == want, f"{tag} fit launched {launches}, "
              f"expected {want}")
     losses = trainer.loss_record
-    _require(len(losses) == WIDE_STEPS and all(np.isfinite(losses))
-             and losses[-1] < losses[0], f"wide_heads losses {losses}")
+    _require(len(losses) == steps and all(np.isfinite(losses))
+             and losses[-1] < losses[0], f"{tag} losses {losses}")
     images8, labels8 = (torch.from_numpy(a).to("cuda") for a in data[0])
     # Each step's time, and the host's share of it: the time until
     # train_step returns, having queued the step's work (it reads nothing
@@ -5299,7 +5388,7 @@ def _wide_train(config) -> dict:
         step_ms.append((time.perf_counter() - tic) * 1e3)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     del trainer, state
-    return {"params": n_params, "batch": 8, "steps": WIDE_STEPS,
+    return {"params": n_params, "batch": 8, "steps": steps,
             "fit_seconds": fit_s, "losses": losses, "launches": launches,
             "step_ms_median": float(np.median(step_ms)),
             "step_ms_min": min(step_ms),
@@ -5325,9 +5414,11 @@ def _host_info() -> dict:
 
 def phase_wide_heads() -> dict:
     """A detector at ViT-H/14's attention widths (K = 80, the flash
-    kernels' 128-wide instance): (a) the instance's routes against the
-    plain versions, (b) its times beside SDPA and the bound, (c) serving
-    through DetectionService, (d) training through Trainer.fit."""
+    kernels' 128-wide instance): (a) the instances' routes against the
+    plain versions (and K 129-320), (b) their times beside SDPA and the
+    bound, (c) serving through DetectionService, (d) training through
+    Trainer.fit; then (c) and (d) again for the same detector in 5 heads
+    of 256 (the wgmma 256 instance), WIDE256_STEPS steps."""
     import torch
 
     from vision_transformer_detector_tpu_torch.models.vit_detector import (
@@ -5344,11 +5435,136 @@ def phase_wide_heads() -> dict:
     torch.cuda.empty_cache()
     train = _wide_train(config)
     torch.cuda.empty_cache()
+    config = _wide_config(WIDE256_CONFIG)
+    params = init_params(config, torch.Generator().manual_seed(SEED))
+    k256 = {"config": WIDE256_CONFIG, "params": count_params(params),
+            "serve": _wide_serve(config, params, "wide_heads K 256")}
+    del params
+    torch.cuda.empty_cache()
+    k256["train"] = _wide_train(config, WIDE256_STEPS, "wide_heads K 256")
+    torch.cuda.empty_cache()
+    k256["registers_d256"] = {
+        source: {name: v for name, v in found.items() if "_d256" in name}
+        for source, found in WGMMA_REGISTERS.items()}
     _report("wide_heads", config=WIDE_CONFIG, params=n_params,
             seconds=time.monotonic() - tic, kernels=kernels, times=times,
-            serve=serve, train=train, host=_host_info())
+            serve=serve, train=train, model_k256=k256, host=_host_info())
     return {"kernels": kernels, "times": times, "serve": serve,
-            "train": train}
+            "train": train, "model_k256": k256}
+
+
+# ViT-22B's width (Dehghani et al. 2023, arXiv 2302.05442, Table 1: D 6144,
+# 48 heads of 128) on the detector at 224 px in 14 px patches (256 tokens),
+# with the detector's own 2-layer 12288 -> 6144 pyramid, bf16, the fused
+# LayerNorm on: every LayerNorm is D 6144, the kernel's block-a-row route.
+# Depth cut from 48 blocks to 2 (about 0.3 G parameters a block); no
+# preset.
+WIDE_LN_CONFIG = dict(image_size=(224, 224), patch_size=14,
+                      embedding_dim=6144, num_heads=48, key_dim=128,
+                      encoder_blocks=2, encoder_mlp_layers=2,
+                      head_last_units=512, head_layers=3,
+                      compute_dtype="bfloat16", use_flash_attention=True,
+                      use_fused_layer_norm=True)
+# (rows, D) bf16: that model's LayerNorm at batch 8 (8 x 256 tokens), and
+# D 8192.
+WIDE_LN_TIMED = ((2048, 6144), (2048, 8192))
+
+
+def phase_layer_norm_wide() -> dict:
+    """B4 past D 4096 (the block-a-row route): (a) at WIDE_LN_TIMED against
+    its plain version (one bf16 rounding of the largest value), timed in
+    turns with it and F.layer_norm, beside its byte bound; (b)
+    DetectionService at ViT-22B's width with the fused LayerNorm: one
+    seeded image on the card against the CPU plain path at model_serve's
+    bf16 limits, 2 LayerNorm launches a block a call and the flash
+    launches (K 128, wgmma), nothing else; device-path medians at batch 1
+    and 8."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from vision_transformer_detector_tpu_torch.config import DetectorConfig
+    from vision_transformer_detector_tpu_torch.kernels import fused_ln
+    from vision_transformer_detector_tpu_torch.models.vit_detector import (
+        count_params, forward, init_params)
+    from vision_transformer_detector_tpu_torch.serving import (
+        DetectionService)
+
+    tic = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    times = {}
+    for rows, d in WIDE_LN_TIMED:
+        x = (3 * torch.randn(rows, d, device="cuda", generator=gen)
+             + 1).to(torch.bfloat16)
+        gamma, beta = (torch.randn(d, device="cuda", generator=gen)
+                       for _ in range(2))
+        gamma16, beta16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+        before = fused_ln.fused_layer_norm.launches
+        got = fused_ln.fused_layer_norm(x, gamma, beta)
+        ref = fused_ln.layer_norm_reference(x, gamma, beta)
+        torch.cuda.synchronize()
+        _require(fused_ln.fused_layer_norm.launches == before + 1,
+                 f"layer_norm_wide {rows}x{d}: no launch counted")
+        err = _max_err(got, ref)
+        limit = 2.0 ** -7 * ref.float().abs().max().item()
+        _require(err <= limit, f"layer_norm_wide {rows}x{d}: {err} > "
+                 f"{limit}")
+        t = _in_turns({
+            "plain_ms": lambda: fused_ln.layer_norm_reference(x, gamma, beta),
+            "kernel_ms": lambda: fused_ln.fused_layer_norm(x, gamma, beta),
+            "library_ms": lambda: F.layer_norm(x, (d,), gamma16, beta16,
+                                               eps=1e-3)}, 20)
+        # x read and the output written in bf16, gamma and beta in fp32.
+        bound_ms, bound_by = _bound(7 * rows * d, 4 * rows * d + 8 * d,
+                                    "fp32")
+        times[f"{rows}x{d}"] = dict(t, max_abs_err=err, limit=limit,
+                                    bound_ms=bound_ms, bound_by=bound_by)
+
+    config = DetectorConfig(**WIDE_LN_CONFIG)
+    params = init_params(config, torch.Generator().manual_seed(SEED))
+    n_params = count_params(params)
+    h, w = config.image_size
+    image = torch.from_numpy(np.random.default_rng(SEED).uniform(
+        -1.0, 1.0, (1, h, w, 3)).astype(np.float32))
+    with torch.inference_mode():
+        cpu = forward(params, image, config)
+    card = copy.deepcopy(params).to("cuda")
+    del params
+    _reset_counts()
+    with torch.inference_mode():
+        gpu = forward(card, image.to("cuda"), config).cpu()
+    launches = _counts()
+    blocks = config.encoder_blocks
+    want = dict({name: 0 for name in launches}, layer_norm=2 * blocks,
+                flash=blocks, flash_wgmma=blocks)
+    _require(launches == want, f"layer_norm_wide forward launched "
+             f"{launches}, expected {want}")
+    _require(tuple(gpu.shape) == (1, config.max_objects, 6)
+             and bool(torch.isfinite(gpu).all()),
+             f"layer_norm_wide logits {tuple(gpu.shape)}")
+    ulp = 2.0 ** -7
+    scale = cpu.abs().max().item()
+    err = (gpu - cpu).abs()
+    limits = (8 * ulp * scale, ulp * scale)
+    _require(err.max().item() <= limits[0]
+             and err.median().item() <= limits[1],
+             f"layer_norm_wide serving: card vs CPU max {err.max().item()}"
+             f" / median {err.median().item()}, limits {limits}")
+    service = DetectionService(config, card, device="cuda")
+    device_path = _device_path_ms({"bf16": service}, batches=(1, 8))["bf16"]
+    del service, card
+    torch.cuda.empty_cache()
+    result = {"config": WIDE_LN_CONFIG, "params": n_params,
+              "fp32_weight_gb": n_params * 4 / 1e9, "times": times,
+              "serve": {"max_abs_err": err.max().item(),
+                        "median_abs_err": err.median().item(),
+                        "limits": limits, "max_abs_logit": scale,
+                        "launches_per_call": launches,
+                        "device_path": device_path}}
+    _report("layer_norm_wide", seconds=time.monotonic() - tic, **result)
+    return result
 
 
 WALKTHROUGH_EPOCHS = 4
@@ -5425,80 +5641,93 @@ def _entry(name, source, replaces, shape, launches, err, times, work):
 
 
 def _wide_entries(wide: dict, hgmma: dict) -> list:
-    """The ViT-H/14-width rows (wide_heads): B1 (wgmma, instance 128) at
-    the service's batch 32, B1-lse and B2 (wgmma, instance 128) at the
-    train step's batch 8, each shape (B * 16, 256, 80)
-    bf16 read at K = 80, with the launches of (c) and (d) and the errors
-    against the plain versions measured at that shape (B1-lse's is its
-    lse's, as for the 64-wide row; B2's the largest of dq, dk, dv); then
-    the wide route's B1-lse and B2 at (128, 256, 192) and (128, 256, 256)
-    with their launches in (a)'s checks (no preset runs K > 128)."""
+    """The wide heads' rows (wide_heads): the 128-wide wgmma instance's B1
+    at the K-80 service's batch 32, B1-lse and B2 at its train step's batch
+    8, each shape (B * 16, 256, 80) bf16 read at K = 80, with the launches
+    of (c) and (d); the 256 instance's B1 at the K-256 service's batch 32,
+    (160, 256, 256), B1-lse and B2 at its train step's batch 8, (40, 256,
+    256), with that model's launches and the times at (128, 256, 192) and
+    (128, 256, 256) beside them; and the mma.sync wide route's B1-lse and
+    B2 at (128, 256, 320) bf16, with their launches in (a)'s checks (fp32
+    past 128, bf16 past 256; no preset runs it). Errors against the plain
+    versions measured at each shape (B1-lse's is its lse's, as for the
+    64-wide row; B2's the largest of dq, dk, dv)."""
     times = wide["times"]
-    serve_key, train_key = "512x256x80", "128x256x80"
+    k256 = wide["model_k256"]
     rows = []
-    for name, what, replaces, key, launches, err in (
-            ("flash_attention_fwd_d128", "fwd", "flash_attention.py:64",
-             serve_key, wide["serve"]["launches_per_call"]["flash"], "fwd"),
-            ("flash_attention_fwd_lse_d128", "fwd_lse",
-             "flash_attention.py:653", train_key,
-             wide["train"]["launches"]["flash_lse"], "lse"),
-            ("flash_attention_bwd_d128", "bwd", "flash_attention.py:151",
-             train_key, wide["train"]["launches"]["flash_bwd"], "bwd_abs")):
-        t = times[key][what]
-        errors = times[key]["errors"]
-        bh, n, kd = (int(x) for x in key.split("x"))
-        source = ("flash_attention_bwd_sm90.cu" if what == "bwd"
-                  else "flash_attention_fwd_sm90.cu")
-        rows.append({
-            "name": name, "route": "cuda", "source": CSRC + source,
-            "replaces": TPU_KERNELS + replaces,
-            "shape": [bh, n, kd, "bfloat16"],
-            "kernel": "wgmma + TMA, instance 128",
-            "launches": launches, "max_abs_err": errors[err],
-            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
-            "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "peak": PEAK_NAMES["bf16"],
-            "launch_source": ("wide_heads (c), one DetectionService call"
-                              if what == "fwd" else
-                              f"wide_heads (d), {WIDE_STEPS} train steps"),
-            "times_2048x256x128": dict(
-                times["2048x256x128"][what],
-                max_abs_err=times["2048x256x128"]["errors"][err])})
-        rows[-1]["tensor_core_instructions"] = {
-            k: v for k, v in hgmma[source].items()
-            if k.startswith("bf16_d128")}
+    for instance, serve, train, (serve_key, train_key), extra in (
+            (128, wide["serve"], wide["train"],
+             ("512x256x80", "128x256x80"), ("2048x256x128",)),
+            (256, k256["serve"], k256["train"],
+             ("160x256x256", "40x256x256"),
+             ("128x256x192", "128x256x256"))):
+        steps = train["steps"]
+        for name, what, replaces, key, launches, err in (
+                (f"flash_attention_fwd_d{instance}", "fwd",
+                 "flash_attention.py:64", serve_key,
+                 serve["launches_per_call"]["flash"], "fwd"),
+                (f"flash_attention_fwd_lse_d{instance}", "fwd_lse",
+                 "flash_attention.py:653", train_key,
+                 train["launches"]["flash_lse"], "lse"),
+                (f"flash_attention_bwd_d{instance}", "bwd",
+                 "flash_attention.py:151", train_key,
+                 train["launches"]["flash_bwd"], "bwd_abs")):
+            t = times[key][what]
+            errors = times[key]["errors"]
+            bh, n, kd = (int(x) for x in key.split("x"))
+            source = ("flash_attention_bwd_sm90.cu" if what == "bwd"
+                      else "flash_attention_fwd_sm90.cu")
+            model = "wide_heads" if instance == 128 else "wide_heads K 256"
+            rows.append({
+                "name": name, "route": "cuda", "source": CSRC + source,
+                "replaces": TPU_KERNELS + replaces,
+                "shape": [bh, n, kd, "bfloat16"],
+                "kernel": f"wgmma + TMA, instance {instance}",
+                "launches": launches, "max_abs_err": errors[err],
+                "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+                "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "peak": PEAK_NAMES["bf16"],
+                "launch_source": (f"{model} (c), one DetectionService call"
+                                  if what == "fwd" else
+                                  f"{model} (d), {steps} train steps")})
+            for other in extra:
+                rows[-1][f"times_{other}"] = dict(
+                    times[other][what],
+                    max_abs_err=times[other]["errors"][err])
+            rows[-1]["tensor_core_instructions"] = {
+                k: v for k, v in hgmma[source].items()
+                if k.startswith(f"bf16_d{instance}")}
+    key = "128x256x320"
     for name, what, replaces, err in (
             ("flash_attention_fwd_lse_wide", "fwd_lse",
              "flash_attention.py:653", "lse"),
             ("flash_attention_bwd_wide", "bwd", "flash_attention.py:151",
              "bwd_abs")):
-        t = times["128x256x192"][what]
+        t = times[key][what]
         rows.append({
             "name": name, "route": "cuda",
             "source": CSRC + ("flash_attention_bwd_wide.cu" if what == "bwd"
                               else "flash_attention_fwd.cu"),
             "replaces": TPU_KERNELS + replaces,
-            "shape": [128, 256, 192, "bfloat16"],
+            "shape": [128, 256, 320, "bfloat16"],
             "kernel": "mma.sync, the wide route ("
-                      + str(times["128x256x192"]["plan"]) + ")",
+                      + str(times[key]["plan"]) + ")",
             "launches": wide["kernels"]["wide_launches"][what[:3]],
-            "max_abs_err": times["128x256x192"]["errors"][err],
+            "max_abs_err": times[key]["errors"][err],
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "peak": PEAK_NAMES["bf16"],
             "launch_source": "wide_heads (a), the checks at K 129, 192, "
-                             "256 (both directions); no preset runs "
-                             "K > 128",
-            "times_128x256x256": dict(
-                times["128x256x256"][what],
-                max_abs_err=times["128x256x256"]["errors"][err])})
+                             "256, 320 in fp32 and at 320 in bf16 (both "
+                             "directions); no preset runs it"})
     return rows
 
 
 def _kernels_line(flash_err, flash_times, train_errors, train_times,
                   drop_errors, drop_times, mlp_errors, mlp_times,
                   serve_errors, serve_times, launches, exported,
-                  graph, ring, wide_heads, walkthrough, hgmma) -> dict:
+                  graph, ring, wide_heads, walkthrough, hgmma,
+                  ln_wide) -> dict:
     """The kernels of every path, each with its launches on its main path,
     its error against its plain version, its times and its bound; B1, B3
     and B4 also with their launches per call of the exported program
@@ -5512,9 +5741,11 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
     timed with CUDA events, the whole ring's forward and backward on the
     host clock beside them in ``ring_host_ms``), and a tensor-parallel
     rank's B1-drop, B2-replay and MLP dropout with their coordinate maps
-    (``*_sharded``: launches of both processes of (g)); the 128-wide
-    instance's B1, B1-lse and B2 (``*_d128``, wide_heads) and the wide
-    route's B1-lse and B2 (``*_wide``), and the walkthrough's launches
+    (``*_sharded``: launches of both processes of (g)); the 128- and
+    256-wide instances' B1, B1-lse and B2 (``*_d128``, ``*_d256``,
+    wide_heads) and the wide route's B1-lse and B2 (``*_wide``); B4's
+    block-a-row route at ViT-22B's width (``layer_norm_wide``,
+    layer_norm_wide); and the walkthrough's launches
     (``launches_walkthrough``). The bf16 rows are the wgmma kernels
     (csrc/flash_attention_fwd_sm90.cu, csrc/flash_attention_bwd_sm90.cu),
     each with its instances' HGMMA counts (``tensor_core_instructions``);
@@ -5655,6 +5886,17 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
                     serve_times[f"layer_norm_B=32_{rows}x768_bf16"],
                     (7 * rows * d, 2 * rows * d * 2 + 2 * d * 4, "fp32")),
              launches_exported=exported["layer_norm"]),
+        dict(_entry("layer_norm_wide", "layer_norm.cu", "fused_ln.py:37",
+                    [2048, 6144, "bfloat16"],
+                    ln_wide["serve"]["launches_per_call"]["layer_norm"],
+                    ln_wide["times"]["2048x6144"]["max_abs_err"],
+                    ln_wide["times"]["2048x6144"],
+                    (7 * 2048 * 6144, 2 * 2048 * 6144 * 2 + 2 * 6144 * 4,
+                     "fp32")),
+             kernel="one block a row (D > 4096)",
+             launch_source="layer_norm_wide (b), one DetectionService "
+                           "call at ViT-22B's width (2 blocks)",
+             times_2048x8192=ln_wide["times"]["2048x8192"]),
         dict(_entry("dense_mish", "dense_mish.cu", "fused_ffn.py:42",
                     [rows, d, wide, "bfloat16", "mish"],
                     launches["dense_mish"], serve_errors["dense_mish"],
@@ -5796,6 +6038,7 @@ def main() -> int:
         "int8_service_b32": ("vit_b16_384",
                              32e3 / int8_times["int8"]["b32_ms_median"])})
     wide = timed(phase_wide_heads)
+    ln_wide = timed(phase_layer_norm_wide)
     walk = timed(phase_walkthrough)
     ring = timed(phase_parallel)
     _report("seconds", phases=seconds, total=round(sum(seconds.values()), 1))
@@ -5832,7 +6075,7 @@ def main() -> int:
                                    mlp_errors, mlp_times, serve_errors,
                                    serve_times, launches, exported_launches,
                                    window_launches, ring, wide, walk,
-                                   hgmma)),
+                                   hgmma, ln_wide)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

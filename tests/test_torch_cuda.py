@@ -707,10 +707,12 @@ def test_transposed_codes_follow_the_layer_onto_the_card(gen):
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2 ** -7),
                                        (torch.float32, 1e-5)])
 @pytest.mark.parametrize("shape", [(2, 576, 768), (17, 768), (3, 5, 128),
-                                   (9, 2048)])
+                                   (9, 2048), (3, 4224), (2, 5, 6144),
+                                   (2, 8192), (2, 65536)])
 def test_layer_norm_kernel_matches_plain(gen, dtype, tol, shape):
     """rsqrtf and the sums' order: 1e-5 of the largest value in fp32, one
-    bf16 rounding in bf16."""
+    bf16 rounding in bf16; a warp a row up to D 4096, a block a row past
+    it (ViT-22B's 6144 and beyond: the kernel sets no limit)."""
     x = (3 * torch.randn(shape, device="cuda", generator=gen) + 1).to(dtype)
     gamma = torch.randn(shape[-1], device="cuda", generator=gen)
     beta = torch.randn(shape[-1], device="cuda", generator=gen)
@@ -814,10 +816,22 @@ def test_dense_mish_kernel_is_differentiable(gen):
 
 def test_serving_kernels_refuse_what_they_do_not_take(gen):
     x = torch.randn(4, 256, device="cuda", generator=gen)
-    with pytest.raises(ValueError, match="D <= 4096"):
-        fused_ln.fused_layer_norm(torch.zeros(2, 4224, device="cuda"),
-                                  torch.ones(4224, device="cuda"),
-                                  torch.zeros(4224, device="cuda"))
+    # The LayerNorm takes any D % 128 == 0, as the JAX kernel does: past
+    # D 4096 a block a row, held to the plain version at the warp route's
+    # tolerances; a D off 128 still raises.
+    for d, dtype in itertools.product((4224, 6144, 8192, 65536),
+                                      (torch.bfloat16, torch.float32)):
+        wide = (3 * torch.randn(3, d, device="cuda", generator=gen) + 1
+                ).to(dtype)
+        gamma, beta = (torch.randn(d, device="cuda", generator=gen)
+                       for _ in range(2))
+        _assert_within(fused_ln.fused_layer_norm(wide, gamma, beta),
+                       fused_ln.layer_norm_reference(wide, gamma, beta),
+                       2 ** -7 if dtype == torch.bfloat16 else 1e-5)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fused_ln.fused_layer_norm(torch.zeros(2, 4160, device="cuda"),
+                                  torch.ones(4160, device="cuda"),
+                                  torch.zeros(4160, device="cuda"))
     with pytest.raises(ValueError, match="all on the CPU or all on CUDA"):
         fused_ln.fused_layer_norm(x, torch.ones(256), torch.zeros(256))
     with pytest.raises(ValueError, match="one dtype"):
@@ -1191,11 +1205,11 @@ def test_dropout_row_base_halves_equal_the_whole(gen):
 # (tensor parallelism, sequence sharding)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kd", [64, 80, 128])
+@pytest.mark.parametrize("kd", [64, 80, 128, 192, 256])
 @pytest.mark.parametrize("rate", [None, 0.1])
 def test_flash_fp32_output_instance_matches_plain(gen, rate, kd):
-    """B1-lse / B1-drop with bf16 inputs and an fp32 output (the 64- and
-    128-wide instances): within the bf16 tolerance of the plain version's
+    """B1-lse / B1-drop with bf16 inputs and an fp32 output (the 64-, 128-
+    and 256-wide instances): within the bf16 tolerance of the plain version's
     fp32 output, and rounded to bf16 bit-equal to the bf16 instance (both
     round the same O / l once)."""
     q, k, v = _qkv(gen, (2, 300, 4, kd), torch.bfloat16, kd ** -0.5)
@@ -1288,7 +1302,7 @@ def test_dropout_token_map_and_column_base_equal_the_whole(gen):
                            whole[:, 48:])
 
 
-@pytest.mark.parametrize("kd", [64, 80])
+@pytest.mark.parametrize("kd", [64, 80, 192, 256])
 @pytest.mark.parametrize("rate", [None, 0.1])
 def test_ring_blocks_in_key_order_round_as_the_whole_sequence(gen, rate, kd):
     """Ring attention's blocks taken in key order, each launch resuming
@@ -1330,44 +1344,45 @@ def test_ring_blocks_in_key_order_round_as_the_whole_sequence(gen, rate, kd):
 
 
 # ---------------------------------------------------------------------------
-# The wgmma forward (bf16, K <= 128) and the wide route (K > 128)
+# The wgmma kernels (bf16, K <= 256) and the wide route (fp32 past 128,
+# bf16 past 256)
 
 WGMMA_ROUTES = ("plain", "lse", "drop", "fp32_out")
 
 
-@pytest.mark.parametrize("route", WGMMA_ROUTES)
-@pytest.mark.parametrize("kd", [40, 64, 80, 128])
-def test_wgmma_forward_matches_plain(gen, route, kd):
-    """Every bf16 forward route at K <= 128 runs the wgmma kernel (its own
-    launch count) at the caller's K with no copy, within the bf16
-    tolerance of the plain version; the dropout route's lse is the
-    undropped one; the fp32-output instance rounds to the bf16 route's
-    output bit for bit."""
+def _wgmma_forward_case(gen, route, kd, layout):
+    """One forward route on the wgmma kernel at K = kd in ``layout``
+    (heads-major ones are views of tokens-major memory): its launches
+    counted there, no copy, within the bf16 tolerance of the plain
+    version; the dropout route's lse is the undropped one; the
+    fp32-output instance rounds to the bf16 route's output bit for bit."""
     q, k, v = _qkv(gen, (2, 203, 3, kd), torch.bfloat16, kd ** -0.5)
+    if layout == "bhnk":
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     drop = (fa.seed_tensor(2 ** 32 - 3, "cuda"), 0.1)
     before = (fa.flash_attention.wgmma_launches,
               fa.flash_attention.operand_copies)
     if route == "plain":
-        out = fa.flash_attention(q, k, v, layout="bnhk")
-        want = fa.reference_attention(q, k, v, "bnhk")
+        out = fa.flash_attention(q, k, v, layout=layout)
+        want = fa.reference_attention(q, k, v, layout)
     elif route == "lse":
-        out, lse = fa.flash_attention(q, k, v, layout="bnhk", with_lse=True)
-        want = fa.reference_attention(q, k, v, "bnhk")
-        assert (lse - fa.reference_attention_lse(q, k, "bnhk")).abs().max() \
+        out, lse = fa.flash_attention(q, k, v, layout=layout, with_lse=True)
+        want = fa.reference_attention(q, k, v, layout)
+        assert (lse - fa.reference_attention_lse(q, k, layout)).abs().max() \
             <= 1e-4
     elif route == "drop":
-        out, lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
+        out, lse = fa._launch_forward(q, k, v, layout, with_lse=True,
                                       dropout=drop)
-        want = fa.reference_attention(q, k, v, "bnhk", drop)
-        assert (lse - fa.reference_attention_lse(q, k, "bnhk")).abs().max() \
+        want = fa.reference_attention(q, k, v, layout, drop)
+        assert (lse - fa.reference_attention_lse(q, k, layout)).abs().max() \
             <= 1e-4
     else:
-        out, _ = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
+        out, _ = fa._launch_forward(q, k, v, layout, with_lse=True,
                                     out_fp32=True)
         assert out.dtype == torch.float32
-        want = fa.reference_attention(q, k, v, "bnhk",
+        want = fa.reference_attention(q, k, v, layout,
                                       out_dtype=torch.float32)
-        rounded, _ = fa._launch_forward(q, k, v, "bnhk", with_lse=True)
+        rounded, _ = fa._launch_forward(q, k, v, layout, with_lse=True)
         assert torch.equal(out.to(torch.bfloat16), rounded)
     torch.cuda.synchronize()
     launched = 2 if route == "fp32_out" else 1
@@ -1375,6 +1390,23 @@ def test_wgmma_forward_matches_plain(gen, route, kd):
             fa.flash_attention.operand_copies - before[1]) == (launched, 0)
     assert out.shape == q.shape
     assert (out.float() - want.float()).abs().max() <= TOLS[torch.bfloat16]
+
+
+@pytest.mark.parametrize("route", WGMMA_ROUTES)
+@pytest.mark.parametrize("kd", [40, 64, 80, 128, 136, 192, 256])
+def test_wgmma_forward_matches_plain(gen, route, kd):
+    """Every bf16 forward route at K <= 256 (instances 64, 128, 256; K 136
+    and 192 leave the 256 instance's last box unread), tokens-major
+    (``_wgmma_forward_case``)."""
+    _wgmma_forward_case(gen, route, kd, "bnhk")
+
+
+@pytest.mark.parametrize("route", WGMMA_ROUTES)
+@pytest.mark.parametrize("kd", [192, 256])
+def test_wgmma_256_forward_reads_heads_major_views(gen, route, kd):
+    """The 256 instance's forward routes on heads-major views, the other
+    layout the model hands over (``_wgmma_forward_case``)."""
+    _wgmma_forward_case(gen, route, kd, "bhnk")
 
 
 B2_REPEATS = 10   # launches of each wgmma backward route on one input
@@ -1386,9 +1418,13 @@ B2_REPEATS = 10   # launches of each wgmma backward route on one input
     ("bhnk", (2, 3, 256, 64), True),    # heads-major views of wider rows
     ("bnhk", (1, 130, 2, 80), True),    # the 128 instance, ragged N
     ("bhnk", (2, 2, 77, 128), False),
+    ("bnhk", (2, 65, 3, 136), False),   # the 256 instance, two live boxes
+    ("bnhk", (1, 130, 2, 192), True),
+    ("bhnk", (2, 2, 77, 256), False),
+    ("bhnk", (1, 3, 256, 256), True),
 ])
 def test_wgmma_backward_matches_plain(gen, route, layout, shape, strided):
-    """Every bf16 backward route at K <= 128 (plain, the dropout replay
+    """Every bf16 backward route at K <= 256 (plain, the dropout replay
     with batch*head, query and key offsets and a row map, and fp32 dk/dv)
     runs the wgmma kernels (their own count) at the caller's K with no
     copy, in both layouts and on strided views: B2_REPEATS launches
@@ -1450,13 +1486,22 @@ def test_wgmma_backward_matches_plain(gen, route, layout, shape, strided):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("kd", [129, 192, 256])
+@pytest.mark.parametrize("kd", [129, 192, 256, 320])
 def test_wide_route_matches_plain(gen, dtype, kd):
-    """K > 128 on the wide route, every route the wrapper exposes: the
-    forward and its lse, the dropout forward, B2 by each dq route and with
-    the replay (grads relative to their largest value), the fp32-output
-    instance with fp32 dk/dv, and a ring of two key blocks chained
-    (resume, suspend) bit-equal to one launch; B2 twice, bit-equal."""
+    """K > 128, every route the wrapper exposes, on the kernels that
+    ``forward_kernel`` and ``backward_kernel`` name (bf16 up to 256 the
+    wgmma 256 instance, K 129 padded to 192 for it; fp32, and bf16 at
+    320, the wide route), each launch counted there: the forward and its
+    lse, the dropout forward, B2 by each dq route and with the replay
+    (grads relative to their largest value), the fp32-output instance
+    with fp32 dk/dv, and a ring of two key blocks chained (resume,
+    suspend) bit-equal to one launch; B2 twice, bit-equal."""
+    wgmma = kd <= 256 and dtype == torch.bfloat16
+    assert fa.forward_kernel(kd, dtype) == ("wgmma" if wgmma else "mma_sync")
+    assert fa.backward_kernel(fa.kernel_width(kd), dtype) == (
+        "wgmma" if wgmma else "wide")
+    counts = (fa.flash_attention.wgmma_launches,
+              fa.flash_attention.wgmma_backward_launches)
     q, k, v = _qkv(gen, (2, 130, 3, kd), dtype, kd ** -0.5)
     g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
     drop = (fa.seed_tensor(2 ** 32 - 11, "cuda"), 0.1)
@@ -1514,6 +1559,10 @@ def test_wide_route_matches_plain(gen, dtype, kd):
                                      state=state)
         assert torch.equal(chained[0], whole[:, rows])
         assert torch.equal(chained[1], whole_lse[:, :, rows])
+    torch.cuda.synchronize()
+    moved = (fa.flash_attention.wgmma_launches - counts[0],
+             fa.flash_attention.wgmma_backward_launches - counts[1])
+    assert (moved[0] > 0 and moved[1] > 0) if wgmma else moved == (0, 0)
 
 
 # ---------------------------------------------------------------------------

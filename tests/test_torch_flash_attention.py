@@ -310,9 +310,11 @@ def test_only_rows_off_16_byte_boundaries_are_copied(dtype, kdim, copied):
 
 @pytest.mark.parametrize("dtype,kdim,kernel", [
     (torch.bfloat16, 40, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 136, "mma_sync"), (torch.float32, 64, "mma_sync")])
+    (torch.bfloat16, 136, "wgmma"), (torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, 264, "mma_sync"), (torch.float32, 64, "mma_sync"),
+    (torch.float32, 136, "mma_sync")])
 def test_forward_kernel_by_dtype_and_head_dim(dtype, kdim, kernel):
-    """bf16 at K <= 128 runs the wgmma forward, fp32 and bf16 past 128 the
+    """bf16 at K <= 256 runs the wgmma forward, fp32 and bf16 past 256 the
     mma.sync one."""
     assert fa.forward_kernel(kdim, dtype) == kernel
 
@@ -321,13 +323,18 @@ def test_forward_kernel_by_dtype_and_head_dim(dtype, kdim, kernel):
 @pytest.mark.parametrize("kdim", [1, 40, 48, 64, 65, 80, 128, 129, 256])
 def test_backward_kernel_by_dtype_and_head_dim(dtype, kdim):
     """At the width the wrapper reads K at (a K whose rows are off 16
-    bytes padded first), bf16 at K <= 128 runs the wgmma backward, fp32
-    there the mma.sync one, and both past 128 the wide route."""
+    bytes padded first), bf16 at K <= 256 runs the wgmma backward, fp32
+    at K <= 128 the mma.sync one, and the rest (fp32 past 128, bf16 past
+    256) the wide route, which ``head_dim_plan`` plans."""
     (read,), _ = fa._addressable([torch.zeros(1, 2, 1, kdim, dtype=dtype)])
-    want = ("wide" if kdim > 128
-            else "wgmma" if dtype == torch.bfloat16 else "mma_sync")
-    assert fa.backward_kernel(read.shape[-1], dtype) == want
-    assert (want == "wide") == (fa.head_dim_plan(kdim).instance == "wide")
+    width = read.shape[-1]
+    want = ("wgmma" if dtype == torch.bfloat16 and width <= 256
+            else "mma_sync" if kdim <= 128 else "wide")
+    assert fa.backward_kernel(width, dtype) == want
+    assert fa.forward_kernel(width, dtype) == (
+        "wgmma" if want == "wgmma" else "mma_sync")
+    if want != "wgmma":
+        assert (want == "wide") == (fa.head_dim_plan(kdim).instance == "wide")
 
 
 @pytest.mark.parametrize("dtype,dkv_fp32", [(torch.float32, False),

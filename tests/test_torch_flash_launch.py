@@ -255,14 +255,17 @@ def test_counts_move_once_per_call(launches):
     (torch.bfloat16, 64, False, "bwd_sm90", torch.bfloat16, 1, False),
     (torch.bfloat16, 80, False, "bwd_sm90", torch.bfloat16, 1, False),
     (torch.bfloat16, 64, True, "bwd_sm90", torch.float32, 0, False),
-    (torch.bfloat16, 192, False, "bwd_wide", torch.float32, 0, True),
+    (torch.bfloat16, 192, False, "bwd_sm90", torch.bfloat16, 1, False),
+    (torch.bfloat16, 256, True, "bwd_sm90", torch.float32, 0, False),
+    (torch.bfloat16, 320, False, "bwd_wide", torch.float32, 0, True),
     (torch.float32, 64, False, "bwd", torch.float32, 0, False),
+    (torch.float32, 192, False, "bwd_wide", torch.float32, 0, False),
 ])
 def test_backward_writes_dq_in_q_dtype_on_the_wgmma_route(
         launches, dtype, kdim, dq_fp32, kind, dq_dtype, dq_bf16, cast):
-    """Without dq_fp32 the wgmma dq kernel writes dq in bf16 itself (no
-    cast launch); the mma.sync and wide routes write fp32 and the operator
-    casts; with dq_fp32 dq stays fp32."""
+    """Without dq_fp32 the wgmma dq kernel (bf16 at K <= 256) writes dq in
+    bf16 itself (no cast launch); the mma.sync and wide routes write fp32
+    and the operator casts; with dq_fp32 dq stays fp32."""
     q, k, v, g = _operands(shape=(2, 37, 3, kdim), dtype=dtype, count=4)
     lse = torch.zeros(2, 3, 37)
     plan = ops.backward_plan(q, k, v, g, lse, lse, "bnhk", None, 0.0, 0,
@@ -273,6 +276,40 @@ def test_backward_writes_dq_in_q_dtype_on_the_wgmma_route(
                                      dq_fp32=dq_fp32)
     assert dq.dtype == (torch.float32 if dq_fp32 else dtype)
     assert dq.shape == q.shape and dk.dtype == dv.dtype == dtype
+
+
+@pytest.mark.parametrize("kdim,kernel", [(136, "wgmma"), (192, "wgmma"),
+                                         (256, "wgmma"), (264, "mma_sync")])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_up_to_256_launches_the_wgmma_libraries(launches, kdim, kernel,
+                                                     rate):
+    """The plans at bf16 K 129-256 pick the wgmma libraries (entry points
+    ``vtd_flash_attention_{fwd,bwd}_sm90``) and count their launches
+    there; with dropout the backward's workspace is the packed keep bits;
+    dq comes back in bf16 from the dq kernel. Past 256 the mma.sync
+    libraries (the wide route), their dq fp32 and cast."""
+    q, k, v, g = _operands(shape=(2, 37, 3, kdim), count=4)
+    seed = fa.seed_tensor(5, "cpu") if rate else None
+    wgmma = kernel == "wgmma"
+    before = (fa.flash_attention.wgmma_launches,
+              fa.flash_attention.wgmma_backward_launches)
+    out, lse, _, _ = ops._flash_fwd_cuda(q, k, v, "bnhk", True, seed, rate)
+    assert launches[-1][0] == ("vtd_flash_attention_fwd_sm90" if wgmma
+                               else "vtd_flash_attention_fwd")
+    assert out.shape == q.shape and lse.shape == (2, 3, 37)
+    plan = ops.backward_plan(q, k, v, g, lse, lse, "bnhk", seed, rate, 0,
+                             (0, 0, 0, 1, 1, 0), False, False)
+    assert plan.kind == ("bwd_sm90" if wgmma else "bwd_wide")
+    assert plan.workspace == ((fa.keep_bits_shape(2, 3, 37), torch.int32)
+                              if wgmma and rate else None)
+    dq, dk, dv = ops._flash_bwd_cuda(q, k, v, g, lse, lse, "bnhk", seed,
+                                     rate, dq_fp32=False)
+    assert launches[-1][0] == ("vtd_flash_attention_bwd_sm90" if wgmma
+                               else "vtd_flash_attention_bwd")
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    assert (fa.flash_attention.wgmma_launches - before[0],
+            fa.flash_attention.wgmma_backward_launches - before[1]) == (
+                wgmma, wgmma)
 
 
 def test_backward_fake_gives_dq_in_q_dtype_without_dq_fp32():

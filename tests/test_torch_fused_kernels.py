@@ -55,8 +55,12 @@ def _port(tmp_path, params, config):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 40, 128), (3, 7, 256), (1, 1, 128)])
+@pytest.mark.parametrize("shape", [(2, 40, 128), (3, 7, 256), (1, 1, 128),
+                                   (2, 4224), (3, 6144), (2, 8192)])
 def test_fused_layer_norm_matches_jax(dtype, shape):
+    """The wrapper on CPU tensors (the plain version) against JAX's Pallas
+    kernel, at the widths of the kernel's warp route and past D 4096,
+    where the card runs a block a row (ViT-22B's 6144 among them)."""
     x = _np(shape, 0, scale=3.0, shift=1.0)
     gamma, beta = _np(shape[-1:], 1), _np(shape[-1:], 2)
     x_jax = jnp.asarray(x).astype(dtype)
@@ -69,6 +73,40 @@ def test_fused_layer_norm_matches_jax(dtype, shape):
     np.testing.assert_allclose(got.float().numpy(), want, atol=TOLS[dtype],
                                rtol=TOLS[dtype])
     assert fused_ln.fused_layer_norm.launches == 0     # CPU: plain version
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [4224, 6144, 8192])
+def test_layer_norm_reference_past_4096_matches_jax(dtype, d):
+    """The plain version itself, the kernel's yardstick on the card, at
+    widths past the warp route: JAX's kernel in interpret mode, a few
+    rows."""
+    x = _np((4, d), 3, scale=2.0, shift=-1.0)
+    gamma, beta = _np((d,), 4), _np((d,), 5)
+    x_jax = jnp.asarray(x).astype(dtype)
+    want = np.asarray(jax_ln.fused_layer_norm(
+        x_jax, jnp.asarray(gamma), jnp.asarray(beta)), np.float32)
+    got = fused_ln.layer_norm_reference(
+        _to_port(np.asarray(x_jax, np.float32), dtype),
+        torch.from_numpy(gamma), torch.from_numpy(beta))
+    assert got.dtype == _DTYPES[dtype] and tuple(got.shape) == (4, d)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=TOLS[dtype],
+                               rtol=TOLS[dtype])
+
+
+def test_fused_layer_norm_sets_no_upper_width():
+    """Any D % 128 == 0 is taken, as JAX's kernel takes it: the wrapper
+    returns the plain version on CPU tensors, and its kernel launch checks
+    no largest D (the kernel's warp route ends at 4096, its block route
+    has no limit), so a CPU tensor passes every check and reaches the
+    operator, which has no CPU kernel."""
+    for d in (4224, 6144, 65536):
+        x = torch.randn(2, d)
+        got = fused_ln.fused_layer_norm(x, torch.ones(d), torch.zeros(d))
+        torch.testing.assert_close(got, fused_ln.layer_norm_reference(
+            x, torch.ones(d), torch.zeros(d)), atol=0, rtol=0)
+        with pytest.raises(NotImplementedError, match="CPU"):
+            fused_ln._launch(x, torch.ones(d), torch.zeros(d), 1e-3)
 
 
 def test_fused_layer_norm_empty_batch_and_unaligned_dim():

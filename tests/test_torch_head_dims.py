@@ -87,14 +87,18 @@ def test_kernel_width_of_the_wide_dims_is_128(kdim):
     (129, 3, 2, 3), (192, 3, 2, 3), (256, 4, 2, 4), (384, 6, 3, 6)])
 def test_wider_than_128_takes_the_wide_route(kdim, chunks, windows,
                                              grad_windows):
-    """K past the widest instance runs the wide route, as JAX runs any K:
-    S over ceil(K / 64) chunks, the forward's output in windows of 128
-    columns and the backward's in windows of 64; nothing raises. A K
+    """K past the widest mma.sync instance runs its wide route (fp32 at
+    any such K, bf16 past 256, where the wgmma 256 instance stops), as
+    JAX runs any K: S over ceil(K / 64) chunks, the forward's output in
+    windows of 128 columns and the backward's in windows of 64; nothing
+    raises. A K
     whose rows cannot be addressed in place pads to a multiple of 64,
     exactly; the plain version on the CPU computes any K."""
     plan = fa.head_dim_plan(kdim)
     assert plan == fa.HeadDimPlan("wide", chunks, windows, grad_windows)
-    assert fa.forward_kernel(kdim, torch.bfloat16) == "mma_sync"
+    assert fa.forward_kernel(kdim, torch.float32) == "mma_sync"
+    assert fa.forward_kernel(kdim, torch.bfloat16) == (
+        "wgmma" if kdim <= 256 else "mma_sync")
     t = torch.randn(1, 2, 8, kdim)
     fa._check_inputs(t, t, t)
     padded = fa._pad_head_dim(t)

@@ -1,9 +1,10 @@
 // Flash-attention backward for Hopper (sm_90a) on the tensor cores, bound to
 // Python through a plain C interface (kernels/ops.py loads it with ctypes):
-// fp32 at head dims K <= 128 here, K > 128 in flash_attention_bwd_wide.cu,
-// which shares this file's contract and flash_bwd_common.cuh; bf16 at
-// K <= 128 runs on wgmma in flash_attention_bwd_sm90.cu (the templates
-// below still take bf16, but only fp32 instances are built).
+// fp32 at head dims K <= 128 here, fp32 past 128 and bf16 past 256 in
+// flash_attention_bwd_wide.cu, which shares this file's contract and
+// flash_bwd_common.cuh; bf16 at K <= 256 runs on wgmma in
+// flash_attention_bwd_sm90.cu (the templates below still take bf16, but
+// only fp32 instances are built).
 //
 // Replaces the Pallas TPU kernel `_fused_bwd_kernel` in
 // vision_transformer_detector_tpu/kernels/flash_attention.py (launched by

@@ -1,11 +1,11 @@
 // Flash-attention backward in bf16 for Hopper (sm_90a) on wgmma, fed by TMA
 // in a warp-specialised pipeline; bound to Python through a plain C
 // interface (kernels/ops.py loads it with ctypes). It runs every bf16
-// backward route at head dims K <= 128: B2 (training without dropout),
+// backward route at head dims K <= 256: B2 (training without dropout),
 // B2-replay (the forward's dropout mask replayed) and a ring attention
-// block's instance that writes dk and dv in fp32 (dkv_fp32). fp32 at any K
-// runs on mma.sync (flash_attention_bwd.cu), and K > 128 in both types on
-// the wide route (flash_attention_bwd_wide.cu).
+// block's instance that writes dk and dv in fp32 (dkv_fp32). fp32 at K <=
+// 128 runs on mma.sync (flash_attention_bwd.cu); fp32 past 128 and bf16
+// past 256 on the wide route (flash_attention_bwd_wide.cu).
 //
 // Replaces the Pallas TPU kernel `_fused_bwd_kernel` in
 // vision_transformer_detector_tpu/kernels/flash_attention.py (launched by
@@ -27,7 +27,9 @@
 // below the bf16 ridge (about 295), so bound by bytes at 0.162 ms. The
 // replay adds the keep bits, 16.8 MB written and read again. Since dq is
 // summed in key order without atomics (below), the dq kernel recomputes S
-// and dP: seven products, 120 GFLOP, 0.122 ms at the peak rate. The
+// and dP: seven products, 120 GFLOP, 0.122 ms at the peak rate.
+// (128, 256, 256), the widest head it takes, moves 134 MB for 10.7 GFLOP
+// (80 FLOP per byte): bound by bytes at 0.040 ms. The
 // mma.sync kernel it replaces reached 22 % of the bound: synchronous
 // products leave the latency of the chain between them (exp, the mask,
 // the casts) exposed, and every thread spent issue slots on cp.async
@@ -47,8 +49,10 @@
 //     unit head-dim stride, boxes of 64 columns (128 bytes: the 128-byte
 //     swizzle that wgmma reads) by the tile's rows: both layouts and
 //     strided views are read in place, and TMA fills columns past K and
-//     rows past N with zeros, so the 64 instance takes every K <= 64 and
-//     the 128 instance 64 < K <= 128 with no padded copy;
+//     rows past N with zeros, so the 64 instance takes every K <= 64, the
+//     128 instance 64 < K <= 128 and the 256 instance 128 < K <= 256 with
+//     no padded copy (a box wholly past K, the 256 instance's last at K <=
+//     192, is neither loaded nor multiplied);
 //   * dk/dv kernel, one CTA per (batch*head, 64-key tile): K and V loaded
 //     once; per query tile of kQuery queries (64 at D 64; 32 at D 128 and
 //     with the replay, so that S^T and dP^T, and the hash, fit beside the
@@ -60,7 +64,15 @@
 //     dK += dS^T_bf16 Q by wgmma with A in registers (the accumulator's
 //     tile pairs rounded to bf16) and B MN-major, as O += P V in the
 //     forward; dk and dv stored through the caller's strides up to K, in
-//     bf16 or fp32;
+//     bf16 or fp32. At D 256, dK and dV for 64 keys x 256 columns would
+//     take 256 registers a thread, so a grid axis of two column windows
+//     splits them: each window's CTA forms S^T and dP^T over the whole of
+//     K (the same values in both) and keeps dk and dv for its 128 columns
+//     (registers as the 128 instance's); window 0 writes the keep words.
+//     The two windows as two consumer warpgroups of one CTA, sharing its
+//     tiles (8 warps: no producer warp, as the forward's 256 instance),
+//     took 0.1035 ms against 0.1127 at (128, 256, 256) but 0.046 against
+//     0.043 at the K-256 model's (40, 256, 256), and were not kept;
 //   * the replay hashes each score once: the dk/dv kernel draws each keep
 //     bit and also writes the bits packed, one uint32 per (batch*head,
 //     32 keys, query) in a (B*H, ceil(N / 32), N) workspace, word w of
@@ -71,10 +83,13 @@
 //     from four ballots by the thread that stores it, consecutive threads
 //     on consecutive queries;
 //   * dq kernel, one CTA per (batch*head, 64-query tile): Q and g loaded
-//     once; the 64-key tiles in order, K and V by TMA and (replay) each
-//     thread's four keep words by plain loads issued before the tile's
-//     products; S = Q K^T and dP = g V^T by wgmma, dS in fp32 from lse
-//     and delta in registers, dq += dS_bf16 K with K as an MN-major B; dq
+//     once; the 64-key tiles in order (one CTA an SM at D 256, where dq's
+//     own accumulator is 128 registers a thread: 32-key tiles, tried,
+//     took 0.063 ms against 0.054 at (128, 256, 256)), K and V by TMA and
+//     (replay) each thread's four keep words by plain loads issued before
+//     the tile's products; S = Q K^T and dP = g V^T by wgmma, dS in fp32
+//     from lse and delta in registers, dq += dS_bf16 K with K as an
+//     MN-major B; dq
 //     summed so in key order, ((c0 + c1) + c2) + ..., in the accumulator
 //     and written once, with no atomics: the same on every run, as the
 //     Pallas kernel's resident dq block is; in fp32, or rounded once to
@@ -86,9 +101,11 @@
 // elementwise work with the next tile's products, TMA stores, and dq
 // summed in a cluster's shared memory in place of the second kernel.
 // Budget: shared memory (dynamic, 1,024 bytes of alignment included): the
-// dk/dv kernel 52,264 (D 64) and 68,136 (D 128) bytes, the dq kernel
-// 50,216 and 99,368. Registers and spills of each instance: chip_smoke.py's
-// build phase prints ptxas's lines (PERF.md records them).
+// dk/dv kernel 52,264 (D 64), 68,136 (D 128) and 133,672 (D 256) bytes,
+// the dq kernel 50,216, 99,368 and 197,672. Registers and spills of each
+// instance: chip_smoke.py's build phase prints ptxas's lines (PERF.md
+// records them); the 256 instance's (CUDA 12.8): dk/dv 217 and, with the
+// replay, 254; dq 248 and 255; no spills.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -128,6 +145,12 @@ template <int D, int kQueryTile = 64>
 struct Shape {
   static constexpr int kQuery = kQueryTile;
   static constexpr int kAtoms = D / 64;   // 64-column (128-byte) boxes
+  // The dk/dv kernel's column windows (a grid axis: each window's CTA forms
+  // S^T and dP^T over the whole of K and keeps dk and dv for its kOut
+  // columns): at D 256 two windows of 128, so that dk and dv take 128
+  // registers a thread.
+  static constexpr int kWindows = D == 256 ? 2 : 1;
+  static constexpr int kOut = D / kWindows;
   static constexpr int kTileBytes = kRows * D * 2;      // 64 rows of D
   static constexpr int kQTileBytes = kQuery * D * 2;
   // dk/dv: K, V; per stage Q, g and the lse and delta rows; two buffers of
@@ -150,20 +173,6 @@ __device__ __forceinline__ uint32_t lane_bits(uint32_t mask, int t) {
   return (x | (x >> 12)) & 0xFFu;
 }
 
-// Zeroes an accumulator before a group of products whose first k-step
-// overwrites it: the products' operands are read-write ("+f"), so without
-// this last tile's values would stay live, in registers, across the whole
-// loop body.
-template <int kTiles>
-__device__ __forceinline__ void clear(float (&acc)[kTiles][4]) {
-#pragma unroll
-  for (int j = 0; j < kTiles; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  }
-  fence_operands(acc);
-}
-
 // An accumulator pair rounded to bf16 as A fragments: tiles 2kk and
 // 2kk + 1 of acc are k-step kk of the next product.
 template <int kTiles>
@@ -179,17 +188,22 @@ __device__ __forceinline__ void to_fragments(const float (&acc)[kTiles][4],
 }
 
 // D (64 x N) = A B^T over the head dim, A a 64-row and B an N-row tile in
-// shared memory, each stored as 64-column boxes one after the other.
+// shared memory, each stored as 64-column boxes one after the other, of
+// which the first `atoms` hold columns below K (the rest are not loaded).
 template <int D, int N>
 __device__ __forceinline__ void product_kmajor(float (&d)[N / 8][4],
-                                               uint32_t a_s, uint32_t b_s) {
+                                               uint32_t a_s, uint32_t b_s,
+                                               int atoms) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t within = (kk % 4) * 32;
-    wgmma_ss<N>(d, kmajor_desc(a_s + (kk / 4) * kRows * 128 + within),
-                kmajor_desc(b_s + (kk / 4) * N * 128 + within), kk > 0);
+    if (kk / 4 < atoms) {
+      wgmma_ss<N>(d, kmajor_desc(a_s + (kk / 4) * kRows * 128 + within),
+                  kmajor_desc(b_s + (kk / 4) * N * 128 + within), kk > 0);
+    }
   }
 }
+
 
 // This lane's accumulator rows row0 and row0 + 8 (where below seq_len),
 // columns up to kdim, stored as O through the row stride.
@@ -213,7 +227,8 @@ __device__ __forceinline__ void store_rows(const float (&acc)[kTiles][4],
 }
 
 // dk and dv (and, with kDropout, the packed keep bits): block blockIdx.x is
-// key tile blockIdx.x % key_tiles of batch*head blockIdx.x / key_tiles.
+// column window blockIdx.x % kWindows of key tile (blockIdx.x / kWindows)
+// % key_tiles of batch*head blockIdx.x / (kWindows * key_tiles).
 template <int D, bool kDropout, typename O>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
 flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
@@ -227,6 +242,7 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       Strides sdk, Strides sdv, Dropout drop) {
   using S = Shape<D, query_tile<D, kDropout>()>;
   constexpr int kQ = S::kQuery;
+  constexpr int kOut = S::kOut;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // Every box starts on a 1,024-byte boundary, as the swizzle needs.
   const uint32_t raw = smem_u32(smem_raw);
@@ -249,13 +265,17 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  // Key tiles of one (batch, head) are neighbours in launch order, so its
-  // q and g are read from device memory once and from L2 after that.
-  const int bh = blockIdx.x / key_tiles;
-  const int kv0 = (blockIdx.x % key_tiles) * kRows;
+  // Key tiles of one (batch, head), and a tile's windows, are neighbours
+  // in launch order, so its q and g are read from device memory once and
+  // from L2 after that.
+  const int window = blockIdx.x % S::kWindows;
+  const int tile = blockIdx.x / S::kWindows;
+  const int bh = tile / key_tiles;
+  const int kv0 = (tile % key_tiles) * kRows;
   const int b = bh / heads;
   const int h = bh % heads;
   const int q_tiles = (seq_len + kQ - 1) / kQ;
+  const int atoms = live_atoms<D>(kdim);
 
   if (tid == 0) {
     mbar_init(kv_full, 1);
@@ -272,11 +292,13 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // lse and delta rows (lse infinite past seq_len, so p = 0 there).
     const long long row_base = static_cast<long long>(bh) * seq_len;
     if (lane == 0) {
-      mbar_expect_tx(kv_full, 2 * S::kTileBytes);
+      mbar_expect_tx(kv_full, 2 * atoms * kRows * 128);
 #pragma unroll
       for (int a = 0; a < S::kAtoms; ++a) {
-        tma_load(k_s + a * kRows * 128, &tk, kv_full, 64 * a, kv0, h, b);
-        tma_load(v_s + a * kRows * 128, &tv, kv_full, 64 * a, kv0, h, b);
+        if (a < atoms) {
+          tma_load(k_s + a * kRows * 128, &tk, kv_full, 64 * a, kv0, h, b);
+          tma_load(v_s + a * kRows * 128, &tv, kv_full, 64 * a, kv0, h, b);
+        }
       }
     }
     for (int it = 0; it < q_tiles; ++it) {
@@ -286,11 +308,13 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       if (lane == 0) {
         const uint32_t q_t = q_s + st * S::kQTileBytes;
         const uint32_t g_t = g_s + st * S::kQTileBytes;
-        mbar_expect_tx(full(st), 2 * S::kQTileBytes);
+        mbar_expect_tx(full(st), 2 * atoms * kQ * 128);
 #pragma unroll
         for (int a = 0; a < S::kAtoms; ++a) {
-          tma_load(q_t + a * kQ * 128, &tq, full(st), 64 * a, q0, h, b);
-          tma_load(g_t + a * kQ * 128, &tg, full(st), 64 * a, q0, h, b);
+          if (a < atoms) {
+            tma_load(q_t + a * kQ * 128, &tq, full(st), 64 * a, q0, h, b);
+            tma_load(g_t + a * kQ * 128, &tg, full(st), 64 * a, q0, h, b);
+          }
         }
       }
       float* lse_t = rows + st * 2 * kQ;
@@ -324,9 +348,9 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     }
   }
   const int key_words = (seq_len + 31) / 32;
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk_acc[kOut / 8][4], dv_acc[kOut / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < kOut / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       dk_acc[j][e] = 0.f;
@@ -350,8 +374,8 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     clear(s);
     clear(dp);
     wgmma_fence();
-    product_kmajor<D, kQ>(s, k_s, q_t);
-    product_kmajor<D, kQ>(dp, v_s, g_t);
+    product_kmajor<D, kQ>(s, k_s, q_t, atoms);
+    product_kmajor<D, kQ>(dp, v_s, g_t, atoms);
     wgmma_commit();
     wgmma_wait_all();
     fence_operands(s);
@@ -389,7 +413,9 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     to_fragments(s, pa);
     to_fragments(dp, da);
 
-    // dV += P^T g and dK += dS^T Q over kQ / 16 k-steps of 16 queries.
+    // dV += P^T g and dK += dS^T Q over kQ / 16 k-steps of 16 queries, in
+    // the window's columns of g and Q (its first box, kOut / 64 of them).
+    const uint32_t first_box = window * (kOut / 64) * kQ * 128;
     fence_operands(dv_acc);
     fence_operands(dk_acc);
     fence_operands(pa);
@@ -397,11 +423,13 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kQ / 16; ++kk) {
-      wgmma_rs<D>(dv_acc, pa[kk], mnmajor_desc(g_t + kk * 16 * 128, kQ * 128));
+      wgmma_rs<kOut>(dv_acc, pa[kk], mnmajor_desc(
+          g_t + first_box + kk * 16 * 128, kQ * 128));
     }
 #pragma unroll
     for (int kk = 0; kk < kQ / 16; ++kk) {
-      wgmma_rs<D>(dk_acc, da[kk], mnmajor_desc(q_t + kk * 16 * 128, kQ * 128));
+      wgmma_rs<kOut>(dk_acc, da[kk], mnmajor_desc(
+          q_t + first_box + kk * 16 * 128, kQ * 128));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -411,12 +439,13 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     fence_operands(da);
     mbar_arrive(empty(st));
 
-    if constexpr (kDropout) {
+    if (kDropout && window == 0) {
       // Word c of query q: keys kv0 + 32c .. + 31, the 16 keys of warps 2c
       // (low half) and 2c + 1 (high), each from the two ballots (r = 0,
       // 1) of q's accumulator elements, its bits at lanes 4g + t. The
       // buffers alternate, so the barrier of the next tile also orders
-      // these reads before that tile's writes.
+      // these reads before that tile's writes. Window 0 writes the words;
+      // the other draws the same bits for its own columns.
       consumers_sync();
       if (tid < 2 * kQ) {
         const int q = tid % kQ;
@@ -442,10 +471,11 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
   }
-  store_rows<D / 8>(dk_acc, dk + b * sdk.b + h * sdk.h, sdk.n, key0,
-                    seq_len, kdim, t);
-  store_rows<D / 8>(dv_acc, dv + b * sdv.b + h * sdv.h, sdv.n, key0,
-                    seq_len, kdim, t);
+  const int col0 = window * kOut;
+  store_rows<kOut / 8>(dk_acc, dk + b * sdk.b + h * sdk.h + col0, sdk.n,
+                       key0, seq_len, kdim - col0, t);
+  store_rows<kOut / 8>(dv_acc, dv + b * sdv.b + h * sdv.h + col0, sdv.n,
+                       key0, seq_len, kdim - col0, t);
 }
 
 // The keep words of key tile `tile` (keys 64 tile .. + 63, two words) for
@@ -473,7 +503,7 @@ __device__ __forceinline__ void load_keep_words(
 // to bf16 (to nearest even, as a cast of the fp32 sum rounds it). With
 // kDropout the keep mask comes from the words the dk/dv kernel wrote.
 template <int D, bool kDropout>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, D == 256 ? 1 : 2)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
@@ -504,6 +534,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int b = bh / heads;
   const int h = bh % heads;
   const int kv_tiles = (seq_len + kRows - 1) / kRows;
+  const int atoms = live_atoms<D>(kdim);
 
   if (tid == 0) {
     mbar_init(qg_full, 1);
@@ -518,24 +549,28 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   if (warp == kConsumers / 32) {
     // Producer: one thread keeps the ring of stages full.
     if (lane == 0) {
-      mbar_expect_tx(qg_full, 2 * S::kTileBytes);
+      mbar_expect_tx(qg_full, 2 * atoms * kRows * 128);
 #pragma unroll
       for (int a = 0; a < S::kAtoms; ++a) {
-        tma_load(q_s + a * kRows * 128, &tq, qg_full, 64 * a, q0, h, b);
-        tma_load(g_s + a * kRows * 128, &tg, qg_full, 64 * a, q0, h, b);
+        if (a < atoms) {
+          tma_load(q_s + a * kRows * 128, &tq, qg_full, 64 * a, q0, h, b);
+          tma_load(g_s + a * kRows * 128, &tg, qg_full, 64 * a, q0, h, b);
+        }
       }
       for (int it = 0; it < kv_tiles; ++it) {
         const int st = it % kStages;
         if (it >= kStages) mbar_wait(empty(st), ((it / kStages) & 1) ^ 1);
         const uint32_t k_t = k_s + st * S::kTileBytes;
         const uint32_t v_t = v_s + st * S::kTileBytes;
-        mbar_expect_tx(full(st), 2 * S::kTileBytes);
+        mbar_expect_tx(full(st), 2 * atoms * kRows * 128);
 #pragma unroll
         for (int a = 0; a < S::kAtoms; ++a) {
-          tma_load(k_t + a * kRows * 128, &tk, full(st), 64 * a,
-                   it * kRows, h, b);
-          tma_load(v_t + a * kRows * 128, &tv, full(st), 64 * a,
-                   it * kRows, h, b);
+          if (a < atoms) {
+            tma_load(k_t + a * kRows * 128, &tk, full(st), 64 * a,
+                     it * kRows, h, b);
+            tma_load(v_t + a * kRows * 128, &tv, full(st), 64 * a,
+                     it * kRows, h, b);
+          }
         }
       }
     }
@@ -586,8 +621,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     clear(s);
     clear(dp);
     wgmma_fence();
-    product_kmajor<D, kRows>(s, q_s, k_t);
-    product_kmajor<D, kRows>(dp, g_s, v_t);
+    product_kmajor<D, kRows>(s, q_s, k_t, atoms);
+    product_kmajor<D, kRows>(dp, g_s, v_t, atoms);
     wgmma_commit();
     uint32_t next_words[2][2] = {{0u, 0u}, {0u, 0u}};
     if (kDropout && it + 1 < kv_tiles) {
@@ -692,12 +727,15 @@ cudaError_t launch_kernels(const Launch& a) {
   }
   const int tiles = (a.seq_len + kRows - 1) / kRows;
   const long long blocks = static_cast<long long>(a.batch) * a.heads * tiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  if (blocks * S::kWindows > 0x7fffffffLL) {
+    return cudaErrorInvalidConfiguration;
+  }
   static std::atomic<unsigned long long> smem_allowed{0}, dq_allowed{0};
   auto dkdv = flash_bwd_sm90_kernel<D, kDropout, O>;
   cudaError_t err = allow_dynamic_smem(dkdv, S::kSmem, smem_allowed);
   if (err != cudaSuccess) return err;
-  dkdv<<<static_cast<unsigned int>(blocks), kThreads, S::kSmem, a.stream>>>(
+  dkdv<<<static_cast<unsigned int>(blocks * S::kWindows), kThreads, S::kSmem,
+         a.stream>>>(
       tq_tile, tk, tv, tg_tile, a.lse, a.delta, static_cast<O*>(a.dk),
       static_cast<O*>(a.dv), a.bits, a.heads, a.seq_len, a.kdim, tiles,
       a.sdk, a.sdv, a.drop);
@@ -715,7 +753,8 @@ cudaError_t launch_kernels(const Launch& a) {
 template <typename O, bool kDropout>
 cudaError_t launch_dim(const Launch& a) {
   if (a.kdim <= 64) return launch_kernels<64, kDropout, O>(a);
-  return launch_kernels<128, kDropout, O>(a);
+  if (a.kdim <= 128) return launch_kernels<128, kDropout, O>(a);
+  return launch_kernels<256, kDropout, O>(a);
 }
 
 }  // namespace
@@ -723,13 +762,14 @@ cudaError_t launch_dim(const Launch& a) {
 extern "C" {
 
 // The arguments of flash_bwd_common.cuh's vtd_flash_attention_bwd, for
-// bf16 (dtype 1) at head_dim K <= 128 with K % 8 == 0, except the tenth
+// bf16 (dtype 1) at head_dim K <= 256 with K % 8 == 0, except the tenth
 // pointer: keep_bits, with dropout the (batch * heads, ceil(seq_len / 32),
 // seq_len) uint32 workspace of the keep bits (the dk/dv kernel writes
 // every word, the dq kernel reads them), else null. dkv_fp32 1 writes dk
 // and dv in fp32 (a ring attention block), 0 in bf16; dq_bf16 1 writes dq
 // in bf16, 0 in fp32, every element written. The instance is 64 for
-// K <= 64, else 128; TMA zero-fills the columns past K. Returns
+// K <= 64, 128 for K <= 128, else 256; TMA zero-fills the columns past K.
+// Returns
 // cudaGetLastError() after the launches, or cudaErrorInvalidValue for what
 // these kernels do not take (and when a tensor map cannot be encoded).
 int vtd_flash_attention_bwd_sm90(const FlashBwdArgs* args, const void* q,
@@ -740,7 +780,7 @@ int vtd_flash_attention_bwd_sm90(const FlashBwdArgs* args, const void* q,
                                  void* stream) {
   const FlashBwdArgs& p = *args;
   if (p.dtype != 1 || p.batch <= 0 || p.heads <= 0 || p.seq_len <= 0 ||
-      p.head_dim <= 0 || p.head_dim > 128 || p.head_dim % 8 != 0) {
+      p.head_dim <= 0 || p.head_dim > 256 || p.head_dim % 8 != 0) {
     return cudaErrorInvalidValue;
   }
   if (p.dropout != 0 && (seed == nullptr || keep_bits == nullptr)) {

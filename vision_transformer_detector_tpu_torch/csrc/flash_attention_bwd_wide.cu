@@ -1,6 +1,8 @@
 // Flash-attention backward for Hopper (sm_90a) at head dims K > 128 (the
-// wide route), bound to Python through a plain C interface (kernels/ops.py
-// loads it with ctypes). It computes what flash_attention_bwd.cu computes
+// wide route): fp32 past 128 and bf16 past 256 (bf16 at K <= 256 runs on
+// wgmma, flash_attention_bwd_sm90.cu). Bound to Python through a plain C
+// interface (kernels/ops.py loads it with ctypes). It computes what
+// flash_attention_bwd.cu computes
 // (that file's header states the contract: the Pallas kernel
 // `_fused_bwd_kernel` it replaces, dq summed in key order by either route,
 // the dropout replay) with the same tiles, mma.sync products and per-score

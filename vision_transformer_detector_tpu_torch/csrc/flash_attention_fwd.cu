@@ -1,8 +1,8 @@
 // Flash-attention forward for Hopper (sm_90a) on the tensor cores through
 // mma.sync, bound to Python through a plain C interface
 // (kernels/flash_attention.py loads it with ctypes). It runs fp32 at every
-// head dim and bf16 at head dims above 128; bf16 at K <= 128 runs on
-// wgmma and TMA (flash_attention_fwd_sm90.cu).
+// head dim and bf16 at head dims above 256 (on the wide route); bf16 at
+// K <= 256 runs on wgmma and TMA (flash_attention_fwd_sm90.cu).
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` in
 // vision_transformer_detector_tpu/kernels/flash_attention.py (launched by
@@ -413,8 +413,8 @@ cudaError_t launch_wide(const Launch& a) {
 }
 
 // The instance of head dim K: fp32 48 (K <= 48), 64 (K <= 64) or 128
-// (K <= 128), else the wide route; bf16 only the wide route (K <= 128 is
-// flash_attention_fwd_sm90.cu's).
+// (K <= 128), else the wide route; bf16 only the wide route (the model
+// sends it K > 256: K <= 256 is flash_attention_fwd_sm90.cu's).
 template <typename T, typename O, bool kDropout>
 cudaError_t launch_dim(const Launch& a) {
   if (a.kdim > 128) return launch_wide<T, kDropout, O>(a);

@@ -12,15 +12,33 @@
 //
 // What bounds it: it reads each element once and writes it once, about 5
 // FLOP per element, so memory bounds it: (18,432, 768) bf16 at
-// vit_b16_384 batch 32 is 56.6 MB, about 17 us at 3.35 TB/s.
+// vit_b16_384 batch 32 is 56.6 MB, about 17 us at 3.35 TB/s; (2048, 6144)
+// bf16, a batch of 8 at ViT-22B's width, 50.3 MB, about 15 us. On an H100
+// SXM (700 W) the block route took 21.3 us of device time there, beside
+// F.layer_norm's 24.4-24.6, and 27.4-27.6 us at D 8192 beside 39.9-40.4
+// (tools/time_wide_kernels_torch.py, torch.profiler); a call's event time
+// is held by the host's dispatch at these sizes.
 //
-// Design: one warp per row, 8 rows per 256-thread block. A lane holds
-// D / 32 values of its row in registers, as chunks of 4 neighbours (a
-// 16-byte load for fp32, 8 bytes for bf16), lane-major within each
-// 128-wide chunk so that a warp's load is one contiguous span. Both
-// reductions are warp shuffles over the values in registers: the row is
-// read from device memory once, as the TPU kernel keeps its tile resident
-// in VMEM. D up to 4096 (chunks of 128: 8 for D <= 1024, else 32).
+// Design, two routes, both taking any row count:
+//   * D <= 4096: one warp per row, 8 rows per 256-thread block. A lane
+//     holds D / 32 values of its row in registers, as chunks of 4
+//     neighbours (a 16-byte load for fp32, 8 bytes for bf16), lane-major
+//     within each 128-wide chunk so that a warp's load is one contiguous
+//     span. Both reductions are warp shuffles over the values in
+//     registers: the row is read from device memory once, as the TPU
+//     kernel keeps its tile resident in VMEM (chunks of 128: 8 for
+//     D <= 1024, else 32);
+//   * D > 4096, with no upper limit (the Pallas kernel sets none): one
+//     256-thread block per row, whose threads stride over the row in
+//     chunks of 4, and three passes over it: the sum, then the sum of
+//     (x - mean)^2, then the output. Each sum is a warp shuffle, then the
+//     8 warps' partials added in warp order through shared memory, so the
+//     numerics are the other route's two-pass ones in another order. The
+//     row is read once from device memory; the second and third passes
+//     find it in L2 (a row of 8,192 bf16 is 16 KB, 132 SMs' rows in flight
+//     a few MB of the 50 MB). Keeping the row in registers up to D 8192
+//     took the same time (21.7 against 21.3 us at (2048, 6144) bf16, 27.3
+//     against 27.5 at D 8192) and was not kept.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -30,6 +48,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = kThreads / 32;
+constexpr int kMaxWarpDim = 4096;   // the widest row a warp holds
 
 __device__ __forceinline__ void load4(const float* p, float v[4]) {
   const float4 f = *reinterpret_cast<const float4*>(p);
@@ -120,13 +139,71 @@ __global__ void __launch_bounds__(kThreads) layer_norm_kernel(
   }
 }
 
+// The sum of every thread's v over the block, the same in every thread:
+// each warp's shuffle sum, then the warps' sums added in warp order from
+// shared memory (`partial`, one float per warp, free again on return).
+__device__ __forceinline__ float block_sum(float v, float* partial) {
+  v = warp_sum(v);
+  if (threadIdx.x % 32 == 0) partial[threadIdx.x / 32] = v;
+  __syncthreads();
+  float total = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kRowsPerBlock; ++w) total += partial[w];
+  __syncthreads();
+  return total;
+}
+
+// D > 4096: block blockIdx.x normalises row blockIdx.x, its threads on
+// columns 4 * threadIdx.x + 1024 i.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) layer_norm_row_kernel(
+    const T* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ beta, T* __restrict__ out, int d, float eps) {
+  __shared__ float partial[kRowsPerBlock];
+  const long long base = static_cast<long long>(blockIdx.x) * d;
+  const T* xr = x + base;
+  float v[4];
+
+  float sum = 0.0f;
+  for (int col = threadIdx.x * 4; col < d; col += kThreads * 4) {
+    load4(xr + col, v);
+    sum += (v[0] + v[1]) + (v[2] + v[3]);
+  }
+  const float mean = block_sum(sum, partial) / static_cast<float>(d);
+
+  float squares = 0.0f;
+  for (int col = threadIdx.x * 4; col < d; col += kThreads * 4) {
+    load4(xr + col, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float c = v[i] - mean;
+      squares += c * c;
+    }
+  }
+  const float var = block_sum(squares, partial) / static_cast<float>(d);
+  const float inv = rsqrtf(var + eps);
+
+  for (int col = threadIdx.x * 4; col < d; col += kThreads * 4) {
+    float g[4], b[4], y[4];
+    load4(xr + col, v);
+    load4(gamma + col, g);
+    load4(beta + col, b);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) y[i] = (v[i] - mean) * inv * g[i] + b[i];
+    store4(out + base + col, y);
+  }
+}
+
 template <typename T>
 void launch(const void* x, const float* gamma, const float* beta, void* out,
             int rows, int d, float eps, cudaStream_t stream) {
   const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
-  if (d <= 1024) {
+  if (d > kMaxWarpDim) {
+    layer_norm_row_kernel<T>
+        <<<rows, kThreads, 0, stream>>>(xt, gamma, beta, ot, d, eps);
+  } else if (d <= 1024) {
     layer_norm_kernel<T, 8>
         <<<blocks, kThreads, 0, stream>>>(xt, gamma, beta, ot, rows, d, eps);
   } else {
@@ -140,12 +217,13 @@ void launch(const void* x, const float* gamma, const float* beta, void* out,
 extern "C" {
 
 // x and out: contiguous (rows, d) in dtype (0 = float32, 1 = bfloat16),
-// 16-byte aligned; gamma and beta: contiguous fp32 (d,). d % 128 == 0 and
-// d <= 4096. Returns cudaGetLastError() after the launch (0 on success).
+// 16-byte aligned; gamma and beta: contiguous fp32 (d,). d % 128 == 0, any
+// d (rows * d below 2^63). Returns cudaGetLastError() after the launch (0
+// on success).
 int vtd_layer_norm(const void* x, const void* gamma, const void* beta,
                    void* out, int rows, int d, float eps, int dtype,
                    void* stream) {
-  if (rows <= 0 || d <= 0 || d % 128 != 0 || d > 4096) {
+  if (rows <= 0 || d <= 0 || d % 128 != 0) {
     return cudaErrorInvalidValue;
   }
   const float* g = static_cast<const float*>(gamma);

@@ -16,19 +16,21 @@ Routing is by the device of the tensors, never by a fallback:
     ``kernels/_build.py``) through the custom operators of kernels/ops.py,
     or raise: the forward operator ``torch.ops.vtd_torch.flash_attention_fwd``
     runs ``csrc/flash_attention_fwd_sm90.cu`` (wgmma fed by TMA) for bf16
-    at K <= 128 and ``csrc/flash_attention_fwd.cu`` (mma.sync) for every
+    at K <= 256 and ``csrc/flash_attention_fwd.cu`` (mma.sync) for every
     other call (``forward_kernel``), and ``flash_attention_bwd`` runs
     ``csrc/flash_attention_bwd_sm90.cu`` (wgmma fed by TMA) for bf16 at
-    K <= 128, ``csrc/flash_attention_bwd.cu`` (mma.sync) for fp32 at
-    K <= 128 and ``csrc/flash_attention_bwd_wide.cu`` past 128
-    (``backward_kernel``);
+    K <= 256, ``csrc/flash_attention_bwd.cu`` (mma.sync) for fp32 at
+    K <= 128 and ``csrc/flash_attention_bwd_wide.cu`` for the rest: fp32
+    past 128, bf16 past 256 (``backward_kernel``);
   * any other device raises.
 
 The kernels run on the tensor cores (bf16, and fp32 as 3xTF32) at every
-head dim K, as the JAX package does (``head_dim_plan``): K <= 128 on
-instances of width 48, 64 or 128 (the wgmma kernels: 64 or 128), K > 128
-on the wide route, which forms the scores over K in 64-column chunks and
-writes the outputs in column windows. They read q, k, v (and the
+head dim K, as the JAX package does. The wgmma kernels (bf16) have
+instances of width 64, 128 and 256 and form the scores over the whole of
+K once per tile. The mma.sync kernels (``head_dim_plan``) take K <= 128 on
+instances of width 48, 64 or 128 and K > 128 on the wide route, which
+forms the scores over K in 64-column chunks and writes the outputs in
+column windows. They read q, k, v (and the
 cotangent) at their own K: the loads zero-fill the columns past K and the
 stores stop at K. Rows must start on 16-byte boundaries; a K whose rows
 cannot (K * itemsize not a multiple of 16 bytes: bf16 K % 8, fp32 K % 4)
@@ -48,7 +50,7 @@ fp32 stores each key tile's contribution and adds them in a second
 kernel; bf16 runs a dq kernel after the dk/dv kernel, which with dropout
 also writes the keep bits it drew, packed (``pack_keep_bits``), for the dq
 kernel to read instead of hashing each score again, and which at K <=
-128 rounds dq to bf16 itself: no cast follows). Calls that need no grad
+256 rounds dq to bf16 itself: no cast follows). Calls that need no grad
 (serving, ``torch.inference_mode``) launch the forward alone, without the
 logsumexp.
 
@@ -101,12 +103,12 @@ import torch.nn.functional as F
 FWD_SOURCE = "flash_attention_fwd.cu"
 SM90_SOURCE = "flash_attention_fwd_sm90.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
-BWD_WIDE_SOURCE = "flash_attention_bwd_wide.cu"     # B2 at K > 128
-BWD_SM90_SOURCE = "flash_attention_bwd_sm90.cu"     # bf16 B2 at K <= 128
+BWD_WIDE_SOURCE = "flash_attention_bwd_wide.cu"     # the wide route's B2
+BWD_SM90_SOURCE = "flash_attention_bwd_sm90.cu"     # bf16 B2 at K <= 256
 _HEAD_DIMS = (48, 64, 128)   # the mma.sync instances' widths up to K = 128
-_WGMMA_DIMS = (64, 128)      # the wgmma kernels' (bf16, K <= 128)
+_WGMMA_DIMS = (64, 128, 256)   # the wgmma kernels' (bf16, K <= 256)
 KEEP_WORD_KEYS = 32          # keys per word of the packed keep bits
-CHUNK = 64                   # the wide route's S chunk (columns)
+CHUNK = 64                   # the mma.sync wide route's S chunk (columns)
 FWD_WINDOW = 128             # its forward output window
 BWD_WINDOW = 64              # its backward output windows (dq, dk, dv)
 _ALIGN = 16                  # bytes: cp.async copies and TMA rows
@@ -448,7 +450,7 @@ flash_attention.wgmma_launches = 0          # forward on wgmma (any route)
 flash_attention.backward_launches = 0       # backward, no dropout
 flash_attention.backward_drop_launches = 0  # backward with dropout replay
 # Of the two backward counts, the launches of the wgmma backward (bf16,
-# K <= 128; its dk/dv and dq kernels count once together).
+# K <= 256; its dk/dv and dq kernels count once together).
 flash_attention.wgmma_backward_launches = 0
 # Operands copied because their rows cannot be addressed in place (K
 # padded, or a cotangent view made contiguous); the model's calls make
@@ -482,12 +484,13 @@ def _check_inputs(*tensors) -> None:
 
 
 class HeadDimPlan(NamedTuple):
-    """How the mma.sync kernels run head dim K: ``instance`` is the
-    width of the instance (48, 64, 128) or "wide" (K > 128); ``chunks``
-    the 64-column passes that form S (and dP) over K, 1 on an instance
-    that holds K whole; ``windows`` the forward's output column windows
-    and ``grad_windows`` the backward's (dq, dk, dv), each a grid axis of
-    CTAs that recompute S for their own columns."""
+    """How the mma.sync kernels (fp32 at any K, bf16 past 256) run head
+    dim K: ``instance`` is the width of the instance (48, 64, 128) or
+    "wide" (K > 128); ``chunks`` the 64-column passes that form S (and
+    dP) over K, 1 on an instance that holds K whole; ``windows`` the
+    forward's output column windows and ``grad_windows`` the backward's
+    (dq, dk, dv), each a grid axis of CTAs that recompute S for their own
+    columns."""
     instance: object
     chunks: int
     windows: int
@@ -495,7 +498,7 @@ class HeadDimPlan(NamedTuple):
 
 
 def head_dim_plan(kdim: int) -> HeadDimPlan:
-    """The plan of the mma.sync forward and the backward at K = ``kdim``
+    """The plan of the mma.sync forward and backward at K = ``kdim``
     (any K >= 1, as the JAX package's Pallas kernels take any K): K <= 48
     the 48 instance, K <= 64 the 64, K <= 128 the 128; past that the wide
     route, S over ceil(K / 64) chunks, the forward's output in windows of
@@ -512,27 +515,29 @@ def head_dim_plan(kdim: int) -> HeadDimPlan:
 def kernel_width(kdim: int) -> int:
     """The width a head dim of ``kdim`` is zero-padded to when its rows
     cannot be addressed in place: the instance's (48, 64 or 128) up to
-    K = 128, past that the next multiple of 64 (a whole S chunk)."""
+    K = 128, past that the next multiple of 64 (a whole S chunk, and a
+    whole TMA box of the wgmma 256 instance: bf16 K 129 reads as 192)."""
     instance = head_dim_plan(kdim).instance
     return instance if instance != "wide" else -(-kdim // CHUNK) * CHUNK
 
 
 def forward_kernel(kdim: int, dtype: torch.dtype) -> str:
-    """Which forward kernel runs a call: "wgmma" (bf16 at K <= 128,
-    csrc/flash_attention_fwd_sm90.cu, instance 64 or 128) or "mma_sync"
-    (fp32 at any K and bf16 past 128, csrc/flash_attention_fwd.cu)."""
+    """Which forward kernel runs a call: "wgmma" (bf16 at K <= 256,
+    csrc/flash_attention_fwd_sm90.cu, instance 64, 128 or 256) or
+    "mma_sync" (fp32 at any K and bf16 past 256,
+    csrc/flash_attention_fwd.cu: past 128 its wide route)."""
     return ("wgmma" if dtype == torch.bfloat16 and kdim <= _WGMMA_DIMS[-1]
             else "mma_sync")
 
 
 def backward_kernel(kdim: int, dtype: torch.dtype) -> str:
-    """Which backward kernels run a call: "wgmma" (bf16 at K <= 128,
-    csrc/flash_attention_bwd_sm90.cu, instance 64 or 128), "mma_sync"
-    (fp32 at K <= 128, csrc/flash_attention_bwd.cu) or "wide" (K > 128 in
-    both types, csrc/flash_attention_bwd_wide.cu)."""
-    if kdim > _WGMMA_DIMS[-1]:
-        return "wide"
-    return "wgmma" if dtype == torch.bfloat16 else "mma_sync"
+    """Which backward kernels run a call: "wgmma" (bf16 at K <= 256,
+    csrc/flash_attention_bwd_sm90.cu, instance 64, 128 or 256), "mma_sync"
+    (fp32 at K <= 128, csrc/flash_attention_bwd.cu) or "wide" (fp32 past
+    128 and bf16 past 256, csrc/flash_attention_bwd_wide.cu)."""
+    if dtype == torch.bfloat16 and kdim <= _WGMMA_DIMS[-1]:
+        return "wgmma"
+    return "mma_sync" if kdim <= _HEAD_DIMS[-1] else "wide"
 
 
 def _pad_head_dim(t: torch.Tensor) -> torch.Tensor:
@@ -658,7 +663,7 @@ def dq_route(dtype: torch.dtype, request: int = 0,
     takes for ``dtype``: when 0, fp32 takes "partials" (its 3xTF32
     products make recomputing S and dP the dearer way) unless its
     ``workspace_bytes`` pass PARTIALS_MAX_BYTES, and bf16 "split" (at
-    K <= 128 the wgmma kernels' one route); "partials" in bf16 raises."""
+    K <= 256 the wgmma kernels' one route); "partials" in bf16 raises."""
     names = {code: name for name, code in DQ_ROUTES.items()}
     if request not in names:
         raise ValueError(f"dq route request {request} is not one of "

@@ -329,9 +329,9 @@ def _flash_fwd_cuda(q, k, v, layout, with_lse, dropout_seed, dropout_rate,
     ``bh_base``/``q_base``/``k_base`` and the batch*head row map
     ``inner_local``/``inner_global``/``inner_base`` place the mask
     (flash_attention.mask_coords). One launch of the kernel
-    ``flash_attention.forward_kernel`` names: bf16 at K <= 128
+    ``flash_attention.forward_kernel`` names: bf16 at K <= 256
     csrc/flash_attention_fwd_sm90.cu (wgmma fed by TMA), fp32 at any K
-    and bf16 at K > 128 csrc/flash_attention_fwd.cu (mma.sync)."""
+    and bf16 at K > 256 csrc/flash_attention_fwd.cu (mma.sync)."""
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     coords = (bh_base, q_base, k_base, inner_local, inner_global, inner_base)
     key = (layout, with_lse, dropout_rate, coords, out_fp32, suspend,
@@ -478,9 +478,9 @@ def _flash_bwd_cuda(q, k, v, g, lse, delta, layout, dropout_seed,
                     dkv_fp32=False, dq_fp32=True):
     """``torch.ops.vtd_torch.flash_attention_bwd`` on CUDA tensors: ``(dq,
     dk, dv)`` at q's head dim K from the backward kernels that
-    ``flash_attention.backward_kernel`` names (bf16 at K <= 128
+    ``flash_attention.backward_kernel`` names (bf16 at K <= 256
     csrc/flash_attention_bwd_sm90.cu on wgmma, fp32 at K <= 128
-    csrc/flash_attention_bwd.cu, K > 128 csrc/flash_attention_bwd_wide.cu),
+    csrc/flash_attention_bwd.cu, the rest csrc/flash_attention_bwd_wide.cu),
     K any width whose rows are 16-byte aligned; lse and delta are contiguous
     ``(B, H, N)`` fp32; dq is summed in fp32 over the key tiles in order
     and written once, so it is the same on every run: in fp32 with
