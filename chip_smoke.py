@@ -44,7 +44,19 @@ PyTorch version. Phases, one output line each:
                     suspend, and the backward on wgmma (bf16 dq, the
                     replay, fp32 dq/dk/dv), on mma.sync (both dq routes)
                     and on the wide route; the bf16 dq its kernel writes
-                    equal to the fp32 dq cast, bit for bit;
+                    equal to the fp32 dq cast, bit for bit; then the
+                    other five operators' launch path: host and event ms
+                    a call of the LayerNorm, the dense+mish, both int8
+                    routes (vit_b16_384 at batch 1) and the sharded MLP
+                    dropout ((2, 4096, 1024) bf16, a column base) beside
+                    F.layer_norm, torch.addmm and F.dropout on the same
+                    inputs, and each route launched 10 times, bit-equal
+                    every time, its counters moving once a launch: B4 a
+                    warp a row and a block a row (D 6144), the dropout
+                    with a row map and with a column base (both equal to
+                    the plain version), B3 on wgmma, mma.sync (bf16 and
+                    fp32) and guarded, B5 on its resident, streamed and
+                    guarded instances, both routes;
   3. kernel_train — the forward's logsumexp against
                     reference_attention_lse, the backward kernel's dq/dk/dv
                     against reference_attention_backward, and the autograd
@@ -678,8 +690,10 @@ HOST_PATH_REPEATS = 10
 
 
 def phase_host_path():
-    """The flash operators' launch path: host ms a call against SDPA's, and
-    every route's outputs bit-equal over HOST_PATH_REPEATS launches."""
+    """The operators' launch path: host ms a call of the flash operators
+    against SDPA's and of the other five against their library calls
+    (``_op_host_path``), and every route's outputs bit-equal over
+    HOST_PATH_REPEATS launches."""
     import torch
     import torch.nn.functional as F
 
@@ -795,9 +809,137 @@ def phase_host_path():
                  and torch.equal(dq, dq32.to(torch.bfloat16)),
                  f"host_path: the kernel's bf16 dq ({name}) is not the "
                  "fp32 dq cast")
-    _report("host_path", forward=fwd, backward=bwd,
-            bit_equal_routes=sorted(routes), repeats=HOST_PATH_REPEATS)
-    return {"forward": fwd, "backward": bwd}
+    operators, op_routes = _op_host_path(gen, rnd)
+    _report("host_path", forward=fwd, backward=bwd, operators=operators,
+            bit_equal_routes=sorted(routes) + sorted(op_routes),
+            repeats=HOST_PATH_REPEATS)
+    return {"forward": fwd, "backward": bwd, "operators": operators}
+
+
+def _op_host_path(gen, rnd):
+    """The other five operators' launch path (kernels/ops.py): host and
+    event ms a call of each at its batch-1 (or sharded) shape beside the
+    PyTorch call that computes the same function, and every route
+    launched HOST_PATH_REPEATS times, bit-equal each time, the tensor-core
+    count following the planned instance."""
+    import torch
+    import torch.nn.functional as F
+
+    from vision_transformer_detector_tpu_torch.kernels import (
+        dropout as dk, flash_attention as fa, fused_ffn, fused_ln,
+        quantization as qz)
+
+    seed = fa.seed_tensor(DROP_SEED, "cuda")
+    rows, d, wide = 576, 768, 1536                 # vit_b16_384, batch 1
+    x = rnd(rows, d)
+    gamma, beta = (rnd(d, dtype=torch.float32) for _ in range(2))
+    # F.layer_norm takes its weights in x's dtype.
+    gamma16, beta16 = gamma.bfloat16(), beta.bfloat16()
+    w, b = rnd(d, wide, scale=0.05), rnd(wide, scale=0.1)
+    layer = _quant_layer(gen, d, (wide,))
+    qkv = _quant_layer(gen, d, (12, 64))
+    dequant = (layer.kernel_q.float() * layer.scale).to(torch.bfloat16)
+    qkv_dequant = (qkv.kernel_q.float() * qkv.scale).to(torch.bfloat16)
+    qkv_bias = qkv.bias.reshape(-1).to(torch.bfloat16)
+    lib_bias = layer.bias.to(torch.bfloat16)
+    # A tensor-parallel rank's column half of highres_1024's first pyramid
+    # activation at batch 2, as parallel (f) times it.
+    whole = rnd(*MAP_MLP)
+    half = whole[..., MAP_MLP[2] // 2:]
+    cases = {
+        "layer_norm": ([rows, d, "bfloat16"],
+                       lambda: fused_ln.fused_layer_norm(x, gamma, beta),
+                       "F.layer_norm", lambda: F.layer_norm(
+                           x, (d,), gamma16, beta16, 1e-3)),
+        "dense_mish": ([rows, d, wide, "bfloat16", "mish"],
+                       lambda: fused_ffn.fused_dense_mish(x, w, b),
+                       "torch.addmm", lambda: torch.addmm(b, x, w)),
+        "fused_int8_dense": ([rows, d, wide, "bfloat16", "mish"],
+                             lambda: qz.fused_int8_dense(x, layer, True),
+                             "torch.addmm", lambda: torch.addmm(
+                                 lib_bias, x, dequant)),
+        "int8_dense": ([rows, d, d, "float32 out"],
+                       lambda: qz.int8_dense(x, qkv),
+                       "torch.addmm", lambda: torch.addmm(
+                           qkv_bias, x, qkv_dequant)),
+        "dropout_sharded": ([*half.shape, "bfloat16", DROP_RATE,
+                             "col_base", MAP_MLP[2] // 2],
+                            lambda: dk.dropout(half, seed, DROP_RATE,
+                                               col_base=MAP_MLP[2] // 2),
+                            "F.dropout", lambda: F.dropout(half, DROP_RATE)),
+    }
+    operators = {}
+    with torch.inference_mode():
+        for name, (shape, run, lib_name, lib) in cases.items():
+            operators[name] = {
+                "shape": shape, "host_ms": _host_ms(run),
+                "ms": _time_ms(run, 200), "library": lib_name,
+                "library_host_ms": _host_ms(lib),
+                "library_ms": _time_ms(lib, 200)}
+
+        # Every route of the five, HOST_PATH_REPEATS launches bit-equal.
+        wide_x = rnd(2048, 6144)
+        wide_g, wide_b = (rnd(6144, dtype=torch.float32) for _ in range(2))
+        tokens = rnd(MAP_MLP[0], MAP_MLP[1] // 2, MAP_MLP[2])
+        x32 = rnd(rows, d, dtype=torch.float32)
+        w32 = rnd(d, wide, dtype=torch.float32, scale=0.05)
+        b32 = rnd(wide, dtype=torch.float32, scale=0.1)
+        routes = {
+            "ln_warp_a_row": (fused_ln.fused_layer_norm, "launches",
+                              lambda: fused_ln.fused_layer_norm(
+                                  x, gamma, beta), None),
+            "ln_block_a_row_d6144": (fused_ln.fused_layer_norm, "launches",
+                                     lambda: fused_ln.fused_layer_norm(
+                                         wide_x, wide_g, wide_b), None),
+            "dropout_row_map": (dk.dropout, "launches", lambda: dk.dropout(
+                tokens, seed, DROP_RATE, 0, (MAP_MLP[1] // 2, MAP_MLP[1],
+                                             MAP_MLP[1] // 2)), None),
+            "dropout_col_base": (dk.dropout, "launches", lambda: dk.dropout(
+                half, seed, DROP_RATE, col_base=MAP_MLP[2] // 2), None),
+        }
+        for instance in ("wgmma", "mma_sync", "guarded"):
+            routes[f"dense_mish_{instance}"] = (
+                fused_ffn.fused_dense_mish, "tensor_core_launches",
+                lambda i=instance: fused_ffn._launch(x, w, b, True, i),
+                instance != "guarded")
+        routes["dense_mish_fp32_mma_sync"] = (
+            fused_ffn.fused_dense_mish, "tensor_core_launches",
+            lambda: fused_ffn._launch(x32, w32, b32, True), True)
+        for instance in ("resident", "streamed", "guarded"):
+            routes[f"fused_int8_dense_{instance}"] = (
+                qz.fused_int8_dense, "tensor_core_launches",
+                lambda i=instance: qz._launch(x, layer, True, torch.bfloat16,
+                                              qz.fused_int8_dense, i),
+                instance != "guarded")
+            routes[f"int8_dense_{instance}"] = (
+                qz.int8_dense, "tensor_core_launches",
+                lambda i=instance: qz._launch(x, qkv, False, torch.float32,
+                                              qz.int8_dense, i),
+                instance != "guarded")
+        for name, (counter, attr, run, tensor_core) in routes.items():
+            first = run()
+            before = (counter.launches, getattr(counter, attr))
+            for _ in range(HOST_PATH_REPEATS - 1):
+                _require(torch.equal(run(), first),
+                         f"host_path: {name} differs between launches")
+            moved = (counter.launches - before[0],
+                     getattr(counter, attr) - before[1])
+            want = HOST_PATH_REPEATS - 1
+            _require(moved == (want, want if tensor_core in (None, True)
+                               else 0),
+                     f"host_path: {name} counted {moved} over {want} "
+                     "launches")
+        torch.cuda.synchronize()
+        for name, got, want in (
+                ("dropout_row_map", routes["dropout_row_map"][2](),
+                 dk.dropout_reference(tokens, seed, DROP_RATE, 0, (
+                     MAP_MLP[1] // 2, MAP_MLP[1], MAP_MLP[1] // 2))),
+                ("dropout_col_base", routes["dropout_col_base"][2](),
+                 dk.dropout_reference(half, seed, DROP_RATE,
+                                      col_base=MAP_MLP[2] // 2))):
+            _require(torch.equal(got, want),
+                     f"host_path: {name} is not its plain version")
+    return operators, routes
 
 
 def _rel_err(got, ref) -> float:

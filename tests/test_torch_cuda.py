@@ -1679,3 +1679,112 @@ def test_launch_counters_move_once_per_call(gen):
         assert moved(lambda: program(q, k, v)) == {
             "launches": 1, "wgmma_launches": 1}
     assert torch.equal(program(q, k, v), fa.flash_attention(q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# The other five operators' launch path: one plan per signature
+
+def test_op_launch_plans_follow_shapes_strides_and_offsets(gen):
+    """LayerNorm, dense+mish, both int8 routes and the MLP dropout, called
+    in alternation over signatures that differ by shape, dtype, a strided
+    view, a view off a 16-byte boundary, bf16 or misaligned gamma, a row
+    map and a column base: each call matches its plain version, and a
+    signature seen again takes its plan and gives the same bits."""
+    def rnd(*shape, dtype=torch.float32, shift=0):
+        n = int(np.prod(shape))
+        t = torch.randn(n + shift, device="cuda", generator=gen)
+        return t[shift:].view(shape).to(dtype) if shift == 0 else \
+            t.to(dtype)[shift:].view(shape)
+
+    seed = fa.seed_tensor(2 ** 32 - 9, "cuda")
+    layer = _quant_layer(gen, 64, (24,))
+    d = 256
+    gamma, beta = rnd(d), rnd(d)
+    cases = {
+        "ln_bf16": lambda: (fused_ln.fused_layer_norm(
+            ln_x, gamma, beta), fused_ln.layer_norm_reference(
+                ln_x, gamma, beta), 2 ** -7),
+        "ln_off": lambda: (fused_ln.fused_layer_norm(
+            ln_off, gamma, beta), fused_ln.layer_norm_reference(
+                ln_off, gamma, beta), 2 ** -7),
+        "ln_gamma": lambda: (fused_ln.fused_layer_norm(
+            ln_x, gamma_bf16, beta_off), fused_ln.layer_norm_reference(
+                ln_x, gamma_bf16, beta_off), 2 ** -7),
+        "mish_wgmma": lambda: (fused_ffn.fused_dense_mish(
+            ffn_x, ffn_w, ffn_b), fused_ffn.dense_mish_reference(
+                ffn_x, ffn_w, ffn_b), 2 ** -7),
+        "mish_strided": lambda: (fused_ffn.fused_dense_mish(
+            ffn_x[:, ::2], ffn_w[::2], ffn_b), fused_ffn.dense_mish_reference(
+                ffn_x[:, ::2], ffn_w[::2], ffn_b), 2 ** -7),
+        "mish_off": lambda: (fused_ffn.fused_dense_mish(
+            ffn_off, ffn_w[:64], ffn_b), fused_ffn.dense_mish_reference(
+                ffn_off, ffn_w[:64], ffn_b), 2 ** -7),
+        "int8_fused": lambda: (qz.fused_int8_dense(q_x, layer), (
+            qz.int8_dense_reference(q_x, layer.kernel_q, layer.scale,
+                                    layer.bias, False, torch.bfloat16)),
+            2 ** -7),
+        "int8_off": lambda: (qz.int8_dense(q_off, layer), (
+            qz.int8_dense_reference(q_off, layer.kernel_q, layer.scale,
+                                    layer.bias)), 1e-6),
+        "drop_map": lambda: (dropout_kernel.dropout(
+            d_x, seed, 0.1, 7, (2, 4, 1), 3), dropout_kernel.dropout_reference(
+                d_x, seed, 0.1, 7, (2, 4, 1), 3), 0.0),
+        "drop_off": lambda: (dropout_kernel.dropout(d_off, seed, 0.1), (
+            dropout_kernel.dropout_reference(d_off, seed, 0.1)), 0.0),
+    }
+    ln_x = rnd(40, d, dtype=torch.bfloat16)
+    ln_off = rnd(40, d, dtype=torch.bfloat16, shift=1)
+    gamma_bf16 = gamma.to(torch.bfloat16)
+    beta_off = rnd(d, shift=1)
+    ffn_x = rnd(18432 // 8, 256, dtype=torch.bfloat16)
+    ffn_w = (0.05 * rnd(256, 1536)).to(torch.bfloat16)
+    ffn_b = (0.1 * rnd(1536)).to(torch.bfloat16)
+    ffn_off = rnd(70, 64, dtype=torch.bfloat16, shift=1)
+    q_x = rnd(70, 64, dtype=torch.bfloat16)
+    q_off = rnd(70, 64, dtype=torch.bfloat16, shift=3)
+    d_x = rnd(6, 40, dtype=torch.bfloat16)
+    d_off = rnd(6, 40, shift=1)
+    assert min(t.data_ptr() % 16 for t in (ln_off, beta_off, ffn_off,
+                                             q_off, d_off)) > 0
+    first = {}
+    with torch.inference_mode():
+        for name in [*cases, *reversed(cases), *cases]:
+            got, want, tol = cases[name]()
+            torch.cuda.synchronize()
+            if tol:
+                _assert_within(got, want, tol)
+            else:
+                assert torch.equal(got, want), name
+            if name in first:
+                assert torch.equal(got, first[name]), name
+            first.setdefault(name, got)
+
+
+def test_op_launches_from_a_fresh_thread(gen):
+    """A server's handler thread that never touched the card: each C entry
+    point makes the plan's device current itself (no torch.cuda.device in
+    the call), so the kernels launch there and match the main thread's."""
+    x = torch.randn(9, 256, device="cuda", generator=gen)
+    gamma = torch.randn(256, device="cuda", generator=gen)
+    w = torch.randn(256, 64, device="cuda", generator=gen)
+    b = torch.randn(64, device="cuda", generator=gen)
+    seed = fa.seed_tensor(5, "cuda")
+    layer = _quant_layer(gen, 64, (24,))
+
+    def run():
+        with torch.inference_mode():
+            return (fused_ln.fused_layer_norm(x, gamma, gamma),
+                    fused_ffn.fused_dense_mish(x, w, b),
+                    qz.int8_dense(x[:, :64], layer),
+                    qz.fused_int8_dense(x[:, :64], layer),
+                    dropout_kernel.dropout(x, seed, 0.1))
+
+    want = run()
+    got = []
+    worker = threading.Thread(target=lambda: got.extend(run()))
+    worker.start()
+    worker.join(timeout=120)
+    torch.cuda.synchronize()
+    assert not worker.is_alive() and len(got) == len(want)
+    for a, b_ in zip(got, want):
+        assert torch.equal(a, b_)

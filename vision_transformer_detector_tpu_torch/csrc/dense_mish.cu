@@ -22,8 +22,9 @@
 // (gemm_sm90.cuh), runs on the accumulator registers; two blocks per SM let
 // one block's epilogue and its waits run under the other's products.
 //
-// Three instances, chosen by shape in the C entry point (dispatch, not a
-// fallback: none is taken because another failed):
+// Three instances, chosen by shape in the plan's query (vtd_dense_mish_plan,
+// once per launch plan; dispatch, not a fallback: none is taken because
+// another failed):
 //   * wgmma (bf16, at least one wave of 128 x 128 tiles): two warpgroups,
 //     each m64n128k16 on its 64 rows, A and B from shared memory in the
 //     128-byte swizzle, B read from the (K, N) weight's own [k][n] order
@@ -54,6 +55,7 @@
 #include <cuda_runtime.h>
 
 #include "gemm_sm90.cuh"
+#include "launch_common.cuh"
 
 namespace {
 
@@ -450,37 +452,48 @@ inline bool fills_card(int m, int n, int bm, int bn) {
   return tiles >= sm_count();
 }
 
+// The instance a call of this shape runs (the plan's query): `request` 0
+// by shape, 1 guarded, 2 mma.sync, 3 wgmma; `addresses_aligned` whether x,
+// w and out start on 16-byte boundaries. A request that the shape or type
+// cannot take is an error, not a silent change.
+template <typename T>
+cudaError_t choose(int m, int n, int k, int request, bool addresses_aligned,
+                   int* instance) {
+  constexpr int kPerChunk = 16 / static_cast<int>(sizeof(T));
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const bool aligned =
+      k % kPerChunk == 0 && n % kPerChunk == 0 && addresses_aligned;
+  if (request < 0 || request > 3) return cudaErrorInvalidValue;
+  if ((request == 2 || request == 3) && !aligned) return cudaErrorInvalidValue;
+  if (request == 3 && !kBf16) return cudaErrorInvalidValue;
+  if (request == 1 || !aligned) {
+    *instance = kGuarded;
+  } else if (request == 2) {
+    *instance = kMmaSync;
+  } else if (request == 3) {
+    *instance = kWgmma;
+  } else {
+    *instance = kBf16 && fills_card(m, n, kWgBM, kWgBN) ? kWgmma : kMmaSync;
+  }
+  return cudaSuccess;
+}
+
 template <typename T>
 cudaError_t dispatch(const void* xv, const void* wv, const void* bv,
                      void* outv, int m, int n, int k, bool apply_mish,
-                     int request, int* taken, cudaStream_t stream) {
+                     int instance, cudaStream_t stream) {
   const T* x = static_cast<const T*>(xv);
   const T* w = static_cast<const T*>(wv);
   const T* b = static_cast<const T*>(bv);
   T* out = static_cast<T*>(outv);
-  constexpr int kPerChunk = 16 / static_cast<int>(sizeof(T));
   constexpr bool kBf16 = sizeof(T) == 2;
-  const bool aligned = k % kPerChunk == 0 && n % kPerChunk == 0 &&
-                       aligned16(x) && aligned16(w) && aligned16(out);
-  // request: 0 by shape, 1 guarded, 2 mma.sync, 3 wgmma; a request that
-  // the shape or type cannot take is an error, not a silent change.
-  if (request < 0 || request > 3) return cudaErrorInvalidValue;
-  if ((request == 2 || request == 3) && !aligned) return cudaErrorInvalidValue;
-  if (request == 3 && !kBf16) return cudaErrorInvalidValue;
-  int instance;
-  if (request == 1 || !aligned) {
-    instance = kGuarded;
-  } else if (request == 2) {
-    instance = kMmaSync;
-  } else if (request == 3) {
-    instance = kWgmma;
-  } else {
-    instance = kBf16 && fills_card(m, n, kWgBM, kWgBN) ? kWgmma : kMmaSync;
-  }
-  *taken = instance;
   if (instance == kGuarded) {
     launch_guarded<T>(x, w, b, out, m, n, k, apply_mish, stream);
     return cudaSuccess;
+  }
+  // The plan chose a tensor-core instance for 16-byte-aligned operands.
+  if (!aligned16(x) || !aligned16(w) || !aligned16(out)) {
+    return cudaErrorInvalidValue;
   }
   if constexpr (kBf16) {
     if (instance == kWgmma) {
@@ -493,6 +506,7 @@ cudaError_t dispatch(const void* xv, const void* wv, const void* bv,
     return launch_mma<T, 64, 64, 64, 32, 16, 3>(x, w, b, out, m, n, k,
                                                 apply_mish, stream);
   } else {
+    if (instance != kMmaSync) return cudaErrorInvalidValue;
     if (fills_card(m, n, 128, 64)) {
       return launch_mma<T, 128, 64, 32, 32, 32, 3>(x, w, b, out, m, n, k,
                                                    apply_mish, stream);
@@ -506,25 +520,47 @@ cudaError_t dispatch(const void* xv, const void* wv, const void* bv,
 
 extern "C" {
 
-// x: contiguous (m, k); w: contiguous (k, n); b: contiguous (n,); out:
-// contiguous (m, n); all in dtype (0 = float32, 1 = bfloat16). `request`
-// picks the instance (0 by shape, 1 guarded, 2 mma.sync, 3 wgmma) and
-// `*taken` receives the one that ran (0 guarded, 1 mma.sync, 2 wgmma).
-// Returns the first CUDA error of the launch (0 on success).
-int vtd_dense_mish(const void* x, const void* w, const void* b, void* out,
-                   int m, int n, int k, int dtype, int apply_mish,
-                   int request, int* taken, void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || taken == nullptr) {
-    return cudaErrorInvalidValue;
+// The plan's query: writes into a->instance the instance that calls of
+// this block run (0 guarded, 1 mma.sync, 2 wgmma), from the sizes, the
+// dtype, a->request (0 by shape, 1 guarded, 2 mma.sync, 3 wgmma) and
+// a->aligned16, on a->device (the wgmma instance needs a wave of tiles on
+// its SMs). Launches nothing. Returns cudaErrorInvalidValue for a request
+// the shape or dtype cannot take (0 on success).
+int vtd_dense_mish_plan(DenseMishArgs* a) {
+  const DeviceScope scope(a->device);
+  if (scope.error() != cudaSuccess) return scope.error();
+  cudaError_t err;
+  if (a->dtype == 0) {
+    err = choose<float>(a->m, a->n, a->k, a->request, a->aligned16 != 0,
+                        &a->instance);
+  } else if (a->dtype == 1) {
+    err = choose<__nv_bfloat16>(a->m, a->n, a->k, a->request,
+                                a->aligned16 != 0, &a->instance);
+  } else {
+    err = cudaErrorInvalidValue;
   }
+  return static_cast<int>(err);
+}
+
+// One launch of a->instance from the plan's block `a` (launch_common.cuh's
+// DenseMishArgs) and the call's device addresses and stream, on a->device.
+// x: contiguous (m, k); w: contiguous (k, n); b: contiguous (n,); out:
+// contiguous (m, n); all in a->dtype (0 = float32, 1 = bfloat16). Returns
+// the first CUDA error of the launch (0 on success).
+int vtd_dense_mish(const DenseMishArgs* a, const void* x, const void* w,
+                   const void* b, void* out, void* stream) {
+  const int m = a->m, n = a->n, k = a->k;
+  if (m <= 0 || n <= 0 || k <= 0) return cudaErrorInvalidValue;
+  const DeviceScope scope(a->device);
+  if (scope.error() != cudaSuccess) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0) {
-    err = dispatch<float>(x, w, b, out, m, n, k, apply_mish != 0, request,
-                          taken, s);
-  } else if (dtype == 1) {
-    err = dispatch<__nv_bfloat16>(x, w, b, out, m, n, k, apply_mish != 0,
-                                  request, taken, s);
+  if (a->dtype == 0) {
+    err = dispatch<float>(x, w, b, out, m, n, k, a->apply_mish != 0,
+                          a->instance, s);
+  } else if (a->dtype == 1) {
+    err = dispatch<__nv_bfloat16>(x, w, b, out, m, n, k, a->apply_mish != 0,
+                                  a->instance, s);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -38,6 +38,7 @@
 #include <stdint.h>
 
 #include "dropout_mask.cuh"
+#include "launch_common.cuh"
 
 namespace {
 
@@ -117,32 +118,36 @@ void launch(const void* x, void* out, long long rows, int cols, bool packed,
 
 extern "C" {
 
-// x and out: contiguous (rows, cols) arrays in dtype (0 = float32,
-// 1 = bfloat16); seed: the device address of the uint32 seed; threshold:
-// keep iff hash < threshold; inv_keep: the fp32 reciprocal of 1 - rate;
-// row_base: the global row of x's first (0 for the whole array; a rank of a
-// data-parallel run passes its first row of the global batch);
-// inner_local, inner_global, inner_base: the map of a local row to a global
-// one before row_base is added (1, 1, 0: the identity); col_base: the
-// global column of x's first (0 for the whole array).
-// Returns cudaGetLastError() after the launch (0 on success).
-int vtd_dropout(const void* x, void* out, long long rows, int cols,
-                int dtype, const unsigned int* seed, unsigned int threshold,
-                float inv_keep, unsigned int row_base,
-                unsigned int inner_local, unsigned int inner_global,
-                unsigned int inner_base, unsigned int col_base,
-                void* stream) {
-  if (rows <= 0 || cols <= 0 || seed == nullptr || inner_local == 0) {
+// One launch from the plan's block `a` (launch_common.cuh's DropoutArgs)
+// and the call's device addresses and stream, on a->device. x and out:
+// contiguous (rows, cols) arrays in a->dtype (0 = float32, 1 = bfloat16);
+// seed: the device address of the uint32 seed; threshold: keep iff hash <
+// threshold; inv_keep: the fp32 reciprocal of 1 - rate; row_base: the
+// global row of x's first (0 for the whole array; a rank of a data-parallel
+// run passes its first row of the global batch); inner_local, inner_global,
+// inner_base: the map of a local row to a global one before row_base is
+// added (1, 1, 0: the identity); col_base: the global column of x's first
+// (0 for the whole array). The 16-byte path is taken per call, where both
+// addresses allow it. Returns cudaGetLastError() after the launch (0 on
+// success).
+int vtd_dropout(const DropoutArgs* a, const void* x, void* out,
+                const unsigned int* seed, void* stream) {
+  const long long rows = a->rows;
+  const int cols = a->cols;
+  if (rows <= 0 || cols <= 0 || seed == nullptr || a->inner_local == 0) {
     return cudaErrorInvalidValue;
   }
-  const Dropout drop{seed,     threshold,   inv_keep,     0u,        row_base,
-                     col_base, inner_local, inner_global, inner_base};
+  const DeviceScope scope(a->device);
+  if (scope.error() != cudaSuccess) return scope.error();
+  const Dropout drop{seed,           a->threshold,    a->inv_keep,
+                     0u,             a->row_base,     a->col_base,
+                     a->inner_local, a->inner_global, a->inner_base};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (dtype == 0) {
+  if (a->dtype == 0) {
     launch<float>(x, out, rows, cols, aligned && cols % 4 == 0, drop, s);
-  } else if (dtype == 1) {
+  } else if (a->dtype == 1) {
     launch<__nv_bfloat16>(x, out, rows, cols, aligned && cols % 8 == 0, drop,
                           s);
   } else {

@@ -1,22 +1,24 @@
 // The launch arguments of the flash-attention C entry points, shared by the
 // five flash sources (flash_attention_fwd.cu, flash_attention_fwd_sm90.cu,
 // flash_attention_bwd.cu, flash_attention_bwd_wide.cu,
-// flash_attention_bwd_sm90.cu), and the device each launch runs on.
+// flash_attention_bwd_sm90.cu).
 //
 // An entry point takes the call's device addresses and stream as arguments
 // and everything else as one block, FlashFwdArgs or FlashBwdArgs: the
 // sizes, the strides, the dtype codes, the flags and the dropout mask's
-// threshold, scale and coordinates. kernels/flash_attention.py builds that
+// threshold, scale and coordinates. kernels/ops.py builds that
 // block once per launch plan (a ctypes.Structure of this layout, fields in
 // this order) and hands the same block to every call of that plan, so a
 // call converts a dozen arguments instead of some fifty. The block is only
-// read here: calls from several host threads may share it.
+// read here: calls from several host threads may share it. The device is
+// made current by launch_common.cuh's DeviceScope.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include "dropout_mask.cuh"
+#include "launch_common.cuh"
 
 extern "C" {
 
@@ -57,41 +59,6 @@ struct FlashBwdArgs {
 }  // extern "C"
 
 namespace {
-
-// The device this host thread last made current through a DeviceScope.
-thread_local int scope_device = -1;
-
-// Makes `device` the current device for one launch and restores the
-// caller's afterwards. Making it current with cudaSetDevice also makes its
-// primary context current in this thread, which the driver call that
-// encodes tensor maps needs and which a thread that has made no runtime
-// call yet (a server's handler thread) lacks; a thread that already runs
-// on `device` with it current makes no call but cudaGetDevice.
-class DeviceScope {
- public:
-  explicit DeviceScope(int device) : device_(device) {
-    err_ = cudaGetDevice(&caller_);
-    if (err_ != cudaSuccess) return;
-    if (caller_ != device || scope_device != device) {
-      err_ = cudaSetDevice(device);
-      if (err_ == cudaSuccess) scope_device = device;
-    }
-  }
-  ~DeviceScope() {
-    if (err_ == cudaSuccess && caller_ != device_ &&
-        cudaSetDevice(caller_) == cudaSuccess) {
-      scope_device = caller_;
-    }
-  }
-  DeviceScope(const DeviceScope&) = delete;
-  DeviceScope& operator=(const DeviceScope&) = delete;
-  cudaError_t error() const { return err_; }
-
- private:
-  int device_;
-  int caller_ = -1;
-  cudaError_t err_;
-};
 
 // The strides of tensor i of an argument block, as a source's Strides.
 template <typename S>

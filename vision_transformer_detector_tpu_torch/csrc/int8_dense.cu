@@ -34,8 +34,9 @@
 // 64 rows), so the quantization is done once per block, not once per tile,
 // and under other blocks' products.
 //
-// Instances, chosen by shape in the C entry point (dispatch, not a
-// fallback: none is taken because another failed):
+// Instances, chosen by shape in the plan's query (vtd_int8_dense_plan, once
+// per launch plan; dispatch, not a fallback: none is taken because another
+// failed):
 //   * tensor cores, codes resident: a block of 256 threads owns 64 rows.
 //     It finds their maxima over the whole K, keeps x_scale in shared
 //     memory and quantizes the 64 x K codes into shared memory ONCE (x is
@@ -69,6 +70,7 @@
 #include <stdint.h>
 
 #include "gemm_sm90.cuh"
+#include "launch_common.cuh"
 
 namespace {
 
@@ -680,53 +682,68 @@ cudaError_t launch_mish(int instance, bool apply_mish, const void* x,
 
 extern "C" {
 
-// x: contiguous (m, k) in x_dtype; wq: contiguous int8 (k, n); wqt: its
-// transpose, contiguous int8 (n, k), or null; wscale and bias: contiguous
-// fp32 (n,); out: contiguous (m, n) in out_dtype. Dtypes: 0 = float32, 1 =
-// bfloat16. `request` picks the instance (0 by shape, 1 guarded, 2 codes
-// resident, 3 codes streamed) and `*taken` receives the one that ran (0
-// guarded, 1 resident, 2 streamed). The tensor-core instances need wqt, K
-// a multiple of 16 and x and wqt on 16-byte boundaries; a request that the
-// shape cannot take is an error. Returns the first CUDA error of the
-// launch (0 on success).
-int vtd_int8_dense(const void* x, const void* wq, const void* wqt,
-                   const void* wscale, const void* bias, void* out, int m,
-                   int n, int k, int x_dtype, int out_dtype, int apply_mish,
-                   int request, int* taken, void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || taken == nullptr || request < 0 ||
-      request > 3 || x_dtype < 0 || x_dtype > 1 || out_dtype < 0 ||
-      out_dtype > 1) {
+// The plan's query: writes into a->instance the instance that calls of this
+// block run (0 guarded, 1 resident, 2 streamed), from K, a->request (0 by
+// shape, 1 guarded, 2 codes resident, 3 codes streamed) and a->aligned16.
+// The tensor-core instances need the (N, K) codes, K a multiple of 16 and x
+// and the codes on 16-byte boundaries; a request that the shape cannot take
+// is an error (cudaErrorInvalidValue). Launches nothing; 0 on success.
+int vtd_int8_dense_plan(Int8DenseArgs* a) {
+  if (a->request < 0 || a->request > 3 || a->x_dtype < 0 || a->x_dtype > 1 ||
+      a->out_dtype < 0 || a->out_dtype > 1) {
+    return cudaErrorInvalidValue;
+  }
+  const bool aligned = a->aligned16 != 0 && a->k % 16 == 0;
+  const bool fits = smem_bytes(a->k, true) <= kMaxSmem;
+  if (a->request >= 2 && !aligned) return cudaErrorInvalidValue;
+  if (a->request == 2 && !fits) return cudaErrorInvalidValue;
+  if (a->request == 1 || !aligned) {
+    a->instance = kGuarded;
+  } else if (a->request == 0) {
+    a->instance = fits ? kResidentCodes : kStreamedCodes;
+  } else {
+    a->instance = a->request == 2 ? kResidentCodes : kStreamedCodes;
+  }
+  return cudaSuccess;
+}
+
+// One launch of a->instance from the plan's block `a` (launch_common.cuh's
+// Int8DenseArgs) and the call's device addresses and stream, on a->device.
+// x: contiguous (m, k) in a->x_dtype; wq: contiguous int8 (k, n); wqt: its
+// transpose, contiguous int8 (n, k), or null (the guarded instance reads
+// wq, the tensor-core ones wqt); wscale and bias: contiguous fp32 (n,); out:
+// contiguous (m, n) in a->out_dtype. Dtypes: 0 = float32, 1 = bfloat16.
+// Returns the first CUDA error of the launch (0 on success).
+int vtd_int8_dense(const Int8DenseArgs* a, const void* x, const void* wq,
+                   const void* wqt, const void* wscale, const void* bias,
+                   void* out, void* stream) {
+  const int m = a->m, n = a->n, k = a->k, instance = a->instance;
+  if (m <= 0 || n <= 0 || k <= 0 || a->x_dtype < 0 || a->x_dtype > 1 ||
+      a->out_dtype < 0 || a->out_dtype > 1) {
     return cudaErrorInvalidValue;
   }
   const int8_t* w = static_cast<const int8_t*>(wq);
   const int8_t* wt = static_cast<const int8_t*>(wqt);
+  // The plan chose a tensor-core instance for 16-byte-aligned operands.
+  if (instance == kGuarded ? w == nullptr
+                           : wt == nullptr || !aligned16(x) ||
+                                 !aligned16(wt)) {
+    return cudaErrorInvalidValue;
+  }
+  const DeviceScope scope(a->device);
+  if (scope.error() != cudaSuccess) return scope.error();
   const float* s = static_cast<const float*>(wscale);
   const float* b = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool aligned =
-      wt != nullptr && k % 16 == 0 && aligned16(x) && aligned16(wt);
-  const bool fits = smem_bytes(k, true) <= kMaxSmem;
-  if (request >= 2 && !aligned) return cudaErrorInvalidValue;
-  if (request == 2 && !fits) return cudaErrorInvalidValue;
-  if ((request == 1 || !aligned) && w == nullptr) return cudaErrorInvalidValue;
-  int instance;
-  if (request == 1 || !aligned) {
-    instance = kGuarded;
-  } else if (request == 0) {
-    instance = fits ? kResidentCodes : kStreamedCodes;
-  } else {
-    instance = request == 2 ? kResidentCodes : kStreamedCodes;
-  }
-  *taken = instance;
-  const bool mish_on = apply_mish != 0;
+  const bool mish_on = a->apply_mish != 0;
   cudaError_t err;
-  if (x_dtype == 0 && out_dtype == 0) {
+  if (a->x_dtype == 0 && a->out_dtype == 0) {
     err = launch_mish<float, float>(instance, mish_on, x, w, wt, s, b, out, m,
                                     n, k, st);
-  } else if (x_dtype == 0) {
+  } else if (a->x_dtype == 0) {
     err = launch_mish<float, __nv_bfloat16>(instance, mish_on, x, w, wt, s, b,
                                             out, m, n, k, st);
-  } else if (out_dtype == 0) {
+  } else if (a->out_dtype == 0) {
     err = launch_mish<__nv_bfloat16, float>(instance, mish_on, x, w, wt, s, b,
                                             out, m, n, k, st);
   } else {

@@ -44,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -216,23 +218,27 @@ void launch(const void* x, const float* gamma, const float* beta, void* out,
 
 extern "C" {
 
-// x and out: contiguous (rows, d) in dtype (0 = float32, 1 = bfloat16),
-// 16-byte aligned; gamma and beta: contiguous fp32 (d,). d % 128 == 0, any
-// d (rows * d below 2^63). Returns cudaGetLastError() after the launch (0
-// on success).
-int vtd_layer_norm(const void* x, const void* gamma, const void* beta,
-                   void* out, int rows, int d, float eps, int dtype,
-                   void* stream) {
+// One launch from the plan's block `a` (launch_common.cuh's LayerNormArgs)
+// and the call's device addresses and stream, on a->device. x and out:
+// contiguous (rows, d) in a->dtype (0 = float32, 1 = bfloat16), 16-byte
+// aligned; gamma and beta: contiguous fp32 (d,), 16-byte aligned. d % 128
+// == 0, any d (rows * d below 2^63). Returns cudaGetLastError() after the
+// launch (0 on success).
+int vtd_layer_norm(const LayerNormArgs* a, const void* x, const void* gamma,
+                   const void* beta, void* out, void* stream) {
+  const int rows = a->rows, d = a->d;
   if (rows <= 0 || d <= 0 || d % 128 != 0) {
     return cudaErrorInvalidValue;
   }
+  const DeviceScope scope(a->device);
+  if (scope.error() != cudaSuccess) return scope.error();
   const float* g = static_cast<const float*>(gamma);
   const float* b = static_cast<const float*>(beta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    launch<float>(x, g, b, out, rows, d, eps, s);
-  } else if (dtype == 1) {
-    launch<__nv_bfloat16>(x, g, b, out, rows, d, eps, s);
+  if (a->dtype == 0) {
+    launch<float>(x, g, b, out, rows, d, a->eps, s);
+  } else if (a->dtype == 1) {
+    launch<__nv_bfloat16>(x, g, b, out, rows, d, a->eps, s);
   } else {
     return cudaErrorInvalidValue;
   }

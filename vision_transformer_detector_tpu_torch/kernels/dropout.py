@@ -114,9 +114,10 @@ def dropout(x: torch.Tensor, seed, rate: float, row_base: int = 0,
         raise ValueError(f"dropout rate must be in (0, 1), got {rate}")
     if tuple(row_map)[0] < 1:
         raise ValueError(f"row_map {row_map}: inner_local must be >= 1")
-    if x.device.type == "cpu":
-        return dropout_reference(x, seed, rate, row_base, row_map, col_base)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return dropout_reference(x, seed, rate, row_base, row_map,
+                                     col_base)
         raise ValueError(f"dropout takes a CPU or CUDA tensor, got "
                          f"{x.device}")
     if not isinstance(seed, torch.Tensor):
@@ -147,7 +148,12 @@ def _launch(x, seed, rate: float, row_base: int = 0, inner_local: int = 1,
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.numel() == 0:
         return x.clone()
-    out = torch.ops.vtd_torch.dropout(
-        x.reshape(-1, x.shape[-1]), seed, float(rate), int(row_base),
-        int(inner_local), int(inner_global), int(inner_base), int(col_base))
+    out = _OP(x.reshape(-1, x.shape[-1]), seed, float(rate), int(row_base),
+              int(inner_local), int(inner_global), int(inner_base),
+              int(col_base))
     return out.reshape(x.shape)
+
+
+# ``torch.ops.vtd_torch.dropout.default``, bound by kernels/ops.py when it
+# registers the operator.
+_OP = None

@@ -108,14 +108,16 @@ def fused_dense_mish(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(
             f"expected x (..., K), w (K, N), b (N,), got {tuple(x.shape)}, "
             f"{tuple(w.shape)}, {tuple(b.shape)}")
-    devices = {t.device.type for t in (x, w, b)}
-    if devices not in ({"cpu"}, {"cuda"}):
-        raise ValueError(
-            f"fused_dense_mish takes x, w and b all on the CPU or all on "
-            f"CUDA, got devices {sorted(devices)}")
+    use_kernel = x.is_cuda and w.is_cuda and b.is_cuda
+    if not use_kernel:
+        devices = {t.device.type for t in (x, w, b)}
+        if devices != {"cpu"}:
+            raise ValueError(
+                f"fused_dense_mish takes x, w and b all on the CPU or all on "
+                f"CUDA, got devices {sorted(devices)}")
     x2 = x.reshape(-1, x.shape[-1])
-    use_kernel = devices == {"cuda"}
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, b)):
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                    or b.requires_grad):
         y = FusedDenseMishFunction.apply(x2, w, b, apply_mish, use_kernel)
     elif use_kernel:
         y = _launch(x2, w, b, apply_mish)
@@ -141,7 +143,11 @@ def _launch(x2, w, b, apply_mish: bool,
         raise ValueError(
             f"x, w and b must share one dtype, float32 or bfloat16, got "
             f"{x2.dtype}, {w.dtype}, {b.dtype}")
-    if len({t.device for t in (x2, w, b)}) != 1:
+    if not x2.get_device() == w.get_device() == b.get_device():
         raise ValueError("x, w and b must be on one CUDA device")
-    return torch.ops.vtd_torch.dense_mish(x2, w, b, apply_mish,
-                                          REQUESTS[instance])
+    return _OP(x2, w, b, apply_mish, REQUESTS[instance])
+
+
+# ``torch.ops.vtd_torch.dense_mish.default``, bound by kernels/ops.py when
+# it registers the operator.
+_OP = None

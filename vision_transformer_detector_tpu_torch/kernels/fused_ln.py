@@ -55,11 +55,13 @@ def fused_layer_norm(x: torch.Tensor, gamma: torch.Tensor,
             "through the plain layer norm instead")
     if x.numel() == 0:
         return x  # empty batch: nothing to normalize
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, gamma, beta)):
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                    or beta.requires_grad):
         raise RuntimeError(
             "fused_layer_norm is inference-only and has no backward; call "
             "it under torch.no_grad() or torch.inference_mode()")
+    if x.is_cuda and gamma.is_cuda and beta.is_cuda:
+        return _launch(x, gamma, beta, eps)
     devices = {t.device.type for t in (x, gamma, beta)}
     if devices == {"cpu"}:
         return layer_norm_reference(x, gamma, beta, eps)
@@ -80,10 +82,13 @@ def _launch(x, gamma, beta, eps: float) -> torch.Tensor:
     d = x.shape[-1]
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
-    if tuple(gamma.shape) != (d,) or tuple(beta.shape) != (d,):
+    if gamma.shape != (d,) or beta.shape != (d,):
         raise ValueError(
             f"gamma and beta must be ({d},), got {tuple(gamma.shape)} and "
             f"{tuple(beta.shape)}")
-    out = torch.ops.vtd_torch.layer_norm(x.reshape(-1, d), gamma, beta,
-                                         float(eps))
-    return out.reshape(x.shape)
+    return _OP(x.reshape(-1, d), gamma, beta, float(eps)).reshape(x.shape)
+
+
+# ``torch.ops.vtd_torch.layer_norm.default``, bound by kernels/ops.py when
+# it registers the operator.
+_OP = None

@@ -3,7 +3,9 @@
 
 No JAX counterpart: this is what lets ``torch.export`` (export.py) trace
 a model whose kernels are ``ctypes`` calls. Each launcher of the kernel
-modules is one operator with
+modules is one operator, defined through ``torch.library.Library``
+(``define`` with its schema, ``impl(..., "CUDA")``, ``register_fake``),
+with
 
   * a CUDA implementation only: the ``ctypes`` launch on the current
     stream, the check of the CUDA error code it returns, and the launch
@@ -12,9 +14,13 @@ modules is one operator with
   * a fake implementation (``register_fake``) that gives the outputs'
     shapes, dtypes and strides and nothing else, for tracing.
 
-The two flash operators are defined through ``torch.library.Library``
-and launch from a plan built once per call signature (below, "B1 and
-B2"); the other five are ``custom_op``s that check every call.
+Every operator launches from a plan built once per call signature: the
+checks, the choice of kernel or instance and the copies the call must make
+are settled there, and a call allocates its output, reads the addresses
+and the current stream and makes one ctypes call that hands the C entry
+point the plan's argument block (csrc/flash_launch.cuh,
+csrc/launch_common.cuh). The entry point makes the plan's device current
+itself.
 
 There is no CPU implementation: a CPU tensor handed to an operator
 raises NotImplementedError. The wrappers (kernels/flash_attention.py,
@@ -28,7 +34,8 @@ dtypes, pick the flash forward's kernel and pad a head dim whose rows
 cannot be addressed in place, the operators make the copies a kernel
 needs (contiguity, 16-byte alignment) and refuse the views the flash
 kernels cannot read. Importing this module (the package
-``kernels`` does) registers every operator; it builds nothing.
+``kernels`` does) registers every operator and binds each wrapper module's
+``.default`` overloads; it builds nothing.
 """
 
 from __future__ import annotations
@@ -38,7 +45,6 @@ import functools
 from typing import NamedTuple, Optional
 
 import torch
-from torch.library import custom_op
 
 from . import (_build, dropout, flash_attention, fused_ffn, fused_ln,
                quantization)
@@ -58,49 +64,42 @@ _SOURCES = {
 }
 
 
+# The C entry point of each library but the flash ones.
+_ENTRIES = {"ln": "vtd_layer_norm", "ffn": "vtd_dense_mish",
+            "int8": "vtd_int8_dense", "drop": "vtd_dropout"}
+# The pointer arguments of each entry point: its argument block, the
+# call's device addresses and the stream.
+_POINTERS = {"ln": 6, "ffn": 6, "int8": 8, "drop": 5}
+# The libraries whose plans ask their source which instance runs.
+_QUERIED = ("ffn", "int8")
+
+
 def _entry(kind: str) -> str:
-    """The C entry point of a flash library: the wide backward shares the
-    narrow one's name (flash_bwd_common.cuh)."""
+    """The C entry point of a library: the wide backward shares the narrow
+    one's name (flash_bwd_common.cuh)."""
+    if kind in _ENTRIES:
+        return _ENTRIES[kind]
     return "vtd_flash_attention_" + ("bwd" if kind == "bwd_wide" else kind)
-
-
-def _define(name: str):
-    return custom_op(f"{NAMESPACE}::{name}", mutates_args=(),
-                     device_types="cuda")
 
 
 @functools.cache
 def _library(kind: str) -> ctypes.CDLL:
-    """The built library of one source, with its entry point's C types."""
+    """The built library of one source, with its entry point's C types:
+    every argument is an address (the plan's argument block, the call's
+    device addresses and the stream)."""
     lib = _build.load_library(_SOURCES[kind])
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    u32 = ctypes.c_uint32
-    if kind in ("fwd", "fwd_sm90", "bwd", "bwd_wide", "bwd_sm90"):
-        # The plan's argument block (csrc/flash_launch.cuh), ten device
-        # addresses, the dropout seed's and the stream.
-        fn = getattr(lib, _entry(kind))
-        fn.argtypes = [ptr] * 13
-    elif kind == "ln":
-        fn = lib.vtd_layer_norm
-        fn.argtypes = [ptr] * 4 + [i32] * 2 + [ctypes.c_float, i32, ptr]
-    elif kind == "ffn":
-        fn = lib.vtd_dense_mish
-        fn.argtypes = [ptr] * 4 + [i32] * 6 + [ctypes.POINTER(i32), ptr]
-    elif kind == "int8":
-        fn = lib.vtd_int8_dense
-        fn.argtypes = [ptr] * 6 + [i32] * 7 + [ctypes.POINTER(i32), ptr]
-    else:
-        fn = lib.vtd_dropout
-        fn.argtypes = [ptr, ptr, i64, i32, i32, ptr, u32, ctypes.c_float,
-                       u32, u32, u32, u32, u32, ptr]
-    fn.restype = i32
-    lib.vtd_cuda_error_string.argtypes = [i32]
+    fn = getattr(lib, _entry(kind))
+    # The flash entry points: the block, ten device addresses, the dropout
+    # seed's and the stream.
+    fn.argtypes = [ctypes.c_void_p] * _POINTERS.get(kind, 13)
+    fn.restype = ctypes.c_int
+    if kind in _QUERIED:
+        query = getattr(lib, _entry(kind) + "_plan")
+        query.argtypes = [ctypes.c_void_p]
+        query.restype = ctypes.c_int
+    lib.vtd_cuda_error_string.argtypes = [ctypes.c_int]
     lib.vtd_cuda_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _dropout(seed: Optional[torch.Tensor], rate: float, device):
@@ -123,13 +122,14 @@ def _dropout(seed: Optional[torch.Tensor], rate: float, device):
 # B1 and B2: the flash-attention operators and their launch plans
 # ---------------------------------------------------------------------------
 #
-# The two flash operators are defined through ``torch.library.Library``
-# (``define``, ``impl(..., "CUDA")``, ``register_fake``): the dispatcher
-# calls the CUDA implementation below with no Python layer of its own in
-# between (``custom_op`` adds one, and an autograd kernel in Python, which
-# these operators do not need: the wrappers' autograd Functions call
-# them). Their schemas are the ones ``custom_op`` gave them before, plus
-# the backward's trailing ``dq_fp32``, so saved programs keep their nodes.
+# Every operator is defined through ``torch.library.Library`` (``define``,
+# ``impl(..., "CUDA")``, ``register_fake``; at the end of this module): the
+# dispatcher calls its CUDA implementation with no Python layer of its own
+# in between (``custom_op`` adds one, and an autograd kernel in Python,
+# which these operators do not need: the wrappers' autograd Functions call
+# them). The flash schemas are the ones ``custom_op`` gave them before,
+# plus the backward's trailing ``dq_fp32``, so saved programs keep their
+# nodes.
 #
 # A call looks up its launch plan by everything the checks and the C
 # arguments depend on but the data pointers: the operands' shapes, strides,
@@ -255,10 +255,18 @@ def _like(t: torch.Tensor, dtype) -> torch.Tensor:
     return torch.empty_like(t, dtype=dtype, device="meta")
 
 
-def _bound(plan: LaunchPlan) -> LaunchPlan:
-    """The plan with its library loaded (built at the first use), its C
-    entry point and the stream reader."""
+def _bound(plan):
+    """The plan (a ``LaunchPlan`` or an ``OpPlan``) with its library
+    loaded (built at the first use), its C entry point and the stream
+    reader; for B3 and B5 the instance asked of the source's plan query
+    (which writes it into the block) and whether it runs on the tensor
+    cores."""
     lib = _library(plan.kind)
+    if plan.kind in _QUERIED:
+        err = getattr(lib, _entry(plan.kind) + "_plan")(plan.args_ptr)
+        if err:
+            _build.raise_on_error(lib, err, _WHAT[plan.kind])
+        plan = plan._replace(tensor_core=plan.args.instance > 0)
     return plan._replace(fn=getattr(lib, _entry(plan.kind)), lib=lib,
                          stream=_raw_stream())
 
@@ -507,127 +515,287 @@ def _flash_bwd_fake(q, k, v, g, lse, delta, layout, dropout_seed,
               for t in (k, v)))
 
 
-_flash_library = torch.library.Library(NAMESPACE, "FRAGMENT")
-for _schema, _cuda, _fake in ((FLASH_FWD_SCHEMA, _flash_fwd_cuda,
-                               _flash_fwd_fake),
-                              (FLASH_BWD_SCHEMA, _flash_bwd_cuda,
-                               _flash_bwd_fake)):
-    _name = _schema.split("(", 1)[0]
-    _flash_library.define(_schema)
-    _flash_library.impl(_name, _cuda, "CUDA")
-    torch.library.register_fake(f"{NAMESPACE}::{_name}", _fake,
-                                lib=_flash_library)
-flash_attention._FWD_OP = torch.ops.vtd_torch.flash_attention_fwd.default
-flash_attention._BWD_OP = torch.ops.vtd_torch.flash_attention_bwd.default
-
-
 # ---------------------------------------------------------------------------
-# B4: fused LayerNorm
+# B3, B4, B5 and the MLP dropout: the other five operators and their plans
 # ---------------------------------------------------------------------------
+#
+# The flash operators' design: ``Library`` definitions with the schemas
+# ``custom_op`` inferred for these operators before (saved programs hold
+# layer_norm and dense_mish nodes), a launch plan per call signature, one
+# argument block per plan (LayerNormArgs, DenseMishArgs, Int8DenseArgs,
+# DropoutArgs: csrc/launch_common.cuh) and one ctypes call a launch, whose
+# C entry point makes the plan's device current. The key holds the
+# operands' shapes, strides, dtypes and devices, the addresses mod 16 that
+# a choice reads, and the scalar arguments. A plan names the copies a call
+# makes first (contiguity, 16-byte alignment, fp32 scales) and, for B3 and
+# B5, the instance the kernel runs: the source's plan query
+# (``vtd_dense_mish_plan``, ``vtd_int8_dense_plan``) picks it once from the
+# sizes, the dtype, the request and the operands' alignment, so a call
+# counts its tensor-core launch from the plan. The dropout's key holds no
+# address: its entry point takes the 16-byte path per call where both
+# addresses allow, which changes no value.
 
-@_define("layer_norm")
-def layer_norm(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-               eps: float) -> torch.Tensor:
-    """LayerNorm of the rows of 2-D ``x2`` (csrc/layer_norm.cu), output in
-    x2's dtype; gamma and beta are read in fp32."""
-    # The kernel loads 16 (fp32) or 8 (bf16) bytes at a time.
-    if not x2.is_contiguous() or x2.data_ptr() % 16:
+LAYER_NORM_SCHEMA = ("layer_norm(Tensor x2, Tensor gamma, Tensor beta, "
+                     "float eps) -> Tensor")
+DENSE_MISH_SCHEMA = ("dense_mish(Tensor x2, Tensor w, Tensor b, "
+                     "bool apply_mish, SymInt request) -> Tensor")
+_INT8_SIGNATURE = ("(Tensor x2, Tensor kernel_q, Tensor? transposed, "
+                   "Tensor scale, Tensor bias, bool apply_mish, "
+                   "SymInt request) -> Tensor")
+FUSED_INT8_DENSE_SCHEMA = "fused_int8_dense" + _INT8_SIGNATURE
+INT8_DENSE_SCHEMA = "int8_dense" + _INT8_SIGNATURE
+DROPOUT_SCHEMA = (
+    "dropout(Tensor x2, Tensor seed, float rate, SymInt row_base=0, "
+    "SymInt inner_local=1, SymInt inner_global=1, SymInt inner_base=0, "
+    "SymInt col_base=0) -> Tensor")
+# What a failed launch of each library is called in its RuntimeError.
+_WHAT = {"ln": "layer norm", "ffn": "dense + mish", "int8": "int8 dense",
+         "drop": "dropout"}
+
+
+class LayerNormArgs(ctypes.Structure):
+    """csrc/launch_common.cuh's LayerNormArgs, field for field."""
+    _fields_ = [(name, _i32) for name in ("device", "dtype", "rows", "d")] \
+        + [("eps", _f32c)]
+
+
+class DenseMishArgs(ctypes.Structure):
+    """csrc/launch_common.cuh's DenseMishArgs, field for field."""
+    _fields_ = [(name, _i32) for name in (
+        "device", "dtype", "m", "n", "k", "apply_mish", "request",
+        "aligned16", "instance")]
+
+
+class Int8DenseArgs(ctypes.Structure):
+    """csrc/launch_common.cuh's Int8DenseArgs, field for field."""
+    _fields_ = [(name, _i32) for name in (
+        "device", "x_dtype", "out_dtype", "m", "n", "k", "apply_mish",
+        "request", "aligned16", "instance")]
+
+
+class DropoutArgs(ctypes.Structure):
+    """csrc/launch_common.cuh's DropoutArgs, field for field."""
+    _fields_ = [("device", _i32), ("dtype", _i32),
+                ("rows", ctypes.c_longlong), ("cols", _i32),
+                ("threshold", _u32), ("inv_keep", _f32c)] + [
+        (name, _u32) for name in ("row_base", "inner_local", "inner_global",
+                                  "inner_base", "col_base")]
+
+
+class OpPlan(NamedTuple):
+    """What a call of one of the five operators launches for one
+    signature: the library (a ``_SOURCES`` key), the scalar block and its
+    address, the device, which operands the call copies first (one flag
+    each, in the operator's order) and, for B3 and B5, whether the planned
+    instance runs on the tensor cores (set by ``_bound`` from the plan
+    query). ``fn``, ``lib`` and ``stream`` as in ``LaunchPlan``."""
+    kind: str
+    args: ctypes.Structure
+    args_ptr: int
+    device: torch.device
+    copies: tuple
+    tensor_core: bool = False
+    fn: object = None
+    lib: object = None
+    stream: object = None
+
+
+_ln_plans: dict = {}
+_ffn_plans: dict = {}
+# The outputs of the same shape as x2 (``empty_like`` parses fewer
+# arguments than ``new_empty`` of a torch.Size).
+_CONTIGUOUS = torch.contiguous_format
+_int8_plans: dict = {}
+_drop_plans: dict = {}
+
+
+def _aligned(t: torch.Tensor, copied: bool) -> bool:
+    """Whether the address a call hands over for ``t`` is on a 16-byte
+    boundary: a copy's always is (a new allocation)."""
+    return copied or t.data_ptr() % 16 == 0
+
+
+def _fp32_copy(t: torch.Tensor) -> torch.Tensor:
+    return t.to(_F32, memory_format=torch.contiguous_format, copy=True)
+
+
+def layer_norm_plan(x2, gamma, beta, eps: float) -> OpPlan:
+    """B4's plan: x2 copied where it is not contiguous or not on a 16-byte
+    boundary (the kernel loads 16 or 8 bytes at a time), gamma and beta
+    where they are not contiguous fp32 on a 16-byte boundary (read 16 bytes
+    at a time)."""
+    copies = (not x2.is_contiguous() or x2.data_ptr() % 16 != 0,
+              *(t.dtype != _F32 or not t.is_contiguous()
+                or t.data_ptr() % 16 != 0 for t in (gamma, beta)))
+    args = LayerNormArgs(device=x2.get_device(),
+                         dtype=_DTYPE_CODES[x2.dtype], rows=x2.shape[0],
+                         d=x2.shape[1], eps=eps)
+    return OpPlan("ln", args, ctypes.addressof(args), x2.device, copies)
+
+
+def _layer_norm_cuda(x2, gamma, beta, eps):
+    """``torch.ops.vtd_torch.layer_norm`` on CUDA tensors: LayerNorm of the
+    rows of 2-D ``x2`` (csrc/layer_norm.cu), output in x2's dtype; gamma
+    and beta are read in fp32."""
+    xp, gp, bp = x2.data_ptr(), gamma.data_ptr(), beta.data_ptr()
+    key = (eps, x2.shape, x2.stride(), x2.dtype, x2.get_device(), xp & 15,
+           _signature(gamma), gp & 15, _signature(beta), bp & 15)
+    plan = _ln_plans.get(key)
+    if plan is None:
+        plan = _remember(_ln_plans, key, _bound(layer_norm_plan(
+            x2, gamma, beta, eps)))
+    copy_x, copy_gamma, copy_beta = plan.copies
+    # The copies stay bound until the launch is queued.
+    if copy_x:
         x2 = x2.clone(memory_format=torch.contiguous_format)
-    g = gamma.float().contiguous()
-    b = beta.float().contiguous()
-    out = torch.empty_like(x2)
-    lib = _library("ln")
-    with torch.cuda.device(x2.device):
-        err = lib.vtd_layer_norm(x2.data_ptr(), g.data_ptr(), b.data_ptr(),
-                                 out.data_ptr(), x2.shape[0], x2.shape[1],
-                                 float(eps), _DTYPE_CODES[x2.dtype],
-                                 _stream(x2.device))
-    _build.raise_on_error(lib, err, "layer norm")
+        xp = x2.data_ptr()
+    if copy_gamma:
+        gamma = _fp32_copy(gamma)
+        gp = gamma.data_ptr()
+    if copy_beta:
+        beta = _fp32_copy(beta)
+        bp = beta.data_ptr()
+    out = torch.empty_like(x2, memory_format=_CONTIGUOUS)
+    err = plan.fn(plan.args_ptr, xp, gp, bp, out.data_ptr(),
+                  plan.stream(plan.device.index))
+    if err:
+        _build.raise_on_error(plan.lib, err, _WHAT["ln"])
     with fused_ln._count_lock:
         fused_ln.fused_layer_norm.launches += 1
     return out
 
 
-@layer_norm.register_fake
-def _(x2, gamma, beta, eps):
+def _layer_norm_fake(x2, gamma, beta, eps):
     return x2.new_empty(x2.shape)
 
 
-# ---------------------------------------------------------------------------
-# B3: fused dense + bias + mish
-# ---------------------------------------------------------------------------
+def dense_mish_plan(x2, w, b, apply_mish: bool, request: int) -> OpPlan:
+    """B3's plan: x2, w and b copied where they are not contiguous; the
+    block carries ``request`` and whether x2 and w come on 16-byte
+    boundaries (the output always does), from which ``_bound``'s query
+    picks the instance."""
+    copies = tuple(not t.is_contiguous() for t in (x2, w, b))
+    aligned = _aligned(x2, copies[0]) and _aligned(w, copies[1])
+    args = DenseMishArgs(device=x2.get_device(),
+                         dtype=_DTYPE_CODES[x2.dtype], m=x2.shape[0],
+                         n=w.shape[1], k=x2.shape[1],
+                         apply_mish=int(apply_mish), request=request,
+                         aligned16=int(aligned), instance=-1)
+    return OpPlan("ffn", args, ctypes.addressof(args), x2.device, copies)
 
-@_define("dense_mish")
-def dense_mish(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-               apply_mish: bool, request: int) -> torch.Tensor:
-    """``mish(x2 @ w + b)`` (or without mish) in x2's dtype from
-    csrc/dense_mish.cu; ``request`` is one of ``fused_ffn.REQUESTS``'
-    values (0: the instance the shape selects)."""
-    m, n = x2.shape[0], w.shape[1]
-    out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+
+def _dense_mish_cuda(x2, w, b, apply_mish, request):
+    """``torch.ops.vtd_torch.dense_mish`` on CUDA tensors: ``mish(x2 @ w +
+    b)`` (or without mish) in x2's dtype from csrc/dense_mish.cu;
+    ``request`` is one of ``fused_ffn.REQUESTS``' values (0: the instance
+    the shape selects)."""
+    m = x2.shape[0]
     if m == 0:
-        return out
-    x2, w, b = (t.contiguous() for t in (x2, w, b))
-    taken = ctypes.c_int(-1)
-    lib = _library("ffn")
-    with torch.cuda.device(x2.device):
-        err = lib.vtd_dense_mish(x2.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                 out.data_ptr(), m, n, x2.shape[1],
-                                 _DTYPE_CODES[x2.dtype], int(apply_mish),
-                                 request, ctypes.byref(taken),
-                                 _stream(x2.device))
-    _build.raise_on_error(lib, err, "dense + mish")
+        return x2.new_empty((0, w.shape[1]))
+    xp, wp = x2.data_ptr(), w.data_ptr()
+    key = (apply_mish, request, x2.shape, x2.stride(), x2.dtype,
+           x2.get_device(), xp & 15, w.shape, w.stride(), w.dtype,
+           w.get_device(), wp & 15, _signature(b))
+    plan = _ffn_plans.get(key)
+    if plan is None:
+        plan = _remember(_ffn_plans, key, _bound(dense_mish_plan(
+            x2, w, b, apply_mish, request)))
+    copy_x, copy_w, copy_b = plan.copies
+    if copy_x:
+        x2 = x2.contiguous()
+        xp = x2.data_ptr()
+    if copy_w:
+        w = w.contiguous()
+        wp = w.data_ptr()
+    if copy_b:
+        b = b.contiguous()
+    out = x2.new_empty((m, w.shape[1]))
+    err = plan.fn(plan.args_ptr, xp, wp, b.data_ptr(), out.data_ptr(),
+                  plan.stream(plan.device.index))
+    if err:
+        _build.raise_on_error(plan.lib, err, _WHAT["ffn"])
     route = fused_ffn.fused_dense_mish
     with fused_ffn._count_lock:
         route.launches += 1
-        route.tensor_core_launches += int(taken.value > 0)
+        route.tensor_core_launches += plan.tensor_core
     return out
 
 
-@dense_mish.register_fake
-def _(x2, w, b, apply_mish, request):
+def _dense_mish_fake(x2, w, b, apply_mish, request):
     return x2.new_empty((x2.shape[0], w.shape[1]))
 
 
-# ---------------------------------------------------------------------------
-# B5: fused int8 dense, bf16 out (fused) and fp32 out
-# ---------------------------------------------------------------------------
+def int8_dense_plan(x2, kernel_q, transposed, scale, bias, apply_mish: bool,
+                    request: int, out_dtype) -> OpPlan:
+    """B5's plan, either route: x2, kernel_q and ``transposed`` copied
+    where they are not contiguous, scale and bias where they are not
+    contiguous fp32; the block carries ``request`` and whether the (N, K)
+    codes are given and they and x2 come on 16-byte boundaries, from which
+    ``_bound``'s query picks the instance."""
+    copies = (not x2.is_contiguous(), not kernel_q.is_contiguous(),
+              transposed is not None and not transposed.is_contiguous(),
+              *(t.dtype != _F32 or not t.is_contiguous()
+                for t in (scale, bias)))
+    aligned = (transposed is not None and _aligned(x2, copies[0])
+               and _aligned(transposed, copies[2]))
+    args = Int8DenseArgs(device=x2.get_device(),
+                         x_dtype=_DTYPE_CODES[x2.dtype],
+                         out_dtype=_DTYPE_CODES[out_dtype], m=x2.shape[0],
+                         n=kernel_q.shape[1], k=x2.shape[1],
+                         apply_mish=int(apply_mish), request=request,
+                         aligned16=int(aligned), instance=-1)
+    return OpPlan("int8", args, ctypes.addressof(args), x2.device, copies)
+
 
 def _int8_launch(x2, kernel_q, transposed, scale, bias, apply_mish: bool,
                  request: int, out_dtype, route) -> torch.Tensor:
-    m, n = x2.shape[0], kernel_q.shape[1]
-    out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
+    """One launch of csrc/int8_dense.cu with ``out_dtype`` out, counted on
+    ``route`` (the public function of quantization.py)."""
+    m = x2.shape[0]
     if m == 0:
-        return out
-    x2 = x2.contiguous()
-    kernel_q = kernel_q.contiguous()
-    scale = scale.float().contiguous()
-    bias = bias.float().reshape(-1).contiguous()
-    taken = ctypes.c_int(-1)
-    lib = _library("int8")
-    with torch.cuda.device(x2.device):
-        err = lib.vtd_int8_dense(
-            x2.data_ptr(), kernel_q.data_ptr(),
-            None if transposed is None else transposed.data_ptr(),
-            scale.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n,
-            x2.shape[1], _DTYPE_CODES[x2.dtype], _DTYPE_CODES[out_dtype],
-            int(apply_mish), request, ctypes.byref(taken),
-            _stream(x2.device))
-    _build.raise_on_error(lib, err, "int8 dense")
+        return x2.new_empty((0, kernel_q.shape[1]), dtype=out_dtype)
+    xp = x2.data_ptr()
+    tp = None if transposed is None else transposed.data_ptr()
+    key = (out_dtype, apply_mish, request, x2.shape, x2.stride(), x2.dtype,
+           x2.get_device(), xp & 15, _signature(kernel_q),
+           None if tp is None else (_signature(transposed), tp & 15),
+           _signature(scale), _signature(bias))
+    plan = _int8_plans.get(key)
+    if plan is None:
+        plan = _remember(_int8_plans, key, _bound(int8_dense_plan(
+            x2, kernel_q, transposed, scale, bias, apply_mish, request,
+            out_dtype)))
+    copy_x, copy_codes, copy_transposed, copy_scale, copy_bias = plan.copies
+    if copy_x:
+        x2 = x2.contiguous()
+        xp = x2.data_ptr()
+    if copy_codes:
+        kernel_q = kernel_q.contiguous()
+    if copy_transposed:
+        transposed = transposed.contiguous()
+        tp = transposed.data_ptr()
+    if copy_scale:
+        scale = scale.float().contiguous()
+    if copy_bias:
+        bias = bias.float().reshape(-1).contiguous()
+    out = x2.new_empty((m, kernel_q.shape[1]), dtype=out_dtype)
+    err = plan.fn(plan.args_ptr, xp, kernel_q.data_ptr(), tp,
+                  scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                  plan.stream(plan.device.index))
+    if err:
+        _build.raise_on_error(plan.lib, err, _WHAT["int8"])
     with quantization._count_lock:
         route.launches += 1
-        route.tensor_core_launches += int(taken.value > 0)
+        route.tensor_core_launches += plan.tensor_core
     return out
 
 
-@_define("fused_int8_dense")
-def fused_int8_dense(x2: torch.Tensor, kernel_q: torch.Tensor,
-                     transposed: Optional[torch.Tensor], scale: torch.Tensor,
-                     bias: torch.Tensor, apply_mish: bool,
-                     request: int) -> torch.Tensor:
-    """The fused route of csrc/int8_dense.cu: per-row int8 quantization of
-    ``x2`` (M, K), the int8 product with ``kernel_q`` (K, N), scale, bias
-    (+ mish), bf16 out. ``transposed`` is the (N, K) copy of the codes the
+def _fused_int8_dense_cuda(x2, kernel_q, transposed, scale, bias,
+                           apply_mish, request):
+    """``torch.ops.vtd_torch.fused_int8_dense`` on CUDA tensors: the fused
+    route of csrc/int8_dense.cu, per-row int8 quantization of ``x2`` (M,
+    K), the int8 product with ``kernel_q`` (K, N), scale, bias (+ mish),
+    bf16 out. ``transposed`` is the (N, K) copy of the codes the
     tensor-core instances read (quantization.transposed_codes), or None
     for the guarded instance.
 
@@ -639,63 +807,96 @@ def fused_int8_dense(x2: torch.Tensor, kernel_q: torch.Tensor,
                         request, torch.bfloat16, quantization.fused_int8_dense)
 
 
-@_define("int8_dense")
-def int8_dense(x2: torch.Tensor, kernel_q: torch.Tensor,
-               transposed: Optional[torch.Tensor], scale: torch.Tensor,
-               bias: torch.Tensor, apply_mish: bool,
-               request: int) -> torch.Tensor:
-    """The fp32-out route of csrc/int8_dense.cu (the attention
-    projections), arguments as ``fused_int8_dense``'s; not exportable
-    either."""
+def _int8_dense_cuda(x2, kernel_q, transposed, scale, bias, apply_mish,
+                     request):
+    """``torch.ops.vtd_torch.int8_dense`` on CUDA tensors: the fp32-out
+    route of csrc/int8_dense.cu (the attention projections), arguments as
+    ``fused_int8_dense``'s; not exportable either."""
     return _int8_launch(x2, kernel_q, transposed, scale, bias, apply_mish,
-                        request, torch.float32, quantization.int8_dense)
+                        request, _F32, quantization.int8_dense)
 
 
-@fused_int8_dense.register_fake
-def _(x2, kernel_q, transposed, scale, bias, apply_mish, request):
+def _fused_int8_dense_fake(x2, kernel_q, transposed, scale, bias,
+                           apply_mish, request):
     return x2.new_empty((x2.shape[0], kernel_q.shape[1]),
                         dtype=torch.bfloat16)
 
 
-@int8_dense.register_fake
-def _(x2, kernel_q, transposed, scale, bias, apply_mish, request):
-    return x2.new_empty((x2.shape[0], kernel_q.shape[1]),
-                        dtype=torch.float32)
+def _int8_dense_fake(x2, kernel_q, transposed, scale, bias, apply_mish,
+                     request):
+    return x2.new_empty((x2.shape[0], kernel_q.shape[1]), dtype=_F32)
 
 
-# ---------------------------------------------------------------------------
-# Dropout of the MLP and head activations (no Pallas counterpart)
-# ---------------------------------------------------------------------------
-
-@_define("dropout")
-def dropout_apply(x2: torch.Tensor, seed: torch.Tensor,
-                  rate: float, row_base: int = 0, inner_local: int = 1,
-                  inner_global: int = 1, inner_base: int = 0,
-                  col_base: int = 0) -> torch.Tensor:
-    """keras Dropout of the rows of 2-D ``x2`` with the counter-hash mask
-    of the uint32 seed in ``seed``'s device memory (csrc/dropout.cu), each
-    row mapped by ``inner_local``/``inner_global``/``inner_base`` and
-    counted from ``row_base``, the columns from ``col_base``
-    (dropout.dropout_mask), output in x2's dtype."""
+def dropout_plan(x2, seed, rate: float, coords: tuple) -> OpPlan:
+    """The MLP dropout's plan: the seed's check (ValueError), x2 copied
+    where it is not contiguous, the keep threshold, 1 / (1 - rate) in fp32
+    and the mask's coordinates ``(row_base, inner_local, inner_global,
+    inner_base, col_base)`` mod 2^32 in the block."""
     _dropout(seed, rate, x2.device)
-    x2 = x2.contiguous()
-    out = torch.empty_like(x2)
-    lib = _library("drop")
-    with torch.cuda.device(x2.device):
-        err = lib.vtd_dropout(
-            x2.data_ptr(), out.data_ptr(), x2.shape[0], x2.shape[1],
-            _DTYPE_CODES[x2.dtype], seed.data_ptr(),
-            flash_attention._keep_threshold(rate), dropout.inv_keep(rate),
-            *(int(a) & flash_attention._M32 for a in (
-                row_base, inner_local, inner_global, inner_base, col_base)),
-            _stream(x2.device))
-    _build.raise_on_error(lib, err, "dropout")
+    args = DropoutArgs(device=x2.get_device(), dtype=_DTYPE_CODES[x2.dtype],
+                       rows=x2.shape[0], cols=x2.shape[1],
+                       threshold=flash_attention._keep_threshold(rate),
+                       inv_keep=dropout.inv_keep(rate))
+    for name, value in zip(("row_base", "inner_local", "inner_global",
+                            "inner_base", "col_base"), coords):
+        setattr(args, name, int(value) & flash_attention._M32)
+    return OpPlan("drop", args, ctypes.addressof(args), x2.device,
+                  (not x2.is_contiguous(),))
+
+
+def _dropout_cuda(x2, seed, rate, row_base=0, inner_local=1, inner_global=1,
+                  inner_base=0, col_base=0):
+    """``torch.ops.vtd_torch.dropout`` on CUDA tensors: keras Dropout of
+    the rows of 2-D ``x2`` with the counter-hash mask of the uint32 seed in
+    ``seed``'s device memory (csrc/dropout.cu), each row mapped by
+    ``inner_local``/``inner_global``/``inner_base`` and counted from
+    ``row_base``, the columns from ``col_base`` (dropout.dropout_mask),
+    output in x2's dtype."""
+    coords = (row_base, inner_local, inner_global, inner_base, col_base)
+    key = (rate, coords, x2.shape, x2.stride(), x2.dtype, x2.get_device(),
+           _signature(seed))
+    plan = _drop_plans.get(key)
+    if plan is None:
+        plan = _remember(_drop_plans, key, _bound(dropout_plan(
+            x2, seed, rate, coords)))
+    if plan.copies[0]:
+        x2 = x2.contiguous()
+    out = torch.empty_like(x2, memory_format=_CONTIGUOUS)
+    err = plan.fn(plan.args_ptr, x2.data_ptr(), out.data_ptr(),
+                  seed.data_ptr(), plan.stream(plan.device.index))
+    if err:
+        _build.raise_on_error(plan.lib, err, _WHAT["drop"])
     with dropout._count_lock:
         dropout.dropout.launches += 1
     return out
 
 
-@dropout_apply.register_fake
-def _(x2, seed, rate, row_base=0, inner_local=1, inner_global=1,
-      inner_base=0, col_base=0):
+def _dropout_fake(x2, seed, rate, row_base=0, inner_local=1, inner_global=1,
+                  inner_base=0, col_base=0):
     return x2.new_empty(x2.shape)
+
+
+# Every operator of the namespace, defined on one fragment; each wrapper
+# module calls its operators' ``.default`` overloads, bound here.
+_op_library = torch.library.Library(NAMESPACE, "FRAGMENT")
+for _schema, _cuda, _fake in (
+        (FLASH_FWD_SCHEMA, _flash_fwd_cuda, _flash_fwd_fake),
+        (FLASH_BWD_SCHEMA, _flash_bwd_cuda, _flash_bwd_fake),
+        (LAYER_NORM_SCHEMA, _layer_norm_cuda, _layer_norm_fake),
+        (DENSE_MISH_SCHEMA, _dense_mish_cuda, _dense_mish_fake),
+        (FUSED_INT8_DENSE_SCHEMA, _fused_int8_dense_cuda,
+         _fused_int8_dense_fake),
+        (INT8_DENSE_SCHEMA, _int8_dense_cuda, _int8_dense_fake),
+        (DROPOUT_SCHEMA, _dropout_cuda, _dropout_fake)):
+    _name = _schema.split("(", 1)[0]
+    _op_library.define(_schema)
+    _op_library.impl(_name, _cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{_name}", _fake,
+                                lib=_op_library)
+flash_attention._FWD_OP = torch.ops.vtd_torch.flash_attention_fwd.default
+flash_attention._BWD_OP = torch.ops.vtd_torch.flash_attention_bwd.default
+fused_ln._OP = torch.ops.vtd_torch.layer_norm.default
+fused_ffn._OP = torch.ops.vtd_torch.dense_mish.default
+quantization._FUSED_OP = torch.ops.vtd_torch.fused_int8_dense.default
+quantization._INT8_OP = torch.ops.vtd_torch.int8_dense.default
+dropout._OP = torch.ops.vtd_torch.dropout.default

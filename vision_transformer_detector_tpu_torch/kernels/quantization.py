@@ -229,7 +229,12 @@ def _refuse_grad(x: torch.Tensor) -> None:
 
 def _route(x: torch.Tensor, layer: QuantDense) -> bool:
     """True for the kernel (CUDA), False for the plain version (CPU)."""
-    devices = {t.device for t in (x, layer.kernel_q, layer.scale, layer.bias)}
+    buffers = (layer.kernel_q, layer.scale, layer.bias)
+    if x.is_cuda:
+        index = x.get_device()
+        if all(t.is_cuda and t.get_device() == index for t in buffers):
+            return True
+    devices = {t.device for t in (x, *buffers)}
     if len(devices) != 1:
         raise ValueError(
             f"x and the layer's buffers must be on one device, got "
@@ -295,9 +300,8 @@ def _launch(x2, layer: QuantDense, apply_mish: bool, out_dtype,
             f"{tuple(kernel_q.shape)}")
     if x2.dtype not in _DTYPE_CODES:
         raise ValueError(f"x must be float32 or bfloat16, got {x2.dtype}")
-    op, route_dtype = ((torch.ops.vtd_torch.int8_dense, torch.float32)
-                       if route is int8_dense else
-                       (torch.ops.vtd_torch.fused_int8_dense, torch.bfloat16))
+    op, route_dtype = ((_INT8_OP, torch.float32) if route is int8_dense
+                       else (_FUSED_OP, torch.bfloat16))
     if out_dtype != route_dtype:
         raise ValueError(f"{route.__name__} writes {route_dtype}, not "
                          f"{out_dtype}")
@@ -306,3 +310,8 @@ def _launch(x2, layer: QuantDense, apply_mish: bool, out_dtype,
                   if tensor_core_shape(k) and instance != "guarded" else None)
     return op(x2, kernel_q, transposed, layer.scale, layer.bias, apply_mish,
               REQUESTS[instance])
+
+
+# ``torch.ops.vtd_torch.{fused_int8_dense,int8_dense}.default``, bound by
+# kernels/ops.py when it registers the operators.
+_FUSED_OP = _INT8_OP = None
