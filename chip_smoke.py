@@ -208,9 +208,11 @@ PyTorch version. Phases, one output line each:
                     tokens; bf16, flash in serving and training), whose
                     K = 80 runs the 128-wide instances, read at K = 80:
                     (a) K 80 and 128 in both layouts and, past 128, K 129,
-                    192, 256, 320 in one layout each, bf16 and fp32 (bf16
-                    up to 256 on the wgmma 256 instance, K 129 padded to
-                    192; fp32 and bf16 320 on the mma.sync wide route),
+                    192, 256, 320, 384, 512 in one layout each, bf16 and
+                    fp32 (bf16 up to 256 on the wgmma 256 instance, K 129
+                    padded to 192; the wide forward for fp32 to 384 and
+                    bf16 to 512, the windowed one past; the backward's wide
+                    route; fp32 B2 at 80 and 128 on the column halves),
                     against the plain versions (forward, lse, dropout
                     forward, backward by each dq route and with the
                     replay, the fp32-output instance and fp32 dk/dv), the
@@ -447,9 +449,10 @@ def phase_build():
     from vision_transformer_detector_tpu_torch.kernels import (
         dropout, flash_attention as fa, fused_ffn, fused_ln, quantization)
 
-    sources = [fa.FWD_SOURCE, fa.SM90_SOURCE, fa.BWD_SOURCE,
-               fa.BWD_SM90_SOURCE, fa.BWD_WIDE_SOURCE, quantization.SOURCE,
-               fused_ln.SOURCE, fused_ffn.SOURCE, dropout.SOURCE]
+    sources = [fa.FWD_SOURCE, fa.SM90_SOURCE, fa.FWD_WIDE_SOURCE,
+               fa.BWD_SOURCE, fa.BWD_SM90_SOURCE, fa.BWD_WIDE_SOURCE,
+               quantization.SOURCE, fused_ln.SOURCE, fused_ffn.SOURCE,
+               dropout.SOURCE]
     tic = time.monotonic()
     _build.load_libraries(sources)
     seconds = round(time.monotonic() - tic, 3)
@@ -460,12 +463,15 @@ def phase_build():
     # The libraries' SASS, disassembled all at once (cuobjdump per library).
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         list(pool.map(_sass, [_build.library_path(s) for s in sources]))
-    # The mma.sync forward: fp32 at head dim 48, 64, 128 and the wide route
-    # in both types, each with and without dropout (10); the backward: fp32
-    # at 48, 64, 128, each with and without dropout, for the dk/dv kernel,
-    # the dq kernel ("_dq") and the partials route ("_partials"): 6 + 6 +
-    # 6; its wide route both types at one width: 4 + 4 + 2.
-    instances = {fa.FWD_SOURCE: 10, fa.BWD_SOURCE: 18, fa.BWD_WIDE_SOURCE: 10}
+    # The mma.sync forward: fp32 at head dim 48, 64, 128 and the windowed
+    # route in both types, each with and without dropout (10); the wide
+    # forward, fp32 (HMMA) and bf16 (HGMMA), each with and without dropout
+    # (4); the backward: fp32 at 48, 64, 128 (the column halves), each with
+    # and without dropout, for the dk/dv kernel, the dq kernel ("_dq") and
+    # the partials route ("_partials"): 6 + 6 + 6; its wide route both
+    # types at one width: 4 + 4 + 2.
+    instances = {fa.FWD_SOURCE: 10, fa.FWD_WIDE_SOURCE: 4,
+                 fa.BWD_SOURCE: 18, fa.BWD_WIDE_SOURCE: 10}
     hmma = {source: _tensor_core_instructions(_build.library_path(source))
             for source in instances}
     for source, counts in hmma.items():
@@ -499,9 +505,53 @@ def phase_build():
                      f"{source}: no tensor-core instruction in {kernel}: "
                      f"{dense[source]}")
     hmma.update(dense)
+    # The redesigned wide forward and fp32 column halves: registers, spills
+    # and dynamic shared memory of each instance (the wide forward at its
+    # widest K in each type, the halves by kernel); the halves must spill
+    # nothing.
+    for source, keep in ((fa.FWD_WIDE_SOURCE, "_wide"),
+                         (fa.BWD_SOURCE, "_d128")):
+        REDESIGNED[source] = {
+            name: found for name, found in _flash_registers(
+                _build.BUILD_LOGS[source]).items() if keep in name}
+    halves = REDESIGNED[fa.BWD_SOURCE]
+    _require(len(halves) == 6 and all(
+        r["spill_stores"] == 0 and r["spill_loads"] == 0
+        for r in halves.values()),
+             f"the fp32 column halves spill: {halves}")
+    REDESIGNED["shared_memory"] = _redesigned_smem()
     _report("build", seconds=seconds, ptxas=ptxas,
-            tensor_core_instructions=hmma, wgmma_registers=WGMMA_REGISTERS)
+            tensor_core_instructions=hmma, wgmma_registers=WGMMA_REGISTERS,
+            redesigned=REDESIGNED)
     return hgmma
+
+
+# Registers, spills and shared memory of the wide forward and the fp32
+# column halves (phase_build).
+REDESIGNED: dict = {}
+
+
+def _redesigned_smem() -> dict:
+    """Dynamic shared memory of the wide forward (fp32 at K 384, bf16) and
+    the fp32 column halves (dk/dv, dk/dv with the partials, dq), as their
+    sources compute it."""
+    import ctypes
+
+    from vision_transformer_detector_tpu_torch.kernels import _build
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa)
+
+    fwd = _build.load_library(
+        fa.FWD_WIDE_SOURCE).vtd_flash_attention_fwd_wide_smem
+    bwd = _build.load_library(
+        fa.BWD_SOURCE).vtd_flash_attention_bwd_halves_smem
+    for fn in (fwd, bwd):
+        fn.restype = ctypes.c_int
+    fwd.argtypes = [ctypes.c_int, ctypes.c_int]
+    bwd.argtypes = [ctypes.c_int]
+    return {"fp32_wide_k384": fwd(0, 384), "fp32_wide_k256": fwd(0, 256),
+            "bf16_wide": fwd(1, 512), "fp32_d128": bwd(0),
+            "fp32_d128_partials": bwd(1), "fp32_d128_dq": bwd(2)}
 
 
 # Registers and spills of each wgmma flash instance, by source (the build
@@ -546,14 +596,22 @@ def _flash_instance(symbol: str):
     """The instance name (``_tensor_core_instructions``' naming) of a flash
     kernel's mangled symbol, or None for another kernel."""
     found = re.search(
-        r"flash_(fwd|bwd)(_dq)?(_wide|_sm90)?_kernelI"
-        r"(13__nv_bfloat16|f)?(?:Li(\d+)E)?Lb([01])E(Lb1E)?", symbol)
+        r"flash_(fwd|bwd)(_dq)?(_wide_f32|_wide_bf16|_halves|_wide|_sm90)?"
+        r"_kernelI(13__nv_bfloat16|f)?((?:Li\d+E)*)Lb([01])E(Lb1E)?", symbol)
     if not found:
         return None
-    kind, dq, variant, dtype, dim, drop, flag = found.groups()
+    kind, dq, variant, dtype, dims, drop, flag = found.groups()
+    dim = re.findall(r"\d+", dims)[0] if dims else None
     partials = kind == "bwd" and flag
+    # The wide forward's and the column halves' kernels carry their type
+    # and width in their names.
+    if variant in ("_wide_f32", "_halves"):
+        dtype = "f"
+    if variant == "_halves":
+        dim = "128"
+    wide = variant in ("_wide", "_wide_f32", "_wide_bf16")
     return (f"{'fp32' if dtype == 'f' else 'bf16'}"
-            f"{'_wide' if variant == '_wide' else '_d' + dim}"
+            f"{'_wide' if wide else '_d' + dim}"
             f"{'_drop' if drop == '1' else ''}{dq or ''}"
             f"{'_partials' if partials else ''}")
 
@@ -1799,9 +1857,10 @@ def _reset_counts() -> None:
 
     for fn, names in ((fa.flash_attention,
                        ("launches", "lse_launches", "drop_launches",
-                        "wgmma_launches", "backward_launches",
-                        "backward_drop_launches", "wgmma_backward_launches",
-                        "operand_copies")),
+                        "wgmma_launches", "wide_launches",
+                        "backward_launches", "backward_drop_launches",
+                        "wgmma_backward_launches",
+                        "halves_backward_launches", "operand_copies")),
                       (qz.fused_int8_dense,
                        ("launches", "tensor_core_launches")),
                       (qz.int8_dense, ("launches", "tensor_core_launches")),
@@ -4907,21 +4966,35 @@ def phase_parallel() -> dict:
                 for key in ("flash_drop", "flash_bwd_drop", "mlp_drop")})}
 
 
-# (K, layouts): ViT-H/14's 80 and the 128 instance in both layouts, and
-# past 128 in one layout each (tests/test_torch_cuda.py holds K 129, 192,
-# 256 in both): bf16 on the wgmma 256 instance up to 256 (K 129 padded to
-# 192 for it), fp32 and bf16 K 320 on the mma.sync wide route.
+# (K, layouts): ViT-H/14's 80 and the 128 instance in both layouts (fp32
+# B2 there on the column halves), and past 128 in one layout each
+# (tests/test_torch_cuda.py holds K 129-520 in both): bf16 on the wgmma 256
+# instance up to 256 (K 129 padded to 192 for it), the wide forward for
+# fp32 to 384 and bf16 320-512, the windowed forward for fp32 512, the
+# backward's wide route for both past 128 / 256.
 WIDE_DIMS = ((80, ("bhnk", "bnhk")), (128, ("bhnk", "bnhk")),
              (129, ("bhnk",)), (192, ("bnhk",)), (256, ("bhnk",)),
-             (320, ("bnhk",)))
+             (320, ("bnhk",)), (384, ("bhnk",)), (512, ("bnhk",)))
 WIDE_N = 321                   # five key tiles, the last one ragged
 WIDE_HEADS = 16                # ViT-H/14's heads
 WIDE_RING_N = 256              # two ring blocks of 128 keys (whole tiles)
+# (batch, heads, K, dtype), the forward's rows timed as (B * H, 256, K) on
+# their own (B1, B1-lse, B1-drop, each beside its plain version and SDPA
+# memory-efficient, with dropout for B1-drop): the wide forward in fp32 at
+# K 192, 256, 320 and in bf16 at 320 and 384, the windowed one at bf16 576,
+# and the fp32 128 instance at ViT-H/14's (128, 256, 80) and at (2048, 256,
+# 128); fp32 B2 on the column halves at K 80, 96, 128 (WIDE_FP32_BWD).
+WIDE_FWD_TIMED = ((8, 16, 192, "float32"), (8, 16, 256, "float32"),
+                  (8, 16, 320, "float32"), (8, 16, 320, "bfloat16"),
+                  (8, 16, 384, "bfloat16"), (8, 16, 576, "bfloat16"),
+                  (8, 16, 80, "float32"), (128, 16, 128, "float32"))
+WIDE_FP32_BWD = (80, 96, 128)
 # (batch, heads, K), timed as (B * H, 256, K) bf16: the wide_heads model's
 # (16 heads of 80, the 128 instance) at batch 1, 8, 32; (2048, 256, 128)
 # at the instance's own width; (128, 256, 192) and (128, 256, 256) on the
 # wgmma 256 instance, and the K-256 model's (5 heads of 256) at batch 8
-# and 32; (128, 256, 320) on the mma.sync wide route.
+# and 32; (128, 256, 320) on the wide forward and the backward's wide
+# route.
 WIDE_TIMED = ((1, 16, 80), (8, 16, 80), (32, 16, 80), (128, 16, 128),
               (8, 16, 192), (8, 16, 256), (8, 5, 256), (32, 5, 256),
               (8, 16, 320))
@@ -4940,9 +5013,11 @@ def _wide_inputs(gen, layout, b, n, h, kd, dtype):
 
 def _wide_kernels() -> dict:
     """(a) every route at K 80 and 128 (the 128-wide instances; bf16 on
-    wgmma) in both layouts and at K 129, 192, 256, 320 in one layout each,
-    bf16 and fp32 (bf16 up to 256 on the wgmma 256 instance, the rest on
-    the mma.sync wide route), against the plain versions at the
+    wgmma; fp32 B2 on the column halves) in both layouts and at K 129,
+    192, 256, 320, 384, 512 in one layout each, bf16 and fp32 (bf16 up to
+    256 on the wgmma 256 instance, the forward past that on the wide or the
+    windowed kernel, the backward on its wide route), against the plain
+    versions at the
     tolerances the 64-wide instance is held to: the forward, its lse, the
     dropout forward, the backward by each dq route and with the mask
     replayed, the fp32-output instance and fp32 dk/dv (a ring block), the
@@ -4969,20 +5044,27 @@ def _wide_kernels() -> dict:
         f = fa.flash_attention
         return (f.launches + f.lse_launches + f.drop_launches,
                 f.backward_launches + f.backward_drop_launches,
-                f.wgmma_launches, f.wgmma_backward_launches)
+                f.wgmma_launches, f.wgmma_backward_launches,
+                f.wide_launches)
 
-    # K > 128: the launches of the mma.sync wide route and of the wgmma
-    # 256 instance.
-    wide_launches = {"fwd": 0, "bwd": 0}
+    # K > 128: the launches of the wide forward (by type), the windowed
+    # forward, the backward's wide route and the wgmma 256 instance; at K
+    # 80 and 128 those of the fp32 column halves.
+    wide_launches = {"fwd": 0, "fwd_fp32": 0, "fwd_bf16": 0, "bwd": 0,
+                     "windowed_fwd": 0, "fp32_d128_fwd": 0}
     wgmma_256_launches = {"fwd": 0, "bwd": 0}
+    halves_launches = 0
     for kd, layouts in WIDE_DIMS:
         at_start = totals()
+        halves_at_start = fa.flash_attention.halves_backward_launches
         for layout in layouts:
             for dtype in (torch.bfloat16, torch.float32):
                 name = f"K{kd}_{layout}_{str(dtype).split('.')[-1]}"
                 q, k, v, g = _wide_inputs(gen, layout, 2, WIDE_N, 4, kd,
                                           dtype)
                 err = {}
+                wide_before = fa.flash_attention.wide_launches
+                fwd_before = totals()[0]
                 before = (fa.flash_attention.launches,
                           fa.flash_attention.wgmma_launches,
                           fa.flash_attention.operand_copies)
@@ -5069,11 +5151,20 @@ def _wide_kernels() -> dict:
                     _require(value <= tol, f"wide_heads {name} {key}: "
                              f"{value} > {tol}")
                 errors[name] = err
+                fp32 = dtype == torch.float32
+                wide_launches["fwd_fp32" if fp32 else "fwd_bf16"] += (
+                    fa.flash_attention.wide_launches - wide_before)
+                if fp32 and kd <= 128:
+                    wide_launches["fp32_d128_fwd"] += (totals()[0]
+                                                       - fwd_before)
+        halves_launches += (fa.flash_attention.halves_backward_launches
+                            - halves_at_start)
         if kd > 128:
             moved = [a - b for a, b in zip(totals(), at_start)]
             wgmma_256_launches["fwd"] += moved[2]
             wgmma_256_launches["bwd"] += moved[3]
-            wide_launches["fwd"] += moved[0] - moved[2]
+            wide_launches["fwd"] += moved[4]
+            wide_launches["windowed_fwd"] += moved[0] - moved[2] - moved[4]
             wide_launches["bwd"] += moved[1] - moved[3]
 
     # The ring: each half of the queries over two key blocks of 128,
@@ -5081,7 +5172,7 @@ def _wide_kernels() -> dict:
     # tokens-major as the ring runs them, with and without dropout (each
     # block's query and key bases place its mask).
     ring = {}
-    for kd in (80, 128, 192, 256):
+    for kd in (80, 128, 192, 256, 320):
         for dtype in (torch.bfloat16, torch.float32):
             for dropout in (None, drop):
                 name = (f"K{kd}_{str(dtype).split('.')[-1]}"
@@ -5124,6 +5215,9 @@ def _wide_kernels() -> dict:
             (torch.bfloat16, drop, None, 80, 8),
             (torch.float32, None, "split", 80, 8),
             (torch.float32, None, "partials", 80, 8),
+            (torch.float32, drop, "partials", 80, 8),
+            (torch.float32, None, "split", 128, 8),
+            (torch.float32, drop, "split", 128, 8),
             (torch.bfloat16, None, None, 192, 2),
             (torch.bfloat16, drop, None, 192, 2),
             (torch.bfloat16, None, None, 256, 2),
@@ -5141,6 +5235,7 @@ def _wide_kernels() -> dict:
                                     dropout, route)
     return {"errors": errors, "ring": ring, "b2_repeats": repeats,
             "wide_launches": wide_launches,
+            "halves_launches": halves_launches,
             "wgmma_256_launches": wgmma_256_launches,
             "call_kernels": _flash_call_kernels(gen)}
 
@@ -5234,14 +5329,16 @@ def _wide_times() -> dict:
     """(b) bf16 at WIDE_TIMED's shapes: (B * 16, 256, 80) for B = 1, 8,
     32, (2048, 256, 128) (the 128-wide wgmma instances), (128, 256, 192),
     (128, 256, 256) and the K-256 model's (40, 256, 256) and (160, 256,
-    256) (the 256 instance), (128, 256, 320) (the mma.sync wide route),
+    256) (the 256 instance), (128, 256, 320) (the wide forward and the
+    backward's wide route),
     tokens-major as the model runs them: the serving forward, the forward
     with lse and the
     backward, each held against its plain version at that shape
     (``errors``), then timed in turns with it and scaled_dot_product_
     attention on the same (heads-major) inputs, forward and backward, and
-    each beside its bound; fp32 B2 at (128, 256, 80) by both dq routes
-    beside SDPA's fp32 backward."""
+    each beside its bound; WIDE_FWD_TIMED's forwards
+    (``_wide_forward_times``); fp32 B2 at (128, 256, K) for K in
+    WIDE_FP32_BWD by both dq routes beside SDPA's fp32 backward."""
     import torch
 
     from vision_transformer_detector_tpu_torch.kernels import (
@@ -5303,53 +5400,130 @@ def _wide_times() -> dict:
             forward_kernel=fa.forward_kernel(kd, torch.bfloat16),
             backward_kernel=fa.backward_kernel(kd, torch.bfloat16),
             plan=fa.head_dim_plan(kd)._asdict())
-    # B2 in fp32 at the train step's shape, by each dq route, held against
-    # the plain version and beside its 3xTF32 bound: the routes an fp32 run
-    # of the model takes (partials while its workspace stays under
-    # PARTIALS_MAX_BYTES).
-    q, k, v, g = _wide_inputs(gen, "bnhk", 8, 256, WIDE_HEADS, 80,
-                              torch.float32)
-    errors, out, lse, delta = _wide_shape_errors(q, k, v, g, "bnhk",
-                                                 (2e-5, 1e-4, 2e-5))
-    plain = fa.reference_attention_backward(q, k, v, g)
-    for route in ("partials", "split"):
-        grads = fa._launch_backward(q, k, v, g, lse, delta, "bnhk",
-                                    route=route)
-        errors[f"bwd_{route}_rel"] = max(_rel_err(a, b)
-                                         for a, b in zip(grads, plain))
-        _require(errors[f"bwd_{route}_rel"] <= 2e-5,
-                 f"wide_heads fp32 B2 {route}: "
-                 f"{errors[f'bwd_{route}_rel']} > 2e-5")
-    bh, n, kd = 8 * WIDE_HEADS, 256, 80
-    # SDPA's fp32 backward on the same (heads-major) inputs: the library
-    # yardstick for this row.
-    hm = [fa._heads_major(t, "bnhk") for t in (q, k, v, g)]
-    leaves = [t.detach().clone().requires_grad_() for t in hm[:3]]
+    times.update(_wide_forward_times(gen))
+    # B2 in fp32 on the column halves, by each dq route, held against the
+    # plain version and beside its 3xTF32 bound: the routes an fp32 run of
+    # the model takes (partials while its workspace stays under
+    # PARTIALS_MAX_BYTES), at ViT-H/14's (128, 256, 80) and at K 96, 128.
+    for kd in WIDE_FP32_BWD:
+        q, k, v, g = _wide_inputs(gen, "bnhk", 8, 256, WIDE_HEADS, kd,
+                                  torch.float32)
+        errors, out, lse, delta = _wide_shape_errors(q, k, v, g, "bnhk",
+                                                     (2e-5, 1e-4, 2e-5))
+        plain = fa.reference_attention_backward(q, k, v, g)
+        for route in ("partials", "split"):
+            grads = fa._launch_backward(q, k, v, g, lse, delta, "bnhk",
+                                        route=route)
+            errors[f"bwd_{route}_rel"] = max(_rel_err(a, b)
+                                             for a, b in zip(grads, plain))
+            _require(errors[f"bwd_{route}_rel"] <= 2e-5,
+                     f"wide_heads fp32 B2 K {kd} {route}: "
+                     f"{errors[f'bwd_{route}_rel']} > 2e-5")
+        bh, n = 8 * WIDE_HEADS, 256
+        # SDPA's fp32 backward on the same (heads-major) inputs: the
+        # library yardstick for these rows.
+        hm = [fa._heads_major(t, "bnhk") for t in (q, k, v, g)]
+        leaves = [t.detach().clone().requires_grad_() for t in hm[:3]]
 
-    def lib_step(backend):
-        o = _sdpa(*leaves, backend)
-        torch.autograd.grad(o, leaves, hm[3])
-        return o
+        def lib_step(backend, leaves=leaves, hm=hm):
+            o = _sdpa(*leaves, backend)
+            torch.autograd.grad(o, leaves, hm[3])
+            return o
 
-    backend = _sdpa_backend(lib_step)
-    lib_out = _sdpa(*leaves, backend)
-    errors["library_out"] = _max_err(lib_out.detach(),
-                                     fa._heads_major(out, "bnhk"))
-    _require(errors["library_out"] <= 2e-5,
-             f"wide_heads fp32 SDPA differs by {errors['library_out']}")
-    fp32 = _in_turns({
-        "plain_ms": lambda: fa.reference_attention_backward(q, k, v, g),
-        "kernel_ms": lambda: fa._launch_backward(q, k, v, g, lse, delta,
-                                                 "bnhk", route="partials"),
-        "split_ms": lambda: fa._launch_backward(q, k, v, g, lse, delta,
-                                                "bnhk", route="split"),
-        "library_ms": lambda: torch.autograd.grad(
-            lib_out, leaves, hm[3], retain_graph=True)}, 10)
-    fp32["sdpa_backend"] = backend.name
-    bound_ms, bound_by = _bound(10 * bh * n * n * kd,
-                                (7 * bh * n * kd + 2 * bh * n) * 4, "3xtf32")
-    times[f"{bh}x{n}x{kd}_fp32_bwd"] = dict(fp32, bound_ms=bound_ms,
-                                            bound_by=bound_by, errors=errors)
+        backend = _sdpa_backend(lib_step)
+        lib_out = _sdpa(*leaves, backend)
+        errors["library_out"] = _max_err(lib_out.detach(),
+                                         fa._heads_major(out, "bnhk"))
+        _require(errors["library_out"] <= 2e-5,
+                 f"wide_heads fp32 SDPA differs by {errors['library_out']}")
+        fp32 = _in_turns({
+            "plain_ms": lambda: fa.reference_attention_backward(q, k, v, g),
+            "kernel_ms": lambda: fa._launch_backward(
+                q, k, v, g, lse, delta, "bnhk", route="partials"),
+            "split_ms": lambda: fa._launch_backward(
+                q, k, v, g, lse, delta, "bnhk", route="split"),
+            "library_ms": lambda: torch.autograd.grad(
+                lib_out, leaves, hm[3], retain_graph=True)}, 10)
+        fp32["sdpa_backend"] = backend.name
+        bound_ms, bound_by = _bound(10 * bh * n * n * kd,
+                                    (7 * bh * n * kd + 2 * bh * n) * 4,
+                                    "3xtf32")
+        times[f"{bh}x{n}x{kd}_fp32_bwd"] = dict(
+            fp32, bound_ms=bound_ms, bound_by=bound_by, errors=errors)
+    return times
+
+
+def _wide_forward_times(gen) -> dict:
+    """WIDE_FWD_TIMED's forwards (B1, B1-lse and B1-drop at rate 0.1 with
+    its lse), tokens-major, each held against its plain version (out, lse,
+    and the dropped output with the same mask) and timed in turns with it
+    and scaled_dot_product_attention's memory-efficient backend on the
+    same (heads-major) inputs (with dropout_p for B1-drop: the same
+    function in distribution, another RNG), beside its bound; with the
+    kernel ``forward_kernel`` names."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa)
+
+    seed = fa.seed_tensor(DROP_SEED, "cuda")
+    drop = (seed, DROP_RATE)
+    times = {}
+    for batch, heads, kd, dtype_name in WIDE_FWD_TIMED:
+        dtype = getattr(torch, dtype_name)
+        fp32 = dtype == torch.float32
+        n = 256
+        q, k, v, _ = _wide_inputs(gen, "bnhk", batch, n, heads, kd, dtype)
+        bh = batch * heads
+        out_tol = 2e-5 if fp32 else 2e-2
+        ref = fa.reference_attention(q, k, v)
+        errors = {"fwd": _max_err(fa.flash_attention(q, k, v), ref)}
+        out, lse = fa.flash_attention(q, k, v, with_lse=True)
+        errors["fwd_lse"] = _max_err(out, ref)
+        errors["lse"] = _max_err(lse, fa.reference_attention_lse(q, k))
+        d_out, d_lse = fa.flash_attention(q, k, v, with_lse=True,
+                                          dropout_rate=DROP_RATE,
+                                          dropout_seed=seed)
+        errors["fwd_drop"] = _max_err(d_out, fa.reference_attention(
+            q, k, v, "bnhk", drop))
+        errors["fwd_drop_lse"] = _max_err(d_lse, lse)
+        for key, value in errors.items():
+            limit = 1e-4 if "lse" in key and key != "fwd_lse" else out_tol
+            _require(value <= limit, f"wide_heads forward {bh}x{n}x{kd} "
+                     f"{dtype_name} {key}: {value} > {limit}")
+        hm = [fa._heads_major(t, "bnhk") for t in (q, k, v)]
+        lib = SDPBackend.EFFICIENT_ATTENTION
+        errors["library_out"] = _max_err(_sdpa(*hm, lib),
+                                         fa._heads_major(out, "bnhk"))
+        operand = bh * n * kd * (4 if fp32 else 2)
+        rows = bh * n * 4
+        kind = "3xtf32" if fp32 else "bf16"
+        ops = 4 * bh * n * n * kd
+        entry = {}
+        for what, kernel, plain, library, nbytes in (
+                ("fwd", lambda: fa.flash_attention(q, k, v),
+                 lambda: fa.reference_attention(q, k, v),
+                 lambda: _sdpa(*hm, lib), 4 * operand),
+                ("fwd_lse",
+                 lambda: fa.flash_attention(q, k, v, with_lse=True),
+                 lambda: (fa.reference_attention(q, k, v),
+                          fa.reference_attention_lse(q, k)),
+                 lambda: _sdpa(*hm, lib), 4 * operand + rows),
+                ("fwd_drop",
+                 lambda: fa.flash_attention(q, k, v, with_lse=True,
+                                            dropout_rate=DROP_RATE,
+                                            dropout_seed=seed),
+                 lambda: fa.reference_attention(q, k, v, "bnhk", drop),
+                 lambda: _sdpa(*hm, lib, DROP_RATE), 4 * operand + rows)):
+            t = _in_turns({"plain_ms": plain, "kernel_ms": kernel,
+                           "library_ms": library}, 10)
+            bound_ms, bound_by = _bound(ops, nbytes, kind)
+            entry[what] = dict(t, bound_ms=bound_ms, bound_by=bound_by)
+        times[f"{bh}x{n}x{kd}_{dtype_name}_fwd"] = dict(
+            entry, errors=errors, sdpa_backend=lib.name,
+            forward_kernel=fa.forward_kernel(kd, dtype),
+            plan=fa.head_dim_plan(kd, dtype)._asdict())
     return times
 
 
@@ -5789,11 +5963,16 @@ def _wide_entries(wide: dict, hgmma: dict) -> list:
     of (c) and (d); the 256 instance's B1 at the K-256 service's batch 32,
     (160, 256, 256), B1-lse and B2 at its train step's batch 8, (40, 256,
     256), with that model's launches and the times at (128, 256, 192) and
-    (128, 256, 256) beside them; and the mma.sync wide route's B1-lse and
-    B2 at (128, 256, 320) bf16, with their launches in (a)'s checks (fp32
-    past 128, bf16 past 256; no preset runs it). Errors against the plain
-    versions measured at each shape (B1-lse's is its lse's, as for the
-    64-wide row; B2's the largest of dq, dk, dv)."""
+    (128, 256, 256) beside them; the wide forward's B1-lse at (128, 256,
+    320) bf16 and (128, 256, 256) fp32 (K 384 and K 192, 320 beside
+    them), the windowed forward's at (128, 256, 576) bf16 and the fp32 128
+    instance's at (128, 256, 80) ((2048, 256, 128) beside it), each with
+    its B1 and B1-drop; the backward's wide route at (128, 256, 320) bf16
+    and the fp32 column halves' B2 at (128, 256, 80) (K 96, 128 beside
+    it), with their launches in (a)'s checks (no preset runs them), the
+    redesigned kernels with their registers, spills and shared memory.
+    Errors against the plain versions measured at each shape (B1-lse's is
+    its lse's, as for the 64-wide row; B2's the largest of dq, dk, dv)."""
     times = wide["times"]
     k256 = wide["model_k256"]
     rows = []
@@ -5839,29 +6018,91 @@ def _wide_entries(wide: dict, hgmma: dict) -> list:
             rows[-1]["tensor_core_instructions"] = {
                 k: v for k, v in hgmma[source].items()
                 if k.startswith(f"bf16_d{instance}")}
-    key = "128x256x320"
-    for name, what, replaces, err in (
-            ("flash_attention_fwd_lse_wide", "fwd_lse",
-             "flash_attention.py:653", "lse"),
-            ("flash_attention_bwd_wide", "bwd", "flash_attention.py:151",
-             "bwd_abs")):
-        t = times[key][what]
+    launched = wide["kernels"]["wide_launches"]
+    checks = ("wide_heads (a), the checks at K 80-512 in both types; no "
+              "preset runs it")
+    for name, key, extra, source, kernel, launches, err in (
+            ("flash_attention_fwd_lse_wide", "128x256x320_bfloat16_fwd",
+             ("128x256x384_bfloat16_fwd",), "flash_attention_fwd_wide.cu",
+             "wgmma + TMA, the wide forward: two warpgroups, each O's "
+             "columns of half the 64-column boxes, S once a 32-key tile",
+             launched["fwd_bf16"], "lse"),
+            ("flash_attention_fwd_lse_wide_fp32", "128x256x256_float32_fwd",
+             ("128x256x192_float32_fwd", "128x256x320_float32_fwd"),
+             "flash_attention_fwd_wide.cu",
+             "mma.sync 3xTF32, the wide forward: two sets of 4 warps, each "
+             "O's columns of half the 16-column groups, S once a 32-key "
+             "tile", launched["fwd_fp32"], "lse"),
+            ("flash_attention_fwd_lse_windowed", "128x256x576_bfloat16_fwd",
+             (), "flash_attention_fwd.cu",
+             "mma.sync, the windowed route (bf16 past 512, fp32 past 384): "
+             "S again in each 128-column window of O",
+             launched["windowed_fwd"], "lse"),
+            ("flash_attention_fwd_lse_fp32_d128", "128x256x80_float32_fwd",
+             ("2048x256x128_float32_fwd",), "flash_attention_fwd.cu",
+             "mma.sync 3xTF32, instance 128", launched["fp32_d128_fwd"],
+             "lse")):
+        t = times[key]["fwd_lse"]
+        bh, n, kd = (int(x) for x in key.split("_")[0].split("x"))
+        dtype = key.split("_")[1]
         rows.append({
-            "name": name, "route": "cuda",
-            "source": CSRC + ("flash_attention_bwd_wide.cu" if what == "bwd"
-                              else "flash_attention_fwd.cu"),
-            "replaces": TPU_KERNELS + replaces,
-            "shape": [128, 256, 320, "bfloat16"],
-            "kernel": "mma.sync, the wide route ("
-                      + str(times[key]["plan"]) + ")",
-            "launches": wide["kernels"]["wide_launches"][what[:3]],
-            "max_abs_err": times[key]["errors"][err],
+            "name": name, "route": "cuda", "source": CSRC + source,
+            "replaces": TPU_KERNELS + "flash_attention.py:653",
+            "shape": [bh, n, kd, dtype], "kernel": kernel,
+            "launches": launches, "max_abs_err": times[key]["errors"][err],
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "peak": PEAK_NAMES["bf16"],
-            "launch_source": "wide_heads (a), the checks at K 129, 192, "
-                             "256, 320 in fp32 and at 320 in bf16 (both "
-                             "directions); no preset runs it"})
+            "bound_by": t["bound_by"],
+            "peak": PEAK_NAMES["3xtf32" if dtype == "float32" else "bf16"],
+            "library": "SDPA " + times[key]["sdpa_backend"],
+            "times_fwd": times[key]["fwd"],
+            "times_fwd_drop": times[key]["fwd_drop"],
+            "launch_source": checks})
+        for other in extra:
+            rows[-1][f"times_{other}"] = dict(
+                times[other]["fwd_lse"],
+                max_abs_err=times[other]["errors"][err])
+        if source == "flash_attention_fwd_wide.cu":
+            rows[-1]["registers"] = REDESIGNED.get(source, {})
+    key = "128x256x320"
+    t = times[key]["bwd"]
+    rows.append({
+        "name": "flash_attention_bwd_wide", "route": "cuda",
+        "source": CSRC + "flash_attention_bwd_wide.cu",
+        "replaces": TPU_KERNELS + "flash_attention.py:151",
+        "shape": [128, 256, 320, "bfloat16"],
+        "kernel": "mma.sync, the wide route ("
+                  + str(times[key]["plan"]) + ")",
+        "launches": launched["bwd"],
+        "max_abs_err": times[key]["errors"]["bwd_abs"],
+        "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+        "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "peak": PEAK_NAMES["bf16"],
+        "launch_source": checks})
+    key = "128x256x80_fp32_bwd"
+    t = times[key]
+    rows.append({
+        "name": "flash_attention_bwd_fp32_d128", "route": "cuda",
+        "source": CSRC + "flash_attention_bwd.cu",
+        "replaces": TPU_KERNELS + "flash_attention.py:151",
+        "shape": [128, 256, 80, "float32"],
+        "kernel": "mma.sync 3xTF32, the column halves: 8 warps, two halves "
+                  "of the 16-column groups, 32 queries a step; ms the "
+                  "partials route, split_ms the split one",
+        "launches": wide["kernels"]["halves_launches"],
+        "max_abs_err": t["errors"]["bwd_abs"],
+        "ms": t["kernel_ms"], "split_ms": t["split_ms"],
+        "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+        "library": "SDPA " + t["sdpa_backend"] + " (fp32 backward)",
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "peak": PEAK_NAMES["3xtf32"],
+        "registers": REDESIGNED.get("flash_attention_bwd.cu", {}),
+        "shared_memory": REDESIGNED.get("shared_memory", {}),
+        "launch_source": checks})
+    for kd in WIDE_FP32_BWD[1:]:
+        rows[-1][f"times_128x256x{kd}"] = {
+            k: v for k, v in times[f"128x256x{kd}_fp32_bwd"].items()
+            if k != "errors"}
     return rows
 
 

@@ -433,6 +433,7 @@ def test_doctor_without_a_card_exits_1(capsys):
             "kernels"} == set(report["native"])
     assert set(report["native"]["kernels"]) == {
         "flash_attention_fwd.cu", "flash_attention_fwd_sm90.cu",
+        "flash_attention_fwd_wide.cu",
         "flash_attention_bwd.cu", "flash_attention_bwd_wide.cu",
         "flash_attention_bwd_sm90.cu", "layer_norm.cu", "dense_mish.cu",
         "int8_dense.cu", "dropout.cu"}

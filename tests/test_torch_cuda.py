@@ -1485,65 +1485,83 @@ def test_wgmma_backward_matches_plain(gen, route, layout, shape, strided):
         assert torch.equal(dq, rounded[0])
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("kd", [129, 192, 256, 320])
-def test_wide_route_matches_plain(gen, dtype, kd):
+@pytest.mark.parametrize("layout", ["bnhk", "bhnk"])
+@pytest.mark.parametrize("dtype,kd", [
+    *((dtype, kd) for dtype in (torch.bfloat16, torch.float32)
+      for kd in (129, 192, 256, 320)),
+    (torch.float32, 257), (torch.float32, 384), (torch.float32, 388),
+    (torch.bfloat16, 257), (torch.bfloat16, 384), (torch.bfloat16, 512),
+    (torch.bfloat16, 520)])
+def test_wide_route_matches_plain(gen, dtype, kd, layout):
     """K > 128, every route the wrapper exposes, on the kernels that
     ``forward_kernel`` and ``backward_kernel`` name (bf16 up to 256 the
-    wgmma 256 instance, K 129 padded to 192 for it; fp32, and bf16 at
-    320, the wide route), each launch counted there: the forward and its
-    lse, the dropout forward, B2 by each dq route and with the replay
-    (grads relative to their largest value), the fp32-output instance
-    with fp32 dk/dv, and a ring of two key blocks chained (resume,
-    suspend) bit-equal to one launch; B2 twice, bit-equal."""
-    wgmma = kd <= 256 and dtype == torch.bfloat16
-    assert fa.forward_kernel(kd, dtype) == ("wgmma" if wgmma else "mma_sync")
-    assert fa.backward_kernel(fa.kernel_width(kd), dtype) == (
-        "wgmma" if wgmma else "wide")
+    wgmma 256 instance, K 129 padded to 192 for it; fp32 to 384 and bf16
+    to 512 the wide forward, past them the windowed route; the backward's
+    wide route), each launch counted there, in both layouts (heads-major
+    views of tokens-major memory) at a ragged N (130 tokens-major, 321
+    heads-major): the forward and its lse, the dropout forward, B2 by each
+    dq route and with the replay (grads relative to their largest value),
+    the fp32-output instance with fp32 dk/dv, and a ring of two key blocks
+    chained (resume, suspend) bit-equal to one launch; B2 twice,
+    bit-equal."""
+    width = fa.kernel_width(kd) if (kd * (4 if dtype == torch.float32
+                                          else 2)) % 16 else kd
+    forward = fa.forward_kernel(width, dtype)
+    wgmma = forward == "wgmma"
+    assert forward == ("wgmma" if dtype == torch.bfloat16 and width <= 256
+                       else "wide" if width <= fa.WIDE_FWD_MAX[dtype]
+                       else "windowed")
+    assert fa.backward_kernel(width, dtype) == ("wgmma" if wgmma else "wide")
     counts = (fa.flash_attention.wgmma_launches,
-              fa.flash_attention.wgmma_backward_launches)
-    q, k, v = _qkv(gen, (2, 130, 3, kd), dtype, kd ** -0.5)
+              fa.flash_attention.wgmma_backward_launches,
+              fa.flash_attention.wide_launches)
+    n = 130 if layout == "bnhk" else 321
+    q, k, v = _qkv(gen, (2, n, 3, kd), dtype, kd ** -0.5)
     g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+    if layout == "bhnk":
+        q, k, v, g = (t.transpose(1, 2) for t in (q, k, v, g))
     drop = (fa.seed_tensor(2 ** 32 - 11, "cuda"), 0.1)
     tol = TOLS[dtype]
-    out, lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True)
-    assert (out.float() - fa.reference_attention(q, k, v, "bnhk").float()
+    out, lse = fa._launch_forward(q, k, v, layout, with_lse=True)
+    assert (out.float() - fa.reference_attention(q, k, v, layout).float()
             ).abs().max() <= tol
-    assert (lse - fa.reference_attention_lse(q, k, "bnhk")).abs().max() \
+    assert (lse - fa.reference_attention_lse(q, k, layout)).abs().max() \
         <= 1e-4
-    d_out, d_lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
+    d_out, d_lse = fa._launch_forward(q, k, v, layout, with_lse=True,
                                       dropout=drop)
     assert (d_out.float() - fa.reference_attention(
-        q, k, v, "bnhk", drop).float()).abs().max() <= tol
+        q, k, v, layout, drop).float()).abs().max() <= tol
     assert torch.equal(d_lse, lse)
     delta = fa._heads_major((g.float() * out.float()).sum(-1),
-                            "bnhk").contiguous()
-    plain = fa.reference_attention_backward(q, k, v, g, "bnhk")
+                            layout).contiguous()
+    plain = fa.reference_attention_backward(q, k, v, g, layout)
     routes = (None, "split", "partials") if dtype == torch.float32 else (None,)
     for route in routes:
-        grads = fa._launch_backward(q, k, v, g, lse, delta, "bnhk",
+        grads = fa._launch_backward(q, k, v, g, lse, delta, layout,
                                     route=route)
         assert max(_grad_rels(grads, plain)) <= GRAD_TOLS[dtype]
-        again = fa._launch_backward(q, k, v, g, lse, delta, "bnhk",
+        again = fa._launch_backward(q, k, v, g, lse, delta, layout,
                                     route=route)
         assert all(torch.equal(a, b) for a, b in zip(grads, again))
     d_delta = fa._heads_major((g.float() * d_out.float()).sum(-1),
-                              "bnhk").contiguous()
-    d_grads = fa._launch_backward(q, k, v, g, d_lse, d_delta, "bnhk", drop)
+                              layout).contiguous()
+    d_grads = fa._launch_backward(q, k, v, g, d_lse, d_delta, layout, drop)
     assert max(_grad_rels(d_grads, fa.reference_attention_backward(
-        q, k, v, g, "bnhk", drop))) <= GRAD_TOLS[dtype]
+        q, k, v, g, layout, drop))) <= GRAD_TOLS[dtype]
     if dtype == torch.bfloat16:
-        f_out = fa._launch_forward(q, k, v, "bnhk", out_fp32=True)
+        f_out = fa._launch_forward(q, k, v, layout, out_fp32=True)
         assert torch.equal(f_out.to(torch.bfloat16), out)
-        f_grads = fa._launch_backward(q, k, v, g, lse, delta, "bnhk",
+        f_grads = fa._launch_backward(q, k, v, g, lse, delta, layout,
                                       fp32_dq=True, fp32_dkv=True)
         assert all(t.dtype == torch.float32 for t in f_grads)
         assert max(_grad_rels(f_grads, fa.reference_attention_backward(
-            q, k, v, g, "bnhk", lse=lse, delta=delta,
+            q, k, v, g, layout, lse=lse, delta=delta,
             out_dtype=torch.float32))) <= GRAD_TOLS[dtype]
-    # The ring: each half of 128 tokens' queries over two key blocks of
-    # 64 (whole tiles), chained, against one launch over the 128.
-    q, k, v = (t[:, :128] for t in (q, k, v))
+    # The ring, tokens-major as it runs: each half of 128 tokens' queries
+    # over two key blocks of 64 (whole tiles), chained, against one launch
+    # over the 128.
+    q, k, v = (fa._heads_major(t, layout).transpose(1, 2)[:, :128]
+               for t in (q, k, v))
     whole, whole_lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
                                           dropout=drop, out_fp32=True)
     m = 64
@@ -1561,8 +1579,56 @@ def test_wide_route_matches_plain(gen, dtype, kd):
         assert torch.equal(chained[1], whole_lse[:, :, rows])
     torch.cuda.synchronize()
     moved = (fa.flash_attention.wgmma_launches - counts[0],
-             fa.flash_attention.wgmma_backward_launches - counts[1])
-    assert (moved[0] > 0 and moved[1] > 0) if wgmma else moved == (0, 0)
+             fa.flash_attention.wgmma_backward_launches - counts[1],
+             fa.flash_attention.wide_launches - counts[2])
+    assert (moved[0] > 0 and moved[1] > 0) if wgmma else moved[:2] == (0, 0)
+    assert (moved[2] > 0) == (forward == "wide")
+
+
+@pytest.mark.parametrize("layout", ["bnhk", "bhnk"])
+@pytest.mark.parametrize("kd", [65, 68, 80, 96, 112, 128])
+def test_fp32_halves_match_plain(gen, kd, layout):
+    """fp32 B2 at 64 < K <= 128 on the column halves (counted in
+    ``halves_backward_launches``; K 65 padded to 128, the others read in
+    place) in both layouts at a ragged N: each dq route, the dropout
+    replay and fp32 dk/dv against the plain version within 2e-5 of each
+    gradient's largest value, each route twice bit-equal, and the
+    dropped forward's mask replayed (its lse the undropped one)."""
+    n = 130 if layout == "bnhk" else 321
+    q, k, v = _qkv(gen, (2, n, 3, kd), torch.float32, kd ** -0.5)
+    g = torch.randn(q.shape, device="cuda", generator=gen)
+    if layout == "bhnk":
+        q, k, v, g = (t.transpose(1, 2) for t in (q, k, v, g))
+    drop = (fa.seed_tensor(2 ** 32 - 13, "cuda"), 0.1)
+    before = fa.flash_attention.halves_backward_launches
+    out, lse = fa._launch_forward(q, k, v, layout, with_lse=True)
+    delta = fa._heads_major((g.float() * out).sum(-1), layout).contiguous()
+    plain = fa.reference_attention_backward(q, k, v, g, layout)
+    launched = 0
+    for route in (None, "split", "partials"):
+        grads = fa._launch_backward(q, k, v, g, lse, delta, layout,
+                                    route=route)
+        again = fa._launch_backward(q, k, v, g, lse, delta, layout,
+                                    route=route)
+        launched += 2
+        assert max(_grad_rels(grads, plain)) <= GRAD_TOLS[torch.float32]
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    f_grads = fa._launch_backward(q, k, v, g, lse, delta, layout,
+                                  fp32_dq=True, fp32_dkv=True)
+    assert max(_grad_rels(f_grads, plain)) <= GRAD_TOLS[torch.float32]
+    d_out, d_lse = fa._launch_forward(q, k, v, layout, with_lse=True,
+                                      dropout=drop)
+    assert torch.equal(d_lse, lse)
+    d_delta = fa._heads_major((g.float() * d_out).sum(-1),
+                              layout).contiguous()
+    d_plain = fa.reference_attention_backward(q, k, v, g, layout, drop)
+    for route in ("split", "partials"):
+        d_grads = fa._launch_backward(q, k, v, g, d_lse, d_delta, layout,
+                                      drop, route=route)
+        assert max(_grad_rels(d_grads, d_plain)) <= GRAD_TOLS[torch.float32]
+    torch.cuda.synchronize()
+    assert fa.flash_attention.halves_backward_launches - before \
+        == launched + 3
 
 
 # ---------------------------------------------------------------------------

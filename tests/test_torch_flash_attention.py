@@ -311,12 +311,16 @@ def test_only_rows_off_16_byte_boundaries_are_copied(dtype, kdim, copied):
 @pytest.mark.parametrize("dtype,kdim,kernel", [
     (torch.bfloat16, 40, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 136, "wgmma"), (torch.bfloat16, 256, "wgmma"),
-    (torch.bfloat16, 264, "mma_sync"), (torch.float32, 64, "mma_sync"),
-    (torch.float32, 136, "mma_sync")])
+    (torch.bfloat16, 264, "wide"), (torch.float32, 64, "mma_sync"),
+    (torch.float32, 136, "wide"), (torch.float32, 128, "mma_sync"),
+    (torch.float32, 384, "wide"), (torch.float32, 388, "windowed"),
+    (torch.bfloat16, 512, "wide"), (torch.bfloat16, 520, "windowed")])
 def test_forward_kernel_by_dtype_and_head_dim(dtype, kdim, kernel):
-    """bf16 at K <= 256 runs the wgmma forward, fp32 and bf16 past 256 the
-    mma.sync one."""
+    """bf16 at K <= 256 runs the wgmma forward and fp32 at K <= 128 the
+    mma.sync one; past those the wide forward (fp32 to 384, bf16 to 512),
+    and wider still the windowed route. The plan names the same kernel."""
     assert fa.forward_kernel(kdim, dtype) == kernel
+    assert fa.head_dim_plan(kdim, dtype).forward == kernel
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -331,8 +335,10 @@ def test_backward_kernel_by_dtype_and_head_dim(dtype, kdim):
     want = ("wgmma" if dtype == torch.bfloat16 and width <= 256
             else "mma_sync" if kdim <= 128 else "wide")
     assert fa.backward_kernel(width, dtype) == want
+    assert fa.head_dim_plan(width, dtype).backward == want
     assert fa.forward_kernel(width, dtype) == (
-        "wgmma" if want == "wgmma" else "mma_sync")
+        "wgmma" if want == "wgmma" else "wide" if width > 128
+        else "mma_sync")
     if want != "wgmma":
         assert (want == "wide") == (fa.head_dim_plan(kdim).instance == "wide")
 

@@ -40,8 +40,9 @@ BWD_SCHEMA_BEFORE = (
     "SymInt inner_global=1, SymInt inner_base=0, bool dkv_fp32=False) "
     "-> (Tensor, Tensor, Tensor)")
 COUNTERS = ("launches", "lse_launches", "drop_launches", "wgmma_launches",
-            "backward_launches", "backward_drop_launches",
-            "wgmma_backward_launches", "operand_copies")
+            "wide_launches", "backward_launches", "backward_drop_launches",
+            "wgmma_backward_launches", "halves_backward_launches",
+            "operand_copies")
 
 
 @pytest.fixture
@@ -246,9 +247,10 @@ def test_counts_move_once_per_call(launches):
     _forward(q32, k32, v32)
     moved = {name: getattr(f, name) - n for name, n in before.items()}
     assert moved == {"launches": 2, "lse_launches": 1, "drop_launches": 0,
-                     "wgmma_launches": 2, "backward_launches": 1,
-                     "backward_drop_launches": 0,
-                     "wgmma_backward_launches": 1, "operand_copies": 0}
+                     "wgmma_launches": 2, "wide_launches": 0,
+                     "backward_launches": 1, "backward_drop_launches": 0,
+                     "wgmma_backward_launches": 1,
+                     "halves_backward_launches": 0, "operand_copies": 0}
 
 
 @pytest.mark.parametrize("dtype,kdim,dq_fp32,kind,dq_dtype,dq_bf16,cast", [
@@ -279,23 +281,30 @@ def test_backward_writes_dq_in_q_dtype_on_the_wgmma_route(
 
 
 @pytest.mark.parametrize("kdim,kernel", [(136, "wgmma"), (192, "wgmma"),
-                                         (256, "wgmma"), (264, "mma_sync")])
+                                         (256, "wgmma"), (264, "wide"),
+                                         (512, "wide"), (520, "windowed")])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_bf16_up_to_256_launches_the_wgmma_libraries(launches, kdim, kernel,
                                                      rate):
     """The plans at bf16 K 129-256 pick the wgmma libraries (entry points
     ``vtd_flash_attention_{fwd,bwd}_sm90``) and count their launches
     there; with dropout the backward's workspace is the packed keep bits;
-    dq comes back in bf16 from the dq kernel. Past 256 the mma.sync
-    libraries (the wide route), their dq fp32 and cast."""
+    dq comes back in bf16 from the dq kernel. Past 256 the backward's wide
+    route, its dq fp32 and cast; the forward the wide kernel
+    (``vtd_flash_attention_fwd_wide``, counted in ``wide_launches``) to
+    K 512, the windowed route of the mma.sync library past it."""
     q, k, v, g = _operands(shape=(2, 37, 3, kdim), count=4)
     seed = fa.seed_tensor(5, "cpu") if rate else None
     wgmma = kernel == "wgmma"
     before = (fa.flash_attention.wgmma_launches,
-              fa.flash_attention.wgmma_backward_launches)
+              fa.flash_attention.wgmma_backward_launches,
+              fa.flash_attention.wide_launches)
     out, lse, _, _ = ops._flash_fwd_cuda(q, k, v, "bnhk", True, seed, rate)
-    assert launches[-1][0] == ("vtd_flash_attention_fwd_sm90" if wgmma
-                               else "vtd_flash_attention_fwd")
+    assert launches[-1][0] == {"wgmma": "vtd_flash_attention_fwd_sm90",
+                               "wide": "vtd_flash_attention_fwd_wide",
+                               "windowed": "vtd_flash_attention_fwd"}[kernel]
+    assert (fa.flash_attention.wide_launches - before[2]) == (
+        kernel == "wide")
     assert out.shape == q.shape and lse.shape == (2, 3, 37)
     plan = ops.backward_plan(q, k, v, g, lse, lse, "bnhk", seed, rate, 0,
                              (0, 0, 0, 1, 1, 0), False, False)
@@ -350,3 +359,63 @@ def test_malformed_offsets_raise_before_a_launch(launches, offsets):
         ops._flash_fwd_cuda(q, k, v, "bnhk", False, None, 0.0,
                             *fa._coords(offsets))
     assert not launches
+
+
+@pytest.mark.parametrize("dtype,kdim,entry,wide", [
+    (torch.float32, 128, "vtd_flash_attention_fwd", False),
+    (torch.float32, 132, "vtd_flash_attention_fwd_wide", True),
+    (torch.float32, 384, "vtd_flash_attention_fwd_wide", True),
+    (torch.float32, 388, "vtd_flash_attention_fwd", False),
+    (torch.bfloat16, 320, "vtd_flash_attention_fwd_wide", True)])
+@pytest.mark.parametrize("ring", [False, True])
+def test_the_wide_forward_plan_names_its_library(launches, dtype, kdim, entry,
+                                                 wide, ring):
+    """The forward's plan launches the library ``forward_kernel`` names at
+    each width, with the block the C entry reads (dtype, K, fp32 output
+    for a ring block, its resumed and suspended state), and counts the wide
+    kernel's launches apart."""
+    q, k, v = _operands(shape=(2, 37, 3, kdim), dtype=dtype)
+    before = fa.flash_attention.wide_launches
+    if ring:
+        acc = torch.zeros(q.shape, dtype=torch.float32)
+        m = torch.zeros(2, 3, 37)
+        l_in = torch.zeros(2, 3, 37, 4)
+        out, _, m_out, l_out = _forward(q, k, v, out_fp32=True, acc_in=acc,
+                                        m_in=m, l_in=l_in, suspend=True)
+        assert (m_out.shape, l_out.shape) == ((2, 3, 37), (2, 3, 37, 4))
+        args = launches[-1][1]
+        assert all(a is not None for a in args[6:11])
+    else:
+        out, _, _, _ = _forward(q, k, v, with_lse=True)
+    assert launches[-1][0] == entry
+    block = _block(launches)
+    assert (block.dtype, block.head_dim, block.out_fp32) == (
+        0 if dtype == torch.float32 else 1, kdim, int(ring))
+    assert out.dtype == (torch.float32 if ring else dtype)
+    assert fa.flash_attention.wide_launches - before == wide
+    assert ops.forward_plan(q, k, v, "bnhk", False, None, 0.0,
+                            (0, 0, 0, 1, 1, 0), False, None, None, None,
+                            False).kind == {
+        "vtd_flash_attention_fwd": "fwd",
+        "vtd_flash_attention_fwd_wide": "fwd_wide"}[entry]
+
+
+@pytest.mark.parametrize("kdim,halves", [(64, False), (68, True), (80, True),
+                                         (128, True)])
+@pytest.mark.parametrize("route", ["split", "partials"])
+def test_the_fp32_halves_count_their_launches(launches, kdim, halves, route):
+    """fp32 B2 at 64 < K <= 128 runs the column halves of the mma.sync
+    library (``vtd_flash_attention_bwd``, the caller's K in the block, the
+    partials workspace of 64-key tiles on that route) and counts them in
+    ``halves_backward_launches``; K <= 64 the 64 instance, not counted."""
+    q, k, v, g = _operands(shape=(2, 37, 3, kdim), dtype=torch.float32,
+                           count=4)
+    lse = torch.zeros(2, 3, 37)
+    before = fa.flash_attention.halves_backward_launches
+    ops._flash_bwd_cuda(q, k, v, g, lse, lse, "bnhk", None, 0.0,
+                        fa.DQ_ROUTES[route])
+    name, args = launches[-1]
+    assert name == "vtd_flash_attention_bwd"
+    assert ops.BwdArgs.from_address(args[0]).head_dim == kdim
+    assert (args[10] is not None) == (route == "partials")
+    assert fa.flash_attention.halves_backward_launches - before == halves

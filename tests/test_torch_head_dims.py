@@ -83,22 +83,48 @@ def test_kernel_width_of_the_wide_dims_is_128(kdim):
     assert not padded[..., kdim:].any()
 
 
+@pytest.mark.parametrize("kdim,dtype,forward,windows", [
+    (132, torch.float32, "wide", 1), (384, torch.float32, "wide", 1),
+    (448, torch.float32, "windowed", 4), (264, torch.bfloat16, "wide", 1),
+    (512, torch.bfloat16, "wide", 1), (640, torch.bfloat16, "windowed", 5)])
+def test_the_forward_plan_names_the_wide_or_the_windowed_kernel(
+        kdim, dtype, forward, windows):
+    """The wide forward takes fp32 to K 384 and bf16 to K 512 in one
+    window; past that the windowed route's output windows of 128 columns
+    (a grid axis that forms S again in each). The backward past 128 (fp32)
+    and 256 (bf16) is the wide route's whatever the forward."""
+    plan = fa.head_dim_plan(kdim, dtype)
+    assert (plan.forward, plan.windows, plan.backward) == (forward, windows,
+                                                           "wide")
+    assert fa.forward_kernel(kdim, dtype) == forward
+
+
+@pytest.mark.parametrize("kdim", [65, 80, 96, 112, 128])
+def test_fp32_65_to_128_runs_the_128_instance_both_ways(kdim):
+    """fp32 K 65-128: the forward's 128 instance and the backward's column
+    halves (``backward_kernel`` "mma_sync", counted in
+    ``halves_backward_launches``), S whole in one chunk and window."""
+    assert fa.head_dim_plan(kdim) == fa.HeadDimPlan(128, 1, 1, 1, "mma_sync",
+                                                     "mma_sync")
+
+
 @pytest.mark.parametrize("kdim,chunks,windows,grad_windows", [
-    (129, 3, 2, 3), (192, 3, 2, 3), (256, 4, 2, 4), (384, 6, 3, 6)])
+    (129, 3, 1, 3), (192, 3, 1, 3), (256, 4, 1, 4), (384, 6, 1, 6)])
 def test_wider_than_128_takes_the_wide_route(kdim, chunks, windows,
                                              grad_windows):
-    """K past the widest mma.sync instance runs its wide route (fp32 at
+    """K past the widest mma.sync instance runs the wide kernels (fp32 at
     any such K, bf16 past 256, where the wgmma 256 instance stops), as
-    JAX runs any K: S over ceil(K / 64) chunks, the forward's output in
-    windows of 128 columns and the backward's in windows of 64; nothing
-    raises. A K
+    JAX runs any K: the forward in one window (the wide forward forms S
+    once a tile, to K 384 in fp32), the backward's S over ceil(K / 64)
+    chunks and its output in windows of 64; nothing raises. A K
     whose rows cannot be addressed in place pads to a multiple of 64,
     exactly; the plain version on the CPU computes any K."""
     plan = fa.head_dim_plan(kdim)
-    assert plan == fa.HeadDimPlan("wide", chunks, windows, grad_windows)
-    assert fa.forward_kernel(kdim, torch.float32) == "mma_sync"
+    assert plan == fa.HeadDimPlan("wide", chunks, windows, grad_windows,
+                                  "wide", "wide")
+    assert fa.forward_kernel(kdim, torch.float32) == "wide"
     assert fa.forward_kernel(kdim, torch.bfloat16) == (
-        "wgmma" if kdim <= 256 else "mma_sync")
+        "wgmma" if kdim <= 256 else "wide")
     t = torch.randn(1, 2, 8, kdim)
     fa._check_inputs(t, t, t)
     padded = fa._pad_head_dim(t)

@@ -43,14 +43,15 @@ PADDED = {129: 192, 257: 320}
 @pytest.mark.parametrize("kdim", [129, 192, 256, 257])
 def test_wide_head_dims_route_by_dtype(dtype, kdim):
     """bf16 up to K 256 runs both directions on wgmma (the 256 instance);
-    fp32 past 128 and bf16 past 256 on the mma.sync wide route, which
-    ``head_dim_plan`` plans and ``kernel_width`` pads for."""
+    fp32 past 128 and bf16 past 256 on the wide forward and the backward's
+    mma.sync wide route, which ``head_dim_plan`` plans and
+    ``kernel_width`` pads for."""
     (read,), _ = fa._addressable([torch.zeros(1, 3, 2, kdim, dtype=dtype)])
     width = read.shape[-1]
     assert width == PADDED.get(kdim, kdim)
     wgmma = dtype == torch.bfloat16 and width <= 256
     assert fa.forward_kernel(width, dtype) == ("wgmma" if wgmma
-                                               else "mma_sync")
+                                               else "wide")
     assert fa.backward_kernel(width, dtype) == ("wgmma" if wgmma
                                                 else "wide")
     assert fa.head_dim_plan(width).instance == "wide"

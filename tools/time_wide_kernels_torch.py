@@ -1,30 +1,39 @@
-"""Time the flash kernels at head dims past 128 (bf16) and the fused
-LayerNorm past D 4096, beside their library calls, on one GPU.
+"""Time the flash kernels at wide heads (bf16 past 128, fp32 past 64) and
+the fused LayerNorm past D 4096, beside their library calls, on one GPU.
 
-Shapes (bf16, 1/sqrt(K) applied, tokens-major as the model hands them
-over):
+Shapes (1/sqrt(K) applied, tokens-major as the model hands them over;
+(B*H, N, K)):
 
-  * ``w192``, ``w256``: (8, 256, 16, K), (B*H, N, K) = (128, 256, K);
+  * ``w192``, ``w256``: (128, 256, K) bf16 on the wgmma 256 instance;
+    ``w320``, ``w384``: (128, 256, K) bf16 on the wide forward, ``w576``
+    on the windowed one;
   * ``k256_b8``, ``k256_b32``: the K-256 detector (5 heads of 256) at
     batch 8 and 32, (40, 256, 256) and (160, 256, 256);
   * ``h64``, ``h128``: the 64 and 128 instances at (2048, 256, K),
     highres_1024's batch-8 fold and its K-128 counterpart;
+  * fp32: ``f80``, ``f96``, ``f128``: (128, 256, K) (ViT-H/14's K 80 at
+    batch 8; the backward's column halves); ``f128_h``: (2048, 256, 128);
+    ``fw192``, ``fw256``, ``fw320``: (128, 256, K) on the wide forward;
+    ``r608``: reference_608's (64, 1296, 40);
   * ``ln768``: vit_b16_384's LayerNorm at batch 32, (18432, 768);
   * ``ln6144``, ``ln8192``: (2048, D), a batch of 8 at 256 tokens at
     ViT-22B's width, and D 8192.
 
-For each flash shape: the forward (B1), the forward with lse (B1-lse) and
-the backward (B2) in ms (CUDA events: the mean over ``--iters`` launches,
-the median, min and max over ``--rounds`` rounds, after a warm-up), the
-kernels each launches with their device ms a call (torch.profiler),
-scaled_dot_product_attention's forward and its backward on the same
-(heads-major) inputs (event and device ms), the bound (the larger of the
-products at 989 TFLOP/s and the bytes, each input read once and each
-output written once, at 3.35 TB/s) and the largest error against the
-plain version relative to its largest value. For each LayerNorm shape:
-the kernel and F.layer_norm (event and device ms) and the bound
-likewise; a checkout whose kernel refuses the width says so. Prints one
-JSON line per shape, then the card's name and power limit.
+For each flash shape: the forward (B1), the forward with lse (B1-lse),
+the forward with dropout 0.1 and lse (B1-drop) and the backward (B2; fp32
+also by the split dq route) in ms (CUDA events: the mean over ``--iters``
+launches, the median, min and max over ``--rounds`` rounds, after a
+warm-up), the kernels each launches with their device ms a call
+(torch.profiler), scaled_dot_product_attention's forward, dropout forward
+and backward on the same (heads-major) inputs (the first backend that
+runs, and the memory-efficient one; event and device ms), the bound (the
+larger of the products at 989 TFLOP/s bf16 or 3 x 495 TF32 per fp32
+product, and the bytes, each input read once and each output written
+once, at 3.35 TB/s) and the largest error against the plain version
+relative to its largest value. For each LayerNorm shape: the kernel and
+F.layer_norm (event and device ms) and the bound likewise; a checkout
+whose kernel refuses the width says so. Prints one JSON line per shape,
+then the card's name and power limit.
 
 ``--repo PATH`` imports the port from another checkout (a parent's,
 unpacked with ``git archive``), so one call on one card can time two
@@ -47,10 +56,27 @@ import sys
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 FP32_OPS_PER_S = 67e12
-FLASH = {"w192": (8, 16, 192), "w256": (8, 16, 256),
-         "k256_b8": (8, 5, 256), "k256_b32": (32, 5, 256),
-         "h64": (128, 16, 64), "h128": (128, 16, 128)}
+DROP_RATE = 0.1
+# name: (batch, heads, K, dtype, N)
+FLASH = {"w192": (8, 16, 192, "bfloat16", 256),
+         "w256": (8, 16, 256, "bfloat16", 256),
+         "w320": (8, 16, 320, "bfloat16", 256),
+         "w384": (8, 16, 384, "bfloat16", 256),
+         "w576": (8, 16, 576, "bfloat16", 256),
+         "k256_b8": (8, 5, 256, "bfloat16", 256),
+         "k256_b32": (32, 5, 256, "bfloat16", 256),
+         "h64": (128, 16, 64, "bfloat16", 256),
+         "h128": (128, 16, 128, "bfloat16", 256),
+         "f80": (8, 16, 80, "float32", 256),
+         "f96": (8, 16, 96, "float32", 256),
+         "f128": (8, 16, 128, "float32", 256),
+         "f128_h": (128, 16, 128, "float32", 256),
+         "fw192": (8, 16, 192, "float32", 256),
+         "fw256": (8, 16, 256, "float32", 256),
+         "fw320": (8, 16, 320, "float32", 256),
+         "r608": (8, 8, 40, "float32", 1296)}
 LAYER_NORM = {"ln768": (18432, 768), "ln6144": (2048, 6144),
               "ln8192": (2048, 8192)}
 
@@ -101,59 +127,99 @@ def _rel(got, want) -> float:
             / want.abs().max().clamp(min=1e-30)).item()
 
 
-def _flash(torch, fa, gen, name, batch, heads, kd, args) -> dict:
+def _sdpa_runs(torch, hm, leaves, g, backend):
+    """SDPA's forward, dropout forward and backward on ``backend``, or None
+    where it refuses these inputs."""
     import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention import sdpa_kernel
 
-    n = 256
+    try:
+        with sdpa_kernel([backend]):
+            lib_out = F.scaled_dot_product_attention(*leaves, scale=1.0)
+            F.scaled_dot_product_attention(*hm, scale=1.0,
+                                           dropout_p=DROP_RATE)
+    except RuntimeError:
+        return None
+
+    def fwd(p=0.0):
+        with sdpa_kernel([backend]):
+            return F.scaled_dot_product_attention(*hm, scale=1.0,
+                                                  dropout_p=p)
+
+    return {"fwd": fwd, "fwd_drop": lambda: fwd(DROP_RATE),
+            "bwd": lambda: torch.autograd.grad(lib_out, leaves, g,
+                                               retain_graph=True)}
+
+
+def _flash(torch, fa, gen, name, batch, heads, kd, dtype_name, n,
+           args) -> dict:
+    from torch.nn.attention import SDPBackend
+
+    dtype = getattr(torch, dtype_name)
+    fp32 = dtype == torch.float32
     ts = [torch.randn(batch, n, heads, kd, device="cuda", generator=gen)
           for _ in range(4)]
-    q, k, v, g = [t.to(torch.bfloat16) for t in (ts[0] * kd ** -0.5, *ts[1:])]
+    q, k, v, g = [t.to(dtype) for t in (ts[0] * kd ** -0.5, *ts[1:])]
     bh = batch * heads
+    seed = fa.seed_tensor(2 ** 32 - 5, "cuda")
+    drop = (seed, DROP_RATE)
     out, lse = fa.flash_attention(q, k, v, with_lse=True)
     delta = fa._heads_major((g.float() * out.float()).sum(-1),
                             "bnhk").contiguous()
     runs = {
         "fwd": lambda: fa.flash_attention(q, k, v),
         "fwd_lse": lambda: fa.flash_attention(q, k, v, with_lse=True),
+        "fwd_drop": lambda: fa.flash_attention(
+            q, k, v, with_lse=True, dropout_rate=DROP_RATE,
+            dropout_seed=seed),
         "bwd": lambda: fa._launch_backward(q, k, v, g, lse, delta, "bnhk")}
+    if fp32:
+        runs["bwd_split"] = lambda: fa._launch_backward(
+            q, k, v, g, lse, delta, "bnhk", route="split")
     want = fa.reference_attention(q, k, v)
+    plain_grads = fa.reference_attention_backward(q, k, v, g)
     errors = {"fwd": _rel(runs["fwd"](), want),
               "lse": (lse - fa.reference_attention_lse(q, k)).abs().max()
               .item(),
-              "bwd": max(_rel(a, b) for a, b in zip(
-                  runs["bwd"](), fa.reference_attention_backward(
-                      q, k, v, g)))}
-    operand = bh * n * kd * 2
+              "fwd_drop": _rel(runs["fwd_drop"]()[0],
+                               fa.reference_attention(q, k, v, "bnhk",
+                                                      drop)),
+              "bwd": max(_rel(a, b) for a, b in zip(runs["bwd"](),
+                                                    plain_grads))}
+    if fp32:
+        errors["bwd_split"] = max(_rel(a, b) for a, b in zip(
+            runs["bwd_split"](), plain_grads))
+    size = 4 if fp32 else 2
+    operand = bh * n * kd * size
     rows = bh * n * 4
-    bounds = {"fwd": _bound(4 * bh * n * n * kd, 4 * operand, BF16_OPS_PER_S),
-              "fwd_lse": _bound(4 * bh * n * n * kd, 4 * operand + rows,
-                                BF16_OPS_PER_S),
-              # q, k, v, g read and dk, dv, dq written in bf16; lse and
-              # delta read.
-              "bwd": _bound(10 * bh * n * n * kd, 7 * operand + 2 * rows,
-                            BF16_OPS_PER_S)}
+    # 3xTF32: three TF32 products per fp32 product.
+    ops_scale = 3.0 if fp32 else 1.0
+    peak = TF32_OPS_PER_S if fp32 else BF16_OPS_PER_S
+    fwd_bound = _bound(ops_scale * 4 * bh * n * n * kd, 4 * operand, peak)
+    lse_bound = _bound(ops_scale * 4 * bh * n * n * kd, 4 * operand + rows,
+                       peak)
+    # q, k, v, g read and dk, dv written in the input type, dq in fp32; lse
+    # and delta read.
+    bwd_bound = _bound(ops_scale * 10 * bh * n * n * kd,
+                       6 * operand + bh * n * kd * 4 + 2 * rows, peak)
+    bounds = {"fwd": fwd_bound, "fwd_lse": lse_bound, "fwd_drop": lse_bound,
+              "bwd": bwd_bound, "bwd_split": bwd_bound}
     hm = [fa._heads_major(t, "bnhk") for t in (q, k, v, g)]
     leaves = [t.detach().clone().requires_grad_() for t in hm[:3]]
-    lib, backend_name = None, None
+    libs, backend_name = {}, None
     for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
                     SDPBackend.EFFICIENT_ATTENTION):
-        try:
-            with sdpa_kernel([backend]):
-                lib_out = F.scaled_dot_product_attention(*leaves, scale=1.0)
-            backend_name = backend.name
-
-            def lib_fwd(backend=backend):
-                with sdpa_kernel([backend]):
-                    return F.scaled_dot_product_attention(*hm[:3], scale=1.0)
-
-            lib = {"fwd": lib_fwd,
-                   "bwd": lambda: torch.autograd.grad(
-                       lib_out, leaves, hm[3], retain_graph=True)}
+        found = _sdpa_runs(torch, hm[:3], leaves, hm[3], backend)
+        if found is not None:
+            libs["sdpa"], backend_name = found, backend.name
             break
-        except RuntimeError:
-            continue
+    if backend_name != "EFFICIENT_ATTENTION":
+        found = _sdpa_runs(torch, hm[:3], leaves, hm[3],
+                           SDPBackend.EFFICIENT_ATTENTION)
+        if found is not None:
+            libs["sdpa_efficient"] = found
     result = {"label": args.label, "shape": name, "bhnk": [bh, n, kd],
+              "dtype": dtype_name,
               "forward_kernel": fa.forward_kernel(kd, q.dtype),
               "backward_kernel": fa.backward_kernel(kd, q.dtype),
               "errors": errors, "sdpa_backend": backend_name}
@@ -162,12 +228,12 @@ def _flash(torch, fa, gen, name, batch, heads, kd, args) -> dict:
                         "kernels": _kernels(torch, fn, args.iters),
                         "bound_ms": bounds[what][0],
                         "bound_by": bounds[what][1]}
-    if lib is not None:
-        for what in ("fwd", "bwd"):
-            result[f"sdpa_{what}_ms"] = _time_ms(torch, lib[what], args.iters,
-                                                 args.rounds)
-            result[f"sdpa_{what}_kernels"] = _kernels(torch, lib[what],
-                                                      args.iters)
+    for lib_name, lib in libs.items():
+        for what, fn in lib.items():
+            result[f"{lib_name}_{what}_ms"] = _time_ms(torch, fn, args.iters,
+                                                       args.rounds)
+            result[f"{lib_name}_{what}_kernels"] = _kernels(torch, fn,
+                                                            args.iters)
     return result
 
 
@@ -225,6 +291,13 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("time_wide_kernels_torch: needs a CUDA device")
+    from vision_transformer_detector_tpu_torch.kernels import _build
+
+    # Every flash library this checkout has, built at once.
+    _build.load_libraries(sorted({getattr(fa, name) for name in dir(fa)
+                                  if name.endswith("SOURCE")
+                                  and "flash" in getattr(fa, name)}
+                                 | {fused_ln.SOURCE}))
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     name_power = subprocess.run(

@@ -1,8 +1,11 @@
 // Flash-attention forward for Hopper (sm_90a) on the tensor cores through
 // mma.sync, bound to Python through a plain C interface
-// (kernels/flash_attention.py loads it with ctypes). It runs fp32 at every
-// head dim and bf16 at head dims above 256 (on the wide route); bf16 at
-// K <= 256 runs on wgmma and TMA (flash_attention_fwd_sm90.cu).
+// (kernels/flash_attention.py loads it with ctypes). It runs fp32 at head
+// dims K <= 128 and, on its windowed route, fp32 past 384 and bf16 past
+// 512. bf16 at K <= 256 runs on wgmma and TMA
+// (flash_attention_fwd_sm90.cu); fp32 at 128 < K <= 384 and bf16 at
+// 256 < K <= 512 on flash_attention_fwd_wide.cu, which forms S once a tile
+// and stages Q once a CTA (kWideMaxF32, kWideMaxBf16).
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` in
 // vision_transformer_detector_tpu/kernels/flash_attention.py (launched by
@@ -29,10 +32,11 @@
 // What bounds it (one H100 SXM: 495 TFLOP/s TF32 dense, 3.35 TB/s): at
 // reference_608's training shape, (64, 1296, 40) fp32 with lse, 17.2 GFLOP
 // done as 3xTF32 (three TF32 products per fp32 product) on 53 MB: bound by
-// operations at 3 * 17.2 G / 495 T = 0.104 ms. As measured by
-// chip_smoke.py (H100 SXM, 700 W) it takes 0.64 ms there, 16 % of that:
-// the latency of the online-softmax chain (max, exp, rescale) between the
-// two products of each tile, which mma.sync leaves exposed, holds it.
+// operations at 3 * 17.2 G / 495 T = 0.104 ms. As chip_smoke.py measured
+// it (NVIDIA H100 80GB HBM3, 700 W; PERF.md) it takes 0.578 ms there, 18 %
+// of that: the latency of the online-softmax chain (max, exp, rescale)
+// between the two products of each tile, which mma.sync leaves exposed in
+// one CTA of 4 warps, holds it.
 //
 // Design (FA2's, for this card):
 //   * one CTA of 4 warps (128 threads) per (batch*head, 64-query tile);
@@ -64,18 +68,21 @@
 //     the shared tile at every key tile instead of holding them (3xTF32 hi
 //     and lo fragments of 16 rows x 128 would take 128 registers beside O's
 //     64), and every fp32 tile sum covers 64 columns a pass (mma_sm90.cuh);
-//   * K > 128 (the wide route, flash_fwd_wide_kernel): the same tiles and
+//   * the windowed route (flash_fwd_wide_kernel), for the K no other
+//     kernel holds whole (fp32 past 384, bf16 past 512): the same tiles and
 //     softmax, with S formed over the whole of K in 64-column chunks (each
 //     chunk of Q and of K staged in shared memory, the chunks added in
 //     column order, so S is the same in every CTA that forms it) and the
 //     output in column windows of 128: a second grid axis picks which
 //     window of O a CTA owns, and each window recomputes S, so the softmax
 //     statistics and lse are bit-equal across windows (window 0 writes
-//     them). That costs ceil(K / 128) times the S work; no preset runs it.
-//     The Pallas kernel pads K to a multiple of 64 and sets no limit;
-//     neither does this route;
+//     them). That costs ceil(K / 128) times the S work, and Q is staged
+//     again with every key tile; it took 0.165 ms at (128, 256, 320) bf16
+//     with lse (PERF.md §6) before that width moved to the wide
+//     forward. The Pallas kernel pads K to a multiple of 64 and sets no
+//     limit; neither does this route;
 //   * the output type is a template parameter: the input type, or fp32
-//     for a bf16 ring attention block at K > 128
+//     for a bf16 ring attention block past K 512
 //     (kernels/ring_attention.py merges the R blocks' unrounded outputs
 //     and rounds once, as JAX's ring does);
 //   * epilogue: O / l cast to the output type and stored through the
@@ -84,9 +91,9 @@
 //     written by one lane per row.
 // Budget (-Xptxas -v, sm_90a, CUDA 12.8, NVIDIA H100 80GB HBM3's machine):
 // the fp32 instances 222-255 registers, the widest with 8-72 bytes of
-// stack; the bf16 wide route 169-171, no spills. Shared memory, 5 tiles of
+// stack; the windowed route 169-171, no spills. Shared memory, 5 tiles of
 // 64 x (D + 16 bytes): fp32 66,560
-// (48), 87,040 (64), 168,960 (128); the wide route's two buffers of two
+// (48), 87,040 (64), 168,960 (128); the windowed route's two buffers of two
 // 64 x (64 + 16 bytes) tiles: 69,632 fp32, 36,864 bf16; dynamic, with
 // cudaFuncAttributeMaxDynamicSharedMemorySize raised once per device.
 // chip_smoke.py's build phase prints these numbers and the HMMA count of
@@ -413,15 +420,19 @@ cudaError_t launch_wide(const Launch& a) {
 }
 
 // The instance of head dim K: fp32 48 (K <= 48), 64 (K <= 64) or 128
-// (K <= 128), else the wide route; bf16 only the wide route (the model
-// sends it K > 256: K <= 256 is flash_attention_fwd_sm90.cu's).
+// (K <= 128), and the windowed route past kWideMaxF32; bf16 only the
+// windowed route, past kWideMaxBf16. Every other K is another source's
+// (flash_attention_fwd_sm90.cu, flash_attention_fwd_wide.cu) and refused.
 template <typename T, typename O, bool kDropout>
 cudaError_t launch_dim(const Launch& a) {
-  if (a.kdim > 128) return launch_wide<T, kDropout, O>(a);
-  if constexpr (std::is_same<T, float>::value) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  if (a.kdim > (kF32 ? kWideMaxF32 : kWideMaxBf16)) {
+    return launch_wide<T, kDropout, O>(a);
+  }
+  if constexpr (kF32) {
     if (a.kdim <= 48) return launch_kernel<T, 48, kDropout, O>(a);
     if (a.kdim <= 64) return launch_kernel<T, 64, kDropout, O>(a);
-    return launch_kernel<T, 128, kDropout, O>(a);
+    if (a.kdim <= 128) return launch_kernel<T, 128, kDropout, O>(a);
   }
   return cudaErrorInvalidValue;
 }
@@ -436,9 +447,10 @@ cudaError_t launch(bool dropout, const Launch& a) {
 extern "C" {
 
 // One launch from the plan's argument block `args` (flash_launch.cuh) and
-// the call's device addresses and stream. dtype 0 = float32, 1 = bfloat16
-// (head_dim > 128 only); out_fp32 1 writes the output in fp32 whatever the
-// input dtype (a ring attention block), 0 in the input dtype. head_dim:
+// the call's device addresses and stream. dtype 0 = float32 (head_dim
+// <= 128 or > 384), 1 = bfloat16 (head_dim > 512 only); out_fp32 1 writes
+// the output in fp32 whatever the input dtype (a ring attention block), 0
+// in the input dtype. head_dim:
 // the caller's K, with K * the element size a multiple of 16 bytes; the
 // head dim must be contiguous and every row 16-byte aligned. lse: nullptr,
 // or a contiguous fp32 (batch, heads, seq_len) array; m_in, l_in, acc_in

@@ -21,6 +21,12 @@ namespace {
 
 constexpr float kNegInf = -1e30f;     // the Pallas kernel's mask value
 constexpr float kLog2e = 1.4426950408889634f;
+// The widest K of the wide forward (flash_attention_fwd_wide.cu) in each
+// dtype: fp32 128 < K <= 384, bf16 256 < K <= 512. The windowed route of
+// flash_attention_fwd.cu takes every K past them, and only those
+// (kernels/flash_attention.py:forward_kernel names the kernel).
+constexpr int kWideMaxF32 = 384;
+constexpr int kWideMaxBf16 = 512;
 
 struct Strides {
   long long b, h, n;
@@ -92,16 +98,17 @@ __device__ __forceinline__ void resume_state(
 }
 
 // One key tile of the online softmax, on S in registers (kTiles tiles of 8
-// keys from kv0): keys past seq_len are masked to kNegInf; the running max
-// m_row takes the tile's (two shuffles per row: the four lanes of a quad
-// share a row); alpha = exp(m_old - m_new) rescales l_row and the output
-// accumulator; S becomes P = exp(S - m), whose fp32 values l_row sums
+// keys from kv0), but the rescale of the output accumulator: keys past
+// seq_len are masked to kNegInf; the running max m_row takes the tile's
+// (two shuffles per row: the four lanes of a quad share a row); alpha =
+// exp(m_old - m_new), by which the caller rescales the accumulator,
+// rescales l_row; S becomes P = exp(S - m), whose fp32 values l_row sums
 // before dropout multiplies each kept one by 1 / (1 - rate) (the mask
 // drawn at the global (batch*head, query, key) coordinates) and zeroes the
 // rest.
-template <bool kDropout, int kTiles, int kAccTiles>
-__device__ __forceinline__ void softmax_step(
-    float (&s)[kTiles][4], float (&acc)[kAccTiles][4], float (&m_row)[2],
+template <bool kDropout, int kTiles>
+__device__ __forceinline__ void softmax_scores(
+    float (&s)[kTiles][4], float (&alpha)[2], float (&m_row)[2],
     float (&l_row)[2], const unsigned int (&hash_row)[2], int kv0,
     int seq_len, int t, const Dropout& drop) {
   if (kv0 + 8 * kTiles > seq_len) {
@@ -123,14 +130,9 @@ __device__ __forceinline__ void softmax_step(
   for (int r = 0; r < 2; ++r) {
     m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
     m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
-    const float alpha = exp2f((m_row[r] - m_new[r]) * kLog2e);
+    alpha[r] = exp2f((m_row[r] - m_new[r]) * kLog2e);
     m_row[r] = m_new[r];
-    l_row[r] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kAccTiles; ++j) {
-      acc[j][2 * r] *= alpha;
-      acc[j][2 * r + 1] *= alpha;
-    }
+    l_row[r] *= alpha[r];
   }
   const float m_scaled[2] = {m_new[0] * kLog2e, m_new[1] * kLog2e};
 #pragma unroll
@@ -149,6 +151,30 @@ __device__ __forceinline__ void softmax_step(
       s[j][e] = p;
     }
   }
+}
+
+// The output accumulator's rows rescaled by their alpha.
+template <int kAccTiles>
+__device__ __forceinline__ void rescale(float (&acc)[kAccTiles][4],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < kAccTiles; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+  }
+}
+
+// One key tile of the online softmax (softmax_scores), the output
+// accumulator rescaled by alpha.
+template <bool kDropout, int kTiles, int kAccTiles>
+__device__ __forceinline__ void softmax_step(
+    float (&s)[kTiles][4], float (&acc)[kAccTiles][4], float (&m_row)[2],
+    float (&l_row)[2], const unsigned int (&hash_row)[2], int kv0,
+    int seq_len, int t, const Dropout& drop) {
+  float alpha[2];
+  softmax_scores<kDropout>(s, alpha, m_row, l_row, hash_row, kv0, seq_len,
+                           t, drop);
+  rescale(acc, alpha);
 }
 
 // The epilogue of this lane's two rows (row0, row0 + 8), columns col0..

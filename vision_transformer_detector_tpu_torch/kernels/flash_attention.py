@@ -16,8 +16,10 @@ Routing is by the device of the tensors, never by a fallback:
     ``kernels/_build.py``) through the custom operators of kernels/ops.py,
     or raise: the forward operator ``torch.ops.vtd_torch.flash_attention_fwd``
     runs ``csrc/flash_attention_fwd_sm90.cu`` (wgmma fed by TMA) for bf16
-    at K <= 256 and ``csrc/flash_attention_fwd.cu`` (mma.sync) for every
-    other call (``forward_kernel``), and ``flash_attention_bwd`` runs
+    at K <= 256, ``csrc/flash_attention_fwd_wide.cu`` for fp32 at 128 < K
+    <= 384 and bf16 at 256 < K <= 512 and ``csrc/flash_attention_fwd.cu``
+    (mma.sync) for the rest (``forward_kernel``), and
+    ``flash_attention_bwd`` runs
     ``csrc/flash_attention_bwd_sm90.cu`` (wgmma fed by TMA) for bf16 at
     K <= 256, ``csrc/flash_attention_bwd.cu`` (mma.sync) for fp32 at
     K <= 128 and ``csrc/flash_attention_bwd_wide.cu`` for the rest: fp32
@@ -28,9 +30,12 @@ The kernels run on the tensor cores (bf16, and fp32 as 3xTF32) at every
 head dim K, as the JAX package does. The wgmma kernels (bf16) have
 instances of width 64, 128 and 256 and form the scores over the whole of
 K once per tile. The mma.sync kernels (``head_dim_plan``) take K <= 128 on
-instances of width 48, 64 or 128 and K > 128 on the wide route, which
-forms the scores over K in 64-column chunks and writes the outputs in
-column windows. They read q, k, v (and the
+instances of width 48, 64 or 128. Past that the wide forward forms the
+scores once a tile too, its two halves of a CTA each owning half of O's
+columns (fp32 on mma.sync to K 384, bf16 on wgmma to K 512), and the
+backward's wide route (and the forward wider still) forms the scores over
+K in 64-column chunks and writes the outputs in column windows. They read
+q, k, v (and the
 cotangent) at their own K: the loads zero-fill the columns past K and the
 stores stop at K. Rows must start on 16-byte boundaries; a K whose rows
 cannot (K * itemsize not a multiple of 16 bytes: bf16 K % 8, fp32 K % 4)
@@ -102,6 +107,7 @@ import torch.nn.functional as F
 
 FWD_SOURCE = "flash_attention_fwd.cu"
 SM90_SOURCE = "flash_attention_fwd_sm90.cu"
+FWD_WIDE_SOURCE = "flash_attention_fwd_wide.cu"     # B1 past 128 / 256
 BWD_SOURCE = "flash_attention_bwd.cu"
 BWD_WIDE_SOURCE = "flash_attention_bwd_wide.cu"     # the wide route's B2
 BWD_SM90_SOURCE = "flash_attention_bwd_sm90.cu"     # bf16 B2 at K <= 256
@@ -109,7 +115,10 @@ _HEAD_DIMS = (48, 64, 128)   # the mma.sync instances' widths up to K = 128
 _WGMMA_DIMS = (64, 128, 256)   # the wgmma kernels' (bf16, K <= 256)
 KEEP_WORD_KEYS = 32          # keys per word of the packed keep bits
 CHUNK = 64                   # the mma.sync wide route's S chunk (columns)
-FWD_WINDOW = 128             # its forward output window
+FWD_WINDOW = 128             # the windowed forward's output window
+# The widest K of the wide forward (csrc/flash_attention_fwd_wide.cu) in
+# each dtype; the windowed forward takes every K past it.
+WIDE_FWD_MAX = {torch.float32: 384, torch.bfloat16: 512}
 BWD_WINDOW = 64              # its backward output windows (dq, dk, dv)
 _ALIGN = 16                  # bytes: cp.async copies and TMA rows
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -447,11 +456,14 @@ flash_attention.launches = 0                # forward, no lse, no dropout
 flash_attention.lse_launches = 0            # forward with lse, no dropout
 flash_attention.drop_launches = 0           # forward with dropout
 flash_attention.wgmma_launches = 0          # forward on wgmma (any route)
+flash_attention.wide_launches = 0           # forward on the wide kernel
 flash_attention.backward_launches = 0       # backward, no dropout
 flash_attention.backward_drop_launches = 0  # backward with dropout replay
 # Of the two backward counts, the launches of the wgmma backward (bf16,
 # K <= 256; its dk/dv and dq kernels count once together).
 flash_attention.wgmma_backward_launches = 0
+# And those of the fp32 column halves (64 < K <= 128).
+flash_attention.halves_backward_launches = 0
 # Operands copied because their rows cannot be addressed in place (K
 # padded, or a cotangent view made contiguous); the model's calls make
 # none.
@@ -484,57 +496,75 @@ def _check_inputs(*tensors) -> None:
 
 
 class HeadDimPlan(NamedTuple):
-    """How the mma.sync kernels (fp32 at any K, bf16 past 256) run head
-    dim K: ``instance`` is the width of the instance (48, 64, 128) or
-    "wide" (K > 128); ``chunks`` the 64-column passes that form S (and
-    dP) over K, 1 on an instance that holds K whole; ``windows`` the
-    forward's output column windows and ``grad_windows`` the backward's
-    (dq, dk, dv), each a grid axis of CTAs that recompute S for their own
-    columns."""
+    """How a call of head dim K and dtype runs: ``instance`` is the width
+    of the mma.sync instance (48, 64, 128) or "wide" (K > 128); ``chunks``
+    the 64-column passes that form S (and dP) over K on the backward's wide
+    route, 1 on an instance that holds K whole; ``windows`` the forward's
+    output column windows, a grid axis of CTAs that recompute S for their
+    own columns (only on the "windowed" forward, else 1) and
+    ``grad_windows`` the backward's (dq, dk, dv) on its wide route;
+    ``forward`` and ``backward`` the kernels that run
+    (``forward_kernel``, ``backward_kernel``)."""
     instance: object
     chunks: int
     windows: int
     grad_windows: int
+    forward: str
+    backward: str
 
 
-def head_dim_plan(kdim: int) -> HeadDimPlan:
-    """The plan of the mma.sync forward and backward at K = ``kdim``
-    (any K >= 1, as the JAX package's Pallas kernels take any K): K <= 48
-    the 48 instance, K <= 64 the 64, K <= 128 the 128; past that the wide
-    route, S over ceil(K / 64) chunks, the forward's output in windows of
-    FWD_WINDOW columns and the backward's in windows of BWD_WINDOW."""
+def head_dim_plan(kdim: int,
+                  dtype: torch.dtype = torch.float32) -> HeadDimPlan:
+    """The plan at K = ``kdim`` (any K >= 1, as the JAX package's Pallas
+    kernels take any K) in ``dtype``: K <= 48 the 48 instance, K <= 64 the
+    64, K <= 128 the 128 (the backward's in fp32: its column halves); past
+    that "wide": S over ceil(K / 64) chunks and outputs in windows of
+    BWD_WINDOW columns in the backward, and one forward window but on the
+    windowed forward (fp32 past 384, bf16 past 512), whose windows are
+    FWD_WINDOW columns."""
     if kdim < 1:
         raise ValueError(f"head dim {kdim} < 1")
+    forward = forward_kernel(kdim, dtype)
+    backward = backward_kernel(kdim, dtype)
     for width in _HEAD_DIMS:
         if kdim <= width:
-            return HeadDimPlan(width, 1, 1, 1)
-    return HeadDimPlan("wide", -(-kdim // CHUNK), -(-kdim // FWD_WINDOW),
-                       -(-kdim // BWD_WINDOW))
+            return HeadDimPlan(width, 1, 1, 1, forward, backward)
+    windows = -(-kdim // FWD_WINDOW) if forward == "windowed" else 1
+    return HeadDimPlan("wide", -(-kdim // CHUNK), windows,
+                       -(-kdim // BWD_WINDOW), forward, backward)
 
 
 def kernel_width(kdim: int) -> int:
     """The width a head dim of ``kdim`` is zero-padded to when its rows
     cannot be addressed in place: the instance's (48, 64 or 128) up to
     K = 128, past that the next multiple of 64 (a whole S chunk, and a
-    whole TMA box of the wgmma 256 instance: bf16 K 129 reads as 192)."""
+    whole TMA box of the wgmma kernels: bf16 K 129 reads as 192)."""
     instance = head_dim_plan(kdim).instance
     return instance if instance != "wide" else -(-kdim // CHUNK) * CHUNK
 
 
 def forward_kernel(kdim: int, dtype: torch.dtype) -> str:
     """Which forward kernel runs a call: "wgmma" (bf16 at K <= 256,
-    csrc/flash_attention_fwd_sm90.cu, instance 64, 128 or 256) or
-    "mma_sync" (fp32 at any K and bf16 past 256,
-    csrc/flash_attention_fwd.cu: past 128 its wide route)."""
-    return ("wgmma" if dtype == torch.bfloat16 and kdim <= _WGMMA_DIMS[-1]
-            else "mma_sync")
+    csrc/flash_attention_fwd_sm90.cu, instance 64, 128 or 256),
+    "mma_sync" (fp32 at K <= 128, csrc/flash_attention_fwd.cu), "wide"
+    (fp32 at 128 < K <= 384 and bf16 at 256 < K <= 512,
+    csrc/flash_attention_fwd_wide.cu: S once a tile, O's columns in two
+    halves of the CTA) or "windowed" (wider still: the windowed route of
+    csrc/flash_attention_fwd.cu, S again in each 128-column window of
+    O)."""
+    if dtype == torch.bfloat16 and kdim <= _WGMMA_DIMS[-1]:
+        return "wgmma"
+    if dtype == torch.float32 and kdim <= _HEAD_DIMS[-1]:
+        return "mma_sync"
+    return "wide" if kdim <= WIDE_FWD_MAX[dtype] else "windowed"
 
 
 def backward_kernel(kdim: int, dtype: torch.dtype) -> str:
     """Which backward kernels run a call: "wgmma" (bf16 at K <= 256,
     csrc/flash_attention_bwd_sm90.cu, instance 64, 128 or 256), "mma_sync"
-    (fp32 at K <= 128, csrc/flash_attention_bwd.cu) or "wide" (fp32 past
-    128 and bf16 past 256, csrc/flash_attention_bwd_wide.cu)."""
+    (fp32 at K <= 128, csrc/flash_attention_bwd.cu: the 48 and 64
+    instances, and the column halves at 64 < K <= 128) or "wide" (fp32
+    past 128 and bf16 past 256, csrc/flash_attention_bwd_wide.cu)."""
     if dtype == torch.bfloat16 and kdim <= _WGMMA_DIMS[-1]:
         return "wgmma"
     return "mma_sync" if kdim <= _HEAD_DIMS[-1] else "wide"

@@ -54,6 +54,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCES = {
     "fwd": flash_attention.FWD_SOURCE,
     "fwd_sm90": flash_attention.SM90_SOURCE,
+    "fwd_wide": flash_attention.FWD_WIDE_SOURCE,
     "bwd": flash_attention.BWD_SOURCE,
     "bwd_wide": flash_attention.BWD_WIDE_SOURCE,
     "bwd_sm90": flash_attention.BWD_SM90_SOURCE,
@@ -313,10 +314,12 @@ def forward_plan(q, k, v, layout: str, with_lse: bool, dropout_seed,
                (b, h, n, 4) if suspend else 0)
     counts = (("drop_launches" if dropout is not None
                else "lse_launches" if with_lse else "launches",)
-              + (("wgmma_launches",) if kernel == "wgmma" else ()))
-    return LaunchPlan("fwd_sm90" if kernel == "wgmma" else "fwd", kernel,
-                      args, ctypes.addressof(args), q.device, outputs, None,
-                      counts, dropout is not None)
+              + {"wgmma": ("wgmma_launches",),
+                 "wide": ("wide_launches",)}.get(kernel, ()))
+    kind = {"wgmma": "fwd_sm90", "wide": "fwd_wide", "mma_sync": "fwd",
+            "windowed": "fwd"}[kernel]
+    return LaunchPlan(kind, kernel, args, ctypes.addressof(args), q.device,
+                      outputs, None, counts, dropout is not None)
 
 
 def _flash_fwd_cuda(q, k, v, layout, with_lse, dropout_seed, dropout_rate,
@@ -338,8 +341,9 @@ def _flash_fwd_cuda(q, k, v, layout, with_lse, dropout_seed, dropout_rate,
     ``inner_local``/``inner_global``/``inner_base`` place the mask
     (flash_attention.mask_coords). One launch of the kernel
     ``flash_attention.forward_kernel`` names: bf16 at K <= 256
-    csrc/flash_attention_fwd_sm90.cu (wgmma fed by TMA), fp32 at any K
-    and bf16 at K > 256 csrc/flash_attention_fwd.cu (mma.sync)."""
+    csrc/flash_attention_fwd_sm90.cu (wgmma fed by TMA), fp32 at 128 < K
+    <= 384 and bf16 at 256 < K <= 512 csrc/flash_attention_fwd_wide.cu,
+    the rest csrc/flash_attention_fwd.cu (mma.sync)."""
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     coords = (bh_base, q_base, k_base, inner_local, inner_global, inner_base)
     key = (layout, with_lse, dropout_rate, coords, out_fp32, suspend,
@@ -423,9 +427,11 @@ def backward_plan(q, k, v, g, lse, delta, layout: str, dropout_seed,
     _mask_args(args, dropout, coords)
     outputs = tuple((tuple(t.shape), t.stride(), t.dtype)
                     for t in (dq, dk, dv))
+    halves = kernel == "mma_sync" and kdim > 64
     counts = (("backward_launches" if dropout is None
                else "backward_drop_launches",)
-              + (("wgmma_backward_launches",) if kernel == "wgmma" else ()))
+              + (("wgmma_backward_launches",) if kernel == "wgmma" else ())
+              + (("halves_backward_launches",) if halves else ()))
     kind = {"wgmma": "bwd_sm90", "mma_sync": "bwd",
             "wide": "bwd_wide"}[kernel]
     return LaunchPlan(kind, kernel, args, ctypes.addressof(args), q.device,
