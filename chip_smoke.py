@@ -463,14 +463,15 @@ def phase_build():
     # The libraries' SASS, disassembled all at once (cuobjdump per library).
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         list(pool.map(_sass, [_build.library_path(s) for s in sources]))
-    # The mma.sync forward: fp32 at head dim 48, 64, 128 and the windowed
-    # route in both types, each with and without dropout (10); the wide
-    # forward, fp32 (HMMA) and bf16 (HGMMA), each with and without dropout
-    # (4); the backward: fp32 at 48, 64, 128 (the column halves), each with
+    # The mma.sync forward: fp32 at head dim 48, 64 and the windowed route
+    # in both types, each with and without dropout (8); the wide forward,
+    # fp32 (HMMA) and bf16 (HGMMA) in one CTA and in a cluster, and the fp32
+    # column halves ("fp32_d128"), each with and without dropout (10); the
+    # backward: fp32 at 48, 64, 128 (the column halves), each with
     # and without dropout, for the dk/dv kernel, the dq kernel ("_dq") and
     # the partials route ("_partials"): 6 + 6 + 6; its wide route both
     # types at one width: 4 + 4 + 2.
-    instances = {fa.FWD_SOURCE: 10, fa.FWD_WIDE_SOURCE: 4,
+    instances = {fa.FWD_SOURCE: 8, fa.FWD_WIDE_SOURCE: 10,
                  fa.BWD_SOURCE: 18, fa.BWD_WIDE_SOURCE: 10}
     hmma = {source: _tensor_core_instructions(_build.library_path(source))
             for source in instances}
@@ -505,21 +506,29 @@ def phase_build():
                      f"{source}: no tensor-core instruction in {kernel}: "
                      f"{dense[source]}")
     hmma.update(dense)
-    # The redesigned wide forward and fp32 column halves: registers, spills
+    # The redesigned wide forward (one CTA, a cluster, the fp32 column
+    # halves) and the backward's fp32 column halves: registers, spills
     # and dynamic shared memory of each instance (the wide forward at its
-    # widest K in each type, the halves by kernel); the halves must spill
-    # nothing.
-    for source, keep in ((fa.FWD_WIDE_SOURCE, "_wide"),
-                         (fa.BWD_SOURCE, "_d128")):
+    # widest K in each type, the halves by kernel), and each cluster
+    # instance's size and resident clusters at the K the checks run; the
+    # halves and the clusters must spill nothing.
+    for source, keep in ((fa.FWD_WIDE_SOURCE, ("_wide", "_cluster",
+                                               "_d128")),
+                         (fa.BWD_SOURCE, ("_d128",))):
         REDESIGNED[source] = {
             name: found for name, found in _flash_registers(
-                _build.BUILD_LOGS[source]).items() if keep in name}
-    halves = REDESIGNED[fa.BWD_SOURCE]
-    _require(len(halves) == 6 and all(
-        r["spill_stores"] == 0 and r["spill_loads"] == 0
-        for r in halves.values()),
-             f"the fp32 column halves spill: {halves}")
+                _build.BUILD_LOGS[source]).items()
+            if any(part in name for part in keep)}
+    for source, count in ((fa.BWD_SOURCE, 6), (fa.FWD_WIDE_SOURCE, 10)):
+        found = REDESIGNED[source]
+        _require(len(found) == count and all(
+            r["spill_stores"] == 0 and r["spill_loads"] == 0
+            for name, r in found.items()
+            if "_cluster" in name or "_d128" in name),
+                 f"{source}: the column halves or the clusters spill: "
+                 f"{found}")
     REDESIGNED["shared_memory"] = _redesigned_smem()
+    REDESIGNED["clusters"] = _cluster_sizes()
     _report("build", seconds=seconds, ptxas=ptxas,
             tensor_core_instructions=hmma, wgmma_registers=WGMMA_REGISTERS,
             redesigned=REDESIGNED)
@@ -550,8 +559,44 @@ def _redesigned_smem() -> dict:
     fwd.argtypes = [ctypes.c_int, ctypes.c_int]
     bwd.argtypes = [ctypes.c_int]
     return {"fp32_wide_k384": fwd(0, 384), "fp32_wide_k256": fwd(0, 256),
-            "bf16_wide": fwd(1, 512), "fp32_d128": bwd(0),
-            "fp32_d128_partials": bwd(1), "fp32_d128_dq": bwd(2)}
+            "bf16_wide": fwd(1, 512), "fp32_d128_fwd": fwd(0, 128),
+            "fp32_cluster_k512": fwd(0, 512),
+            "fp32_cluster_k3072": fwd(0, 3072), "bf16_cluster": fwd(1, 576),
+            "fp32_d128": bwd(0), "fp32_d128_partials": bwd(1),
+            "fp32_d128_dq": bwd(2)}
+
+
+# (dtype, K) of the forward's cluster route that the checks run.
+CLUSTER_DIMS = (("bfloat16", 576), ("bfloat16", 1024), ("bfloat16", 4096),
+                ("float32", 512), ("float32", 576), ("float32", 1024),
+                ("float32", 3072))
+
+
+def _cluster_sizes() -> dict:
+    """Each cluster instance at CLUSTER_DIMS: the CTAs of a cluster (the
+    plan's) and how many such clusters the card holds at once (the plan's
+    occupancy query, which must be above 0)."""
+    import torch
+
+    from vision_transformer_detector_tpu_torch.kernels import (
+        flash_attention as fa, ops)
+
+    found = {}
+    for dtype_name, kd in CLUSTER_DIMS:
+        dtype = getattr(torch, dtype_name)
+        q = torch.zeros(1, 64, 1, kd, dtype=dtype, device="cuda")
+        plan = ops.forward_plan(q, q, q, "bnhk", True, None, 0.0,
+                                (0, 0, 0, 1, 1, 0), False, None, None, None,
+                                False)
+        _require(plan.kernel == "cluster", f"{dtype_name} K {kd}: "
+                 f"{plan.kernel}")
+        resident = ops._library(plan.kind) \
+            .vtd_flash_attention_fwd_wide_clusters(plan.args_ptr)
+        _require(resident > 0, f"{dtype_name} K {kd}: {resident} clusters "
+                 f"of {plan.cluster} CTAs resident")
+        found[f"{dtype_name}_k{kd}"] = {"cluster": plan.cluster,
+                                        "resident_clusters": resident}
+    return found
 
 
 # Registers and spills of each wgmma flash instance, by source (the build
@@ -596,22 +641,25 @@ def _flash_instance(symbol: str):
     """The instance name (``_tensor_core_instructions``' naming) of a flash
     kernel's mangled symbol, or None for another kernel."""
     found = re.search(
-        r"flash_(fwd|bwd)(_dq)?(_wide_f32|_wide_bf16|_halves|_wide|_sm90)?"
+        r"flash_(fwd|bwd)(_dq)?(_wide_f32|_wide_bf16|_cluster_f32|"
+        r"_cluster_bf16|_halves|_windowed|_wide|_sm90)?"
         r"_kernelI(13__nv_bfloat16|f)?((?:Li\d+E)*)Lb([01])E(Lb1E)?", symbol)
     if not found:
         return None
     kind, dq, variant, dtype, dims, drop, flag = found.groups()
     dim = re.findall(r"\d+", dims)[0] if dims else None
     partials = kind == "bwd" and flag
-    # The wide forward's and the column halves' kernels carry their type
-    # and width in their names.
-    if variant in ("_wide_f32", "_halves"):
+    # The wide forward's, its clusters' and the column halves' kernels
+    # carry their type and width in their names.
+    if variant in ("_wide_f32", "_cluster_f32", "_halves"):
         dtype = "f"
     if variant == "_halves":
         dim = "128"
     wide = variant in ("_wide", "_wide_f32", "_wide_bf16")
-    return (f"{'fp32' if dtype == 'f' else 'bf16'}"
-            f"{'_wide' if wide else '_d' + dim}"
+    route = ("_cluster" if variant in ("_cluster_f32", "_cluster_bf16")
+             else "_windowed" if variant == "_windowed"
+             else "_wide" if wide else "_d" + dim)
+    return (f"{'fp32' if dtype == 'f' else 'bf16'}{route}"
             f"{'_drop' if drop == '1' else ''}{dq or ''}"
             f"{'_partials' if partials else ''}")
 
@@ -4967,26 +5015,32 @@ def phase_parallel() -> dict:
 
 
 # (K, layouts): ViT-H/14's 80 and the 128 instance in both layouts (fp32
-# B2 there on the column halves), and past 128 in one layout each
-# (tests/test_torch_cuda.py holds K 129-520 in both): bf16 on the wgmma 256
-# instance up to 256 (K 129 padded to 192 for it), the wide forward for
-# fp32 to 384 and bf16 320-512, the windowed forward for fp32 512, the
-# backward's wide route for both past 128 / 256.
+# on the column halves, B1 and B2), and past 128 in one layout each
+# (tests/test_torch_cuda.py holds K 129-4160 in both): bf16 on the wgmma
+# 256 instance up to 256 (K 129 padded to 192 for it), the wide forward for
+# fp32 to 384 and bf16 320-512 in one CTA, its clusters for fp32 512, 576
+# and 1024 and bf16 576 and 1024, the windowed forward past the clusters'
+# reach (K 4160), the backward's wide route for both past 128 / 256.
 WIDE_DIMS = ((80, ("bhnk", "bnhk")), (128, ("bhnk", "bnhk")),
              (129, ("bhnk",)), (192, ("bnhk",)), (256, ("bhnk",)),
-             (320, ("bnhk",)), (384, ("bhnk",)), (512, ("bnhk",)))
+             (320, ("bnhk",)), (384, ("bhnk",)), (512, ("bnhk",)),
+             (576, ("bhnk",)), (1024, ("bnhk",)), (4160, ("bhnk",)))
 WIDE_N = 321                   # five key tiles, the last one ragged
 WIDE_HEADS = 16                # ViT-H/14's heads
 WIDE_RING_N = 256              # two ring blocks of 128 keys (whole tiles)
 # (batch, heads, K, dtype), the forward's rows timed as (B * H, 256, K) on
 # their own (B1, B1-lse, B1-drop, each beside its plain version and SDPA
 # memory-efficient, with dropout for B1-drop): the wide forward in fp32 at
-# K 192, 256, 320 and in bf16 at 320 and 384, the windowed one at bf16 576,
-# and the fp32 128 instance at ViT-H/14's (128, 256, 80) and at (2048, 256,
-# 128); fp32 B2 on the column halves at K 80, 96, 128 (WIDE_FP32_BWD).
+# K 192, 256, 320 and in bf16 at 320 and 384, its clusters at bf16 576 and
+# 1024 and fp32 512, the windowed one at bf16 4160 (past the clusters'
+# reach; batch 2), and the fp32 column halves at ViT-H/14's (128, 256, 80)
+# and at (2048, 256, 128); fp32 B2 on the column halves at K 80, 96, 128
+# (WIDE_FP32_BWD).
 WIDE_FWD_TIMED = ((8, 16, 192, "float32"), (8, 16, 256, "float32"),
                   (8, 16, 320, "float32"), (8, 16, 320, "bfloat16"),
                   (8, 16, 384, "bfloat16"), (8, 16, 576, "bfloat16"),
+                  (8, 16, 1024, "bfloat16"), (8, 16, 512, "float32"),
+                  (2, 16, 4160, "bfloat16"),
                   (8, 16, 80, "float32"), (128, 16, 128, "float32"))
 WIDE_FP32_BWD = (80, 96, 128)
 # (batch, heads, K), timed as (B * H, 256, K) bf16: the wide_heads model's
@@ -5013,18 +5067,20 @@ def _wide_inputs(gen, layout, b, n, h, kd, dtype):
 
 def _wide_kernels() -> dict:
     """(a) every route at K 80 and 128 (the 128-wide instances; bf16 on
-    wgmma; fp32 B2 on the column halves) in both layouts and at K 129,
-    192, 256, 320, 384, 512 in one layout each, bf16 and fp32 (bf16 up to
-    256 on the wgmma 256 instance, the forward past that on the wide or the
-    windowed kernel, the backward on its wide route), against the plain
-    versions at the
+    wgmma; fp32 on the column halves, B1 and B2) in both layouts and at K
+    129, 192, 256, 320, 384, 512, 576, 1024, 4160 in one layout each, bf16
+    and fp32 (bf16 up to 256 on the wgmma 256 instance, the forward past
+    that on the wide kernel in one CTA or in a cluster, or on the windowed
+    one, the backward on its wide route), each forward counted on the
+    route ``forward_kernel`` names, against the plain versions at the
     tolerances the 64-wide instance is held to: the forward, its lse, the
     dropout forward, the backward by each dq route and with the mask
     replayed, the fp32-output instance and fp32 dk/dv (a ring block), the
     launch counts, which kernel each launch ran, and the operand copies
     (only K 129's rows are off 16 bytes); a ring chained over two key
     blocks against one launch over the whole sequence, bit for bit, at K
-    80, 128, 192, 256; B2 launched 10 times, bit-equal, at K 80 (each
+    80, 128, 192, 256, 320, 512, 576 (the fp32 halves, one CTA of the wide
+    forward, its clusters); B2 launched 10 times, bit-equal, at K 80 (each
     route), 192 and 256 (bf16 with and without the replay, fp32
     partials); and (``launches``) the kernels one flash call launches at
     K 80 against K 128, which never padded."""
@@ -5047,11 +5103,16 @@ def _wide_kernels() -> dict:
                 f.wgmma_launches, f.wgmma_backward_launches,
                 f.wide_launches)
 
-    # K > 128: the launches of the wide forward (by type), the windowed
-    # forward, the backward's wide route and the wgmma 256 instance; at K
-    # 80 and 128 those of the fp32 column halves.
+    # K > 128: the launches of the wide forward (by type, one CTA and
+    # clusters), the windowed forward, the backward's wide route and the
+    # wgmma 256 instance; at K 80 and 128 those of the fp32 column halves
+    # (forward and backward).
     wide_launches = {"fwd": 0, "fwd_fp32": 0, "fwd_bf16": 0, "bwd": 0,
-                     "windowed_fwd": 0, "fp32_d128_fwd": 0}
+                     "cluster_fwd_fp32": 0, "cluster_fwd_bf16": 0,
+                     "windowed_fwd": 0, "halves_fwd": 0}
+    counters = {"wgmma": "wgmma_launches", "halves": "halves_launches",
+                "wide": "wide_launches", "cluster": "cluster_launches",
+                "windowed": "windowed_launches"}
     wgmma_256_launches = {"fwd": 0, "bwd": 0}
     halves_launches = 0
     for kd, layouts in WIDE_DIMS:
@@ -5063,7 +5124,8 @@ def _wide_kernels() -> dict:
                 q, k, v, g = _wide_inputs(gen, layout, 2, WIDE_N, 4, kd,
                                           dtype)
                 err = {}
-                wide_before = fa.flash_attention.wide_launches
+                route_before = {name: getattr(fa.flash_attention, name)
+                                for name in counters.values()}
                 fwd_before = totals()[0]
                 before = (fa.flash_attention.launches,
                           fa.flash_attention.wgmma_launches,
@@ -5152,11 +5214,23 @@ def _wide_kernels() -> dict:
                              f"{value} > {tol}")
                 errors[name] = err
                 fp32 = dtype == torch.float32
-                wide_launches["fwd_fp32" if fp32 else "fwd_bf16"] += (
-                    fa.flash_attention.wide_launches - wide_before)
-                if fp32 and kd <= 128:
-                    wide_launches["fp32_d128_fwd"] += (totals()[0]
-                                                       - fwd_before)
+                moved = {route: getattr(fa.flash_attention, counter)
+                         - route_before[counter]
+                         for route, counter in counters.items()}
+                # Every forward of this width ran the kernel forward_kernel
+                # names, and no other route's.
+                kernel = fa.forward_kernel(kd, dtype)
+                want = totals()[0] - fwd_before
+                _require(all(n == (want if route == kernel else 0)
+                             for route, n in moved.items()
+                             if kernel != "mma_sync"),
+                         f"wide_heads {name}: forward routes {moved}, "
+                         f"{want} forwards on {kernel}")
+                tag = "fp32" if fp32 else "bf16"
+                wide_launches[f"fwd_{tag}"] += moved["wide"]
+                wide_launches[f"cluster_fwd_{tag}"] += moved["cluster"]
+                wide_launches["windowed_fwd"] += moved["windowed"]
+                wide_launches["halves_fwd"] += moved["halves"]
         halves_launches += (fa.flash_attention.halves_backward_launches
                             - halves_at_start)
         if kd > 128:
@@ -5164,7 +5238,6 @@ def _wide_kernels() -> dict:
             wgmma_256_launches["fwd"] += moved[2]
             wgmma_256_launches["bwd"] += moved[3]
             wide_launches["fwd"] += moved[4]
-            wide_launches["windowed_fwd"] += moved[0] - moved[2] - moved[4]
             wide_launches["bwd"] += moved[1] - moved[3]
 
     # The ring: each half of the queries over two key blocks of 128,
@@ -5172,7 +5245,7 @@ def _wide_kernels() -> dict:
     # tokens-major as the ring runs them, with and without dropout (each
     # block's query and key bases place its mask).
     ring = {}
-    for kd in (80, 128, 192, 256, 320):
+    for kd in (80, 128, 192, 256, 320, 512, 576):
         for dtype in (torch.bfloat16, torch.float32):
             for dropout in (None, drop):
                 name = (f"K{kd}_{str(dtype).split('.')[-1]}"
@@ -5233,6 +5306,10 @@ def _wide_kernels() -> dict:
                 f"{'_drop' if dropout else ''}_{route or 'default'}")
         repeats[name] = _b2_repeats(q, k, v, g, lse, delta, "bnhk",
                                     dropout, route)
+    _require(all(wide_launches[key] > 0 for key in (
+        "fwd_fp32", "fwd_bf16", "cluster_fwd_fp32", "cluster_fwd_bf16",
+        "windowed_fwd", "halves_fwd", "bwd")),
+             f"wide_heads: a forward route ran no launch: {wide_launches}")
     return {"errors": errors, "ring": ring, "b2_repeats": repeats,
             "wide_launches": wide_launches,
             "halves_launches": halves_launches,
@@ -5965,8 +6042,10 @@ def _wide_entries(wide: dict, hgmma: dict) -> list:
     256), with that model's launches and the times at (128, 256, 192) and
     (128, 256, 256) beside them; the wide forward's B1-lse at (128, 256,
     320) bf16 and (128, 256, 256) fp32 (K 384 and K 192, 320 beside
-    them), the windowed forward's at (128, 256, 576) bf16 and the fp32 128
-    instance's at (128, 256, 80) ((2048, 256, 128) beside it), each with
+    them), its clusters' at (128, 256, 576) bf16 ((128, 256, 1024) beside
+    it) and (128, 256, 512) fp32, the windowed forward's at (32, 256,
+    4160) bf16 and the fp32 column halves' at (128, 256, 80) ((2048, 256,
+    128) beside it), each with
     its B1 and B1-drop; the backward's wide route at (128, 256, 320) bf16
     and the fp32 column halves' B2 at (128, 256, 80) (K 96, 128 beside
     it), with their launches in (a)'s checks (no preset runs them), the
@@ -6019,7 +6098,7 @@ def _wide_entries(wide: dict, hgmma: dict) -> list:
                 k: v for k, v in hgmma[source].items()
                 if k.startswith(f"bf16_d{instance}")}
     launched = wide["kernels"]["wide_launches"]
-    checks = ("wide_heads (a), the checks at K 80-512 in both types; no "
+    checks = ("wide_heads (a), the checks at K 80-4160 in both types; no "
               "preset runs it")
     for name, key, extra, source, kernel, launches, err in (
             ("flash_attention_fwd_lse_wide", "128x256x320_bfloat16_fwd",
@@ -6033,15 +6112,31 @@ def _wide_entries(wide: dict, hgmma: dict) -> list:
              "mma.sync 3xTF32, the wide forward: two sets of 4 warps, each "
              "O's columns of half the 16-column groups, S once a 32-key "
              "tile", launched["fwd_fp32"], "lse"),
-            ("flash_attention_fwd_lse_windowed", "128x256x576_bfloat16_fwd",
+            ("flash_attention_fwd_lse_cluster", "128x256x576_bfloat16_fwd",
+             ("128x256x1024_bfloat16_fwd",), "flash_attention_fwd_wide.cu",
+             "wgmma + TMA, the wide forward's cluster route (bf16 past "
+             "512): a thread-block cluster of ceil(K / 512) CTAs, each "
+             "holding ceil(boxes / CTAs) 64-column boxes, the partial S "
+             "summed over the cluster through distributed shared memory",
+             launched["cluster_fwd_bf16"], "lse"),
+            ("flash_attention_fwd_lse_cluster_fp32",
+             "128x256x512_float32_fwd", (), "flash_attention_fwd_wide.cu",
+             "mma.sync 3xTF32, the wide forward's cluster route (fp32 past "
+             "384): a cluster of ceil(K / 384) CTAs, each a contiguous "
+             "share of the 32-column pairs, 32-key tiles",
+             launched["cluster_fwd_fp32"], "lse"),
+            ("flash_attention_fwd_lse_windowed", "32x256x4160_bfloat16_fwd",
              (), "flash_attention_fwd.cu",
-             "mma.sync, the windowed route (bf16 past 512, fp32 past 384): "
-             "S again in each 128-column window of O",
+             "mma.sync, the windowed route (bf16 past 4096, fp32 past "
+             "3072): S again in each 128-column window of O",
              launched["windowed_fwd"], "lse"),
-            ("flash_attention_fwd_lse_fp32_d128", "128x256x80_float32_fwd",
-             ("2048x256x128_float32_fwd",), "flash_attention_fwd.cu",
-             "mma.sync 3xTF32, instance 128", launched["fp32_d128_fwd"],
-             "lse")):
+            ("flash_attention_fwd_lse_fp32_halves",
+             "128x256x80_float32_fwd", ("2048x256x128_float32_fwd",),
+             "flash_attention_fwd_wide.cu",
+             "mma.sync 3xTF32, the wide forward's column halves (fp32 K "
+             "65-128): two halves of 4 warps, at most two 32-column pairs "
+             "a half, 32-key tiles, two CTAs an SM",
+             launched["halves_fwd"], "lse")):
         t = times[key]["fwd_lse"]
         bh, n, kd = (int(x) for x in key.split("_")[0].split("x"))
         dtype = key.split("_")[1]
@@ -6064,6 +6159,9 @@ def _wide_entries(wide: dict, hgmma: dict) -> list:
                 max_abs_err=times[other]["errors"][err])
         if source == "flash_attention_fwd_wide.cu":
             rows[-1]["registers"] = REDESIGNED.get(source, {})
+            rows[-1]["shared_memory"] = REDESIGNED.get("shared_memory", {})
+        if "_cluster" in name:
+            rows[-1]["clusters"] = REDESIGNED.get("clusters", {})
     key = "128x256x320"
     t = times[key]["bwd"]
     rows.append({

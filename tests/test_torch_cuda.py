@@ -1491,13 +1491,17 @@ def test_wgmma_backward_matches_plain(gen, route, layout, shape, strided):
       for kd in (129, 192, 256, 320)),
     (torch.float32, 257), (torch.float32, 384), (torch.float32, 388),
     (torch.bfloat16, 257), (torch.bfloat16, 384), (torch.bfloat16, 512),
-    (torch.bfloat16, 520)])
+    (torch.bfloat16, 520),
+    (torch.bfloat16, 576), (torch.bfloat16, 1024), (torch.bfloat16, 1544),
+    (torch.bfloat16, 4096), (torch.bfloat16, 4160), (torch.float32, 448),
+    (torch.float32, 512), (torch.float32, 3104)])
 def test_wide_route_matches_plain(gen, dtype, kd, layout):
     """K > 128, every route the wrapper exposes, on the kernels that
     ``forward_kernel`` and ``backward_kernel`` name (bf16 up to 256 the
     wgmma 256 instance, K 129 padded to 192 for it; fp32 to 384 and bf16
-    to 512 the wide forward, past them the windowed route; the backward's
-    wide route), each launch counted there, in both layouts (heads-major
+    to 512 the wide forward, past them its clusters to 3072 and 4096, past
+    those the windowed route; the backward's wide route), each launch
+    counted there, in both layouts (heads-major
     views of tokens-major memory) at a ragged N (130 tokens-major, 321
     heads-major): the forward and its lse, the dropout forward, B2 by each
     dq route and with the replay (grads relative to their largest value),
@@ -1510,11 +1514,15 @@ def test_wide_route_matches_plain(gen, dtype, kd, layout):
     wgmma = forward == "wgmma"
     assert forward == ("wgmma" if dtype == torch.bfloat16 and width <= 256
                        else "wide" if width <= fa.WIDE_FWD_MAX[dtype]
+                       else "cluster"
+                       if width <= fa.FWD_CLUSTER_REACH[dtype]
                        else "windowed")
     assert fa.backward_kernel(width, dtype) == ("wgmma" if wgmma else "wide")
     counts = (fa.flash_attention.wgmma_launches,
               fa.flash_attention.wgmma_backward_launches,
-              fa.flash_attention.wide_launches)
+              fa.flash_attention.wide_launches,
+              fa.flash_attention.cluster_launches,
+              fa.flash_attention.windowed_launches)
     n = 130 if layout == "bnhk" else 321
     q, k, v = _qkv(gen, (2, n, 3, kd), dtype, kd ** -0.5)
     g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
@@ -1580,9 +1588,128 @@ def test_wide_route_matches_plain(gen, dtype, kd, layout):
     torch.cuda.synchronize()
     moved = (fa.flash_attention.wgmma_launches - counts[0],
              fa.flash_attention.wgmma_backward_launches - counts[1],
-             fa.flash_attention.wide_launches - counts[2])
+             fa.flash_attention.wide_launches - counts[2],
+             fa.flash_attention.cluster_launches - counts[3],
+             fa.flash_attention.windowed_launches - counts[4])
     assert (moved[0] > 0 and moved[1] > 0) if wgmma else moved[:2] == (0, 0)
     assert (moved[2] > 0) == (forward == "wide")
+    assert (moved[3] > 0) == (forward == "cluster")
+    assert (moved[4] > 0) == (forward == "windowed")
+
+
+@pytest.mark.parametrize("layout", ["bnhk", "bhnk"])
+@pytest.mark.parametrize("kd", [68, 80, 128])
+def test_fp32_halves_forward_matches_plain(gen, kd, layout):
+    """fp32 B1 at 64 < K <= 128 on the wide forward's column halves
+    (``forward_kernel`` "halves", counted in ``halves_launches`` and
+    nowhere else), in both layouts at a ragged N (130 tokens-major, 321
+    heads-major): B1, B1-lse (its lse within 1e-4), B1-drop (the mask of
+    the plain version, lse the undropped one) and the fp32-output ring
+    block, within 2e-5 of the plain version; B1 twice bit-equal."""
+    assert fa.forward_kernel(kd, torch.float32) == "halves"
+    n = 130 if layout == "bnhk" else 321
+    q, k, v = _qkv(gen, (2, n, 3, kd), torch.float32, kd ** -0.5)
+    if layout == "bhnk":
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    drop = (fa.seed_tensor(2 ** 32 - 13, "cuda"), 0.1)
+    f = fa.flash_attention
+    before = (f.halves_launches, f.wide_launches, f.cluster_launches,
+              f.windowed_launches, f.launches + f.lse_launches
+              + f.drop_launches)
+    ref = fa.reference_attention(q, k, v, layout)
+    out = fa._launch_forward(q, k, v, layout)
+    assert (out - ref).abs().max() <= TOLS[torch.float32]
+    assert torch.equal(out, fa._launch_forward(q, k, v, layout))
+    l_out, lse = fa._launch_forward(q, k, v, layout, with_lse=True)
+    assert torch.equal(l_out, out)
+    assert (lse - fa.reference_attention_lse(q, k, layout)).abs().max() \
+        <= 1e-4
+    d_out, d_lse = fa._launch_forward(q, k, v, layout, with_lse=True,
+                                      dropout=drop)
+    assert (d_out - fa.reference_attention(q, k, v, layout, drop)).abs() \
+        .max() <= TOLS[torch.float32]
+    assert torch.equal(d_lse, lse)
+    torch.cuda.synchronize()
+    moved = (f.halves_launches - before[0], f.wide_launches - before[1],
+             f.cluster_launches - before[2], f.windowed_launches - before[3],
+             f.launches + f.lse_launches + f.drop_launches - before[4])
+    assert moved == (4, 0, 0, 0, 4)
+
+
+# (dtype, K): the forward's routes whose chained ring blocks are checked
+# alone: the fp32 column halves (K 80, 64-key tiles), the fp32 cluster
+# (K 512, two CTAs, 32-key tiles) and the bf16 cluster (K 576, two CTAs of
+# 5 and 4 boxes, 32-key tiles).
+RING_ROUTES = ((torch.float32, 80, "halves"), (torch.float32, 512, "cluster"),
+               (torch.bfloat16, 576, "cluster"))
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("dtype,kd,route", RING_ROUTES)
+def test_chained_ring_blocks_equal_one_launch(gen, dtype, kd, route,
+                                              dropout):
+    """A ring over 256 tokens-major tokens in four blocks of 64 (whole key
+    tiles of each route): each block of queries chained over the four key
+    blocks (resume, suspend; each block's query and key bases place its
+    mask), bit-equal to one fp32-output launch over the 256 keys: out and
+    lse."""
+    assert fa.forward_kernel(kd, dtype) == route
+    q, k, v = _qkv(gen, (1, 256, 2, kd), dtype, kd ** -0.5)
+    drop = (fa.seed_tensor(77, "cuda"), 0.2) if dropout else None
+    whole, whole_lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
+                                          dropout=drop, out_fp32=True)
+    for first in range(0, 256, 64):
+        rows = slice(first, first + 64)
+        state = None
+        for j in range(4):
+            keys = slice(64 * j, 64 * j + 64)
+            last = j == 3
+            got = fa._launch_forward(
+                q[:, rows], k[:, keys], v[:, keys], "bnhk", with_lse=True,
+                dropout=drop, offsets=(0, first, 64 * j), out_fp32=True,
+                state=state, suspend=not last)
+            state = got
+        assert torch.equal(got[0], whole[:, rows])
+        assert torch.equal(got[1], whole_lse[:, :, rows])
+    assert (whole.float() - fa.reference_attention(
+        q, k, v, "bnhk", drop, out_dtype=torch.float32)).abs().max() \
+        <= TOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype,kd,cols", [
+    (torch.float32, 512, (0, 256, 384)),
+    (torch.float32, 3072, (0, 384, 2688)),
+    (torch.bfloat16, 576, (0, 320)),
+    (torch.bfloat16, 1544, (0, 448, 896, 1344)),
+    (torch.bfloat16, 4096, (0, 512, 3584))])
+def test_every_cta_of_a_cluster_normalises_alike(gen, dtype, kd, cols):
+    """Every CTA of a cluster holds the same S, so the same softmax: with V
+    the same in one 32-column group (fp32) or 64-column box (bf16) at the
+    first column of the first rank's share and of later ranks' shares
+    (``cols``), those output columns are bit-equal, with and without
+    dropout (the mask drawn from S's coordinates in each CTA) and in the
+    suspended state of a ring block, whose m and l rank 0 writes; lse
+    within 1e-4 of the plain version. At bf16 K 1544 (four CTAs of 7
+    boxes) the last rank's second warpgroup holds only boxes past K: it
+    stores nothing, yet its parts of S (zeros) enter every CTA's sum."""
+    assert fa.forward_kernel(kd, dtype) == "cluster"
+    width = 32 if dtype == torch.float32 else 64
+    q, k, v = _qkv(gen, (2, 130, 3, kd), dtype, kd ** -0.5)
+    for c in cols[1:]:
+        v[..., c:c + width] = v[..., cols[0]:cols[0] + width]
+    drop = (fa.seed_tensor(5, "cuda"), 0.1)
+    for dropout in (None, drop):
+        out, lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
+                                      dropout=dropout)
+        acc, _, _ = fa._launch_forward(q, k, v, "bnhk", dropout=dropout,
+                                       out_fp32=True, suspend=True)
+        for c in cols[1:]:
+            assert torch.equal(out[..., c:c + width],
+                               out[..., cols[0]:cols[0] + width])
+            assert torch.equal(acc[..., c:c + width],
+                               acc[..., cols[0]:cols[0] + width])
+        assert (lse - fa.reference_attention_lse(q, k, "bnhk")).abs() \
+            .max() <= 1e-4
 
 
 @pytest.mark.parametrize("layout", ["bnhk", "bhnk"])

@@ -312,13 +312,18 @@ def test_only_rows_off_16_byte_boundaries_are_copied(dtype, kdim, copied):
     (torch.bfloat16, 40, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 136, "wgmma"), (torch.bfloat16, 256, "wgmma"),
     (torch.bfloat16, 264, "wide"), (torch.float32, 64, "mma_sync"),
-    (torch.float32, 136, "wide"), (torch.float32, 128, "mma_sync"),
-    (torch.float32, 384, "wide"), (torch.float32, 388, "windowed"),
-    (torch.bfloat16, 512, "wide"), (torch.bfloat16, 520, "windowed")])
+    (torch.float32, 136, "wide"), (torch.float32, 128, "halves"),
+    (torch.float32, 68, "halves"),
+    (torch.float32, 384, "wide"), (torch.float32, 388, "cluster"),
+    (torch.float32, 3072, "cluster"), (torch.float32, 3076, "windowed"),
+    (torch.bfloat16, 512, "wide"), (torch.bfloat16, 520, "cluster"),
+    (torch.bfloat16, 4096, "cluster"), (torch.bfloat16, 4104, "windowed")])
 def test_forward_kernel_by_dtype_and_head_dim(dtype, kdim, kernel):
-    """bf16 at K <= 256 runs the wgmma forward and fp32 at K <= 128 the
-    mma.sync one; past those the wide forward (fp32 to 384, bf16 to 512),
-    and wider still the windowed route. The plan names the same kernel."""
+    """bf16 at K <= 256 runs the wgmma forward and fp32 at K <= 64 the
+    mma.sync one; past those the wide forward: fp32 at 64 < K <= 128 on
+    its column halves, fp32 to 384 and bf16 to 512 in one CTA, and to 3072
+    and 4096 in a cluster of up to 8 CTAs; wider still the windowed route.
+    The plan names the same kernel."""
     assert fa.forward_kernel(kdim, dtype) == kernel
     assert fa.head_dim_plan(kdim, dtype).forward == kernel
 
@@ -338,7 +343,7 @@ def test_backward_kernel_by_dtype_and_head_dim(dtype, kdim):
     assert fa.head_dim_plan(width, dtype).backward == want
     assert fa.forward_kernel(width, dtype) == (
         "wgmma" if want == "wgmma" else "wide" if width > 128
-        else "mma_sync")
+        else "halves" if width > 64 else "mma_sync")
     if want != "wgmma":
         assert (want == "wide") == (fa.head_dim_plan(kdim).instance == "wide")
 

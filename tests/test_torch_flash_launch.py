@@ -40,9 +40,14 @@ BWD_SCHEMA_BEFORE = (
     "SymInt inner_global=1, SymInt inner_base=0, bool dkv_fp32=False) "
     "-> (Tensor, Tensor, Tensor)")
 COUNTERS = ("launches", "lse_launches", "drop_launches", "wgmma_launches",
-            "wide_launches", "backward_launches", "backward_drop_launches",
+            "wide_launches", "halves_launches", "cluster_launches",
+            "windowed_launches", "backward_launches", "backward_drop_launches",
             "wgmma_backward_launches", "halves_backward_launches",
             "operand_copies")
+# What the stand-in's cluster occupancy query (the wide forward's
+# ``vtd_flash_attention_fwd_wide_clusters``) answers, and the head dims of
+# the blocks it was asked about.
+RESIDENT = {"clusters": 4, "asked": []}
 
 
 @pytest.fixture
@@ -51,9 +56,18 @@ def launches(monkeypatch):
     plan's block first), no launch. Empty plan caches; the launch counters
     put back afterwards."""
     calls = []
+    monkeypatch.setitem(RESIDENT, "clusters", 4)
+    monkeypatch.setitem(RESIDENT, "asked", [])
 
     class Library:
         def __getattr__(self, name):
+            if name == "vtd_flash_attention_fwd_wide_clusters":
+                def query(args):
+                    RESIDENT["asked"].append(
+                        ops.FwdArgs.from_address(args).head_dim)
+                    return RESIDENT["clusters"]
+                return query
+
             def entry(*args):
                 calls.append((name, args))
                 return 0
@@ -248,6 +262,8 @@ def test_counts_move_once_per_call(launches):
     moved = {name: getattr(f, name) - n for name, n in before.items()}
     assert moved == {"launches": 2, "lse_launches": 1, "drop_launches": 0,
                      "wgmma_launches": 2, "wide_launches": 0,
+                     "halves_launches": 0, "cluster_launches": 0,
+                     "windowed_launches": 0,
                      "backward_launches": 1, "backward_drop_launches": 0,
                      "wgmma_backward_launches": 1,
                      "halves_backward_launches": 0, "operand_copies": 0}
@@ -282,7 +298,8 @@ def test_backward_writes_dq_in_q_dtype_on_the_wgmma_route(
 
 @pytest.mark.parametrize("kdim,kernel", [(136, "wgmma"), (192, "wgmma"),
                                          (256, "wgmma"), (264, "wide"),
-                                         (512, "wide"), (520, "windowed")])
+                                         (512, "wide"), (520, "cluster"),
+                                         (4160, "windowed")])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_bf16_up_to_256_launches_the_wgmma_libraries(launches, kdim, kernel,
                                                      rate):
@@ -292,7 +309,8 @@ def test_bf16_up_to_256_launches_the_wgmma_libraries(launches, kdim, kernel,
     dq comes back in bf16 from the dq kernel. Past 256 the backward's wide
     route, its dq fp32 and cast; the forward the wide kernel
     (``vtd_flash_attention_fwd_wide``, counted in ``wide_launches``) to
-    K 512, the windowed route of the mma.sync library past it."""
+    K 512, its clusters past it (``cluster_launches``) to K 4096, the
+    windowed route of the mma.sync library past that."""
     q, k, v, g = _operands(shape=(2, 37, 3, kdim), count=4)
     seed = fa.seed_tensor(5, "cpu") if rate else None
     wgmma = kernel == "wgmma"
@@ -302,9 +320,12 @@ def test_bf16_up_to_256_launches_the_wgmma_libraries(launches, kdim, kernel,
     out, lse, _, _ = ops._flash_fwd_cuda(q, k, v, "bnhk", True, seed, rate)
     assert launches[-1][0] == {"wgmma": "vtd_flash_attention_fwd_sm90",
                                "wide": "vtd_flash_attention_fwd_wide",
+                               "cluster": "vtd_flash_attention_fwd_wide",
                                "windowed": "vtd_flash_attention_fwd"}[kernel]
     assert (fa.flash_attention.wide_launches - before[2]) == (
         kernel == "wide")
+    assert fa.flash_attention.cluster_launches == (kernel == "cluster")
+    assert fa.flash_attention.windowed_launches == (kernel == "windowed")
     assert out.shape == q.shape and lse.shape == (2, 3, 37)
     plan = ops.backward_plan(q, k, v, g, lse, lse, "bnhk", seed, rate, 0,
                              (0, 0, 0, 1, 1, 0), False, False)
@@ -361,21 +382,28 @@ def test_malformed_offsets_raise_before_a_launch(launches, offsets):
     assert not launches
 
 
-@pytest.mark.parametrize("dtype,kdim,entry,wide", [
-    (torch.float32, 128, "vtd_flash_attention_fwd", False),
-    (torch.float32, 132, "vtd_flash_attention_fwd_wide", True),
-    (torch.float32, 384, "vtd_flash_attention_fwd_wide", True),
-    (torch.float32, 388, "vtd_flash_attention_fwd", False),
-    (torch.bfloat16, 320, "vtd_flash_attention_fwd_wide", True)])
+@pytest.mark.parametrize("dtype,kdim,entry,counter", [
+    (torch.float32, 64, "vtd_flash_attention_fwd", None),
+    (torch.float32, 128, "vtd_flash_attention_fwd_wide", "halves_launches"),
+    (torch.float32, 132, "vtd_flash_attention_fwd_wide", "wide_launches"),
+    (torch.float32, 384, "vtd_flash_attention_fwd_wide", "wide_launches"),
+    (torch.float32, 388, "vtd_flash_attention_fwd_wide", "cluster_launches"),
+    (torch.float32, 3104, "vtd_flash_attention_fwd", "windowed_launches"),
+    (torch.bfloat16, 320, "vtd_flash_attention_fwd_wide", "wide_launches"),
+    (torch.bfloat16, 576, "vtd_flash_attention_fwd_wide",
+     "cluster_launches")])
 @pytest.mark.parametrize("ring", [False, True])
 def test_the_wide_forward_plan_names_its_library(launches, dtype, kdim, entry,
-                                                 wide, ring):
+                                                 counter, ring):
     """The forward's plan launches the library ``forward_kernel`` names at
     each width, with the block the C entry reads (dtype, K, fp32 output
-    for a ring block, its resumed and suspended state), and counts the wide
-    kernel's launches apart."""
+    for a ring block, its resumed and suspended state), and counts the
+    launches of each route of the wide kernel (the fp32 column halves, one
+    CTA, a cluster) and of the windowed one apart."""
     q, k, v = _operands(shape=(2, 37, 3, kdim), dtype=dtype)
-    before = fa.flash_attention.wide_launches
+    routes = ("halves_launches", "wide_launches", "cluster_launches",
+              "windowed_launches")
+    before = {name: getattr(fa.flash_attention, name) for name in routes}
     if ring:
         acc = torch.zeros(q.shape, dtype=torch.float32)
         m = torch.zeros(2, 3, 37)
@@ -392,7 +420,9 @@ def test_the_wide_forward_plan_names_its_library(launches, dtype, kdim, entry,
     assert (block.dtype, block.head_dim, block.out_fp32) == (
         0 if dtype == torch.float32 else 1, kdim, int(ring))
     assert out.dtype == (torch.float32 if ring else dtype)
-    assert fa.flash_attention.wide_launches - before == wide
+    assert {name: getattr(fa.flash_attention, name) - n
+            for name, n in before.items()} == {
+                name: int(name == counter) for name in routes}
     assert ops.forward_plan(q, k, v, "bnhk", False, None, 0.0,
                             (0, 0, 0, 1, 1, 0), False, None, None, None,
                             False).kind == {
@@ -419,3 +449,88 @@ def test_the_fp32_halves_count_their_launches(launches, kdim, halves, route):
     assert ops.BwdArgs.from_address(args[0]).head_dim == kdim
     assert (args[10] is not None) == (route == "partials")
     assert fa.flash_attention.halves_backward_launches - before == halves
+
+
+@pytest.mark.parametrize("dtype,kdim,cluster", [
+    (torch.bfloat16, 576, 2), (torch.bfloat16, 1024, 2),
+    (torch.bfloat16, 1032, 3), (torch.bfloat16, 4096, 8),
+    (torch.float32, 448, 2), (torch.float32, 512, 2),
+    (torch.float32, 1156, 4), (torch.float32, 3072, 8)])
+def test_the_cluster_plan_records_its_size_and_asks_once(launches, dtype,
+                                                         kdim, cluster):
+    """Past one CTA's widest K (fp32 384, bf16 512) the forward's plan
+    names the cluster route with ceil(K / 384) or ceil(K / 512) CTAs a
+    cluster, asks the library once per plan whether such a cluster can be
+    resident (its block, at the caller's K), and launches the wide
+    library's entry; a second call of the same signature asks nothing."""
+    q, k, v = _operands(shape=(2, 37, 3, kdim), dtype=dtype)
+    plan = ops.forward_plan(q, k, v, "bnhk", True, None, 0.0,
+                            (0, 0, 0, 1, 1, 0), False, None, None, None,
+                            False)
+    assert (plan.kernel, plan.kind, plan.cluster) == ("cluster", "fwd_wide",
+                                                      cluster)
+    assert fa.head_dim_plan(kdim, dtype).cluster == cluster
+    assert fa.cluster_size(kdim, dtype) == cluster
+    assert RESIDENT["asked"] == []          # building a plan asks nothing
+    for _ in range(2):
+        _forward(q, k, v, with_lse=True)
+    assert RESIDENT["asked"] == [kdim]
+    assert [name for name, _ in launches] == [
+        "vtd_flash_attention_fwd_wide"] * 2
+    assert fa.flash_attention.cluster_launches == 2
+
+
+@pytest.mark.parametrize("dtype,kdim", [(torch.bfloat16, 40),
+                                        (torch.bfloat16, 320),
+                                        (torch.bfloat16, 4160),
+                                        (torch.float32, 80),
+                                        (torch.float32, 384),
+                                        (torch.float32, 3104)])
+def test_no_other_route_asks_for_clusters(launches, dtype, kdim):
+    """Only the cluster route's plan asks the occupancy question; a zero
+    answer changes nothing elsewhere (its size there is 1)."""
+    RESIDENT["clusters"] = 0
+    q, k, v = _operands(shape=(2, 37, 3, kdim), dtype=dtype)
+    _forward(q, k, v, with_lse=True)
+    assert RESIDENT["asked"] == []
+    assert fa.cluster_size(kdim, dtype) == 1
+    assert len(launches) == 1
+
+
+@pytest.mark.parametrize("dtype,kdim", [(torch.bfloat16, 576),
+                                        (torch.float32, 512)])
+def test_a_cluster_that_cannot_be_resident_raises_at_plan_time(
+        launches, dtype, kdim):
+    """When the library answers that no cluster of the instance can be
+    resident (0), the plan raises RuntimeError, nothing launches, no
+    counter moves and no plan is kept: no route gives way (the windowed
+    one is the forward past the cluster's reach only)."""
+    RESIDENT["clusters"] = 0
+    q, k, v = _operands(shape=(2, 37, 3, kdim), dtype=dtype)
+    counts = {name: getattr(fa.flash_attention, name) for name in COUNTERS}
+    with pytest.raises(RuntimeError, match="no thread-block cluster of 2 "
+                       "CTAs"):
+        _forward(q, k, v, with_lse=True)
+    assert launches == [] and ops._fwd_plans == {}
+    assert counts == {name: getattr(fa.flash_attention, name)
+                      for name in COUNTERS}
+    assert RESIDENT["asked"] == [kdim]
+
+
+def test_a_failed_cluster_query_raises_its_cuda_error(launches, monkeypatch):
+    """A negative answer is a CUDA error code, raised as the launch errors
+    are (``_build.raise_on_error``)."""
+    RESIDENT["clusters"] = -1
+    raised = []
+
+    def raise_on_error(lib, err, what):
+        raised.append((err, what))
+        raise RuntimeError(what)
+
+    monkeypatch.setattr(ops._build, "raise_on_error", raise_on_error)
+    q, k, v = _operands(shape=(2, 37, 3, 1024))
+    with pytest.raises(RuntimeError, match="cluster occupancy"):
+        _forward(q, k, v)
+    assert raised == [(1, "flash attention forward (cluster occupancy "
+                          "query)")]
+    assert launches == []

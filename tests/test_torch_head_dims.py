@@ -11,10 +11,11 @@ forward (its keep mask read back bit for bit), the backward (JAX's chunked
 recomputation and its Pallas B2) and the backward with the mask replayed,
 in both layouts; and a narrow model with key_dim 80 on the flash route,
 its logits and one train step's gradients; at K = 192 and 256 (the wide
-route), the forward, its logsumexp, the backward by JAX's Pallas B2 and
-the dropout forward with its replayed grads, in fp32. The CUDA instances
-and the wide route are checked on the card by tests/test_torch_cuda.py
-and chip_smoke.py's ``wide_heads`` phase.
+route) and 448 in fp32 and 576 in bf16 (the forward's thread-block
+clusters on the card), the forward, its logsumexp, the backward by JAX's
+Pallas B2 and the dropout forward with its replayed grads. The CUDA
+instances and the wide route are checked on the card by
+tests/test_torch_cuda.py and chip_smoke.py's ``wide_heads`` phase.
 """
 
 import jax
@@ -83,29 +84,42 @@ def test_kernel_width_of_the_wide_dims_is_128(kdim):
     assert not padded[..., kdim:].any()
 
 
-@pytest.mark.parametrize("kdim,dtype,forward,windows", [
-    (132, torch.float32, "wide", 1), (384, torch.float32, "wide", 1),
-    (448, torch.float32, "windowed", 4), (264, torch.bfloat16, "wide", 1),
-    (512, torch.bfloat16, "wide", 1), (640, torch.bfloat16, "windowed", 5)])
+@pytest.mark.parametrize("kdim,dtype,forward,windows,cluster", [
+    (132, torch.float32, "wide", 1, 1), (384, torch.float32, "wide", 1, 1),
+    (448, torch.float32, "cluster", 1, 2),
+    (512, torch.float32, "cluster", 1, 2),
+    (3072, torch.float32, "cluster", 1, 8),
+    (3104, torch.float32, "windowed", 25, 1),
+    (264, torch.bfloat16, "wide", 1, 1), (512, torch.bfloat16, "wide", 1, 1),
+    (576, torch.bfloat16, "cluster", 1, 2),
+    (640, torch.bfloat16, "cluster", 1, 2),
+    (1024, torch.bfloat16, "cluster", 1, 2),
+    (4096, torch.bfloat16, "cluster", 1, 8),
+    (4160, torch.bfloat16, "windowed", 33, 1)])
 def test_the_forward_plan_names_the_wide_or_the_windowed_kernel(
-        kdim, dtype, forward, windows):
-    """The wide forward takes fp32 to K 384 and bf16 to K 512 in one
-    window; past that the windowed route's output windows of 128 columns
-    (a grid axis that forms S again in each). The backward past 128 (fp32)
-    and 256 (bf16) is the wide route's whatever the forward."""
+        kdim, dtype, forward, windows, cluster):
+    """The wide forward takes fp32 to K 384 and bf16 to K 512 in one CTA,
+    past that in one window as a thread-block cluster of ceil(K / 384) or
+    ceil(K / 512) CTAs, to 8 (K 3072 and 4096); past that the windowed
+    route's output windows of 128 columns (a grid axis that forms S again
+    in each). The backward past 128 (fp32) and 256 (bf16) is the wide
+    route's whatever the forward."""
     plan = fa.head_dim_plan(kdim, dtype)
-    assert (plan.forward, plan.windows, plan.backward) == (forward, windows,
-                                                           "wide")
+    assert (plan.forward, plan.windows, plan.backward, plan.cluster) == (
+        forward, windows, "wide", cluster)
     assert fa.forward_kernel(kdim, dtype) == forward
+    assert fa.cluster_size(kdim, dtype) == cluster
 
 
 @pytest.mark.parametrize("kdim", [65, 80, 96, 112, 128])
 def test_fp32_65_to_128_runs_the_128_instance_both_ways(kdim):
-    """fp32 K 65-128: the forward's 128 instance and the backward's column
-    halves (``backward_kernel`` "mma_sync", counted in
-    ``halves_backward_launches``), S whole in one chunk and window."""
-    assert fa.head_dim_plan(kdim) == fa.HeadDimPlan(128, 1, 1, 1, "mma_sync",
-                                                     "mma_sync")
+    """fp32 K 65-128: the 128-wide plan both ways, on column halves: the
+    wide forward's (``forward_kernel`` "halves", counted in
+    ``halves_launches``) and the backward's (``backward_kernel``
+    "mma_sync", counted in ``halves_backward_launches``), S whole in one
+    chunk and window, no cluster."""
+    assert fa.head_dim_plan(kdim) == fa.HeadDimPlan(128, 1, 1, 1, "halves",
+                                                     "mma_sync", 1)
 
 
 @pytest.mark.parametrize("kdim,chunks,windows,grad_windows", [
@@ -237,27 +251,34 @@ def test_backward_matches_jax(layout, kdim, dtype, pallas_backward):
         _close(mine, ref, TOLS[dtype], f"d{name}")
 
 
-WIDER = (192, 256)     # past 128: the kernels' wide route on the card
+# Past 128 (K, dtype): the kernels' wide route on the card, one CTA of the
+# wide forward at fp32 192 and 256, its thread-block clusters at fp32 448
+# (two CTAs of 7 and 6 32-column pairs) and bf16 576 (two of 5 and 4
+# 64-column boxes).
+WIDER = ((192, "float32"), (256, "float32"), (448, "float32"),
+         (576, "bfloat16"))
+# lse: fp32 logsumexps of the same rounded q and k, summed in other orders.
+LSE_TOLS = {"float32": 2e-5, "bfloat16": 1e-4}
 
 
 @pytest.mark.parametrize("layout", ["bnhk", "bhnk"])
-@pytest.mark.parametrize("kdim", WIDER)
-def test_wide_forward_lse_and_backward_match_jax(kdim, layout):
-    """K = 192 and 256 (JAX pads them to multiples of 64 and runs its
-    Pallas kernels): the port's forward and lse against JAX's forward
-    with lse, and dq/dk/dv against ``jax.vjp`` through JAX's Pallas
-    backward B2, all in interpret mode, fp32."""
+@pytest.mark.parametrize("kdim,dtype", WIDER)
+def test_wide_forward_lse_and_backward_match_jax(kdim, dtype, layout):
+    """K = 192, 256, 448 (fp32) and 576 (bf16) (JAX pads them to multiples
+    of 64 and runs its Pallas kernels): the port's forward and lse against
+    JAX's forward with lse, and dq/dk/dv against ``jax.vjp`` through JAX's
+    Pallas backward B2, all in interpret mode."""
     shape = _shape(layout, kdim)
-    (jq, jk, jv, jg), (tq, tk, tv, tg) = _inputs(shape, "float32",
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _inputs(shape, dtype,
                                                  seed=kdim + 3)
     out, lse = jax_fa._flash_forward(jq, jk, jv, 128, 128, True,
                                      with_lse=True, layout=layout)
     got, got_lse = fa.flash_attention(tq, tk, tv, layout=layout,
                                       with_lse=True)
-    _close(got, out, TOLS["float32"], "out")
+    _close(got, out, TOLS[dtype], "out")
     want_lse = np.asarray(lse)[:, 0, :N].reshape(1, 2, N)
     np.testing.assert_allclose(got_lse.numpy(), want_lse,
-                               atol=TOLS["float32"], rtol=TOLS["float32"])
+                               atol=LSE_TOLS[dtype], rtol=LSE_TOLS[dtype])
     _, vjp = jax.vjp(lambda a, b, c: jax_fa.flash_attention(
         a, b, c, block_q=128, block_kv=128, layout=layout, interpret=True,
         use_pallas_backward=True), jq, jk, jv)
@@ -266,17 +287,17 @@ def test_wide_forward_lse_and_backward_match_jax(kdim, layout):
                                 leaves, tg)
     for name, mine, ref in zip("qkv", grads, vjp(jg)):
         assert tuple(mine.shape) == shape
-        _close(mine, ref, TOLS["float32"], f"d{name}")
+        _close(mine, ref, TOLS[dtype], f"d{name}")
 
 
 @pytest.mark.parametrize("layout", ["bnhk", "bhnk"])
-@pytest.mark.parametrize("kdim", WIDER)
-def test_wide_dropout_forward_and_grads_match_jax(kdim, layout):
-    """K = 192 and 256 with dropout (rate 0.25, a seed near 2**32): JAX's
-    interpret-mode forward and its backward, which replays the mask,
-    against the port's, fp32."""
+@pytest.mark.parametrize("kdim,dtype", WIDER)
+def test_wide_dropout_forward_and_grads_match_jax(kdim, dtype, layout):
+    """K = 192, 256, 448 (fp32) and 576 (bf16) with dropout (rate 0.25, a
+    seed near 2**32): JAX's interpret-mode forward and its backward, which
+    replays the mask, against the port's."""
     shape = _shape(layout, kdim)
-    (jq, jk, jv, jg), (tq, tk, tv, tg) = _inputs(shape, "float32",
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _inputs(shape, dtype,
                                                  seed=kdim + 4)
     out, vjp = jax.vjp(lambda a, b, c: jax_fa.flash_attention(
         a, b, c, block_q=128, block_kv=128, layout=layout, interpret=True,
@@ -284,10 +305,10 @@ def test_wide_dropout_forward_and_grads_match_jax(kdim, layout):
     leaves = [t.requires_grad_() for t in (tq, tk, tv)]
     got = fa.flash_attention(*leaves, layout=layout, dropout_rate=RATE,
                              dropout_seed=SEED)
-    _close(got, out, TOLS["float32"], "out")
+    _close(got, out, TOLS[dtype], "out")
     for name, mine, ref in zip("qkv", torch.autograd.grad(got, leaves, tg),
                                vjp(jg)):
-        _close(mine, ref, TOLS["float32"], f"d{name}")
+        _close(mine, ref, TOLS[dtype], f"d{name}")
 
 
 # A narrow detector with ViT-H/14's head dim: 2 heads of 80 (padded to the

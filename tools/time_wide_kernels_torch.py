@@ -6,15 +6,18 @@ Shapes (1/sqrt(K) applied, tokens-major as the model hands them over;
 
   * ``w192``, ``w256``: (128, 256, K) bf16 on the wgmma 256 instance;
     ``w320``, ``w384``: (128, 256, K) bf16 on the wide forward, ``w576``
-    on the windowed one;
+    and ``w1024`` on its clusters (of 2 CTAs), ``w4160``: (32, 256, 4160)
+    on the windowed one (past the clusters' reach);
   * ``k256_b8``, ``k256_b32``: the K-256 detector (5 heads of 256) at
     batch 8 and 32, (40, 256, 256) and (160, 256, 256);
   * ``h64``, ``h128``: the 64 and 128 instances at (2048, 256, K),
     highres_1024's batch-8 fold and its K-128 counterpart;
   * fp32: ``f80``, ``f96``, ``f128``: (128, 256, K) (ViT-H/14's K 80 at
-    batch 8; the backward's column halves); ``f128_h``: (2048, 256, 128);
-    ``fw192``, ``fw256``, ``fw320``: (128, 256, K) on the wide forward;
-    ``r608``: reference_608's (64, 1296, 40);
+    batch 8; the column halves, forward and backward); ``f128_h``: (2048,
+    256, 128); ``fw192``, ``fw256``, ``fw320``: (128, 256, K) on the wide
+    forward, ``fw512`` on its cluster of 2 CTAs (what chip_smoke.py's
+    ``wide_heads`` launches at fp32 K 512); ``r608``: reference_608's
+    (64, 1296, 40);
   * ``ln768``: vit_b16_384's LayerNorm at batch 32, (18432, 768);
   * ``ln6144``, ``ln8192``: (2048, D), a batch of 8 at 256 tokens at
     ViT-22B's width, and D 8192.
@@ -65,6 +68,8 @@ FLASH = {"w192": (8, 16, 192, "bfloat16", 256),
          "w320": (8, 16, 320, "bfloat16", 256),
          "w384": (8, 16, 384, "bfloat16", 256),
          "w576": (8, 16, 576, "bfloat16", 256),
+         "w1024": (8, 16, 1024, "bfloat16", 256),
+         "w4160": (2, 16, 4160, "bfloat16", 256),
          "k256_b8": (8, 5, 256, "bfloat16", 256),
          "k256_b32": (32, 5, 256, "bfloat16", 256),
          "h64": (128, 16, 64, "bfloat16", 256),
@@ -76,6 +81,7 @@ FLASH = {"w192": (8, 16, 192, "bfloat16", 256),
          "fw192": (8, 16, 192, "float32", 256),
          "fw256": (8, 16, 256, "float32", 256),
          "fw320": (8, 16, 320, "float32", 256),
+         "fw512": (8, 16, 512, "float32", 256),
          "r608": (8, 8, 40, "float32", 1296)}
 LAYER_NORM = {"ln768": (18432, 768), "ln6144": (2048, 6144),
               "ln8192": (2048, 8192)}

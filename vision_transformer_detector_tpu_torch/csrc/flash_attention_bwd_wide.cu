@@ -14,7 +14,9 @@
 //     same values; the outputs (dk and dv, dq, the partials) are written
 //     in column windows of 64, a second grid axis picking a CTA's window,
 //     with the 64 instance's tiles and registers. Each window recomputes S
-//     and dP: ceil(K / 64) times their work, which no preset runs.
+//     and dP: ceil(K / 64) times their work, which no preset runs. In fp32
+//     past K 384 each chunk's S and dP are summed in fresh registers
+//     (chunk_sums), which keeps the gradients within 2e-5 at K 3104.
 // The Pallas kernel pads K to a multiple of 64 and sets no limit; neither
 // does this route. Budget: the two buffers of four 64 x (64 + 16 bytes)
 // tiles (139,264 bytes fp32, 73,728 bf16), the dk/dv kernel's lse and
@@ -25,6 +27,33 @@
 #include "flash_bwd_common.cuh"
 
 namespace {
+
+// kChunkSums (fp32 past K 384, kChunkSumsFrom): S and dP summed over K a
+// 64-column chunk at a time, each chunk's products formed in fresh
+// registers and added with one fp32 add, as the forward's tile sums are
+// (mma_sm90.cuh): carried through every chunk in the truncating mma
+// accumulator they drifted to 8.4e-5 of the largest gradient at K 3104.
+// The fresh registers cost 15-26 % at K 192-512 (PERF.md §6), so
+// the narrower widths, within 2e-5, keep the accumulator, and so does bf16
+// (held to 2e-2).
+constexpr int kChunkSumsFrom = 384;
+
+template <int kChunkSums, int kTiles>
+__device__ __forceinline__ void chunk_sums(float (&s)[kTiles][4],
+                                           float (&dp)[kTiles][4],
+                                           const float (&s_c)[kTiles][4],
+                                           const float (&dp_c)[kTiles][4]) {
+  if constexpr (kChunkSums != 0) {
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] += s_c[j][e];
+        dp[j][e] += dp_c[j][e];
+      }
+    }
+  }
+}
 
 // K > 128, dk and dv: block (blockIdx.x, blockIdx.y) is key tile
 // blockIdx.x % tiles of batch*head blockIdx.x / tiles and column window
@@ -38,7 +67,8 @@ namespace {
 // contribution, dS K, from K's window (staged once). The stages stream
 // through two buffers, stage i + 1's copies in flight while stage i is
 // multiplied.
-template <typename T, bool kDropout, bool kPartials, typename O>
+template <typename T, bool kDropout, bool kPartials, typename O,
+          int kChunkSums>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ g,
@@ -156,7 +186,12 @@ flash_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     if (c < chunks) {
-      // S^T += K[:, chunk] q[:, chunk]^T, dP^T += V[:, chunk] g[:, chunk]^T.
+      // S^T += K[:, chunk] q[:, chunk]^T, dP^T += V[:, chunk] g[:, chunk]^T;
+      // with kChunkSums each chunk's products in fresh registers, added
+      // with one fp32 add (chunk_sums).
+      float s_c[kBlock / 8][4] = {}, dp_c[kBlock / 8][4] = {};
+      auto& s_to = *(kChunkSums != 0 ? &s_c : &s);
+      auto& dp_to = *(kChunkSums != 0 ? &dp_c : &dp);
 #pragma unroll
       for (int kc = 0; kc < kChunk / 16; ++kc) {
         typename M::A ka, va;
@@ -166,13 +201,14 @@ flash_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int np = 0; np < kBlock / 16; ++np) {
           typename M::B b0, b1;
           M::load_b_nk(b0, b1, cur + 2 * kTile, kLd, 16 * np, 16 * kc, lane);
-          M::mma(s[2 * np], ka, b0);
-          M::mma(s[2 * np + 1], ka, b1);
+          M::mma(s_to[2 * np], ka, b0);
+          M::mma(s_to[2 * np + 1], ka, b1);
           M::load_b_nk(b0, b1, cur + 3 * kTile, kLd, 16 * np, 16 * kc, lane);
-          M::mma(dp[2 * np], va, b0);
-          M::mma(dp[2 * np + 1], va, b1);
+          M::mma(dp_to[2 * np], va, b0);
+          M::mma(dp_to[2 * np + 1], va, b1);
         }
       }
+      chunk_sums<kChunkSums>(s, dp, s_c, dp_c);
     } else {
       grads_t<kDropout>(s, dp, key_ok, hash_key, lse_s + (i & 1) * kBlock,
                         delta_s + (i & 1) * kBlock, q0, 0, seq_len, t, drop);
@@ -228,7 +264,7 @@ flash_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // and adds their products into S and dP; the last stages K's window, forms
 // dS as the narrow kernel does and adds dq += dS K in the window, the key
 // tiles in order.
-template <typename T, bool kDropout>
+template <typename T, bool kDropout, int kChunkSums>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ g,
@@ -329,7 +365,11 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     if (c < chunks) {
-      // S += q[:, chunk] K[:, chunk]^T, dP += g[:, chunk] V[:, chunk]^T.
+      // S += q[:, chunk] K[:, chunk]^T, dP += g[:, chunk] V[:, chunk]^T,
+      // with kChunkSums a chunk at a time in fresh registers (chunk_sums).
+      float s_c[kBlock / 8][4] = {}, dp_c[kBlock / 8][4] = {};
+      auto& s_to = *(kChunkSums != 0 ? &s_c : &s);
+      auto& dp_to = *(kChunkSums != 0 ? &dp_c : &dp);
 #pragma unroll
       for (int kc = 0; kc < kChunk / 16; ++kc) {
         typename M::A qa, ga;
@@ -339,13 +379,14 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int np = 0; np < kBlock / 16; ++np) {
           typename M::B b0, b1;
           M::load_b_nk(b0, b1, cur + 2 * kTile, kLd, 16 * np, 16 * kc, lane);
-          M::mma(s[2 * np], qa, b0);
-          M::mma(s[2 * np + 1], qa, b1);
+          M::mma(s_to[2 * np], qa, b0);
+          M::mma(s_to[2 * np + 1], qa, b1);
           M::load_b_nk(b0, b1, cur + 3 * kTile, kLd, 16 * np, 16 * kc, lane);
-          M::mma(dp[2 * np], ga, b0);
-          M::mma(dp[2 * np + 1], ga, b1);
+          M::mma(dp_to[2 * np], ga, b0);
+          M::mma(dp_to[2 * np + 1], ga, b1);
         }
       }
+      chunk_sums<kChunkSums>(s, dp, s_c, dp_c);
     } else {
       grads_q<kDropout>(s, dp, query_ok, hash_query, lse_r, delta_r,
                         i / stages * kBlock, seq_len, t, drop);
@@ -375,8 +416,8 @@ constexpr int wide_smem_bytes() {
 }
 
 
-template <typename T, bool kDropout, typename O>
-cudaError_t launch_wide(const Launch& a) {
+template <typename T, bool kDropout, typename O, int kChunkSums>
+cudaError_t launch_wide_sums(const Launch& a) {
   const int tiles = (a.seq_len + kBlock - 1) / kBlock;
   const unsigned int windows = (a.kdim + kChunk - 1) / kChunk;
   const T* qt = static_cast<const T*>(a.q);
@@ -387,7 +428,7 @@ cudaError_t launch_wide(const Launch& a) {
   if (a.partials != nullptr) {
     if constexpr (std::is_same<T, float>::value) {
       static std::atomic<unsigned long long> smem_allowed{0};
-      err = run(flash_bwd_wide_kernel<T, kDropout, true, T>,
+      err = run(flash_bwd_wide_kernel<T, kDropout, true, T, kChunkSums>,
                 wide_smem_bytes<T, true>(), smem_allowed, a, windows, qt, kt,
                 vt, gt, a.lse, a.delta, static_cast<T*>(a.dk),
                 static_cast<T*>(a.dv), a.partials, a.heads, a.seq_len,
@@ -398,18 +439,28 @@ cudaError_t launch_wide(const Launch& a) {
     }
   }
   static std::atomic<unsigned long long> smem_allowed{0}, smem_dq_allowed{0};
-  err = run(flash_bwd_wide_kernel<T, kDropout, false, O>,
+  err = run(flash_bwd_wide_kernel<T, kDropout, false, O, kChunkSums>,
             wide_smem_bytes<T, false>(), smem_allowed, a, windows, qt, kt, vt,
             gt, a.lse, a.delta, static_cast<O*>(a.dk), static_cast<O*>(a.dv),
             static_cast<float*>(nullptr), a.heads, a.seq_len, a.kdim, tiles,
             a.sq, a.sk, a.sv, a.sg, a.sdk, a.sdv, a.drop);
   if (err != cudaSuccess) return err;
-  return run(flash_bwd_dq_wide_kernel<T, kDropout>, wide_dq_smem_bytes<T>(),
+  return run(flash_bwd_dq_wide_kernel<T, kDropout, kChunkSums>,
+             wide_dq_smem_bytes<T>(),
              smem_dq_allowed, a, windows, qt, kt, vt, gt, a.lse, a.delta,
              a.dq, a.heads, a.seq_len, a.kdim, tiles, a.sq, a.sk, a.sv, a.sg,
              a.sdq, a.drop);
 }
 
+
+// fp32 past kChunkSumsFrom sums S and dP a chunk at a time (chunk_sums).
+template <typename T, bool kDropout, typename O>
+cudaError_t launch_wide(const Launch& a) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (a.kdim > kChunkSumsFrom) return launch_wide_sums<T, kDropout, O, 1>(a);
+  }
+  return launch_wide_sums<T, kDropout, O, 0>(a);
+}
 
 template <typename T, typename O>
 cudaError_t launch(bool dropout, const Launch& a) {

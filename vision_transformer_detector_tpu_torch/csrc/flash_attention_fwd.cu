@@ -1,11 +1,12 @@
 // Flash-attention forward for Hopper (sm_90a) on the tensor cores through
 // mma.sync, bound to Python through a plain C interface
 // (kernels/flash_attention.py loads it with ctypes). It runs fp32 at head
-// dims K <= 128 and, on its windowed route, fp32 past 384 and bf16 past
-// 512. bf16 at K <= 256 runs on wgmma and TMA
-// (flash_attention_fwd_sm90.cu); fp32 at 128 < K <= 384 and bf16 at
-// 256 < K <= 512 on flash_attention_fwd_wide.cu, which forms S once a tile
-// and stages Q once a CTA (kWideMaxF32, kWideMaxBf16).
+// dims K <= 64 and, on its windowed route, fp32 past 3072 and bf16 past
+// 4096. bf16 at K <= 256 runs on wgmma and TMA
+// (flash_attention_fwd_sm90.cu); fp32 at 64 < K <= 3072 and bf16 at
+// 256 < K <= 4096 on flash_attention_fwd_wide.cu, which forms S once a tile
+// and stages Q once a CTA, past 384 / 512 in a thread-block cluster
+// (kReachF32, kReachBf16).
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` in
 // vision_transformer_detector_tpu/kernels/flash_attention.py (launched by
@@ -61,28 +62,26 @@
 //   * O += P V: the S accumulator's layout is the next mma's A-fragment
 //     layout, so rounding P to the input type in registers is the Pallas
 //     kernel's `p.astype(v.dtype)` and P never touches shared memory;
-//   * instances of head dim 48, 64 and 128 take K <= 48, 48 < K <= 64 and
-//     64 < K <= 128 (the zero-filled columns are exact). The 128 instance
-//     keeps the 64-row tiles and the warp layout (the ring's per-lane
-//     normaliser state is the same); in fp32 it reloads Q's fragments from
-//     the shared tile at every key tile instead of holding them (3xTF32 hi
-//     and lo fragments of 16 rows x 128 would take 128 registers beside O's
-//     64), and every fp32 tile sum covers 64 columns a pass (mma_sm90.cuh);
-//   * the windowed route (flash_fwd_wide_kernel), for the K no other
-//     kernel holds whole (fp32 past 384, bf16 past 512): the same tiles and
-//     softmax, with S formed over the whole of K in 64-column chunks (each
-//     chunk of Q and of K staged in shared memory, the chunks added in
-//     column order, so S is the same in every CTA that forms it) and the
+//   * instances of head dim 48 and 64 take K <= 48 and 48 < K <= 64 (the
+//     zero-filled columns are exact); fp32 at 64 < K <= 128 runs the wide
+//     forward's column halves, which took 0.110 ms at (128, 256, 80) with
+//     lse where the 128 instance here took 0.186 (it reloaded and split
+//     Q's 3xTF32 fragments at every key tile in 4 warps; PERF.md §6);
+//   * the windowed route (flash_fwd_windowed_kernel), for the K past the
+//     wide forward's clusters (fp32 past 3072, bf16 past 4096): the same
+//     tiles and softmax, with S formed over the whole of K in 64-column
+//     chunks (each chunk of Q and of K staged in shared memory, the chunks
+//     added in column order, each chunk's fp32 product summed in fresh
+//     registers, so S is the same in every CTA that forms it) and the
 //     output in column windows of 128: a second grid axis picks which
 //     window of O a CTA owns, and each window recomputes S, so the softmax
 //     statistics and lse are bit-equal across windows (window 0 writes
 //     them). That costs ceil(K / 128) times the S work, and Q is staged
-//     again with every key tile; it took 0.165 ms at (128, 256, 320) bf16
-//     with lse (PERF.md §6) before that width moved to the wide
-//     forward. The Pallas kernel pads K to a multiple of 64 and sets no
-//     limit; neither does this route;
+//     again with every key tile: 4.2 ms at (32, 256, 4160) bf16 against
+//     SDPA memory-efficient's 0.31 (PERF.md §6). The Pallas kernel pads K
+//     to a multiple of 64 and sets no limit; neither does this route;
 //   * the output type is a template parameter: the input type, or fp32
-//     for a bf16 ring attention block past K 512
+//     for a bf16 ring attention block past K 4096
 //     (kernels/ring_attention.py merges the R blocks' unrounded outputs
 //     and rounds once, as JAX's ring does);
 //   * epilogue: O / l cast to the output type and stored through the
@@ -90,12 +89,13 @@
 //     stride, rows 16-byte aligned: the wrapper checks); lse = m + log l is
 //     written by one lane per row.
 // Budget (-Xptxas -v, sm_90a, CUDA 12.8, NVIDIA H100 80GB HBM3's machine):
-// the fp32 instances 222-255 registers, the widest with 8-72 bytes of
-// stack; the windowed route 169-171, no spills. Shared memory, 5 tiles of
-// 64 x (D + 16 bytes): fp32 66,560
-// (48), 87,040 (64), 168,960 (128); the windowed route's two buffers of two
-// 64 x (64 + 16 bytes) tiles: 69,632 fp32, 36,864 bf16; dynamic, with
-// cudaFuncAttributeMaxDynamicSharedMemorySize raised once per device.
+// the fp32 instances 222-255 registers, the 64 with dropout 8 bytes of
+// spill; the windowed route 169-171 in bf16, 255 in fp32 with 8 (52 with
+// dropout) bytes of spill since its chunk sums. Shared memory, 5 tiles of
+// 64 x (D + 16 bytes): fp32 66,560 (48), 87,040 (64); the windowed route's
+// two buffers of two 64 x (64 + 16 bytes) tiles: 69,632 fp32, 36,864 bf16;
+// dynamic, with cudaFuncAttributeMaxDynamicSharedMemorySize raised once
+// per device.
 // chip_smoke.py's build phase prints these numbers and the HMMA count of
 // each instance.
 
@@ -136,11 +136,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using M = Mma<T>;
   constexpr int kLd = D + M::kPad;
   constexpr int kTile = kBlock * kLd;
-  // Q's A fragments stay in registers for the whole loop, except in the
-  // 128-wide fp32 instance, whose 3xTF32 fragments (hi and lo) would take
-  // 128 registers beside the accumulator's 64: it reloads them from the
-  // shared Q tile, which no later copy overwrites, at every key tile.
-  constexpr bool kQResident = sizeof(T) == 2 || D <= 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);
   T* k_s = q_s + kTile;          // two buffers
@@ -170,7 +165,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                           kdim, tid);
   cp_async_commit();
 
-  typename M::A qa[kQResident ? D / 16 : 1];
+  typename M::A qa[D / 16];
   float acc[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -206,12 +201,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if constexpr (kQResident) {
-      if (it == 0) {
+    if (it == 0) {
 #pragma unroll
-        for (int kc = 0; kc < D / 16; ++kc) {
-          M::load_a(qa[kc], q_s, kLd, 16 * warp, 16 * kc, lane);
-        }
+      for (int kc = 0; kc < D / 16; ++kc) {
+        M::load_a(qa[kc], q_s, kLd, 16 * warp, 16 * kc, lane);
       }
     }
     const T* k_t = k_s + buf * kTile;
@@ -226,16 +219,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int kc = 0; kc < D / 16; ++kc) {
-      if constexpr (!kQResident) {
-        M::load_a(qa[0], q_s, kLd, 16 * warp, 16 * kc, lane);
-      }
-      const typename M::A& a = qa[kQResident ? kc : 0];
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         typename M::B b0, b1;
         M::load_b_nk(b0, b1, k_t, kLd, 16 * np, 16 * kc, lane);
-        M::mma(s[2 * np], a, b0);
-        M::mma(s[2 * np + 1], a, b1);
+        M::mma(s[2 * np], qa[kc], b0);
+        M::mma(s[2 * np + 1], qa[kc], b1);
       }
     }
     softmax_step<kDropout>(s, acc, m_row, l_row, hash_row, kv0, seq_len, t,
@@ -248,7 +237,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       so.n, bh, row0, seq_len, 0, kdim, t, true);
 }
 
-// K > 128. Block (blockIdx.x, blockIdx.y) is query tile blockIdx.x %
+// Past the wide forward's clusters (kReachF32, kReachBf16). Block
+// (blockIdx.x, blockIdx.y) is query tile blockIdx.x %
 // q_tiles of batch*head blockIdx.x / q_tiles, and output window
 // blockIdx.y: O's columns 128 * blockIdx.y .. + 127. Each key tile is a
 // run of stages, chunks + 1 of them: stage c < chunks stages the 64
@@ -259,11 +249,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // while stage i is multiplied.
 template <typename T, bool kDropout, typename O>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, O* __restrict__ o,
-                      RowState state, int heads, int seq_len, int kdim,
-                      int q_tiles, Strides sq, Strides sk, Strides sv,
-                      Strides so, Dropout drop) {
+flash_fwd_windowed_kernel(const T* __restrict__ q,
+                          const T* __restrict__ k,
+                          const T* __restrict__ v, O* __restrict__ o,
+                          RowState state, int heads, int seq_len, int kdim,
+                          int q_tiles, Strides sq, Strides sk, Strides sv,
+                          Strides so, Dropout drop) {
   using M = Mma<T>;
   constexpr int kLd = kChunk + M::kPad;
   constexpr int kTile = kBlock * kLd;
@@ -344,7 +335,11 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     if (c < chunks) {
-      // S += Q[:, chunk] K[:, chunk]^T.
+      // S += Q[:, chunk] K[:, chunk]^T; in fp32 each chunk's product is
+      // summed in fresh registers and added with one fp32 add, as the tile
+      // sums of O are (mma_sm90.cuh): carried through every chunk in the
+      // truncating accumulator, S drifted by 3.4e-5 in lse at K 3104.
+      float part[8][4] = {};
 #pragma unroll
       for (int kc = 0; kc < kChunk / 16; ++kc) {
         typename M::A a;
@@ -353,8 +348,20 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int np = 0; np < 4; ++np) {
           typename M::B b0, b1;
           M::load_b_nk(b0, b1, cur + kTile, kLd, 16 * np, 16 * kc, lane);
-          M::mma(s[2 * np], a, b0);
-          M::mma(s[2 * np + 1], a, b1);
+          if constexpr (M::kTileSums) {
+            M::mma(part[2 * np], a, b0);
+            M::mma(part[2 * np + 1], a, b1);
+          } else {
+            M::mma(s[2 * np], a, b0);
+            M::mma(s[2 * np + 1], a, b1);
+          }
+        }
+      }
+      if constexpr (M::kTileSums) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] += part[j][e];
         }
       }
     } else {
@@ -412,27 +419,26 @@ cudaError_t launch_kernel(const Launch& a) {
 }
 
 template <typename T, bool kDropout, typename O>
-cudaError_t launch_wide(const Launch& a) {
+cudaError_t launch_windowed(const Launch& a) {
   static std::atomic<unsigned long long> smem_allowed{0};
-  return run<T, O>(flash_fwd_wide_kernel<T, kDropout, O>,
+  return run<T, O>(flash_fwd_windowed_kernel<T, kDropout, O>,
                    wide_smem_bytes<T>(), smem_allowed,
                    (a.kdim + kWindow - 1) / kWindow, a);
 }
 
-// The instance of head dim K: fp32 48 (K <= 48), 64 (K <= 64) or 128
-// (K <= 128), and the windowed route past kWideMaxF32; bf16 only the
-// windowed route, past kWideMaxBf16. Every other K is another source's
-// (flash_attention_fwd_sm90.cu, flash_attention_fwd_wide.cu) and refused.
+// The instance of head dim K: fp32 48 (K <= 48) or 64 (K <= 64), and the
+// windowed route past the cluster route's reach (kReachF32, kReachBf16).
+// Every other K is another source's (flash_attention_fwd_sm90.cu,
+// flash_attention_fwd_wide.cu) and refused.
 template <typename T, typename O, bool kDropout>
 cudaError_t launch_dim(const Launch& a) {
   constexpr bool kF32 = std::is_same<T, float>::value;
-  if (a.kdim > (kF32 ? kWideMaxF32 : kWideMaxBf16)) {
-    return launch_wide<T, kDropout, O>(a);
+  if (a.kdim > (kF32 ? kReachF32 : kReachBf16)) {
+    return launch_windowed<T, kDropout, O>(a);
   }
   if constexpr (kF32) {
     if (a.kdim <= 48) return launch_kernel<T, 48, kDropout, O>(a);
     if (a.kdim <= 64) return launch_kernel<T, 64, kDropout, O>(a);
-    if (a.kdim <= 128) return launch_kernel<T, 128, kDropout, O>(a);
   }
   return cudaErrorInvalidValue;
 }
@@ -448,7 +454,7 @@ extern "C" {
 
 // One launch from the plan's argument block `args` (flash_launch.cuh) and
 // the call's device addresses and stream. dtype 0 = float32 (head_dim
-// <= 128 or > 384), 1 = bfloat16 (head_dim > 512 only); out_fp32 1 writes
+// <= 64 or > 3072), 1 = bfloat16 (head_dim > 4096 only); out_fp32 1 writes
 // the output in fp32 whatever the input dtype (a ring attention block), 0
 // in the input dtype. head_dim:
 // the caller's K, with K * the element size a multiple of 16 bytes; the

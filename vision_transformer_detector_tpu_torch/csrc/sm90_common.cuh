@@ -427,6 +427,39 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Thread-block clusters (the wide forward's cluster route): this CTA's rank
+// in its cluster; the cluster barrier, split into an arrival (release: the
+// shared-memory stores before it are visible to the cluster) and a wait
+// (acquire), which every thread of every CTA of the cluster runs in turn;
+// a shared-memory address of this CTA mapped to the same offset in the
+// CTA of rank `rank`; and a 16-byte load through such an address.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return static_cast<int>(rank);
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t mapped;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(mapped)
+               : "r"(addr), "r"(rank));
+  return mapped;
+}
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 // A barrier of the consumer warpgroup alone (named barrier 1, 128
 // threads): the producer warp never waits on it.
 __device__ __forceinline__ void consumers_sync() {

@@ -16,9 +16,10 @@ Routing is by the device of the tensors, never by a fallback:
     ``kernels/_build.py``) through the custom operators of kernels/ops.py,
     or raise: the forward operator ``torch.ops.vtd_torch.flash_attention_fwd``
     runs ``csrc/flash_attention_fwd_sm90.cu`` (wgmma fed by TMA) for bf16
-    at K <= 256, ``csrc/flash_attention_fwd_wide.cu`` for fp32 at 128 < K
-    <= 384 and bf16 at 256 < K <= 512 and ``csrc/flash_attention_fwd.cu``
-    (mma.sync) for the rest (``forward_kernel``), and
+    at K <= 256, ``csrc/flash_attention_fwd_wide.cu`` for fp32 at 64 < K
+    <= 3072 and bf16 at 256 < K <= 4096 (past 384 and 512 as a
+    thread-block cluster) and ``csrc/flash_attention_fwd.cu`` (mma.sync)
+    for the rest (``forward_kernel``), and
     ``flash_attention_bwd`` runs
     ``csrc/flash_attention_bwd_sm90.cu`` (wgmma fed by TMA) for bf16 at
     K <= 256, ``csrc/flash_attention_bwd.cu`` (mma.sync) for fp32 at
@@ -30,11 +31,15 @@ The kernels run on the tensor cores (bf16, and fp32 as 3xTF32) at every
 head dim K, as the JAX package does. The wgmma kernels (bf16) have
 instances of width 64, 128 and 256 and form the scores over the whole of
 K once per tile. The mma.sync kernels (``head_dim_plan``) take K <= 128 on
-instances of width 48, 64 or 128. Past that the wide forward forms the
-scores once a tile too, its two halves of a CTA each owning half of O's
-columns (fp32 on mma.sync to K 384, bf16 on wgmma to K 512), and the
-backward's wide route (and the forward wider still) forms the scores over
-K in 64-column chunks and writes the outputs in column windows. They read
+instances of width 48, 64 or 128 (the fp32 forward past 64 on the wide
+forward's column halves). Past that the wide forward forms the scores once
+a tile too, its two halves of a CTA each owning half of O's columns (fp32
+on mma.sync to K 384, bf16 on wgmma to K 512), and a thread-block cluster
+of ceil(K / 384) or ceil(K / 512) such CTAs (at most 8) past that, each
+owning a share of the columns, the partial scores summed across the
+cluster; the backward's wide route (and the forward past the cluster's
+reach, fp32 3072 and bf16 4096) forms the scores over K in 64-column
+chunks and writes the outputs in column windows. They read
 q, k, v (and the
 cotangent) at their own K: the loads zero-fill the columns past K and the
 stores stop at K. Rows must start on 16-byte boundaries; a K whose rows
@@ -116,9 +121,14 @@ _WGMMA_DIMS = (64, 128, 256)   # the wgmma kernels' (bf16, K <= 256)
 KEEP_WORD_KEYS = 32          # keys per word of the packed keep bits
 CHUNK = 64                   # the mma.sync wide route's S chunk (columns)
 FWD_WINDOW = 128             # the windowed forward's output window
-# The widest K of the wide forward (csrc/flash_attention_fwd_wide.cu) in
-# each dtype; the windowed forward takes every K past it.
+# The widest K one CTA of the wide forward (csrc/flash_attention_fwd_wide.cu)
+# holds in each dtype; past it a cluster of ceil(K / WIDE_FWD_MAX) CTAs, up
+# to CLUSTER_MAX (the portable cluster size), so to FWD_CLUSTER_REACH; the
+# windowed forward takes every K past that.
 WIDE_FWD_MAX = {torch.float32: 384, torch.bfloat16: 512}
+CLUSTER_MAX = 8
+FWD_CLUSTER_REACH = {dtype: CLUSTER_MAX * width
+                     for dtype, width in WIDE_FWD_MAX.items()}
 BWD_WINDOW = 64              # its backward output windows (dq, dk, dv)
 _ALIGN = 16                  # bytes: cp.async copies and TMA rows
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -457,6 +467,9 @@ flash_attention.lse_launches = 0            # forward with lse, no dropout
 flash_attention.drop_launches = 0           # forward with dropout
 flash_attention.wgmma_launches = 0          # forward on wgmma (any route)
 flash_attention.wide_launches = 0           # forward on the wide kernel
+flash_attention.halves_launches = 0         # on its fp32 column halves
+flash_attention.cluster_launches = 0        # on its clusters
+flash_attention.windowed_launches = 0       # forward on the windowed route
 flash_attention.backward_launches = 0       # backward, no dropout
 flash_attention.backward_drop_launches = 0  # backward with dropout replay
 # Of the two backward counts, the launches of the wgmma backward (bf16,
@@ -504,23 +517,27 @@ class HeadDimPlan(NamedTuple):
     own columns (only on the "windowed" forward, else 1) and
     ``grad_windows`` the backward's (dq, dk, dv) on its wide route;
     ``forward`` and ``backward`` the kernels that run
-    (``forward_kernel``, ``backward_kernel``)."""
+    (``forward_kernel``, ``backward_kernel``); ``cluster`` the CTAs of one
+    thread-block cluster of the forward (``cluster_size``: past 1 only on
+    its "cluster" route)."""
     instance: object
     chunks: int
     windows: int
     grad_windows: int
     forward: str
     backward: str
+    cluster: int = 1
 
 
 def head_dim_plan(kdim: int,
                   dtype: torch.dtype = torch.float32) -> HeadDimPlan:
     """The plan at K = ``kdim`` (any K >= 1, as the JAX package's Pallas
     kernels take any K) in ``dtype``: K <= 48 the 48 instance, K <= 64 the
-    64, K <= 128 the 128 (the backward's in fp32: its column halves); past
-    that "wide": S over ceil(K / 64) chunks and outputs in windows of
-    BWD_WINDOW columns in the backward, and one forward window but on the
-    windowed forward (fp32 past 384, bf16 past 512), whose windows are
+    64, K <= 128 the 128 (in fp32 the column halves, forward and
+    backward); past that "wide": S over ceil(K / 64) chunks and outputs in
+    windows of BWD_WINDOW columns in the backward, and one forward window
+    (a cluster of ``cluster_size`` CTAs past WIDE_FWD_MAX) but on the
+    windowed forward (fp32 past 3072, bf16 past 4096), whose windows are
     FWD_WINDOW columns."""
     if kdim < 1:
         raise ValueError(f"head dim {kdim} < 1")
@@ -531,7 +548,8 @@ def head_dim_plan(kdim: int,
             return HeadDimPlan(width, 1, 1, 1, forward, backward)
     windows = -(-kdim // FWD_WINDOW) if forward == "windowed" else 1
     return HeadDimPlan("wide", -(-kdim // CHUNK), windows,
-                       -(-kdim // BWD_WINDOW), forward, backward)
+                       -(-kdim // BWD_WINDOW), forward, backward,
+                       cluster_size(kdim, dtype))
 
 
 def kernel_width(kdim: int) -> int:
@@ -546,17 +564,35 @@ def kernel_width(kdim: int) -> int:
 def forward_kernel(kdim: int, dtype: torch.dtype) -> str:
     """Which forward kernel runs a call: "wgmma" (bf16 at K <= 256,
     csrc/flash_attention_fwd_sm90.cu, instance 64, 128 or 256),
-    "mma_sync" (fp32 at K <= 128, csrc/flash_attention_fwd.cu), "wide"
-    (fp32 at 128 < K <= 384 and bf16 at 256 < K <= 512,
-    csrc/flash_attention_fwd_wide.cu: S once a tile, O's columns in two
-    halves of the CTA) or "windowed" (wider still: the windowed route of
+    "mma_sync" (fp32 at K <= 64, csrc/flash_attention_fwd.cu, instance 48
+    or 64), and in csrc/flash_attention_fwd_wide.cu, where S is formed once
+    a tile and O's columns are split between the two halves of a CTA:
+    "halves" (fp32 at 64 < K <= 128: at most two 32-column pairs a half,
+    32-key tiles, two CTAs an SM),
+    "wide" (fp32 at 128 < K <= 384 and bf16 at 256 < K <= 512) and
+    "cluster" (past those, to FWD_CLUSTER_REACH: a thread-block cluster
+    of ``cluster_size`` CTAs, each holding a share of the columns); or
+    "windowed" (wider still: the windowed route of
     csrc/flash_attention_fwd.cu, S again in each 128-column window of
     O)."""
     if dtype == torch.bfloat16 and kdim <= _WGMMA_DIMS[-1]:
         return "wgmma"
-    if dtype == torch.float32 and kdim <= _HEAD_DIMS[-1]:
+    if dtype == torch.float32 and kdim <= _HEAD_DIMS[1]:
         return "mma_sync"
-    return "wide" if kdim <= WIDE_FWD_MAX[dtype] else "windowed"
+    if dtype == torch.float32 and kdim <= _HEAD_DIMS[-1]:
+        return "halves"
+    if kdim <= WIDE_FWD_MAX[dtype]:
+        return "wide"
+    return "cluster" if kdim <= FWD_CLUSTER_REACH[dtype] else "windowed"
+
+
+def cluster_size(kdim: int, dtype: torch.dtype) -> int:
+    """The CTAs of one thread-block cluster of the forward at K = ``kdim``:
+    ceil(K / WIDE_FWD_MAX) on the "cluster" route (2 to CLUSTER_MAX), else
+    1."""
+    if forward_kernel(kdim, dtype) != "cluster":
+        return 1
+    return -(-kdim // WIDE_FWD_MAX[dtype])
 
 
 def backward_kernel(kdim: int, dtype: torch.dtype) -> str:

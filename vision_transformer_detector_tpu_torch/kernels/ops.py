@@ -94,6 +94,10 @@ def _library(kind: str) -> ctypes.CDLL:
     # seed's and the stream.
     fn.argtypes = [ctypes.c_void_p] * _POINTERS.get(kind, 13)
     fn.restype = ctypes.c_int
+    if kind == "fwd_wide":
+        query = lib.vtd_flash_attention_fwd_wide_clusters
+        query.argtypes = [ctypes.c_void_p]
+        query.restype = ctypes.c_int
     if kind in _QUERIED:
         query = getattr(lib, _entry(kind) + "_plan")
         query.argtypes = [ctypes.c_void_p]
@@ -190,9 +194,11 @@ class LaunchPlan(NamedTuple):
     ``(shape, stride, dtype)``, the workspace's ``(shape, dtype)`` or
     None, the launch counters it adds one to, whether it reads a dropout
     seed, and for the backward whether the operator casts dq to q's dtype
-    after the launch. ``fn`` (the C entry point), ``lib`` and ``stream``
-    (``index -> the current stream``) are bound when the operator first
-    uses the plan (``_bound``): building a plan needs no card."""
+    after the launch; for the forward the CTAs of one thread-block cluster
+    (``flash_attention.cluster_size``, 1 off the cluster route). ``fn``
+    (the C entry point), ``lib`` and ``stream`` (``index -> the current
+    stream``) are bound when the operator first uses the plan (``_bound``):
+    building a plan needs no card."""
     kind: str
     kernel: str
     args: ctypes.Structure
@@ -203,6 +209,7 @@ class LaunchPlan(NamedTuple):
     counts: tuple
     dropout: bool
     cast_dq: bool = False
+    cluster: int = 1
     fn: object = None
     lib: object = None
     stream: object = None
@@ -261,8 +268,11 @@ def _bound(plan):
     loaded (built at the first use), its C entry point and the stream
     reader; for B3 and B5 the instance asked of the source's plan query
     (which writes it into the block) and whether it runs on the tensor
-    cores."""
+    cores; for the forward's cluster route the check that a cluster of its
+    instance can be resident on the device (``_check_clusters``)."""
     lib = _library(plan.kind)
+    if getattr(plan, "kernel", None) == "cluster":
+        _check_clusters(lib, plan)
     if plan.kind in _QUERIED:
         err = getattr(lib, _entry(plan.kind) + "_plan")(plan.args_ptr)
         if err:
@@ -270,6 +280,25 @@ def _bound(plan):
         plan = plan._replace(tensor_core=plan.args.instance > 0)
     return plan._replace(fn=getattr(lib, _entry(plan.kind)), lib=lib,
                          stream=_raw_stream())
+
+
+def _check_clusters(lib, plan) -> None:
+    """Raise RuntimeError unless at least one thread-block cluster of the
+    plan's instance (``plan.cluster`` CTAs, each with the dynamic shared
+    memory it takes) can be resident on the plan's device at once, as
+    cudaOccupancyMaxActiveClusters answers; asked once per plan. There is
+    no other route to give way to: the windowed one is the forward past
+    the cluster's reach only."""
+    resident = lib.vtd_flash_attention_fwd_wide_clusters(plan.args_ptr)
+    if resident < 0:
+        _build.raise_on_error(lib, -resident, "flash attention forward "
+                              "(cluster occupancy query)")
+    if resident == 0:
+        raise RuntimeError(
+            f"no thread-block cluster of {plan.cluster} CTAs of the flash "
+            f"forward at head dim {plan.args.head_dim} can be resident on "
+            f"{plan.device}: the cluster route needs {plan.cluster} SMs of "
+            "one GPC free at once")
 
 
 def forward_plan(q, k, v, layout: str, with_lse: bool, dropout_seed,
@@ -315,11 +344,16 @@ def forward_plan(q, k, v, layout: str, with_lse: bool, dropout_seed,
     counts = (("drop_launches" if dropout is not None
                else "lse_launches" if with_lse else "launches",)
               + {"wgmma": ("wgmma_launches",),
-                 "wide": ("wide_launches",)}.get(kernel, ()))
-    kind = {"wgmma": "fwd_sm90", "wide": "fwd_wide", "mma_sync": "fwd",
+                 "halves": ("halves_launches",),
+                 "wide": ("wide_launches",),
+                 "cluster": ("cluster_launches",),
+                 "windowed": ("windowed_launches",)}.get(kernel, ()))
+    kind = {"wgmma": "fwd_sm90", "halves": "fwd_wide", "wide": "fwd_wide",
+            "cluster": "fwd_wide", "mma_sync": "fwd",
             "windowed": "fwd"}[kernel]
     return LaunchPlan(kind, kernel, args, ctypes.addressof(args), q.device,
-                      outputs, None, counts, dropout is not None)
+                      outputs, None, counts, dropout is not None,
+                      cluster=fa.cluster_size(q.shape[-1], q.dtype))
 
 
 def _flash_fwd_cuda(q, k, v, layout, with_lse, dropout_seed, dropout_rate,
@@ -341,9 +375,10 @@ def _flash_fwd_cuda(q, k, v, layout, with_lse, dropout_seed, dropout_rate,
     ``inner_local``/``inner_global``/``inner_base`` place the mask
     (flash_attention.mask_coords). One launch of the kernel
     ``flash_attention.forward_kernel`` names: bf16 at K <= 256
-    csrc/flash_attention_fwd_sm90.cu (wgmma fed by TMA), fp32 at 128 < K
-    <= 384 and bf16 at 256 < K <= 512 csrc/flash_attention_fwd_wide.cu,
-    the rest csrc/flash_attention_fwd.cu (mma.sync)."""
+    csrc/flash_attention_fwd_sm90.cu (wgmma fed by TMA), fp32 at 64 < K
+    <= 3072 and bf16 at 256 < K <= 4096 csrc/flash_attention_fwd_wide.cu
+    (in thread-block clusters past 384 and 512), the rest
+    csrc/flash_attention_fwd.cu (mma.sync)."""
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     coords = (bh_base, q_base, k_base, inner_local, inner_global, inner_base)
     key = (layout, with_lse, dropout_rate, coords, out_fp32, suspend,
