@@ -43,7 +43,8 @@ PyTorch version. Phases, one output line each:
                     the wide route (K 192), a ring block's resume and
                     suspend, and the backward on wgmma (bf16 dq, the
                     replay, fp32 dq/dk/dv), on mma.sync (both dq routes)
-                    and on the wide route; the bf16 dq its kernel writes
+                    and on the wide library's cluster route; the bf16 dq
+                    its kernel writes
                     equal to the fp32 dq cast, bit for bit; then the
                     other five operators' launch path: host and event ms
                     a call of the LayerNorm, the dense+mish, both int8
@@ -211,8 +212,10 @@ PyTorch version. Phases, one output line each:
                     192, 256, 320, 384, 512 in one layout each, bf16 and
                     fp32 (bf16 up to 256 on the wgmma 256 instance, K 129
                     padded to 192; the wide forward for fp32 to 384 and
-                    bf16 to 512, the windowed one past; the backward's wide
-                    route; fp32 B2 at 80 and 128 on the column halves),
+                    bf16 to 512, the windowed one past; the backward's
+                    cluster route to fp32 1024 and bf16 2048, its windowed
+                    route past; fp32 B2 at 80 and 128 on the column
+                    halves),
                     against the plain versions (forward, lse, dropout
                     forward, backward by each dq route and with the
                     replay, the fp32-output instance and fp32 dk/dv), the
@@ -469,10 +472,13 @@ def phase_build():
     # column halves ("fp32_d128"), each with and without dropout (10); the
     # backward: fp32 at 48, 64, 128 (the column halves), each with
     # and without dropout, for the dk/dv kernel, the dq kernel ("_dq") and
-    # the partials route ("_partials"): 6 + 6 + 6; its wide route both
-    # types at one width: 4 + 4 + 2.
+    # the partials route ("_partials"): 6 + 6 + 6; the wide library's
+    # windowed route, both types (dk/dv 4, dq 4, fp32 partials 2; the
+    # output types count as one) and its clusters,
+    # fp32 (HMMA: dk/dv, partials, dq) and bf16 (HGMMA: dk/dv, dq), each
+    # with and without dropout (6 + 4).
     instances = {fa.FWD_SOURCE: 8, fa.FWD_WIDE_SOURCE: 10,
-                 fa.BWD_SOURCE: 18, fa.BWD_WIDE_SOURCE: 10}
+                 fa.BWD_SOURCE: 18, fa.BWD_WIDE_SOURCE: 20}
     hmma = {source: _tensor_core_instructions(_build.library_path(source))
             for source in instances}
     for source, counts in hmma.items():
@@ -507,19 +513,22 @@ def phase_build():
                      f"{dense[source]}")
     hmma.update(dense)
     # The redesigned wide forward (one CTA, a cluster, the fp32 column
-    # halves) and the backward's fp32 column halves: registers, spills
-    # and dynamic shared memory of each instance (the wide forward at its
-    # widest K in each type, the halves by kernel), and each cluster
-    # instance's size and resident clusters at the K the checks run; the
-    # halves and the clusters must spill nothing.
+    # halves), the backward's fp32 column halves and the wide backward's
+    # clusters: registers, spills and dynamic shared memory of each
+    # instance (the wide forward at its widest K in each type, the halves
+    # and the backward's clusters by kernel), and each cluster instance's
+    # size and resident clusters at the K the checks run; the halves and
+    # the clusters must spill nothing.
     for source, keep in ((fa.FWD_WIDE_SOURCE, ("_wide", "_cluster",
                                                "_d128")),
-                         (fa.BWD_SOURCE, ("_d128",))):
+                         (fa.BWD_SOURCE, ("_d128",)),
+                         (fa.BWD_WIDE_SOURCE, ("_cluster",))):
         REDESIGNED[source] = {
             name: found for name, found in _flash_registers(
                 _build.BUILD_LOGS[source]).items()
             if any(part in name for part in keep)}
-    for source, count in ((fa.BWD_SOURCE, 6), (fa.FWD_WIDE_SOURCE, 10)):
+    for source, count in ((fa.BWD_SOURCE, 6), (fa.FWD_WIDE_SOURCE, 10),
+                          (fa.BWD_WIDE_SOURCE, 10)):
         found = REDESIGNED[source]
         _require(len(found) == count and all(
             r["spill_stores"] == 0 and r["spill_loads"] == 0
@@ -535,14 +544,15 @@ def phase_build():
     return hgmma
 
 
-# Registers, spills and shared memory of the wide forward and the fp32
-# column halves (phase_build).
+# Registers, spills and shared memory of the wide forward, the fp32
+# column halves and the wide backward's clusters (phase_build).
 REDESIGNED: dict = {}
 
 
 def _redesigned_smem() -> dict:
-    """Dynamic shared memory of the wide forward (fp32 at K 384, bf16) and
-    the fp32 column halves (dk/dv, dk/dv with the partials, dq), as their
+    """Dynamic shared memory of the wide forward (fp32 at K 384, bf16), the
+    fp32 column halves (dk/dv, dk/dv with the partials, dq) and the wide
+    backward's clusters (fp32 dk/dv, with the partials, dq; bf16), as their
     sources compute it."""
     import ctypes
 
@@ -554,28 +564,40 @@ def _redesigned_smem() -> dict:
         fa.FWD_WIDE_SOURCE).vtd_flash_attention_fwd_wide_smem
     bwd = _build.load_library(
         fa.BWD_SOURCE).vtd_flash_attention_bwd_halves_smem
-    for fn in (fwd, bwd):
+    wide = _build.load_library(
+        fa.BWD_WIDE_SOURCE).vtd_flash_attention_bwd_cluster_smem
+    for fn in (fwd, bwd, wide):
         fn.restype = ctypes.c_int
     fwd.argtypes = [ctypes.c_int, ctypes.c_int]
     bwd.argtypes = [ctypes.c_int]
+    wide.argtypes = [ctypes.c_int]
     return {"fp32_wide_k384": fwd(0, 384), "fp32_wide_k256": fwd(0, 256),
             "bf16_wide": fwd(1, 512), "fp32_d128_fwd": fwd(0, 128),
             "fp32_cluster_k512": fwd(0, 512),
             "fp32_cluster_k3072": fwd(0, 3072), "bf16_cluster": fwd(1, 576),
             "fp32_d128": bwd(0), "fp32_d128_partials": bwd(1),
-            "fp32_d128_dq": bwd(2)}
+            "fp32_d128_dq": bwd(2), "bwd_fp32_cluster": wide(0),
+            "bwd_fp32_cluster_partials": wide(1),
+            "bwd_fp32_cluster_dq": wide(2), "bwd_bf16_cluster": wide(3)}
 
 
-# (dtype, K) of the forward's cluster route that the checks run.
+# (dtype, K) of the forward's cluster route that the checks run, and of
+# the backward's.
 CLUSTER_DIMS = (("bfloat16", 576), ("bfloat16", 1024), ("bfloat16", 4096),
                 ("float32", 512), ("float32", 576), ("float32", 1024),
                 ("float32", 3072))
+BWD_CLUSTER_DIMS = (("bfloat16", 320), ("bfloat16", 576),
+                    ("bfloat16", 1024), ("bfloat16", 2048),
+                    ("float32", 192), ("float32", 256), ("float32", 512),
+                    ("float32", 576), ("float32", 1024))
 
 
 def _cluster_sizes() -> dict:
-    """Each cluster instance at CLUSTER_DIMS: the CTAs of a cluster (the
-    plan's) and how many such clusters the card holds at once (the plan's
-    occupancy query, which must be above 0)."""
+    """Each cluster instance at CLUSTER_DIMS (the forward) and
+    BWD_CLUSTER_DIMS (the backward, "bwd_" names): the CTAs of a cluster
+    (the plan's) and how many such clusters the card holds at once (the
+    plan's occupancy query, the least over the backward's kernels, which
+    must be above 0)."""
     import torch
 
     from vision_transformer_detector_tpu_torch.kernels import (
@@ -596,6 +618,20 @@ def _cluster_sizes() -> dict:
                  f"of {plan.cluster} CTAs resident")
         found[f"{dtype_name}_k{kd}"] = {"cluster": plan.cluster,
                                         "resident_clusters": resident}
+    for dtype_name, kd in BWD_CLUSTER_DIMS:
+        dtype = getattr(torch, dtype_name)
+        q = torch.zeros(1, 64, 1, kd, dtype=dtype, device="cuda")
+        lse = torch.zeros(1, 1, 64, device="cuda")
+        plan = ops.backward_plan(q, q, q, q, lse, lse, "bnhk", None, 0.0, 0,
+                                 (0, 0, 0, 1, 1, 0), False, False)
+        _require(plan.kernel == "cluster", f"backward {dtype_name} K {kd}: "
+                 f"{plan.kernel}")
+        resident = ops._library(plan.kind) \
+            .vtd_flash_attention_bwd_clusters(plan.args_ptr)
+        _require(resident > 0, f"backward {dtype_name} K {kd}: {resident} "
+                 f"clusters of {plan.cluster} CTAs resident")
+        found[f"bwd_{dtype_name}_k{kd}"] = {"cluster": plan.cluster,
+                                            "resident_clusters": resident}
     return found
 
 
@@ -619,7 +655,9 @@ def _tensor_core_instructions(library: str,
                               mnemonic: str = r"H(G)?MMA") -> dict:
     """``mnemonic`` lines (HMMA/HGMMA by default) of each flash kernel
     instance in the library's SASS (cuobjdump from nvcc's toolkit), by
-    "<type>_d<head dim>[_drop]" ("_wide" for the wide route's kernels),
+    "<type>_d<head dim>[_drop]" ("_wide", "_cluster" or "_windowed" in
+    place of "_d<head dim>" for the wide forward's, the clusters' and the
+    windowed routes' kernels),
     "_dq" after the backward's dq kernel's, "_partials" after the dk/dv
     kernel's that also forms the dq partials (fp32); the wgmma kernels'
     (bf16: ``flash_fwd_sm90_kernel``, ``flash_bwd_sm90_kernel``,
@@ -1908,7 +1946,9 @@ def _reset_counts() -> None:
                         "wgmma_launches", "wide_launches",
                         "backward_launches", "backward_drop_launches",
                         "wgmma_backward_launches",
-                        "halves_backward_launches", "operand_copies")),
+                        "halves_backward_launches",
+                        "cluster_backward_launches",
+                        "windowed_backward_launches", "operand_copies")),
                       (qz.fused_int8_dense,
                        ("launches", "tensor_core_launches")),
                       (qz.int8_dense, ("launches", "tensor_core_launches")),
@@ -5020,7 +5060,9 @@ def phase_parallel() -> dict:
 # 256 instance up to 256 (K 129 padded to 192 for it), the wide forward for
 # fp32 to 384 and bf16 320-512 in one CTA, its clusters for fp32 512, 576
 # and 1024 and bf16 576 and 1024, the windowed forward past the clusters'
-# reach (K 4160), the backward's wide route for both past 128 / 256.
+# reach (K 4160); the backward's cluster route past fp32 128 / bf16 256
+# (fp32 1024 on a cluster of 8, bf16 1024 of 4), its windowed route at
+# K 4160.
 WIDE_DIMS = ((80, ("bhnk", "bnhk")), (128, ("bhnk", "bnhk")),
              (129, ("bhnk",)), (192, ("bnhk",)), (256, ("bhnk",)),
              (320, ("bnhk",)), (384, ("bhnk",)), (512, ("bnhk",)),
@@ -5035,19 +5077,22 @@ WIDE_RING_N = 256              # two ring blocks of 128 keys (whole tiles)
 # 1024 and fp32 512, the windowed one at bf16 4160 (past the clusters'
 # reach; batch 2), and the fp32 column halves at ViT-H/14's (128, 256, 80)
 # and at (2048, 256, 128); fp32 B2 on the column halves at K 80, 96, 128
-# (WIDE_FP32_BWD).
+# and on the backward's clusters at K 256 and 512 (WIDE_FP32_BWD); B2 past
+# the clusters' reach, the windowed route, at bf16 (32, 256, 2112)
+# (WIDE_WINDOWED_BWD).
 WIDE_FWD_TIMED = ((8, 16, 192, "float32"), (8, 16, 256, "float32"),
                   (8, 16, 320, "float32"), (8, 16, 320, "bfloat16"),
                   (8, 16, 384, "bfloat16"), (8, 16, 576, "bfloat16"),
                   (8, 16, 1024, "bfloat16"), (8, 16, 512, "float32"),
                   (2, 16, 4160, "bfloat16"),
                   (8, 16, 80, "float32"), (128, 16, 128, "float32"))
-WIDE_FP32_BWD = (80, 96, 128)
+WIDE_FP32_BWD = (80, 96, 128, 256, 512)
+WIDE_WINDOWED_BWD = (2, 16, 2112)
 # (batch, heads, K), timed as (B * H, 256, K) bf16: the wide_heads model's
 # (16 heads of 80, the 128 instance) at batch 1, 8, 32; (2048, 256, 128)
 # at the instance's own width; (128, 256, 192) and (128, 256, 256) on the
 # wgmma 256 instance, and the K-256 model's (5 heads of 256) at batch 8
-# and 32; (128, 256, 320) on the wide forward and the backward's wide
+# and 32; (128, 256, 320) on the wide forward and the backward's cluster
 # route.
 WIDE_TIMED = ((1, 16, 80), (8, 16, 80), (32, 16, 80), (128, 16, 128),
               (8, 16, 192), (8, 16, 256), (8, 5, 256), (32, 5, 256),
@@ -5071,8 +5116,10 @@ def _wide_kernels() -> dict:
     129, 192, 256, 320, 384, 512, 576, 1024, 4160 in one layout each, bf16
     and fp32 (bf16 up to 256 on the wgmma 256 instance, the forward past
     that on the wide kernel in one CTA or in a cluster, or on the windowed
-    one, the backward on its wide route), each forward counted on the
-    route ``forward_kernel`` names, against the plain versions at the
+    one, the backward on its cluster route or past its reach its windowed
+    one), each forward counted on the route ``forward_kernel`` names and
+    each backward on the one ``backward_kernel`` names, against the plain
+    versions at the
     tolerances the 64-wide instance is held to: the forward, its lse, the
     dropout forward, the backward by each dq route and with the mask
     replayed, the fp32-output instance and fp32 dk/dv (a ring block), the
@@ -5104,12 +5151,17 @@ def _wide_kernels() -> dict:
                 f.wide_launches)
 
     # K > 128: the launches of the wide forward (by type, one CTA and
-    # clusters), the windowed forward, the backward's wide route and the
-    # wgmma 256 instance; at K 80 and 128 those of the fp32 column halves
-    # (forward and backward).
+    # clusters), the windowed forward, the wide library's backward (all,
+    # its clusters by type, its windowed route) and the wgmma 256
+    # instance; at K 80 and 128 those of the fp32 column halves (forward
+    # and backward).
     wide_launches = {"fwd": 0, "fwd_fp32": 0, "fwd_bf16": 0, "bwd": 0,
                      "cluster_fwd_fp32": 0, "cluster_fwd_bf16": 0,
-                     "windowed_fwd": 0, "halves_fwd": 0}
+                     "windowed_fwd": 0, "halves_fwd": 0,
+                     "cluster_bwd_fp32": 0, "cluster_bwd_bf16": 0,
+                     "windowed_bwd": 0}
+    bwd_counters = ("cluster_backward_launches",
+                    "windowed_backward_launches")
     counters = {"wgmma": "wgmma_launches", "halves": "halves_launches",
                 "wide": "wide_launches", "cluster": "cluster_launches",
                 "windowed": "windowed_launches"}
@@ -5163,6 +5215,8 @@ def _wide_kernels() -> dict:
                 routes = ((None, "split", "partials")
                           if dtype == torch.float32 else (None,))
                 at_bwd = _backward_totals()
+                bwd_before = [getattr(fa.flash_attention, c)
+                              for c in bwd_counters]
                 for route in routes:
                     grads = fa._launch_backward(q, k, v, g, lse, delta,
                                                 layout, route=route)
@@ -5200,10 +5254,24 @@ def _wide_kernels() -> dict:
                     err["bwd_fp32_dkv_rel"] = max(
                         _rel_err(a, b) for a, b in zip(f_grads, f_plain))
                 torch.cuda.synchronize()
-                # bf16 at K <= 128: every route on the wgmma backward.
-                _require_backward_kernel(
-                    at_bwd, fa.backward_kernel(kd, dtype) == "wgmma",
-                    f"wide_heads {name}")
+                # bf16 at K <= 256: every route on the wgmma backward;
+                # past fp32 128 and bf16 256 every one on the route that
+                # backward_kernel names, the cluster or the windowed one.
+                bwd_kernel = fa.backward_kernel(kd, dtype)
+                bwd_launched = _require_backward_kernel(
+                    at_bwd, bwd_kernel == "wgmma", f"wide_heads {name}")
+                bwd_moved = [getattr(fa.flash_attention, c) - n
+                             for c, n in zip(bwd_counters, bwd_before)]
+                _require(bwd_moved == [
+                    bwd_launched if bwd_kernel == route else 0
+                    for route in ("cluster", "windowed")],
+                         f"wide_heads {name}: backward routes {bwd_moved} "
+                         f"of {bwd_launched} launches, expected all on "
+                         f"{bwd_kernel}")
+                wide_launches["cluster_bwd_" + (
+                    "fp32" if dtype == torch.float32 else "bf16")] \
+                    += bwd_moved[0]
+                wide_launches["windowed_bwd"] += bwd_moved[1]
                 for key, value in err.items():
                     if key == "bwd_abs":     # reported; held relative
                         continue
@@ -5281,7 +5349,9 @@ def _wide_kernels() -> dict:
     # instance of the wide model's training (bf16, with and without the
     # replay) and both fp32 routes, at (128, 256, 80); the wgmma 256
     # instance at K 192 and 256 with and without the replay (the K-256
-    # model's training), the wide route's fp32 partials at 192.
+    # model's training); the backward's clusters, fp32 partials at 192 and
+    # split at 512, bf16 at 320 with and without the replay, and its
+    # windowed route at bf16 2112.
     repeats = {}
     for dtype, dropout, route, kd, batch in (
             (torch.bfloat16, None, None, 80, 8),
@@ -5295,7 +5365,11 @@ def _wide_kernels() -> dict:
             (torch.bfloat16, drop, None, 192, 2),
             (torch.bfloat16, None, None, 256, 2),
             (torch.bfloat16, drop, None, 256, 2),
-            (torch.float32, None, "partials", 192, 2)):
+            (torch.float32, None, "partials", 192, 2),
+            (torch.float32, None, "split", 512, 1),
+            (torch.bfloat16, None, None, 320, 2),
+            (torch.bfloat16, drop, None, 320, 2),
+            (torch.bfloat16, None, None, 2112, 1)):
         q, k, v, g = _wide_inputs(gen, "bnhk", batch, 256, WIDE_HEADS, kd,
                                   dtype)
         out, lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
@@ -5308,8 +5382,9 @@ def _wide_kernels() -> dict:
                                     dropout, route)
     _require(all(wide_launches[key] > 0 for key in (
         "fwd_fp32", "fwd_bf16", "cluster_fwd_fp32", "cluster_fwd_bf16",
-        "windowed_fwd", "halves_fwd", "bwd")),
-             f"wide_heads: a forward route ran no launch: {wide_launches}")
+        "windowed_fwd", "halves_fwd", "bwd", "cluster_bwd_fp32",
+        "cluster_bwd_bf16", "windowed_bwd")),
+             f"wide_heads: a route ran no launch: {wide_launches}")
     return {"errors": errors, "ring": ring, "b2_repeats": repeats,
             "wide_launches": wide_launches,
             "halves_launches": halves_launches,
@@ -5407,7 +5482,7 @@ def _wide_times() -> dict:
     32, (2048, 256, 128) (the 128-wide wgmma instances), (128, 256, 192),
     (128, 256, 256) and the K-256 model's (40, 256, 256) and (160, 256,
     256) (the 256 instance), (128, 256, 320) (the wide forward and the
-    backward's wide route),
+    backward's cluster route),
     tokens-major as the model runs them: the serving forward, the forward
     with lse and the
     backward, each held against its plain version at that shape
@@ -5415,7 +5490,9 @@ def _wide_times() -> dict:
     attention on the same (heads-major) inputs, forward and backward, and
     each beside its bound; WIDE_FWD_TIMED's forwards
     (``_wide_forward_times``); fp32 B2 at (128, 256, K) for K in
-    WIDE_FP32_BWD by both dq routes beside SDPA's fp32 backward."""
+    WIDE_FP32_BWD (the column halves, the backward's clusters) by both dq
+    routes beside SDPA's fp32 backward; bf16 B2 on the windowed route at
+    WIDE_WINDOWED_BWD beside its plain version and SDPA's backward."""
     import torch
 
     from vision_transformer_detector_tpu_torch.kernels import (
@@ -5457,8 +5534,9 @@ def _wide_times() -> dict:
                                                         with_lse=True),
                 "library_ms": lambda: _sdpa(*hm[:3], backend)}, 20),
                 4 * bh * n * n * kd, 4 * operand + rows),
-            # q, k, v, g read and dk, dv written (bf16), dq written
-            # (fp32), lse and delta read.
+            # q, k, v, g read and dq, dk, dv written (bf16: the dq
+            # kernels of the wgmma and cluster routes round dq, the
+            # windowed route's operator casts it), lse and delta read.
             "bwd": (_in_turns({
                 "plain_ms": lambda: fa.reference_attention_backward(
                     q, k, v, g),
@@ -5466,7 +5544,7 @@ def _wide_times() -> dict:
                                                          delta, "bnhk"),
                 "library_ms": lambda: torch.autograd.grad(
                     lib_out, leaves, hm[3], retain_graph=True)}, 20),
-                10 * bh * n * n * kd, 6 * operand + 2 * operand + 2 * rows),
+                10 * bh * n * n * kd, 7 * operand + 2 * rows),
         }
         entry = {}
         for what, (t, ops, nbytes) in run.items():
@@ -5526,7 +5604,42 @@ def _wide_times() -> dict:
                                     (7 * bh * n * kd + 2 * bh * n) * 4,
                                     "3xtf32")
         times[f"{bh}x{n}x{kd}_fp32_bwd"] = dict(
-            fp32, bound_ms=bound_ms, bound_by=bound_by, errors=errors)
+            fp32, bound_ms=bound_ms, bound_by=bound_by, errors=errors,
+            backward_kernel=fa.backward_kernel(kd, torch.float32),
+            plan=fa.head_dim_plan(kd)._asdict())
+    # The windowed route past the cluster's reach, bf16.
+    batch, heads, kd = WIDE_WINDOWED_BWD
+    _require(fa.backward_kernel(kd, torch.bfloat16) == "windowed",
+             f"wide_heads: bf16 K {kd} runs "
+             f"{fa.backward_kernel(kd, torch.bfloat16)}")
+    q, k, v, g = _wide_inputs(gen, "bnhk", batch, 256, heads, kd,
+                              torch.bfloat16)
+    errors, out, lse, delta = _wide_shape_errors(q, k, v, g, "bnhk",
+                                                 (2e-2, 1e-4, 2e-2))
+    bh, n = batch * heads, 256
+    hm = [fa._heads_major(t, "bnhk") for t in (q, k, v, g)]
+    leaves = [t.detach().clone().requires_grad_() for t in hm[:3]]
+
+    def windowed_step(backend):
+        o = _sdpa(*leaves, backend)
+        torch.autograd.grad(o, leaves, hm[3])
+        return o
+
+    backend = _sdpa_backend(windowed_step)
+    lib_out = _sdpa(*leaves, backend)
+    windowed = _in_turns({
+        "plain_ms": lambda: fa.reference_attention_backward(q, k, v, g),
+        "kernel_ms": lambda: fa._launch_backward(q, k, v, g, lse, delta,
+                                                 "bnhk"),
+        "library_ms": lambda: torch.autograd.grad(
+            lib_out, leaves, hm[3], retain_graph=True)}, 5)
+    operand = bh * n * kd * 2            # dq comes out in bf16 too
+    bound_ms, bound_by = _bound(10 * bh * n * n * kd,
+                                7 * operand + 2 * bh * n * 4, "bf16")
+    times[f"{bh}x{n}x{kd}_windowed_bwd"] = dict(
+        windowed, bound_ms=bound_ms, bound_by=bound_by, errors=errors,
+        sdpa_backend=backend.name, plan=fa.head_dim_plan(
+            kd, torch.bfloat16)._asdict())
     return times
 
 
@@ -6046,10 +6159,12 @@ def _wide_entries(wide: dict, hgmma: dict) -> list:
     it) and (128, 256, 512) fp32, the windowed forward's at (32, 256,
     4160) bf16 and the fp32 column halves' at (128, 256, 80) ((2048, 256,
     128) beside it), each with
-    its B1 and B1-drop; the backward's wide route at (128, 256, 320) bf16
-    and the fp32 column halves' B2 at (128, 256, 80) (K 96, 128 beside
-    it), with their launches in (a)'s checks (no preset runs them), the
-    redesigned kernels with their registers, spills and shared memory.
+    its B1 and B1-drop; the backward's clusters at (128, 256, 320) bf16
+    and (128, 256, 512) fp32 ((128, 256, 256) beside it), its windowed
+    route at (32, 256, 2112) bf16 and the fp32 column halves' B2 at (128,
+    256, 80) (K 96, 128 beside it), with their launches in (a)'s checks
+    (no preset runs them), the redesigned kernels with their registers,
+    spills, shared memory and resident clusters.
     Errors against the plain versions measured at each shape (B1-lse's is
     its lse's, as for the 64-wide row; B2's the largest of dq, dk, dv)."""
     times = wide["times"]
@@ -6162,20 +6277,69 @@ def _wide_entries(wide: dict, hgmma: dict) -> list:
             rows[-1]["shared_memory"] = REDESIGNED.get("shared_memory", {})
         if "_cluster" in name:
             rows[-1]["clusters"] = REDESIGNED.get("clusters", {})
-    key = "128x256x320"
-    t = times[key]["bwd"]
+    # The wide backward: its clusters (bf16 on wgmma, fp32 on mma.sync
+    # 3xTF32) and its windowed route past their reach.
+    cluster_kernel = {
+        "bfloat16": "wgmma + TMA, the backward's cluster route (bf16 past "
+                    "256): a thread-block cluster of ceil(K / 256) CTAs, "
+                    "each holding four 64-column boxes, its two "
+                    "warpgroups split by role (S^T and dV, dP^T and dK, "
+                    "over the CTA's columns), the parts of S^T and dP^T "
+                    "summed over the cluster through distributed shared "
+                    "memory once a 64-query step; dq kernel likewise, dq "
+                    "written in bf16",
+        "float32": "mma.sync 3xTF32, the backward's cluster route (fp32 "
+                   "past 128): a cluster of ceil(K / 128) CTAs, each an "
+                   "even share of the 16-column groups, two halves of 4 "
+                   "warps split by role, the parts summed once a 32-query "
+                   "step; ms the partials route, split_ms the split one"}
+    for name, key, shape, dtype, launches, extra in (
+            ("flash_attention_bwd_cluster", "128x256x320", [128, 256, 320],
+             "bfloat16", launched["cluster_bwd_bf16"], ()),
+            ("flash_attention_bwd_cluster_fp32", "128x256x512_fp32_bwd",
+             [128, 256, 512], "float32", launched["cluster_bwd_fp32"],
+             ("128x256x256_fp32_bwd",))):
+        t = times[key]["bwd"] if dtype == "bfloat16" else times[key]
+        errors = times[key]["errors"]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": CSRC + "flash_attention_bwd_wide.cu",
+            "replaces": TPU_KERNELS + "flash_attention.py:151",
+            "shape": shape + [dtype], "kernel": cluster_kernel[dtype],
+            "plan": times[key]["plan"], "launches": launches,
+            "max_abs_err": errors["bwd_abs"],
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "peak": PEAK_NAMES["bf16" if dtype == "bfloat16" else "3xtf32"],
+            "registers": REDESIGNED.get("flash_attention_bwd_wide.cu", {}),
+            "shared_memory": REDESIGNED.get("shared_memory", {}),
+            "clusters": REDESIGNED.get("clusters", {}),
+            "launch_source": checks})
+        if dtype == "float32":
+            rows[-1]["split_ms"] = t["split_ms"]
+            rows[-1]["library"] = ("SDPA " + t["sdpa_backend"]
+                                   + " (fp32 backward)")
+        for other in extra:
+            rows[-1][f"times_{other}"] = {
+                k: v for k, v in times[other].items() if k != "errors"}
+    key = "32x256x2112_windowed_bwd"
+    t = times[key]
     rows.append({
-        "name": "flash_attention_bwd_wide", "route": "cuda",
+        "name": "flash_attention_bwd_windowed", "route": "cuda",
         "source": CSRC + "flash_attention_bwd_wide.cu",
         "replaces": TPU_KERNELS + "flash_attention.py:151",
-        "shape": [128, 256, 320, "bfloat16"],
-        "kernel": "mma.sync, the wide route ("
-                  + str(times[key]["plan"]) + ")",
-        "launches": launched["bwd"],
-        "max_abs_err": times[key]["errors"]["bwd_abs"],
+        "shape": [32, 256, 2112, "bfloat16"],
+        "kernel": "mma.sync, the backward's windowed route past the "
+                  "clusters' reach (bf16 past 2048, fp32 past 1024): S and "
+                  "dP over 64-column chunks, outputs in 64-column windows "
+                  "(" + str(t["plan"]) + ")",
+        "launches": launched["windowed_bwd"],
+        "max_abs_err": t["errors"]["bwd_abs"],
         "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "peak": PEAK_NAMES["bf16"],
+        "library": "SDPA " + t["sdpa_backend"],
         "launch_source": checks})
     key = "128x256x80_fp32_bwd"
     t = times[key]
@@ -6197,7 +6361,7 @@ def _wide_entries(wide: dict, hgmma: dict) -> list:
         "registers": REDESIGNED.get("flash_attention_bwd.cu", {}),
         "shared_memory": REDESIGNED.get("shared_memory", {}),
         "launch_source": checks})
-    for kd in WIDE_FP32_BWD[1:]:
+    for kd in (96, 128):
         rows[-1][f"times_128x256x{kd}"] = {
             k: v for k, v in times[f"128x256x{kd}_fp32_bwd"].items()
             if k != "errors"}
@@ -6224,7 +6388,9 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
     rank's B1-drop, B2-replay and MLP dropout with their coordinate maps
     (``*_sharded``: launches of both processes of (g)); the 128- and
     256-wide instances' B1, B1-lse and B2 (``*_d128``, ``*_d256``,
-    wide_heads) and the wide route's B1-lse and B2 (``*_wide``); B4's
+    wide_heads), the wide forward's B1-lse (``*_wide``, ``*_cluster``,
+    ``*_windowed``) and the wide backward's clusters and windowed route
+    (``flash_attention_bwd_cluster*``, ``*_bwd_windowed``); B4's
     block-a-row route at ViT-22B's width (``layer_norm_wide``,
     layer_norm_wide); and the walkthrough's launches
     (``launches_walkthrough``). The bf16 rows are the wgmma kernels
@@ -6285,14 +6451,14 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
                     "flash_attention_bwd_sm90.cu (flash_attention_bwd_bf16)",
              launches_graph=graph["flash_bwd"],
              launches_walkthrough=walked["backward"]),
-        # q, k, v, g read and dk, dv written (bf16), lse and delta read and
-        # dq written (fp32).
+        # q, k, v, g read and dq, dk, dv written (bf16: the dq kernel
+        # rounds dq), lse and delta read.
         dict(_entry("flash_attention_bwd_bf16", bwd90,
                     "flash_attention.py:151", [hbh, hn, hk, "bfloat16"],
                     launches["flash_bwd_shipped"],
                     drop_errors["shipped_bwd_abs"], drop_times["bwd"],
                     (10 * hbh * hn * hn * hk,
-                     6 * hqkv + 2 * hqkv + 2 * hbh * hn * 4, "bf16")),
+                     7 * hqkv + 2 * hbh * hn * 4, "bf16")),
              kernel="wgmma + TMA, instance 64: a dk/dv and a dq kernel",
              tensor_core_instructions=bwd_d64,
              launch_source="train_highres (f), one step as shipped"),
@@ -6308,15 +6474,15 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
              kernel="wgmma + TMA, instance 64",
              tensor_core_instructions=d64,
              launches_graph=graph["flash_drop"]),
-        # q, k, v, g read and dk, dv written (bf16), lse and delta read and
-        # dq written (fp32).
+        # q, k, v, g read and dq, dk, dv written (bf16: the dq kernel
+        # rounds dq), lse and delta read.
         dict(_entry("flash_attention_bwd_drop", bwd90,
                     "flash_attention.py:151",
                     [hbh, hn, hk, "bfloat16", DROP_RATE],
                     launches["flash_bwd_drop"], drop_errors["bwd_abs"],
                     drop_times["bwd_drop"],
                     (10 * hbh * hn * hn * hk,
-                     6 * hqkv + 2 * hqkv + 2 * hbh * hn * 4, "bf16")),
+                     7 * hqkv + 2 * hbh * hn * 4, "bf16")),
              kernel="wgmma + TMA, instance 64: the dk/dv kernel hashes each "
                     "score once and packs the keep bits, the dq kernel "
                     "reads them",
@@ -6453,7 +6619,7 @@ def _kernels_line(flash_err, flash_times, train_errors, train_times,
                     mapped["launches"]["flash_bwd_drop"],
                     mapped["errors"]["bwd"], mapped["times"]["bwd"],
                     (10 * mbh * mt * mt * mk,
-                     6 * mqkv + 2 * mqkv + 2 * mbh * mt * 4, "bf16")),
+                     7 * mqkv + 2 * mbh * mt * 4, "bf16")),
              kernel="B2-replay on wgmma, the batch*head map",
              launch_source="both processes of (g), tensor parallelism"),
         # A tensor-parallel rank's column half of highres_1024's first

@@ -1507,7 +1507,9 @@ def test_wide_route_matches_plain(gen, dtype, kd, layout):
     dq route and with the replay (grads relative to their largest value),
     the fp32-output instance with fp32 dk/dv, and a ring of two key blocks
     chained (resume, suspend) bit-equal to one launch; B2 twice,
-    bit-equal."""
+    bit-equal. The backward past 128 (fp32) and 256 (bf16) runs the
+    cluster route to K 1024 and 2048 and the windowed one past them, each
+    counted there."""
     width = fa.kernel_width(kd) if (kd * (4 if dtype == torch.float32
                                           else 2)) % 16 else kd
     forward = fa.forward_kernel(width, dtype)
@@ -1517,7 +1519,13 @@ def test_wide_route_matches_plain(gen, dtype, kd, layout):
                        else "cluster"
                        if width <= fa.FWD_CLUSTER_REACH[dtype]
                        else "windowed")
-    assert fa.backward_kernel(width, dtype) == ("wgmma" if wgmma else "wide")
+    backward = fa.backward_kernel(width, dtype)
+    assert backward == ("wgmma" if wgmma
+                        else "cluster"
+                        if width <= fa.BWD_CLUSTER_REACH[dtype]
+                        else "windowed")
+    bwd_counts = (fa.flash_attention.cluster_backward_launches,
+                  fa.flash_attention.windowed_backward_launches)
     counts = (fa.flash_attention.wgmma_launches,
               fa.flash_attention.wgmma_backward_launches,
               fa.flash_attention.wide_launches,
@@ -1595,6 +1603,138 @@ def test_wide_route_matches_plain(gen, dtype, kd, layout):
     assert (moved[2] > 0) == (forward == "wide")
     assert (moved[3] > 0) == (forward == "cluster")
     assert (moved[4] > 0) == (forward == "windowed")
+    bwd_moved = (fa.flash_attention.cluster_backward_launches - bwd_counts[0],
+                 fa.flash_attention.windowed_backward_launches
+                 - bwd_counts[1])
+    assert (bwd_moved[0] > 0) == (backward == "cluster")
+    assert (bwd_moved[1] > 0) == (backward == "windowed")
+
+
+# (dtype, K) of the wide library's backward: its cluster route at fp32
+# 192-1024 (2 to 8 CTAs of 128 columns) and bf16 320-2048 (2 to 8 CTAs of
+# 256), and the windowed route just past each reach.
+CLUSTER_BWD = ((torch.float32, 192), (torch.float32, 256),
+               (torch.float32, 320), (torch.float32, 384),
+               (torch.float32, 512), (torch.float32, 1024),
+               (torch.float32, 1028),
+               (torch.bfloat16, 320), (torch.bfloat16, 384),
+               (torch.bfloat16, 512), (torch.bfloat16, 1024),
+               (torch.bfloat16, 2048), (torch.bfloat16, 2112))
+
+
+@pytest.mark.parametrize("layout", ["bnhk", "bhnk"])
+@pytest.mark.parametrize("dtype,kd", CLUSTER_BWD)
+def test_cluster_backward_matches_plain(gen, dtype, kd, layout):
+    """B2 past fp32 K 128 and bf16 K 256 on the route ``backward_kernel``
+    names (the cluster of ``backward_cluster_size`` CTAs, or the windowed
+    route past its reach), counted there and nowhere else, in both layouts
+    (heads-major views of tokens-major memory) at N 321: each dq route
+    (fp32: partials and split; bf16: split, dq in bf16 from the dq kernel,
+    equal to the fp32 dq rounded once), B2_REPEATS launches of each
+    bit-equal, within the tolerance of the plain version relative to each
+    gradient's largest value; the dropout replay (batch*head, query and key
+    offsets and a row map); and for bf16 fp32 dk/dv (a ring block), whose
+    rounding is the bf16 route's bit for bit."""
+    backward = fa.backward_kernel(kd, dtype)
+    share = fa.BWD_CLUSTER_SHARE[dtype]
+    assert backward == ("cluster" if kd <= 8 * share else "windowed")
+    assert fa.backward_cluster_size(kd, dtype) == (
+        -(-kd // share) if backward == "cluster" else 1)
+    n = 321
+    q, k, v = _qkv(gen, (1, n, 2, kd), dtype, kd ** -0.5)
+    g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+    if layout == "bhnk":
+        q, k, v, g = (t.transpose(1, 2) for t in (q, k, v, g))
+    offsets = fa.mask_coords((5, 7, 3, 2, 4, 1))
+    drop = (fa.seed_tensor(2 ** 32 - 17, "cuda"), 0.1)
+    f = fa.flash_attention
+    before = (f.cluster_backward_launches, f.windowed_backward_launches,
+              f.operand_copies)
+    out, lse = fa._launch_forward(q, k, v, layout, with_lse=True)
+    delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                            layout).contiguous()
+    plain = fa.reference_attention_backward(q, k, v, g, layout)
+    launched = 0
+    routes = (("partials", "split") if dtype == torch.float32
+              else ("split",))
+    for route in routes:
+        runs = [fa._launch_backward(q, k, v, g, lse, delta, layout,
+                                    route=route)
+                for _ in range(B2_REPEATS)]
+        launched += B2_REPEATS
+        for again in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
+        assert all(a.dtype == dtype for a in runs[0])
+        assert max(_grad_rels(runs[0], plain)) <= GRAD_TOLS[dtype]
+    if dtype == torch.bfloat16:
+        f_dq = fa._launch_backward(q, k, v, g, lse, delta, layout,
+                                   fp32_dq=True)
+        launched += 1
+        assert f_dq[0].dtype == torch.float32
+        assert torch.equal(f_dq[0].to(torch.bfloat16), runs[0][0])
+        f_grads = fa._launch_backward(q, k, v, g, lse, delta, layout,
+                                      fp32_dq=True, fp32_dkv=True)
+        launched += 1
+        assert all(t.dtype == torch.float32 for t in f_grads)
+        assert torch.equal(f_grads[0], f_dq[0])
+        assert torch.equal(f_grads[1].to(torch.bfloat16), runs[0][1])
+        assert torch.equal(f_grads[2].to(torch.bfloat16), runs[0][2])
+        assert max(_grad_rels(f_grads, fa.reference_attention_backward(
+            q, k, v, g, layout, lse=lse, delta=delta,
+            out_dtype=torch.float32))) <= GRAD_TOLS[dtype]
+    d_out, d_lse = fa._launch_forward(q, k, v, layout, with_lse=True,
+                                      dropout=drop, offsets=offsets)
+    assert torch.equal(d_lse, lse)
+    d_delta = fa._heads_major((g.float() * d_out.float()).sum(-1),
+                              layout).contiguous()
+    d_plain = fa.reference_attention_backward(q, k, v, g, layout, drop,
+                                              offsets)
+    for route in routes:
+        d_grads = fa._launch_backward(q, k, v, g, d_lse, d_delta, layout,
+                                      drop, route=route, offsets=offsets)
+        launched += 1
+        assert max(_grad_rels(d_grads, d_plain)) <= GRAD_TOLS[dtype]
+    torch.cuda.synchronize()
+    moved = (f.cluster_backward_launches - before[0],
+             f.windowed_backward_launches - before[1],
+             f.operand_copies - before[2])
+    assert moved == ((launched, 0, 0) if backward == "cluster"
+                     else (0, launched, 0))
+
+
+@pytest.mark.parametrize("dtype,kd", [(torch.float32, 512),
+                                      (torch.float32, 1024),
+                                      (torch.bfloat16, 1024),
+                                      (torch.bfloat16, 2048)])
+def test_cluster_backward_replays_the_forward_mask(gen, dtype, kd):
+    """At a cluster of 4 or 8 CTAs the backward replays the mask the
+    forward drew: with V and the cotangent one-hot (key c and query c into
+    column c, N < K), the dropped forward's output holds the masked
+    probabilities P (query, key) and the replay's dv their transpose, so
+    the zeros of the two are the same scores, and both are the hashed
+    mask's at the call's offsets; no score underflows to 0 undropped."""
+    assert fa.backward_cluster_size(kd, dtype) >= 4
+    n, b, h = 200, 1, 2
+    q = (torch.randn(b, n, h, kd, device="cuda", generator=gen)
+         .mul(0.1 * kd ** -0.5).to(dtype))
+    k = torch.randn(b, n, h, kd, device="cuda", generator=gen).to(dtype)
+    eye = torch.zeros(b, n, h, kd, device="cuda")
+    eye[:, torch.arange(n), :, torch.arange(n)] = 1.0
+    v = g = eye.to(dtype)
+    offsets = fa.mask_coords((3, 11, 5))
+    drop = (fa.seed_tensor(2 ** 31 + 7, "cuda"), 0.3)
+    out, lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
+                                  dropout=drop, offsets=offsets)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq, dk, dv = fa._launch_backward(q, k, v, g, lse, delta, "bnhk", drop,
+                                     offsets=offsets)
+    torch.cuda.synchronize()
+    fwd_kept = out[..., :n].transpose(1, 2) != 0       # (b, h, query, key)
+    bwd_kept = dv[..., :n].permute(0, 2, 3, 1) != 0     # (b, h, query, key)
+    hashed = fa._dropout_scale(drop, b, h, n, "cuda", offsets) > 0
+    assert torch.equal(fwd_kept, hashed)
+    assert torch.equal(bwd_kept, hashed)
+    assert 0.6 < hashed.float().mean().item() < 0.8
 
 
 @pytest.mark.parametrize("layout", ["bnhk", "bhnk"])

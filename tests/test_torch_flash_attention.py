@@ -329,23 +329,39 @@ def test_forward_kernel_by_dtype_and_head_dim(dtype, kdim, kernel):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("kdim", [1, 40, 48, 64, 65, 80, 128, 129, 256])
+@pytest.mark.parametrize("kdim", [1, 40, 48, 64, 65, 80, 128, 129, 192, 256,
+                                  257, 320, 512, 1024, 1028, 2048, 2056])
 def test_backward_kernel_by_dtype_and_head_dim(dtype, kdim):
     """At the width the wrapper reads K at (a K whose rows are off 16
     bytes padded first), bf16 at K <= 256 runs the wgmma backward, fp32
     at K <= 128 the mma.sync one, and the rest (fp32 past 128, bf16 past
-    256) the wide route, which ``head_dim_plan`` plans."""
+    256) the wide library: a thread-block cluster of ceil(K / 128) (fp32)
+    or ceil(K / 256) (bf16) CTAs to fp32 1024 and bf16 2048, the windowed
+    route past that, which ``head_dim_plan`` plans with the cluster's size
+    (1 off the cluster route)."""
     (read,), _ = fa._addressable([torch.zeros(1, 2, 1, kdim, dtype=dtype)])
     width = read.shape[-1]
+    share = 128 if dtype == torch.float32 else 256
     want = ("wgmma" if dtype == torch.bfloat16 and width <= 256
-            else "mma_sync" if kdim <= 128 else "wide")
+            else "mma_sync" if kdim <= 128
+            else "cluster" if width <= 8 * share else "windowed")
     assert fa.backward_kernel(width, dtype) == want
-    assert fa.head_dim_plan(width, dtype).backward == want
+    plan = fa.head_dim_plan(width, dtype)
+    assert plan.backward == want
+    assert plan.grad_cluster == fa.backward_cluster_size(width, dtype) == (
+        -(-width // share) if want == "cluster" else 1)
+    assert (plan.chunks, plan.grad_windows) == (
+        (-(-width // 64),) * 2 if want == "windowed" else (1, 1))
     assert fa.forward_kernel(width, dtype) == (
-        "wgmma" if want == "wgmma" else "wide" if width > 128
-        else "halves" if width > 64 else "mma_sync")
+        "wgmma" if want == "wgmma"
+        else "halves" if 64 < width <= 128 and dtype == torch.float32
+        else "mma_sync" if width <= 64
+        else "wide" if width <= fa.WIDE_FWD_MAX[dtype]
+        else "cluster" if width <= fa.FWD_CLUSTER_REACH[dtype]
+        else "windowed")
     if want != "wgmma":
-        assert (want == "wide") == (fa.head_dim_plan(kdim).instance == "wide")
+        assert (want in ("cluster", "windowed")) == (
+            fa.head_dim_plan(kdim).instance == "wide")
 
 
 @pytest.mark.parametrize("dtype,dkv_fp32", [(torch.float32, False),

@@ -43,11 +43,13 @@ COUNTERS = ("launches", "lse_launches", "drop_launches", "wgmma_launches",
             "wide_launches", "halves_launches", "cluster_launches",
             "windowed_launches", "backward_launches", "backward_drop_launches",
             "wgmma_backward_launches", "halves_backward_launches",
+            "cluster_backward_launches", "windowed_backward_launches",
             "operand_copies")
-# What the stand-in's cluster occupancy query (the wide forward's
-# ``vtd_flash_attention_fwd_wide_clusters``) answers, and the head dims of
-# the blocks it was asked about.
-RESIDENT = {"clusters": 4, "asked": []}
+# What the stand-in's cluster occupancy queries (the wide forward's
+# ``vtd_flash_attention_fwd_wide_clusters``, the wide backward's
+# ``vtd_flash_attention_bwd_clusters``) answer, and the head dims of the
+# blocks each was asked about.
+RESIDENT = {"clusters": 4, "asked": [], "bwd_clusters": 4, "bwd_asked": []}
 
 
 @pytest.fixture
@@ -58,6 +60,8 @@ def launches(monkeypatch):
     calls = []
     monkeypatch.setitem(RESIDENT, "clusters", 4)
     monkeypatch.setitem(RESIDENT, "asked", [])
+    monkeypatch.setitem(RESIDENT, "bwd_clusters", 4)
+    monkeypatch.setitem(RESIDENT, "bwd_asked", [])
 
     class Library:
         def __getattr__(self, name):
@@ -67,6 +71,12 @@ def launches(monkeypatch):
                         ops.FwdArgs.from_address(args).head_dim)
                     return RESIDENT["clusters"]
                 return query
+            if name == "vtd_flash_attention_bwd_clusters":
+                def bwd_query(args):
+                    RESIDENT["bwd_asked"].append(
+                        ops.BwdArgs.from_address(args).head_dim)
+                    return RESIDENT["bwd_clusters"]
+                return bwd_query
 
             def entry(*args):
                 calls.append((name, args))
@@ -266,7 +276,9 @@ def test_counts_move_once_per_call(launches):
                      "windowed_launches": 0,
                      "backward_launches": 1, "backward_drop_launches": 0,
                      "wgmma_backward_launches": 1,
-                     "halves_backward_launches": 0, "operand_copies": 0}
+                     "halves_backward_launches": 0,
+                     "cluster_backward_launches": 0,
+                     "windowed_backward_launches": 0, "operand_copies": 0}
 
 
 @pytest.mark.parametrize("dtype,kdim,dq_fp32,kind,dq_dtype,dq_bf16,cast", [
@@ -275,15 +287,20 @@ def test_counts_move_once_per_call(launches):
     (torch.bfloat16, 64, True, "bwd_sm90", torch.float32, 0, False),
     (torch.bfloat16, 192, False, "bwd_sm90", torch.bfloat16, 1, False),
     (torch.bfloat16, 256, True, "bwd_sm90", torch.float32, 0, False),
-    (torch.bfloat16, 320, False, "bwd_wide", torch.float32, 0, True),
+    (torch.bfloat16, 320, False, "bwd_wide", torch.bfloat16, 1, False),
+    (torch.bfloat16, 2048, False, "bwd_wide", torch.bfloat16, 1, False),
+    (torch.bfloat16, 320, True, "bwd_wide", torch.float32, 0, False),
+    (torch.bfloat16, 2056, False, "bwd_wide", torch.float32, 0, True),
     (torch.float32, 64, False, "bwd", torch.float32, 0, False),
     (torch.float32, 192, False, "bwd_wide", torch.float32, 0, False),
+    (torch.float32, 1028, False, "bwd_wide", torch.float32, 0, False),
 ])
 def test_backward_writes_dq_in_q_dtype_on_the_wgmma_route(
         launches, dtype, kdim, dq_fp32, kind, dq_dtype, dq_bf16, cast):
-    """Without dq_fp32 the wgmma dq kernel (bf16 at K <= 256) writes dq in
-    bf16 itself (no cast launch); the mma.sync and wide routes write fp32
-    and the operator casts; with dq_fp32 dq stays fp32."""
+    """Without dq_fp32 the bf16 dq kernels of the wgmma route (K <= 256)
+    and of the wide library's cluster route (K 257-2048) write dq in bf16
+    themselves (no cast launch); the mma.sync and windowed routes write
+    fp32 and the operator casts; with dq_fp32 dq stays fp32."""
     q, k, v, g = _operands(shape=(2, 37, 3, kdim), dtype=dtype, count=4)
     lse = torch.zeros(2, 3, 37)
     plan = ops.backward_plan(q, k, v, g, lse, lse, "bnhk", None, 0.0, 0,
@@ -306,8 +323,10 @@ def test_bf16_up_to_256_launches_the_wgmma_libraries(launches, kdim, kernel,
     """The plans at bf16 K 129-256 pick the wgmma libraries (entry points
     ``vtd_flash_attention_{fwd,bwd}_sm90``) and count their launches
     there; with dropout the backward's workspace is the packed keep bits;
-    dq comes back in bf16 from the dq kernel. Past 256 the backward's wide
-    route, its dq fp32 and cast; the forward the wide kernel
+    dq comes back in bf16 from the dq kernel. Past 256 the backward's
+    cluster route, its dq in bf16 from its dq kernel too (to K 2048; the
+    windowed route past that, its dq fp32 and cast); the forward the wide
+    kernel
     (``vtd_flash_attention_fwd_wide``, counted in ``wide_launches``) to
     K 512, its clusters past it (``cluster_launches``) to K 4096, the
     windowed route of the mma.sync library past that."""
@@ -337,6 +356,8 @@ def test_bf16_up_to_256_launches_the_wgmma_libraries(launches, kdim, kernel,
     assert launches[-1][0] == ("vtd_flash_attention_bwd_sm90" if wgmma
                                else "vtd_flash_attention_bwd")
     assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    assert ops.BwdArgs.from_address(launches[-1][1][0]).dq_bf16 == (
+        kdim <= 2048)
     assert (fa.flash_attention.wgmma_launches - before[0],
             fa.flash_attention.wgmma_backward_launches - before[1]) == (
                 wgmma, wgmma)
@@ -532,5 +553,114 @@ def test_a_failed_cluster_query_raises_its_cuda_error(launches, monkeypatch):
     with pytest.raises(RuntimeError, match="cluster occupancy"):
         _forward(q, k, v)
     assert raised == [(1, "flash attention forward (cluster occupancy "
+                          "query)")]
+    assert launches == []
+
+
+@pytest.mark.parametrize("dtype,kdim,cluster,route", [
+    *((torch.float32, kdim, cluster, route)
+      for kdim, cluster in ((132, 2), (256, 2), (320, 3), (512, 4),
+                            (1024, 8))
+      for route in ("split", "partials")),
+    (torch.bfloat16, 264, 2, "split"), (torch.bfloat16, 512, 2, "split"),
+    (torch.bfloat16, 520, 3, "split"), (torch.bfloat16, 2048, 8, "split")])
+def test_the_backward_cluster_plan_records_its_size_and_asks_once(
+        launches, dtype, kdim, cluster, route):
+    """fp32 past K 128 and bf16 past 256, to 1024 and 2048, the backward's
+    plan names the cluster route of the wide library with ceil(K / 128) or
+    ceil(K / 256) CTAs a cluster (``head_dim_plan``'s ``grad_cluster``),
+    asks the library once per plan whether such a cluster of its kernels
+    can be resident (its block, at the caller's K), launches the entry
+    point and counts ``cluster_backward_launches``; a second call of the
+    same signature asks nothing. bf16 takes the split route only."""
+    q, k, v, g = _operands(shape=(2, 37, 3, kdim), dtype=dtype, count=4)
+    lse = torch.zeros(2, 3, 37)
+    plan = ops.backward_plan(q, k, v, g, lse, lse, "bnhk", None, 0.0,
+                             fa.DQ_ROUTES[route], (0, 0, 0, 1, 1, 0), False,
+                             True)
+    assert (plan.kernel, plan.kind, plan.cluster) == ("cluster", "bwd_wide",
+                                                      cluster)
+    assert fa.head_dim_plan(kdim, dtype).grad_cluster == cluster
+    assert RESIDENT["bwd_asked"] == []      # building a plan asks nothing
+    for _ in range(2):
+        ops._flash_bwd_cuda(q, k, v, g, lse, lse, "bnhk", None, 0.0,
+                            fa.DQ_ROUTES[route])
+    assert RESIDENT["bwd_asked"] == [kdim]
+    assert [name for name, _ in launches] == ["vtd_flash_attention_bwd"] * 2
+    assert (launches[-1][1][10] is not None) == (route == "partials")
+    f = fa.flash_attention
+    assert (f.cluster_backward_launches, f.windowed_backward_launches,
+            f.backward_launches) == (2, 0, 2)
+
+
+@pytest.mark.parametrize("dtype,kdim,kernel", [
+    (torch.bfloat16, 40, "wgmma"), (torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, 2056, "windowed"), (torch.bfloat16, 4160, "windowed"),
+    (torch.float32, 80, "mma_sync"), (torch.float32, 128, "mma_sync"),
+    (torch.float32, 1028, "windowed"), (torch.float32, 3104, "windowed")])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_no_other_backward_route_asks_for_clusters(launches, dtype, kdim,
+                                                   kernel, rate):
+    """Off the backward's cluster route no plan asks the occupancy
+    question, a zero answer changes nothing, the cluster size is 1, and
+    past the cluster's reach the windowed route counts its launches in
+    ``windowed_backward_launches`` (with the replay in
+    ``backward_drop_launches``), nothing in ``cluster_backward_launches``."""
+    RESIDENT["bwd_clusters"] = 0
+    q, k, v, g = _operands(shape=(2, 37, 3, kdim), dtype=dtype, count=4)
+    lse = torch.zeros(2, 3, 37)
+    seed = fa.seed_tensor(5, "cpu") if rate else None
+    f = fa.flash_attention
+    before = (f.windowed_backward_launches, f.backward_drop_launches)
+    ops._flash_bwd_cuda(q, k, v, g, lse, lse, "bnhk", seed, rate)
+    assert RESIDENT["bwd_asked"] == []
+    assert fa.backward_kernel(kdim, dtype) == kernel
+    assert fa.backward_cluster_size(kdim, dtype) == 1
+    assert len(launches) == 1
+    assert f.cluster_backward_launches == 0
+    assert (f.windowed_backward_launches - before[0],
+            f.backward_drop_launches - before[1]) == (
+                kernel == "windowed", rate > 0)
+
+
+@pytest.mark.parametrize("dtype,kdim,cluster", [(torch.bfloat16, 320, 2),
+                                                (torch.float32, 512, 4)])
+def test_a_backward_cluster_that_cannot_be_resident_raises(launches, dtype,
+                                                           kdim, cluster):
+    """When the library answers that no cluster of the backward's kernels
+    can be resident (0), the plan raises RuntimeError, nothing launches,
+    no counter moves and no plan is kept: the windowed route does not take
+    over."""
+    RESIDENT["bwd_clusters"] = 0
+    q, k, v, g = _operands(shape=(2, 37, 3, kdim), dtype=dtype, count=4)
+    lse = torch.zeros(2, 3, 37)
+    counts = {name: getattr(fa.flash_attention, name) for name in COUNTERS}
+    with pytest.raises(RuntimeError, match=f"no thread-block cluster of "
+                       f"{cluster} CTAs of the flash backward"):
+        ops._flash_bwd_cuda(q, k, v, g, lse, lse, "bnhk", None, 0.0)
+    assert launches == [] and ops._bwd_plans == {}
+    assert counts == {name: getattr(fa.flash_attention, name)
+                      for name in COUNTERS}
+    assert RESIDENT["bwd_asked"] == [kdim]
+
+
+def test_a_failed_backward_cluster_query_raises_its_cuda_error(launches,
+                                                                monkeypatch):
+    """A negative answer of the backward's query is a CUDA error code,
+    raised as the launch errors are (``_build.raise_on_error``), and
+    nothing launches."""
+    RESIDENT["bwd_clusters"] = -2
+    raised = []
+
+    def raise_on_error(lib, err, what):
+        raised.append((err, what))
+        raise RuntimeError(what)
+
+    monkeypatch.setattr(ops._build, "raise_on_error", raise_on_error)
+    q, k, v, g = _operands(shape=(2, 37, 3, 640), count=4)
+    lse = torch.zeros(2, 3, 37)
+    with pytest.raises(RuntimeError, match="cluster occupancy"):
+        ops._flash_bwd_cuda(q, k, v, g, lse, lse, "bnhk", None, 0.0)
+    assert raised == [(2, "flash attention backward (cluster occupancy "
                           "query)")]
     assert launches == []

@@ -103,10 +103,15 @@ def test_the_forward_plan_names_the_wide_or_the_windowed_kernel(
     ceil(K / 512) CTAs, to 8 (K 3072 and 4096); past that the windowed
     route's output windows of 128 columns (a grid axis that forms S again
     in each). The backward past 128 (fp32) and 256 (bf16) is the wide
-    route's whatever the forward."""
+    library's whatever the forward: its cluster of ceil(K / 128) or
+    ceil(K / 256) CTAs to 1024 and 2048, its windowed route past them."""
     plan = fa.head_dim_plan(kdim, dtype)
+    share = fa.BWD_CLUSTER_SHARE[dtype]
+    backward = "cluster" if kdim <= 8 * share else "windowed"
     assert (plan.forward, plan.windows, plan.backward, plan.cluster) == (
-        forward, windows, "wide", cluster)
+        forward, windows, backward, cluster)
+    assert plan.grad_cluster == (-(-kdim // share) if backward == "cluster"
+                                 else 1)
     assert fa.forward_kernel(kdim, dtype) == forward
     assert fa.cluster_size(kdim, dtype) == cluster
 
@@ -122,27 +127,34 @@ def test_fp32_65_to_128_runs_the_128_instance_both_ways(kdim):
                                                      "mma_sync", 1)
 
 
-@pytest.mark.parametrize("kdim,chunks,windows,grad_windows", [
-    (129, 3, 1, 3), (192, 3, 1, 3), (256, 4, 1, 4), (384, 6, 1, 6)])
-def test_wider_than_128_takes_the_wide_route(kdim, chunks, windows,
-                                             grad_windows):
+@pytest.mark.parametrize("kdim,chunks,forward,backward,cluster,grad_cluster",
+                         [(129, 1, "wide", "cluster", 1, 2),
+                          (192, 1, "wide", "cluster", 1, 2),
+                          (256, 1, "wide", "cluster", 1, 2),
+                          (384, 1, "wide", "cluster", 1, 3),
+                          (1024, 1, "cluster", "cluster", 3, 8),
+                          (1028, 17, "cluster", "windowed", 3, 1)])
+def test_wider_than_128_takes_the_wide_route(kdim, chunks, forward, backward,
+                                             cluster, grad_cluster):
     """K past the widest mma.sync instance runs the wide kernels (fp32 at
     any such K, bf16 past 256, where the wgmma 256 instance stops), as
     JAX runs any K: the forward in one window (the wide forward forms S
-    once a tile, to K 384 in fp32), the backward's S over ceil(K / 64)
-    chunks and its output in windows of 64; nothing raises. A K
-    whose rows cannot be addressed in place pads to a multiple of 64,
-    exactly; the plain version on the CPU computes any K."""
+    once a tile, to K 384 in fp32, its cluster past that), the backward
+    as a cluster of ceil(K / 128) CTAs that forms S once a tile (to K
+    1024 in fp32), past that S over ceil(K / 64) chunks and its output in
+    windows of 64; nothing raises. A K whose rows cannot be addressed in
+    place pads to a multiple of 64, exactly; the plain version on the CPU
+    computes any K."""
     plan = fa.head_dim_plan(kdim)
-    assert plan == fa.HeadDimPlan("wide", chunks, windows, grad_windows,
-                                  "wide", "wide")
-    assert fa.forward_kernel(kdim, torch.float32) == "wide"
+    assert plan == fa.HeadDimPlan("wide", chunks, 1, chunks, forward,
+                                  backward, cluster, grad_cluster)
+    assert fa.forward_kernel(kdim, torch.float32) == forward
     assert fa.forward_kernel(kdim, torch.bfloat16) == (
-        "wgmma" if kdim <= 256 else "wide")
+        "wgmma" if kdim <= 256 else "wide" if kdim <= 512 else "cluster")
     t = torch.randn(1, 2, 8, kdim)
     fa._check_inputs(t, t, t)
     padded = fa._pad_head_dim(t)
-    assert padded.shape[-1] == 64 * chunks == fa.kernel_width(kdim)
+    assert padded.shape[-1] == 64 * -(-kdim // 64) == fa.kernel_width(kdim)
     assert torch.equal(padded[..., :kdim], t)
     assert not padded[..., kdim:].any()
     out = fa.flash_attention(t, t, t, layout="bhnk")

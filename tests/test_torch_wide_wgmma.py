@@ -44,8 +44,8 @@ PADDED = {129: 192, 257: 320}
 def test_wide_head_dims_route_by_dtype(dtype, kdim):
     """bf16 up to K 256 runs both directions on wgmma (the 256 instance);
     fp32 past 128 and bf16 past 256 on the wide forward and the backward's
-    mma.sync wide route, which ``head_dim_plan`` plans and
-    ``kernel_width`` pads for."""
+    cluster route (ceil(K / 128) or ceil(K / 256) CTAs), which
+    ``head_dim_plan`` plans and ``kernel_width`` pads for."""
     (read,), _ = fa._addressable([torch.zeros(1, 3, 2, kdim, dtype=dtype)])
     width = read.shape[-1]
     assert width == PADDED.get(kdim, kdim)
@@ -53,8 +53,10 @@ def test_wide_head_dims_route_by_dtype(dtype, kdim):
     assert fa.forward_kernel(width, dtype) == ("wgmma" if wgmma
                                                else "wide")
     assert fa.backward_kernel(width, dtype) == ("wgmma" if wgmma
-                                                else "wide")
+                                                else "cluster")
     assert fa.head_dim_plan(width).instance == "wide"
+    assert fa.head_dim_plan(width, dtype).grad_cluster == (
+        1 if wgmma else -(-width // fa.BWD_CLUSTER_SHARE[dtype]))
 
 
 # A narrow detector with 256-wide heads (the ViT-H/14-width detector of

@@ -87,12 +87,14 @@ def _device_ms(torch, fn, iters: int) -> dict:
     return {"total": sum(kernels.values()), "kernels": kernels}
 
 
-def _bound(bh: int, n: int, m: int, kd: int, dkv_bytes: int):
+def _bound(bh: int, n: int, m: int, kd: int, dkv_bytes: int,
+           dq_bytes: int):
     """(ms, "bytes" | "operations") of B2 over bh rows of n queries and m
     keys: five products; q, g (n rows) and k, v (m rows) read in bf16, lse
-    and delta read and dq written in fp32, dk and dv written."""
+    and delta read in fp32, dq, dk and dv written."""
     ops = 5 * 2 * bh * n * m * kd
-    nbytes = bh * kd * (2 * n * 2 + 2 * m * 2 + n * 4 + 2 * m * dkv_bytes) \
+    nbytes = bh * kd * (2 * n * 2 + 2 * m * 2 + n * dq_bytes
+                        + 2 * m * dkv_bytes) \
         + bh * n * 8
     t_ops, t_bytes = ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -186,7 +188,7 @@ def main() -> None:
             got = kernel()
             want = fa.reference_attention_backward(q, k, v, g, layout, drop,
                                                    offsets)
-            bound = _bound(b * h, n, n, kd, 2)
+            bound = _bound(b * h, n, n, kd, 2, 2)
         else:
             lse = fa.reference_attention_lse(q, k, layout)
             delta = (g.float() * fa.reference_attention(q, k, v).float()
@@ -204,7 +206,7 @@ def main() -> None:
                    torch.cat([p[2] for p in parts], 1))
             want = fa.reference_attention_backward(q, k, v, g, layout)
             # Two launches of (b, h, 2048, 2048): a bound for each, summed.
-            one = _bound(b * h, n, n, kd, 4)
+            one = _bound(b * h, n, n, kd, 4, 4)
             bound = (2 * one[0], one[1])
         lib_q, lib_k, lib_v, lib_g = (fa._heads_major(t, layout)
                                       for t in (q, k, v, g))

@@ -7,7 +7,9 @@ Shapes (1/sqrt(K) applied, tokens-major as the model hands them over;
   * ``w192``, ``w256``: (128, 256, K) bf16 on the wgmma 256 instance;
     ``w320``, ``w384``: (128, 256, K) bf16 on the wide forward, ``w576``
     and ``w1024`` on its clusters (of 2 CTAs), ``w4160``: (32, 256, 4160)
-    on the windowed one (past the clusters' reach);
+    on the windowed one (past the clusters' reach); the backward of all of
+    these past K 256 on its clusters (of ceil(K / 256) CTAs), and past its
+    reach on its windowed route: ``w2112``, (32, 256, 2112);
   * ``k256_b8``, ``k256_b32``: the K-256 detector (5 heads of 256) at
     batch 8 and 32, (40, 256, 256) and (160, 256, 256);
   * ``h64``, ``h128``: the 64 and 128 instances at (2048, 256, K),
@@ -16,8 +18,9 @@ Shapes (1/sqrt(K) applied, tokens-major as the model hands them over;
     batch 8; the column halves, forward and backward); ``f128_h``: (2048,
     256, 128); ``fw192``, ``fw256``, ``fw320``: (128, 256, K) on the wide
     forward, ``fw512`` on its cluster of 2 CTAs (what chip_smoke.py's
-    ``wide_heads`` launches at fp32 K 512); ``r608``: reference_608's
-    (64, 1296, 40);
+    ``wide_heads`` launches at fp32 K 512), the backward of all four on its
+    clusters of ceil(K / 128) CTAs; ``r608``: reference_608's (64, 1296,
+    40);
   * ``ln768``: vit_b16_384's LayerNorm at batch 32, (18432, 768);
   * ``ln6144``, ``ln8192``: (2048, D), a batch of 8 at 256 tokens at
     ViT-22B's width, and D 8192.
@@ -70,6 +73,7 @@ FLASH = {"w192": (8, 16, 192, "bfloat16", 256),
          "w576": (8, 16, 576, "bfloat16", 256),
          "w1024": (8, 16, 1024, "bfloat16", 256),
          "w4160": (2, 16, 4160, "bfloat16", 256),
+         "w2112": (2, 16, 2112, "bfloat16", 256),
          "k256_b8": (8, 5, 256, "bfloat16", 256),
          "k256_b32": (32, 5, 256, "bfloat16", 256),
          "h64": (128, 16, 64, "bfloat16", 256),
@@ -204,10 +208,10 @@ def _flash(torch, fa, gen, name, batch, heads, kd, dtype_name, n,
     fwd_bound = _bound(ops_scale * 4 * bh * n * n * kd, 4 * operand, peak)
     lse_bound = _bound(ops_scale * 4 * bh * n * n * kd, 4 * operand + rows,
                        peak)
-    # q, k, v, g read and dk, dv written in the input type, dq in fp32; lse
-    # and delta read.
+    # q, k, v, g read and dq, dk, dv written in the input type (the timed
+    # call returns dq in q's dtype); lse and delta read.
     bwd_bound = _bound(ops_scale * 10 * bh * n * n * kd,
-                       6 * operand + bh * n * kd * 4 + 2 * rows, peak)
+                       7 * operand + 2 * rows, peak)
     bounds = {"fwd": fwd_bound, "fwd_lse": lse_bound, "fwd_drop": lse_bound,
               "bwd": bwd_bound, "bwd_split": bwd_bound}
     hm = [fa._heads_major(t, "bnhk") for t in (q, k, v, g)]

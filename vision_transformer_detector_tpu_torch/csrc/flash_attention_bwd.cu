@@ -1017,6 +1017,7 @@ cudaError_t launch_dim(const Launch& a) {
 
 template <typename T, typename O>
 cudaError_t launch(bool dropout, const Launch& a) {
+  if (a.dq_bf16 != 0) return cudaErrorInvalidValue;   // dq is fp32 here
   return dropout ? launch_dim<T, O, true>(a) : launch_dim<T, O, false>(a);
 }
 

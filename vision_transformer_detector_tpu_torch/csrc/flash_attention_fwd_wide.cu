@@ -157,11 +157,8 @@ __host__ __device__ constexpr int f32_halves_smem(int kdim) {
   return f32_smem(f32_ld(kdim), kF32HalvesKeys, 1);
 }
 
-// The CTAs of a cluster at K and the row stride of their tiles: each holds
-// at most ceil(pairs / ranks) 32-column pairs.
-__host__ __device__ constexpr int cluster_ranks(int kdim, int widest) {
-  return (kdim + widest - 1) / widest;
-}
+// The row stride of a cluster's tiles at K: each CTA holds at most
+// ceil(pairs / ranks) 32-column pairs.
 __host__ __device__ constexpr int f32_cluster_ld(int kdim) {
   return 32 * (((kdim + 31) / 32 + cluster_ranks(kdim, kWideMaxF32) - 1) /
                cluster_ranks(kdim, kWideMaxF32)) +
@@ -194,50 +191,6 @@ __device__ __forceinline__ void load_rows_f32(float* dst, int ld,
     const bool valid = row < seq_len && col < kdim - col0;
     cp_async16(dst + r * ld + col,
                src + (valid ? row * row_stride + col0 + col : 0), valid);
-  }
-}
-
-// A cluster's S exchange. Each part of S (a warp's 16 rows in fp32, a
-// warpgroup's 64 in bf16; kSlots threads, kTiles 8-key tiles each) lies in
-// shared memory as float4s, [part][tile][thread], so a thread reads 16
-// consecutive bytes of a peer's part; parts are indexed by tile parity.
-template <int kSlots, int kTiles>
-__device__ __forceinline__ void put_part(const float (&s)[kTiles][4],
-                                         float* x, int part, int slot) {
-  float4* at = reinterpret_cast<float4*>(x) + part * kTiles * kSlots + slot;
-#pragma unroll
-  for (int j = 0; j < kTiles; ++j) {
-    at[j * kSlots] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
-  }
-}
-
-// S of this thread's elements: the cluster's 2 * ranks parts (in each CTA,
-// part `first` of the first half and first + step of the second) summed in
-// one order, rank by rank and the first half's before the second's, so
-// every thread that holds these elements, in every CTA, holds the same
-// fp32 S (with two parts the order did not matter; with more it is what
-// keeps the softmax, lse and the dropout mask the same in every CTA).
-template <int kSlots, int kTiles>
-__device__ __forceinline__ void sum_parts(float (&s)[kTiles][4], uint32_t x,
-                                          int first, int step, int slot,
-                                          int ranks) {
-  constexpr uint32_t kPart = kTiles * kSlots * 16;   // bytes a part
-  const uint32_t mine = x + first * kPart + slot * 16;
-  for (int r = 0; r < ranks; ++r) {
-    const uint32_t at = map_rank(mine, r);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-#pragma unroll
-      for (int j = 0; j < kTiles; ++j) {
-        const float4 p = ld_cluster_f4(at + half * step * kPart +
-                                       j * kSlots * 16);
-        const bool add = (r | half) != 0;
-        s[j][0] = add ? s[j][0] + p.x : p.x;
-        s[j][1] = add ? s[j][1] + p.y : p.y;
-        s[j][2] = add ? s[j][2] + p.z : p.z;
-        s[j][3] = add ? s[j][3] + p.w : p.w;
-      }
-    }
   }
 }
 
@@ -813,15 +766,6 @@ struct Launch {
   cudaStream_t stream;
 };
 
-// What a launcher is asked: to launch, or (query) how many clusters of its
-// instance can be resident at once, into *resident (plan time: no operand
-// is read, no tensor map encoded).
-struct Ask {
-  bool query;
-  int* resident;
-};
-constexpr Ask kLaunch{false, nullptr};
-
 // The grid: one CTA per (batch*head, 64-query tile) and cluster rank; a
 // cluster's CTAs are neighbours in x.
 inline cudaError_t grid_of(const Launch& a, int ranks, int* q_tiles,
@@ -834,48 +778,12 @@ inline cudaError_t grid_of(const Launch& a, int ranks, int* q_tiles,
   return cudaSuccess;
 }
 
-// The configuration of a launch in clusters of `ranks` CTAs along x
-// (cudaLaunchKernelEx); built in place, since it points at its attribute.
-struct ClusterConfig {
-  cudaLaunchConfig_t config = {};
-  cudaLaunchAttribute attr[1];
-  ClusterConfig(unsigned int blocks, int ranks, int smem,
-                cudaStream_t stream) {
-    config.gridDim = dim3(blocks);
-    config.blockDim = dim3(kThreads);
-    config.dynamicSmemBytes = smem;
-    config.stream = stream;
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = ranks;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    config.attrs = attr;
-    config.numAttrs = 1;
-  }
-  ClusterConfig(const ClusterConfig&) = delete;
-};
-
-// How many clusters of `ranks` CTAs of kernel fit on the device at once.
-template <typename Kernel>
-cudaError_t resident_clusters(Kernel kernel, int ranks, int smem,
-                              int* resident) {
-  const ClusterConfig c(ranks, ranks, smem, nullptr);
-  return cudaOccupancyMaxActiveClusters(resident, kernel, &c.config);
-}
-
-template <typename... Params, typename... Args>
-cudaError_t run_cluster(void (*kernel)(Params...), unsigned int blocks,
-                        int ranks, int smem, cudaStream_t stream,
-                        Args&&... args) {
-  const ClusterConfig c(blocks, ranks, smem, stream);
-  const cudaError_t err = cudaLaunchKernelEx(&c.config, kernel, args...);
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
-
 template <typename Kernel>
 cudaError_t run_f32(Kernel kernel, int smem, int ranks, const Launch& a,
                     const Ask& ask) {
-  if (ask.query) return resident_clusters(kernel, ranks, smem, ask.resident);
+  if (ask.query) {
+    return resident_clusters(kernel, kThreads, ranks, smem, ask.resident);
+  }
   int q_tiles;
   unsigned int blocks;
   cudaError_t err = grid_of(a, ranks, &q_tiles, &blocks);
@@ -885,9 +793,9 @@ cudaError_t run_f32(Kernel kernel, int smem, int ranks, const Launch& a,
   const float* v = static_cast<const float*>(a.v);
   float* o = static_cast<float*>(a.o);
   if (ranks > 1) {
-    return run_cluster(kernel, blocks, ranks, smem, a.stream, q, k, v,
-                       o, a.state, a.heads, a.seq_len, a.kdim, q_tiles, a.sq,
-                       a.sk, a.sv, a.so, a.drop, ranks);
+    return run_cluster(kernel, kThreads, blocks, ranks, smem, a.stream, q,
+                       k, v, o, a.state, a.heads, a.seq_len, a.kdim, q_tiles,
+                       a.sq, a.sk, a.sv, a.so, a.drop, ranks);
   }
   kernel<<<blocks, kThreads, smem, a.stream>>>(
       q, k, v, o, a.state, a.heads, a.seq_len, a.kdim, q_tiles, a.sq, a.sk,
@@ -945,7 +853,8 @@ cudaError_t launch_bf16_boxes(const Launch& a, const Ask& ask) {
   if (err != cudaSuccess) return err;
   const int ranks = kCluster ? cluster_ranks(a.kdim, kWideMaxBf16) : 1;
   if (ask.query) {
-    return resident_clusters(kernel, ranks, kBf16Smem, ask.resident);
+    return resident_clusters(kernel, kThreads, ranks, kBf16Smem,
+                             ask.resident);
   }
   int q_tiles;
   unsigned int blocks;
@@ -962,8 +871,8 @@ cudaError_t launch_bf16_boxes(const Launch& a, const Ask& ask) {
   }
   O* o = static_cast<O*>(a.o);
   if constexpr (kCluster) {
-    return run_cluster(kernel, blocks, ranks, kBf16Smem, a.stream, tq,
-                       tk, tv, o, a.state, a.heads, a.seq_len, a.kdim,
+    return run_cluster(kernel, kThreads, blocks, ranks, kBf16Smem, a.stream,
+                       tq, tk, tv, o, a.state, a.heads, a.seq_len, a.kdim,
                        q_tiles, a.so, a.drop, ranks);
   }
   kernel<<<blocks, kThreads, kBf16Smem, a.stream>>>(

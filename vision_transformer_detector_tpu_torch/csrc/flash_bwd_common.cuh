@@ -134,14 +134,17 @@ __device__ __forceinline__ void store_rows(const float (&acc)[kTiles][4],
 }
 
 // One key tile's dq contribution to a warp's 16 query rows (from row0, the
-// lane's g added) at columns col0.., into the partials workspace laid out
-// (tiles, bh_count, seq_len, kdim). Lanes t and t ^ 1 swap halves, so each
-// stores four adjacent values of one row: an even lane row g, columns
-// 8j + 2t .. + 3; an odd lane row g + 8, columns 8j + 2(t - 1) .. + 3.
+// lane's g added) at columns col0.. (below col_end, by default K), into the
+// partials workspace laid out (tiles, bh_count, seq_len, kdim). Lanes t and
+// t ^ 1 swap halves, so each stores four adjacent values of one row: an
+// even lane row g, columns 8j + 2t .. + 3; an odd lane row g + 8, columns
+// 8j + 2(t - 1) .. + 3.
 template <int kTiles>
 __device__ __forceinline__ void store_partials(
     const float (&dq_acc)[kTiles][4], float* partials, int tile,
-    int bh_count, int bh, int seq_len, int kdim, int row0, int col0, int t) {
+    int bh_count, int bh, int seq_len, int kdim, int row0, int col0, int t,
+    int col_end = 0x7fffffff) {
+  const int limit = min(kdim, col_end);
   const bool odd = t & 1;
   const int row = row0 + (odd ? 8 : 0);
   const int col = col0 + 2 * (t & ~1);
@@ -156,7 +159,7 @@ __device__ __forceinline__ void store_partials(
     const float x1 = odd ? dq_acc[j][1] : dq_acc[j][3];
     const float r0 = __shfl_xor_sync(0xffffffffu, x0, 1);
     const float r1 = __shfl_xor_sync(0xffffffffu, x1, 1);
-    if (row < seq_len && col + 8 * j < kdim) {
+    if (row < seq_len && col + 8 * j < limit) {
       *reinterpret_cast<float4*>(dq_row + 8 * j) =
           odd ? make_float4(r0, r1, dq_acc[j][2], dq_acc[j][3])
               : make_float4(dq_acc[j][0], dq_acc[j][1], r0, r1);
@@ -213,6 +216,7 @@ struct Launch {
   Strides sq, sk, sv, sg, sdq, sdk, sdv;
   Dropout drop;
   cudaStream_t stream;
+  int dq_bf16;   // dq written in bf16 (the wide source's bf16 clusters)
 };
 
 // Launches kernel over (batch * heads * tiles, windows) blocks of kThreads
@@ -257,7 +261,8 @@ extern "C" {
 // the call's device addresses and stream. dtype 0 = float32, 1 = bfloat16
 // (q, k, v, g, and dk, dv unless dkv_fp32, which writes them in fp32: a
 // ring attention block's dk and dv join fp32 sums unrounded); dq is fp32
-// (dq_bf16 must be 0 here), every element written by the kernels; lse and
+// (dq_bf16 1 writes it in bf16, which only flash_attention_bwd_wide.cu's
+// bf16 cluster route takes), every element written by the kernels; lse and
 // delta are contiguous fp32 (batch, heads, seq_len). dq_partials: null
 // for the split route, or, in fp32 only, a (tiles, batch * heads,
 // seq_len, head_dim) fp32 workspace for the partials route, tiles =
@@ -274,8 +279,7 @@ int vtd_flash_attention_bwd(const FlashBwdArgs* args, const void* q,
                             void* dk, void* dv, void* dq_partials,
                             const unsigned int* seed, void* stream) {
   const FlashBwdArgs& p = *args;
-  if (p.batch <= 0 || p.heads <= 0 || p.seq_len <= 0 || p.head_dim <= 0 ||
-      p.dq_bf16 != 0) {
+  if (p.batch <= 0 || p.heads <= 0 || p.seq_len <= 0 || p.head_dim <= 0) {
     return cudaErrorInvalidValue;
   }
   if (p.dropout != 0 && seed == nullptr) return cudaErrorInvalidValue;
@@ -293,7 +297,8 @@ int vtd_flash_attention_bwd(const FlashBwdArgs* args, const void* q,
                  strides_of<Strides>(p.strides, 4),
                  strides_of<Strides>(p.strides, 5),
                  strides_of<Strides>(p.strides, 6), dropout_of(p, seed),
-                 static_cast<cudaStream_t>(stream)};
+                 static_cast<cudaStream_t>(stream),
+                 p.dq_bf16 != 0 ? 1 : 0};
   const DeviceScope scope(p.device);
   if (scope.error() != cudaSuccess) return scope.error();
   const bool dropout = p.dropout != 0;

@@ -16,6 +16,7 @@
 
 #include "dropout_mask.cuh"
 #include "mma_sm90.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -24,13 +25,12 @@ constexpr float kLog2e = 1.4426950408889634f;
 // The widest K one CTA of the wide forward (flash_attention_fwd_wide.cu)
 // holds in each dtype: fp32 128 < K <= 384, bf16 256 < K <= 512. Past them
 // a thread-block cluster of ceil(K / kWideMax*) such CTAs shares the
-// columns, up to the portable cluster size kClusterMax: fp32 to K 3072,
-// bf16 to K 4096. The windowed route of flash_attention_fwd.cu takes every
-// K past that reach, and only those (kernels/flash_attention.py:
-// forward_kernel names the kernel).
+// columns, up to the portable cluster size kClusterMax (sm90_common.cuh):
+// fp32 to K 3072, bf16 to K 4096. The windowed route of
+// flash_attention_fwd.cu takes every K past that reach, and only those
+// (kernels/flash_attention.py: forward_kernel names the kernel).
 constexpr int kWideMaxF32 = 384;
 constexpr int kWideMaxBf16 = 512;
-constexpr int kClusterMax = 8;
 constexpr int kReachF32 = kClusterMax * kWideMaxF32;
 constexpr int kReachBf16 = kClusterMax * kWideMaxBf16;
 

@@ -2,7 +2,9 @@
 // forward, and flash_attention_bwd_sm90.cu, the bf16 backward): the wgmma
 // products with fp32 accumulation and their fences, the shared-memory
 // descriptors of the 128-byte swizzle in which TMA stores each box, the
-// mbarrier operations of a producer/consumer ring, the TMA load, and on the
+// mbarrier operations of a producer/consumer ring, the TMA load, the
+// thread-block cluster helpers of the wide forward's and the wide
+// backward's cluster routes (flash_attention_{fwd,bwd}_wide.cu), and on the
 // host the encoding of a tensor map from a tensor's own strides.
 //
 // Accumulator layout (m64nNk16, fp32): warp w of the warpgroup owns rows
@@ -427,7 +429,8 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Thread-block clusters (the wide forward's cluster route): this CTA's rank
+// Thread-block clusters (the wide forward's and the wide backward's cluster
+// routes): this CTA's rank
 // in its cluster; the cluster barrier, split into an arrival (release: the
 // shared-memory stores before it are visible to the cluster) and a wait
 // (acquire), which every thread of every CTA of the cluster runs in turn;
@@ -458,6 +461,109 @@ __device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
                : "r"(addr)
                : "memory");
   return v;
+}
+
+// A cluster's exchange of partial products (the wide forward's S, the
+// cluster backward's S and dP). Each part (a warp's 16 rows in fp32, a
+// warpgroup's 64 in bf16; kSlots threads, kTiles 8-column tiles each) lies in
+// shared memory as float4s, [part][tile][thread], so a thread reads 16
+// consecutive bytes of a peer's part; parts are indexed by tile parity.
+template <int kSlots, int kTiles>
+__device__ __forceinline__ void put_part(const float (&s)[kTiles][4],
+                                         float* x, int part, int slot) {
+  float4* at = reinterpret_cast<float4*>(x) + part * kTiles * kSlots + slot;
+#pragma unroll
+  for (int j = 0; j < kTiles; ++j) {
+    at[j * kSlots] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+  }
+}
+
+// S of this thread's elements: the cluster's kHalves * ranks parts (in
+// each CTA, part `first` of the first half and first + step of the second;
+// with kHalves 1 the one part `first`) summed in one order, rank by rank
+// and the first half's before the second's, so every thread that holds
+// these elements, in every CTA, holds the same fp32 S (with two parts the
+// order did not matter; with more it is what keeps the softmax, lse and
+// the dropout mask the same in every CTA).
+template <int kSlots, int kTiles, int kHalves = 2>
+__device__ __forceinline__ void sum_parts(float (&s)[kTiles][4], uint32_t x,
+                                          int first, int step, int slot,
+                                          int ranks) {
+  constexpr uint32_t kPart = kTiles * kSlots * 16;   // bytes a part
+  const uint32_t mine = x + first * kPart + slot * 16;
+  for (int r = 0; r < ranks; ++r) {
+    const uint32_t at = map_rank(mine, r);
+#pragma unroll
+    for (int half = 0; half < kHalves; ++half) {
+#pragma unroll
+      for (int j = 0; j < kTiles; ++j) {
+        const float4 p = ld_cluster_f4(at + half * step * kPart +
+                                       j * kSlots * 16);
+        const bool add = (r | half) != 0;
+        s[j][0] = add ? s[j][0] + p.x : p.x;
+        s[j][1] = add ? s[j][1] + p.y : p.y;
+        s[j][2] = add ? s[j][2] + p.z : p.z;
+        s[j][3] = add ? s[j][3] + p.w : p.w;
+      }
+    }
+  }
+}
+
+// The portable cluster size: the most CTAs a cluster route launches.
+constexpr int kClusterMax = 8;
+
+// The CTAs of a cluster at K for CTAs of at most `share` columns.
+__host__ __device__ constexpr int cluster_ranks(int kdim, int share) {
+  return (kdim + share - 1) / share;
+}
+
+// What a cluster route's launcher is asked: to launch, or (query) how many
+// clusters of its kernels can be resident at once, the least over them, into
+// *resident (plan time: no operand is read, no tensor map encoded).
+struct Ask {
+  bool query;
+  int* resident;
+};
+constexpr Ask kLaunch{false, nullptr};
+
+// The configuration of a launch of CTAs of `threads` in clusters of `ranks`
+// CTAs along x (cudaLaunchKernelEx); built in place, since it points at its
+// attribute.
+struct ClusterConfig {
+  cudaLaunchConfig_t config = {};
+  cudaLaunchAttribute attr[1];
+  ClusterConfig(int threads, unsigned int blocks, int ranks, int smem,
+                cudaStream_t stream) {
+    config.gridDim = dim3(blocks);
+    config.blockDim = dim3(threads);
+    config.dynamicSmemBytes = smem;
+    config.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = ranks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+  }
+  ClusterConfig(const ClusterConfig&) = delete;
+};
+
+// How many clusters of `ranks` CTAs of kernel (`threads` each, `smem` bytes
+// of dynamic shared memory) fit on the device at once.
+template <typename Kernel>
+cudaError_t resident_clusters(Kernel kernel, int threads, int ranks,
+                              int smem, int* resident) {
+  const ClusterConfig c(threads, ranks, ranks, smem, nullptr);
+  return cudaOccupancyMaxActiveClusters(resident, kernel, &c.config);
+}
+
+template <typename... Params, typename... Args>
+cudaError_t run_cluster(void (*kernel)(Params...), int threads,
+                        unsigned int blocks, int ranks, int smem,
+                        cudaStream_t stream, Args&&... args) {
+  const ClusterConfig c(threads, blocks, ranks, smem, stream);
+  const cudaError_t err = cudaLaunchKernelEx(&c.config, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // A barrier of the consumer warpgroup alone (named barrier 1, 128

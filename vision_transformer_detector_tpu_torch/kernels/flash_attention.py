@@ -24,7 +24,8 @@ Routing is by the device of the tensors, never by a fallback:
     ``csrc/flash_attention_bwd_sm90.cu`` (wgmma fed by TMA) for bf16 at
     K <= 256, ``csrc/flash_attention_bwd.cu`` (mma.sync) for fp32 at
     K <= 128 and ``csrc/flash_attention_bwd_wide.cu`` for the rest: fp32
-    past 128, bf16 past 256 (``backward_kernel``);
+    past 128 and bf16 past 256 as a thread-block cluster (to fp32 1024 and
+    bf16 2048), the windowed route past that (``backward_kernel``);
   * any other device raises.
 
 The kernels run on the tensor cores (bf16, and fp32 as 3xTF32) at every
@@ -37,9 +38,14 @@ a tile too, its two halves of a CTA each owning half of O's columns (fp32
 on mma.sync to K 384, bf16 on wgmma to K 512), and a thread-block cluster
 of ceil(K / 384) or ceil(K / 512) such CTAs (at most 8) past that, each
 owning a share of the columns, the partial scores summed across the
-cluster; the backward's wide route (and the forward past the cluster's
-reach, fp32 3072 and bf16 4096) forms the scores over K in 64-column
-chunks and writes the outputs in column windows. They read
+cluster. The backward past fp32 K 128 and bf16 K 256 is a thread-block
+cluster too: ceil(K / 128) CTAs in fp32 (mma.sync) or ceil(K / 256) in
+bf16 (wgmma fed by TMA), at most 8, each owning a share of dk's, dv's and
+dq's columns, the partial S and dP summed across the cluster once a step
+(``backward_cluster_size``). Past the clusters' reach (the forward past
+fp32 3072 and bf16 4096, the backward past 1024 and 2048) the windowed
+routes form the scores over K in 64-column chunks and write the outputs
+in column windows. They read
 q, k, v (and the
 cotangent) at their own K: the loads zero-fill the columns past K and the
 stores stop at K. Rows must start on 16-byte boundaries; a K whose rows
@@ -57,10 +63,11 @@ delta = rowsum(g * out) in fp32 and launches the backward, as the JAX
 package's Pallas backward does. The backward sums dq over the key tiles
 in order, so the gradients are the same on every run (``DQ_ROUTES``:
 fp32 stores each key tile's contribution and adds them in a second
-kernel; bf16 runs a dq kernel after the dk/dv kernel, which with dropout
-also writes the keep bits it drew, packed (``pack_keep_bits``), for the dq
-kernel to read instead of hashing each score again, and which at K <=
-256 rounds dq to bf16 itself: no cast follows). Calls that need no grad
+kernel; bf16 runs a dq kernel after the dk/dv kernel, which at K <= 256 with dropout also
+writes the keep bits it drew, packed (``pack_keep_bits``), for the dq
+kernel to read instead of hashing each score again; the bf16 dq kernels
+at K <= 256 and of the cluster route round dq to bf16 themselves: no cast
+follows). Calls that need no grad
 (serving, ``torch.inference_mode``) launch the forward alone, without the
 logsumexp.
 
@@ -114,7 +121,7 @@ FWD_SOURCE = "flash_attention_fwd.cu"
 SM90_SOURCE = "flash_attention_fwd_sm90.cu"
 FWD_WIDE_SOURCE = "flash_attention_fwd_wide.cu"     # B1 past 128 / 256
 BWD_SOURCE = "flash_attention_bwd.cu"
-BWD_WIDE_SOURCE = "flash_attention_bwd_wide.cu"     # the wide route's B2
+BWD_WIDE_SOURCE = "flash_attention_bwd_wide.cu"     # B2 past 128 / 256
 BWD_SM90_SOURCE = "flash_attention_bwd_sm90.cu"     # bf16 B2 at K <= 256
 _HEAD_DIMS = (48, 64, 128)   # the mma.sync instances' widths up to K = 128
 _WGMMA_DIMS = (64, 128, 256)   # the wgmma kernels' (bf16, K <= 256)
@@ -129,7 +136,13 @@ WIDE_FWD_MAX = {torch.float32: 384, torch.bfloat16: 512}
 CLUSTER_MAX = 8
 FWD_CLUSTER_REACH = {dtype: CLUSTER_MAX * width
                      for dtype, width in WIDE_FWD_MAX.items()}
-BWD_WINDOW = 64              # its backward output windows (dq, dk, dv)
+# The columns one CTA of the backward's cluster route owns in each dtype;
+# a cluster holds ceil(K / BWD_CLUSTER_SHARE) CTAs, to CLUSTER_MAX, so to
+# BWD_CLUSTER_REACH; the windowed backward takes every K past that.
+BWD_CLUSTER_SHARE = {torch.float32: 128, torch.bfloat16: 256}
+BWD_CLUSTER_REACH = {dtype: CLUSTER_MAX * width
+                     for dtype, width in BWD_CLUSTER_SHARE.items()}
+BWD_WINDOW = 64              # the windowed backward's output windows
 _ALIGN = 16                  # bytes: cp.async copies and TMA rows
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KEY_TILE = 64           # keys per tile of the backward kernels
@@ -475,8 +488,11 @@ flash_attention.backward_drop_launches = 0  # backward with dropout replay
 # Of the two backward counts, the launches of the wgmma backward (bf16,
 # K <= 256; its dk/dv and dq kernels count once together).
 flash_attention.wgmma_backward_launches = 0
-# And those of the fp32 column halves (64 < K <= 128).
+# And those of the fp32 column halves (64 < K <= 128), of the cluster
+# route (fp32 past 128, bf16 past 256) and of the windowed route past it.
 flash_attention.halves_backward_launches = 0
+flash_attention.cluster_backward_launches = 0
+flash_attention.windowed_backward_launches = 0
 # Operands copied because their rows cannot be addressed in place (K
 # padded, or a cotangent view made contiguous); the model's calls make
 # none.
@@ -511,15 +527,17 @@ def _check_inputs(*tensors) -> None:
 class HeadDimPlan(NamedTuple):
     """How a call of head dim K and dtype runs: ``instance`` is the width
     of the mma.sync instance (48, 64, 128) or "wide" (K > 128); ``chunks``
-    the 64-column passes that form S (and dP) over K on the backward's wide
-    route, 1 on an instance that holds K whole; ``windows`` the forward's
-    output column windows, a grid axis of CTAs that recompute S for their
-    own columns (only on the "windowed" forward, else 1) and
-    ``grad_windows`` the backward's (dq, dk, dv) on its wide route;
+    the 64-column passes that form S (and dP) over K on the backward's
+    windowed route, 1 elsewhere (an instance that holds K whole, or the
+    cluster route, which forms S once a tile over the cluster); ``windows``
+    the forward's output column windows, a grid axis of CTAs that recompute
+    S for their own columns (only on the "windowed" forward, else 1) and
+    ``grad_windows`` the backward's (dq, dk, dv) on its windowed route;
     ``forward`` and ``backward`` the kernels that run
     (``forward_kernel``, ``backward_kernel``); ``cluster`` the CTAs of one
     thread-block cluster of the forward (``cluster_size``: past 1 only on
-    its "cluster" route)."""
+    its "cluster" route) and ``grad_cluster`` the backward's
+    (``backward_cluster_size``)."""
     instance: object
     chunks: int
     windows: int
@@ -527,6 +545,7 @@ class HeadDimPlan(NamedTuple):
     forward: str
     backward: str
     cluster: int = 1
+    grad_cluster: int = 1
 
 
 def head_dim_plan(kdim: int,
@@ -534,11 +553,12 @@ def head_dim_plan(kdim: int,
     """The plan at K = ``kdim`` (any K >= 1, as the JAX package's Pallas
     kernels take any K) in ``dtype``: K <= 48 the 48 instance, K <= 64 the
     64, K <= 128 the 128 (in fp32 the column halves, forward and
-    backward); past that "wide": S over ceil(K / 64) chunks and outputs in
-    windows of BWD_WINDOW columns in the backward, and one forward window
-    (a cluster of ``cluster_size`` CTAs past WIDE_FWD_MAX) but on the
-    windowed forward (fp32 past 3072, bf16 past 4096), whose windows are
-    FWD_WINDOW columns."""
+    backward); past that "wide": the backward in one window, a cluster of
+    ``backward_cluster_size`` CTAs, to BWD_CLUSTER_REACH, past it S over
+    ceil(K / 64) chunks and outputs in windows of BWD_WINDOW columns; and
+    one forward window (a cluster of ``cluster_size`` CTAs past
+    WIDE_FWD_MAX) but on the windowed forward (fp32 past 3072, bf16 past
+    4096), whose windows are FWD_WINDOW columns."""
     if kdim < 1:
         raise ValueError(f"head dim {kdim} < 1")
     forward = forward_kernel(kdim, dtype)
@@ -547,9 +567,10 @@ def head_dim_plan(kdim: int,
         if kdim <= width:
             return HeadDimPlan(width, 1, 1, 1, forward, backward)
     windows = -(-kdim // FWD_WINDOW) if forward == "windowed" else 1
-    return HeadDimPlan("wide", -(-kdim // CHUNK), windows,
-                       -(-kdim // BWD_WINDOW), forward, backward,
-                       cluster_size(kdim, dtype))
+    passes = -(-kdim // CHUNK) if backward == "windowed" else 1
+    return HeadDimPlan("wide", passes, windows, passes, forward, backward,
+                       cluster_size(kdim, dtype),
+                       backward_cluster_size(kdim, dtype))
 
 
 def kernel_width(kdim: int) -> int:
@@ -599,11 +620,26 @@ def backward_kernel(kdim: int, dtype: torch.dtype) -> str:
     """Which backward kernels run a call: "wgmma" (bf16 at K <= 256,
     csrc/flash_attention_bwd_sm90.cu, instance 64, 128 or 256), "mma_sync"
     (fp32 at K <= 128, csrc/flash_attention_bwd.cu: the 48 and 64
-    instances, and the column halves at 64 < K <= 128) or "wide" (fp32
-    past 128 and bf16 past 256, csrc/flash_attention_bwd_wide.cu)."""
+    instances, and the column halves at 64 < K <= 128), and in
+    csrc/flash_attention_bwd_wide.cu "cluster" (fp32 past 128 and bf16
+    past 256, to BWD_CLUSTER_REACH: a thread-block cluster of
+    ``backward_cluster_size`` CTAs, each owning a share of the columns, S
+    and dP formed once a tile over the cluster) or "windowed" (wider
+    still: S again in each 64-column window of the outputs)."""
     if dtype == torch.bfloat16 and kdim <= _WGMMA_DIMS[-1]:
         return "wgmma"
-    return "mma_sync" if kdim <= _HEAD_DIMS[-1] else "wide"
+    if kdim <= _HEAD_DIMS[-1]:
+        return "mma_sync"
+    return "cluster" if kdim <= BWD_CLUSTER_REACH[dtype] else "windowed"
+
+
+def backward_cluster_size(kdim: int, dtype: torch.dtype) -> int:
+    """The CTAs of one thread-block cluster of the backward at K =
+    ``kdim``: ceil(K / BWD_CLUSTER_SHARE) on its "cluster" route (2 to
+    CLUSTER_MAX), else 1."""
+    if backward_kernel(kdim, dtype) != "cluster":
+        return 1
+    return -(-kdim // BWD_CLUSTER_SHARE[dtype])
 
 
 def _pad_head_dim(t: torch.Tensor) -> torch.Tensor:
@@ -748,8 +784,9 @@ def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None,
     """dq, dk, dv from the backward kernels, through
     ``torch.ops.vtd_torch.flash_attention_bwd`` (kernels/ops.py). lse and
     delta are (B, H, N) fp32; dq accumulates in fp32 and comes out in q's
-    dtype (the bf16 wgmma dq kernel rounds it itself; the other routes'
-    operator casts it), dk and dv in the input dtype.
+    dtype (the bf16 dq kernels of the wgmma and cluster routes round it
+    themselves; the other routes' operator casts it), dk and dv in the
+    input dtype.
     ``dropout`` is the forward's ``(seed, rate)``, whose mask the kernel
     replays, reading the seed from device memory, placed by ``offsets``.
     ``route`` names one of ``DQ_ROUTES`` to take instead of the one the

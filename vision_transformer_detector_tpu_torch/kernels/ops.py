@@ -73,6 +73,11 @@ _ENTRIES = {"ln": "vtd_layer_norm", "ffn": "vtd_dense_mish",
 _POINTERS = {"ln": 6, "ffn": 6, "int8": 8, "drop": 5}
 # The libraries whose plans ask their source which instance runs.
 _QUERIED = ("ffn", "int8")
+# The flash libraries' occupancy queries of their cluster routes, and what
+# each launches.
+_CLUSTER_QUERIES = {"fwd_wide": "vtd_flash_attention_fwd_wide_clusters",
+                    "bwd_wide": "vtd_flash_attention_bwd_clusters"}
+_CLUSTER_WHAT = {"fwd_wide": "forward", "bwd_wide": "backward"}
 
 
 def _entry(kind: str) -> str:
@@ -94,8 +99,8 @@ def _library(kind: str) -> ctypes.CDLL:
     # seed's and the stream.
     fn.argtypes = [ctypes.c_void_p] * _POINTERS.get(kind, 13)
     fn.restype = ctypes.c_int
-    if kind == "fwd_wide":
-        query = lib.vtd_flash_attention_fwd_wide_clusters
+    if kind in _CLUSTER_QUERIES:
+        query = getattr(lib, _CLUSTER_QUERIES[kind])
         query.argtypes = [ctypes.c_void_p]
         query.restype = ctypes.c_int
     if kind in _QUERIED:
@@ -194,8 +199,10 @@ class LaunchPlan(NamedTuple):
     ``(shape, stride, dtype)``, the workspace's ``(shape, dtype)`` or
     None, the launch counters it adds one to, whether it reads a dropout
     seed, and for the backward whether the operator casts dq to q's dtype
-    after the launch; for the forward the CTAs of one thread-block cluster
-    (``flash_attention.cluster_size``, 1 off the cluster route). ``fn``
+    after the launch; the CTAs of one thread-block cluster
+    (``flash_attention.cluster_size`` for the forward,
+    ``backward_cluster_size`` for the backward; 1 off the cluster routes).
+    ``fn``
     (the C entry point), ``lib`` and ``stream`` (``index -> the current
     stream``) are bound when the operator first uses the plan (``_bound``):
     building a plan needs no card."""
@@ -268,8 +275,9 @@ def _bound(plan):
     loaded (built at the first use), its C entry point and the stream
     reader; for B3 and B5 the instance asked of the source's plan query
     (which writes it into the block) and whether it runs on the tensor
-    cores; for the forward's cluster route the check that a cluster of its
-    instance can be resident on the device (``_check_clusters``)."""
+    cores; for the cluster routes of the forward and the backward the check
+    that a cluster of their kernels can be resident on the device
+    (``_check_clusters``)."""
     lib = _library(plan.kind)
     if getattr(plan, "kernel", None) == "cluster":
         _check_clusters(lib, plan)
@@ -284,19 +292,21 @@ def _bound(plan):
 
 def _check_clusters(lib, plan) -> None:
     """Raise RuntimeError unless at least one thread-block cluster of the
-    plan's instance (``plan.cluster`` CTAs, each with the dynamic shared
-    memory it takes) can be resident on the plan's device at once, as
+    plan's kernels (``plan.cluster`` CTAs, each with the dynamic shared
+    memory it takes; for the backward each kernel the route launches) can
+    be resident on the plan's device at once, as
     cudaOccupancyMaxActiveClusters answers; asked once per plan. There is
-    no other route to give way to: the windowed one is the forward past
-    the cluster's reach only."""
-    resident = lib.vtd_flash_attention_fwd_wide_clusters(plan.args_ptr)
+    no other route to give way to: the windowed ones run only past the
+    clusters' reach."""
+    what = _CLUSTER_WHAT[plan.kind]
+    resident = getattr(lib, _CLUSTER_QUERIES[plan.kind])(plan.args_ptr)
     if resident < 0:
-        _build.raise_on_error(lib, -resident, "flash attention forward "
+        _build.raise_on_error(lib, -resident, f"flash attention {what} "
                               "(cluster occupancy query)")
     if resident == 0:
         raise RuntimeError(
             f"no thread-block cluster of {plan.cluster} CTAs of the flash "
-            f"forward at head dim {plan.args.head_dim} can be resident on "
+            f"{what} at head dim {plan.args.head_dim} can be resident on "
             f"{plan.device}: the cluster route needs {plan.cluster} SMs of "
             "one GPC free at once")
 
@@ -434,8 +444,10 @@ def backward_plan(q, k, v, g, lse, delta, layout: str, dropout_seed,
     """The backward's launch plan: every check of the operator, the
     kernels (``flash_attention.backward_kernel``), the dq route, the
     outputs, the workspace and the scalar block. dq comes out in fp32
-    with ``dq_fp32``, else in q's dtype: the wgmma dq kernel rounds it
-    itself, the other routes' fp32 dq is cast after the launch."""
+    with ``dq_fp32``, else in q's dtype: the bf16 dq kernels of the wgmma
+    and cluster routes round it themselves, the other routes' fp32 dq is
+    cast after the launch. The cluster route's plan records its cluster
+    size (``flash_attention.backward_cluster_size``)."""
     fa = flash_attention
     fa._check_inputs(q, k, v, g)
     fa._kernel_operands(layout, q=q, k=k, v=v, g=g)
@@ -451,7 +463,8 @@ def backward_plan(q, k, v, g, lse, delta, layout: str, dropout_seed,
     elif kernel == "wgmma" and dropout is not None:
         # The tenth pointer: the packed keep bits (wgmma, dropout).
         workspace = (fa.keep_bits_shape(b, h, n), torch.int32)
-    dq_bf16 = not dq_fp32 and kernel == "wgmma"
+    dq_bf16 = (not dq_fp32 and q.dtype == torch.bfloat16
+               and kernel in ("wgmma", "cluster"))
     dq = torch.empty(q.shape, dtype=q.dtype if dq_bf16 else _F32,
                      device="meta")
     dk, dv = (_like(t, _F32 if dkv_fp32 else t.dtype) for t in (k, v))
@@ -465,13 +478,16 @@ def backward_plan(q, k, v, g, lse, delta, layout: str, dropout_seed,
     halves = kernel == "mma_sync" and kdim > 64
     counts = (("backward_launches" if dropout is None
                else "backward_drop_launches",)
-              + (("wgmma_backward_launches",) if kernel == "wgmma" else ())
+              + {"wgmma": ("wgmma_backward_launches",),
+                 "cluster": ("cluster_backward_launches",),
+                 "windowed": ("windowed_backward_launches",)}.get(kernel, ())
               + (("halves_backward_launches",) if halves else ()))
-    kind = {"wgmma": "bwd_sm90", "mma_sync": "bwd",
-            "wide": "bwd_wide"}[kernel]
+    kind = {"wgmma": "bwd_sm90", "mma_sync": "bwd", "cluster": "bwd_wide",
+            "windowed": "bwd_wide"}[kernel]
     return LaunchPlan(kind, kernel, args, ctypes.addressof(args), q.device,
                       outputs, workspace, counts, dropout is not None,
-                      cast_dq=not dq_fp32 and dq.dtype != q.dtype)
+                      cast_dq=not dq_fp32 and dq.dtype != q.dtype,
+                      cluster=fa.backward_cluster_size(kdim, q.dtype))
 
 
 def backward_launch(q, k, v, g, lse, delta, layout: str, dropout_seed,
@@ -529,12 +545,15 @@ def _flash_bwd_cuda(q, k, v, g, lse, delta, layout, dropout_seed,
     dk, dv)`` at q's head dim K from the backward kernels that
     ``flash_attention.backward_kernel`` names (bf16 at K <= 256
     csrc/flash_attention_bwd_sm90.cu on wgmma, fp32 at K <= 128
-    csrc/flash_attention_bwd.cu, the rest csrc/flash_attention_bwd_wide.cu),
+    csrc/flash_attention_bwd.cu, the rest csrc/flash_attention_bwd_wide.cu:
+    a thread-block cluster to fp32 K 1024 and bf16 2048, the windowed
+    route past that),
     K any width whose rows are 16-byte aligned; lse and delta are contiguous
     ``(B, H, N)`` fp32; dq is summed in fp32 over the key tiles in order
     and written once, so it is the same on every run: in fp32 with
-    ``dq_fp32`` (the default), else in q's dtype (the wgmma dq kernel
-    rounds the sum itself; the other routes' is cast). A nonzero
+    ``dq_fp32`` (the default), else in q's dtype (the bf16 dq kernels of
+    the wgmma and cluster routes round the sum themselves; the other
+    routes' is cast). A nonzero
     ``dropout_rate`` replays the forward's mask, its seed read from
     ``dropout_seed``'s device memory and placed by ``bh_base``/``q_base``/
     ``k_base`` and the row map as in the forward. ``request`` is one of
