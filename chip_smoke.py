@@ -212,10 +212,11 @@ PyTorch version. Phases, one output line each:
                     192, 256, 320, 384, 512 in one layout each, bf16 and
                     fp32 (bf16 up to 256 on the wgmma 256 instance, K 129
                     padded to 192; the wide forward for fp32 to 384 and
-                    bf16 to 512, the windowed one past; the backward's
-                    cluster route to fp32 1024 and bf16 2048, its windowed
-                    route past; fp32 B2 at 80 and 128 on the column
-                    halves),
+                    bf16 to 512, its clusters to 3072 / 4096, the windowed
+                    one past (K 3104 fp32, 4160); the backward's cluster
+                    route to fp32 1024 and bf16 2048, its windowed route
+                    past (K 1056 fp32, 2112 bf16, 3104, 4160); fp32 B2 at
+                    80 and 128 on the column halves),
                     against the plain versions (forward, lse, dropout
                     forward, backward by each dq route and with the
                     replay, the fp32-output instance and fp32 dk/dv), the
@@ -466,19 +467,20 @@ def phase_build():
     # The libraries' SASS, disassembled all at once (cuobjdump per library).
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         list(pool.map(_sass, [_build.library_path(s) for s in sources]))
-    # The mma.sync forward: fp32 at head dim 48, 64 and the windowed route
-    # in both types, each with and without dropout (8); the wide forward,
-    # fp32 (HMMA) and bf16 (HGMMA) in one CTA and in a cluster, and the fp32
-    # column halves ("fp32_d128"), each with and without dropout (10); the
-    # backward: fp32 at 48, 64, 128 (the column halves), each with
-    # and without dropout, for the dk/dv kernel, the dq kernel ("_dq") and
-    # the partials route ("_partials"): 6 + 6 + 6; the wide library's
-    # windowed route, both types (dk/dv 4, dq 4, fp32 partials 2; the
-    # output types count as one) and its clusters,
-    # fp32 (HMMA: dk/dv, partials, dq) and bf16 (HGMMA: dk/dv, dq), each
-    # with and without dropout (6 + 4).
-    instances = {fa.FWD_SOURCE: 8, fa.FWD_WIDE_SOURCE: 10,
-                 fa.BWD_SOURCE: 18, fa.BWD_WIDE_SOURCE: 20}
+    # The mma.sync forward: fp32 at head dim 48, 64 and the windowed
+    # route's window kernel in both types, each with and without dropout
+    # (8), and its scores kernels (fp32 HMMA, bf16 HGMMA: 2); the wide
+    # forward, fp32 (HMMA) and bf16 (HGMMA) in one CTA and in a cluster,
+    # and the fp32 column halves ("fp32_d128"), each with and without
+    # dropout (10); the backward: fp32 at 48, 64, 128 (the column halves),
+    # each with and without dropout, for the dk/dv kernel, the dq kernel
+    # ("_dq") and the partials route ("_partials"): 6 + 6 + 6; the wide
+    # library's windowed route, both types (the scores kernels with and
+    # without the replay 4, dk/dv 2, dq 2; the output types count as one)
+    # and its clusters, fp32 (HMMA: dk/dv, partials, dq) and bf16 (HGMMA:
+    # dk/dv, dq), each with and without dropout (6 + 4).
+    instances = {fa.FWD_SOURCE: 10, fa.FWD_WIDE_SOURCE: 10,
+                 fa.BWD_SOURCE: 18, fa.BWD_WIDE_SOURCE: 18}
     hmma = {source: _tensor_core_instructions(_build.library_path(source))
             for source in instances}
     for source, counts in hmma.items():
@@ -513,29 +515,34 @@ def phase_build():
                      f"{dense[source]}")
     hmma.update(dense)
     # The redesigned wide forward (one CTA, a cluster, the fp32 column
-    # halves), the backward's fp32 column halves and the wide backward's
-    # clusters: registers, spills and dynamic shared memory of each
-    # instance (the wide forward at its widest K in each type, the halves
-    # and the backward's clusters by kernel), and each cluster instance's
-    # size and resident clusters at the K the checks run; the halves and
-    # the clusters must spill nothing.
-    for source, keep in ((fa.FWD_WIDE_SOURCE, ("_wide", "_cluster",
+    # halves), the backward's fp32 column halves, the wide backward's
+    # clusters and both windowed routes (scores kernels, window kernels):
+    # registers, spills and dynamic shared memory of each instance (the
+    # wide forward at its widest K in each type, the halves and the
+    # backward's clusters by kernel), and each cluster instance's size and
+    # resident clusters at the K the checks run; the halves, the clusters
+    # and the windowed routes' kernels must spill nothing.
+    for source, keep in ((fa.FWD_SOURCE, ("_windowed", "_scores")),
+                         (fa.FWD_WIDE_SOURCE, ("_wide", "_cluster",
                                                "_d128")),
                          (fa.BWD_SOURCE, ("_d128",)),
-                         (fa.BWD_WIDE_SOURCE, ("_cluster",))):
+                         (fa.BWD_WIDE_SOURCE, ("_cluster", "_windowed",
+                                               "_scores"))):
         REDESIGNED[source] = {
             name: found for name, found in _flash_registers(
                 _build.BUILD_LOGS[source]).items()
             if any(part in name for part in keep)}
-    for source, count in ((fa.BWD_SOURCE, 6), (fa.FWD_WIDE_SOURCE, 10),
-                          (fa.BWD_WIDE_SOURCE, 10)):
+    for source, count in ((fa.FWD_SOURCE, 6), (fa.BWD_SOURCE, 6),
+                          (fa.FWD_WIDE_SOURCE, 10),
+                          (fa.BWD_WIDE_SOURCE, 18)):
         found = REDESIGNED[source]
         _require(len(found) == count and all(
             r["spill_stores"] == 0 and r["spill_loads"] == 0
             for name, r in found.items()
-            if "_cluster" in name or "_d128" in name),
-                 f"{source}: the column halves or the clusters spill: "
-                 f"{found}")
+            if any(part in name for part in ("_cluster", "_d128",
+                                             "_windowed", "_scores"))),
+                 f"{source}: the column halves, the clusters or the "
+                 f"windowed routes spill: {found}")
     REDESIGNED["shared_memory"] = _redesigned_smem()
     REDESIGNED["clusters"] = _cluster_sizes()
     _report("build", seconds=seconds, ptxas=ptxas,
@@ -655,9 +662,10 @@ def _tensor_core_instructions(library: str,
                               mnemonic: str = r"H(G)?MMA") -> dict:
     """``mnemonic`` lines (HMMA/HGMMA by default) of each flash kernel
     instance in the library's SASS (cuobjdump from nvcc's toolkit), by
-    "<type>_d<head dim>[_drop]" ("_wide", "_cluster" or "_windowed" in
-    place of "_d<head dim>" for the wide forward's, the clusters' and the
-    windowed routes' kernels),
+    "<type>_d<head dim>[_drop]" ("_wide", "_cluster", "_windowed" or
+    "_scores" in place of "_d<head dim>" for the wide forward's, the
+    clusters', the windowed routes' window kernels and their scores
+    kernels),
     "_dq" after the backward's dq kernel's, "_partials" after the dk/dv
     kernel's that also forms the dq partials (fp32); the wgmma kernels'
     (bf16: ``flash_fwd_sm90_kernel``, ``flash_bwd_sm90_kernel``,
@@ -680,21 +688,24 @@ def _flash_instance(symbol: str):
     kernel's mangled symbol, or None for another kernel."""
     found = re.search(
         r"flash_(fwd|bwd)(_dq)?(_wide_f32|_wide_bf16|_cluster_f32|"
-        r"_cluster_bf16|_halves|_windowed|_wide|_sm90)?"
-        r"_kernelI(13__nv_bfloat16|f)?((?:Li\d+E)*)Lb([01])E(Lb1E)?", symbol)
+        r"_cluster_bf16|_scores_f32|_scores_bf16|_halves|_windowed|_wide|"
+        r"_sm90)?_kernel(?:I(13__nv_bfloat16|f)?((?:Li\d+E)*)"
+        r"(?:Lb([01])E)?(Lb1E)?)?", symbol)
     if not found:
         return None
     kind, dq, variant, dtype, dims, drop, flag = found.groups()
     dim = re.findall(r"\d+", dims)[0] if dims else None
     partials = kind == "bwd" and flag
-    # The wide forward's, its clusters' and the column halves' kernels
-    # carry their type and width in their names.
-    if variant in ("_wide_f32", "_cluster_f32", "_halves"):
+    # The wide forward's, its clusters', the column halves' and the
+    # windowed routes' scores kernels carry their type (and the halves
+    # their width) in their names.
+    if variant in ("_wide_f32", "_cluster_f32", "_halves", "_scores_f32"):
         dtype = "f"
     if variant == "_halves":
         dim = "128"
     wide = variant in ("_wide", "_wide_f32", "_wide_bf16")
     route = ("_cluster" if variant in ("_cluster_f32", "_cluster_bf16")
+             else "_scores" if variant in ("_scores_f32", "_scores_bf16")
              else "_windowed" if variant == "_windowed"
              else "_wide" if wide else "_d" + dim)
     return (f"{'fp32' if dtype == 'f' else 'bf16'}{route}"
@@ -5060,13 +5071,14 @@ def phase_parallel() -> dict:
 # 256 instance up to 256 (K 129 padded to 192 for it), the wide forward for
 # fp32 to 384 and bf16 320-512 in one CTA, its clusters for fp32 512, 576
 # and 1024 and bf16 576 and 1024, the windowed forward past the clusters'
-# reach (K 4160); the backward's cluster route past fp32 128 / bf16 256
-# (fp32 1024 on a cluster of 8, bf16 1024 of 4), its windowed route at
-# K 4160.
+# reach (K 3104 fp32, 4160); the backward's cluster route past fp32 128 /
+# bf16 256 (fp32 1024 on a cluster of 8, bf16 1024 of 4), its windowed
+# route past fp32 1024 and bf16 2048 (K 1056 fp32, 2112 bf16, 3104, 4160).
 WIDE_DIMS = ((80, ("bhnk", "bnhk")), (128, ("bhnk", "bnhk")),
              (129, ("bhnk",)), (192, ("bnhk",)), (256, ("bhnk",)),
              (320, ("bnhk",)), (384, ("bhnk",)), (512, ("bnhk",)),
-             (576, ("bhnk",)), (1024, ("bnhk",)), (4160, ("bhnk",)))
+             (576, ("bhnk",)), (1024, ("bnhk",)), (1056, ("bhnk",)),
+             (2112, ("bnhk",)), (3104, ("bhnk",)), (4160, ("bhnk",)))
 WIDE_N = 321                   # five key tiles, the last one ragged
 WIDE_HEADS = 16                # ViT-H/14's heads
 WIDE_RING_N = 256              # two ring blocks of 128 keys (whole tiles)
@@ -5074,20 +5086,20 @@ WIDE_RING_N = 256              # two ring blocks of 128 keys (whole tiles)
 # their own (B1, B1-lse, B1-drop, each beside its plain version and SDPA
 # memory-efficient, with dropout for B1-drop): the wide forward in fp32 at
 # K 192, 256, 320 and in bf16 at 320 and 384, its clusters at bf16 576 and
-# 1024 and fp32 512, the windowed one at bf16 4160 (past the clusters'
-# reach; batch 2), and the fp32 column halves at ViT-H/14's (128, 256, 80)
-# and at (2048, 256, 128); fp32 B2 on the column halves at K 80, 96, 128
-# and on the backward's clusters at K 256 and 512 (WIDE_FP32_BWD); B2 past
-# the clusters' reach, the windowed route, at bf16 (32, 256, 2112)
-# (WIDE_WINDOWED_BWD).
+# 1024 and fp32 512, the windowed one at bf16 4160 and fp32 3104 (past the
+# clusters' reach; batch 2), and the fp32 column halves at ViT-H/14's (128,
+# 256, 80) and at (2048, 256, 128); fp32 B2 on the column halves at K 80,
+# 96, 128 and on the backward's clusters at K 256 and 512 (WIDE_FP32_BWD);
+# B2 past the clusters' reach, the windowed route, at bf16 (32, 256, 2112)
+# and fp32 (32, 256, 1056) (WIDE_WINDOWED_BWD).
 WIDE_FWD_TIMED = ((8, 16, 192, "float32"), (8, 16, 256, "float32"),
                   (8, 16, 320, "float32"), (8, 16, 320, "bfloat16"),
                   (8, 16, 384, "bfloat16"), (8, 16, 576, "bfloat16"),
                   (8, 16, 1024, "bfloat16"), (8, 16, 512, "float32"),
-                  (2, 16, 4160, "bfloat16"),
+                  (2, 16, 4160, "bfloat16"), (2, 16, 3104, "float32"),
                   (8, 16, 80, "float32"), (128, 16, 128, "float32"))
 WIDE_FP32_BWD = (80, 96, 128, 256, 512)
-WIDE_WINDOWED_BWD = (2, 16, 2112)
+WIDE_WINDOWED_BWD = ((2, 16, 2112, "bfloat16"), (2, 16, 1056, "float32"))
 # (batch, heads, K), timed as (B * H, 256, K) bf16: the wide_heads model's
 # (16 heads of 80, the 128 instance) at batch 1, 8, 32; (2048, 256, 128)
 # at the instance's own width; (128, 256, 192) and (128, 256, 256) on the
@@ -5157,9 +5169,11 @@ def _wide_kernels() -> dict:
     # and backward).
     wide_launches = {"fwd": 0, "fwd_fp32": 0, "fwd_bf16": 0, "bwd": 0,
                      "cluster_fwd_fp32": 0, "cluster_fwd_bf16": 0,
-                     "windowed_fwd": 0, "halves_fwd": 0,
+                     "windowed_fwd": 0, "windowed_fwd_fp32": 0,
+                     "windowed_fwd_bf16": 0, "halves_fwd": 0,
                      "cluster_bwd_fp32": 0, "cluster_bwd_bf16": 0,
-                     "windowed_bwd": 0}
+                     "windowed_bwd": 0, "windowed_bwd_fp32": 0,
+                     "windowed_bwd_bf16": 0}
     bwd_counters = ("cluster_backward_launches",
                     "windowed_backward_launches")
     counters = {"wgmma": "wgmma_launches", "halves": "halves_launches",
@@ -5272,6 +5286,9 @@ def _wide_kernels() -> dict:
                     "fp32" if dtype == torch.float32 else "bf16")] \
                     += bwd_moved[0]
                 wide_launches["windowed_bwd"] += bwd_moved[1]
+                wide_launches["windowed_bwd_" + (
+                    "fp32" if dtype == torch.float32 else "bf16")] \
+                    += bwd_moved[1]
                 for key, value in err.items():
                     if key == "bwd_abs":     # reported; held relative
                         continue
@@ -5298,6 +5315,7 @@ def _wide_kernels() -> dict:
                 wide_launches[f"fwd_{tag}"] += moved["wide"]
                 wide_launches[f"cluster_fwd_{tag}"] += moved["cluster"]
                 wide_launches["windowed_fwd"] += moved["windowed"]
+                wide_launches[f"windowed_fwd_{tag}"] += moved["windowed"]
                 wide_launches["halves_fwd"] += moved["halves"]
         halves_launches += (fa.flash_attention.halves_backward_launches
                             - halves_at_start)
@@ -5311,9 +5329,10 @@ def _wide_kernels() -> dict:
     # The ring: each half of the queries over two key blocks of 128,
     # chained (resume, suspend), against one launch over the 256 keys,
     # tokens-major as the ring runs them, with and without dropout (each
-    # block's query and key bases place its mask).
+    # block's query and key bases place its mask); at K 3104 (fp32) and
+    # 4160 on the windowed forward.
     ring = {}
-    for kd in (80, 128, 192, 256, 320, 512, 576):
+    for kd in (80, 128, 192, 256, 320, 512, 576, 3104, 4160):
         for dtype in (torch.bfloat16, torch.float32):
             for dropout in (None, drop):
                 name = (f"K{kd}_{str(dtype).split('.')[-1]}"
@@ -5351,7 +5370,8 @@ def _wide_kernels() -> dict:
     # instance at K 192 and 256 with and without the replay (the K-256
     # model's training); the backward's clusters, fp32 partials at 192 and
     # split at 512, bf16 at 320 with and without the replay, and its
-    # windowed route at bf16 2112.
+    # windowed route at bf16 2112 with and without the replay and fp32
+    # 1056 by both dq routes.
     repeats = {}
     for dtype, dropout, route, kd, batch in (
             (torch.bfloat16, None, None, 80, 8),
@@ -5369,7 +5389,10 @@ def _wide_kernels() -> dict:
             (torch.float32, None, "split", 512, 1),
             (torch.bfloat16, None, None, 320, 2),
             (torch.bfloat16, drop, None, 320, 2),
-            (torch.bfloat16, None, None, 2112, 1)):
+            (torch.bfloat16, None, None, 2112, 1),
+            (torch.bfloat16, drop, None, 2112, 1),
+            (torch.float32, None, "partials", 1056, 1),
+            (torch.float32, drop, "split", 1056, 1)):
         q, k, v, g = _wide_inputs(gen, "bnhk", batch, 256, WIDE_HEADS, kd,
                                   dtype)
         out, lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
@@ -5382,8 +5405,9 @@ def _wide_kernels() -> dict:
                                     dropout, route)
     _require(all(wide_launches[key] > 0 for key in (
         "fwd_fp32", "fwd_bf16", "cluster_fwd_fp32", "cluster_fwd_bf16",
-        "windowed_fwd", "halves_fwd", "bwd", "cluster_bwd_fp32",
-        "cluster_bwd_bf16", "windowed_bwd")),
+        "windowed_fwd_fp32", "windowed_fwd_bf16", "halves_fwd", "bwd",
+        "cluster_bwd_fp32", "cluster_bwd_bf16", "windowed_bwd_fp32",
+        "windowed_bwd_bf16")),
              f"wide_heads: a route ran no launch: {wide_launches}")
     return {"errors": errors, "ring": ring, "b2_repeats": repeats,
             "wide_launches": wide_launches,
@@ -5491,8 +5515,9 @@ def _wide_times() -> dict:
     each beside its bound; WIDE_FWD_TIMED's forwards
     (``_wide_forward_times``); fp32 B2 at (128, 256, K) for K in
     WIDE_FP32_BWD (the column halves, the backward's clusters) by both dq
-    routes beside SDPA's fp32 backward; bf16 B2 on the windowed route at
-    WIDE_WINDOWED_BWD beside its plain version and SDPA's backward."""
+    routes beside SDPA's fp32 backward; B2 on the windowed route at
+    WIDE_WINDOWED_BWD (bf16; fp32 by both dq routes) beside its plain
+    version and SDPA's backward."""
     import torch
 
     from vision_transformer_detector_tpu_torch.kernels import (
@@ -5607,39 +5632,56 @@ def _wide_times() -> dict:
             fp32, bound_ms=bound_ms, bound_by=bound_by, errors=errors,
             backward_kernel=fa.backward_kernel(kd, torch.float32),
             plan=fa.head_dim_plan(kd)._asdict())
-    # The windowed route past the cluster's reach, bf16.
-    batch, heads, kd = WIDE_WINDOWED_BWD
-    _require(fa.backward_kernel(kd, torch.bfloat16) == "windowed",
-             f"wide_heads: bf16 K {kd} runs "
-             f"{fa.backward_kernel(kd, torch.bfloat16)}")
-    q, k, v, g = _wide_inputs(gen, "bnhk", batch, 256, heads, kd,
-                              torch.bfloat16)
-    errors, out, lse, delta = _wide_shape_errors(q, k, v, g, "bnhk",
-                                                 (2e-2, 1e-4, 2e-2))
-    bh, n = batch * heads, 256
-    hm = [fa._heads_major(t, "bnhk") for t in (q, k, v, g)]
-    leaves = [t.detach().clone().requires_grad_() for t in hm[:3]]
+    # The windowed route past the clusters' reach, bf16 and fp32 (by both
+    # dq routes: ms the default, partials, split_ms the split one).
+    for batch, heads, kd, dtype_name in WIDE_WINDOWED_BWD:
+        dtype = getattr(torch, dtype_name)
+        fp32 = dtype == torch.float32
+        _require(fa.backward_kernel(kd, dtype) == "windowed",
+                 f"wide_heads: {dtype_name} K {kd} runs "
+                 f"{fa.backward_kernel(kd, dtype)}")
+        q, k, v, g = _wide_inputs(gen, "bnhk", batch, 256, heads, kd, dtype)
+        tol = (2e-5, 1e-4, 2e-5) if fp32 else (2e-2, 1e-4, 2e-2)
+        errors, out, lse, delta = _wide_shape_errors(q, k, v, g, "bnhk",
+                                                     tol)
+        bh, n = batch * heads, 256
+        hm = [fa._heads_major(t, "bnhk") for t in (q, k, v, g)]
+        leaves = [t.detach().clone().requires_grad_() for t in hm[:3]]
 
-    def windowed_step(backend):
-        o = _sdpa(*leaves, backend)
-        torch.autograd.grad(o, leaves, hm[3])
-        return o
+        def windowed_step(backend, leaves=leaves, hm=hm):
+            o = _sdpa(*leaves, backend)
+            torch.autograd.grad(o, leaves, hm[3])
+            return o
 
-    backend = _sdpa_backend(windowed_step)
-    lib_out = _sdpa(*leaves, backend)
-    windowed = _in_turns({
-        "plain_ms": lambda: fa.reference_attention_backward(q, k, v, g),
-        "kernel_ms": lambda: fa._launch_backward(q, k, v, g, lse, delta,
-                                                 "bnhk"),
-        "library_ms": lambda: torch.autograd.grad(
-            lib_out, leaves, hm[3], retain_graph=True)}, 5)
-    operand = bh * n * kd * 2            # dq comes out in bf16 too
-    bound_ms, bound_by = _bound(10 * bh * n * n * kd,
-                                7 * operand + 2 * bh * n * 4, "bf16")
-    times[f"{bh}x{n}x{kd}_windowed_bwd"] = dict(
-        windowed, bound_ms=bound_ms, bound_by=bound_by, errors=errors,
-        sdpa_backend=backend.name, plan=fa.head_dim_plan(
-            kd, torch.bfloat16)._asdict())
+        backend = _sdpa_backend(windowed_step)
+        lib_out = _sdpa(*leaves, backend)
+        runs = {
+            "plain_ms": lambda: fa.reference_attention_backward(q, k, v, g),
+            "kernel_ms": lambda: fa._launch_backward(q, k, v, g, lse, delta,
+                                                     "bnhk"),
+            "library_ms": lambda lib_out=lib_out, leaves=leaves, hm=hm:
+                torch.autograd.grad(lib_out, leaves, hm[3],
+                                    retain_graph=True)}
+        if fp32:
+            split = fa._launch_backward(q, k, v, g, lse, delta, "bnhk",
+                                        route="split")
+            errors["bwd_split_rel"] = max(_rel_err(a, b) for a, b in zip(
+                split, fa.reference_attention_backward(q, k, v, g)))
+            _require(errors["bwd_split_rel"] <= 2e-5,
+                     f"wide_heads fp32 windowed B2 K {kd} split: "
+                     f"{errors['bwd_split_rel']} > 2e-5")
+            runs["split_ms"] = lambda: fa._launch_backward(
+                q, k, v, g, lse, delta, "bnhk", route="split")
+        windowed = _in_turns(runs, 5)
+        size = 4 if fp32 else 2
+        operand = bh * n * kd * size     # bf16 dq comes out in bf16 too
+        bound_ms, bound_by = _bound(10 * bh * n * n * kd,
+                                    7 * operand + 2 * bh * n * 4,
+                                    "3xtf32" if fp32 else "bf16")
+        times[f"{bh}x{n}x{kd}_{dtype_name}_windowed_bwd"] = dict(
+            windowed, bound_ms=bound_ms, bound_by=bound_by, errors=errors,
+            sdpa_backend=backend.name,
+            plan=fa.head_dim_plan(kd, dtype)._asdict())
     return times
 
 
@@ -6146,6 +6188,33 @@ def _entry(name, source, replaces, shape, launches, err, times, work):
             "peak": PEAK_NAMES[work[2]]}
 
 
+# The windowed routes' kernels (the kernels line's rows past the clusters'
+# reach), by their CUDA names.
+WINDOWED_KERNELS = {
+    "fwd": ["flash_fwd_scores_bf16_kernel", "flash_fwd_scores_f32_kernel",
+            "flash_fwd_windowed_kernel"],
+    "bwd": ["flash_bwd_scores_bf16_kernel", "flash_bwd_scores_f32_kernel",
+            "flash_bwd_windowed_kernel", "flash_bwd_dq_windowed_kernel"]}
+WINDOWED_FWD_KERNEL = {
+    "bf16": "the windowed forward (bf16 past 4096): a scores kernel on wgmma "
+            "+ TMA forms each (64-query, 64-key) tile pair's S over all of "
+            "K once into an fp32 workspace, then a window kernel (mma.sync, "
+            "4 warps) per 128-column window of O reads it back",
+    "fp32": "the windowed forward (fp32 past 3072): a scores kernel on "
+            "mma.sync 3xTF32 (64-column chunks summed in fresh registers) "
+            "forms each tile pair's S once into the workspace, then a window "
+            "kernel of two 4-warp halves per 128-column window of O"}
+WINDOWED_BWD_KERNEL = {
+    "bf16": "the windowed backward (bf16 past 2048): a scores kernel on "
+            "wgmma + TMA forms each tile pair's S and dP once and parks "
+            "scale P and dS in a bf16 workspace, then a dk/dv kernel and a "
+            "dq kernel (mma.sync) per 64-column window read them back; dq "
+            "written in bf16 by its kernel",
+    "fp32": "the windowed backward (fp32 past 1024): the same three kernels "
+            "on mma.sync 3xTF32, the workspace in fp32; both dq routes take "
+            "the one dq kernel (ms the default, split_ms the split request)"}
+
+
 def _wide_entries(wide: dict, hgmma: dict) -> list:
     """The wide heads' rows (wide_heads): the 128-wide wgmma instance's B1
     at the K-80 service's batch 32, B1-lse and B2 at its train step's batch
@@ -6157,11 +6226,13 @@ def _wide_entries(wide: dict, hgmma: dict) -> list:
     320) bf16 and (128, 256, 256) fp32 (K 384 and K 192, 320 beside
     them), its clusters' at (128, 256, 576) bf16 ((128, 256, 1024) beside
     it) and (128, 256, 512) fp32, the windowed forward's at (32, 256,
-    4160) bf16 and the fp32 column halves' at (128, 256, 80) ((2048, 256,
+    4160) bf16 and (32, 256, 3104) fp32 (with their kernels, plan and
+    registers) and the fp32 column halves' at (128, 256, 80) ((2048, 256,
     128) beside it), each with
     its B1 and B1-drop; the backward's clusters at (128, 256, 320) bf16
     and (128, 256, 512) fp32 ((128, 256, 256) beside it), its windowed
-    route at (32, 256, 2112) bf16 and the fp32 column halves' B2 at (128,
+    route at (32, 256, 2112) bf16 and (32, 256, 1056) fp32 and the fp32
+    column halves' B2 at (128,
     256, 80) (K 96, 128 beside it), with their launches in (a)'s checks
     (no preset runs them), the redesigned kernels with their registers,
     spills, shared memory and resident clusters.
@@ -6241,10 +6312,12 @@ def _wide_entries(wide: dict, hgmma: dict) -> list:
              "share of the 32-column pairs, 32-key tiles",
              launched["cluster_fwd_fp32"], "lse"),
             ("flash_attention_fwd_lse_windowed", "32x256x4160_bfloat16_fwd",
-             (), "flash_attention_fwd.cu",
-             "mma.sync, the windowed route (bf16 past 4096, fp32 past "
-             "3072): S again in each 128-column window of O",
-             launched["windowed_fwd"], "lse"),
+             (), "flash_attention_fwd.cu", WINDOWED_FWD_KERNEL["bf16"],
+             launched["windowed_fwd_bf16"], "lse"),
+            ("flash_attention_fwd_lse_windowed_fp32",
+             "32x256x3104_float32_fwd", (), "flash_attention_fwd.cu",
+             WINDOWED_FWD_KERNEL["fp32"], launched["windowed_fwd_fp32"],
+             "lse"),
             ("flash_attention_fwd_lse_fp32_halves",
              "128x256x80_float32_fwd", ("2048x256x128_float32_fwd",),
              "flash_attention_fwd_wide.cu",
@@ -6275,6 +6348,10 @@ def _wide_entries(wide: dict, hgmma: dict) -> list:
         if source == "flash_attention_fwd_wide.cu":
             rows[-1]["registers"] = REDESIGNED.get(source, {})
             rows[-1]["shared_memory"] = REDESIGNED.get("shared_memory", {})
+        if "_windowed" in name:
+            rows[-1]["device_kernels"] = WINDOWED_KERNELS["fwd"]
+            rows[-1]["plan"] = times[key]["plan"]
+            rows[-1]["registers"] = REDESIGNED.get(source, {})
         if "_cluster" in name:
             rows[-1]["clusters"] = REDESIGNED.get("clusters", {})
     # The wide backward: its clusters (bf16 on wgmma, fp32 on mma.sync
@@ -6323,24 +6400,31 @@ def _wide_entries(wide: dict, hgmma: dict) -> list:
         for other in extra:
             rows[-1][f"times_{other}"] = {
                 k: v for k, v in times[other].items() if k != "errors"}
-    key = "32x256x2112_windowed_bwd"
-    t = times[key]
-    rows.append({
-        "name": "flash_attention_bwd_windowed", "route": "cuda",
-        "source": CSRC + "flash_attention_bwd_wide.cu",
-        "replaces": TPU_KERNELS + "flash_attention.py:151",
-        "shape": [32, 256, 2112, "bfloat16"],
-        "kernel": "mma.sync, the backward's windowed route past the "
-                  "clusters' reach (bf16 past 2048, fp32 past 1024): S and "
-                  "dP over 64-column chunks, outputs in 64-column windows "
-                  "(" + str(t["plan"]) + ")",
-        "launches": launched["windowed_bwd"],
-        "max_abs_err": t["errors"]["bwd_abs"],
-        "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
-        "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "peak": PEAK_NAMES["bf16"],
-        "library": "SDPA " + t["sdpa_backend"],
-        "launch_source": checks})
+    for name, key, tag in (
+            ("flash_attention_bwd_windowed", "32x256x2112_bfloat16", "bf16"),
+            ("flash_attention_bwd_windowed_fp32", "32x256x1056_float32",
+             "fp32")):
+        t = times[key + "_windowed_bwd"]
+        bh, n, kd = (int(x) for x in key.split("_")[0].split("x"))
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": CSRC + "flash_attention_bwd_wide.cu",
+            "replaces": TPU_KERNELS + "flash_attention.py:151",
+            "shape": [bh, n, kd, key.split("_")[1]],
+            "kernel": WINDOWED_BWD_KERNEL[tag], "plan": t["plan"],
+            "device_kernels": WINDOWED_KERNELS["bwd"],
+            "launches": launched["windowed_bwd_" + tag],
+            "max_abs_err": t["errors"]["bwd_abs"],
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "peak": PEAK_NAMES["3xtf32" if tag == "fp32" else "bf16"],
+            "library": "SDPA " + t["sdpa_backend"]
+                       + (" (fp32 backward)" if tag == "fp32" else ""),
+            "registers": REDESIGNED.get("flash_attention_bwd_wide.cu", {}),
+            "launch_source": checks})
+        if tag == "fp32":
+            rows[-1]["split_ms"] = t["split_ms"]
     key = "128x256x80_fp32_bwd"
     t = times[key]
     rows.append({

@@ -1610,6 +1610,187 @@ def test_wide_route_matches_plain(gen, dtype, kd, layout):
     assert (bwd_moved[1] > 0) == (backward == "windowed")
 
 
+# The windowed routes (the forward past fp32 3072 / bf16 4096, the backward
+# past fp32 1024 / bf16 2048): (dtype, K, which) at K off a multiple of 64
+# (bf16 4100 read through its padded copy, 4104 in place) and at the
+# widths chip_smoke.py times.
+WINDOWED = ((torch.bfloat16, 4100, "fwd"), (torch.bfloat16, 4104, "fwd"),
+            (torch.bfloat16, 4160, "fwd"), (torch.float32, 3104, "fwd"),
+            (torch.bfloat16, 2112, "bwd"), (torch.bfloat16, 2056, "bwd"),
+            (torch.float32, 1056, "bwd"), (torch.float32, 1028, "bwd"))
+
+
+def _windowed_inputs(gen, dtype, kd, layout, n=321, batch=2, heads=3):
+    q, k, v = _qkv(gen, (batch, n, heads, kd), dtype, kd ** -0.5)
+    g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+    if layout == "bhnk":
+        q, k, v, g = (t.transpose(1, 2) for t in (q, k, v, g))
+    return q, k, v, g
+
+
+@pytest.mark.parametrize("layout", ["bnhk", "bhnk"])
+@pytest.mark.parametrize("dtype,kd,which", WINDOWED)
+def test_windowed_routes_form_s_once_and_match_plain(gen, dtype, kd, which,
+                                                     layout):
+    """The windowed route (a scores kernel that forms each tile pair's S,
+    and dP, once into a workspace; the window kernels read it back) at a
+    ragged N of 321, in both layouts: the forward, its lse and the dropout
+    forward, or B2 by each fp32 dq route and with the replay (grads
+    relative to their largest value), the bf16 dq written by the kernel
+    (no cast), each launch counted on the windowed route, B2 launched 10
+    times bit-equal."""
+    q, k, v, g = _windowed_inputs(gen, dtype, kd, layout)
+    width = fa.kernel_width(kd) if (kd * q.element_size()) % 16 else kd
+    plan = fa.head_dim_plan(width, dtype)
+    assert plan.chunks == 1
+    drop = (fa.seed_tensor(2 ** 32 - 13, "cuda"), 0.1)
+    tol = TOLS[dtype]
+    fwd_before = fa.flash_attention.windowed_launches
+    bwd_before = fa.flash_attention.windowed_backward_launches
+    out, lse = fa._launch_forward(q, k, v, layout, with_lse=True)
+    assert (out.float() - fa.reference_attention(q, k, v, layout).float()
+            ).abs().max() <= tol
+    assert (lse - fa.reference_attention_lse(q, k, layout)).abs().max() \
+        <= 1e-4
+    d_out, d_lse = fa._launch_forward(q, k, v, layout, with_lse=True,
+                                      dropout=drop)
+    assert (d_out.float() - fa.reference_attention(
+        q, k, v, layout, drop).float()).abs().max() <= tol
+    assert torch.equal(d_lse, lse)
+    if which == "fwd":
+        assert plan.forward == "windowed"
+        assert fa.flash_attention.windowed_launches - fwd_before == 2
+        return
+    assert plan.backward == "windowed"
+    delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                            layout).contiguous()
+    plain = fa.reference_attention_backward(q, k, v, g, layout)
+    routes = (None, "split", "partials") if dtype == torch.float32 else (None,)
+    for route in routes:
+        grads = fa._launch_backward(q, k, v, g, lse, delta, layout,
+                                    route=route)
+        assert all(a.dtype == dtype for a in grads)
+        assert max(_grad_rels(grads, plain)) <= GRAD_TOLS[dtype]
+        for _ in range(9):
+            again = fa._launch_backward(q, k, v, g, lse, delta, layout,
+                                        route=route)
+            assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    d_delta = fa._heads_major((g.float() * d_out.float()).sum(-1),
+                              layout).contiguous()
+    d_grads = fa._launch_backward(q, k, v, g, d_lse, d_delta, layout, drop)
+    assert max(_grad_rels(d_grads, fa.reference_attention_backward(
+        q, k, v, g, layout, drop))) <= GRAD_TOLS[dtype]
+    if dtype == torch.bfloat16:
+        plan_b = kernel_ops.backward_plan(
+            q, k, v, g, lse, delta, layout, None, 0.0, 0,
+            (0, 0, 0, 1, 1, 0), False, False) if width == kd else None
+        if plan_b is not None:
+            assert (plan_b.kernel, plan_b.cast_dq, plan_b.args.dq_bf16) == (
+                "windowed", False, 1)
+        f_grads = fa._launch_backward(q, k, v, g, lse, delta, layout,
+                                      fp32_dq=True, fp32_dkv=True)
+        assert all(t.dtype == torch.float32 for t in f_grads)
+        assert max(_grad_rels(f_grads, fa.reference_attention_backward(
+            q, k, v, g, layout, lse=lse, delta=delta,
+            out_dtype=torch.float32))) <= GRAD_TOLS[dtype]
+    torch.cuda.synchronize()
+    assert fa.flash_attention.windowed_backward_launches - bwd_before == (
+        len(routes) * 10 + 1 + (dtype == torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype,kd", [(torch.bfloat16, 4160),
+                                      (torch.float32, 3104),
+                                      (torch.bfloat16, 2112),
+                                      (torch.float32, 1056)])
+def test_windowed_dropout_masks_are_the_plain_versions(gen, dtype, kd):
+    """The mask bit for bit through both windowed routes: with q = k = 0
+    every probability is 1/N, and with v the identity (N keys, one column
+    each) the output's (query, key) entry is nonzero exactly where the
+    mask keeps it; with g the identity too, dv's (key, query) entry is
+    nonzero exactly where the replay keeps it. Each against the plain
+    version's mask (``_dropout_scale``)."""
+    n = 200
+    zeros = torch.zeros(1, n, 2, kd, device="cuda", dtype=dtype)
+    eye = torch.eye(n, kd, device="cuda").to(dtype)
+    ident = eye[None, :, None, :].expand(1, n, 2, kd).contiguous()
+    seed = fa.seed_tensor(77, "cuda")
+    drop = (seed, 0.25)
+    keep = fa._dropout_scale(drop, 1, 2, n, "cuda") != 0    # (1, 2, n, n)
+    out, lse = fa._launch_forward(zeros, zeros, ident, "bnhk",
+                                  with_lse=True, dropout=drop)
+    fwd_kernel = fa.forward_kernel(kd, dtype)
+    got = out.transpose(1, 2)[..., :n] != 0                   # (1, 2, q, key)
+    if fwd_kernel == "windowed":
+        assert torch.equal(got, keep)
+    if fa.backward_kernel(kd, dtype) == "windowed":
+        delta = (ident.float() * out.float()).sum(-1).transpose(1, 2)
+        _, _, dv = fa._launch_backward(zeros, zeros, ident, ident, lse,
+                                       delta.contiguous(), "bnhk", drop)
+        dv_mask = dv.transpose(1, 2)[..., :n] != 0            # (1, 2, key, q)
+        assert torch.equal(dv_mask, keep.transpose(-1, -2))
+
+
+@pytest.mark.parametrize("dtype,kd", [(torch.bfloat16, 4160),
+                                      (torch.float32, 3104)])
+def test_windowed_ring_state_and_chained_blocks(gen, dtype, kd):
+    """The windowed forward's fp32-output instance: one launch over the
+    whole sequence suspended (acc, m, l) gives out = acc / sum(l) and lse
+    = m + log(sum(l)), and a ring of two key blocks (whole 64-key tiles,
+    with dropout) chained by resume and suspend is bit-equal to one
+    launch over all the keys, output and lse."""
+    n = 256
+    q, k, v, _ = _windowed_inputs(gen, dtype, kd, "bnhk", n=n)
+    drop = (fa.seed_tensor(5, "cuda"), 0.1)
+    whole, whole_lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
+                                          dropout=drop, out_fp32=True)
+    acc, m, l = fa._launch_forward(q, k, v, "bnhk", with_lse=True,
+                                   dropout=drop, out_fp32=True, suspend=True)
+    total = l.sum(-1)
+    assert (acc / total.transpose(1, 2)[..., None] - whole).abs().max() \
+        <= 2e-5
+    assert (m + torch.log(total) - whole_lse).abs().max() <= 1e-5
+    half = n // 2
+    for first in (0, half):
+        rows = slice(first, first + half)
+        state = fa._launch_forward(q[:, rows], k[:, :half], v[:, :half],
+                                   "bnhk", with_lse=True, dropout=drop,
+                                   offsets=(0, first, 0), out_fp32=True,
+                                   suspend=True)
+        chained = fa._launch_forward(q[:, rows], k[:, half:], v[:, half:],
+                                     "bnhk", with_lse=True, dropout=drop,
+                                     offsets=(0, first, half), out_fp32=True,
+                                     state=state)
+        assert torch.equal(chained[0], whole[:, rows])
+        assert torch.equal(chained[1], whole_lse[:, :, rows])
+
+
+@pytest.mark.parametrize("dtype,kd,n,which", [
+    (torch.bfloat16, 4160, 4200, "fwd"), (torch.float32, 3104, 3200, "fwd"),
+    (torch.bfloat16, 2112, 1100, "bwd"), (torch.float32, 1056, 577, "bwd")])
+def test_windowed_routes_in_two_workspace_slabs(gen, dtype, kd, n, which):
+    """A call whose scores need more than the larger of q's bytes and one
+    row's runs in slabs of batch*head rows (here two of one row), each
+    slab's scores parked and read before the next fills the workspace:
+    the result is the plain version's, and the workspace is one row's."""
+    batch, heads = 1, 2
+    backward = which == "bwd"
+    assert fa.scores_slabs(batch, heads, n, kd, dtype, backward) == 2
+    shape, _ = fa.scores_workspace(batch, heads, n, kd, dtype, backward)
+    assert shape[0] == 1
+    q, k, v, g = _windowed_inputs(gen, dtype, kd, "bnhk", n=n, batch=batch,
+                                  heads=heads)
+    out, lse = fa._launch_forward(q, k, v, "bnhk", with_lse=True)
+    assert (out.float() - fa.reference_attention(q, k, v).float()
+            ).abs().max() <= TOLS[dtype]
+    assert (lse - fa.reference_attention_lse(q, k)).abs().max() <= 1e-4
+    if backward:
+        delta = fa._heads_major((g.float() * out.float()).sum(-1),
+                                "bnhk").contiguous()
+        grads = fa._launch_backward(q, k, v, g, lse, delta, "bnhk")
+        assert max(_grad_rels(grads, fa.reference_attention_backward(
+            q, k, v, g))) <= GRAD_TOLS[dtype]
+
+
 # (dtype, K) of the wide library's backward: its cluster route at fp32
 # 192-1024 (2 to 8 CTAs of 128 columns) and bf16 320-2048 (2 to 8 CTAs of
 # 256), and the windowed route just past each reach.

@@ -338,7 +338,8 @@ def test_backward_kernel_by_dtype_and_head_dim(dtype, kdim):
     256) the wide library: a thread-block cluster of ceil(K / 128) (fp32)
     or ceil(K / 256) (bf16) CTAs to fp32 1024 and bf16 2048, the windowed
     route past that, which ``head_dim_plan`` plans with the cluster's size
-    (1 off the cluster route)."""
+    (1 off the cluster route) and its 64-column output windows; every
+    route forms a tile pair's S once (``chunks`` 1)."""
     (read,), _ = fa._addressable([torch.zeros(1, 2, 1, kdim, dtype=dtype)])
     width = read.shape[-1]
     share = 128 if dtype == torch.float32 else 256
@@ -351,7 +352,7 @@ def test_backward_kernel_by_dtype_and_head_dim(dtype, kdim):
     assert plan.grad_cluster == fa.backward_cluster_size(width, dtype) == (
         -(-width // share) if want == "cluster" else 1)
     assert (plan.chunks, plan.grad_windows) == (
-        (-(-width // 64),) * 2 if want == "windowed" else (1, 1))
+        (1, -(-width // 64)) if want == "windowed" else (1, 1))
     assert fa.forward_kernel(width, dtype) == (
         "wgmma" if want == "wgmma"
         else "halves" if 64 < width <= 128 and dtype == torch.float32

@@ -290,7 +290,7 @@ def test_counts_move_once_per_call(launches):
     (torch.bfloat16, 320, False, "bwd_wide", torch.bfloat16, 1, False),
     (torch.bfloat16, 2048, False, "bwd_wide", torch.bfloat16, 1, False),
     (torch.bfloat16, 320, True, "bwd_wide", torch.float32, 0, False),
-    (torch.bfloat16, 2056, False, "bwd_wide", torch.float32, 0, True),
+    (torch.bfloat16, 2056, False, "bwd_wide", torch.bfloat16, 1, False),
     (torch.float32, 64, False, "bwd", torch.float32, 0, False),
     (torch.float32, 192, False, "bwd_wide", torch.float32, 0, False),
     (torch.float32, 1028, False, "bwd_wide", torch.float32, 0, False),
@@ -298,9 +298,9 @@ def test_counts_move_once_per_call(launches):
 def test_backward_writes_dq_in_q_dtype_on_the_wgmma_route(
         launches, dtype, kdim, dq_fp32, kind, dq_dtype, dq_bf16, cast):
     """Without dq_fp32 the bf16 dq kernels of the wgmma route (K <= 256)
-    and of the wide library's cluster route (K 257-2048) write dq in bf16
-    themselves (no cast launch); the mma.sync and windowed routes write
-    fp32 and the operator casts; with dq_fp32 dq stays fp32."""
+    and of the wide library's cluster route (K 257-2048) and windowed
+    route (past 2048) write dq in bf16 themselves (no cast launch); with
+    dq_fp32 dq stays fp32."""
     q, k, v, g = _operands(shape=(2, 37, 3, kdim), dtype=dtype, count=4)
     lse = torch.zeros(2, 3, 37)
     plan = ops.backward_plan(q, k, v, g, lse, lse, "bnhk", None, 0.0, 0,
@@ -325,8 +325,8 @@ def test_bf16_up_to_256_launches_the_wgmma_libraries(launches, kdim, kernel,
     there; with dropout the backward's workspace is the packed keep bits;
     dq comes back in bf16 from the dq kernel. Past 256 the backward's
     cluster route, its dq in bf16 from its dq kernel too (to K 2048; the
-    windowed route past that, its dq fp32 and cast); the forward the wide
-    kernel
+    windowed route past that likewise, with the scores workspace); the
+    forward the wide kernel
     (``vtd_flash_attention_fwd_wide``, counted in ``wide_launches``) to
     K 512, its clusters past it (``cluster_launches``) to K 4096, the
     windowed route of the mma.sync library past that."""
@@ -349,15 +349,16 @@ def test_bf16_up_to_256_launches_the_wgmma_libraries(launches, kdim, kernel,
     plan = ops.backward_plan(q, k, v, g, lse, lse, "bnhk", seed, rate, 0,
                              (0, 0, 0, 1, 1, 0), False, False)
     assert plan.kind == ("bwd_sm90" if wgmma else "bwd_wide")
-    assert plan.workspace == ((fa.keep_bits_shape(2, 3, 37), torch.int32)
-                              if wgmma and rate else None)
+    assert plan.workspace == (
+        (fa.keep_bits_shape(2, 3, 37), torch.int32) if wgmma and rate
+        else fa.scores_workspace(2, 3, 37, kdim, torch.bfloat16, True)
+        if kernel == "windowed" else None)
     dq, dk, dv = ops._flash_bwd_cuda(q, k, v, g, lse, lse, "bnhk", seed,
                                      rate, dq_fp32=False)
     assert launches[-1][0] == ("vtd_flash_attention_bwd_sm90" if wgmma
                                else "vtd_flash_attention_bwd")
     assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
-    assert ops.BwdArgs.from_address(launches[-1][1][0]).dq_bf16 == (
-        kdim <= 2048)
+    assert ops.BwdArgs.from_address(launches[-1][1][0]).dq_bf16 == 1
     assert (fa.flash_attention.wgmma_launches - before[0],
             fa.flash_attention.wgmma_backward_launches - before[1]) == (
                 wgmma, wgmma)
@@ -664,3 +665,101 @@ def test_a_failed_backward_cluster_query_raises_its_cuda_error(launches,
     assert raised == [(2, "flash attention backward (cluster occupancy "
                           "query)")]
     assert launches == []
+
+
+# (b, h, n, K, dtype, backward) -> the scores workspace's rows and shape
+# and the slabs a windowed call runs: one slab while the larger of q's
+# bytes and one row's need holds every row, else rows of that budget.
+SCORES = [
+    ((2, 16, 256, 4160, torch.bfloat16, False), (32, 256, 256), 1),
+    ((2, 16, 256, 2112, torch.bfloat16, True), (32, 2, 256, 256), 1),
+    ((3, 1, 321, 3104, torch.float32, False), (3, 384, 384), 1),
+    ((1, 8, 4096, 3104, torch.float32, False), (6, 4096, 4096), 2),
+    ((1, 2, 4200, 4160, torch.bfloat16, False), (1, 4224, 4224), 2),
+    ((1, 2, 1100, 2112, torch.bfloat16, True), (1, 2, 1152, 1152), 2),
+    ((1, 2, 577, 1056, torch.float32, True), (1, 2, 640, 640), 2),
+    ((4, 5, 64, 1028, torch.float32, True), (20, 2, 64, 64), 1)]
+
+
+@pytest.mark.parametrize("call,shape,slabs", SCORES)
+def test_scores_workspace_and_slabs(call, shape, slabs):
+    """The windowed routes' workspace: (rows, np, np) fp32 S for the
+    forward, (rows, 2, np, np) P and dS in the input type for the
+    backward, np = 64 * ceil(N / 64); rows as many as the larger of q's
+    bytes and one row's need holds, so no launch's workspace passes it,
+    and ceil(B * H / rows) slabs."""
+    b, h, n, kdim, dtype, backward = call
+    got, ws_dtype = fa.scores_workspace(*call)
+    assert got == shape
+    assert ws_dtype == (dtype if backward else torch.float32)
+    assert fa.scores_slabs(*call) == slabs
+    item = torch.empty((), dtype=ws_dtype).element_size()
+    row = item
+    for size in shape[1:]:
+        row *= size
+    q_bytes = b * h * n * kdim * torch.empty((), dtype=dtype).element_size()
+    assert shape[0] * row <= max(q_bytes, row)
+    assert shape[0] == b * h or (shape[0] + 1) * row > max(q_bytes, row)
+
+
+@pytest.mark.parametrize("dtype,kdim,kernel", [
+    (torch.bfloat16, 4160, "windowed"), (torch.float32, 3104, "windowed"),
+    (torch.bfloat16, 4096, "cluster"), (torch.float32, 64, "mma_sync")])
+def test_the_windowed_forward_hands_its_workspace_over(launches, dtype, kdim,
+                                                       kernel):
+    """A windowed forward allocates the scores workspace, hands its address
+    to the entry point after the state's (the eleventh device address) and
+    its rows in the block (``ws_rows``), and counts one launch in
+    ``windowed_launches`` a call, whatever the slabs; the other routes
+    hand over no workspace and count none there."""
+    q, k, v = _operands(shape=(2, 37, 3, kdim), dtype=dtype)
+    before = fa.flash_attention.windowed_launches
+    for _ in range(2):
+        _forward(q, k, v, with_lse=True)
+    args = launches[-1][1]
+    assert len(args) == 14
+    windowed = kernel == "windowed"
+    rows = fa.scores_workspace(2, 3, 37, kdim, dtype, False)[0][0]
+    assert (args[11] is not None) == windowed
+    assert _block(launches).ws_rows == (rows if windowed else 0)
+    assert fa.flash_attention.windowed_launches - before == 2 * windowed
+    plan = next(iter(ops._fwd_plans.values()))
+    assert plan.kernel == kernel
+    assert plan.workspace == (fa.scores_workspace(2, 3, 37, kdim, dtype,
+                                                  False)
+                              if windowed else None)
+
+
+@pytest.mark.parametrize("dtype,kdim,route", [
+    (torch.bfloat16, 2112, "split"), (torch.float32, 1056, "split"),
+    (torch.float32, 1056, "partials"), (torch.float32, 1024, "partials")])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_the_windowed_backward_takes_the_scores_workspace(launches, dtype,
+                                                          kdim, route, rate):
+    """A windowed backward takes the scores workspace in place of the
+    partials on either fp32 dq route (its one dq kernel sums the key tiles
+    in order), with ``ws_rows`` in the block, and counts one launch in
+    ``windowed_backward_launches`` (with the replay also in
+    ``backward_drop_launches``); the cluster route keeps the partials."""
+    q, k, v, g = _operands(shape=(2, 37, 3, kdim), dtype=dtype, count=4)
+    lse = torch.zeros(2, 3, 37)
+    seed = fa.seed_tensor(5, "cpu") if rate else None
+    f = fa.flash_attention
+    before = (f.windowed_backward_launches, f.backward_drop_launches,
+              f.cluster_backward_launches)
+    ops._flash_bwd_cuda(q, k, v, g, lse, lse, "bnhk", seed, rate,
+                        fa.DQ_ROUTES[route])
+    windowed = fa.backward_kernel(kdim, dtype) == "windowed"
+    plan = next(iter(ops._bwd_plans.values()))
+    block = ops.BwdArgs.from_address(launches[-1][1][0])
+    if windowed:
+        want = fa.scores_workspace(2, 3, 37, kdim, dtype, True)
+        assert plan.workspace == want and block.ws_rows == want[0][0]
+    else:
+        assert plan.workspace == ((1, 6, 37, kdim), torch.float32)
+        assert block.ws_rows == 0
+    assert launches[-1][1][10] is not None
+    assert (f.windowed_backward_launches - before[0],
+            f.backward_drop_launches - before[1],
+            f.cluster_backward_launches - before[2]) == (
+                windowed, rate > 0, not windowed)

@@ -101,11 +101,13 @@ def test_the_forward_plan_names_the_wide_or_the_windowed_kernel(
     """The wide forward takes fp32 to K 384 and bf16 to K 512 in one CTA,
     past that in one window as a thread-block cluster of ceil(K / 384) or
     ceil(K / 512) CTAs, to 8 (K 3072 and 4096); past that the windowed
-    route's output windows of 128 columns (a grid axis that forms S again
-    in each). The backward past 128 (fp32) and 256 (bf16) is the wide
+    route's output windows of 128 columns (a grid axis that reads S back
+    from the scores workspace: every route forms a tile pair's S once,
+    ``chunks`` 1). The backward past 128 (fp32) and 256 (bf16) is the wide
     library's whatever the forward: its cluster of ceil(K / 128) or
     ceil(K / 256) CTAs to 1024 and 2048, its windowed route past them."""
     plan = fa.head_dim_plan(kdim, dtype)
+    assert plan.chunks == 1
     share = fa.BWD_CLUSTER_SHARE[dtype]
     backward = "cluster" if kdim <= 8 * share else "windowed"
     assert (plan.forward, plan.windows, plan.backward, plan.cluster) == (
@@ -127,26 +129,28 @@ def test_fp32_65_to_128_runs_the_128_instance_both_ways(kdim):
                                                      "mma_sync", 1)
 
 
-@pytest.mark.parametrize("kdim,chunks,forward,backward,cluster,grad_cluster",
-                         [(129, 1, "wide", "cluster", 1, 2),
-                          (192, 1, "wide", "cluster", 1, 2),
-                          (256, 1, "wide", "cluster", 1, 2),
-                          (384, 1, "wide", "cluster", 1, 3),
-                          (1024, 1, "cluster", "cluster", 3, 8),
-                          (1028, 17, "cluster", "windowed", 3, 1)])
-def test_wider_than_128_takes_the_wide_route(kdim, chunks, forward, backward,
-                                             cluster, grad_cluster):
+@pytest.mark.parametrize(
+    "kdim,grad_windows,forward,backward,cluster,grad_cluster",
+    [(129, 1, "wide", "cluster", 1, 2),
+     (192, 1, "wide", "cluster", 1, 2),
+     (256, 1, "wide", "cluster", 1, 2),
+     (384, 1, "wide", "cluster", 1, 3),
+     (1024, 1, "cluster", "cluster", 3, 8),
+     (1028, 17, "cluster", "windowed", 3, 1)])
+def test_wider_than_128_takes_the_wide_route(kdim, grad_windows, forward,
+                                             backward, cluster,
+                                             grad_cluster):
     """K past the widest mma.sync instance runs the wide kernels (fp32 at
     any such K, bf16 past 256, where the wgmma 256 instance stops), as
     JAX runs any K: the forward in one window (the wide forward forms S
     once a tile, to K 384 in fp32, its cluster past that), the backward
     as a cluster of ceil(K / 128) CTAs that forms S once a tile (to K
-    1024 in fp32), past that S over ceil(K / 64) chunks and its output in
-    windows of 64; nothing raises. A K whose rows cannot be addressed in
+    1024 in fp32), past that S and dP once a tile pair into a workspace
+    and its output in windows of 64 that read them; nothing raises. A K whose rows cannot be addressed in
     place pads to a multiple of 64, exactly; the plain version on the CPU
     computes any K."""
     plan = fa.head_dim_plan(kdim)
-    assert plan == fa.HeadDimPlan("wide", chunks, 1, chunks, forward,
+    assert plan == fa.HeadDimPlan("wide", 1, 1, grad_windows, forward,
                                   backward, cluster, grad_cluster)
     assert fa.forward_kernel(kdim, torch.float32) == forward
     assert fa.forward_kernel(kdim, torch.bfloat16) == (

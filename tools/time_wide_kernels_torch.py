@@ -19,8 +19,11 @@ Shapes (1/sqrt(K) applied, tokens-major as the model hands them over;
     256, 128); ``fw192``, ``fw256``, ``fw320``: (128, 256, K) on the wide
     forward, ``fw512`` on its cluster of 2 CTAs (what chip_smoke.py's
     ``wide_heads`` launches at fp32 K 512), the backward of all four on its
-    clusters of ceil(K / 128) CTAs; ``r608``: reference_608's (64, 1296,
-    40);
+    clusters of ceil(K / 128) CTAs; ``fw3104``: (32, 256, 3104) on the
+    windowed forward (past fp32's cluster reach, 3072), its backward on the
+    windowed route too; ``fw1056``: (32, 256, 1056), the forward on a
+    cluster of 3 CTAs, the backward on its windowed route (past 1024);
+    ``r608``: reference_608's (64, 1296, 40);
   * ``ln768``: vit_b16_384's LayerNorm at batch 32, (18432, 768);
   * ``ln6144``, ``ln8192``: (2048, D), a batch of 8 at 256 tokens at
     ViT-22B's width, and D 8192.
@@ -86,6 +89,8 @@ FLASH = {"w192": (8, 16, 192, "bfloat16", 256),
          "fw256": (8, 16, 256, "float32", 256),
          "fw320": (8, 16, 320, "float32", 256),
          "fw512": (8, 16, 512, "float32", 256),
+         "fw3104": (2, 16, 3104, "float32", 256),
+         "fw1056": (2, 16, 1056, "float32", 256),
          "r608": (8, 8, 40, "float32", 1296)}
 LAYER_NORM = {"ln768": (18432, 768), "ln6144": (2048, 6144),
               "ln8192": (2048, 8192)}

@@ -86,28 +86,52 @@
 //   * the dk/dv kernel's lse and delta rows: fp32 by cp.async beside q and
 //     g; bf16 read a step ahead into registers and stored to shared memory
 //     after the step's cluster barrier, which the next barrier publishes.
-// Past the clusters' reach the windowed route (flash_bwd_windowed_kernel,
-// flash_bwd_dq_windowed_kernel) keeps what it computes: S and dP over the
-// whole of K in 64-column chunks, the outputs in 64-column windows, in fp32
-// (there only past K 1024) each chunk's S and dP summed in fresh registers
-// (chunk_sums).
+// Past the clusters' reach (fp32 past K 1024, bf16 past 2048) the windowed
+// route, three kernels a slab of batch*head rows at a time, which forms S
+// and dP once per (64-query, 64-key) tile pair where the route it replaces
+// formed them over all of K in every 64-column window of both dk/dv and dq
+// (2 x 33 passes at bf16 K 2112: 8.2 ms against SDPA's 2.4; PERF.md §6):
+//   * flash_bwd_scores_{f32,bf16}_kernel (flash_scores.cuh; one CTA of 128
+//     threads a tile pair: bf16 wgmma m64n64k16 fed by TMA, three stages of
+//     q, k, g, v boxes; fp32 mma.sync 3xTF32 in 64-column chunks, each
+//     chunk's S and dP summed in fresh registers) forms S = q k^T and dP =
+//     g v^T over all of K, then P = exp(S - lse) with the mask replayed and
+//     stores scale P and dS = P (scale dP - delta), rounded to the input
+//     type as the other routes round them, into a workspace of (rows, 2,
+//     np, np), np = 64 * ceil(N / 64) (0 past N, so the kernels after it
+//     mask nothing), which the operator takes from the caching allocator;
+//   * flash_bwd_windowed_kernel: one CTA per (key tile, 64-column window),
+//     the query tiles in order: dV += P^T g and dK += dS^T q from the
+//     workspace's tiles and q's and g's windows (dk, dv in the input type
+//     or fp32 for a ring block);
+//   * flash_bwd_dq_windowed_kernel: one CTA per (query tile, window), the
+//     key tiles in order: dq += dS K, in key order without atomics (both
+//     fp32 dq routes take it: no partials), written in fp32 or, with
+//     dq_bf16, in bf16 by the kernel itself.
+// Both window kernels are 4-warp mma.sync CTAs fed by cp.async through two
+// buffers; in fp32 each tile's product is summed in fresh registers. A
+// slab holds as many rows as the larger of q's bytes and one row's P and
+// dS take (kernels/flash_attention.py: scores_workspace).
 // The Pallas kernel pads K to a multiple of 64 and sets no limit; neither
 // does the windowed route.
 // Budget (dynamic shared memory; registers and spills: chip_smoke.py's
-// build line, -Xptxas -v, which requires the cluster instances to spill
-// nothing): fp32 dk/dv K and V shares (64 x 132 floats each), two stages of
-// q and g (32 x 132) with their lse and delta rows, two parities of the
-// exchange (4 warps' parts of S and of dP, 32 KB) and on the partials route
-// the dS^T tile, 168,448 bytes (177,664 with the partials); the fp32 dq
-// kernel 167,936; bf16 the 1,024 bytes of swizzle alignment, K and V shares
-// (4 boxes of 64 rows, 32 KB each), two stages of q and g (32 KB each),
-// 32 KB of exchange, the rows and the barriers, 231,464 bytes in both
-// kernels (of the 232,448 a CTA may take). One CTA an SM. Registers
-// (-Xptxas -v, PERF.md §6): fp32 dk/dv 173-175, with the partials 201-205,
-// dq 145-147; bf16 dk/dv 220-225, dq 166-168; no spills. The windowed route:
-// two buffers of four 64 x (64 + 16 bytes) tiles (139,264 bytes fp32,
-// 73,728 bf16), the dk/dv kernel's lse and delta rows and, on the partials
-// route, K's window and the dS^T tile.
+// build line, -Xptxas -v, which requires the cluster and windowed
+// instances to spill nothing): fp32 dk/dv K and V shares (64 x 132 floats
+// each), two stages of q and g (32 x 132) with their lse and delta rows,
+// two parities of the exchange (4 warps' parts of S and of dP, 32 KB) and
+// on the partials route the dS^T tile, 168,448 bytes (177,664 with the
+// partials); the fp32 dq kernel 167,936; bf16 the 1,024 bytes of swizzle
+// alignment, K and V shares (4 boxes of 64 rows, 32 KB each), two stages
+// of q and g (32 KB each), 32 KB of exchange, the rows and the barriers,
+// 231,464 bytes in both kernels (of the 232,448 a CTA may take). One CTA
+// an SM. Registers (-Xptxas -v, PERF.md §6): fp32 dk/dv 173-175, with the
+// partials 201-205, dq 145-147; bf16 dk/dv 220-225, dq 166-168; no spills.
+// The windowed route: the scores kernels 98,328 bytes bf16 (three stages
+// of four 8 KB boxes and their barriers, after 1,024 of alignment) and
+// 139,264 fp32 (two buffers of four 64 x 68 float tiles); the dk/dv kernel
+// two buffers of four 64 x (64 + 16 bytes) tiles (73,728 bytes bf16,
+// 139,264 fp32), the dq kernel of two (36,864, 69,632); registers 80-255,
+// no spills (PERF.md §6).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -118,433 +142,452 @@
 #include <cstdint>
 
 #include "flash_bwd_common.cuh"
+#include "flash_scores.cuh"
 #include "sm90_common.cuh"
 
 namespace {
 
-// The windowed route's S and dP in fp32 (kChunkSums; it runs fp32 only past
-// K 1024): summed over K a 64-column chunk at a time, each chunk's products
-// formed in fresh registers and added with one fp32 add, as the forward's
-// tile sums are (mma_sm90.cuh): carried through every chunk in the
-// truncating mma accumulator they drifted to 8.4e-5 of the largest gradient
-// at K 3104. bf16 (held to 2e-2) keeps the accumulator.
-template <typename T>
-constexpr bool kChunkSums = std::is_same<T, float>::value;
+using bf16 = __nv_bfloat16;
 
-template <typename T, int kTiles>
-__device__ __forceinline__ void chunk_sums(float (&s)[kTiles][4],
-                                           float (&dp)[kTiles][4],
-                                           const float (&s_c)[kTiles][4],
-                                           const float (&dp_c)[kTiles][4]) {
-  if constexpr (kChunkSums<T>) {
+// ------------------------------------------------------ the windowed route
+//
+// Past the clusters' reach, three kernels a slab of ws_rows batch*head rows
+// at a time (rows bh0..): the scores kernel forms each (query tile, key
+// tile) pair's S and dP over the whole of K once (flash_scores.cuh) and
+// stores the pair's scaled P and dS, rounded to T, to the workspace (rows,
+// 2, np, np), np = 64 * tiles; the dk/dv kernel and the dq kernel read them
+// back in 64-column windows of their outputs and form no S.
+
+// A tile pair's P^T-side values into the workspace at local row `local`,
+// query tile qt and key tile kt: P = exp(S - lse) (mask replayed, scale =
+// keep / (1 - rate)) as scale P, and dS = P (scale dP - delta), each rounded
+// to T, as the narrow kernels round them (grads_q). The whole tile is
+// written, 0 past seq_len (p = 0 there), so the windowed kernels read no
+// unwritten value and mask nothing.
+template <bool kDropout, typename T>
+__device__ __forceinline__ void store_grads(
+    const float (&s)[8][4], const float (&dp)[8][4], T* ws, int local,
+    int tiles, int qt, int kt, int bh, int seq_len, const float* lse,
+    const float* delta, const Dropout& drop, int tid) {
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gr = lane >> 2;
+  const int t = lane & 3;
+  const long long np = static_cast<long long>(tiles) * kBlock;
+  const long long rows = static_cast<long long>(bh) * seq_len;
+  const int query0 = qt * kBlock + 16 * warp + gr;
+  const unsigned int seed = kDropout ? load_seed(drop) : 0u;
+  bool ok[2];
+  float lse_r[2], delta_r[2];
+  unsigned int hash[2] = {0u, 0u};
 #pragma unroll
-    for (int j = 0; j < kTiles; ++j) {
+  for (int r = 0; r < 2; ++r) {
+    const int query = query0 + 8 * r;
+    ok[r] = query < seq_len;
+    lse_r[r] = ok[r] ? lse[rows + query] * kLog2e : 0.f;
+    delta_r[r] = ok[r] ? delta[rows + query] : 0.f;
+    if (kDropout) {
+      hash[r] = hash_part(drop, seed, global_row(drop, bh)) +
+                query_term(drop, static_cast<unsigned int>(query));
+    }
+  }
+  T* p_row = ws + (2 * local * np + query0) * np + kt * kBlock + 2 * t;
+  T* ds_row = p_row + np * np;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] += s_c[j][e];
-        dp[j][e] += dp_c[j][e];
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float pv[2], dsv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int key = kt * kBlock + 8 * j + 2 * t + i;
+        const float p = ok[r] && key < seq_len
+                            ? exp2f(fmaf(s[j][2 * r + i], kLog2e, -lse_r[r]))
+                            : 0.f;
+        float scale = 1.f;
+        if (kDropout) {
+          scale = keep(drop, hash[r] + key_term(drop,
+                                                static_cast<unsigned int>(key)))
+                      ? drop.inv_keep
+                      : 0.f;
+        }
+        pv[i] = p * scale;
+        dsv[i] = p * (dp[j][2 * r + i] * scale - delta_r[r]);
       }
+      store_pair(p_row + 8 * r * np + 8 * j, pv[0], pv[1]);
+      store_pair(ds_row + 8 * r * np + 8 * j, dsv[0], dsv[1]);
     }
   }
 }
 
-// The windowed route, dk and dv: block (blockIdx.x, blockIdx.y) is key tile
-// blockIdx.x % tiles of batch*head blockIdx.x / tiles and column window
-// blockIdx.y, dk's and dv's columns 64 * blockIdx.y .. + 63. Each query
-// tile is a run of chunks + 1 stages: stage c < chunks stages the 64
-// columns 64c.. of K and V (this key tile) and of q and g (the query tile)
-// and adds their products into S^T and dP^T; the last stages q's and g's
-// window with the tile's lse and delta, forms P^T and dS^T as the narrow
-// kernel does and adds dV += P^T g and dK += dS^T q in the window. With
-// kPartials it also forms the window's columns of this key tile's dq
-// contribution, dS K, from K's window (staged once). The stages stream
-// through two buffers, stage i + 1's copies in flight while stage i is
-// multiplied.
-template <typename T, bool kDropout, bool kPartials, typename O>
+// The tile pair blockIdx.x, (local row, query tile, key tile) in that
+// order: S = q K^T and dP = g V^T over all of K, fp32 on mma.sync 3xTF32.
+template <bool kDropout>
+__global__ void __launch_bounds__(kScoreThreads)
+flash_bwd_scores_f32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ g,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ ws, int heads, int seq_len,
+                            int kdim, int tiles, int bh0, Strides sq,
+                            Strides sk, Strides sv, Strides sg,
+                            Dropout drop) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x;
+  const int local = blockIdx.x / (tiles * tiles);
+  const int qt = blockIdx.x / tiles % tiles;
+  const int kt = blockIdx.x % tiles;
+  const int bh = bh0 + local;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  float s[2][8][4];
+  const float* const a[2] = {q + b * sq.b + h * sq.h, g + b * sg.b + h * sg.h};
+  const long long a_sn[2] = {sq.n, sg.n};
+  const float* const bk[2] = {k + b * sk.b + h * sk.h,
+                              v + b * sv.b + h * sv.h};
+  const long long b_sn[2] = {sk.n, sv.n};
+  scores_f32<2>(s, reinterpret_cast<float*>(smem_raw), a, a_sn, bk, b_sn,
+                kBlock * qt, kBlock * kt, seq_len, kdim, tid);
+  store_grads<kDropout>(s[0], s[1], ws, local, tiles, qt, kt, bh, seq_len,
+                        lse, delta, drop, tid);
+}
+
+// The same in bf16, on wgmma fed by TMA (maps of 64-row boxes).
+template <bool kDropout>
+__global__ void __launch_bounds__(kScoreThreads)
+flash_bwd_scores_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tg,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ ws, int heads,
+                             int seq_len, int kdim, int tiles, int bh0,
+                             Dropout drop) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int tid = threadIdx.x;
+  const int local = blockIdx.x / (tiles * tiles);
+  const int qt = blockIdx.x / tiles % tiles;
+  const int kt = blockIdx.x % tiles;
+  const int bh = bh0 + local;
+  float s[2][8][4];
+  const CUtensorMap* const a[2] = {&tq, &tg};
+  const CUtensorMap* const bk[2] = {&tk, &tv};
+  scores_bf16<2>(s, smem_raw, a, bk, kBlock * qt, kBlock * kt, bh % heads,
+                 bh / heads, kdim, tid);
+  store_grads<kDropout>(s[0], s[1], ws, local, tiles, qt, kt, bh, seq_len,
+                        lse, delta, drop, tid);
+}
+
+// A (16 rows from row0 x 16 k from k0) of a [row][k] tile in shared
+// memory, in the k order of the fp32 [k][n] B loader (mma_sm90.cuh: k = t
+// from column 2t, k = t + 4 from 2t + 1 of each 8-column step), which is
+// an accumulator pair's (acc_to_a); bf16 ldmatrix, whose B pairs with it
+// as stored.
+template <typename T>
+__device__ __forceinline__ void load_a_kn(typename Mma<T>::A& a, const T* s,
+                                          int ld, int row0, int k0,
+                                          int lane) {
+  if constexpr (std::is_same<T, float>::value) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      const float* p = s + (row0 + g) * ld + k0 + 8 * st + 2 * t;
+      Mma<float>::set(a, 4 * st + 0, p[0]);
+      Mma<float>::set(a, 4 * st + 1, p[8 * ld]);
+      Mma<float>::set(a, 4 * st + 2, p[1]);
+      Mma<float>::set(a, 4 * st + 3, p[8 * ld + 1]);
+    }
+  } else {
+    Mma<T>::load_a(a, s, ld, row0, k0, lane);
+  }
+}
+
+// out (16 rows x kN) += A B over one 64-deep tile: A's 16 rows from row0 of
+// a P or dS tile stored [query][key], read as its transpose (kTransA, the
+// rows keys: dV, dK) or as stored (the rows queries: dq); B (64 x kN) from
+// [k][n] storage. In fp32 the tile's product is summed in fresh registers
+// and added with one fp32 add per element (mma_sm90.cuh's tile sums), one
+// 16-deep step at a time (unrolled, the 3xTF32 fragments of every step were
+// held at once and spilled); bf16 adds in place.
+template <typename T, bool kTransA, int kN>
+__device__ __forceinline__ void add_tile_product(float (&out)[kN / 8][4],
+                                                 const T* a_s, int row0,
+                                                 const T* b_s, int ld,
+                                                 int lane) {
+  using M = Mma<T>;
+  // Step kc (16 k) of the product into to.
+  auto step = [&](float (&to)[kN / 8][4], int kc) {
+    typename M::A x;
+    if constexpr (kTransA) {
+      M::load_a_t(x, a_s, ld, 16 * kc, row0, lane);
+    } else {
+      load_a_kn<T>(x, a_s, ld, row0, 16 * kc, lane);
+    }
+#pragma unroll
+    for (int np = 0; np < kN / 16; ++np) {
+      typename M::B b0, b1;
+      M::load_b_kn(b0, b1, b_s, ld, 16 * kc, 16 * np, lane);
+      M::mma(to[2 * np], x, b0);
+      M::mma(to[2 * np + 1], x, b1);
+    }
+  };
+  if constexpr (M::kTileSums) {
+    float part[kN / 8][4] = {};
+#pragma unroll 1
+    for (int kc = 0; kc < kBlock / 16; ++kc) step(part, kc);
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) out[j][e] += part[j][e];
+    }
+  } else {
+#pragma unroll
+    for (int kc = 0; kc < kBlock / 16; ++kc) step(out, kc);
+  }
+}
+
+// dk and dv: block (blockIdx.x, blockIdx.y) is key tile blockIdx.x % tiles
+// of batch*head row bh0 + blockIdx.x / tiles and column window blockIdx.y,
+// dk's and dv's columns 64 * blockIdx.y .. + 63. Over the query tiles in
+// order it stages the pair's scale P and dS tiles from the workspace and
+// the query tile's q and g at the window's columns, and adds dV += P^T g
+// and dK += dS^T q; the stages stream through two buffers, tile i + 1's
+// copies in flight while tile i is multiplied.
+template <typename T, typename O>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_windowed_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ g,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, O* __restrict__ dk,
-                      O* __restrict__ dv, float* __restrict__ partials,
-                      int heads, int seq_len, int kdim, int tiles,
-                      Strides sq, Strides sk, Strides sv, Strides sg,
-                      Strides sdk, Strides sdv, Dropout drop) {
+flash_bwd_windowed_kernel(const T* __restrict__ q, const T* __restrict__ g,
+                          const T* __restrict__ ws, O* __restrict__ dk,
+                          O* __restrict__ dv, int heads, int seq_len,
+                          int kdim, int tiles, int bh0, Strides sq,
+                          Strides sg, Strides sdk, Strides sdv) {
   using M = Mma<T>;
   constexpr int kLd = kChunk + M::kPad;
   constexpr int kTile = kBlock * kLd;
-  constexpr int kLdS = kBlock + M::kPad;   // dS^T rows: [key][query]
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* bufs = reinterpret_cast<T*>(smem_raw);                    // [2][4]
-  float* lse_s = reinterpret_cast<float*>(bufs + 8 * kTile);   // two
-  float* delta_s = lse_s + 2 * kBlock;                          // two
-  T* kw_s = reinterpret_cast<T*>(delta_s + 2 * kBlock);         // kPartials
-  T* ds_s = kw_s + kTile;                                       // kPartials
+  T* bufs = reinterpret_cast<T*>(smem_raw);   // [2][P, dS, q, g]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int gr = lane >> 2;
   const int t = lane & 3;
-  const int bh = blockIdx.x / tiles;
+  const int local = blockIdx.x / tiles;
+  const int bh = bh0 + local;
   const int kv0 = (blockIdx.x % tiles) * kBlock;
   const int b = bh / heads;
   const int h = bh % heads;
   const int col0 = blockIdx.y * kChunk;
+  const long long np = static_cast<long long>(tiles) * kBlock;
+  const T* p_ws = ws + 2 * local * np * np + kv0;   // P's column kv0
   const T* q_bh = q + b * sq.b + h * sq.h;
-  const T* k_bh = k + b * sk.b + h * sk.h;
-  const T* v_bh = v + b * sv.b + h * sv.h;
   const T* g_bh = g + b * sg.b + h * sg.h;
-  const float* lse_bh = lse + static_cast<long long>(bh) * seq_len;
-  const float* delta_bh = delta + static_cast<long long>(bh) * seq_len;
-  const int chunks = (kdim + kChunk - 1) / kChunk;
-  const int stages = chunks + 1;
-  const int total = tiles * stages;
 
-  auto issue = [&](int i) {
-    T* dst = bufs + (i & 1) * 4 * kTile;
-    const int q0 = i / stages * kBlock;
-    const int c = i % stages;
-    if (c < chunks) {
-      const int c0 = kChunk * c;
-      load_tile_async<T, kChunk, kBlock, kThreads>(dst, k_bh, sk.n, kv0,
-                                                   seq_len, c0, kdim, tid);
-      load_tile_async<T, kChunk, kBlock, kThreads>(dst + kTile, v_bh, sv.n,
-                                                   kv0, seq_len, c0, kdim,
-                                                   tid);
-      load_tile_async<T, kChunk, kBlock, kThreads>(
-          dst + 2 * kTile, q_bh, sq.n, q0, seq_len, c0, kdim, tid);
-      load_tile_async<T, kChunk, kBlock, kThreads>(
-          dst + 3 * kTile, g_bh, sg.n, q0, seq_len, c0, kdim, tid);
-    } else {
-      load_tile_async<T, kChunk, kBlock, kThreads>(dst, q_bh, sq.n, q0,
-                                                   seq_len, col0, kdim, tid);
-      load_tile_async<T, kChunk, kBlock, kThreads>(dst + kTile, g_bh, sg.n,
-                                                   q0, seq_len, col0, kdim,
-                                                   tid);
-      load_rows_async(lse_s + (i & 1) * kBlock, delta_s + (i & 1) * kBlock,
-                      lse_bh, delta_bh, q0, seq_len, tid);
-    }
+  auto issue = [&](int it) {
+    T* dst = bufs + (it & 1) * 4 * kTile;
+    const T* p_t = p_ws + it * kBlock * np;
+    load_tile_async<T, kChunk, kBlock, kThreads>(dst, p_t, np, 0, kBlock, 0,
+                                                 kBlock, tid);
+    load_tile_async<T, kChunk, kBlock, kThreads>(dst + kTile, p_t + np * np,
+                                                 np, 0, kBlock, 0, kBlock,
+                                                 tid);
+    load_tile_async<T, kChunk, kBlock, kThreads>(
+        dst + 2 * kTile, q_bh, sq.n, it * kBlock, seq_len, col0, kdim, tid);
+    load_tile_async<T, kChunk, kBlock, kThreads>(
+        dst + 3 * kTile, g_bh, sg.n, it * kBlock, seq_len, col0, kdim, tid);
     cp_async_commit();
   };
-  if constexpr (kPartials) {
-    load_tile_async<T, kChunk, kBlock, kThreads>(kw_s, k_bh, sk.n, kv0,
-                                                 seq_len, col0, kdim, tid);
-  }
   issue(0);
 
-  bool key_ok[2];
-  unsigned int hash_key[2] = {0u, 0u};
-  const unsigned int seed = kDropout ? load_seed(drop) : 0u;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = kv0 + 16 * warp + gr + 8 * r;
-    key_ok[r] = key < seq_len;
-    if (kDropout) {
-      hash_key[r] = hash_part(drop, seed, global_row(drop, bh)) +
-                    key_term(drop, static_cast<unsigned int>(key));
-    }
-  }
-  float dk_acc[kChunk / 8][4], dv_acc[kChunk / 8][4];
-#pragma unroll
-  for (int j = 0; j < kChunk / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dk_acc[j][e] = 0.f;
-      dv_acc[j][e] = 0.f;
-    }
-  }
-
-  float s[kBlock / 8][4], dp[kBlock / 8][4];
-  for (int i = 0; i < total; ++i) {
-    if (i + 1 < total) {
-      issue(i + 1);
+  float dk_acc[kChunk / 8][4] = {}, dv_acc[kChunk / 8][4] = {};
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) {
+      issue(it + 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* cur = bufs + (i & 1) * 4 * kTile;
-    const int q0 = i / stages * kBlock;
-    const int c = i % stages;
-    if (c == 0) {
-#pragma unroll
-      for (int j = 0; j < kBlock / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] = 0.f;
-          dp[j][e] = 0.f;
-        }
-      }
-    }
-    if (c < chunks) {
-      // S^T += K[:, chunk] q[:, chunk]^T, dP^T += V[:, chunk] g[:, chunk]^T;
-      // in fp32 each chunk's products in fresh registers, added with one
-      // fp32 add (chunk_sums).
-      float s_c[kBlock / 8][4] = {}, dp_c[kBlock / 8][4] = {};
-      auto& s_to = *(kChunkSums<T> ? &s_c : &s);
-      auto& dp_to = *(kChunkSums<T> ? &dp_c : &dp);
-#pragma unroll
-      for (int kc = 0; kc < kChunk / 16; ++kc) {
-        typename M::A ka, va;
-        M::load_a(ka, cur, kLd, 16 * warp, 16 * kc, lane);
-        M::load_a(va, cur + kTile, kLd, 16 * warp, 16 * kc, lane);
-#pragma unroll
-        for (int np = 0; np < kBlock / 16; ++np) {
-          typename M::B b0, b1;
-          M::load_b_nk(b0, b1, cur + 2 * kTile, kLd, 16 * np, 16 * kc, lane);
-          M::mma(s_to[2 * np], ka, b0);
-          M::mma(s_to[2 * np + 1], ka, b1);
-          M::load_b_nk(b0, b1, cur + 3 * kTile, kLd, 16 * np, 16 * kc, lane);
-          M::mma(dp_to[2 * np], va, b0);
-          M::mma(dp_to[2 * np + 1], va, b1);
-        }
-      }
-      chunk_sums<T>(s, dp, s_c, dp_c);
-    } else {
-      grads_t<kDropout>(s, dp, key_ok, hash_key, lse_s + (i & 1) * kBlock,
-                        delta_s + (i & 1) * kBlock, q0, 0, seq_len, t, drop);
-      add_acc_kn<T, kBlock, kChunk>(dv_acc, s, cur + kTile, kLd, lane);
-      add_acc_kn<T, kBlock, kChunk>(dk_acc, dp, cur, kLd, lane);
-      if constexpr (kPartials) {
-        // dS^T (rounded) into shared memory, then 16 query rows of the
-        // window's dq contribution dS K per warp.
-#pragma unroll
-        for (int j = 0; j < kBlock / 8; ++j) {
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            store_pair(ds_s + (16 * warp + gr + 8 * r) * kLdS + 8 * j + 2 * t,
-                       dp[j][2 * r], dp[j][2 * r + 1]);
-          }
-        }
-        __syncthreads();
-        float dq_acc[kChunk / 8][4];
-#pragma unroll
-        for (int j = 0; j < kChunk / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
-        }
-#pragma unroll
-        for (int kc = 0; kc < kBlock / 16; ++kc) {
-          typename M::A a;
-          M::load_a_t(a, ds_s, kLdS, 16 * kc, 16 * warp, lane);
-#pragma unroll
-          for (int np = 0; np < kChunk / 16; ++np) {
-            typename M::B b0, b1;
-            M::load_b_kn(b0, b1, kw_s, kLd, 16 * kc, 16 * np, lane);
-            M::mma(dq_acc[2 * np], a, b0);
-            M::mma(dq_acc[2 * np + 1], a, b1);
-          }
-        }
-        store_partials<kChunk / 8>(dq_acc, partials, blockIdx.x % tiles,
-                                   gridDim.x / tiles, bh, seq_len, kdim,
-                                   q0 + 16 * warp + gr, col0, t);
-      }
-    }
+    const T* cur = bufs + (it & 1) * 4 * kTile;
+    add_tile_product<T, true, kChunk>(dv_acc, cur, 16 * warp,
+                                      cur + 3 * kTile, kLd, lane);
+    add_tile_product<T, true, kChunk>(dk_acc, cur + kTile, 16 * warp,
+                                      cur + 2 * kTile, kLd, lane);
     __syncthreads();
   }
+  const int key0 = kv0 + 16 * warp + gr;
+  const bool key_ok[2] = {key0 < seq_len, key0 + 8 < seq_len};
   store_rows<kChunk / 8>(dk_acc, dk + b * sdk.b + h * sdk.h, sdk.n, key_ok,
-                         kv0 + 16 * warp + gr, col0, kdim, t);
+                         key0, col0, kdim, t);
   store_rows<kChunk / 8>(dv_acc, dv + b * sdv.b + h * sdv.h, sdv.n, key_ok,
-                         kv0 + 16 * warp + gr, col0, kdim, t);
+                         key0, col0, kdim, t);
 }
 
-// The windowed route, dq: block (blockIdx.x, blockIdx.y) is query tile
-// blockIdx.x % tiles of batch*head blockIdx.x / tiles and column window
-// blockIdx.y. Each
-// key tile is a run of chunks + 1 stages: stage c < chunks stages the 64
-// columns 64c.. of q and g (the query tile) and of K and V (the key tile)
-// and adds their products into S and dP; the last stages K's window, forms
-// dS as the narrow kernel does and adds dq += dS K in the window, the key
-// tiles in order.
-template <typename T, bool kDropout>
+// dq: block (blockIdx.x, blockIdx.y) is query tile blockIdx.x % tiles of
+// batch*head row bh0 + blockIdx.x / tiles and column window blockIdx.y.
+// Over the key tiles in order it stages the pair's dS tile and the key
+// tile's K at the window's columns and adds dq += dS K: dq summed in key
+// order in registers, no atomics, stored once in Q (fp32, or bf16 rounded
+// to nearest even as a cast of the fp32 sum rounds it).
+template <typename T, typename Q>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_windowed_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ g,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         float* __restrict__ dq, int heads, int seq_len,
-                         int kdim, int tiles, Strides sq, Strides sk,
-                         Strides sv, Strides sg, Strides sdq, Dropout drop) {
+flash_bwd_dq_windowed_kernel(const T* __restrict__ k,
+                             const T* __restrict__ ws, Q* __restrict__ dq,
+                             int heads, int seq_len, int kdim, int tiles,
+                             int bh0, Strides sk, Strides sdq) {
   using M = Mma<T>;
   constexpr int kLd = kChunk + M::kPad;
   constexpr int kTile = kBlock * kLd;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* bufs = reinterpret_cast<T*>(smem_raw);   // [2][4 tiles]
+  T* bufs = reinterpret_cast<T*>(smem_raw);   // [2][dS, K]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int gr = lane >> 2;
   const int t = lane & 3;
-  const int bh = blockIdx.x / tiles;
+  const int local = blockIdx.x / tiles;
+  const int bh = bh0 + local;
   const int q0 = (blockIdx.x % tiles) * kBlock;
   const int b = bh / heads;
   const int h = bh % heads;
   const int col0 = blockIdx.y * kChunk;
-  const T* q_bh = q + b * sq.b + h * sq.h;
+  const long long np = static_cast<long long>(tiles) * kBlock;
+  const T* ds_ws = ws + ((2 * local + 1) * np + q0) * np;   // dS's row q0
   const T* k_bh = k + b * sk.b + h * sk.h;
-  const T* v_bh = v + b * sv.b + h * sv.h;
-  const T* g_bh = g + b * sg.b + h * sg.h;
-  const int chunks = (kdim + kChunk - 1) / kChunk;
-  const int stages = chunks + 1;
-  const int total = tiles * stages;
 
-  auto issue = [&](int i) {
-    T* dst = bufs + (i & 1) * 4 * kTile;
-    const int kv0 = i / stages * kBlock;
-    const int c = i % stages;
-    if (c < chunks) {
-      const int c0 = kChunk * c;
-      load_tile_async<T, kChunk, kBlock, kThreads>(dst, q_bh, sq.n, q0,
-                                                   seq_len, c0, kdim, tid);
-      load_tile_async<T, kChunk, kBlock, kThreads>(dst + kTile, g_bh, sg.n,
-                                                   q0, seq_len, c0, kdim,
-                                                   tid);
-      load_tile_async<T, kChunk, kBlock, kThreads>(
-          dst + 2 * kTile, k_bh, sk.n, kv0, seq_len, c0, kdim, tid);
-      load_tile_async<T, kChunk, kBlock, kThreads>(
-          dst + 3 * kTile, v_bh, sv.n, kv0, seq_len, c0, kdim, tid);
-    } else {
-      load_tile_async<T, kChunk, kBlock, kThreads>(dst, k_bh, sk.n, kv0,
-                                                   seq_len, col0, kdim, tid);
-    }
+  auto issue = [&](int it) {
+    T* dst = bufs + (it & 1) * 2 * kTile;
+    load_tile_async<T, kChunk, kBlock, kThreads>(dst, ds_ws + it * kBlock, np,
+                                                 0, kBlock, 0, kBlock, tid);
+    load_tile_async<T, kChunk, kBlock, kThreads>(
+        dst + kTile, k_bh, sk.n, it * kBlock, seq_len, col0, kdim, tid);
     cp_async_commit();
   };
   issue(0);
 
-  bool query_ok[2];
-  float lse_r[2], delta_r[2];
-  unsigned int hash_query[2] = {0u, 0u};
-  const unsigned int seed = kDropout ? load_seed(drop) : 0u;
-  const long long rows = static_cast<long long>(bh) * seq_len;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int query = q0 + 16 * warp + gr + 8 * r;
-    query_ok[r] = query < seq_len;
-    lse_r[r] = query_ok[r] ? lse[rows + query] * kLog2e : 0.f;
-    delta_r[r] = query_ok[r] ? delta[rows + query] : 0.f;
-    if (kDropout) {
-      hash_query[r] = hash_part(drop, seed, global_row(drop, bh)) +
-                      query_term(drop, static_cast<unsigned int>(query));
-    }
-  }
-  float dq_acc[kChunk / 8][4];
-#pragma unroll
-  for (int j = 0; j < kChunk / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
-  }
-
-  float s[kBlock / 8][4], dp[kBlock / 8][4];
-  for (int i = 0; i < total; ++i) {
-    if (i + 1 < total) {
-      issue(i + 1);
+  float dq_acc[kChunk / 8][4] = {};
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) {
+      issue(it + 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* cur = bufs + (i & 1) * 4 * kTile;
-    const int c = i % stages;
-    if (c == 0) {
-#pragma unroll
-      for (int j = 0; j < kBlock / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] = 0.f;
-          dp[j][e] = 0.f;
-        }
-      }
-    }
-    if (c < chunks) {
-      // S += q[:, chunk] K[:, chunk]^T, dP += g[:, chunk] V[:, chunk]^T,
-      // in fp32 a chunk at a time in fresh registers (chunk_sums).
-      float s_c[kBlock / 8][4] = {}, dp_c[kBlock / 8][4] = {};
-      auto& s_to = *(kChunkSums<T> ? &s_c : &s);
-      auto& dp_to = *(kChunkSums<T> ? &dp_c : &dp);
-#pragma unroll
-      for (int kc = 0; kc < kChunk / 16; ++kc) {
-        typename M::A qa, ga;
-        M::load_a(qa, cur, kLd, 16 * warp, 16 * kc, lane);
-        M::load_a(ga, cur + kTile, kLd, 16 * warp, 16 * kc, lane);
-#pragma unroll
-        for (int np = 0; np < kBlock / 16; ++np) {
-          typename M::B b0, b1;
-          M::load_b_nk(b0, b1, cur + 2 * kTile, kLd, 16 * np, 16 * kc, lane);
-          M::mma(s_to[2 * np], qa, b0);
-          M::mma(s_to[2 * np + 1], qa, b1);
-          M::load_b_nk(b0, b1, cur + 3 * kTile, kLd, 16 * np, 16 * kc, lane);
-          M::mma(dp_to[2 * np], ga, b0);
-          M::mma(dp_to[2 * np + 1], ga, b1);
-        }
-      }
-      chunk_sums<T>(s, dp, s_c, dp_c);
-    } else {
-      grads_q<kDropout>(s, dp, query_ok, hash_query, lse_r, delta_r,
-                        i / stages * kBlock, seq_len, t, drop);
-      add_acc_kn<T, kBlock, kChunk>(dq_acc, dp, cur, kLd, lane);
-    }
+    const T* cur = bufs + (it & 1) * 2 * kTile;
+    add_tile_product<T, false, kChunk>(dq_acc, cur, 16 * warp, cur + kTile,
+                                       kLd, lane);
     __syncthreads();
   }
+  const int row0 = q0 + 16 * warp + gr;
+  const bool query_ok[2] = {row0 < seq_len, row0 + 8 < seq_len};
   store_rows<kChunk / 8>(dq_acc, dq + b * sdq.b + h * sdq.h, sdq.n, query_ok,
-                         q0 + 16 * warp + gr, col0, kdim, t);
+                         row0, col0, kdim, t);
 }
 
-
-// The windowed kernels' shared memory: two buffers of four 64 x (64 + pad)
-// tiles, and the dk/dv kernel's two lse and two delta rows and, with
-// kPartials, K's window and the dS^T tile.
+// The dk/dv kernel's and the dq kernel's shared memory: two buffers of
+// four and of two 64 x (64 + pad) tiles.
 template <typename T>
-constexpr int windowed_dq_smem_bytes() {
-  return 8 * kBlock * (kChunk + Mma<T>::kPad) * static_cast<int>(sizeof(T));
+constexpr int windowed_smem_bytes(int tiles_a_buffer) {
+  return 2 * tiles_a_buffer * kBlock * (kChunk + Mma<T>::kPad) *
+         static_cast<int>(sizeof(T));
 }
 
-template <typename T, bool kPartials>
-constexpr int windowed_smem_bytes() {
-  return windowed_dq_smem_bytes<T>() +
-         4 * kBlock * static_cast<int>(sizeof(float)) +
-         (kPartials ? 2 * kBlock * (kChunk + Mma<T>::kPad) *
-                          static_cast<int>(sizeof(T))
-                    : 0);
-}
-
-
+// The windowed route: for each slab of ws_rows batch*head rows, the scores
+// kernel (one CTA a tile pair), the dk/dv kernel and the dq kernel (one
+// CTA per 64-row tile and 64-column window), all on the caller's stream,
+// so a slab reuses the workspace once the one before it is done with it.
+// dq in fp32, or in bf16 with dq_bf16 (bf16 inputs).
 template <typename T, bool kDropout, typename O>
 cudaError_t launch_windowed(const Launch& a) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  static std::atomic<unsigned long long> scores_allowed{0}, dkv_allowed{0},
+      dq_allowed{0}, dq_bf16_allowed{0};
   const int tiles = (a.seq_len + kBlock - 1) / kBlock;
+  const long long rows_all = static_cast<long long>(a.batch) * a.heads;
   const unsigned int windows = (a.kdim + kChunk - 1) / kChunk;
-  const T* qt = static_cast<const T*>(a.q);
-  const T* kt = static_cast<const T*>(a.k);
-  const T* vt = static_cast<const T*>(a.v);
-  const T* gt = static_cast<const T*>(a.g);
+  if (a.scores == nullptr || a.ws_rows <= 0 || a.partials != nullptr ||
+      (kF32 && a.dq_bf16 != 0) || windows > 65535u ||
+      static_cast<long long>(a.ws_rows) * tiles * tiles > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  auto dkv_kernel = flash_bwd_windowed_kernel<T, O>;
+  auto dq_kernel = flash_bwd_dq_windowed_kernel<T, float>;
+  // bf16 dq (bf16 inputs only: fp32 takes dq_bf16 0, checked above).
+  using DqBf16 = std::conditional_t<kF32, float, bf16>;
+  auto dq_bf16_kernel = flash_bwd_dq_windowed_kernel<T, DqBf16>;
+  const int smem_scores = kF32 ? scores_f32_smem<2>() : scores_bf16_smem<2>();
+  const int smem_dkv = windowed_smem_bytes<T>(4);
+  const int smem_dq = windowed_smem_bytes<T>(2);
   cudaError_t err;
-  if (a.partials != nullptr) {
-    if constexpr (std::is_same<T, float>::value) {
-      static std::atomic<unsigned long long> smem_allowed{0};
-      err = run(flash_bwd_windowed_kernel<T, kDropout, true, T>,
-                windowed_smem_bytes<T, true>(), smem_allowed, a, windows, qt,
-                kt, vt, gt, a.lse, a.delta, static_cast<T*>(a.dk),
-                static_cast<T*>(a.dv), a.partials, a.heads, a.seq_len,
-                a.kdim, tiles, a.sq, a.sk, a.sv, a.sg, a.sdk, a.sdv, a.drop);
-      return err != cudaSuccess ? err : sum_partials(a);
-    } else {
+  CUtensorMap tq, tk, tv, tg;
+  if constexpr (kF32) {
+    err = allow_dynamic_smem(flash_bwd_scores_f32_kernel<kDropout>,
+                             smem_scores, scores_allowed);
+  } else {
+    err = allow_dynamic_smem(flash_bwd_scores_bf16_kernel<kDropout>,
+                             smem_scores, scores_allowed);
+    auto map = [&](CUtensorMap* m, const void* ptr, Strides s) {
+      return encode(m, ptr, a.kdim, a.seq_len, a.heads, a.batch, s.b, s.h,
+                    s.n, kBlock);
+    };
+    if (!map(&tq, a.q, a.sq) || !map(&tk, a.k, a.sk) ||
+        !map(&tv, a.v, a.sv) || !map(&tg, a.g, a.sg)) {
       return cudaErrorInvalidValue;
     }
   }
-  static std::atomic<unsigned long long> smem_allowed{0}, smem_dq_allowed{0};
-  err = run(flash_bwd_windowed_kernel<T, kDropout, false, O>,
-            windowed_smem_bytes<T, false>(), smem_allowed, a, windows, qt, kt,
-            vt, gt, a.lse, a.delta, static_cast<O*>(a.dk),
-            static_cast<O*>(a.dv), static_cast<float*>(nullptr), a.heads,
-            a.seq_len, a.kdim, tiles, a.sq, a.sk, a.sv, a.sg, a.sdk, a.sdv,
-            a.drop);
   if (err != cudaSuccess) return err;
-  return run(flash_bwd_dq_windowed_kernel<T, kDropout>,
-             windowed_dq_smem_bytes<T>(),
-             smem_dq_allowed, a, windows, qt, kt, vt, gt, a.lse, a.delta,
-             a.dq, a.heads, a.seq_len, a.kdim, tiles, a.sq, a.sk, a.sv, a.sg,
-             a.sdq, a.drop);
+  err = allow_dynamic_smem(dkv_kernel, smem_dkv, dkv_allowed);
+  if (err != cudaSuccess) return err;
+  err = a.dq_bf16 != 0
+            ? allow_dynamic_smem(dq_bf16_kernel, smem_dq, dq_bf16_allowed)
+            : allow_dynamic_smem(dq_kernel, smem_dq, dq_allowed);
+  if (err != cudaSuccess) return err;
+  T* ws = static_cast<T*>(a.scores);
+  for (long long bh0 = 0; bh0 < rows_all; bh0 += a.ws_rows) {
+    const int rows = static_cast<int>(
+        rows_all - bh0 < a.ws_rows ? rows_all - bh0 : a.ws_rows);
+    const int first = static_cast<int>(bh0);
+    const unsigned int pairs =
+        static_cast<unsigned int>(static_cast<long long>(rows) * tiles * tiles);
+    if constexpr (kF32) {
+      flash_bwd_scores_f32_kernel<kDropout>
+          <<<pairs, kScoreThreads, smem_scores, a.stream>>>(
+              static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+              static_cast<const float*>(a.v), static_cast<const float*>(a.g),
+              a.lse, a.delta, ws, a.heads, a.seq_len, a.kdim, tiles, first,
+              a.sq, a.sk, a.sv, a.sg, a.drop);
+    } else {
+      flash_bwd_scores_bf16_kernel<kDropout>
+          <<<pairs, kScoreThreads, smem_scores, a.stream>>>(
+              tq, tk, tv, tg, a.lse, a.delta, ws, a.heads, a.seq_len, a.kdim,
+              tiles, first, a.drop);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const dim3 grid(static_cast<unsigned int>(rows) * tiles, windows);
+    dkv_kernel<<<grid, kThreads, smem_dkv, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.g), ws,
+        static_cast<O*>(a.dk), static_cast<O*>(a.dv), a.heads, a.seq_len,
+        a.kdim, tiles, first, a.sq, a.sg, a.sdk, a.sdv);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    if (a.dq_bf16 != 0) {
+      dq_bf16_kernel<<<grid, kThreads, smem_dq, a.stream>>>(
+          static_cast<const T*>(a.k), ws, reinterpret_cast<DqBf16*>(a.dq),
+          a.heads, a.seq_len, a.kdim, tiles, first, a.sk, a.sdq);
+    } else {
+      dq_kernel<<<grid, kThreads, smem_dq, a.stream>>>(
+          static_cast<const T*>(a.k), ws, a.dq, a.heads, a.seq_len, a.kdim,
+          tiles, first, a.sk, a.sdq);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 
@@ -1038,7 +1081,6 @@ flash_bwd_dq_cluster_f32_kernel(const float* __restrict__ q,
 
 // ---------------------------------------------------------------- bf16 ---
 
-using bf16 = __nv_bfloat16;
 constexpr int kBoxes = 4;                       // 64-column boxes a CTA
 constexpr int kBf16Share = 64 * kBoxes;         // 256 columns
 constexpr int kRowsStep = 64;                   // rows a step (both kernels)
@@ -1639,7 +1681,6 @@ cudaError_t dispatch(bool dropout, const Launch& a, const Ask& ask) {
     *ask.resident = 1;
     return cudaSuccess;
   }
-  if (a.dq_bf16 != 0) return cudaErrorInvalidValue;
   return dropout ? launch_windowed<T, true, O>(a)
                  : launch_windowed<T, false, O>(a);
 }
@@ -1673,7 +1714,7 @@ int vtd_flash_attention_bwd_clusters(const FlashBwdArgs* args) {
                  strides_of<Strides>(p.strides, 4),
                  strides_of<Strides>(p.strides, 5),
                  strides_of<Strides>(p.strides, 6), dropout_of(p, nullptr),
-                 nullptr, 0};
+                 nullptr, 0, nullptr, 0};
   const DeviceScope scope(p.device);
   if (scope.error() != cudaSuccess) return -static_cast<int>(scope.error());
   int resident = INT_MAX;

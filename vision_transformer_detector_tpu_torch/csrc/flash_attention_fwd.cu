@@ -67,19 +67,31 @@
 //     forward's column halves, which took 0.110 ms at (128, 256, 80) with
 //     lse where the 128 instance here took 0.186 (it reloaded and split
 //     Q's 3xTF32 fragments at every key tile in 4 warps; PERF.md §6);
-//   * the windowed route (flash_fwd_windowed_kernel), for the K past the
-//     wide forward's clusters (fp32 past 3072, bf16 past 4096): the same
-//     tiles and softmax, with S formed over the whole of K in 64-column
-//     chunks (each chunk of Q and of K staged in shared memory, the chunks
-//     added in column order, each chunk's fp32 product summed in fresh
-//     registers, so S is the same in every CTA that forms it) and the
-//     output in column windows of 128: a second grid axis picks which
-//     window of O a CTA owns, and each window recomputes S, so the softmax
-//     statistics and lse are bit-equal across windows (window 0 writes
-//     them). That costs ceil(K / 128) times the S work, and Q is staged
-//     again with every key tile: 4.2 ms at (32, 256, 4160) bf16 against
-//     SDPA memory-efficient's 0.31 (PERF.md §6). The Pallas kernel pads K
-//     to a multiple of 64 and sets no limit; neither does this route;
+//   * the windowed route, for the K past the wide forward's clusters (fp32
+//     past 3072, bf16 past 4096), two kernels a slab of batch*head rows at
+//     a time: a scores kernel (flash_scores.cuh; one CTA of 128 threads a
+//     (64-query, 64-key) tile pair: bf16 on wgmma m64n64k16 fed by TMA,
+//     four stages of 64-column boxes; fp32 on mma.sync 3xTF32, 64-column
+//     chunks by cp.async, each chunk's product summed in fresh registers)
+//     forms each tile pair's S over the whole of K once and stores it in
+//     fp32 to a workspace of (rows, np, np), np = 64 * ceil(N / 64),
+//     which the operator takes from the caching allocator; then the window
+//     kernel (flash_fwd_windowed_kernel: one CTA per query tile and
+//     128-column window of O, 4 warps in bf16, two sets of 4 warps in fp32,
+//     each owning 64 of the columns) stages each key tile's S from the
+//     workspace and V at the window's columns through two buffers and runs
+//     this kernel's softmax and P V. So no CTA contracts over K more than
+//     once per tile pair: at (32, 256, 4160) bf16 the window kernel reads
+//     33 x 8.4 MB of S from L2 in place of forming S 33 times (4.2 ms
+//     before, against SDPA memory-efficient's 0.31; PERF.md §6). Every
+//     window reads the same S, so the softmax statistics and lse are
+//     bit-equal across windows (window 0 writes them), and S of a tile
+//     pair is the same wherever the pair lies, so a ring attention block
+//     resumed at a 64-key tile boundary is bit-equal to one launch. The
+//     slab holds as many rows as the larger of q's bytes and one row's S
+//     takes (kernels/flash_attention.py: scores_workspace). The Pallas
+//     kernel pads K to a multiple of 64 and sets no limit; neither does
+//     this route;
 //   * the output type is a template parameter: the input type, or fp32
 //     for a bf16 ring attention block past K 4096
 //     (kernels/ring_attention.py merges the R blocks' unrounded outputs
@@ -90,12 +102,14 @@
 //     written by one lane per row.
 // Budget (-Xptxas -v, sm_90a, CUDA 12.8, NVIDIA H100 80GB HBM3's machine):
 // the fp32 instances 222-255 registers, the 64 with dropout 8 bytes of
-// spill; the windowed route 169-171 in bf16, 255 in fp32 with 8 (52 with
-// dropout) bytes of spill since its chunk sums. Shared memory, 5 tiles of
-// 64 x (D + 16 bytes): fp32 66,560 (48), 87,040 (64); the windowed route's
-// two buffers of two 64 x (64 + 16 bytes) tiles: 69,632 fp32, 36,864 bf16;
-// dynamic, with cudaFuncAttributeMaxDynamicSharedMemorySize raised once
-// per device.
+// spill; the windowed route's scores kernels 58 (bf16) and 178 (fp32)
+// registers, its window kernel 221-255, no spills. Shared memory, 5 tiles
+// of 64 x (D + 16 bytes): fp32 66,560 (48), 87,040 (64); the scores
+// kernels 66,568 bf16 (1,024 of alignment, four stages of two 8 KB boxes,
+// their barriers) and 69,632 fp32 (two buffers of two 64 x 68 float
+// tiles); the window kernel two buffers of the S tile (64 x 72 floats) and
+// V's two 64-column halves: 73,728 bf16, 106,496 fp32; dynamic, with
+// cudaFuncAttributeMaxDynamicSharedMemorySize raised once per device.
 // chip_smoke.py's build phase prints these numbers and the HMMA count of
 // each instance.
 
@@ -106,24 +120,72 @@
 
 #include "flash_fwd_common.cuh"
 #include "flash_launch.cuh"
+#include "flash_scores.cuh"
 
 namespace {
 
 constexpr int kBlock = 64;            // queries per CTA and keys per tile
 constexpr int kThreads = 128;         // 4 warps of 16 query rows
-constexpr int kChunk = 64;            // the wide route's S chunk columns
-constexpr int kWindow = 128;          // and its output window's
+constexpr int kChunk = 64;            // a V tile's columns
+constexpr int kWindow = 128;          // the windowed route's output window
+constexpr int kSLd = kBlock + 8;      // a staged S tile's row stride (floats)
+// The window kernel's sets of 4 warps: fp32 two halves of 64 columns each
+// (with all 128 columns a warp its instances spilled), bf16 one of 128
+// (two halves of 8 warps took 25 % longer at (32, 256, 4160)).
+template <typename T>
+constexpr int kHalves = std::is_same<T, float>::value ? 2 : 1;
 
 template <typename T>
 constexpr int smem_bytes(int d) {
   return 5 * kBlock * (d + Mma<T>::kPad) * static_cast<int>(sizeof(T));
 }
 
-// The wide route's: two buffers of two 64 x 64 tiles (a chunk of Q and of
-// K, or the two halves of V's window).
+// The window kernel's: two buffers of the S tile and V's two 64-column
+// halves of the window.
 template <typename T>
-constexpr int wide_smem_bytes() {
-  return 4 * kBlock * (kChunk + Mma<T>::kPad) * static_cast<int>(sizeof(T));
+constexpr int windowed_smem_bytes() {
+  return 2 * (kBlock * kSLd * 4 +
+              2 * kBlock * (kChunk + Mma<T>::kPad) *
+                  static_cast<int>(sizeof(T)));
+}
+
+// A tile pair's S (the scores kernels' accumulator) into the workspace,
+// (rows, np, np) fp32, at local row `local`, query tile qt and key tile kt;
+// the whole tile, rows and keys past seq_len too (their S is 0: the loads
+// zero-filled them), so the workspace holds no unwritten value.
+__device__ __forceinline__ void store_scores(const float (&s)[8][4],
+                                             float* scores, int local,
+                                             int tiles, int qt, int kt,
+                                             int tid) {
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long np = static_cast<long long>(tiles) * kBlock;
+  float* base = scores + (local * np + qt * kBlock + 16 * warp + (lane >> 2)) *
+                             np +
+                kt * kBlock + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      *reinterpret_cast<float2*>(base + 8 * r * np + 8 * j) =
+          make_float2(s[j][2 * r], s[j][2 * r + 1]);
+    }
+  }
+}
+
+// A 64 x 64 fp32 S tile (row stride np in the workspace) into shared
+// memory of row stride kSLd, with 16-byte cp.async copies by kCopyThreads
+// threads. Not committed.
+template <int kCopyThreads>
+__device__ __forceinline__ void load_scores_tile(float* dst, const float* src,
+                                                 long long np, int tid) {
+#pragma unroll
+  for (int i = 0; i < kBlock * kBlock / 4 / kCopyThreads; ++i) {
+    const int c = tid + i * kCopyThreads;
+    const int r = c / (kBlock / 4);
+    const int col = (c % (kBlock / 4)) * 4;
+    cp_async16(dst + r * kSLd + col, src + r * np + col, true);
+  }
 }
 
 template <typename T, int D, bool kDropout, typename O>
@@ -237,146 +299,175 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       so.n, bh, row0, seq_len, 0, kdim, t, true);
 }
 
-// Past the wide forward's clusters (kReachF32, kReachBf16). Block
-// (blockIdx.x, blockIdx.y) is query tile blockIdx.x %
-// q_tiles of batch*head blockIdx.x / q_tiles, and output window
-// blockIdx.y: O's columns 128 * blockIdx.y .. + 127. Each key tile is a
-// run of stages, chunks + 1 of them: stage c < chunks stages the 64
-// columns 64c.. of the query tile and of the key tile and adds their
-// product into S; the last stages the key tile's V at the window's columns,
-// runs the softmax and adds P V into the window. The stages of all key
-// tiles stream through two buffers: stage i + 1's copies are in flight
-// while stage i is multiplied.
+// The windowed route, past the wide forward's clusters (kReachF32,
+// kReachBf16), in two kernels a slab of batch*head rows at a time (rows
+// bh0..): a scores kernel forms each (query tile, key tile) pair's S over
+// the whole of K once (flash_scores.cuh) and stores it in fp32 to the
+// workspace, (rows, np, np) with np = 64 * tiles; the window kernel reads
+// it back a key tile at a time for each 128-column window of O.
+
+// S of the tile pair blockIdx.x: (local row, query tile, key tile) in that
+// order, fp32 on mma.sync 3xTF32.
+__global__ void __launch_bounds__(kScoreThreads)
+flash_fwd_scores_f32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            float* __restrict__ scores, int heads,
+                            int seq_len, int kdim, int tiles, int bh0,
+                            Strides sq, Strides sk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x;
+  const int local = blockIdx.x / (tiles * tiles);
+  const int qt = blockIdx.x / tiles % tiles;
+  const int kt = blockIdx.x % tiles;
+  const int bh = bh0 + local;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  float s[1][8][4];
+  const float* const a[1] = {q + b * sq.b + h * sq.h};
+  const float* const bk[1] = {k + b * sk.b + h * sk.h};
+  const long long a_sn[1] = {sq.n};
+  const long long b_sn[1] = {sk.n};
+  scores_f32<1>(s, reinterpret_cast<float*>(smem_raw), a, a_sn, bk, b_sn,
+                kBlock * qt, kBlock * kt, seq_len, kdim, tid);
+  store_scores(s[0], scores, local, tiles, qt, kt, tid);
+}
+
+// The same in bf16, on wgmma fed by TMA (maps of 64-row boxes).
+__global__ void __launch_bounds__(kScoreThreads)
+flash_fwd_scores_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             float* __restrict__ scores, int heads,
+                             int kdim, int tiles, int bh0) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int tid = threadIdx.x;
+  const int local = blockIdx.x / (tiles * tiles);
+  const int qt = blockIdx.x / tiles % tiles;
+  const int kt = blockIdx.x % tiles;
+  const int bh = bh0 + local;
+  float s[1][8][4];
+  const CUtensorMap* const a[1] = {&tq};
+  const CUtensorMap* const bk[1] = {&tk};
+  scores_bf16<1>(s, smem_raw, a, bk, kBlock * qt, kBlock * kt, bh % heads,
+                 bh / heads, kdim, tid);
+  store_scores(s[0], scores, local, tiles, qt, kt, tid);
+}
+
+// The window kernel: block (blockIdx.x, blockIdx.y) is query tile
+// blockIdx.x % q_tiles of batch*head row bh0 + blockIdx.x / q_tiles, and
+// output window blockIdx.y: O's columns 128 * blockIdx.y .. + 127, in
+// kHalves<T> sets of 4 warps, set i owning the columns 128 i / kHalves..
+// of the window. For each key tile in order it stages the tile pair's S
+// from the workspace and the key tile's V at the window's columns; each
+// warp reads its rows of S (float2s), runs the softmax and adds P V into
+// its set's columns: the stages stream through two buffers, key tile
+// i + 1's copies in flight while tile i is used. Every set and every
+// window reads the same S, so the softmax statistics and lse are the same
+// in all of them; the first set of window 0 writes lse and a ring block's
+// suspended state.
 template <typename T, bool kDropout, typename O>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_windowed_kernel(const T* __restrict__ q,
-                          const T* __restrict__ k,
+__global__ void __launch_bounds__(kThreads * kHalves<T>)
+flash_fwd_windowed_kernel(const float* __restrict__ scores,
                           const T* __restrict__ v, O* __restrict__ o,
                           RowState state, int heads, int seq_len, int kdim,
-                          int q_tiles, Strides sq, Strides sk, Strides sv,
-                          Strides so, Dropout drop) {
+                          int q_tiles, int bh0, Strides sv, Strides so,
+                          Dropout drop) {
   using M = Mma<T>;
   constexpr int kLd = kChunk + M::kPad;
   constexpr int kTile = kBlock * kLd;
+  constexpr int kAll = kThreads * kHalves<T>;
+  constexpr int kCols = kWindow / kHalves<T>;   // a set's columns
+  // A buffer: the S tile (64 x kSLd floats), then V's two 64-column halves.
+  constexpr int kBuf = kBlock * kSLd * 4 + 2 * kTile * sizeof(T);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* bufs = reinterpret_cast<T*>(smem_raw);   // [2 buffers][2 tiles]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int half = warp >> 2;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int bh = blockIdx.x / q_tiles;
+  const int local = blockIdx.x / q_tiles;
+  const int bh = bh0 + local;
   const int q0 = (blockIdx.x % q_tiles) * kBlock;
   const int b = bh / heads;
   const int h = bh % heads;
-  const int row0 = q0 + 16 * warp + g;
-  const int col0 = blockIdx.y * kWindow;
-  const T* q_bh = q + b * sq.b + h * sq.h;
-  const T* k_bh = k + b * sk.b + h * sk.h;
+  const int row0 = q0 + 16 * (warp & 3) + g;
+  const int win0 = blockIdx.y * kWindow;
+  const int col0 = win0 + kCols * half;   // this set's columns
+  const long long np = static_cast<long long>(q_tiles) * kBlock;
+  const float* s_rows = scores + (local * np + q0) * np;
   const T* v_bh = v + b * sv.b + h * sv.h;
-  const int chunks = (kdim + kChunk - 1) / kChunk;
-  const int stages = chunks + 1;
-  const int total = (seq_len + kBlock - 1) / kBlock * stages;
 
-  auto issue = [&](int i) {
-    T* dst = bufs + (i & 1) * 2 * kTile;
-    const int kv0 = i / stages * kBlock;
-    const int c = i % stages;
-    if (c < chunks) {
-      load_tile_async<T, kChunk, kBlock, kThreads>(
-          dst, q_bh, sq.n, q0, seq_len, kChunk * c, kdim, tid);
-      load_tile_async<T, kChunk, kBlock, kThreads>(
-          dst + kTile, k_bh, sk.n, kv0, seq_len, kChunk * c, kdim, tid);
-    } else {
-      load_tile_async<T, kChunk, kBlock, kThreads>(
-          dst, v_bh, sv.n, kv0, seq_len, col0, kdim, tid);
-      load_tile_async<T, kChunk, kBlock, kThreads>(
-          dst + kTile, v_bh, sv.n, kv0, seq_len, col0 + kChunk, kdim, tid);
-    }
+  auto issue = [&](int it) {
+    unsigned char* dst = smem_raw + (it & 1) * kBuf;
+    load_scores_tile<kAll>(reinterpret_cast<float*>(dst),
+                           s_rows + it * kBlock, np, tid);
+    T* v_s = reinterpret_cast<T*>(dst + kBlock * kSLd * 4);
+    load_tile_async<T, kChunk, kBlock, kAll>(
+        v_s, v_bh, sv.n, it * kBlock, seq_len, win0, kdim, tid);
+    load_tile_async<T, kChunk, kBlock, kAll>(
+        v_s + kTile, v_bh, sv.n, it * kBlock, seq_len, win0 + kChunk, kdim,
+        tid);
     cp_async_commit();
   };
   issue(0);
 
-  float acc[kWindow / 8][4];
+  float acc[kCols / 8][4];
 #pragma unroll
-  for (int j = 0; j < kWindow / 8; ++j) {
+  for (int j = 0; j < kCols / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   }
   float m_row[2] = {kNegInf, kNegInf};
   float l_row[2] = {0.f, 0.f};
   if (state.m_in != nullptr) {
-    resume_state<kWindow / 8>(acc, m_row, l_row, state,
-                              state.acc_in + b * so.b + h * so.h, so.n, bh,
-                              row0, seq_len, col0, kdim, t);
+    resume_state<kCols / 8>(acc, m_row, l_row, state,
+                            state.acc_in + b * so.b + h * so.h, so.n, bh,
+                            row0, seq_len, col0, kdim, t);
   }
   unsigned int hash_row[2];
   row_hashes<kDropout>(hash_row, drop, bh, row0);
 
-  float s[8][4];
-  for (int i = 0; i < total; ++i) {
-    if (i + 1 < total) {
+  const int kv_tiles = q_tiles;
+  for (int it = 0; it < kv_tiles; ++it) {
+    if (it + 1 < kv_tiles) {
       // Into the other buffer, which every warp finished reading before
-      // the barrier that closed the previous stage.
-      issue(i + 1);
+      // the barrier that closed the previous key tile.
+      issue(it + 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* cur = bufs + (i & 1) * 2 * kTile;
-    const int c = i % stages;
-    if (c == 0) {
+    const unsigned char* cur = smem_raw + (it & 1) * kBuf;
+    const float* s_t = reinterpret_cast<const float*>(cur);
+    const T* v_t = reinterpret_cast<const T*>(cur + kBlock * kSLd * 4);
+    float s[8][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      for (int r = 0; r < 2; ++r) {
+        const float2 x = *reinterpret_cast<const float2*>(
+            s_t + (16 * (warp & 3) + g + 8 * r) * kSLd + 8 * j + 2 * t);
+        s[j][2 * r] = x.x;
+        s[j][2 * r + 1] = x.y;
       }
     }
-    if (c < chunks) {
-      // S += Q[:, chunk] K[:, chunk]^T; in fp32 each chunk's product is
-      // summed in fresh registers and added with one fp32 add, as the tile
-      // sums of O are (mma_sm90.cuh): carried through every chunk in the
-      // truncating accumulator, S drifted by 3.4e-5 in lse at K 3104.
-      float part[8][4] = {};
-#pragma unroll
-      for (int kc = 0; kc < kChunk / 16; ++kc) {
-        typename M::A a;
-        M::load_a(a, cur, kLd, 16 * warp, 16 * kc, lane);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          typename M::B b0, b1;
-          M::load_b_nk(b0, b1, cur + kTile, kLd, 16 * np, 16 * kc, lane);
-          if constexpr (M::kTileSums) {
-            M::mma(part[2 * np], a, b0);
-            M::mma(part[2 * np + 1], a, b1);
-          } else {
-            M::mma(s[2 * np], a, b0);
-            M::mma(s[2 * np + 1], a, b1);
-          }
-        }
-      }
-      if constexpr (M::kTileSums) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] += part[j][e];
-        }
-      }
+    softmax_step<kDropout>(s, acc, m_row, l_row, hash_row, it * kBlock,
+                           seq_len, t, drop);
+    // This set's columns += P V, a 64-column V tile at a time.
+    if constexpr (kCols == kChunk) {
+      add_acc_kn<T, kBlock, kChunk>(acc, s, v_t + half * kTile, kLd, lane);
     } else {
-      softmax_step<kDropout>(s, acc, m_row, l_row, hash_row,
-                             i / stages * kBlock, seq_len, t, drop);
-      // The window += P V, its two 64-column halves.
-      add_acc_kn<T, kBlock, kChunk, 0, kWindow / 8>(acc, s, cur, kLd, lane);
-      add_acc_kn<T, kBlock, kChunk, kChunk / 8, kWindow / 8>(
-          acc, s, cur + kTile, kLd, lane);
+      add_acc_kn<T, kBlock, kChunk, 0, kCols / 8>(acc, s, v_t, kLd, lane);
+      add_acc_kn<T, kBlock, kChunk, kChunk / 8, kCols / 8>(
+          acc, s, v_t + kTile, kLd, lane);
     }
     __syncthreads();
   }
-  store_output<kWindow / 8>(acc, m_row, l_row, state,
-                            o + b * so.b + h * so.h, so.n, bh, row0, seq_len,
-                            col0, kdim, t, blockIdx.y == 0);
+  store_output<kCols / 8>(acc, m_row, l_row, state,
+                          o + b * so.b + h * so.h, so.n, bh, row0, seq_len,
+                          col0, kdim, t, blockIdx.y == 0 && half == 0);
 }
 
 struct Launch {
@@ -389,6 +480,8 @@ struct Launch {
   Strides sq, sk, sv, so;
   Dropout drop;
   cudaStream_t stream;
+  float* scores;   // the windowed route's workspace, ws_rows rows of S
+  int ws_rows;
 };
 
 // Launches kernel over (batch * heads * query tiles, windows) blocks with
@@ -418,12 +511,70 @@ cudaError_t launch_kernel(const Launch& a) {
                    smem_allowed, 1, a);
 }
 
+// The windowed route: for each slab of ws_rows batch*head rows, the scores
+// kernel (one CTA a tile pair), then the window kernel (one CTA per query
+// tile and 128-column window of O), both on the caller's stream, so a slab
+// reuses the workspace once the one before it is done with it.
 template <typename T, bool kDropout, typename O>
 cudaError_t launch_windowed(const Launch& a) {
-  static std::atomic<unsigned long long> smem_allowed{0};
-  return run<T, O>(flash_fwd_windowed_kernel<T, kDropout, O>,
-                   wide_smem_bytes<T>(), smem_allowed,
-                   (a.kdim + kWindow - 1) / kWindow, a);
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  static std::atomic<unsigned long long> scores_allowed{0}, smem_allowed{0};
+  const int smem_scores = kF32 ? scores_f32_smem<1>() : scores_bf16_smem<1>();
+  auto window_kernel = flash_fwd_windowed_kernel<T, kDropout, O>;
+  cudaError_t err =
+      kF32 ? allow_dynamic_smem(flash_fwd_scores_f32_kernel, smem_scores,
+                                scores_allowed)
+           : allow_dynamic_smem(flash_fwd_scores_bf16_kernel, smem_scores,
+                                scores_allowed);
+  if (err != cudaSuccess) return err;
+  err = allow_dynamic_smem(window_kernel, windowed_smem_bytes<T>(),
+                           smem_allowed);
+  if (err != cudaSuccess) return err;
+  const int tiles = (a.seq_len + kBlock - 1) / kBlock;
+  const long long rows_all = static_cast<long long>(a.batch) * a.heads;
+  const unsigned int windows = (a.kdim + kWindow - 1) / kWindow;
+  if (a.scores == nullptr || a.ws_rows <= 0 || windows > 65535u ||
+      static_cast<long long>(a.ws_rows) * tiles * tiles > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  CUtensorMap tq, tk;
+  if constexpr (!kF32) {
+    if (!encode(&tq, a.q, a.kdim, a.seq_len, a.heads, a.batch, a.sq.b,
+                a.sq.h, a.sq.n, kBlock) ||
+        !encode(&tk, a.k, a.kdim, a.seq_len, a.heads, a.batch, a.sk.b,
+                a.sk.h, a.sk.n, kBlock)) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  for (long long bh0 = 0; bh0 < rows_all; bh0 += a.ws_rows) {
+    const int rows = static_cast<int>(
+        rows_all - bh0 < a.ws_rows ? rows_all - bh0 : a.ws_rows);
+    const unsigned int pairs =
+        static_cast<unsigned int>(static_cast<long long>(rows) * tiles * tiles);
+    if constexpr (kF32) {
+      flash_fwd_scores_f32_kernel<<<pairs, kScoreThreads, smem_scores,
+                                    a.stream>>>(
+          static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+          a.scores, a.heads, a.seq_len, a.kdim, tiles,
+          static_cast<int>(bh0), a.sq, a.sk);
+    } else {
+      flash_fwd_scores_bf16_kernel<<<pairs, kScoreThreads, smem_scores,
+                                     a.stream>>>(tq, tk, a.scores, a.heads,
+                                                 a.kdim, tiles,
+                                                 static_cast<int>(bh0));
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    window_kernel<<<dim3(static_cast<unsigned int>(rows) * tiles, windows),
+                    kThreads * kHalves<T>, windowed_smem_bytes<T>(),
+                    a.stream>>>(
+        a.scores, static_cast<const T*>(a.v), static_cast<O*>(a.o), a.state,
+        a.heads, a.seq_len, a.kdim, tiles, static_cast<int>(bh0), a.sv, a.so,
+        a.drop);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // The instance of head dim K: fp32 48 (K <= 48) or 64 (K <= 64), and the
@@ -462,15 +613,19 @@ extern "C" {
 // or a contiguous fp32 (batch, heads, seq_len) array; m_in, l_in, acc_in
 // and m_out, l_out: nullptr, or a ring attention block's online-softmax
 // state to resume from and to hand on (RowState; acc_in has the output's
-// strides), each needing an fp32 output. seed: with dropout, the device
-// address of the uint32 seed. Runs on args->device and restores the
-// caller's device. Returns cudaGetLastError() after the launch (0 on
+// strides), each needing an fp32 output. workspace: on the windowed route
+// (past kReachF32 / kReachBf16) an fp32 (args->ws_rows, np, np) array, np
+// = 64 * ceil(seq_len / 64), which the route fills with S a slab of
+// ws_rows batch*head rows at a time; else unused. seed: with dropout, the
+// device address of the uint32 seed. Runs on args->device and restores
+// the caller's device. Returns cudaGetLastError() after the launches (0 on
 // success).
 int vtd_flash_attention_fwd(const FlashFwdArgs* args, const void* q,
                             const void* k, const void* v, void* o,
                             void* lse, const void* m_in, const void* l_in,
                             const void* acc_in, void* m_out, void* l_out,
-                            const unsigned int* seed, void* stream) {
+                            void* workspace, const unsigned int* seed,
+                            void* stream) {
   const FlashFwdArgs& p = *args;
   if (p.batch <= 0 || p.heads <= 0 || p.seq_len <= 0 || p.head_dim <= 0) {
     return cudaErrorInvalidValue;
@@ -491,7 +646,8 @@ int vtd_flash_attention_fwd(const FlashFwdArgs* args, const void* q,
                  strides_of<Strides>(p.strides, 1),
                  strides_of<Strides>(p.strides, 2),
                  strides_of<Strides>(p.strides, 3), dropout_of(p, seed),
-                 static_cast<cudaStream_t>(stream)};
+                 static_cast<cudaStream_t>(stream),
+                 static_cast<float*>(workspace), p.ws_rows};
   const DeviceScope scope(p.device);
   if (scope.error() != cudaSuccess) return scope.error();
   const bool dropout = p.dropout != 0;

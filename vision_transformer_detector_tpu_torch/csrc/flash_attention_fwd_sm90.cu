@@ -374,7 +374,7 @@ extern "C" {
 // bf16 (dtype 1) at head_dim K <= 256 with K % 8 == 0: out_fp32 1 writes
 // the output in fp32 (a ring attention block), 0 in bf16. The instance is
 // 64 for K <= 64, 128 for K <= 128, else 256; TMA zero-fills the columns
-// past K. Returns
+// past K; the workspace, the windowed route's, is not read. Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for what
 // this kernel does not take (and when a tensor map cannot be encoded).
 int vtd_flash_attention_fwd_sm90(const FlashFwdArgs* args, const void* q,
@@ -382,6 +382,7 @@ int vtd_flash_attention_fwd_sm90(const FlashFwdArgs* args, const void* q,
                                  void* lse, const void* m_in,
                                  const void* l_in, const void* acc_in,
                                  void* m_out, void* l_out,
+                                 void* /*workspace*/,
                                  const unsigned int* seed, void* stream) {
   const FlashFwdArgs& p = *args;
   if (p.dtype != 1 || p.batch <= 0 || p.heads <= 0 || p.seq_len <= 0 ||

@@ -938,7 +938,8 @@ extern "C" {
 // The arguments of flash_attention_fwd.cu's vtd_flash_attention_fwd, for
 // fp32 (dtype 0) at 64 < K <= 3072 with K % 4 == 0, or bf16 (dtype 1) at
 // 256 < K <= 4096 with K % 8 == 0 (out_fp32 1 writes a bf16 call's output
-// in fp32: a ring attention block). Returns cudaGetLastError() after the
+// in fp32: a ring attention block); the workspace, the windowed route's,
+// is not read. Returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for what this kernel does not take (and
 // when a tensor map cannot be encoded).
 int vtd_flash_attention_fwd_wide(const FlashFwdArgs* args, const void* q,
@@ -946,6 +947,7 @@ int vtd_flash_attention_fwd_wide(const FlashFwdArgs* args, const void* q,
                                  void* lse, const void* m_in,
                                  const void* l_in, const void* acc_in,
                                  void* m_out, void* l_out,
+                                 void* /*workspace*/,
                                  const unsigned int* seed, void* stream) {
   const FlashFwdArgs& p = *args;
   if (!takes(p)) return cudaErrorInvalidValue;

@@ -21,7 +21,7 @@ namespace {
 
 constexpr int kBlock = 64;            // keys per CTA and queries per tile
 constexpr int kThreads = 128;         // 4 warps of 16 keys
-constexpr int kChunk = 64;            // the wide route's chunk and window
+constexpr int kChunk = 64;            // the windowed route's output window
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
@@ -216,7 +216,9 @@ struct Launch {
   Strides sq, sk, sv, sg, sdq, sdk, sdv;
   Dropout drop;
   cudaStream_t stream;
-  int dq_bf16;   // dq written in bf16 (the wide source's bf16 clusters)
+  int dq_bf16;   // dq written in bf16 (the wide source's bf16 routes)
+  void* scores;  // the windowed route's workspace, ws_rows rows of P, dS
+  int ws_rows;
 };
 
 // Launches kernel over (batch * heads * tiles, windows) blocks of kThreads
@@ -262,11 +264,14 @@ extern "C" {
 // (q, k, v, g, and dk, dv unless dkv_fp32, which writes them in fp32: a
 // ring attention block's dk and dv join fp32 sums unrounded); dq is fp32
 // (dq_bf16 1 writes it in bf16, which only flash_attention_bwd_wide.cu's
-// bf16 cluster route takes), every element written by the kernels; lse and
-// delta are contiguous fp32 (batch, heads, seq_len). dq_partials: null
-// for the split route, or, in fp32 only, a (tiles, batch * heads,
-// seq_len, head_dim) fp32 workspace for the partials route, tiles =
-// ceil(seq_len / 64); dq's rows must then be 16-byte aligned too.
+// bf16 routes take), every element written by the kernels; lse and
+// delta are contiguous fp32 (batch, heads, seq_len). workspace: with
+// args->ws_rows > 0 (flash_attention_bwd_wide.cu's windowed route) the
+// scores workspace, (ws_rows, 2, np, np) in the input type with np = 64 *
+// ceil(seq_len / 64); else null for the split route, or, in fp32 only, a
+// (tiles, batch * heads, seq_len, head_dim) fp32 workspace for the
+// partials route, tiles = ceil(seq_len / 64); dq's rows must then be
+// 16-byte aligned too.
 // head_dim: the caller's K, with K * the element size a multiple of 16
 // bytes; the head dim must be contiguous and every row 16-byte aligned.
 // seed: with dropout, the device address of the forward's uint32 seed;
@@ -276,7 +281,7 @@ extern "C" {
 int vtd_flash_attention_bwd(const FlashBwdArgs* args, const void* q,
                             const void* k, const void* v, const void* g,
                             const void* lse, const void* delta, void* dq,
-                            void* dk, void* dv, void* dq_partials,
+                            void* dk, void* dv, void* workspace,
                             const unsigned int* seed, void* stream) {
   const FlashBwdArgs& p = *args;
   if (p.batch <= 0 || p.heads <= 0 || p.seq_len <= 0 || p.head_dim <= 0) {
@@ -284,12 +289,14 @@ int vtd_flash_attention_bwd(const FlashBwdArgs* args, const void* q,
   }
   if (p.dropout != 0 && seed == nullptr) return cudaErrorInvalidValue;
   if (p.inner_local == 0) return cudaErrorInvalidValue;
-  if (dq_partials != nullptr && p.head_dim % 4 != 0) {
+  const bool scores = p.ws_rows > 0;
+  void* partials = scores ? nullptr : workspace;
+  if (partials != nullptr && p.head_dim % 4 != 0) {
     return cudaErrorInvalidValue;
   }
   const Launch a{q, k, v, g, static_cast<const float*>(lse),
                  static_cast<const float*>(delta), static_cast<float*>(dq),
-                 dk, dv, static_cast<float*>(dq_partials), p.batch, p.heads,
+                 dk, dv, static_cast<float*>(partials), p.batch, p.heads,
                  p.seq_len, p.head_dim, strides_of<Strides>(p.strides, 0),
                  strides_of<Strides>(p.strides, 1),
                  strides_of<Strides>(p.strides, 2),
@@ -298,7 +305,8 @@ int vtd_flash_attention_bwd(const FlashBwdArgs* args, const void* q,
                  strides_of<Strides>(p.strides, 5),
                  strides_of<Strides>(p.strides, 6), dropout_of(p, seed),
                  static_cast<cudaStream_t>(stream),
-                 p.dq_bf16 != 0 ? 1 : 0};
+                 p.dq_bf16 != 0 ? 1 : 0, scores ? workspace : nullptr,
+                 p.ws_rows};
   const DeviceScope scope(p.device);
   if (scope.error() != cudaSuccess) return scope.error();
   const bool dropout = p.dropout != 0;
@@ -306,7 +314,7 @@ int vtd_flash_attention_bwd(const FlashBwdArgs* args, const void* q,
   if (p.dtype == 0) {
     err = launch<float, float>(dropout, a);
   } else if (p.dtype == 1 && p.dkv_fp32 != 0) {
-    if (dq_partials != nullptr) return cudaErrorInvalidValue;
+    if (partials != nullptr) return cudaErrorInvalidValue;
     err = launch<__nv_bfloat16, float>(dropout, a);
   } else if (p.dtype == 1) {
     err = launch<__nv_bfloat16, __nv_bfloat16>(dropout, a);

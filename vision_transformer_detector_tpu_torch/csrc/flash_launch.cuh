@@ -1,7 +1,7 @@
 // The launch arguments of the flash-attention C entry points, shared by the
-// five flash sources (flash_attention_fwd.cu, flash_attention_fwd_sm90.cu,
-// flash_attention_bwd.cu, flash_attention_bwd_wide.cu,
-// flash_attention_bwd_sm90.cu).
+// six flash sources (flash_attention_fwd.cu, flash_attention_fwd_sm90.cu,
+// flash_attention_fwd_wide.cu, flash_attention_bwd.cu,
+// flash_attention_bwd_wide.cu, flash_attention_bwd_sm90.cu).
 //
 // An entry point takes the call's device addresses and stream as arguments
 // and everything else as one block, FlashFwdArgs or FlashBwdArgs: the
@@ -27,6 +27,9 @@ extern "C" {
 // dropout: 0, or 1 with the keep threshold (keep iff hash < threshold),
 // inv_keep = 1 / (1 - rate) in fp32 and the mask's global coordinates
 // (dropout_mask.cuh).
+// ws_rows: the batch*head rows of the windowed routes' scores workspace
+// (flash_scores.cuh), which they fill and read a slab of ws_rows rows at a
+// time (kernels/flash_attention.py: scores_workspace); 0 elsewhere.
 struct FlashFwdArgs {
   int device;
   int dtype;
@@ -38,10 +41,11 @@ struct FlashFwdArgs {
   float inv_keep;
   unsigned int bh_base, q_base, k_base;
   unsigned int inner_local, inner_global, inner_base;
+  int ws_rows;
 };
 
-// dq_bf16: 1 writes dq in bf16 (the wgmma route only: its dq kernel rounds
-// the fp32 sum once, to nearest even), 0 in fp32.
+// dq_bf16: 1 writes dq in bf16 (the dq kernels of the wgmma, cluster and
+// windowed routes round the fp32 sum once, to nearest even), 0 in fp32.
 struct FlashBwdArgs {
   int device;
   int dtype;
@@ -54,6 +58,7 @@ struct FlashBwdArgs {
   float inv_keep;
   unsigned int bh_base, q_base, k_base;
   unsigned int inner_local, inner_global, inner_base;
+  int ws_rows;
 };
 
 }  // extern "C"

@@ -44,8 +44,10 @@ bf16 (wgmma fed by TMA), at most 8, each owning a share of dk's, dv's and
 dq's columns, the partial S and dP summed across the cluster once a step
 (``backward_cluster_size``). Past the clusters' reach (the forward past
 fp32 3072 and bf16 4096, the backward past 1024 and 2048) the windowed
-routes form the scores over K in 64-column chunks and write the outputs
-in column windows. They read
+routes form each (query tile, key tile) pair's S (and in the backward dP)
+over the whole of K once, in a scores kernel (fp32 mma.sync 3xTF32, bf16
+wgmma fed by TMA), park it in a device workspace (``scores_workspace``)
+and write the outputs in column windows that read it back. They read
 q, k, v (and the
 cotangent) at their own K: the loads zero-fill the columns past K and the
 stores stop at K. Rows must start on 16-byte boundaries; a K whose rows
@@ -66,8 +68,8 @@ fp32 stores each key tile's contribution and adds them in a second
 kernel; bf16 runs a dq kernel after the dk/dv kernel, which at K <= 256 with dropout also
 writes the keep bits it drew, packed (``pack_keep_bits``), for the dq
 kernel to read instead of hashing each score again; the bf16 dq kernels
-at K <= 256 and of the cluster route round dq to bf16 themselves: no cast
-follows). Calls that need no grad
+of every route round dq to bf16 themselves: no cast follows). Calls that
+need no grad
 (serving, ``torch.inference_mode``) launch the forward alone, without the
 logsumexp.
 
@@ -126,7 +128,7 @@ BWD_SM90_SOURCE = "flash_attention_bwd_sm90.cu"     # bf16 B2 at K <= 256
 _HEAD_DIMS = (48, 64, 128)   # the mma.sync instances' widths up to K = 128
 _WGMMA_DIMS = (64, 128, 256)   # the wgmma kernels' (bf16, K <= 256)
 KEEP_WORD_KEYS = 32          # keys per word of the packed keep bits
-CHUNK = 64                   # the mma.sync wide route's S chunk (columns)
+CHUNK = 64                   # a padded wide K's unit (columns)
 FWD_WINDOW = 128             # the windowed forward's output window
 # The widest K one CTA of the wide forward (csrc/flash_attention_fwd_wide.cu)
 # holds in each dtype; past it a cluster of ceil(K / WIDE_FWD_MAX) CTAs, up
@@ -150,7 +152,9 @@ KEY_TILE = 64           # keys per tile of the backward kernels
 # the request that holds the C entry point to each (None: by dtype):
 # "split", a dq kernel per query tile after the dk/dv kernel, which
 # recomputes S and dP; "partials" (fp32 only), the dk/dv kernel stores
-# each key tile's dq contribution and a sum kernel adds them.
+# each key tile's dq contribution and a sum kernel adds them. On the
+# windowed route both take its one dq kernel, which reads dS from the
+# scores workspace and sums the key tiles in order.
 DQ_ROUTES = {None: 0, "split": 1, "partials": 2}
 # The largest workspace the partials route takes unasked: tiles times dq's
 # bytes (334 MB for reference_608 at batch 8); past it fp32 takes "split".
@@ -527,12 +531,14 @@ def _check_inputs(*tensors) -> None:
 class HeadDimPlan(NamedTuple):
     """How a call of head dim K and dtype runs: ``instance`` is the width
     of the mma.sync instance (48, 64, 128) or "wide" (K > 128); ``chunks``
-    the 64-column passes that form S (and dP) over K on the backward's
-    windowed route, 1 elsewhere (an instance that holds K whole, or the
-    cluster route, which forms S once a tile over the cluster); ``windows``
-    the forward's output column windows, a grid axis of CTAs that recompute
-    S for their own columns (only on the "windowed" forward, else 1) and
-    ``grad_windows`` the backward's (dq, dk, dv) on its windowed route;
+    how many times a call forms one (query tile, key tile) pair's S (and
+    dP), 1 on every route: an instance that holds K whole, the clusters,
+    which form S once a tile over the cluster, and the windowed routes,
+    whose scores kernels park S in a workspace; ``windows`` the forward's
+    output column windows, a grid axis of CTAs that read S back from the
+    workspace for their own columns (only on the "windowed" forward, else
+    1), and ``grad_windows`` the backward's (dq, dk, dv) on its windowed
+    route;
     ``forward`` and ``backward`` the kernels that run
     (``forward_kernel``, ``backward_kernel``); ``cluster`` the CTAs of one
     thread-block cluster of the forward (``cluster_size``: past 1 only on
@@ -554,11 +560,11 @@ def head_dim_plan(kdim: int,
     kernels take any K) in ``dtype``: K <= 48 the 48 instance, K <= 64 the
     64, K <= 128 the 128 (in fp32 the column halves, forward and
     backward); past that "wide": the backward in one window, a cluster of
-    ``backward_cluster_size`` CTAs, to BWD_CLUSTER_REACH, past it S over
-    ceil(K / 64) chunks and outputs in windows of BWD_WINDOW columns; and
-    one forward window (a cluster of ``cluster_size`` CTAs past
-    WIDE_FWD_MAX) but on the windowed forward (fp32 past 3072, bf16 past
-    4096), whose windows are FWD_WINDOW columns."""
+    ``backward_cluster_size`` CTAs, to BWD_CLUSTER_REACH, past it S and dP
+    formed once a tile pair and the outputs in windows of BWD_WINDOW
+    columns; and one forward window (a cluster of ``cluster_size`` CTAs
+    past WIDE_FWD_MAX) but on the windowed forward (fp32 past 3072, bf16
+    past 4096), whose windows are FWD_WINDOW columns."""
     if kdim < 1:
         raise ValueError(f"head dim {kdim} < 1")
     forward = forward_kernel(kdim, dtype)
@@ -567,8 +573,8 @@ def head_dim_plan(kdim: int,
         if kdim <= width:
             return HeadDimPlan(width, 1, 1, 1, forward, backward)
     windows = -(-kdim // FWD_WINDOW) if forward == "windowed" else 1
-    passes = -(-kdim // CHUNK) if backward == "windowed" else 1
-    return HeadDimPlan("wide", passes, windows, passes, forward, backward,
+    grad_windows = -(-kdim // BWD_WINDOW) if backward == "windowed" else 1
+    return HeadDimPlan("wide", 1, windows, grad_windows, forward, backward,
                        cluster_size(kdim, dtype),
                        backward_cluster_size(kdim, dtype))
 
@@ -594,8 +600,9 @@ def forward_kernel(kdim: int, dtype: torch.dtype) -> str:
     "cluster" (past those, to FWD_CLUSTER_REACH: a thread-block cluster
     of ``cluster_size`` CTAs, each holding a share of the columns); or
     "windowed" (wider still: the windowed route of
-    csrc/flash_attention_fwd.cu, S again in each 128-column window of
-    O)."""
+    csrc/flash_attention_fwd.cu, a scores kernel that forms each tile
+    pair's S once into a workspace, then a window kernel per 128-column
+    window of O that reads it back)."""
     if dtype == torch.bfloat16 and kdim <= _WGMMA_DIMS[-1]:
         return "wgmma"
     if dtype == torch.float32 and kdim <= _HEAD_DIMS[1]:
@@ -625,7 +632,9 @@ def backward_kernel(kdim: int, dtype: torch.dtype) -> str:
     past 256, to BWD_CLUSTER_REACH: a thread-block cluster of
     ``backward_cluster_size`` CTAs, each owning a share of the columns, S
     and dP formed once a tile over the cluster) or "windowed" (wider
-    still: S again in each 64-column window of the outputs)."""
+    still: a scores kernel that forms each tile pair's S and dP once and
+    parks P and dS in a workspace, then a dk/dv kernel and a dq kernel per
+    64-column window of the outputs that read them back)."""
     if dtype == torch.bfloat16 and kdim <= _WGMMA_DIMS[-1]:
         return "wgmma"
     if kdim <= _HEAD_DIMS[-1]:
@@ -753,6 +762,32 @@ def _launch_forward(q, k, v, layout: str, with_lse: bool = False,
     return (out, lse) if with_lse else out
 
 
+def scores_workspace(b: int, h: int, n: int, kdim: int, dtype: torch.dtype,
+                     backward: bool):
+    """The windowed routes' scores workspace for (b, h, n) rows of head dim
+    ``kdim``: ``(shape, dtype)``. The forward's holds S in fp32, ``(rows,
+    np, np)``; the backward's scale P and dS in ``dtype``, ``(rows, 2, np,
+    np)``; np = 64 * ceil(n / 64). ``rows`` is one slab's batch*head rows:
+    as many as the larger of q's own bytes and one row's need holds, at
+    most b * h, so one launch's workspace never passes that; the route runs
+    ``scores_slabs`` slabs in turn."""
+    np_ = -(-n // KEY_TILE) * KEY_TILE
+    item = torch.empty((), dtype=dtype).element_size()
+    per_row = np_ * np_ * (2 * item if backward else 4)
+    rows = min(b * h, max(b * h * n * kdim * item, per_row) // per_row)
+    if backward:
+        return (rows, 2, np_, np_), dtype
+    return (rows, np_, np_), torch.float32
+
+
+def scores_slabs(b: int, h: int, n: int, kdim: int, dtype: torch.dtype,
+                 backward: bool) -> int:
+    """How many slabs of ``scores_workspace``'s rows a windowed call of
+    (b, h, n) rows runs in turn."""
+    rows = scores_workspace(b, h, n, kdim, dtype, backward)[0][0]
+    return -(-(b * h) // rows)
+
+
 def partials_bytes(b: int, h: int, n: int, d: int) -> int:
     """Bytes of the partials route's fp32 workspace for (b, h, n) rows of
     head dim d: one dq per key tile."""
@@ -784,8 +819,7 @@ def _launch_backward(q, k, v, g, lse, delta, layout: str, dropout=None,
     """dq, dk, dv from the backward kernels, through
     ``torch.ops.vtd_torch.flash_attention_bwd`` (kernels/ops.py). lse and
     delta are (B, H, N) fp32; dq accumulates in fp32 and comes out in q's
-    dtype (the bf16 dq kernels of the wgmma and cluster routes round it
-    themselves; the other routes' operator casts it), dk and dv in the
+    dtype (the bf16 dq kernels round it themselves), dk and dv in the
     input dtype.
     ``dropout`` is the forward's ``(seed, rate)``, whose mask the kernel
     replays, reading the seed from device memory, placed by ``offsets``.

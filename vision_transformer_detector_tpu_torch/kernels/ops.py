@@ -69,8 +69,12 @@ _SOURCES = {
 _ENTRIES = {"ln": "vtd_layer_norm", "ffn": "vtd_dense_mish",
             "int8": "vtd_int8_dense", "drop": "vtd_dropout"}
 # The pointer arguments of each entry point: its argument block, the
-# call's device addresses and the stream.
-_POINTERS = {"ln": 6, "ffn": 6, "int8": 8, "drop": 5}
+# call's device addresses and the stream. The flash forwards: the block,
+# eleven device addresses (the last the windowed route's workspace), the
+# dropout seed's and the stream; the backwards: the block, ten, the seed's
+# and the stream.
+_POINTERS = {"ln": 6, "ffn": 6, "int8": 8, "drop": 5, "fwd": 14,
+             "fwd_sm90": 14, "fwd_wide": 14}
 # The libraries whose plans ask their source which instance runs.
 _QUERIED = ("ffn", "int8")
 # The flash libraries' occupancy queries of their cluster routes, and what
@@ -95,8 +99,6 @@ def _library(kind: str) -> ctypes.CDLL:
     device addresses and the stream)."""
     lib = _build.load_library(_SOURCES[kind])
     fn = getattr(lib, _entry(kind))
-    # The flash entry points: the block, ten device addresses, the dropout
-    # seed's and the stream.
     fn.argtypes = [ctypes.c_void_p] * _POINTERS.get(kind, 13)
     fn.restype = ctypes.c_int
     if kind in _CLUSTER_QUERIES:
@@ -181,7 +183,7 @@ class FwdArgs(ctypes.Structure):
     _fields_ = [(name, _i32) for name in (
         "device", "dtype", "out_fp32", "batch", "heads", "seq_len",
         "head_dim", "dropout")] + [("strides", ctypes.c_longlong * 12)] \
-        + _MASK_FIELDS
+        + _MASK_FIELDS + [("ws_rows", _i32)]
 
 
 class BwdArgs(ctypes.Structure):
@@ -189,7 +191,8 @@ class BwdArgs(ctypes.Structure):
     _fields_ = [(name, _i32) for name in (
         "device", "dtype", "dkv_fp32", "dq_bf16", "batch", "heads",
         "seq_len", "head_dim", "dropout")] \
-        + [("strides", ctypes.c_longlong * 21)] + _MASK_FIELDS
+        + [("strides", ctypes.c_longlong * 21)] + _MASK_FIELDS \
+        + [("ws_rows", _i32)]
 
 
 class LaunchPlan(NamedTuple):
@@ -197,9 +200,10 @@ class LaunchPlan(NamedTuple):
     ``backward_plan``): the library (a ``_SOURCES`` key) and the kernel's
     name, the scalar block and its address, the device, the outputs'
     ``(shape, stride, dtype)``, the workspace's ``(shape, dtype)`` or
-    None, the launch counters it adds one to, whether it reads a dropout
-    seed, and for the backward whether the operator casts dq to q's dtype
-    after the launch; the CTAs of one thread-block cluster
+    None (the windowed routes' scores workspace, the backward's partials
+    or keep bits), the launch counters it adds one to, whether it reads a
+    dropout seed, and for the backward whether the operator casts dq to
+    q's dtype after the launch; the CTAs of one thread-block cluster
     (``flash_attention.cluster_size`` for the forward,
     ``backward_cluster_size`` for the backward; 1 off the cluster routes).
     ``fn``
@@ -316,8 +320,10 @@ def forward_plan(q, k, v, layout: str, with_lse: bool, dropout_seed,
                  acc_in, m_in, l_in, suspend: bool) -> LaunchPlan:
     """The forward's launch plan for these operands and arguments: every
     check of the operator (ValueError for what the kernels cannot take),
-    the kernel (``flash_attention.forward_kernel``), the outputs and the
-    scalar block. Builds nothing and needs no card."""
+    the kernel (``flash_attention.forward_kernel``), the outputs, the
+    windowed route's scores workspace (``flash_attention.
+    scores_workspace``) and the scalar block. Builds nothing and needs no
+    card."""
     fa = flash_attention
     fa._check_inputs(q, k, v)
     fa._kernel_operands(layout, q=q, k=k, v=v)
@@ -346,6 +352,11 @@ def forward_plan(q, k, v, layout: str, with_lse: bool, dropout_seed,
                    head_dim=q.shape[-1])
     args.strides[:] = _strides(layout, q, k, v, out)
     _mask_args(args, dropout, coords)
+    workspace = None
+    if kernel == "windowed":
+        workspace = fa.scores_workspace(b, h, n, q.shape[-1], q.dtype,
+                                        backward=False)
+        args.ws_rows = workspace[0][0]
     # The empty outputs' size as an int: the cheaper argument to parse.
     outputs = ((tuple(out.shape), out.stride(), out.dtype),
                (b, h, n) if with_lse and not suspend else 0,
@@ -362,7 +373,7 @@ def forward_plan(q, k, v, layout: str, with_lse: bool, dropout_seed,
             "cluster": "fwd_wide", "mma_sync": "fwd",
             "windowed": "fwd"}[kernel]
     return LaunchPlan(kind, kernel, args, ctypes.addressof(args), q.device,
-                      outputs, None, counts, dropout is not None,
+                      outputs, workspace, counts, dropout is not None,
                       cluster=fa.cluster_size(q.shape[-1], q.dtype))
 
 
@@ -388,7 +399,8 @@ def _flash_fwd_cuda(q, k, v, layout, with_lse, dropout_seed, dropout_rate,
     csrc/flash_attention_fwd_sm90.cu (wgmma fed by TMA), fp32 at 64 < K
     <= 3072 and bf16 at 256 < K <= 4096 csrc/flash_attention_fwd_wide.cu
     (in thread-block clusters past 384 and 512), the rest
-    csrc/flash_attention_fwd.cu (mma.sync)."""
+    csrc/flash_attention_fwd.cu (mma.sync; past those widths its windowed
+    route, which takes a scores workspace from the caching allocator)."""
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     coords = (bh_base, q_base, k_base, inner_local, inner_global, inner_base)
     key = (layout, with_lse, dropout_rate, coords, out_fp32, suspend,
@@ -410,6 +422,8 @@ def _flash_fwd_cuda(q, k, v, layout, with_lse, dropout_seed, dropout_rate,
     lse = q.new_empty(lse_shape, dtype=_F32)
     m_out = q.new_empty(m_shape, dtype=_F32)
     l_out = q.new_empty(l_shape, dtype=_F32)
+    workspace = (None if plan.workspace is None
+                 else q.new_empty(plan.workspace[0], dtype=plan.workspace[1]))
     resume = m_in is not None
     err = plan.fn(plan.args_ptr, qp, kp, vp, out.data_ptr(),
                   lse.data_ptr() if with_lse and not suspend else None,
@@ -418,6 +432,7 @@ def _flash_fwd_cuda(q, k, v, layout, with_lse, dropout_seed, dropout_rate,
                   acc_in.data_ptr() if resume else None,
                   m_out.data_ptr() if suspend else None,
                   l_out.data_ptr() if suspend else None,
+                  None if workspace is None else workspace.data_ptr(),
                   dropout_seed.data_ptr() if plan.dropout else None,
                   plan.stream(plan.device.index))
     if err:
@@ -443,11 +458,12 @@ def backward_plan(q, k, v, g, lse, delta, layout: str, dropout_seed,
                   dkv_fp32: bool, dq_fp32: bool) -> LaunchPlan:
     """The backward's launch plan: every check of the operator, the
     kernels (``flash_attention.backward_kernel``), the dq route, the
-    outputs, the workspace and the scalar block. dq comes out in fp32
-    with ``dq_fp32``, else in q's dtype: the bf16 dq kernels of the wgmma
-    and cluster routes round it themselves, the other routes' fp32 dq is
-    cast after the launch. The cluster route's plan records its cluster
-    size (``flash_attention.backward_cluster_size``)."""
+    outputs, the workspace (the windowed route's scores, the partials
+    route's dq contributions or the wgmma route's keep bits) and the
+    scalar block. dq comes out in fp32 with ``dq_fp32``, else in q's
+    dtype: the bf16 dq kernels of every route round it themselves. The
+    cluster route's plan records its cluster size
+    (``flash_attention.backward_cluster_size``)."""
     fa = flash_attention
     fa._check_inputs(q, k, v, g)
     fa._kernel_operands(layout, q=q, k=k, v=v, g=g)
@@ -457,14 +473,18 @@ def backward_plan(q, k, v, g, lse, delta, layout: str, dropout_seed,
     kdim = q.shape[-1]
     kernel = fa.backward_kernel(kdim, q.dtype)
     workspace = None
-    if fa.dq_route(q.dtype, request, fa.partials_bytes(
-            b, h, n, kdim)) == "partials":
+    route = fa.dq_route(q.dtype, request, fa.partials_bytes(b, h, n, kdim))
+    if kernel == "windowed":
+        # Either dq route: the windowed dq kernel reads dS from here.
+        workspace = fa.scores_workspace(b, h, n, kdim, q.dtype,
+                                        backward=True)
+    elif route == "partials":
         workspace = ((-(-n // fa.KEY_TILE), b * h, n, kdim), _F32)
     elif kernel == "wgmma" and dropout is not None:
         # The tenth pointer: the packed keep bits (wgmma, dropout).
         workspace = (fa.keep_bits_shape(b, h, n), torch.int32)
     dq_bf16 = (not dq_fp32 and q.dtype == torch.bfloat16
-               and kernel in ("wgmma", "cluster"))
+               and kernel in ("wgmma", "cluster", "windowed"))
     dq = torch.empty(q.shape, dtype=q.dtype if dq_bf16 else _F32,
                      device="meta")
     dk, dv = (_like(t, _F32 if dkv_fp32 else t.dtype) for t in (k, v))
@@ -473,6 +493,8 @@ def backward_plan(q, k, v, g, lse, delta, layout: str, dropout_seed,
                    heads=h, seq_len=n, head_dim=kdim)
     args.strides[:] = _strides(layout, q, k, v, g, dq, dk, dv)
     _mask_args(args, dropout, coords)
+    if kernel == "windowed":
+        args.ws_rows = workspace[0][0]
     outputs = tuple((tuple(t.shape), t.stride(), t.dtype)
                     for t in (dq, dk, dv))
     halves = kernel == "mma_sync" and kdim > 64
@@ -547,13 +569,12 @@ def _flash_bwd_cuda(q, k, v, g, lse, delta, layout, dropout_seed,
     csrc/flash_attention_bwd_sm90.cu on wgmma, fp32 at K <= 128
     csrc/flash_attention_bwd.cu, the rest csrc/flash_attention_bwd_wide.cu:
     a thread-block cluster to fp32 K 1024 and bf16 2048, the windowed
-    route past that),
+    route past that, with a scores workspace from the caching allocator),
     K any width whose rows are 16-byte aligned; lse and delta are contiguous
     ``(B, H, N)`` fp32; dq is summed in fp32 over the key tiles in order
     and written once, so it is the same on every run: in fp32 with
-    ``dq_fp32`` (the default), else in q's dtype (the bf16 dq kernels of
-    the wgmma and cluster routes round the sum themselves; the other
-    routes' is cast). A nonzero
+    ``dq_fp32`` (the default), else in q's dtype (the bf16 dq kernels
+    round the sum themselves). A nonzero
     ``dropout_rate`` replays the forward's mask, its seed read from
     ``dropout_seed``'s device memory and placed by ``bh_base``/``q_base``/
     ``k_base`` and the row map as in the forward. ``request`` is one of
